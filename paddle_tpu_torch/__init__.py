@@ -1,0 +1,32 @@
+"""paddle_tpu_torch — the PyTorch / CUDA port of paddle_tpu.
+
+The same fluid-style surface as `paddle_tpu` (Program IR, `layers`,
+Executor, the continuous-batching serving engine), with torch as the
+compute substrate: op lowerings are plain torch functions run eagerly, and
+each kernel the JAX package wrote in Pallas for the TPU is a CUDA kernel
+written by hand for Hopper (csrc/). Entry points run on CUDAPlace(0) unless
+the caller passes CPUPlace(). This package imports neither jax nor
+paddle_tpu.
+
+This slice ports the serving path: `ContinuousBatchingEngine` over
+`transformer_lm_decode_tick` with the fused decode-attention kernel.
+ROADMAP.md lists what is still to be ported.
+"""
+
+from . import initializer, layers  # noqa: F401
+from .core import (CPUPlace, CUDAPlace, Place, default_place,  # noqa: F401
+                   is_compiled_with_cuda)
+from .core import flags, unique_name  # noqa: F401
+from .framework.executor import Executor  # noqa: F401
+from .framework.passes import get_pass, register_pass  # noqa: F401
+from .framework.program import (Program, Variable,  # noqa: F401
+                                default_main_program, default_startup_program,
+                                program_guard, reset_default_programs)
+from .framework.registry import registered_ops  # noqa: F401
+from .framework.scope import Scope, global_scope, reset_global_scope  # noqa: F401
+from .param_attr import ParamAttr  # noqa: F401
+from . import io, models, serving  # noqa: F401,E402
+from .io import load_numpy_params  # noqa: F401,E402
+from .serving import ContinuousBatchingEngine  # noqa: F401,E402
+
+__version__ = "0.1.0"

@@ -1,0 +1,96 @@
+"""Global typed flag registry.
+
+≙ paddle_tpu/core/flags.py, trimmed to the flags the serving slice reads.
+Flags are typed, documented, and can be set from the environment with the
+``PTPU_`` prefix, e.g. ``PTPU_CHECK_NAN_INF=1``.
+
+No flag here routes CUDA tensors away from a kernel: a kernel wrapper takes
+its plain PyTorch version only for tensors that lie on the CPU, and an
+executor on a CUDA device raises when `fuse_decode_attention` is off and its
+program holds a decode-attention chain (framework/passes.py
+`apply_fusion_passes`). That flag is for comparing the fused and unfused
+programs on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+from .enforce import AlreadyExistsError, NotFoundError
+
+
+@dataclass
+class _FlagSpec:
+    name: str
+    default: Any
+    parser: Callable[[str], Any]
+    help: str
+    value: Any
+
+
+_REGISTRY: Dict[str, _FlagSpec] = {}
+
+_ENV_PREFIX = "PTPU_"
+
+
+def _parse_bool(s: str) -> bool:
+    return s.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _define(name: str, default: Any, parser, help: str) -> None:
+    if name in _REGISTRY:
+        raise AlreadyExistsError(f"flag {name!r} already defined")
+    value = default
+    env = os.environ.get(_ENV_PREFIX + name.upper())
+    if env is not None:
+        value = parser(env)
+    _REGISTRY[name] = _FlagSpec(name, default, parser, help, value)
+
+
+def define_bool(name: str, default: bool, help: str = "") -> None:
+    _define(name, default, _parse_bool, help)
+
+
+def define_int(name: str, default: int, help: str = "") -> None:
+    _define(name, default, int, help)
+
+
+def get_flag(name: str) -> Any:
+    spec = _REGISTRY.get(name)
+    if spec is None:
+        raise NotFoundError(f"unknown flag {name!r}")
+    return spec.value
+
+
+def set_flag(name: str, value: Any) -> None:
+    spec = _REGISTRY.get(name)
+    if spec is None:
+        raise NotFoundError(f"unknown flag {name!r}")
+    spec.value = value
+
+
+def vlog(level: int, msg: str, *args) -> None:
+    """Verbose logging gated on the `vlog` flag (enable with PTPU_VLOG=N)."""
+    if get_flag("vlog") >= level:
+        import sys
+        print(f"[VLOG{level}] " + (msg % args if args else msg),
+              file=sys.stderr)
+
+
+define_bool("check_nan_inf", False,
+            "Scan every op's floating outputs for NaN/Inf during execution "
+            "and raise naming the op and variable.")
+define_int("vlog", 0, "Verbose logging level.")
+define_bool("use_bf16_matmul", True,
+            "Run the matmuls of layers that opt in (use_bf16=True) on "
+            "bfloat16 inputs with float32 accumulation and a bfloat16 "
+            "output. Off: those matmuls run in float32.")
+define_bool("fuse_decode_attention", True,
+            "Executor-time fuse_decode_attention_pass: rewrite the "
+            "cached-decode QK^T->+bias->softmax->V op chain into one "
+            "fused_decode_attention op per layer "
+            "(paddle_tpu_torch/fusion/decode_attention.py). Off is for the "
+            "CPU only: an executor on a CUDA device raises on a program "
+            "whose decode chain it leaves unfused.")

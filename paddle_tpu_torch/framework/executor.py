@@ -1,0 +1,332 @@
+"""Executor: run programs on a torch device.
+
+≙ paddle_tpu/framework/executor.py. The JAX executor traces the global block
+into one jax function and XLA-compiles it; this one interprets the block
+eagerly, op by op, under `torch.inference_mode()`. What carries over:
+
+- the plan cache keyed by (program version, feed signature, fetch list,
+  scope contents, fusion flags) — the plan is the fused op list;
+- the read-only / read-write / write-only state analysis over persistable
+  variables, and `apply_fusion_passes` on a clone of the program;
+- `Executor.prepare` → `PreparedStep` with `run`, `bind`, `refresh_state`
+  and `run_bound` for the serving engine's tick.
+
+What differs: read-write persistable state (the serving engine's KV caches)
+is updated IN PLACE on the device — an op whose output variable is the one
+it reads writes into that tensor — where the JAX executor donates the
+buffers to XLA and rebinds the scope to the returned arrays. Fetches come
+back as device tensors from `PreparedStep`, as numpy arrays from
+`Executor.run` by default.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..core import flags
+from ..core.enforce import NotFoundError
+from ..core.places import Place, resolve_device
+from .lowering import build_plan, run_plan
+from .program import Program, Variable, default_main_program
+from .registry import LowerCtx
+from .scope import Scope, global_scope
+
+
+def _fusion_flags_key():
+    """Flags read when a plan is built: part of the plan-cache key, so a
+    toggled flag never reuses the other variant's plan."""
+    return (flags.get_flag("fuse_decode_attention"),)
+
+
+def _feed_signature(feed: Dict[str, Any]):
+    return tuple(sorted((k, tuple(np.shape(v)), str(v.dtype)
+                         if hasattr(v, "dtype") else str(np.asarray(v).dtype))
+                        for k, v in feed.items()))
+
+
+def as_numpy(t) -> np.ndarray:
+    """Device tensor → numpy. numpy has no bfloat16, so bfloat16 tensors
+    come back as float32 (exact: every bfloat16 value is a float32)."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def _run_seed(random_seed: int, counter: int) -> int:
+    return (random_seed * 1000003 + counter) % 2147483648
+
+
+class _Plan:
+    """A program fused and fixed for one (feed signature, fetch list,
+    scope contents): the op list plus the state analysis."""
+
+    def __init__(self, ops, ro_names, rw_names, out_only, feed_names,
+                 fetch_names):
+        self.ops = ops
+        self.ro_names = ro_names
+        self.rw_names = rw_names
+        self.feed_names = feed_names
+        self.fetch_names = fetch_names
+        self.state_out_names = sorted(set(rw_names) | set(out_only))
+        self.constants = {}     # LowerCtx.constant memo, per plan
+
+
+class PreparedStep:
+    """Bound (program, feed signature, fetch list, scope) handle with the
+    per-call setup hoisted out: no fetch validation, no feed-signature
+    hashing, no plan lookup. ≙ the JAX package's PreparedStep; here the
+    hot loop is the serving engine's decode tick.
+
+    State contract matches Executor.run: persistable state is read from the
+    scope and written back after each call (read-write state in place); the
+    random seed follows the same (program.random_seed, run counter)
+    stream."""
+
+    __slots__ = ("_plan", "_scope", "_owner", "_random_seed", "_b_feeds",
+                 "_b_ro_vals", "_b_rw_vals", "_b_h2d_done")
+
+    def __init__(self, plan, scope, owner, random_seed):
+        self._plan = plan
+        self._scope = scope
+        self._owner = owner
+        self._random_seed = random_seed
+        self._b_feeds = None            # set by bind()
+        self._b_rw_vals = None
+        self._b_h2d_done = None
+
+    @property
+    def fetch_names(self):
+        return list(self._plan.fetch_names)
+
+    def run(self, feed, return_numpy=False):
+        """feed: dict with EXACTLY the prepared names/shapes/dtypes (not
+        re-validated). Returns the fetch list (device tensors unless
+        return_numpy)."""
+        plan = self._plan
+        owner = self._owner
+        feed_vals = tuple(owner._to_device(feed[n]) for n in plan.feed_names)
+        scope = self._scope
+        ro_vals = tuple(scope.get(n) for n in plan.ro_names)
+        rw_vals = tuple(scope.get(n) for n in plan.rw_names)
+        fetches = owner._execute(plan, feed_vals, ro_vals, rw_vals, scope,
+                                 self._random_seed)
+        if self._b_rw_vals is not None:
+            self.refresh_state()
+        if return_numpy:
+            return [as_numpy(f) for f in fetches]
+        return list(fetches)
+
+    def bind(self, feed):
+        """One-time setup of the bound tick: capture the caller's numpy
+        feed arrays (the serving engine mutates them in place between
+        ticks) with a device tensor for each, and pin the state tensors out
+        of the scope. After bind(), run_bound() copies each feed to the
+        device once — through a pinned host buffer on a CUDA device — and
+        runs the plan.
+
+        Contract: `feed` must hold the EXACT arrays fed forever after
+        (mutate them in place; bind again if they are replaced), and state
+        is pinned at bind time — swap weights in the scope -> bind() again
+        (or refresh_state())."""
+        plan = self._plan
+        device = self._owner.device
+        bound = []
+        for n in plan.feed_names:
+            arr = np.asarray(feed[n])
+            host = torch.from_numpy(arr)            # shares arr's memory
+            dev = torch.empty(host.shape, dtype=host.dtype, device=device)
+            staging = (torch.empty(host.shape, dtype=host.dtype,
+                                   pin_memory=True)
+                       if device.type == "cuda" else None)
+            bound.append((host, staging, dev))
+        self._b_feeds = tuple(bound)
+        self._b_h2d_done = (torch.cuda.Event() if device.type == "cuda"
+                            else None)
+        self.refresh_state()
+        return self
+
+    def refresh_state(self):
+        """Re-point the bound state at the scope's CURRENT tensors (after
+        another step or a caller replaced them in the scope)."""
+        scope = self._scope
+        self._b_ro_vals = tuple(scope.get(n) for n in self._plan.ro_names)
+        self._b_rw_vals = tuple(scope.get(n) for n in self._plan.rw_names)
+        return self
+
+    def run_bound(self):
+        """The steady-state tick over the buffers captured by bind().
+        Returns the fetch tuple (device tensors); the caller synchronizes
+        by reading them."""
+        done = self._b_h2d_done
+        if done is not None:
+            # the previous tick's async copies must have left the pinned
+            # buffers before they are overwritten
+            done.synchronize()
+        feed_vals = []
+        for host, staging, dev in self._b_feeds:
+            if staging is None:
+                dev.copy_(host)
+            else:
+                staging.copy_(host)
+                dev.copy_(staging, non_blocking=True)
+            feed_vals.append(dev)
+        if done is not None:
+            done.record()
+        return self._owner._execute(self._plan, tuple(feed_vals),
+                                    self._b_ro_vals, self._b_rw_vals,
+                                    self._scope, self._random_seed)
+
+
+class Executor:
+    """≙ fluid.Executor. `place` defaults to CUDAPlace(0) and raises when no
+    CUDA card is visible; pass CPUPlace() to run on the CPU."""
+
+    def __init__(self, place: Optional[Place] = None):
+        self.place = place
+        self.device = resolve_device(place)
+        self._cache: Dict[Any, _Plan] = {}
+        self._run_counter = 0
+
+    # -- planning ---------------------------------------------------------
+    def _scope_avail_key(self, program: Program, scope: Scope):
+        names = sorted({v.name for b in program.blocks
+                        for v in b.vars.values() if v.persistable})
+        return tuple(n for n in names if scope.has_var(n))
+
+    def _analyze_state(self, program: Program, scope: Scope, feed_names,
+                       fetch_names):
+        block = program.global_block()
+        read, written = set(), set()
+        for op in block.ops:
+            read |= set(op.input_names())
+            written |= set(op.output_names())
+        referenced = read | written | set(fetch_names)
+        persistable = {v.name for b in program.blocks
+                       for v in b.vars.values() if v.persistable}
+        feed_set = set(feed_names)
+        state_in = sorted(n for n in persistable
+                          if n in referenced and scope.has_var(n)
+                          and n not in feed_set)
+        state_written = sorted(n for n in persistable if n in written)
+        rw = sorted(set(state_in) & set(state_written))
+        ro = sorted(set(state_in) - set(rw))
+        out_only = sorted(set(state_written) - set(state_in))
+        return ro, rw, out_only
+
+    def _build_plan(self, program: Program, scope: Scope, feed_names,
+                    fetch_names) -> _Plan:
+        ro, rw, out_only = self._analyze_state(program, scope, feed_names,
+                                               fetch_names)
+        state_out = sorted(set(rw) | set(out_only))
+        # operator fusion: a rewrite of a CLONE of the program, gated by
+        # the fuse_decode_attention flag; the caller's program and the
+        # plan-cache key (original program version) are untouched. On a
+        # CUDA device a decode chain left unfused raises.
+        from .passes import apply_fusion_passes
+        fused = apply_fusion_passes(
+            program, protected=set(fetch_names) | set(state_out),
+            require_fused=self.device.type == "cuda")
+        flags.vlog(1, "planning program id=%s version=%s feeds=%s "
+                   "fetches=%s", id(program), program._version,
+                   list(feed_names), list(fetch_names))
+        return _Plan(build_plan(fused.global_block()), ro, rw, out_only,
+                     list(feed_names), list(fetch_names))
+
+    def _validate_fetches(self, program: Program, feed, fetch_names):
+        block = program.global_block()
+        defined = set(feed)
+        for op in block.ops:
+            defined.update(op.output_names())
+        for name in fetch_names:
+            if name not in defined and not block.has_var(name):
+                raise NotFoundError(
+                    f"fetch target {name!r} is not produced by the program "
+                    f"and not fed")
+
+    def _lookup_or_plan(self, program: Program, feed: Dict[str, Any],
+                        fetch_names, scope: Scope) -> _Plan:
+        self._validate_fetches(program, feed, fetch_names)
+        key = (id(program), program._version, _feed_signature(feed),
+               tuple(fetch_names), id(scope),
+               self._scope_avail_key(program, scope), _fusion_flags_key())
+        plan = self._cache.get(key)
+        if plan is None:
+            plan = self._build_plan(program, scope, list(feed.keys()),
+                                    fetch_names)
+            self._cache[key] = plan
+        return plan
+
+    # -- execution --------------------------------------------------------
+    def _to_device(self, v) -> torch.Tensor:
+        t = torch.as_tensor(v) if not isinstance(v, torch.Tensor) else v
+        if t.dtype == torch.float64:
+            t = t.float()     # float feeds run in float32, as in jax
+        return t.to(self.device)
+
+    def _execute(self, plan: _Plan, feed_vals, ro_vals, rw_vals,
+                 scope: Scope, random_seed: int):
+        self._run_counter += 1
+        ctx = LowerCtx(device=self.device,
+                       seed=_run_seed(random_seed, self._run_counter),
+                       constants=plan.constants)
+        env: Dict[str, Any] = {}
+        env.update(zip(plan.ro_names, ro_vals))
+        env.update(zip(plan.rw_names, rw_vals))
+        env.update(zip(plan.feed_names, feed_vals))
+        with torch.inference_mode():
+            run_plan(plan.ops, env, ctx)
+        # scope write-back: read-write state was updated in place, so this
+        # re-stores the same tensors; write-only state lands here
+        sv = scope._vars
+        for name in plan.state_out_names:
+            sv[name] = env[name]
+        return tuple(env[n] for n in plan.fetch_names)
+
+    def run(self,
+            program: Optional[Program] = None,
+            feed: Optional[Dict[str, Any]] = None,
+            fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
+            scope: Optional[Scope] = None,
+            return_numpy: bool = True):
+        """≙ Executor.run. Missing fetch vars raise."""
+        program = program or default_main_program()
+        feed = dict(feed or {})
+        scope = scope or global_scope()
+        fetch_names = [f.name if isinstance(f, Variable) else f
+                       for f in (fetch_list or [])]
+        plan = self._lookup_or_plan(program, feed, fetch_names, scope)
+        feed_vals = tuple(self._to_device(feed[n]) for n in plan.feed_names)
+        ro_vals = tuple(scope.get(n) for n in plan.ro_names)
+        rw_vals = tuple(scope.get(n) for n in plan.rw_names)
+        fetches = self._execute(plan, feed_vals, ro_vals, rw_vals, scope,
+                                program.random_seed)
+        if return_numpy:
+            return [as_numpy(f) for f in fetches]
+        return list(fetches)
+
+    def prepare(self,
+                program: Optional[Program] = None,
+                feed: Optional[Dict[str, Any]] = None,
+                fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
+                scope: Optional[Scope] = None) -> PreparedStep:
+        """Plan (or fetch from cache) the step for this exact (program,
+        feed signature, fetch list, scope) and return a PreparedStep whose
+        run() skips every per-call setup cost. `feed` is an EXAMPLE feed
+        carrying the signature every later call must match."""
+        program = program or default_main_program()
+        feed = dict(feed or {})
+        fetch_names = [f.name if isinstance(f, Variable) else f
+                       for f in (fetch_list or [])]
+        scope = scope or global_scope()
+        plan = self._lookup_or_plan(program, feed, fetch_names, scope)
+        return PreparedStep(plan, scope, self, program.random_seed)
+
+    def close(self):
+        """≙ Executor::Close — drop cached plans."""
+        self._cache.clear()

@@ -1,0 +1,287 @@
+"""Program pass framework: Pass base, registry, and the decode-attention
+fusion pass.
+
+≙ paddle_tpu/framework/passes.py (itself ≙ the reference's framework/ir
+ir::Pass + PassRegistry), trimmed to what the serving slice runs: the
+executor applies `fuse_decode_attention_pass` to a clone of every program it
+plans (`apply_fusion_passes`). The recurrent-cell pass comes with the LSTM
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+from ..core.enforce import (AlreadyExistsError, InvalidArgumentError,
+                            NotFoundError)
+from .program import Program
+from .scope import Scope
+
+
+class Pass:
+    """A named program rewrite (≙ ir::Pass, reference ir/pass.h:32).
+    Subclasses list `allowed_attrs`; unknown attrs raise instead of
+    silently no-op'ing a mistyped option."""
+
+    name = "pass"
+    allowed_attrs: tuple = ()
+
+    def __init__(self, **attrs):
+        unknown = set(attrs) - set(self.allowed_attrs)
+        if unknown:
+            raise TypeError(
+                f"pass {self.name!r} got unknown attrs {sorted(unknown)}; "
+                f"allowed: {sorted(self.allowed_attrs)}")
+        self.attrs = attrs
+
+    def apply(self, program: Program, scope: Optional[Scope] = None) -> Program:
+        raise NotImplementedError
+
+    def __call__(self, program, scope=None):
+        return self.apply(program, scope)
+
+
+_REGISTRY: Dict[str, Callable[..., Pass]] = {}
+
+
+def register_pass(name: str):
+    """≙ REGISTER_PASS (reference ir/pass.h PassRegistry)."""
+
+    def deco(cls):
+        if name in _REGISTRY:
+            raise AlreadyExistsError(f"pass {name!r} already registered")
+        cls.name = name
+        _REGISTRY[name] = cls
+        return cls
+
+    return deco
+
+
+def get_pass(name: str, **attrs) -> Pass:
+    if name not in _REGISTRY:
+        raise NotFoundError(
+            f"no pass named {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name](**attrs)
+
+
+def _visited_blocks(program: Program):
+    """The blocks the decode pass rewrites: all but those holding a
+    vjp_region or pp_pipeline_region (see FuseDecodeAttentionPass)."""
+    return [blk for blk in program.blocks
+            if not any(op.type in ("vjp_region", "pp_pipeline_region")
+                       for op in blk.ops)]
+
+
+@register_pass("fuse_decode_attention_pass")
+class FuseDecodeAttentionPass(Pass):
+    """Fuse the cached-decode attention chain
+    matmul(q, K^T, alpha) -> elementwise_add(bias) -> softmax -> matmul(V)
+    (a SINGLE-position query over a KV cache, the `_attend_cached` idiom)
+    into one `fused_decode_attention` op. attrs: protected=[var names that
+    must survive — fetch targets]. Blocks containing a vjp_region (or a
+    pp_pipeline_region) are skipped: those regions' fwd_ops/stages segments
+    index into the op list, which a multi-op splice would invalidate
+    (decode graphs are inference-only)."""
+
+    allowed_attrs = ("protected",)
+
+    def apply(self, program, scope=None):
+        protected = set(self.attrs.get("protected", ()))
+        # a fused intermediate may not be read anywhere else in the program
+        reads = {}
+        for blk in program.blocks:
+            for op in blk.ops:
+                for name in op.input_names():
+                    reads[name] = reads.get(name, 0) + 1
+        n = 0
+        for block in _visited_blocks(program):
+            n += self._rewrite_block(block, reads, protected)
+        if n:
+            program._bump()
+        return program
+
+    @staticmethod
+    def _shape(block, name):
+        try:
+            return block.var(name).shape
+        except NotFoundError:
+            return None
+
+    def _match(self, block, ops, si, producer, reads, protected):
+        """The chain whose softmax is ops[si] if it may be fused (a match
+        dict), else None."""
+        m = self._chain(block, ops, si, producer)
+        if m is None:
+            return None
+        # intermediates must be pure glue: consumed exactly once, by the
+        # next op in the chain, and not fetched/protected
+        for name in (m["m1"].outputs["Out"][0], m["add"].outputs["Out"][0],
+                     m["sm"].outputs["Out"][0]):
+            if reads.get(name, 0) != 1 or name in protected:
+                return None
+            var = block.vars.get(name)
+            if var is not None and (var.persistable or var.is_data):
+                return None
+        return m
+
+    def _chain(self, block, ops, si, producer):
+        """The decode-attention chain whose softmax is ops[si] (a match
+        dict), or None when ops[si] ends no such chain. Says nothing on
+        whether its intermediates may be fused away."""
+        sm = ops[si]
+        if sm.attrs.get("axis", -1) != -1:
+            return None
+        add = producer.get(sm.inputs.get("X", [None])[0])
+        if add is None or add.type != "elementwise_add" or \
+                add.attrs.get("axis", -1) != -1:
+            return None
+        m1 = producer.get(add.inputs["X"][0])
+        if m1 is None or m1.type != "matmul" or \
+                not m1.attrs.get("transpose_Y") or \
+                m1.attrs.get("transpose_X") or m1.attrs.get("use_bf16"):
+            return None
+        # the single consumer of the softmax must be the context matmul
+        sm_out = sm.outputs["Out"][0]
+        m2 = None
+        for op in ops:
+            if sm_out in op.input_names():
+                if m2 is not None:
+                    return None
+                m2 = op
+        if m2 is None or m2.type != "matmul" or \
+                m2.inputs["X"][0] != sm_out or \
+                m2.attrs.get("transpose_X") or m2.attrs.get("transpose_Y") \
+                or m2.attrs.get("alpha", 1.0) != 1.0 \
+                or m2.attrs.get("use_bf16"):
+            return None
+        q, k = m1.inputs["X"][0], m1.inputs["Y"][0]
+        v = m2.inputs["Y"][0]
+        bias = add.inputs["Y"][0]
+        qs, ks = self._shape(block, q), self._shape(block, k)
+        vs, bs = self._shape(block, v), self._shape(block, bias)
+        if qs is None or ks is None or vs is None or bs is None:
+            return None
+        # decode-width query over an equal-layout cache (no beam
+        # broadcast on K/V — that pattern reads better through a batched
+        # matmul). Width 1 is the plain decode tick; 1 < G < T is a
+        # speculative verify window (γ+1 positions scored against the
+        # cache in one forward; its fused op raises until the speculative
+        # slice ports it). Full-sequence chains (Tq == Tk) are NOT
+        # decode steps and stay unfused. Rank 3 ([B, 1, H] state over
+        # [B, T, H] encoder outputs — the GRU-attention NMT idiom) fuses
+        # too: the batch rows simply ride the fused kernel's head axis.
+        if len(qs) < 3 or len(ks) != len(qs) or \
+                not (qs[-2] == 1 or 1 < qs[-2] < ks[-2]) or \
+                tuple(ks[:-2]) != tuple(qs[:-2]) or tuple(vs) != tuple(ks):
+            return None
+        tgt = tuple(qs[:-2]) + (qs[-2], ks[-2])
+        if len(bs) != len(tgt) or any(
+                bd != 1 and bd != td for bd, td in zip(bs, tgt)):
+            return None
+        return {"m1": m1, "add": add, "sm": sm, "m2": m2,
+                "q": q, "k": k, "v": v, "bias": bias,
+                "scale": float(m1.attrs.get("alpha", 1.0))}
+
+    def _rewrite_block(self, block, reads, protected):
+        from .program import Operator
+        ops = block.ops
+        producer = {}
+        for op in ops:
+            for name in op.output_names():
+                producer[name] = op
+        matches = []
+        claimed = set()
+        for si, op in enumerate(ops):
+            if op.type != "softmax":
+                continue
+            m = self._match(block, ops, si, producer, reads, protected)
+            if m is None:
+                continue
+            group = {id(m["m1"]), id(m["add"]), id(m["sm"]), id(m["m2"])}
+            if group & claimed:
+                continue
+            claimed |= group
+            matches.append(m)
+        if not matches:
+            return 0
+        # splice at the LAST op of the chain (m2): every fused input
+        # (q/k/v/bias) is produced before it by construction — the bias
+        # may legitimately be built between the score matmul and the add
+        # (the NMT attention builds it mid-chain)
+        by_anchor = {id(m["m2"]): m for m in matches}
+        drop = set()
+        for m in matches:
+            drop |= {id(m["m1"]), id(m["add"]), id(m["sm"])}
+        new_ops = []
+        for op in ops:
+            m = by_anchor.get(id(op))
+            if m is not None:
+                fused = Operator(
+                    block, "fused_decode_attention",
+                    inputs={"Q": [m["q"]], "K": [m["k"]], "V": [m["v"]],
+                            "Bias": [m["bias"]]},
+                    outputs={"Out": [m["m2"].outputs["Out"][0]]},
+                    attrs={"scale": m["scale"]})
+                new_ops.append(fused)
+                out_name = m["m2"].outputs["Out"][0]
+                if out_name in block.vars:
+                    block.vars[out_name].op = fused
+                for name in (m["m1"].outputs["Out"][0],
+                             m["add"].outputs["Out"][0],
+                             m["sm"].outputs["Out"][0]):
+                    block.vars.pop(name, None)
+                continue
+            if id(op) in drop:
+                continue
+            new_ops.append(op)
+        block.ops = new_ops
+        return len(matches)
+
+
+def _decode_chains(program: Program) -> int:
+    """How many decode-attention chains `program` still holds in the blocks
+    the pass visits, whether or not their intermediates allow fusing."""
+    chain = FuseDecodeAttentionPass()._chain
+    n = 0
+    for block in _visited_blocks(program):
+        producer = {name: op for op in block.ops
+                    for name in op.output_names()}
+        n += sum(1 for si, op in enumerate(block.ops)
+                 if op.type == "softmax"
+                 and chain(block, block.ops, si, producer) is not None)
+    return n
+
+
+def apply_fusion_passes(program: Program, protected=(),
+                        require_fused=False) -> Program:
+    """Executor-time entry: apply the flag-enabled fusion passes to a CLONE
+    of `program` (the caller's program is never mutated). Returns the
+    original program untouched when the flag is off or nothing can match —
+    the common case costs one cheap op-type scan.
+
+    require_fused (an executor on a CUDA device): decode attention runs on
+    the card only through its kernel, so a decode-attention chain left
+    unfused — the flag off, or an intermediate of the chain fetched or read
+    elsewhere — raises InvalidArgumentError instead of running as plain
+    matmul, softmax and matmul."""
+    from ..core import flags
+    fuse = flags.get_flag("fuse_decode_attention")
+    if not any(op.type == "softmax" for blk in _visited_blocks(program)
+               for op in blk.ops):
+        return program
+    rewritten = program
+    if fuse:
+        rewritten = program.clone()
+        get_pass("fuse_decode_attention_pass",
+                 protected=sorted(protected))(rewritten)
+    if require_fused:
+        left = _decode_chains(rewritten)
+        if left:
+            why = ("the fuse_decode_attention flag is off" if not fuse else
+                   "an intermediate of the chain is fetched or read "
+                   "elsewhere")
+            raise InvalidArgumentError(
+                f"{left} decode-attention chain(s) would run unfused on a "
+                f"CUDA device ({why}); on the card decode attention runs "
+                f"only through its kernel")
+    return rewritten

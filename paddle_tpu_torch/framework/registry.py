@@ -1,0 +1,127 @@
+"""Op registry: op type → torch lowering.
+
+≙ paddle_tpu/framework/registry.py. Each op registers ONE lowering: a plain
+function `(ctx, ins, attrs) -> outs` over torch tensors, where `ins` and
+`outs` map slot names to lists of tensors. The executor calls the lowerings
+eagerly, op by op (lowering.py). Hand-written kernels sit behind the
+lowerings that need them (fusion/decode_attention.py).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ..core.enforce import AlreadyExistsError, NotFoundError
+
+LowerFn = Callable[["LowerCtx", Dict[str, List[Any]], Dict[str, Any]],
+                   Dict[str, List[Any]]]
+
+
+@dataclass
+class OpDef:
+    type: str
+    lower: LowerFn
+
+
+_OPS: Dict[str, OpDef] = {}
+
+
+def register_op(op_type: str):
+    """Decorator registering a lowering (≙ REGISTER_OPERATOR)."""
+
+    def deco(fn: LowerFn) -> LowerFn:
+        if op_type in _OPS:
+            raise AlreadyExistsError(f"op {op_type!r} already registered")
+        _OPS[op_type] = OpDef(op_type, fn)
+        return fn
+
+    return deco
+
+
+def lookup_op(op_type: str) -> OpDef:
+    op = _OPS.get(op_type)
+    if op is None:
+        # the builtin op modules self-register on import
+        _ensure_builtin_ops()
+        op = _OPS.get(op_type)
+    if op is None:
+        raise NotFoundError(f"no op registered with type {op_type!r}; "
+                            f"known ops: {sorted(_OPS)}")
+    return op
+
+
+def registered_ops() -> List[str]:
+    _ensure_builtin_ops()
+    return sorted(_OPS)
+
+
+_builtins_loaded = False
+
+
+def _ensure_builtin_ops():
+    global _builtins_loaded
+    if _builtins_loaded:
+        return
+    _builtins_loaded = True
+    # import for registration side effects
+    from ..ops import (elementwise, nn_ops, random_ops,  # noqa: F401
+                       reduce_ops, tensor_ops)
+    from ..fusion import decode_attention  # noqa: F401
+    from . import lowering  # noqa: F401  (the vjp_region stub)
+
+
+@dataclass
+class LowerCtx:
+    """Per-run context handed to lowerings (≙ ExecutionContext).
+
+    device: where the run's tensors live; ops that create tensors from
+        attributes (fill_constant, assign_value, random ops) allocate there.
+    seed: the run's seed; `generator()` draws from one torch.Generator on
+        `device` seeded with it, created on first use.
+    op: the Operator being lowered (set by `run_op`), so a lowering can
+        tell whether its output variable is the one it reads.
+    constants: memo of attribute-built tensors, shared by every run of one
+        plan (the executor passes the plan's), so a constant table is built
+        and copied to the device once, not per run.
+    """
+    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    seed: int = 0
+    op: Any = None
+    constants: dict = field(default_factory=dict)
+    _generator: Optional[torch.Generator] = None
+
+    def generator(self, seed: int = 0) -> torch.Generator:
+        """A fixed-seed generator when `seed` is nonzero (an op's own seed
+        attr), else the run's shared generator."""
+        if seed:
+            return torch.Generator(device=self.device).manual_seed(seed)
+        if self._generator is None:
+            self._generator = torch.Generator(
+                device=self.device).manual_seed(self.seed)
+        return self._generator
+
+    def writes_input(self, in_slot: str, out_slot: str) -> bool:
+        """True when the current op's `out_slot` names the same variable as
+        its `in_slot`: the op rebinds the variable it reads, so the lowering
+        may update that tensor in place."""
+        op = self.op
+        return (op is not None and bool(op.inputs.get(in_slot))
+                and op.inputs.get(in_slot) == op.outputs.get(out_slot))
+
+    def constant(self, make: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """The current op's attribute-built output, made once per plan.
+        Only ops writing non-persistable variables are memoized: a
+        persistable output may later be updated in place."""
+        op = self.op
+        if op is None or any(
+                op.block.has_var(n) and op.block.var(n).persistable
+                for n in op.output_names()):
+            return make()
+        key = id(op)
+        t = self.constants.get(key)
+        if t is None:
+            t = self.constants[key] = make()
+        return t

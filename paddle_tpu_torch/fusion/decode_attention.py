@@ -1,0 +1,162 @@
+"""Fused decode-attention step: one KV-cache tick's Q·K^T·softmax·V in one
+kernel.
+
+≙ paddle_tpu/fusion/decode_attention.py. `fuse_decode_attention_pass`
+(framework/passes.py) rewrites each layer's cached-decode chain
+matmul(q, K^T, alpha=scale) → +bias → softmax → matmul(·, V) into one
+`fused_decode_attention` op, which lowers here. The cache WRITE stays on the
+`cache_write` op; this kernel fuses the read side.
+
+Three pieces, as for every kernel of the port:
+
+- `decode_attention_cuda` — the wrapper of the hand-written CUDA kernel
+  (csrc/decode_attention.cu, replacing the Pallas kernel
+  `paddle_tpu/fusion/decode_attention.py:_decode_step_kernel`). It checks
+  shapes, types and layout, launches on the current stream and counts the
+  launch in `kernels.LAUNCHES["decode_attention"]`.
+- `decode_attention_plain` — the same function in plain PyTorch, the
+  arithmetic of the TPU kernel written out: scores, max and sum in float32,
+  the output cast to q's dtype. (The JAX package's XLA composite instead
+  rounds the scores to q's dtype before scaling; the port follows the
+  kernel.)
+- `fused_decode_attention` — normalizes shapes and picks by device: the
+  plain version for CPU tensors only; CUDA tensors launch the kernel or
+  raise. There is no fallback between the two.
+
+Not on this slice (they raise NotImplementedError): int8 KV caches
+(`k_scale`/`v_scale`) and multi-position queries (G > 1, the speculative
+verify window) — both belong to the paged/quantized/speculative serving
+slice, ROADMAP.md port queue item 2.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+from ..framework.registry import register_op
+
+_SPEC_QUANT_SLICE = ("belongs to the paged/quantized/speculative serving "
+                     "slice, ROADMAP.md port queue item 2")
+
+
+def decode_attention_plain(q3, k4, v4, bias3, scale):
+    """q3 [R, nh, dh], k4/v4 [R, nh, T, dh], bias3 [R, nh, T] → [R, nh, dh]
+    in q3's dtype; every step in float32."""
+    q = q3.float()
+    s = (q.unsqueeze(2) * k4.float()).sum(-1) * scale + bias3.float()
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    w = p / p.sum(-1, keepdim=True)
+    out = (w.unsqueeze(-1) * v4.float()).sum(2)
+    return out.to(q3.dtype)
+
+
+def _bind(lib):
+    if getattr(lib, "_ptt_bound", False):
+        return
+    c_ll, c_int, c_vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    lib.ptt_decode_attention.argtypes = [
+        c_int, c_vp, c_vp, c_vp, c_vp, c_vp, c_int, c_int, c_int, c_int,
+        c_ll, c_ll, ctypes.c_float, c_vp]
+    lib.ptt_decode_attention.restype = c_int
+    lib._ptt_bound = True
+
+
+def decode_attention_cuda(q3, k4, v4, bias3, scale):
+    """Launch the CUDA kernel: q3 [R, nh, dh] float32 or bfloat16,
+    k4/v4 [R, nh, T, dh] float32 contiguous, bias3 [R, nh, T] float32 with
+    unit stride along T (any row and head strides, 0 included). Returns
+    [R, nh, dh] in q3's dtype. Raises on anything else — the kernel itself
+    refuses (CUDA "invalid argument") a T whose scores do not fit one
+    block's shared memory, about 56K positions."""
+    r, nh, dh = q3.shape
+    t = k4.shape[2]
+    dev = q3.device
+    if dev.type != "cuda" or any(x.device != dev for x in (k4, v4, bias3)):
+        raise ValueError("decode_attention_cuda: every tensor must be on "
+                         "the same CUDA device")
+    if q3.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode_attention_cuda: q must be float32 or "
+                        f"bfloat16, got {q3.dtype}")
+    if k4.dtype != torch.float32 or v4.dtype != torch.float32 or \
+            bias3.dtype != torch.float32:
+        raise TypeError("decode_attention_cuda: K, V and bias must be "
+                        "float32 (the slot caches' type)")
+    if tuple(k4.shape) != (r, nh, t, dh) or tuple(v4.shape) != (r, nh, t, dh) \
+            or tuple(bias3.shape) != (r, nh, t):
+        raise ValueError(f"decode_attention_cuda: shapes q {tuple(q3.shape)}"
+                         f" k {tuple(k4.shape)} v {tuple(v4.shape)} bias "
+                         f"{tuple(bias3.shape)} do not agree")
+    if not (q3.is_contiguous() and k4.is_contiguous()
+            and v4.is_contiguous()) or bias3.stride(2) != 1:
+        raise ValueError("decode_attention_cuda: q, K, V must be contiguous "
+                         "and bias unit-stride along T")
+    if not 1 <= dh <= 256:
+        raise ValueError(f"decode_attention_cuda: head dim {dh} outside "
+                         f"[1, 256]")
+    lib = kernels.load("decode_attention")
+    _bind(lib)
+    with torch.cuda.device(dev):
+        out = torch.empty((r, nh, dh), dtype=q3.dtype, device=dev)
+        err = lib.ptt_decode_attention(
+            int(q3.dtype == torch.bfloat16), q3.data_ptr(), k4.data_ptr(),
+            v4.data_ptr(), bias3.data_ptr(), out.data_ptr(), r, nh, t, dh,
+            bias3.stride(0), bias3.stride(1), float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+        kernels.check(lib, "decode_attention", err)
+    kernels.count_launch("decode_attention")
+    return out
+
+
+def fused_decode_attention(q, k, v, bias, scale=1.0, k_scale=None,
+                           v_scale=None):
+    """One decode tick of cached attention.
+
+    q [..., nh, 1, dh], k/v [..., nh, T, dh] (the KV cache, broadcastable
+    over the leading dims), bias broadcastable to [..., nh, 1, T] (additive
+    mask hiding cache positions beyond each slot's tick). Returns
+    [..., nh, 1, dh] in q's dtype: softmax(q·K^T·scale + bias)·V."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "fused_decode_attention over int8 KV caches (k_scale/v_scale) "
+            + _SPEC_QUANT_SLICE)
+    lead = tuple(q.shape[:-3])
+    nh, g, dh = q.shape[-3:]
+    if g != 1:
+        raise NotImplementedError(
+            f"fused_decode_attention with a {g}-position query (speculative "
+            f"verify window) " + _SPEC_QUANT_SLICE)
+    t = k.shape[-2]
+    r = 1
+    for d in lead:
+        r *= d
+    q3 = q.reshape(r, nh, dh)
+    k4 = k.expand(lead + tuple(k.shape[-3:])).reshape(r, nh, t, dh)
+    v4 = v.expand(lead + tuple(v.shape[-3:])).reshape(r, nh, t, dh)
+    # the mask is usually one row per slot shared by every head: keep the
+    # head stride 0 instead of materializing the broadcast
+    bias3 = bias.to(torch.float32).expand(lead + (nh, 1, t)).reshape(
+        r, nh, t)
+    if q.is_cuda:
+        out = decode_attention_cuda(q3.contiguous(), k4.contiguous(),
+                                    v4.contiguous(), bias3, scale)
+    else:
+        out = decode_attention_plain(q3, k4, v4, bias3, scale)
+    return out.reshape(lead + (nh, 1, dh))
+
+
+@register_op("fused_decode_attention")
+def _fused_decode_attention_op(ctx, ins, attrs):
+    """Fused Q·K^T+bias→softmax→·V over a KV cache for a single-position
+    query (emitted by `fuse_decode_attention_pass` from the 4-op decode
+    chain)."""
+    ks, vs = ins.get("KScale"), ins.get("VScale")
+    out = fused_decode_attention(ins["Q"][0], ins["K"][0], ins["V"][0],
+                                 ins["Bias"][0],
+                                 scale=attrs.get("scale", 1.0),
+                                 k_scale=ks[0] if ks else None,
+                                 v_scale=vs[0] if vs else None)
+    return {"Out": [out]}

@@ -1,0 +1,224 @@
+"""Neural-network layers.
+
+≙ paddle_tpu/layers/nn.py (reference python/paddle/fluid/layers/nn.py),
+trimmed to the layers the serving slice builds. Each layer creates
+parameters via LayerHelper and appends ops; the executor runs them.
+"""
+
+from __future__ import annotations
+
+from ..core.dtypes import dtype_name
+from ..initializer import ConstantInitializer, NormalInitializer
+from ..layer_helper import LayerHelper
+
+
+def _prod(xs):
+    out = 1
+    for x in xs:
+        out *= x
+    return out
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None, use_bf16=False):
+    """Fully connected layer (≙ reference layers/nn.py:114), one input.
+
+    use_bf16 runs the matmul on bfloat16 inputs with float32 accumulation
+    and a bfloat16 output (flag use_bf16_matmul, ops/nn_ops.py)."""
+    helper = LayerHelper("fc", name=name, act=act, bias_attr=bias_attr)
+    in_dim = _prod(input.shape[num_flatten_dims:])
+    w = helper.create_parameter(param_attr, shape=[in_dim, size],
+                                dtype=dtype_name(input.dtype))
+    out_shape = list(input.shape[:num_flatten_dims]) + [size]
+    pre_bias = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                          shape=out_shape)
+    helper.append_op(type="mul", inputs={"X": [input], "Y": [w]},
+                     outputs={"Out": [pre_bias]},
+                     attrs={"x_num_col_dims": num_flatten_dims,
+                            "y_num_col_dims": 1, "use_bf16": use_bf16})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims,
+                                    use_bf16=use_bf16)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """≙ reference layers/nn.py:226 + lookup_table_op.cc:21. The table is a
+    dense tensor; is_sparse/is_distributed are accepted for API parity."""
+    helper = LayerHelper("embedding", name=None)
+    w = helper.create_parameter(param_attr, shape=list(size), dtype=dtype,
+                                default_initializer=NormalInitializer(0., 0.02))
+    in_shape = list(input.shape)
+    if in_shape and in_shape[-1] == 1:
+        in_shape = in_shape[:-1]
+    out = helper.create_tmp_variable(dtype=dtype,
+                                     shape=in_shape + [size[1]])
+    helper.append_op(type="lookup_table",
+                     inputs={"W": [w], "Ids": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"is_sparse": is_sparse,
+                            "is_distributed": is_distributed,
+                            "padding_idx": padding_idx})
+    return out
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """≙ reference layers/nn.py:2155."""
+    helper = LayerHelper("layer_norm", name=name, act=act)
+    dtype = dtype_name(input.dtype)
+    norm_shape = [_prod(input.shape[begin_norm_axis:])]
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(param_attr, shape=norm_shape, dtype=dtype,
+                                    default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(bias_attr, shape=norm_shape, dtype=dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b]
+    y = helper.create_tmp_variable(dtype=dtype, shape=input.shape)
+    mean = helper.create_tmp_variable(dtype=dtype,
+                                      shape=input.shape[:begin_norm_axis],
+                                      stop_gradient=True)
+    var = helper.create_tmp_variable(dtype=dtype,
+                                     shape=input.shape[:begin_norm_axis],
+                                     stop_gradient=True)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
+                     attrs={"begin_norm_axis": begin_norm_axis,
+                            "epsilon": epsilon})
+    return helper.append_activation(y)
+
+
+def softmax(input, name=None, axis=-1):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=input.shape)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper("reshape", name=name, act=act)
+    out_shape = list(shape)
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                     shape=[d if d != 0 else x.shape[i]
+                                            for i, d in enumerate(out_shape)])
+    helper.append_op(type="reshape", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"shape": list(shape)})
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_tmp_variable(
+        dtype=dtype_name(x.dtype),
+        shape=[x.shape[p] for p in perm] if x.shape else None)
+    helper.append_op(type="transpose", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    shape = list(input.shape)
+    for ax in sorted(axes):
+        shape.insert(ax, 1)
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=shape)
+    helper.append_op(type="unsqueeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": list(axes)})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    shape = list(input.shape)
+    if shape and shape[-1] == 1:
+        shape = shape[:-1]
+    out = helper.create_tmp_variable(dtype="float32", shape=shape + [depth],
+                                     stop_gradient=True)
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None,
+           use_bf16=False):
+    helper = LayerHelper("matmul", name=name)
+    xs, ys = list(x.shape), list(y.shape)
+    if transpose_x:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if transpose_y:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    batch = xs[:-2] if len(xs) >= len(ys) else ys[:-2]
+    out_shape = batch + [xs[-2] if len(xs) > 1 else 1, ys[-1]]
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                     shape=out_shape)
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha,
+                            "use_bf16": use_bf16})
+    return out
+
+
+def elementwise_op_layer(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, name=name, act=act)
+    xs, ys = x.shape or (), y.shape or ()
+    if len(xs) == len(ys) and all(
+            d is not None and d != -1 for d in (*xs, *ys)):
+        # equal-rank operands: declare the true numpy broadcast shape
+        # (size-1 dims stretch), so e.g. [S,1,1] + [1,G,1] declares
+        # [S,G,1] — what the analyzer's inference derives
+        shape = [max(a, b) for a, b in zip(xs, ys)]
+    else:
+        shape = xs if len(xs) >= len(ys) else ys
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=shape)
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return elementwise_op_layer("elementwise_add", x, y, axis, act, name)
+
+
+def cache_write(cache, new, pos, axis, batch_axis=None, out=None, name=None):
+    """Write `new` (size-1 along `axis`) into `cache` at position `pos` —
+    the KV-cache decode primitive.
+
+    Default mode: `pos` is one scalar position for the whole batch (any
+    tensor; its first element is the position — the contract is enforced).
+    With `batch_axis` set, `pos` holds one position PER ROW of `cache`
+    along that axis and each row is written at its own position — the
+    slot-indexed cache the continuous-batching serving engine runs on.
+    `out` (optional Variable) receives the result in place of a fresh
+    temporary — pass the cache variable itself and the write lands in the
+    persistable cache tensor in place (ops/tensor_ops.py)."""
+    helper = LayerHelper("cache_write", name=name)
+    if out is None:
+        out = helper.create_tmp_variable(dtype=dtype_name(cache.dtype),
+                                         shape=cache.shape,
+                                         stop_gradient=True)
+    attrs = {"axis": axis}
+    if batch_axis is not None:
+        attrs["batch_axis"] = batch_axis
+    helper.append_op(type="cache_write",
+                     inputs={"Cache": [cache], "New": [new], "Pos": [pos]},
+                     outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def log_softmax(x, axis=-1, name=None):
+    """≙ log_softmax op (numerically stable log(softmax(x)))."""
+    helper = LayerHelper("log_softmax", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=x.shape)
+    helper.append_op(type="log_softmax", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+

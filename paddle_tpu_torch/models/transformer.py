@@ -1,0 +1,249 @@
+"""Decoder-only Transformer LM: the serving decode tick.
+
+≙ paddle_tpu/models/transformer.py, trimmed to what the continuous-batching
+engine builds: `transformer_lm_decode_tick` and its helpers. Parameter names
+and build order are the JAX package's, so weights carry across by name
+(io.load_numpy_params).
+
+Dropout sites that need the `dropout` op raise NotImplementedError: that op
+comes with the training slice (ROADMAP.md port queue item 1). The serving
+engine builds with dropout 0.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import layers
+from ..param_attr import ParamAttr
+
+_NO_DROPOUT_OP = ("the dropout op is not ported yet (training slice, "
+                  "ROADMAP.md port queue item 1); build with dropout=0.0")
+
+
+def positional_encoding_table(max_len, d_model):
+    pos = np.arange(max_len)[:, None].astype("float32")
+    i = np.arange(d_model)[None, :].astype("float32")
+    angle = pos / np.power(10000.0, 2 * (i // 2) / d_model)
+    table = np.zeros((max_len, d_model), dtype="float32")
+    table[:, 0::2] = np.sin(angle[:, 0::2])
+    table[:, 1::2] = np.cos(angle[:, 1::2])
+    return table
+
+
+def ffn(x, d_model, d_inner, dropout=0.0, is_test=False, name=None):
+    h = layers.fc(x, size=d_inner, num_flatten_dims=2, act="relu",
+                  use_bf16=True, name=name and name + "_fc1")
+    if dropout:
+        raise NotImplementedError(_NO_DROPOUT_OP)
+    return layers.fc(h, size=d_model, num_flatten_dims=2, use_bf16=True,
+                     name=name and name + "_fc2")
+
+
+def _add_norm(x, residual, dropout=0.0, is_test=False, name=None):
+    """name (when given) pins the LayerNorm parameter names so a decode
+    graph built later in the same program shares the trained weights (the
+    generation path rebuilds per-step computation from the same names)."""
+    if dropout:
+        raise NotImplementedError(_NO_DROPOUT_OP)
+    kw = {}
+    if name:
+        kw = {"param_attr": ParamAttr(name=name + ".scale"),
+              "bias_attr": ParamAttr(name=name + ".bias")}
+    return layers.layer_norm(layers.elementwise_add(x, residual),
+                             begin_norm_axis=2, **kw)
+
+
+def _attend_cached(q, k5, v5, bias, K, num_heads, d_head, dropout=0.0):
+    """Per-head attention of a single-position query over a cached K/V:
+    q [B,K,H] against k5 / v5 both laid out [B,*,nh,T*,dh] (the * dims
+    broadcast over the beam axis; scores read k via transpose_y, so ONE
+    cache layout serves both matmuls), additive bias masking invalid keys.
+    fuse_decode_attention_pass rewrites the matmul → add → softmax →
+    matmul chain built here into one fused_decode_attention op. When the train graph had attention-weight
+    dropout, the context is scaled by (1-p) — the same downgrade_in_infer
+    correction the fused multi_head_attention path applies at
+    inference."""
+    H = num_heads * d_head
+    q5 = layers.reshape(q, shape=[0, K, num_heads, 1, d_head])
+    scores = layers.matmul(q5, k5, transpose_y=True,
+                           alpha=float(d_head) ** -0.5)
+    weights = layers.softmax(layers.elementwise_add(scores, bias))
+    ctx = layers.reshape(layers.matmul(weights, v5), shape=[0, K, H])
+    if dropout:
+        ctx = layers.scale(ctx, scale=1.0 - dropout)
+    return ctx
+
+
+def _cached_self_attention(x, states, new_states, cache_id, prefix, K, T,
+                           num_heads, d_head, pos, bias, dropout=0.0,
+                           slot_axis=None):
+    """One cached self-attention block of a decode step: project q/k/v
+    from x [B,K,H], write k/v into the head-major caches (k and v both
+    [B,K,nh,T,dh]; scores read k via transpose_y) at position `pos` via
+    `cache_write`, attend over the masked cache, output-project. The
+    per-step memory cost is one row write + one cache read. Parameter
+    names come from `prefix` (matching the train graph's
+    multi_head_attention names).
+
+    slot_axis (serving-engine mode): cache rows along this axis belong to
+    INDEPENDENT requests at independent positions — `pos` is per-slot and
+    the cache_write output is the persistable cache variable itself, so
+    the write lands in the cache tensor in place."""
+    H = num_heads * d_head
+    q = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                  use_bf16=True, name=f"{prefix}_q")
+    kn = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                   use_bf16=True, name=f"{prefix}_k")
+    vn = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                   use_bf16=True, name=f"{prefix}_v")
+    slot_kw = {}
+    if slot_axis is not None:
+        slot_kw = {"batch_axis": slot_axis}
+    kc = layers.cache_write(
+        states[f"k{cache_id}"],
+        layers.reshape(kn, shape=[0, K, num_heads, 1, d_head]), pos, axis=3,
+        out=states[f"k{cache_id}"] if slot_axis is not None else None,
+        **slot_kw)
+    vc = layers.cache_write(
+        states[f"v{cache_id}"],
+        layers.reshape(vn, shape=[0, K, num_heads, 1, d_head]), pos, axis=3,
+        out=states[f"v{cache_id}"] if slot_axis is not None else None,
+        **slot_kw)
+    new_states[f"k{cache_id}"], new_states[f"v{cache_id}"] = kc, vc
+    ctx = _attend_cached(q, kc, vc, bias, K, num_heads, d_head, dropout)
+    return layers.fc(ctx, size=H, num_flatten_dims=2, bias_attr=False,
+                     use_bf16=True, name=f"{prefix}_o")
+
+
+def _gen_embed_step(ids_prev, pos, emb_name, vocab, d_model, pe_table,
+                    dropout=0.0):
+    """Embed the previous token + positional encoding at `pos` (one-hot
+    row-select from the PE table)."""
+    T = pe_table.shape[0]
+    onehot_t = layers.one_hot(layers.cast(pos, "int64"), depth=T)
+    emb = layers.embedding(layers.unsqueeze(ids_prev, axes=[2]),
+                           size=[vocab, d_model],
+                           param_attr=ParamAttr(name=emb_name))
+    x = layers.scale(emb, scale=float(d_model) ** 0.5)
+    x = layers.elementwise_add(
+        x, layers.matmul(onehot_t, layers.assign(pe_table)))
+    if dropout:
+        raise NotImplementedError(_NO_DROPOUT_OP)
+    return x
+
+
+def _mask_to_bias(mask, axes):
+    """0/1 keep-mask -> additive attention bias (-1e9 on masked keys),
+    unsqueezed to broadcast against [.., nh, 1, T] score tensors."""
+    return layers.unsqueeze(layers.scale(mask, scale=1e9, bias=-1e9),
+                            axes=axes)
+
+
+def _next_pos(pos):
+    return layers.elementwise_add(pos,
+                                  layers.fill_constant([1], "float32", 1.0))
+
+
+def _step_mask_bias(pos, arange):
+    """Additive bias hiding cache positions beyond the current one."""
+    valid = layers.cast(
+        layers.less_than(layers.assign(arange), _next_pos(pos)), "float32")
+    return _mask_to_bias(valid, axes=[2, 3])
+
+
+def _slot_cache_var(name, shape, dtype="float32"):
+    """Persistable zero-initialized cache variable (main + startup blocks,
+    the optimizer-accumulator idiom): the serving engine's KV caches live
+    in the Scope across ticks as read-write state — updated in place on
+    the device, never re-staged."""
+    from ..framework.program import (default_main_program,
+                                     default_startup_program)
+    mb = default_main_program().global_block()
+    if name in mb.vars:
+        return mb.vars[name]
+    var = mb.create_var(name=name, shape=list(shape), dtype=dtype,
+                        persistable=True)
+    var.stop_gradient = True
+    sb = default_startup_program().global_block()
+    sv = sb.create_var(name=name, shape=list(shape), dtype=dtype,
+                       persistable=True)
+    sb.append_op("fill_constant", outputs={"Out": [sv.name]},
+                 attrs={"shape": list(shape), "value": 0.0, "dtype": dtype})
+    return var
+
+
+def transformer_lm_decode_tick(n_slots, vocab=32000, max_len=64,
+                               d_model=512, d_inner=2048, num_heads=8,
+                               num_layers=6, dropout=0.0, packed=False,
+                               cache_prefix="srv", param_prefix="",
+                               emit_logp=False):
+    """ONE decode tick over a slot-indexed KV cache — the continuous-
+    batching serving engine's step (serving/engine.py).
+
+    A single-step program whose state is per-slot: caches are persistable
+    [S,1,nh,T,dh] variables updated in place as read-write state,
+    `tick_pos` is PER-SLOT (each slot at its own
+    position — one mid-prompt, one 30 tokens into generation), and
+    `cache_write(batch_axis=0)` writes each slot's row at its own
+    position. One program serves every mixture of request
+    phases, which is what lets the scheduler admit a new request into the
+    in-flight batch without recompiling or padding to a static batch.
+
+    Inputs (all fed per tick): `tick_tok` [S,1] int64 (the token each
+    slot consumes: next prompt token while prefilling, else the slot's
+    previously sampled token), `tick_pos` [S,1,1] float32 (the position
+    being written). Weights are shared BY NAME with transformer_lm
+    (tok_emb, l{i}_attn_*, l{i}_ln*, l{i}_ffn_*, lm_head) — train first
+    (or load), then build this in its own program and run it in the same
+    scope. Only dropout=0.0 is supported until the dropout op is ported.
+
+    Returns (next_ids [S,1] int64, cache_names list): argmax of the tick
+    logits per slot, and the persistable cache variable names (the engine
+    resets nothing on slot reuse — positions > a slot's own pos are
+    masked, and prefill overwrites rows 0..P-1 before exposing them).
+
+    param_prefix namespaces EVERY weight name (tok_emb, l{i}_*, lm_head)
+    — the JAX package's speculative draft model is this builder at
+    param_prefix="draft_". With emit_logp=True the tick also returns the
+    full log-softmax logits [S,1,V].
+    """
+    S, T, H = n_slots, max_len, d_model
+    d_head = d_model // num_heads
+    # STATIC slot dim (no -1 batch): the slot count is the program's shape,
+    # and the static form is what lets fuse_decode_attention_pass match the
+    # per-tick attention chain against the fixed-shape slot caches
+    tok = layers.data(name="tick_tok", shape=[S, 1], dtype="int64",
+                      append_batch_size=False)
+    pos = layers.data(name="tick_pos", shape=[S, 1, 1], dtype="float32",
+                      append_batch_size=False)
+    attn_dropout = 0.0 if packed else dropout
+
+    states = {}
+    for i in range(num_layers):
+        for s in ("k", "v"):
+            states[f"{s}{i}"] = _slot_cache_var(
+                f"{cache_prefix}_{s}{i}", [S, 1, num_heads, T, d_head])
+
+    pe_table = positional_encoding_table(T, d_model).astype("float32")
+    arange = np.arange(T, dtype="float32").reshape(1, 1, T)
+    x = _gen_embed_step(tok, pos, f"{param_prefix}tok_emb", vocab, d_model,
+                        pe_table, dropout)
+    bias = _step_mask_bias(pos, arange)       # per-slot: pos broadcasts
+    new_states = {}
+    for i in range(num_layers):
+        attn = _cached_self_attention(
+            x, states, new_states, i, f"{param_prefix}l{i}_attn", 1, T,
+            num_heads, d_head, pos, bias, attn_dropout, slot_axis=0)
+        x = _add_norm(attn, x, dropout, True, name=f"{param_prefix}l{i}_ln1")
+        f = ffn(x, d_model, d_inner, dropout, True,
+                name=f"{param_prefix}l{i}_ffn")
+        x = _add_norm(f, x, dropout, True, name=f"{param_prefix}l{i}_ln2")
+    logits = layers.fc(x, size=vocab, num_flatten_dims=2, use_bf16=True,
+                       name=f"{param_prefix}lm_head")
+    next_ids = layers.argmax(logits, axis=2)            # [S,1] int64
+    cache_names = [v.name for v in states.values()]
+    if emit_logp:
+        return next_ids, cache_names, layers.log_softmax(logits)
+    return next_ids, cache_names
+

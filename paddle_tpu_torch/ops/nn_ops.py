@@ -1,0 +1,105 @@
+"""NN op lowerings: mul/matmul, layer_norm, softmax, log_softmax.
+
+≙ paddle_tpu/ops/nn_ops.py (reference operators/{mul,matmul,layer_norm,
+softmax}_op.*), trimmed to the serving slice. The matrix products go to
+torch.matmul (cuBLAS on the card), as the JAX package leaves them to XLA.
+
+bf16 policy (≙ nn_ops.py:22-65, 89-102): a matmul whose layer asked for
+`use_bf16` runs on bfloat16 inputs with float32 accumulation and a bfloat16
+output while the flag `use_bf16_matmul` is on; otherwise it runs in the
+promoted input dtype and returns X's dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import flags
+from ..framework.registry import register_op
+
+
+def _prod(dims):
+    out = 1
+    for d in dims:
+        out *= d
+    return out
+
+
+def _bf16_active(attrs) -> bool:
+    return bool(attrs.get("use_bf16", False)) and bool(
+        flags.get_flag("use_bf16_matmul"))
+
+
+def _matmul(x, y, attrs, alpha=1.0):
+    """x @ y under the bf16 policy, returned in the policy's output dtype
+    (bfloat16 when active, else x's dtype)."""
+    out_dtype = x.dtype
+    if _bf16_active(attrs):
+        if x.dtype == torch.float32:
+            x = x.to(torch.bfloat16)
+        if y.dtype == torch.float32:
+            y = y.to(torch.bfloat16)
+        out_dtype = torch.bfloat16
+    ct = torch.promote_types(x.dtype, y.dtype)
+    if alpha != 1.0 and ct in (torch.bfloat16, torch.float16):
+        # scale the float32 product before the one rounding, as jax's
+        # preferred_element_type=float32 product does
+        ct = torch.float32
+    out = torch.matmul(x.to(ct), y.to(ct))
+    if alpha != 1.0:
+        out = out * alpha
+    return out.to(out_dtype)
+
+
+@register_op("mul")
+def _mul(ctx, ins, attrs):
+    """≙ mul_op.cc — the fc matmul core: flattens x to 2-D by x_num_col_dims."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xd = attrs.get("x_num_col_dims", 1)
+    yd = attrs.get("y_num_col_dims", 1)
+    xs, ys = tuple(x.shape), tuple(y.shape)
+    x2 = x.reshape(_prod(xs[:xd]), -1)
+    y2 = y.reshape(_prod(ys[:yd]), -1)
+    out = _matmul(x2, y2, attrs)
+    return {"Out": [out.reshape(xs[:xd] + ys[yd:])]}
+
+
+@register_op("matmul")
+def _matmul_op(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    return {"Out": [_matmul(x, y, attrs, alpha=attrs.get("alpha", 1.0))]}
+
+
+@register_op("layer_norm")
+def _layer_norm(ctx, ins, attrs):
+    """≙ layer_norm_op.cc: normalize over dims >= begin_norm_axis."""
+    x = ins["X"][0]
+    begin = attrs.get("begin_norm_axis", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    axes = tuple(range(begin, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, unbiased=False, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    norm_shape = tuple(x.shape[begin:])
+    if ins.get("Scale"):
+        y = y * ins["Scale"][0].reshape(norm_shape)
+    if ins.get("Bias"):
+        y = y + ins["Bias"][0].reshape(norm_shape)
+    lead = tuple(x.shape[:begin])
+    return {"Y": [y], "Mean": [mean.reshape(lead)],
+            "Variance": [var.reshape(lead)]}
+
+
+@register_op("softmax")
+def _softmax(ctx, ins, attrs):
+    return {"Out": [torch.softmax(ins["X"][0], dim=-1)]}
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx, ins, attrs):
+    return {"Out": [torch.log_softmax(ins["X"][0],
+                                      dim=attrs.get("axis", -1))]}

@@ -1,0 +1,151 @@
+"""Tensor-manipulation op lowerings.
+
+≙ paddle_tpu/ops/tensor_ops.py (reference operators/{reshape,transpose,
+unsqueeze,cast,fill_constant,assign,one_hot,lookup_table}_op.cc), trimmed
+to the serving slice, plus the KV-cache write `cache_write`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.dtypes import convert_dtype
+from ..framework.registry import register_op
+
+
+@register_op("reshape")
+def _reshape(ctx, ins, attrs):
+    x = ins["X"][0]
+    shape = list(attrs["shape"])
+    # reference reshape semantics: 0 means copy dim from input, -1 inferred
+    for i, d in enumerate(shape):
+        if d == 0:
+            shape[i] = x.shape[i]
+    return {"Out": [x.reshape(shape)]}
+
+
+@register_op("transpose")
+def _transpose(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].permute(*attrs["axis"])]}
+
+
+@register_op("unsqueeze")
+def _unsqueeze(ctx, ins, attrs):
+    x = ins["X"][0]
+    axes = attrs["axes"]
+    # ≙ jnp.expand_dims: axes index the OUTPUT's dims
+    out_ndim = x.dim() + len(axes)
+    for ax in sorted(a % out_ndim for a in axes):
+        x = x.unsqueeze(ax)
+    return {"Out": [x]}
+
+
+def _check(cond: torch.Tensor, msg: str):
+    """Raise `msg` unless `cond` holds. On a CPU tensor it raises here. On
+    a CUDA tensor the check runs on the device without a host round trip:
+    a failing check is a device-side assert, which raises at the next sync
+    and leaves the CUDA context unusable (every later CUDA call in the
+    process fails), so a CUDA caller must keep its positions in range.
+    The serving engine does: it retires a slot before its row is full."""
+    torch._assert_async(cond, msg)
+
+
+@register_op("cache_write")
+def _cache_write(ctx, ins, attrs):
+    """Write `New` into `Cache` at position `Pos` along `axis` — the KV-cache
+    decode idiom (≙ tensor_ops.py:162-213, a dynamic_update_slice there).
+
+    When the op's output variable is its Cache input (the serving tick's
+    persistable caches), the rows are written into the cache tensor in
+    place; otherwise into a copy.
+
+    - batch_axis None (default): `Pos` must be UNIFORM — one position for
+      the whole batch (every element equal).
+    - batch_axis set: `Pos` holds ONE position PER ROW of `Cache` along
+      `batch_axis` and each row is written at its own position — the
+      slot-indexed cache of the continuous-batching engine.
+
+    A position whose rows would overhang the cache raises; jax's
+    dynamic_update_slice would clamp it and silently move the write."""
+    cache = ins["Cache"][0]
+    new = ins["New"][0].to(cache.dtype)
+    pos_flat = ins["Pos"][0].reshape(-1)
+    nd = cache.dim()
+    axis = attrs["axis"] % nd
+    batch_axis = attrs.get("batch_axis", None)
+    out = cache if ctx.writes_input("Cache", "Out") else cache.clone()
+    t, width = cache.shape[axis], new.shape[axis]
+    pos = pos_flat.to(torch.long)
+    if batch_axis is None:
+        _check((pos == pos[0]).all(),
+               "cache_write requires a uniform position across rows "
+               "(contract: Pos is one scalar broadcast to the batch); pass "
+               "batch_axis for per-row positions")
+        pos = pos[:1]
+        c = out.movedim(axis, 0).unsqueeze(0)     # views of `out`
+        n = new.movedim(axis, 0).unsqueeze(0)
+    else:
+        ba = batch_axis % nd
+        if ba == axis:
+            raise ValueError("cache_write: batch_axis must differ from axis")
+        if pos.shape[0] != cache.shape[ba]:
+            raise ValueError(
+                f"cache_write: per-slot Pos has {pos.shape[0]} entries "
+                f"but Cache dim {ba} is {cache.shape[ba]}")
+        c = out.movedim((ba, axis), (0, 1))
+        n = new.movedim((ba, axis), (0, 1))
+    _check(((pos >= 0) & (pos + width <= t)).all(),
+           f"cache_write: a position lies outside [0, {t - width}] along "
+           f"cache axis {axis} (length {t}, rows written {width})")
+    rows = torch.arange(c.shape[0], device=pos.device).unsqueeze(1)
+    cols = pos.unsqueeze(1) + torch.arange(width, device=pos.device)
+    c[rows, cols] = n
+    return {"Out": [out]}
+
+
+@register_op("one_hot")
+def _one_hot(ctx, ins, attrs):
+    x = ins["X"][0]
+    depth = attrs["depth"]
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    # an index outside [0, depth) gives an all-zero row, as jax.nn.one_hot
+    classes = torch.arange(depth, device=x.device, dtype=x.dtype)
+    return {"Out": [(x.unsqueeze(-1) == classes).to(torch.float32)]}
+
+
+@register_op("cast")
+def _cast(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].to(convert_dtype(attrs["out_dtype"]))]}
+
+
+@register_op("fill_constant")
+def _fill_constant(ctx, ins, attrs):
+    dtype = convert_dtype(attrs.get("dtype", "float32"))
+    return {"Out": [torch.full(list(attrs["shape"]), attrs["value"],
+                               dtype=dtype, device=ctx.device)]}
+
+
+@register_op("assign_value")
+def _assign_value(ctx, ins, attrs):
+    def make():
+        return torch.tensor(attrs["values"],
+                            dtype=convert_dtype(attrs["dtype"]),
+                            device=ctx.device).reshape(attrs["shape"])
+    return {"Out": [ctx.constant(make)]}
+
+
+@register_op("lookup_table")
+def _lookup_table(ctx, ins, attrs):
+    """Embedding lookup (≙ lookup_table_op.cc:21)."""
+    w = ins["W"][0]
+    ids = ins["Ids"][0]
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    out = w[ids.to(torch.long)]
+    padding_idx = attrs.get("padding_idx", None)
+    if padding_idx is not None:
+        if padding_idx < 0:  # negative indexes from the end, as in reference
+            padding_idx += w.shape[0]
+        out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
+    return {"Out": [out]}

@@ -1,0 +1,224 @@
+"""Every op the port lowers, against the JAX package's lowering of it.
+
+One numpy input dict (made from a seed) goes through both registries —
+`paddle_tpu.framework.registry.lookup_op(t).lower` on jax arrays and
+`paddle_tpu_torch.framework.registry.lookup_op(t).lower` on CPU torch
+tensors — and every output slot is compared. Tolerances: float32 results
+at 1e-5 (summation order); results the bf16 policy rounds to bfloat16 at
+2e-2 relative (one or two bfloat16 steps: the two libraries accumulate the
+float32 product in a different order before the one rounding); integer
+and boolean results exactly. The random initializer ops are compared in
+distribution (threefry and Philox give different draws).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.framework import registry as jreg
+from paddle_tpu_torch.framework import registry as treg
+from paddle_tpu_torch.framework.executor import as_numpy
+
+R = np.random.RandomState(7)
+
+
+def f32(*shape):
+    return R.randn(*shape).astype("float32")
+
+
+def _per_slot_cache_case():
+    cache = f32(4, 1, 3, 8, 5)
+    new = f32(4, 1, 3, 1, 5)
+    pos = np.array([0, 3, 7, 5], "float32").reshape(4, 1, 1)
+    return {"Cache": [cache], "New": [new], "Pos": [pos]}, \
+        {"axis": 3, "batch_axis": 0}
+
+
+_T = 12
+
+# (id, op type, ins, attrs, {slot: "bf16"} for outputs rounded to bfloat16,
+#  {slot: dtype} for inputs fed in another dtype than their numpy array)
+CASES = [
+    ("add_same", "elementwise_add", {"X": [f32(2, 3, 4)], "Y": [f32(2, 3, 4)]},
+     {"axis": -1}, {}, {}),
+    ("add_axis1", "elementwise_add", {"X": [f32(2, 3, 4)], "Y": [f32(3)]},
+     {"axis": 1}, {}, {}),
+    ("add_trailing", "elementwise_add",
+     {"X": [f32(4, 1, _T)], "Y": [f32(1, 1, _T)]}, {"axis": -1}, {}, {}),
+    ("add_bf16_bias", "elementwise_add", {"X": [f32(2, 1, 6)], "Y": [f32(6)]},
+     {"axis": 2, "use_bf16": True}, {"Out": "bf16"}, {"X": "bfloat16"}),
+    ("add_bf16_promotes", "elementwise_add",
+     {"X": [f32(2, 1, 6)], "Y": [f32(2, 1, 6)]}, {"axis": -1}, {},
+     {"X": "bfloat16"}),
+    ("less_than", "less_than",
+     {"X": [np.arange(_T, dtype="float32").reshape(1, 1, _T)],
+      "Y": [np.array([1, 4, 12, 7], "float32").reshape(4, 1, 1)]},
+     {}, {}, {}),
+    ("scale_after", "scale", {"X": [f32(3, 5)]},
+     {"scale": 1e9, "bias": -1e9, "bias_after_scale": True}, {}, {}),
+    ("scale_before", "scale", {"X": [f32(3, 5)]},
+     {"scale": 2.5, "bias": 0.5, "bias_after_scale": False}, {}, {}),
+    ("relu", "relu", {"X": [f32(3, 7)]}, {}, {}, {}),
+    ("mul_f32", "mul", {"X": [f32(4, 1, 8)], "Y": [f32(8, 6)]},
+     {"x_num_col_dims": 2, "y_num_col_dims": 1, "use_bf16": False}, {}, {}),
+    ("mul_bf16", "mul", {"X": [f32(4, 1, 16)], "Y": [f32(16, 6)]},
+     {"x_num_col_dims": 2, "y_num_col_dims": 1, "use_bf16": True},
+     {"Out": "bf16"}, {}),
+    ("matmul_f32_alpha", "matmul",
+     {"X": [f32(4, 1, 3, 1, 5)], "Y": [f32(4, 1, 3, _T, 5)]},
+     {"transpose_Y": True, "alpha": 5 ** -0.5}, {}, {}),
+    ("matmul_bf16q_f32k", "matmul",
+     {"X": [f32(4, 1, 3, 1, 5)], "Y": [f32(4, 1, 3, _T, 5)]},
+     {"transpose_Y": True, "alpha": 5 ** -0.5}, {"Out": "bf16"},
+     {"X": "bfloat16"}),
+    ("matmul_bf16", "matmul", {"X": [f32(2, 3, 8)], "Y": [f32(2, 8, 4)]},
+     {"use_bf16": True}, {"Out": "bf16"}, {}),
+    ("matmul_broadcast", "matmul", {"X": [f32(4, 1, _T)], "Y": [f32(_T, 6)]},
+     {}, {}, {}),
+    ("layer_norm", "layer_norm",
+     {"X": [f32(4, 1, 8)], "Scale": [f32(8)], "Bias": [f32(8)]},
+     {"begin_norm_axis": 2, "epsilon": 1e-5}, {}, {}),
+    ("softmax", "softmax", {"X": [f32(4, 1, 3, 1, _T)]}, {"axis": -1}, {}, {}),
+    ("log_softmax", "log_softmax", {"X": [f32(4, 1, 9)]}, {"axis": -1}, {},
+     {}),
+    ("reshape", "reshape", {"X": [f32(4, 1, 12)]},
+     {"shape": [0, 1, 3, 1, 4]}, {}, {}),
+    ("transpose", "transpose", {"X": [f32(2, 3, 4, 5)]},
+     {"axis": [0, 2, 1, 3]}, {}, {}),
+    ("unsqueeze_23", "unsqueeze", {"X": [f32(4, 1, _T)]}, {"axes": [2, 3]},
+     {}, {}),
+    ("unsqueeze_neg", "unsqueeze", {"X": [f32(4, 3)]}, {"axes": [-1]}, {},
+     {}),
+    ("cast_f2i", "cast",
+     {"X": [np.array([0., 3., 7.9, 31.], "float32").reshape(4, 1, 1)]},
+     {"out_dtype": "int64"}, {}, {}),
+    ("cast_b2f", "cast", {"X": [f32(3, 4) > 0]}, {"out_dtype": "float32"},
+     {}, {}),
+    ("assign_value", "assign_value", {},
+     {"shape": [2, 3], "dtype": "float32",
+      "values": [0.5, 1.0, -2.0, 3.25, 0.0, 7.0]}, {}, {}),
+    ("fill_constant", "fill_constant", {},
+     {"shape": [2, 1, 3], "dtype": "float32", "value": 1.5}, {}, {}),
+    ("one_hot", "one_hot",
+     {"X": [np.array([0, 3, 11, 5], "int64").reshape(4, 1, 1)]},
+     {"depth": _T}, {}, {}),
+    ("lookup_table", "lookup_table",
+     {"W": [f32(10, 6)], "Ids": [np.array([[[1]], [[9]], [[0]]], "int64")]},
+     {"padding_idx": None}, {}, {}),
+    ("lookup_table_pad", "lookup_table",
+     {"W": [f32(10, 6)], "Ids": [np.array([[1], [9], [0]], "int64")]},
+     {"padding_idx": -1}, {}, {}),
+    ("cache_write_per_slot", "cache_write", *_per_slot_cache_case(), {}, {}),
+    ("cache_write_uniform", "cache_write",
+     {"Cache": [f32(2, 3, 8, 5)], "New": [f32(2, 3, 1, 5)],
+      "Pos": [np.full((2, 1), 6, "float32")]}, {"axis": 2}, {}, {}),
+    ("arg_max", "arg_max", {"X": [f32(4, 1, 9)]}, {"axis": 2}, {}, {}),
+    ("fused_decode_attention", "fused_decode_attention",
+     {"Q": [f32(4, 1, 3, 1, 5)], "K": [f32(4, 1, 3, _T, 5)],
+      "V": [f32(4, 1, 3, _T, 5)],
+      "Bias": [np.where(np.arange(_T)[None] < np.array([[1], [4], [12], [7]]),
+                        0.0, -1e9).astype("float32").reshape(4, 1, 1, 1, _T)]},
+     {"scale": 5 ** -0.5}, {}, {}),
+]
+
+
+def _to_jax(a, dtype):
+    return jnp.asarray(a, dtype=getattr(jnp, dtype)) if dtype \
+        else jnp.asarray(a)
+
+
+def _to_torch(a, dtype):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(getattr(torch, dtype)) if dtype else t
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_op_matches_jax_lowering(case):
+    _, op_type, ins, attrs, rounded, in_dtypes = case
+    jins = {s: [_to_jax(a, in_dtypes.get(s)) for a in v]
+            for s, v in ins.items()}
+    tins = {s: [_to_torch(a, in_dtypes.get(s)) for a in v]
+            for s, v in ins.items()}
+    jout = jreg.lookup_op(op_type).lower(
+        jreg.LowerCtx(rng_key=jax.random.PRNGKey(0)), jins, dict(attrs))
+    tout = treg.lookup_op(op_type).lower(treg.LowerCtx(), tins, dict(attrs))
+    assert set(tout) == set(jout)
+    for slot, jvals in jout.items():
+        for jv, tv in zip(jvals, tout[slot]):
+            # same dtype, but for jax's 32-bit ints (x64 mode is off)
+            jdt, tdt = str(jv.dtype), str(tv.dtype).replace("torch.", "")
+            assert tdt == jdt or (jdt, tdt) == ("int32", "int64"), (jdt, tdt)
+            assert (tdt == "bfloat16") == (slot in rounded)
+            jv = np.asarray(jv.astype(jnp.float32) if jv.dtype == jnp.bfloat16
+                            else jv)
+            tv = as_numpy(tv)
+            assert tv.shape == jv.shape, (slot, tv.shape, jv.shape)
+            if tv.dtype.kind in "biu":
+                np.testing.assert_array_equal(tv, jv, err_msg=slot)
+            elif slot in rounded:
+                np.testing.assert_allclose(tv, jv, rtol=2e-2, atol=2e-2,
+                                           err_msg=slot)
+            else:
+                np.testing.assert_allclose(tv, jv, rtol=1e-5, atol=1e-5,
+                                           err_msg=slot)
+
+
+@pytest.mark.parametrize("op_type,attrs", [
+    ("uniform_random", {"shape": [200, 50], "min": -0.5, "max": 0.25,
+                        "seed": 0, "dtype": "float32"}),
+    ("gaussian_random", {"shape": [200, 50], "mean": 0.3, "std": 0.02,
+                         "seed": 0, "dtype": "float32"}),
+])
+def test_random_op_matches_jax_in_distribution(op_type, attrs):
+    """Same shape, dtype, support and first two moments (10000 draws:
+    the moment tolerances are several standard errors wide)."""
+    jv = np.asarray(jreg.lookup_op(op_type).lower(
+        jreg.LowerCtx(rng_key=jax.random.PRNGKey(3)), {}, dict(attrs))
+        ["Out"][0])
+    tv = as_numpy(treg.lookup_op(op_type).lower(
+        treg.LowerCtx(seed=3), {}, dict(attrs))["Out"][0])
+    assert tv.shape == jv.shape and tv.dtype == jv.dtype
+    if op_type == "uniform_random":
+        assert tv.min() >= attrs["min"] and tv.max() < attrs["max"]
+        spread = attrs["max"] - attrs["min"]
+    else:
+        spread = attrs["std"]
+    np.testing.assert_allclose(tv.mean(), jv.mean(), atol=0.05 * spread)
+    np.testing.assert_allclose(tv.std(), jv.std(), rtol=0.05)
+
+
+def test_cache_write_in_place_on_its_own_variable():
+    """The tick's cache_write rebinds the cache variable it reads: the port
+    writes the rows into that tensor (no copy); a write to a fresh output
+    variable leaves the input untouched."""
+    from paddle_tpu_torch.framework.program import Program
+    from paddle_tpu_torch.framework.registry import LowerCtx
+    ins, attrs = _per_slot_cache_case()
+    block = Program().global_block()
+    for name, aliased in (("inplace", True), ("fresh", False)):
+        cache = torch.from_numpy(ins["Cache"][0].copy())
+        before = cache.clone()
+        op = block.append_op(
+            "cache_write", inputs={"Cache": ["c"], "New": ["n"], "Pos": ["p"]},
+            outputs={"Out": ["c" if aliased else "o"]}, attrs=attrs)
+        ctx = LowerCtx(op=op)
+        out = treg.lookup_op("cache_write").lower(
+            ctx, {"Cache": [cache], "New": [torch.from_numpy(ins["New"][0])],
+                  "Pos": [torch.from_numpy(ins["Pos"][0])]}, attrs)["Out"][0]
+        assert (out is cache) == aliased, name
+        if not aliased:
+            assert torch.equal(cache, before)
+
+
+def test_cache_write_out_of_range_raises():
+    """jax's dynamic_update_slice would clamp this write into the last
+    row; the port refuses it."""
+    ins, attrs = _per_slot_cache_case()
+    ins["Pos"] = [np.array([0, 3, 8, 5], "float32").reshape(4, 1, 1)]
+    with pytest.raises(RuntimeError, match="outside"):
+        treg.lookup_op("cache_write").lower(
+            treg.LowerCtx(), {s: [torch.from_numpy(a) for a in v]
+                              for s, v in ins.items()}, attrs)
