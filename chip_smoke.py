@@ -7,14 +7,19 @@ NVIDIA GPU.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of the serving path from paddle_tpu_torch/csrc
-   with nvcc for sm_90a, all sources at once;
+2. build every CUDA kernel from paddle_tpu_torch/csrc with nvcc for
+   sm_90a, one nvcc per source, all started at once;
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it, then time kernel, plain version and
-   the PyTorch library call that computes the same function: each one's
-   calls captured in a CUDA graph (no host launch cost in the time) over
-   rotating input sets larger than the 50 MB L2, replayed in turns
-   between CUDA events;
+   shapes its path gives it (decode attention: the serving tick; flash
+   attention forward, dQ and dK/dV: the LM's training shape in bfloat16
+   and float32, a packed batch with segment ids, Tq != Tk, T not a
+   multiple of the tile, head dims 32 and 128, rows with no visible key),
+   then time kernel, plain version and the PyTorch library call that
+   computes the same function: each one's calls captured in a CUDA graph
+   (no host launch cost in the time) over rotating input sets larger than
+   the 50 MB L2, replayed in turns between CUDA events (SDPA's backward,
+   the flash backward's yardstick: its captured forward and backward less
+   its forward);
 4. serve: ContinuousBatchingEngine on CUDAPlace(0) at the Transformer LM's
    full width (vocab 32000, d_model 512, d_inner 2048, 8 heads, 6 layers),
    16 slots, max_len 256, random weights from the startup program's seed,
@@ -29,17 +34,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    the phase-4 engine — wall and device-busy time per tick, the device's
    idle share, the top device kernels, and host time per op type (each
    op lowering wrapped in a record_function named by its op type, for
-   this phase only). Diagnostics; it changes no result above.
+   this phase only). Diagnostics; it changes no result above;
+7. train: the repo's LM training configuration (tools/bench_breadth.py
+   build_transformer: vocab 32000, max_len 512, d_model 512, d_inner
+   2048, 8 heads, 6 layers, batch 16, Adam lr 1e-4) built with
+   transformer_lm + optimizer.Adam(...).minimize(loss), initialized by the
+   startup program from its seed on CUDAPlace(0), 30 steps through
+   Executor.run over 4 batches of the repo's Markov tokens: tokens/s,
+   step time, the loss of the first and last steps (finite, falling) and
+   peak device memory. Each flash kernel must launch 6 times (one per
+   layer) each step;
+8. the same model packed: 64 ragged sequences (lognormal lengths 32-512)
+   packed by pack_lm_batch into rows of 512 with segment ids, 10 steps,
+   the same launch counts, a finite loss;
+9. training reference check: a small LM in float32 on the card and on the
+   CPU from the same weights, 3 Adam steps on the same batches: losses,
+   gradients and updated parameters agree;
+10. where a training step's time goes: phase 6's profile over steady-state
+   steps of the phase-7 trainer, with the autograd region's forward and
+   backward shown apart.
 
 Float32 matrix products run without TF32 here
 (torch.backends.cuda.matmul.allow_tf32 = False, and cudnn's too), so
 float32 comparisons are full float32.
 
-The line before last is one JSON object with each kernel's launches on the
-serving run, error against its plain version (`max_abs_err` at the serving
-shape with float32 q; decode attention adds `max_abs_err_bf16_q`, the same
-shape with the serving path's bfloat16 q) and times; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
+The line before last is one JSON object with each kernel's launches on its
+path's run (decode attention: phase 4; flash kernels: phase 7), error
+against its plain version (`max_abs_err` at the path's shape in float32;
+`max_abs_err_bf16_q` / `max_abs_err_bf16` the same shape in the path's
+bfloat16) and times; the last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
 
@@ -58,16 +81,37 @@ SERVE = dict(n_slots=16, vocab=32000, max_len=256, d_model=512, d_inner=2048,
              num_heads=8, num_layers=6)
 N_REQUESTS, PROMPT_LO, PROMPT_HI, MAX_NEW = 48, 8, 96, 32
 
-# published H100 rates by part (NVIDIA data sheets): memory bytes/s and
-# float32 (non-tensor-core) flop/s
-_RATES = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
-          "SXM": (3.35e12, 67e12)}
+# training configuration: the repo's LM training cell
+# (tools/bench_breadth.py:188 build_transformer), batch 16 of 512 tokens
+TRAIN = dict(vocab=32000, max_len=512, d_model=512, d_inner=2048,
+             num_heads=8, num_layers=6, batch=16, lr=1e-4)
+TRAIN_STEPS, TRAIN_BATCHES, PACKED_STEPS, PACKED_SEQS = 30, 4, 10, 64
+
+# published H100 rates by part (NVIDIA data sheets): memory bytes/s,
+# float32 (non-tensor-core) flop/s and dense bfloat16 tensor-core flop/s
+_RATES = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
+          "SXM": (3.35e12, 67e12, 989e12)}
 
 _KERNEL_META = {
     "decode_attention": {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/decode_attention.cu",
         "replaces": "paddle_tpu/fusion/decode_attention.py:60",
+    },
+    "flash_fwd": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:130",
+    },
+    "flash_bwd_dq": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:351",
+    },
+    "flash_bwd_dkv": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:395",
     },
 }
 
@@ -193,7 +237,7 @@ def check_decode_attention(ptt, name, rates):
     # (q.k and p.v) + ~5 per score (scale, bias, max, exp, sum)
     nbytes = (r * nh * dh * 2 + kv_bytes + r * t * 4 + r * nh * dh * 2)
     flops = 4 * r * nh * t * dh + 5 * r * nh * t
-    mem_rate, f32_rate = rates
+    mem_rate, f32_rate, _ = rates
     bound_ms = max(nbytes / mem_rate, flops / f32_rate) * 1e3
     bound_by = "bytes" if nbytes / mem_rate >= flops / f32_rate else \
         "operations"
@@ -210,6 +254,207 @@ def check_decode_attention(ptt, name, rates):
             "max_abs_err_bf16_q": errs[cases[0]], "ms": times["kernel"],
             "plain_ms": times["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": times["library"]}
+
+
+def _segments(gen, b, t, dev):
+    """[b, t] int32 packed-row segment ids: each row holds sequences of
+    random lengths 16-160 back to back (ids 1, 2, ...), then padding 0."""
+    import torch
+    ids = torch.zeros(b, t, dtype=torch.int32)
+    for r in range(b):
+        pos, sid = 0, 1
+        while True:
+            n = int(torch.randint(16, 161, (1,), generator=gen))
+            if pos + n > t:
+                break
+            ids[r, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return ids.to(dev)
+
+
+def _flash_err(out, ref, dtype):
+    """(max abs error, within tolerance) of a kernel output against its
+    plain version. float32: |err| <= 1e-5 * max(1, max|ref|), float32
+    rounding of differently ordered sums at the tensor's scale. bfloat16:
+    |err| <= one bfloat16 step at max(|out|, |ref|, rms(ref)) per element
+    (both round P and dS at the same points; their float32 sums differ in
+    order, so a result may round to the neighbouring bfloat16 value).
+    The lse sentinel of rows with no visible key (-1e30) must match
+    exactly."""
+    import torch
+    out, ref = out.float(), ref.float()
+    live = ref > -1e29
+    if not bool((out[~live] == ref[~live]).all()):
+        return float("inf"), False
+    out, ref = out[live], ref[live]
+    diff = (out - ref).abs()
+    if diff.numel() == 0:
+        return 0.0, True
+    if dtype == torch.float32:
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    else:
+        mag = torch.maximum(torch.maximum(out.abs(), ref.abs()),
+                            ref.pow(2).mean().sqrt())
+        tol = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(diff.max()), bool((diff <= tol).all())
+
+
+def check_flash(ptt, rates):
+    """Phase 3 for the flash-attention kernels K1 (forward), K2 (dQ) and
+    K3 (dK/dV): each against its plain version on the card over the LM's
+    shape in both types and the edge cases, then timed at the LM shape.
+    Returns {kernel name: JSON fields (all but launches)}."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain, flash_delta,
+        flash_fwd_cuda, flash_fwd_plain)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    b, h, t, d = (TRAIN["batch"], TRAIN["num_heads"], TRAIN["max_len"],
+                  TRAIN["d_model"] // TRAIN["num_heads"])
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def make(cb, ch, tq, tk, cd, dt):
+        q = torch.randn(cb, ch, tq, cd, device=dev, generator=gen).to(dt)
+        k = torch.randn(cb, ch, tk, cd, device=dev, generator=gen).to(dt)
+        v = torch.randn(cb, ch, tk, cd, device=dev, generator=gen).to(dt)
+        do = torch.randn(cb, ch, tq, cd, device=dev, generator=gen).to(dt)
+        return q, k, v, do
+
+    # (label, B, H, Tq, Tk, D, dtype, causal, segment ids)
+    packed = _segments(cpu_gen, 4, t, dev)
+    kv_ids = torch.full((2, 96), 7, dtype=torch.int32, device=dev)
+    q_ids = kv_ids.clone()
+    q_ids[:, :40] = 99           # an id no key carries: those rows see nothing
+    cases = [
+        ("lm", b, h, t, t, d, bf16, True, None),
+        ("lm", b, h, t, t, d, f32, True, None),
+        ("packed", 4, h, t, t, d, bf16, True, packed),
+        ("packed", 4, h, t, t, d, f32, True, packed),
+        ("tq<tk", 2, 4, 200, 328, d, f32, True, None),
+        ("odd_t", 3, 2, 200, 200, d, f32, False, None),
+        ("d128", 2, 4, 256, 256, 128, bf16, True, None),
+        ("d128", 2, 4, 256, 256, 128, f32, True, None),
+        ("d32", 2, 2, 96, 96, 32, f32, True, None),
+        ("no_key", 2, 2, 160, 96, d, f32, True, None),   # rows 0-63 causal
+        ("no_key_seg", 2, 2, 96, 96, d, f32, False, (q_ids, kv_ids)),
+    ]
+    errs = {}
+    for (label, cb, ch, tq, tk, cd, dt, causal, seg) in cases:
+        q, k, v, do = make(cb, ch, tq, tk, cd, dt)
+        scale = cd ** -0.5
+        qs, ks = seg if isinstance(seg, tuple) else (seg, seg)
+        o, lse = flash_fwd_cuda(q, k, v, scale, causal, qs, ks)
+        o_ref, lse_ref = flash_fwd_plain(q, k, v, scale, causal, qs, ks)
+        delta = flash_delta(o, do)
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, qs,
+                               ks)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal,
+                                    qs, ks)
+        dq_ref, dk_ref, dv_ref = flash_bwd_plain(
+            q, k, v, None, lse, do, scale, causal, qs, ks, delta=delta)
+        torch.cuda.synchronize()
+        if label.startswith("no_key"):
+            dead = (lse_ref <= -1e29)
+            assert bool(dead.any()), f"{label}: no row without a key"
+            assert bool((o.float()[dead] == 0).all()), \
+                f"{label}: a row with no visible key has a nonzero output"
+        res = {}
+        for kname, pairs in (("flash_fwd", [(o, o_ref), (lse, lse_ref)]),
+                             ("flash_bwd_dq", [(dq, dq_ref)]),
+                             ("flash_bwd_dkv", [(dk, dk_ref), (dv, dv_ref)])):
+            worst, ok = 0.0, True
+            for out, ref in pairs:
+                e, good = _flash_err(out, ref, dt if out.dtype == dt else f32)
+                worst, ok = max(worst, e), ok and good
+            res[kname] = worst
+            log(f"  {kname} {label} B={cb} H={ch} Tq={tq} Tk={tk} D={cd} "
+                f"{str(dt)[6:]} causal={causal} "
+                f"segments={'yes' if seg is not None else 'no'}: "
+                f"max_abs_err={worst:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{kname} disagrees with its plain "
+                                     f"version ({label}, {dt}): {worst}")
+        errs[(label, dt)] = res
+
+    # timing at the LM's shape and type (bf16, causal), rotating input
+    # sets that exceed the L2 three times over
+    set_bytes = 4 * b * h * t * d * 2
+    n_sets = max(4, math.ceil(3 * 50e6 / set_bytes))
+    sets = []
+    for _ in range(n_sets):
+        q, k, v, do = make(b, h, t, t, d, bf16)
+        o, lse = flash_fwd_cuda(q, k, v, d ** -0.5, True)
+        sets.append({"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse,
+                     "delta": flash_delta(o, do)})
+    scale = d ** -0.5
+    for st in sets:      # SDPA's backward differentiates leaf copies
+        st.update({n + "_leaf": st[n].detach().clone().requires_grad_()
+                   for n in ("q", "k", "v")})
+
+    def sdpa_fwd_bwd(st):
+        leaves = (st["q_leaf"], st["k_leaf"], st["v_leaf"])
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           scale=scale)
+        torch.autograd.grad(o, leaves, st["do"])
+
+    times = time_in_turns({
+        "fwd": lambda s: flash_fwd_cuda(s["q"], s["k"], s["v"], scale, True),
+        "fwd_plain": lambda s: flash_fwd_plain(s["q"], s["k"], s["v"],
+                                               scale, True),
+        "fwd_lib": lambda s: F.scaled_dot_product_attention(
+            s["q"], s["k"], s["v"], is_causal=True, scale=scale),
+        "dq": lambda s: flash_bwd_dq_cuda(s["q"], s["k"], s["v"], s["do"],
+                                          s["lse"], s["delta"], scale, True),
+        "dkv": lambda s: flash_bwd_dkv_cuda(s["q"], s["k"], s["v"], s["do"],
+                                            s["lse"], s["delta"], scale,
+                                            True),
+        "bwd_plain": lambda s: flash_bwd_plain(
+            s["q"], s["k"], s["v"], None, s["lse"], s["do"], scale, True,
+            delta=s["delta"]),
+        "fwd_bwd_lib": sdpa_fwd_bwd,
+    }, sets, reps=20)
+    lib_bwd = times["fwd_bwd_lib"] - times["fwd_lib"]
+    mem_rate, _, tc_rate = rates
+    tile = b * h * t * d * 2            # one [B,H,T,D] bf16 tensor
+    rows = b * h * t * 4                # one [B,H,T] float32 vector
+    causal_pairs = b * h * t * (t + 1) / 2
+    work = {   # bytes: inputs read once, outputs written once; causal flops
+        "flash_fwd": (3 * tile + tile + rows, 4 * causal_pairs * d),
+        "flash_bwd_dq": (4 * tile + 2 * rows + tile, 6 * causal_pairs * d),
+        "flash_bwd_dkv": (4 * tile + 2 * rows + 2 * tile,
+                          8 * causal_pairs * d),
+    }
+    kernel_ms = {"flash_fwd": times["fwd"], "flash_bwd_dq": times["dq"],
+                 "flash_bwd_dkv": times["dkv"]}
+    plain_ms = {"flash_fwd": times["fwd_plain"],
+                "flash_bwd_dq": times["bwd_plain"],
+                "flash_bwd_dkv": times["bwd_plain"]}
+    library_ms = {"flash_fwd": times["fwd_lib"], "flash_bwd_dq": lib_bwd,
+                  "flash_bwd_dkv": lib_bwd}
+    out = {}
+    for kname, (nbytes, flops) in work.items():
+        t_bytes, t_ops = nbytes / mem_rate, flops / tc_rate
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"  {kname} timing B={b} H={h} T={t} D={d} bf16 causal, "
+            f"{n_sets} input sets: kernel {kernel_ms[kname] * 1e3:.1f} us, "
+            f"plain {plain_ms[kname] * 1e3:.1f} us, library "
+            f"{library_ms[kname] * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} "
+            f"us ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            f"GFLOP at {tc_rate / 1e12:.0f} TFLOP/s bf16)")
+        out[kname] = {"max_abs_err": errs[("lm", f32)][kname],
+                      "max_abs_err_bf16": errs[("lm", bf16)][kname],
+                      "ms": kernel_ms[kname], "plain_ms": plain_ms[kname],
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms[kname]}
+    log("  (plain_ms of flash_bwd_dq and flash_bwd_dkv is the one plain "
+        "backward that computes dq, dk and dv; library_ms of both is SDPA's "
+        "backward for all three: SDPA forward+backward less its forward)")
+    return out
 
 
 def serve(ptt, kernels):
@@ -261,8 +506,6 @@ def serve(ptt, kernels):
     assert launches["decode_attention"] == expect, (
         f"decode_attention launched {launches['decode_attention']} times in "
         f"{eng.n_ticks} ticks; the path must launch it {expect} times")
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was never launched on the main path"
     return launches, eng
 
 
@@ -297,8 +540,8 @@ def reference_check(ptt):
         f"({len(prompts)} requests, {gpu.n_ticks} ticks)")
 
 
-def _profile(eng, n, annotate):
-    """torch.profiler over `n` engine ticks; with `annotate`, each op
+def _profile(step, n, annotate):
+    """torch.profiler over `n` calls of `step`; with `annotate`, each op
     lowering runs inside a record_function named by its op type."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -318,12 +561,29 @@ def _profile(eng, n, annotate):
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
-                eng.step()
+                step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         lowering.run_op = run_op
     return wall, prof.key_averages()
+
+
+def dev_self(e):
+    """A profiler event's own device time (us)."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0)) or 0
+
+
+def device_kernels(events):
+    """The profiled device kernels: CUDA events with device time, less the
+    record_function annotations the profiler mirrors onto the device
+    timeline (their time is their kernels', counted already)."""
+    from torch.autograd import DeviceType
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and dev_self(e) > 0 and not getattr(e, "is_user_annotation",
+                                                False)
+            and e.key not in ("vjp_region/forward", "vjp_region/backward")]
 
 
 def profile_ticks(eng, warm=8, n=32):
@@ -344,10 +604,6 @@ def profile_ticks(eng, warm=8, n=32):
     for _ in range(warm):
         eng.step()
 
-    def dev_self(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)) or 0
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -355,9 +611,8 @@ def profile_ticks(eng, warm=8, n=32):
     torch.cuda.synchronize()
     log(f"  {n} steady-state ticks, no profiler: wall "
         f"{(time.perf_counter() - t0) / n * 1e3:.3f} ms/tick")
-    wall, events = _profile(eng, n, annotate=False)
-    kernels_ = [e for e in events if e.device_type == DeviceType.CUDA
-                and dev_self(e) > 0]
+    wall, events = _profile(eng.step, n, annotate=False)
+    kernels_ = device_kernels(events)
     busy_us = sum(dev_self(e) for e in kernels_)
     log(f"  {n} ticks under the profiler: wall {wall / n * 1e3:.3f} "
         f"ms/tick")
@@ -371,7 +626,7 @@ def profile_ticks(eng, warm=8, n=32):
     for e in sorted(kernels_, key=dev_self, reverse=True)[:8]:
         log(f"    device {dev_self(e) / n:8.1f} us/tick {e.count / n:6.1f}"
             f" calls/tick  {e.key[:80]}")
-    wall, events = _profile(eng, n, annotate=True)
+    wall, events = _profile(eng.step, n, annotate=True)
     op_types = {op.type for op in eng._step._plan.ops}
     host = [e for e in events
             if e.key in op_types and e.device_type == DeviceType.CPU]
@@ -383,6 +638,251 @@ def profile_ticks(eng, warm=8, n=32):
             f"{e.cpu_time_total / max(total, 1e-9):6.1%} "
             f"{e.count / n:5.1f} calls/tick  op {e.key}")
     eng.run_until_idle()
+
+
+def _markov_tokens(rng, b, t, vocab):
+    """tok[i+1] = (tok[i]*13 + 7 + eps) % vocab, eps in [0, 8): the repo's
+    learnable LM data (a copy of tools/bench_breadth.py:176)."""
+    import numpy as np
+    toks = np.empty((b, t), np.int64)
+    toks[:, 0] = rng.randint(0, vocab, (b,))
+    for i in range(1, t):
+        toks[:, i] = (toks[:, i - 1] * 13 + 7
+                      + rng.randint(0, 8, (b,))) % vocab
+    return toks
+
+
+def _ragged_corpus(rng, n_seqs, t, vocab):
+    """Lognormal lengths (median ~100) clipped to 32..t, random tokens: a
+    copy of tools/bench_breadth.py:280 _ragged_corpus."""
+    import numpy as np
+    lengths = np.clip((np.exp(rng.randn(n_seqs) * 0.6 + 4.6)).astype(int),
+                      32, t)
+    return [rng.randint(1, vocab, (n,)).astype(np.int64) for n in lengths]
+
+
+def _train_program(ptt, cfg, packed=False):
+    """transformer_lm + Adam(lr).minimize(loss), as a user builds it."""
+    from paddle_tpu_torch.models import transformer
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        loss, _ = transformer.transformer_lm(
+            vocab=cfg["vocab"], max_len=cfg["max_len"],
+            d_model=cfg["d_model"], d_inner=cfg["d_inner"],
+            num_heads=cfg["num_heads"], num_layers=cfg["num_layers"],
+            dropout=0.0, packed=packed)
+        ptt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    return main, start, loss
+
+
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _run_steps(exe, main, scope, loss, feeds, steps, kernels):
+    """`steps` training steps through Executor.run (the loss fetched as
+    numpy each step, so each step ends synchronized). Launch counts are
+    zeroed just before and read just after. Returns (losses, step seconds,
+    launches)."""
+    import torch
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, secs = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feeds[i % len(feeds)], fetch_list=[loss],
+                       scope=scope)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(out))
+    return losses, secs, dict(kernels.LAUNCHES)
+
+
+def _report_steps(label, losses, secs, tokens, launches, layers, steps):
+    import numpy as np
+    import torch
+    st = np.asarray(secs[1:]) * 1e3          # the first step plans
+    log(f"  {label}: {steps} steps, {tokens} tokens/step: step time median "
+        f"{np.median(st):.1f} ms, p95 {np.percentile(st, 95):.1f} ms (steps "
+        f"2-{steps}; step 1 {secs[0] * 1e3:.1f} ms), "
+        f"{tokens / (np.median(st) / 1e3):.0f} tokens/s; loss step 1 "
+        f"{losses[0]:.4f}, step {steps} {losses[-1]:.4f}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+    log(f"  launches: {launches}")
+    assert all(math.isfinite(x) for x in losses), f"{label}: loss {losses}"
+    for k in FLASH:
+        assert launches[k] == layers * steps, (
+            f"{label}: {k} launched {launches[k]} times in {steps} steps; "
+            f"the path must launch it {layers * steps} times")
+
+
+def train(ptt, kernels):
+    """Phase 7: the LM training step at full width. Returns (launches,
+    trainer state for phase 10)."""
+    import numpy as np
+    import torch
+    cfg = TRAIN
+    rng = np.random.RandomState(SEED)
+    b, t = cfg["batch"], cfg["max_len"]
+    feeds = []
+    for _ in range(TRAIN_BATCHES):
+        toks = _markov_tokens(rng, b, t + 1, cfg["vocab"])
+        feeds.append({"tokens": toks[:, :-1].copy(),
+                      "tokens@SEQLEN": np.full((b,), t, "int32"),
+                      "targets": toks[:, 1:].copy()})
+    t0 = time.perf_counter()
+    main, start, loss = _train_program(ptt, cfg)
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(start, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    log(f"  built and initialized in {time.perf_counter() - t0:.2f} s: "
+        f"{n_params / 1e6:.2f}M parameters")
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, launches = _run_steps(exe, main, scope, loss, feeds,
+                                        TRAIN_STEPS, kernels)
+    _report_steps("padded LM, Adam", losses, secs, b * t, launches,
+                  cfg["num_layers"], TRAIN_STEPS)
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    return launches, (exe, main, scope, loss, feeds)
+
+
+def train_packed(ptt, kernels):
+    """Phase 8: the packed ragged corpus at full width."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.data import pack_lm_batch
+    cfg = TRAIN
+    rng = np.random.RandomState(SEED + 2)
+    seqs = _ragged_corpus(rng, PACKED_SEQS, cfg["max_len"], cfg["vocab"])
+    feed = pack_lm_batch(seqs, cfg["max_len"])
+    main, start, loss = _train_program(ptt, cfg, packed=True)
+    attn = [op for op in main.global_block().ops
+            if op.type == "fused_attention"]
+    assert attn and all(op.inputs.get("QSeg") for op in attn), \
+        "the packed program's attention carries no segment ids"
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(start, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, launches = _run_steps(exe, main, scope, loss, [feed],
+                                        PACKED_STEPS, kernels)
+    real = sum(len(s) - 1 for s in seqs)
+    log(f"  {len(seqs)} sequences ({real} trainable tokens) packed into "
+        f"{feed['tokens'].shape[0]} rows of {cfg['max_len']}")
+    _report_steps("packed LM, Adam", losses, secs,
+                  int(feed["tokens"].size), launches, cfg["num_layers"],
+                  PACKED_STEPS)
+    return launches
+
+
+def train_reference_check(ptt):
+    """Phase 9: small width, float32: the card and the CPU from the same
+    weights take 3 Adam steps on the same batches. Losses agree within
+    1e-5 relative; parameters within 1e-6 + 1e-5 |p|, except where a
+    step's gradient is below 1e-5 in magnitude: Adam moves such an element
+    by about lr * sign(g), and a sign set by rounding may differ, so there
+    the bound is 2 * lr per step."""
+    import numpy as np
+    from paddle_tpu_torch.framework.executor import as_numpy
+    cfg = dict(vocab=97, max_len=64, d_model=64, d_inner=128, num_heads=2,
+               num_layers=2, lr=1e-3)
+    steps, b = 3, 4
+    prev = ptt.flags.get_flag("use_bf16_matmul")
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    try:
+        main, start, loss = _train_program(ptt, cfg)
+        names = [p.name for p in main.all_parameters()]
+        gpu_scope = ptt.Scope()
+        gpu = ptt.Executor(ptt.CUDAPlace(0))
+        gpu.run(start, scope=gpu_scope)
+        state = {n: as_numpy(gpu_scope.get(n))
+                 for n in gpu_scope.local_var_names()}
+        cpu_scope = ptt.load_numpy_params(state, ptt.Scope(), ptt.CPUPlace())
+        cpu = ptt.Executor(ptt.CPUPlace())
+        rng = np.random.RandomState(SEED + 3)
+        fetch = [loss.name] + [n + "@GRAD" for n in names]
+        small = {n: None for n in names}
+        for i in range(steps):
+            toks = _markov_tokens(rng, b, cfg["max_len"] + 1, cfg["vocab"])
+            feed = {"tokens": toks[:, :-1].copy(),
+                    "tokens@SEQLEN": np.array([64, 50, 33, 64], "int32"),
+                    "targets": toks[:, 1:].copy()}
+            g_out = gpu.run(main, feed=feed, fetch_list=fetch,
+                            scope=gpu_scope)
+            c_out = cpu.run(main, feed=feed, fetch_list=fetch,
+                            scope=cpu_scope)
+            np.testing.assert_allclose(g_out[0], c_out[0], rtol=1e-5,
+                                       err_msg=f"loss, step {i + 1}")
+            for n, gg, cg in zip(names, g_out[1:], c_out[1:]):
+                np.testing.assert_allclose(
+                    gg, cg, atol=1e-5 * max(1.0, float(np.abs(cg).max())),
+                    err_msg=f"{n}@GRAD, step {i + 1}")
+                tiny = np.abs(cg) < 1e-5
+                small[n] = tiny if small[n] is None else small[n] | tiny
+            log(f"  step {i + 1}: loss card {float(g_out[0]):.6f}, CPU "
+                f"{float(c_out[0]):.6f}")
+        worst = 0.0
+        for n in names:
+            gp, cp = as_numpy(gpu_scope.get(n)), as_numpy(cpu_scope.get(n))
+            tol = np.where(small[n], 2 * cfg["lr"] * steps, 0.0) \
+                + 1e-6 + 1e-5 * np.abs(cp)
+            diff = np.abs(gp - cp)
+            assert (diff <= tol).all(), (n, float(diff.max()))
+            worst = max(worst, float(np.where(small[n], 0, diff).max()))
+    finally:
+        ptt.flags.set_flag("use_bf16_matmul", prev)
+    log(f"  small LM, float32, {steps} Adam steps: losses, gradients and "
+        f"{len(names)} parameters agree (largest parameter difference "
+        f"away from tiny gradients {worst:.2e})")
+
+
+def profile_train(trainer, warm=2, n=3):
+    """Phase 10: where a training step's time goes — torch.profiler over
+    steady-state steps of the phase-7 trainer, as phase 6 does for
+    ticks."""
+    import torch
+    from torch.autograd import DeviceType
+    exe, main, scope, loss, feeds = trainer
+    it = iter(range(10 ** 9))
+
+    def step():
+        exe.run(main, feed=feeds[next(it) % len(feeds)], fetch_list=[loss],
+                scope=scope)
+
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    log(f"  {n} steady-state steps, no profiler: wall "
+        f"{(time.perf_counter() - t0) / n * 1e3:.1f} ms/step")
+    wall, events = _profile(step, n, annotate=False)
+    kernels_ = device_kernels(events)
+    busy_us = sum(dev_self(e) for e in kernels_)
+    log(f"  {n} steps under the profiler: wall {wall / n * 1e3:.1f} ms/step")
+    if busy_us <= 0:
+        log("  the profiler saw no device time: device busy share not "
+            "measured")
+    else:
+        log(f"  device busy {busy_us / n / 1e3:.1f} ms/step "
+            f"({len(kernels_)} distinct kernels), idle share of the "
+            f"profiled window {1 - busy_us / 1e6 / wall:.3f}")
+    for e in sorted(kernels_, key=dev_self, reverse=True)[:12]:
+        log(f"    device {dev_self(e) / n / 1e3:8.2f} ms/step "
+            f"{e.count / n:6.1f} calls/step  {e.key[:80]}")
+    wall, events = _profile(step, n, annotate=True)
+    op_types = {op.type for op in main.global_block().ops}
+    regions = {"vjp_region/forward", "vjp_region/backward"}
+    host = [e for e in events if (e.key in op_types or e.key in regions)
+            and e.device_type == DeviceType.CPU]
+    log(f"  host time per op type, annotated run (wall "
+        f"{wall / n * 1e3:.1f} ms/step; vjp_region/forward holds the "
+        f"forward ops below it, vjp_region/backward is autograd's "
+        f"backward):")
+    for e in sorted(host, key=lambda e: e.cpu_time_total, reverse=True):
+        log(f"    host {e.cpu_time_total / n / 1e3:8.2f} ms/step "
+            f"{e.count / n:6.1f} calls/step  {e.key}")
 
 
 def main():
@@ -407,7 +907,8 @@ def main():
     part, rates = card_rates(name)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {name} "
         f"(rates of the H100 {part} part: {rates[0] / 1e12:.2f} TB/s, "
-        f"{rates[1] / 1e12:.0f} TFLOP/s float32)")
+        f"{rates[1] / 1e12:.0f} TFLOP/s float32, {rates[2] / 1e12:.0f} "
+        f"TFLOP/s dense bfloat16)")
 
     log("phase 2: build kernels")
     t0 = time.perf_counter()
@@ -423,16 +924,36 @@ def main():
 
     log("phase 3: kernels against their plain versions")
     results = {"decode_attention": check_decode_attention(ptt, name, rates)}
+    results.update(check_flash(ptt, rates))
 
     log("phase 4: serve the Transformer LM at full width")
-    launches, eng = serve(ptt, kernels)
+    serve_launches, eng = serve(ptt, kernels)
 
     log("phase 5: reference check on a small input")
     reference_check(ptt)
 
     log("phase 6: where a serving tick's time goes")
     profile_ticks(eng)
+    del eng
 
+    log("phase 7: train the Transformer LM at full width")
+    train_launches, trainer = train(ptt, kernels)
+
+    log("phase 8: train on packed ragged sequences at full width")
+    train_packed(ptt, kernels)
+
+    log("phase 9: training reference check on a small input")
+    train_reference_check(ptt)
+
+    log("phase 10: where a training step's time goes")
+    profile_train(trainer)
+
+    # each kernel's launches on its own path: decode attention on the
+    # serving run (phase 4), the flash kernels on the training run (phase 7)
+    launches = {"decode_attention": serve_launches["decode_attention"],
+                **{k: train_launches[k] for k in FLASH}}
+    for k, n in launches.items():
+        assert n > 0, f"kernel {k} was never launched on its path"
     line = {"kernels": [dict(name=k, **_KERNEL_META[k],
                              launches=launches[k], **results[k])
                         for k in results]}

@@ -8,15 +8,18 @@ written by hand for Hopper (csrc/). Entry points run on CUDAPlace(0) unless
 the caller passes CPUPlace(). This package imports neither jax nor
 paddle_tpu.
 
-This slice ports the serving path: `ContinuousBatchingEngine` over
-`transformer_lm_decode_tick` with the fused decode-attention kernel.
-ROADMAP.md lists what is still to be ported.
+Ported so far: the serving path (`ContinuousBatchingEngine` over
+`transformer_lm_decode_tick`, with the fused decode-attention kernel) and
+the training step (`transformer_lm`, `optimizer.Adam(...).minimize(loss)`
+through `append_backward` on torch.autograd, with the flash-attention
+forward and backward kernels). ROADMAP.md lists what is still to be ported.
 """
 
-from . import initializer, layers  # noqa: F401
+from . import clip, initializer, layers, optimizer, regularizer  # noqa: F401
 from .core import (CPUPlace, CUDAPlace, Place, default_place,  # noqa: F401
                    is_compiled_with_cuda)
 from .core import flags, unique_name  # noqa: F401
+from .framework.backward import append_backward, calc_gradient  # noqa: F401
 from .framework.executor import Executor  # noqa: F401
 from .framework.passes import get_pass, register_pass  # noqa: F401
 from .framework.program import (Program, Variable,  # noqa: F401
@@ -25,7 +28,7 @@ from .framework.program import (Program, Variable,  # noqa: F401
 from .framework.registry import registered_ops  # noqa: F401
 from .framework.scope import Scope, global_scope, reset_global_scope  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
-from . import io, models, serving  # noqa: F401,E402
+from . import data, io, models, serving  # noqa: F401,E402
 from .io import load_numpy_params  # noqa: F401,E402
 from .serving import ContinuousBatchingEngine  # noqa: F401,E402
 

@@ -2,7 +2,9 @@
 
 ≙ paddle_tpu/framework/executor.py. The JAX executor traces the global block
 into one jax function and XLA-compiles it; this one interprets the block
-eagerly, op by op, under `torch.inference_mode()`. What carries over:
+eagerly, op by op, under `torch.no_grad()`: grad is enabled only inside a
+`vjp_region` (lowering.py `run_vjp_region`, on torch.autograd). What
+carries over:
 
 - the plan cache keyed by (program version, feed signature, fetch list,
   scope contents, fusion flags) — the plan is the fused op list;
@@ -11,12 +13,16 @@ eagerly, op by op, under `torch.inference_mode()`. What carries over:
 - `Executor.prepare` → `PreparedStep` with `run`, `bind`, `refresh_state`
   and `run_bound` for the serving engine's tick.
 
-What differs: read-write persistable state (the serving engine's KV caches)
-is updated IN PLACE on the device — an op whose output variable is the one
-it reads writes into that tensor — where the JAX executor donates the
-buffers to XLA and rebinds the scope to the returned arrays. Fetches come
-back as device tensors from `PreparedStep`, as numpy arrays from
-`Executor.run` by default.
+What differs: persistable state that an op reads and rewrites is updated
+IN PLACE on the device — an op whose output variable is the one it reads
+writes into that tensor (`LowerCtx.writes_input`). That covers the serving
+engine's KV caches and a training step's parameters, optimizer moments,
+beta powers and learning rate; the JAX executor instead donates the
+buffers to XLA and rebinds the scope to the returned arrays. So a
+parameter keeps its tensor identity across steps. Fetches come back as
+device tensors from `PreparedStep`, as numpy arrays from `Executor.run` by
+default (a fetched tensor of read-write state is that state: a later step
+changes it). Gradients (`<param>@GRAD`) can be fetched like any variable.
 """
 
 from __future__ import annotations
@@ -66,15 +72,18 @@ class _Plan:
     """A program fused and fixed for one (feed signature, fetch list,
     scope contents): the op list plus the state analysis."""
 
-    def __init__(self, ops, ro_names, rw_names, out_only, feed_names,
+    def __init__(self, block, ro_names, rw_names, out_only, feed_names,
                  fetch_names):
-        self.ops = ops
+        self.ops = build_plan(block)
         self.ro_names = ro_names
         self.rw_names = rw_names
         self.feed_names = feed_names
         self.fetch_names = fetch_names
         self.state_out_names = sorted(set(rw_names) | set(out_only))
         self.constants = {}     # LowerCtx.constant memo, per plan
+        self.read_names = frozenset(
+            {n for op in block.ops for n in op.input_names()}
+            | set(fetch_names) | set(self.state_out_names))
 
 
 class PreparedStep:
@@ -235,7 +244,7 @@ class Executor:
         flags.vlog(1, "planning program id=%s version=%s feeds=%s "
                    "fetches=%s", id(program), program._version,
                    list(feed_names), list(fetch_names))
-        return _Plan(build_plan(fused.global_block()), ro, rw, out_only,
+        return _Plan(fused.global_block(), ro, rw, out_only,
                      list(feed_names), list(fetch_names))
 
     def _validate_fetches(self, program: Program, feed, fetch_names):
@@ -274,12 +283,14 @@ class Executor:
         self._run_counter += 1
         ctx = LowerCtx(device=self.device,
                        seed=_run_seed(random_seed, self._run_counter),
-                       constants=plan.constants)
+                       constants=plan.constants,
+                       fetch_names=tuple(plan.fetch_names),
+                       read_names=plan.read_names)
         env: Dict[str, Any] = {}
         env.update(zip(plan.ro_names, ro_vals))
         env.update(zip(plan.rw_names, rw_vals))
         env.update(zip(plan.feed_names, feed_vals))
-        with torch.inference_mode():
+        with torch.no_grad():
             run_plan(plan.ops, env, ctx)
         # scope write-back: read-write state was updated in place, so this
         # re-stores the same tensors; write-only state lands here

@@ -54,6 +54,38 @@ class Variable:
     def ndim(self):
         return len(self.shape) if self.shape is not None else None
 
+    # -- arithmetic (≙ math_op_patch.py operator overloads) --
+    def _binary(self, other, op_type, reverse=False):
+        from ..layers import math_ops
+        return math_ops.elementwise_binary_dispatch(self, other, op_type,
+                                                    reverse)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elementwise_div", reverse=True)
+
+    def __neg__(self):
+        from ..layers import math_ops
+        return math_ops.scale(self, scale=-1.0)
+
     def astype(self, dtype):
         from ..layers import tensor as tensor_layers
         return tensor_layers.cast(self, dtype)

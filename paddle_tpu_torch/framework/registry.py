@@ -4,7 +4,8 @@
 function `(ctx, ins, attrs) -> outs` over torch tensors, where `ins` and
 `outs` map slot names to lists of tensors. The executor calls the lowerings
 eagerly, op by op (lowering.py). Hand-written kernels sit behind the
-lowerings that need them (fusion/decode_attention.py).
+lowerings that need them (fusion/decode_attention.py,
+ops/flash_attention.py).
 """
 
 from __future__ import annotations
@@ -67,10 +68,11 @@ def _ensure_builtin_ops():
         return
     _builtins_loaded = True
     # import for registration side effects
-    from ..ops import (elementwise, nn_ops, random_ops,  # noqa: F401
-                       reduce_ops, tensor_ops)
+    from ..ops import (elementwise, flash_attention,  # noqa: F401
+                       nn_ops, optimizer_ops, random_ops, reduce_ops,
+                       sequence_ops, tensor_ops)
     from ..fusion import decode_attention  # noqa: F401
-    from . import lowering  # noqa: F401  (the vjp_region stub)
+    from . import lowering  # noqa: F401  (the vjp_region entry)
 
 
 @dataclass
@@ -86,11 +88,18 @@ class LowerCtx:
     constants: memo of attribute-built tensors, shared by every run of one
         plan (the executor passes the plan's), so a constant table is built
         and copied to the device once, not per run.
+    fetch_names: the run's fetch list.
+    read_names: every variable the plan reads or the run fetches or keeps
+        as state, or None (unknown: every output is needed). A lowering
+        skips an optional output nobody reads (`needed`), as XLA drops dead
+        code in the JAX package.
     """
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     seed: int = 0
     op: Any = None
     constants: dict = field(default_factory=dict)
+    fetch_names: tuple = ()
+    read_names: Optional[frozenset] = None
     _generator: Optional[torch.Generator] = None
 
     def generator(self, seed: int = 0) -> torch.Generator:
@@ -110,6 +119,10 @@ class LowerCtx:
         op = self.op
         return (op is not None and bool(op.inputs.get(in_slot))
                 and op.inputs.get(in_slot) == op.outputs.get(out_slot))
+
+    def needed(self, name: str) -> bool:
+        """Whether anything reads variable `name` after the op makes it."""
+        return self.read_names is None or name in self.read_names
 
     def constant(self, make: Callable[[], torch.Tensor]) -> torch.Tensor:
         """The current op's attribute-built output, made once per plan.

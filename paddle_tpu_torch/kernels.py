@@ -10,6 +10,8 @@ loaded.
 `LAUNCHES` counts, per kernel, the launches its wrapper made: a wrapper adds
 one where it launches its kernel and nowhere else, so a run can show that a
 path went through the kernel (`reset_launch_counts` before, read after).
+One library may hold several kernels (flash_attention.cu holds flash_fwd,
+flash_bwd_dq and flash_bwd_dkv).
 """
 
 from __future__ import annotations
@@ -24,13 +26,15 @@ from typing import Dict, Iterable, Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
-#: kernel name -> source file under csrc/
-KERNEL_SOURCES = {"decode_attention": "decode_attention.cu"}
+#: library name -> source file under csrc/
+KERNEL_SOURCES = {"decode_attention": "decode_attention.cu",
+                  "flash_attention": "flash_attention.cu"}
 
 #: kernel name -> launches made by its wrapper
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    "decode_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
-#: kernel name -> nvcc's output for the last build in this process
+#: library name -> nvcc's output for the last build in this process
 BUILD_LOGS: Dict[str, str] = {}
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -71,8 +75,8 @@ def _lib_path(name: str) -> str:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile the named kernels (default: all) that are not built yet, one
-    nvcc per source, all started together. Returns name -> seconds each
+    """Compile the named libraries (default: all) that are not built yet,
+    one nvcc per source, all started together. Returns name -> seconds each
     build took (0.0 for a library already on disk). Raises with nvcc's
     output when a build fails."""
     names = list(KERNEL_SOURCES if names is None else names)
@@ -105,7 +109,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built first if needed (cached per process)."""
+    """The named library, built first if needed (cached per process)."""
     lib = _LIBS.get(name)
     if lib is None:
         path = _lib_path(name)

@@ -1,7 +1,8 @@
 """Comparison layers.
 
-≙ paddle_tpu/layers/control_flow.py, trimmed to `less_than`, the one
-comparison the serving slice builds (the decode tick's position mask).
+≙ paddle_tpu/layers/control_flow.py, trimmed to the comparisons the
+serving and training slices build: `less_than` (the decode tick's position
+mask), `greater_than` and `equal` (the packed LM's loss mask).
 """
 
 from __future__ import annotations
@@ -27,3 +28,10 @@ def _compare(op_type, x, y, cond=None):
 def less_than(x, y, cond=None):
     return _compare("less_than", x, y, cond)
 
+
+def greater_than(x, y, cond=None):
+    return _compare("greater_than", x, y, cond)
+
+
+def equal(x, y, cond=None):
+    return _compare("equal", x, y, cond)

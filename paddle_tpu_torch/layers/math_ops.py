@@ -1,9 +1,14 @@
-"""The scale layer and the declared-shape broadcast rule.
+"""The scale layer, Variable arithmetic and the declared-shape broadcast
+rule.
 
-≙ paddle_tpu/layers/math_ops.py, trimmed to the serving slice.
+≙ paddle_tpu/layers/math_ops.py (reference python/paddle/fluid/layers/
+math_op_patch.py: Variable's + - * / dispatch here), without the
+comparison operators.
 """
 
 from __future__ import annotations
+
+import numbers
 
 from ..core.dtypes import dtype_name
 from ..layer_helper import LayerHelper
@@ -45,3 +50,34 @@ def _broadcast_shape(sa, sb):
     out.reverse()
     return tuple(out)
 
+
+def _fill_like_scalar(x, value):
+    from . import tensor as tensor_layers
+    return tensor_layers.fill_constant(shape=[1], dtype=dtype_name(x.dtype),
+                                       value=float(value))
+
+
+def elementwise_binary_dispatch(x, other, op_type, reverse=False):
+    """Implements Variable.__add__ & co. A number operand folds into a
+    `scale` op where it can, as in the JAX package."""
+    if isinstance(other, numbers.Number):
+        if not reverse:
+            if op_type == "elementwise_add":
+                return scale(x, 1.0, float(other))
+            if op_type == "elementwise_sub":
+                return scale(x, 1.0, -float(other))
+            if op_type == "elementwise_mul":
+                return scale(x, float(other))
+            if op_type == "elementwise_div":
+                return scale(x, 1.0 / float(other))
+        elif op_type == "elementwise_sub":  # other - x
+            return scale(x, -1.0, float(other))
+        other = _fill_like_scalar(x, other)
+    a, b = (other, x) if reverse else (x, other)
+    helper = LayerHelper(op_type)
+    out = helper.create_tmp_variable(dtype=dtype_name(a.dtype),
+                                     shape=_broadcast_shape(a.shape, b.shape),
+                                     stop_gradient=False)
+    helper.append_op(type=op_type, inputs={"X": [a], "Y": [b]},
+                     outputs={"Out": [out]}, attrs={"axis": -1})
+    return out

@@ -1,7 +1,7 @@
 """Neural-network layers.
 
 ≙ paddle_tpu/layers/nn.py (reference python/paddle/fluid/layers/nn.py),
-trimmed to the layers the serving slice builds. Each layer creates
+trimmed to the layers the serving and training slices build. Each layer creates
 parameters via LayerHelper and appends ops; the executor runs them.
 """
 
@@ -187,6 +187,14 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return elementwise_op_layer("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return elementwise_op_layer("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return elementwise_op_layer("elementwise_div", x, y, axis, act, name)
+
+
 def cache_write(cache, new, pos, axis, batch_axis=None, out=None, name=None):
     """Write `new` (size-1 along `axis`) into `cache` at position `pos` —
     the KV-cache decode primitive.
@@ -222,3 +230,107 @@ def log_softmax(x, axis=-1, name=None):
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return out
 
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, return_softmax=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    loss_shape = list(logits.shape[:-1]) + [1]
+    loss = helper.create_tmp_variable(dtype=dtype_name(logits.dtype),
+                                      shape=loss_shape)
+    sm = helper.create_tmp_variable(dtype=dtype_name(logits.dtype),
+                                    shape=logits.shape)
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Loss": [loss], "Softmax": [sm]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    if return_softmax:
+        return loss, sm
+    return loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=[])
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    shape = list(input.shape)
+    if dim is None:
+        out_shape = [] if not keep_dim else [1] * len(shape)
+    else:
+        dims = [dim] if isinstance(dim, int) else list(dim)
+        dims = [d if d >= 0 else len(shape) + d for d in dims]
+        out_shape = [1 if i in dims else d for i, d in enumerate(shape)] \
+            if keep_dim else [d for i, d in enumerate(shape)
+                              if i not in dims]
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=out_shape)
+    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"dim": dim, "keep_dim": keep_dim,
+                            "reduce_all": dim is None})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    out_shape = list(index.shape) + list(input.shape[1:])
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=out_shape)
+    helper.append_op(type="gather",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def slice(input, axes, starts, ends, name=None):
+    """≙ reference slice_op.cc — static slice."""
+    helper = LayerHelper("slice", name=name)
+    out_shape = list(input.shape)
+    for ax, s, e in zip(axes, starts, ends):
+        if out_shape[ax] is not None and out_shape[ax] >= 0:
+            dim = out_shape[ax]
+            # python slice clamping semantics, matching the runtime x[s:e]
+            s2 = min(max(s if s >= 0 else dim + s, 0), dim)
+            e2 = min(max(e if e >= 0 else dim + e, 0), dim)
+            out_shape[ax] = max(e2 - s2, 0)
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=out_shape)
+    helper.append_op(type="slice", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out
+
+
+def fused_attention(q, k, v, scale=None, causal=False, segment_ids=None,
+                    kv_segment_ids=None, name=None):
+    """Fused scaled-dot-product attention over [B, H, T, D] tensors: the
+    flash kernels on the card (ops/flash_attention.py), their plain
+    versions on the CPU.
+
+    segment_ids ([B, T] int var) enables packed-batch masking — several
+    sequences share one row and attend only within their own segment;
+    kv_segment_ids defaults to segment_ids (self-attention). Composes with
+    `causal`."""
+    helper = LayerHelper("fused_attention", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(q.dtype),
+                                     shape=list(q.shape))
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if kv_segment_ids is not None and segment_ids is None:
+        raise ValueError(
+            "fused_attention: kv_segment_ids requires segment_ids (the "
+            "query-side ids); pass both for cross-attention masking")
+    if segment_ids is not None:
+        inputs["QSeg"] = [segment_ids]
+        inputs["KVSeg"] = [kv_segment_ids if kv_segment_ids is not None
+                           else segment_ids]
+    helper.append_op(type="fused_attention",
+                     inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"scale": scale, "causal": causal})
+    return out

@@ -1,7 +1,8 @@
 """Tensor-creation/manipulation layers.
 
 ≙ paddle_tpu/layers/tensor.py (reference python/paddle/fluid/layers/tensor.py),
-trimmed to the serving slice: cast, assign, fill_constant, argmax.
+trimmed to the serving and training slices: cast, assign, concat,
+fill_constant, fill_constant_batch_size_like, argmax.
 """
 
 from __future__ import annotations
@@ -40,6 +41,23 @@ def assign(input, output=None):
     return output
 
 
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    shapes = [v.shape for v in input]
+    out_shape = list(shapes[0])
+    if all(s is not None for s in shapes):
+        ax = axis if axis >= 0 else len(out_shape) + axis
+        if all(s[ax] != -1 for s in shapes):
+            out_shape[ax] = sum(s[ax] for s in shapes)
+        else:
+            out_shape[ax] = -1
+    out = helper.create_tmp_variable(dtype=dtype_name(input[0].dtype),
+                                     shape=out_shape)
+    helper.append_op(type="concat", inputs={"X": list(input)},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 def fill_constant(shape, dtype, value, out=None, name=None):
     helper = LayerHelper("fill_constant", name=name)
     dtype = dtype_name(convert_dtype(dtype))
@@ -50,6 +68,23 @@ def fill_constant(shape, dtype, value, out=None, name=None):
                      attrs={"shape": list(shape), "dtype": dtype,
                             "value": float(value)})
     out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    dtype = dtype_name(convert_dtype(dtype))
+    out_shape = list(shape)
+    out_shape[output_dim_idx] = -1
+    out = helper.create_tmp_variable(dtype=dtype, shape=out_shape,
+                                     stop_gradient=True)
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
     return out
 
 

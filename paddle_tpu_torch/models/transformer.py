@@ -1,13 +1,15 @@
-"""Decoder-only Transformer LM: the serving decode tick.
+"""Decoder-only Transformer LM: the training step and the serving decode
+tick.
 
-≙ paddle_tpu/models/transformer.py, trimmed to what the continuous-batching
-engine builds: `transformer_lm_decode_tick` and its helpers. Parameter names
-and build order are the JAX package's, so weights carry across by name
+≙ paddle_tpu/models/transformer.py, trimmed to `transformer_lm` (the train
+graph, padded and packed), `transformer_lm_decode_tick` (what the
+continuous-batching engine builds) and their helpers. Parameter names and
+build order are the JAX package's, so weights carry across by name
 (io.load_numpy_params).
 
 Dropout sites that need the `dropout` op raise NotImplementedError: that op
-comes with the training slice (ROADMAP.md port queue item 1). The serving
-engine builds with dropout 0.
+is not ported yet (ROADMAP.md port queue item 1b). The LM trains and serves
+with dropout 0.
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ from __future__ import annotations
 import numpy as np
 
 from .. import layers
+from ..initializer import NormalInitializer
 from ..param_attr import ParamAttr
 
-_NO_DROPOUT_OP = ("the dropout op is not ported yet (training slice, "
-                  "ROADMAP.md port queue item 1); build with dropout=0.0")
+_NO_DROPOUT_OP = ("the dropout op is not ported yet (ROADMAP.md port "
+                  "queue item 1b, dropout); build with dropout=0.0")
 
 
 def positional_encoding_table(max_len, d_model):
@@ -29,6 +32,53 @@ def positional_encoding_table(max_len, d_model):
     table[:, 0::2] = np.sin(angle[:, 0::2])
     table[:, 1::2] = np.cos(angle[:, 1::2])
     return table
+
+
+def multi_head_attention(q_in, k_in, v_in, d_model, num_heads, dropout=0.0,
+                         is_test=False, causal=False, segment_ids=None,
+                         name=None):
+    """Multi-head attention with explicit head split, on the fused path:
+    the q/k/v projections, one `fused_attention` op (the flash kernels on
+    the card) and the output projection.
+
+    segment_ids ([B, T] int32 var): packed-batch masking — tokens attend
+    only within their own segment. Attention-weight dropout in training
+    needs the explicit weights tensor and the dropout op, which are not
+    ported: it raises."""
+    b, t_q = q_in.shape[0], q_in.shape[1]
+    t_k = k_in.shape[1]
+    d_head = d_model // num_heads
+    q = layers.fc(q_in, size=d_model, num_flatten_dims=2, bias_attr=False,
+                  use_bf16=True, name=name and name + "_q")
+    k = layers.fc(k_in, size=d_model, num_flatten_dims=2, bias_attr=False,
+                  use_bf16=True, name=name and name + "_k")
+    v = layers.fc(v_in, size=d_model, num_flatten_dims=2, bias_attr=False,
+                  use_bf16=True, name=name and name + "_v")
+
+    def split_heads(x, t):
+        x = layers.reshape(x, shape=[b, t, num_heads, d_head])
+        return layers.transpose(x, perm=[0, 2, 1, 3])
+
+    q = split_heads(q, t_q)
+    k = split_heads(k, t_k)
+    v = split_heads(v, t_k)
+    if segment_ids is not None and dropout and not is_test:
+        raise NotImplementedError(
+            "packed batches (segment_ids) require the fused attention "
+            "path; set attention dropout to 0 (residual/ffn dropout is "
+            "unaffected)")
+    if dropout and not is_test:
+        raise NotImplementedError(_NO_DROPOUT_OP)
+    ctx = layers.fused_attention(q, k, v, scale=float(d_head) ** -0.5,
+                                 causal=causal, segment_ids=segment_ids)
+    if dropout:
+        # downgrade_in_infer: training scaled attention weights by the keep
+        # mask; inference scales by (1-p) to keep the expectation
+        ctx = layers.scale(ctx, scale=1.0 - dropout)
+    ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    ctx = layers.reshape(ctx, shape=[b, t_q, d_model])
+    return layers.fc(ctx, size=d_model, num_flatten_dims=2, bias_attr=False,
+                     use_bf16=True, name=name and name + "_o")
 
 
 def ffn(x, d_model, d_inner, dropout=0.0, is_test=False, name=None):
@@ -52,6 +102,91 @@ def _add_norm(x, residual, dropout=0.0, is_test=False, name=None):
               "bias_attr": ParamAttr(name=name + ".bias")}
     return layers.layer_norm(layers.elementwise_add(x, residual),
                              begin_norm_axis=2, **kw)
+
+
+def _embed(tokens, vocab_size, d_model, max_len, name, positions=None):
+    """positions ([B, T] int32 var): per-token positional-encoding index.
+    Packed batches use position-within-segment so a sequence embeds the
+    same wherever it lands in the pack; default is the row position."""
+    emb = layers.embedding(
+        input=tokens, size=[vocab_size, d_model],
+        param_attr=ParamAttr(name=name + "_emb",
+                             initializer=NormalInitializer(0., d_model ** -0.5)))
+    emb = layers.scale(emb, scale=float(d_model) ** 0.5)
+    table = positional_encoding_table(max_len, d_model)
+    if positions is not None:
+        pos = layers.gather(layers.assign(table), positions)
+    else:
+        pos = layers.assign(table[None, :, :])
+    return layers.elementwise_add(emb, pos)
+
+
+def transformer_lm(tokens=None, label=None, vocab=32000, max_len=128,
+                   d_model=512, d_inner=2048, num_heads=8, num_layers=6,
+                   dropout=0.0, is_test=False, packed=False,
+                   mean_loss=False):
+    """Decoder-only causal LM train graph; returns (loss, logits).
+
+    packed=True: each batch row holds SEVERAL sequences back to back,
+    described by a `segments` int32 input ([B, max_len]; 0 = padding,
+    1..N = sequence index — see data.packing.pack_sequences) and their
+    `positions`. Attention is segment-masked through the flash kernels and
+    the loss counts only tokens whose successor is in the same segment.
+    Unpacked, `tokens@SEQLEN` ([B] int32) masks the loss to each row's
+    length."""
+    if tokens is None:
+        tokens = layers.data(name="tokens", shape=[max_len], dtype="int64",
+                             lod_level=0 if packed else 1)
+    if label is None:
+        label = layers.data(name="targets", shape=[max_len], dtype="int64")
+    segments = positions = None
+    if packed:
+        segments = layers.data(name="segments", shape=[max_len],
+                               dtype="int32")
+        positions = layers.data(name="positions", shape=[max_len],
+                                dtype="int32")
+    else:
+        seqlen = layers.sequence.get_seqlen(tokens)
+    x = _embed(tokens, vocab, d_model, max_len, "tok", positions=positions)
+    if dropout:
+        raise NotImplementedError(_NO_DROPOUT_OP)
+    for i in range(num_layers):
+        attn = multi_head_attention(x, x, x, d_model, num_heads,
+                                    0.0 if packed else dropout,
+                                    is_test, causal=True,
+                                    segment_ids=segments,
+                                    name=f"l{i}_attn")
+        x = _add_norm(attn, x, dropout, is_test, name=f"l{i}_ln1")
+        f = ffn(x, d_model, d_inner, dropout, is_test, name=f"l{i}_ffn")
+        x = _add_norm(f, x, dropout, is_test, name=f"l{i}_ln2")
+    logits = layers.fc(x, size=vocab, num_flatten_dims=2, use_bf16=True,
+                       name="lm_head")
+    label3 = layers.unsqueeze(label, axes=[2])
+    token_loss = layers.softmax_with_cross_entropy(logits, label3)
+    if packed:
+        # a token trains iff it is non-pad AND its successor belongs to
+        # the same segment (the last token of each packed sequence has no
+        # valid next-token target)
+        seg_next = layers.concat([
+            layers.slice(segments, axes=[1], starts=[1], ends=[max_len]),
+            layers.fill_constant_batch_size_like(segments, [-1, 1],
+                                                 "int32", 0)], axis=1)
+        nonpad = layers.greater_than(
+            segments, layers.fill_constant([1], "int32", 0))
+        same = layers.equal(segments, seg_next)
+        mask = layers.elementwise_mul(layers.cast(nonpad, "float32"),
+                                      layers.cast(same, "float32"))
+    else:
+        mask = layers.sequence_mask(seqlen, maxlen=max_len)
+    mask = layers.unsqueeze(mask, axes=[2])
+    masked = layers.elementwise_mul(token_loss, mask)
+    if mean_loss:
+        # mean over ALL positions instead of the mask-weighted quotient —
+        # identical for full-length sequences
+        loss = layers.mean(masked)
+    else:
+        loss = layers.reduce_sum(masked) / layers.reduce_sum(mask)
+    return loss, logits
 
 
 def _attend_cached(q, k5, v5, bias, K, num_heads, d_head, dropout=0.0):

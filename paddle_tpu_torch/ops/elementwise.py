@@ -1,10 +1,10 @@
 """Elementwise / scale / compare / activation op lowerings.
 
 ≙ paddle_tpu/ops/elementwise.py (reference operators/elementwise_*.cc,
-scale_op.cc, compare_op.cc, activation_op.cc), trimmed to the serving
-slice: elementwise_add, less_than, scale, relu. Dtype promotion follows
-torch, which agrees with jnp on the pairs the slice meets (bfloat16 +
-float32 → float32).
+scale_op.cc, compare_op.cc, activation_op.cc), trimmed to the serving and
+training slices: elementwise add/sub/mul/div, less_than, greater_than,
+equal, scale, relu. Dtype promotion follows torch, which agrees with jnp on
+the pairs the slices meet (bfloat16 + float32 → float32).
 """
 
 from __future__ import annotations
@@ -41,7 +41,12 @@ def _binary(fn):
 
 
 register_op("elementwise_add")(_binary(torch.add))
+register_op("elementwise_sub")(_binary(torch.sub))
+register_op("elementwise_mul")(_binary(torch.mul))
+register_op("elementwise_div")(_binary(torch.div))
 register_op("less_than")(_binary(torch.lt))
+register_op("greater_than")(_binary(torch.gt))
+register_op("equal")(_binary(torch.eq))
 
 
 @register_op("scale")

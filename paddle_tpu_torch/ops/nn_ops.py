@@ -1,7 +1,9 @@
-"""NN op lowerings: mul/matmul, layer_norm, softmax, log_softmax.
+"""NN op lowerings: mul/matmul, layer_norm, softmax, log_softmax,
+softmax_with_cross_entropy.
 
 ≙ paddle_tpu/ops/nn_ops.py (reference operators/{mul,matmul,layer_norm,
-softmax}_op.*), trimmed to the serving slice. The matrix products go to
+softmax,softmax_with_cross_entropy}_op.*), trimmed to the serving and
+training slices. The matrix products go to
 torch.matmul (cuBLAS on the card), as the JAX package leaves them to XLA.
 
 bf16 policy (≙ nn_ops.py:22-65, 89-102): a matmul whose layer asked for
@@ -103,3 +105,61 @@ def _softmax(ctx, ins, attrs):
 def _log_softmax(ctx, ins, attrs):
     return {"Out": [torch.log_softmax(ins["X"][0],
                                       dim=attrs.get("axis", -1))]}
+
+
+class _CEHard(torch.autograd.Function):
+    """Hard-label softmax cross entropy with the closed-form backward of
+    the JAX package's `_ce_hard` (nn_ops.py:439-481): it saves the logits
+    as they are (bfloat16 on the LM's path) and a [rows] float32
+    log-sum-exp, never a float32 [rows, vocab] log-softmax, and recomputes
+    p = exp(logit - lse) in the backward. loss [..., 1] float32."""
+
+    @staticmethod
+    def forward(ctx, logits, lbl, valid):
+        l32 = logits.float()
+        m = l32.amax(-1)
+        lse = m + torch.log(torch.exp(l32 - m.unsqueeze(-1)).sum(-1))
+        logit_at = l32.gather(-1, lbl.unsqueeze(-1)).squeeze(-1)
+        loss = torch.where(valid, lse - logit_at,
+                           torch.zeros((), device=lse.device)).unsqueeze(-1)
+        ctx.save_for_backward(logits, lbl, valid, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, dl):
+        logits, lbl, valid, lse = ctx.saved_tensors
+        g = dl.squeeze(-1) * valid
+        # (p - onehot) * g, built in one float32 buffer: subtracting 1 at
+        # the label is the same arithmetic as subtracting the one-hot row
+        d = logits.to(torch.float32, copy=True).sub_(
+            lse.unsqueeze(-1)).exp_()
+        d.scatter_add_(-1, lbl.unsqueeze(-1),
+                       torch.full(lbl.shape + (1,), -1.0, device=d.device))
+        d.mul_(g.unsqueeze(-1))
+        return d.to(logits.dtype), None, None
+
+
+@register_op("softmax_with_cross_entropy")
+def _softmax_with_cross_entropy(ctx, ins, attrs):
+    """≙ softmax_with_cross_entropy_op.cc (fused, numerically stable).
+    Labels equal to `ignore_index` (default -100) give zero loss and zero
+    gradient. The Softmax output is computed only when something reads
+    it."""
+    logits = ins["Logits"][0]
+    label = ins["Label"][0]
+    sm_names = (ctx.op.outputs.get("Softmax", []) if ctx.op is not None
+                else [])
+    want_sm = not sm_names or ctx.needed(sm_names[0])
+    if attrs.get("soft_label", False):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -(label * logp).sum(-1, keepdim=True)
+        return {"Loss": [loss], "Softmax": [logp.exp() if want_sm else None]}
+    lbl = label
+    if lbl.dim() == logits.dim() and lbl.shape[-1] == 1:
+        lbl = lbl.squeeze(-1)
+    valid = lbl != attrs.get("ignore_index", -100)
+    safe = torch.where(valid, lbl, torch.zeros((), dtype=lbl.dtype,
+                                               device=lbl.device))
+    loss = _CEHard.apply(logits, safe.to(torch.long), valid)
+    sm = torch.softmax(logits.float(), dim=-1) if want_sm else None
+    return {"Loss": [loss], "Softmax": [sm]}

@@ -1,7 +1,7 @@
 """Reduction op lowerings.
 
-≙ paddle_tpu/ops/reduce_ops.py, trimmed to `arg_max` (the decode tick's
-greedy sample).
+≙ paddle_tpu/ops/reduce_ops.py, trimmed to `reduce_sum`, `mean` (the
+training loss) and `arg_max` (the decode tick's greedy sample).
 """
 
 from __future__ import annotations
@@ -9,6 +9,28 @@ from __future__ import annotations
 import torch
 
 from ..framework.registry import register_op
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx, ins, attrs):
+    x = ins["X"][0]
+    dim = attrs.get("dim")
+    keep = attrs.get("keep_dim", False)
+    if attrs.get("reduce_all", False) or dim is None:
+        out = x.sum()
+        if keep:
+            out = out.reshape((1,) * x.dim())
+    else:
+        out = x.sum(dim=tuple(dim) if isinstance(dim, (list, tuple))
+                    else (dim,), keepdim=keep)
+    if not x.is_floating_point() and x.dtype != torch.bool:
+        out = out.to(x.dtype)      # jnp keeps the integer width
+    return {"Out": [out]}
+
+
+@register_op("mean")
+def _mean(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].mean()]}
 
 
 @register_op("arg_max")

@@ -1,8 +1,9 @@
 """Tensor-manipulation op lowerings.
 
 ≙ paddle_tpu/ops/tensor_ops.py (reference operators/{reshape,transpose,
-unsqueeze,cast,fill_constant,assign,one_hot,lookup_table}_op.cc), trimmed
-to the serving slice, plus the KV-cache write `cache_write`.
+unsqueeze,concat,slice,gather,cast,fill_constant,assign,one_hot,
+lookup_table}_op.cc), trimmed to the serving and training slices, plus the
+KV-cache write `cache_write`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,26 @@ def _reshape(ctx, ins, attrs):
 @register_op("transpose")
 def _transpose(ctx, ins, attrs):
     return {"Out": [ins["X"][0].permute(*attrs["axis"])]}
+
+
+@register_op("concat")
+def _concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register_op("slice")
+def _slice(ctx, ins, attrs):
+    x = ins["X"][0]
+    idx = [slice(None)] * x.dim()
+    for ax, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        idx[ax] = slice(s, e)
+    return {"Out": [x[tuple(idx)]]}
+
+
+@register_op("gather")
+def _gather(ctx, ins, attrs):
+    # ≙ jnp.take(x, index, axis=0): rows of x picked by an index of any shape
+    return {"Out": [ins["X"][0][ins["Index"][0].to(torch.long)]]}
 
 
 @register_op("unsqueeze")
@@ -124,6 +145,18 @@ def _fill_constant(ctx, ins, attrs):
     dtype = convert_dtype(attrs.get("dtype", "float32"))
     return {"Out": [torch.full(list(attrs["shape"]), attrs["value"],
                                dtype=dtype, device=ctx.device)]}
+
+
+@register_op("fill_constant_batch_size_like")
+def _fill_constant_bsl(ctx, ins, attrs):
+    ref = ins["Input"][0]
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = ref.shape[
+        attrs.get("input_dim_idx", 0)]
+    return {"Out": [torch.full(shape, attrs["value"],
+                               dtype=convert_dtype(attrs.get("dtype",
+                                                             "float32")),
+                               device=ctx.device)]}
 
 
 @register_op("assign_value")

@@ -122,6 +122,78 @@ CASES = [
       "Bias": [np.where(np.arange(_T)[None] < np.array([[1], [4], [12], [7]]),
                         0.0, -1e9).astype("float32").reshape(4, 1, 1, 1, _T)]},
      {"scale": 5 ** -0.5}, {}, {}),
+    # training slice
+    ("sub_axis1", "elementwise_sub", {"X": [f32(2, 3, 4)], "Y": [f32(3)]},
+     {"axis": 1}, {}, {}),
+    ("mul_trailing", "elementwise_mul",
+     {"X": [f32(4, 6, 1)], "Y": [f32(4, 6, 1)]}, {"axis": -1}, {}, {}),
+    ("div", "elementwise_div", {"X": [f32(3, 1)], "Y": [f32(1)]},
+     {"axis": -1}, {}, {}),
+    ("greater_than", "greater_than",
+     {"X": [np.array([[0, 2, 1, 0]], "int32")],
+      "Y": [np.array([0], "int32")]}, {}, {}, {}),
+    ("equal", "equal",
+     {"X": [np.array([[1, 1, 2, 0]], "int32")],
+      "Y": [np.array([[1, 2, 2, 0]], "int32")]}, {}, {}, {}),
+    ("reduce_sum_all", "reduce_sum", {"X": [f32(4, 6, 1)]},
+     {"dim": None, "keep_dim": False, "reduce_all": True}, {}, {}),
+    ("reduce_sum_dim_keep", "reduce_sum", {"X": [f32(4, 6, 3)]},
+     {"dim": [1], "keep_dim": True, "reduce_all": False}, {}, {}),
+    ("reduce_sum_int", "reduce_sum", {"X": [np.arange(12, dtype="int32")
+                                           .reshape(3, 4)]},
+     {"dim": 0, "keep_dim": False, "reduce_all": False}, {}, {}),
+    ("mean", "mean", {"X": [f32(4, 6, 1)]}, {}, {}, {}),
+    ("gather_2d_index", "gather",
+     {"X": [f32(_T, 5)], "Index": [np.array([[0, 3], [11, 2]], "int32")]},
+     {}, {}, {}),
+    ("slice", "slice", {"X": [np.arange(24, dtype="int32").reshape(2, 12)]},
+     {"axes": [1], "starts": [1], "ends": [_T]}, {}, {}),
+    ("concat", "concat", {"X": [np.ones((2, 11), "int32"),
+                                np.zeros((2, 1), "int32")]},
+     {"axis": 1}, {}, {}),
+    ("fill_constant_batch_size_like", "fill_constant_batch_size_like",
+     {"Input": [np.zeros((3, _T), "int32")]},
+     {"shape": [-1, 1], "dtype": "int32", "value": 0.0, "input_dim_idx": 0,
+      "output_dim_idx": 0}, {}, {}),
+    ("sequence_mask", "sequence_mask",
+     {"X": [np.array([_T, 5, 0, 1], "int32")]}, {"maxlen": _T}, {}, {}),
+    ("ce_hard", "softmax_with_cross_entropy",
+     {"Logits": [f32(3, 4, 9)],
+      "Label": [np.array([[0, 8, 3, 1]] * 3, "int64").reshape(3, 4, 1)]},
+     {"soft_label": False, "ignore_index": -100}, {}, {}),
+    ("ce_hard_bf16_ignore", "softmax_with_cross_entropy",
+     {"Logits": [f32(3, 4, 9)],
+      "Label": [np.array([[0, -1, 3, 8]] * 3, "int64").reshape(3, 4, 1)]},
+     {"soft_label": False, "ignore_index": -1}, {}, {"Logits": "bfloat16"}),
+    ("ce_soft", "softmax_with_cross_entropy",
+     {"Logits": [f32(3, 9)],
+      "Label": [np.full((3, 9), 1 / 9, "float32")]},
+     {"soft_label": True}, {}, {}),
+    ("sgd", "sgd", {"Param": [f32(4, 3)], "Grad": [f32(4, 3)],
+                    "LearningRate": [np.array([0.1], "float32")]},
+     {}, {}, {}),
+    ("momentum", "momentum",
+     {"Param": [f32(4, 3)], "Grad": [f32(4, 3)], "Velocity": [f32(4, 3)],
+      "LearningRate": [np.array([0.1], "float32")]},
+     {"mu": 0.9, "use_nesterov": False}, {}, {}),
+    ("momentum_nesterov", "momentum",
+     {"Param": [f32(4, 3)], "Grad": [f32(4, 3)], "Velocity": [f32(4, 3)],
+      "LearningRate": [np.array([0.1], "float32")]},
+     {"mu": 0.9, "use_nesterov": True}, {}, {}),
+    ("adam", "adam",
+     {"Param": [f32(4, 3)], "Grad": [f32(4, 3)], "Moment1": [f32(4, 3)],
+      "Moment2": [np.abs(f32(4, 3))],
+      "Beta1Pow": [np.array([0.81], "float32")],
+      "Beta2Pow": [np.array([0.998], "float32")],
+      "LearningRate": [np.array([1e-3], "float32")]},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}, {}, {}),
+    ("fused_attention_packed_causal", "fused_attention",
+     {"Q": [f32(2, 2, 40, 8)], "K": [f32(2, 2, 40, 8)], "V": [f32(2, 2, 40, 8)],
+      "QSeg": [np.repeat([[1] * 17 + [2] * 20 + [0] * 3], 2, 0)
+               .astype("int32")],
+      "KVSeg": [np.repeat([[1] * 17 + [2] * 20 + [0] * 3], 2, 0)
+                .astype("int32")]},
+     {"scale": None, "causal": True, "backend": "pallas_interpret"}, {}, {}),
 ]
 
 
@@ -222,3 +294,67 @@ def test_cache_write_out_of_range_raises():
         treg.lookup_op("cache_write").lower(
             treg.LowerCtx(), {s: [torch.from_numpy(a) for a in v]
                               for s, v in ins.items()}, attrs)
+
+
+@pytest.mark.parametrize("logits_dtype,ignore", [
+    ("float32", -100), ("float32", 2), ("bfloat16", -100)])
+def test_softmax_with_cross_entropy_gradient_matches_jax(logits_dtype,
+                                                         ignore):
+    """d(sum(loss * w))/d(logits) through the port's closed-form backward
+    against jax.grad through the JAX package's `_ce_hard` custom vjp.
+    Labels equal to ignore_index give zero loss and zero gradient. float32
+    at 1e-6; bfloat16 logits at one bfloat16 step (the gradient is rounded
+    to the logits' dtype)."""
+    logits = f32(2, 5, 11)
+    label = np.array([[0, 2, 10, 2, 7], [2, 1, 1, 9, 3]], "int64")[..., None]
+    w = f32(2, 5, 1)
+    attrs = {"soft_label": False, "ignore_index": ignore}
+
+    def jloss(lg):
+        out = jreg.lookup_op("softmax_with_cross_entropy").lower(
+            jreg.LowerCtx(rng_key=jax.random.PRNGKey(0)),
+            {"Logits": [lg], "Label": [jnp.asarray(label)]}, dict(attrs))
+        return jnp.sum(out["Loss"][0] * jnp.asarray(w))
+
+    jg = jax.grad(jloss)(_to_jax(logits, logits_dtype))
+    tl = _to_torch(logits, logits_dtype).requires_grad_()
+    out = treg.lookup_op("softmax_with_cross_entropy").lower(
+        treg.LowerCtx(), {"Logits": [tl], "Label": [torch.from_numpy(label)]},
+        dict(attrs))
+    (out["Loss"][0] * torch.from_numpy(w)).sum().backward()
+    tg = as_numpy(tl.grad)
+    jg = np.asarray(jg.astype(jnp.float32))
+    assert str(tl.grad.dtype) == f"torch.{logits_dtype}"
+    if ignore != -100:
+        assert (tg[label[..., 0] == ignore] == 0).all()
+    if logits_dtype == "float32":
+        np.testing.assert_allclose(tg, jg, atol=1e-6, rtol=0)
+    else:
+        np.testing.assert_allclose(tg, jg, rtol=2 ** -7, atol=1e-6)
+
+
+def test_optimizer_ops_update_in_place_on_their_own_variables():
+    """An optimizer op whose outputs name its inputs (what the optimizers
+    append) updates those tensors in place; the values equal the
+    out-of-place update."""
+    from paddle_tpu_torch.framework.program import Program
+    from paddle_tpu_torch.framework.registry import LowerCtx
+    ins = {"Param": [f32(4, 3)], "Grad": [f32(4, 3)], "Moment1": [f32(4, 3)],
+           "Moment2": [np.abs(f32(4, 3))],
+           "Beta1Pow": [np.array([0.81], "float32")],
+           "Beta2Pow": [np.array([0.998], "float32")],
+           "LearningRate": [np.array([1e-3], "float32")]}
+    attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    slots = ("Param", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow")
+    names = {s: s.lower() for s in ins}
+    block = Program().global_block()
+    op = block.append_op(
+        "adam", inputs={s: [names[s]] for s in ins},
+        outputs={s + "Out": [names[s]] for s in slots}, attrs=attrs)
+    tins = {s: [torch.from_numpy(v[0].copy())] for s, v in ins.items()}
+    fresh = treg.lookup_op("adam").lower(
+        LowerCtx(), {s: [t[0].clone()] for s, t in tins.items()}, attrs)
+    out = treg.lookup_op("adam").lower(LowerCtx(op=op), tins, attrs)
+    for s in slots:
+        assert out[s + "Out"][0] is tins[s][0], s
+        assert torch.equal(out[s + "Out"][0], fresh[s + "Out"][0]), s
