@@ -10,11 +10,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every CUDA kernel from paddle_tpu_torch/csrc with nvcc for
    sm_90a, one nvcc per source, all started at once;
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes its path gives it (decode attention: the serving tick; flash
-   attention forward, dQ and dK/dV: the LM's training shape in bfloat16
-   and float32, a packed batch with segment ids, Tq != Tk, T not a
-   multiple of the tile, head dims 32 and 128, rows with no visible key),
-   then time kernel, plain version and the PyTorch library call that
+   shapes its path gives it (decode attention: the serving tick, and the
+   NMT decoder's q [32, 1, 512] over [32, 64, 512] forward and gradient;
+   flash attention forward, dQ and dK/dV: the LM's training shape in
+   bfloat16 and float32, a packed batch with segment ids, Tq != Tk, T not
+   a multiple of the tile, head dims 32 and 128, rows with no visible key;
+   the whole-sequence LSTM and GRU: the stacked LSTM's and the NMT
+   encoder's shapes forward and reversed with ragged lengths including 0,
+   and H = 16 and 100), then time kernel, plain version and the PyTorch
+   library call that
    computes the same function: each one's calls captured in a CUDA graph
    (no host launch cost in the time) over rotating input sets larger than
    the 50 MB L2, replayed in turns between CUDA events (SDPA's backward,
@@ -52,20 +56,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    gradients and updated parameters agree;
 10. where a training step's time goes: phase 6's profile over steady-state
    steps of the phase-7 trainer, with the autograd region's forward and
-   backward shown apart.
+   backward shown apart;
+11. train the stacked LSTM classifier at its own full width (dict 30000,
+   emb 512, hid 512, 3 layers, max_len 100), batch 64 of lengths 16-100,
+   Adam 5e-4, 20 steps: examples/s, step time, loss, peak memory; the
+   LSTM kernel must launch 3 times (one per layer) each step;
+12. train the GRU-attention NMT model at full width (dict 10000, embed
+   256, hidden 512, batch 32, 64 source and target tokens), Adam, 10
+   steps: target tokens/s and the rest; the GRU kernel must launch once a
+   step and decode attention 64 times (one per target position);
+13. recurrent training reference check: both models small, float32, on
+   the card and on the CPU from the same weights, 3 Adam steps: losses,
+   gradients (the decoder's attention path included) and parameters
+   agree;
+14. where a recurrent training step's time goes: one profiled step of
+   each, device busy, idle share and the top device kernels.
 
 Float32 matrix products run without TF32 here
 (torch.backends.cuda.matmul.allow_tf32 = False, and cudnn's too), so
 float32 comparisons are full float32.
 
 The line before last is one JSON object with each kernel's launches on its
-path's run (decode attention: phase 4; flash kernels: phase 7), error
-against its plain version (`max_abs_err` at the path's shape in float32;
+path's run (decode attention: phase 4, with `launches_nmt` from phase 12;
+flash kernels: phase 7; LSTM: phase 11; GRU: phase 12), error against its
+plain version (`max_abs_err` at the path's shape in float32;
 `max_abs_err_bf16_q` / `max_abs_err_bf16` the same shape in the path's
-bfloat16) and times; the last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
+bfloat16; decode attention's `*_nmt` keys at the NMT shape) and times; the last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -113,7 +133,29 @@ _KERNEL_META = {
         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:395",
     },
+    "lstm_seq": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/recurrent.cu",
+        "replaces": "paddle_tpu/fusion/recurrent.py:80",
+    },
+    "gru_seq": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/recurrent.cu",
+        "replaces": "paddle_tpu/fusion/recurrent.py:118",
+    },
 }
+
+# the stacked LSTM classifier at its own defaults (models/stacked_lstm.py:
+# dict 30000, emb 512, hid 512, 3 layers, max_len 100), batch 64 of lengths
+# 16-100, token-sum-parity labels (tools/bench_breadth.py:156-173), Adam
+LSTM = dict(dict_dim=30000, emb_dim=512, hid_dim=512, stacked_num=3,
+            max_len=100, batch=64, len_lo=16, lr=5e-4)
+LSTM_STEPS, LSTM_BATCHES = 20, 4
+# the GRU-attention NMT model at tools/benchmark.py:111-130's configuration:
+# dict 10000, embed 256, hidden 512, batch 32, Ts = Tt = 64, ragged sources
+NMT = dict(dict_size=10000, embed_dim=256, hidden_dim=512, batch=32,
+           src_len=64, tgt_len=64, src_lo=16, lr=1e-3)
+NMT_STEPS, NMT_BATCHES = 10, 2
 
 
 def log(*a):
@@ -254,6 +296,242 @@ def check_decode_attention(ptt, name, rates):
             "max_abs_err_bf16_q": errs[cases[0]], "ms": times["kernel"],
             "plain_ms": times["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": times["library"]}
+
+
+def _rnn_err(out, ref):
+    """(max abs error, within tolerance): |err| <= 1e-4 * max(1, max|ref|),
+    float32 rounding of the recurrent products' differently ordered sums,
+    carried through up to 100 steps of the recurrence."""
+    diff = float((out - ref).abs().max())
+    return diff, diff <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def check_recurrent(ptt, rates):
+    """Phase 3 for the whole-sequence LSTM and GRU kernels: each against
+    its plain version on the card (hs, cs and the gate stash) at its path's
+    shape, forward and reversed, with ragged lengths including 0, and at
+    H = 16 and 100; then kernel, plain version and cuDNN's LSTM / GRU timed
+    at the path's shape as phase 3 times the others (the kernels'
+    cooperative launches are captured in CUDA graphs like any other).
+    Returns {kernel name: JSON fields (all but launches)}."""
+    import torch
+    from paddle_tpu_torch.fusion.recurrent import (
+        gru_seq_cuda, gru_seq_plain, lstm_seq_cuda, lstm_seq_plain)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def blocks(h):
+        # csrc/recurrent.cu units_per_block: the fewest units a block
+        # (1, 2, 4 or 8) that needs no more blocks than there are SMs
+        return next(-(-h // u) for u in (1, 2, 4, 8) if -(-h // u) <= sms)
+
+    def make(n_gates, b, t, h, lengths):
+        x = torch.randn(b, t, n_gates * h, device=dev, generator=gen) * 0.5
+        w = torch.randn(h, n_gates * h, device=dev, generator=gen) * h ** -0.5
+        h0 = torch.randn(b, h, device=dev, generator=gen) * 0.1
+        c0 = torch.randn(b, h, device=dev, generator=gen) * 0.1
+        sl = torch.tensor(lengths, dtype=torch.int64, device=dev)
+        return x, w, h0, c0, sl
+
+    def ragged(b, t):
+        lens = torch.randint(1, t + 1, (b,), generator=torch.Generator()
+                             .manual_seed(SEED + b + t)).tolist()
+        lens[0], lens[1 % b], lens[2 % b] = t, 0, 1
+        return lens
+
+    lb, lt, lh = LSTM["batch"], LSTM["max_len"], LSTM["hid_dim"]
+    gb, gt, gh = NMT["batch"], NMT["src_len"], NMT["hidden_dim"]
+    cases = [("lstm", lb, lt, lh, False), ("lstm", lb, lt, lh, True),
+             ("lstm", 5, 13, 16, False), ("lstm", 37, 9, 100, True),
+             ("gru", gb, gt, gh, False), ("gru", gb, gt, gh, True),
+             ("gru", 5, 13, 16, True), ("gru", 37, 9, 100, False)]
+    errs = {"lstm_seq": 0.0, "gru_seq": 0.0}
+    for kind, b, t, h, rev in cases:
+        x, w, h0, c0, sl = make(4 if kind == "lstm" else 3, b, t, h,
+                                ragged(b, t))
+        if kind == "lstm":
+            outs = lstm_seq_cuda(x, h0, c0, w, sl, rev, True)
+            refs = lstm_seq_plain(x, h0, c0, w, sl, rev, True)
+            kname, labels = "lstm_seq", ("hs", "cs", "stash")
+        else:
+            outs = gru_seq_cuda(x, h0, w, sl, rev, True)
+            refs = gru_seq_plain(x, h0, w, sl, rev, True)
+            kname, labels = "gru_seq", ("hs", "stash")
+        torch.cuda.synchronize()
+        # a row of length 0 keeps its initial state at every step
+        assert bool((outs[0][1] == h0[1]).all()), f"{kname}: row of length " \
+            f"0 moved"
+        worst, ok = 0.0, True
+        for label, out, ref in zip(labels, outs, refs):
+            e, good = _rnn_err(out, ref)
+            worst, ok = max(worst, e), ok and good
+        log(f"  {kname} B={b} T={t} H={h} reverse={rev} "
+            f"({blocks(h)} blocks): max_abs_err={worst:.3e} over "
+            f"{', '.join(labels)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kname} disagrees with its plain version "
+                                 f"at B={b} T={t} H={h} reverse={rev}: "
+                                 f"{worst}")
+        if (b, t, h) in ((lb, lt, lh), (gb, gt, gh)):
+            errs[kname] = max(errs[kname], worst)
+
+    # timing at the paths' shapes, with the stash (training writes it),
+    # lengths uniform over the cells' range; cuDNN's LSTM / GRU (input
+    # size H, packed for the lengths) as the yardstick
+    mem_rate, f32_rate, _ = rates
+    lin = torch.nn.utils.rnn
+    out = {}
+    for kname, b, t, h, lo in (("lstm_seq", lb, lt, lh, LSTM["len_lo"]),
+                               ("gru_seq", gb, gt, gh, NMT["src_lo"])):
+        ng = 4 if kname == "lstm_seq" else 3
+        cls = torch.nn.LSTM if kname == "lstm_seq" else torch.nn.GRU
+        lib = cls(h, h, batch_first=True).to(dev)
+        sets = []
+        for _ in range(2 if kname == "lstm_seq" else 4):
+            lens = torch.randint(lo, t + 1, (b,), generator=gen,
+                                 device=dev)
+            x, w, h0, c0, sl = make(ng, b, t, h, lens.tolist())
+            xin = torch.randn(b, t, h, device=dev, generator=gen)
+            sets.append({"x": x, "w": w, "h0": h0, "c0": c0, "sl": sl,
+                         "packed": lin.pack_padded_sequence(
+                             xin, lens.cpu(), batch_first=True,
+                             enforce_sorted=False)})
+        if kname == "lstm_seq":
+            fns = {"kernel": lambda s: lstm_seq_cuda(
+                       s["x"], s["h0"], s["c0"], s["w"], s["sl"], False,
+                       True),
+                   "plain": lambda s: lstm_seq_plain(
+                       s["x"], s["h0"], s["c0"], s["w"], s["sl"], False,
+                       True)}
+        else:
+            fns = {"kernel": lambda s: gru_seq_cuda(
+                       s["x"], s["h0"], s["w"], s["sl"], False, True),
+                   "plain": lambda s: gru_seq_plain(
+                       s["x"], s["h0"], s["w"], s["sl"], False, True)}
+        with torch.no_grad():
+            fns["library"] = lambda s: lib(s["packed"])
+            times = time_in_turns(fns, sets, reps=10)
+        # least time: x, w, h0 (c0), seqlen read once; hs (cs) and the
+        # stash written once; the recurrent product's 2 B T H (ng H) flops
+        # over the float32 rate (every step of every row computes its
+        # gates, as in the TPU kernel; frozen rows keep the old state)
+        nbytes = 4 * (2 * b * t * ng * h + h * ng * h + b
+                      + (2 if ng == 4 else 1) * (b * h + b * t * h))
+        flops = 2 * b * t * h * ng * h
+        t_bytes, t_ops = nbytes / mem_rate, flops / f32_rate
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        n_sync = t if ng == 4 else 2 * t
+        log(f"  {kname} timing B={b} T={t} H={h} float32 with stash "
+            f"({blocks(h)} blocks, {n_sync + 1} grid barriers): "
+            f"kernel {times['kernel'] * 1e3:.1f} us, plain "
+            f"{times['plain'] * 1e3:.1f} us, cuDNN "
+            f"{'LSTM' if ng == 4 else 'GRU'} {times['library'] * 1e3:.1f} "
+            f"us, bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
+            f"{f32_rate / 1e12:.0f} TFLOP/s float32)")
+        out[kname] = {"max_abs_err": errs[kname], "ms": times["kernel"],
+                      "plain_ms": times["plain"], "bound_ms": bound_ms,
+                      "bound_by": bound_by,
+                      "library_ms": times["library"]}
+    log("  (cuDNN's LSTM also computes the input product x.W_ih (input size "
+        "H), the kernel takes x pre-projected; cuDNN's GRU applies r after "
+        "the recurrent product, r (W_hn h), where this GRU computes "
+        "(r h) W_c: a different function of the same cost)")
+    return out
+
+
+def check_decode_attention_nmt(rates):
+    """Phase 3 for the decode-attention kernel at the NMT decoder's shape
+    (q [B, 1, H] over the encoder's [B, T, H], so R = 1, nh = B, dh = H =
+    512, float32): the forward against the plain version, and the gradient
+    of `fused_decode_attention` (its autograd function) against autograd
+    of the plain version. Returns the JSON fields it adds to the kernel's
+    entry."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.fusion.decode_attention import (
+        decode_attention_cuda, decode_attention_plain,
+        fused_decode_attention)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    b, t, h = NMT["batch"], NMT["src_len"], NMT["hidden_dim"]
+
+    def make():
+        q = torch.randn(b, 1, h, device=dev, generator=gen)
+        enc = torch.randn(b, t, h, device=dev, generator=gen)
+        lens = torch.randint(1, t + 1, (b, 1), device=dev, generator=gen)
+        bias = torch.where(torch.arange(t, device=dev)[None] < lens, 0.0,
+                           -1e9)[:, None, :]
+        return q, enc, bias
+
+    q, enc, bias = make()
+    out = fused_decode_attention(q, enc, enc, bias, 1.0)
+    ref = decode_attention_plain(q.reshape(1, b, h), enc[None], enc[None],
+                                 bias.reshape(1, b, t), 1.0).reshape(b, 1, h)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    ok = err <= 1e-5 * max(1.0, float(ref.abs().max()))
+    log(f"  decode_attention NMT shape R=1 nh={b} T={t} dh={h} float32: "
+        f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"decode_attention at dh={h}: {err}")
+
+    # gradient: the same upstream gradient through both
+    dout = torch.randn(b, 1, h, device=dev, generator=gen)
+    leaves = [a.detach().clone().requires_grad_() for a in (q, enc, bias)]
+    out = fused_decode_attention(leaves[0], leaves[1], leaves[1], leaves[2],
+                                 1.0)
+    assert out.grad_fn is not None, \
+        "fused_decode_attention on the card records no gradient"
+    kgrads = torch.autograd.grad(out, leaves, dout)
+    plain_leaves = [a.detach().clone().requires_grad_() for a in (q, enc,
+                                                                  bias)]
+    pq, pe, pb = plain_leaves
+    pout = decode_attention_plain(pq.reshape(1, b, h), pe[None], pe[None],
+                                  pb.reshape(1, b, t), 1.0)
+    pgrads = torch.autograd.grad(pout.reshape(b, 1, h), plain_leaves, dout)
+    gerr = 0.0
+    for name, kg, pg in zip(("q", "k=v", "bias"), kgrads, pgrads):
+        e = float((kg - pg).abs().max())
+        gerr = max(gerr, e)
+        if e > 1e-5 * max(1.0, float(pg.abs().max())):
+            raise AssertionError(f"decode_attention gradient d{name} at "
+                                 f"dh={h}: {e}")
+    log(f"  decode_attention gradient (autograd function against autograd "
+        f"of the plain version), dq, d(k=v), dbias: max_abs_err="
+        f"{gerr:.3e} ok")
+
+    sets = [dict(zip(("q", "enc", "bias"), make())) for _ in range(8)]
+    for st in sets:
+        st["q3"] = st["q"].reshape(1, b, h)
+        st["k4"] = st["enc"][None]
+        st["b3"] = st["bias"].reshape(1, b, t)
+        st["mask4"] = st["bias"][None]
+    times = time_in_turns({
+        "kernel": lambda s: decode_attention_cuda(s["q3"], s["k4"], s["k4"],
+                                                  s["b3"], 1.0),
+        "plain": lambda s: decode_attention_plain(s["q3"], s["k4"], s["k4"],
+                                                  s["b3"], 1.0),
+        "library": lambda s: F.scaled_dot_product_attention(
+            s["q3"][:, :, None], s["k4"], s["k4"],
+            attn_mask=s["b3"][:, :, None], scale=1.0),
+    }, sets)
+    mem_rate, f32_rate, _ = rates
+    nbytes = 4 * (b * h + 2 * b * t * h + b * t + b * h)
+    flops = 4 * b * t * h + 5 * b * t
+    bound_ms = max(nbytes / mem_rate, flops / f32_rate) * 1e3
+    log(f"  decode_attention timing at the NMT shape: kernel "
+        f"{times['kernel'] * 1e3:.2f} us, plain {times['plain'] * 1e3:.2f} "
+        f"us, SDPA {times['library'] * 1e3:.2f} us, bound "
+        f"{bound_ms * 1e3:.2f} us (bytes: {nbytes / 1e6:.2f} MB, K and V "
+        f"counted apart though the decoder passes one tensor)")
+    return {"max_abs_err_nmt": err, "max_abs_err_grad_nmt": gerr,
+            "ms_nmt": times["kernel"], "plain_ms_nmt": times["plain"],
+            "bound_ms_nmt": bound_ms, "library_ms_nmt": times["library"]}
 
 
 def _segments(gen, b, t, dev):
@@ -885,6 +1163,295 @@ def profile_train(trainer, warm=2, n=3):
             f"{e.count / n:6.1f} calls/step  {e.key}")
 
 
+def _lstm_program(ptt, cfg):
+    """stacked_lstm_net + Adam(lr).minimize(loss), as a user builds it."""
+    from paddle_tpu_torch.models import stacked_lstm
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        loss, _, _ = stacked_lstm.stacked_lstm_net(
+            dict_dim=cfg["dict_dim"], emb_dim=cfg["emb_dim"],
+            hid_dim=cfg["hid_dim"], stacked_num=cfg["stacked_num"],
+            max_len=cfg["max_len"])
+        ptt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    return main, start, loss
+
+
+def _lstm_feeds(rng, cfg, n):
+    """Token ids with lengths uniform in [len_lo, max_len] (padding id 0)
+    and labels = the parity of the token sum (tools/bench_breadth.py:
+    156-173)."""
+    import numpy as np
+    b, t = cfg["batch"], cfg["max_len"]
+    feeds = []
+    for _ in range(n):
+        lens = rng.randint(cfg["len_lo"], t + 1, (b,))
+        words = rng.randint(1, cfg["dict_dim"], (b, t)).astype("int64")
+        words[np.arange(t)[None, :] >= lens[:, None]] = 0
+        feeds.append({"words": words, "words@SEQLEN": lens.astype("int32"),
+                      "label": (words.sum(1, keepdims=True) % 2)
+                      .astype("int64")})
+    return feeds
+
+
+def _nmt_program(ptt, cfg):
+    """machine_translation.train_net + Adam(lr).minimize(loss)."""
+    from paddle_tpu_torch.models import machine_translation as mt
+    L = ptt.layers
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        src = L.data("src", shape=[cfg["src_len"]], dtype="int64")
+        src_lens = L.data("src_lens", shape=[], dtype="int64")
+        tgt_in = L.data("tgt_in", shape=[cfg["tgt_len"]], dtype="int64")
+        tgt_out = L.data("tgt_out", shape=[cfg["tgt_len"]], dtype="int64")
+        tgt_mask = L.data("tgt_mask", shape=[cfg["tgt_len"]],
+                          dtype="float32")
+        loss, _ = mt.train_net(src, src_lens, tgt_in, tgt_out, tgt_mask,
+                               dict_size=cfg["dict_size"],
+                               embed_dim=cfg["embed_dim"],
+                               hidden_dim=cfg["hidden_dim"])
+        ptt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    return main, start, loss
+
+
+def _nmt_feeds(rng, cfg, n):
+    """A copy task (≙ tests/test_machine_translation.py _toy_batch): source
+    ids of lengths uniform in [src_lo, src_len], the target the source's
+    tokens then end-of-sequence (id 1, bos 0), the mask over the target's
+    length."""
+    import numpy as np
+    b, ts, tt, v = cfg["batch"], cfg["src_len"], cfg["tgt_len"], \
+        cfg["dict_size"]
+    feeds = []
+    for _ in range(n):
+        lens = rng.randint(cfg["src_lo"], ts + 1, (b,))
+        src = rng.randint(2, v, (b, ts)).astype("int64")
+        src[np.arange(ts)[None, :] >= lens[:, None]] = 0
+        tlen = np.minimum(lens + 1, tt)
+        tgt = np.zeros((b, tt), "int64")
+        tgt[:, :tt - 1] = src[:, :tt - 1]
+        tgt[np.arange(b), tlen - 1] = 1
+        tgt_in = np.concatenate([np.zeros((b, 1), "int64"), tgt[:, :-1]], 1)
+        feeds.append({"src": src, "src_lens": lens.astype("int64"),
+                      "tgt_in": tgt_in, "tgt_out": tgt,
+                      "tgt_mask": (np.arange(tt)[None, :] < tlen[:, None])
+                      .astype("float32")})
+    return feeds
+
+
+def _train_recurrent(ptt, kernels, label, main, start, loss, feeds, steps,
+                     units):
+    """`steps` training steps of a recurrent model at full width on
+    CUDAPlace(0), launch counts zeroed just before and read just after.
+    `units` is what one step trains (examples or target tokens) for the
+    rate. Returns (launches, trainer state)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(start, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    log(f"  built and initialized in {time.perf_counter() - t0:.2f} s: "
+        f"{n_params / 1e6:.2f}M parameters")
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, launches = _run_steps(exe, main, scope, loss, feeds,
+                                        steps, kernels)
+    st = np.asarray(secs[1:]) * 1e3          # the first step plans
+    k = len(feeds)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    log(f"  {label}: {steps} steps, {units[1]} {units[0]}/step: step time "
+        f"median {np.median(st):.1f} ms, p95 {np.percentile(st, 95):.1f} ms "
+        f"(steps 2-{steps}; step 1 {secs[0] * 1e3:.1f} ms), "
+        f"{units[1] / (np.median(st) / 1e3):.1f} {units[0]}/s; loss step 1 "
+        f"{losses[0]:.4f}, step {steps} {losses[-1]:.4f} (mean over the "
+        f"{k} batches: first pass {first:.4f}, last pass {last:.4f}); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+    log(f"  launches: {launches}")
+    assert all(math.isfinite(x) for x in losses), f"{label}: loss {losses}"
+    assert last < first, f"{label}: the loss did not fall: {losses}"
+    return launches, (exe, main, scope, loss, feeds)
+
+
+def train_lstm(ptt, kernels):
+    """Phase 11: the stacked LSTM classifier at full width."""
+    import numpy as np
+    cfg = LSTM
+    main, start, loss = _lstm_program(ptt, cfg)
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("dynamic_lstm") == cfg["stacked_num"], types
+    feeds = _lstm_feeds(np.random.RandomState(SEED + 6), cfg, LSTM_BATCHES)
+    launches, trainer = _train_recurrent(
+        ptt, kernels, "stacked LSTM, Adam", main, start, loss, feeds,
+        LSTM_STEPS, ("examples", cfg["batch"]))
+    expect = {"lstm_seq": cfg["stacked_num"] * LSTM_STEPS, "gru_seq": 0,
+              "decode_attention": 0}
+    for k, n in expect.items():
+        assert launches[k] == n, (f"stacked LSTM: {k} launched "
+                                  f"{launches[k]} times in {LSTM_STEPS} "
+                                  f"steps; the path launches it {n} times")
+    return launches, trainer
+
+
+def train_nmt(ptt, kernels):
+    """Phase 12: the GRU-attention NMT model at full width."""
+    import numpy as np
+    cfg = NMT
+    main, start, loss = _nmt_program(ptt, cfg)
+    feeds = _nmt_feeds(np.random.RandomState(SEED + 7), cfg, NMT_BATCHES)
+    tokens = int(sum(f["tgt_mask"].sum() for f in feeds) / len(feeds))
+    launches, trainer = _train_recurrent(
+        ptt, kernels, "GRU-attention NMT, Adam", main, start, loss, feeds,
+        NMT_STEPS, ("target tokens", tokens))
+    expect = {"gru_seq": NMT_STEPS, "lstm_seq": 0,
+              "decode_attention": cfg["tgt_len"] * NMT_STEPS}
+    for k, n in expect.items():
+        assert launches[k] == n, (f"NMT: {k} launched {launches[k]} times "
+                                  f"in {NMT_STEPS} steps; the path launches "
+                                  f"it {n} times")
+    return launches, trainer
+
+
+RECURRENT_SMALL = {
+    "stacked_lstm": (dict(dict_dim=300, emb_dim=16, hid_dim=16,
+                          stacked_num=3, max_len=10, batch=4, len_lo=1,
+                          lr=1e-2), _lstm_program, _lstm_feeds),
+    "nmt": (dict(dict_size=50, embed_dim=16, hidden_dim=32, batch=4,
+                 src_len=6, tgt_len=5, src_lo=1, lr=1e-2), _nmt_program,
+            _nmt_feeds),
+}
+
+
+def recurrent_reference_check(ptt):
+    """Phase 13: both recurrent models small, float32, on the card and on
+    the CPU from the same weights, 3 Adam steps on the same batches:
+    losses within 1e-5 relative; gradients, the NMT decoder's attention
+    path included, within 1e-5 of the largest element's magnitude (or 1);
+    parameters within 1e-6 + 1e-5 |p|, except where a step's gradient is
+    below 1e-5 in magnitude (there Adam moves an element by about
+    lr * sign(g), and a sign set by rounding may differ: 2 lr per
+    step). Then a control: the NMT check once more with the decode-
+    attention kernel's output cut from the graph on the card, as the port
+    ran it before that kernel had a backward; the phase fails unless the
+    check then rejects a gradient."""
+    for label, (cfg, build, make_feeds) in RECURRENT_SMALL.items():
+        _card_against_cpu(ptt, label, cfg, build, make_feeds)
+    cfg, build, make_feeds = RECURRENT_SMALL["nmt"]
+    try:
+        with _decode_attention_without_backward():
+            _card_against_cpu(ptt, "nmt (control)", cfg, build, make_feeds)
+    except AssertionError as e:
+        where = [ln for ln in str(e).splitlines() if "@GRAD" in ln]
+        if not where:
+            raise
+        log(f"  control, the decode-attention kernel's output cut from the "
+            f"graph on the card: the check rejects it ({where[0].strip()})")
+    else:
+        raise AssertionError("control: the NMT check passed with the "
+                             "decode-attention kernel's output cut from the "
+                             "graph; it cannot see a missing backward")
+
+
+@contextlib.contextmanager
+def _decode_attention_without_backward():
+    """`fused_decode_attention` on CUDA tensors returns the kernel's output
+    with no gradient function, as before the kernel had a backward; CPU
+    tensors keep the differentiable plain version."""
+    from paddle_tpu_torch.fusion import decode_attention as tda
+    fn = tda._DecodeAttention
+
+    class Cut:
+        @staticmethod
+        def apply(q3, k4, v4, bias3, scale):
+            if not q3.is_cuda:
+                return fn.apply(q3, k4, v4, bias3, scale)
+            return tda.decode_attention_cuda(
+                q3.contiguous(), k4.contiguous(), v4.contiguous(), bias3,
+                scale).detach()
+
+    tda._DecodeAttention = Cut
+    try:
+        yield
+    finally:
+        tda._DecodeAttention = fn
+
+
+def _card_against_cpu(ptt, label, cfg, build, make_feeds, steps=3):
+    """One model of phase 13: raises AssertionError where the card and the
+    CPU disagree."""
+    import numpy as np
+    from paddle_tpu_torch.framework.executor import as_numpy
+    main, start, loss = build(ptt, cfg)
+    names = [p.name for p in main.all_parameters()]
+    gpu_scope = ptt.Scope()
+    gpu = ptt.Executor(ptt.CUDAPlace(0))
+    gpu.run(start, scope=gpu_scope)
+    state = {n: as_numpy(gpu_scope.get(n))
+             for n in gpu_scope.local_var_names()}
+    cpu_scope = ptt.load_numpy_params(state, ptt.Scope(), ptt.CPUPlace())
+    cpu = ptt.Executor(ptt.CPUPlace())
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    small = {n: None for n in names}
+    feeds = make_feeds(np.random.RandomState(SEED + 8), cfg, steps)
+    for i, feed in enumerate(feeds):
+        g_out = gpu.run(main, feed=feed, fetch_list=fetch,
+                        scope=gpu_scope)
+        c_out = cpu.run(main, feed=feed, fetch_list=fetch,
+                        scope=cpu_scope)
+        np.testing.assert_allclose(g_out[0], c_out[0], rtol=1e-5,
+                                   err_msg=f"{label}: loss, step "
+                                           f"{i + 1}")
+        for n, gg, cg in zip(names, g_out[1:], c_out[1:]):
+            np.testing.assert_allclose(
+                gg, cg, atol=1e-5 * max(1.0, float(np.abs(cg).max())),
+                err_msg=f"{label}: {n}@GRAD, step {i + 1}")
+            tiny = np.abs(cg) < 1e-5
+            small[n] = tiny if small[n] is None else small[n] | tiny
+        log(f"  {label} step {i + 1}: loss card {float(g_out[0]):.6f}, "
+            f"CPU {float(c_out[0]):.6f}")
+    worst = 0.0
+    for n in names:
+        gp, cp = as_numpy(gpu_scope.get(n)), as_numpy(cpu_scope.get(n))
+        tol = np.where(small[n], 2 * cfg["lr"] * steps, 0.0) \
+            + 1e-6 + 1e-5 * np.abs(cp)
+        diff = np.abs(gp - cp)
+        assert (diff <= tol).all(), (label, n, float(diff.max()))
+        worst = max(worst, float(np.where(small[n], 0, diff).max()))
+    log(f"  small {label}, float32, {steps} Adam steps: losses, "
+        f"gradients and {len(names)} parameters agree (largest "
+        f"parameter difference away from tiny gradients {worst:.2e})")
+
+
+def profile_recurrent(trainers):
+    """Phase 14: one profiled steady-state step of each recurrent trainer:
+    wall, device busy, the idle share and the top device kernels."""
+    import torch
+    for label, (exe, main, scope, loss, feeds) in trainers.items():
+        def step():
+            exe.run(main, feed=feeds[0], fetch_list=[loss], scope=scope)
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        log(f"  {label}: one steady-state step, no profiler: wall "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        wall, events = _profile(step, 1, annotate=False)
+        kernels_ = device_kernels(events)
+        busy_us = sum(dev_self(e) for e in kernels_)
+        log(f"  {label}: one step under the profiler: wall "
+            f"{wall * 1e3:.1f} ms")
+        if busy_us <= 0:
+            log("  the profiler saw no device time: device busy share not "
+                "measured")
+        else:
+            log(f"  device busy {busy_us / 1e3:.1f} ms ({len(kernels_)} "
+                f"distinct kernels), idle share of the profiled window "
+                f"{1 - busy_us / 1e6 / wall:.3f}")
+        for e in sorted(kernels_, key=dev_self, reverse=True)[:10]:
+            log(f"    device {dev_self(e) / 1e3:8.2f} ms {e.count:6d} "
+                f"calls  {e.key[:80]}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -924,7 +1491,9 @@ def main():
 
     log("phase 3: kernels against their plain versions")
     results = {"decode_attention": check_decode_attention(ptt, name, rates)}
+    results["decode_attention"].update(check_decode_attention_nmt(rates))
     results.update(check_flash(ptt, rates))
+    results.update(check_recurrent(ptt, rates))
 
     log("phase 4: serve the Transformer LM at full width")
     serve_launches, eng = serve(ptt, kernels)
@@ -947,11 +1516,30 @@ def main():
 
     log("phase 10: where a training step's time goes")
     profile_train(trainer)
+    del trainer
+
+    log("phase 11: train the stacked LSTM at full width")
+    lstm_launches, lstm_trainer = train_lstm(ptt, kernels)
+
+    log("phase 12: train the GRU-attention NMT model at full width")
+    nmt_launches, nmt_trainer = train_nmt(ptt, kernels)
+
+    log("phase 13: recurrent training reference check on small inputs")
+    recurrent_reference_check(ptt)
+
+    log("phase 14: where a recurrent training step's time goes")
+    profile_recurrent({"stacked LSTM": lstm_trainer, "NMT": nmt_trainer})
 
     # each kernel's launches on its own path: decode attention on the
-    # serving run (phase 4), the flash kernels on the training run (phase 7)
+    # serving run (phase 4; its NMT run beside it), the flash kernels on
+    # the LM training run (phase 7), the LSTM kernel on the stacked LSTM's
+    # (phase 11), the GRU kernel on the NMT model's (phase 12)
     launches = {"decode_attention": serve_launches["decode_attention"],
-                **{k: train_launches[k] for k in FLASH}}
+                **{k: train_launches[k] for k in FLASH},
+                "lstm_seq": lstm_launches["lstm_seq"],
+                "gru_seq": nmt_launches["gru_seq"]}
+    results["decode_attention"]["launches_nmt"] = \
+        nmt_launches["decode_attention"]
     for k, n in launches.items():
         assert n > 0, f"kernel {k} was never launched on its path"
     line = {"kernels": [dict(name=k, **_KERNEL_META[k],

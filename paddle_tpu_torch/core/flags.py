@@ -1,14 +1,15 @@
 """Global typed flag registry.
 
-≙ paddle_tpu/core/flags.py, trimmed to the flags the serving slice reads.
+≙ paddle_tpu/core/flags.py, trimmed to the flags the ported slices read.
 Flags are typed, documented, and can be set from the environment with the
 ``PTPU_`` prefix, e.g. ``PTPU_CHECK_NAN_INF=1``.
 
 No flag here routes CUDA tensors away from a kernel: a kernel wrapper takes
 its plain PyTorch version only for tensors that lie on the CPU, and an
 executor on a CUDA device raises when `fuse_decode_attention` is off and its
-program holds a decode-attention chain (framework/passes.py
-`apply_fusion_passes`). That flag is for comparing the fused and unfused
+program holds a decode-attention chain, or when `fuse_recurrent_cells` is off
+and it holds a fusable `dynamic_lstm` / `dynamic_gru` (framework/passes.py
+`apply_fusion_passes`). Those flags are for comparing the fused and unfused
 programs on the CPU.
 """
 
@@ -94,3 +95,10 @@ define_bool("fuse_decode_attention", True,
             "(paddle_tpu_torch/fusion/decode_attention.py). Off is for the "
             "CPU only: an executor on a CUDA device raises on a program "
             "whose decode chain it leaves unfused.")
+define_bool("fuse_recurrent_cells", True,
+            "Executor-time fuse_recurrent_cell_pass: rewrite dynamic_lstm / "
+            "dynamic_gru with the default activations to fused_lstm / "
+            "fused_gru, the whole recurrence in one kernel launch "
+            "(paddle_tpu_torch/fusion/recurrent.py). Off is for the CPU "
+            "only: an executor on a CUDA device raises on a program whose "
+            "fusable recurrent op it leaves unfused.")

@@ -35,7 +35,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDim = 512;   // NJ = dh / 32 <= 16 values a lane
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -229,6 +229,8 @@ cudaError_t dispatch(int nj, const void* q, const void* k, const void* v,
                          scale, smem, s);
     PTT_CASE(1) PTT_CASE(2) PTT_CASE(3) PTT_CASE(4)
     PTT_CASE(5) PTT_CASE(6) PTT_CASE(7) PTT_CASE(8)
+    PTT_CASE(9) PTT_CASE(10) PTT_CASE(11) PTT_CASE(12)
+    PTT_CASE(13) PTT_CASE(14) PTT_CASE(15) PTT_CASE(16)
 #undef PTT_CASE
     default:
       return cudaErrorInvalidValue;

@@ -44,7 +44,8 @@ from .scope import Scope, global_scope
 def _fusion_flags_key():
     """Flags read when a plan is built: part of the plan-cache key, so a
     toggled flag never reuses the other variant's plan."""
-    return (flags.get_flag("fuse_decode_attention"),)
+    return (flags.get_flag("fuse_decode_attention"),
+            flags.get_flag("fuse_recurrent_cells"))
 
 
 def _feed_signature(feed: Dict[str, Any]):
@@ -70,11 +71,13 @@ def _run_seed(random_seed: int, counter: int) -> int:
 
 class _Plan:
     """A program fused and fixed for one (feed signature, fetch list,
-    scope contents): the op list plus the state analysis."""
+    scope contents): the op list plus the state analysis. `program` is the
+    fused program itself, whose sub-blocks control-flow ops run."""
 
-    def __init__(self, block, ro_names, rw_names, out_only, feed_names,
+    def __init__(self, program, ro_names, rw_names, out_only, feed_names,
                  fetch_names):
-        self.ops = build_plan(block)
+        self.program = program
+        self.ops = build_plan(program.global_block())
         self.ro_names = ro_names
         self.rw_names = rw_names
         self.feed_names = feed_names
@@ -82,7 +85,8 @@ class _Plan:
         self.state_out_names = sorted(set(rw_names) | set(out_only))
         self.constants = {}     # LowerCtx.constant memo, per plan
         self.read_names = frozenset(
-            {n for op in block.ops for n in op.input_names()}
+            {n for blk in program.blocks for op in blk.ops
+             for n in op.input_names()}
             | set(fetch_names) | set(self.state_out_names))
 
 
@@ -234,9 +238,9 @@ class Executor:
                                                fetch_names)
         state_out = sorted(set(rw) | set(out_only))
         # operator fusion: a rewrite of a CLONE of the program, gated by
-        # the fuse_decode_attention flag; the caller's program and the
-        # plan-cache key (original program version) are untouched. On a
-        # CUDA device a decode chain left unfused raises.
+        # the fuse_* flags; the caller's program and the plan-cache key
+        # (original program version) are untouched. On a CUDA device a
+        # decode chain or a fusable recurrent op left unfused raises.
         from .passes import apply_fusion_passes
         fused = apply_fusion_passes(
             program, protected=set(fetch_names) | set(state_out),
@@ -244,7 +248,7 @@ class Executor:
         flags.vlog(1, "planning program id=%s version=%s feeds=%s "
                    "fetches=%s", id(program), program._version,
                    list(feed_names), list(fetch_names))
-        return _Plan(fused.global_block(), ro, rw, out_only,
+        return _Plan(fused, ro, rw, out_only,
                      list(feed_names), list(fetch_names))
 
     def _validate_fetches(self, program: Program, feed, fetch_names):
@@ -285,7 +289,8 @@ class Executor:
                        seed=_run_seed(random_seed, self._run_counter),
                        constants=plan.constants,
                        fetch_names=tuple(plan.fetch_names),
-                       read_names=plan.read_names)
+                       read_names=plan.read_names,
+                       extras={"program": plan.program})
         env: Dict[str, Any] = {}
         env.update(zip(plan.ro_names, ro_vals))
         env.update(zip(plan.rw_names, rw_vals))

@@ -3,7 +3,9 @@
 ≙ paddle_tpu/framework/lowering.py. Where the JAX package traces the whole
 block into one jax function for XLA to compile, the port interprets the
 block eagerly: `build_plan` fixes the op order once, `run_plan` calls each
-op's torch lowering in turn over a name → tensor environment.
+op's torch lowering in turn over a name → tensor environment. A
+control-flow op (`static_rnn`) plans its sub-block the same way and runs
+that plan per step (ops/control_ops.py).
 
 A `vjp_region` op (appended by `backward.append_backward`) records a loss,
 the forward ops that compute it and the variables to differentiate; it runs

@@ -1,11 +1,10 @@
-"""Program pass framework: Pass base, registry, and the decode-attention
-fusion pass.
+"""Program pass framework: Pass base, registry, and the two fusion passes.
 
 ≙ paddle_tpu/framework/passes.py (itself ≙ the reference's framework/ir
-ir::Pass + PassRegistry), trimmed to what the serving slice runs: the
-executor applies `fuse_decode_attention_pass` to a clone of every program it
-plans (`apply_fusion_passes`). The recurrent-cell pass comes with the LSTM
-slice.
+ir::Pass + PassRegistry), trimmed to what the ported slices run: the
+executor applies `fuse_recurrent_cell_pass` and
+`fuse_decode_attention_pass` to one clone of every program it plans
+(`apply_fusion_passes`).
 """
 
 from __future__ import annotations
@@ -62,6 +61,38 @@ def get_pass(name: str, **attrs) -> Pass:
         raise NotFoundError(
             f"no pass named {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**attrs)
+
+
+@register_pass("fuse_recurrent_cell_pass")
+class FuseRecurrentCellPass(Pass):
+    """Rewrite `dynamic_lstm` / `dynamic_gru` ops to their fused-cell
+    equivalents (`fused_lstm` / `fused_gru`, fusion/recurrent.py): the
+    whole recurrence becomes one kernel launch instead of a loop of
+    per-step ops. Only default-activation instances are fusable; others
+    are left untouched. The rewrite is 1:1 in the op list, so op indices
+    (vjp_region fwd_ops segments) stay valid and every block is visited,
+    the one holding the vjp_region included."""
+
+    _REWRITES = {"dynamic_lstm": "fused_lstm", "dynamic_gru": "fused_gru"}
+
+    def apply(self, program, scope=None):
+        n = 0
+        for block in program.blocks:
+            for op in block.ops:
+                if _fusable_recurrent(op):
+                    op.attrs["fused_from"] = op.type
+                    op.type = self._REWRITES[op.type]
+                    n += 1
+        if n:
+            program._bump()
+        return program
+
+
+def _fusable_recurrent(op) -> bool:
+    from ..fusion.recurrent import gru_attrs_fusable, lstm_attrs_fusable
+    if op.type == "dynamic_lstm":
+        return lstm_attrs_fusable(op.attrs)
+    return op.type == "dynamic_gru" and gru_attrs_fusable(op.attrs)
 
 
 def _visited_blocks(program: Program):
@@ -254,34 +285,48 @@ def _decode_chains(program: Program) -> int:
 
 def apply_fusion_passes(program: Program, protected=(),
                         require_fused=False) -> Program:
-    """Executor-time entry: apply the flag-enabled fusion passes to a CLONE
-    of `program` (the caller's program is never mutated). Returns the
-    original program untouched when the flag is off or nothing can match —
-    the common case costs one cheap op-type scan.
+    """Executor-time entry: apply the flag-enabled fusion passes to one
+    CLONE of `program` (the caller's program is never mutated). Returns the
+    original program untouched when the flags are off or nothing can match
+    — the common case costs one cheap op-type scan.
 
-    require_fused (an executor on a CUDA device): decode attention runs on
-    the card only through its kernel, so a decode-attention chain left
-    unfused — the flag off, or an intermediate of the chain fetched or read
-    elsewhere — raises InvalidArgumentError instead of running as plain
-    matmul, softmax and matmul."""
+    require_fused (an executor on a CUDA device): decode attention and the
+    default-activation recurrent cells run on the card only through their
+    kernels, so a decode-attention chain left unfused (the flag off, or an
+    intermediate of the chain fetched or read elsewhere) or a fusable
+    `dynamic_lstm` / `dynamic_gru` left unfused (the flag off) raises
+    InvalidArgumentError instead of running as plain ops."""
     from ..core import flags
-    fuse = flags.get_flag("fuse_decode_attention")
-    if not any(op.type == "softmax" for blk in _visited_blocks(program)
-               for op in blk.ops):
-        return program
+    fuse_dec = flags.get_flag("fuse_decode_attention")
+    fuse_rnn = flags.get_flag("fuse_recurrent_cells")
+    has_dec = any(op.type == "softmax" for blk in _visited_blocks(program)
+                  for op in blk.ops)
+    has_rnn = any(_fusable_recurrent(op) for blk in program.blocks
+                  for op in blk.ops)
     rewritten = program
-    if fuse:
+    if (fuse_dec and has_dec) or (fuse_rnn and has_rnn):
         rewritten = program.clone()
-        get_pass("fuse_decode_attention_pass",
-                 protected=sorted(protected))(rewritten)
+        if fuse_rnn and has_rnn:
+            get_pass("fuse_recurrent_cell_pass")(rewritten)
+        if fuse_dec and has_dec:
+            get_pass("fuse_decode_attention_pass",
+                     protected=sorted(protected))(rewritten)
     if require_fused:
-        left = _decode_chains(rewritten)
+        left = _decode_chains(rewritten) if has_dec else 0
         if left:
-            why = ("the fuse_decode_attention flag is off" if not fuse else
-                   "an intermediate of the chain is fetched or read "
+            why = ("the fuse_decode_attention flag is off" if not fuse_dec
+                   else "an intermediate of the chain is fetched or read "
                    "elsewhere")
             raise InvalidArgumentError(
                 f"{left} decode-attention chain(s) would run unfused on a "
                 f"CUDA device ({why}); on the card decode attention runs "
                 f"only through its kernel")
+        cells = [op.type for blk in rewritten.blocks for op in blk.ops
+                 if _fusable_recurrent(op)]
+        if cells:
+            raise InvalidArgumentError(
+                f"{len(cells)} recurrent op(s) {sorted(set(cells))} with "
+                f"the default activations would run unfused on a CUDA "
+                f"device (the fuse_recurrent_cells flag is off); on the "
+                f"card they run only through the fused-cell kernels")
     return rewritten

@@ -5,7 +5,8 @@ python/paddle/fluid/framework.py). The program is a lightweight in-memory op
 DAG serialized as JSON; `to_json` / `from_json` write and read the same
 format as the JAX package, so a program built by either loads in the other.
 Variables carry a `torch.dtype`. The executor interprets the global block op
-by op (executor.py).
+by op (executor.py); a control-flow op runs its sub-block's plan
+(ops/control_ops.py).
 """
 
 from __future__ import annotations
@@ -183,19 +184,24 @@ class Block:
 
     def var(self, name: str) -> Variable:
         """Find var in this block or ancestors (≙ Scope-like desc lookup)."""
+        v = self.find_var_recursive(name)
+        if v is None:
+            raise NotFoundError(
+                f"variable {name!r} not found in block {self.idx}")
+        return v
+
+    def has_var(self, name: str) -> bool:
+        return self.find_var_recursive(name) is not None
+
+    def find_var_recursive(self, name: str) -> Optional[Variable]:
+        """The variable `name` of this block or its nearest ancestor that
+        has one, else None."""
         b = self
         while b is not None:
             if name in b.vars:
                 return b.vars[name]
             b = b.parent
-        raise NotFoundError(f"variable {name!r} not found in block {self.idx}")
-
-    def has_var(self, name: str) -> bool:
-        try:
-            self.var(name)
-            return True
-        except NotFoundError:
-            return False
+        return None
 
     def append_op(self, type: str, inputs=None, outputs=None, attrs=None) -> Operator:
         op = Operator(self, type, inputs, outputs, attrs)
@@ -230,6 +236,21 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]
+
+    def _create_block(self, parent_idx=None) -> Block:
+        """Append a sub-block (a control-flow op's body, ≙ the BLOCK attr)
+        whose parent is the current block, and make it current."""
+        parent_idx = self._current_block_idx if parent_idx is None \
+            else parent_idx
+        b = Block(self, len(self.blocks), parent_idx)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        self._bump()
+        return b
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self._current_block_idx = self.current_block().parent_idx
 
     def all_parameters(self) -> List[Parameter]:
         return [p for b in self.blocks for p in b.all_parameters()]

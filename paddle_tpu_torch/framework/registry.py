@@ -68,10 +68,10 @@ def _ensure_builtin_ops():
         return
     _builtins_loaded = True
     # import for registration side effects
-    from ..ops import (elementwise, flash_attention,  # noqa: F401
-                       nn_ops, optimizer_ops, random_ops, reduce_ops,
-                       sequence_ops, tensor_ops)
-    from ..fusion import decode_attention  # noqa: F401
+    from ..ops import (control_ops, elementwise,  # noqa: F401
+                       flash_attention, metric_ops, nn_ops, optimizer_ops,
+                       random_ops, reduce_ops, sequence_ops, tensor_ops)
+    from ..fusion import decode_attention, recurrent  # noqa: F401
     from . import lowering  # noqa: F401  (the vjp_region entry)
 
 
@@ -93,6 +93,9 @@ class LowerCtx:
         as state, or None (unknown: every output is needed). A lowering
         skips an optional output nobody reads (`needed`), as XLA drops dead
         code in the JAX package.
+    extras: run-wide values for lowerings; the executor sets "program" to
+        the program it planned (the fused clone), whose blocks a
+        control-flow op's `sub_block` attribute indexes.
     """
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     seed: int = 0
@@ -100,6 +103,7 @@ class LowerCtx:
     constants: dict = field(default_factory=dict)
     fetch_names: tuple = ()
     read_names: Optional[frozenset] = None
+    extras: dict = field(default_factory=dict)
     _generator: Optional[torch.Generator] = None
 
     def generator(self, seed: int = 0) -> torch.Generator:

@@ -19,9 +19,12 @@ Three pieces, as for every kernel of the port:
   the output cast to q's dtype. (The JAX package's XLA composite instead
   rounds the scores to q's dtype before scaling; the port follows the
   kernel.)
-- `fused_decode_attention` — normalizes shapes and picks by device: the
-  plain version for CPU tensors only; CUDA tensors launch the kernel or
-  raise. There is no fallback between the two.
+- `fused_decode_attention` — normalizes shapes and runs `_DecodeAttention`,
+  an autograd function whose forward picks by device (the plain version for
+  CPU tensors only; CUDA tensors launch the kernel or raise; there is no
+  fallback between the two) and whose backward differentiates the plain
+  version, as the JAX package's `_decode_attention_bwd` differentiates its
+  composite. The NMT decoder's attention runs it inside a `vjp_region`.
 
 Not on this slice (they raise NotImplementedError): int8 KV caches
 (`k_scale`/`v_scale`) and multi-position queries (G > 1, the speculative
@@ -37,6 +40,10 @@ import torch
 
 from .. import kernels
 from ..framework.registry import register_op
+
+#: the largest head dim the kernel takes (csrc/decode_attention.cu
+#: kMaxHeadDim): 16 values a lane; the NMT decoder attends at dh = 512
+MAX_HEAD_DIM = 512
 
 _SPEC_QUANT_SLICE = ("belongs to the paged/quantized/speculative serving "
                      "slice, ROADMAP.md port queue item 2")
@@ -69,9 +76,9 @@ def decode_attention_cuda(q3, k4, v4, bias3, scale):
     """Launch the CUDA kernel: q3 [R, nh, dh] float32 or bfloat16,
     k4/v4 [R, nh, T, dh] float32 contiguous, bias3 [R, nh, T] float32 with
     unit stride along T (any row and head strides, 0 included). Returns
-    [R, nh, dh] in q3's dtype. Raises on anything else — the kernel itself
-    refuses (CUDA "invalid argument") a T whose scores do not fit one
-    block's shared memory, about 56K positions."""
+    [R, nh, dh] in q3's dtype, for head dims up to 512. Raises on anything
+    else — the kernel itself refuses (CUDA "invalid argument") a T whose
+    scores do not fit one block's shared memory, about 56K positions."""
     r, nh, dh = q3.shape
     t = k4.shape[2]
     dev = q3.device
@@ -94,9 +101,9 @@ def decode_attention_cuda(q3, k4, v4, bias3, scale):
             and v4.is_contiguous()) or bias3.stride(2) != 1:
         raise ValueError("decode_attention_cuda: q, K, V must be contiguous "
                          "and bias unit-stride along T")
-    if not 1 <= dh <= 256:
+    if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"decode_attention_cuda: head dim {dh} outside "
-                         f"[1, 256]")
+                         f"[1, {MAX_HEAD_DIM}]")
     lib = kernels.load("decode_attention")
     _bind(lib)
     with torch.cuda.device(dev):
@@ -140,12 +147,37 @@ def fused_decode_attention(q, k, v, bias, scale=1.0, k_scale=None,
     # head stride 0 instead of materializing the broadcast
     bias3 = bias.to(torch.float32).expand(lead + (nh, 1, t)).reshape(
         r, nh, t)
-    if q.is_cuda:
-        out = decode_attention_cuda(q3.contiguous(), k4.contiguous(),
-                                    v4.contiguous(), bias3, scale)
-    else:
-        out = decode_attention_plain(q3, k4, v4, bias3, scale)
+    out = _DecodeAttention.apply(q3, k4, v4, bias3, scale)
     return out.reshape(lead + (nh, 1, dh))
+
+
+class _DecodeAttention(torch.autograd.Function):
+    """The kernel (CUDA tensors) or the plain version (CPU tensors)
+    forward; the backward differentiates the plain version on the saved
+    inputs (≙ `_decode_attention_bwd`). Under `no_grad`, as on the serving
+    tick, `apply` records no graph."""
+
+    @staticmethod
+    def forward(ctx, q3, k4, v4, bias3, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q3, k4, v4, bias3)
+        if q3.is_cuda:
+            return decode_attention_cuda(q3.contiguous(), k4.contiguous(),
+                                         v4.contiguous(), bias3, scale)
+        return decode_attention_plain(q3, k4, v4, bias3, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(n) for a, n in zip(saved,
+                                                                   need)]
+            out = decode_attention_plain(*leaves, ctx.scale)
+            wrt = [a for a, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, dout)) if wrt \
+                else iter(())
+        return tuple(next(grads) if n else None for n in need) + (None,)
 
 
 @register_op("fused_decode_attention")

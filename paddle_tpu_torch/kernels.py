@@ -11,7 +11,7 @@ loaded.
 one where it launches its kernel and nowhere else, so a run can show that a
 path went through the kernel (`reset_launch_counts` before, read after).
 One library may hold several kernels (flash_attention.cu holds flash_fwd,
-flash_bwd_dq and flash_bwd_dkv).
+flash_bwd_dq and flash_bwd_dkv; recurrent.cu holds lstm_seq and gru_seq).
 """
 
 from __future__ import annotations
@@ -28,11 +28,13 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
 #: library name -> source file under csrc/
 KERNEL_SOURCES = {"decode_attention": "decode_attention.cu",
-                  "flash_attention": "flash_attention.cu"}
+                  "flash_attention": "flash_attention.cu",
+                  "recurrent": "recurrent.cu"}
 
 #: kernel name -> launches made by its wrapper
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
-    "decode_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    "decode_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+    "lstm_seq", "gru_seq")}
 
 #: library name -> nvcc's output for the last build in this process
 BUILD_LOGS: Dict[str, str] = {}

@@ -1,7 +1,7 @@
 """Neural-network layers.
 
 ≙ paddle_tpu/layers/nn.py (reference python/paddle/fluid/layers/nn.py),
-trimmed to the layers the serving and training slices build. Each layer creates
+trimmed to the layers the serving, training and recurrent slices build. Each layer creates
 parameters via LayerHelper and appends ops; the executor runs them.
 """
 
@@ -21,21 +21,36 @@ def _prod(xs):
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, is_test=False, name=None, use_bf16=False):
-    """Fully connected layer (≙ reference layers/nn.py:114), one input.
+    """Fully connected layer (≙ reference layers/nn.py:114). `input` may be
+    a list: one weight each (param_attr a list too, or one attr for all),
+    the products summed by a `sum` op before the bias.
 
     use_bf16 runs the matmul on bfloat16 inputs with float32 accumulation
     and a bfloat16 output (flag use_bf16_matmul, ops/nn_ops.py)."""
     helper = LayerHelper("fc", name=name, act=act, bias_attr=bias_attr)
-    in_dim = _prod(input.shape[num_flatten_dims:])
-    w = helper.create_parameter(param_attr, shape=[in_dim, size],
-                                dtype=dtype_name(input.dtype))
-    out_shape = list(input.shape[:num_flatten_dims]) + [size]
-    pre_bias = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
-                                          shape=out_shape)
-    helper.append_op(type="mul", inputs={"X": [input], "Y": [w]},
-                     outputs={"Out": [pre_bias]},
-                     attrs={"x_num_col_dims": num_flatten_dims,
-                            "y_num_col_dims": 1, "use_bf16": use_bf16})
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    param_attrs = param_attr if isinstance(param_attr, (list, tuple)) \
+        else [param_attr] * len(inputs)
+    mul_results = []
+    for inp, pattr in zip(inputs, param_attrs):
+        in_dim = _prod(inp.shape[num_flatten_dims:])
+        w = helper.create_parameter(pattr, shape=[in_dim, size],
+                                    dtype=dtype_name(inp.dtype))
+        out_shape = list(inp.shape[:num_flatten_dims]) + [size]
+        tmp = helper.create_tmp_variable(dtype=dtype_name(inp.dtype),
+                                         shape=out_shape)
+        helper.append_op(type="mul", inputs={"X": [inp], "Y": [w]},
+                         outputs={"Out": [tmp]},
+                         attrs={"x_num_col_dims": num_flatten_dims,
+                                "y_num_col_dims": 1, "use_bf16": use_bf16})
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_tmp_variable(
+            dtype=dtype_name(inputs[0].dtype), shape=mul_results[0].shape)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims,
                                     use_bf16=use_bf16)
     return helper.append_activation(pre_act)
@@ -130,6 +145,17 @@ def unsqueeze(input, axes, name=None):
     out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
                                      shape=shape)
     helper.append_op(type="unsqueeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": list(axes)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    shape = [d for i, d in enumerate(input.shape) if i not in axes] \
+        if input.shape else None
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=shape)
+    helper.append_op(type="squeeze", inputs={"X": [input]},
                      outputs={"Out": [out]}, attrs={"axes": list(axes)})
     return out
 
@@ -334,3 +360,34 @@ def fused_attention(q, k, v, scale=None, causal=False, segment_ids=None,
                      outputs={"Out": [out]},
                      attrs={"scale": scale, "causal": causal})
     return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """≙ reference layers/metric_op.py accuracy: top-k then accuracy op."""
+    helper = LayerHelper("accuracy")
+    topk_out, topk_indices = topk(input, k=k)
+    acc = helper.create_tmp_variable(dtype="float32", shape=[],
+                                     stop_gradient=True)
+    correct = correct or helper.create_tmp_variable(dtype="int32", shape=[],
+                                                    stop_gradient=True)
+    total = total or helper.create_tmp_variable(dtype="int32", shape=[],
+                                                stop_gradient=True)
+    helper.append_op(type="accuracy",
+                     inputs={"Out": [topk_out], "Indices": [topk_indices],
+                             "Label": [label]},
+                     outputs={"Accuracy": [acc], "Correct": [correct],
+                              "Total": [total]})
+    return acc
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    shape = list(input.shape[:-1]) + [k]
+    values = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                        shape=shape, stop_gradient=True)
+    indices = helper.create_tmp_variable(dtype="int64", shape=shape,
+                                         stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices

@@ -2,8 +2,8 @@
 
 ≙ paddle_tpu/ops/elementwise.py (reference operators/elementwise_*.cc,
 scale_op.cc, compare_op.cc, activation_op.cc), trimmed to the serving and
-training slices: elementwise add/sub/mul/div, less_than, greater_than,
-equal, scale, relu. Dtype promotion follows torch, which agrees with jnp on
+training slices and the recurrent models: elementwise add/sub/mul/div,
+less_than, greater_than, equal, scale, relu, sigmoid, tanh. Dtype promotion follows torch, which agrees with jnp on
 the pairs the slices meet (bfloat16 + float32 → float32).
 """
 
@@ -63,3 +63,13 @@ def _scale(ctx, ins, attrs):
 @register_op("relu")
 def _relu(ctx, ins, attrs):
     return {"Out": [torch.relu(ins["X"][0])]}
+
+
+@register_op("sigmoid")
+def _sigmoid(ctx, ins, attrs):
+    return {"Out": [torch.sigmoid(ins["X"][0])]}
+
+
+@register_op("tanh")
+def _tanh(ctx, ins, attrs):
+    return {"Out": [torch.tanh(ins["X"][0])]}

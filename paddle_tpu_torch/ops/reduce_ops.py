@@ -1,7 +1,9 @@
 """Reduction op lowerings.
 
 ≙ paddle_tpu/ops/reduce_ops.py, trimmed to `reduce_sum`, `mean` (the
-training loss) and `arg_max` (the decode tick's greedy sample).
+training loss), `sum` (the n-ary add a multi-input `fc` emits), `arg_max`
+(the decode tick's greedy sample) and `top_k` (the classifiers'
+`accuracy`).
 """
 
 from __future__ import annotations
@@ -33,8 +35,24 @@ def _mean(ctx, ins, attrs):
     return {"Out": [ins["X"][0].mean()]}
 
 
+@register_op("sum")
+def _sum(ctx, ins, attrs):
+    # ≙ sum_op.cc: add_n over the inputs, in order
+    out = ins["X"][0]
+    for x in ins["X"][1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
 @register_op("arg_max")
 def _arg_max(ctx, ins, attrs):
     # ties resolve to the first maximal index, as jnp.argmax
     return {"Out": [torch.argmax(ins["X"][0], dim=attrs.get("axis", -1))
                     .to(torch.int64)]}
+
+
+@register_op("top_k")
+def _top_k(ctx, ins, attrs):
+    # ≙ jax.lax.top_k over the last axis: values in descending order
+    vals, idx = torch.topk(ins["X"][0], attrs["k"], dim=-1)
+    return {"Out": [vals], "Indices": [idx.to(torch.int64)]}

@@ -2,8 +2,8 @@
 
 ≙ paddle_tpu/ops/tensor_ops.py (reference operators/{reshape,transpose,
 unsqueeze,concat,slice,gather,cast,fill_constant,assign,one_hot,
-lookup_table}_op.cc), trimmed to the serving and training slices, plus the
-KV-cache write `cache_write`.
+lookup_table}_op.cc), trimmed to the serving, training and recurrent
+slices, plus the KV-cache write `cache_write`.
 """
 
 from __future__ import annotations
@@ -48,6 +48,14 @@ def _slice(ctx, ins, attrs):
 def _gather(ctx, ins, attrs):
     # ≙ jnp.take(x, index, axis=0): rows of x picked by an index of any shape
     return {"Out": [ins["X"][0][ins["Index"][0].to(torch.long)]]}
+
+
+@register_op("squeeze")
+def _squeeze(ctx, ins, attrs):
+    # ≙ jnp.squeeze: the listed axes (all size-1 dims when none are listed)
+    x = ins["X"][0]
+    axes = attrs.get("axes") or None
+    return {"Out": [x.squeeze(tuple(axes)) if axes else x.squeeze()]}
 
 
 @register_op("unsqueeze")

@@ -194,6 +194,29 @@ CASES = [
       "KVSeg": [np.repeat([[1] * 17 + [2] * 20 + [0] * 3], 2, 0)
                 .astype("int32")]},
      {"scale": None, "causal": True, "backend": "pallas_interpret"}, {}, {}),
+    # recurrent slice
+    ("sigmoid", "sigmoid", {"X": [f32(3, 7) * 4]}, {}, {}, {}),
+    ("tanh", "tanh", {"X": [f32(3, 7) * 4]}, {}, {}, {}),
+    ("squeeze_axis", "squeeze", {"X": [f32(4, 1, 6)]}, {"axes": [1]}, {},
+     {}),
+    ("squeeze_all", "squeeze", {"X": [f32(1, 4, 1)]}, {"axes": []}, {}, {}),
+    ("sum_n", "sum", {"X": [f32(4, 3), f32(4, 3), f32(4, 3)]}, {}, {}, {}),
+    ("top_k", "top_k", {"X": [f32(5, 9)]}, {"k": 3}, {}, {}),
+    ("accuracy", "accuracy",
+     {"Out": [f32(5, 1)],
+      "Indices": [np.array([[0], [1], [1], [0], [1]], "int64")],
+      "Label": [np.array([[0], [1], [0], [0], [0]], "int64")]}, {}, {}, {}),
+    ("accuracy_top2", "accuracy",
+     {"Out": [f32(3, 2)],
+      "Indices": [np.array([[2, 0], [1, 3], [3, 2]], "int64")],
+      "Label": [np.array([0, 2, 1], "int64")]}, {}, {}, {}),
+    *[(f"sequence_pool_{p.lower()}", "sequence_pool",
+       {"X": [f32(4, 6, 3)], "SeqLen": [np.array([6, 0, 1, 4], "int32")]},
+       {"pooltype": p}, {}, {})
+      for p in ("SUM", "AVERAGE", "SQRT", "MAX", "LAST", "FIRST")],
+    ("sequence_last_step", "sequence_last_step",
+     {"X": [f32(4, 6, 3)], "SeqLen": [np.array([6, 2, 1, 4], "int64")]},
+     {}, {}, {}),
 ]
 
 

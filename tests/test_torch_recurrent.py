@@ -1,0 +1,272 @@
+"""The recurrent slice's kernel modules against the JAX package.
+
+- The whole-sequence cells (`fusion/recurrent.py`): the port's
+  `fused_lstm_sequence` / `fused_gru_sequence`, which take their plain
+  versions on CPU tensors, against the JAX functions with the Pallas
+  kernels in interpret mode (B=4, T=6, H=128, forward and reversed, ragged
+  lengths with a 1 and a 0) at the tolerance tests/test_fusion.py holds the
+  Pallas kernels to (2e-6: the same float32 math in another summation
+  order); their gradients (autograd through the port's manual backward)
+  against jax.grad of the JAX functions' XLA backend at 1e-4.
+- The unfused `dynamic_lstm` / `dynamic_gru` lowerings, which run the
+  non-default activations, through both registries at 1e-5.
+- `fused_decode_attention` at the NMT decoder's rank-3 form ([B, 1, H]
+  over [B, T, H]): its gradient (the port's autograd function) against
+  jax.grad of the JAX op at 1e-5.
+Inputs come from numpy with a seed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.fusion import decode_attention as jda
+from paddle_tpu.fusion import recurrent as jrec
+from paddle_tpu.framework import registry as jreg
+
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch import kernels
+from paddle_tpu_torch.core.enforce import InvalidArgumentError
+from paddle_tpu_torch.framework import registry as treg
+from paddle_tpu_torch.framework.passes import apply_fusion_passes
+from paddle_tpu_torch.fusion import decode_attention as tda
+from paddle_tpu_torch.fusion import recurrent as trec
+
+B, T, H = 4, 6, 128
+LENGTHS = {"ragged": [T, T - 2, 1, T], "with_zero": [T, 0, 1, T - 2]}
+
+
+@pytest.fixture(autouse=True)
+def fresh_port_state():
+    """Fresh default programs, scope and name generator for the port."""
+    ptt.reset_default_programs()
+    ptt.reset_global_scope()
+    with ptt.unique_name.guard():
+        yield
+
+
+def _args(kind, lengths, seed=0):
+    r = np.random.RandomState(seed)
+    g = 4 if kind == "lstm" else 3
+    return {"x": (r.randn(B, T, g * H) * .3).astype("float32"),
+            "h0": (r.randn(B, H) * .1).astype("float32"),
+            "c0": (r.randn(B, H) * .1).astype("float32"),
+            "w": (r.randn(H, g * H) * .1).astype("float32"),
+            "seqlen": np.asarray(lengths, "int32")}
+
+
+def _jax_fn(kind, a, reverse, backend):
+    if kind == "lstm":
+        return lambda x, h0, c0, w: jrec.fused_lstm_sequence(
+            x, h0, c0, w, jnp.asarray(a["seqlen"]), reverse=reverse,
+            backend=backend)
+    return lambda x, h0, c0, w: (jrec.fused_gru_sequence(
+        x, h0, w, jnp.asarray(a["seqlen"]), reverse=reverse,
+        backend=backend),)
+
+
+def _port_fn(kind, a, reverse):
+    sl = torch.from_numpy(a["seqlen"])
+    if kind == "lstm":
+        return lambda x, h0, c0, w: trec.fused_lstm_sequence(
+            x, h0, c0, w, sl, reverse=reverse)
+    return lambda x, h0, c0, w: (trec.fused_gru_sequence(
+        x, h0, w, sl, reverse=reverse),)
+
+
+@pytest.mark.parametrize("lengths", sorted(LENGTHS))
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_fused_cell_matches_pallas_interpret(kind, reverse, lengths):
+    a = _args(kind, LENGTHS[lengths])
+    jouts = _jax_fn(kind, a, reverse, "pallas_interpret")(
+        *(jnp.asarray(a[k]) for k in ("x", "h0", "c0", "w")))
+    kernels.reset_launch_counts()
+    touts = _port_fn(kind, a, reverse)(
+        *(torch.from_numpy(a[k]) for k in ("x", "h0", "c0", "w")))
+    assert not any(kernels.LAUNCHES.values())    # CPU: the plain version
+    for jo, to in zip(jouts, touts):
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-6,
+                                   rtol=2e-6)
+    if 0 in LENGTHS[lengths]:
+        row = LENGTHS[lengths].index(0)
+        assert (touts[0][row] == torch.from_numpy(a["h0"][row])).all()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_fused_cell_gradients_match_jax(kind, reverse):
+    """d(x, h0, c0, w) of a weighted sum of the outputs: the port's manual
+    reverse-time backward against jax.grad through the JAX package's."""
+    a = _args(kind, LENGTHS["with_zero"], seed=1)
+    r = np.random.RandomState(2)
+    cot = [r.randn(B, T, H).astype("float32") for _ in range(2)]
+    names = ["x", "h0", "c0", "w"] if kind == "lstm" else ["x", "h0", "w"]
+    jfn = _jax_fn(kind, a, reverse, "xla")
+
+    def jloss(*args):
+        full = dict(zip(names, args))
+        outs = jfn(full["x"], full["h0"], full.get("c0"), full["w"])
+        return sum(jnp.sum(o * c) for o, c in zip(outs, cot))
+
+    jgrads = jax.grad(jloss, argnums=tuple(range(len(names))))(
+        *(jnp.asarray(a[n]) for n in names))
+    leaves = {n: torch.from_numpy(a[n]).requires_grad_() for n in names}
+    touts = _port_fn(kind, a, reverse)(
+        leaves["x"], leaves["h0"], leaves.get("c0"), leaves["w"])
+    loss = sum((o * torch.from_numpy(c)).sum() for o, c in zip(touts, cot))
+    tgrads = torch.autograd.grad(loss, [leaves[n] for n in names])
+    for n, jg, tg in zip(names, jgrads, tgrads):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-4,
+                                   rtol=1e-4, err_msg=f"d{n}")
+
+
+def test_stash_only_when_a_gradient_is_wanted(monkeypatch):
+    """Under no_grad (the executor outside a vjp_region) the cells run
+    without the gate stash, as the JAX forward without vjp does."""
+    asked = []
+    plain = trec.lstm_seq_plain
+
+    def spy(*args):
+        asked.append(args[-1])
+        return plain(*args)
+    monkeypatch.setattr(trec, "lstm_seq_plain", spy)
+    a = _args("lstm", LENGTHS["ragged"])
+    x, h0, c0, w = (torch.from_numpy(a[k]) for k in ("x", "h0", "c0", "w"))
+    sl = torch.from_numpy(a["seqlen"])
+    with torch.no_grad():
+        trec.fused_lstm_sequence(x.requires_grad_(), h0, c0, w, sl)
+    trec.fused_lstm_sequence(x, h0, c0, w, sl)
+    assert asked == [False, True]
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    a = _args("gru", LENGTHS["ragged"])
+    x, h0, w = (torch.from_numpy(a[k]) for k in ("x", "h0", "w"))
+    with pytest.raises(ValueError, match="CUDA"):
+        trec.gru_seq_cuda(x, h0, w, torch.from_numpy(a["seqlen"]), False,
+                          False)
+
+
+def _seq_op_ins(kind, seed=3):
+    a = _args(kind, LENGTHS["with_zero"], seed)
+    g = 4 if kind == "lstm" else 3
+    bias = np.random.RandomState(seed).randn(
+        (7 if kind == "lstm" else 3) * H).astype("float32") * .1
+    ins = {"Input": [a["x"][..., :g * H]], "Weight": [a["w"]],
+           "Bias": [bias], "SeqLen": [a["seqlen"]], "H0": [a["h0"]]}
+    if kind == "lstm":
+        ins["C0"] = [a["c0"]]
+    return ins
+
+
+@pytest.mark.parametrize("op_type,attrs", [
+    ("dynamic_lstm", {"candidate_activation": "relu", "is_reverse": True}),
+    ("dynamic_lstm", {"gate_activation": "sigmoid",
+                      "cell_activation": "identity"}),
+    ("dynamic_lstm", {}),
+    ("dynamic_gru", {"activation": "relu"}),
+    ("dynamic_gru", {"is_reverse": True}),
+])
+def test_unfused_cell_op_matches_jax(op_type, attrs):
+    ins = _seq_op_ins("lstm" if op_type == "dynamic_lstm" else "gru")
+    jout = jreg.lookup_op(op_type).lower(
+        jreg.LowerCtx(rng_key=jax.random.PRNGKey(0)),
+        {s: [jnp.asarray(v) for v in vs] for s, vs in ins.items()},
+        dict(attrs))
+    tout = treg.lookup_op(op_type).lower(
+        treg.LowerCtx(), {s: [torch.from_numpy(v) for v in vs]
+                          for s, vs in ins.items()}, dict(attrs))
+    assert set(tout) == set(jout)
+    for slot in jout:
+        np.testing.assert_allclose(tout[slot][0].numpy(),
+                                   np.asarray(jout[slot][0]), atol=1e-5,
+                                   rtol=1e-5, err_msg=slot)
+    fusable = (trec.lstm_attrs_fusable if op_type == "dynamic_lstm"
+               else trec.gru_attrs_fusable)(attrs)
+    assert fusable == (jrec.lstm_attrs_fusable if op_type == "dynamic_lstm"
+                       else jrec.gru_attrs_fusable)(attrs)
+
+
+@pytest.mark.parametrize("op_type", ["fused_lstm", "fused_gru"])
+def test_fused_cell_op_matches_jax(op_type):
+    """The registered fused ops, [7H] peephole bias included, against the
+    JAX package's (XLA backend: its composite on the CPU)."""
+    kind = "lstm" if op_type == "fused_lstm" else "gru"
+    ins = _seq_op_ins(kind, seed=4)
+    attrs = {"is_reverse": True, "backend": "xla"}
+    jout = jreg.lookup_op(op_type).lower(
+        jreg.LowerCtx(rng_key=jax.random.PRNGKey(0)),
+        {s: [jnp.asarray(v) for v in vs] for s, vs in ins.items()}, attrs)
+    tout = treg.lookup_op(op_type).lower(
+        treg.LowerCtx(), {s: [torch.from_numpy(v) for v in vs]
+                          for s, vs in ins.items()}, attrs)
+    for slot in jout:
+        np.testing.assert_allclose(tout[slot][0].numpy(),
+                                   np.asarray(jout[slot][0]), atol=1e-5,
+                                   rtol=1e-5, err_msg=slot)
+
+
+def test_non_default_activation_stays_unfused_and_flag_off_raises_on_cuda():
+    """The pass rewrites default-activation cells only; with the flag off an
+    executor on a CUDA device refuses a fusable cell (checked at planning,
+    before anything runs)."""
+    from paddle_tpu_torch.core import flags
+    prog = ptt.Program()
+    with ptt.program_guard(prog, ptt.Program()):
+        x = ptt.layers.data("x", shape=[T, 4 * H], dtype="float32",
+                            lod_level=1)
+        h1, _ = ptt.layers.dynamic_lstm(x, size=4 * H)
+        ptt.layers.dynamic_lstm(x, size=4 * H, candidate_activation="relu")
+        proj = ptt.layers.sequence.tag_sequence(
+            ptt.layers.fc(h1, size=3 * H, num_flatten_dims=2),
+            h1.seqlen_var)
+        ptt.layers.dynamic_gru(proj, size=H)
+    fused = apply_fusion_passes(prog)
+    assert [op.type for op in fused.global_block().ops
+            if "lstm" in op.type or "gru" in op.type] == \
+        ["fused_lstm", "dynamic_lstm", "fused_gru"]
+    assert fused is not prog and \
+        [op.type for op in prog.global_block().ops].count("fused_lstm") == 0
+    apply_fusion_passes(prog, require_fused=True)       # all fused: fine
+    prev = flags.get_flag("fuse_recurrent_cells")
+    flags.set_flag("fuse_recurrent_cells", False)
+    try:
+        assert apply_fusion_passes(prog) is prog
+        with pytest.raises(InvalidArgumentError,
+                           match="fuse_recurrent_cells"):
+            apply_fusion_passes(prog, require_fused=True)
+    finally:
+        flags.set_flag("fuse_recurrent_cells", prev)
+
+
+def test_decode_attention_gradient_at_nmt_form_matches_jax():
+    """q [B, 1, H] over the encoder's [B, T, H] (K = V), a [B, 1, T] mask:
+    d(q, enc, bias) of a weighted sum of the output."""
+    r = np.random.RandomState(5)
+    b, t, h = 3, 7, 40
+    q = r.randn(b, 1, h).astype("float32")
+    enc = r.randn(b, t, h).astype("float32")
+    lens = np.array([[7], [2], [5]])
+    bias = np.where(np.arange(t)[None] < lens, 0.0, -1e9).astype(
+        "float32")[:, None, :]
+    cot = r.randn(b, 1, h).astype("float32")
+
+    def jloss(q_, e_, b_):
+        out = jda.fused_decode_attention(q_, e_, e_, b_, scale=1.0,
+                                         backend="xla")
+        return jnp.sum(out * cot)
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(enc),
+                                           jnp.asarray(bias))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, enc, bias)]
+    out = tda.fused_decode_attention(leaves[0], leaves[1], leaves[1],
+                                     leaves[2], scale=1.0)
+    assert out.grad_fn is not None
+    tg = torch.autograd.grad((out * torch.from_numpy(cot)).sum(), leaves)
+    for name, a, bb in zip(("q", "enc", "bias"), tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(bb), atol=1e-5,
+                                   rtol=1e-5, err_msg=f"d{name}")
