@@ -8,13 +8,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from paddle_tpu_torch/csrc with nvcc for
-   sm_90a, one nvcc per source, all started at once;
+   sm_90a, one nvcc per source, all started at once; report the
+   tensor-core flash kernels' registers, spills (none allowed at head dim
+   64) and dynamic shared memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (decode attention: the serving tick, and the
    NMT decoder's q [32, 1, 512] over [32, 64, 512] forward and gradient;
-   flash attention forward, dQ and dK/dV: the LM's training shape in
-   bfloat16 and float32, a packed batch with segment ids, Tq != Tk, T not
-   a multiple of the tile, head dims 32 and 128, rows with no visible key;
+   flash attention forward, dQ and dK/dV: the LM's training shape, a
+   packed batch with segment ids, Tq != Tk, T not a multiple of the tile,
+   head dims 32 and 128, rows with no visible key, each in bfloat16 and
+   float32 (bfloat16 forward and dK/dV run on the tensor cores and are
+   held to the per-term bound of ops/flash_attention.py, and three wrong
+   kernels must be rejected by the same check; float32 at 1e-5, dQ in
+   bfloat16 at one bfloat16 step);
    the whole-sequence LSTM and GRU: the stacked LSTM's and the NMT
    encoder's shapes forward and reversed with ragged lengths including 0,
    and H = 16 and 100), then time kernel, plain version and the PyTorch
@@ -47,7 +53,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    Executor.run over 4 batches of the repo's Markov tokens: tokens/s,
    step time, the loss of the first and last steps (finite, falling) and
    peak device memory. Each flash kernel must launch 6 times (one per
-   layer) each step;
+   layer) each step, forward and dK/dV on their bfloat16 tensor-core
+   routes (`flash_fwd_tc`, `flash_bwd_dkv_tc`);
 8. the same model packed: 64 ragged sequences (lognormal lengths 32-512)
    packed by pack_lm_batch into rows of 512 with segment ids, 10 steps,
    the same launch counts, a finite loss;
@@ -81,7 +88,11 @@ path's run (decode attention: phase 4, with `launches_nmt` from phase 12;
 flash kernels: phase 7; LSTM: phase 11; GRU: phase 12), error against its
 plain version (`max_abs_err` at the path's shape in float32;
 `max_abs_err_bf16_q` / `max_abs_err_bf16` the same shape in the path's
-bfloat16; decode attention's `*_nmt` keys at the NMT shape) and times; the last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
+bfloat16; decode attention's `*_nmt` keys at the NMT shape; the flash
+kernels' `routes` per type, `err_over_tolerance_bf16`,
+`beyond_one_step_bf16`, the controls' `control_err_over_tolerance` and
+`launches_tc_bf16`) and times; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
 
@@ -550,42 +561,92 @@ def _segments(gen, b, t, dev):
     return ids.to(dev)
 
 
-def _flash_err(out, ref, dtype):
-    """(max abs error, within tolerance) of a kernel output against its
-    plain version. float32: |err| <= 1e-5 * max(1, max|ref|), float32
-    rounding of differently ordered sums at the tensor's scale. bfloat16:
-    |err| <= one bfloat16 step at max(|out|, |ref|, rms(ref)) per element
-    (both round P and dS at the same points; their float32 sums differ in
-    order, so a result may round to the neighbouring bfloat16 value).
-    The lse sentinel of rows with no visible key (-1e30) must match
-    exactly."""
-    import torch
-    out, ref = out.float(), ref.float()
-    live = ref > -1e29
-    if not bool((out[~live] == ref[~live]).all()):
-        return float("inf"), False
-    out, ref = out[live], ref[live]
-    diff = (out - ref).abs()
-    if diff.numel() == 0:
-        return 0.0, True
-    if dtype == torch.float32:
-        tol = 1e-5 * max(1.0, float(ref.abs().max()))
-    else:
-        mag = torch.maximum(torch.maximum(out.abs(), ref.abs()),
-                            ref.pow(2).mean().sqrt())
-        tol = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return float(diff.max()), bool((diff <= tol).all())
+def _flash_controls(q, k, v, do, lse, delta, scale, refs, slacks):
+    """Phase 3's controls on the LM-shape bfloat16 case: three wrong
+    kernels' outputs, computed by the plain version, each of which the
+    bound check must reject. Returns {control: {kernel: largest
+    err/tolerance}}; raises unless every control is rejected."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_bwd_plain, flash_check, flash_control_masks, flash_fwd_plain)
+    tq, tk = q.shape[2], k.shape[2]
+    ratios = {}
+    for name, mask in flash_control_masks(tq, tk, q.device).items():
+        mask = mask[None, None]
+        o_c, _ = flash_fwd_plain(q, k, v, scale, True, mask=mask)
+        _, dk_c, dv_c = flash_bwd_plain(q, k, v, None, lse, do, scale, True,
+                                        delta=delta, mask=mask)
+        ratios[name] = {
+            "flash_fwd": flash_check(o_c, refs["o"], slacks["o"])["ratio"],
+            "flash_bwd_dkv": max(
+                flash_check(dk_c, refs["dk"], slacks["dk"])["ratio"],
+                flash_check(dv_c, refs["dv"], slacks["dv"])["ratio"])}
+    # dS not multiplied by scale: scale is a power of two at D = 64, so this
+    # is exactly the plain version without it
+    dk_c = (refs["dk"].float() / scale).to(refs["dk"].dtype)
+    ratios["dk_without_scale"] = {"flash_bwd_dkv": flash_check(
+        dk_c, refs["dk"], slacks["dk"])["ratio"]}
+    for name, per in ratios.items():
+        log(f"  control {name}: largest err/bound "
+            + ", ".join(f"{k} {r:.3g}" for k, r in per.items())
+            + (" rejected" if min(per.values()) > 1 else " ADMITTED"))
+        if not min(per.values()) > 1:
+            raise AssertionError(f"the bound check admits the control "
+                                 f"{name}: {per}")
+    return ratios
+
+
+def _tc_build_report(kernels):
+    """Phase 2's report of the tensor-core flash kernels from nvcc's
+    -Xptxas -v: registers and spills per instantiation, with the dynamic
+    shared memory each launch asks for. Raises on a spill at D = 64."""
+    from paddle_tpu_torch.ops.flash_attention import _bind
+    lib = kernels.load("flash_attention")
+    _bind(lib)
+    if "flash_attention" not in kernels.BUILD_LOGS:
+        log("  (flash_attention was built by an earlier run: no ptxas report)")
+        return
+    props, cur = {}, None
+    for line in kernels.BUILD_LOGS["flash_attention"].splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"(\w+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            props.setdefault(cur, {})["spill"] = int(m.group(1)) + int(
+                m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            props.setdefault(cur, {})["regs"] = int(m.group(1))
+    for which, tag in ((0, "flash_fwd_tc"), (2, "flash_dkv_tc")):
+        for dh in (32, 64, 128):
+            name = next((n for n in props if f"{tag}_kernelILi{dh}E" in n),
+                        None)
+            pr = props.get(name, {})
+            log(f"  [{tag} D={dh}] registers {pr.get('regs')}, spill bytes "
+                f"{pr.get('spill')}, dynamic shared memory "
+                f"{lib.ptt_flash_smem_bytes(which, 1, dh)} bytes")
+            if dh == 64:
+                assert name is not None, f"no ptxas report for {tag} D=64"
+                assert pr.get("spill") == 0, f"{tag} D=64 spills: {pr}"
 
 
 def check_flash(ptt, rates):
     """Phase 3 for the flash-attention kernels K1 (forward), K2 (dQ) and
     K3 (dK/dV): each against its plain version on the card over the LM's
-    shape in both types and the edge cases, then timed at the LM shape.
-    Returns {kernel name: JSON fields (all but launches)}."""
+    shape and the edge cases in both types, then timed at the LM shape.
+    bfloat16 K1 and K3 (the tensor-core kernels) are held to the per-term
+    bound of ops/flash_attention.py (`flash_fwd_bound`,
+    `flash_bwd_dkv_bound`), float32 ones to 1e-5 max(1, |ref|), K2 to one
+    bfloat16 step or that float32 tolerance (`flash_check`). Returns
+    {kernel name: JSON fields (all but launches)}."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain, flash_delta,
+        flash_bwd_dkv_bound, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+        flash_bwd_plain, flash_check, flash_delta, flash_fwd_bound,
         flash_fwd_cuda, flash_fwd_plain)
 
     dev = torch.device("cuda", 0)
@@ -602,61 +663,82 @@ def check_flash(ptt, rates):
         do = torch.randn(cb, ch, tq, cd, device=dev, generator=gen).to(dt)
         return q, k, v, do
 
-    # (label, B, H, Tq, Tk, D, dtype, causal, segment ids)
+    # (label, B, H, Tq, Tk, D, causal, segment ids), each in both types
     packed = _segments(cpu_gen, 4, t, dev)
     kv_ids = torch.full((2, 96), 7, dtype=torch.int32, device=dev)
     q_ids = kv_ids.clone()
     q_ids[:, :40] = 99           # an id no key carries: those rows see nothing
-    cases = [
-        ("lm", b, h, t, t, d, bf16, True, None),
-        ("lm", b, h, t, t, d, f32, True, None),
-        ("packed", 4, h, t, t, d, bf16, True, packed),
-        ("packed", 4, h, t, t, d, f32, True, packed),
-        ("tq<tk", 2, 4, 200, 328, d, f32, True, None),
-        ("odd_t", 3, 2, 200, 200, d, f32, False, None),
-        ("d128", 2, 4, 256, 256, 128, bf16, True, None),
-        ("d128", 2, 4, 256, 256, 128, f32, True, None),
-        ("d32", 2, 2, 96, 96, 32, f32, True, None),
-        ("no_key", 2, 2, 160, 96, d, f32, True, None),   # rows 0-63 causal
-        ("no_key_seg", 2, 2, 96, 96, d, f32, False, (q_ids, kv_ids)),
+    shapes = [
+        ("lm", b, h, t, t, d, True, None),
+        ("packed", 4, h, t, t, d, True, packed),
+        ("tq<tk", 2, 4, 200, 328, d, True, None),
+        ("odd_t", 3, 2, 200, 200, d, False, None),
+        ("d128", 2, 4, 256, 256, 128, True, None),
+        ("d32", 2, 2, 96, 96, 32, True, None),
+        ("no_key", 2, 2, 160, 96, d, True, None),   # rows 0-63 causal
+        ("no_key_seg", 2, 2, 96, 96, d, False, (q_ids, kv_ids)),
     ]
-    errs = {}
-    for (label, cb, ch, tq, tk, cd, dt, causal, seg) in cases:
-        q, k, v, do = make(cb, ch, tq, tk, cd, dt)
-        scale = cd ** -0.5
-        qs, ks = seg if isinstance(seg, tuple) else (seg, seg)
-        o, lse = flash_fwd_cuda(q, k, v, scale, causal, qs, ks)
-        o_ref, lse_ref = flash_fwd_plain(q, k, v, scale, causal, qs, ks)
-        delta = flash_delta(o, do)
-        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, qs,
-                               ks)
-        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal,
-                                    qs, ks)
-        dq_ref, dk_ref, dv_ref = flash_bwd_plain(
-            q, k, v, None, lse, do, scale, causal, qs, ks, delta=delta)
-        torch.cuda.synchronize()
-        if label.startswith("no_key"):
-            dead = (lse_ref <= -1e29)
-            assert bool(dead.any()), f"{label}: no row without a key"
-            assert bool((o.float()[dead] == 0).all()), \
-                f"{label}: a row with no visible key has a nonzero output"
-        res = {}
-        for kname, pairs in (("flash_fwd", [(o, o_ref), (lse, lse_ref)]),
-                             ("flash_bwd_dq", [(dq, dq_ref)]),
-                             ("flash_bwd_dkv", [(dk, dk_ref), (dv, dv_ref)])):
-            worst, ok = 0.0, True
-            for out, ref in pairs:
-                e, good = _flash_err(out, ref, dt if out.dtype == dt else f32)
-                worst, ok = max(worst, e), ok and good
-            res[kname] = worst
-            log(f"  {kname} {label} B={cb} H={ch} Tq={tq} Tk={tk} D={cd} "
-                f"{str(dt)[6:]} causal={causal} "
-                f"segments={'yes' if seg is not None else 'no'}: "
-                f"max_abs_err={worst:.3e} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{kname} disagrees with its plain "
-                                     f"version ({label}, {dt}): {worst}")
-        errs[(label, dt)] = res
+    errs, controls = {}, None
+    for (label, cb, ch, tq, tk, cd, causal, seg) in shapes:
+        for dt in (bf16, f32):
+            q, k, v, do = make(cb, ch, tq, tk, cd, dt)
+            scale = cd ** -0.5
+            qs, ks = seg if isinstance(seg, tuple) else (seg, seg)
+            o, lse = flash_fwd_cuda(q, k, v, scale, causal, qs, ks)
+            o_ref, lse_ref = flash_fwd_plain(q, k, v, scale, causal, qs, ks)
+            delta = flash_delta(o, do)
+            dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal,
+                                   qs, ks)
+            dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale,
+                                        causal, qs, ks)
+            dq_ref, dk_ref, dv_ref = flash_bwd_plain(
+                q, k, v, None, lse, do, scale, causal, qs, ks, delta=delta)
+            torch.cuda.synchronize()
+            if label.startswith("no_key"):
+                dead = (lse_ref <= -1e29)
+                assert bool(dead.any()), f"{label}: no row without a key"
+                assert bool((o.float()[dead] == 0).all()), \
+                    f"{label}: a row with no visible key has a nonzero output"
+            slack = dict.fromkeys(("o", "lse", "dk", "dv"))
+            if dt == bf16:
+                slack["o"], slack["lse"] = flash_fwd_bound(
+                    q, k, v, o_ref, lse_ref, scale, causal, qs, ks)
+                slack["dk"], slack["dv"] = flash_bwd_dkv_bound(
+                    q, k, v, do, lse, delta, dk_ref, dv_ref, scale, causal,
+                    qs, ks)
+            res = {}
+            for kname, pairs in (
+                    ("flash_fwd", [("o", o, o_ref), ("lse", lse, lse_ref)]),
+                    ("flash_bwd_dq", [("dq", dq, dq_ref)]),
+                    ("flash_bwd_dkv", [("dk", dk, dk_ref),
+                                       ("dv", dv, dv_ref)])):
+                checks = {n: flash_check(out, ref, slack.get(n))
+                          for n, out, ref in pairs}
+                worst = max(c["max_abs_err"] for c in checks.values())
+                ratio = max(c["ratio"] for c in checks.values())
+                ok = all(c["ok"] for c in checks.values())
+                res[kname] = {"err": worst, "ratio": ratio, "beyond_step": {
+                    n: c["beyond_step"] for n, c in checks.items()}}
+                tol = ("1e-5" if dt == f32 else "one bf16 step"
+                       if kname == "flash_bwd_dq" else "per-term bound")
+                log(f"  {kname} {label} B={cb} H={ch} Tq={tq} Tk={tk} "
+                    f"D={cd} {str(dt)[6:]} causal={causal} "
+                    f"segments={'yes' if seg is not None else 'no'}: "
+                    f"max_abs_err={worst:.3e} err/tol={ratio:.3g} ({tol})"
+                    + ("; beyond one bf16 step: " + ", ".join(
+                        f"{n} {c['beyond_step']:.2e}"
+                        for n, c in checks.items() if n != "lse")
+                       if dt == bf16 else "")
+                    + f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{kname} disagrees with its plain "
+                                         f"version ({label}, {dt}): {checks}")
+            errs[(label, dt)] = res
+            if label == "lm" and dt == bf16:
+                controls = _flash_controls(
+                    q, k, v, do, lse, delta, scale,
+                    {"o": o_ref, "dk": dk_ref, "dv": dv_ref}, slack)
+            del slack
 
     # timing at the LM's shape and type (bf16, causal), rotating input
     # sets that exceed the L2 three times over
@@ -724,11 +806,21 @@ def check_flash(ptt, rates):
             f"{library_ms[kname] * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} "
             f"us ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
             f"GFLOP at {tc_rate / 1e12:.0f} TFLOP/s bf16)")
-        out[kname] = {"max_abs_err": errs[("lm", f32)][kname],
-                      "max_abs_err_bf16": errs[("lm", bf16)][kname],
+        tc = kname != "flash_bwd_dq"
+        out[kname] = {"max_abs_err": errs[("lm", f32)][kname]["err"],
+                      "max_abs_err_bf16": errs[("lm", bf16)][kname]["err"],
+                      "err_over_tolerance_bf16":
+                          errs[("lm", bf16)][kname]["ratio"],
+                      "beyond_one_step_bf16":
+                          errs[("lm", bf16)][kname]["beyond_step"],
+                      "routes": {"bfloat16": "tc_bf16" if tc else "simt",
+                                 "float32": "simt"},
                       "ms": kernel_ms[kname], "plain_ms": plain_ms[kname],
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": library_ms[kname]}
+        if tc:
+            out[kname]["control_err_over_tolerance"] = {
+                c: r[kname] for c, r in controls.items() if kname in r}
     log("  (plain_ms of flash_bwd_dq and flash_bwd_dkv is the one plain "
         "backward that computes dq, dk and dv; library_ms of both is SDPA's "
         "backward for all three: SDPA forward+backward less its forward)")
@@ -954,6 +1046,8 @@ def _train_program(ptt, cfg, packed=False):
 
 
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the bfloat16 tensor-core routes of K1 and K3 (the LM trains in bfloat16)
+FLASH_TC = ("flash_fwd_tc", "flash_bwd_dkv_tc")
 
 
 def _run_steps(exe, main, scope, loss, feeds, steps, kernels):
@@ -986,7 +1080,7 @@ def _report_steps(label, losses, secs, tokens, launches, layers, steps):
         f"memory {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
     log(f"  launches: {launches}")
     assert all(math.isfinite(x) for x in losses), f"{label}: loss {losses}"
-    for k in FLASH:
+    for k in FLASH + FLASH_TC:
         assert launches[k] == layers * steps, (
             f"{label}: {k} launched {launches[k]} times in {steps} steps; "
             f"the path must launch it {layers * steps} times")
@@ -1489,6 +1583,8 @@ def main():
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
             f"{max(spills, default=0)}")
 
+    _tc_build_report(kernels)
+
     log("phase 3: kernels against their plain versions")
     results = {"decode_attention": check_decode_attention(ptt, name, rates)}
     results["decode_attention"].update(check_decode_attention_nmt(rates))
@@ -1540,6 +1636,8 @@ def main():
                 "gru_seq": nmt_launches["gru_seq"]}
     results["decode_attention"]["launches_nmt"] = \
         nmt_launches["decode_attention"]
+    for k, tc in zip(("flash_fwd", "flash_bwd_dkv"), FLASH_TC):
+        results[k]["launches_tc_bf16"] = train_launches[tc]
     for k, n in launches.items():
         assert n > 0, f"kernel {k} was never launched on its path"
     line = {"kernels": [dict(name=k, **_KERNEL_META[k],

@@ -28,22 +28,20 @@
 // ~295 bf16 balance point), so ~10 us; K2 ~43 MB / 6.4 GFLOP, K3 ~51 MB /
 // 8.6 GFLOP. What the design keeps from the TPU kernels: the [T, T] score
 // matrix never reaches device memory in either direction (one 64 x 64 tile
-// at a time in shared memory); dead tiles are skipped (the causal bound,
-// and the segment-id range test: disjoint id ranges cannot match), so a
-// causal run does about half the work; each block loads its Q (or K/V)
-// tile once and streams the other side through shared memory. Simple
-// first: no TMA, no wgmma, no pipelining of the tile loads.
+// at a time); dead tiles are skipped (the causal bound, and the segment-id
+// range test: disjoint id ranges cannot match), so a causal run does about
+// half the work; each block loads its Q (or K/V) tile once and streams the
+// other side through shared memory.
 //
-// The products run as float32 FMAs on the CUDA cores in both types: in
-// float32 (the reference mode) that keeps float32 exact where the tensor
-// cores would round to tf32, and in bfloat16 it keeps every score and
-// gradient sum an IEEE float32 sum, as the plain version's are, so P and
-// dS round to the same bfloat16 values in both (tensor-core sums differ in
-// the last bits and flip some of those roundings). 256 threads as 16 x 16:
-// thread (ty, tx) owns tile rows 4*ty .. 4*ty+3 and columns tx + 16*j, so
-// a row's reductions stay in a half-warp and its running max and sum in
-// registers; tiles are float32 in shared memory with a padded row stride.
-// Grid: K1 and K2 one block per (q tile, batch*head), K3 one per (k tile,
+// Two designs. bfloat16 K1 and K3 run on the tensor cores (mma.sync, with
+// cp.async pipelines; see "K1 and K3 for bfloat16" below). float32, the
+// reference mode, and K2 in both types run the products as float32 FMAs on
+// the CUDA cores, which keeps float32 exact where the tensor cores would
+// round to tf32: 256 threads as 16 x 16, thread (ty, tx) owns tile rows
+// 4*ty .. 4*ty+3 and columns tx + 16*j, so a row's reductions stay in a
+// half-warp and its running max and sum in registers; tiles are float32 in
+// shared memory with a padded row stride, loaded synchronously. Grid: K1
+// and K2 one block per (q tile, batch*head), K3 one per (k tile,
 // batch*head).
 //
 // Layouts (the wrapper makes them so): q, o, dO, dq [B*H, Tq, D], k, v,
@@ -56,6 +54,8 @@
 
 #include <climits>
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -596,6 +596,625 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1 and K3 for bfloat16 on the tensor cores.
+//
+// The float32 kernels above keep every product exact in float32 (the
+// reference mode); bfloat16 inputs take these instead. Every product is an
+// mma.sync.m16n8k16 (bf16 operands, float32 sums). Each warp owns 16 rows
+// of its side (queries in K1, keys in K3), loaded once; the other side
+// streams through a two-stage cp.async ring of XOR-swizzled bfloat16 tiles
+// (16-byte copies; the eight rows that one ldmatrix reads at one 16-byte
+// column fall in eight bank groups), the next tile's copy in flight while
+// the current one is multiplied. Scores, P and dS stay in registers: the
+// C fragment of one product is rounded to bfloat16 and repacked as the A
+// fragment of the next. A C fragment holds rows lane/4 and lane/4 + 8,
+// columns 2*(lane%4) and +1 of each 8-column n-tile, so a row's max and
+// sum reduce over the four lanes of a quad. exp is exp2f of x log2(e).
+//
+// Why mma.sync and not wgmma: at the LM's shape K1 is bound by bytes
+// (~34 MB, ~10 us); its 4.3 GFLOP take well under that at the warp-level
+// tensor-core rate. What the designs were measured against (more warps or
+// keys a block, deeper rings, skipping masked fragments on the diagonal,
+// K and V held in registers in K3): PERF.md's findings.
+//
+// The rounding points are the plain version's (P to v's / dO's type, dS
+// to q's type); the sums are float32 in the tensor cores' order, so a
+// result may differ from the plain version by the terms that
+// ops/flash_attention.py `flash_fwd_bound` and `flash_bwd_dkv_bound`
+// state, one term for each rounding or sum that differs.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 128;   // 4 warps of 16 rows: 64 rows a block
+constexpr int kRing = 2;          // K1's ring (3, 4 slots measured no faster)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// exp(x) as the hardware's ex2 of x log2(e): two float32 roundings and
+// ex2's own error (~2 ulp) where expf takes a longer exact range reduction
+// (2^-22 relative in all, inside the per-term bound's allowance for exp).
+__device__ __forceinline__ float exp_tc(float x) { return exp2f(x * kLog2e); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; src_bytes 0 writes 16 zero bytes
+// (rows past the end of a ragged tile).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a . b for one 16 x 8 tile, k = 16.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bfloat16 in one register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragment of k rows 16*kk .. 16*kk+15 of a product, from the C
+// fragments of n-tiles 2*kk (c0) and 2*kk+1 (c1) of the previous one.
+__device__ __forceinline__ void c_to_a(const float (&c0)[4],
+                                       const float (&c1)[4],
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Element offset of 16-byte column c of row r in a swizzled [rows][D]
+// bfloat16 tile: the column is XORed with the row (for D = 32, where two
+// rows share a 128-byte line, with the row pair).
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int kCols = D / 8;
+  const int pc = kCols >= 8 ? (c ^ (r & 7)) : (c ^ ((r >> 1) & 3));
+  return r * D + pc * 8;
+}
+
+// Rows [row0, row0 + 64) of a row-major [total, D] bfloat16 matrix into a
+// swizzled tile with cp.async; rows past `total` are zeros.
+template <int D>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
+                                                int row0, int total) {
+  constexpr int kCols = D / 8;
+  for (int e = threadIdx.x; e < 64 * kCols; e += kTcThreads) {
+    const int r = e / kCols, c = e % kCols;
+    const int g = row0 + r;
+    const bf16* from = src + (long long)min(g, total - 1) * D + c * 8;
+    cp_async16(smem_u32(dst + swz<D>(r, c)), from, g < total ? 16 : 0);
+  }
+}
+
+// Element i (0 <= i < 64) of a 64-long run of 32-bit values starting at
+// row0 into dst[i]; past `total`, zero. Threads outside [0, 64) do nothing.
+__device__ __forceinline__ void load_vec_async(void* dst, const void* src,
+                                               int row0, int total, int i) {
+  if (i < 0 || i >= 64) return;
+  const int g = row0 + i;
+  const char* from = static_cast<const char*>(src) + 4ll * min(g, total - 1);
+  cp_async4(smem_u32(static_cast<char*>(dst) + 4 * i), from,
+            g < total ? 4 : 0);
+}
+
+// Where each lane points ldmatrix in a swizzled [rows][D] tile, as a
+// byte offset for k columns 0..15 of rows 0..15: `a_off` for the A
+// fragment (and, with .trans, for the B fragments of two n-tiles of
+// columns whose k rows are the tile's rows), `b_off` for the B fragments of
+// two n-tiles whose n rows are the tile's rows. Rows rb.. (rb a multiple
+// of 16) and columns 16*kk.. are then at base + rb*2D + (off ^ 32*kk):
+// the swizzle XORs the 16-byte column with bits of the row below 16, so
+// moving 16 columns flips one bit of the offset and moving 16 rows adds.
+template <int D>
+__device__ __forceinline__ uint32_t a_off(int lane) {
+  return 2 * swz<D>((lane & 7) + ((lane >> 3) & 1) * 8, lane >> 4);
+}
+template <int D>
+__device__ __forceinline__ uint32_t b_off(int lane) {
+  return 2 * swz<D>((lane & 7) + (lane >> 4) * 8, (lane >> 3) & 1);
+}
+template <int D>
+__device__ __forceinline__ uint32_t frag_at(uint32_t base, int rb,
+                                            uint32_t off, int kk) {
+  return base + rb * (2 * D) + (off ^ (32 * kk));
+}
+
+// Least and greatest of ids[row0 .. row0 + n), reduced within the warp, so
+// each warp reaches the same block-uniform decision without a barrier.
+__device__ __forceinline__ void warp_id_range(const int* ids, int row0, int n,
+                                              int lane, int& lo, int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int i = lane; i < n; i += 32) {
+    const int v = __ldg(ids + row0 + i);
+    lo = min(lo, v);
+    hi = max(hi, v);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// K1, bfloat16. Grid (batch*head, q tile) with the last (longest causal)
+// q tiles launched first, so the tail wave is made of short blocks.
+// Shared memory: Q [64][D], then two stages of K [64][D] and V [64][D].
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
+  constexpr int KC = D / 16;    // k chunks of Q . K^T
+  constexpr int KB = kBK;       // keys per tile
+  constexpr int S = kRing;      // tiles in the cp.async ring
+  constexpr int NS = KB / 8;    // n-tiles of a score tile
+  constexpr int NO = D / 8;     // n-tiles of the output
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Ks = Qs + kBQ * D;       // [S][KB][D]
+  bf16* Vs = Ks + S * KB * D;    // [S][KB][D]
+
+  const int Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
+  const int bh = blockIdx.x, b = bh / a.H;
+  const int qb = gridDim.y - 1 - blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
+  const bf16* q = static_cast<const bf16*>(a.q) + (long long)bh * Tq * D;
+  const bf16* k = static_cast<const bf16*>(a.k) + (long long)bh * Tk * D;
+  const bf16* v = static_cast<const bf16*>(a.v) + (long long)bh * Tk * D;
+  const bool seg = a.qseg != nullptr;
+  const int* qseg = seg ? a.qseg + (long long)b * Tq : nullptr;
+  const int* kvseg = seg ? a.kvseg + (long long)b * Tk : nullptr;
+
+  load_tile_async<D>(Qs, q, q0, Tq);
+  cp_async_commit();
+
+  const int r0 = warp * 16 + g;   // this thread's rows: q0 + r0 and + 8
+  int qlo = 0, qhi = 0, myq[2] = {0, 0};
+  if (seg) {
+    warp_id_range(qseg, q0, nqr, lane, qlo, qhi);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      myq[i] = __ldg(qseg + min(q0 + r0 + 8 * i, Tq - 1));
+  }
+  // key tiles the block's rows see: all, or under causal masking those up
+  // to the last key its last row sees
+  int n_kt = (Tk + KB - 1) / KB;
+  if (a.causal) {
+    const int last_key = q0 + nqr - 1 + off;
+    n_kt = last_key < 0 ? 0 : min(n_kt, last_key / KB + 1);
+  }
+  // the first live key tile at or after kt (segments: the id ranges meet)
+  auto next_live = [&](int kt) {
+    if (seg) {
+      for (; kt < n_kt; ++kt) {
+        int klo, khi;
+        warp_id_range(kvseg, kt * KB, min(KB, Tk - kt * KB), lane, klo, khi);
+        if (!(qhi < klo || qlo > khi)) break;
+      }
+    }
+    return kt;
+  };
+
+  // the live tiles in order go to ring slots 0, 1, ...; `ahead` is the
+  // next one to load, S - 1 tiles ahead of the one being multiplied
+  auto load_kv = [&](int slot, int tile) {
+    load_tile_async<D>(Ks + slot * KB * D, k, tile * KB, Tk);
+    load_tile_async<D>(Vs + slot * KB * D, v, tile * KB, Tk);
+  };
+  int kt = next_live(0), ahead = kt;
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (ahead < n_kt) {
+      load_kv(st, ahead);
+      ahead = next_live(ahead + 1);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<S - 1>();   // Q has landed
+  __syncthreads();
+  const uint32_t aoff = a_off<D>(lane), boff = b_off<D>(lane);
+  uint32_t qf[KC][4];
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk)
+    ldsm_x4(frag_at<D>(smem_u32(Qs), warp * 16, aoff, kk), qf[kk]);
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  int slot = 0;
+  while (kt < n_kt) {
+    if (ahead < n_kt) {   // into the slot the previous tile used
+      load_kv((slot + S - 1) % S, ahead);
+      ahead = next_live(ahead + 1);
+    }
+    cp_async_commit();
+    cp_async_wait<S - 1>();   // this tile's K and V have landed
+    __syncthreads();
+    const uint32_t Kt = smem_u32(Ks + slot * KB * D);
+    const uint32_t Vt = smem_u32(Vs + slot * KB * D);
+    const int k0 = kt * KB;
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk)
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(frag_at<D>(Kt, np * 16, boff, kk), bk);
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+
+    // masks, only on the tiles that need them (a block-uniform test)
+    const bool edge =
+        seg || k0 + KB > Tk || (a.causal && k0 + KB - 1 > q0 + off);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bool ok = true;
+        if (edge) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const int qp = q0 + r0 + 8 * (e >> 1);
+          ok = kp < Tk;
+          if (a.causal) ok = ok && qp + off >= kp;
+          if (seg) ok = ok && myq[e >> 1] == __ldg(kvseg + min(kp, Tk - 1));
+        }
+        s[j][e] = ok ? s[j][e] * a.scale : kNegInf;
+      }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mc = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        mc = fmaxf(mc, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      const float mn = fmaxf(m[i], quad_max(mc));
+      const float alpha = exp_tc(m[i] - mn);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          // a row with nothing visible so far has m == s == -1e30: its
+          // dead entries must not count as exp(0) = 1
+          const float p =
+              s[j][e] > kNegInf * 0.5f ? exp_tc(s[j][e] - mn) : 0.f;
+          rs += p;
+          s[j][e] = p;
+        }
+      l[i] = l[i] * alpha + quad_sum(rs);
+      m[i] = mn;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][2 * i] *= alpha;
+        o[j][2 * i + 1] *= alpha;
+      }
+    }
+
+    // O += P . V: P rounded to bfloat16 straight from the score fragments,
+    // V's B fragments through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
+      uint32_t pa[4];
+      c_to_a(s[2 * kk], s[2 * kk + 1], pa);
+#pragma unroll
+      for (int dd = 0; dd < NO / 2; ++dd) {
+        uint32_t bv[4];
+        ldsm_x4_t(frag_at<D>(Vt, kk * 16, aoff, dd), bv);
+        mma_bf16(o[2 * dd], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * dd + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this slot
+    slot = (slot + 1) % S;
+    kt = next_live(kt + 1);
+  }
+  cp_async_wait<0>();
+
+  bf16* out = static_cast<bf16*>(a.out) + (long long)bh * Tq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + r0 + 8 * i;
+    if (qp >= Tq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(out + (long long)qp * D + 8 * j + 2 * t) =
+          pack_bf16(o[j][2 * i] / den, o[j][2 * i + 1] / den);
+    if (a.lse_out != nullptr && t == 0)
+      a.lse_out[(long long)bh * Tq + qp] = m[i] + logf(den);
+  }
+}
+
+// K3, bfloat16. Grid (batch*head, key tile); each warp owns 16 keys and
+// works transposed (keys as rows), so that every intermediate is a C
+// fragment that becomes the next product's A fragment:
+//   S^T = K Q^T, P^T = exp(S^T scale - lse) where visible, dV += P^T dO,
+//   dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale, dK += dS^T Q.
+// K and V are loaded once; Q, dO, lse, delta (and the query ids) of each
+// live q tile come through a two-stage cp.async ring, and each q tile is
+// taken in chunks of QC queries. dK and dV stay in registers (64 floats a
+// thread at D = 64); K's and V's A fragments are read from shared memory
+// for each chunk rather than held, and the chunk's products run in two
+// halves (S, P, dV, then dP, dS, dK), so that a thread needs at most 168
+// registers and three blocks fit on an SM.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
+    flash_dkv_tc_kernel(Args a) {
+  constexpr int KC = D / 16;          // k chunks over D
+  constexpr int NO = D / 8;           // n-tiles of dK, dV
+  constexpr int QC = 16;              // queries per chunk
+  constexpr int NQ = QC / 8;          // n-tiles of a chunk of S^T
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);   // [kBK][D]
+  bf16* Vs = Ks + kBK * D;                       // [kBK][D]
+  bf16* Qs = Vs + kBK * D;                       // [2][kBQ][D]
+  bf16* Gs = Qs + 2 * kBQ * D;                   // dO [2][kBQ][D]
+  float* lse_s = reinterpret_cast<float*>(Gs + 2 * kBQ * D);  // [2][kBQ]
+  float* dl_s = lse_s + 2 * kBQ;                              // [2][kBQ]
+  int* qid_s = reinterpret_cast<int*>(dl_s + 2 * kBQ);        // [2][kBQ]
+
+  const int Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
+  const int bh = blockIdx.x, b = bh / a.H;
+  const int kt = blockIdx.y;   // causal: low key tiles see the most rows
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = kt * kBK, nkr = min(kBK, Tk - k0);
+  const bool seg = a.qseg != nullptr;
+  // (pointers into the inputs are formed where they are used, from the
+  // kernel's parameters, so that no register holds them across the loop)
+  load_tile_async<D>(Ks, static_cast<const bf16*>(a.k) + (long long)bh * Tk * D,
+                     k0, Tk);
+  load_tile_async<D>(Vs, static_cast<const bf16*>(a.v) + (long long)bh * Tk * D,
+                     k0, Tk);
+  cp_async_commit();
+
+  const int r0 = warp * 16 + g;   // this thread's keys: k0 + r0 and + 8
+  int klo = 0, khi = 0, myk[2] = {0, 0};
+  if (seg) {
+    const int* kvseg = a.kvseg + (long long)b * Tk;
+    warp_id_range(kvseg, k0, nkr, lane, klo, khi);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      myk[i] = __ldg(kvseg + min(k0 + r0 + 8 * i, Tk - 1));
+  }
+  const int n_qt = (Tq + kBQ - 1) / kBQ;
+  // the first live q tile at or after qt: causal, the tile's last row sees
+  // this tile's first key; segments, the id ranges meet
+  auto next_live = [&](int qt) {
+    for (; qt < n_qt; ++qt) {
+      const int q0 = qt * kBQ, nqr = min(kBQ, Tq - q0);
+      if (a.causal && q0 + nqr - 1 + off < k0) continue;
+      if (seg) {
+        int qlo, qhi;
+        warp_id_range(a.qseg + (long long)b * Tq, q0, nqr, lane, qlo, qhi);
+        if (qhi < klo || qlo > khi) continue;
+      }
+      break;
+    }
+    return qt;
+  };
+  auto load_stage = [&](int st, int qt) {
+    const int q0 = qt * kBQ;
+    const long long qoff = (long long)blockIdx.x * Tq * D;
+    const long long roff = (long long)blockIdx.x * Tq;
+    load_tile_async<D>(Qs + st * kBQ * D,
+                       static_cast<const bf16*>(a.q) + qoff, q0, Tq);
+    load_tile_async<D>(Gs + st * kBQ * D,
+                       static_cast<const bf16*>(a.dout) + qoff, q0, Tq);
+    load_vec_async(lse_s + st * kBQ, a.lse_in + roff, q0, Tq, tid);
+    load_vec_async(dl_s + st * kBQ, a.delta + roff, q0, Tq, tid - kBQ);
+    if (seg)
+      load_vec_async(qid_s + st * kBQ, a.qseg + (long long)b * Tq, q0, Tq,
+                     tid);
+  };
+
+  int qt = next_live(0);
+  if (qt < n_qt) load_stage(0, qt);
+  cp_async_commit();
+
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  const uint32_t aoff = a_off<D>(lane), boff = b_off<D>(lane);
+  const uint32_t Ka = smem_u32(Ks), Va = smem_u32(Vs);
+
+  int stage = 0;
+  while (qt < n_qt) {
+    const int nxt = next_live(qt + 1);
+    if (nxt < n_qt) load_stage(stage ^ 1, nxt);
+    cp_async_commit();
+    cp_async_wait<1>();   // this stage (and, the first time, K and V)
+    __syncthreads();
+    const uint32_t Qt = smem_u32(Qs + stage * kBQ * D);
+    const uint32_t Gt = smem_u32(Gs + stage * kBQ * D);
+    const float* lse_t = lse_s + stage * kBQ;
+    const float* dl_t = dl_s + stage * kBQ;
+    const int* qid_t = qid_s + stage * kBQ;
+    const int q0 = qt * kBQ;
+    const bool edge = seg || q0 + kBQ > Tq || k0 + kBK > Tk ||
+                      (a.causal && k0 + kBK - 1 > q0 + off);
+
+#pragma unroll
+    for (int qc = 0; qc < kBQ / QC; ++qc) {
+      // S^T of this chunk, [16 keys][QC queries], then P^T in place
+      float s[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        uint32_t ka[4];
+        ldsm_x4(frag_at<D>(Ka, warp * 16, aoff, kk), ka);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t bq[4];
+          ldsm_x4(frag_at<D>(Qt, qc * QC + np * 16, boff, kk), bq);
+          mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+          mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lq = qc * QC + 8 * j + 2 * t + (e & 1);
+          bool ok = true;
+          if (edge) {
+            const int qp = q0 + lq, kp = k0 + r0 + 8 * (e >> 1);
+            ok = qp < Tq && kp < Tk;
+            if (a.causal) ok = ok && qp + off >= kp;
+            if (seg) ok = ok && qid_t[lq] == myk[e >> 1];
+          }
+          s[j][e] = ok ? exp_tc(s[j][e] * a.scale - lse_t[lq]) : 0.f;
+        }
+
+      // dV += P^T dO: P^T rounded to bfloat16 from its fragments, dO's B
+      // fragments through ldmatrix.trans
+#pragma unroll
+      for (int kq = 0; kq < QC / 16; ++kq) {
+        uint32_t pa[4];
+        c_to_a(s[2 * kq], s[2 * kq + 1], pa);
+#pragma unroll
+        for (int dd = 0; dd < NO / 2; ++dd) {
+          uint32_t bg[4];
+          ldsm_x4_t(frag_at<D>(Gt, qc * QC + kq * 16, aoff, dd), bg);
+          mma_bf16(dv[2 * dd], pa, bg[0], bg[1]);
+          mma_bf16(dv[2 * dd + 1], pa, bg[2], bg[3]);
+        }
+      }
+
+      // dP^T = V dO^T, then dS^T in place
+      float dp[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        uint32_t va[4];
+        ldsm_x4(frag_at<D>(Va, warp * 16, aoff, kk), va);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t bg[4];
+          ldsm_x4(frag_at<D>(Gt, qc * QC + np * 16, boff, kk), bg);
+          mma_bf16(dp[2 * np], va, bg[0], bg[1]);
+          mma_bf16(dp[2 * np + 1], va, bg[2], bg[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lq = qc * QC + 8 * j + 2 * t + (e & 1);
+          dp[j][e] = s[j][e] * (dp[j][e] - dl_t[lq]) * a.scale;
+        }
+
+      // dK += dS^T Q: dS^T rounded to bfloat16 from its fragments, Q's B
+      // fragments through ldmatrix.trans
+#pragma unroll
+      for (int kq = 0; kq < QC / 16; ++kq) {
+        uint32_t sa[4];
+        c_to_a(dp[2 * kq], dp[2 * kq + 1], sa);
+#pragma unroll
+        for (int dd = 0; dd < NO / 2; ++dd) {
+          uint32_t bq[4];
+          ldsm_x4_t(frag_at<D>(Qt, qc * QC + kq * 16, aoff, dd), bq);
+          mma_bf16(dk[2 * dd], sa, bq[0], bq[1]);
+          mma_bf16(dk[2 * dd + 1], sa, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+    stage ^= 1;
+    qt = nxt;
+  }
+  cp_async_wait<0>();
+
+  const long long koff = (long long)blockIdx.x * Tk * D;
+  bf16* dko = static_cast<bf16*>(a.dk) + koff;
+  bf16* dvo = static_cast<bf16*>(a.dv) + koff;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = k0 + r0 + 8 * i;
+    if (kp >= Tk) continue;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const long long at = (long long)kp * D + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(dko + at) =
+          pack_bf16(dk[j][2 * i], dk[j][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dvo + at) =
+          pack_bf16(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
 // Dynamic shared memory of each kernel, in bytes.
 template <int D>
 constexpr size_t fwd_smem() {
@@ -615,16 +1234,25 @@ constexpr size_t dkv_smem() {
                           2 * (size_t)kBQ * kPS + 2 * kBQ) +
          sizeof(int) * (kBQ + kBK);
 }
+template <int D>
+constexpr size_t fwd_tc_smem() {
+  return sizeof(bf16) * (size_t)(kBQ + 2 * kRing * kBK) * D;
+}
+template <int D>
+constexpr size_t dkv_tc_smem() {
+  return sizeof(bf16) * (size_t)(2 * kBK + 4 * kBQ) * D +
+         (sizeof(float) * 2 + sizeof(int)) * 2 * kBQ;
+}
 
 template <typename Kernel>
 cudaError_t launch(Kernel kern, dim3 grid, size_t smem, cudaStream_t s,
-                   const Args& a) {
+                   const Args& a, int threads = kThreads) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<grid, kThreads, smem, s>>>(a);
+  kern<<<grid, threads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -633,14 +1261,19 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 template <typename T, int D>
 cudaError_t run(int which, const Args& a, int BH, cudaStream_t s) {
   const int nq = (a.Tq + kBQ - 1) / kBQ, nk = (a.Tk + kBK - 1) / kBK;
-  switch (which) {
-    case kFwd:
+  if (which == kDq)
+    return launch(flash_dq_kernel<T, D>, dim3(nq, BH), dq_smem<D>(), s, a);
+  if constexpr (std::is_same<T, bf16>::value) {
+    // bfloat16 K1 and K3 on the tensor cores, grid (batch*head, tile)
+    if (which == kFwd)
+      return launch(flash_fwd_tc_kernel<D>, dim3(BH, nq), fwd_tc_smem<D>(), s,
+                    a, kTcThreads);
+    return launch(flash_dkv_tc_kernel<D>, dim3(BH, nk), dkv_tc_smem<D>(), s,
+                  a, kTcThreads);
+  } else {
+    if (which == kFwd)
       return launch(flash_fwd_kernel<T, D>, dim3(nq, BH), fwd_smem<D>(), s, a);
-    case kDq:
-      return launch(flash_dq_kernel<T, D>, dim3(nq, BH), dq_smem<D>(), s, a);
-    default:
-      return launch(flash_dkv_kernel<T, D>, dim3(nk, BH), dkv_smem<D>(), s,
-                    a);
+    return launch(flash_dkv_kernel<T, D>, dim3(nk, BH), dkv_smem<D>(), s, a);
   }
 }
 
@@ -661,7 +1294,7 @@ cudaError_t run_d(int which, int D, const Args& a, int BH, cudaStream_t s) {
 int run_checked(int which, int is_bf16, int D, const Args& a, int BH,
                 void* stream) {
   if (BH < 1 || BH > 65535 || a.H < 1 || BH % a.H != 0 || a.Tq < 1 ||
-      a.Tk < 1)
+      a.Tk < 1 || a.Tq > 65535 * kBQ || a.Tk > 65535 * kBK)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = is_bf16 ? run_d<__nv_bfloat16>(which, D, a, BH, s)
@@ -675,6 +1308,27 @@ extern "C" {
 
 const char* ptt_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Dynamic shared memory, in bytes, of the kernel that `which` (0 forward,
+// 1 dQ, 2 dK/dV) launches for the type and head dim; 0 for another D.
+int ptt_flash_smem_bytes(int which, int is_bf16, int D) {
+  auto pick = [&](auto d) -> size_t {
+    constexpr int kD = decltype(d)::value;
+    if (which == kFwd) return is_bf16 ? fwd_tc_smem<kD>() : fwd_smem<kD>();
+    if (which == kDq) return dq_smem<kD>();
+    return is_bf16 ? dkv_tc_smem<kD>() : dkv_smem<kD>();
+  };
+  switch (D) {
+    case 32:
+      return (int)pick(std::integral_constant<int, 32>());
+    case 64:
+      return (int)pick(std::integral_constant<int, 64>());
+    case 128:
+      return (int)pick(std::integral_constant<int, 128>());
+    default:
+      return 0;
+  }
 }
 
 // Each entry point launches on `stream`, does not synchronize, and returns

@@ -9,7 +9,9 @@ csrc/flash_attention.cu. Three pieces, as for every kernel of the port:
 - `flash_fwd_cuda`, `flash_bwd_dq_cuda`, `flash_bwd_dkv_cuda` — wrappers of
   the hand-written kernels. Each checks device, type, shape and layout,
   launches on the current stream, and adds one to its count in
-  `kernels.LAUNCHES` ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv").
+  `kernels.LAUNCHES` ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"; the
+  bfloat16 launches of K1 and K3, which run on the tensor cores, also to
+  "flash_fwd_tc" and "flash_bwd_dkv_tc").
 - `flash_fwd_plain` → (o, lse) and `flash_bwd_plain` → (dq, dk, dv) — the
   same functions in plain PyTorch with the kernels' semantics: scores in
   float32, masked scores -1e30, an online softmax over tiles of 64 keys,
@@ -22,6 +24,12 @@ csrc/flash_attention.cu. Three pieces, as for every kernel of the port:
 - `FlashAttention`, a `torch.autograd.Function` that picks by device: CPU
   tensors run the plain forward and backward; CUDA tensors launch K1, then
   K2 and K3, or raise. There is no flag and no fallback.
+
+What a kernel may differ by from its plain version: float32 kernels
+1e-5 · max(1, |ref|); K2 one bfloat16 step; the bfloat16 tensor-core K1
+and K3 the per-term bounds `flash_fwd_bound` and `flash_bwd_dkv_bound`
+(`flash_check` applies each; `flash_control_masks` builds the wrong
+kernels that the check must reject).
 
 Masks: causal aligned bottom-right (query i sees keys up to i + Tk - Tq)
 and segment ids (a query sees a key iff their ids are equal; the packed
@@ -91,14 +99,18 @@ def _acc(t):
     return torch.promote_types(t.dtype, torch.float32)
 
 
-def flash_fwd_plain(q, k, v, scale, causal, q_ids=None, kv_ids=None):
+def flash_fwd_plain(q, k, v, scale, causal, q_ids=None, kv_ids=None,
+                    mask=None):
     """K1's function in plain PyTorch: (o [B,H,Tq,D] in q's dtype,
     lse [B,H,Tq] float32). Like the kernel, an online softmax over tiles of
     KEY_TILE keys: P is rounded to v's dtype against the running max of the
-    tiles so far, which matters in bfloat16."""
+    tiles so far, which matters in bfloat16. `mask`, a [.., Tq, Tk] bool
+    tensor of the visible pairs, replaces the one `causal` and the ids
+    make (the controls of `flash_control_masks`)."""
     f = _acc(q)
     qf = q.to(f)
-    mask = _valid_mask(q, k, causal, q_ids, kv_ids)
+    if mask is None:
+        mask = _valid_mask(q, k, causal, q_ids, kv_ids)
     zero = torch.zeros((), dtype=f, device=q.device)
     m = torch.full(q.shape[:-1] + (1,), _NEG_INF, dtype=f, device=q.device)
     lsum = torch.zeros_like(m)
@@ -130,15 +142,17 @@ def flash_delta(o, do):
 
 
 def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, q_ids=None,
-                    kv_ids=None, delta=None):
+                    kv_ids=None, delta=None, mask=None):
     """K2 and K3's function in plain PyTorch: (dq, dk, dv) in q's, k's and
-    v's dtypes. `delta` defaults to Σ dO·O; `o` may then be None."""
+    v's dtypes. `delta` defaults to Σ dO·O; `o` may then be None. `mask`
+    as in `flash_fwd_plain`."""
     if delta is None:
         delta = flash_delta(o, do)
     f = _acc(q)
     s = torch.matmul(q.to(f), k.to(f).transpose(-1, -2)) * scale
     p = torch.exp(s - lse.to(f).unsqueeze(-1))
-    mask = _valid_mask(q, k, causal, q_ids, kv_ids)
+    if mask is None:
+        mask = _valid_mask(q, k, causal, q_ids, kv_ids)
     if mask is not None:
         p = torch.where(mask, p, torch.zeros((), dtype=f, device=p.device))
     dp = torch.matmul(do.to(f), v.to(f).transpose(-1, -2))
@@ -147,6 +161,219 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, q_ids=None,
     dq = torch.matmul(ds.to(k.dtype).to(f), k.to(f))
     dk = torch.matmul(ds.to(q.dtype).to(f).transpose(-1, -2), q.to(f))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --- what a tensor-core kernel may differ by ---------------------------------
+#
+# The bfloat16 K1 and K3 sum their products on the tensor cores, in another
+# order than the plain version (and a tensor core may truncate where a
+# float32 add rounds). So a score or dP differs in its last bits, and a P
+# or dS near a rounding boundary rounds to the neighbouring bfloat16 value,
+# which moves a sum of many terms by more than one step of the output. The
+# bounds below state what each such term may contribute: each is computed
+# in float32 from the plain version's own operands, first order in the
+# float32 unit (the terms are ~1e-4 relative and smaller). `flash_check`
+# adds the output's own final rounding. The float32 kernels are held to
+# 1e-5 · max(1, max|ref|) instead, and K2 (which sums on the CUDA cores in
+# both types) to one bfloat16 step.
+
+#: u: the largest relative gap between neighbouring bfloat16 values
+BF16_GAP = 2.0 ** -7
+_F32_ULP = 2.0 ** -23
+
+
+def _sum_err(n):
+    """ε_n = n · 2⁻²³: how far two float32 sums of the same n terms in
+    different orders may differ, relative to the sum of the terms' sizes:
+    n · 2⁻²⁴ for each, rounding to nearest, doubled because a tensor core
+    may truncate its adds."""
+    return n * _F32_ULP
+
+
+def _exponent_err(q, k, s, lse, scale):
+    """E_x [.., Tq, Tk]: how far the exponent s·scale - lse (or s - m) of a
+    kernel's P may be from the plain version's, and so how far P is in
+    relative terms (|e^δ - 1| ≈ |δ|):
+    - E_s = ε_D · scale · (|Q|·|K|ᵀ), the score's dot of D exact bfloat16
+      products summed in another order;
+    - 2⁻²² (1 + |s·scale| + |lse|): the float32 rounding of the scaling,
+      of the subtraction of the max (a running max within log Tk of lse)
+      and of the product by log2(e) on either side, and the error of the
+      exponential itself (the kernels take ex2 of x·log2 e, ~2 ulps).
+    """
+    f = torch.float32
+    d = q.shape[-1]
+    e_s = torch.matmul(q.to(f).abs(), k.to(f).abs().transpose(-1, -2))
+    e_s = e_s * (_sum_err(d) * scale)
+    lse = lse.to(f).unsqueeze(-1)
+    return e_s + 2.0 ** -22 * (1.0 + s.abs() + lse.abs())
+
+
+def flash_fwd_bound(q, k, v, o_ref, lse_ref, scale, causal, q_ids=None,
+                    kv_ids=None):
+    """(slack_o, slack_lse): what the bfloat16 tensor-core K1 may differ by
+    from `flash_fwd_plain`'s (o_ref, lse_ref) on these inputs, besides the
+    output's final bfloat16 rounding (`flash_check` adds that). With A the
+    row softmax (exp(s - lse_ref) on the visible pairs), E_x as in
+    `_exponent_err`, and ε_n as in `_sum_err`:
+
+    - o: u·(A·|V|) + (A∘E_x)·|V| + (Σ_j A∘E_x)·|o_ref|
+         + ε_Tk·(A·|V| + |o_ref|).
+      The first term is one flipped P rounding per term (P rounds to v's
+      type at the plain version's point: a flip moves P by at most u·P).
+      The next two are the score error carried through the softmax:
+      o = Σ_j A_j v_j and dA_j = A_j (δ_j - Σ_k A_k δ_k), so
+      |do| ≤ Σ_j A_j E_j |v_j| + (Σ_k A_k E_k) |o|. The last is the
+      float32 sums over keys in another order: P·V, and l, which divides
+      o (the rescalings by the running max add one rounding per tile of 64
+      keys, inside ε_Tk).
+    - lse = m + log l: Σ_j A_j E_j (d lse = Σ_j A_j δ_j) + ε_Tk (the sum l)
+      + |lse|·2⁻²³ (the add and the log). Rows with no visible key keep
+      the sentinel exactly: `flash_check` compares those for equality.
+    """
+    f = torch.float32
+    tk = k.shape[2]
+    s = torch.matmul(q.to(f), k.to(f).transpose(-1, -2)) * scale
+    a = torch.exp(s - lse_ref.to(f).unsqueeze(-1))
+    mask = _valid_mask(q, k, causal, q_ids, kv_ids)
+    if mask is not None:
+        a = torch.where(mask, a, torch.zeros((), dtype=f, device=a.device))
+    ae = a * _exponent_err(q, k, s, lse_ref, scale)
+    del s
+    av = v.to(f).abs()
+    oa = o_ref.to(f).abs()
+    a_v = torch.matmul(a, av)
+    slack_o = ((BF16_GAP + _sum_err(tk)) * a_v + torch.matmul(ae, av)
+               + (ae.sum(-1, keepdim=True) + _sum_err(tk)) * oa)
+    slack_lse = (ae.sum(-1) + _sum_err(tk)
+                 + lse_ref.to(f).abs() * _F32_ULP)
+    return slack_o, slack_lse
+
+
+def flash_bwd_dkv_bound(q, k, v, do, lse, delta, dk_ref, dv_ref, scale,
+                        causal, q_ids=None, kv_ids=None):
+    """(slack_dk, slack_dv): what the bfloat16 tensor-core K3 may differ by
+    from `flash_bwd_plain`'s (dk_ref, dv_ref) on the same inputs (lse and
+    delta are inputs: both take the same ones), besides the outputs' final
+    bfloat16 rounding. With P = exp(s·scale - lse) on the visible pairs,
+    E_x as in `_exponent_err` (so |δP| ≤ P∘E_x), dP = dO·Vᵀ and
+    dS = P∘(dP - delta)·scale:
+
+    - dV = round(P)ᵀ·dO: (u + ε_Tq)·(Pᵀ·|dO|) + (P∘E_x)ᵀ·|dO|: one flipped
+      P per term, the float32 sum over queries in another order, and the
+      score error through P.
+    - dK = round(dS)ᵀ·Q: E_dSᵀ·|Q| + ε_Tq·(|dS|ᵀ·|Q|), where
+      E_dS = (u + 2⁻²¹)·|dS| + scale·(P∘E_x∘|dP - delta| + P∘E_dP) and
+      E_dP = ε_D·(|dO|·|V|ᵀ) + 2⁻²³·(|dP| + |delta|): one flipped dS per
+      term (and the float32 rounding of the three operations that make dS,
+      on either side), dS's error from P's and from dP's (a dot of D
+      products in another order, and the subtraction of delta), then the
+      sum over queries.
+    """
+    f = torch.float32
+    d, tq = q.shape[-1], q.shape[2]
+    qf, kf, vf, dof = q.to(f), k.to(f), v.to(f), do.to(f)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    lse_f = lse.to(f).unsqueeze(-1)
+    mask = _valid_mask(q, k, causal, q_ids, kv_ids)
+    zero = torch.zeros((), dtype=f, device=q.device)
+    if mask is None:
+        p = torch.exp(s - lse_f)
+    else:
+        # a masked pair of a row with no visible key has exp(s + 1e30)
+        p = torch.where(mask, torch.exp(torch.where(mask, s - lse_f, zero)),
+                        zero)
+    pe = p * _exponent_err(q, k, s, lse, scale)
+    del s
+    ado = dof.abs()
+    slack_dv = ((BF16_GAP + _sum_err(tq))
+                * torch.matmul(p.transpose(-1, -2), ado)
+                + torch.matmul(pe.transpose(-1, -2), ado))
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    delta_f = delta.to(f).unsqueeze(-1)
+    e_dp = (_sum_err(d) * torch.matmul(ado, vf.abs().transpose(-1, -2))
+            + _F32_ULP * (dp.abs() + delta_f.abs()))
+    dpd = (dp - delta_f).abs()
+    del dp
+    ds = p * dpd * scale
+    e_ds = ((BF16_GAP + 2.0 ** -21) * ds
+            + scale * (pe * dpd + p * e_dp))
+    aq = qf.abs()
+    slack_dk = (torch.matmul(e_ds.transpose(-1, -2), aq)
+                + _sum_err(tq) * torch.matmul(ds.transpose(-1, -2), aq))
+    return slack_dk, slack_dv
+
+
+def bf16_step(out, ref):
+    """One bfloat16 step at max(|out|, |ref|, rms(ref)), elementwise: the
+    output's own final rounding (two results that differ before it may
+    round to neighbouring values), taken no finer than at the tensor's rms
+    so that elements near zero are not held to a step of their own tiny
+    size."""
+    out, ref = out.float(), ref.float()
+    mag = torch.maximum(torch.maximum(out.abs(), ref.abs()),
+                        ref.pow(2).mean().sqrt())
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def flash_check(out, ref, slack=None):
+    """Hold a kernel output against its plain version. Returns
+    {"max_abs_err", "ok", "ratio" (the largest err / tolerance),
+    "beyond_step" (the share of elements more than one bfloat16 step
+    apart)}. Tolerance, elementwise:
+    - float32 outputs without `slack` (the float32 kernels): 1e-5 ·
+      max(1, max|ref|), float32 rounding of sums in another order;
+    - bfloat16 outputs without `slack` (K2): one bfloat16 step
+      (`bf16_step`): it sums on the CUDA cores and rounds dS where the
+      plain version does;
+    - with `slack` (the tensor-core K1 and K3, from `flash_fwd_bound` /
+      `flash_bwd_dkv_bound`): slack, plus one bfloat16 step where the
+      output is bfloat16.
+    Entries of `ref` at or below -1e29 (the lse sentinel of rows with no
+    visible key) must match exactly."""
+    bf16 = out.dtype == torch.bfloat16
+    out, ref = out.float(), ref.float()
+    live = ref > -1e29
+    res = {"max_abs_err": 0.0, "ok": True, "ratio": 0.0, "beyond_step": 0.0}
+    if not bool((out[~live] == ref[~live]).all()):
+        return {**res, "max_abs_err": float("inf"), "ok": False,
+                "ratio": float("inf")}
+    if slack is not None:
+        slack = slack.float()[live]
+    out, ref = out[live], ref[live]
+    if ref.numel() == 0:
+        return res
+    diff = (out - ref).abs()
+    step = bf16_step(out, ref)
+    if slack is None:
+        tol = (step if bf16 else
+               torch.full_like(ref, 1e-5 * max(1.0, float(ref.abs().max()))))
+    else:
+        tol = slack + step if bf16 else slack
+    ratio = diff / tol
+    return {"max_abs_err": float(diff.max()),
+            "ok": bool((diff <= tol).all()),
+            "ratio": float(ratio.max()),
+            "beyond_step": float((diff > step).float().mean())}
+
+
+def flash_control_masks(tq, tk, device=None):
+    """Visibility masks [Tq, Tk] of two wrong causal kernels, for showing
+    that `flash_check` with the bounds still rejects a wrong result:
+    "causal_off_by_one" (each query also sees the next key) and
+    "dropped_tile" (the loop over key tiles stops one short: each q tile
+    of KEY_TILE rows loses the last key tile it sees)."""
+    causal = torch.ones(tq, tk, dtype=torch.bool, device=device).tril(
+        tk - tq)
+    rows = torch.arange(tq, device=device)
+    q_tile = rows // KEY_TILE
+    last_key = torch.clamp(q_tile * KEY_TILE + KEY_TILE - 1, max=tq - 1)
+    last_tile = (last_key + tk - tq) // KEY_TILE
+    key_tile = torch.arange(tk, device=device) // KEY_TILE
+    dropped = causal & (key_tile[None, :] != last_tile[:, None])
+    off_by_one = torch.ones(tq, tk, dtype=torch.bool, device=device).tril(
+        tk - tq + 1)
+    return {"causal_off_by_one": off_by_one, "dropped_tile": dropped}
 
 
 # --- the CUDA kernels -------------------------------------------------------
@@ -159,8 +386,9 @@ def _bind(lib):
     lib.ptt_flash_fwd.argtypes = [c_int, c_int] + [c_vp] * 7 + tail
     lib.ptt_flash_bwd_dq.argtypes = [c_int, c_int] + [c_vp] * 9 + tail
     lib.ptt_flash_bwd_dkv.argtypes = [c_int, c_int] + [c_vp] * 10 + tail
+    lib.ptt_flash_smem_bytes.argtypes = [c_int, c_int, c_int]
     for fn in (lib.ptt_flash_fwd, lib.ptt_flash_bwd_dq,
-               lib.ptt_flash_bwd_dkv):
+               lib.ptt_flash_bwd_dkv, lib.ptt_flash_smem_bytes):
         fn.restype = c_int
     lib._ptt_bound = True
 
@@ -191,6 +419,9 @@ def _check(name, tensors, q, k, q_ids, kv_ids):
                              f"expected {want_dtype} {tuple(want_shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must start 16-byte aligned "
+                             f"(the kernels copy 16-byte pieces)")
     for ids, t in ((q_ids, q.shape[2]), (kv_ids, k.shape[2])):
         if ids is not None and (ids.device != dev or ids.dtype != torch.int32
                                 or tuple(ids.shape) != (b, t)
@@ -203,12 +434,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name, fn, *args):
+def _launch(name, fn, bf16_route, *args):
+    """Launch `fn`; count it under `name`, and under `bf16_route` too when
+    it is given (the bfloat16 launches of K1 and K3, which run the
+    tensor-core kernels)."""
     lib = kernels.load("flash_attention")
     _bind(lib)
     err = getattr(lib, fn)(*args)
     kernels.check(lib, name, err)
     kernels.count_launch(name)
+    if bf16_route:
+        kernels.count_launch(bf16_route)
 
 
 def flash_fwd_cuda(q, k, v, scale, causal, q_ids=None, kv_ids=None,
@@ -225,9 +461,11 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_ids=None, kv_ids=None,
         o = torch.empty_like(q)
         lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
                if with_lse else None)
-        _launch("flash_fwd", "ptt_flash_fwd", int(q.dtype == torch.bfloat16),
-                d, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_ids),
-                _ptr(kv_ids), o.data_ptr(), _ptr(lse), b * h, h, tq, tk,
+        bf16 = q.dtype == torch.bfloat16
+        _launch("flash_fwd", "ptt_flash_fwd", bf16 and "flash_fwd_tc",
+                int(bf16), d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _ptr(q_ids), _ptr(kv_ids), o.data_ptr(), _ptr(lse), b * h, h,
+                tq, tk,
                 float(scale), int(bool(causal)),
                 torch.cuda.current_stream(q.device).cuda_stream)
     return o, lse
@@ -250,7 +488,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
                                  delta, q_ids, kv_ids)
     with torch.cuda.device(q.device):
         dq = torch.empty_like(q)
-        _launch("flash_bwd_dq", "ptt_flash_bwd_dq",
+        _launch("flash_bwd_dq", "ptt_flash_bwd_dq", None,
                 int(q.dtype == torch.bfloat16), d, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), _ptr(q_ids), _ptr(kv_ids), dq.data_ptr(),
@@ -267,8 +505,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
     with torch.cuda.device(q.device):
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
+        bf16 = q.dtype == torch.bfloat16
         _launch("flash_bwd_dkv", "ptt_flash_bwd_dkv",
-                int(q.dtype == torch.bfloat16), d, q.data_ptr(),
+                bf16 and "flash_bwd_dkv_tc", int(bf16), d, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), _ptr(q_ids), _ptr(kv_ids), dk.data_ptr(),
                 dv.data_ptr(), b * h, h, tq, tk, float(scale),
