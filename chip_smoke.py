@@ -9,18 +9,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from paddle_tpu_torch/csrc with nvcc for
    sm_90a, one nvcc per source, all started at once; report the
-   tensor-core flash kernels' registers, spills (none allowed at head dim
-   64) and dynamic shared memory;
+   tensor-core flash kernels' (K1-K3) registers, spills (none allowed at
+   head dim 64) and dynamic shared memory;
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes its path gives it (decode attention: the serving tick, and the
+   shapes its path gives it (decode attention: the serving tick, odd
+   shapes, and the cases that exercise its split of the cache — T = 1, T
+   one past a chunk boundary, dh not a multiple of 4, rows whose mask
+   leaves only the first position or nothing, a peaked softmax — and the
    NMT decoder's q [32, 1, 512] over [32, 64, 512] forward and gradient;
    flash attention forward, dQ and dK/dV: the LM's training shape, a
    packed batch with segment ids, Tq != Tk, T not a multiple of the tile,
    head dims 32 and 128, rows with no visible key, each in bfloat16 and
-   float32 (bfloat16 forward and dK/dV run on the tensor cores and are
-   held to the per-term bound of ops/flash_attention.py, and three wrong
-   kernels must be rejected by the same check; float32 at 1e-5, dQ in
-   bfloat16 at one bfloat16 step);
+   float32 (bfloat16 runs on the tensor cores and is held to the per-term
+   bounds of ops/flash_attention.py, and wrong kernels must be rejected by
+   the same check: three for each output; float32 at 1e-5);
    the whole-sequence LSTM and GRU: the stacked LSTM's and the NMT
    encoder's shapes forward and reversed with ragged lengths including 0,
    and H = 16 and 100), then time kernel, plain version and the PyTorch
@@ -53,8 +55,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    Executor.run over 4 batches of the repo's Markov tokens: tokens/s,
    step time, the loss of the first and last steps (finite, falling) and
    peak device memory. Each flash kernel must launch 6 times (one per
-   layer) each step, forward and dK/dV on their bfloat16 tensor-core
-   routes (`flash_fwd_tc`, `flash_bwd_dkv_tc`);
+   layer) each step, on its bfloat16 tensor-core route (`flash_fwd_tc`,
+   `flash_bwd_dq_tc`, `flash_bwd_dkv_tc`);
 8. the same model packed: 64 ragged sequences (lognormal lengths 32-512)
    packed by pack_lm_batch into rows of 512 with segment ids, 10 steps,
    the same launch counts, a finite loss;
@@ -88,8 +90,9 @@ path's run (decode attention: phase 4, with `launches_nmt` from phase 12;
 flash kernels: phase 7; LSTM: phase 11; GRU: phase 12), error against its
 plain version (`max_abs_err` at the path's shape in float32;
 `max_abs_err_bf16_q` / `max_abs_err_bf16` the same shape in the path's
-bfloat16; decode attention's `*_nmt` keys at the NMT shape; the flash
-kernels' `routes` per type, `err_over_tolerance_bf16`,
+bfloat16; decode attention's `*_nmt` keys at the NMT shape and `splits`,
+the chunks of the cache a call is split into, at each path's shape; the
+flash kernels' `routes` per type, `err_over_tolerance_bf16`,
 `beyond_one_step_bf16`, the controls' `control_err_over_tolerance` and
 `launches_tc_bf16`) and times; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -220,35 +223,60 @@ def check_decode_attention(ptt, name, rates):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.fusion.decode_attention import (
-        decode_attention_cuda, decode_attention_plain)
+        decode_attention_chunk, decode_attention_cuda, decode_attention_plain)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def make(r, nh, t, dh, q_dtype):
-        q = torch.randn(r, nh, dh, device=dev, generator=gen).to(q_dtype)
+    def make(r, nh, t, dh, q_dtype, masks="ends", q_mult=1.0):
+        q = (torch.randn(r, nh, dh, device=dev, generator=gen)
+             * q_mult).to(q_dtype)
         k = torch.randn(r, nh, t, dh, device=dev, generator=gen)
         v = torch.randn(r, nh, t, dh, device=dev, generator=gen)
         # per-row masks ending at different positions, shared by every
         # head (stride 0), as the tick's [S,1,1,1,T] bias reaches the op
         ends = torch.randint(1, t + 1, (r, 1), device=dev, generator=gen)
+        if masks == "first_or_none":
+            # row 0 sees only position 0 (every later chunk is all masked),
+            # row 1 sees nothing (the plain version's uniform average)
+            ends[0], ends[1] = 1, 0
         keep = torch.arange(t, device=dev)[None] < ends
         mask = torch.where(keep, 0.0, -1e9).to(torch.float32)
         return q, k, v, mask[:, None, :].expand(r, nh, t)
 
-    # correctness: the serving shape in both q types, plus odd shapes
-    # (heads not a power of two, dh not a multiple of 32, T beyond 48 KB
-    # of scores)
+    # correctness: the serving shape in both q types, odd shapes (heads
+    # not a power of two, dh not a multiple of 32, a long T, dh 256), and
+    # the split's edges: T = 1, T one past a chunk boundary, dh not a
+    # multiple of 4 (4-byte copies), all-masked chunks and rows, and q
+    # scaled by 8 (a peaked softmax whose chunk maxima differ widely: a
+    # merge that did not rescale would fail at 1e-5)
     r, nh, t, dh = SERVE["n_slots"], SERVE["num_heads"], SERVE["max_len"], \
         SERVE["d_model"] // SERVE["num_heads"]
-    cases = [(r, nh, t, dh, torch.bfloat16), (r, nh, t, dh, torch.float32),
-             (3, 6, 40, 48, torch.bfloat16), (2, 2, 16384, 64, torch.float32),
-             (4, 4, 1000, 256, torch.float32)]
-    tol = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(r, nh, t, dh, bf16, "ends", 1.0),
+             (r, nh, t, dh, f32, "ends", 1.0),
+             (3, 6, 40, 48, bf16, "ends", 1.0),
+             (2, 2, 16384, 64, f32, "ends", 1.0),
+             (4, 4, 1000, 256, f32, "ends", 1.0),
+             (4, 8, 1, 64, f32, "ends", 1.0),
+             (4, 8, 1, 64, bf16, "ends", 1.0),
+             (r, nh, 257, dh, f32, "ends", 1.0),
+             (2, 3, 77, 30, f32, "ends", 1.0),
+             (2, 3, 77, 30, bf16, "ends", 1.0),
+             (4, 4, 300, 64, f32, "first_or_none", 1.0),
+             (4, 4, 300, 64, bf16, "first_or_none", 1.0),
+             (r, nh, t, dh, f32, "ends", 8.0)]
+    tol = {f32: (1e-5, 0.0), bf16: (1e-2, 1e-2)}
     errs = {}
-    for (cr, cnh, ct, cdh, dt) in cases:
-        q, k, v, bias = make(cr, cnh, ct, cdh, dt)
+    for case in cases:
+        cr, cnh, ct, cdh, dt, masks, q_mult = case
+        q, k, v, bias = make(cr, cnh, ct, cdh, dt, masks, q_mult)
         scale = cdh ** -0.5
+        chunk = decode_attention_chunk(cr, cnh, ct, cdh)
+        splits = -(-ct // chunk)
+        if ct == 257:
+            assert splits >= 2 and (ct - 1) % chunk == 0, (
+                f"T={ct} is not one past a chunk boundary (chunk {chunk})")
         out = decode_attention_cuda(q, k, v, bias, scale)
         ref = decode_attention_plain(q, k, v, bias, scale)
         torch.cuda.synchronize()
@@ -257,13 +285,15 @@ def check_decode_attention(ptt, name, rates):
         ok = bool((diff <= atol + rtol * ref.float().abs()).all())
         err = float(diff.max())
         log(f"  decode_attention R={cr} nh={cnh} T={ct} dh={cdh} "
-            f"q={str(dt)[6:]}: max_abs_err={err:.3e} "
-            f"(tolerance atol {atol} + rtol {rtol}) {'ok' if ok else 'FAIL'}")
+            f"q={str(dt)[6:]}{'' if masks == 'ends' else ' masks=' + masks}"
+            f"{'' if q_mult == 1 else f' q*{q_mult:g}'} ({splits} chunks of "
+            f"{chunk}): max_abs_err={err:.3e} (tolerance atol {atol} + rtol "
+            f"{rtol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"decode_attention disagrees with its plain "
-                                 f"version at R={cr} nh={cnh} T={ct} dh={cdh} "
-                                 f"q={dt}: max abs err {err}")
-        errs[(cr, cnh, ct, cdh, dt)] = err
+                                 f"version at {case}: max abs err {err}")
+        errs[case] = err
+    splits = -(-t // decode_attention_chunk(r, nh, t, dh))
 
     # timing at the serving path's shape and types (bf16 q, f32 caches),
     # rotating input sets whose K/V exceed the L2 three times over
@@ -294,8 +324,9 @@ def check_decode_attention(ptt, name, rates):
     bound_ms = max(nbytes / mem_rate, flops / f32_rate) * 1e3
     bound_by = "bytes" if nbytes / mem_rate >= flops / f32_rate else \
         "operations"
-    log(f"  decode_attention timing R={r} nh={nh} T={t} dh={dh} q=bf16, "
-        f"{n_sets} input sets of {kv_bytes / 1e6:.1f} MB K/V: kernel "
+    log(f"  decode_attention timing R={r} nh={nh} T={t} dh={dh} q=bf16 "
+        f"({splits} chunks a row and head), {n_sets} input sets of "
+        f"{kv_bytes / 1e6:.1f} MB K/V: kernel "
         f"{times['kernel'] * 1e3:.2f} us, plain {times['plain'] * 1e3:.2f} "
         f"us, SDPA {times['library'] * 1e3:.2f} us, bound "
         f"{bound_ms * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB at "
@@ -304,9 +335,10 @@ def check_decode_attention(ptt, name, rates):
     # arithmetic; with bfloat16 q both outputs round to bfloat16, which
     # hides it, so that one is reported beside it under its own key
     return {"max_abs_err": errs[cases[1]],
-            "max_abs_err_bf16_q": errs[cases[0]], "ms": times["kernel"],
-            "plain_ms": times["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": times["library"]}
+            "max_abs_err_bf16_q": errs[cases[0]], "splits": splits,
+            "ms": times["kernel"], "plain_ms": times["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": times["library"]}
 
 
 def _rnn_err(out, ref):
@@ -464,12 +496,13 @@ def check_decode_attention_nmt(rates):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.fusion.decode_attention import (
-        decode_attention_cuda, decode_attention_plain,
+        decode_attention_chunk, decode_attention_cuda, decode_attention_plain,
         fused_decode_attention)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     b, t, h = NMT["batch"], NMT["src_len"], NMT["hidden_dim"]
+    splits = -(-t // decode_attention_chunk(1, b, t, h))
 
     def make():
         q = torch.randn(b, 1, h, device=dev, generator=gen)
@@ -535,13 +568,15 @@ def check_decode_attention_nmt(rates):
     nbytes = 4 * (b * h + 2 * b * t * h + b * t + b * h)
     flops = 4 * b * t * h + 5 * b * t
     bound_ms = max(nbytes / mem_rate, flops / f32_rate) * 1e3
-    log(f"  decode_attention timing at the NMT shape: kernel "
+    log(f"  decode_attention timing at the NMT shape ({splits} chunks a "
+        f"row and head): kernel "
         f"{times['kernel'] * 1e3:.2f} us, plain {times['plain'] * 1e3:.2f} "
         f"us, SDPA {times['library'] * 1e3:.2f} us, bound "
         f"{bound_ms * 1e3:.2f} us (bytes: {nbytes / 1e6:.2f} MB, K and V "
         f"counted apart though the decoder passes one tensor)")
     return {"max_abs_err_nmt": err, "max_abs_err_grad_nmt": gerr,
-            "ms_nmt": times["kernel"], "plain_ms_nmt": times["plain"],
+            "splits_nmt": splits, "ms_nmt": times["kernel"],
+            "plain_ms_nmt": times["plain"],
             "bound_ms_nmt": bound_ms, "library_ms_nmt": times["library"]}
 
 
@@ -562,10 +597,10 @@ def _segments(gen, b, t, dev):
 
 
 def _flash_controls(q, k, v, do, lse, delta, scale, refs, slacks):
-    """Phase 3's controls on the LM-shape bfloat16 case: three wrong
-    kernels' outputs, computed by the plain version, each of which the
-    bound check must reject. Returns {control: {kernel: largest
-    err/tolerance}}; raises unless every control is rejected."""
+    """Phase 3's controls on the LM-shape bfloat16 case: wrong kernels'
+    outputs, computed by the plain version, each of which the bound check
+    must reject (for every kernel, three). Returns {control: {kernel:
+    largest err/tolerance}}; raises unless every control is rejected."""
     from paddle_tpu_torch.ops.flash_attention import (
         flash_bwd_plain, flash_check, flash_control_masks, flash_fwd_plain)
     tq, tk = q.shape[2], k.shape[2]
@@ -573,10 +608,12 @@ def _flash_controls(q, k, v, do, lse, delta, scale, refs, slacks):
     for name, mask in flash_control_masks(tq, tk, q.device).items():
         mask = mask[None, None]
         o_c, _ = flash_fwd_plain(q, k, v, scale, True, mask=mask)
-        _, dk_c, dv_c = flash_bwd_plain(q, k, v, None, lse, do, scale, True,
-                                        delta=delta, mask=mask)
+        dq_c, dk_c, dv_c = flash_bwd_plain(q, k, v, None, lse, do, scale,
+                                           True, delta=delta, mask=mask)
         ratios[name] = {
             "flash_fwd": flash_check(o_c, refs["o"], slacks["o"])["ratio"],
+            "flash_bwd_dq": flash_check(dq_c, refs["dq"],
+                                        slacks["dq"])["ratio"],
             "flash_bwd_dkv": max(
                 flash_check(dk_c, refs["dk"], slacks["dk"])["ratio"],
                 flash_check(dv_c, refs["dv"], slacks["dv"])["ratio"])}
@@ -585,6 +622,9 @@ def _flash_controls(q, k, v, do, lse, delta, scale, refs, slacks):
     dk_c = (refs["dk"].float() / scale).to(refs["dk"].dtype)
     ratios["dk_without_scale"] = {"flash_bwd_dkv": flash_check(
         dk_c, refs["dk"], slacks["dk"])["ratio"]}
+    dq_c = (refs["dq"].float() / scale).to(refs["dq"].dtype)
+    ratios["dq_without_scale"] = {"flash_bwd_dq": flash_check(
+        dq_c, refs["dq"], slacks["dq"])["ratio"]}
     for name, per in ratios.items():
         log(f"  control {name}: largest err/bound "
             + ", ".join(f"{k} {r:.3g}" for k, r in per.items())
@@ -620,7 +660,8 @@ def _tc_build_report(kernels):
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             props.setdefault(cur, {})["regs"] = int(m.group(1))
-    for which, tag in ((0, "flash_fwd_tc"), (2, "flash_dkv_tc")):
+    for which, tag in ((0, "flash_fwd_tc"), (1, "flash_dq_tc"),
+                       (2, "flash_dkv_tc")):
         for dh in (32, 64, 128):
             name = next((n for n in props if f"{tag}_kernelILi{dh}E" in n),
                         None)
@@ -637,17 +678,16 @@ def check_flash(ptt, rates):
     """Phase 3 for the flash-attention kernels K1 (forward), K2 (dQ) and
     K3 (dK/dV): each against its plain version on the card over the LM's
     shape and the edge cases in both types, then timed at the LM shape.
-    bfloat16 K1 and K3 (the tensor-core kernels) are held to the per-term
-    bound of ops/flash_attention.py (`flash_fwd_bound`,
-    `flash_bwd_dkv_bound`), float32 ones to 1e-5 max(1, |ref|), K2 to one
-    bfloat16 step or that float32 tolerance (`flash_check`). Returns
-    {kernel name: JSON fields (all but launches)}."""
+    bfloat16 (the tensor-core kernels) is held to the per-term bounds of
+    ops/flash_attention.py (`flash_fwd_bound`, `flash_bwd_dq_bound`,
+    `flash_bwd_dkv_bound`), float32 to 1e-5 max(1, |ref|) (`flash_check`).
+    Returns {kernel name: JSON fields (all but launches)}."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv_bound, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
-        flash_bwd_plain, flash_check, flash_delta, flash_fwd_bound,
-        flash_fwd_cuda, flash_fwd_plain)
+        flash_bwd_dkv_bound, flash_bwd_dkv_cuda, flash_bwd_dq_bound,
+        flash_bwd_dq_cuda, flash_bwd_plain, flash_check, flash_delta,
+        flash_fwd_bound, flash_fwd_cuda, flash_fwd_plain)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -699,10 +739,12 @@ def check_flash(ptt, rates):
                 assert bool(dead.any()), f"{label}: no row without a key"
                 assert bool((o.float()[dead] == 0).all()), \
                     f"{label}: a row with no visible key has a nonzero output"
-            slack = dict.fromkeys(("o", "lse", "dk", "dv"))
+            slack = dict.fromkeys(("o", "lse", "dq", "dk", "dv"))
             if dt == bf16:
                 slack["o"], slack["lse"] = flash_fwd_bound(
                     q, k, v, o_ref, lse_ref, scale, causal, qs, ks)
+                slack["dq"] = flash_bwd_dq_bound(
+                    q, k, v, do, lse, delta, dq_ref, scale, causal, qs, ks)
                 slack["dk"], slack["dv"] = flash_bwd_dkv_bound(
                     q, k, v, do, lse, delta, dk_ref, dv_ref, scale, causal,
                     qs, ks)
@@ -719,8 +761,7 @@ def check_flash(ptt, rates):
                 ok = all(c["ok"] for c in checks.values())
                 res[kname] = {"err": worst, "ratio": ratio, "beyond_step": {
                     n: c["beyond_step"] for n, c in checks.items()}}
-                tol = ("1e-5" if dt == f32 else "one bf16 step"
-                       if kname == "flash_bwd_dq" else "per-term bound")
+                tol = "1e-5" if dt == f32 else "per-term bound"
                 log(f"  {kname} {label} B={cb} H={ch} Tq={tq} Tk={tk} "
                     f"D={cd} {str(dt)[6:]} causal={causal} "
                     f"segments={'yes' if seg is not None else 'no'}: "
@@ -737,7 +778,8 @@ def check_flash(ptt, rates):
             if label == "lm" and dt == bf16:
                 controls = _flash_controls(
                     q, k, v, do, lse, delta, scale,
-                    {"o": o_ref, "dk": dk_ref, "dv": dv_ref}, slack)
+                    {"o": o_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref},
+                    slack)
             del slack
 
     # timing at the LM's shape and type (bf16, causal), rotating input
@@ -806,21 +848,19 @@ def check_flash(ptt, rates):
             f"{library_ms[kname] * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} "
             f"us ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
             f"GFLOP at {tc_rate / 1e12:.0f} TFLOP/s bf16)")
-        tc = kname != "flash_bwd_dq"
         out[kname] = {"max_abs_err": errs[("lm", f32)][kname]["err"],
                       "max_abs_err_bf16": errs[("lm", bf16)][kname]["err"],
                       "err_over_tolerance_bf16":
                           errs[("lm", bf16)][kname]["ratio"],
                       "beyond_one_step_bf16":
                           errs[("lm", bf16)][kname]["beyond_step"],
-                      "routes": {"bfloat16": "tc_bf16" if tc else "simt",
-                                 "float32": "simt"},
+                      "routes": {"bfloat16": "tc_bf16", "float32": "simt"},
+                      "control_err_over_tolerance": {
+                          c: r[kname] for c, r in controls.items()
+                          if kname in r},
                       "ms": kernel_ms[kname], "plain_ms": plain_ms[kname],
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": library_ms[kname]}
-        if tc:
-            out[kname]["control_err_over_tolerance"] = {
-                c: r[kname] for c, r in controls.items() if kname in r}
     log("  (plain_ms of flash_bwd_dq and flash_bwd_dkv is the one plain "
         "backward that computes dq, dk and dv; library_ms of both is SDPA's "
         "backward for all three: SDPA forward+backward less its forward)")
@@ -1046,8 +1086,9 @@ def _train_program(ptt, cfg, packed=False):
 
 
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-# the bfloat16 tensor-core routes of K1 and K3 (the LM trains in bfloat16)
-FLASH_TC = ("flash_fwd_tc", "flash_bwd_dkv_tc")
+# the bfloat16 tensor-core routes of K1-K3 (the LM trains in bfloat16), in
+# FLASH's order
+FLASH_TC = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
 
 
 def _run_steps(exe, main, scope, loss, feeds, steps, kernels):
@@ -1636,7 +1677,7 @@ def main():
                 "gru_seq": nmt_launches["gru_seq"]}
     results["decode_attention"]["launches_nmt"] = \
         nmt_launches["decode_attention"]
-    for k, tc in zip(("flash_fwd", "flash_bwd_dkv"), FLASH_TC):
+    for k, tc in zip(FLASH, FLASH_TC):
         results[k]["launches_tc_bf16"] = train_launches[tc]
     for k, n in launches.items():
         assert n > 0, f"kernel {k} was never launched on its path"

@@ -33,11 +33,11 @@
 // half the work; each block loads its Q (or K/V) tile once and streams the
 // other side through shared memory.
 //
-// Two designs. bfloat16 K1 and K3 run on the tensor cores (mma.sync, with
-// cp.async pipelines; see "K1 and K3 for bfloat16" below). float32, the
-// reference mode, and K2 in both types run the products as float32 FMAs on
-// the CUDA cores, which keeps float32 exact where the tensor cores would
-// round to tf32: 256 threads as 16 x 16, thread (ty, tx) owns tile rows
+// Two designs. bfloat16 K1-K3 run on the tensor cores (mma.sync, with
+// cp.async pipelines; see "K1-K3 for bfloat16" below). float32, the
+// reference mode, runs the products as float32 FMAs on the CUDA cores,
+// which keeps float32 exact where the tensor cores would round to tf32:
+// 256 threads as 16 x 16, thread (ty, tx) owns tile rows
 // 4*ty .. 4*ty+3 and columns tx + 16*j, so a row's reductions stay in a
 // half-warp and its running max and sum in registers; tiles are float32 in
 // shared memory with a padded row stride, loaded synchronously. Grid: K1
@@ -64,31 +64,6 @@ constexpr int kBK = 64;          // key rows per tile
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kPS = kBK + 1;     // row stride of the [kBQ][kBK] P / dS tiles
 constexpr float kNegInf = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x cast to T and back: the cast the TPU kernels apply to P and dS before
-// their second products.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
 
 // Reductions over the 16 lanes of a half-warp (the 16 threads of one ty).
 __device__ __forceinline__ float half_warp_max(float v) {
@@ -125,13 +100,13 @@ struct Args {
 // Rows [row0, row0 + n) of a row-major [total, D] matrix into a float tile
 // with row stride ld; rows past `total` read as 0. The rows are contiguous
 // in memory, so consecutive threads read consecutive elements.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
                                           int row0, int total, int n) {
   for (int e = threadIdx.x; e < n * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int g = row0 + r;
-    dst[r * ld + c] = g < total ? to_f32(src[(long long)g * D + c]) : 0.f;
+    dst[r * ld + c] = g < total ? src[(long long)g * D + c] : 0.f;
   }
 }
 
@@ -173,7 +148,7 @@ __device__ __forceinline__ int key_tiles(const Args& a, int q0, int nqr) {
 // ---------------------------------------------------------------------------
 // K1: forward. One block per (q tile, batch*head).
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
@@ -190,12 +165,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   const int bh = blockIdx.y, b = bh / a.H;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
-  const T* q = static_cast<const T*>(a.q) + (long long)bh * Tq * D;
-  const T* k = static_cast<const T*>(a.k) + (long long)bh * Tk * D;
-  const T* v = static_cast<const T*>(a.v) + (long long)bh * Tk * D;
+  const float* q = static_cast<const float*>(a.q) + (long long)bh * Tq * D;
+  const float* k = static_cast<const float*>(a.k) + (long long)bh * Tk * D;
+  const float* v = static_cast<const float*>(a.v) + (long long)bh * Tk * D;
   const bool seg = a.qseg != nullptr;
 
-  load_tile<T, D>(Qs, LD, q, q0, Tq, kBQ);
+  load_tile<D>(Qs, LD, q, q0, Tq, kBQ);
   if (seg) load_ids(qid, a.qseg + (long long)b * Tq, q0, Tq, kBQ);
   __syncthreads();
   int qlo = 0, qhi = 0;
@@ -226,8 +201,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       id_range(kid, nkr, klo, khi);
       if (qhi < klo || qlo > khi) continue;   // no id can match: dead tile
     }
-    load_tile<T, D>(Ks, LD, k, k0, Tk, kBK);
-    load_tile<T, D>(Vs, D, v, k0, Tk, kBK);
+    load_tile<D>(Ks, LD, k, k0, Tk, kBK);
+    load_tile<D>(Vs, D, v, k0, Tk, kBK);
     __syncthreads();
 
     float s[4][4];
@@ -271,7 +246,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
         // entries must not count as exp(0) = 1
         e = s[i][j] > kNegInf * 0.5f ? e : 0.f;
         rs += e;
-        Ps[(ty * 4 + i) * kPS + tx + 16 * j] = round_to<T>(e);
+        Ps[(ty * 4 + i) * kPS + tx + 16 * j] = e;
       }
       l[i] = l[i] * alpha + half_warp_sum(rs);
       m[i] = mn;
@@ -294,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     }
   }
 
-  T* out = static_cast<T*>(a.out) + (long long)bh * Tq * D;
+  float* out = static_cast<float*>(a.out) + (long long)bh * Tq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty * 4 + i;
@@ -302,16 +277,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NJ; ++c)
-      out[(long long)qp * D + tx + 16 * c] = from_f32<T>(acc[i][c] / den);
+      out[(long long)qp * D + tx + 16 * c] = acc[i][c] / den;
     if (a.lse_out != nullptr && tx == 0)
       a.lse_out[(long long)bh * Tq + qp] = m[i] + logf(den);
   }
 }
 
 // ---------------------------------------------------------------------------
-// K2: dQ. One block per (q tile, batch*head); key tiles stream through.
+// K2: dQ (float32; bfloat16 takes flash_dq_tc_kernel below). One block per
+// (q tile, batch*head); key tiles stream through.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
@@ -332,12 +308,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
   const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
-  const T* k = static_cast<const T*>(a.k) + koff;
-  const T* v = static_cast<const T*>(a.v) + koff;
+  const float* k = static_cast<const float*>(a.k) + koff;
+  const float* v = static_cast<const float*>(a.v) + koff;
   const bool seg = a.qseg != nullptr;
 
-  load_tile<T, D>(Qs, LD, static_cast<const T*>(a.q) + qoff, q0, Tq, kBQ);
-  load_tile<T, D>(Gs, LD, static_cast<const T*>(a.dout) + qoff, q0, Tq, kBQ);
+  load_tile<D>(Qs, LD, static_cast<const float*>(a.q) + qoff, q0, Tq, kBQ);
+  load_tile<D>(Gs, LD, static_cast<const float*>(a.dout) + qoff, q0, Tq, kBQ);
   load_rows(lse_s, a.lse_in + (long long)bh * Tq, q0, Tq, kBQ);
   load_rows(dl_s, a.delta + (long long)bh * Tq, q0, Tq, kBQ);
   if (seg) load_ids(qid, a.qseg + (long long)b * Tq, q0, Tq, kBQ);
@@ -373,8 +349,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
       id_range(kid, nkr, klo, khi);
       if (qhi < klo || qlo > khi) continue;
     }
-    load_tile<T, D>(Ks, LD, k, k0, Tk, kBK);
-    load_tile<T, D>(Vs, LD, v, k0, Tk, kBK);
+    load_tile<D>(Ks, LD, k, k0, Tk, kBK);
+    load_tile<D>(Vs, LD, v, k0, Tk, kBK);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -415,7 +391,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
         if (a.causal) ok = ok && qp + off >= kp;
         const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
         Ss[(ty * 4 + i) * kPS + tx + 16 * j] =
-            round_to<T>(p * (dp[i][j] - dl[i]) * a.scale);
+            p * (dp[i][j] - dl[i]) * a.scale;
       }
     }
     __syncthreads();
@@ -434,14 +410,14 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
     }
   }
 
-  T* dq = static_cast<T*>(a.dq) + qoff;
+  float* dq = static_cast<float*>(a.dq) + qoff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty * 4 + i;
     if (qp >= Tq) continue;
 #pragma unroll
     for (int c = 0; c < NJ; ++c)
-      dq[(long long)qp * D + tx + 16 * c] = from_f32<T>(acc[i][c]);
+      dq[(long long)qp * D + tx + 16 * c] = acc[i][c];
   }
 }
 
@@ -449,7 +425,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 // K3: dK and dV. One block per (k tile, batch*head); query tiles stream
 // through.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
@@ -471,12 +447,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int k0 = kt * kBK, nkr = min(kBK, Tk - k0);
   const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
-  const T* q = static_cast<const T*>(a.q) + qoff;
-  const T* g = static_cast<const T*>(a.dout) + qoff;
+  const float* q = static_cast<const float*>(a.q) + qoff;
+  const float* g = static_cast<const float*>(a.dout) + qoff;
   const bool seg = a.qseg != nullptr;
 
-  load_tile<T, D>(Ks, LD, static_cast<const T*>(a.k) + koff, k0, Tk, kBK);
-  load_tile<T, D>(Vs, LD, static_cast<const T*>(a.v) + koff, k0, Tk, kBK);
+  load_tile<D>(Ks, LD, static_cast<const float*>(a.k) + koff, k0, Tk, kBK);
+  load_tile<D>(Vs, LD, static_cast<const float*>(a.v) + koff, k0, Tk, kBK);
   if (seg) load_ids(kid, a.kvseg + (long long)b * Tk, k0, Tk, kBK);
   __syncthreads();
   int klo = 0, khi = 0;
@@ -506,8 +482,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       id_range(qid, nqr, qlo, qhi);
       if (qhi < klo || qlo > khi) continue;
     }
-    load_tile<T, D>(Qs, LD, q, q0, Tq, kBQ);
-    load_tile<T, D>(Gs, LD, g, q0, Tq, kBQ);
+    load_tile<D>(Qs, LD, q, q0, Tq, kBQ);
+    load_tile<D>(Gs, LD, g, q0, Tq, kBQ);
     load_rows(lse_s, a.lse_in + (long long)bh * Tq, q0, Tq, kBQ);
     load_rows(dl_s, a.delta + (long long)bh * Tq, q0, Tq, kBQ);
     __syncthreads();
@@ -551,9 +527,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         if (seg) ok = ok && qs == myk[j];
         if (a.causal) ok = ok && qp + off >= kp;
         const float p = ok ? expf(s[i][j] * a.scale - lse_s[r]) : 0.f;
-        Ps[r * kPS + tx + 16 * j] = round_to<T>(p);
+        Ps[r * kPS + tx + 16 * j] = p;
         Ss[r * kPS + tx + 16 * j] =
-            round_to<T>(p * (dp[i][j] - dl_s[r]) * a.scale);
+            p * (dp[i][j] - dl_s[r]) * a.scale;
       }
     }
     __syncthreads();
@@ -582,27 +558,27 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
     }
   }
 
-  T* dko = static_cast<T*>(a.dk) + koff;
-  T* dvo = static_cast<T*>(a.dv) + koff;
+  float* dko = static_cast<float*>(a.dk) + koff;
+  float* dvo = static_cast<float*>(a.dv) + koff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kp = k0 + ty * 4 + i;
     if (kp >= Tk) continue;
 #pragma unroll
     for (int c = 0; c < NJ; ++c) {
-      dko[(long long)kp * D + tx + 16 * c] = from_f32<T>(dk[i][c]);
-      dvo[(long long)kp * D + tx + 16 * c] = from_f32<T>(dv[i][c]);
+      dko[(long long)kp * D + tx + 16 * c] = dk[i][c];
+      dvo[(long long)kp * D + tx + 16 * c] = dv[i][c];
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K3 for bfloat16 on the tensor cores.
+// K1-K3 for bfloat16 on the tensor cores.
 //
 // The float32 kernels above keep every product exact in float32 (the
 // reference mode); bfloat16 inputs take these instead. Every product is an
 // mma.sync.m16n8k16 (bf16 operands, float32 sums). Each warp owns 16 rows
-// of its side (queries in K1, keys in K3), loaded once; the other side
+// of its side (queries in K1 and K2, keys in K3), loaded once; the other side
 // streams through a two-stage cp.async ring of XOR-swizzled bfloat16 tiles
 // (16-byte copies; the eight rows that one ldmatrix reads at one 16-byte
 // column fall in eight bank groups), the next tile's copy in flight while
@@ -612,17 +588,19 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 // columns 2*(lane%4) and +1 of each 8-column n-tile, so a row's max and
 // sum reduce over the four lanes of a quad. exp is exp2f of x log2(e).
 //
-// Why mma.sync and not wgmma: at the LM's shape K1 is bound by bytes
-// (~34 MB, ~10 us); its 4.3 GFLOP take well under that at the warp-level
-// tensor-core rate. What the designs were measured against (more warps or
-// keys a block, deeper rings, skipping masked fragments on the diagonal,
-// K and V held in registers in K3): PERF.md's findings.
+// Why mma.sync and not wgmma: at the LM's shape K1-K3 are bound by bytes
+// (~34 / 43 / 51 MB, ~10 / 13 / 15 us); their 4.3 / 6.5 / 8.6 GFLOP take
+// well under that at the warp-level tensor-core rate. What the designs
+// were measured against (more warps or keys a block, deeper rings,
+// skipping masked fragments on the diagonal, K and V held in registers in
+// K3, key chunks of 16 or 32 in K2): PERF.md's findings.
 //
 // The rounding points are the plain version's (P to v's / dO's type, dS
-// to q's type); the sums are float32 in the tensor cores' order, so a
-// result may differ from the plain version by the terms that
-// ops/flash_attention.py `flash_fwd_bound` and `flash_bwd_dkv_bound`
-// state, one term for each rounding or sum that differs.
+// to k's / q's type); the sums are float32 in the tensor cores' order, so
+// a result may differ from the plain version by the terms that
+// ops/flash_attention.py `flash_fwd_bound`, `flash_bwd_dq_bound` and
+// `flash_bwd_dkv_bound` state, one term for each rounding or sum that
+// differs.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -1215,6 +1193,192 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
   }
 }
 
+// K2, bfloat16. Grid (batch*head, q tile) with the last (longest causal)
+// q tiles launched first, as K1. Each warp owns 16 query rows; Q and dO of
+// the block's tile come in once and their A fragments stay in registers,
+// with lse and delta of the thread's two rows. K and V tiles of 64 keys
+// stream through a two-slot cp.async ring, and each tile is taken in
+// chunks of KN keys:
+//   S = Q K^T and dP = dO V^T (K's and V's B fragments by ldmatrix),
+//   P = exp(S scale - lse) where visible, dS = P (dP - delta) scale in
+//   place on the C fragment, dQ += dS K (dS repacked as an A fragment, K's
+//   B fragments by ldmatrix.trans on the same swizzled tile).
+// dQ stays in registers (D / 2 floats a thread) and is written once. The
+// chunk is 16 keys, so that S and dP of a chunk, the Q and dO fragments
+// and dQ fit in 128 registers at D = 64 and four blocks share an SM (32
+// keys a chunk took 168 registers, three blocks an SM, and was slower).
+// Shared memory: Q [64][D], dO [64][D], then two slots of K and V.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
+    flash_dq_tc_kernel(Args a) {
+  constexpr int KC = D / 16;              // k chunks of S and dP over D
+  constexpr int NO = D / 8;               // n-tiles of dQ
+  constexpr int KB = kBK;                 // keys per tile
+  constexpr int KN = 16;                  // keys per chunk
+  constexpr int NS = KN / 8;              // n-tiles of a chunk of S, dP
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);   // [kBQ][D]
+  bf16* Gs = Qs + kBQ * D;                       // dO [kBQ][D]
+  bf16* Ks = Gs + kBQ * D;                       // [2][KB][D]
+  bf16* Vs = Ks + 2 * KB * D;                    // [2][KB][D]
+
+  const int Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
+  const int bh = blockIdx.x, b = bh / a.H;
+  const int qb = gridDim.y - 1 - blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
+  const long long qoff = (long long)bh * Tq * D;
+  const bf16* k = static_cast<const bf16*>(a.k) + (long long)bh * Tk * D;
+  const bf16* v = static_cast<const bf16*>(a.v) + (long long)bh * Tk * D;
+  const bool seg = a.qseg != nullptr;
+  const int* qseg = seg ? a.qseg + (long long)b * Tq : nullptr;
+  const int* kvseg = seg ? a.kvseg + (long long)b * Tk : nullptr;
+
+  load_tile_async<D>(Qs, static_cast<const bf16*>(a.q) + qoff, q0, Tq);
+  load_tile_async<D>(Gs, static_cast<const bf16*>(a.dout) + qoff, q0, Tq);
+  cp_async_commit();
+
+  // this thread's rows q0 + r0 and + 8 (rows past Tq read the last row's
+  // lse and delta; their dQ is never written)
+  const int r0 = warp * 16 + g;
+  float lse[2], dl[2];
+  int myq[2] = {0, 0};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = min(q0 + r0 + 8 * i, Tq - 1);
+    lse[i] = __ldg(a.lse_in + (long long)bh * Tq + qp);
+    dl[i] = __ldg(a.delta + (long long)bh * Tq + qp);
+    if (seg) myq[i] = __ldg(qseg + qp);
+  }
+  int qlo = 0, qhi = 0;
+  if (seg) warp_id_range(qseg, q0, nqr, lane, qlo, qhi);
+  const int n_kt = key_tiles(a, q0, nqr);
+  // the first live key tile at or after kt (segments: the id ranges meet)
+  auto next_live = [&](int kt) {
+    if (seg) {
+      for (; kt < n_kt; ++kt) {
+        int klo, khi;
+        warp_id_range(kvseg, kt * KB, min(KB, Tk - kt * KB), lane, klo, khi);
+        if (!(qhi < klo || qlo > khi)) break;
+      }
+    }
+    return kt;
+  };
+  auto load_kv = [&](int slot, int tile) {
+    load_tile_async<D>(Ks + slot * KB * D, k, tile * KB, Tk);
+    load_tile_async<D>(Vs + slot * KB * D, v, tile * KB, Tk);
+  };
+
+  int kt = next_live(0), ahead = kt;
+  if (ahead < n_kt) {
+    load_kv(0, ahead);
+    ahead = next_live(ahead + 1);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();   // Q and dO have landed
+  __syncthreads();
+  const uint32_t aoff = a_off<D>(lane), boff = b_off<D>(lane);
+  uint32_t qf[KC][4], gf[KC][4];
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {
+    ldsm_x4(frag_at<D>(smem_u32(Qs), warp * 16, aoff, kk), qf[kk]);
+    ldsm_x4(frag_at<D>(smem_u32(Gs), warp * 16, aoff, kk), gf[kk]);
+  }
+
+  float dq[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  int slot = 0;
+  while (kt < n_kt) {
+    if (ahead < n_kt) {   // into the slot the previous tile used
+      load_kv(slot ^ 1, ahead);
+      ahead = next_live(ahead + 1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile's K and V have landed
+    __syncthreads();
+    const uint32_t Kt = smem_u32(Ks + slot * KB * D);
+    const uint32_t Vt = smem_u32(Vs + slot * KB * D);
+    const int k0 = kt * KB;
+    // masks, only on the tiles that need them (a block-uniform test)
+    const bool edge =
+        seg || k0 + KB > Tk || (a.causal && k0 + KB - 1 > q0 + off);
+
+#pragma unroll
+    for (int c = 0; c < KB / KN; ++c) {
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bk[4], bv[4];
+          ldsm_x4(frag_at<D>(Kt, c * KN + np * 16, boff, kk), bk);
+          ldsm_x4(frag_at<D>(Vt, c * KN + np * 16, boff, kk), bv);
+          mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          mma_bf16(dp[2 * np], gf[kk], bv[0], bv[1]);
+          mma_bf16(dp[2 * np + 1], gf[kk], bv[2], bv[3]);
+        }
+
+      // P where visible, then dS in place on S's fragment
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          bool ok = true;
+          if (edge) {
+            const int kp = k0 + c * KN + 8 * j + 2 * t + (e & 1);
+            const int qp = q0 + r0 + 8 * i;
+            ok = kp < Tk;
+            if (a.causal) ok = ok && qp + off >= kp;
+            if (seg) ok = ok && myq[i] == __ldg(kvseg + min(kp, Tk - 1));
+          }
+          const float p = ok ? exp_tc(s[j][e] * a.scale - lse[i]) : 0.f;
+          s[j][e] = p * (dp[j][e] - dl[i]) * a.scale;
+        }
+
+      // dQ += dS K: dS rounded to bfloat16 from its fragments, K's B
+      // fragments through ldmatrix.trans
+#pragma unroll
+      for (int kq = 0; kq < KN / 16; ++kq) {
+        uint32_t sa[4];
+        c_to_a(s[2 * kq], s[2 * kq + 1], sa);
+#pragma unroll
+        for (int dd = 0; dd < NO / 2; ++dd) {
+          uint32_t bk[4];
+          ldsm_x4_t(frag_at<D>(Kt, c * KN + kq * 16, aoff, dd), bk);
+          mma_bf16(dq[2 * dd], sa, bk[0], bk[1]);
+          mma_bf16(dq[2 * dd + 1], sa, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this slot
+    slot ^= 1;
+    kt = next_live(kt + 1);
+  }
+  cp_async_wait<0>();
+
+  bf16* dqo = static_cast<bf16*>(a.dq) + qoff;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + r0 + 8 * i;
+    if (qp >= Tq) continue;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(dqo + (long long)qp * D + 8 * j + 2 * t) =
+          pack_bf16(dq[j][2 * i], dq[j][2 * i + 1]);
+  }
+}
+
 // Dynamic shared memory of each kernel, in bytes.
 template <int D>
 constexpr size_t fwd_smem() {
@@ -1239,6 +1403,10 @@ constexpr size_t fwd_tc_smem() {
   return sizeof(bf16) * (size_t)(kBQ + 2 * kRing * kBK) * D;
 }
 template <int D>
+constexpr size_t dq_tc_smem() {
+  return sizeof(bf16) * (size_t)(2 * kBQ + 4 * kBK) * D;
+}
+template <int D>
 constexpr size_t dkv_tc_smem() {
   return sizeof(bf16) * (size_t)(2 * kBK + 4 * kBQ) * D +
          (sizeof(float) * 2 + sizeof(int)) * 2 * kBQ;
@@ -1261,19 +1429,22 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 template <typename T, int D>
 cudaError_t run(int which, const Args& a, int BH, cudaStream_t s) {
   const int nq = (a.Tq + kBQ - 1) / kBQ, nk = (a.Tk + kBK - 1) / kBK;
-  if (which == kDq)
-    return launch(flash_dq_kernel<T, D>, dim3(nq, BH), dq_smem<D>(), s, a);
   if constexpr (std::is_same<T, bf16>::value) {
-    // bfloat16 K1 and K3 on the tensor cores, grid (batch*head, tile)
+    // bfloat16 K1-K3 on the tensor cores, grid (batch*head, tile)
     if (which == kFwd)
       return launch(flash_fwd_tc_kernel<D>, dim3(BH, nq), fwd_tc_smem<D>(), s,
+                    a, kTcThreads);
+    if (which == kDq)
+      return launch(flash_dq_tc_kernel<D>, dim3(BH, nq), dq_tc_smem<D>(), s,
                     a, kTcThreads);
     return launch(flash_dkv_tc_kernel<D>, dim3(BH, nk), dkv_tc_smem<D>(), s,
                   a, kTcThreads);
   } else {
     if (which == kFwd)
-      return launch(flash_fwd_kernel<T, D>, dim3(nq, BH), fwd_smem<D>(), s, a);
-    return launch(flash_dkv_kernel<T, D>, dim3(nk, BH), dkv_smem<D>(), s, a);
+      return launch(flash_fwd_kernel<D>, dim3(nq, BH), fwd_smem<D>(), s, a);
+    if (which == kDq)
+      return launch(flash_dq_kernel<D>, dim3(nq, BH), dq_smem<D>(), s, a);
+    return launch(flash_dkv_kernel<D>, dim3(nk, BH), dkv_smem<D>(), s, a);
   }
 }
 
@@ -1316,7 +1487,7 @@ int ptt_flash_smem_bytes(int which, int is_bf16, int D) {
   auto pick = [&](auto d) -> size_t {
     constexpr int kD = decltype(d)::value;
     if (which == kFwd) return is_bf16 ? fwd_tc_smem<kD>() : fwd_smem<kD>();
-    if (which == kDq) return dq_smem<kD>();
+    if (which == kDq) return is_bf16 ? dq_tc_smem<kD>() : dq_smem<kD>();
     return is_bf16 ? dkv_tc_smem<kD>() : dkv_smem<kD>();
   };
   switch (D) {

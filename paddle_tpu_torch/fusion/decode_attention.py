@@ -12,8 +12,10 @@ Three pieces, as for every kernel of the port:
 - `decode_attention_cuda` — the wrapper of the hand-written CUDA kernel
   (csrc/decode_attention.cu, replacing the Pallas kernel
   `paddle_tpu/fusion/decode_attention.py:_decode_step_kernel`). It checks
-  shapes, types and layout, launches on the current stream and counts the
-  launch in `kernels.LAUNCHES["decode_attention"]`.
+  shapes, types and layout, allocates the scratch for the partials of the
+  cache's chunks, launches on the current stream (the split kernel, then
+  the merge: one call) and counts the call once in
+  `kernels.LAUNCHES["decode_attention"]`.
 - `decode_attention_plain` — the same function in plain PyTorch, the
   arithmetic of the TPU kernel written out: scores, max and sum in float32,
   the output cast to q's dtype. (The JAX package's XLA composite instead
@@ -66,19 +68,41 @@ def _bind(lib):
         return
     c_ll, c_int, c_vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     lib.ptt_decode_attention.argtypes = [
-        c_int, c_vp, c_vp, c_vp, c_vp, c_vp, c_int, c_int, c_int, c_int,
-        c_ll, c_ll, ctypes.c_float, c_vp]
+        c_int, c_vp, c_vp, c_vp, c_vp, c_vp, c_vp, c_int, c_int, c_int,
+        c_int, c_int, c_ll, c_ll, ctypes.c_float, c_vp]
     lib.ptt_decode_attention.restype = c_int
+    lib.ptt_decode_attention_chunk.argtypes = [c_int] * 4
+    lib.ptt_decode_attention_chunk.restype = c_int
     lib._ptt_bound = True
+
+
+def decode_attention_chunk(r, nh, t, dh, device=None):
+    """Positions per block a call at this shape takes on `device` (default:
+    the current CUDA device): the kernel splits the cache of each row and
+    head into ceil(t / chunk) chunks, one block each, and merges their
+    partials (csrc/decode_attention.cu `chunk_len` chooses). Raises for a
+    shape the kernel does not take."""
+    lib = kernels.load("decode_attention")
+    _bind(lib)
+    with torch.cuda.device(device if device is not None else
+                           torch.cuda.current_device()):
+        chunk = lib.ptt_decode_attention_chunk(r, nh, t, dh)
+    if chunk < 1:
+        raise ValueError(f"decode_attention_cuda: the kernel does not take "
+                         f"R={r} nh={nh} T={t} dh={dh} (head dims 1-"
+                         f"{MAX_HEAD_DIM}, at most 65535 chunks of the "
+                         f"cache)")
+    return chunk
 
 
 def decode_attention_cuda(q3, k4, v4, bias3, scale):
     """Launch the CUDA kernel: q3 [R, nh, dh] float32 or bfloat16,
     k4/v4 [R, nh, T, dh] float32 contiguous, bias3 [R, nh, T] float32 with
     unit stride along T (any row and head strides, 0 included). Returns
-    [R, nh, dh] in q3's dtype, for head dims up to 512. Raises on anything
-    else — the kernel itself refuses (CUDA "invalid argument") a T whose
-    scores do not fit one block's shared memory, about 56K positions."""
+    [R, nh, dh] in q3's dtype, for head dims up to 512 and T up to 65535
+    chunks of the cache (`decode_attention_chunk`; a chunk is 16 to 256
+    positions, so T reaches about 1M at dh 512 and 16M at dh 32). Raises
+    on anything else."""
     r, nh, dh = q3.shape
     t = k4.shape[2]
     dev = q3.device
@@ -104,15 +128,18 @@ def decode_attention_cuda(q3, k4, v4, bias3, scale):
     if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"decode_attention_cuda: head dim {dh} outside "
                          f"[1, {MAX_HEAD_DIM}]")
+    n_split = -(-t // decode_attention_chunk(r, nh, t, dh, dev))
     lib = kernels.load("decode_attention")
-    _bind(lib)
     with torch.cuda.device(dev):
         out = torch.empty((r, nh, dh), dtype=q3.dtype, device=dev)
+        # each chunk's partial: its context sum, max and sum of exp
+        part = torch.empty((r * nh, n_split, dh + 2), dtype=torch.float32,
+                           device=dev)
         err = lib.ptt_decode_attention(
             int(q3.dtype == torch.bfloat16), q3.data_ptr(), k4.data_ptr(),
-            v4.data_ptr(), bias3.data_ptr(), out.data_ptr(), r, nh, t, dh,
-            bias3.stride(0), bias3.stride(1), float(scale),
-            torch.cuda.current_stream(dev).cuda_stream)
+            v4.data_ptr(), bias3.data_ptr(), out.data_ptr(), part.data_ptr(),
+            n_split, r, nh, t, dh, bias3.stride(0), bias3.stride(1),
+            float(scale), torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(lib, "decode_attention", err)
     kernels.count_launch("decode_attention")
     return out

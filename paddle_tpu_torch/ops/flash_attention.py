@@ -10,8 +10,8 @@ csrc/flash_attention.cu. Three pieces, as for every kernel of the port:
   the hand-written kernels. Each checks device, type, shape and layout,
   launches on the current stream, and adds one to its count in
   `kernels.LAUNCHES` ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"; the
-  bfloat16 launches of K1 and K3, which run on the tensor cores, also to
-  "flash_fwd_tc" and "flash_bwd_dkv_tc").
+  bfloat16 launches, which run on the tensor cores, also to
+  "flash_fwd_tc", "flash_bwd_dq_tc" and "flash_bwd_dkv_tc").
 - `flash_fwd_plain` → (o, lse) and `flash_bwd_plain` → (dq, dk, dv) — the
   same functions in plain PyTorch with the kernels' semantics: scores in
   float32, masked scores -1e30, an online softmax over tiles of 64 keys,
@@ -26,8 +26,8 @@ csrc/flash_attention.cu. Three pieces, as for every kernel of the port:
   K2 and K3, or raise. There is no flag and no fallback.
 
 What a kernel may differ by from its plain version: float32 kernels
-1e-5 · max(1, |ref|); K2 one bfloat16 step; the bfloat16 tensor-core K1
-and K3 the per-term bounds `flash_fwd_bound` and `flash_bwd_dkv_bound`
+1e-5 · max(1, |ref|); the bfloat16 tensor-core K1, K2 and K3 the per-term
+bounds `flash_fwd_bound`, `flash_bwd_dq_bound` and `flash_bwd_dkv_bound`
 (`flash_check` applies each; `flash_control_masks` builds the wrong
 kernels that the check must reject).
 
@@ -165,7 +165,7 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, q_ids=None,
 
 # --- what a tensor-core kernel may differ by ---------------------------------
 #
-# The bfloat16 K1 and K3 sum their products on the tensor cores, in another
+# The bfloat16 K1-K3 sum their products on the tensor cores, in another
 # order than the plain version (and a tensor core may truncate where a
 # float32 add rounds). So a score or dP differs in its last bits, and a P
 # or dS near a rounding boundary rounds to the neighbouring bfloat16 value,
@@ -174,8 +174,7 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, q_ids=None,
 # in float32 from the plain version's own operands, first order in the
 # float32 unit (the terms are ~1e-4 relative and smaller). `flash_check`
 # adds the output's own final rounding. The float32 kernels are held to
-# 1e-5 · max(1, max|ref|) instead, and K2 (which sums on the CUDA cores in
-# both types) to one bfloat16 step.
+# 1e-5 · max(1, max|ref|) instead.
 
 #: u: the largest relative gap between neighbouring bfloat16 values
 BF16_GAP = 2.0 ** -7
@@ -250,28 +249,22 @@ def flash_fwd_bound(q, k, v, o_ref, lse_ref, scale, causal, q_ids=None,
     return slack_o, slack_lse
 
 
-def flash_bwd_dkv_bound(q, k, v, do, lse, delta, dk_ref, dv_ref, scale,
-                        causal, q_ids=None, kv_ids=None):
-    """(slack_dk, slack_dv): what the bfloat16 tensor-core K3 may differ by
-    from `flash_bwd_plain`'s (dk_ref, dv_ref) on the same inputs (lse and
-    delta are inputs: both take the same ones), besides the outputs' final
-    bfloat16 rounding. With P = exp(s·scale - lse) on the visible pairs,
-    E_x as in `_exponent_err` (so |δP| ≤ P∘E_x), dP = dO·Vᵀ and
-    dS = P∘(dP - delta)·scale:
+def _ds_err(q, k, v, do, lse, delta, scale, causal, q_ids, kv_ids):
+    """The terms K2 and K3 share: (P, P∘E_x, |dS|, E_dS), each
+    [.., Tq, Tk] float32, with P = exp(s·scale - lse) on the visible pairs
+    (0 elsewhere), E_x as in `_exponent_err` (so |δP| ≤ P∘E_x), dP = dO·Vᵀ,
+    dS = P∘(dP - delta)·scale and
 
-    - dV = round(P)ᵀ·dO: (u + ε_Tq)·(Pᵀ·|dO|) + (P∘E_x)ᵀ·|dO|: one flipped
-      P per term, the float32 sum over queries in another order, and the
-      score error through P.
-    - dK = round(dS)ᵀ·Q: E_dSᵀ·|Q| + ε_Tq·(|dS|ᵀ·|Q|), where
-      E_dS = (u + 2⁻²¹)·|dS| + scale·(P∘E_x∘|dP - delta| + P∘E_dP) and
-      E_dP = ε_D·(|dO|·|V|ᵀ) + 2⁻²³·(|dP| + |delta|): one flipped dS per
-      term (and the float32 rounding of the three operations that make dS,
-      on either side), dS's error from P's and from dP's (a dot of D
-      products in another order, and the subtraction of delta), then the
-      sum over queries.
-    """
+        E_dS = (u + 2⁻²¹)·|dS| + scale·(P∘E_x∘|dP - delta| + P∘E_dP),
+        E_dP = ε_D·(|dO|·|V|ᵀ) + 2⁻²³·(|dP| + |delta|):
+
+    how far a kernel's dS, after its rounding to bfloat16, may be from the
+    plain version's rounded dS: one flipped rounding (u·|dS|), the float32
+    rounding of the three operations that make dS on either side (2⁻²¹),
+    dS's error carried from P's, and from dP's (a dot of D exact bfloat16
+    products summed in another order, then the subtraction of delta)."""
     f = torch.float32
-    d, tq = q.shape[-1], q.shape[2]
+    d = q.shape[-1]
     qf, kf, vf, dof = q.to(f), k.to(f), v.to(f), do.to(f)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     lse_f = lse.to(f).unsqueeze(-1)
@@ -285,20 +278,63 @@ def flash_bwd_dkv_bound(q, k, v, do, lse, delta, dk_ref, dv_ref, scale,
                         zero)
     pe = p * _exponent_err(q, k, s, lse, scale)
     del s
-    ado = dof.abs()
-    slack_dv = ((BF16_GAP + _sum_err(tq))
-                * torch.matmul(p.transpose(-1, -2), ado)
-                + torch.matmul(pe.transpose(-1, -2), ado))
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     delta_f = delta.to(f).unsqueeze(-1)
-    e_dp = (_sum_err(d) * torch.matmul(ado, vf.abs().transpose(-1, -2))
+    e_dp = (_sum_err(d) * torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
             + _F32_ULP * (dp.abs() + delta_f.abs()))
     dpd = (dp - delta_f).abs()
     del dp
     ds = p * dpd * scale
     e_ds = ((BF16_GAP + 2.0 ** -21) * ds
             + scale * (pe * dpd + p * e_dp))
-    aq = qf.abs()
+    return p, pe, ds, e_ds
+
+
+def flash_bwd_dq_bound(q, k, v, do, lse, delta, dq_ref, scale, causal,
+                       q_ids=None, kv_ids=None):
+    """slack_dq: what the bfloat16 tensor-core K2 may differ by from
+    `flash_bwd_plain`'s dq_ref on the same inputs (lse and delta are
+    inputs: both take the same ones), besides the output's final bfloat16
+    rounding. dQ = round(dS)·K, so with |dS| and E_dS as in `_ds_err`:
+
+        slack_dq = E_dS·|K| + ε_Tk·(|dS|·|K|):
+
+    each term's rounded dS may be off by E_dS (a flipped rounding, the
+    float32 operations that make it, the score error through P and the dot
+    error through dP), and the float32 sum over keys runs in another
+    order. dq_ref is not read: the slack depends on the operands alone
+    (the argument keeps the signature of the other two bounds)."""
+    del dq_ref
+    _, _, ds, e_ds = _ds_err(q, k, v, do, lse, delta, scale, causal, q_ids,
+                             kv_ids)
+    ak = k.to(torch.float32).abs()
+    return torch.matmul(e_ds, ak) + _sum_err(k.shape[2]) * torch.matmul(
+        ds, ak)
+
+
+def flash_bwd_dkv_bound(q, k, v, do, lse, delta, dk_ref, dv_ref, scale,
+                        causal, q_ids=None, kv_ids=None):
+    """(slack_dk, slack_dv): what the bfloat16 tensor-core K3 may differ by
+    from `flash_bwd_plain`'s (dk_ref, dv_ref) on the same inputs (lse and
+    delta are inputs: both take the same ones), besides the outputs' final
+    bfloat16 rounding. With P, P∘E_x, |dS| and E_dS as in `_ds_err`:
+
+    - dV = round(P)ᵀ·dO: (u + ε_Tq)·(Pᵀ·|dO|) + (P∘E_x)ᵀ·|dO|: one flipped
+      P per term, the float32 sum over queries in another order, and the
+      score error through P.
+    - dK = round(dS)ᵀ·Q: E_dSᵀ·|Q| + ε_Tq·(|dS|ᵀ·|Q|): each term's rounded
+      dS off by E_dS, then the sum over queries in another order.
+    """
+    f = torch.float32
+    tq = q.shape[2]
+    p, pe, ds, e_ds = _ds_err(q, k, v, do, lse, delta, scale, causal, q_ids,
+                              kv_ids)
+    ado = do.to(f).abs()
+    slack_dv = ((BF16_GAP + _sum_err(tq))
+                * torch.matmul(p.transpose(-1, -2), ado)
+                + torch.matmul(pe.transpose(-1, -2), ado))
+    del p, pe
+    aq = q.to(f).abs()
     slack_dk = (torch.matmul(e_ds.transpose(-1, -2), aq)
                 + _sum_err(tq) * torch.matmul(ds.transpose(-1, -2), aq))
     return slack_dk, slack_dv
@@ -323,12 +359,13 @@ def flash_check(out, ref, slack=None):
     apart)}. Tolerance, elementwise:
     - float32 outputs without `slack` (the float32 kernels): 1e-5 ·
       max(1, max|ref|), float32 rounding of sums in another order;
-    - bfloat16 outputs without `slack` (K2): one bfloat16 step
-      (`bf16_step`): it sums on the CUDA cores and rounds dS where the
-      plain version does;
-    - with `slack` (the tensor-core K1 and K3, from `flash_fwd_bound` /
-      `flash_bwd_dkv_bound`): slack, plus one bfloat16 step where the
-      output is bfloat16.
+    - bfloat16 outputs without `slack`: one bfloat16 step (`bf16_step`),
+      right for a kernel that sums in float32 on the CUDA cores and rounds
+      where the plain version does; no kernel of the port is held to it
+      any more (every bfloat16 kernel runs on the tensor cores);
+    - with `slack` (the tensor-core K1-K3, from `flash_fwd_bound`,
+      `flash_bwd_dq_bound` and `flash_bwd_dkv_bound`): slack, plus one
+      bfloat16 step where the output is bfloat16.
     Entries of `ref` at or below -1e29 (the lse sentinel of rows with no
     visible key) must match exactly."""
     bf16 = out.dtype == torch.bfloat16
@@ -436,8 +473,8 @@ def _ptr(t):
 
 def _launch(name, fn, bf16_route, *args):
     """Launch `fn`; count it under `name`, and under `bf16_route` too when
-    it is given (the bfloat16 launches of K1 and K3, which run the
-    tensor-core kernels)."""
+    it is given (the bfloat16 launches, which run the tensor-core
+    kernels)."""
     lib = kernels.load("flash_attention")
     _bind(lib)
     err = getattr(lib, fn)(*args)
@@ -488,8 +525,9 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
                                  delta, q_ids, kv_ids)
     with torch.cuda.device(q.device):
         dq = torch.empty_like(q)
-        _launch("flash_bwd_dq", "ptt_flash_bwd_dq", None,
-                int(q.dtype == torch.bfloat16), d, q.data_ptr(),
+        bf16 = q.dtype == torch.bfloat16
+        _launch("flash_bwd_dq", "ptt_flash_bwd_dq",
+                bf16 and "flash_bwd_dq_tc", int(bf16), d, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), _ptr(q_ids), _ptr(kv_ids), dq.data_ptr(),
                 b * h, h, tq, tk, float(scale), int(bool(causal)),

@@ -91,6 +91,28 @@ def test_plain_matches_pallas_interpret_and_xla_bf16(t, nh):
                                atol=5e-2, rtol=0)
 
 
+@pytest.mark.parametrize("rows", ["first_only", "masked_everywhere"])
+def test_plain_matches_pallas_interpret_on_masked_rows(rows):
+    """Rows whose mask hides every position but the first, or every
+    position (bias -1e9, as the models build it): the first gives V[0]
+    exactly, the second the uniform average of V, in the plain version as
+    in the Pallas kernel. The CUDA kernel splits the cache into chunks, so
+    most chunks of such rows are all masked; its merge must give them
+    weight 0 beside a visible chunk, and equal weights when no position is
+    visible (chip_smoke.py phase 3 holds it to this plain version on such
+    rows). float32, atol 1e-5."""
+    t = 96
+    q, k, v, bias = _inputs(t, 4)
+    hidden = 1 if rows == "first_only" else 0
+    bias[1] = np.where(np.arange(t) < hidden, 0.0, -1e9).reshape(1, 1, 1, t)
+    port = _port(q, k, v, bias, torch.float32)
+    np.testing.assert_allclose(
+        port, _jax(q, k, v, bias, jnp.float32, "pallas_interpret"),
+        atol=1e-5, rtol=0)
+    want = (v[1, 0, :, 0] if rows == "first_only" else v[1, 0].mean(1))
+    np.testing.assert_allclose(port[1, 0, :, 0], want, atol=1e-5, rtol=0)
+
+
 def test_cpu_call_takes_plain_version_and_counts_no_launch():
     q, k, v, bias = _inputs(40, 4)
     kernels.reset_launch_counts()
