@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every CUDA kernel from paddle_tpu_torch/csrc with nvcc for
    sm_90a, one nvcc per source, all started at once; report the
    tensor-core flash kernels' (K1-K3) registers, spills (none allowed at
-   head dim 64) and dynamic shared memory;
+   head dim 64) and dynamic shared memory, and the same of the recurrent
+   kernels (K5-K6; none allowed in K5 at 4 units a column group, the
+   stacked LSTM's) with the plan each shape gets;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (decode attention: the serving tick, odd
    shapes, and the cases that exercise its split of the cache — T = 1, T
@@ -19,13 +21,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    NMT decoder's q [32, 1, 512] over [32, 64, 512] forward and gradient;
    flash attention forward, dQ and dK/dV: the LM's training shape, a
    packed batch with segment ids, Tq != Tk, T not a multiple of the tile,
-   head dims 32 and 128, rows with no visible key, each in bfloat16 and
-   float32 (bfloat16 runs on the tensor cores and is held to the per-term
-   bounds of ops/flash_attention.py, and wrong kernels must be rejected by
-   the same check: three for each output; float32 at 1e-5);
+   head dims 32 and 128, head dims 16, 40 and 96 (which the wrappers
+   zero-pad to 32, 64 and 128), rows with no visible key, each in bfloat16
+   and float32 (bfloat16 runs on the tensor cores and is held to the
+   per-term bounds of ops/flash_attention.py, taken on the padded tensors,
+   and wrong kernels must be rejected by the same check: three for each
+   output; float32 at 1e-5);
    the whole-sequence LSTM and GRU: the stacked LSTM's and the NMT
    encoder's shapes forward and reversed with ragged lengths including 0,
-   and H = 16 and 100), then time kernel, plain version and the PyTorch
+   H = 16 and 100, and the large hidden sizes H = 1100 (both kernels) and
+   H = 2048 (the LSTM), where a block owns more units than 8 and reads its
+   w through L2), then time kernel, plain version and the PyTorch
    library call that
    computes the same function: each one's calls captured in a CUDA graph
    (no host launch cost in the time) over rotating input sets larger than
@@ -359,16 +365,16 @@ def check_recurrent(ptt, rates):
     Returns {kernel name: JSON fields (all but launches)}."""
     import torch
     from paddle_tpu_torch.fusion.recurrent import (
-        gru_seq_cuda, gru_seq_plain, lstm_seq_cuda, lstm_seq_plain)
+        gru_seq_cuda, gru_seq_plain, lstm_seq_cuda, lstm_seq_plain,
+        recurrent_plan)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def blocks(h):
-        # csrc/recurrent.cu units_per_block: the fewest units a block
-        # (1, 2, 4 or 8) that needs no more blocks than there are SMs
-        return next(-(-h // u) for u in (1, 2, 4, 8) if -(-h // u) <= sms)
+    def blocks(kind, b, h):
+        p = recurrent_plan(kind, b, h, dev)
+        return (f"{p['blocks']} blocks of {p['ug'] * p['groups']} units, w "
+                f"{'through L2' if p['stream_w'] else 'in shared memory'}")
 
     def make(n_gates, b, t, h, lengths):
         x = torch.randn(b, t, n_gates * h, device=dev, generator=gen) * 0.5
@@ -388,8 +394,11 @@ def check_recurrent(ptt, rates):
     gb, gt, gh = NMT["batch"], NMT["src_len"], NMT["hidden_dim"]
     cases = [("lstm", lb, lt, lh, False), ("lstm", lb, lt, lh, True),
              ("lstm", 5, 13, 16, False), ("lstm", 37, 9, 100, True),
+             ("lstm", 8, 9, 1100, False), ("lstm", 8, 9, 1100, True),
+             ("lstm", 4, 5, 2048, False), ("lstm", 4, 5, 2048, True),
              ("gru", gb, gt, gh, False), ("gru", gb, gt, gh, True),
-             ("gru", 5, 13, 16, True), ("gru", 37, 9, 100, False)]
+             ("gru", 5, 13, 16, True), ("gru", 37, 9, 100, False),
+             ("gru", 8, 9, 1100, False), ("gru", 8, 9, 1100, True)]
     errs = {"lstm_seq": 0.0, "gru_seq": 0.0}
     for kind, b, t, h, rev in cases:
         x, w, h0, c0, sl = make(4 if kind == "lstm" else 3, b, t, h,
@@ -411,7 +420,7 @@ def check_recurrent(ptt, rates):
             e, good = _rnn_err(out, ref)
             worst, ok = max(worst, e), ok and good
         log(f"  {kname} B={b} T={t} H={h} reverse={rev} "
-            f"({blocks(h)} blocks): max_abs_err={worst:.3e} over "
+            f"({blocks(kind, b, h)}): max_abs_err={worst:.3e} over "
             f"{', '.join(labels)} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kname} disagrees with its plain version "
@@ -468,7 +477,7 @@ def check_recurrent(ptt, rates):
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         n_sync = t if ng == 4 else 2 * t
         log(f"  {kname} timing B={b} T={t} H={h} float32 with stash "
-            f"({blocks(h)} blocks, {n_sync + 1} grid barriers): "
+            f"({blocks(kname[:-4], b, h)}, {n_sync + 1} grid barriers): "
             f"kernel {times['kernel'] * 1e3:.1f} us, plain "
             f"{times['plain'] * 1e3:.1f} us, cuDNN "
             f"{'LSTM' if ng == 4 else 'GRU'} {times['library'] * 1e3:.1f} "
@@ -635,18 +644,10 @@ def _flash_controls(q, k, v, do, lse, delta, scale, refs, slacks):
     return ratios
 
 
-def _tc_build_report(kernels):
-    """Phase 2's report of the tensor-core flash kernels from nvcc's
-    -Xptxas -v: registers and spills per instantiation, with the dynamic
-    shared memory each launch asks for. Raises on a spill at D = 64."""
-    from paddle_tpu_torch.ops.flash_attention import _bind
-    lib = kernels.load("flash_attention")
-    _bind(lib)
-    if "flash_attention" not in kernels.BUILD_LOGS:
-        log("  (flash_attention was built by an earlier run: no ptxas report)")
-        return
+def _ptxas_props(log_text):
+    """{mangled kernel name: {"regs", "spill"}} from nvcc's -Xptxas -v."""
     props, cur = {}, None
-    for line in kernels.BUILD_LOGS["flash_attention"].splitlines():
+    for line in log_text.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )"
                       r"(\w+)", line)
         if m:
@@ -660,6 +661,20 @@ def _tc_build_report(kernels):
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             props.setdefault(cur, {})["regs"] = int(m.group(1))
+    return props
+
+
+def _tc_build_report(kernels):
+    """Phase 2's report of the tensor-core flash kernels from nvcc's
+    -Xptxas -v: registers and spills per instantiation, with the dynamic
+    shared memory each launch asks for. Raises on a spill at D = 64."""
+    from paddle_tpu_torch.ops.flash_attention import _bind
+    lib = kernels.load("flash_attention")
+    _bind(lib)
+    if "flash_attention" not in kernels.BUILD_LOGS:
+        log("  (flash_attention was built by an earlier run: no ptxas report)")
+        return
+    props = _ptxas_props(kernels.BUILD_LOGS["flash_attention"])
     for which, tag in ((0, "flash_fwd_tc"), (1, "flash_dq_tc"),
                        (2, "flash_dkv_tc")):
         for dh in (32, 64, 128):
@@ -674,10 +689,48 @@ def _tc_build_report(kernels):
                 assert pr.get("spill") == 0, f"{tag} D=64 spills: {pr}"
 
 
+def _recurrent_build_report(kernels):
+    """Phase 2's report of the recurrent kernels K5 (lstm_seq_kernel<UG>,
+    UG units a column group) and K6 (gru_seq_kernel<U, w through L2>):
+    registers and spills per instantiation from nvcc's -Xptxas -v, and the
+    plan (units, blocks, where w lives, dynamic shared memory) at the
+    paths' shapes and the large hidden sizes. Raises on a spill of K5 at
+    UG = 4, the stacked LSTM's."""
+    import torch
+    from paddle_tpu_torch.fusion.recurrent import recurrent_plan
+    dev = torch.device("cuda", 0)
+    if "recurrent" not in kernels.BUILD_LOGS:
+        log("  (recurrent was built by an earlier run: no ptxas report)")
+    else:
+        props = _ptxas_props(kernels.BUILD_LOGS["recurrent"])
+        for tag in ("lstm_seq_kernelILi1E", "lstm_seq_kernelILi2E",
+                    "lstm_seq_kernelILi4E", "gru_seq_kernelILi4ELb0E",
+                    "gru_seq_kernelILi8ELb0E", "gru_seq_kernelILi8ELb1E"):
+            name = next((n for n in props if tag in n), None)
+            pr = props.get(name, {})
+            log(f"  [{tag}] registers {pr.get('regs')}, spill bytes "
+                f"{pr.get('spill')}")
+            if tag == "lstm_seq_kernelILi4E":
+                assert name is not None, "no ptxas report for lstm_seq UG=4"
+                assert pr.get("spill") == 0, f"lstm_seq UG=4 spills: {pr}"
+    for kind, b, h in (("lstm", LSTM["batch"], LSTM["hid_dim"]),
+                       ("lstm", 8, 1100), ("lstm", 4, 2048),
+                       ("gru", NMT["batch"], NMT["hidden_dim"]),
+                       ("gru", 8, 1100)):
+        p = recurrent_plan(kind, b, h, dev)
+        where = "through L2" if p["stream_w"] else "in shared memory"
+        log(f"  [{kind}_seq B={b} H={h}] {p['blocks']} blocks of "
+            f"{p['ug'] * p['groups']} units ({p['groups']} column groups of "
+            f"{p['ug']}), w {where}, dynamic shared memory {p['smem']} "
+            f"bytes")
+
+
 def check_flash(ptt, rates):
     """Phase 3 for the flash-attention kernels K1 (forward), K2 (dQ) and
     K3 (dK/dV): each against its plain version on the card over the LM's
-    shape and the edge cases in both types, then timed at the LM shape.
+    shape and the edge cases in both types (head dims 16, 40 and 96 run
+    zero-padded to 32, 64 and 128 inside the wrappers), then timed at the
+    LM shape.
     bfloat16 (the tensor-core kernels) is held to the per-term bounds of
     ops/flash_attention.py (`flash_fwd_bound`, `flash_bwd_dq_bound`,
     `flash_bwd_dkv_bound`), float32 to 1e-5 max(1, |ref|) (`flash_check`).
@@ -687,7 +740,8 @@ def check_flash(ptt, rates):
     from paddle_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv_bound, flash_bwd_dkv_cuda, flash_bwd_dq_bound,
         flash_bwd_dq_cuda, flash_bwd_plain, flash_check, flash_delta,
-        flash_fwd_bound, flash_fwd_cuda, flash_fwd_plain)
+        flash_fwd_bound, flash_fwd_cuda, flash_fwd_plain, kernel_head_dim,
+        pad_head_dim)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -715,6 +769,9 @@ def check_flash(ptt, rates):
         ("odd_t", 3, 2, 200, 200, d, False, None),
         ("d128", 2, 4, 256, 256, 128, True, None),
         ("d32", 2, 2, 96, 96, 32, True, None),
+        ("d16", 2, 4, 128, 128, 16, True, None),    # padded to 32
+        ("d40", 2, 2, 200, 200, 40, True, None),    # padded to 64
+        ("d96", 2, 4, 256, 160, 96, False, None),   # padded to 128
         ("no_key", 2, 2, 160, 96, d, True, None),   # rows 0-63 causal
         ("no_key_seg", 2, 2, 96, 96, d, False, (q_ids, kv_ids)),
     ]
@@ -741,13 +798,21 @@ def check_flash(ptt, rates):
                     f"{label}: a row with no visible key has a nonzero output"
             slack = dict.fromkeys(("o", "lse", "dq", "dk", "dv"))
             if dt == bf16:
+                # the tensor cores sum over the padded head dim: the bounds
+                # are taken on the tensors the kernels ran on, then sliced
+                kd = kernel_head_dim(cd)
+                qp, kp, vp, dop, op_ref, dqp, dkp, dvp = pad_head_dim(
+                    kd, q, k, v, do, o_ref, dq_ref, dk_ref, dv_ref)
                 slack["o"], slack["lse"] = flash_fwd_bound(
-                    q, k, v, o_ref, lse_ref, scale, causal, qs, ks)
+                    qp, kp, vp, op_ref, lse_ref, scale, causal, qs, ks)
                 slack["dq"] = flash_bwd_dq_bound(
-                    q, k, v, do, lse, delta, dq_ref, scale, causal, qs, ks)
+                    qp, kp, vp, dop, lse, delta, dqp, scale, causal, qs, ks)
                 slack["dk"], slack["dv"] = flash_bwd_dkv_bound(
-                    q, k, v, do, lse, delta, dk_ref, dv_ref, scale, causal,
+                    qp, kp, vp, dop, lse, delta, dkp, dvp, scale, causal,
                     qs, ks)
+                for n in ("o", "dq", "dk", "dv"):
+                    slack[n] = slack[n][..., :cd]
+                del qp, kp, vp, dop, op_ref, dqp, dkp, dvp
             res = {}
             for kname, pairs in (
                     ("flash_fwd", [("o", o, o_ref), ("lse", lse, lse_ref)]),
@@ -1625,6 +1690,7 @@ def main():
             f"{max(spills, default=0)}")
 
     _tc_build_report(kernels)
+    _recurrent_build_report(kernels)
 
     log("phase 3: kernels against their plain versions")
     results = {"decode_attention": check_decode_attention(ptt, name, rates)}

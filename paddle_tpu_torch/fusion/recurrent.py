@@ -14,7 +14,11 @@ The pieces, as for every kernel of the port:
   kernels (csrc/recurrent.cu, replacing the Pallas kernels
   `paddle_tpu/fusion/recurrent.py:_lstm_seq_kernel` and `_gru_seq_kernel`).
   They check devices, types and shapes, launch on the current stream and
-  count the launch in `kernels.LAUNCHES["lstm_seq"]` / `["gru_seq"]`.
+  count the launch in `kernels.LAUNCHES["lstm_seq"]` / `["gru_seq"]`. Any
+  H: the kernel's plan (`recurrent_plan`) says how many units a block owns
+  and whether its gate columns of w fit shared memory; where they do not,
+  the wrapper passes a copy of w laid out block by block (`relay_w`),
+  which the kernel reads through L2.
 - `lstm_seq_plain` / `gru_seq_plain` — the same functions in plain
   PyTorch, a loop over time (≙ `_xla_lstm_seq`, `_xla_gru_seq`), stash
   included.
@@ -115,11 +119,60 @@ def _bind(lib):
     if getattr(lib, "_ptt_bound", False):
         return
     c_int, c_vp = ctypes.c_int, ctypes.c_void_p
-    lib.ptt_lstm_seq.argtypes = [c_vp] * 5 + [c_int] * 4 + [c_vp] * 6
+    lib.ptt_lstm_seq.argtypes = [c_vp] * 6 + [c_int] * 4 + [c_vp] * 6
     lib.ptt_lstm_seq.restype = c_int
-    lib.ptt_gru_seq.argtypes = [c_vp] * 4 + [c_int] * 4 + [c_vp] * 5
+    lib.ptt_gru_seq.argtypes = [c_vp] * 5 + [c_int] * 4 + [c_vp] * 5
     lib.ptt_gru_seq.restype = c_int
+    lib.ptt_recurrent_plan.argtypes = [c_int] * 3 + [c_vp]
+    lib.ptt_recurrent_plan.restype = c_int
     lib._ptt_bound = True
+
+
+_PLANS = {}
+
+
+def recurrent_plan(kind, b, hd, device):
+    """How the "lstm" or "gru" kernel covers `hd` hidden units for `b` rows
+    on `device` (csrc/recurrent.cu ptt_recurrent_plan): {"ug": units a
+    column group, "groups": column groups a block, "blocks", "stream_w":
+    w read from `relay_w`'s copy, "smem": dynamic shared memory bytes,
+    "hp": row stride of the LSTM's h buffer}."""
+    key = (kind, b, hd, torch.device(device).index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        lib = kernels.load("recurrent")
+        _bind(lib)
+        out = (ctypes.c_int * 6)()
+        with torch.cuda.device(device):
+            err = lib.ptt_recurrent_plan(int(kind == "gru"), b, hd, out)
+        kernels.check(lib, f"{kind}_seq plan", err)
+        plan = dict(zip(("ug", "groups", "blocks", "stream_w", "smem", "hp"),
+                        out))
+        _PLANS[key] = plan
+    return plan
+
+
+def relay_w(w, n_gates, ug, groups, blocks, hp):
+    """w [H, G·H] laid out for the kernels' blocks: [blocks, groups, hp,
+    G·ug], where block g's column group c holds at [k, gate·ug + u] the
+    weight w[k, gate·H + j] of unit j = (g·groups + c)·ug + u, and zeros for
+    k or j at or past H (hp >= H rounds the rows up)."""
+    hd = w.shape[0]
+    wp = w.new_zeros((hp, n_gates, blocks * groups * ug))
+    wp[:hd, :, :hd] = w.reshape(hd, n_gates, hd)
+    return wp.reshape(hp, n_gates, blocks, groups, ug).permute(
+        2, 3, 0, 1, 4).reshape(blocks, groups, hp, n_gates * ug).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _w_rel(plan, w, n_gates):
+    if not plan["stream_w"]:
+        return None
+    return relay_w(w, n_gates, plan["ug"], plan["groups"], plan["blocks"],
+                   plan["hp"])
 
 
 def _check_args(name, n_gates, x, states, w, seqlen):
@@ -151,27 +204,29 @@ def lstm_seq_cuda(x, h0, c0, w, seqlen, reverse, with_stash):
     """Launch the LSTM kernel: x [B, T, 4H] (already flipped when
     `reverse`), h0/c0 [B, H], w [H, 4H] float32, seqlen [B] of any integer
     type. Returns (hs, cs[, stash]) as `lstm_seq_plain`. Raises on another
-    type, on shapes that disagree, and (CUDA "invalid argument") on an H
-    whose weight slices do not fit the SMs' shared memory."""
+    type and on shapes that disagree."""
     b, t, hd = _check_args("lstm_seq_cuda", 4, x, (h0, c0), w, seqlen)
     lib = kernels.load("recurrent")
     _bind(lib)
     dev = x.device
+    plan = recurrent_plan("lstm", b, hd, dev)
     with torch.cuda.device(dev):
         x, h0, c0, w = (a.contiguous() for a in (x, h0, c0, w))
+        w_rel = _w_rel(plan, w, 4)
         sl = seqlen.to(torch.int32).contiguous()
         hs = torch.empty((b, t, hd), dtype=torch.float32, device=dev)
         cs = torch.empty_like(hs)
         stash = (torch.empty((b, t, 4 * hd), dtype=torch.float32,
                              device=dev) if with_stash else None)
-        hbuf = torch.empty((2, b, hd), dtype=torch.float32, device=dev)
+        # columns hd..hp-1 of each row stay zero: the kernel reads them
+        hbuf = torch.zeros((2, b, plan["hp"]), dtype=torch.float32,
+                           device=dev)
         arrived = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.ptt_lstm_seq(
-            x.data_ptr(), w.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-            sl.data_ptr(), b, t, hd, int(bool(reverse)), hs.data_ptr(),
-            cs.data_ptr(), stash.data_ptr() if with_stash else None,
-            hbuf.data_ptr(), arrived.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            x.data_ptr(), w.data_ptr(), _ptr(w_rel), h0.data_ptr(),
+            c0.data_ptr(), sl.data_ptr(), b, t, hd, int(bool(reverse)),
+            hs.data_ptr(), cs.data_ptr(), _ptr(stash), hbuf.data_ptr(),
+            arrived.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(lib, "lstm_seq", err)
     kernels.count_launch("lstm_seq")
     return (hs, cs, stash) if with_stash else (hs, cs)
@@ -185,8 +240,10 @@ def gru_seq_cuda(x, h0, w, seqlen, reverse, with_stash):
     lib = kernels.load("recurrent")
     _bind(lib)
     dev = x.device
+    plan = recurrent_plan("gru", b, hd, dev)
     with torch.cuda.device(dev):
         x, h0, w = (a.contiguous() for a in (x, h0, w))
+        w_rel = _w_rel(plan, w, 3)
         sl = seqlen.to(torch.int32).contiguous()
         hs = torch.empty((b, t, hd), dtype=torch.float32, device=dev)
         stash = (torch.empty((b, t, 3 * hd), dtype=torch.float32,
@@ -194,10 +251,10 @@ def gru_seq_cuda(x, h0, w, seqlen, reverse, with_stash):
         buf = torch.empty((2, b, hd), dtype=torch.float32, device=dev)
         arrived = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.ptt_gru_seq(
-            x.data_ptr(), w.data_ptr(), h0.data_ptr(), sl.data_ptr(), b, t,
-            hd, int(bool(reverse)), hs.data_ptr(),
-            stash.data_ptr() if with_stash else None, buf.data_ptr(),
-            arrived.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            x.data_ptr(), w.data_ptr(), _ptr(w_rel), h0.data_ptr(),
+            sl.data_ptr(), b, t, hd, int(bool(reverse)), hs.data_ptr(),
+            _ptr(stash), buf.data_ptr(), arrived.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(lib, "gru_seq", err)
     kernels.count_launch("gru_seq")
     return (hs, stash) if with_stash else (hs,)

@@ -33,8 +33,12 @@ kernels that the check must reject).
 
 Masks: causal aligned bottom-right (query i sees keys up to i + Tk - Tq)
 and segment ids (a query sees a key iff their ids are equal; the packed
-batches of data/packing.py). Tensors are [B, H, T, D]; the kernels take
-head dims 32, 64 and 128 in float32 or bfloat16.
+batches of data/packing.py). Tensors are [B, H, T, D] in float32 or
+bfloat16; the kernels are built for head dims 32, 64 and 128, and the
+wrappers take any D up to 128 by zero-padding q, k, v (and dO) to the next
+of those (`kernel_head_dim`, `pad_head_dim`) and slicing o, dq, dk and dv
+back. That is exact: a zero column adds exactly 0 to every dot product and
+to delta = Σ dO·O, and the caller's scale is passed unchanged.
 
 `delta` = Σ dO·O in float32 is a plain torch op, as in the JAX package;
 the backward kernels also take it from the caller, and K1's lse output is
@@ -54,6 +58,24 @@ _NEG_INF = -1e30
 
 #: head dims the CUDA kernels are built for
 KERNEL_HEAD_DIMS = (32, 64, 128)
+
+
+def kernel_head_dim(d):
+    """The head dim the kernels run a caller's D at: the least of
+    KERNEL_HEAD_DIMS not below D. Raises for D above 128."""
+    for kd in KERNEL_HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(f"flash attention: head dim {d} is not supported: head "
+                     f"dims above 128 need a 256 instantiation, with the "
+                     f"`wgmma` follow-up (ROADMAP.md §3)")
+
+
+def pad_head_dim(kd, *tensors):
+    """Each [..., D] tensor zero-padded on its last dim to kd (contiguous;
+    the tensor itself where D is kd already)."""
+    return tuple(t if t.shape[-1] == kd else torch.nn.functional.pad(
+        t, (0, kd - t.shape[-1])).contiguous() for t in tensors)
 
 #: keys per tile of K1's online softmax (kBK in csrc/flash_attention.cu)
 KEY_TILE = 64
@@ -443,7 +465,7 @@ def _check(name, tensors, q, k, q_ids, kv_ids):
     b, h, _, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} is not one the kernels are "
-                         f"built for {KERNEL_HEAD_DIMS}")
+                         f"built for {KERNEL_HEAD_DIMS} (pad_head_dim)")
     if k.dim() != 4 or k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not agree")
@@ -487,8 +509,13 @@ def _launch(name, fn, bf16_route, *args):
 def flash_fwd_cuda(q, k, v, scale, causal, q_ids=None, kv_ids=None,
                    with_lse=True):
     """Launch K1. q [B,H,Tq,D], k/v [B,H,Tk,D]: contiguous CUDA tensors of
-    one dtype. Returns (o, lse or None)."""
+    one dtype, D <= 128. Returns (o, lse or None)."""
     b, h, tq, d = q.shape
+    kd = kernel_head_dim(d)
+    if kd != d and q.is_cuda:
+        o, lse = flash_fwd_cuda(*pad_head_dim(kd, q, k, v), scale, causal,
+                                q_ids, kv_ids, with_lse)
+        return o[..., :d].contiguous(), lse
     tk = k.shape[2]
     _check("flash_fwd_cuda", [(k, q.dtype, (b, h, tk, d)),
                               (v, q.dtype, (b, h, tk, d)),
@@ -521,6 +548,12 @@ def _bwd_check(name, q, k, v, do, lse, delta, q_ids, kv_ids):
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
                       kv_ids=None):
     """Launch K2: dq in q's dtype."""
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    if kd != d and q.is_cuda:
+        dq = flash_bwd_dq_cuda(*pad_head_dim(kd, q, k, v, do), lse, delta,
+                               scale, causal, q_ids, kv_ids)
+        return dq[..., :d].contiguous()
     b, h, tq, tk, d = _bwd_check("flash_bwd_dq_cuda", q, k, v, do, lse,
                                  delta, q_ids, kv_ids)
     with torch.cuda.device(q.device):
@@ -538,6 +571,12 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
                        kv_ids=None):
     """Launch K3: (dk, dv) in k's and v's dtype."""
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    if kd != d and q.is_cuda:
+        dk, dv = flash_bwd_dkv_cuda(*pad_head_dim(kd, q, k, v, do), lse,
+                                    delta, scale, causal, q_ids, kv_ids)
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     b, h, tq, tk, d = _bwd_check("flash_bwd_dkv_cuda", q, k, v, do, lse,
                                  delta, q_ids, kv_ids)
     with torch.cuda.device(q.device):

@@ -53,6 +53,9 @@ def _arg_max(ctx, ins, attrs):
 
 @register_op("top_k")
 def _top_k(ctx, ins, attrs):
-    # ≙ jax.lax.top_k over the last axis: values in descending order
-    vals, idx = torch.topk(ins["X"][0], attrs["k"], dim=-1)
-    return {"Out": [vals], "Indices": [idx.to(torch.int64)]}
+    # ≙ jax.lax.top_k over the last axis: values in descending order, the
+    # lower index first among equal values (torch.topk promises no order
+    # among ties, so a stable sort decides them)
+    vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True, stable=True)
+    k = attrs["k"]
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int64)]}

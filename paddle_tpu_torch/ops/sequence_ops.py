@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..framework.registry import register_op
+from .tensor_ops import fill_value, index_in_range
 
 
 @register_op("sequence_mask")
@@ -44,10 +45,14 @@ def _per_row(v, x):
 
 
 def _last_step(x, seqlen):
-    idx = (seqlen - 1).clamp(min=0).to(torch.long)
-    idx = idx.reshape((-1, 1) + (1,) * (x.dim() - 2)).expand(
+    """≙ jnp.take_along_axis(x, max(seqlen - 1, 0), axis=1): a length past
+    T yields a filled row, as jax's "fill" mode gives (ops/tensor_ops.py)."""
+    idx, filled = index_in_range((seqlen - 1).clamp(min=0), x.shape[1])
+    tail = (1,) * (x.dim() - 2)
+    idx = idx.reshape((-1, 1) + tail).expand(
         (x.shape[0], 1) + tuple(x.shape[2:]))
-    return torch.gather(x, 1, idx).squeeze(1)
+    return torch.gather(x, 1, idx).squeeze(1).masked_fill(
+        filled.reshape((-1,) + tail), fill_value(x.dtype))
 
 
 @register_op("sequence_pool")

@@ -14,6 +14,44 @@ from ..core.dtypes import convert_dtype
 from ..framework.registry import register_op
 
 
+# --- indices out of range ------------------------------------------------
+# jnp.take and jnp.take_along_axis (the reference's gather, lookup_table and
+# sequence_last_step) run in jax's "fill" mode: an index in [-n, 0) counts
+# from the end, and any other index outside [0, n) yields a filled row
+# whose gradient is zero. The port computes the same with a clamp and a
+# masked fill, so no index is checked on the host (no device->host sync)
+# and no out-of-range index reaches torch's indexing.
+
+
+def fill_value(dtype):
+    """The value jax fills an out-of-range row with: NaN for floating
+    types, the least value of a signed integer type, the greatest of an
+    unsigned one, True for booleans."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def index_in_range(index, n):
+    """(index, filled): `index` with [-n, 0) wrapped to [0, n) and the rest
+    clamped into it, and the mask of the entries jax fills instead."""
+    index = index.to(torch.long)
+    index = torch.where(index < 0, index + n, index)
+    filled = (index < 0) | (index >= n)
+    return index.clamp(0, n - 1), filled
+
+
+def take_rows(x, index):
+    """≙ jnp.take(x, index, axis=0): rows of x picked by an index of any
+    shape, out-of-range rows filled as jax fills them."""
+    index, filled = index_in_range(index, x.shape[0])
+    filled = filled.reshape(filled.shape + (1,) * (x.dim() - 1))
+    return x[index].masked_fill(filled, fill_value(x.dtype))
+
+
 @register_op("reshape")
 def _reshape(ctx, ins, attrs):
     x = ins["X"][0]
@@ -47,7 +85,7 @@ def _slice(ctx, ins, attrs):
 @register_op("gather")
 def _gather(ctx, ins, attrs):
     # ≙ jnp.take(x, index, axis=0): rows of x picked by an index of any shape
-    return {"Out": [ins["X"][0][ins["Index"][0].to(torch.long)]]}
+    return {"Out": [take_rows(ins["X"][0], ins["Index"][0])]}
 
 
 @register_op("squeeze")
@@ -183,7 +221,7 @@ def _lookup_table(ctx, ins, attrs):
     ids = ins["Ids"][0]
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
-    out = w[ids.to(torch.long)]
+    out = take_rows(w, ids)
     padding_idx = attrs.get("padding_idx", None)
     if padding_idx is not None:
         if padding_idx < 0:  # negative indexes from the end, as in reference

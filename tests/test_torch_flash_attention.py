@@ -224,3 +224,53 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         flash_fwd_cuda(_t(q), _t(k), _t(v), 0.25, True)
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 40, 96])
+def test_head_dim_padding_matches_unpadded_plain(d, dtype):
+    """What the CUDA wrappers do with a head dim the kernels are not built
+    for: q, k, v and dO zero-padded to `kernel_head_dim(D)`, the caller's
+    scale unchanged, lse and delta passed through, o, dq, dk, dv sliced
+    back. Run through the plain versions, that equals the unpadded plain
+    version (float32 at 1e-5, bfloat16 at one bfloat16 step:
+    `flash_check`'s rules; zero columns add exactly 0 to every product)."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_check, kernel_head_dim, pad_head_dim)
+    rng = np.random.RandomState(d)
+    b, h, t = 2, 2, 72
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, t, d).astype("float32"))
+                   .to(dtype) for _ in range(4))
+    ids = torch.zeros(b, t, dtype=torch.int32)
+    ids[:, :30], ids[:, 30:65] = 1, 2
+    scale = d ** -0.5
+    kd = kernel_head_dim(d)
+    assert kd == {16: 32, 40: 64, 96: 128}[d]
+    qp, kp, vp, dop = pad_head_dim(kd, q, k, v, do)
+    assert qp.shape[-1] == kd and bool((qp[..., d:] == 0).all())
+    o, lse = flash_fwd_plain(q, k, v, scale, True, ids, ids)
+    op, lsep = flash_fwd_plain(qp, kp, vp, scale, True, ids, ids)
+    delta = flash_delta(o, do)
+    assert torch.equal(flash_delta(op, dop), delta)
+    grads = flash_bwd_plain(q, k, v, None, lse, do, scale, True, ids, ids,
+                            delta=delta)
+    gradsp = flash_bwd_plain(qp, kp, vp, None, lsep, dop, scale, True, ids,
+                             ids, delta=delta)
+    assert flash_check(lsep, lse)["ok"]
+    for name, out, ref in zip(("o", "dq", "dk", "dv"), (op, *gradsp),
+                              (o, *grads)):
+        assert bool((out[..., d:] == 0).all()), name
+        res = flash_check(out[..., :d].contiguous(), ref)
+        assert res["ok"], (name, res)
+
+
+def test_head_dims_above_128_raise_naming_the_follow_up():
+    from paddle_tpu_torch.ops.flash_attention import (kernel_head_dim,
+                                                      pad_head_dim)
+    assert [kernel_head_dim(d) for d in (1, 32, 33, 64, 100, 128)] == \
+        [32, 32, 64, 64, 128, 128]
+    x = torch.ones(1, 1, 4, 64)
+    assert pad_head_dim(64, x)[0] is x
+    with pytest.raises(ValueError, match="256 instantiation.*wgmma"):
+        kernel_head_dim(160)

@@ -217,6 +217,34 @@ CASES = [
     ("sequence_last_step", "sequence_last_step",
      {"X": [f32(4, 6, 3)], "SeqLen": [np.array([6, 2, 1, 4], "int64")]},
      {}, {}, {}),
+    # ties: the lower index first, as jax.lax.top_k
+    ("top_k_ties", "top_k",
+     {"X": [np.array([[5, 5, 5, 5], [2, 7, 2, 7], [1, 3, 3, 1]], "float32")]},
+     {"k": 2}, {}, {}),
+    ("top_k_ties_k3", "top_k",
+     {"X": [np.array([[5, 5, 5, 5], [2, 7, 2, 7], [1, 3, 3, 1]], "float32")]},
+     {"k": 3}, {}, {}),
+    # indices out of range: jax wraps [-n, 0) and fills the rest (NaN for
+    # floats, the least int32 for int32)
+    ("gather_out_of_range", "gather",
+     {"X": [f32(6, 2)], "Index": [np.array([7, -1, -7, 5], "int32")]},
+     {}, {}, {}),
+    ("gather_out_of_range_int", "gather",
+     {"X": [np.arange(12, dtype="int32").reshape(6, 2)],
+      "Index": [np.array([[7, -1], [-7, 0]], "int64")]}, {}, {}, {}),
+    ("lookup_table_out_of_range", "lookup_table",
+     {"W": [f32(10, 6)], "Ids": [np.array([[12], [-1], [3], [-11]], "int64")]},
+     {"padding_idx": None}, {}, {}),
+    *[(f"lookup_table_out_of_range_pad{p}", "lookup_table",
+       {"W": [f32(10, 6)],
+        "Ids": [np.array([[12], [-1], [3], [-11], [9]], "int64")]},
+       {"padding_idx": p}, {}, {}) for p in (3, -1)],
+    ("sequence_last_step_past_t", "sequence_last_step",
+     {"X": [f32(4, 6, 3)], "SeqLen": [np.array([6, 9, 0, 7], "int64")]},
+     {}, {}, {}),
+    ("sequence_pool_last_past_t", "sequence_pool",
+     {"X": [f32(4, 6, 3)], "SeqLen": [np.array([7, 2, 0, 6], "int32")]},
+     {"pooltype": "LAST"}, {}, {}),
 ]
 
 
@@ -255,10 +283,10 @@ def test_op_matches_jax_lowering(case):
                 np.testing.assert_array_equal(tv, jv, err_msg=slot)
             elif slot in rounded:
                 np.testing.assert_allclose(tv, jv, rtol=2e-2, atol=2e-2,
-                                           err_msg=slot)
+                                           equal_nan=True, err_msg=slot)
             else:
                 np.testing.assert_allclose(tv, jv, rtol=1e-5, atol=1e-5,
-                                           err_msg=slot)
+                                           equal_nan=True, err_msg=slot)
 
 
 @pytest.mark.parametrize("op_type,attrs", [
@@ -317,6 +345,41 @@ def test_cache_write_out_of_range_raises():
         treg.lookup_op("cache_write").lower(
             treg.LowerCtx(), {s: [torch.from_numpy(a) for a in v]
                               for s, v in ins.items()}, attrs)
+
+
+@pytest.mark.parametrize("op_type,ins,attrs", [
+    ("gather", {"X": f32(6, 2), "Index": np.array([7, -1, -7, 1], "int32")},
+     {}),
+    ("lookup_table",
+     {"W": f32(10, 3), "Ids": np.array([[12], [-1], [3], [3]], "int64")},
+     {"padding_idx": None}),
+    ("sequence_last_step",
+     {"X": f32(3, 4, 2), "SeqLen": np.array([4, 9, 2], "int64")}, {}),
+])
+def test_out_of_range_rows_match_jax_gradient(op_type, ins, attrs):
+    """d(sum of the finite outputs)/d(table) through the port against
+    jax.grad through the JAX lowering: a filled row passes no gradient, a
+    wrapped index passes it to the row it wraps to, a repeated index adds
+    up."""
+    src = next(iter(ins))
+    rest = {s: a for s, a in ins.items() if s != src}
+
+    def jloss(table):
+        out = jreg.lookup_op(op_type).lower(
+            jreg.LowerCtx(rng_key=jax.random.PRNGKey(0)),
+            {src: [table], **{s: [jnp.asarray(a)] for s, a in rest.items()}},
+            dict(attrs))["Out"][0]
+        return jnp.sum(jnp.where(jnp.isnan(out), 0.0, out) * 1.5)
+
+    jg = np.asarray(jax.grad(jloss)(jnp.asarray(ins[src])))
+    table = torch.from_numpy(ins[src].copy()).requires_grad_()
+    out = treg.lookup_op(op_type).lower(
+        treg.LowerCtx(), {src: [table], **{s: [torch.from_numpy(a)]
+                                          for s, a in rest.items()}},
+        dict(attrs))["Out"][0]
+    assert bool(out.isnan().any())
+    (torch.where(out.isnan(), 0.0, out) * 1.5).sum().backward()
+    np.testing.assert_allclose(as_numpy(table.grad), jg, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("logits_dtype,ignore", [

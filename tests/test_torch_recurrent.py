@@ -151,6 +151,37 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                           False)
 
 
+@pytest.mark.parametrize("n_gates,hd,ug,groups,blocks,hp", [
+    (4, 1100, 4, 3, 92, 1100),   # the LSTM at H = 1100 on 132 SMs
+    (4, 2048, 4, 4, 128, 2048),  # the LSTM at H = 2048
+    (4, 10, 4, 2, 2, 12),        # rows rounded up to 4, units past H
+    (3, 1100, 8, 2, 69, 1100),   # the GRU at H = 1100
+    (3, 7, 2, 1, 4, 7),
+])
+def test_relay_w_layout_round_trip(n_gates, hd, ug, groups, blocks, hp):
+    """The copy of w the kernels stream where a block's gate columns do not
+    fit shared memory: block g's column group c holds, at [k, gate·ug + u],
+    w[k, gate·H + j] for unit j = (g·groups + c)·ug + u. Every weight is
+    read back from where the kernel reads it; rows and units past H are
+    zeros."""
+    w = np.random.RandomState(hd).randn(hd, n_gates * hd).astype("float32")
+    rel = trec.relay_w(torch.from_numpy(w), n_gates, ug, groups, blocks,
+                       hp).numpy()
+    assert rel.shape == (blocks, groups, hp, n_gates * ug)
+    assert not rel[:, :, hd:].any()
+    back = np.full_like(w, np.nan)
+    for blk in range(blocks):
+        for cg in range(groups):
+            for u in range(ug):
+                j = (blk * groups + cg) * ug + u
+                cols = [gate * ug + u for gate in range(n_gates)]
+                if j < hd:
+                    back[:, j::hd] = rel[blk, cg, :hd, cols].T
+                else:
+                    assert not rel[blk, cg, :, cols].any()
+    np.testing.assert_array_equal(back, w)
+
+
 def _seq_op_ins(kind, seed=3):
     a = _args(kind, LENGTHS["with_zero"], seed)
     g = 4 if kind == "lstm" else 3
