@@ -10,9 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every CUDA kernel from paddle_tpu_torch/csrc with nvcc for
    sm_90a, one nvcc per source, all started at once; report the
    tensor-core flash kernels' (K1-K3) registers, spills (none allowed at
-   head dim 64) and dynamic shared memory, and the same of the recurrent
-   kernels (K5-K6; none allowed in K5 at 4 units a column group, the
-   stacked LSTM's) with the plan each shape gets;
+   head dim 64, nor in any of the six head-dim-256 instantiations, float32
+   ones included) and dynamic shared memory, and the same of the recurrent
+   kernels (K5-K6; none allowed at 4 units a column group, the stacked
+   LSTM's and the NMT encoder's) with the plan each shape gets;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (decode attention: the serving tick, odd
    shapes, and the cases that exercise its split of the cache — T = 1, T
@@ -21,23 +22,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    NMT decoder's q [32, 1, 512] over [32, 64, 512] forward and gradient;
    flash attention forward, dQ and dK/dV: the LM's training shape, a
    packed batch with segment ids, Tq != Tk, T not a multiple of the tile,
-   head dims 32 and 128, head dims 16, 40 and 96 (which the wrappers
-   zero-pad to 32, 64 and 128), rows with no visible key, each in bfloat16
+   head dims 32, 128 and 256, head dims 16, 40, 96 and 160 (which the
+   wrappers zero-pad to 32, 64, 128 and 256), rows with no visible key,
+   each in bfloat16
    and float32 (bfloat16 runs on the tensor cores and is held to the
    per-term bounds of ops/flash_attention.py, taken on the padded tensors,
    and wrong kernels must be rejected by the same check: three for each
    output; float32 at 1e-5);
    the whole-sequence LSTM and GRU: the stacked LSTM's and the NMT
    encoder's shapes forward and reversed with ragged lengths including 0,
-   H = 16 and 100, and the large hidden sizes H = 1100 (both kernels) and
-   H = 2048 (the LSTM), where a block owns more units than 8 and reads its
-   w through L2), then time kernel, plain version and the PyTorch
-   library call that
+   H = 16 and 100, the GRU at B = 80 (three passes of 32 rows), and the
+   large hidden sizes H = 1100 and 2048 (both kernels, both directions),
+   where a block owns more than 4 units and reads its w through L2), then
+   time kernel, plain version and the PyTorch library call that
    computes the same function: each one's calls captured in a CUDA graph
    (no host launch cost in the time) over rotating input sets larger than
    the 50 MB L2, replayed in turns between CUDA events (SDPA's backward,
    the flash backward's yardstick: its captured forward and backward less
-   its forward);
+   its forward; K1-K3 also at head dim 256);
 4. serve: ContinuousBatchingEngine on CUDAPlace(0) at the Transformer LM's
    full width (vocab 32000, d_model 512, d_inner 2048, 8 heads, 6 layers),
    16 slots, max_len 256, random weights from the startup program's seed,
@@ -99,8 +101,9 @@ plain version (`max_abs_err` at the path's shape in float32;
 bfloat16; decode attention's `*_nmt` keys at the NMT shape and `splits`,
 the chunks of the cache a call is split into, at each path's shape; the
 flash kernels' `routes` per type, `err_over_tolerance_bf16`,
-`beyond_one_step_bf16`, the controls' `control_err_over_tolerance` and
-`launches_tc_bf16`) and times; the last line is
+`beyond_one_step_bf16`, the controls' `control_err_over_tolerance`,
+`launches_tc_bf16` and `d256`, their times and bound at head dim 256) and
+times; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -358,8 +361,9 @@ def _rnn_err(out, ref):
 def check_recurrent(ptt, rates):
     """Phase 3 for the whole-sequence LSTM and GRU kernels: each against
     its plain version on the card (hs, cs and the gate stash) at its path's
-    shape, forward and reversed, with ragged lengths including 0, and at
-    H = 16 and 100; then kernel, plain version and cuDNN's LSTM / GRU timed
+    shape, forward and reversed, with ragged lengths including 0, at H = 16
+    and 100, the GRU past one pass of rows (B = 80), and at H = 1100 and
+    2048 in both directions; then kernel, plain version and cuDNN's LSTM / GRU timed
     at the path's shape as phase 3 times the others (the kernels'
     cooperative launches are captured in CUDA graphs like any other).
     Returns {kernel name: JSON fields (all but launches)}."""
@@ -398,7 +402,9 @@ def check_recurrent(ptt, rates):
              ("lstm", 4, 5, 2048, False), ("lstm", 4, 5, 2048, True),
              ("gru", gb, gt, gh, False), ("gru", gb, gt, gh, True),
              ("gru", 5, 13, 16, True), ("gru", 37, 9, 100, False),
-             ("gru", 8, 9, 1100, False), ("gru", 8, 9, 1100, True)]
+             ("gru", 80, 9, gh, False), ("gru", 80, 9, gh, True),
+             ("gru", 8, 9, 1100, False), ("gru", 8, 9, 1100, True),
+             ("gru", 4, 5, 2048, False), ("gru", 4, 5, 2048, True)]
     errs = {"lstm_seq": 0.0, "gru_seq": 0.0}
     for kind, b, t, h, rev in cases:
         x, w, h0, c0, sl = make(4 if kind == "lstm" else 3, b, t, h,
@@ -665,9 +671,12 @@ def _ptxas_props(log_text):
 
 
 def _tc_build_report(kernels):
-    """Phase 2's report of the tensor-core flash kernels from nvcc's
-    -Xptxas -v: registers and spills per instantiation, with the dynamic
-    shared memory each launch asks for. Raises on a spill at D = 64."""
+    """Phase 2's report of the flash kernels from nvcc's -Xptxas -v:
+    registers and spills of each tensor-core instantiation, with the
+    dynamic shared memory each launch asks for, and of the float32 ones at
+    D = 256. Raises on a spill at D = 64 and on any at D = 256, where the
+    bfloat16 blocks each compute one half of the output columns and the
+    float32 K2 and K3 take 32-row query tiles so as to fit."""
     from paddle_tpu_torch.ops.flash_attention import _bind
     lib = kernels.load("flash_attention")
     _bind(lib)
@@ -675,27 +684,28 @@ def _tc_build_report(kernels):
         log("  (flash_attention was built by an earlier run: no ptxas report)")
         return
     props = _ptxas_props(kernels.BUILD_LOGS["flash_attention"])
-    for which, tag in ((0, "flash_fwd_tc"), (1, "flash_dq_tc"),
-                       (2, "flash_dkv_tc")):
-        for dh in (32, 64, 128):
-            name = next((n for n in props if f"{tag}_kernelILi{dh}E" in n),
-                        None)
+    for which, tag, bf16 in ((0, "flash_fwd_tc", 1), (1, "flash_dq_tc", 1),
+                             (2, "flash_dkv_tc", 1), (0, "flash_fwd", 0),
+                             (1, "flash_dq", 0), (2, "flash_dkv", 0)):
+        for dh in ((32, 64, 128, 256) if bf16 else (256,)):
+            name = next((n for n in props
+                         if f"{tag}_kernelILi{dh}E" in n), None)
             pr = props.get(name, {})
             log(f"  [{tag} D={dh}] registers {pr.get('regs')}, spill bytes "
                 f"{pr.get('spill')}, dynamic shared memory "
-                f"{lib.ptt_flash_smem_bytes(which, 1, dh)} bytes")
-            if dh == 64:
-                assert name is not None, f"no ptxas report for {tag} D=64"
-                assert pr.get("spill") == 0, f"{tag} D=64 spills: {pr}"
+                f"{lib.ptt_flash_smem_bytes(which, bf16, dh)} bytes")
+            if dh in (64, 256):
+                assert name is not None, f"no ptxas report for {tag} D={dh}"
+                assert pr.get("spill") == 0, f"{tag} D={dh} spills: {pr}"
 
 
 def _recurrent_build_report(kernels):
-    """Phase 2's report of the recurrent kernels K5 (lstm_seq_kernel<UG>,
-    UG units a column group) and K6 (gru_seq_kernel<U, w through L2>):
-    registers and spills per instantiation from nvcc's -Xptxas -v, and the
-    plan (units, blocks, where w lives, dynamic shared memory) at the
-    paths' shapes and the large hidden sizes. Raises on a spill of K5 at
-    UG = 4, the stacked LSTM's."""
+    """Phase 2's report of the recurrent kernels K5 (lstm_seq_kernel<UG>)
+    and K6 (gru_seq_kernel<UG>), UG units a column group: registers and
+    spills per instantiation from nvcc's -Xptxas -v, and the plan (units,
+    blocks, where w lives, dynamic shared memory) at the paths' shapes and
+    the large hidden sizes. Raises on a spill of either at UG = 4, the
+    stacked LSTM's and the NMT encoder's."""
     import torch
     from paddle_tpu_torch.fusion.recurrent import recurrent_plan
     dev = torch.device("cuda", 0)
@@ -703,20 +713,23 @@ def _recurrent_build_report(kernels):
         log("  (recurrent was built by an earlier run: no ptxas report)")
     else:
         props = _ptxas_props(kernels.BUILD_LOGS["recurrent"])
-        for tag in ("lstm_seq_kernelILi1E", "lstm_seq_kernelILi2E",
-                    "lstm_seq_kernelILi4E", "gru_seq_kernelILi4ELb0E",
-                    "gru_seq_kernelILi8ELb0E", "gru_seq_kernelILi8ELb1E"):
-            name = next((n for n in props if tag in n), None)
-            pr = props.get(name, {})
-            log(f"  [{tag}] registers {pr.get('regs')}, spill bytes "
-                f"{pr.get('spill')}")
-            if tag == "lstm_seq_kernelILi4E":
-                assert name is not None, "no ptxas report for lstm_seq UG=4"
-                assert pr.get("spill") == 0, f"lstm_seq UG=4 spills: {pr}"
+        for kind in ("lstm", "gru"):
+            for ug in (1, 2, 4):
+                tag = f"{kind}_seq_kernelILi{ug}E"
+                name = next((n for n in props if tag in n), None)
+                pr = props.get(name, {})
+                log(f"  [{tag}] registers {pr.get('regs')}, spill bytes "
+                    f"{pr.get('spill')}")
+                if ug == 4:
+                    assert name is not None, \
+                        f"no ptxas report for {kind}_seq UG=4"
+                    assert pr.get("spill") == 0, \
+                        f"{kind}_seq UG=4 spills: {pr}"
     for kind, b, h in (("lstm", LSTM["batch"], LSTM["hid_dim"]),
                        ("lstm", 8, 1100), ("lstm", 4, 2048),
                        ("gru", NMT["batch"], NMT["hidden_dim"]),
-                       ("gru", 8, 1100)):
+                       ("gru", 80, NMT["hidden_dim"]), ("gru", 8, 1100),
+                       ("gru", 4, 2048)):
         p = recurrent_plan(kind, b, h, dev)
         where = "through L2" if p["stream_w"] else "in shared memory"
         log(f"  [{kind}_seq B={b} H={h}] {p['blocks']} blocks of "
@@ -725,18 +738,100 @@ def _recurrent_build_report(kernels):
             f"bytes")
 
 
+def _time_flash(make, b, h, t, d, rates):
+    """K1, K2 and K3 timed at [b, h, t, d] in bfloat16, causal, with the
+    plain versions and the library's yardstick (SDPA's forward; for the
+    backward kernels SDPA's backward for all three: its captured forward
+    and backward less its forward), over rotating input sets that exceed
+    the L2 three times over. Returns {kernel name: {"ms", "plain_ms",
+    "bound_ms", "bound_by", "library_ms"}}."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain, flash_delta,
+        flash_fwd_cuda, flash_fwd_plain)
+    bf16 = torch.bfloat16
+    scale = d ** -0.5
+    set_bytes = 4 * b * h * t * d * 2
+    n_sets = max(4, math.ceil(3 * 50e6 / set_bytes))
+    sets = []
+    for _ in range(n_sets):
+        q, k, v, do = make(b, h, t, t, d, bf16)
+        o, lse = flash_fwd_cuda(q, k, v, scale, True)
+        sets.append({"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse,
+                     "delta": flash_delta(o, do)})
+    for st in sets:      # SDPA's backward differentiates leaf copies
+        st.update({n + "_leaf": st[n].detach().clone().requires_grad_()
+                   for n in ("q", "k", "v")})
+
+    def sdpa_fwd_bwd(st):
+        leaves = (st["q_leaf"], st["k_leaf"], st["v_leaf"])
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           scale=scale)
+        torch.autograd.grad(o, leaves, st["do"])
+
+    times = time_in_turns({
+        "fwd": lambda s: flash_fwd_cuda(s["q"], s["k"], s["v"], scale, True),
+        "fwd_plain": lambda s: flash_fwd_plain(s["q"], s["k"], s["v"],
+                                               scale, True),
+        "fwd_lib": lambda s: F.scaled_dot_product_attention(
+            s["q"], s["k"], s["v"], is_causal=True, scale=scale),
+        "dq": lambda s: flash_bwd_dq_cuda(s["q"], s["k"], s["v"], s["do"],
+                                          s["lse"], s["delta"], scale, True),
+        "dkv": lambda s: flash_bwd_dkv_cuda(s["q"], s["k"], s["v"], s["do"],
+                                            s["lse"], s["delta"], scale,
+                                            True),
+        "bwd_plain": lambda s: flash_bwd_plain(
+            s["q"], s["k"], s["v"], None, s["lse"], s["do"], scale, True,
+            delta=s["delta"]),
+        "fwd_bwd_lib": sdpa_fwd_bwd,
+    }, sets, reps=20)
+    lib_bwd = times["fwd_bwd_lib"] - times["fwd_lib"]
+    mem_rate, _, tc_rate = rates
+    tile = b * h * t * d * 2            # one [B,H,T,D] bf16 tensor
+    rows = b * h * t * 4                # one [B,H,T] float32 vector
+    causal_pairs = b * h * t * (t + 1) / 2
+    work = {   # bytes: inputs read once, outputs written once; causal flops
+        "flash_fwd": (3 * tile + tile + rows, 4 * causal_pairs * d),
+        "flash_bwd_dq": (4 * tile + 2 * rows + tile, 6 * causal_pairs * d),
+        "flash_bwd_dkv": (4 * tile + 2 * rows + 2 * tile,
+                          8 * causal_pairs * d),
+    }
+    kernel_ms = {"flash_fwd": times["fwd"], "flash_bwd_dq": times["dq"],
+                 "flash_bwd_dkv": times["dkv"]}
+    plain_ms = {"flash_fwd": times["fwd_plain"],
+                "flash_bwd_dq": times["bwd_plain"],
+                "flash_bwd_dkv": times["bwd_plain"]}
+    library_ms = {"flash_fwd": times["fwd_lib"], "flash_bwd_dq": lib_bwd,
+                  "flash_bwd_dkv": lib_bwd}
+    out = {}
+    for kname, (nbytes, flops) in work.items():
+        t_bytes, t_ops = nbytes / mem_rate, flops / tc_rate
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"  {kname} timing B={b} H={h} T={t} D={d} bf16 causal, "
+            f"{n_sets} input sets: kernel {kernel_ms[kname] * 1e3:.1f} us, "
+            f"plain {plain_ms[kname] * 1e3:.1f} us, library "
+            f"{library_ms[kname] * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} "
+            f"us ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            f"GFLOP at {tc_rate / 1e12:.0f} TFLOP/s bf16)")
+        out[kname] = {"ms": kernel_ms[kname], "plain_ms": plain_ms[kname],
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms[kname]}
+    return out
+
+
 def check_flash(ptt, rates):
     """Phase 3 for the flash-attention kernels K1 (forward), K2 (dQ) and
     K3 (dK/dV): each against its plain version on the card over the LM's
-    shape and the edge cases in both types (head dims 16, 40 and 96 run
-    zero-padded to 32, 64 and 128 inside the wrappers), then timed at the
-    LM shape.
+    shape and the edge cases in both types (head dims 16, 40, 96 and 160
+    run zero-padded to 32, 64, 128 and 256 inside the wrappers), then
+    timed at the LM shape and at head dim 256.
     bfloat16 (the tensor-core kernels) is held to the per-term bounds of
     ops/flash_attention.py (`flash_fwd_bound`, `flash_bwd_dq_bound`,
     `flash_bwd_dkv_bound`), float32 to 1e-5 max(1, |ref|) (`flash_check`).
     Returns {kernel name: JSON fields (all but launches)}."""
     import torch
-    import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv_bound, flash_bwd_dkv_cuda, flash_bwd_dq_bound,
         flash_bwd_dq_cuda, flash_bwd_plain, flash_check, flash_delta,
@@ -772,6 +867,8 @@ def check_flash(ptt, rates):
         ("d16", 2, 4, 128, 128, 16, True, None),    # padded to 32
         ("d40", 2, 2, 200, 200, 40, True, None),    # padded to 64
         ("d96", 2, 4, 256, 160, 96, False, None),   # padded to 128
+        ("d160", 2, 4, 256, 256, 160, True, None),  # padded to 256
+        ("d256", 2, 4, 256, 200, 256, True, None),
         ("no_key", 2, 2, 160, 96, d, True, None),   # rows 0-63 causal
         ("no_key_seg", 2, 2, 96, 96, d, False, (q_ids, kv_ids)),
     ]
@@ -847,72 +944,12 @@ def check_flash(ptt, rates):
                     slack)
             del slack
 
-    # timing at the LM's shape and type (bf16, causal), rotating input
-    # sets that exceed the L2 three times over
-    set_bytes = 4 * b * h * t * d * 2
-    n_sets = max(4, math.ceil(3 * 50e6 / set_bytes))
-    sets = []
-    for _ in range(n_sets):
-        q, k, v, do = make(b, h, t, t, d, bf16)
-        o, lse = flash_fwd_cuda(q, k, v, d ** -0.5, True)
-        sets.append({"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse,
-                     "delta": flash_delta(o, do)})
-    scale = d ** -0.5
-    for st in sets:      # SDPA's backward differentiates leaf copies
-        st.update({n + "_leaf": st[n].detach().clone().requires_grad_()
-                   for n in ("q", "k", "v")})
-
-    def sdpa_fwd_bwd(st):
-        leaves = (st["q_leaf"], st["k_leaf"], st["v_leaf"])
-        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                           scale=scale)
-        torch.autograd.grad(o, leaves, st["do"])
-
-    times = time_in_turns({
-        "fwd": lambda s: flash_fwd_cuda(s["q"], s["k"], s["v"], scale, True),
-        "fwd_plain": lambda s: flash_fwd_plain(s["q"], s["k"], s["v"],
-                                               scale, True),
-        "fwd_lib": lambda s: F.scaled_dot_product_attention(
-            s["q"], s["k"], s["v"], is_causal=True, scale=scale),
-        "dq": lambda s: flash_bwd_dq_cuda(s["q"], s["k"], s["v"], s["do"],
-                                          s["lse"], s["delta"], scale, True),
-        "dkv": lambda s: flash_bwd_dkv_cuda(s["q"], s["k"], s["v"], s["do"],
-                                            s["lse"], s["delta"], scale,
-                                            True),
-        "bwd_plain": lambda s: flash_bwd_plain(
-            s["q"], s["k"], s["v"], None, s["lse"], s["do"], scale, True,
-            delta=s["delta"]),
-        "fwd_bwd_lib": sdpa_fwd_bwd,
-    }, sets, reps=20)
-    lib_bwd = times["fwd_bwd_lib"] - times["fwd_lib"]
-    mem_rate, _, tc_rate = rates
-    tile = b * h * t * d * 2            # one [B,H,T,D] bf16 tensor
-    rows = b * h * t * 4                # one [B,H,T] float32 vector
-    causal_pairs = b * h * t * (t + 1) / 2
-    work = {   # bytes: inputs read once, outputs written once; causal flops
-        "flash_fwd": (3 * tile + tile + rows, 4 * causal_pairs * d),
-        "flash_bwd_dq": (4 * tile + 2 * rows + tile, 6 * causal_pairs * d),
-        "flash_bwd_dkv": (4 * tile + 2 * rows + 2 * tile,
-                          8 * causal_pairs * d),
-    }
-    kernel_ms = {"flash_fwd": times["fwd"], "flash_bwd_dq": times["dq"],
-                 "flash_bwd_dkv": times["dkv"]}
-    plain_ms = {"flash_fwd": times["fwd_plain"],
-                "flash_bwd_dq": times["bwd_plain"],
-                "flash_bwd_dkv": times["bwd_plain"]}
-    library_ms = {"flash_fwd": times["fwd_lib"], "flash_bwd_dq": lib_bwd,
-                  "flash_bwd_dkv": lib_bwd}
+    # timing at the LM's shape and type (bf16, causal), and at head dim
+    # 256 (B 2, H 8, T 512), which no path of the port reaches yet
+    timed = _time_flash(make, b, h, t, d, rates)
+    timed_256 = _time_flash(make, 2, 8, t, 256, rates)
     out = {}
-    for kname, (nbytes, flops) in work.items():
-        t_bytes, t_ops = nbytes / mem_rate, flops / tc_rate
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"  {kname} timing B={b} H={h} T={t} D={d} bf16 causal, "
-            f"{n_sets} input sets: kernel {kernel_ms[kname] * 1e3:.1f} us, "
-            f"plain {plain_ms[kname] * 1e3:.1f} us, library "
-            f"{library_ms[kname] * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} "
-            f"us ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
-            f"GFLOP at {tc_rate / 1e12:.0f} TFLOP/s bf16)")
+    for kname, tm in timed.items():
         out[kname] = {"max_abs_err": errs[("lm", f32)][kname]["err"],
                       "max_abs_err_bf16": errs[("lm", bf16)][kname]["err"],
                       "err_over_tolerance_bf16":
@@ -923,9 +960,14 @@ def check_flash(ptt, rates):
                       "control_err_over_tolerance": {
                           c: r[kname] for c, r in controls.items()
                           if kname in r},
-                      "ms": kernel_ms[kname], "plain_ms": plain_ms[kname],
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms[kname]}
+                      **tm,
+                      "d256": {**timed_256[kname],
+                               "max_abs_err_bf16":
+                                   errs[("d256", bf16)][kname]["err"],
+                               "err_over_tolerance_bf16":
+                                   errs[("d256", bf16)][kname]["ratio"],
+                               "max_abs_err":
+                                   errs[("d256", f32)][kname]["err"]}}
     log("  (plain_ms of flash_bwd_dq and flash_bwd_dkv is the one plain "
         "backward that computes dq, dk and dv; library_ms of both is SDPA's "
         "backward for all three: SDPA forward+backward less its forward)")

@@ -47,7 +47,8 @@
 // Layouts (the wrapper makes them so): q, o, dO, dq [B*H, Tq, D], k, v,
 // dk, dv [B*H, Tk, D], all contiguous and of one type (float32 or
 // bfloat16); lse, delta [B*H, Tq] float32; segment ids [B, Tq] and
-// [B, Tk] int32 or null. D is 32, 64 or 128.
+// [B, Tk] int32 or null. D is 32, 64, 128 or 256 (the wrapper zero-pads
+// any other D up to 256 to the next of those).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -285,56 +286,66 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
 // ---------------------------------------------------------------------------
 // K2: dQ (float32; bfloat16 takes flash_dq_tc_kernel below). One block per
-// (q tile, batch*head); key tiles stream through.
+// (q tile, batch*head); key tiles stream through. The q tile is f32_bq
+// rows: 64, or 32 at D = 256, where 64 rows of Q, dO, K and V exceed the
+// shared memory a block may have; thread (ty, tx) owns rows RQ*ty ..
+// RQ*ty + RQ-1.
 // ---------------------------------------------------------------------------
+template <int D>
+__host__ __device__ constexpr int f32_bq() {
+  return D <= 128 ? kBQ : 32;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
+  constexpr int BQ = f32_bq<D>();
+  constexpr int RQ = BQ / 16;
   extern __shared__ float smem[];
-  float* Qs = smem;                // [kBQ][LD]
-  float* Gs = Qs + kBQ * LD;       // dO [kBQ][LD]
-  float* Ks = Gs + kBQ * LD;       // [kBK][LD]
+  float* Qs = smem;                // [BQ][LD]
+  float* Gs = Qs + BQ * LD;        // dO [BQ][LD]
+  float* Ks = Gs + BQ * LD;        // [kBK][LD]
   float* Vs = Ks + kBK * LD;       // [kBK][LD]
-  float* Ss = Vs + kBK * LD;       // dS [kBQ][kPS]
-  float* lse_s = Ss + kBQ * kPS;   // [kBQ]
-  float* dl_s = lse_s + kBQ;       // [kBQ]
-  int* qid = reinterpret_cast<int*>(dl_s + kBQ);   // [kBQ]
-  int* kid = qid + kBQ;                            // [kBK]
+  float* Ss = Vs + kBK * LD;       // dS [BQ][kPS]
+  float* lse_s = Ss + BQ * kPS;    // [BQ]
+  float* dl_s = lse_s + BQ;        // [BQ]
+  int* qid = reinterpret_cast<int*>(dl_s + BQ);    // [BQ]
+  int* kid = qid + BQ;                             // [kBK]
 
   const int Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
   const int qb = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y, b = bh / a.H;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
+  const int q0 = qb * BQ, nqr = min(BQ, Tq - q0);
   const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
   const float* k = static_cast<const float*>(a.k) + koff;
   const float* v = static_cast<const float*>(a.v) + koff;
   const bool seg = a.qseg != nullptr;
 
-  load_tile<D>(Qs, LD, static_cast<const float*>(a.q) + qoff, q0, Tq, kBQ);
-  load_tile<D>(Gs, LD, static_cast<const float*>(a.dout) + qoff, q0, Tq, kBQ);
-  load_rows(lse_s, a.lse_in + (long long)bh * Tq, q0, Tq, kBQ);
-  load_rows(dl_s, a.delta + (long long)bh * Tq, q0, Tq, kBQ);
-  if (seg) load_ids(qid, a.qseg + (long long)b * Tq, q0, Tq, kBQ);
+  load_tile<D>(Qs, LD, static_cast<const float*>(a.q) + qoff, q0, Tq, BQ);
+  load_tile<D>(Gs, LD, static_cast<const float*>(a.dout) + qoff, q0, Tq, BQ);
+  load_rows(lse_s, a.lse_in + (long long)bh * Tq, q0, Tq, BQ);
+  load_rows(dl_s, a.delta + (long long)bh * Tq, q0, Tq, BQ);
+  if (seg) load_ids(qid, a.qseg + (long long)b * Tq, q0, Tq, BQ);
   __syncthreads();
   int qlo = 0, qhi = 0;
-  int myq[4] = {0, 0, 0, 0};
-  float lse[4], dl[4];
+  int myq[RQ] = {};
+  float lse[RQ], dl[RQ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lse[i] = lse_s[ty * 4 + i];
-    dl[i] = dl_s[ty * 4 + i];
+  for (int i = 0; i < RQ; ++i) {
+    lse[i] = lse_s[ty * RQ + i];
+    dl[i] = dl_s[ty * RQ + i];
   }
   if (seg) {
     id_range(qid, nqr, qlo, qhi);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) myq[i] = qid[ty * 4 + i];
+    for (int i = 0; i < RQ; ++i) myq[i] = qid[ty * RQ + i];
   }
 
-  float acc[4][NJ];
+  float acc[RQ][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RQ; ++i)
 #pragma unroll
     for (int c = 0; c < NJ; ++c) acc[i][c] = 0.f;
 
@@ -353,18 +364,18 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
     load_tile<D>(Vs, LD, v, k0, Tk, kBK);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RQ][4], dp[RQ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qa[4], ga[4], kc[4], vc[4];
+      float qa[RQ], ga[RQ], kc[4], vc[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = Qs[(ty * 4 + i) * LD + d];
-        ga[i] = Gs[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < RQ; ++i) {
+        qa[i] = Qs[(ty * RQ + i) * LD + d];
+        ga[i] = Gs[(ty * RQ + i) * LD + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -372,7 +383,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
         vc[j] = Vs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(qa[i], kc[j], s[i][j]);
@@ -381,8 +392,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
+    for (int i = 0; i < RQ; ++i) {
+      const int qp = q0 + ty * RQ + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
@@ -390,7 +401,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
         if (seg) ok = ok && myq[i] == kid[tx + 16 * j];
         if (a.causal) ok = ok && qp + off >= kp;
         const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
-        Ss[(ty * 4 + i) * kPS + tx + 16 * j] =
+        Ss[(ty * RQ + i) * kPS + tx + 16 * j] =
             p * (dp[i][j] - dl[i]) * a.scale;
       }
     }
@@ -398,13 +409,13 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 
 #pragma unroll 8
     for (int kk = 0; kk < kBK; ++kk) {
-      float sv[4], kv[NJ];
+      float sv[RQ], kv[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = Ss[(ty * 4 + i) * kPS + kk];
+      for (int i = 0; i < RQ; ++i) sv[i] = Ss[(ty * RQ + i) * kPS + kk];
 #pragma unroll
       for (int c = 0; c < NJ; ++c) kv[c] = Ks[kk * LD + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int c = 0; c < NJ; ++c) acc[i][c] = fmaf(sv[i], kv[c], acc[i][c]);
     }
@@ -412,8 +423,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 
   float* dq = static_cast<float*>(a.dq) + qoff;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
+  for (int i = 0; i < RQ; ++i) {
+    const int qp = q0 + ty * RQ + i;
     if (qp >= Tq) continue;
 #pragma unroll
     for (int c = 0; c < NJ; ++c)
@@ -422,24 +433,26 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// K3: dK and dV. One block per (k tile, batch*head); query tiles stream
-// through.
+// K3: dK and dV. One block per (k tile, batch*head); query tiles of f32_bq
+// rows stream through (32 at D = 256, as K2).
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
+  constexpr int BQ = f32_bq<D>();
+  constexpr int RQ = BQ / 16;
   extern __shared__ float smem[];
   float* Ks = smem;                // [kBK][LD]
   float* Vs = Ks + kBK * LD;       // [kBK][LD]
-  float* Qs = Vs + kBK * LD;       // [kBQ][LD]
-  float* Gs = Qs + kBQ * LD;       // dO [kBQ][LD]
-  float* Ps = Gs + kBQ * LD;       // P [kBQ][kPS]
-  float* Ss = Ps + kBQ * kPS;      // dS [kBQ][kPS]
-  float* lse_s = Ss + kBQ * kPS;   // [kBQ]
-  float* dl_s = lse_s + kBQ;       // [kBQ]
-  int* qid = reinterpret_cast<int*>(dl_s + kBQ);   // [kBQ]
-  int* kid = qid + kBQ;                            // [kBK]
+  float* Qs = Vs + kBK * LD;       // [BQ][LD]
+  float* Gs = Qs + BQ * LD;        // dO [BQ][LD]
+  float* Ps = Gs + BQ * LD;        // P [BQ][kPS]
+  float* Ss = Ps + BQ * kPS;       // dS [BQ][kPS]
+  float* lse_s = Ss + BQ * kPS;    // [BQ]
+  float* dl_s = lse_s + BQ;        // [BQ]
+  int* qid = reinterpret_cast<int*>(dl_s + BQ);    // [BQ]
+  int* kid = qid + BQ;                             // [kBK]
 
   const int Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
   const int kt = blockIdx.x;       // causal: low key tiles see the most rows
@@ -469,38 +482,38 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < NJ; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  const int n_qt = (Tq + kBQ - 1) / kBQ;
+  const int n_qt = (Tq + BQ - 1) / BQ;
   for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kBQ, nqr = min(kBQ, Tq - q0);
+    const int q0 = qt * BQ, nqr = min(BQ, Tq - q0);
     // causal: the tile's last row must see this tile's first key
     if (a.causal && q0 + nqr - 1 + off < k0) continue;
     __syncthreads();
     if (seg) {
-      load_ids(qid, a.qseg + (long long)b * Tq, q0, Tq, kBQ);
+      load_ids(qid, a.qseg + (long long)b * Tq, q0, Tq, BQ);
       __syncthreads();
       int qlo, qhi;
       id_range(qid, nqr, qlo, qhi);
       if (qhi < klo || qlo > khi) continue;
     }
-    load_tile<D>(Qs, LD, q, q0, Tq, kBQ);
-    load_tile<D>(Gs, LD, g, q0, Tq, kBQ);
-    load_rows(lse_s, a.lse_in + (long long)bh * Tq, q0, Tq, kBQ);
-    load_rows(dl_s, a.delta + (long long)bh * Tq, q0, Tq, kBQ);
+    load_tile<D>(Qs, LD, q, q0, Tq, BQ);
+    load_tile<D>(Gs, LD, g, q0, Tq, BQ);
+    load_rows(lse_s, a.lse_in + (long long)bh * Tq, q0, Tq, BQ);
+    load_rows(dl_s, a.delta + (long long)bh * Tq, q0, Tq, BQ);
     __syncthreads();
 
-    // rows: queries ty*4+i; columns: keys tx+16j
-    float s[4][4], dp[4][4];
+    // rows: queries ty*RQ+i; columns: keys tx+16j
+    float s[RQ][4], dp[RQ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qa[4], ga[4], kc[4], vc[4];
+      float qa[RQ], ga[RQ], kc[4], vc[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = Qs[(ty * 4 + i) * LD + d];
-        ga[i] = Gs[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < RQ; ++i) {
+        qa[i] = Qs[(ty * RQ + i) * LD + d];
+        ga[i] = Gs[(ty * RQ + i) * LD + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -508,7 +521,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         vc[j] = Vs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(qa[i], kc[j], s[i][j]);
@@ -517,8 +530,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, qp = q0 + r;
+    for (int i = 0; i < RQ; ++i) {
+      const int r = ty * RQ + i, qp = q0 + r;
       const int qs = seg ? qid[r] : 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -536,7 +549,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 
     // dV[kr] += sum_q P[q][kr] dO[q], dK[kr] += sum_q dS[q][kr] Q[q]
 #pragma unroll 4
-    for (int qq = 0; qq < kBQ; ++qq) {
+    for (int qq = 0; qq < BQ; ++qq) {
       float pv[4], sv[4], gv[NJ], qv[NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -694,18 +707,41 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * D + pc * 8;
 }
 
-// Rows [row0, row0 + 64) of a row-major [total, D] bfloat16 matrix into a
-// swizzled tile with cp.async; rows past `total` are zeros.
-template <int D>
+// Rows [row0, row0 + 64) of the first W columns of a row-major [total, LD]
+// bfloat16 matrix into a swizzled [64][W] tile with cp.async; rows past
+// `total` are zeros.
+template <int W, int LD = W>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
                                                 int row0, int total) {
-  constexpr int kCols = D / 8;
+  constexpr int kCols = W / 8;
   for (int e = threadIdx.x; e < 64 * kCols; e += kTcThreads) {
     const int r = e / kCols, c = e % kCols;
     const int g = row0 + r;
-    const bf16* from = src + (long long)min(g, total - 1) * D + c * 8;
-    cp_async16(smem_u32(dst + swz<D>(r, c)), from, g < total ? 16 : 0);
+    const bf16* from = src + (long long)min(g, total - 1) * LD + c * 8;
+    cp_async16(smem_u32(dst + swz<W>(r, c)), from, g < total ? 16 : 0);
   }
+}
+
+// Head dim 256. Held whole, a block's outputs and operand fragments pass
+// the 255 registers a thread may have (K1: Q's fragments and O, 64 + 128,
+// plus the scores; K2: Q's and dO's fragments and dQ, 128 + 128; K3: dK and
+// dV, 2 x 128), so at D = 256 each bfloat16 block computes the output
+// columns of one half of D (a third grid dimension of 2): the scores (and
+// dP) over all of D, recomputed by both halves, and O, dQ or dK and dV over
+// its 128 columns only; Q's and dO's A fragments are re-read from shared
+// memory with ldmatrix for each product instead of held. DH is the output
+// columns of a block.
+template <int D>
+__host__ __device__ constexpr int out_cols() {
+  return D <= 128 ? D : 128;
+}
+
+__device__ __forceinline__ void copy4(const uint32_t (&s)[4],
+                                      uint32_t (&d)[4]) {
+  d[0] = s[0];
+  d[1] = s[1];
+  d[2] = s[2];
+  d[3] = s[3];
 }
 
 // Element i (0 <= i < 64) of a 64-long run of 32-bit values starting at
@@ -769,30 +805,35 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// K1, bfloat16. Grid (batch*head, q tile) with the last (longest causal)
-// q tiles launched first, so the tail wave is made of short blocks.
-// Shared memory: Q [64][D], then two stages of K [64][D] and V [64][D].
+// K1, bfloat16. Grid (batch*head, q tile, half of D) with the last
+// (longest causal) q tiles launched first, so the tail wave is made of
+// short blocks. Shared memory: Q [64][D], then two stages of K [64][D] and
+// of V's DH columns of the block's half [64][DH].
 template <int D>
 __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
+  constexpr int DH = out_cols<D>();   // output columns of a block
+  constexpr bool kHoldQ = D <= 128;   // Q's fragments in registers
   constexpr int KC = D / 16;    // k chunks of Q . K^T
   constexpr int KB = kBK;       // keys per tile
   constexpr int S = kRing;      // tiles in the cp.async ring
   constexpr int NS = KB / 8;    // n-tiles of a score tile
-  constexpr int NO = D / 8;     // n-tiles of the output
+  constexpr int NO = DH / 8;    // n-tiles of the block's output
   extern __shared__ __align__(128) unsigned char smem_tc[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
   bf16* Ks = Qs + kBQ * D;       // [S][KB][D]
-  bf16* Vs = Ks + S * KB * D;    // [S][KB][D]
+  bf16* Vs = Ks + S * KB * D;    // [S][KB][DH]
 
   const int Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
   const int bh = blockIdx.x, b = bh / a.H;
   const int qb = gridDim.y - 1 - blockIdx.y;
+  const int half = D > 128 ? blockIdx.z : 0;   // columns half * DH ..
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
   const bf16* q = static_cast<const bf16*>(a.q) + (long long)bh * Tq * D;
   const bf16* k = static_cast<const bf16*>(a.k) + (long long)bh * Tk * D;
-  const bf16* v = static_cast<const bf16*>(a.v) + (long long)bh * Tk * D;
+  const bf16* v =
+      static_cast<const bf16*>(a.v) + (long long)bh * Tk * D + half * DH;
   const bool seg = a.qseg != nullptr;
   const int* qseg = seg ? a.qseg + (long long)b * Tq : nullptr;
   const int* kvseg = seg ? a.kvseg + (long long)b * Tk : nullptr;
@@ -831,7 +872,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
   // next one to load, S - 1 tiles ahead of the one being multiplied
   auto load_kv = [&](int slot, int tile) {
     load_tile_async<D>(Ks + slot * KB * D, k, tile * KB, Tk);
-    load_tile_async<D>(Vs + slot * KB * D, v, tile * KB, Tk);
+    load_tile_async<DH, D>(Vs + slot * KB * DH, v, tile * KB, Tk);
   };
   int kt = next_live(0), ahead = kt;
 #pragma unroll
@@ -845,10 +886,13 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
   cp_async_wait<S - 1>();   // Q has landed
   __syncthreads();
   const uint32_t aoff = a_off<D>(lane), boff = b_off<D>(lane);
-  uint32_t qf[KC][4];
+  const uint32_t voff = a_off<DH>(lane);
+  uint32_t qf[KC][4];   // (unused, so not allocated, where !kHoldQ)
+  if constexpr (kHoldQ) {
 #pragma unroll
-  for (int kk = 0; kk < KC; ++kk)
-    ldsm_x4(frag_at<D>(smem_u32(Qs), warp * 16, aoff, kk), qf[kk]);
+    for (int kk = 0; kk < KC; ++kk)
+      ldsm_x4(frag_at<D>(smem_u32(Qs), warp * 16, aoff, kk), qf[kk]);
+  }
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float o[NO][4];
@@ -867,7 +911,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
     cp_async_wait<S - 1>();   // this tile's K and V have landed
     __syncthreads();
     const uint32_t Kt = smem_u32(Ks + slot * KB * D);
-    const uint32_t Vt = smem_u32(Vs + slot * KB * D);
+    const uint32_t Vt = smem_u32(Vs + slot * KB * DH);
     const int k0 = kt * KB;
 
     float s[NS][4];
@@ -875,15 +919,23 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk)
+    // (fully unrolled at D = 256, ptxas hoists the 16 chunks' fragment
+    // loads and spills; 4 at a time it does not)
+#pragma unroll(kHoldQ ? KC : 4)
+    for (int kk = 0; kk < KC; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kHoldQ)
+        copy4(qf[kk], qa);
+      else
+        ldsm_x4(frag_at<D>(smem_u32(Qs), warp * 16, aoff, kk), qa);
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t bk[4];
         ldsm_x4(frag_at<D>(Kt, np * 16, boff, kk), bk);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
       }
+    }
 
     // masks, only on the tiles that need them (a block-uniform test)
     const bool edge =
@@ -941,7 +993,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
 #pragma unroll
       for (int dd = 0; dd < NO / 2; ++dd) {
         uint32_t bv[4];
-        ldsm_x4_t(frag_at<D>(Vt, kk * 16, aoff, dd), bv);
+        ldsm_x4_t(frag_at<DH>(Vt, kk * 16, voff, dd), bv);
         mma_bf16(o[2 * dd], pa, bv[0], bv[1]);
         mma_bf16(o[2 * dd + 1], pa, bv[2], bv[3]);
       }
@@ -952,7 +1004,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
   }
   cp_async_wait<0>();
 
-  bf16* out = static_cast<bf16*>(a.out) + (long long)bh * Tq * D;
+  bf16* out =
+      static_cast<bf16*>(a.out) + (long long)bh * Tq * D + half * DH;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qp = q0 + r0 + 8 * i;
@@ -962,12 +1015,13 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
     for (int j = 0; j < NO; ++j)
       *reinterpret_cast<uint32_t*>(out + (long long)qp * D + 8 * j + 2 * t) =
           pack_bf16(o[j][2 * i] / den, o[j][2 * i + 1] / den);
-    if (a.lse_out != nullptr && t == 0)
+    if (a.lse_out != nullptr && t == 0 && half == 0)
       a.lse_out[(long long)bh * Tq + qp] = m[i] + logf(den);
   }
 }
 
-// K3, bfloat16. Grid (batch*head, key tile); each warp owns 16 keys and
+// K3, bfloat16. Grid (batch*head, key tile, half of D); each warp owns 16
+// keys and
 // works transposed (keys as rows), so that every intermediate is a C
 // fragment that becomes the next product's A fragment:
 //   S^T = K Q^T, P^T = exp(S^T scale - lse) where visible, dV += P^T dO,
@@ -978,12 +1032,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
 // thread at D = 64); K's and V's A fragments are read from shared memory
 // for each chunk rather than held, and the chunk's products run in two
 // halves (S, P, dV, then dP, dS, dK), so that a thread needs at most 168
-// registers and three blocks fit on an SM.
+// registers and three blocks fit on an SM. At D = 256 a block computes
+// the DH columns of dK and dV of its half of D (out_cols).
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
     flash_dkv_tc_kernel(Args a) {
+  constexpr int DH = out_cols<D>();   // output columns of a block
   constexpr int KC = D / 16;          // k chunks over D
-  constexpr int NO = D / 8;           // n-tiles of dK, dV
+  constexpr int NO = DH / 8;          // n-tiles of the block's dK, dV
+  constexpr int HC = DH / 16;         // 16-column chunks of a half
   constexpr int QC = 16;              // queries per chunk
   constexpr int NQ = QC / 8;          // n-tiles of a chunk of S^T
   extern __shared__ __align__(128) unsigned char smem_tc[];
@@ -998,6 +1055,7 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
   const int Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
   const int bh = blockIdx.x, b = bh / a.H;
   const int kt = blockIdx.y;   // causal: low key tiles see the most rows
+  const int half = D > 128 ? blockIdx.z : 0;   // columns half * DH ..
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int k0 = kt * kBK, nkr = min(kBK, Tk - k0);
@@ -1122,7 +1180,8 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
 #pragma unroll
         for (int dd = 0; dd < NO / 2; ++dd) {
           uint32_t bg[4];
-          ldsm_x4_t(frag_at<D>(Gt, qc * QC + kq * 16, aoff, dd), bg);
+          ldsm_x4_t(frag_at<D>(Gt, qc * QC + kq * 16, aoff, half * HC + dd),
+                    bg);
           mma_bf16(dv[2 * dd], pa, bg[0], bg[1]);
           mma_bf16(dv[2 * dd + 1], pa, bg[2], bg[3]);
         }
@@ -1163,7 +1222,8 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
 #pragma unroll
         for (int dd = 0; dd < NO / 2; ++dd) {
           uint32_t bq[4];
-          ldsm_x4_t(frag_at<D>(Qt, qc * QC + kq * 16, aoff, dd), bq);
+          ldsm_x4_t(frag_at<D>(Qt, qc * QC + kq * 16, aoff, half * HC + dd),
+                    bq);
           mma_bf16(dk[2 * dd], sa, bq[0], bq[1]);
           mma_bf16(dk[2 * dd + 1], sa, bq[2], bq[3]);
         }
@@ -1175,7 +1235,7 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
   }
   cp_async_wait<0>();
 
-  const long long koff = (long long)blockIdx.x * Tk * D;
+  const long long koff = (long long)blockIdx.x * Tk * D + half * DH;
   bf16* dko = static_cast<bf16*>(a.dk) + koff;
   bf16* dvo = static_cast<bf16*>(a.dv) + koff;
 #pragma unroll
@@ -1193,8 +1253,8 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
   }
 }
 
-// K2, bfloat16. Grid (batch*head, q tile) with the last (longest causal)
-// q tiles launched first, as K1. Each warp owns 16 query rows; Q and dO of
+// K2, bfloat16. Grid (batch*head, q tile, half of D) with the last
+// (longest causal) q tiles launched first, as K1. Each warp owns 16 query rows; Q and dO of
 // the block's tile come in once and their A fragments stay in registers,
 // with lse and delta of the thread's two rows. K and V tiles of 64 keys
 // stream through a two-slot cp.async ring, and each tile is taken in
@@ -1207,12 +1267,17 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
 // chunk is 16 keys, so that S and dP of a chunk, the Q and dO fragments
 // and dQ fit in 128 registers at D = 64 and four blocks share an SM (32
 // keys a chunk took 168 registers, three blocks an SM, and was slower).
-// Shared memory: Q [64][D], dO [64][D], then two slots of K and V.
+// Shared memory: Q [64][D], dO [64][D], then two slots of K and V. At
+// D = 256 a block computes the DH columns of dQ of its half of D and reads
+// Q's and dO's fragments from shared memory for each chunk (out_cols).
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
     flash_dq_tc_kernel(Args a) {
+  constexpr int DH = out_cols<D>();       // output columns of a block
+  constexpr bool kHold = D <= 128;        // Q's, dO's fragments held
   constexpr int KC = D / 16;              // k chunks of S and dP over D
-  constexpr int NO = D / 8;               // n-tiles of dQ
+  constexpr int NO = DH / 8;              // n-tiles of the block's dQ
+  constexpr int HC = DH / 16;             // 16-column chunks of a half
   constexpr int KB = kBK;                 // keys per tile
   constexpr int KN = 16;                  // keys per chunk
   constexpr int NS = KN / 8;              // n-tiles of a chunk of S, dP
@@ -1225,6 +1290,7 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
   const int Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
   const int bh = blockIdx.x, b = bh / a.H;
   const int qb = gridDim.y - 1 - blockIdx.y;
+  const int half = D > 128 ? blockIdx.z : 0;   // columns half * DH ..
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
@@ -1279,11 +1345,13 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
   cp_async_wait<1>();   // Q and dO have landed
   __syncthreads();
   const uint32_t aoff = a_off<D>(lane), boff = b_off<D>(lane);
-  uint32_t qf[KC][4], gf[KC][4];
+  uint32_t qf[KC][4], gf[KC][4];   // (not allocated where !kHold)
+  if constexpr (kHold) {
 #pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    ldsm_x4(frag_at<D>(smem_u32(Qs), warp * 16, aoff, kk), qf[kk]);
-    ldsm_x4(frag_at<D>(smem_u32(Gs), warp * 16, aoff, kk), gf[kk]);
+    for (int kk = 0; kk < KC; ++kk) {
+      ldsm_x4(frag_at<D>(smem_u32(Qs), warp * 16, aoff, kk), qf[kk]);
+      ldsm_x4(frag_at<D>(smem_u32(Gs), warp * 16, aoff, kk), gf[kk]);
+    }
   }
 
   float dq[NO][4];
@@ -1316,17 +1384,26 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KC; ++kk)
+      for (int kk = 0; kk < KC; ++kk) {
+        uint32_t qa[4], ga[4];
+        if constexpr (kHold) {
+          copy4(qf[kk], qa);
+          copy4(gf[kk], ga);
+        } else {
+          ldsm_x4(frag_at<D>(smem_u32(Qs), warp * 16, aoff, kk), qa);
+          ldsm_x4(frag_at<D>(smem_u32(Gs), warp * 16, aoff, kk), ga);
+        }
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t bk[4], bv[4];
           ldsm_x4(frag_at<D>(Kt, c * KN + np * 16, boff, kk), bk);
           ldsm_x4(frag_at<D>(Vt, c * KN + np * 16, boff, kk), bv);
-          mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-          mma_bf16(dp[2 * np], gf[kk], bv[0], bv[1]);
-          mma_bf16(dp[2 * np + 1], gf[kk], bv[2], bv[3]);
+          mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+          mma_bf16(dp[2 * np], ga, bv[0], bv[1]);
+          mma_bf16(dp[2 * np + 1], ga, bv[2], bv[3]);
         }
+      }
 
       // P where visible, then dS in place on S's fragment
 #pragma unroll
@@ -1355,7 +1432,8 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
 #pragma unroll
         for (int dd = 0; dd < NO / 2; ++dd) {
           uint32_t bk[4];
-          ldsm_x4_t(frag_at<D>(Kt, c * KN + kq * 16, aoff, dd), bk);
+          ldsm_x4_t(frag_at<D>(Kt, c * KN + kq * 16, aoff, half * HC + dd),
+                    bk);
           mma_bf16(dq[2 * dd], sa, bk[0], bk[1]);
           mma_bf16(dq[2 * dd + 1], sa, bk[2], bk[3]);
         }
@@ -1367,7 +1445,7 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
   }
   cp_async_wait<0>();
 
-  bf16* dqo = static_cast<bf16*>(a.dq) + qoff;
+  bf16* dqo = static_cast<bf16*>(a.dq) + qoff + half * DH;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qp = q0 + r0 + 8 * i;
@@ -1388,19 +1466,20 @@ constexpr size_t fwd_smem() {
 }
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * (size_t)(kBQ + kBK) * (D + 1) +
-                          (size_t)kBQ * kPS + 2 * kBQ) +
-         sizeof(int) * (kBQ + kBK);
+  constexpr size_t BQ = f32_bq<D>();
+  return sizeof(float) * (2 * (BQ + kBK) * (D + 1) + BQ * kPS + 2 * BQ) +
+         sizeof(int) * (BQ + kBK);
 }
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * (size_t)(kBQ + kBK) * (D + 1) +
-                          2 * (size_t)kBQ * kPS + 2 * kBQ) +
-         sizeof(int) * (kBQ + kBK);
+  constexpr size_t BQ = f32_bq<D>();
+  return sizeof(float) * (2 * (BQ + kBK) * (D + 1) + 2 * BQ * kPS + 2 * BQ) +
+         sizeof(int) * (BQ + kBK);
 }
 template <int D>
 constexpr size_t fwd_tc_smem() {
-  return sizeof(bf16) * (size_t)(kBQ + 2 * kRing * kBK) * D;
+  return sizeof(bf16) * ((size_t)(kBQ + kRing * kBK) * D +
+                         (size_t)kRing * kBK * out_cols<D>());
 }
 template <int D>
 constexpr size_t dq_tc_smem() {
@@ -1430,20 +1509,22 @@ template <typename T, int D>
 cudaError_t run(int which, const Args& a, int BH, cudaStream_t s) {
   const int nq = (a.Tq + kBQ - 1) / kBQ, nk = (a.Tk + kBK - 1) / kBK;
   if constexpr (std::is_same<T, bf16>::value) {
-    // bfloat16 K1-K3 on the tensor cores, grid (batch*head, tile)
+    // bfloat16 K1-K3 on the tensor cores, grid (batch*head, tile, half)
+    constexpr int NH = D / out_cols<D>();
     if (which == kFwd)
-      return launch(flash_fwd_tc_kernel<D>, dim3(BH, nq), fwd_tc_smem<D>(), s,
-                    a, kTcThreads);
+      return launch(flash_fwd_tc_kernel<D>, dim3(BH, nq, NH),
+                    fwd_tc_smem<D>(), s, a, kTcThreads);
     if (which == kDq)
-      return launch(flash_dq_tc_kernel<D>, dim3(BH, nq), dq_tc_smem<D>(), s,
-                    a, kTcThreads);
-    return launch(flash_dkv_tc_kernel<D>, dim3(BH, nk), dkv_tc_smem<D>(), s,
-                  a, kTcThreads);
+      return launch(flash_dq_tc_kernel<D>, dim3(BH, nq, NH), dq_tc_smem<D>(),
+                    s, a, kTcThreads);
+    return launch(flash_dkv_tc_kernel<D>, dim3(BH, nk, NH), dkv_tc_smem<D>(),
+                  s, a, kTcThreads);
   } else {
+    const int nq32 = (a.Tq + f32_bq<D>() - 1) / f32_bq<D>();
     if (which == kFwd)
       return launch(flash_fwd_kernel<D>, dim3(nq, BH), fwd_smem<D>(), s, a);
     if (which == kDq)
-      return launch(flash_dq_kernel<D>, dim3(nq, BH), dq_smem<D>(), s, a);
+      return launch(flash_dq_kernel<D>, dim3(nq32, BH), dq_smem<D>(), s, a);
     return launch(flash_dkv_kernel<D>, dim3(nk, BH), dkv_smem<D>(), s, a);
   }
 }
@@ -1457,6 +1538,8 @@ cudaError_t run_d(int which, int D, const Args& a, int BH, cudaStream_t s) {
       return run<T, 64>(which, a, BH, s);
     case 128:
       return run<T, 128>(which, a, BH, s);
+    case 256:
+      return run<T, 256>(which, a, BH, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1497,6 +1580,8 @@ int ptt_flash_smem_bytes(int which, int is_bf16, int D) {
       return (int)pick(std::integral_constant<int, 64>());
     case 128:
       return (int)pick(std::integral_constant<int, 128>());
+    case 256:
+      return (int)pick(std::integral_constant<int, 256>());
     default:
       return 0;
   }

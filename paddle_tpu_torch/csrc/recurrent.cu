@@ -32,7 +32,9 @@
 // Bound on this card: at the stacked LSTM's shape (B 64, T 100, H 512) the
 // recurrent products are 2 B T H 4H = 13.4 GFLOP (~0.2 ms at 67 TFLOP/s
 // float32) against ~135 MB of inputs and outputs (~40 us), so operations
-// bound it, with T grid barriers (2T for the GRU) as a serial floor beside.
+// bound it, with T grid barriers (2T for the GRU) as a serial floor beside;
+// the GRU at the NMT encoder's shape (B 32, T 64, H 512) likewise, 2 B T H
+// 3H = 3.2 GFLOP (~48 us) against ~33 MB (~10 us).
 //
 // K5 (lstm_seq_kernel), the Hopper design. What held the first design back
 // was latency, not FMAs: h was staged 128 columns by 32 rows at a time,
@@ -63,16 +65,11 @@
 //    through the same rings from a copy laid out [block][group][H'][16]
 //    (H' = H rounded up to 4; zeros past H) that the wrapper builds; more
 //    than 64 batch rows take several passes.
-// What a step still spends, by part (the product, the staging of h, where
-// every SM reads all of h from L2 each step, and the barrier), is measured
-// by probe_recurrent.py; PERF.md has its numbers.
+// What a step of K5 or K6 still spends, by part (the product, the staging
+// of h, where every SM reads all of h from L2 each step, the barriers and
+// the stores), is measured by probe_recurrent.py; PERF.md has its numbers.
 //
-// K6 (gru_seq_kernel) keeps its first design: batch rows ride the 32 lanes
-// of a warp, the 8 warps split k, h is staged through shared memory 128
-// columns at a time, and the warps' partial sums are added in shared memory.
-// Beyond 8 units a block it loops over groups of 8 units, and a w slice too
-// large for shared memory is read through L2 from a copy laid out
-// [block][group][H][24].
+// K6 (gru_seq_kernel) has K5's design, sized to the GRU: see "K6" below.
 //
 // Launch: ptt_recurrent_plan picks the units a block so that the blocks are
 // no more than the SMs, one block on each; cudaLaunchCooperativeKernel
@@ -87,12 +84,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// K6's row tiles (and row_tile_product's)
-constexpr int kRows = 32;                  // batch rows per tile: one a lane
-constexpr int kChunk = 128;                // columns of h staged at once
-constexpr int kPerWarp = kChunk / kWarps;  // of which each warp takes 16
-constexpr int kLd = kChunk + 1;            // padded staged row: no conflicts
-constexpr int kStage = kRows * kChunk / kThreads;  // staged values a thread
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
@@ -125,110 +116,6 @@ __device__ __forceinline__ void grid_sync(unsigned int* arrived,
     } while (static_cast<int>(now - target) < 0);
   }
   __syncthreads();
-}
-
-// One row tile of K6's recurrent product: for batch rows
-// row0 .. row0 + 31 (row0 + lane for this thread) and NC columns starting at
-// C0 of the block's w slice w_s ([H][LDW], in shared memory or the relaid
-// copy in global memory), each warp sums
-// its share of k; the partial sums land in red[warp][lane][c], and the block
-// synchronizes before returning so that the caller may add them up.
-// src is [B, H] in global memory, written by other blocks in this launch.
-template <int NC, int LDW, int C0>
-__device__ __forceinline__ void row_tile_product(
-    const float* src, int B, int H, int row0, const float* __restrict__ w_s,
-    float* __restrict__ h_s, float* __restrict__ red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
-  for (int k0 = 0; k0 < H; k0 += kChunk) {
-    // every load of the chunk is in flight at once, and before the
-    // barrier: one L2 latency a chunk, not one a load
-    float v[kStage];
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int p = threadIdx.x + i * kThreads;
-      const int b = row0 + p / kChunk;
-      const int k = k0 + p % kChunk;
-      v[i] = (b < B && k < H) ? __ldcg(src + (size_t)b * H + k) : 0.f;
-    }
-    __syncthreads();  // the previous chunk's (or tile's) readers are done
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int p = threadIdx.x + i * kThreads;
-      h_s[(p / kChunk) * kLd + p % kChunk] = v[i];
-    }
-    __syncthreads();
-    const int kb = warp * kPerWarp;
-    const int kn = min(kPerWarp, H - k0 - kb);
-    for (int kk = 0; kk < kn; ++kk) {
-      const float hv = h_s[lane * kLd + kb + kk];
-      const float* wr = w_s + (size_t)(k0 + kb + kk) * LDW + C0;
-      if constexpr (NC % 4 == 0 && LDW % 4 == 0 && C0 % 4 == 0) {
-#pragma unroll
-        for (int c = 0; c < NC; c += 4) {
-          const float4 wv = *reinterpret_cast<const float4*>(wr + c);
-          acc[c] = fmaf(hv, wv.x, acc[c]);
-          acc[c + 1] = fmaf(hv, wv.y, acc[c + 1]);
-          acc[c + 2] = fmaf(hv, wv.z, acc[c + 2]);
-          acc[c + 3] = fmaf(hv, wv.w, acc[c + 3]);
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[c] = fmaf(hv, wr[c], acc[c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) red[(warp * kRows + lane) * NC + c] = acc[c];
-  __syncthreads();
-}
-
-// The (tile row, owned unit) pair a thread updates after a row tile's
-// product: thread r * U + u takes row row0 + r and unit j0 + u; `mine` is
-// false for threads beyond kRows * U and for pairs past B or H.
-struct TilePair {
-  int r, u, b, j;
-  bool mine;
-};
-
-template <int U>
-__device__ __forceinline__ TilePair tile_pair(int row0, int j0, int B,
-                                              int H) {
-  static_assert(kRows * U <= kThreads, "one pair a thread at most");
-  TilePair q;
-  q.r = threadIdx.x / U;
-  q.u = threadIdx.x - q.r * U;
-  q.b = row0 + q.r;
-  q.j = j0 + q.u;
-  q.mine = threadIdx.x < kRows * U && q.b < B && q.j < H;
-  return q;
-}
-
-// The sum over warps of column c for tile row r.
-template <int NC>
-__device__ __forceinline__ float warp_total(const float* red, int r, int c) {
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += red[(w * kRows + r) * NC + c];
-  return s;
-}
-
-// Load the block's gate columns of w ([H][NG * H] row-major) into w_s
-// ([H][NG * U]): column g * U + u holds gate g of unit j0 + u (zeros past H).
-template <int NG, int U>
-__device__ void load_w_slice(const float* __restrict__ w, int H, int j0,
-                             float* __restrict__ w_s) {
-  constexpr int NC = NG * U;
-  for (int p = threadIdx.x; p < H * NC; p += kThreads) {
-    const int k = p / NC;
-    const int c = p - k * NC;
-    const int g = c / U;
-    const int j = j0 + c - g * U;
-    w_s[p] = j < H ? w[(size_t)k * NG * H + (size_t)g * H + j] : 0.f;
-  }
 }
 
 // --- K5: the LSTM ---------------------------------------------------------
@@ -480,115 +367,320 @@ lstm_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // --- K6: the GRU ----------------------------------------------------------
+//
+// K6 (gru_seq_kernel), K5's design sized to the GRU. A step is two phases
+// with a grid barrier after each (the candidate's product needs r h of
+// units other blocks own): phase A multiplies h by the r and z columns of
+// the block's units and publishes r h (and z, for phase B); phase B
+// multiplies r h by the candidate columns and writes the new h. In each
+// phase, for each tile of kPassG = 32 batch rows (the NMT encoder's batch:
+// one pass) and column group of UG units:
+//  - staging: right after the barrier each warp issues 16-byte
+//    cp.async.cg copies of its eighth of k of h (phase A) or r h (phase
+//    B), in pieces of 32 columns by 32 rows into a ring of 4 slots of its
+//    own, and multiplies each piece as it lands; no block barrier stands
+//    between a copy and its product. At H <= 1024 a warp's whole share is
+//    in flight at once: one L2 round trip a phase;
+//  - register tiles: a lane holds 8 rows (rg + 4 i) by all NC gate columns
+//    of the phase (NC = 2 UG in phase A, UG in phase B) over 4 of each
+//    piece's 32 columns (eight k-splits a warp, 64 a block). Per k it loads
+//    8 floats of h (as float4 over 4 k, rows padded to 40 floats: the
+//    quarter warp's 4 rows x 2 k-splits hit 32 distinct banks) and NC of w
+//    (float4 broadcasts; at NC = 8 rows of w are padded by 4 floats every
+//    4 rows so the quarter warp's two k-splits read distinct banks), so at
+//    UG = 4 (the NMT shape, 4 units a block) phase A loads 16 floats for 64
+//    FMAs and phase B 12 floats for 32 FMAs (the first design: 3 for 8 and
+//    2 for 4);
+//  - one shared-memory reduction of the 64 k-splits' partial sums,
+//    written over the warps' own rings, then thread (row, gate column)
+//    finishes its gate: one thread per output;
+//  - the x gate loads, and in phase B z and the previous h of the owned
+//    units (both from global scratch the block wrote, in L2), are issued
+//    before the product;
+//  - the barriers are K5's grid_sync.
+// Any H: blocks own U units (1, 2, 4, or a multiple of 4), handled as
+// column groups of UG = min(U, 4); w stays in shared memory where it fits
+// beside the rings and is otherwise streamed through the same rings from
+// relay_w's copy [block][group][HP][3 UG] (UG = 4: rows of whole 16-byte
+// pieces); more than 32 batch rows take several passes.
 
-// Shared memory of K6: the w slices where resident ([groups][H][3U]), one
-// staged row tile of h, the warps' partial sums, h, r and z of the owned
-// units ([B][U groups] each).
-size_t gru_smem_bytes(int U, int groups, bool stream_w, int B, int H) {
-  return ((stream_w ? 0 : (size_t)groups * H * 3 * U) + kRows * kLd +
-          (size_t)kWarps * kRows * 2 * U + 3 * (size_t)B * U * groups) *
-         sizeof(float);
+constexpr int kPassG = 32;             // GRU batch rows a pass: 8 a lane
+constexpr int kKG = 32;                // k columns of h (or r h) a piece
+constexpr int kLdg = kKG + 8;          // staged row stride (see above)
+constexpr int kSlotG = kPassG * kLdg;  // floats of h in a slot
+
+// Offset of row k of a block of w's gate columns, nc a row, in shared
+// memory: at nc = 8, 4 floats of padding after every 4 rows (k-splits are
+// 4 rows apart: 36 floats, not 32, so two of them use distinct banks).
+__host__ __device__ constexpr int gru_wrow(int nc, int k) {
+  return k * nc + (nc == 8 ? (k >> 2) * 4 : 0);
 }
 
-// K6. U units a group (1, 2, 4 or 8), `groups` groups a block; w_rel null
-// where the w slices are resident in shared memory, else the relaid copy
-// [gridDim.x][groups][H][3U] they are read from through L2.
-template <int U, bool STREAM>
+// Floats of one warp's ring slot: h [kPassG][kLdg], then the piece's rows
+// of w (phase A's 2 UG columns, the wider phase) where w is streamed.
+__host__ __device__ constexpr int gru_slot_floats(int ug, bool stream_w) {
+  return kSlotG + (stream_w ? gru_wrow(2 * ug, kKG) : 0);
+}
+
+// One phase's product for the tile of rows row0 .. row0 + kPassG - 1: this
+// warp's k share [kb, ke) of src ([B][HP], written by every block before
+// the last grid barrier) comes through the warp's ring in pieces of kKG
+// columns, each multiplied as it lands by the phase's NC gate columns of
+// w: resident (w_s, rows by gru_wrow) or, where w_g is not null, streamed
+// beside the piece from the relaid copy (rows of ldg floats, w_g at the
+// phase's first column). acc[i][c]: row rg + 4 i, column c, over the
+// lane's k-split (columns 4 ks .. 4 ks + 3 of each piece).
+template <int NC>
+__device__ __forceinline__ void gru_product(float (&acc)[8][NC],
+                                            const float* src, int B, int HP,
+                                            int row0, int kb, int ke,
+                                            float* ring, int slot,
+                                            const float* w_s,
+                                            const float* w_g, int ldg) {
+  const int lane = threadIdx.x & 31;
+  const int rg = lane & 3, ks = lane >> 2;
+  const int nj = (ke - kb + kKG - 1) / kKG;
+  // piece q into ring slot q % kNS (an empty commit group past the last
+  // piece keeps the wait count constant)
+  auto issue = [&](int q) {
+    if (q < nj) {
+      float* piece = ring + (q % kNS) * slot;
+      const int k0 = kb + q * kKG;
+      for (int i = lane; i < kPassG * kKG / 4; i += 32) {
+        const int r = i / (kKG / 4);
+        const int k = k0 + (i % (kKG / 4)) * 4;
+        const bool ok = row0 + r < B && k < ke;
+        cp_async16(piece + r * kLdg + (k - k0),
+                   ok ? src + (size_t)(row0 + r) * HP + k : src, ok);
+      }
+      if constexpr (NC % 4 == 0) {
+        if (w_g != nullptr) {
+          for (int i = lane; i < kKG * NC / 4; i += 32) {
+            const int kk = i / (NC / 4);
+            const int c = (i % (NC / 4)) * 4;
+            const bool ok = k0 + kk < ke;
+            cp_async16(piece + kSlotG + gru_wrow(NC, kk) + c,
+                       ok ? w_g + (size_t)(k0 + kk) * ldg + c : w_g, ok);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+#pragma unroll
+  for (int q = 0; q < kNS - 1; ++q) issue(q);
+  for (int q = 0; q < nj; ++q) {
+    __syncwarp();  // every lane is done with the slot piece q+kNS-1 takes
+    issue(q + kNS - 1);
+    cp_async_wait<kNS - 1>();  // piece q has landed
+    __syncwarp();
+    const float* piece = ring + (q % kNS) * slot;
+    const int k0 = kb + q * kKG;
+    const int kn = ke - k0;
+    if (ks * 4 < kn) {
+      const float* hr = piece + rg * kLdg + ks * 4;
+      const float* wr =
+          (w_g != nullptr ? piece + kSlotG : w_s + gru_wrow(NC, k0)) +
+          gru_wrow(NC, ks * 4);
+      float4 hv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        hv[i] = *reinterpret_cast<const float4*>(hr + i * 4 * kLdg);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float wv[NC];
+        if constexpr (NC % 4 == 0) {
+#pragma unroll
+          for (int c = 0; c < NC; c += 4) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(wr + kk * NC + c);
+            wv[c] = v.x;
+            wv[c + 1] = v.y;
+            wv[c + 2] = v.z;
+            wv[c + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) wv[c] = wr[kk * NC + c];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float a = kk == 0   ? hv[i].x
+                          : kk == 1 ? hv[i].y
+                          : kk == 2 ? hv[i].z
+                                    : hv[i].w;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(a, wv[c], acc[i][c]);
+        }
+      }
+    }
+  }
+  // the partial sums over this warp's own ring: [8 k-splits][kPassG][NC]
+  // (every copy has landed: the groups still pending are empty)
+  __syncwarp();
+  float* red = ring + ks * kPassG * NC;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = red + (rg + 4 * i) * NC;
+    if constexpr (NC % 4 == 0) {
+#pragma unroll
+      for (int c = 0; c < NC; c += 4)
+        *reinterpret_cast<float4*>(row + c) = make_float4(
+            acc[i][c], acc[i][c + 1], acc[i][c + 2], acc[i][c + 3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) row[c] = acc[i][c];
+    }
+  }
+}
+
+// Column c of tile row r of the product, summed over the block's 64
+// k-splits' partial sums (after a block barrier).
+template <int NC>
+__device__ __forceinline__ float gru_total(const float* smem, int slot, int r,
+                                           int c) {
+  float s = 0.f;
+#pragma unroll
+  for (int wp = 0; wp < kWarps; ++wp)
+#pragma unroll
+    for (int sp = 0; sp < 8; ++sp)
+      s += smem[wp * kNS * slot + (sp * kPassG + r) * NC + c];
+  return s;
+}
+
+// K6. UG units a column group (1, 2 or 4), `groups` column groups a block;
+// w_rel null where the block's gate columns of w are kept in shared
+// memory, else the relaid copy [gridDim.x][groups][HP][3 UG] they are
+// streamed from (UG = 4 only). buf [3][B][HP] zeroed by the caller: h, r h
+// and z (columns H..HP-1 of h and r h stay 0).
+template <int UG>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ w_rel,
-               const float* __restrict__ h0, const int* __restrict__ seqlen,
-               int B, int T, int H, int groups, int reverse,
-               float* __restrict__ hs, float* __restrict__ stash, float* buf,
+               const float* __restrict__ w_rel, const float* __restrict__ h0,
+               const int* __restrict__ seqlen, int B, int T, int H, int HP,
+               int groups, int reverse, float* __restrict__ hs,
+               float* __restrict__ stash, float* buf,
                unsigned int* arrived) {
-  constexpr int NC = 3 * U;
+  constexpr int NA = 2 * UG;   // phase A's gate columns of a group: r | z
+  constexpr int NB = UG;       // phase B's: the candidate
   extern __shared__ __align__(16) float smem[];
-  const int UT = U * groups;                  // units of the block
-  float* w_s = smem;                          // [groups][H][NC]: r | z | c
-  float* h_s = w_s + (STREAM ? 0 : (size_t)groups * H * NC);  // [kRows][kLd]
-  float* red = h_s + kRows * kLd;             // [kWarps][kRows][2U]
-  float* h_own = red + kWarps * kRows * 2 * U;  // [B][UT]
-  float* r_own = h_own + (size_t)B * UT;      // [B][UT]
-  float* z_own = r_own + (size_t)B * UT;      // [B][UT]
-  const int j0 = blockIdx.x * UT;
-  // buf[0]: h, read in phase A and written in phase B of each step (all
-  // reads precede the middle barrier, all writes follow it); buf[1]: r h.
+  const int warp = threadIdx.x >> 5;
+  const bool stream_w = w_rel != nullptr;
+  const int slot = gru_slot_floats(UG, stream_w);
+  float* ring = smem + warp * kNS * slot;
+  float* wa_s = smem + kWarps * kNS * slot;        // [groups] r | z columns
+  float* wb_s = wa_s + groups * gru_wrow(NA, HP);  // [groups] c columns
+  const int U = UG * groups;
+  const int j0 = blockIdx.x * U;
+  // buf[0]: h, read in phase A (and in phase B by the thread that then
+  // writes the unit's new h); buf[1]: r h, from phase A to phase B;
+  // buf[2]: z of the owned units, from phase A to phase B
+  const size_t bhp = (size_t)B * HP;
   float* hbuf = buf;
-  float* rhbuf = buf + (size_t)B * H;
+  float* rhbuf = buf + bhp;
+  float* zbuf = buf + 2 * bhp;
+  // this warp's share of k: [kb, ke)
+  const int kw = ((HP / 4 + kWarps - 1) / kWarps) * 4;
+  const int kb = min(HP, warp * kw);
+  const int ke = min(HP, kb + kw);
+  const size_t wgrp = (size_t)HP * 3 * UG;   // floats of a group in w_rel
+  const float* w_blk =
+      stream_w ? w_rel + (size_t)blockIdx.x * groups * wgrp : nullptr;
 
-  if (!STREAM) {
-    for (int cg = 0; cg < groups; ++cg)
-      load_w_slice<3, U>(w, H, j0 + cg * U, w_s + (size_t)cg * H * NC);
-  }
-  for (int p = threadIdx.x; p < B * UT; p += kThreads) {
-    const int b = p / UT;
-    const int j = j0 + p % UT;
-    if (j < H) {
-      h_own[p] = h0[(size_t)b * H + j];
-      hbuf[(size_t)b * H + j] = h_own[p];
+  if (!stream_w) {
+    for (int p = threadIdx.x; p < groups * HP * 3 * UG; p += kThreads) {
+      const int cg = p / (HP * 3 * UG);
+      const int k = (p / (3 * UG)) % HP;
+      const int c = p % (3 * UG);
+      const int j = j0 + cg * UG + c % UG;
+      const float v = (k < H && j < H)
+                          ? w[(size_t)k * 3 * H + (size_t)(c / UG) * H + j]
+                          : 0.f;
+      if (c < NA)
+        wa_s[cg * gru_wrow(NA, HP) + gru_wrow(NA, k) + c] = v;
+      else
+        wb_s[cg * gru_wrow(NB, HP) + gru_wrow(NB, k) + c - NA] = v;
     }
+  }
+  for (int p = threadIdx.x; p < B * U; p += kThreads) {
+    const int b = p / U;
+    const int j = j0 + p % U;
+    if (j < H) hbuf[(size_t)b * HP + j] = h0[(size_t)b * H + j];
   }
   unsigned int target = 0;
   grid_sync(arrived, target);
 
+  const int tiles = ((B + kPassG - 1) / kPassG) * groups;
   for (int t = 0; t < T; ++t) {
     const int tpos = reverse ? T - 1 - t : t;
-    // phase A: r, z of the owned units; publish r h
-    for (int cg = 0; cg < groups; ++cg) {
-      const float* w_g =
-          STREAM ? w_rel + ((size_t)blockIdx.x * groups + cg) * H * NC
-                 : w_s + (size_t)cg * H * NC;
-      for (int row0 = 0; row0 < B; row0 += kRows) {
-        const TilePair q = tile_pair<U>(row0, j0 + cg * U, B, H);
-        const size_t xo = ((size_t)q.b * T + t) * 3 * H + q.j;
-        float xr = 0.f, xz = 0.f;
-        if (q.mine) {  // in flight while the product runs
-          xr = x[xo];
-          xz = x[xo + H];
-        }
-        row_tile_product<2 * U, NC, 0>(hbuf, B, H, row0, w_g, h_s, red);
-        if (q.mine) {
-          const int r = q.r, u = q.u, b = q.b, j = q.j;
-          const float rg = sigmoid_f(xr + warp_total<2 * U>(red, r, u));
-          const float zg = sigmoid_f(xz + warp_total<2 * U>(red, r, U + u));
-          const int o = b * UT + cg * U + u;
-          r_own[o] = rg;
-          z_own[o] = zg;
-          rhbuf[(size_t)b * H + j] = rg * h_own[o];
-        }
+    // phase A: r and z of the owned units; thread (row, gate column)
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int row0 = (tile / groups) * kPassG;
+      const int cg = tile % groups;
+      const int pr = threadIdx.x / NA, pc = threadIdx.x % NA;
+      const int gate = pc / UG;   // 0: r, 1: z
+      const int b = row0 + pr, j = j0 + cg * UG + pc % UG;
+      const bool mine = pr < kPassG && b < B && j < H;
+      const size_t xo = ((size_t)b * T + t) * 3 * H + (size_t)gate * H + j;
+      float xg = 0.f, hprev = 0.f;
+      if (mine) {   // in flight while the product runs
+        xg = x[xo];
+        if (gate == 0) hprev = __ldcg(hbuf + (size_t)b * HP + j);
       }
-    }
-    grid_sync(arrived, target);
-    // phase B: the candidate over every unit's r h, then the new h
-    for (int cg = 0; cg < groups; ++cg) {
-      const float* w_g =
-          STREAM ? w_rel + ((size_t)blockIdx.x * groups + cg) * H * NC
-                 : w_s + (size_t)cg * H * NC;
-      for (int row0 = 0; row0 < B; row0 += kRows) {
-        const TilePair q = tile_pair<U>(row0, j0 + cg * U, B, H);
-        const size_t xo = ((size_t)q.b * T + t) * 3 * H + q.j;
-        const float xc = q.mine ? x[xo + 2 * H] : 0.f;
-        row_tile_product<U, NC, 2 * U>(rhbuf, B, H, row0, w_g, h_s, red);
-        if (q.mine) {
-          const int r = q.r, u = q.u, b = q.b, j = q.j;
-          const float cgate = tanhf(xc + warp_total<U>(red, r, u));
-          const int o = b * UT + cg * U + u;
-          const float zg = z_own[o];
-          const float hp = h_own[o];
-          float hn = zg * hp + (1.f - zg) * cgate;
-          if (seqlen[b] <= tpos) hn = hp;
-          h_own[o] = hn;
-          hs[((size_t)b * T + t) * H + j] = hn;
-          if (stash != nullptr) {
-            stash[xo] = r_own[o];
-            stash[xo + H] = zg;
-            stash[xo + 2 * H] = cgate;
-          }
-          hbuf[(size_t)b * H + j] = hn;
-        }
+      float acc[8][NA];
+      gru_product<NA>(acc, hbuf, B, HP, row0, kb, ke, ring, slot,
+                      wa_s + cg * gru_wrow(NA, HP),
+                      stream_w ? w_blk + cg * wgrp : nullptr, 3 * UG);
+      __syncthreads();
+      if (mine) {
+        const float g = sigmoid_f(xg + gru_total<NA>(smem, slot, pr, pc));
+        if (gate == 0)
+          rhbuf[(size_t)b * HP + j] = g * hprev;
+        else
+          zbuf[(size_t)b * HP + j] = g;
+        if (stash != nullptr) stash[xo] = g;
       }
+      __syncthreads();  // the rings are free for the next tile's pieces
     }
-    grid_sync(arrived, target);
+    grid_sync(arrived, target);   // r h of every unit is out
+    // phase B: the candidate over every unit's r h, then the new h;
+    // thread (row, unit)
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int row0 = (tile / groups) * kPassG;
+      const int cg = tile % groups;
+      const int pr = threadIdx.x / NB, pu = threadIdx.x % NB;
+      const int b = row0 + pr, j = j0 + cg * UG + pu;
+      const bool mine = pr < kPassG && b < B && j < H;
+      const size_t xo = ((size_t)b * T + t) * 3 * H + 2 * (size_t)H + j;
+      float xc = 0.f, zg = 0.f, hprev = 0.f;
+      int len = 0;
+      if (mine) {   // in flight while the product runs
+        xc = x[xo];
+        zg = __ldcg(zbuf + (size_t)b * HP + j);
+        hprev = __ldcg(hbuf + (size_t)b * HP + j);
+        len = seqlen[b];
+      }
+      float acc[8][NB];
+      gru_product<NB>(acc, rhbuf, B, HP, row0, kb, ke, ring, slot,
+                      wb_s + cg * gru_wrow(NB, HP),
+                      stream_w ? w_blk + cg * wgrp + NA : nullptr, 3 * UG);
+      __syncthreads();
+      if (mine) {
+        const float cgate = tanhf(xc + gru_total<NB>(smem, slot, pr, pu));
+        float hn = zg * hprev + (1.f - zg) * cgate;
+        if (len <= tpos) hn = hprev;
+        hbuf[(size_t)b * HP + j] = hn;
+        hs[((size_t)b * T + t) * H + j] = hn;
+        if (stash != nullptr) stash[xo] = cgate;
+      }
+      __syncthreads();  // the rings are free for the next tile's pieces
+    }
+    grid_sync(arrived, target);   // the new h of every unit is out
   }
 }
 
@@ -645,16 +737,20 @@ Plan lstm_plan(int H, const Device& d) {
   return p;
 }
 
-Plan gru_plan(int B, int H, const Device& d) {
+Plan gru_plan(int H, const Device& d) {
   Plan p{};
-  const int U = units_per_block(H, d.sms, 8);
-  p.ug = U < 8 ? U : 8;
+  const int U = units_per_block(H, d.sms, 4);
+  p.ug = U < 4 ? U : 4;
   p.groups = U / p.ug;
   p.blocks = (H + U - 1) / U;
-  p.hp = H;
-  p.stream_w =
-      gru_smem_bytes(p.ug, p.groups, false, B, H) > (size_t)d.smem_max;
-  p.smem = gru_smem_bytes(p.ug, p.groups, p.stream_w, B, H);
+  p.hp = (H + 3) / 4 * 4;
+  const size_t rings = (size_t)kWarps * kNS * gru_slot_floats(p.ug, false);
+  const size_t resident = (size_t)p.groups * (gru_wrow(2 * p.ug, p.hp) +
+                                              gru_wrow(p.ug, p.hp));
+  p.stream_w = (rings + resident) * sizeof(float) > (size_t)d.smem_max;
+  p.smem = (p.stream_w ? (size_t)kWarps * kNS * gru_slot_floats(p.ug, true)
+                       : rings + resident) *
+           sizeof(float);
   return p;
 }
 
@@ -678,15 +774,6 @@ cudaError_t coop_launch(K kern, int grid, size_t smem, void** args,
   return cudaGetLastError();
 }
 
-template <int U>
-cudaError_t launch_gru(bool stream_w, int blocks, size_t smem, void** args,
-                       cudaStream_t s, const Device& d) {
-  return stream_w ? coop_launch(gru_seq_kernel<U, true>, blocks, smem, args,
-                                s, d)
-                  : coop_launch(gru_seq_kernel<U, false>, blocks, smem, args,
-                                s, d);
-}
-
 }  // namespace
 
 extern "C" {
@@ -698,13 +785,13 @@ const char* ptt_cuda_error_string(int err) {
 // The launch plan of the LSTM (kind 0) or the GRU (kind 1) kernel for B
 // rows of H units on the current device: out = {units a column group,
 // column groups a block, blocks, 1 where w is read from the relaid copy,
-// dynamic shared memory bytes, row stride of the LSTM's h buffer}.
+// dynamic shared memory bytes, row stride of the h buffer}.
 int ptt_recurrent_plan(int kind, int B, int H, int* out) {
   if (B < 1 || H < 1) return cudaErrorInvalidValue;
   Device d;
   cudaError_t e = device_info(&d);
   if (e != cudaSuccess) return e;
-  const Plan p = kind == 0 ? lstm_plan(H, d) : gru_plan(B, H, d);
+  const Plan p = kind == 0 ? lstm_plan(H, d) : gru_plan(H, d);
   out[0] = p.ug;
   out[1] = p.groups;
   out[2] = p.blocks;
@@ -756,8 +843,8 @@ int ptt_lstm_seq(const void* x, const void* w, const void* w_rel,
 
 // x [B,T,3H], w [H,3H], h0 [B,H] float32 contiguous; w_rel the relaid copy
 // of w where the plan streams w, else null; seqlen [B] int32; hs [B,T,H];
-// stash [B,T,3H] or null; buf [2,B,H] float32 scratch; arrived: one zeroed
-// unsigned int.
+// stash [B,T,3H] or null; buf [3,B,HP] float32 scratch, zeroed; arrived:
+// one zeroed unsigned int.
 int ptt_gru_seq(const void* x, const void* w, const void* w_rel,
                 const void* h0, const void* seqlen, int B, int T, int H,
                 int reverse, void* hs, void* stash, void* buf, void* arrived,
@@ -766,8 +853,9 @@ int ptt_gru_seq(const void* x, const void* w, const void* w_rel,
   Device d;
   cudaError_t e = device_info(&d);
   if (e != cudaSuccess) return e;
-  const Plan p = gru_plan(B, H, d);
-  if (p.stream_w != (w_rel != nullptr) || p.smem > (size_t)d.smem_max)
+  const Plan p = gru_plan(H, d);
+  if (p.stream_w != (w_rel != nullptr) || p.smem > (size_t)d.smem_max ||
+      (p.stream_w && p.ug != 4))
     return cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
@@ -778,15 +866,14 @@ int ptt_gru_seq(const void* x, const void* w, const void* w_rel,
   float* stf = static_cast<float*>(stash);
   float* bf = static_cast<float*>(buf);
   unsigned int* ar = static_cast<unsigned int*>(arrived);
-  int groups = p.groups;
-  void* args[] = {&xf, &wf, &wr, &h0f, &sl, &B, &T, &H, &groups, &reverse,
-                  &hsf, &stf, &bf, &ar};
+  int hp = p.hp, groups = p.groups;
+  void* args[] = {&xf, &wf, &wr, &h0f, &sl, &B, &T, &H, &hp, &groups,
+                  &reverse, &hsf, &stf, &bf, &ar};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p.ug) {
-    case 1: e = launch_gru<1>(p.stream_w, p.blocks, p.smem, args, s, d); break;
-    case 2: e = launch_gru<2>(p.stream_w, p.blocks, p.smem, args, s, d); break;
-    case 4: e = launch_gru<4>(p.stream_w, p.blocks, p.smem, args, s, d); break;
-    case 8: e = launch_gru<8>(p.stream_w, p.blocks, p.smem, args, s, d); break;
+    case 1: e = coop_launch(gru_seq_kernel<1>, p.blocks, p.smem, args, s, d); break;
+    case 2: e = coop_launch(gru_seq_kernel<2>, p.blocks, p.smem, args, s, d); break;
+    case 4: e = coop_launch(gru_seq_kernel<4>, p.blocks, p.smem, args, s, d); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

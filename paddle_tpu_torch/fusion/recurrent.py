@@ -136,7 +136,7 @@ def recurrent_plan(kind, b, hd, device):
     on `device` (csrc/recurrent.cu ptt_recurrent_plan): {"ug": units a
     column group, "groups": column groups a block, "blocks", "stream_w":
     w read from `relay_w`'s copy, "smem": dynamic shared memory bytes,
-    "hp": row stride of the LSTM's h buffer}."""
+    "hp": row stride of the h buffer}."""
     key = (kind, b, hd, torch.device(device).index)
     plan = _PLANS.get(key)
     if plan is None:
@@ -248,7 +248,10 @@ def gru_seq_cuda(x, h0, w, seqlen, reverse, with_stash):
         hs = torch.empty((b, t, hd), dtype=torch.float32, device=dev)
         stash = (torch.empty((b, t, 3 * hd), dtype=torch.float32,
                              device=dev) if with_stash else None)
-        buf = torch.empty((2, b, hd), dtype=torch.float32, device=dev)
+        # h, r·h and z; columns hd..hp-1 of each row stay zero: the kernel
+        # reads them
+        buf = torch.zeros((3, b, plan["hp"]), dtype=torch.float32,
+                          device=dev)
         arrived = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.ptt_gru_seq(
             x.data_ptr(), w.data_ptr(), _ptr(w_rel), h0.data_ptr(),

@@ -34,11 +34,14 @@ kernels that the check must reject).
 Masks: causal aligned bottom-right (query i sees keys up to i + Tk - Tq)
 and segment ids (a query sees a key iff their ids are equal; the packed
 batches of data/packing.py). Tensors are [B, H, T, D] in float32 or
-bfloat16; the kernels are built for head dims 32, 64 and 128, and the
-wrappers take any D up to 128 by zero-padding q, k, v (and dO) to the next
-of those (`kernel_head_dim`, `pad_head_dim`) and slicing o, dq, dk and dv
-back. That is exact: a zero column adds exactly 0 to every dot product and
-to delta = Σ dO·O, and the caller's scale is passed unchanged.
+bfloat16; the kernels are built for head dims 32, 64, 128 and 256, and
+the wrappers take any D up to 256 by zero-padding q, k, v (and dO) to the
+next of those (`kernel_head_dim`, `pad_head_dim`) and slicing o, dq, dk and
+dv back. That is exact: a zero column adds exactly 0 to every dot product
+and to delta = Σ dO·O, and the caller's scale is passed unchanged. (At
+D = 256 each bfloat16 kernel's block computes one half of the output
+columns and the float32 K2 and K3 take query tiles of 32 rows: see
+csrc/flash_attention.cu.)
 
 `delta` = Σ dO·O in float32 is a plain torch op, as in the JAX package;
 the backward kernels also take it from the caller, and K1's lse output is
@@ -57,18 +60,17 @@ from ..framework.registry import register_op
 _NEG_INF = -1e30
 
 #: head dims the CUDA kernels are built for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def kernel_head_dim(d):
     """The head dim the kernels run a caller's D at: the least of
-    KERNEL_HEAD_DIMS not below D. Raises for D above 128."""
+    KERNEL_HEAD_DIMS not below D. Raises for D above 256."""
     for kd in KERNEL_HEAD_DIMS:
         if d <= kd:
             return kd
-    raise ValueError(f"flash attention: head dim {d} is not supported: head "
-                     f"dims above 128 need a 256 instantiation, with the "
-                     f"`wgmma` follow-up (ROADMAP.md §3)")
+    raise ValueError(f"flash attention: head dim {d} is not supported: the "
+                     f"kernels take head dims up to 256 (ROADMAP.md §3)")
 
 
 def pad_head_dim(kd, *tensors):
@@ -509,7 +511,7 @@ def _launch(name, fn, bf16_route, *args):
 def flash_fwd_cuda(q, k, v, scale, causal, q_ids=None, kv_ids=None,
                    with_lse=True):
     """Launch K1. q [B,H,Tq,D], k/v [B,H,Tk,D]: contiguous CUDA tensors of
-    one dtype, D <= 128. Returns (o, lse or None)."""
+    one dtype, D <= 256. Returns (o, lse or None)."""
     b, h, tq, d = q.shape
     kd = kernel_head_dim(d)
     if kd != d and q.is_cuda:

@@ -40,21 +40,23 @@ from paddle_tpu_torch.ops.flash_attention import (FlashAttention,
 D = 16
 BLOCK = 128
 
-# (id, B, H, Tq, Tk, causal, segments): segments "packed" = two sequences
-# per row then padding; "unmatched" = the first rows carry an id no key has
+# (id, B, H, Tq, Tk, causal, segments, head dim): segments "packed" = two
+# sequences per row then padding; "unmatched" = the first rows carry an id
+# no key has; "d256" is the largest head dim the CUDA kernels take
 CASES = [
-    ("causal", 2, 2, 64, 64, True, None),
-    ("tq_ne_tk", 1, 2, 48, 80, True, None),
-    ("odd_t", 2, 1, 37, 37, False, None),
-    ("packed", 2, 2, 64, 64, True, "packed"),
-    ("no_key_causal", 1, 2, 96, 32, True, None),
-    ("no_key_segment", 1, 2, 40, 40, False, "unmatched"),
+    ("causal", 2, 2, 64, 64, True, None, D),
+    ("tq_ne_tk", 1, 2, 48, 80, True, None, D),
+    ("odd_t", 2, 1, 37, 37, False, None, D),
+    ("packed", 2, 2, 64, 64, True, "packed", D),
+    ("no_key_causal", 1, 2, 96, 32, True, None, D),
+    ("no_key_segment", 1, 2, 40, 40, False, "unmatched", D),
+    ("d256", 1, 2, 40, 72, True, None, 256),
 ]
 
 
-def _inputs(b, h, tq, tk, seg, seed=0):
+def _inputs(b, h, tq, tk, seg, seed=0, d=D):
     rng = np.random.RandomState(seed)
-    q, k, v, do = (rng.randn(b, h, t, D).astype("float32")
+    q, k, v, do = (rng.randn(b, h, t, d).astype("float32")
                    for t in (tq, tk, tk, tq))
     q_ids = kv_ids = None
     if seg == "packed":
@@ -94,9 +96,9 @@ def _no_key_rows(tq, tk, causal, q_ids, kv_ids):
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_plain_forward_matches_pallas_interpret_and_reference(case):
-    _, b, h, tq, tk, causal, seg = case
-    q, k, v, _, q_ids, kv_ids = _inputs(b, h, tq, tk, seg)
-    scale = D ** -0.5
+    _, b, h, tq, tk, causal, seg, d = case
+    q, k, v, _, q_ids, kv_ids = _inputs(b, h, tq, tk, seg, d=d)
+    scale = d ** -0.5
     o, lse = flash_fwd_plain(_t(q), _t(k), _t(v), scale, causal,
                              _t(q_ids), _t(kv_ids))
     jo, jlse = _flash_attention_pallas(
@@ -121,9 +123,9 @@ def test_plain_forward_matches_pallas_interpret_and_reference(case):
                          ids=["delta_computed", "delta_passed"])
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_plain_backward_matches_pallas_interpret(case, delta_given):
-    _, b, h, tq, tk, causal, seg = case
-    q, k, v, do, q_ids, kv_ids = _inputs(b, h, tq, tk, seg, seed=1)
-    scale = D ** -0.5
+    _, b, h, tq, tk, causal, seg, d = case
+    q, k, v, do, q_ids, kv_ids = _inputs(b, h, tq, tk, seg, seed=1, d=d)
+    scale = d ** -0.5
     o, lse = flash_fwd_plain(_t(q), _t(k), _t(v), scale, causal,
                              _t(q_ids), _t(kv_ids))
     delta = flash_delta(o, _t(do)) if delta_given else None
@@ -145,7 +147,7 @@ def test_autograd_function_matches_jax_vjp(case):
     """FlashAttention forward and backward on CPU tensors against jax.vjp
     through the JAX package's custom-vjp `_fused_attention` on the
     "pallas_interpret" backend."""
-    _, b, h, tq, tk, causal, seg = case
+    _, b, h, tq, tk, causal, seg, _ = case
     q, k, v, do, q_ids, kv_ids = _inputs(b, h, tq, tk, seg, seed=2)
     scale = D ** -0.5
     jseg = _jseg(q_ids, kv_ids)
@@ -228,7 +230,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", [16, 40, 96])
+@pytest.mark.parametrize("d", [16, 40, 96, 160, 200])
 def test_head_dim_padding_matches_unpadded_plain(d, dtype):
     """What the CUDA wrappers do with a head dim the kernels are not built
     for: q, k, v and dO zero-padded to `kernel_head_dim(D)`, the caller's
@@ -246,7 +248,7 @@ def test_head_dim_padding_matches_unpadded_plain(d, dtype):
     ids[:, :30], ids[:, 30:65] = 1, 2
     scale = d ** -0.5
     kd = kernel_head_dim(d)
-    assert kd == {16: 32, 40: 64, 96: 128}[d]
+    assert kd == {16: 32, 40: 64, 96: 128, 160: 256, 200: 256}[d]
     qp, kp, vp, dop = pad_head_dim(kd, q, k, v, do)
     assert qp.shape[-1] == kd and bool((qp[..., d:] == 0).all())
     o, lse = flash_fwd_plain(q, k, v, scale, True, ids, ids)
@@ -266,11 +268,15 @@ def test_head_dim_padding_matches_unpadded_plain(d, dtype):
 
 
 def test_head_dims_above_128_raise_naming_the_follow_up():
+    """Head dims 129..256 now run at 256 (zero-padded); only those above
+    256 raise, naming the ROADMAP entry that tracks them."""
     from paddle_tpu_torch.ops.flash_attention import (kernel_head_dim,
                                                       pad_head_dim)
     assert [kernel_head_dim(d) for d in (1, 32, 33, 64, 100, 128)] == \
         [32, 32, 64, 64, 128, 128]
+    assert all(kernel_head_dim(d) == 256 for d in range(129, 257))
     x = torch.ones(1, 1, 4, 64)
     assert pad_head_dim(64, x)[0] is x
-    with pytest.raises(ValueError, match="256 instantiation.*wgmma"):
-        kernel_head_dim(160)
+    for d in (257, 320, 512):
+        with pytest.raises(ValueError, match=r"up to 256 \(ROADMAP\.md §3\)"):
+            kernel_head_dim(d)

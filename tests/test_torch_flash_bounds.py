@@ -36,6 +36,7 @@ CASES = [
     ("causal_d64", 2, 2, 128, 128, 64, True, False),
     ("packed_d32", 2, 2, 160, 160, 32, True, True),
     ("tq_lt_tk_d64", 1, 2, 96, 160, 64, True, False),
+    ("causal_d256", 1, 2, 96, 96, 256, True, False),
 ]
 
 

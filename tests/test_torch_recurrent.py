@@ -155,8 +155,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     (4, 1100, 4, 3, 92, 1100),   # the LSTM at H = 1100 on 132 SMs
     (4, 2048, 4, 4, 128, 2048),  # the LSTM at H = 2048
     (4, 10, 4, 2, 2, 12),        # rows rounded up to 4, units past H
-    (3, 1100, 8, 2, 69, 1100),   # the GRU at H = 1100
+    (3, 1100, 8, 2, 69, 1100),   # the GRU at H = 1100, before K6's redesign
     (3, 7, 2, 1, 4, 7),
+    (3, 1100, 4, 3, 92, 1100),   # the GRU at H = 1100 on 132 SMs
+    (3, 2048, 4, 4, 128, 2048),  # the GRU at H = 2048
+    (3, 10, 4, 2, 2, 12),        # rows rounded up to 4, units past H
 ])
 def test_relay_w_layout_round_trip(n_gates, hd, ug, groups, blocks, hp):
     """The copy of w the kernels stream where a block's gate columns do not
@@ -301,3 +304,30 @@ def test_decode_attention_gradient_at_nmt_form_matches_jax():
     for name, a, bb in zip(("q", "enc", "bias"), tg, jg):
         np.testing.assert_allclose(a.numpy(), np.asarray(bb), atol=1e-5,
                                    rtol=1e-5, err_msg=f"d{name}")
+
+
+def _probe_edits():
+    import probe_recurrent
+    return [(kind, name, edits)
+            for kind, variants in probe_recurrent.VARIANTS.items()
+            for name, edits in variants.items()]
+
+
+@pytest.mark.parametrize("kind,name,edits", _probe_edits(),
+                         ids=[f"{k}-{n}" for k, n, _ in _probe_edits()])
+def test_probe_variants_match_the_kernel_source(kind, name, edits):
+    """probe_recurrent.py splits a step of K5 or K6 by part by editing the
+    text of csrc/recurrent.cu (the FMAs, the staging, each grid barrier,
+    the stores): each text it replaces must occur exactly once, in its own
+    kernel, so that the variant removes that part and nothing else."""
+    import probe_recurrent
+    with open(probe_recurrent.SOURCE) as f:
+        text = f.read()
+    k6 = text.index("// --- K6")
+    for old, _ in edits:
+        assert text.count(old) == 1, (kind, name, old)
+        at = text.index(old)
+        if kind == "gru":
+            assert at > k6, (name, old)
+        else:
+            assert at + len(old) <= k6 + len("// --- K6"), (name, old)
