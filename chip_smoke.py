@@ -24,7 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    packed batch with segment ids, Tq != Tk, T not a multiple of the tile,
    head dims 32, 128 and 256, head dims 16, 40, 96 and 160 (which the
    wrappers zero-pad to 32, 64, 128 and 256), rows with no visible key,
-   each in bfloat16
+   and on the wide-head route head dims 300, 384, 512 and 1000 (300 and
+   1000 padded to 384 and 1024) with the same masks, each in bfloat16
    and float32 (bfloat16 runs on the tensor cores and is held to the
    per-term bounds of ops/flash_attention.py, taken on the padded tensors,
    and wrong kernels must be rejected by the same check: three for each
@@ -39,7 +40,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (no host launch cost in the time) over rotating input sets larger than
    the 50 MB L2, replayed in turns between CUDA events (SDPA's backward,
    the flash backward's yardstick: its captured forward and backward less
-   its forward; K1-K3 also at head dim 256);
+   its forward; K1-K3 also at head dims 256 and 512, with the kernels
+   SDPA's backend runs at 512; the controls rejected at 64 and 512);
 4. serve: ContinuousBatchingEngine on CUDAPlace(0) at the Transformer LM's
    full width (vocab 32000, d_model 512, d_inner 2048, 8 heads, 6 layers),
    16 slots, max_len 256, random weights from the startup program's seed,
@@ -87,7 +89,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    gradients (the decoder's attention path included) and parameters
    agree;
 14. where a recurrent training step's time goes: one profiled step of
-   each, device busy, idle share and the top device kernels.
+   each, device busy, idle share and the top device kernels;
+15. train the encoder-decoder Transformer-base (paddle_tpu/models/
+   transformer.py:157's defaults: vocab 30000 each side, max_len 64,
+   d_model 512, d_inner 2048, 8 heads, 6 + 6 layers, dropout and label
+   smoothing 0.1) through Trainer with Adam (β2 0.98, ε 1e-9) and
+   noam_decay(512, 4000): 64 pairs of the shift-copy task (lengths
+   16-64), 20 steps over 4 batches from a data.batch reader and the
+   DataFeeder, a checkpoint at step 10: target tokens/s, step time, loss
+   (finite, falling), peak memory, the dropout op's launches and keep
+   fraction; Trainer.test over a held batch; a new Trainer on the step-10
+   checkpoint resumes at step 10 with every persistable bit-equal;
+16. its is_test program (dropout 0.1 as scaling) saved with
+   io.save_inference_model and served through Inferencer: K1 launches
+   18 times a batch, all on flash_fwd_tc; finite logits, equal in two
+   runs;
+17. the encoder-decoder small (2 layers, d_model 64) in float32 with the
+   global-norm clip, L2 decay and noam, dropout 0 (K1-K3 in float32 on
+   the training path): 3 Adam steps card against CPU (each from the same
+   state), the step counter equal; then its dropout-0.1 is_test logits;
+18. where a Transformer-base step's time goes: phase 10's profile of the
+   phase-15 trainer.
 
 Float32 matrix products run without TF32 here
 (torch.backends.cuda.matmul.allow_tf32 = False, and cudnn's too), so
@@ -102,8 +124,9 @@ bfloat16; decode attention's `*_nmt` keys at the NMT shape and `splits`,
 the chunks of the cache a call is split into, at each path's shape; the
 flash kernels' `routes` per type, `err_over_tolerance_bf16`,
 `beyond_one_step_bf16`, the controls' `control_err_over_tolerance`,
-`launches_tc_bf16` and `d256`, their times and bound at head dim 256) and
-times; the last line is
+`launches_tc_bf16`, `d256` and `d512`, their times and bound at head
+dims 256 and 512), times, and `paths`: phases 15-18's numbers; the last
+line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -113,8 +136,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 1234
@@ -179,6 +204,24 @@ LSTM_STEPS, LSTM_BATCHES = 20, 4
 NMT = dict(dict_size=10000, embed_dim=256, hidden_dim=512, batch=32,
            src_len=64, tgt_len=64, src_lo=16, lr=1e-3)
 NMT_STEPS, NMT_BATCHES = 10, 2
+# Transformer-base ("Attention Is All You Need", Table 3 "base"; the
+# defaults of paddle_tpu/models/transformer.py:157): vocab 30000 each side,
+# max_len 64, d_model 512, d_inner 2048, 8 heads, 6 + 6 layers, dropout and
+# label smoothing 0.1 (§5.4), Adam with noam_decay(512, 4000) (§5.3); batch
+# 64 pairs of the shift-copy task, lengths 16-64
+TRANSFORMER = dict(src_vocab=30000, tgt_vocab=30000, max_len=64,
+                   d_model=512, d_inner=2048, num_heads=8, num_layers=6,
+                   dropout=0.1, label_smooth=0.1, batch=64, len_lo=16,
+                   warmup=4000)
+TRANSFORMER_STEPS, TRANSFORMER_BATCHES, TRANSFORMER_CKPT_STEP = 20, 4, 10
+BOS = 0
+# phase 17's small encoder-decoder; `lr` is the largest rate its noam
+# schedule reaches in the 3 steps (0.125 * 3 * 10**-1.5), which the
+# card-against-CPU check needs for its tiny-gradient bound
+TRANSFORMER_SMALL = dict(src_vocab=97, tgt_vocab=89, max_len=32, d_model=64,
+                         d_inner=128, num_heads=4, num_layers=2,
+                         dropout=0.0, label_smooth=0.1, batch=4, len_lo=5,
+                         warmup=10, lr=0.012)
 
 
 def log(*a):
@@ -697,6 +740,19 @@ def _tc_build_report(kernels):
             if dh in (64, 256):
                 assert name is not None, f"no ptxas report for {tag} D={dh}"
                 assert pr.get("spill") == 0, f"{tag} D={dh} spills: {pr}"
+    # the wide-head route (D > 256): one instantiation per type, D a
+    # runtime argument, the same shared memory at every D
+    for which, tag in ((0, "flash_fwd_wide"), (1, "flash_dq_wide"),
+                       (2, "flash_dkv_wide")):
+        for bf16, tname in ((0, "f"), (1, "13__nv_bfloat16")):
+            name = next((n for n in props
+                         if f"{tag}_kernelI{tname}E" in n), None)
+            pr = props.get(name, {})
+            log(f"  [{tag} {'bf16' if bf16 else 'f32'}] registers "
+                f"{pr.get('regs')}, spill bytes {pr.get('spill')}, dynamic "
+                f"shared memory {lib.ptt_flash_smem_bytes(which, bf16, 512)} "
+                f"bytes (any D)")
+            assert name is not None, f"no ptxas report for {tag} {tname}"
 
 
 def _recurrent_build_report(kernels):
@@ -821,17 +877,37 @@ def _time_flash(make, b, h, t, d, rates):
     return out
 
 
+def _sdpa_kernels(make, b, h, t, d):
+    """The device kernels of one SDPA forward (causal, bfloat16) at
+    [b, h, t, d], from the profiler: which of its backends took the
+    shape."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, _ = make(b, h, t, t, d, torch.bfloat16)
+    F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    wall, events = _profile(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 1,
+        annotate=False)
+    names = [e.key[:60] for e in sorted(device_kernels(events),
+                                        key=dev_self, reverse=True)[:4]]
+    log(f"  SDPA at B={b} H={h} T={t} D={d} bf16 causal runs {names}")
+    return names
+
+
 def check_flash(ptt, rates):
     """Phase 3 for the flash-attention kernels K1 (forward), K2 (dQ) and
     K3 (dK/dV): each against its plain version on the card over the LM's
     shape and the edge cases in both types (head dims 16, 40, 96 and 160
-    run zero-padded to 32, 64, 128 and 256 inside the wrappers), then
-    timed at the LM shape and at head dim 256.
+    run zero-padded to 32, 64, 128 and 256 inside the wrappers; 300, 384,
+    512 and 1000 on the wide-head route, 300 and 1000 padded to 384 and
+    1024, with the same masks), then timed at the LM shape and at head
+    dims 256 and 512; the controls are rejected at D = 64 and 512.
     bfloat16 (the tensor-core kernels) is held to the per-term bounds of
     ops/flash_attention.py (`flash_fwd_bound`, `flash_bwd_dq_bound`,
     `flash_bwd_dkv_bound`), float32 to 1e-5 max(1, |ref|) (`flash_check`).
     Returns {kernel name: JSON fields (all but launches)}."""
     import torch
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv_bound, flash_bwd_dkv_cuda, flash_bwd_dq_bound,
         flash_bwd_dq_cuda, flash_bwd_plain, flash_check, flash_delta,
@@ -871,8 +947,16 @@ def check_flash(ptt, rates):
         ("d256", 2, 4, 256, 200, 256, True, None),
         ("no_key", 2, 2, 160, 96, d, True, None),   # rows 0-63 causal
         ("no_key_seg", 2, 2, 96, 96, d, False, (q_ids, kv_ids)),
+        # the wide-head route (D > 256, padded to a multiple of 128)
+        ("d300", 2, 2, 130, 130, 300, True, None),  # padded to 384
+        ("d512", 2, 4, 200, 256, 512, True, None),
+        ("d512_packed", 4, 2, t, t, 512, True, packed),
+        ("d512_no_key", 1, 2, 160, 96, 512, True, None),
+        ("d384_no_key_seg", 2, 2, 96, 96, 384, False, (q_ids, kv_ids)),
+        ("d1000", 1, 2, 96, 96, 1000, False, None),  # padded to 1024
     ]
-    errs, controls = {}, None
+    errs, controls, controls_512 = {}, None, None
+    kernels.reset_launch_counts()
     for (label, cb, ch, tq, tk, cd, causal, seg) in shapes:
         for dt in (bf16, f32):
             q, k, v, do = make(cb, ch, tq, tk, cd, dt)
@@ -937,17 +1021,26 @@ def check_flash(ptt, rates):
                     raise AssertionError(f"{kname} disagrees with its plain "
                                          f"version ({label}, {dt}): {checks}")
             errs[(label, dt)] = res
-            if label == "lm" and dt == bf16:
-                controls = _flash_controls(
+            if label in ("lm", "d512") and dt == bf16:
+                ctl = _flash_controls(
                     q, k, v, do, lse, delta, scale,
                     {"o": o_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref},
                     slack)
+                controls = ctl if label == "lm" else controls
+                controls_512 = ctl if label == "d512" else None
             del slack
 
-    # timing at the LM's shape and type (bf16, causal), and at head dim
-    # 256 (B 2, H 8, T 512), which no path of the port reaches yet
+    wide = {k: kernels.LAUNCHES[k + "_wide"] for k in FLASH}
+    log(f"  wide-head route launches over the cases above: {wide}")
+    assert all(n == 2 * 6 for n in wide.values()), \
+        f"the six D > 256 cases in both types must take the wide route: {wide}"
+
+    # timing at the LM's shape and type (bf16, causal), and at head dims
+    # 256 and 512 (B 2, H 8, T 512), which no path of the port reaches yet
     timed = _time_flash(make, b, h, t, d, rates)
     timed_256 = _time_flash(make, 2, 8, t, 256, rates)
+    timed_512 = _time_flash(make, 2, 8, t, 512, rates)
+    sdpa_512 = _sdpa_kernels(make, 2, 8, t, 512)
     out = {}
     for kname, tm in timed.items():
         out[kname] = {"max_abs_err": errs[("lm", f32)][kname]["err"],
@@ -967,7 +1060,24 @@ def check_flash(ptt, rates):
                                "err_over_tolerance_bf16":
                                    errs[("d256", bf16)][kname]["ratio"],
                                "max_abs_err":
-                                   errs[("d256", f32)][kname]["err"]}}
+                                   errs[("d256", f32)][kname]["err"]},
+                      "d512": {**timed_512[kname],
+                               "route": "wide",
+                               "max_abs_err_bf16":
+                                   errs[("d512", bf16)][kname]["err"],
+                               "err_over_tolerance_bf16":
+                                   errs[("d512", bf16)][kname]["ratio"],
+                               "max_abs_err":
+                                   errs[("d512", f32)][kname]["err"],
+                               "err_over_tolerance_d1000_bf16":
+                                   errs[("d1000", bf16)][kname]["ratio"],
+                               "max_abs_err_d1000":
+                                   errs[("d1000", f32)][kname]["err"],
+                               "control_err_over_tolerance": {
+                                   c: r[kname]
+                                   for c, r in controls_512.items()
+                                   if kname in r},
+                               "library_kernels": sdpa_512}}
     log("  (plain_ms of flash_bwd_dq and flash_bwd_dkv is the one plain "
         "backward that computes dq, dk and dv; library_ms of both is SDPA's "
         "backward for all three: SDPA forward+backward less its forward)")
@@ -1388,9 +1498,16 @@ def profile_train(trainer, warm=2, n=3):
         log(f"  device busy {busy_us / n / 1e3:.1f} ms/step "
             f"({len(kernels_)} distinct kernels), idle share of the "
             f"profiled window {1 - busy_us / 1e6 / wall:.3f}")
-    for e in sorted(kernels_, key=dev_self, reverse=True)[:12]:
+    top = sorted(kernels_, key=dev_self, reverse=True)[:12]
+    for e in top:
         log(f"    device {dev_self(e) / n / 1e3:8.2f} ms/step "
             f"{e.count / n:6.1f} calls/step  {e.key[:80]}")
+    summary = {"wall_ms": wall / n * 1e3,
+               "device_busy_ms": busy_us / n / 1e3 if busy_us > 0 else None,
+               "idle_share": 1 - busy_us / 1e6 / wall if busy_us > 0
+               else None,
+               "top_kernels": [[e.key[:60], dev_self(e) / n / 1e3]
+                               for e in top[:6]]}
     wall, events = _profile(step, n, annotate=True)
     op_types = {op.type for op in main.global_block().ops}
     regions = {"vjp_region/forward", "vjp_region/backward"}
@@ -1403,6 +1520,7 @@ def profile_train(trainer, warm=2, n=3):
     for e in sorted(host, key=lambda e: e.cpu_time_total, reverse=True):
         log(f"    host {e.cpu_time_total / n / 1e3:8.2f} ms/step "
             f"{e.count / n:6.1f} calls/step  {e.key}")
+    return summary
 
 
 def _lstm_program(ptt, cfg):
@@ -1618,9 +1736,21 @@ def _decode_attention_without_backward():
         tda._DecodeAttention = fn
 
 
-def _card_against_cpu(ptt, label, cfg, build, make_feeds, steps=3):
-    """One model of phase 13: raises AssertionError where the card and the
-    CPU disagree."""
+def _card_against_cpu(ptt, label, cfg, build, make_feeds, steps=3,
+                      exact=(), resync=False):
+    """One model of phase 13 (and phase 17): raises AssertionError where
+    the card and the CPU disagree. Losses at rtol 1e-5, gradients at
+    1e-5 of each one's largest element, parameters at 1e-6 + 1e-5 |p|
+    except where the gradient an update applied (after any clipping and
+    weight decay) was below 1e-5 in some step: there Adam moves an element
+    by about lr * sign(g), or, near its epsilon, in proportion to g, so
+    rounding-level differences of g move it by up to 2 * lr a step.
+    With `resync`, the parameters are compared after every step and the
+    CPU then continues from the card's state, so each step is compared
+    from the same state (otherwise such a move changes the next step's
+    forward, and the comparison measures that drift instead of the
+    step). `exact` names state that must end equal (a step counter).
+    Returns the card's scope."""
     import numpy as np
     from paddle_tpu_torch.framework.executor import as_numpy
     main, start, loss = build(ptt, cfg)
@@ -1628,12 +1758,34 @@ def _card_against_cpu(ptt, label, cfg, build, make_feeds, steps=3):
     gpu_scope = ptt.Scope()
     gpu = ptt.Executor(ptt.CUDAPlace(0))
     gpu.run(start, scope=gpu_scope)
-    state = {n: as_numpy(gpu_scope.get(n))
-             for n in gpu_scope.local_var_names()}
-    cpu_scope = ptt.load_numpy_params(state, ptt.Scope(), ptt.CPUPlace())
+
+    def card_state():
+        return {n: as_numpy(gpu_scope.get(n))
+                for n in gpu_scope.local_var_names()}
+
+    cpu_scope = ptt.load_numpy_params(card_state(), ptt.Scope(),
+                                      ptt.CPUPlace())
     cpu = ptt.Executor(ptt.CPUPlace())
-    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    # the gradient each update op applies: n@GRAD, or what gradient
+    # clipping and weight decay made of it (Adam's tiny-gradient rule
+    # below is about the applied one)
+    applied = {op.outputs["ParamOut"][0]: op.inputs["Grad"][0]
+               for op in main.global_block().ops if "ParamOut" in op.outputs}
+    fetch = ([loss.name] + [n + "@GRAD" for n in names]
+             + [applied[n] for n in names])
     small = {n: None for n in names}
+    worst = 0.0
+
+    def compare_params(n_steps):
+        nonlocal worst
+        for n in names:
+            gp, cp = as_numpy(gpu_scope.get(n)), as_numpy(cpu_scope.get(n))
+            tol = np.where(small[n], 2 * cfg["lr"] * n_steps, 0.0) \
+                + 1e-6 + 1e-5 * np.abs(cp)
+            diff = np.abs(gp - cp)
+            assert (diff <= tol).all(), (label, n, float(diff.max()))
+            worst = max(worst, float(np.where(small[n], 0, diff).max()))
+
     feeds = make_feeds(np.random.RandomState(SEED + 8), cfg, steps)
     for i, feed in enumerate(feeds):
         g_out = gpu.run(main, feed=feed, fetch_list=fetch,
@@ -1643,25 +1795,32 @@ def _card_against_cpu(ptt, label, cfg, build, make_feeds, steps=3):
         np.testing.assert_allclose(g_out[0], c_out[0], rtol=1e-5,
                                    err_msg=f"{label}: loss, step "
                                            f"{i + 1}")
-        for n, gg, cg in zip(names, g_out[1:], c_out[1:]):
+        k = len(names)
+        for n, gg, cg, ca in zip(names, g_out[1:k + 1], c_out[1:k + 1],
+                                 c_out[k + 1:]):
             np.testing.assert_allclose(
                 gg, cg, atol=1e-5 * max(1.0, float(np.abs(cg).max())),
                 err_msg=f"{label}: {n}@GRAD, step {i + 1}")
-            tiny = np.abs(cg) < 1e-5
+            tiny = np.abs(ca) < 1e-5
             small[n] = tiny if small[n] is None else small[n] | tiny
         log(f"  {label} step {i + 1}: loss card {float(g_out[0]):.6f}, "
             f"CPU {float(c_out[0]):.6f}")
-    worst = 0.0
-    for n in names:
-        gp, cp = as_numpy(gpu_scope.get(n)), as_numpy(cpu_scope.get(n))
-        tol = np.where(small[n], 2 * cfg["lr"] * steps, 0.0) \
-            + 1e-6 + 1e-5 * np.abs(cp)
-        diff = np.abs(gp - cp)
-        assert (diff <= tol).all(), (label, n, float(diff.max()))
-        worst = max(worst, float(np.where(small[n], 0, diff).max()))
-    log(f"  small {label}, float32, {steps} Adam steps: losses, "
-        f"gradients and {len(names)} parameters agree (largest "
+        if resync:
+            compare_params(1)
+            small = {n: None for n in names}
+            cpu_scope = ptt.load_numpy_params(card_state(), cpu_scope,
+                                              ptt.CPUPlace())
+    if not resync:
+        compare_params(steps)
+    for n in exact:
+        gv, cv = as_numpy(gpu_scope.get(n)), as_numpy(cpu_scope.get(n))
+        assert np.array_equal(gv, cv), (label, n, gv, cv)
+        log(f"  {label}: {n} card {gv.tolist()}, CPU {cv.tolist()}")
+    log(f"  small {label}, float32, {steps} Adam steps"
+        + (" (each from the same state)" if resync else "")
+        + f": losses, gradients and {len(names)} parameters agree (largest "
         f"parameter difference away from tiny gradients {worst:.2e})")
+    return gpu_scope
 
 
 def profile_recurrent(trainers):
@@ -1692,6 +1851,315 @@ def profile_recurrent(trainers):
         for e in sorted(kernels_, key=dev_self, reverse=True)[:10]:
             log(f"    device {dev_self(e) / 1e3:8.2f} ms {e.count:6d} "
                 f"calls  {e.key[:80]}")
+
+
+def _shift_copy_batch(rng, cfg):
+    """One minibatch of the shift-copy task (tests/test_models.py:360-368:
+    tgt token = (src token + 5) % V, teacher-forced behind a BOS) as
+    (src, tgt, lbl) samples, lengths cfg["len_lo"]..max_len. The first
+    sample has the full max_len: the program's shapes are static, and the
+    DataFeeder pads a batch to its longest sequence."""
+    import numpy as np
+    b, t, v = cfg["batch"], cfg["max_len"], cfg["tgt_vocab"]
+    lens = rng.randint(cfg["len_lo"], t + 1, b)
+    lens[0] = t
+    out = []
+    for n in lens:
+        src = rng.randint(2, min(cfg["src_vocab"], v), n).astype(np.int64)
+        trans = (src + 5) % v
+        tgt = np.concatenate([[BOS], trans[:-1]]).astype(np.int64)
+        lbl = np.zeros(t, np.int64)
+        lbl[:n] = trans
+        out.append((src, tgt, lbl))
+    return out
+
+
+def _transformer_model(ptt, cfg, is_test=False, dropout=None):
+    """models.transformer.transformer at `cfg`'s widths; returns (loss,
+    logits)."""
+    from paddle_tpu_torch.models import transformer
+    return transformer.transformer(
+        src_vocab=cfg["src_vocab"], tgt_vocab=cfg["tgt_vocab"],
+        max_len=cfg["max_len"], d_model=cfg["d_model"],
+        d_inner=cfg["d_inner"], num_heads=cfg["num_heads"],
+        num_layers=cfg["num_layers"],
+        dropout=cfg["dropout"] if dropout is None else dropout,
+        is_test=is_test, label_smooth=cfg["label_smooth"])
+
+
+def _transformer_trainer(ptt, cfg, checkpoint_dir):
+    """Trainer over the encoder-decoder with the paper's Adam (§5.3: β1
+    0.9, β2 0.98, ε 1e-9, noam_decay(d_model, warmup)), checkpointing
+    every TRANSFORMER_CKPT_STEP steps, built under a fresh name
+    generator so that its parameter and accumulator names are the same in
+    every build (the resumed trainer's and the inference program's)."""
+    def train_func():
+        return _transformer_model(ptt, cfg)[0]
+
+    def optimizer_func():
+        lr = ptt.layers.noam_decay(cfg["d_model"], cfg["warmup"])
+        return ptt.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.98,
+                                  epsilon=1e-9)
+
+    with ptt.unique_name.guard():
+        return ptt.Trainer(
+            train_func, optimizer_func, place=ptt.CUDAPlace(0),
+            checkpoint_config=ptt.CheckpointConfig(
+                checkpoint_dir, max_num_checkpoints=3, epoch_interval=2,
+                step_interval=TRANSFORMER_CKPT_STEP))
+
+
+@contextlib.contextmanager
+def _counted_dropout(stats):
+    """Count the `dropout` op's lowerings (its launches: each is one mask
+    draw and one multiply) into stats["calls"]; while stats["measure"] is
+    set, also sum the masks drawn (on the device, no sync) for the keep
+    fraction."""
+    import torch
+    from paddle_tpu_torch.framework import registry
+    opdef = registry.lookup_op("dropout")
+    base = opdef.lower
+
+    def counted(ctx, ins, attrs):
+        outs = base(ctx, ins, attrs)
+        stats["calls"] += 1
+        if stats["measure"]:
+            m = outs["Mask"][0]
+            stats["kept"] += m.sum(dtype=torch.float64)
+            stats["n"] += m.numel()
+        return outs
+
+    opdef.lower = counted
+    try:
+        yield
+    finally:
+        opdef.lower = base
+
+
+def train_transformer(ptt, kernels, root):
+    """Phase 15: Transformer-base trained through Trainer at full width.
+    Returns (numbers for the JSON line, trainer, feeds, batches)."""
+    import shutil
+    import numpy as np
+    import torch
+    cfg = TRANSFORMER
+    rng = np.random.RandomState(SEED + 9)
+    batches = [_shift_copy_batch(rng, cfg)
+               for _ in range(TRANSFORMER_BATCHES)]
+    held = _shift_copy_batch(rng, cfg)
+    order = ["src", "tgt", "lbl"]
+
+    def samples():
+        for i in range(TRANSFORMER_STEPS):
+            yield from batches[i % len(batches)]
+
+    reader = ptt.data.batch(samples, cfg["batch"])
+    ckpt = os.path.join(root, "checkpoints")
+    preempted = os.path.join(root, "preempted")
+    t0 = time.perf_counter()
+    trainer = _transformer_trainer(ptt, cfg, ckpt)
+    torch.cuda.synchronize()
+    main = trainer.train_program
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    n_drop = sum(op.type == "dropout" for op in main.global_block().ops)
+    persist = sorted(v.name for v in main.global_block().vars.values()
+                     if v.persistable)
+    log(f"  built and initialized in {time.perf_counter() - t0:.2f} s: "
+        f"{n_params / 1e6:.2f}M parameters, {n_drop} dropout ops, "
+        f"{len(persist)} persistables")
+    dev = torch.device("cuda", 0)
+    stats = {"calls": 0, "measure": False, "n": 0,
+             "kept": torch.zeros((), dtype=torch.float64, device=dev)}
+    losses, secs, tokens, snapshot, clock = [], [], [], {}, [0.0]
+    lens = [int(sum(len(s[1]) for s in bt)) for bt in batches]
+
+    def handler(ev):
+        if isinstance(ev, ptt.BeginStepEvent):
+            stats["measure"] = ev.step == 0
+            if ev.step == TRANSFORMER_CKPT_STEP:
+                # right after step 10's checkpoint: keep the directory as
+                # a run preempted here would leave it, and the state
+                shutil.copytree(ckpt, preempted)
+                snapshot.update({n: trainer.scope.get(n).clone()
+                                 for n in persist})
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+        elif isinstance(ev, ptt.EndStepEvent):
+            # the loss is fetched as numpy: the step has finished
+            secs.append(time.perf_counter() - clock[0])
+            losses.append(float(ev.metrics[0]))
+            tokens.append(lens[ev.step % len(batches)])
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with _counted_dropout(stats):
+        trainer.train(1, handler, reader, order)
+    launches = dict(kernels.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    keep = float(stats["kept"]) / max(stats["n"], 1)
+    st = np.asarray(secs[1:]) * 1e3          # the first step plans
+    k = len(batches)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    tok_s = float(np.sum(tokens[1:]) / np.sum(secs[1:]))
+    log(f"  Transformer-base, Adam + noam, dropout {cfg['dropout']}, label "
+        f"smoothing {cfg['label_smooth']}: {len(losses)} steps of "
+        f"{cfg['batch']} pairs ({np.mean(tokens):.0f} target tokens a "
+        f"step on average): step time median {np.median(st):.1f} ms, p95 "
+        f"{np.percentile(st, 95):.1f} ms (steps 2-{len(losses)}; step 1 "
+        f"{secs[0] * 1e3:.1f} ms), {tok_s:.0f} target tokens/s; loss step "
+        f"1 {losses[0]:.4f}, step {len(losses)} {losses[-1]:.4f} (mean over "
+        f"the {k} batches: first pass {first:.4f}, last pass {last:.4f}); "
+        f"peak device memory {peak_mb:.1f} MB")
+    log(f"  losses: {[round(x, 4) for x in losses]}")
+    log(f"  dropout: {stats['calls']} launches ({n_drop} a step), keep "
+        f"fraction {keep:.5f} over step 1's {stats['n']} mask elements "
+        f"(expected {1 - cfg['dropout']}); launches {launches}")
+    assert len(losses) == TRANSFORMER_STEPS, losses
+    assert all(math.isfinite(x) for x in losses), f"loss {losses}"
+    assert last < first, f"the loss did not fall: {losses}"
+    assert stats["calls"] == n_drop * TRANSFORMER_STEPS, stats["calls"]
+    p = cfg["dropout"]
+    assert abs(keep - (1 - p)) < 4 * math.sqrt(p * (1 - p) / stats["n"]), \
+        f"keep fraction {keep} is not 1 - {p} within 4 sigma"
+    # attention-weight dropout takes the explicit softmax route in training
+    assert launches["flash_fwd"] == 0, launches
+
+    test_loss = trainer.test(lambda: iter([held]), order)
+    log(f"  Trainer.test over one held batch: loss {test_loss[0]:.4f}")
+    assert all(math.isfinite(x) for x in test_loss), test_loss
+
+    serials = sorted(os.listdir(preempted))
+    resumed = _transformer_trainer(ptt, cfg, preempted)
+    ccfg = resumed.checkpoint_cfg
+    log(f"  a new Trainer on the checkpoint dir of step "
+        f"{TRANSFORMER_CKPT_STEP} ({serials}) resumes at epoch "
+        f"{ccfg.epoch_id}, step {ccfg.step_id}")
+    assert (ccfg.epoch_id, ccfg.step_id) == (0, TRANSFORMER_CKPT_STEP)
+    differ = [n for n in persist
+              if not torch.equal(resumed.scope.get(n), snapshot[n])]
+    assert not differ, f"resumed state differs from the saved: {differ}"
+    log(f"  all {len(persist)} persistables (parameters, Adam moments and "
+        f"beta powers, the noam step counter "
+        f"{int(resumed.scope.get('@LR_DECAY_COUNTER@1@'))}) bit-equal to "
+        f"the state at the checkpoint")
+    del resumed, snapshot
+    torch.cuda.empty_cache()
+    feeder = ptt.DataFeeder(order, program=main)
+    feeds = [feeder.feed(bt) for bt in batches]
+    numbers = {"target_tokens_per_s": tok_s,
+               "step_ms_median": float(np.median(st)),
+               "step_ms_p95": float(np.percentile(st, 95)),
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "loss_first_pass": first, "loss_last_pass": last,
+               "test_loss": float(test_loss[0]), "peak_mb": peak_mb,
+               "dropout_launches": stats["calls"], "keep_fraction": keep,
+               "resumed_step": ccfg.step_id}
+    return numbers, trainer, feeds, held
+
+
+def infer_transformer(ptt, kernels, trainer, held, root):
+    """Phase 16: the trained weights served through Inferencer from
+    save_inference_model's directory: the is_test program, whose attention
+    is K1 on its bfloat16 tensor-core route."""
+    import numpy as np
+    import torch
+    cfg = TRANSFORMER
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        _, logits = _transformer_model(ptt, cfg, is_test=True,
+                                       dropout=cfg["dropout"])
+    model_dir = os.path.join(root, "inference")
+    ptt.io.save_inference_model(model_dir, ["src", "tgt"], [logits],
+                                executor=trainer.exe, main_program=main,
+                                scope=trainer.scope)
+    inf = ptt.Inferencer(model_dir, place=ptt.CUDAPlace(0))
+    feed = ptt.DataFeeder(["src", "tgt"], program=inf.program).feed(
+        [(s, t) for s, t, _ in held])
+    kernels.reset_launch_counts()
+    out1 = inf.infer(feed, return_numpy=False)[0]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out2 = inf.infer(feed, return_numpy=False)[0]
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    n_attn = 3 * cfg["num_layers"]
+    log(f"  Inferencer on CUDAPlace(0): logits {tuple(out1.shape)} "
+        f"{out1.dtype}, {np.median(secs) * 1e3:.1f} ms a batch of "
+        f"{cfg['batch']} (median of 3); launches in one batch {launches}")
+    assert tuple(out1.shape) == (cfg["batch"], cfg["max_len"],
+                                 cfg["tgt_vocab"]), out1.shape
+    assert bool(torch.isfinite(out1).all()), "non-finite logits"
+    assert torch.equal(out1, out2), "two runs gave different logits"
+    for kname in ("flash_fwd", "flash_fwd_tc"):
+        assert launches[kname] == n_attn, (
+            f"{kname} launched {launches[kname]} times; the inference "
+            f"program attends {n_attn} times a batch")
+    return {"flash_fwd_tc_launches": launches["flash_fwd_tc"],
+            "infer_ms": float(np.median(secs)) * 1e3}
+
+
+def transformer_reference_check(ptt):
+    """Phase 17: the encoder-decoder small and in float32, card against
+    CPU from the same weights: 3 Adam steps with the global-norm clip,
+    L2 decay and noam_decay at dropout 0 (so K1-K3 in float32 on the
+    training path, cross-attention included); then the dropout-0.1
+    is_test inference program's logits."""
+    import numpy as np
+    from paddle_tpu_torch.framework.executor import as_numpy
+    cfg = TRANSFORMER_SMALL
+
+    def build(ptt, cfg):
+        main, start = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, start), ptt.unique_name.guard():
+            loss, _ = _transformer_model(ptt, cfg, dropout=0.0)
+            ptt.clip.set_gradient_clip(
+                ptt.clip.GradientClipByGlobalNorm(1.0))
+            lr = ptt.layers.noam_decay(cfg["d_model"], cfg["warmup"])
+            ptt.optimizer.Adam(
+                learning_rate=lr,
+                regularization=ptt.regularizer.L2Decay(1e-4)).minimize(loss)
+        return main, start, loss
+
+    def make_feeds(rng, cfg, n):
+        data = ptt.Program()
+        with ptt.program_guard(data, ptt.Program()):
+            slots = [ptt.layers.data(name, [cfg["max_len"]], "int64",
+                                     lod_level=lod)
+                     for name, lod in (("src", 1), ("tgt", 1), ("lbl", 0))]
+        feeder = ptt.DataFeeder(slots)
+        return [feeder.feed(_shift_copy_batch(rng, cfg)) for _ in range(n)]
+
+    prev = ptt.flags.get_flag("use_bf16_matmul")
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    try:
+        gpu_scope = _card_against_cpu(ptt, "encoder-decoder", cfg, build,
+                                      make_feeds, resync=True,
+                                      exact=("@LR_DECAY_COUNTER@1@",))
+        main, start = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, start), ptt.unique_name.guard():
+            _, logits = _transformer_model(ptt, cfg, is_test=True,
+                                           dropout=0.1)
+        names = [p.name for p in main.all_parameters()]
+        params = {n: as_numpy(gpu_scope.get(n)) for n in names}
+        feed = make_feeds(np.random.RandomState(SEED + 10), cfg, 1)[0]
+        outs = []
+        for place in (ptt.CUDAPlace(0), ptt.CPUPlace()):
+            scope = ptt.load_numpy_params(params, ptt.Scope(), place)
+            outs.append(ptt.Executor(place).run(
+                main, feed=feed, fetch_list=[logits], scope=scope)[0])
+    finally:
+        ptt.flags.set_flag("use_bf16_matmul", prev)
+    card, cpu = outs
+    err = float(np.abs(card - cpu).max())
+    tol = 1e-5 * max(1.0, float(np.abs(cpu).max()))
+    log(f"  is_test program (dropout 0.1), float32: logits "
+        f"{card.shape}, card against CPU max_abs_err {err:.3e} "
+        f"(tolerance {tol:.1e})")
+    assert np.isfinite(card).all() and err <= tol, (err, tol)
+    return {"infer_max_abs_err": err}
 
 
 def main():
@@ -1774,6 +2242,30 @@ def main():
 
     log("phase 14: where a recurrent training step's time goes")
     profile_recurrent({"stacked LSTM": lstm_trainer, "NMT": nmt_trainer})
+    del lstm_trainer, nmt_trainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        log("phase 15: train the encoder-decoder Transformer-base through "
+            "Trainer")
+        paths = {"transformer_base_train": None}
+        paths["transformer_base_train"], tr_trainer, tr_feeds, held = \
+            train_transformer(ptt, kernels, root)
+
+        log("phase 16: serve its is_test program through Inferencer (K1)")
+        paths["transformer_base_infer"] = infer_transformer(
+            ptt, kernels, tr_trainer, held, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    log("phase 17: encoder-decoder reference check on a small input")
+    paths["transformer_small_reference"] = transformer_reference_check(ptt)
+
+    log("phase 18: where a Transformer-base training step's time goes")
+    paths["transformer_base_profile"] = profile_train(
+        (tr_trainer.exe, tr_trainer.train_program, tr_trainer.scope,
+         tr_trainer.loss, tr_feeds))
+    del tr_trainer
 
     # each kernel's launches on its own path: decode attention on the
     # serving run (phase 4; its NMT run beside it), the flash kernels on
@@ -1789,9 +2281,12 @@ def main():
         results[k]["launches_tc_bf16"] = train_launches[tc]
     for k, n in launches.items():
         assert n > 0, f"kernel {k} was never launched on its path"
+    results["flash_fwd"]["launches_tc_transformer_base_infer"] = \
+        paths["transformer_base_infer"]["flash_fwd_tc_launches"]
     line = {"kernels": [dict(name=k, **_KERNEL_META[k],
                              launches=launches[k], **results[k])
-                        for k in results]}
+                        for k in results],
+            "paths": paths}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,10 +9,15 @@ the caller passes CPUPlace(). This package imports neither jax nor
 paddle_tpu.
 
 Ported so far: the serving path (`ContinuousBatchingEngine` over
-`transformer_lm_decode_tick`, with the fused decode-attention kernel) and
-the training step (`transformer_lm`, `optimizer.Adam(...).minimize(loss)`
-through `append_backward` on torch.autograd, with the flash-attention
-forward and backward kernels). ROADMAP.md lists what is still to be ported.
+`transformer_lm_decode_tick`, with the fused decode-attention kernel); the
+training step (`transformer_lm` and the encoder-decoder `transformer`,
+`optimizer.Adam(...).minimize(loss)` through `append_backward` on
+torch.autograd, with the flash-attention forward and backward kernels,
+dropout, gradient clipping, weight decay and the learning-rate
+schedules); the recurrent models with their whole-sequence kernels; and
+the high-level API: `Trainer` (events, checkpoints, resume), `io`
+save/load in the JAX package's format, `Inferencer` / `Predictor`.
+ROADMAP.md lists what is still to be ported.
 """
 
 from . import clip, initializer, layers, optimizer, regularizer  # noqa: F401
@@ -28,8 +33,17 @@ from .framework.program import (Program, Variable,  # noqa: F401
 from .framework.registry import registered_ops  # noqa: F401
 from .framework.scope import Scope, global_scope, reset_global_scope  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
-from . import data, io, models, serving  # noqa: F401,E402
-from .io import load_numpy_params  # noqa: F401,E402
+from . import data, io, models, observability, serving  # noqa: F401,E402
+from . import inferencer, trainer  # noqa: F401,E402
+from .data.feeder import DataFeeder  # noqa: F401,E402
+from .inferencer import Inferencer, Predictor  # noqa: F401,E402
+from .io import (load_inference_model, load_numpy_params,  # noqa: F401,E402
+                 load_params, load_persistables, load_vars,
+                 save_inference_model, save_params, save_persistables,
+                 save_vars)
 from .serving import ContinuousBatchingEngine  # noqa: F401,E402
+from .trainer import (BeginEpochEvent, BeginStepEvent,  # noqa: F401,E402
+                      CheckpointConfig, EndEpochEvent, EndStepEvent,
+                      Trainer, load_checkpoint, save_checkpoint)
 
 __version__ = "0.1.0"

@@ -47,8 +47,9 @@
 // Layouts (the wrapper makes them so): q, o, dO, dq [B*H, Tq, D], k, v,
 // dk, dv [B*H, Tk, D], all contiguous and of one type (float32 or
 // bfloat16); lse, delta [B*H, Tq] float32; segment ids [B, Tq] and
-// [B, Tk] int32 or null. D is 32, 64, 128 or 256 (the wrapper zero-pads
-// any other D up to 256 to the next of those).
+// [B, Tk] int32 or null. D is 32, 64, 128 or 256, or a multiple of 128
+// above 256 (the wide-head route, below); the wrapper zero-pads any other
+// D to the next of those.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,7 +95,7 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  int H, Tq, Tk, causal;
+  int D, H, Tq, Tk, causal;
   float scale;
 };
 
@@ -1491,6 +1492,497 @@ constexpr size_t dkv_tc_smem() {
          (sizeof(float) * 2 + sizeof(int)) * 2 * kBQ;
 }
 
+// ---------------------------------------------------------------------------
+// K1-K3 for head dims above 256: the wide-head route, for float32 and
+// bfloat16 inputs alike, with float32 arithmetic inside (plain FMAs on the
+// CUDA cores, as the float32 kernels above). D is a runtime argument, a
+// multiple of kWO (the wrapper zero-pads q, k, v and dO, which is exact).
+//
+// No tile scales with D, so shared memory is the same for every D:
+//   - the scores (and dP) are summed over all of D in chunks of kWC
+//     columns: each chunk of the block's own rows (queries in K1 and K2,
+//     keys in K3) and of the streamed side is staged through shared
+//     memory, and the block accumulates s (and dp) in registers across
+//     the chunks;
+//   - each block writes one kWO-column slice of O, dQ or dK and dV, so
+//     the grid's z dimension is D / kWO; the blocks of one row tile
+//     recompute its scores, which a slice of 128 columns over 64-column
+//     chunks costs about as much as the slice's own product.
+// The rounding points are the plain version's: P to v's type before P.V
+// (to dO's before dV), dS to k's type before dS.K (to q's before dS^T.Q).
+// bfloat16 inputs are widened exactly to float32 as they are staged; sums
+// are float32, so the result differs from the plain version by sums in
+// another order only, well inside flash_*_bound. A simple design that is
+// right: its speed is later work (PERF.md).
+// ---------------------------------------------------------------------------
+constexpr int kWC = 64;           // D columns a chunk stages
+constexpr int kWLD = kWC + 1;     // row stride of a chunk tile
+constexpr int kWO = 128;          // output columns a block owns
+constexpr int kWNJ = kWO / 16;    // output columns a thread owns
+
+template <typename T>
+__device__ __forceinline__ float ld_f(const T* p, long long i) {
+  if constexpr (std::is_same<T, float>::value) return p[i];
+  else return __bfloat162float(p[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ void st_f(T* p, long long i, float v) {
+  if constexpr (std::is_same<T, float>::value) p[i] = v;
+  else p[i] = __float2bfloat16(v);
+}
+
+// v rounded to T and back: the plain version's cast before a product.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same<T, float>::value) return v;
+  else return __bfloat162float(__float2bfloat16(v));
+}
+
+// Columns [c0, c0 + nc) of rows [row0, row0 + n) of a row-major [total, D]
+// matrix into a float tile with row stride ld; rows past `total` read as 0.
+template <typename T>
+__device__ __forceinline__ void load_cols(float* dst, int ld, const T* src,
+                                          int D, int row0, int total, int n,
+                                          int c0, int nc) {
+  for (int e = threadIdx.x; e < n * nc; e += kThreads) {
+    const int r = e / nc, c = e % nc;
+    const int g = row0 + r;
+    dst[r * ld + c] = g < total ? ld_f(src, (long long)g * D + c0 + c) : 0.f;
+  }
+}
+
+// s[i][j] (and dp[i][j] when G and V are given) += the dot over one chunk
+// of rows 4*ty+i of A (and G) with rows tx+16j of B (and V), all
+// [64][kWLD] chunk tiles.
+template <bool kDp>
+__device__ __forceinline__ void chunk_dots(const float* A, const float* B,
+                                           const float* G, const float* V,
+                                           float (&s)[4][4],
+                                           float (&dp)[4][4]) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll 8
+  for (int d = 0; d < kWC; ++d) {
+    float qa[4], kc[4], ga[4], vc[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qa[i] = A[(ty * 4 + i) * kWLD + d];
+      if constexpr (kDp) ga[i] = G[(ty * 4 + i) * kWLD + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kc[j] = B[(tx + 16 * j) * kWLD + d];
+      if constexpr (kDp) vc[j] = V[(tx + 16 * j) * kWLD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qa[i], kc[j], s[i][j]);
+        if constexpr (kDp) dp[i][j] = fmaf(ga[i], vc[j], dp[i][j]);
+      }
+  }
+}
+
+// K1, wide. One block per (q tile, batch*head, kWO-column slice of O).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel(Args a) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                // Q chunk [kBQ][kWLD]
+  float* Ks = Qs + kBQ * kWLD;     // K chunk [kBK][kWLD]
+  float* Vs = Ks + kBK * kWLD;     // V slice [kBK][kWO]
+  float* Ps = Vs + kBK * kWO;      // [kBQ][kPS]
+  int* qid = reinterpret_cast<int*>(Ps + kBQ * kPS);  // [kBQ]
+  int* kid = qid + kBQ;                               // [kBK]
+
+  const int D = a.D, Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
+  const int qb = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
+  const int bh = blockIdx.y, b = bh / a.H, c0 = blockIdx.z * kWO;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
+  const T* q = static_cast<const T*>(a.q) + (long long)bh * Tq * D;
+  const T* k = static_cast<const T*>(a.k) + (long long)bh * Tk * D;
+  const T* v = static_cast<const T*>(a.v) + (long long)bh * Tk * D;
+  const bool seg = a.qseg != nullptr;
+
+  if (seg) load_ids(qid, a.qseg + (long long)b * Tq, q0, Tq, kBQ);
+  __syncthreads();
+  int qlo = 0, qhi = 0;
+  int myq[4] = {0, 0, 0, 0};
+  if (seg) {
+    id_range(qid, nqr, qlo, qhi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) myq[i] = qid[ty * 4 + i];
+  }
+
+  float m[4], l[4], acc[4][kWNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kWNJ; ++c) acc[i][c] = 0.f;
+  }
+
+  const int n_kt = key_tiles(a, q0, nqr);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK, nkr = min(kBK, Tk - k0);
+    __syncthreads();   // the previous tile's readers are done
+    if (seg) {
+      load_ids(kid, a.kvseg + (long long)b * Tk, k0, Tk, kBK);
+      __syncthreads();
+      int klo, khi;
+      id_range(kid, nkr, klo, khi);
+      if (qhi < klo || qlo > khi) continue;   // no id can match: dead tile
+    }
+    float s[4][4], unused[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWC) {
+      __syncthreads();   // the previous chunk's readers are done
+      load_cols(Qs, kWLD, q, D, q0, Tq, kBQ, d0, kWC);
+      load_cols(Ks, kWLD, k, D, k0, Tk, kBK, d0, kWC);
+      __syncthreads();
+      chunk_dots<false>(Qs, Ks, nullptr, nullptr, s, unused);
+    }
+    load_cols(Vs, kWO, v, D, k0, Tk, kBK, c0, kWO);
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty * 4 + i;
+      float mc = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        bool ok = kp < Tk;
+        if (seg) ok = ok && myq[i] == kid[tx + 16 * j];
+        if (a.causal) ok = ok && qp + off >= kp;
+        s[i][j] = ok ? s[i][j] * a.scale : kNegInf;
+        mc = fmaxf(mc, s[i][j]);
+      }
+      const float mn = fmaxf(m[i], half_warp_max(mc));
+      const float alpha = expf(m[i] - mn);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float e = expf(s[i][j] - mn);
+        e = s[i][j] > kNegInf * 0.5f ? e : 0.f;
+        rs += e;
+        Ps[(ty * 4 + i) * kPS + tx + 16 * j] = round_to<T>(e);
+      }
+      l[i] = l[i] * alpha + half_warp_sum(rs);
+      m[i] = mn;
+#pragma unroll
+      for (int c = 0; c < kWNJ; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      float pv[4], vv[kWNJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * kPS + kk];
+#pragma unroll
+      for (int c = 0; c < kWNJ; ++c) vv[c] = Vs[kk * kWO + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < kWNJ; ++c)
+          acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+
+  T* out = static_cast<T*>(a.out) + (long long)bh * Tq * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + ty * 4 + i;
+    if (qp >= Tq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < kWNJ; ++c)
+      st_f(out, (long long)qp * D + c0 + tx + 16 * c, acc[i][c] / den);
+    if (a.lse_out != nullptr && tx == 0 && blockIdx.z == 0)
+      a.lse_out[(long long)bh * Tq + qp] = m[i] + logf(den);
+  }
+}
+
+// K2, wide: dQ. One block per (q tile, batch*head, kWO-column slice).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dq_wide_kernel(Args a) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                // Q chunk [kBQ][kWLD]
+  float* Gs = Qs + kBQ * kWLD;     // dO chunk [kBQ][kWLD]
+  float* Ks = Gs + kBQ * kWLD;     // K chunk [kBK][kWLD]
+  float* Vs = Ks + kBK * kWLD;     // V chunk [kBK][kWLD]
+  float* Kv = Vs + kBK * kWLD;     // K slice [kBK][kWO]
+  float* Ss = Kv + kBK * kWO;      // dS [kBQ][kPS]
+  float* lse_s = Ss + kBQ * kPS;   // [kBQ]
+  float* dl_s = lse_s + kBQ;       // [kBQ]
+  int* qid = reinterpret_cast<int*>(dl_s + kBQ);   // [kBQ]
+  int* kid = qid + kBQ;                            // [kBK]
+
+  const int D = a.D, Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y, b = bh / a.H, c0 = blockIdx.z * kWO;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
+  const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
+  const T* q = static_cast<const T*>(a.q) + qoff;
+  const T* g = static_cast<const T*>(a.dout) + qoff;
+  const T* k = static_cast<const T*>(a.k) + koff;
+  const T* v = static_cast<const T*>(a.v) + koff;
+  const bool seg = a.qseg != nullptr;
+
+  load_rows(lse_s, a.lse_in + (long long)bh * Tq, q0, Tq, kBQ);
+  load_rows(dl_s, a.delta + (long long)bh * Tq, q0, Tq, kBQ);
+  if (seg) load_ids(qid, a.qseg + (long long)b * Tq, q0, Tq, kBQ);
+  __syncthreads();
+  int qlo = 0, qhi = 0;
+  int myq[4] = {0, 0, 0, 0};
+  float lse[4], dl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lse[i] = lse_s[ty * 4 + i];
+    dl[i] = dl_s[ty * 4 + i];
+  }
+  if (seg) {
+    id_range(qid, nqr, qlo, qhi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) myq[i] = qid[ty * 4 + i];
+  }
+
+  float acc[4][kWNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kWNJ; ++c) acc[i][c] = 0.f;
+
+  const int n_kt = key_tiles(a, q0, nqr);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK, nkr = min(kBK, Tk - k0);
+    __syncthreads();
+    if (seg) {
+      load_ids(kid, a.kvseg + (long long)b * Tk, k0, Tk, kBK);
+      __syncthreads();
+      int klo, khi;
+      id_range(kid, nkr, klo, khi);
+      if (qhi < klo || qlo > khi) continue;
+    }
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWC) {
+      __syncthreads();
+      load_cols(Qs, kWLD, q, D, q0, Tq, kBQ, d0, kWC);
+      load_cols(Gs, kWLD, g, D, q0, Tq, kBQ, d0, kWC);
+      load_cols(Ks, kWLD, k, D, k0, Tk, kBK, d0, kWC);
+      load_cols(Vs, kWLD, v, D, k0, Tk, kBK, d0, kWC);
+      __syncthreads();
+      chunk_dots<true>(Qs, Ks, Gs, Vs, s, dp);
+    }
+    load_cols(Kv, kWO, k, D, k0, Tk, kBK, c0, kWO);
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        bool ok = qp < Tq && kp < Tk;
+        if (seg) ok = ok && myq[i] == kid[tx + 16 * j];
+        if (a.causal) ok = ok && qp + off >= kp;
+        const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
+        Ss[(ty * 4 + i) * kPS + tx + 16 * j] =
+            round_to<T>(p * (dp[i][j] - dl[i]) * a.scale);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      float sv[4], kv[kWNJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sv[i] = Ss[(ty * 4 + i) * kPS + kk];
+#pragma unroll
+      for (int c = 0; c < kWNJ; ++c) kv[c] = Kv[kk * kWO + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < kWNJ; ++c)
+          acc[i][c] = fmaf(sv[i], kv[c], acc[i][c]);
+    }
+  }
+
+  T* dq = static_cast<T*>(a.dq) + qoff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + ty * 4 + i;
+    if (qp >= Tq) continue;
+#pragma unroll
+    for (int c = 0; c < kWNJ; ++c)
+      st_f(dq, (long long)qp * D + c0 + tx + 16 * c, acc[i][c]);
+  }
+}
+
+// K3, wide: dK and dV. One block per (k tile, batch*head, kWO-column
+// slice); query tiles stream through.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dkv_wide_kernel(Args a) {
+  extern __shared__ float smem[];
+  float* Ks = smem;                // K chunk [kBK][kWLD]
+  float* Vs = Ks + kBK * kWLD;     // V chunk [kBK][kWLD]
+  float* Qs = Vs + kBK * kWLD;     // Q chunk [kBQ][kWLD]
+  float* Gs = Qs + kBQ * kWLD;     // dO chunk [kBQ][kWLD]
+  float* Qv = Gs + kBQ * kWLD;     // Q slice [kBQ][kWO]
+  float* Gv = Qv + kBQ * kWO;      // dO slice [kBQ][kWO]
+  float* Ps = Gv + kBQ * kWO;      // P [kBQ][kPS]
+  float* Ss = Ps + kBQ * kPS;      // dS [kBQ][kPS]
+  float* lse_s = Ss + kBQ * kPS;   // [kBQ]
+  float* dl_s = lse_s + kBQ;       // [kBQ]
+  int* qid = reinterpret_cast<int*>(dl_s + kBQ);   // [kBQ]
+  int* kid = qid + kBQ;                            // [kBK]
+
+  const int D = a.D, Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y, b = bh / a.H, c0 = blockIdx.z * kWO;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int k0 = kt * kBK, nkr = min(kBK, Tk - k0);
+  const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
+  const T* q = static_cast<const T*>(a.q) + qoff;
+  const T* g = static_cast<const T*>(a.dout) + qoff;
+  const T* k = static_cast<const T*>(a.k) + koff;
+  const T* v = static_cast<const T*>(a.v) + koff;
+  const bool seg = a.qseg != nullptr;
+
+  if (seg) load_ids(kid, a.kvseg + (long long)b * Tk, k0, Tk, kBK);
+  __syncthreads();
+  int klo = 0, khi = 0;
+  int myk[4] = {0, 0, 0, 0};
+  if (seg) {
+    id_range(kid, nkr, klo, khi);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) myk[j] = kid[tx + 16 * j];
+  }
+
+  float dk[4][kWNJ], dv[4][kWNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kWNJ; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  const int n_qt = (Tq + kBQ - 1) / kBQ;
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int q0 = qt * kBQ, nqr = min(kBQ, Tq - q0);
+    // causal: the tile's last row must see this tile's first key
+    if (a.causal && q0 + nqr - 1 + off < k0) continue;
+    __syncthreads();
+    if (seg) {
+      load_ids(qid, a.qseg + (long long)b * Tq, q0, Tq, kBQ);
+      __syncthreads();
+      int qlo, qhi;
+      id_range(qid, nqr, qlo, qhi);
+      if (qhi < klo || qlo > khi) continue;
+    }
+    load_rows(lse_s, a.lse_in + (long long)bh * Tq, q0, Tq, kBQ);
+    load_rows(dl_s, a.delta + (long long)bh * Tq, q0, Tq, kBQ);
+
+    // rows: queries ty*4+i; columns: keys tx+16j
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWC) {
+      __syncthreads();
+      load_cols(Qs, kWLD, q, D, q0, Tq, kBQ, d0, kWC);
+      load_cols(Gs, kWLD, g, D, q0, Tq, kBQ, d0, kWC);
+      load_cols(Ks, kWLD, k, D, k0, Tk, kBK, d0, kWC);
+      load_cols(Vs, kWLD, v, D, k0, Tk, kBK, d0, kWC);
+      __syncthreads();
+      chunk_dots<true>(Qs, Ks, Gs, Vs, s, dp);
+    }
+    load_cols(Qv, kWO, q, D, q0, Tq, kBQ, c0, kWO);
+    load_cols(Gv, kWO, g, D, q0, Tq, kBQ, c0, kWO);
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, qp = q0 + r;
+      const int qs = seg ? qid[r] : 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        bool ok = qp < Tq && kp < Tk;
+        if (seg) ok = ok && qs == myk[j];
+        if (a.causal) ok = ok && qp + off >= kp;
+        const float p = ok ? expf(s[i][j] * a.scale - lse_s[r]) : 0.f;
+        Ps[r * kPS + tx + 16 * j] = round_to<T>(p);
+        Ss[r * kPS + tx + 16 * j] =
+            round_to<T>(p * (dp[i][j] - dl_s[r]) * a.scale);
+      }
+    }
+    __syncthreads();
+
+    // dV[kr] += sum_q P[q][kr] dO[q], dK[kr] += sum_q dS[q][kr] Q[q]
+#pragma unroll 4
+    for (int qq = 0; qq < kBQ; ++qq) {
+      float pv[4], sv[4], gv[kWNJ], qv[kWNJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = Ps[qq * kPS + ty * 4 + i];
+        sv[i] = Ss[qq * kPS + ty * 4 + i];
+      }
+#pragma unroll
+      for (int c = 0; c < kWNJ; ++c) {
+        gv[c] = Gv[qq * kWO + tx + 16 * c];
+        qv[c] = Qv[qq * kWO + tx + 16 * c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < kWNJ; ++c) {
+          dv[i][c] = fmaf(pv[i], gv[c], dv[i][c]);
+          dk[i][c] = fmaf(sv[i], qv[c], dk[i][c]);
+        }
+    }
+  }
+
+  T* dko = static_cast<T*>(a.dk) + koff;
+  T* dvo = static_cast<T*>(a.dv) + koff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kp = k0 + ty * 4 + i;
+    if (kp >= Tk) continue;
+#pragma unroll
+    for (int c = 0; c < kWNJ; ++c) {
+      st_f(dko, (long long)kp * D + c0 + tx + 16 * c, dk[i][c]);
+      st_f(dvo, (long long)kp * D + c0 + tx + 16 * c, dv[i][c]);
+    }
+  }
+}
+
+// Dynamic shared memory of the wide kernels, in bytes: the same at every D.
+constexpr size_t fwd_wide_smem() {
+  return sizeof(float) * ((size_t)(kBQ + kBK) * kWLD + (size_t)kBK * kWO +
+                          (size_t)kBQ * kPS) +
+         sizeof(int) * (kBQ + kBK);
+}
+constexpr size_t dq_wide_smem() {
+  return sizeof(float) * ((size_t)2 * (kBQ + kBK) * kWLD +
+                          (size_t)kBK * kWO + (size_t)kBQ * kPS + 2 * kBQ) +
+         sizeof(int) * (kBQ + kBK);
+}
+constexpr size_t dkv_wide_smem() {
+  return sizeof(float) * ((size_t)2 * (kBQ + kBK) * kWLD +
+                          (size_t)2 * kBQ * kWO + (size_t)2 * kBQ * kPS +
+                          2 * kBQ) +
+         sizeof(int) * (kBQ + kBK);
+}
+static_assert(dkv_wide_smem() <= 232448, "K3 wide exceeds 227 KB");
+
 template <typename Kernel>
 cudaError_t launch(Kernel kern, dim3 grid, size_t smem, cudaStream_t s,
                    const Args& a, int threads = kThreads) {
@@ -1529,8 +2021,26 @@ cudaError_t run(int which, const Args& a, int BH, cudaStream_t s) {
   }
 }
 
+// The wide-head route, grid (tile, batch*head, D / kWO).
+template <typename T>
+cudaError_t run_wide(int which, const Args& a, int BH, cudaStream_t s) {
+  const int nq = (a.Tq + kBQ - 1) / kBQ, nk = (a.Tk + kBK - 1) / kBK;
+  const int nz = a.D / kWO;
+  if (which == kFwd)
+    return launch(flash_fwd_wide_kernel<T>, dim3(nq, BH, nz),
+                  fwd_wide_smem(), s, a);
+  if (which == kDq)
+    return launch(flash_dq_wide_kernel<T>, dim3(nq, BH, nz), dq_wide_smem(),
+                  s, a);
+  return launch(flash_dkv_wide_kernel<T>, dim3(nk, BH, nz), dkv_wide_smem(),
+                s, a);
+}
+
 template <typename T>
 cudaError_t run_d(int which, int D, const Args& a, int BH, cudaStream_t s) {
+  if (D > 256)
+    return D % kWO == 0 ? run_wide<T>(which, a, BH, s)
+                        : cudaErrorInvalidValue;
   switch (D) {
     case 32:
       return run<T, 32>(which, a, BH, s);
@@ -1545,8 +2055,9 @@ cudaError_t run_d(int which, int D, const Args& a, int BH, cudaStream_t s) {
   }
 }
 
-int run_checked(int which, int is_bf16, int D, const Args& a, int BH,
+int run_checked(int which, int is_bf16, int D, Args a, int BH,
                 void* stream) {
+  a.D = D;
   if (BH < 1 || BH > 65535 || a.H < 1 || BH % a.H != 0 || a.Tq < 1 ||
       a.Tk < 1 || a.Tq > 65535 * kBQ || a.Tk > 65535 * kBK)
     return cudaErrorInvalidValue;
@@ -1565,8 +2076,15 @@ const char* ptt_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory, in bytes, of the kernel that `which` (0 forward,
-// 1 dQ, 2 dK/dV) launches for the type and head dim; 0 for another D.
+// 1 dQ, 2 dK/dV) launches for the type and head dim (any multiple of 128
+// above 256 takes the wide-head route); 0 for another D.
 int ptt_flash_smem_bytes(int which, int is_bf16, int D) {
+  if (D > 256) {
+    if (D % kWO != 0) return 0;
+    if (which == kFwd) return (int)fwd_wide_smem();
+    if (which == kDq) return (int)dq_wide_smem();
+    return (int)dkv_wide_smem();
+  }
   auto pick = [&](auto d) -> size_t {
     constexpr int kD = decltype(d)::value;
     if (which == kFwd) return is_bf16 ? fwd_tc_smem<kD>() : fwd_smem<kD>();

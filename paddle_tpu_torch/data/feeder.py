@@ -1,0 +1,56 @@
+"""DataFeeder: minibatch list-of-samples → feed dict of dense arrays.
+
+≙ paddle_tpu/data/feeder.py (reference python/paddle/fluid/data_feeder.py:
+DataFeeder converting numpy/lists to LoDTensors per feed var), without the
+byte-lean staging that the port's `layers.data` does not take. Sequence
+(lod_level>0) slots are padded to the batch max length and a companion
+`<name>@SEQLEN` int32 vector is emitted — the static-shape translation of
+LoD. The arrays stay on the host: the executor copies each feed to the
+device once a step.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+from ..core.dtypes import dtype_name
+from ..framework.program import Program, Variable, default_main_program
+
+
+class DataFeeder:
+    def __init__(self, feed_list: Sequence, place=None,
+                 program: Program = None):
+        program = program or default_main_program()
+        self.feed_vars: List[Variable] = [
+            program.global_block().var(v) if isinstance(v, str) else v
+            for v in feed_list]
+        self.place = place
+
+    def feed(self, minibatch: Sequence[Sequence]) -> Dict[str, np.ndarray]:
+        """minibatch: list of samples, each a tuple aligned with feed_list."""
+        out: Dict[str, np.ndarray] = {}
+        for i, var in enumerate(self.feed_vars):
+            col = [sample[i] for sample in minibatch]
+            dtype = np.dtype(dtype_name(var.dtype))
+            if var.lod_level > 0:
+                seqs = [np.asarray(s, dtype=dtype) for s in col]
+                maxlen = max(s.shape[0] for s in seqs)
+                trailing = seqs[0].shape[1:]
+                padded = np.zeros((len(seqs), maxlen) + trailing, dtype=dtype)
+                lengths = np.zeros(len(seqs), dtype=np.int32)
+                for j, s in enumerate(seqs):
+                    padded[j, :s.shape[0]] = s
+                    lengths[j] = s.shape[0]
+                out[var.name] = padded
+                out[var.name + "@SEQLEN"] = lengths
+            else:
+                arr = np.asarray(col, dtype=dtype)
+                # match declared trailing shape, e.g. labels [N] -> [N, 1]
+                want = [d for d in (var.shape or []) if d != -1]
+                if want and list(arr.shape[1:]) != want and \
+                        int(np.prod(arr.shape[1:])) == int(np.prod(want)):
+                    arr = arr.reshape([arr.shape[0]] + want)
+                out[var.name] = arr
+        return out

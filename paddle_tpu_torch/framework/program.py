@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import json
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -82,6 +82,9 @@ class Variable:
 
     def __rtruediv__(self, other):
         return self._binary(other, "elementwise_div", reverse=True)
+
+    def __pow__(self, other):
+        return self._binary(other, "elementwise_pow")
 
     def __neg__(self):
         from ..layers import math_ops
@@ -292,6 +295,35 @@ class Program:
             p.blocks.append(nb)
         p._current_block_idx = 0
         return p
+
+    def prune(self, targets: Sequence[Union[str, Variable]]) -> "Program":
+        """A clone keeping only the ops block 0 needs to compute `targets`
+        (≙ framework/prune.cc; save_inference_model uses it). Backward and
+        optimizer ops never survive: an update op also "produces" its
+        parameter's name, but inference reads the incoming value."""
+        target_names = {t.name if isinstance(t, Variable) else t
+                        for t in targets}
+        block = self.global_block()
+        needed = set(target_names)
+        keep: List[int] = []
+        for i in range(len(block.ops) - 1, -1, -1):
+            op = block.ops[i]
+            if (op.type == "vjp_region"
+                    or op.attrs.get("op_role") in ("optimize", "backward")):
+                continue
+            if needed & set(op.output_names()):
+                keep.append(i)
+                needed |= set(op.input_names())
+        keep.reverse()
+        pruned = self.clone()
+        pb = pruned.global_block()
+        pb.ops = [pb.ops[i] for i in keep]
+        used = set(target_names)
+        for op in pb.ops:
+            used |= set(op.input_names()) | set(op.output_names())
+        pb.vars = {n: v for n, v in pb.vars.items() if n in used}
+        pruned._bump()
+        return pruned
 
     # -- serialization (JSON stands in for the reference's protobuf) --
     def to_json(self) -> str:

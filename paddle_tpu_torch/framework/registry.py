@@ -89,6 +89,8 @@ class LowerCtx:
         plan (the executor passes the plan's), so a constant table is built
         and copied to the device once, not per run.
     fetch_names: the run's fetch list.
+    is_test: inference mode for the whole run (dropout scales instead of
+        drawing), besides each op's own `is_test` attr.
     read_names: every variable the plan reads or the run fetches or keeps
         as state, or None (unknown: every output is needed). A lowering
         skips an optional output nobody reads (`needed`), as XLA drops dead
@@ -102,6 +104,7 @@ class LowerCtx:
     op: Any = None
     constants: dict = field(default_factory=dict)
     fetch_names: tuple = ()
+    is_test: bool = False
     read_names: Optional[frozenset] = None
     extras: dict = field(default_factory=dict)
     _generator: Optional[torch.Generator] = None

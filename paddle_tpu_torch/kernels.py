@@ -14,7 +14,8 @@ One library may hold several kernels (flash_attention.cu holds flash_fwd,
 flash_bwd_dq and flash_bwd_dkv; recurrent.cu holds lstm_seq and gru_seq).
 `flash_fwd_tc`, `flash_bwd_dq_tc` and `flash_bwd_dkv_tc` count the launches
 of flash_fwd, flash_bwd_dq and flash_bwd_dkv that took the bfloat16
-tensor-core route (each such launch counts under both names).
+tensor-core route, and `flash_*_wide` those that took the wide-head route
+(head dims above 256); each such launch counts under both names.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ KERNEL_SOURCES = {"decode_attention": "decode_attention.cu",
 #: kernel name -> launches made by its wrapper
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "decode_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-    "flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc", "lstm_seq",
-    "gru_seq")}
+    "flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc", "flash_fwd_wide",
+    "flash_bwd_dq_wide", "flash_bwd_dkv_wide", "lstm_seq", "gru_seq")}
 
 #: library name -> nvcc's output for the last build in this process
 BUILD_LOGS: Dict[str, str] = {}

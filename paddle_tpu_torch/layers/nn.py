@@ -221,6 +221,22 @@ def elementwise_div(x, y, axis=-1, act=None, name=None):
     return elementwise_op_layer("elementwise_div", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return elementwise_op_layer("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return elementwise_op_layer("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return elementwise_op_layer("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return elementwise_op_layer("elementwise_pow", x, y, axis, act, name)
+
+
 def cache_write(cache, new, pos, axis, batch_axis=None, out=None, name=None):
     """Write `new` (size-1 along `axis`) into `cache` at position `pos` —
     the KV-cache decode primitive.
@@ -282,8 +298,8 @@ def mean(x, name=None):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
+def _reduce_layer(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, name=name)
     shape = list(input.shape)
     if dim is None:
         out_shape = [] if not keep_dim else [1] * len(shape)
@@ -295,10 +311,63 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
                               if i not in dims]
     out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
                                      shape=out_shape)
-    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+    helper.append_op(type=op_type, inputs={"X": [input]},
                      outputs={"Out": [out]},
                      attrs={"dim": dim, "keep_dim": keep_dim,
                             "reduce_all": dim is None})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_prod", input, dim, keep_dim, name)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """≙ the JAX package's layers.dropout: Out and a Mask of x's shape;
+    `downgrade_in_infer` (the default) keeps x * mask in training and
+    scales by 1 - p at inference (ops/random_ops.py)."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=x.shape)
+    mask = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                      shape=x.shape, stop_gradient=True)
+    helper.append_op(type="dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed or 0,
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=x.shape)
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=x.shape)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"max_norm": max_norm})
     return out
 
 

@@ -1,7 +1,7 @@
 """Tensor-creation/manipulation layers.
 
 ≙ paddle_tpu/layers/tensor.py (reference python/paddle/fluid/layers/tensor.py),
-trimmed to the serving and training slices: cast, assign, concat,
+trimmed to the serving and training slices: cast, assign, concat, sums,
 fill_constant, fill_constant_batch_size_like, argmax.
 """
 
@@ -19,6 +19,17 @@ def cast(x, dtype):
     out = helper.create_tmp_variable(dtype=dtype, shape=x.shape)
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"out_dtype": dtype})
+    return out
+
+
+def sums(input, out=None):
+    """The n-ary add of `input`'s variables (one `sum` op)."""
+    helper = LayerHelper("sums")
+    if out is None:
+        out = helper.create_tmp_variable(dtype=dtype_name(input[0].dtype),
+                                         shape=input[0].shape)
+    helper.append_op(type="sum", inputs={"X": list(input)},
+                     outputs={"Out": [out]})
     return out
 
 

@@ -1,15 +1,18 @@
-"""Decoder-only Transformer LM: the training step and the serving decode
-tick.
+"""Transformer models: the encoder-decoder `transformer` (Transformer-base
+NMT), the decoder-only LM's training step and its serving decode tick.
 
-≙ paddle_tpu/models/transformer.py, trimmed to `transformer_lm` (the train
-graph, padded and packed), `transformer_lm_decode_tick` (what the
-continuous-batching engine builds) and their helpers. Parameter names and
-build order are the JAX package's, so weights carry across by name
-(io.load_numpy_params).
+≙ paddle_tpu/models/transformer.py, trimmed to `transformer` (with
+`encoder_layer`, `decoder_layer` and the decomposed label smoothing),
+`transformer_lm` (the train graph, padded and packed),
+`transformer_lm_decode_tick` (what the continuous-batching engine builds)
+and their helpers. Parameter names and build order are the JAX package's,
+so weights carry across by name (io.load_numpy_params).
 
-Dropout sites that need the `dropout` op raise NotImplementedError: that op
-is not ported yet (ROADMAP.md port queue item 1b). The LM trains and serves
-with dropout 0.
+Every dropout site is the JAX package's: the attention weights (training
+with attention dropout takes the explicit softmax route; otherwise, and at
+`is_test`, the fused `fused_attention` op, which is K1-K3 on the card),
+`ffn`, `_add_norm`, the embeddings and `_gen_embed_step`'s inference
+scaling, each a `dropout` op (ops/random_ops.py).
 """
 
 from __future__ import annotations
@@ -19,10 +22,6 @@ import numpy as np
 from .. import layers
 from ..initializer import NormalInitializer
 from ..param_attr import ParamAttr
-
-_NO_DROPOUT_OP = ("the dropout op is not ported yet (ROADMAP.md port "
-                  "queue item 1b, dropout); build with dropout=0.0")
-
 
 def positional_encoding_table(max_len, d_model):
     pos = np.arange(max_len)[:, None].astype("float32")
@@ -43,8 +42,8 @@ def multi_head_attention(q_in, k_in, v_in, d_model, num_heads, dropout=0.0,
 
     segment_ids ([B, T] int32 var): packed-batch masking — tokens attend
     only within their own segment. Attention-weight dropout in training
-    needs the explicit weights tensor and the dropout op, which are not
-    ported: it raises."""
+    needs the explicit weights tensor: that route builds the scores, the
+    softmax and the dropout op itself (packed batches refuse it)."""
     b, t_q = q_in.shape[0], q_in.shape[1]
     t_k = k_in.shape[1]
     d_head = d_model // num_heads
@@ -67,14 +66,26 @@ def multi_head_attention(q_in, k_in, v_in, d_model, num_heads, dropout=0.0,
             "packed batches (segment_ids) require the fused attention "
             "path; set attention dropout to 0 (residual/ffn dropout is "
             "unaffected)")
-    if dropout and not is_test:
-        raise NotImplementedError(_NO_DROPOUT_OP)
-    ctx = layers.fused_attention(q, k, v, scale=float(d_head) ** -0.5,
-                                 causal=causal, segment_ids=segment_ids)
-    if dropout:
-        # downgrade_in_infer: training scaled attention weights by the keep
-        # mask; inference scales by (1-p) to keep the expectation
-        ctx = layers.scale(ctx, scale=1.0 - dropout)
+    if not dropout or is_test:
+        ctx = layers.fused_attention(q, k, v, scale=float(d_head) ** -0.5,
+                                     causal=causal, segment_ids=segment_ids)
+        if dropout and is_test:
+            # downgrade_in_infer: training scaled attention weights by the
+            # keep mask; inference scales by (1-p) to keep the expectation
+            ctx = layers.scale(ctx, scale=1.0 - dropout)
+    else:
+        # attention-weight dropout needs the explicit weights tensor
+        q = layers.scale(q, scale=float(d_head) ** -0.5)
+        scores = layers.matmul(q, k, transpose_y=True, use_bf16=True)
+        if causal:
+            mask_np = np.triu(np.full((t_q, t_k), -1e9, dtype="float32"),
+                              k=1)
+            mask = layers.assign(mask_np.reshape(1, 1, t_q, t_k))
+            scores = layers.elementwise_add(scores, mask)
+        weights = layers.softmax(scores)
+        weights = layers.dropout(weights, dropout_prob=dropout,
+                                 is_test=is_test)
+        ctx = layers.matmul(weights, v, use_bf16=True)
     ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
     ctx = layers.reshape(ctx, shape=[b, t_q, d_model])
     return layers.fc(ctx, size=d_model, num_flatten_dims=2, bias_attr=False,
@@ -85,7 +96,7 @@ def ffn(x, d_model, d_inner, dropout=0.0, is_test=False, name=None):
     h = layers.fc(x, size=d_inner, num_flatten_dims=2, act="relu",
                   use_bf16=True, name=name and name + "_fc1")
     if dropout:
-        raise NotImplementedError(_NO_DROPOUT_OP)
+        h = layers.dropout(h, dropout_prob=dropout, is_test=is_test)
     return layers.fc(h, size=d_model, num_flatten_dims=2, use_bf16=True,
                      name=name and name + "_fc2")
 
@@ -95,7 +106,7 @@ def _add_norm(x, residual, dropout=0.0, is_test=False, name=None):
     graph built later in the same program shares the trained weights (the
     generation path rebuilds per-step computation from the same names)."""
     if dropout:
-        raise NotImplementedError(_NO_DROPOUT_OP)
+        x = layers.dropout(x, dropout_prob=dropout, is_test=is_test)
     kw = {}
     if name:
         kw = {"param_attr": ParamAttr(name=name + ".scale"),
@@ -119,6 +130,84 @@ def _embed(tokens, vocab_size, d_model, max_len, name, positions=None):
     else:
         pos = layers.assign(table[None, :, :])
     return layers.elementwise_add(emb, pos)
+
+
+def encoder_layer(x, d_model, num_heads, d_inner, dropout, is_test, name):
+    attn = multi_head_attention(x, x, x, d_model, num_heads, dropout,
+                                is_test, name=name + "_attn")
+    x = _add_norm(attn, x, dropout, is_test, name=name + "_ln1")
+    f = ffn(x, d_model, d_inner, dropout, is_test, name=name + "_ffn")
+    return _add_norm(f, x, dropout, is_test, name=name + "_ln2")
+
+
+def decoder_layer(x, enc_out, d_model, num_heads, d_inner, dropout, is_test,
+                  name):
+    self_attn = multi_head_attention(x, x, x, d_model, num_heads, dropout,
+                                     is_test, causal=True,
+                                     name=name + "_self")
+    x = _add_norm(self_attn, x, dropout, is_test, name=name + "_ln1")
+    cross = multi_head_attention(x, enc_out, enc_out, d_model, num_heads,
+                                 dropout, is_test, name=name + "_cross")
+    x = _add_norm(cross, x, dropout, is_test, name=name + "_ln2")
+    f = ffn(x, d_model, d_inner, dropout, is_test, name=name + "_ffn")
+    return _add_norm(f, x, dropout, is_test, name=name + "_ln3")
+
+
+def transformer(src=None, tgt=None, label=None, src_vocab=30000,
+                tgt_vocab=30000, max_len=64, d_model=512, d_inner=2048,
+                num_heads=8, num_layers=6, dropout=0.1, is_test=False,
+                label_smooth=0.1):
+    """Transformer-base encoder-decoder; returns (loss, logits).
+
+    src/tgt: [B, T] int64 padded token ids (lod_level=1 data vars with
+    companion lengths); label: [B, T] next-token targets. The loss is the
+    mean over target positions within each row's length; with
+    `label_smooth` eps it is the uniformly smoothed cross entropy,
+    decomposed as (1-eps)*CE(hard) + eps*mean_V(-log_softmax) so that no
+    [B, T, V] one-hot or smoothed target is built."""
+    if src is None:
+        src = layers.data(name="src", shape=[max_len], dtype="int64",
+                          lod_level=1)
+    if tgt is None:
+        tgt = layers.data(name="tgt", shape=[max_len], dtype="int64",
+                          lod_level=1)
+    if label is None:
+        label = layers.data(name="lbl", shape=[max_len], dtype="int64")
+    tgt_len = layers.sequence.get_seqlen(tgt)
+
+    enc = _embed(src, src_vocab, d_model, max_len, "src")
+    if dropout:
+        enc = layers.dropout(enc, dropout_prob=dropout, is_test=is_test)
+    for i in range(num_layers):
+        enc = encoder_layer(enc, d_model, num_heads, d_inner, dropout,
+                            is_test, f"enc{i}")
+
+    dec = _embed(tgt, tgt_vocab, d_model, max_len, "tgt")
+    if dropout:
+        dec = layers.dropout(dec, dropout_prob=dropout, is_test=is_test)
+    for i in range(num_layers):
+        dec = decoder_layer(dec, enc, d_model, num_heads, d_inner, dropout,
+                            is_test, f"dec{i}")
+
+    logits = layers.fc(dec, size=tgt_vocab, num_flatten_dims=2,
+                       use_bf16=True, name="proj")
+    label3 = layers.unsqueeze(label, axes=[2])
+    if label_smooth:
+        eps = float(label_smooth)
+        ce_hard = layers.softmax_with_cross_entropy(logits, label3)
+        lp = layers.log_softmax(logits)
+        uniform = layers.scale(
+            layers.reduce_mean(lp, dim=[2], keep_dim=True), scale=-1.0)
+        token_loss = layers.elementwise_add(
+            layers.scale(ce_hard, scale=1.0 - eps),
+            layers.scale(uniform, scale=eps))
+    else:
+        token_loss = layers.softmax_with_cross_entropy(logits, label3)
+    mask = layers.sequence_mask(tgt_len, maxlen=max_len)
+    mask = layers.unsqueeze(mask, axes=[2])
+    masked = layers.elementwise_mul(token_loss, mask)
+    loss = layers.reduce_sum(masked) / layers.reduce_sum(mask)
+    return loss, logits
 
 
 def transformer_lm(tokens=None, label=None, vocab=32000, max_len=128,
@@ -149,7 +238,7 @@ def transformer_lm(tokens=None, label=None, vocab=32000, max_len=128,
         seqlen = layers.sequence.get_seqlen(tokens)
     x = _embed(tokens, vocab, d_model, max_len, "tok", positions=positions)
     if dropout:
-        raise NotImplementedError(_NO_DROPOUT_OP)
+        x = layers.dropout(x, dropout_prob=dropout, is_test=is_test)
     for i in range(num_layers):
         attn = multi_head_attention(x, x, x, d_model, num_heads,
                                     0.0 if packed else dropout,
@@ -254,7 +343,8 @@ def _cached_self_attention(x, states, new_states, cache_id, prefix, K, T,
 def _gen_embed_step(ids_prev, pos, emb_name, vocab, d_model, pe_table,
                     dropout=0.0):
     """Embed the previous token + positional encoding at `pos` (one-hot
-    row-select from the PE table)."""
+    row-select from the PE table), with the train graph's post-embedding
+    dropout corrected to its (1-p) inference scaling."""
     T = pe_table.shape[0]
     onehot_t = layers.one_hot(layers.cast(pos, "int64"), depth=T)
     emb = layers.embedding(layers.unsqueeze(ids_prev, axes=[2]),
@@ -264,7 +354,7 @@ def _gen_embed_step(ids_prev, pos, emb_name, vocab, d_model, pe_table,
     x = layers.elementwise_add(
         x, layers.matmul(onehot_t, layers.assign(pe_table)))
     if dropout:
-        raise NotImplementedError(_NO_DROPOUT_OP)
+        x = layers.dropout(x, dropout_prob=dropout, is_test=True)
     return x
 
 
@@ -331,7 +421,8 @@ def transformer_lm_decode_tick(n_slots, vocab=32000, max_len=64,
     being written). Weights are shared BY NAME with transformer_lm
     (tok_emb, l{i}_attn_*, l{i}_ln*, l{i}_ffn_*, lm_head) — train first
     (or load), then build this in its own program and run it in the same
-    scope. Only dropout=0.0 is supported until the dropout op is ported.
+    scope. A nonzero dropout scales as the trained graph's inference
+    would (1-p at each dropout site).
 
     Returns (next_ids [S,1] int64, cache_names list): argmax of the tick
     logits per slot, and the persistable cache variable names (the engine

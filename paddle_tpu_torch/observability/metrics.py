@@ -1,0 +1,331 @@
+"""Metrics registry: counters / gauges / histograms + Prometheus text.
+
+≙ paddle_tpu/observability/metrics.py (a copy: the module is pure Python).
+The trainer counts its steps, epochs and step times here
+(trainer.training_metrics); `expose()` renders the registry in the
+Prometheus text exposition format (version 0.0.4 — the `# HELP`/`# TYPE`
++ sample-line format every Prometheus-compatible scraper reads).
+
+These are OPERATIONAL metrics about the runtime itself, not model-quality
+accumulators.
+
+Semantics follow the Prometheus client-library data model:
+- Counter: monotone; `inc(v)` with v < 0 raises.
+- Gauge: `set`/`inc`/`dec`.
+- Histogram: cumulative `le` buckets + `_sum`/`_count` samples, plus a
+  host-side `quantile(q)` estimate (linear interpolation inside the
+  bucket) for the p50/p95/p99 gauges the engine exports.
+
+Each metric takes one small lock per update — the hot paths here are
+per-tick, not per-op, so contention is nil; correctness over cleverness.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..core.enforce import AlreadyExistsError, InvalidArgumentError, enforce
+
+_NAME_OK = None
+
+
+def _check_name(name: str):
+    global _NAME_OK
+    if _NAME_OK is None:
+        import re
+        _NAME_OK = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+    enforce(bool(_NAME_OK.match(name)),
+            f"invalid metric name {name!r} (Prometheus [a-zA-Z_:][a-zA-Z0-9_:]*)",
+            exc=InvalidArgumentError)
+
+
+def _fmt_value(v: float) -> str:
+    if v == float("inf"):
+        return "+Inf"
+    if float(v).is_integer():
+        return str(int(v))
+    return repr(float(v))
+
+
+def _fmt_labels(labels: Dict[str, str]) -> str:
+    if not labels:
+        return ""
+    parts = []
+    for k, v in sorted(labels.items()):
+        v = str(v).replace("\\", "\\\\").replace('"', '\\"')
+        parts.append(f'{k}="{v}"')
+    return "{" + ",".join(parts) + "}"
+
+
+class _Metric:
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str = "",
+                 labels: Optional[Dict[str, str]] = None):
+        _check_name(name)
+        self.name = name
+        self.help = help
+        self.labels = dict(labels or {})
+        self._lock = threading.Lock()
+
+    def header_lines(self) -> List[str]:
+        out = []
+        if self.help:
+            out.append(f"# HELP {self.name} {self.help}")
+        out.append(f"# TYPE {self.name} {self.kind}")
+        return out
+
+    def sample_lines(self) -> List[str]:
+        raise NotImplementedError
+
+
+class Counter(_Metric):
+    """Monotonically-increasing count (requests, tokens, ticks)."""
+
+    kind = "counter"
+
+    def __init__(self, name, help="", labels=None):
+        super().__init__(name, help, labels)
+        self._value = 0.0
+
+    def inc(self, v: float = 1.0):
+        enforce(v >= 0, f"counter {self.name} cannot decrease (inc {v})",
+                exc=InvalidArgumentError)
+        with self._lock:
+            self._value += v
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def sample_lines(self):
+        return [f"{self.name}{_fmt_labels(self.labels)} "
+                f"{_fmt_value(self._value)}"]
+
+
+class Gauge(_Metric):
+    """Instantaneous value (queue depth, occupancy, cache bytes). An
+    optional callback makes the gauge computed at scrape time."""
+
+    kind = "gauge"
+
+    def __init__(self, name, help="", labels=None, fn=None):
+        super().__init__(name, help, labels)
+        self._value = 0.0
+        self._fn = fn
+
+    def set(self, v: float):
+        with self._lock:
+            self._value = float(v)
+
+    def inc(self, v: float = 1.0):
+        with self._lock:
+            self._value += v
+
+    def dec(self, v: float = 1.0):
+        self.inc(-v)
+
+    @property
+    def value(self) -> float:
+        if self._fn is not None:
+            return float(self._fn())
+        return self._value
+
+    def sample_lines(self):
+        return [f"{self.name}{_fmt_labels(self.labels)} "
+                f"{_fmt_value(self.value)}"]
+
+
+DEFAULT_BUCKETS = (1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2,
+                   5e-2, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+
+class Histogram(_Metric):
+    """Cumulative-bucket histogram (tick/step latency). `observe(v)` is
+    O(#buckets); `quantile(q)` estimates from the bucket counts with
+    linear interpolation inside the winning bucket (the standard
+    histogram_quantile() estimate, computed host-side)."""
+
+    kind = "histogram"
+
+    def __init__(self, name, help="", labels=None,
+                 buckets: Sequence[float] = DEFAULT_BUCKETS):
+        super().__init__(name, help, labels)
+        bs = sorted(float(b) for b in buckets)
+        enforce(len(bs) >= 1 and bs == sorted(set(bs)),
+                f"histogram {name}: buckets must be distinct and sorted",
+                exc=InvalidArgumentError)
+        self.buckets = bs + [float("inf")]
+        self._counts = [0] * len(self.buckets)
+        self._sum = 0.0
+        self._count = 0
+
+    def observe(self, v: float):
+        with self._lock:
+            self._sum += v
+            self._count += 1
+            for i, b in enumerate(self.buckets):
+                if v <= b:
+                    self._counts[i] += 1
+                    break
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def quantile(self, q: float) -> Optional[float]:
+        enforce(0.0 <= q <= 1.0, f"quantile {q} outside [0, 1]",
+                exc=InvalidArgumentError)
+        with self._lock:
+            total = self._count
+            if total == 0:
+                return None
+            rank = q * total
+            cum = 0
+            lo = 0.0
+            for i, b in enumerate(self.buckets):
+                prev_cum = cum
+                cum += self._counts[i]
+                if cum >= rank:
+                    if b == float("inf"):
+                        return lo  # open-ended top bucket: lower bound
+                    if self._counts[i] == 0:
+                        return b
+                    frac = (rank - prev_cum) / self._counts[i]
+                    return lo + frac * (b - lo)
+                lo = b
+            return lo
+
+    def sample_lines(self):
+        # snapshot under the same lock observe() takes: a scrape racing
+        # an observe must not render _count ahead of the +Inf bucket
+        # (the Prometheus invariant histogram_quantile() relies on)
+        with self._lock:
+            counts = list(self._counts)
+            total_sum, total_count = self._sum, self._count
+        out = []
+        cum = 0
+        for i, b in enumerate(self.buckets):
+            cum += counts[i]
+            labels = dict(self.labels)
+            labels["le"] = _fmt_value(b)
+            out.append(f"{self.name}_bucket{_fmt_labels(labels)} {cum}")
+        out.append(f"{self.name}_sum{_fmt_labels(self.labels)} "
+                   f"{_fmt_value(total_sum)}")
+        out.append(f"{self.name}_count{_fmt_labels(self.labels)} "
+                   f"{total_count}")
+        return out
+
+
+class MetricsRegistry:
+    """Named collection of metrics with one text exposition."""
+
+    def __init__(self):
+        self._metrics: Dict[Tuple[str, Tuple], _Metric] = {}
+        self._lock = threading.Lock()
+
+    def _register(self, metric: _Metric) -> _Metric:
+        key = (metric.name, tuple(sorted(metric.labels.items())))
+        with self._lock:
+            if key in self._metrics:
+                raise AlreadyExistsError(
+                    f"metric {metric.name!r} with labels {metric.labels} "
+                    f"already registered")
+            self._metrics[key] = metric
+        return metric
+
+    def counter(self, name, help="", labels=None) -> Counter:
+        return self._register(Counter(name, help, labels))
+
+    def gauge(self, name, help="", labels=None, fn=None) -> Gauge:
+        return self._register(Gauge(name, help, labels, fn=fn))
+
+    def histogram(self, name, help="", labels=None,
+                  buckets=DEFAULT_BUCKETS) -> Histogram:
+        return self._register(Histogram(name, help, labels, buckets))
+
+    def get(self, name, labels=None) -> Optional[_Metric]:
+        return self._metrics.get((name,
+                                  tuple(sorted((labels or {}).items()))))
+
+    def metrics(self) -> List[_Metric]:
+        with self._lock:
+            return list(self._metrics.values())
+
+    def expose(self) -> str:
+        """Prometheus text exposition (0.0.4). Families sharing a name
+        emit their HELP/TYPE header once, label variants consecutively."""
+        return _expose_metrics(self.metrics())
+
+
+def _expose_metrics(metrics: Sequence[_Metric]) -> str:
+    """The ONE exposition renderer (MetricsRegistry and MultiRegistry
+    both call it): sorted families, HELP/TYPE headers deduplicated,
+    label variants consecutive."""
+    lines: List[str] = []
+    seen_headers = set()
+    for m in sorted(metrics, key=lambda m: m.name):
+        if m.name not in seen_headers:
+            lines.extend(m.header_lines())
+            seen_headers.add(m.name)
+        lines.extend(m.sample_lines())
+    return "\n".join(lines) + "\n"
+
+
+class MultiRegistry:
+    """Read-only union of several registries with ONE text exposition —
+    what a single /metrics scrape serves when checkpoint/training series
+    live in the process-wide `default_registry()` while each serving
+    engine keeps its own registry (two engines in one process must not
+    collide on `ptpu_engine_*` names). Families sort and deduplicate
+    headers across the members exactly like one registry would."""
+
+    def __init__(self, registries: Sequence[MetricsRegistry]):
+        enforce(len(registries) >= 1,
+                "MultiRegistry needs at least one member registry",
+                exc=InvalidArgumentError)
+        self._registries = list(registries)
+
+    def metrics(self) -> List[_Metric]:
+        out: List[_Metric] = []
+        for r in self._registries:
+            out.extend(r.metrics())
+        return out
+
+    def get(self, name, labels=None) -> Optional[_Metric]:
+        for r in self._registries:
+            m = r.get(name, labels)
+            if m is not None:
+                return m
+        return None
+
+    def expose(self) -> str:
+        return _expose_metrics(self.metrics())
+
+
+_default_registry = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    """The ONE process-wide registry: training (`ptpu_train_*`,
+    trainer.py) and any other module-level series register here, so one
+    exposition sees them all (MultiRegistry joins it with a serving
+    engine's own registry)."""
+    return _default_registry
+
+
+def get_or_create(registry: MetricsRegistry, kind: str, name: str,
+                  help: str = "", labels=None, **kw) -> _Metric:
+    """Idempotent registration: the existing metric when (name, labels)
+    is already registered, a fresh one otherwise — what module-level
+    metric sets use so re-initialization (tests, reloads) cannot trip
+    the duplicate-registration enforce."""
+    m = registry.get(name, labels)
+    if m is not None:
+        return m
+    return getattr(registry, kind)(name, help, labels=labels, **kw)

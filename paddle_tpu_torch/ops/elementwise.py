@@ -2,9 +2,12 @@
 
 ≙ paddle_tpu/ops/elementwise.py (reference operators/elementwise_*.cc,
 scale_op.cc, compare_op.cc, activation_op.cc), trimmed to the serving and
-training slices and the recurrent models: elementwise add/sub/mul/div,
-less_than, greater_than, equal, scale, relu, sigmoid, tanh. Dtype promotion follows torch, which agrees with jnp on
-the pairs the slices meet (bfloat16 + float32 → float32).
+training slices, the recurrent models, gradient clipping and the
+learning-rate schedules: elementwise add/sub/mul/div/max/min/pow,
+less_than, greater_than, equal, scale, clip, clip_by_norm, sign, pow and
+the unary relu, sigmoid, tanh, exp, sqrt, ceil, floor, cos, reciprocal.
+Dtype promotion follows torch, which agrees with jnp on the pairs the
+slices meet (bfloat16 + float32 → float32).
 """
 
 from __future__ import annotations
@@ -44,6 +47,9 @@ register_op("elementwise_add")(_binary(torch.add))
 register_op("elementwise_sub")(_binary(torch.sub))
 register_op("elementwise_mul")(_binary(torch.mul))
 register_op("elementwise_div")(_binary(torch.div))
+register_op("elementwise_max")(_binary(torch.maximum))
+register_op("elementwise_min")(_binary(torch.minimum))
+register_op("elementwise_pow")(_binary(torch.pow))
 register_op("less_than")(_binary(torch.lt))
 register_op("greater_than")(_binary(torch.gt))
 register_op("equal")(_binary(torch.eq))
@@ -60,16 +66,37 @@ def _scale(ctx, ins, attrs):
     return {"Out": [(x + bias) * scale]}
 
 
-@register_op("relu")
-def _relu(ctx, ins, attrs):
-    return {"Out": [torch.relu(ins["X"][0])]}
+@register_op("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(ins["X"][0], attrs["min"], attrs["max"])]}
 
 
-@register_op("sigmoid")
-def _sigmoid(ctx, ins, attrs):
-    return {"Out": [torch.sigmoid(ins["X"][0])]}
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    # X scaled to L2 norm max_norm where its norm is larger
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = x.square().sum().sqrt()
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp_min(norm, 1e-12),
+                        torch.ones((), dtype=norm.dtype, device=x.device))
+    return {"Out": [x * scale]}
 
 
-@register_op("tanh")
-def _tanh(ctx, ins, attrs):
-    return {"Out": [torch.tanh(ins["X"][0])]}
+@register_op("pow")
+def _pow(ctx, ins, attrs):
+    return {"Out": [torch.pow(ins["X"][0], attrs.get("factor", 1.0))]}
+
+
+def _unary(fn):
+    def lower(ctx, ins, attrs):
+        return {"Out": [fn(ins["X"][0])]}
+    return lower
+
+
+for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
+                   ("tanh", torch.tanh), ("exp", torch.exp),
+                   ("sqrt", torch.sqrt), ("ceil", torch.ceil),
+                   ("floor", torch.floor), ("cos", torch.cos),
+                   ("reciprocal", torch.reciprocal), ("sign", torch.sign)):
+    register_op(_name)(_unary(_fn))

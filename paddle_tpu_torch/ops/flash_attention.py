@@ -35,13 +35,19 @@ Masks: causal aligned bottom-right (query i sees keys up to i + Tk - Tq)
 and segment ids (a query sees a key iff their ids are equal; the packed
 batches of data/packing.py). Tensors are [B, H, T, D] in float32 or
 bfloat16; the kernels are built for head dims 32, 64, 128 and 256, and
-the wrappers take any D up to 256 by zero-padding q, k, v (and dO) to the
-next of those (`kernel_head_dim`, `pad_head_dim`) and slicing o, dq, dk and
-dv back. That is exact: a zero column adds exactly 0 to every dot product
-and to delta = Σ dO·O, and the caller's scale is passed unchanged. (At
-D = 256 each bfloat16 kernel's block computes one half of the output
-columns and the float32 K2 and K3 take query tiles of 32 rows: see
-csrc/flash_attention.cu.)
+take any multiple of 128 above 256 on the wide-head route (D a runtime
+argument, scores summed over 64-column chunks of D, each block computing
+128 columns of the output: csrc/flash_attention.cu). The wrappers take any
+D by zero-padding q, k, v (and dO) to the next head dim the kernels take
+(`kernel_head_dim`, `pad_head_dim`) and slicing o, dq, dk and dv back.
+That is exact: a zero column adds exactly 0 to every dot product and to
+delta = Σ dO·O, and the caller's scale is passed unchanged. (At D = 256
+each bfloat16 kernel's block computes one half of the output columns and
+the float32 K2 and K3 take query tiles of 32 rows.) The wide-head route
+runs float32 arithmetic for either type on the CUDA cores, with the plain
+version's rounding points; its launches count under "flash_fwd_wide",
+"flash_bwd_dq_wide" and "flash_bwd_dkv_wide" instead of the `_tc`
+names.
 
 `delta` = Σ dO·O in float32 is a plain torch op, as in the JAX package;
 the backward kernels also take it from the caller, and K1's lse output is
@@ -63,14 +69,19 @@ _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 
 
+#: columns of the output each block of the wide-head route computes (kWO
+#: in csrc/flash_attention.cu): head dims above 256 run at a multiple of it
+WIDE_COLS = 128
+
+
 def kernel_head_dim(d):
     """The head dim the kernels run a caller's D at: the least of
-    KERNEL_HEAD_DIMS not below D. Raises for D above 256."""
+    KERNEL_HEAD_DIMS not below D, and above 256 the least multiple of
+    WIDE_COLS not below D (the wide-head route)."""
     for kd in KERNEL_HEAD_DIMS:
         if d <= kd:
             return kd
-    raise ValueError(f"flash attention: head dim {d} is not supported: the "
-                     f"kernels take head dims up to 256 (ROADMAP.md §3)")
+    return -(-d // WIDE_COLS) * WIDE_COLS
 
 
 def pad_head_dim(kd, *tensors):
@@ -465,9 +476,10 @@ def _check(name, tensors, q, k, q_ids, kv_ids):
         raise TypeError(f"{name}: q/k/v must be float32 or bfloat16, got "
                         f"{q.dtype}")
     b, h, _, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} is not one the kernels are "
-                         f"built for {KERNEL_HEAD_DIMS} (pad_head_dim)")
+    if kernel_head_dim(d) != d:
+        raise ValueError(f"{name}: head dim {d} is not one the kernels take "
+                         f"({KERNEL_HEAD_DIMS} or a multiple of {WIDE_COLS} "
+                         f"above 256; pad_head_dim)")
     if k.dim() != 4 or k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not agree")
@@ -495,23 +507,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name, fn, bf16_route, *args):
-    """Launch `fn`; count it under `name`, and under `bf16_route` too when
-    it is given (the bfloat16 launches, which run the tensor-core
-    kernels)."""
+def _launch(name, fn, bf16, d, *args):
+    """Launch `fn` with (is_bf16, D, *args); count it under `name`, and
+    under its route too: `<name>_wide` for head dims above 256, else
+    `<name>_tc` for bfloat16 (the tensor-core kernels)."""
     lib = kernels.load("flash_attention")
     _bind(lib)
-    err = getattr(lib, fn)(*args)
+    err = getattr(lib, fn)(int(bf16), d, *args)
     kernels.check(lib, name, err)
     kernels.count_launch(name)
-    if bf16_route:
-        kernels.count_launch(bf16_route)
+    if d > KERNEL_HEAD_DIMS[-1]:
+        kernels.count_launch(name + "_wide")
+    elif bf16:
+        kernels.count_launch(name + "_tc")
 
 
 def flash_fwd_cuda(q, k, v, scale, causal, q_ids=None, kv_ids=None,
                    with_lse=True):
     """Launch K1. q [B,H,Tq,D], k/v [B,H,Tk,D]: contiguous CUDA tensors of
-    one dtype, D <= 256. Returns (o, lse or None)."""
+    one dtype, any D (padded to `kernel_head_dim`). Returns (o, lse or
+    None)."""
     b, h, tq, d = q.shape
     kd = kernel_head_dim(d)
     if kd != d and q.is_cuda:
@@ -527,11 +542,9 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_ids=None, kv_ids=None,
         o = torch.empty_like(q)
         lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
                if with_lse else None)
-        bf16 = q.dtype == torch.bfloat16
-        _launch("flash_fwd", "ptt_flash_fwd", bf16 and "flash_fwd_tc",
-                int(bf16), d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                _ptr(q_ids), _ptr(kv_ids), o.data_ptr(), _ptr(lse), b * h, h,
-                tq, tk,
+        _launch("flash_fwd", "ptt_flash_fwd", q.dtype == torch.bfloat16, d,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_ids),
+                _ptr(kv_ids), o.data_ptr(), _ptr(lse), b * h, h, tq, tk,
                 float(scale), int(bool(causal)),
                 torch.cuda.current_stream(q.device).cuda_stream)
     return o, lse
@@ -560,10 +573,9 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
                                  delta, q_ids, kv_ids)
     with torch.cuda.device(q.device):
         dq = torch.empty_like(q)
-        bf16 = q.dtype == torch.bfloat16
         _launch("flash_bwd_dq", "ptt_flash_bwd_dq",
-                bf16 and "flash_bwd_dq_tc", int(bf16), d, q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                q.dtype == torch.bfloat16, d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), _ptr(q_ids), _ptr(kv_ids), dq.data_ptr(),
                 b * h, h, tq, tk, float(scale), int(bool(causal)),
                 torch.cuda.current_stream(q.device).cuda_stream)
@@ -584,10 +596,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
     with torch.cuda.device(q.device):
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
-        bf16 = q.dtype == torch.bfloat16
         _launch("flash_bwd_dkv", "ptt_flash_bwd_dkv",
-                bf16 and "flash_bwd_dkv_tc", int(bf16), d, q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                q.dtype == torch.bfloat16, d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), _ptr(q_ids), _ptr(kv_ids), dk.data_ptr(),
                 dv.data_ptr(), b * h, h, tq, tk, float(scale),
                 int(bool(causal)),

@@ -18,6 +18,7 @@ import torch
 
 from ..core import flags
 from ..framework.registry import register_op
+from .tensor_ops import index_in_range
 
 
 def _prod(dims):
@@ -112,14 +113,23 @@ class _CEHard(torch.autograd.Function):
     the JAX package's `_ce_hard` (nn_ops.py:439-481): it saves the logits
     as they are (bfloat16 on the LM's path) and a [rows] float32
     log-sum-exp, never a float32 [rows, vocab] log-softmax, and recomputes
-    p = exp(logit - lse) in the backward. loss [..., 1] float32."""
+    p = exp(logit - lse) in the backward. loss [..., 1] float32.
+
+    Labels outside [0, V) follow jax's fill mode, as `_ce_hard` meets them:
+    its forward reads the label's logit with `take_along_axis`, so a label
+    in [-V, 0) wraps and any other gives a NaN loss; its backward subtracts
+    an iota-compared one-hot, which no label outside [0, V) matches, so
+    such a row's gradient is softmax(logits) alone. A clamp and a masked
+    fill compute the same without a device->host sync."""
 
     @staticmethod
     def forward(ctx, logits, lbl, valid):
         l32 = logits.float()
         m = l32.amax(-1)
         lse = m + torch.log(torch.exp(l32 - m.unsqueeze(-1)).sum(-1))
-        logit_at = l32.gather(-1, lbl.unsqueeze(-1)).squeeze(-1)
+        idx, filled = index_in_range(lbl, logits.shape[-1])
+        logit_at = l32.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+        logit_at = logit_at.masked_fill(filled, float("nan"))
         loss = torch.where(valid, lse - logit_at,
                            torch.zeros((), device=lse.device)).unsqueeze(-1)
         ctx.save_for_backward(logits, lbl, valid, lse)
@@ -130,11 +140,14 @@ class _CEHard(torch.autograd.Function):
         logits, lbl, valid, lse = ctx.saved_tensors
         g = dl.squeeze(-1) * valid
         # (p - onehot) * g, built in one float32 buffer: subtracting 1 at
-        # the label is the same arithmetic as subtracting the one-hot row
+        # the label is the same arithmetic as subtracting the one-hot row;
+        # a label outside [0, V) subtracts nothing
         d = logits.to(torch.float32, copy=True).sub_(
             lse.unsqueeze(-1)).exp_()
-        d.scatter_add_(-1, lbl.unsqueeze(-1),
-                       torch.full(lbl.shape + (1,), -1.0, device=d.device))
+        v = logits.shape[-1]
+        hit = (lbl >= 0) & (lbl < v)
+        d.scatter_add_(-1, lbl.clamp(0, v - 1).unsqueeze(-1),
+                       hit.to(torch.float32).neg().unsqueeze(-1))
         d.mul_(g.unsqueeze(-1))
         return d.to(logits.dtype), None, None
 
@@ -143,8 +156,8 @@ class _CEHard(torch.autograd.Function):
 def _softmax_with_cross_entropy(ctx, ins, attrs):
     """≙ softmax_with_cross_entropy_op.cc (fused, numerically stable).
     Labels equal to `ignore_index` (default -100) give zero loss and zero
-    gradient. The Softmax output is computed only when something reads
-    it."""
+    gradient; other labels outside [0, V) as `_CEHard` says. The Softmax
+    output is computed only when something reads it."""
     logits = ins["Logits"][0]
     label = ins["Label"][0]
     sm_names = (ctx.op.outputs.get("Softmax", []) if ctx.op is not None

@@ -1,9 +1,10 @@
 """Reduction op lowerings.
 
-≙ paddle_tpu/ops/reduce_ops.py, trimmed to `reduce_sum`, `mean` (the
-training loss), `sum` (the n-ary add a multi-input `fc` emits), `arg_max`
-(the decode tick's greedy sample) and `top_k` (the classifiers'
-`accuracy`).
+≙ paddle_tpu/ops/reduce_ops.py, trimmed to `reduce_sum` / `_mean` /
+`_max` / `_min` / `_prod`, `mean` (the training loss), `sum` (the n-ary
+add a multi-input `fc` emits and the regularizers' grad + decay),
+`arg_max` (the decode tick's greedy sample), `top_k` (the classifiers'
+`accuracy`) and `squared_l2_norm` (the global-norm clip).
 """
 
 from __future__ import annotations
@@ -13,21 +14,46 @@ import torch
 from ..framework.registry import register_op
 
 
-@register_op("reduce_sum")
-def _reduce_sum(ctx, ins, attrs):
-    x = ins["X"][0]
+def _dims(attrs):
+    """The reduced dims, or None for all of them."""
     dim = attrs.get("dim")
-    keep = attrs.get("keep_dim", False)
     if attrs.get("reduce_all", False) or dim is None:
-        out = x.sum()
-        if keep:
-            out = out.reshape((1,) * x.dim())
-    else:
-        out = x.sum(dim=tuple(dim) if isinstance(dim, (list, tuple))
-                    else (dim,), keepdim=keep)
-    if not x.is_floating_point() and x.dtype != torch.bool:
-        out = out.to(x.dtype)      # jnp keeps the integer width
-    return {"Out": [out]}
+        return None
+    return tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
+
+
+def _prod(x, dim, keepdim):
+    # torch.prod takes one dim at a time
+    for d in sorted((d % x.dim() for d in dim), reverse=True):
+        x = x.prod(dim=d, keepdim=keepdim)
+    return x
+
+
+def _reduce(fn):
+    """≙ the JAX package's `_reduce`: X reduced over `dim` (all dims when
+    `reduce_all` or no dim), keeping them as size 1 when `keep_dim`."""
+    def lower(ctx, ins, attrs):
+        x = ins["X"][0]
+        dims = _dims(attrs)
+        keep = attrs.get("keep_dim", False)
+        out = fn(x, tuple(range(x.dim())) if dims is None else dims, keep)
+        if dims is None and not keep:
+            out = out.reshape(())
+        if not x.is_floating_point() and x.dtype != torch.bool:
+            out = out.to(x.dtype)      # jnp keeps the integer width
+        return {"Out": [out]}
+    return lower
+
+
+register_op("reduce_sum")(_reduce(
+    lambda x, d, k: x.sum(dim=d, keepdim=k)))
+register_op("reduce_mean")(_reduce(
+    lambda x, d, k: x.mean(dim=d, keepdim=k)))
+register_op("reduce_max")(_reduce(
+    lambda x, d, k: x.amax(dim=d, keepdim=k)))
+register_op("reduce_min")(_reduce(
+    lambda x, d, k: x.amin(dim=d, keepdim=k)))
+register_op("reduce_prod")(_reduce(_prod))
 
 
 @register_op("mean")
@@ -59,3 +85,9 @@ def _top_k(ctx, ins, attrs):
     vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True, stable=True)
     k = attrs["k"]
     return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int64)]}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    # Σ x², shape [1] (the global-norm clip sums these over parameters)
+    return {"Out": [ins["X"][0].square().sum().reshape(1)]}

@@ -2,8 +2,9 @@
 
 ≙ paddle_tpu/ops/tensor_ops.py (reference operators/{reshape,transpose,
 unsqueeze,concat,slice,gather,cast,fill_constant,assign,one_hot,
-lookup_table}_op.cc), trimmed to the serving, training and recurrent
-slices, plus the KV-cache write `cache_write`.
+lookup_table,increment}_op.cc), trimmed to the serving, training and
+recurrent slices, plus the KV-cache write `cache_write` and the
+learning-rate schedules' `piecewise_decay`.
 """
 
 from __future__ import annotations
@@ -181,9 +182,27 @@ def _one_hot(ctx, ins, attrs):
     return {"Out": [(x.unsqueeze(-1) == classes).to(torch.float32)]}
 
 
+def float_to_int(x, dtype):
+    """≙ XLA's convert from a floating type to an integer one: toward zero,
+    saturating at the type's least and greatest values, NaN to 0 (torch's
+    own conversion leaves the out-of-range and NaN cases undefined)."""
+    info = torch.iinfo(dtype)
+    # the bounds round to x's type (2^31 - 1 to 2^31 in float32): a value
+    # at or past them saturates, every value inside converts exactly
+    hi, lo = x >= info.max, x <= info.min
+    out = torch.where(hi | lo | x.isnan(), torch.zeros((), dtype=x.dtype,
+                                                       device=x.device), x)
+    return out.to(dtype).masked_fill(hi, info.max).masked_fill(lo, info.min)
+
+
 @register_op("cast")
 def _cast(ctx, ins, attrs):
-    return {"Out": [ins["X"][0].to(convert_dtype(attrs["out_dtype"]))]}
+    x = ins["X"][0]
+    dtype = convert_dtype(attrs["out_dtype"])
+    if x.is_floating_point() and not dtype.is_floating_point \
+            and dtype != torch.bool:
+        return {"Out": [float_to_int(x, dtype)]}
+    return {"Out": [x.to(dtype)]}
 
 
 @register_op("fill_constant")
@@ -228,3 +247,31 @@ def _lookup_table(ctx, ins, attrs):
             padding_idx += w.shape[0]
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     return {"Out": [out]}
+
+
+@register_op("increment")
+def _increment(ctx, ins, attrs):
+    """X + step in X's dtype (an int64 step counter stays int64). Where
+    the output variable is X itself (the learning-rate schedules' step
+    counter, a persistable), the tensor is updated in place, once a run."""
+    x = ins["X"][0]
+    step = attrs.get("step", 1.0)
+    if not x.is_floating_point():
+        step = int(step)
+    if ctx.writes_input("X", "Out"):
+        return {"Out": [x.add_(step)]}
+    return {"Out": [x + step]}
+
+
+@register_op("piecewise_decay")
+def _piecewise_decay(ctx, ins, attrs):
+    """values[i] for the step's place among the boundaries: the number of
+    boundaries at or below the step (≙ searchsorted side="right"), with
+    no branch and no device->host sync."""
+    step = ins["Step"][0].reshape(())
+    boundaries = torch.tensor(attrs["boundaries"], dtype=step.dtype,
+                              device=step.device)
+    values = torch.tensor(attrs["values"], dtype=torch.float32,
+                          device=step.device)
+    idx = (boundaries <= step).sum()
+    return {"Out": [values[idx].reshape(1)]}

@@ -42,7 +42,8 @@ BLOCK = 128
 
 # (id, B, H, Tq, Tk, causal, segments, head dim): segments "packed" = two
 # sequences per row then padding; "unmatched" = the first rows carry an id
-# no key has; "d256" is the largest head dim the CUDA kernels take
+# no key has; "d256" is the largest head dim of the tensor-core kernels,
+# "d384" and "d512" run on the wide-head route on the card
 CASES = [
     ("causal", 2, 2, 64, 64, True, None, D),
     ("tq_ne_tk", 1, 2, 48, 80, True, None, D),
@@ -51,6 +52,10 @@ CASES = [
     ("no_key_causal", 1, 2, 96, 32, True, None, D),
     ("no_key_segment", 1, 2, 40, 40, False, "unmatched", D),
     ("d256", 1, 2, 40, 72, True, None, 256),
+    ("d384_causal", 1, 2, 40, 72, True, None, 384),
+    ("d384", 1, 1, 33, 33, False, None, 384),
+    ("d512_causal", 1, 1, 48, 48, True, None, 512),
+    ("d512", 1, 2, 24, 40, False, None, 512),
 ]
 
 
@@ -268,15 +273,23 @@ def test_head_dim_padding_matches_unpadded_plain(d, dtype):
 
 
 def test_head_dims_above_128_raise_naming_the_follow_up():
-    """Head dims 129..256 now run at 256 (zero-padded); only those above
-    256 raise, naming the ROADMAP entry that tracks them."""
-    from paddle_tpu_torch.ops.flash_attention import (kernel_head_dim,
+    """The head dim each caller's D runs at (the name is kept from when
+    head dims above 128, then above 256, raised): 129..256 run at 256,
+    and above 256 nothing raises any more: D runs at the least multiple of
+    128 not below it, on the wide-head route (300 -> 384, 512 stays 512,
+    1000 -> 1024)."""
+    from paddle_tpu_torch.ops.flash_attention import (WIDE_COLS,
+                                                      kernel_head_dim,
                                                       pad_head_dim)
     assert [kernel_head_dim(d) for d in (1, 32, 33, 64, 100, 128)] == \
         [32, 32, 64, 64, 128, 128]
     assert all(kernel_head_dim(d) == 256 for d in range(129, 257))
+    assert [kernel_head_dim(d) for d in (257, 300, 384, 385, 512, 1000)] == \
+        [384, 384, 384, 512, 512, 1024]
+    assert all(kernel_head_dim(d) % WIDE_COLS == 0
+               and 0 <= kernel_head_dim(d) - d < WIDE_COLS
+               for d in range(257, 2049))
     x = torch.ones(1, 1, 4, 64)
     assert pad_head_dim(64, x)[0] is x
-    for d in (257, 320, 512):
-        with pytest.raises(ValueError, match=r"up to 256 \(ROADMAP\.md §3\)"):
-            kernel_head_dim(d)
+    y = pad_head_dim(384, torch.ones(1, 1, 4, 300))[0]
+    assert y.shape[-1] == 384 and bool((y[..., 300:] == 0).all())

@@ -245,6 +245,88 @@ CASES = [
     ("sequence_pool_last_past_t", "sequence_pool",
      {"X": [f32(4, 6, 3)], "SeqLen": [np.array([7, 2, 0, 6], "int32")]},
      {"pooltype": "LAST"}, {}, {}),
+    # hard labels outside [0, V), as jax's fill mode meets them: 5 of V = 5
+    # gives NaN, -1 wraps to 4, -6 gives NaN, ignore_index gives 0
+    ("ce_label_past_v", "softmax_with_cross_entropy",
+     {"Logits": [f32(3, 5)], "Label": [np.array([[5], [0], [7]], "int64")]},
+     {"soft_label": False, "ignore_index": -100}, {}, {}),
+    ("ce_label_negative_wraps", "softmax_with_cross_entropy",
+     {"Logits": [f32(4, 5)],
+      "Label": [np.array([[-1], [-5], [-6], [2]], "int64")]},
+     {"soft_label": False, "ignore_index": -100}, {}, {}),
+    ("ce_label_ignore", "softmax_with_cross_entropy",
+     {"Logits": [f32(2, 3, 5)],
+      "Label": [np.array([[-1, 7, 1], [4, -1, 9]], "int64")[..., None]]},
+     {"soft_label": False, "ignore_index": -1}, {}, {}),
+    # float -> int saturates, NaN -> 0, as XLA's convert
+    ("cast_f32_i32_saturates", "cast",
+     {"X": [np.array([np.nan, np.inf, -np.inf, 1e10, -1e10, 300.7, -2.5],
+                     "float32")]}, {"out_dtype": "int32"}, {}, {}),
+    ("cast_f32_i8_saturates", "cast",
+     {"X": [np.array([np.nan, np.inf, -np.inf, 1e10, -1e10, 300.7, -2.5],
+                     "float32")]}, {"out_dtype": "int8"}, {}, {}),
+    ("cast_f32_u8_saturates", "cast",
+     {"X": [np.array([np.nan, np.inf, -np.inf, 1e10, -1e10, 300.7, -2.5],
+                     "float32")]}, {"out_dtype": "uint8"}, {}, {}),
+    ("cast_bf16_i32_saturates", "cast",
+     {"X": [np.array([np.nan, 3e9, -3e9, 2.75, -7.5], "float32")]},
+     {"out_dtype": "int32"}, {}, {"X": "bfloat16"}),
+    # the ops of dropout, clipping, weight decay and the LR schedules
+    ("dropout_is_test", "dropout", {"X": [f32(3, 7)]},
+     {"dropout_prob": 0.1, "is_test": True}, {}, {}),
+    ("dropout_is_test_upscale", "dropout", {"X": [f32(3, 7)]},
+     {"dropout_prob": 0.3, "is_test": True,
+      "dropout_implementation": "upscale_in_train"}, {}, {}),
+    ("reduce_mean_dim_keep", "reduce_mean", {"X": [f32(2, 3, 9)]},
+     {"dim": [2], "keep_dim": True, "reduce_all": False}, {}, {}),
+    ("reduce_mean_all", "reduce_mean", {"X": [f32(4, 6)]},
+     {"dim": None, "keep_dim": False, "reduce_all": True}, {}, {}),
+    ("reduce_mean_bf16", "reduce_mean", {"X": [f32(2, 3, 9)]},
+     {"dim": [2], "keep_dim": True, "reduce_all": False}, {"Out": "bf16"},
+     {"X": "bfloat16"}),
+    ("reduce_max", "reduce_max", {"X": [f32(4, 6, 3)]},
+     {"dim": [0, 2], "keep_dim": False, "reduce_all": False}, {}, {}),
+    ("reduce_min_keep_all", "reduce_min", {"X": [f32(4, 6)]},
+     {"dim": None, "keep_dim": True, "reduce_all": True}, {}, {}),
+    ("reduce_prod", "reduce_prod", {"X": [f32(3, 4, 2) * 0.5 + 1]},
+     {"dim": [1, 2], "keep_dim": False, "reduce_all": False}, {}, {}),
+    ("squared_l2_norm", "squared_l2_norm", {"X": [f32(5, 7)]}, {}, {}, {}),
+    ("clip", "clip", {"X": [f32(4, 5)]}, {"min": -0.5, "max": 0.3}, {}, {}),
+    ("clip_by_norm_scales", "clip_by_norm", {"X": [f32(4, 5)]},
+     {"max_norm": 1.0}, {}, {}),
+    ("clip_by_norm_keeps", "clip_by_norm", {"X": [f32(4, 5) * 0.01]},
+     {"max_norm": 1.0}, {}, {}),
+    ("sign", "sign", {"X": [np.array([-2.5, 0.0, 3.0, -0.0], "float32")]},
+     {}, {}, {}),
+    ("elementwise_max", "elementwise_max",
+     {"X": [f32(3, 4)], "Y": [f32(4)]}, {"axis": -1}, {}, {}),
+    ("elementwise_min", "elementwise_min",
+     {"X": [f32(1)], "Y": [f32(1)]}, {"axis": -1}, {}, {}),
+    ("elementwise_pow", "elementwise_pow",
+     {"X": [np.array([0.5, 2.0, 0.9], "float32")],
+      "Y": [np.array([3.0, -0.5, 1.25], "float32")]}, {"axis": -1}, {}, {}),
+    ("pow", "pow", {"X": [np.array([1.0, 4.0, 10.0], "float32")]},
+     {"factor": -0.5}, {}, {}),
+    ("floor", "floor", {"X": [f32(3, 4) * 3]}, {}, {}, {}),
+    ("ceil", "ceil", {"X": [f32(3, 4) * 3]}, {}, {}, {}),
+    ("exp", "exp", {"X": [f32(3, 4)]}, {}, {}, {}),
+    ("cos", "cos", {"X": [f32(3, 4) * 3]}, {}, {}, {}),
+    ("sqrt", "sqrt", {"X": [np.abs(f32(3, 4))]}, {}, {}, {}),
+    ("reciprocal", "reciprocal", {"X": [np.abs(f32(3, 4)) + 0.5]}, {}, {},
+     {}),
+    ("increment_int", "increment", {"X": [np.array([7], "int32")]},
+     {"step": 1.0}, {}, {}),
+    ("increment_float", "increment", {"X": [np.array([0.5], "float32")]},
+     {"step": 2.0}, {}, {}),
+    ("piecewise_decay_first", "piecewise_decay",
+     {"Step": [np.array([3.0], "float32")]},
+     {"boundaries": [10.0, 20.0], "values": [1.0, 0.5, 0.1]}, {}, {}),
+    ("piecewise_decay_on_boundary", "piecewise_decay",
+     {"Step": [np.array([10.0], "float32")]},
+     {"boundaries": [10.0, 20.0], "values": [1.0, 0.5, 0.1]}, {}, {}),
+    ("piecewise_decay_last", "piecewise_decay",
+     {"Step": [np.array([25.0], "float32")]},
+     {"boundaries": [10.0, 20.0], "values": [1.0, 0.5, 0.1]}, {}, {}),
 ]
 
 
@@ -413,6 +495,44 @@ def test_softmax_with_cross_entropy_gradient_matches_jax(logits_dtype,
     assert str(tl.grad.dtype) == f"torch.{logits_dtype}"
     if ignore != -100:
         assert (tg[label[..., 0] == ignore] == 0).all()
+    if logits_dtype == "float32":
+        np.testing.assert_allclose(tg, jg, atol=1e-6, rtol=0)
+    else:
+        np.testing.assert_allclose(tg, jg, rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("logits_dtype", ["float32", "bfloat16"])
+def test_ce_out_of_range_labels_gradient_matches_jax(logits_dtype):
+    """d(sum(loss * w))/d(logits) with labels outside [0, V) against
+    jax.grad through the JAX package's `_ce_hard`: a label in [-V, 0)
+    wraps in the loss but no one-hot is subtracted in the gradient, any
+    other out-of-range label gives a NaN loss and the row's gradient is
+    softmax * w; ignore_index rows give 0. float32 at 1e-6, bfloat16 at one
+    bfloat16 step."""
+    logits = f32(2, 4, 7)
+    label = np.array([[7, -1, 3, -100], [-7, -8, 0, 12]], "int64")[..., None]
+    w = f32(2, 4, 1)
+    attrs = {"soft_label": False, "ignore_index": -100}
+
+    def jloss(lg):
+        out = jreg.lookup_op("softmax_with_cross_entropy").lower(
+            jreg.LowerCtx(rng_key=jax.random.PRNGKey(0)),
+            {"Logits": [lg], "Label": [jnp.asarray(label)]}, dict(attrs))
+        return jnp.sum(out["Loss"][0] * jnp.asarray(w))
+
+    jg = np.asarray(jax.grad(jloss)(_to_jax(logits, logits_dtype))
+                    .astype(jnp.float32))
+    tl = _to_torch(logits, logits_dtype).requires_grad_()
+    out = treg.lookup_op("softmax_with_cross_entropy").lower(
+        treg.LowerCtx(), {"Logits": [tl], "Label": [torch.from_numpy(label)]},
+        dict(attrs))
+    loss = out["Loss"][0]
+    nan_rows = [(0, 0), (1, 1), (1, 3)]
+    assert all(bool(loss[r].isnan().all()) for r in nan_rows)
+    assert not bool(loss[0, 1].isnan())
+    (loss * torch.from_numpy(w)).sum().backward()
+    tg = as_numpy(tl.grad)
+    assert np.isfinite(tg).all() and (tg[0, 3] == 0).all()
     if logits_dtype == "float32":
         np.testing.assert_allclose(tg, jg, atol=1e-6, rtol=0)
     else:

@@ -259,29 +259,47 @@ def _tiny_program(param_attr=None, regularization=None, is_sparse=False):
 @pytest.mark.parametrize("case", ["clip", "regularizer", "sparse_embedding",
                                   "remat", "live_out", "dropout"])
 def test_off_slice_options_raise(case):
-    """What this slice leaves out raises NotImplementedError naming its
-    ROADMAP.md item instead of running something else."""
+    """What the port leaves out raises NotImplementedError naming its
+    ROADMAP.md item instead of running something else. Gradient clipping,
+    regularizers and dropout, once left out, are ported now: those cases
+    build their ops and run (`clip`; L2 decay's `scale` + `sum`; the LM's
+    `dropout` sites)."""
+    feed = {"ids": np.array([[1], [7]], "int64")}
+    if case in ("clip", "regularizer"):
+        main, start, loss = _tiny_program(
+            param_attr=ptt.ParamAttr(
+                gradient_clip=ptt.clip.GradientClipByValue(0.01))
+            if case == "clip" else None,
+            regularization=ptt.regularizer.L2Decay(0.1)
+            if case == "regularizer" else None)
+        types = [op.type for op in main.global_block().ops]
+        assert ("clip" in types if case == "clip"
+                else {"scale", "sum"} <= set(types))
+        scope = ptt.Scope()
+        exe = ptt.Executor(ptt.CPUPlace())
+        exe.run(start, scope=scope)
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        assert np.isfinite(out).all()
+        return
+    if case == "dropout":
+        ttr.transformer_lm(dropout=0.1, **DIMS)
+        types = [op.type for op in
+                 ptt.default_main_program().global_block().ops]
+        assert types.count("dropout") == 1 + 4 * DIMS["num_layers"]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if case == "clip":
-            _tiny_program(param_attr=ptt.ParamAttr(gradient_clip=object()))
-        elif case == "regularizer":
-            _tiny_program(regularization=object())
-        elif case == "dropout":
-            ttr.transformer_lm(dropout=0.1, **DIMS)
-        else:
-            main, start, loss = _tiny_program(
-                is_sparse=case == "sparse_embedding")
-            region = next(op for op in main.global_block().ops
-                          if op.type == "vjp_region")
-            if case == "remat":
-                region.attrs["remat"] = True
-            elif case == "live_out":
-                region.attrs["live_out"] = []
-            scope = ptt.Scope()
-            exe = ptt.Executor(ptt.CPUPlace())
-            exe.run(start, scope=scope)
-            exe.run(main, feed={"ids": np.array([[1], [7]], "int64")},
-                    fetch_list=[loss], scope=scope)
+        main, start, loss = _tiny_program(
+            is_sparse=case == "sparse_embedding")
+        region = next(op for op in main.global_block().ops
+                      if op.type == "vjp_region")
+        if case == "remat":
+            region.attrs["remat"] = True
+        elif case == "live_out":
+            region.attrs["live_out"] = []
+        scope = ptt.Scope()
+        exe = ptt.Executor(ptt.CPUPlace())
+        exe.run(start, scope=scope)
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
 
 
 def test_variable_arithmetic_matches_jax_programs():
