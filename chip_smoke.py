@@ -109,7 +109,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    the training path): 3 Adam steps card against CPU (each from the same
    state), the step counter equal; then its dropout-0.1 is_test logits;
 18. where a Transformer-base step's time goes: phase 10's profile of the
-   phase-15 trainer.
+   phase-15 trainer;
+19. train ResNet-50 as the JAX package's bench.py builds it (224x224x3
+   NHWC images declared uint8-staged, bfloat16 convs on cuDNN's
+   channels_last kernels, Momentum 3e-3 / 0.9, batch 256, cuDNN
+   autotuning on): 8 distinct batches by bench.py's recipe, quantized to
+   uint8 and fed through the DevicePrefetcher (pinned buffers, a side
+   stream), 21 steps: images/s over the median step, step median and p95
+   (step 1, with the autotuning, apart), losses (finite; the mean over the
+   last 8 steps below the first 8's), peak device memory, the bytes of a
+   staged batch against float32's; the fed tensor must reach the card as
+   uint8, and a forward on the uint8 batch must give the loss of one on
+   uint8 * float32(1/255) made on the host, and that of one on its
+   float32 source within 1%; then phase 10's profile of the step. It
+   launches none of K1-K6;
+20. the trained ResNet-50 saved with io.save_inference_model, loaded and
+   served through Inferencer at batch 16 (median of 10); its top-1 equals
+   the trained program's is_test clone's on the same batch;
+21. ResNet-8 (resnet_cifar10, depth 8) in float32, 3 Momentum steps card
+   against CPU from the same weights (losses, gradients, parameters and
+   the BN running statistics), and one step of SE-ResNeXt-50 at 64x64
+   (grouped convs; loss, running statistics, and each gradient's cosine
+   and norm, its float32 gradients being chaotic at initialization).
 
 Float32 matrix products run without TF32 here
 (torch.backends.cuda.matmul.allow_tf32 = False, and cudnn's too), so
@@ -125,7 +146,7 @@ the chunks of the cache a call is split into, at each path's shape; the
 flash kernels' `routes` per type, `err_over_tolerance_bf16`,
 `beyond_one_step_bf16`, the controls' `control_err_over_tolerance`,
 `launches_tc_bf16`, `d256` and `d512`, their times and bound at head
-dims 256 and 512), times, and `paths`: phases 15-18's numbers; the last
+dims 256 and 512), times, and `paths`: phases 15-21's numbers; the last
 line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
@@ -222,6 +243,18 @@ TRANSFORMER_SMALL = dict(src_vocab=97, tgt_vocab=89, max_len=32, d_model=64,
                          d_inner=128, num_heads=4, num_layers=2,
                          dropout=0.0, label_smooth=0.1, batch=4, len_lo=5,
                          warmup=10, lr=0.012)
+# ResNet-50 as the JAX package's own benchmark builds it (bench.py:57-76):
+# 224x224x3 NHWC images declared with uint8 staging, bfloat16 convs,
+# Momentum(3e-3, 0.9), batch 256 (bench.py:503); 8 distinct batches made
+# by bench.py's recipe (:83-103); inference at batch 16 (bench.py:189)
+RESNET = dict(depth=50, image=224, classes=1000, batch=256, lr=3e-3,
+              momentum=0.9, batches=8, infer_batch=16)
+RESNET_STEPS = 21            # step 1 (planning, cuDNN autotuning) + 20
+# phase 21: resnet_cifar10(depth=8) at 32x32, batch 8, 3 Momentum steps;
+# se_resnext_imagenet (grouped convs, the SE gate) at 64x64, batch 4, one
+# step (its float32 gradients at initialization are chaotic after one)
+RESNET_SMALL = dict(depth=8, image=32, classes=10, batch=8, lr=0.05)
+SE_RESNEXT_SMALL = dict(image=64, classes=10, batch=4, lr=1e-3)
 
 
 def log(*a):
@@ -1202,6 +1235,13 @@ def dev_self(e):
                    getattr(e, "self_cuda_time_total", 0)) or 0
 
 
+def dev_total(e):
+    """A profiler event's device time with its children's (us): for an
+    op lowering's annotation, the kernels it launched."""
+    return getattr(e, "device_time_total",
+                   getattr(e, "cuda_time_total", 0)) or 0
+
+
 def device_kernels(events):
     """The profiled device kernels: CUDA events with device time, less the
     record_function annotations the profiler mirrors onto the device
@@ -1513,13 +1553,20 @@ def profile_train(trainer, warm=2, n=3):
     regions = {"vjp_region/forward", "vjp_region/backward"}
     host = [e for e in events if (e.key in op_types or e.key in regions)
             and e.device_type == DeviceType.CPU]
-    log(f"  host time per op type, annotated run (wall "
+    log(f"  host and device time per op type, annotated run (wall "
         f"{wall / n * 1e3:.1f} ms/step; vjp_region/forward holds the "
         f"forward ops below it, vjp_region/backward is autograd's "
-        f"backward):")
+        f"backward; an op's device time is its kernels' in the forward):")
     for e in sorted(host, key=lambda e: e.cpu_time_total, reverse=True):
-        log(f"    host {e.cpu_time_total / n / 1e3:8.2f} ms/step "
-            f"{e.count / n:6.1f} calls/step  {e.key}")
+        log(f"    host {e.cpu_time_total / n / 1e3:8.2f} ms/step, device "
+            f"{dev_total(e) / n / 1e3:8.2f} ms/step {e.count / n:6.1f} "
+            f"calls/step  {e.key}")
+    node = "autograd::engine::evaluate_function: "
+    bwd = [e for e in events if e.key.startswith(node) and dev_total(e) > 0]
+    log("  device time of autograd's backward by node:")
+    for e in sorted(bwd, key=dev_total, reverse=True)[:8]:
+        log(f"    device {dev_total(e) / n / 1e3:8.2f} ms/step "
+            f"{e.count / n:6.1f} calls/step  {e.key[len(node):]}")
     return summary
 
 
@@ -1737,7 +1784,7 @@ def _decode_attention_without_backward():
 
 
 def _card_against_cpu(ptt, label, cfg, build, make_feeds, steps=3,
-                      exact=(), resync=False):
+                      exact=(), resync=False, opt="Adam"):
     """One model of phase 13 (and phase 17): raises AssertionError where
     the card and the CPU disagree. Losses at rtol 1e-5, gradients at
     1e-5 of each one's largest element, parameters at 1e-6 + 1e-5 |p|
@@ -1750,11 +1797,13 @@ def _card_against_cpu(ptt, label, cfg, build, make_feeds, steps=3,
     from the same state (otherwise such a move changes the next step's
     forward, and the comparison measures that drift instead of the
     step). `exact` names state that must end equal (a step counter).
-    Returns the card's scope."""
+    Non-trainable parameters (batch_norm's running statistics) are held
+    with the parameters, at 1e-6 + 1e-5 |p|. Returns the card's scope."""
     import numpy as np
     from paddle_tpu_torch.framework.executor import as_numpy
     main, start, loss = build(ptt, cfg)
-    names = [p.name for p in main.all_parameters()]
+    names = [p.name for p in main.all_parameters() if p.trainable]
+    stats = [p.name for p in main.all_parameters() if not p.trainable]
     gpu_scope = ptt.Scope()
     gpu = ptt.Executor(ptt.CUDAPlace(0))
     gpu.run(start, scope=gpu_scope)
@@ -1785,6 +1834,11 @@ def _card_against_cpu(ptt, label, cfg, build, make_feeds, steps=3,
             diff = np.abs(gp - cp)
             assert (diff <= tol).all(), (label, n, float(diff.max()))
             worst = max(worst, float(np.where(small[n], 0, diff).max()))
+        for n in stats:
+            gp, cp = as_numpy(gpu_scope.get(n)), as_numpy(cpu_scope.get(n))
+            diff = np.abs(gp - cp)
+            assert (diff <= 1e-6 + 1e-5 * np.abs(cp)).all(), \
+                (label, n, float(diff.max()))
 
     feeds = make_feeds(np.random.RandomState(SEED + 8), cfg, steps)
     for i, feed in enumerate(feeds):
@@ -1816,10 +1870,12 @@ def _card_against_cpu(ptt, label, cfg, build, make_feeds, steps=3,
         gv, cv = as_numpy(gpu_scope.get(n)), as_numpy(cpu_scope.get(n))
         assert np.array_equal(gv, cv), (label, n, gv, cv)
         log(f"  {label}: {n} card {gv.tolist()}, CPU {cv.tolist()}")
-    log(f"  small {label}, float32, {steps} Adam steps"
+    log(f"  small {label}, float32, {steps} {opt} steps"
         + (" (each from the same state)" if resync else "")
-        + f": losses, gradients and {len(names)} parameters agree (largest "
-        f"parameter difference away from tiny gradients {worst:.2e})")
+        + f": losses, gradients, {len(names)} parameters"
+        + (f" and {len(stats)} running statistics" if stats else "")
+        + f" agree (largest parameter difference away from tiny gradients "
+        f"{worst:.2e})")
     return gpu_scope
 
 
@@ -2162,6 +2218,313 @@ def transformer_reference_check(ptt):
     return {"infer_max_abs_err": err}
 
 
+def _staged_batches(batch, n, seed, image=224):
+    """bench.py's `_staged_batches` (bench.py:83-103) in numpy: n distinct
+    batches of 224x224x3 float32 images in [0, 1), each image's label (one
+    of 1000) a global brightness offset of 0.3 * label / 1000, so that the
+    task can be learned and the loss fall."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        label = rng.randint(0, 1000, (batch, 1)).astype("int64")
+        img = (rng.rand(batch, image, image, 3) * 0.7
+               + (label / 1000.0)[:, :, None, None] * 0.3).astype("float32")
+        out.append({"img": img, "label": label})
+    return out
+
+
+def _resnet_program(ptt, cfg, is_test=False):
+    """ResNet-50 as bench.py:57-76 builds it: (main, start, loss, logits).
+    The names are the same in every build (a fresh name generator)."""
+    from paddle_tpu_torch.models import resnet
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        img = ptt.layers.data(name="img", shape=[cfg["image"]] * 2 + [3],
+                              staging_dtype="uint8")
+        loss, _, logits = resnet.resnet_imagenet(
+            img=img, depth=cfg["depth"], class_num=cfg["classes"],
+            is_test=is_test, data_format="NHWC", use_bf16=True)
+        if not is_test:
+            ptt.optimizer.Momentum(learning_rate=cfg["lr"],
+                                   momentum=cfg["momentum"]).minimize(loss)
+    return main, start, loss, logits
+
+
+def train_resnet(ptt, kernels):
+    """Phase 19: ResNet-50 trained at full width, fed uint8 through the
+    DevicePrefetcher. Returns (numbers for the JSON line, the trainer for
+    phases 20 and 19's profile)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.data import feeder
+    cfg = RESNET
+    # cuDNN picks each conv's algorithm by timing them at its first call
+    # (XLA's conv autotuning in the JAX package): step 1 holds that
+    torch.backends.cudnn.benchmark = True
+    t0 = time.perf_counter()
+    main, start, loss, logits = _resnet_program(ptt, cfg)
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    dev = exe.device
+    exe.run(start, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters()
+                   if p.trainable)
+    ops = main.global_block().ops
+    n_conv = sum(op.type == "conv2d" for op in ops)
+    n_bn = sum(op.type == "batch_norm" for op in ops)
+    log(f"  built and initialized in {time.perf_counter() - t0:.2f} s: "
+        f"{n_params / 1e6:.2f}M trainable parameters, {n_conv} conv2d, "
+        f"{n_bn} batch_norm, {len(ops)} ops")
+    t0 = time.perf_counter()
+    source = _staged_batches(cfg["batch"], cfg["batches"], SEED,
+                             cfg["image"])
+    specs = feeder.staging_specs(main)
+    # quantized once on the host, as a decoder hands uint8 images over;
+    # the prefetcher's stage_batch then passes them as they are
+    wire = [feeder.stage_batch(b, specs) for b in source]
+    wire_mb = wire[0]["img"].nbytes / 1e6
+    f32_mb = source[0]["img"].nbytes / 1e6
+    pix_err = float(np.abs(wire[0]["img"] * np.float32(1 / 255.0)
+                           - source[0]["img"]).max())
+    log(f"  {cfg['batches']} distinct batches of {cfg['batch']} made and "
+        f"quantized in {time.perf_counter() - t0:.2f} s; staging {specs}: "
+        f"one batch's images {wire_mb:.1f} MB as uint8 against "
+        f"{f32_mb:.1f} MB as float32; largest pixel change {pix_err:.3e} "
+        f"(1/510 = {1 / 510:.3e})")
+    assert pix_err <= 1 / 510 + 1e-6, pix_err
+
+    def reader():
+        for i in range(RESNET_STEPS):
+            yield wire[i % len(wire)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, secs, fed = [], [], []
+    t_loop = time.perf_counter()
+    for feed in ptt.data.DevicePrefetcher(reader, capacity=2,
+                                          place=ptt.CUDAPlace(0),
+                                          staging=specs):
+        fed.append((feed["img"].dtype, feed["img"].device))
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(out))
+    loop_s = time.perf_counter() - t_loop
+    launches = dict(kernels.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    assert all(f == (torch.uint8, dev) for f in fed), fed
+    st = np.asarray(secs[1:]) * 1e3
+    imgs_s = cfg["batch"] / (np.median(st) / 1e3)
+    k = cfg["batches"]
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    log(f"  ResNet-50, NHWC, bf16, Momentum({cfg['lr']}, "
+        f"{cfg['momentum']}), batch {cfg['batch']}: {len(losses)} steps, "
+        f"each batch on the card as {fed[0][0]} ({fed[0][1]}); step median "
+        f"{np.median(st):.1f} ms, p95 {np.percentile(st, 95):.1f} ms "
+        f"(steps 2-{len(losses)}; step 1, with cuDNN's autotuning, "
+        f"{secs[0] * 1e3:.1f} ms): {imgs_s:.1f} images/s over the median "
+        f"step, {cfg['batch'] * (len(losses) - 1) / (loop_s - secs[0]):.1f}"
+        f" images/s over the loop's wall after step 1; peak device memory "
+        f"{peak_mb:.1f} MB")
+    log(f"  loss step 1 {losses[0]:.4f}, step {len(losses)} "
+        f"{losses[-1]:.4f}; mean over the first {k} steps {first:.4f}, "
+        f"over the last {k} {last:.4f}")
+    log(f"  losses: {[round(x, 4) for x in losses]}")
+    log(f"  launches of K1-K6 on this path (none expected): {launches}")
+    assert all(math.isfinite(x) for x in losses), f"loss {losses}"
+    assert last < first, f"the loss did not fall: {losses}"
+
+    # staging on the card: the training forward (batch statistics) from
+    # the same state, each run on its own copy of it. (a) On the uint8
+    # batch and on uint8 · float32(1/255) made on the host: the card's
+    # cast and scale are that multiply, so the losses are equal. (b) On
+    # the uint8 batch and on its float32 source: each pixel moves by at
+    # most 1/510, below a bfloat16 activation's own rounding (2^-9 of
+    # it), so the losses may differ by what two bfloat16 forwards of
+    # nearly equal inputs differ by, held at 1% of the loss
+    fwd = main.prune([loss])
+
+    def forward(feed):
+        copy = ptt.Scope()
+        for n in scope.local_var_names():
+            copy.set_var(n, scope.get(n).clone())
+        return float(exe.run(fwd, feed=feed, fetch_list=[loss],
+                             scope=copy)[0])
+
+    dequant = dict(wire[0], img=wire[0]["img"].astype("float32")
+                   * np.float32(1 / 255.0))
+    u8, host, f32 = (forward(f) for f in (wire[0], dequant, source[0]))
+    pair = [u8, f32]
+    log(f"  one forward from the trained state: loss on the uint8 batch "
+        f"{u8:.6f}, on uint8 * float32(1/255) made on the host {host:.6f}, "
+        f"on the float32 source {f32:.6f} (difference {abs(u8 - f32):.2e}, "
+        f"tolerance {0.01 * abs(f32):.2e})")
+    assert u8 == host, (u8, host)
+    assert math.isfinite(u8) and abs(u8 - f32) <= 0.01 * abs(f32), pair
+    numbers = {"images_per_s": float(imgs_s),
+               "step_ms_median": float(np.median(st)),
+               "step_ms_p95": float(np.percentile(st, 95)),
+               "step1_ms": secs[0] * 1e3, "loss_first": losses[0],
+               "loss_last": losses[-1], "loss_first_8": first,
+               "loss_last_8": last, "peak_mb": peak_mb,
+               "staged_batch_mb": wire_mb, "float32_batch_mb": f32_mb,
+               "staging_loss_pair": pair}
+    dev_feeds = [{k_: torch.from_numpy(v).to(dev) for k_, v in w.items()}
+                 for w in wire[:3]]
+    return numbers, (exe, main, scope, loss, logits, dev_feeds, source[0])
+
+
+def infer_resnet(ptt, trained, root):
+    """Phase 20: the trained ResNet-50 saved with save_inference_model,
+    loaded back and served through Inferencer at batch 16; its top-1
+    against the trained program's is_test clone on the same batch."""
+    import numpy as np
+    import torch
+    cfg = RESNET
+    exe, main, scope, _, logits, _, source = trained
+    imain, _, _, ilogits = _resnet_program(ptt, cfg, is_test=True)
+    model_dir = os.path.join(root, "resnet50_inference")
+    ptt.io.save_inference_model(model_dir, ["img"], [ilogits],
+                                executor=exe, main_program=imain,
+                                scope=scope)
+    inf = ptt.Inferencer(model_dir, place=ptt.CUDAPlace(0))
+    # the saved program carries no staging spec (as in the JAX package):
+    # it is fed float32
+    feed = {"img": source["img"][:cfg["infer_batch"]]}
+    out = inf.infer(feed, return_numpy=False)[0]
+    secs = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inf.infer(feed, return_numpy=False)[0]
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    clone = main.prune([logits]).clone(for_test=True)
+    ref = exe.run(clone, feed=feed, fetch_list=[logits], scope=scope,
+                  return_numpy=False)[0]
+    top1, ref1 = out.float().argmax(-1), ref.float().argmax(-1)
+    ms = float(np.median(secs)) * 1e3
+    log(f"  Inferencer on CUDAPlace(0): logits {tuple(out.shape)} "
+        f"{out.dtype}, {ms:.2f} ms a batch of {cfg['infer_batch']} "
+        f"(median of 10, {cfg['infer_batch'] / ms * 1e3:.1f} images/s); "
+        f"top-1 {top1.tolist()}; the is_test clone's {ref1.tolist()}")
+    assert tuple(out.shape) == (cfg["infer_batch"], cfg["classes"])
+    assert bool(torch.isfinite(out.float()).all()), "non-finite logits"
+    assert torch.equal(top1, ref1), "top-1 differs from the is_test clone"
+    return {"infer_ms": ms, "images_per_s": cfg["infer_batch"] / ms * 1e3}
+
+
+def _no_dropout(program):
+    """Dropout 0 in `program`: the card and the CPU draw different masks."""
+    for op in program.global_block().ops:
+        if op.type == "dropout":
+            op.attrs["dropout_prob"] = 0.0
+
+
+def _cosine(a, b):
+    import numpy as np
+    a, b = a.ravel().astype("float64"), b.ravel().astype("float64")
+    return float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-300))
+
+
+def se_resnext_step_check(ptt):
+    """Phase 21, second half: one Momentum step of se_resnext_imagenet
+    (grouped 3x3 convs, the SE gate) at 64x64 in float32, card against
+    CPU from the card's initial state. Like the CPU test against the JAX
+    package: the loss at rtol 1e-4, the BN running statistics at 1e-3 of
+    each one's largest magnitude, each gradient at a cosine of at least
+    0.99 and a norm within 2% (gradients below 1e-5 of the largest are
+    rounding noise: a conv bias under BN has an analytic gradient of 0)."""
+    import numpy as np
+    from paddle_tpu_torch.framework.executor import as_numpy
+    from paddle_tpu_torch.models import se_resnext
+    cfg = SE_RESNEXT_SMALL
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        img = ptt.layers.data("img", shape=[cfg["image"]] * 2 + [3])
+        loss, _, _ = se_resnext.se_resnext_imagenet(
+            img=img, class_num=cfg["classes"], use_bf16=False)
+        ptt.optimizer.Momentum(learning_rate=cfg["lr"],
+                               momentum=0.9).minimize(loss)
+    _no_dropout(main)
+    params = [p for p in main.all_parameters()]
+    names = [p.name for p in params if p.trainable]
+    stats = [p.name for p in params if not p.trainable]
+    gpu_scope = ptt.Scope()
+    ptt.Executor(ptt.CUDAPlace(0)).run(start, scope=gpu_scope)
+    state = {n: as_numpy(gpu_scope.get(n))
+             for n in gpu_scope.local_var_names()}
+    cpu_scope = ptt.load_numpy_params(state, ptt.Scope(), ptt.CPUPlace())
+    rng = np.random.RandomState(SEED + 11)
+    feed = {"img": rng.rand(cfg["batch"], cfg["image"], cfg["image"],
+                            3).astype("float32"),
+            "label": rng.randint(0, cfg["classes"],
+                                 (cfg["batch"], 1)).astype("int64")}
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    g = ptt.Executor(ptt.CUDAPlace(0)).run(main, feed=feed,
+                                           fetch_list=fetch,
+                                           scope=gpu_scope)
+    c = ptt.Executor(ptt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                         scope=cpu_scope)
+    np.testing.assert_allclose(g[0], c[0], rtol=1e-4,
+                               err_msg="SE-ResNeXt loss")
+    for n in stats:
+        gv, cv = as_numpy(gpu_scope.get(n)), as_numpy(cpu_scope.get(n))
+        assert np.abs(gv - cv).max() <= 1e-3 * np.abs(cv).max(), n
+    gmax = max(float(np.abs(cg).max()) for cg in c[1:])
+    worst_cos, worst_norm, checked = 1.0, 0.0, 0
+    for n, gg, cg in zip(names, g[1:], c[1:]):
+        if max(np.abs(gg).max(), np.abs(cg).max()) <= 1e-5 * gmax:
+            continue
+        cos = _cosine(gg, cg)
+        nrm = abs(float(np.linalg.norm(gg) / np.linalg.norm(cg)) - 1)
+        assert cos >= 0.99 and nrm <= 0.02, (n, cos, nrm)
+        worst_cos, worst_norm = min(worst_cos, cos), max(worst_norm, nrm)
+        checked += 1
+    n_groups = sum(op.type == "conv2d" and op.attrs.get("groups", 1) > 1
+                   for op in main.global_block().ops)
+    log(f"  SE-ResNeXt-50 at {cfg['image']}x{cfg['image']}, batch "
+        f"{cfg['batch']}, float32, one Momentum step ({n_groups} grouped "
+        f"convs): loss card {float(g[0]):.6f}, CPU {float(c[0]):.6f}; "
+        f"{checked} of {len(names)} gradients held (the rest below 1e-5 of "
+        f"the largest), worst cosine {worst_cos:.5f}, worst norm ratio "
+        f"{worst_norm:.2e}; {len(stats)} running statistics within 1e-3")
+    return {"loss_card": float(g[0]), "loss_cpu": float(c[0]),
+            "worst_cosine": worst_cos, "worst_norm_ratio": worst_norm}
+
+
+def resnet_reference_check(ptt):
+    """Phase 21: ResNet-8 (resnet_cifar10, depth 8) in float32 with TF32
+    off, 3 Momentum steps card against CPU from the same weights: losses,
+    gradients, parameters and the BN running statistics; then one
+    SE-ResNeXt-50 step."""
+    from paddle_tpu_torch.models import resnet
+    cfg = RESNET_SMALL
+
+    def build(ptt, cfg):
+        main, start = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, start), ptt.unique_name.guard():
+            img = ptt.layers.data("img", shape=[cfg["image"]] * 2 + [3])
+            loss, _, _ = resnet.resnet_cifar10(img=img, depth=cfg["depth"],
+                                               class_num=cfg["classes"])
+            ptt.optimizer.Momentum(learning_rate=cfg["lr"],
+                                   momentum=0.9).minimize(loss)
+        return main, start, loss
+
+    def make_feeds(rng, cfg, n):
+        return [{"img": rng.rand(cfg["batch"], cfg["image"], cfg["image"],
+                                 3).astype("float32"),
+                 "label": rng.randint(0, cfg["classes"], (cfg["batch"], 1))
+                 .astype("int64")} for _ in range(n)]
+
+    _card_against_cpu(ptt, "ResNet-8 (cifar)", cfg, build, make_feeds,
+                      steps=3, opt="Momentum")
+    return {"se_resnext_step": se_resnext_step_check(ptt)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2265,7 +2628,28 @@ def main():
     paths["transformer_base_profile"] = profile_train(
         (tr_trainer.exe, tr_trainer.train_program, tr_trainer.scope,
          tr_trainer.loss, tr_feeds))
-    del tr_trainer
+    del tr_trainer, tr_feeds
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        log("phase 19: train ResNet-50 at full width, fed uint8 through "
+            "the DevicePrefetcher")
+        paths["resnet50_train"], resnet_trained = train_resnet(ptt, kernels)
+        exe_, main_, scope_, loss_, _, dev_feeds, _ = resnet_trained
+        log("  where a ResNet-50 step's time goes:")
+        paths["resnet50_profile"] = profile_train(
+            (exe_, main_, scope_, loss_, dev_feeds))
+
+        log("phase 20: serve ResNet-50 through Inferencer at batch 16")
+        paths["resnet50_infer"] = infer_resnet(ptt, resnet_trained, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del resnet_trained, exe_, main_, scope_, dev_feeds
+    torch.cuda.empty_cache()
+
+    log("phase 21: image models card against CPU (ResNet-8, SE-ResNeXt)")
+    paths["resnet_reference"] = resnet_reference_check(ptt)
 
     # each kernel's launches on its own path: decode attention on the
     # serving run (phase 4; its NMT run beside it), the flash kernels on

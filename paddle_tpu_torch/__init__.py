@@ -16,7 +16,9 @@ torch.autograd, with the flash-attention forward and backward kernels,
 dropout, gradient clipping, weight decay and the learning-rate
 schedules); the recurrent models with their whole-sequence kernels; and
 the high-level API: `Trainer` (events, checkpoints, resume), `io`
-save/load in the JAX package's format, `Inferencer` / `Predictor`.
+save/load in the JAX package's format, `Inferencer` / `Predictor`; and
+the image models (ResNet, SE-ResNeXt, VGG, MNIST, AlexNet, GoogLeNet) on
+conv, pool and batch_norm, fed uint8 images through `DevicePrefetcher`.
 ROADMAP.md lists what is still to be ported.
 """
 
@@ -33,7 +35,7 @@ from .framework.program import (Program, Variable,  # noqa: F401
 from .framework.registry import registered_ops  # noqa: F401
 from .framework.scope import Scope, global_scope, reset_global_scope  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
-from . import data, io, models, observability, serving  # noqa: F401,E402
+from . import data, io, models, nets, observability, serving  # noqa: F401,E402
 from . import inferencer, trainer  # noqa: F401,E402
 from .data.feeder import DataFeeder  # noqa: F401,E402
 from .inferencer import Inferencer, Predictor  # noqa: F401,E402

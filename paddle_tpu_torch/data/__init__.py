@@ -1,7 +1,10 @@
 """Input pipelines (≙ paddle_tpu/data), trimmed to the reader decorators,
-the DataFeeder and batch packing."""
+the DataFeeder with byte-lean staging, the device prefetcher and batch
+packing."""
 
 from .decorator import (batch, buffered, chain, compose, firstn,  # noqa: F401
                         map_readers, shuffle, xmap_readers)
-from .feeder import DataFeeder  # noqa: F401
+from .feeder import (DataFeeder, stage_array, stage_batch,  # noqa: F401
+                     staging_specs)
 from .packing import pack_lm_batch, pack_sequences  # noqa: F401
+from .prefetch import DevicePrefetcher  # noqa: F401

@@ -11,7 +11,9 @@ carries over:
 - the read-only / read-write / write-only state analysis over persistable
   variables, and `apply_fusion_passes` on a clone of the program;
 - `Executor.prepare` → `PreparedStep` with `run`, `bind`, `refresh_state`
-  and `run_bound` for the serving engine's tick.
+  and `run_bound` for the serving engine's tick;
+- feed staging: a data var declared with a staging dtype may be fed in
+  it (uint8 images), and is cast and scaled on the device.
 
 What differs: persistable state that an op reads and rewrites is updated
 IN PLACE on the device — an op whose output variable is the one it reads
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core import flags
+from ..core.dtypes import dtype_name
 from ..core.enforce import NotFoundError
 from ..core.places import Place, resolve_device
 from .lowering import build_plan, run_plan
@@ -65,6 +68,24 @@ def as_numpy(t) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _unstage(name, t, dtype, staging):
+    """Feed staging (≙ paddle_tpu/framework/executor.py:297-318): a feed of
+    its var's wire dtype is cast to the var's dtype and scaled where it
+    lies — on the card, so only the wire bytes crossed PCIe. Any other
+    dtype than those two is the caller's fault and raises: scaling it
+    would corrupt the feed."""
+    wire, scale = staging
+    if t.dtype == dtype:
+        return t
+    if t.dtype != wire:
+        raise TypeError(
+            f"feed '{name}' has dtype {dtype_name(t.dtype)} but the var is "
+            f"declared {dtype_name(dtype)} with staging dtype "
+            f"{dtype_name(wire)}; feed either of those")
+    t = t.to(dtype)
+    return t if scale is None else t.mul_(scale)
+
+
 def _run_seed(random_seed: int, counter: int) -> int:
     return (random_seed * 1000003 + counter) % 2147483648
 
@@ -84,6 +105,11 @@ class _Plan:
         self.fetch_names = fetch_names
         self.state_out_names = sorted(set(rw_names) | set(out_only))
         self.constants = {}     # LowerCtx.constant memo, per plan
+        block = program.global_block()
+        self.staged_feeds = tuple(
+            (n, block.vars[n].dtype, block.vars[n].staging)
+            for n in feed_names
+            if n in block.vars and block.vars[n].staging is not None)
         self.read_names = frozenset(
             {n for blk in program.blocks for op in blk.ops
              for n in op.input_names()}
@@ -295,6 +321,8 @@ class Executor:
         env.update(zip(plan.ro_names, ro_vals))
         env.update(zip(plan.rw_names, rw_vals))
         env.update(zip(plan.feed_names, feed_vals))
+        for name, dtype, staging in plan.staged_feeds:
+            env[name] = _unstage(name, env[name], dtype, staging)
         with torch.no_grad():
             run_plan(plan.ops, env, ctx)
         # scope write-back: read-write state was updated in place, so this

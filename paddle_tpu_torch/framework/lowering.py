@@ -215,7 +215,10 @@ def run_vjp_region(region_op: Operator, env: Dict[str, Any], ctx: LowerCtx):
     for op in seg_ops:
         for n in op.output_names():
             if n in env2:        # an optional output nobody reads is absent
-                env[n] = env2[n].detach()
+                v = env2[n]
+                # state a forward op updated in place (batch_norm's running
+                # statistics) keeps its tensor: a bound step holds it
+                env[n] = v.detach() if v.requires_grad else v
     env[grad_var_name(loss_name)] = seed.detach()
     for name, leaf, g in zip(targets, leaves, grads):
         env[grad_var_name(name)] = (torch.zeros_like(leaf.detach())

@@ -46,6 +46,10 @@ class Variable:
         self.is_data = is_data
         self.trainable = trainable
         self.op = None  # producer op, set by Block.append_op
+        # byte-lean staging of a data var: (wire dtype, scale). A feed of
+        # the wire dtype is cast to `dtype` and scaled on the device
+        # (layers.data(staging_dtype=...), Executor)
+        self.staging = None
 
     def __repr__(self):
         return (f"Variable(name={self.name!r}, shape={self.shape}, "

@@ -1,5 +1,5 @@
-"""fluid.layers-equivalent namespace, trimmed to the serving, training and
-recurrent slices."""
+"""fluid.layers-equivalent namespace, trimmed to the serving, training,
+recurrent and image slices."""
 
 from . import (control_flow, io, learning_rate_scheduler,  # noqa: F401
                math_ops, nn, ops, sequence, tensor)
@@ -12,13 +12,15 @@ from .learning_rate_scheduler import (autoincreased_step_counter,  # noqa: F401
                                       noam_decay, piecewise_decay,
                                       polynomial_decay)
 from .math_ops import scale  # noqa: F401
-from .nn import (accuracy, cache_write, clip, clip_by_norm,  # noqa: F401
-                 dropout, elementwise_add, elementwise_div, elementwise_max,
-                 elementwise_min, elementwise_mul, elementwise_pow,
-                 elementwise_sub, embedding, fc, fused_attention, gather,
-                 layer_norm, log_softmax, matmul, mean, one_hot, reduce_max,
-                 reduce_mean, reduce_min, reduce_prod, reduce_sum, reshape,
-                 slice, softmax, softmax_with_cross_entropy, squeeze, topk,
+from .nn import (accuracy, batch_norm, cache_write, clip,  # noqa: F401
+                 clip_by_norm, conv2d, conv2d_transpose, conv3d,
+                 conv3d_transpose, dropout, elementwise_add, elementwise_div,
+                 elementwise_max, elementwise_min, elementwise_mul,
+                 elementwise_pow, elementwise_sub, embedding, fc,
+                 fused_attention, gather, layer_norm, log_softmax, matmul,
+                 mean, one_hot, pool2d, pool3d, reduce_max, reduce_mean,
+                 reduce_min, reduce_prod, reduce_sum, reshape, slice,
+                 softmax, softmax_with_cross_entropy, squeeze, topk,
                  transpose, unsqueeze)
 from .ops import (ceil, cos, exp, floor, pow, reciprocal, relu,  # noqa: F401
                   sigmoid, sign, sqrt, tanh)

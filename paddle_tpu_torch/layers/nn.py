@@ -1,15 +1,18 @@
 """Neural-network layers.
 
 ≙ paddle_tpu/layers/nn.py (reference python/paddle/fluid/layers/nn.py),
-trimmed to the layers the serving, training and recurrent slices build. Each layer creates
-parameters via LayerHelper and appends ops; the executor runs them.
+trimmed to the layers the serving, training, recurrent and image slices
+build. Each layer creates parameters via LayerHelper and appends ops; the
+executor runs them.
 """
 
 from __future__ import annotations
 
 from ..core.dtypes import dtype_name
+from ..core.enforce import InvalidArgumentError, enforce
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 
 def _prod(xs):
@@ -75,6 +78,273 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                             "is_distributed": is_distributed,
                             "padding_idx": padding_idx})
     return out
+
+
+# ---------------------------------------------------------------- conv
+def _pair(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x, x]
+
+
+def _triple(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x, x, x]
+
+
+def _conv_out_dim(in_dim, k, pad, stride, dilation=1):
+    if in_dim == -1:
+        return -1
+    return (in_dim + 2 * pad - (dilation * (k - 1) + 1)) // stride + 1
+
+
+def _pool_out_shape(input, spatial, pool_size, pool_stride, pool_padding,
+                    global_pooling, ceil_mode):
+    out_shape = list(input.shape)
+    for i, d in enumerate(spatial):
+        if global_pooling:
+            out_shape[d] = 1
+        elif out_shape[d] != -1:
+            span = out_shape[d] + 2 * pool_padding[i] - pool_size[i]
+            if ceil_mode:
+                out_shape[d] = -(-span // pool_stride[i]) + 1
+            else:
+                out_shape[d] = span // pool_stride[i] + 1
+    return out_shape
+
+
+def _conv_nd(layer_type, input, num_filters, filter_size, stride, padding,
+             dilation, groups, param_attr, bias_attr, act, name,
+             data_format, use_bf16, expand):
+    """conv2d / conv3d: the filter [M, C/groups, *k] with the default
+    initializer N(0, sqrt(2 / fan_in)), the op, then bias and activation
+    on the channel axis (≙ paddle_tpu/layers/nn.py:100, :222)."""
+    helper = LayerHelper(layer_type, name=name, act=act, bias_attr=bias_attr)
+    filter_size, stride = expand(filter_size), expand(stride)
+    padding, dilation = expand(padding), expand(dilation)
+    groups = groups or 1
+    nd = len(filter_size)
+    channels_last = data_format in ("NHWC", "NDHWC")
+    c_axis = nd + 1 if channels_last else 1
+    num_channels = input.shape[c_axis]
+    w_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * _prod(filter_size)
+    std = (2.0 / fan_in) ** 0.5
+    w = helper.create_parameter(param_attr, shape=w_shape,
+                                dtype=dtype_name(input.dtype),
+                                default_initializer=NormalInitializer(0., std))
+    spatial_in = (input.shape[1:1 + nd] if channels_last
+                  else input.shape[2:2 + nd])
+    spatial_out = [_conv_out_dim(s, filter_size[i], padding[i], stride[i],
+                                 dilation[i])
+                   for i, s in enumerate(spatial_in)]
+    if channels_last:
+        out_shape = [input.shape[0]] + spatial_out + [num_filters]
+    else:
+        out_shape = [input.shape[0], num_filters] + spatial_out
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=out_shape)
+    helper.append_op(type=layer_type,
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups,
+                            "data_format": data_format, "use_bf16": use_bf16})
+    pre_act = helper.append_bias_op(out, dim_start=c_axis,
+                                    dim_end=c_axis + 1, use_bf16=use_bf16)
+    return helper.append_activation(pre_act)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           use_cudnn=True, name=None, data_format="NCHW", use_bf16=False):
+    """≙ reference layers/nn.py:1369 (conv2d). Input NCHW or NHWC, filter
+    [M, C/groups, kh, kw]; use_cudnn is accepted for API parity (torch
+    picks the cuDNN algorithm)."""
+    return _conv_nd("conv2d", input, num_filters, filter_size, stride,
+                    padding, dilation, groups, param_attr, bias_attr, act,
+                    name, data_format, use_bf16, _pair)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           use_cudnn=True, name=None, data_format="NCDHW", use_bf16=False):
+    """≙ reference layers/nn.py conv3d. Input [N, C, D, H, W] (or NDHWC);
+    filter [M, C/groups, kd, kh, kw]."""
+    return _conv_nd("conv3d", input, num_filters, filter_size, stride,
+                    padding, dilation, groups, param_attr, bias_attr, act,
+                    name, data_format, use_bf16, _triple)
+
+
+def conv2d_transpose(input, num_filters, filter_size=None, output_size=None,
+                     stride=1, padding=0, dilation=1, param_attr=None,
+                     bias_attr=None, act=None, name=None):
+    """≙ reference layers/nn.py conv2d_transpose. Input NCHW; filter stored
+    [C, M, kh, kw]. Without filter_size, the one that gives `output_size`
+    (at dilation 1)."""
+    helper = LayerHelper("conv2d_transpose", name=name, act=act,
+                         bias_attr=bias_attr)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    n, c, h, wd = input.shape
+    if filter_size is None:
+        enforce(output_size is not None,
+                "need filter_size or output_size", exc=InvalidArgumentError)
+        output_size = _pair(output_size)
+        filter_size = [output_size[0] - (h - 1) * stride[0] + 2 * padding[0],
+                       output_size[1] - (wd - 1) * stride[1] + 2 * padding[1]]
+    else:
+        filter_size = _pair(filter_size)
+    w = helper.create_parameter(param_attr,
+                                shape=[c, num_filters] + filter_size,
+                                dtype=dtype_name(input.dtype))
+
+    def _out(in_dim, k, pad, s):
+        return -1 if in_dim == -1 else (in_dim - 1) * s - 2 * pad + k
+
+    out_shape = [n, num_filters,
+                 _out(h, filter_size[0], padding[0], stride[0]),
+                 _out(wd, filter_size[1], padding[1], stride[1])]
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=out_shape)
+    helper.append_op(type="conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv3d_transpose(input, num_filters, filter_size=None, output_size=None,
+                     stride=1, padding=0, dilation=1, param_attr=None,
+                     bias_attr=None, act=None, use_cudnn=True, name=None):
+    """≙ reference layers/nn.py conv3d_transpose. Input [N, C, D, H, W];
+    filter stored [C, M, kd, kh, kw]. Without filter_size, the one that
+    gives `output_size`."""
+    helper = LayerHelper("conv3d_transpose", name=name, act=act,
+                         bias_attr=bias_attr)
+    stride = _triple(stride)
+    padding = _triple(padding)
+    dilation = _triple(dilation)
+    n, c = input.shape[0], input.shape[1]
+    spatial_in = list(input.shape[2:5])
+    if filter_size is None:
+        enforce(output_size is not None,
+                "conv3d_transpose needs filter_size or output_size",
+                exc=InvalidArgumentError)
+        output_size = _triple(output_size)
+        # invert out = (in-1)*s - 2p + d*(k-1) + 1 for k
+        filter_size = []
+        for i in range(3):
+            if spatial_in[i] == -1:
+                filter_size.append(1)
+                continue
+            span = (output_size[i] - (spatial_in[i] - 1) * stride[i]
+                    + 2 * padding[i] - 1)
+            enforce(span % dilation[i] == 0,
+                    f"output_size[{i}]={output_size[i]} unreachable with "
+                    f"stride={stride[i]} padding={padding[i]} "
+                    f"dilation={dilation[i]}", exc=InvalidArgumentError)
+            filter_size.append(span // dilation[i] + 1)
+    else:
+        filter_size = _triple(filter_size)
+    w = helper.create_parameter(param_attr,
+                                shape=[c, num_filters] + filter_size,
+                                dtype=dtype_name(input.dtype))
+    spatial_out = [
+        (spatial_in[i] - 1) * stride[i] - 2 * padding[i]
+        + dilation[i] * (filter_size[i] - 1) + 1
+        if spatial_in[i] != -1 else -1 for i in range(3)]
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=[n, num_filters] + spatial_out)
+    helper.append_op(type="conv3d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+# ---------------------------------------------------------------- pool
+def _pool_nd(layer_type, input, pool_size, pool_type, pool_stride,
+             pool_padding, global_pooling, ceil_mode, exclusive, name,
+             data_format, expand):
+    helper = LayerHelper(layer_type, name=name)
+    pool_size, pool_stride = expand(pool_size), expand(pool_stride)
+    pool_padding = expand(pool_padding)
+    nd = len(pool_size)
+    spatial = (tuple(range(1, 1 + nd)) if data_format in ("NHWC", "NDHWC")
+               else tuple(range(2, 2 + nd)))
+    out = helper.create_tmp_variable(
+        dtype=dtype_name(input.dtype),
+        shape=_pool_out_shape(input, spatial, pool_size, pool_stride,
+                              pool_padding, global_pooling, ceil_mode))
+    helper.append_op(type=layer_type, inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type, "ksize": pool_size,
+                            "strides": pool_stride, "paddings": pool_padding,
+                            "global_pooling": global_pooling,
+                            "exclusive": exclusive, "ceil_mode": ceil_mode,
+                            "data_format": data_format})
+    return out
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, use_cudnn=True, name=None, data_format="NCHW"):
+    """≙ reference layers/nn.py pool2d."""
+    return _pool_nd("pool2d", input, pool_size, pool_type, pool_stride,
+                    pool_padding, global_pooling, ceil_mode, exclusive, name,
+                    data_format, _pair)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, use_cudnn=True, name=None, data_format="NCDHW"):
+    """≙ reference layers/nn.py pool3d."""
+    return _pool_nd("pool3d", input, pool_size, pool_type, pool_stride,
+                    pool_padding, global_pooling, ceil_mode, exclusive, name,
+                    data_format, _triple)
+
+
+# ---------------------------------------------------------------- norms
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None):
+    """≙ reference layers/nn.py:2004. The moving statistics are
+    non-trainable persistable parameters that the op rewrites in place
+    (MeanOut is Mean, VarianceOut is Variance)."""
+    helper = LayerHelper("batch_norm", name=name, act=act)
+    c_axis = 1 if data_layout == "NCHW" else input.ndim - 1
+    c = input.shape[c_axis]
+    dtype = dtype_name(input.dtype)
+    scale = helper.create_parameter(param_attr, shape=[c], dtype=dtype,
+                                    default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, shape=[c], dtype=dtype,
+                                   is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False), shape=[c],
+        dtype=dtype, default_initializer=ConstantInitializer(0.0))
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False), shape=[c],
+        dtype=dtype, default_initializer=ConstantInitializer(1.0))
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    y = helper.create_tmp_variable(dtype=dtype, shape=input.shape)
+    saved_mean = helper.create_tmp_variable(dtype=dtype, shape=[c],
+                                            stop_gradient=True)
+    saved_var = helper.create_tmp_variable(dtype=dtype, shape=[c],
+                                           stop_gradient=True)
+    helper.append_op(type="batch_norm",
+                     inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                             "Mean": [mean], "Variance": [variance]},
+                     outputs={"Y": [y], "MeanOut": [mean],
+                              "VarianceOut": [variance],
+                              "SavedMean": [saved_mean],
+                              "SavedVariance": [saved_var]},
+                     attrs={"momentum": momentum, "epsilon": epsilon,
+                            "data_layout": data_layout, "is_test": is_test})
+    return helper.append_activation(y)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

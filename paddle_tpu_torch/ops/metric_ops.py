@@ -21,7 +21,9 @@ def _accuracy(ctx, ins, attrs):
         label = label[:, None]
     hit = (indices == label).any(dim=1)
     correct = hit.to(torch.float32).sum()
-    total = torch.tensor(float(indices.shape[0]), device=indices.device)
+    # filled on the device: torch.tensor(value, device=cuda) would copy
+    # from the host and wait for the stream, stalling the step
+    total = torch.full((), float(indices.shape[0]), device=indices.device)
     return {"Accuracy": [correct / total],
             "Correct": [correct.to(torch.int32)],
             "Total": [total.to(torch.int32)]}

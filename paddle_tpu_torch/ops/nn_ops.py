@@ -1,20 +1,25 @@
-"""NN op lowerings: mul/matmul, layer_norm, softmax, log_softmax,
-softmax_with_cross_entropy.
+"""NN op lowerings: mul/matmul, conv, conv_transpose, pool, batch_norm,
+layer_norm, softmax, log_softmax, softmax_with_cross_entropy.
 
-≙ paddle_tpu/ops/nn_ops.py (reference operators/{mul,matmul,layer_norm,
-softmax,softmax_with_cross_entropy}_op.*), trimmed to the serving and
-training slices. The matrix products go to
-torch.matmul (cuBLAS on the card), as the JAX package leaves them to XLA.
+≙ paddle_tpu/ops/nn_ops.py (reference operators/{mul,matmul,conv,
+conv_transpose,pool,batch_norm,layer_norm,softmax,
+softmax_with_cross_entropy}_op.*), without lrn and the losses of
+ops/loss_ops.py. The matrix products go to torch.matmul (cuBLAS on the
+card) and the convolutions to torch's conv (cuDNN), as the JAX package
+leaves both to XLA.
 
-bf16 policy (≙ nn_ops.py:22-65, 89-102): a matmul whose layer asked for
-`use_bf16` runs on bfloat16 inputs with float32 accumulation and a bfloat16
-output while the flag `use_bf16_matmul` is on; otherwise it runs in the
-promoted input dtype and returns X's dtype.
+bf16 policy (≙ nn_ops.py:22-65, 89-102): a matmul or conv whose layer
+asked for `use_bf16` runs on bfloat16 inputs with float32 accumulation and
+a bfloat16 output while the flag `use_bf16_matmul` is on; otherwise it
+runs in the promoted input dtype and returns X's dtype.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from ..core import flags
 from ..framework.registry import register_op
@@ -33,16 +38,23 @@ def _bf16_active(attrs) -> bool:
         flags.get_flag("use_bf16_matmul"))
 
 
+def _bf16_operands(x, y, attrs):
+    """(x, y, output dtype) of a matmul or conv under the bf16 policy:
+    float32 operands cast to bfloat16 and a bfloat16 output when it is
+    active, else the operands as they are and x's dtype."""
+    if not _bf16_active(attrs):
+        return x, y, x.dtype
+    if x.dtype == torch.float32:
+        x = x.to(torch.bfloat16)
+    if y.dtype == torch.float32:
+        y = y.to(torch.bfloat16)
+    return x, y, torch.bfloat16
+
+
 def _matmul(x, y, attrs, alpha=1.0):
     """x @ y under the bf16 policy, returned in the policy's output dtype
     (bfloat16 when active, else x's dtype)."""
-    out_dtype = x.dtype
-    if _bf16_active(attrs):
-        if x.dtype == torch.float32:
-            x = x.to(torch.bfloat16)
-        if y.dtype == torch.float32:
-            y = y.to(torch.bfloat16)
-        out_dtype = torch.bfloat16
+    x, y, out_dtype = _bf16_operands(x, y, attrs)
     ct = torch.promote_types(x.dtype, y.dtype)
     if alpha != 1.0 and ct in (torch.bfloat16, torch.float16):
         # scale the float32 product before the one rounding, as jax's
@@ -75,6 +87,227 @@ def _matmul_op(ctx, ins, attrs):
     if attrs.get("transpose_Y", False):
         y = y.transpose(-1, -2)
     return {"Out": [_matmul(x, y, attrs, alpha=attrs.get("alpha", 1.0))]}
+
+
+_CHANNELS_LAST = ("NHWC", "NDHWC")
+_CONV = {2: F.conv2d, 3: F.conv3d}
+_CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_SUM_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _channels_first(x, channels_last):
+    """An N<spatial>C tensor as an NC<spatial>-shaped view: its strides are
+    channels_last, so cuDNN runs its NHWC kernels on it, with no copy."""
+    if not channels_last:
+        return x
+    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
+
+
+def _channels_last(y, channels_last):
+    """Inverse of `_channels_first`: a channels_last-strided NC<spatial>
+    result becomes a contiguous N<spatial>C tensor, with no copy."""
+    if not channels_last:
+        return y
+    return y.permute(0, *range(2, y.dim()), 1)
+
+
+@register_op("conv2d")
+def _conv2d(ctx, ins, attrs):
+    """≙ conv_op.cc / conv_cudnn_op.cu.cc (JAX: nn_ops.py:155-187); conv3d
+    and depthwise_conv2d take the same lowering. The filter is OIHW (OIDHW)
+    as both packages store it, passed as it is; groups > 1 is a grouped
+    conv (depthwise: groups == C_in). An NHWC input runs as its NCHW view
+    (`_channels_first`) and the output is permuted back. The JAX package's
+    `conv1x1_mixed_vjp` probe, an XLA emitter choice off by default, is not
+    ported: cuDNN picks its own dgrad."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    nd = x.dim() - 2
+    cl = attrs.get("data_format", "NCHW") in _CHANNELS_LAST
+    xc, w, out_dtype = _bf16_operands(_channels_first(x, cl), w, attrs)
+    ct = torch.promote_types(xc.dtype, w.dtype)    # operands of two types
+    out = _CONV[nd](xc.to(ct), w.to(ct), None, tuple(attrs.get("strides", [1] * nd)),
+                    tuple(attrs.get("paddings", [0] * nd)),
+                    tuple(attrs.get("dilations", [1] * nd)),
+                    attrs.get("groups", 1) or 1)
+    return {"Output": [_channels_last(out, cl).to(out_dtype)]}
+
+
+register_op("conv3d")(_conv2d)
+
+
+@register_op("depthwise_conv2d")
+def _depthwise_conv2d(ctx, ins, attrs):
+    x = ins["Input"][0]
+    cl = attrs.get("data_format", "NCHW") in _CHANNELS_LAST
+    return _conv2d(ctx, ins, dict(attrs, groups=x.shape[-1 if cl else 1]))
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs):
+    """≙ conv_transpose_op.cc (JAX: nn_ops.py:204-231), NC<spatial> only;
+    conv3d_transpose too. The filter is stored (C_in, C_out, *k), torch's
+    own layout for conv_transpose. The JAX lowering pads the
+    stride-dilated input by d·(k−1) − p on each side, which gives
+    (i−1)·s − 2p + d·(k−1) + 1: torch's `padding=p` with no
+    output_padding."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    nd = x.dim() - 2
+    ct = torch.promote_types(x.dtype, w.dtype)
+    out = _CONV_T[nd](x.to(ct), w.to(ct), None,
+                      tuple(attrs.get("strides", [1] * nd)),
+                      tuple(attrs.get("paddings", [0] * nd)), 0, 1,
+                      tuple(attrs.get("dilations", [1] * nd)))
+    return {"Output": [out]}
+
+
+register_op("conv3d_transpose")(_conv2d_transpose)
+
+
+@register_op("pool2d")
+def _pool2d(ctx, ins, attrs):
+    """≙ pool_op.cc (JAX: nn_ops.py:234-285): max / avg, global_pooling,
+    ceil_mode, exclusive avg; pool3d too. The arithmetic of the JAX
+    package's reduce_window: the input is padded explicitly (−inf for max,
+    0 for avg), ceil_mode adding high padding until the last partial
+    window fits, and pooled with no padding of torch's own (torch's
+    max_pool refuses a pad above half the window, and its ceil_mode drops
+    windows that start in the padding). The exclusive average divides by
+    the count of in-bounds elements, pooled from ones."""
+    x = ins["X"][0]
+    nd = x.dim() - 2
+    ksize = list(attrs.get("ksize", [2] * nd))
+    strides = list(attrs.get("strides", ksize))
+    pads = list(attrs.get("paddings", [0] * nd))
+    cl = attrs.get("data_format", "NCHW") in _CHANNELS_LAST
+    xc = _channels_first(x, cl)
+    spatial = tuple(xc.shape[2:])
+    if attrs.get("global_pooling", False):
+        ksize, strides, pads = list(spatial), list(spatial), [0] * nd
+    pairs = []
+    for i in range(nd):
+        hi = pads[i]
+        if attrs.get("ceil_mode", False):
+            rem = (spatial[i] + 2 * pads[i] - ksize[i]) % strides[i]
+            if rem:
+                hi += strides[i] - rem
+        pairs.append((pads[i], hi))
+    padded = any(lo or hi for lo, hi in pairs)
+    fpad = [p for pair in reversed(pairs) for p in pair]   # last dim first
+    if attrs.get("pooling_type", "max") == "max":
+        if padded:
+            xc = F.pad(xc, fpad, value=-math.inf)
+        out = _MAX_POOL[nd](xc, ksize, strides)
+    else:
+        out = _SUM_POOL[nd](F.pad(xc, fpad) if padded else xc, ksize,
+                            strides, divisor_override=1)
+        if attrs.get("exclusive", True) and padded:
+            ones = torch.ones((1, 1) + spatial, dtype=x.dtype,
+                              device=x.device)
+            out = out / _SUM_POOL[nd](F.pad(ones, fpad), ksize, strides,
+                                      divisor_override=1)
+        else:
+            out = out / float(_prod(ksize))
+    return {"Out": [_channels_last(out, cl)]}
+
+
+register_op("pool3d")(_pool2d)
+
+
+def _bn_stats(x, shift, axes, bshape):
+    """≙ `_bn_stats` (nn_ops.py:288): shifted single-pass moments over
+    `axes`, accumulated in float32 (x − shift promotes a bfloat16 x in
+    the same pass); the shift, the running mean, keeps E[x²] − E[x]² from
+    cancelling. Returns (mean, max(m2 − m1², 0))."""
+    xs = x - shift.float().reshape(bshape)
+    m1 = xs.mean(axes)
+    m2 = xs.square_().mean(axes)
+    return m1 + shift, torch.clamp_min(m2 - m1.square(), 0.0)
+
+
+def _bn_affine(x, scale, bias, mean, inv, bshape):
+    """y = x·a + b in x's dtype, one pass over x, with a = inv·scale and
+    b = bias − mean·a computed in float32 on [C] (nn_ops.py:307-317)."""
+    a32 = inv * scale
+    b32 = bias - mean * a32
+    return torch.addcmul(b32.to(x.dtype).reshape(bshape), x,
+                         a32.to(x.dtype).reshape(bshape))
+
+
+class _BNTrain(torch.autograd.Function):
+    """Train-mode normalize + affine with the closed-form backward of the
+    JAX package's `_bn_train_apply` (nn_ops.py:320-361). It saves x as it
+    is (bfloat16 on ResNet's path) and the [C]-sized mean, 1/sqrt(var+eps)
+    and scale, never a float32 copy of the activation (822 MB a layer at
+    ResNet-50's batch 256), and recomputes x − mean in the backward. The
+    batch statistics come out of the forward as non-differentiable outputs
+    for the running update: computed from x under no grad, they are the
+    JAX package's stop_gradient(x) statistics, and autograd keeps no
+    second graph for them."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, shift, axes, bshape, eps):
+        mean, var = _bn_stats(x, shift, axes, bshape)
+        inv = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, mean, inv, scale)
+        ctx.axes, ctx.bshape = axes, bshape
+        ctx.mark_non_differentiable(mean, var)
+        return _bn_affine(x, scale, bias, mean, inv, bshape), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, inv, scale = ctx.saved_tensors
+        axes, bshape = ctx.axes, ctx.bshape
+        n = float(_prod(x.shape[a] for a in axes))
+        xc = x - mean.reshape(bshape)                    # float32
+        sum_dy = dy.sum(axes, dtype=torch.float32)
+        sum_dy_xc = (dy * xc).sum(axes)
+        # dx = scale·inv · (dy − mean(dy) − xhat·mean(dy·xhat))
+        c0 = (scale * inv).reshape(bshape)
+        c1 = (sum_dy / n).reshape(bshape)
+        c2 = (inv * inv * sum_dy_xc / n).reshape(bshape)
+        dx = (dy - c1).sub_(xc.mul_(c2)).mul_(c0)
+        return (dx.to(x.dtype), (inv * sum_dy_xc).to(scale.dtype), sum_dy,
+                None, None, None, None)
+
+
+@register_op("batch_norm")
+def _batch_norm(ctx, ins, attrs):
+    """≙ batch_norm_op.cc (JAX: nn_ops.py:364-401). Train mode normalizes
+    with the batch statistics and moves the running ones,
+    momentum·old + (1 − momentum)·batch (the biased variance), in place
+    where MeanOut / VarianceOut are Mean / Variance (what the layer
+    appends). Test mode (`is_test`, or the run's) uses the running
+    estimates. The reduction axes follow `data_layout`, so a 2-D [N, C]
+    input under "NHWC" normalizes each column. SavedVariance is
+    1/sqrt(var + eps), as in the JAX package."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != axis)
+    bshape = tuple(x.shape[i] if i == axis else 1 for i in range(x.dim()))
+    if attrs.get("is_test", False) or ctx.is_test:
+        inv = torch.rsqrt(var + eps)
+        y = _bn_affine(x, scale, bias, mean, inv, bshape)
+        return {"Y": [y], "MeanOut": [mean], "VarianceOut": [var],
+                "SavedMean": [mean], "SavedVariance": [inv]}
+    y, batch_mean, batch_var = _BNTrain.apply(x, scale, bias, mean.detach(),
+                                              axes, bshape, eps)
+    inv = torch.rsqrt(batch_var + eps)
+    rest = 1 - momentum
+    if ctx.writes_input("Mean", "MeanOut"):
+        mean_out = mean.mul_(momentum).add_(rest * batch_mean)
+    else:
+        mean_out = momentum * mean + rest * batch_mean
+    if ctx.writes_input("Variance", "VarianceOut"):
+        var_out = var.mul_(momentum).add_(rest * batch_var)
+    else:
+        var_out = momentum * var + rest * batch_var
+    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [batch_mean], "SavedVariance": [inv]}
 
 
 @register_op("layer_norm")
