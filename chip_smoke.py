@@ -130,7 +130,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    against CPU from the same weights (losses, gradients, parameters and
    the BN running statistics), and one step of SE-ResNeXt-50 at 64x64
    (grouped convs; loss, running statistics, and each gradient's cosine
-   and norm, its float32 gradients being chaotic at initialization).
+   and norm, its float32 gradients being chaotic at initialization);
+22. train DeepFM as tools/bench_breadth.py:254-275 builds it (batch 4096,
+   39 fields, a 1M-row table with is_sparse and row_pad 128, Adam 3e-4;
+   8 distinct batches by its recipe), 20 steps: step median and p95,
+   examples/s, peak memory, the loss (finite; the last 8 steps' mean
+   below the first 8's); no table-sized tensor made inside the autograd
+   region (the table takes no dense gradient), none at all in a
+   merged-rows step; 3 steps of the dense-masked path and 1 of the
+   merged-rows path under torch.cuda.set_sync_debug_mode("error"); then
+   3 steps of each path from one state: the beta powers equal, every
+   other element within 1e-7 + 1e-5 |x| but for at most 1e-4 of a
+   tensor's elements (within 2 * lr a step: Adam's sign rule), and the
+   untouched rows bit-equal to the start on both;
+23. phase 7's LM under transpiler.memory_optimize at levels 0 and 1 (the
+   region as about sqrt(n) checkpointed segments), 5 steps each from the
+   un-rematerialized run's start: K1 launches 12 times a step (6 in the
+   forward, 6 recomputed in the backward), K2 and K3 6; the peak below
+   the un-rematerialized run's; the step-1 loss at rtol 1e-5 and each
+   step-1 gradient within 4e-3 of its norm (a bfloat16 rounding); the
+   losses at rtol 2e-3 and each parameter's 5-step update within 5% of
+   its norm; then dropout 0.1, level 1 against the un-rematerialized
+   run, 3 steps, held the same way (the recompute must draw the
+   forward's masks);
+24. the rest of training, small, card against CPU: seven optimizer
+   classes (Adagrad, Adamax, DecayedAdagrad, Adadelta, RMSProp centered
+   with momentum, Ftrl at lr_power -0.5 and -0.3, Lamb) 3 steps each
+   from the same state, the proximal_gd and proximal_adagrad ops,
+   ModelAverage's apply and restore, DeepFM sparse on both Adam paths
+   (tests/test_models.py:112's size), ResNet-8 under memory_optimize
+   against its un-rematerialized run on the card (running statistics
+   updated once a step), and a piecewise_decay learning rate with no
+   host sync after the planning step.
 
 Float32 matrix products run without TF32 here
 (torch.backends.cuda.matmul.allow_tf32 = False, and cudnn's too), so
@@ -146,8 +177,8 @@ the chunks of the cache a call is split into, at each path's shape; the
 flash kernels' `routes` per type, `err_over_tolerance_bf16`,
 `beyond_one_step_bf16`, the controls' `control_err_over_tolerance`,
 `launches_tc_bf16`, `d256` and `d512`, their times and bound at head
-dims 256 and 512), times, and `paths`: phases 15-21's numbers; the last
-line is
+dims 256 and 512; `launches_per_step_remat`, K1-K3's launches a step in
+phase 23), times, and `paths`: phases 15-24's numbers; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -255,6 +286,21 @@ RESNET_STEPS = 21            # step 1 (planning, cuDNN autotuning) + 20
 # step (its float32 gradients at initialization are chaotic after one)
 RESNET_SMALL = dict(depth=8, image=32, classes=10, batch=8, lr=0.05)
 SE_RESNEXT_SMALL = dict(image=64, classes=10, batch=4, lr=1e-3)
+# phase 22: DeepFM as tools/bench_breadth.py:254-275 builds it: batch 4096,
+# 39 fields, a 1M-row table with is_sparse and row_pad 128 (1M x 128
+# float32, 512 MB; 1.5 GB with Adam's moments), Adam 3e-4, 8 distinct
+# batches by its recipe
+DEEPFM = dict(num_fields=39, vocab=1000000, embed_dim=16,
+              fc_sizes=(400, 400, 400), row_pad=128, batch=4096, lr=3e-4,
+              batches=8)
+DEEPFM_STEPS, DEEPFM_CHECK_STEPS = 20, 3
+# the merged-rows path's limit for the comparison: below the 512 MB table
+DEEPFM_ROWS_MAX_BYTES = 256 << 20
+# phase 23: phase 7's LM under transpiler.memory_optimize
+REMAT_STEPS, REMAT_DROPOUT, REMAT_DROPOUT_STEPS = 5, 0.1, 3
+# phase 24: tests/test_models.py:112's DeepFM, sparse, card against CPU
+DEEPFM_SMALL = dict(num_fields=5, vocab=500, embed_dim=8, fc_sizes=(32,),
+                    row_pad=None, batch=16, lr=1e-3, batches=3)
 
 
 def log(*a):
@@ -1328,7 +1374,7 @@ def _ragged_corpus(rng, n_seqs, t, vocab):
     return [rng.randint(1, vocab, (n,)).astype(np.int64) for n in lengths]
 
 
-def _train_program(ptt, cfg, packed=False):
+def _train_program(ptt, cfg, packed=False, dropout=0.0):
     """transformer_lm + Adam(lr).minimize(loss), as a user builds it."""
     from paddle_tpu_torch.models import transformer
     main, start = ptt.Program(), ptt.Program()
@@ -1337,7 +1383,7 @@ def _train_program(ptt, cfg, packed=False):
             vocab=cfg["vocab"], max_len=cfg["max_len"],
             d_model=cfg["d_model"], d_inner=cfg["d_inner"],
             num_heads=cfg["num_heads"], num_layers=cfg["num_layers"],
-            dropout=0.0, packed=packed)
+            dropout=dropout, packed=packed)
         ptt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
     return main, start, loss
 
@@ -2525,6 +2571,679 @@ def resnet_reference_check(ptt):
     return {"se_resnext_step": se_resnext_step_check(ptt)}
 
 
+def _new_tensors_mode():
+    """A TorchDispatchMode recording the shape of every tensor an op
+    creates; an in-place op's result, which is its input, is not
+    recorded."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class NewTensors(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = {id(a) for a in args if isinstance(a, torch.Tensor)}
+            for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(o, torch.Tensor) and id(o) not in ins:
+                    self.shapes.append(tuple(o.shape))
+            return out
+    return NewTensors()
+
+
+def _deepfm_program(ptt, cfg):
+    """deepfm(is_sparse=True) + Adam(lr).minimize(loss), as
+    tools/bench_breadth.py:254-275 builds it; the same names each build."""
+    from paddle_tpu_torch.models import deepfm
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        loss, _ = deepfm.deepfm(
+            num_fields=cfg["num_fields"], vocab_size=cfg["vocab"],
+            embed_dim=cfg["embed_dim"], fc_sizes=cfg["fc_sizes"],
+            is_sparse=True, row_pad=cfg["row_pad"])
+        ptt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    return main, start, loss
+
+
+def _deepfm_feeds(rng, cfg, n):
+    """tools/bench_breadth.py:262-273's recipe: near-unique ids over the
+    1M rows, and labels a function of the dense values (learnable through
+    the shared MLP, not memorizable through per-example rows)."""
+    b, f = cfg["batch"], cfg["num_fields"]
+    out = []
+    for _ in range(n):
+        vals = rng.rand(b, f).astype("float32")
+        label = (vals.mean(axis=1, keepdims=True) > 0.5).astype("float32")
+        out.append({"feat_ids": rng.randint(0, cfg["vocab"],
+                                            (b, f)).astype("int64"),
+                    "feat_vals": vals, "label": label})
+    return out
+
+
+def _table_sized(shapes, height):
+    return [s for s in shapes if s and s[0] == height]
+
+
+def _one_step_shapes(exe, main, feed, loss, scope):
+    """One step under `_new_tensors_mode`: (the shapes made inside the
+    autograd region, the shapes made in the whole step)."""
+    from paddle_tpu_torch.framework import lowering
+    seen, marks = _new_tensors_mode(), []
+    real = lowering.run_vjp_region
+
+    def tagged(op, env, ctx):
+        marks.append(len(seen.shapes))
+        real(op, env, ctx)
+        marks.append(len(seen.shapes))
+    lowering.run_vjp_region = tagged
+    try:
+        with seen:
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+    finally:
+        lowering.run_vjp_region = real
+    return seen.shapes[marks[0]:marks[1]], seen.shapes
+
+
+def _adam_state_close(label, a, b, snap, lr, steps):
+    """Two Adam runs from one state whose gradients differ by summation
+    order: the beta powers equal; every other element within 1e-7 +
+    1e-5 |x|, but for at most 1e-4 of each tensor's elements, which may
+    move by up to 2 * lr a step (Adam moves an element by about lr * sign
+    of its first moment, which rounding flips where the gradient is
+    rounding-sized). Returns the largest such fraction."""
+    import torch
+    worst = 0.0
+    for n, av in a.items():
+        bv = b[n]
+        if "beta" in n:
+            assert torch.equal(av, bv), (label, n)
+            continue
+        diff = (av - bv).abs()
+        tight = 1e-7 + 1e-5 * av.abs()
+        loose = (diff > tight).float().mean().item()
+        worst = max(worst, loose)
+        assert loose <= 1e-4, (label, n, loose)
+        bound = 2 * lr * steps + tight
+        assert bool((diff <= bound).all()), (label, n, diff.max().item())
+    return worst
+
+
+def train_deepfm(ptt, kernels):
+    """Phase 22: DeepFM at full width with sparse gradients. Returns its
+    numbers for the JSON line."""
+    import numpy as np
+    import torch
+    cfg = DEEPFM
+    height = cfg["vocab"]
+    rng = np.random.RandomState(SEED + 22)
+    host = _deepfm_feeds(rng, cfg, cfg["batches"])
+    t0 = time.perf_counter()
+    main, start, loss = _deepfm_program(ptt, cfg)
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(start, scope=scope)
+    feeds = [{k: torch.from_numpy(v).to(exe.device) for k, v in f.items()}
+             for f in host]
+    torch.cuda.synchronize()
+    table = next(p.name for p in main.all_parameters()
+                 if p.shape[0] == height)
+    width = scope.get(table).shape[1]
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    log(f"  built and initialized in {time.perf_counter() - t0:.2f} s: "
+        f"table {table} [{height}, {width}] "
+        f"({height * width * 4 / 1e6:.1f} MB), {n_params / 1e6:.2f}M "
+        f"parameters")
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(DEEPFM_STEPS):
+        s0 = time.perf_counter()
+        out, = exe.run(main, feed=feeds[i % len(feeds)], fetch_list=[loss],
+                       scope=scope, return_numpy=False)
+        losses.append(float(out))
+        secs.append(time.perf_counter() - s0)
+    st = np.asarray(secs[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    log(f"  {DEEPFM_STEPS} steps of batch {cfg['batch']}: step time median "
+        f"{np.median(st):.3f} ms, p95 {np.percentile(st, 95):.3f} ms "
+        f"(steps 2-{DEEPFM_STEPS}; step 1 {secs[0] * 1e3:.1f} ms), "
+        f"{cfg['batch'] / (np.median(st) / 1e3):.1f} examples/s; peak "
+        f"device memory {peak:.1f} MB")
+    log(f"  loss: {[round(x, 5) for x in losses]}")
+    assert all(math.isfinite(x) for x in losses), losses
+    k = cfg["batches"]
+    assert np.mean(losses[-k:]) < np.mean(losses[:k]), \
+        f"loss did not fall: {losses}"
+
+    # no dense gradient of the table: nothing table-sized is made inside
+    # the autograd region (the dense-masked apply's scatter buffer and
+    # masked temporaries are the optimizer's); with the merged-rows path,
+    # nothing table-sized anywhere in the step
+    region, step = _one_step_shapes(exe, main, feeds[0], loss, scope)
+    assert not _table_sized(region, height), _table_sized(region, height)
+    dense_apply = len(_table_sized(step, height))
+    ptt.flags.set_flag("sparse_dense_apply_max_bytes",
+                       DEEPFM_ROWS_MAX_BYTES)
+    try:
+        region_r, step_r = _one_step_shapes(exe, main, feeds[1], loss,
+                                            scope)
+    finally:
+        ptt.flags.set_flag("sparse_dense_apply_max_bytes", 1 << 30)
+    assert not _table_sized(step_r, height), _table_sized(step_r, height)
+    log(f"  table-sized tensors made in a step: 0 in the autograd region; "
+        f"{dense_apply} in the dense-masked Adam apply; 0 in a whole step "
+        f"on the merged-rows path ({len(step_r)} tensors made)")
+
+    # no host sync on the step's path
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(3):
+            exe.run(main, feed=feeds[2 + i], fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # and the merged-rows path's sort and run heads
+    ptt.flags.set_flag("sparse_dense_apply_max_bytes",
+                       DEEPFM_ROWS_MAX_BYTES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exe.run(main, feed=feeds[5], fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        ptt.flags.set_flag("sparse_dense_apply_max_bytes", 1 << 30)
+    torch.cuda.synchronize()
+    log("  3 dense-masked steps and 1 merged-rows step under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    # the two apply paths of lazy Adam from one state
+    snap = {n: scope.get(n).clone() for n in scope.local_var_names()}
+    check = feeds[5:5 + DEEPFM_CHECK_STEPS]
+    ids = np.concatenate([host[5 + i]["feat_ids"].ravel()
+                          for i in range(DEEPFM_CHECK_STEPS)])
+    untouched = torch.ones(height, dtype=torch.bool, device=exe.device)
+    untouched[torch.from_numpy(np.unique(ids)).to(exe.device)] = False
+    ends, times = {}, {}
+    for path, max_bytes in (("dense_masked", 1 << 30),
+                            ("merged_rows", DEEPFM_ROWS_MAX_BYTES)):
+        for n, t in snap.items():
+            scope.get(n).copy_(t)
+        ptt.flags.set_flag("sparse_dense_apply_max_bytes", max_bytes)
+        ms = []
+        try:
+            for f in check:
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                        return_numpy=False)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - s0) * 1e3)
+        finally:
+            ptt.flags.set_flag("sparse_dense_apply_max_bytes", 1 << 30)
+        times[path] = ms
+        ends[path] = {n: scope.get(n).clone() for n in snap}
+        for n in snap:
+            if scope.get(n).shape[:1] == (height,):
+                assert torch.equal(ends[path][n][untouched],
+                                   snap[n][untouched]), (path, n)
+    worst = _adam_state_close("dense-masked vs merged rows",
+                              ends["dense_masked"], ends["merged_rows"],
+                              snap, cfg["lr"], DEEPFM_CHECK_STEPS)
+    log(f"  {DEEPFM_CHECK_STEPS} steps from one state, dense-masked and "
+        f"merged-rows Adam: every persistable agrees (share of elements "
+        f"beyond 1e-7 + 1e-5|x|: {worst:.2e}, at most 1e-4 allowed); "
+        f"{int(untouched.sum())} untouched rows bit-equal to the start on "
+        f"both; step ms (synchronized) dense-masked "
+        f"{[round(x, 3) for x in times['dense_masked']]}, merged rows "
+        f"{[round(x, 3) for x in times['merged_rows']]}")
+    del ends, snap
+    return {"batch": cfg["batch"], "steps": DEEPFM_STEPS,
+            "step_ms_median": float(np.median(st)),
+            "step_ms_p95": float(np.percentile(st, 95)),
+            "step1_ms": secs[0] * 1e3,
+            "examples_per_s": float(cfg["batch"] / (np.median(st) / 1e3)),
+            "peak_mb": peak, "loss": losses,
+            "table_sized_in_region": 0,
+            "table_sized_in_dense_masked_step": dense_apply,
+            "table_sized_in_merged_rows_step": 0,
+            "paths_beyond_tight_share": worst,
+            "check_step_ms": times}
+
+
+def train_lm_remat(ptt, kernels):
+    """Phase 23: phase 7's LM under transpiler.memory_optimize at levels 0
+    and 1, each run from the state the un-rematerialized run starts from.
+    Returns its numbers for the JSON line."""
+    import numpy as np
+    import torch
+    cfg = TRAIN
+    rng = np.random.RandomState(SEED)
+    b, t = cfg["batch"], cfg["max_len"]
+    feeds = []
+    for _ in range(TRAIN_BATCHES):
+        toks = _markov_tokens(rng, b, t + 1, cfg["vocab"])
+        feeds.append({"tokens": toks[:, :-1].copy(),
+                      "tokens@SEQLEN": np.full((b,), t, "int32"),
+                      "targets": toks[:, 1:].copy()})
+    main0, start0, loss0 = _train_program(ptt, cfg)
+    scope0 = ptt.Scope()
+    ptt.Executor(ptt.CUDAPlace(0)).run(start0, scope=scope0)
+    snap = {n: scope0.get(n).clone() for n in scope0.local_var_names()}
+    del scope0
+    params = [p.name for p in main0.all_parameters()]
+
+    def program(level, dropout=0.0):
+        main, _, loss = _train_program(ptt, cfg, dropout=dropout)
+        if level is not None:
+            ptt.transpiler.memory_optimize(main, level=level)
+        return main, loss
+
+    def run(main, loss, steps, grads=False):
+        scope = ptt.Scope()
+        for n, v in snap.items():
+            scope.set_var(n, v.clone())
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        fetch = [loss] + ([n + "@GRAD" for n in params] if grads else [])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, secs, g = [], [], None
+        for i in range(steps):
+            s0 = time.perf_counter()
+            out = exe.run(main, feed=feeds[i % len(feeds)],
+                          fetch_list=fetch, scope=scope,
+                          return_numpy=grads)
+            losses.append(float(out[0]))
+            secs.append(time.perf_counter() - s0)
+            if grads:
+                g = out[1:]
+        return dict(losses=losses, secs=secs, grads=g,
+                    launches=dict(kernels.LAUNCHES),
+                    peak=torch.cuda.max_memory_allocated() / 1e6,
+                    update={n: scope.get(n) - snap[n] for n in params})
+
+    def update_rel(r, p):
+        """The largest ‖Δu‖ / ‖u‖ over the parameters, u the run's update
+        of the parameter from the shared start."""
+        return max(float((r["update"][n] - p["update"][n]).norm()
+                         / p["update"][n].norm().clamp_min(1e-30))
+                   for n in params)
+
+    out = {}
+    runs = {}
+    for level in (None, 0, 1):
+        name = "plain" if level is None else f"level{level}"
+        main, loss = program(level)
+        g1 = run(main, loss, 1, grads=True)
+        r = run(main, loss, REMAT_STEPS)
+        r["grads1"], r["loss1"] = g1["grads"], g1["losses"][0]
+        runs[name] = r
+    plain = runs["plain"]
+    pst = np.asarray(plain["secs"][1:]) * 1e3
+    out["plain"] = {"peak_mb": plain["peak"],
+                    "step_ms_median": float(np.median(pst)),
+                    "launches_per_step": {k: plain["launches"][k]
+                                          / REMAT_STEPS
+                                          for k in FLASH + FLASH_TC},
+                    "loss": plain["losses"]}
+    log(f"  un-rematerialized: peak {plain['peak']:.1f} MB, step median "
+        f"{np.median(pst):.1f} ms, launches a step "
+        f"{out['plain']['launches_per_step']}, losses "
+        f"{[round(x, 5) for x in plain['losses']]}")
+    for name in ("level0", "level1"):
+        r = runs[name]
+        gworst = max(float(np.linalg.norm(rg - pg)
+                           / max(np.linalg.norm(pg), 1e-30))
+                     for rg, pg in zip(r["grads1"], plain["grads1"]))
+        uworst = update_rel(r, plain)
+        per = {k: r["launches"][k] / REMAT_STEPS
+               for k in FLASH + FLASH_TC}
+        st = np.asarray(r["secs"][1:]) * 1e3
+        log(f"  {name}: peak {r['peak']:.1f} MB; step median "
+            f"{np.median(st):.1f} ms; launches a step {per}; losses "
+            f"{[round(x, 5) for x in r['losses']]}; step-1 loss "
+            f"{r['loss1']:.6f} (un-rematerialized {plain['loss1']:.6f}), "
+            f"gradients within {gworst:.2e} of their norms, "
+            f"{REMAT_STEPS}-step updates within {uworst:.2e}")
+        out[name] = {"peak_mb": r["peak"],
+                     "step_ms_median": float(np.median(st)),
+                     "launches_per_step": per, "loss": r["losses"],
+                     "loss1": r["loss1"], "grad_rel_worst": gworst,
+                     "update_rel_worst": uworst}
+    del runs
+    # the checks, once every number is out
+    assert out["plain"]["launches_per_step"]["flash_fwd_tc"] == \
+        cfg["num_layers"], out["plain"]
+    for name in ("level0", "level1"):
+        o, per = out[name], out[name]["launches_per_step"]
+        np.testing.assert_allclose(o["loss1"], plain["loss1"], rtol=1e-5,
+                                   err_msg=f"{name}: step-1 loss")
+        assert o["grad_rel_worst"] <= 4e-3, (name, o["grad_rel_worst"])
+        np.testing.assert_allclose(o["loss"], plain["losses"], rtol=2e-3,
+                                   err_msg=f"{name}: losses")
+        assert o["update_rel_worst"] <= 0.05, (name, o["update_rel_worst"])
+        assert per["flash_fwd"] == per["flash_fwd_tc"] == \
+            2 * cfg["num_layers"], (name, per)
+        for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+            assert per[k] == per[k + "_tc"] == cfg["num_layers"], \
+                (name, per)
+        assert o["peak_mb"] < plain["peak"], (name, o["peak_mb"],
+                                              plain["peak"])
+
+    # dropout: the recompute must draw the forward's masks
+    d = {}
+    for name, level in (("plain", None), ("level1", 1)):
+        main, loss = program(level, dropout=REMAT_DROPOUT)
+        d[name] = run(main, loss, REMAT_DROPOUT_STEPS)
+    dworst = update_rel(d["level1"], d["plain"])
+    log(f"  dropout {REMAT_DROPOUT}, level 1 against un-rematerialized, "
+        f"{REMAT_DROPOUT_STEPS} steps: losses "
+        f"{[round(x, 5) for x in d['level1']['losses']]} against "
+        f"{[round(x, 5) for x in d['plain']['losses']]}, updates within "
+        f"{dworst:.2e} of their norms; peak {d['level1']['peak']:.1f} MB "
+        f"against {d['plain']['peak']:.1f} MB")
+    np.testing.assert_allclose(d["level1"]["losses"], d["plain"]["losses"],
+                               rtol=2e-3, err_msg="dropout: losses")
+    assert dworst <= 0.05, ("dropout", dworst)
+    out["dropout"] = {"loss_level1": d["level1"]["losses"],
+                      "loss_plain": d["plain"]["losses"],
+                      "update_rel_worst": dworst}
+    del d, snap
+    return out
+
+
+def _steps_card_against_cpu(ptt, label, build, feeds, lr, grads_of=None):
+    """Each step from the same state (the CPU takes the card's state before
+    every step), compares the loss at rtol 1e-5 and every persistable at
+    1e-6 + 1e-5 |x|, except where the CPU's gradient (`grads_of`: the
+    trainable parameters, from a probe run that fetches them densely) is
+    below 1e-5: Adam moves such an element by about lr * sign(g), so there
+    the bound is 2 * lr. Returns the card's scope."""
+    import numpy as np
+    from paddle_tpu_torch.framework.executor import as_numpy
+    main, start, loss = build(ptt)
+    names = [p.name for p in main.all_parameters() if p.trainable]
+    gpu_scope = ptt.Scope()
+    gpu = ptt.Executor(ptt.CUDAPlace(0))
+    gpu.run(start, scope=gpu_scope)
+    cpu = ptt.Executor(ptt.CPUPlace())
+    for i, feed in enumerate(feeds):
+        state = {n: as_numpy(gpu_scope.get(n))
+                 for n in gpu_scope.local_var_names()}
+        probe = ptt.load_numpy_params(state, ptt.Scope(), ptt.CPUPlace())
+        grads = cpu.run(main, feed=feed, fetch_list=[n + "@GRAD"
+                                                     for n in names],
+                        scope=probe)
+        tiny = {n: np.abs(g) < 1e-5 for n, g in zip(names, grads)}
+        cpu_scope = ptt.load_numpy_params(state, ptt.Scope(),
+                                          ptt.CPUPlace())
+        g_loss, = gpu.run(main, feed=feed, fetch_list=[loss],
+                          scope=gpu_scope)
+        c_loss, = cpu.run(main, feed=feed, fetch_list=[loss],
+                          scope=cpu_scope)
+        np.testing.assert_allclose(g_loss, c_loss, rtol=1e-5,
+                                   err_msg=f"{label}: loss, step {i + 1}")
+        for n in state:
+            gp, cp = as_numpy(gpu_scope.get(n)), as_numpy(cpu_scope.get(n))
+            tol = 1e-6 + 1e-5 * np.abs(cp)
+            if n in tiny:
+                tol = tol + np.where(tiny[n], 2 * lr, 0.0)
+            diff = np.abs(gp - cp)
+            assert (diff <= tol).all(), (label, n, i, float(diff.max()))
+    log(f"  {label}: {len(feeds)} steps, each from the same state, card "
+        f"and CPU agree ({len(names)} parameters and every accumulator)")
+    return gpu_scope
+
+
+def _small_fc(opt):
+    def build(ptt, cfg=None):
+        main, start = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, start), ptt.unique_name.guard():
+            x = ptt.layers.data(name="x", shape=[24], dtype="float32")
+            y = ptt.layers.data(name="y", shape=[1], dtype="float32")
+            h = ptt.layers.fc(x, size=32, act="tanh")
+            d = ptt.layers.elementwise_sub(ptt.layers.fc(h, size=1), y)
+            loss = ptt.layers.mean(ptt.layers.elementwise_mul(d, d))
+            opt(ptt).minimize(loss)
+        return main, start, loss
+    return build
+
+
+def _fc_feeds(rng, cfg, n):
+    return [{"x": rng.randn(16, 24).astype("float32"),
+             "y": rng.randn(16, 1).astype("float32")} for _ in range(n)]
+
+
+# phase 24's optimizer classes: (label, learning rate, factory); with the
+# proximal ops below, every one of the nine update ops
+_OPTIMIZERS = (
+    ("Adagrad", 0.01, lambda p: p.optimizer.Adagrad(learning_rate=0.01)),
+    ("Adamax", 0.01, lambda p: p.optimizer.Adamax(learning_rate=0.01)),
+    ("DecayedAdagrad", 0.01,
+     lambda p: p.optimizer.DecayedAdagrad(learning_rate=0.01)),
+    ("Adadelta", 1.0, lambda p: p.optimizer.Adadelta(learning_rate=1.0)),
+    ("RMSProp centered, momentum", 0.01,
+     lambda p: p.optimizer.RMSProp(learning_rate=0.01, momentum=0.9,
+                                   centered=True)),
+    ("Ftrl", 0.1, lambda p: p.optimizer.Ftrl(learning_rate=0.1, l1=0.01,
+                                             l2=0.01)),
+    ("Ftrl lr_power -0.3", 0.1,
+     lambda p: p.optimizer.Ftrl(learning_rate=0.1, lr_power=-0.3)),
+    ("Lamb", 0.01, lambda p: p.optimizer.Lamb(learning_rate=0.01)),
+)
+
+
+def _proximal_ops_check():
+    """proximal_gd and proximal_adagrad (ops with no optimizer class):
+    one update on the card and on the CPU from the same inputs."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core.places import resolve_device
+    from paddle_tpu_torch.framework.executor import as_numpy
+    from paddle_tpu_torch.framework.registry import LowerCtx, lookup_op
+    card = resolve_device(ptt.CUDAPlace(0))
+    rng = np.random.RandomState(SEED + 24)
+    ins = {"Param": rng.randn(64, 32).astype("float32"),
+           "Grad": rng.randn(64, 32).astype("float32") * 0.1,
+           "Moment": np.abs(rng.randn(64, 32)).astype("float32") * 0.01,
+           "LearningRate": np.array([0.1], "float32")}
+    attrs = {"l1": 0.01, "l2": 0.01}
+    for op in ("proximal_gd", "proximal_adagrad"):
+        use = {k: v for k, v in ins.items()
+               if op == "proximal_adagrad" or k != "Moment"}
+        outs = [lookup_op(op).lower(
+            LowerCtx(device=dev),
+            {k: [torch.from_numpy(v).to(dev)] for k, v in use.items()},
+            dict(attrs)) for dev in (card, torch.device("cpu"))]
+        for slot, (g,) in outs[0].items():
+            c = as_numpy(outs[1][slot][0])
+            np.testing.assert_allclose(as_numpy(g), c, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{op} {slot}")
+    log("  proximal_gd, proximal_adagrad: card and CPU agree")
+
+
+def _model_average_check(ptt):
+    """ModelAverage over 3 SGD steps on the card and the CPU from the same
+    state: apply swaps in equal averages, an evaluation sees them, restore
+    brings back the trained parameters."""
+    import numpy as np
+    from paddle_tpu_torch.framework.executor import as_numpy
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        x = ptt.layers.data(name="x", shape=[24], dtype="float32")
+        y = ptt.layers.data(name="y", shape=[1], dtype="float32")
+        d = ptt.layers.elementwise_sub(ptt.layers.fc(x, size=1), y)
+        loss = ptt.layers.mean(ptt.layers.elementwise_mul(d, d))
+        ptt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        test_prog = main.clone(for_test=True)
+        avg = ptt.optimizer.ModelAverage(average_window_rate=0.3)
+        avg.build(main.all_parameters())
+    gscope = ptt.Scope()
+    gpu = ptt.Executor(ptt.CUDAPlace(0))
+    gpu.run(start, scope=gscope)
+    cscope = ptt.load_numpy_params(
+        {n: as_numpy(gscope.get(n)) for n in gscope.local_var_names()},
+        ptt.Scope(), ptt.CPUPlace())
+    cpu = ptt.Executor(ptt.CPUPlace())
+    feeds = _fc_feeds(np.random.RandomState(SEED + 25), None, 4)
+    for f in feeds[:3]:
+        gpu.run(main, feed=f, fetch_list=[loss], scope=gscope)
+        cpu.run(main, feed=f, fetch_list=[loss], scope=cscope)
+    params = [p.name for p in main.all_parameters()]
+    trained = {n: as_numpy(gscope.get(n)) for n in params}
+    avg.apply(gscope)
+    avg.apply(cscope)
+    for n in params:
+        np.testing.assert_allclose(as_numpy(gscope.get(n)),
+                                   as_numpy(cscope.get(n)), rtol=1e-5,
+                                   atol=1e-6, err_msg=n)
+    g, = gpu.run(test_prog, feed=feeds[3], fetch_list=[loss], scope=gscope)
+    c, = cpu.run(test_prog, feed=feeds[3], fetch_list=[loss], scope=cscope)
+    np.testing.assert_allclose(g, c, rtol=1e-5)
+    avg.restore(gscope)
+    for n in params:
+        assert np.array_equal(as_numpy(gscope.get(n)), trained[n]), n
+    log(f"  ModelAverage: averages equal card and CPU, evaluation loss "
+        f"{float(g):.6f} (CPU {float(c):.6f}), restore exact")
+
+
+def _resnet8_remat_check(ptt):
+    """ResNet-8 on the card under memory_optimize (levels 0, 1) against
+    its un-rematerialized run from the same state, 3 Momentum steps, cuDNN
+    deterministic: every persistable, the 18 running statistics included,
+    within 1e-6 + 1e-5 |x|, and each statistic moved. A running-statistic
+    update applied again by the recompute would be off by (1 - momentum)
+    of the batch statistic, far outside."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.framework.executor import as_numpy
+    from paddle_tpu_torch.models import resnet
+    cfg = RESNET_SMALL
+
+    def build(level):
+        main, start = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, start), ptt.unique_name.guard():
+            img = ptt.layers.data("img", shape=[cfg["image"]] * 2 + [3])
+            loss, _, _ = resnet.resnet_cifar10(img=img, depth=cfg["depth"],
+                                               class_num=cfg["classes"])
+            ptt.optimizer.Momentum(learning_rate=cfg["lr"],
+                                   momentum=0.9).minimize(loss)
+        if level is not None:
+            ptt.transpiler.memory_optimize(main, level=level)
+        return main, start, loss
+
+    rng = np.random.RandomState(SEED + 26)
+    feeds = [{"img": rng.rand(cfg["batch"], cfg["image"], cfg["image"], 3)
+              .astype("float32"),
+              "label": rng.randint(0, cfg["classes"], (cfg["batch"], 1))
+              .astype("int64")} for _ in range(3)]
+    main, start, loss = build(None)
+    scope = ptt.Scope()
+    ptt.Executor(ptt.CUDAPlace(0)).run(start, scope=scope)
+    init = {n: as_numpy(scope.get(n)) for n in scope.local_var_names()}
+    stats = [p.name for p in main.all_parameters() if not p.trainable]
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        ends = {}
+        for level in (None, 0, 1):
+            main, _, loss = build(level)
+            sc = ptt.load_numpy_params(init, ptt.Scope(), ptt.CUDAPlace(0))
+            exe = ptt.Executor(ptt.CUDAPlace(0))
+            for f in feeds:
+                exe.run(main, feed=f, fetch_list=[loss], scope=sc)
+            ends[level] = {n: as_numpy(sc.get(n)) for n in init}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+    worst = 0.0
+    for level in (0, 1):
+        for n, ref in ends[None].items():
+            diff = np.abs(ends[level][n] - ref)
+            assert (diff <= 1e-6 + 1e-5 * np.abs(ref)).all(), \
+                (level, n, float(diff.max()))
+            worst = max(worst, float(diff.max()))
+    for n in stats:
+        assert not np.array_equal(ends[1][n], init[n]), n
+    log(f"  ResNet-8 under memory_optimize levels 0 and 1: {len(stats)} "
+        f"running statistics and every parameter agree with the "
+        f"un-rematerialized run (largest difference {worst:.2e})")
+    return worst
+
+
+def _piecewise_decay_sync_check(ptt):
+    """A step whose learning rate is piecewise_decay runs with no host
+    sync once planned, and gives the schedule's values."""
+    import numpy as np
+    import torch
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        x = ptt.layers.data(name="x", shape=[24], dtype="float32")
+        y = ptt.layers.data(name="y", shape=[1], dtype="float32")
+        d = ptt.layers.elementwise_sub(ptt.layers.fc(x, size=1), y)
+        loss = ptt.layers.mean(ptt.layers.elementwise_mul(d, d))
+        lr = ptt.layers.piecewise_decay([2, 4], [0.1, 0.05, 0.01])
+        ptt.optimizer.SGD(learning_rate=lr).minimize(loss)
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(start, scope=scope)
+    feeds = [{k: torch.from_numpy(v).to(exe.device) for k, v in f.items()}
+             for f in _fc_feeds(np.random.RandomState(SEED + 27), None, 6)]
+    seen = [exe.run(main, feed=feeds[0], fetch_list=[lr], scope=scope,
+                    return_numpy=False)[0].clone()]        # plans
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in feeds[1:]:
+            seen.append(exe.run(main, feed=f, fetch_list=[lr], scope=scope,
+                                return_numpy=False)[0].clone())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = [float(v) for v in seen]
+    want = [0.1, 0.1, 0.05, 0.05, 0.01, 0.01]
+    np.testing.assert_allclose(got, want, rtol=1e-7)
+    log(f"  piecewise_decay: 5 steps under set_sync_debug_mode('error') "
+        f"after the planning step, learning rates {got}")
+    return got
+
+
+def rest_reference_check(ptt):
+    """Phase 24: the rest of training, small, card against CPU: the nine
+    optimizer ops (seven classes, two ops), ModelAverage, DeepFM sparse
+    on both apply paths, ResNet-8 under memory_optimize, and
+    piecewise_decay with no host sync."""
+    for label, lr, make in _OPTIMIZERS:
+        cfg = {"lr": lr}
+        _card_against_cpu(ptt, label, cfg, _small_fc(make), _fc_feeds,
+                          steps=3, resync=True, opt=label)
+    _proximal_ops_check()
+    _model_average_check(ptt)
+    import numpy as np
+    cfg = DEEPFM_SMALL
+    feeds = _deepfm_feeds(np.random.RandomState(SEED + 28), cfg,
+                          cfg["batches"])
+    for path, max_bytes in (("dense-masked", 1 << 30), ("merged rows", 0)):
+        ptt.flags.set_flag("sparse_dense_apply_max_bytes", max_bytes)
+        try:
+            _steps_card_against_cpu(
+                ptt, f"DeepFM sparse, {path}",
+                lambda p: _deepfm_program(p, cfg), feeds, cfg["lr"])
+        finally:
+            ptt.flags.set_flag("sparse_dense_apply_max_bytes", 1 << 30)
+    worst = _resnet8_remat_check(ptt)
+    lrs = _piecewise_decay_sync_check(ptt)
+    return {"optimizers": [o[0] for o in _OPTIMIZERS]
+            + ["proximal_gd", "proximal_adagrad", "ModelAverage"],
+            "resnet8_remat_max_diff": worst, "piecewise_decay_lr": lrs}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2650,6 +3369,19 @@ def main():
 
     log("phase 21: image models card against CPU (ResNet-8, SE-ResNeXt)")
     paths["resnet_reference"] = resnet_reference_check(ptt)
+    torch.cuda.empty_cache()
+
+    log("phase 22: train DeepFM at full width with sparse gradients")
+    paths["deepfm_sparse_train"] = train_deepfm(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    log("phase 23: train the LM under memory_optimize over K1-K3")
+    paths["lm_remat_train"] = train_lm_remat(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    log("phase 24: the rest of training card against CPU (optimizers, "
+        "ModelAverage, DeepFM sparse, ResNet-8 remat, piecewise_decay)")
+    paths["training_rest_reference"] = rest_reference_check(ptt)
 
     # each kernel's launches on its own path: decode attention on the
     # serving run (phase 4; its NMT run beside it), the flash kernels on
@@ -2663,6 +3395,11 @@ def main():
         nmt_launches["decode_attention"]
     for k, tc in zip(FLASH, FLASH_TC):
         results[k]["launches_tc_bf16"] = train_launches[tc]
+        # phase 23: a step's launches under remat (K1 runs again in the
+        # backward's recompute)
+        results[k]["launches_per_step_remat"] = {
+            lv: paths["lm_remat_train"][lv]["launches_per_step"][tc]
+            for lv in ("plain", "level0", "level1")}
     for k, n in launches.items():
         assert n > 0, f"kernel {k} was never launched on its path"
     results["flash_fwd"]["launches_tc_transformer_base_infer"] = \

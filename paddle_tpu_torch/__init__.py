@@ -36,6 +36,7 @@ from .framework.registry import registered_ops  # noqa: F401
 from .framework.scope import Scope, global_scope, reset_global_scope  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from . import data, io, models, nets, observability, serving  # noqa: F401,E402
+from . import average, transpiler  # noqa: F401,E402
 from . import inferencer, trainer  # noqa: F401,E402
 from .data.feeder import DataFeeder  # noqa: F401,E402
 from .inferencer import Inferencer, Predictor  # noqa: F401,E402

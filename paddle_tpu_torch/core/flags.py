@@ -102,3 +102,11 @@ define_bool("fuse_recurrent_cells", True,
             "(paddle_tpu_torch/fusion/recurrent.py). Off is for the CPU "
             "only: an executor on a CUDA device raises on a program whose "
             "fusable recurrent op it leaves unfused.")
+define_int("sparse_dense_apply_max_bytes", 1 << 30,
+           "Lazy sparse adam updates of an is_sparse embedding table: a "
+           "table of at most this many bytes takes the dense-masked apply "
+           "(a [height, width] scatter of the raw rows, then the update "
+           "under a touched-row mask, no sort); a larger one the "
+           "merged-rows path (sort, merge, and an in-place index_copy_ of "
+           "the distinct rows). Both give the same lazy semantics. Set 0 to "
+           "take the merged-rows path at any size.")

@@ -98,6 +98,10 @@ class LowerCtx:
     extras: run-wide values for lowerings; the executor sets "program" to
         the program it planned (the fused clone), whose blocks a
         control-flow op's `sub_block` attribute indexes.
+    recomputing: True while a rematerialized forward runs again inside
+        autograd's backward (lowering.py `_checkpointed`).
+    deferred: under remat, the persistable-state updates of the region's
+        forward, run once after its backward (`update_state`).
     """
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     seed: int = 0
@@ -107,6 +111,8 @@ class LowerCtx:
     is_test: bool = False
     read_names: Optional[frozenset] = None
     extras: dict = field(default_factory=dict)
+    recomputing: bool = False
+    deferred: Optional[list] = None
     _generator: Optional[torch.Generator] = None
 
     def generator(self, seed: int = 0) -> torch.Generator:
@@ -127,12 +133,23 @@ class LowerCtx:
         return (op is not None and bool(op.inputs.get(in_slot))
                 and op.inputs.get(in_slot) == op.outputs.get(out_slot))
 
+    def update_state(self, fn: Callable[[], Any]):
+        """Run `fn`, an in-place update of persistable state, once a step:
+        now, or under remat after the region's backward, so that the
+        forward and its recompute read the same state and the update is
+        not applied twice."""
+        if self.deferred is None:
+            fn()
+        elif not self.recomputing:
+            self.deferred.append(fn)
+
     def needed(self, name: str) -> bool:
         """Whether anything reads variable `name` after the op makes it."""
         return self.read_names is None or name in self.read_names
 
-    def constant(self, make: Callable[[], torch.Tensor]) -> torch.Tensor:
-        """The current op's attribute-built output, made once per plan.
+    def constant(self, make: Callable[[], Any]) -> Any:
+        """The current op's attribute-built output (a tensor, or a tuple of
+        them), made once per plan.
         Only ops writing non-persistable variables are memoized: a
         persistable output may later be updated in place."""
         op = self.op

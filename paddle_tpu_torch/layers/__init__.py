@@ -1,5 +1,5 @@
 """fluid.layers-equivalent namespace, trimmed to the serving, training,
-recurrent and image slices."""
+recurrent, image and CTR slices."""
 
 from . import (control_flow, io, learning_rate_scheduler,  # noqa: F401
                math_ops, nn, ops, sequence, tensor)
@@ -19,9 +19,10 @@ from .nn import (accuracy, batch_norm, cache_write, clip,  # noqa: F401
                  elementwise_pow, elementwise_sub, embedding, fc,
                  fused_attention, gather, layer_norm, log_softmax, matmul,
                  mean, one_hot, pool2d, pool3d, reduce_max, reduce_mean,
-                 reduce_min, reduce_prod, reduce_sum, reshape, slice,
-                 softmax, softmax_with_cross_entropy, squeeze, topk,
-                 transpose, unsqueeze)
+                 reduce_min, reduce_prod, reduce_sum, reshape,
+                 sigmoid_cross_entropy_with_logits, slice, softmax,
+                 softmax_with_cross_entropy, squeeze, topk, transpose,
+                 unsqueeze)
 from .ops import (ceil, cos, exp, floor, pow, reciprocal, relu,  # noqa: F401
                   sigmoid, sign, sqrt, tanh)
 from .sequence import (dynamic_gru, dynamic_lstm, get_seqlen,  # noqa: F401

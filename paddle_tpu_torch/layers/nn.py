@@ -561,6 +561,15 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=x.shape)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
 def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=[])

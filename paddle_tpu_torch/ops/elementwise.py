@@ -98,5 +98,12 @@ for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
                    ("tanh", torch.tanh), ("exp", torch.exp),
                    ("sqrt", torch.sqrt), ("ceil", torch.ceil),
                    ("floor", torch.floor), ("cos", torch.cos),
-                   ("reciprocal", torch.reciprocal), ("sign", torch.sign)):
+                   ("reciprocal", torch.reciprocal)):
     register_op(_name)(_unary(_fn))
+
+
+@register_op("sign")
+def _sign(ctx, ins, attrs):
+    # ≙ jnp.sign, which keeps NaN (torch.sign maps it to 0)
+    x = ins["X"][0]
+    return {"Out": [torch.where(torch.isnan(x), x, torch.sign(x))]}

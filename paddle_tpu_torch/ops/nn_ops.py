@@ -1,5 +1,6 @@
 """NN op lowerings: mul/matmul, conv, conv_transpose, pool, batch_norm,
-layer_norm, softmax, log_softmax, softmax_with_cross_entropy.
+layer_norm, softmax, log_softmax, softmax_with_cross_entropy,
+sigmoid_cross_entropy_with_logits.
 
 ≙ paddle_tpu/ops/nn_ops.py (reference operators/{mul,matmul,conv,
 conv_transpose,pool,batch_norm,layer_norm,softmax,
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import flags
+from ..core.enforce import InvalidArgumentError, enforce
 from ..framework.registry import register_op
 from .tensor_ops import index_in_range
 
@@ -192,6 +194,15 @@ def _pool2d(ctx, ins, attrs):
             if rem:
                 hi += strides[i] - rem
         pairs.append((pads[i], hi))
+    # a window wider than the padded input: the JAX package's
+    # reduce_window returns an empty output there, the port refuses it
+    # (ROADMAP.md §3, deliberate differences)
+    enforce(all(spatial[i] + lo + hi >= ksize[i]
+                for i, (lo, hi) in enumerate(pairs)),
+            "pool: window %s is larger than the padded input %s (X %s, "
+            "paddings %s)", ksize, [spatial[i] + lo + hi
+                                    for i, (lo, hi) in enumerate(pairs)],
+            list(x.shape), pads, exc=InvalidArgumentError)
     padded = any(lo or hi for lo, hi in pairs)
     fpad = [p for pair in reversed(pairs) for p in pair]   # last dim first
     if attrs.get("pooling_type", "max") == "max":
@@ -298,12 +309,15 @@ def _batch_norm(ctx, ins, attrs):
                                               axes, bshape, eps)
     inv = torch.rsqrt(batch_var + eps)
     rest = 1 - momentum
+    # in place once a step, also under remat (LowerCtx.update_state)
     if ctx.writes_input("Mean", "MeanOut"):
-        mean_out = mean.mul_(momentum).add_(rest * batch_mean)
+        ctx.update_state(lambda: mean.mul_(momentum).add_(rest * batch_mean))
+        mean_out = mean
     else:
         mean_out = momentum * mean + rest * batch_mean
     if ctx.writes_input("Variance", "VarianceOut"):
-        var_out = var.mul_(momentum).add_(rest * batch_var)
+        ctx.update_state(lambda: var.mul_(momentum).add_(rest * batch_var))
+        var_out = var
     else:
         var_out = momentum * var + rest * batch_var
     return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
@@ -383,6 +397,14 @@ class _CEHard(torch.autograd.Function):
                        hit.to(torch.float32).neg().unsqueeze(-1))
         d.mul_(g.unsqueeze(-1))
         return d.to(logits.dtype), None, None
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ctx, ins, attrs):
+    """The stable form max(x, 0) − x·z + log(1 + exp(−|x|))."""
+    x, label = ins["X"][0], ins["Label"][0]
+    return {"Out": [torch.clamp_min(x, 0) - x * label
+                    + torch.log1p(torch.exp(-torch.abs(x)))]}
 
 
 @register_op("softmax_with_cross_entropy")

@@ -15,7 +15,8 @@ from ..framework.registry import register_op
 
 
 def _dims(attrs):
-    """The reduced dims, or None for all of them."""
+    """The reduced dims, or None for all of them. An empty `dim` (with
+    `reduce_all` off) is `axis=()` in the JAX package: nothing reduced."""
     dim = attrs.get("dim")
     if attrs.get("reduce_all", False) or dim is None:
         return None
@@ -29,14 +30,24 @@ def _prod(x, dim, keepdim):
     return x
 
 
-def _reduce(fn):
+def _reduce(fn, mean=False):
     """≙ the JAX package's `_reduce`: X reduced over `dim` (all dims when
-    `reduce_all` or no dim), keeping them as size 1 when `keep_dim`."""
+    `reduce_all` or no dim), keeping them as size 1 when `keep_dim`. An
+    integer X keeps its type, but for the mean, which is float32 (jnp's
+    promotion with x64 off)."""
     def lower(ctx, ins, attrs):
         x = ins["X"][0]
+        if mean and not x.is_floating_point():
+            x = x.float()
         dims = _dims(attrs)
         keep = attrs.get("keep_dim", False)
-        out = fn(x, tuple(range(x.dim())) if dims is None else dims, keep)
+        if dims == ():
+            # torch reads dim=() as every dim: reduce a new size-1 dim
+            # instead, which keeps fn's type rules
+            out = fn(x.unsqueeze(0), (0,), False)
+        else:
+            out = fn(x, tuple(range(x.dim())) if dims is None else dims,
+                     keep)
         if dims is None and not keep:
             out = out.reshape(())
         if not x.is_floating_point() and x.dtype != torch.bool:
@@ -48,7 +59,7 @@ def _reduce(fn):
 register_op("reduce_sum")(_reduce(
     lambda x, d, k: x.sum(dim=d, keepdim=k)))
 register_op("reduce_mean")(_reduce(
-    lambda x, d, k: x.mean(dim=d, keepdim=k)))
+    lambda x, d, k: x.mean(dim=d, keepdim=k), mean=True))
 register_op("reduce_max")(_reduce(
     lambda x, d, k: x.amax(dim=d, keepdim=k)))
 register_op("reduce_min")(_reduce(
@@ -58,7 +69,8 @@ register_op("reduce_prod")(_reduce(_prod))
 
 @register_op("mean")
 def _mean(ctx, ins, attrs):
-    return {"Out": [ins["X"][0].mean()]}
+    x = ins["X"][0]
+    return {"Out": [(x if x.is_floating_point() else x.float()).mean()]}
 
 
 @register_op("sum")

@@ -3,8 +3,9 @@
 ≙ paddle_tpu/ops/tensor_ops.py (reference operators/{reshape,transpose,
 unsqueeze,concat,slice,gather,cast,fill_constant,assign,one_hot,
 lookup_table,increment}_op.cc), trimmed to the serving, training and
-recurrent slices, plus the KV-cache write `cache_write` and the
-learning-rate schedules' `piecewise_decay`.
+recurrent slices, plus the KV-cache write `cache_write`, the
+learning-rate schedules' `piecewise_decay`, and the sparse-table helpers
+`split_ids` / `merge_ids` / `lookup_sparse_table`.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..core.dtypes import convert_dtype
+from ..core.enforce import InvalidArgumentError, enforce
 from ..framework.registry import register_op
 
 
@@ -91,10 +93,17 @@ def _gather(ctx, ins, attrs):
 
 @register_op("squeeze")
 def _squeeze(ctx, ins, attrs):
-    # ≙ jnp.squeeze: the listed axes (all size-1 dims when none are listed)
+    # ≙ jnp.squeeze: the listed axes (all size-1 dims when none are
+    # listed); a listed axis whose size is not 1 raises, as there (torch
+    # would keep it silently)
     x = ins["X"][0]
     axes = attrs.get("axes") or None
-    return {"Out": [x.squeeze(tuple(axes)) if axes else x.squeeze()]}
+    if not axes:
+        return {"Out": [x.squeeze()]}
+    wide = [a for a in axes if x.shape[a] != 1]
+    enforce(not wide, "squeeze: axes %s of X %s are not of size 1", wide,
+            list(x.shape), exc=InvalidArgumentError)
+    return {"Out": [x.squeeze(tuple(axes))]}
 
 
 @register_op("unsqueeze")
@@ -267,11 +276,80 @@ def _increment(ctx, ins, attrs):
 def _piecewise_decay(ctx, ins, attrs):
     """values[i] for the step's place among the boundaries: the number of
     boundaries at or below the step (≙ searchsorted side="right"), with
-    no branch and no device->host sync."""
+    no branch and no device->host sync: both tables are copied to the
+    device once per plan (`LowerCtx.constant`), not once a run."""
     step = ins["Step"][0].reshape(())
-    boundaries = torch.tensor(attrs["boundaries"], dtype=step.dtype,
-                              device=step.device)
-    values = torch.tensor(attrs["values"], dtype=torch.float32,
-                          device=step.device)
-    idx = (boundaries <= step).sum()
-    return {"Out": [values[idx].reshape(1)]}
+
+    def make():
+        return (torch.tensor(attrs["boundaries"], dtype=step.dtype,
+                             device=step.device),
+                torch.tensor(attrs["values"], dtype=torch.float32,
+                             device=step.device))
+    boundaries, values = ctx.constant(make)
+    idx = (boundaries <= step).sum().reshape(1)
+    # index_select: indexing with a 0-d tensor reads it on the host
+    return {"Out": [values.index_select(0, idx)]}
+
+
+# --- sparse-table helpers ------------------------------------------------
+# ≙ split_ids_op / merge_ids_op / lookup_sparse_table_op, the pserver
+# row-dispatch family (JAX: tensor_ops.py:540-601). Static shapes: shard
+# membership is a mask, outputs are padded to the input length with -1 ids
+# and zero rows, and the counts come back alongside. Ids live in the int32
+# space, as in the JAX package (which runs without x64).
+
+_INVALID_ID = -(2 ** 31 - 1)
+
+
+def _as_id32(ids):
+    """int32 ids; an id beyond the int32 range becomes the invalid sentinel
+    (negative) rather than wrapping into another row."""
+    if ids.dtype == torch.int64:
+        ids = torch.where(ids.abs() > 2 ** 31 - 1, _INVALID_ID, ids)
+    return ids.to(torch.int32)
+
+
+@register_op("split_ids")
+def _split_ids(ctx, ins, attrs):
+    """Ids partitioned across `num_shards` by modulo: one [N] id tensor per
+    shard (its ids in order, then -1) and the [num_shards] counts."""
+    ids = _as_id32(ins["Ids"][0].reshape(-1))
+    n, size = attrs["num_shards"], ids.shape[0]
+    outs, counts = [], []
+    for s in range(n):
+        mask = (ids % n) == s
+        pos = torch.cumsum(mask.to(torch.int32), 0) - 1
+        at = torch.where(mask, pos, size).to(torch.long)
+        buf = torch.full((size + 1,), -1, dtype=torch.int32,
+                         device=ids.device).scatter_(0, at, ids)
+        outs.append(buf[:-1])
+        counts.append(mask.sum(dtype=torch.int32))
+    return {"Out": outs, "Count": [torch.stack(counts)]}
+
+
+@register_op("merge_ids")
+def _merge_ids(ctx, ins, attrs):
+    """Per-shard row values (split_ids' order) routed back to the order of
+    the original ids."""
+    ids = _as_id32(ins["Ids"][0].reshape(-1))
+    shard_rows = ins["Rows"]
+    n = len(ins["X"])
+    out = torch.zeros((ids.shape[0], shard_rows[0].shape[-1]),
+                      dtype=shard_rows[0].dtype, device=ids.device)
+    for s in range(n):
+        mask = (ids % n) == s
+        pos = (torch.cumsum(mask.to(torch.int32), 0) - 1).clamp_min(0)
+        out = torch.where(mask[:, None], shard_rows[s][pos.to(torch.long)],
+                          out)
+    return {"Out": [out]}
+
+
+@register_op("lookup_sparse_table")
+def _lookup_sparse_table(ctx, ins, attrs):
+    """Rows of a table shard by id; padded (-1) ids give zero rows (the
+    reference grows unseen rows; the static form returns their init, 0)."""
+    w = ins["W"][0]
+    ids = _as_id32(ins["Ids"][0].reshape(-1))
+    valid = ids >= 0
+    rows = take_rows(w, torch.where(valid, ids, 0))
+    return {"Out": [torch.where(valid[:, None], rows, 0.0)]}

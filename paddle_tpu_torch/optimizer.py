@@ -1,8 +1,9 @@
-"""Optimizers: SGD, Momentum and Adam.
+"""Optimizers: SGD, Momentum, Adagrad, Adam, Adamax, DecayedAdagrad,
+Adadelta, RMSProp, Ftrl, Lamb, and ModelAverage.
 
 ≙ paddle_tpu/optimizer.py (reference python/paddle/fluid/optimizer.py:
-Optimizer base :38, _create_optimization_pass :196, minimize :253), trimmed
-to the training slice. Each optimizer appends accumulator vars (persistable,
+Optimizer base :38, _create_optimization_pass :196, minimize :253, the
+family :279-1119). Each optimizer appends accumulator vars (persistable,
 zero- or beta-filled by the startup program) and one update op per
 parameter; the executor updates parameters and accumulators in place.
 The program is the JAX package's, op for op.
@@ -156,6 +157,25 @@ class MomentumOptimizer(Optimizer):
                                "use_nesterov": self._use_nesterov})
 
 
+class AdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        block.append_op("adagrad",
+                        inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                                "LearningRate": [self._global_learning_rate()]},
+                        outputs={"ParamOut": [p], "MomentOut": [m]},
+                        attrs={"epsilon": self._epsilon})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -190,8 +210,241 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+class AdamaxOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow", p, fill_value=self._beta1,
+                                  shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        block.append_op(
+            "adamax",
+            inputs={"Param": [p], "Grad": [g],
+                    "Moment": [self._get_accumulator("moment", p)],
+                    "InfNorm": [self._get_accumulator("inf_norm", p)],
+                    "Beta1Pow": [self._get_accumulator("beta1_pow", p)],
+                    "LearningRate": [self._global_learning_rate()]},
+            outputs={"ParamOut": [p],
+                     "MomentOut": [self._get_accumulator("moment", p)],
+                     "InfNormOut": [self._get_accumulator("inf_norm", p)],
+                     "Beta1PowOut": [self._get_accumulator("beta1_pow", p)]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        block.append_op("decayed_adagrad",
+                        inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                                "LearningRate": [self._global_learning_rate()]},
+                        outputs={"ParamOut": [p], "MomentOut": [m]},
+                        attrs={"decay": self._decay,
+                               "epsilon": self._epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("avg_squared_grad", p)
+            self._add_accumulator("avg_squared_update", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        block.append_op(
+            "adadelta",
+            inputs={"Param": [p], "Grad": [g],
+                    "AvgSquaredGrad":
+                        [self._get_accumulator("avg_squared_grad", p)],
+                    "AvgSquaredUpdate":
+                        [self._get_accumulator("avg_squared_update", p)]},
+            outputs={"ParamOut": [p],
+                     "AvgSquaredGradOut":
+                         [self._get_accumulator("avg_squared_grad", p)],
+                     "AvgSquaredUpdateOut":
+                         [self._get_accumulator("avg_squared_update", p)]},
+            attrs={"epsilon": self._epsilon, "rho": self._rho})
+
+
+class RMSPropOptimizer(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("momentum", p)
+            if self._centered:
+                self._add_accumulator("mean_grad", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        inputs = {"Param": [p], "Grad": [g],
+                  "MeanSquare": [self._get_accumulator("mean_square", p)],
+                  "Moment": [self._get_accumulator("momentum", p)],
+                  "LearningRate": [self._global_learning_rate()]}
+        outputs = {"ParamOut": [p],
+                   "MeanSquareOut": [self._get_accumulator("mean_square", p)],
+                   "MomentOut": [self._get_accumulator("momentum", p)]}
+        if self._centered:
+            inputs["MeanGrad"] = [self._get_accumulator("mean_grad", p)]
+            outputs["MeanGradOut"] = [self._get_accumulator("mean_grad", p)]
+        block.append_op("rmsprop", inputs=inputs, outputs=outputs,
+                        attrs={"decay": self._rho, "epsilon": self._epsilon,
+                               "momentum": self._momentum,
+                               "centered": self._centered})
+
+
+class FtrlOptimizer(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        block.append_op(
+            "ftrl",
+            inputs={"Param": [p], "Grad": [g],
+                    "SquaredAccumulator": [self._get_accumulator("squared", p)],
+                    "LinearAccumulator": [self._get_accumulator("linear", p)],
+                    "LearningRate": [self._global_learning_rate()]},
+            outputs={"ParamOut": [p],
+                     "SquaredAccumOut": [self._get_accumulator("squared", p)],
+                     "LinearAccumOut": [self._get_accumulator("linear", p)]},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power})
+
+
+class LambOptimizer(Optimizer):
+    """Large-batch LAMB (TPU-era addition; see optimizer_ops.py)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, weight_decay=0.01, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2 = beta1, beta2
+        self._epsilon, self._weight_decay = epsilon, weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment1", p)
+            self._add_accumulator("moment2", p)
+            self._add_accumulator("beta1_pow", p, fill_value=self._beta1,
+                                  shape=[1])
+            self._add_accumulator("beta2_pow", p, fill_value=self._beta2,
+                                  shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        block.append_op(
+            "lamb",
+            inputs={"Param": [p], "Grad": [g],
+                    "Moment1": [self._get_accumulator("moment1", p)],
+                    "Moment2": [self._get_accumulator("moment2", p)],
+                    "Beta1Pow": [self._get_accumulator("beta1_pow", p)],
+                    "Beta2Pow": [self._get_accumulator("beta2_pow", p)],
+                    "LearningRate": [self._global_learning_rate()]},
+            outputs={"ParamOut": [p],
+                     "Moment1Out": [self._get_accumulator("moment1", p)],
+                     "Moment2Out": [self._get_accumulator("moment2", p)],
+                     "Beta1PowOut": [self._get_accumulator("beta1_pow", p)],
+                     "Beta2PowOut": [self._get_accumulator("beta2_pow", p)]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon,
+                   "weight_decay": self._weight_decay})
+
+
+class ModelAverage(Optimizer):
+    """≙ reference optimizer.py ModelAverage — maintains an EMA of parameters
+    (`build` appends its update to the main program); apply()/restore() swap
+    the averaged values in and out of the scope around evaluation. apply
+    swaps in a copy of each average, so a step that updates the parameter
+    in place never writes into the average."""
+
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, **kw):
+        super().__init__(0.0, **kw)
+        self._rate = average_window_rate
+        self._params: List[Parameter] = []
+
+    def build(self, params: Sequence[Parameter]):
+        self._params = list(params)
+        for p in params:
+            self._add_accumulator("ema", p)
+        block = default_main_program().global_block()
+        for p in params:
+            ema = self._get_accumulator("ema", p)
+            tmp = block.create_var(
+                name=unique_name.generate(f"{p.name}_ema_new"),
+                shape=p.shape, dtype=dtype_name(p.dtype))
+            block.append_op("scale", inputs={"X": [ema]},
+                            outputs={"Out": [tmp]},
+                            attrs={"scale": 1 - self._rate})
+            tmp2 = block.create_var(
+                name=unique_name.generate(f"{p.name}_ema_p"),
+                shape=p.shape, dtype=dtype_name(p.dtype))
+            block.append_op("scale", inputs={"X": [p]},
+                            outputs={"Out": [tmp2]},
+                            attrs={"scale": self._rate})
+            block.append_op("sum", inputs={"X": [tmp, tmp2]},
+                            outputs={"Out": [ema]})
+
+    def apply(self, scope=None):
+        """Swap EMA values into the parameters (backup originals)."""
+        from .framework.scope import global_scope
+        scope = scope or global_scope()
+        for p in self._params:
+            ema = self._get_accumulator("ema", p)
+            scope.set_var(p.name + "@MODEL_AVG_BACKUP", scope.get(p.name))
+            scope.set_var(p.name, scope.get(ema.name).clone())
+
+    def restore(self, scope=None):
+        """Restore the live parameter values saved by apply()."""
+        from .framework.scope import global_scope
+        scope = scope or global_scope()
+        for p in self._params:
+            backup = scope.find_var(p.name + "@MODEL_AVG_BACKUP")
+            if backup is not None:
+                scope.set_var(p.name, backup)
+                scope.erase(p.name + "@MODEL_AVG_BACKUP")
+
 
 # fluid-style aliases
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+Lamb = LambOptimizer

@@ -360,17 +360,24 @@ def test_prefetcher_keeps_order_and_stages_uint8():
 def test_prefetcher_releases_its_threads_when_abandoned():
     """Breaking out of the loop stops the producer: it reads at most
     `capacity` batches ahead, then exits, and the worker threads end."""
-    base = threading.active_count()
+    # the threads alive before the loop: only those the prefetcher starts
+    # are watched, so a thread of an earlier test that ends meanwhile
+    # does not change the count
+    base = set(threading.enumerate())
     pulled = []
     pf = ptt.data.DevicePrefetcher(_batches(10_000, pulled), capacity=2,
                                    place=ptt.CPUPlace(), stage_threads=2)
     for i, _ in enumerate(pf):
         if i == 2:
             break
+
+    def started():
+        return [t for t in threading.enumerate() if t not in base]
+
     deadline = time.time() + 10
-    while threading.active_count() > base and time.time() < deadline:
+    while any(t.is_alive() for t in started()) and time.time() < deadline:
         time.sleep(0.05)
-    assert threading.active_count() == base
+    assert not started()
     # 3 consumed, `capacity` queued, one put after the last get and one
     # read while the producer waited for room
     assert len(pulled) <= 3 + 2 + 2, len(pulled)

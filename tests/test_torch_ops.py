@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 
 from paddle_tpu.framework import registry as jreg
+from paddle_tpu_torch.core.enforce import InvalidArgumentError
 from paddle_tpu_torch.framework import registry as treg
 from paddle_tpu_torch.framework.executor import as_numpy
 
@@ -327,6 +328,28 @@ CASES = [
     ("piecewise_decay_last", "piecewise_decay",
      {"Step": [np.array([25.0], "float32")]},
      {"boundaries": [10.0, 20.0], "values": [1.0, 0.5, 0.1]}, {}, {}),
+    # torch.sign maps NaN to 0; jnp.sign keeps it
+    ("sign_nan_inf", "sign",
+     {"X": [np.array([np.nan, -np.inf, np.inf, 0.0], "float32")]}, {}, {},
+     {}),
+    # an integer X: the mean promotes to float32, the sum keeps the type
+    ("reduce_mean_int", "reduce_mean",
+     {"X": [np.arange(6, dtype="int32").reshape(2, 3)]}, {"dim": [1]}, {},
+     {}),
+    ("mean_int", "mean", {"X": [np.arange(5, dtype="int32")]}, {}, {}, {}),
+    # the stable form, at logits far past where exp overflows float32
+    ("sigmoid_ce", "sigmoid_cross_entropy_with_logits",
+     {"X": [np.concatenate([np.array([-200.0, -30.0, 0.0, 30.0, 200.0],
+                                     "float32"), f32(7)]).reshape(3, 4)],
+      "Label": [(R.rand(3, 4) > 0.5).astype("float32")]}, {}, {}, {}),
+] + [
+    # dim [] with reduce_all off is axis=(): nothing is reduced
+    (f"{t}_empty_dim_{dt}", t,
+     {"X": [(np.arange(6).reshape(2, 3) + 1).astype(dt)]},
+     {"dim": [], "keep_dim": False, "reduce_all": False}, {}, {})
+    for t in ("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+              "reduce_prod")
+    for dt in ("float32", "int32")
 ]
 
 
@@ -564,3 +587,62 @@ def test_optimizer_ops_update_in_place_on_their_own_variables():
     for s in slots:
         assert out[s + "Out"][0] is tins[s][0], s
         assert torch.equal(out[s + "Out"][0], fresh[s + "Out"][0]), s
+
+
+def test_squeeze_of_a_wide_axis_raises_as_jax():
+    """jnp.squeeze refuses an axis whose size is not 1; so does the port
+    (torch's squeeze would keep that dim and give [3, 4] where the layer
+    declared [4])."""
+    x = f32(3, 1, 4)
+    attrs = {"axes": [0, 1]}
+    with pytest.raises(ValueError):
+        jreg.lookup_op("squeeze").lower(
+            jreg.LowerCtx(rng_key=jax.random.PRNGKey(0)),
+            {"X": [jnp.asarray(x)]}, attrs)
+    with pytest.raises(InvalidArgumentError, match="squeeze"):
+        treg.lookup_op("squeeze").lower(
+            treg.LowerCtx(), {"X": [torch.from_numpy(x)]}, attrs)
+
+
+def test_piecewise_decay_builds_its_tables_once_per_plan():
+    """The boundaries and values go to the device once per plan, through
+    LowerCtx.constant (a torch.tensor from a list waits for the stream on
+    a card, each run): two runs of one op with the plan's memo see the same
+    tensors, and the same value as the JAX lowering."""
+    from paddle_tpu_torch.framework.program import Program
+    block = Program().global_block()
+    attrs = {"boundaries": [10.0, 20.0], "values": [1.0, 0.5, 0.1]}
+    op = block.append_op("piecewise_decay", inputs={"Step": ["step"]},
+                         outputs={"Out": ["lr"]}, attrs=attrs)
+    memo = {}
+    made = []
+    real = torch.tensor
+
+    def counting_tensor(*a, **k):
+        made.append(a)
+        return real(*a, **k)
+
+    outs = []
+    torch.tensor = counting_tensor
+    try:
+        for step in (3.0, 15.0, 25.0):
+            ctx = treg.LowerCtx(op=op, constants=memo)
+            outs.append(float(treg.lookup_op("piecewise_decay").lower(
+                ctx, {"Step": [real([step])]}, attrs)["Out"][0]))
+    finally:
+        torch.tensor = real
+    assert len(made) == 2, made
+    np.testing.assert_array_equal(outs, np.float32([1.0, 0.5, 0.1]))
+
+
+def test_pool_window_wider_than_the_padded_input_raises():
+    """A deliberate difference: the JAX package's reduce_window returns an
+    empty [1, 1, 0, 0] here; the port raises naming the shapes."""
+    x = torch.zeros(1, 1, 2, 2)
+    with pytest.raises(InvalidArgumentError,
+                       match=r"window \[3, 3\] is larger than the padded "
+                             r"input \[2, 2\]"):
+        treg.lookup_op("pool2d").lower(
+            treg.LowerCtx(), {"X": [x]},
+            {"ksize": [3, 3], "strides": [1, 1], "paddings": [0, 0],
+             "pooling_type": "max"})

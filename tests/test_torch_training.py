@@ -244,14 +244,15 @@ def test_state_updated_in_place_and_loss_falls():
     assert not any(t.requires_grad for t in state.values())
 
 
-def _tiny_program(param_attr=None, regularization=None, is_sparse=False):
-    main, start = ptt.Program(), ptt.Program()
-    with ptt.program_guard(main, start):
-        ids = ptt.layers.data(name="ids", shape=[1], dtype="int64")
-        emb = ptt.layers.embedding(ids, size=[10, 4], is_sparse=is_sparse)
-        y = ptt.layers.fc(emb, size=3, param_attr=param_attr)
-        loss = ptt.layers.mean(y)
-        ptt.optimizer.Adam(learning_rate=LR,
+def _tiny_program(param_attr=None, regularization=None, is_sparse=False,
+                  pkg=ptt):
+    main, start = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, start), pkg.unique_name.guard():
+        ids = pkg.layers.data(name="ids", shape=[1], dtype="int64")
+        emb = pkg.layers.embedding(ids, size=[10, 4], is_sparse=is_sparse)
+        y = pkg.layers.fc(emb, size=3, param_attr=param_attr)
+        loss = pkg.layers.mean(y)
+        pkg.optimizer.Adam(learning_rate=LR,
                            regularization=regularization).minimize(loss)
     return main, start, loss
 
@@ -259,11 +260,13 @@ def _tiny_program(param_attr=None, regularization=None, is_sparse=False):
 @pytest.mark.parametrize("case", ["clip", "regularizer", "sparse_embedding",
                                   "remat", "live_out", "dropout"])
 def test_off_slice_options_raise(case):
-    """What the port leaves out raises NotImplementedError naming its
-    ROADMAP.md item instead of running something else. Gradient clipping,
-    regularizers and dropout, once left out, are ported now: those cases
-    build their ops and run (`clip`; L2 decay's `scale` + `sum`; the LM's
-    `dropout` sites)."""
+    """What the port once left out and raised NotImplementedError for now
+    runs. Gradient clipping, regularizers and dropout build their ops and
+    run (`clip`; L2 decay's `scale` + `sum`; the LM's `dropout` sites).
+    A sparse embedding table, a region under remat and a region whose
+    live-out set is narrowed take 2 Adam steps equal to the JAX package's
+    from the same state (losses at 1e-6, every persistable at 1e-6 +
+    1e-6|x|); the sparse table's untouched rows stay as they were."""
     feed = {"ids": np.array([[1], [7]], "int64")}
     if case in ("clip", "regularizer"):
         main, start, loss = _tiny_program(
@@ -287,19 +290,38 @@ def test_off_slice_options_raise(case):
                  ptt.default_main_program().global_block().ops]
         assert types.count("dropout") == 1 + 4 * DIMS["num_layers"]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    progs = []
+    for pkg in (pt, ptt):
         main, start, loss = _tiny_program(
-            is_sparse=case == "sparse_embedding")
+            is_sparse=case == "sparse_embedding", pkg=pkg)
         region = next(op for op in main.global_block().ops
                       if op.type == "vjp_region")
         if case == "remat":
             region.attrs["remat"] = True
         elif case == "live_out":
             region.attrs["live_out"] = []
-        scope = ptt.Scope()
-        exe = ptt.Executor(ptt.CPUPlace())
-        exe.run(start, scope=scope)
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        progs.append((main, start, loss))
+    (jmain, jstart, jloss), (main, start, loss) = progs
+    assert main.to_json() == jmain.to_json()
+    jscope = pt.Scope()
+    jexe = pt.Executor()
+    jexe.run(jstart, scope=jscope)
+    state = {n: np.asarray(jscope.get(n)) for n in jscope.local_var_names()}
+    scope = ptt.load_numpy_params(state, ptt.Scope(), ptt.CPUPlace())
+    exe = ptt.Executor(ptt.CPUPlace())
+    for _ in range(2):
+        jl, = jexe.run(jmain, feed=feed, fetch_list=[jloss], scope=jscope)
+        tl, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        np.testing.assert_allclose(tl, jl, rtol=1e-6)
+    for n in state:
+        np.testing.assert_allclose(as_numpy(scope.get(n)),
+                                   np.asarray(jscope.get(n)), rtol=1e-6,
+                                   atol=1e-6, err_msg=n)
+    if case == "sparse_embedding":
+        table = next(n for n in state if n.startswith("embedding"))
+        untouched = [r for r in range(10) if r not in (1, 7)]
+        np.testing.assert_array_equal(
+            as_numpy(scope.get(table))[untouched], state[table][untouched])
 
 
 def test_variable_arithmetic_matches_jax_programs():
