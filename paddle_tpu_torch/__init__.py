@@ -9,8 +9,9 @@ the caller passes CPUPlace(). This package imports neither jax nor
 paddle_tpu.
 
 Ported so far: the serving path (`ContinuousBatchingEngine` over
-`transformer_lm_decode_tick`, with the fused decode-attention kernel); the
-training step (`transformer_lm` and the encoder-decoder `transformer`,
+`transformer_lm_decode_tick`, with the fused decode-attention kernel, and
+the paged KV engine, weight-quantized and speculative serving and
+`paged_beam_search` over it); the training step (`transformer_lm` and the encoder-decoder `transformer`,
 `optimizer.Adam(...).minimize(loss)` through `append_backward` on
 torch.autograd, with the flash-attention forward and backward kernels,
 dropout, gradient clipping, weight decay and the learning-rate
@@ -36,7 +37,7 @@ from .framework.registry import registered_ops  # noqa: F401
 from .framework.scope import Scope, global_scope, reset_global_scope  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from . import data, io, models, nets, observability, serving  # noqa: F401,E402
-from . import average, transpiler  # noqa: F401,E402
+from . import average, parallel, transpiler  # noqa: F401,E402
 from . import inferencer, trainer  # noqa: F401,E402
 from .data.feeder import DataFeeder  # noqa: F401,E402
 from .inferencer import Inferencer, Predictor  # noqa: F401,E402
@@ -44,7 +45,8 @@ from .io import (load_inference_model, load_numpy_params,  # noqa: F401,E402
                  load_params, load_persistables, load_vars,
                  save_inference_model, save_params, save_persistables,
                  save_vars)
-from .serving import ContinuousBatchingEngine  # noqa: F401,E402
+from .serving import (ContinuousBatchingEngine,  # noqa: F401,E402
+                      PagedKVEngine, SpecConfig, paged_beam_search)
 from .trainer import (BeginEpochEvent, BeginStepEvent,  # noqa: F401,E402
                       CheckpointConfig, EndEpochEvent, EndStepEvent,
                       Trainer, load_checkpoint, save_checkpoint)

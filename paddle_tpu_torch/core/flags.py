@@ -110,3 +110,16 @@ define_int("sparse_dense_apply_max_bytes", 1 << 30,
            "merged-rows path (sort, merge, and an in-place index_copy_ of "
            "the distinct rows). Both give the same lazy semantics. Set 0 to "
            "take the merged-rows path at any size.")
+define_bool("quant_params", True,
+            "Allow weight-only quantized serving when an engine requests it "
+            "(quant='int8'/'int4'): quantize_params_pass rewrites a serving "
+            "program's persistable f32 weights into block-scaled (payload, "
+            "scales) pairs consumed by qmatmul/qlookup (framework/passes.py, "
+            "parallel/collective.py quantize_blocks_2d). Kill switch: "
+            "PTPU_QUANT_PARAMS=0 serves full f32 weights — the escape hatch "
+            "if quantization ever hurts decode quality in production.")
+define_bool("kv_sanitize", False,
+            "Shadow-state KV sanitizer of the paged KV pager "
+            "(≙ paddle_tpu's serving/sanitizer.py). Not ported yet: a "
+            "KVPager built while it is on raises NotImplementedError "
+            "naming ROADMAP.md §1 item 2, instead of running unchecked.")

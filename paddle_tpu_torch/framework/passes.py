@@ -1,10 +1,12 @@
-"""Program pass framework: Pass base, registry, and the two fusion passes.
+"""Program pass framework: Pass base, registry, the two fusion passes and
+the weight-only quantization pass.
 
 ≙ paddle_tpu/framework/passes.py (itself ≙ the reference's framework/ir
 ir::Pass + PassRegistry), trimmed to what the ported slices run: the
 executor applies `fuse_recurrent_cell_pass` and
 `fuse_decode_attention_pass` to one clone of every program it plans
-(`apply_fusion_passes`).
+(`apply_fusion_passes`); the serving engines apply
+`quantize_params_pass` to their tick programs (`quant=`).
 """
 
 from __future__ import annotations
@@ -107,7 +109,8 @@ def _visited_blocks(program: Program):
 class FuseDecodeAttentionPass(Pass):
     """Fuse the cached-decode attention chain
     matmul(q, K^T, alpha) -> elementwise_add(bias) -> softmax -> matmul(V)
-    (a SINGLE-position query over a KV cache, the `_attend_cached` idiom)
+    (a single-position query over a KV cache, the `_attend_cached` idiom,
+    or a verify window of 1 < G < T positions, `_attend_cached_multi`)
     into one `fused_decode_attention` op. attrs: protected=[var names that
     must survive — fetch targets]. Blocks containing a vjp_region (or a
     pp_pipeline_region) are skipped: those regions' fwd_ops/stages segments
@@ -196,8 +199,8 @@ class FuseDecodeAttentionPass(Pass):
         # broadcast on K/V — that pattern reads better through a batched
         # matmul). Width 1 is the plain decode tick; 1 < G < T is a
         # speculative verify window (γ+1 positions scored against the
-        # cache in one forward; its fused op raises until the speculative
-        # slice ports it). Full-sequence chains (Tq == Tk) are NOT
+        # cache in one forward, the same kernel's G-row route).
+        # Full-sequence chains (Tq == Tk) are NOT
         # decode steps and stay unfused. Rank 3 ([B, 1, H] state over
         # [B, T, H] encoder outputs — the GRU-attention NMT idiom) fuses
         # too: the batch rows simply ride the fused kernel's head axis.
@@ -267,6 +270,150 @@ class FuseDecodeAttentionPass(Pass):
             new_ops.append(op)
         block.ops = new_ops
         return len(matches)
+
+
+@register_pass("quantize_params_pass")
+class QuantizeParamsPass(Pass):
+    """Weight-only serving quantization (≙ the JAX package's pass of the
+    same name): rewrite a serving program's persistable f32 weights into
+    block-scaled (payload, scales) pairs and their consumer ops into the
+    quantized ops — `mul` -> `qmatmul`, `lookup_table` -> `qlookup`
+    (ops/nn_ops.py, ops/tensor_ops.py). attrs: bits (8 or 4), block (tile
+    edge, parallel/collective.py QUANT_BLOCK_2D).
+
+    Contract: MUTATES `program` and `scope` in place — the f32 weight is
+    dropped from the scope and its var from the block (its memory is the
+    freed headroom), replaced by `<w>@qparam` (int8; nibble-packed columns
+    at bits=4) and `<w>@qscale` (f32 tile grid), quantized where the
+    weight lies. The name suffixes are the census contract
+    (framework/costs.py `state_category`). A weight is quantized only when
+    NO op writes it and EVERY consumer reads it through a rewritable slot
+    (mul.Y with y_num_col_dims=1 / lookup_table.W). A twin program (the
+    speculative verify forward, sharing weights by name with a program
+    quantized before it) finds the f32 weight gone and the pair present,
+    and reads the same resident payloads. The rewrite is 1:1 in the op
+    list, so op indices stay valid, and the rewritten program's JSON is
+    the JAX package's."""
+
+    allowed_attrs = ("bits", "block")
+
+    def apply(self, program, scope=None):
+        from ..core.dtypes import dtype_name
+        from ..parallel.collective import (QUANT_BLOCK_2D,
+                                           quantize_blocks_2d)
+        from .program import Operator
+        from .scope import global_scope
+
+        scope = scope or global_scope()
+        bits = int(self.attrs.get("bits", 8))
+        tile = int(self.attrs.get("block", QUANT_BLOCK_2D))
+        if bits not in (8, 4):
+            raise InvalidArgumentError(
+                f"quantize_params_pass supports bits in (8, 4), got {bits}")
+
+        written, consumers = set(), {}
+        for blk in program.blocks:
+            for op in blk.ops:
+                written.update(op.output_names())
+                for name in op.input_names():
+                    consumers.setdefault(name, []).append(op)
+
+        def weight_slot(op):
+            if op.type == "mul" and op.attrs.get("y_num_col_dims", 1) == 1:
+                return "Y"
+            if op.type == "lookup_table":
+                return "W"
+            return None
+
+        def rewritable(name):
+            ops = consumers.get(name, [])
+            return bool(ops) and all(
+                weight_slot(op) is not None
+                and op.inputs.get(weight_slot(op)) == [name]
+                and not any(name in vs for s, vs in op.inputs.items()
+                            if s != weight_slot(op))
+                for op in ops)
+
+        chosen = {}
+        for blk in program.blocks:
+            for name, var in blk.vars.items():
+                if (not var.persistable or name in written
+                        or var.shape is None or len(var.shape) != 2
+                        or -1 in var.shape
+                        or dtype_name(var.dtype) != "float32"):
+                    continue
+                reuse = not scope.has_var(name)
+                if reuse and not (scope.has_var(name + "@qparam")
+                                  and scope.has_var(name + "@qscale")):
+                    continue
+                if bits == 4 and var.shape[1] % 2:
+                    continue     # nibble packing needs even columns
+                if rewritable(name):
+                    chosen[name] = (blk, reuse)
+        if not chosen:
+            return program
+
+        for name, (blk, reuse) in chosen.items():
+            qname, sname = name + "@qparam", name + "@qscale"
+            if reuse:
+                var = blk.vars[name]
+                q, s = scope.get(qname), scope.get(sname)
+                want_cols = var.shape[1] // 2 if bits == 4 else var.shape[1]
+                if tuple(q.shape) != (var.shape[0], want_cols):
+                    raise InvalidArgumentError(
+                        f"existing quantized payload {qname} has shape "
+                        f"{tuple(q.shape)}, incompatible with {name} "
+                        f"{tuple(var.shape)} at bits={bits} — the twin "
+                        f"program must be quantized at the same bits as "
+                        f"the scope's resident payloads")
+            else:
+                q, s = quantize_blocks_2d(scope.get(name), bits=bits,
+                                          block=tile)
+            blk.create_var(name=qname, shape=tuple(q.shape), dtype="int8",
+                           persistable=True, stop_gradient=True)
+            blk.create_var(name=sname, shape=tuple(s.shape),
+                           dtype="float32", persistable=True,
+                           stop_gradient=True)
+            if not reuse:
+                scope.set_var(qname, q)
+                scope.set_var(sname, s)
+                scope.erase(name)
+            blk.vars.pop(name, None)
+
+        for blk in program.blocks:
+            for i, op in enumerate(blk.ops):
+                if op.type == "mul" and op.inputs["Y"][0] in chosen:
+                    wname = op.inputs["Y"][0]
+                    attrs = {"bits": bits, "x_num_col_dims":
+                             op.attrs.get("x_num_col_dims", 1)}
+                    if op.attrs.get("use_bf16", False):
+                        attrs["use_bf16"] = True
+                    new = Operator(
+                        blk, "qmatmul",
+                        inputs={"X": op.inputs["X"],
+                                "QW": [wname + "@qparam"],
+                                "Scales": [wname + "@qscale"]},
+                        outputs={"Out": op.outputs["Out"]}, attrs=attrs)
+                elif op.type == "lookup_table" and \
+                        op.inputs["W"][0] in chosen:
+                    wname = op.inputs["W"][0]
+                    attrs = {"bits": bits}
+                    if op.attrs.get("padding_idx") is not None:
+                        attrs["padding_idx"] = op.attrs["padding_idx"]
+                    new = Operator(
+                        blk, "qlookup",
+                        inputs={"Ids": op.inputs["Ids"],
+                                "QW": [wname + "@qparam"],
+                                "Scales": [wname + "@qscale"]},
+                        outputs={"Out": op.outputs["Out"]}, attrs=attrs)
+                else:
+                    continue
+                blk.ops[i] = new
+                out = new.outputs["Out"][0]
+                if out in blk.vars:
+                    blk.vars[out].op = new
+        program._bump()
+        return program
 
 
 def _decode_chains(program: Program) -> int:

@@ -16,6 +16,10 @@ flash_bwd_dq and flash_bwd_dkv; recurrent.cu holds lstm_seq and gru_seq).
 of flash_fwd, flash_bwd_dq and flash_bwd_dkv that took the bfloat16
 tensor-core route, and `flash_*_wide` those that took the wide-head route
 (head dims above 256); each such launch counts under both names.
+`decode_attention_multi` and `decode_attention_int8` count the launches of
+decode_attention with a query window of more than one position (the
+speculative verify forward) and over an int8 cache, each also counted under
+`decode_attention`.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ KERNEL_SOURCES = {"decode_attention": "decode_attention.cu",
 
 #: kernel name -> launches made by its wrapper
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
-    "decode_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+    "decode_attention", "decode_attention_multi", "decode_attention_int8",
+    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
     "flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc", "flash_fwd_wide",
     "flash_bwd_dq_wide", "flash_bwd_dkv_wide", "lstm_seq", "gru_seq")}
 

@@ -18,7 +18,8 @@ from .nn import (accuracy, batch_norm, cache_write, clip,  # noqa: F401
                  elementwise_max, elementwise_min, elementwise_mul,
                  elementwise_pow, elementwise_sub, embedding, fc,
                  fused_attention, gather, layer_norm, log_softmax, matmul,
-                 mean, one_hot, pool2d, pool3d, reduce_max, reduce_mean,
+                 mean, one_hot, paged_cache_write, paged_cache_write_quant,
+                 pool2d, pool3d, reduce_max, reduce_mean,
                  reduce_min, reduce_prod, reduce_sum, reshape,
                  sigmoid_cross_entropy_with_logits, slice, softmax,
                  softmax_with_cross_entropy, squeeze, topk, transpose,

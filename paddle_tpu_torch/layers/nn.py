@@ -534,6 +534,52 @@ def cache_write(cache, new, pos, axis, batch_axis=None, out=None, name=None):
     return out
 
 
+def paged_cache_write(pool, new, block_ids, offsets, out=None, name=None):
+    """Scatter one new KV row per tick slot into the paged block pool —
+    the block-granular counterpart of `cache_write` (serving/kv_pager.py).
+    `pool` is [n_blocks, nh, block_size, dh]; `new` is [S, nh, dh];
+    `block_ids`/`offsets` give each slot's physical target
+    (pool[block_ids[s], :, offsets[s], :]). Pass the pool variable as
+    `out` and the write lands in the persistable pool tensor in place, as
+    `cache_write(out=...)` does."""
+    helper = LayerHelper("paged_cache_write", name=name)
+    if out is None:
+        out = helper.create_tmp_variable(dtype=dtype_name(pool.dtype),
+                                         shape=pool.shape,
+                                         stop_gradient=True)
+    helper.append_op(type="paged_cache_write",
+                     inputs={"Cache": [pool], "New": [new],
+                             "BlockIds": [block_ids],
+                             "Offsets": [offsets]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def paged_cache_write_quant(pool, scales, new, block_ids, offsets,
+                            out=None, scales_out=None, name=None):
+    """int8 paged KV write: quantize each f32 row of `new` over its dh
+    vector (symmetric amax/127) and scatter payload + per-row scale into
+    `pool` (int8, [n_blocks, nh, block_size, dh]) and `scales` (f32,
+    [n_blocks, nh, block_size, 1]). Returns (pool_out, scales_out); pass
+    the pool variables themselves as `out`/`scales_out` to update both in
+    place, as `paged_cache_write` does."""
+    helper = LayerHelper("paged_cache_write_quant", name=name)
+    if out is None:
+        out = helper.create_tmp_variable(dtype=dtype_name(pool.dtype),
+                                         shape=pool.shape,
+                                         stop_gradient=True)
+    if scales_out is None:
+        scales_out = helper.create_tmp_variable(
+            dtype=dtype_name(scales.dtype), shape=scales.shape,
+            stop_gradient=True)
+    helper.append_op(type="paged_cache_write_quant",
+                     inputs={"Cache": [pool], "Scales": [scales],
+                             "New": [new], "BlockIds": [block_ids],
+                             "Offsets": [offsets]},
+                     outputs={"Out": [out], "ScalesOut": [scales_out]})
+    return out, scales_out
+
+
 def log_softmax(x, axis=-1, name=None):
     """≙ log_softmax op (numerically stable log(softmax(x)))."""
     helper = LayerHelper("log_softmax", name=name)

@@ -4,8 +4,9 @@ NMT), the decoder-only LM's training step and its serving decode tick.
 ≙ paddle_tpu/models/transformer.py, trimmed to `transformer` (with
 `encoder_layer`, `decoder_layer` and the decomposed label smoothing),
 `transformer_lm` (the train graph, padded and packed),
-`transformer_lm_decode_tick` (what the continuous-batching engine builds)
-and their helpers. Parameter names and build order are the JAX package's,
+`transformer_lm_decode_tick` (what the continuous-batching engine builds),
+the speculative verify tick, the paged decode and verify ticks (what the
+paged KV engine builds) and their helpers. Parameter names and build order are the JAX package's,
 so weights carry across by name (io.load_numpy_params).
 
 Every dropout site is the JAX package's: the attention weights (training
@@ -473,3 +474,440 @@ def transformer_lm_decode_tick(n_slots, vocab=32000, max_len=64,
         return next_ids, cache_names, layers.log_softmax(logits)
     return next_ids, cache_names
 
+
+def _attend_cached_multi(q, k5, v5, bias, G, num_heads, d_head, dropout=0.0):
+    """`_attend_cached` widened to a G-position query window: q [S,G,H]
+    becomes q5 [S,1,nh,G,dh], so the G verify positions ride the query-row
+    axis of the SAME matmul→add→softmax→matmul chain —
+    fuse_decode_attention_pass matches it for 1 <= G < T and the fused
+    kernel (K4's G-row route) reads the cache ONCE for all G positions:
+    one cache pass scores γ+1 draft tokens. Returns [S, G, H]."""
+    H = num_heads * d_head
+    q5 = layers.unsqueeze(
+        layers.transpose(
+            layers.reshape(q, shape=[0, G, num_heads, d_head]),
+            perm=[0, 2, 1, 3]),
+        axes=[1])                                     # [S,1,nh,G,dh]
+    scores = layers.matmul(q5, k5, transpose_y=True,
+                           alpha=float(d_head) ** -0.5)
+    weights = layers.softmax(layers.elementwise_add(scores, bias))
+    ctx5 = layers.matmul(weights, v5)                 # [S,1,nh,G,dh]
+    ctx = layers.reshape(
+        layers.transpose(ctx5, perm=[0, 1, 3, 2, 4]), shape=[0, G, H])
+    if dropout:
+        ctx = layers.scale(ctx, scale=1.0 - dropout)
+    return ctx
+
+
+def _spec_window_positions(pos, G):
+    """Absolute positions of a verify window: base `pos` [S,1,1] + offsets
+    0..G-1 → [S,G,1] (position of each fed token / written cache row)."""
+    offs = np.arange(G, dtype="float32").reshape(1, G, 1)
+    return layers.elementwise_add(pos, layers.assign(offs))
+
+
+def _spec_mask_bias(posg, arange):
+    """Causal bias for the verify window: query row g (absolute position
+    posg[s,g]) attends cache positions t <= posg[s,g] — which includes
+    every window row written earlier in the same forward, so the verify
+    scores are EXACTLY the scores the plain tick would produce feeding the
+    same tokens one at a time. [S,G,1] → [S,1,1,G,T]."""
+    valid = layers.cast(
+        layers.less_than(layers.assign(arange), _next_pos(posg)), "float32")
+    return _mask_to_bias(valid, axes=[1, 2])
+
+
+def _spec_window_write(cache, new, pos, G, num_heads, d_head):
+    """Write a G-row window [S,G,H] into a slot cache [S,1,nh,T,dh] at each
+    slot's base position: one `cache_write(batch_axis=0)` whose New spans G
+    rows on the T axis. Callers gate rounds on pos+G <= T (the port's
+    cache_write raises on an overhanging window; the JAX package's clamps
+    it)."""
+    row = layers.unsqueeze(
+        layers.transpose(
+            layers.reshape(new, shape=[0, G, num_heads, d_head]),
+            perm=[0, 2, 1, 3]),
+        axes=[1])                                     # [S,1,nh,G,dh]
+    return layers.cache_write(cache, row, pos, axis=3, batch_axis=0,
+                              out=cache)
+
+
+def transformer_lm_spec_verify_tick(n_slots, gamma, vocab=32000, max_len=64,
+                                    d_model=512, d_inner=2048, num_heads=8,
+                                    num_layers=6, dropout=0.0, packed=False,
+                                    cache_prefix="srv", param_prefix=""):
+    """ONE speculative VERIFY forward over the slot-indexed KV cache: score
+    G = γ+1 positions per slot — the slot's committed next token followed
+    by the draft model's γ proposals (or teacher-forced prompt tokens
+    mid-prefill) — through the same fused decode-attention path as
+    `transformer_lm_decode_tick`, writing all G KV rows into the SAME
+    per-slot caches (shared by `cache_prefix` name with the plain tick's
+    program in one scope). The serving engine commits the accepted prefix
+    by advancing `fed` and leaves the rejected tail rows stale — masked by
+    every later forward's position bias until overwritten, exactly the
+    slot-reuse garbage contract the plain tick already lives with.
+
+    Inputs (fed per round): `spec_tok` [S,G] int64, `spec_pos` [S,1,1]
+    float32 (base position; rows land at pos..pos+γ — the engine gates
+    participation on pos+G <= max_len).
+
+    Returns (ids [S,G] int64, logp [S,G,V], cache_names): per-position
+    argmax (greedy acceptance + bonus token) and full log-probs (rejection
+    sampling against the draft's distribution)."""
+    S, T, H, G = n_slots, max_len, d_model, gamma + 1
+    d_head = d_model // num_heads
+    tok = layers.data(name="spec_tok", shape=[S, G], dtype="int64",
+                      append_batch_size=False)
+    pos = layers.data(name="spec_pos", shape=[S, 1, 1], dtype="float32",
+                      append_batch_size=False)
+    attn_dropout = 0.0 if packed else dropout
+
+    states = {}
+    for i in range(num_layers):
+        for s in ("k", "v"):
+            states[f"{s}{i}"] = _slot_cache_var(
+                f"{cache_prefix}_{s}{i}", [S, 1, num_heads, T, d_head])
+
+    pe_table = positional_encoding_table(T, d_model).astype("float32")
+    arange = np.arange(T, dtype="float32").reshape(1, 1, T)
+    posg = _spec_window_positions(pos, G)             # [S,G,1]
+    x = _gen_embed_step(tok, posg, f"{param_prefix}tok_emb", vocab, d_model,
+                        pe_table, dropout)
+    bias = _spec_mask_bias(posg, arange)              # [S,1,1,G,T]
+    for i in range(num_layers):
+        prefix = f"{param_prefix}l{i}_attn"
+        q = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                      use_bf16=True, name=f"{prefix}_q")
+        kn = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                       use_bf16=True, name=f"{prefix}_k")
+        vn = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                       use_bf16=True, name=f"{prefix}_v")
+        kc = _spec_window_write(states[f"k{i}"], kn, pos, G, num_heads,
+                                d_head)
+        vc = _spec_window_write(states[f"v{i}"], vn, pos, G, num_heads,
+                                d_head)
+        ctx = _attend_cached_multi(q, kc, vc, bias, G, num_heads, d_head,
+                                   attn_dropout)
+        attn = layers.fc(ctx, size=H, num_flatten_dims=2, bias_attr=False,
+                         use_bf16=True, name=f"{prefix}_o")
+        x = _add_norm(attn, x, dropout, True, name=f"{param_prefix}l{i}_ln1")
+        f = ffn(x, d_model, d_inner, dropout, True,
+                name=f"{param_prefix}l{i}_ffn")
+        x = _add_norm(f, x, dropout, True, name=f"{param_prefix}l{i}_ln2")
+    logits = layers.fc(x, size=vocab, num_flatten_dims=2, use_bf16=True,
+                       name=f"{param_prefix}lm_head")
+    ids = layers.argmax(logits, axis=2)               # [S,G] int64
+    logp = layers.log_softmax(logits)                 # [S,G,V]
+    cache_names = [v.name for v in states.values()]
+    return ids, logp, cache_names
+
+
+def transformer_lm_paged_decode_tick(n_slots, n_blocks, block_size,
+                                     blocks_per_req, vocab=32000,
+                                     d_model=512, d_inner=2048, num_heads=8,
+                                     num_layers=6, dropout=0.0, packed=False,
+                                     cache_prefix="pgd", topk_k=0,
+                                     kv_quant=False):
+    """ONE decode tick over a PAGED KV cache — the block-table read/write
+    variant of `transformer_lm_decode_tick` (serving/kv_pager.py).
+
+    The slot tick owns a full [S,1,nh,max_len,dh] row per slot; here the
+    KV state is one device-resident POOL per layer per k/v —
+    [n_blocks, nh, block_size, dh] persistable variables — and each slot
+    sees the cache through its BLOCK TABLE (`tick_btab` [S, NLB] int64,
+    NLB = blocks_per_req): logical block j of slot s lives in physical
+    block tick_btab[s, j]. The read path is gather(pool, btab) →
+    transpose → reshape, reconstructing the exact [S,1,nh,T,dh] view the
+    slot tick attends over (T = NLB*block_size), so the downstream
+    q·K/softmax/·V chain is IDENTICAL and fuse_decode_attention_pass
+    matches it unchanged. The write path is `paged_cache_write`: slot
+    s's new k/v row lands at pool[tick_wblock[s], :, tick_woff[s], :] —
+    block-granular, one in-place index_put_.
+
+    Physical block 0 is the pool's reserved NULL block: idle slots are
+    steered to write there (tok/pos zeroed, btab all-zero) so one
+    fixed-shape compiled tick serves any live/idle mix; a live block
+    table never maps block 0, and the positional mask hides every view
+    position beyond a slot's own `tick_pos`, so null-block garbage is
+    never attended. Prefix sharing needs no graph support at all: a
+    shared prefix simply means two rows of `tick_btab` carry the SAME
+    physical block id — the gather reads the same bytes twice.
+
+    Weights are shared BY NAME with transformer_lm (tok_emb, l{i}_attn_*,
+    l{i}_ln*, l{i}_ffn_*, lm_head) — same contract as the slot tick;
+    pass the SAME dropout/packed the train graph used.
+
+    Inputs (fed per tick): `tick_tok` [S,1] int64, `tick_pos` [S,1,1]
+    float32 (the LOGICAL position being written), `tick_btab` [S,NLB]
+    int64, `tick_wblock` [S] int64, `tick_woff` [S] int64.
+
+    Returns (next_ids [S,1] int64, cache_names); with topk_k > 0 also
+    the per-slot top-k of the tick's log-probs — (topk_logp [S,1,k],
+    topk_ids [S,1,k]) — the host-side scoring surface `paged_beam_search`
+    ranks hypotheses with.
+
+    kv_quant=True stores the pools as int8 payloads plus per-row f32
+    scale pools ([NB, nh, BS, 1], names `{cache_prefix}_{k,v}{i}_sc`):
+    writes quantize on the way in (`paged_cache_write_quant`, symmetric
+    amax/127 over each dh row) and the read gathers payload+scales and
+    dequantizes with one cast+multiply into the float32 view the fused
+    decode attention reads — so the resident pool bytes drop ~4x and the
+    pager hands the freed bytes back as extra admitted blocks."""
+    S, NB, BS, NLB = n_slots, n_blocks, block_size, blocks_per_req
+    T = NLB * BS                      # the per-request logical span
+    d_head = d_model // num_heads
+    tok = layers.data(name="tick_tok", shape=[S, 1], dtype="int64",
+                      append_batch_size=False)
+    pos = layers.data(name="tick_pos", shape=[S, 1, 1], dtype="float32",
+                      append_batch_size=False)
+    btab = layers.data(name="tick_btab", shape=[S, NLB], dtype="int64",
+                       append_batch_size=False)
+    wblock = layers.data(name="tick_wblock", shape=[S], dtype="int64",
+                         append_batch_size=False)
+    woff = layers.data(name="tick_woff", shape=[S], dtype="int64",
+                       append_batch_size=False)
+    attn_dropout = 0.0 if packed else dropout
+
+    pools, scale_pools = _paged_pool_vars(cache_prefix, NB, num_heads, BS,
+                                          d_head, num_layers, kv_quant)
+
+    pe_table = positional_encoding_table(T, d_model).astype("float32")
+    arange = np.arange(T, dtype="float32").reshape(1, 1, T)
+    x = _gen_embed_step(tok, pos, "tok_emb", vocab, d_model, pe_table,
+                        dropout)
+    bias = _step_mask_bias(pos, arange)       # per-slot: pos broadcasts
+    H = d_model
+    for i in range(num_layers):
+        q = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                      use_bf16=True, name=f"l{i}_attn_q")
+        kn = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                       use_bf16=True, name=f"l{i}_attn_k")
+        vn = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                       use_bf16=True, name=f"l{i}_attn_v")
+        views = []
+        for sname, new in (("k", kn), ("v", vn)):
+            # write this tick's row into each slot's current block (the
+            # pool var is updated in place, as the slot tick's caches
+            # are), THEN read the table view from the written pool
+            # so the new row is attendable within the same tick
+            new3 = layers.reshape(new, shape=[0, num_heads, d_head])
+            views.append(_paged_pool_view(
+                pools, scale_pools, f"{sname}{i}", new3, wblock, woff,
+                btab, num_heads, T, d_head))
+        ctx = _attend_cached(q, views[0], views[1], bias, 1, num_heads,
+                             d_head, attn_dropout)
+        attn = layers.fc(ctx, size=H, num_flatten_dims=2, bias_attr=False,
+                         use_bf16=True, name=f"l{i}_attn_o")
+        x = _add_norm(attn, x, dropout, True, name=f"l{i}_ln1")
+        f = ffn(x, d_model, d_inner, dropout, True, name=f"l{i}_ffn")
+        x = _add_norm(f, x, dropout, True, name=f"l{i}_ln2")
+    logits = layers.fc(x, size=vocab, num_flatten_dims=2, use_bf16=True,
+                       name="lm_head")
+    next_ids = layers.argmax(logits, axis=2)            # [S,1] int64
+    cache_names = ([v.name for v in pools.values()]
+                   + [v.name for v in scale_pools.values()])
+    if topk_k:
+        logp = layers.log_softmax(logits)
+        topk_vals, topk_ids = layers.topk(logp, k=topk_k)
+        return next_ids, cache_names, topk_vals, topk_ids
+    return next_ids, cache_names
+
+
+def _paged_pool_vars(cache_prefix, n_blocks, num_heads, block_size, d_head,
+                     num_layers, kv_quant):
+    """Per-layer k/v pool variables for the paged ticks. kv_quant=False:
+    f32 pools, empty scale dict. kv_quant=True: int8 payload pools plus
+    f32 per-row scale pools (`{cache_prefix}_{s}{i}_sc`)."""
+    pools, scale_pools = {}, {}
+    for i in range(num_layers):
+        for s in ("k", "v"):
+            pools[f"{s}{i}"] = _slot_cache_var(
+                f"{cache_prefix}_{s}{i}",
+                [n_blocks, num_heads, block_size, d_head],
+                dtype="int8" if kv_quant else "float32")
+            if kv_quant:
+                scale_pools[f"{s}{i}"] = _slot_cache_var(
+                    f"{cache_prefix}_{s}{i}_sc",
+                    [n_blocks, num_heads, block_size, 1])
+    return pools, scale_pools
+
+
+def _paged_pool_view(pools, scale_pools, key, new3, wblock, woff, btab,
+                     num_heads, T, d_head):
+    """Write `new3` rows into pool `key` then reconstruct the slot-tick
+    cache view [S,1,nh,T,dh] through the block table — dequantizing
+    against the gathered scale view when the pool is int8 (scale_pools
+    non-empty). Shared by the paged decode tick (one row per slot) and
+    the paged verify tick (G rows per slot: wblock/woff [S,G], new3
+    [S*G,nh,dh] — `paged_cache_write` flattens the targets)."""
+    pool = pools[key]
+    if scale_pools:
+        spool = scale_pools[key]
+        written, wscales = layers.paged_cache_write_quant(
+            pool, spool, new3, wblock, woff, out=pool, scales_out=spool)
+        g = layers.cast(layers.gather(written, btab), "float32")
+        gs = layers.gather(wscales, btab)        # [S,NLB,nh,BS,1]
+        g = layers.elementwise_mul(g, gs)        # [S,NLB,nh,BS,dh] f32
+    else:
+        written = layers.paged_cache_write(pool, new3, wblock, woff,
+                                           out=pool)
+        g = layers.gather(written, btab)         # [S,NLB,nh,BS,dh]
+    g = layers.transpose(g, perm=[0, 2, 1, 3, 4])
+    g = layers.reshape(g, shape=[0, num_heads, T, d_head])
+    return layers.unsqueeze(g, axes=[1])         # [S,1,nh,T,dh]
+
+
+def transformer_lm_paged_spec_verify_tick(n_slots, gamma, n_blocks,
+                                          block_size, blocks_per_req,
+                                          vocab=32000, d_model=512,
+                                          d_inner=2048, num_heads=8,
+                                          num_layers=6, dropout=0.0,
+                                          packed=False, cache_prefix="pgd",
+                                          param_prefix="", kv_quant=False):
+    """ONE speculative VERIFY forward over the PAGED KV pools — the
+    block-table counterpart of `transformer_lm_spec_verify_tick`. Each
+    slot scores G = γ+1 positions in one forward; the G new KV rows
+    scatter into the slot's CURRENT blocks (`spec_wblock`/`spec_woff`
+    [S,G]: per-position physical targets the engine derives from the
+    block table at fed..fed+γ), then the table view is gathered back and
+    attended with the per-position causal bias. Verify positions occupy
+    the slot-tick layout the way beam forks do: rows of rejected
+    positions stay in place, masked, until the pager's rollback detaches
+    their fully-rejected blocks (`KVPager.rollback`) and later writes
+    overwrite the partial boundary block. Idle slots steer every write to
+    the reserved null block 0.
+
+    Inputs (fed per round): `spec_tok` [S,G] int64, `spec_pos` [S,1,1]
+    float32, `spec_btab` [S,NLB] int64, `spec_wblock` [S,G] int64,
+    `spec_woff` [S,G] int64.
+
+    Returns (ids [S,G] int64, logp [S,G,V], cache_names). kv_quant as in
+    `transformer_lm_paged_decode_tick` (shares the SAME int8+scale pool
+    variables by name)."""
+    S, NB, BS, NLB = n_slots, n_blocks, block_size, blocks_per_req
+    G = gamma + 1
+    T = NLB * BS
+    H = d_model
+    d_head = d_model // num_heads
+    tok = layers.data(name="spec_tok", shape=[S, G], dtype="int64",
+                      append_batch_size=False)
+    pos = layers.data(name="spec_pos", shape=[S, 1, 1], dtype="float32",
+                      append_batch_size=False)
+    btab = layers.data(name="spec_btab", shape=[S, NLB], dtype="int64",
+                       append_batch_size=False)
+    wblock = layers.data(name="spec_wblock", shape=[S, G], dtype="int64",
+                         append_batch_size=False)
+    woff = layers.data(name="spec_woff", shape=[S, G], dtype="int64",
+                       append_batch_size=False)
+    attn_dropout = 0.0 if packed else dropout
+
+    pools, scale_pools = _paged_pool_vars(cache_prefix, NB, num_heads, BS,
+                                          d_head, num_layers, kv_quant)
+
+    pe_table = positional_encoding_table(T, d_model).astype("float32")
+    arange = np.arange(T, dtype="float32").reshape(1, 1, T)
+    posg = _spec_window_positions(pos, G)             # [S,G,1]
+    x = _gen_embed_step(tok, posg, f"{param_prefix}tok_emb", vocab, d_model,
+                        pe_table, dropout)
+    bias = _spec_mask_bias(posg, arange)              # [S,1,1,G,T]
+    for i in range(num_layers):
+        prefix = f"{param_prefix}l{i}_attn"
+        q = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                      use_bf16=True, name=f"{prefix}_q")
+        kn = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                       use_bf16=True, name=f"{prefix}_k")
+        vn = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                       use_bf16=True, name=f"{prefix}_v")
+        views = []
+        for sname, new in (("k", kn), ("v", vn)):
+            new3 = layers.reshape(new, shape=[S * G, num_heads, d_head])
+            views.append(_paged_pool_view(
+                pools, scale_pools, f"{sname}{i}", new3, wblock, woff,
+                btab, num_heads, T, d_head))
+        ctx = _attend_cached_multi(q, views[0], views[1], bias, G,
+                                   num_heads, d_head, attn_dropout)
+        attn = layers.fc(ctx, size=H, num_flatten_dims=2, bias_attr=False,
+                         use_bf16=True, name=f"{prefix}_o")
+        x = _add_norm(attn, x, dropout, True, name=f"{param_prefix}l{i}_ln1")
+        f = ffn(x, d_model, d_inner, dropout, True,
+                name=f"{param_prefix}l{i}_ffn")
+        x = _add_norm(f, x, dropout, True, name=f"{param_prefix}l{i}_ln2")
+    logits = layers.fc(x, size=vocab, num_flatten_dims=2, use_bf16=True,
+                       name=f"{param_prefix}lm_head")
+    ids = layers.argmax(logits, axis=2)               # [S,G] int64
+    logp = layers.log_softmax(logits)                 # [S,G,V]
+    cache_names = ([v.name for v in pools.values()]
+                   + [v.name for v in scale_pools.values()])
+    return ids, logp, cache_names
+
+
+def transformer_lm(tokens=None, label=None, vocab=32000, max_len=128,
+                   d_model=512, d_inner=2048, num_heads=8, num_layers=6,
+                   dropout=0.0, is_test=False, packed=False,
+                   mean_loss=False):
+    """Decoder-only causal LM — the flagship config used by
+    __graft_entry__ (simplest shape that exercises dp/tp/sp sharding).
+
+    packed=True: each batch row holds MULTIPLE sequences back to back,
+    described by a `segments` int32 input ([B, max_len]; 0 = padding,
+    1..N = sequence index — see data.packing.pack_sequences). Attention is
+    segment-masked through the flash kernel and the loss counts only
+    non-pad tokens. This is the throughput idiom for ragged corpora: no
+    compute wasted on padding (≙ the reference's LoD batches whose whole
+    point is padding-free ragged training, lod_tensor.h:58)."""
+    if tokens is None:
+        tokens = layers.data(name="tokens", shape=[max_len], dtype="int64",
+                             lod_level=0 if packed else 1)
+    if label is None:
+        label = layers.data(name="targets", shape=[max_len], dtype="int64")
+    segments = positions = None
+    if packed:
+        segments = layers.data(name="segments", shape=[max_len],
+                               dtype="int32")
+        positions = layers.data(name="positions", shape=[max_len],
+                                dtype="int32")
+    else:
+        seqlen = layers.sequence.get_seqlen(tokens)
+    x = _embed(tokens, vocab, d_model, max_len, "tok", positions=positions)
+    if dropout:
+        x = layers.dropout(x, dropout_prob=dropout, is_test=is_test)
+    for i in range(num_layers):
+        attn = multi_head_attention(x, x, x, d_model, num_heads,
+                                    0.0 if packed else dropout,
+                                    is_test, causal=True,
+                                    segment_ids=segments,
+                                    name=f"l{i}_attn")
+        x = _add_norm(attn, x, dropout, is_test, name=f"l{i}_ln1")
+        f = ffn(x, d_model, d_inner, dropout, is_test, name=f"l{i}_ffn")
+        x = _add_norm(f, x, dropout, is_test, name=f"l{i}_ln2")
+    logits = layers.fc(x, size=vocab, num_flatten_dims=2, use_bf16=True,
+                       name="lm_head")
+    label3 = layers.unsqueeze(label, axes=[2])
+    token_loss = layers.softmax_with_cross_entropy(logits, label3)
+    if packed:
+        # a token trains iff it is non-pad AND its successor belongs to
+        # the same segment (the last token of each packed sequence has no
+        # valid next-token target)
+        seg_next = layers.concat([
+            layers.slice(segments, axes=[1], starts=[1], ends=[max_len]),
+            layers.fill_constant_batch_size_like(segments, [-1, 1],
+                                                 "int32", 0)], axis=1)
+        nonpad = layers.greater_than(
+            segments, layers.fill_constant([1], "int32", 0))
+        same = layers.equal(segments, seg_next)
+        mask = layers.elementwise_mul(layers.cast(nonpad, "float32"),
+                                      layers.cast(same, "float32"))
+    else:
+        mask = layers.sequence_mask(seqlen, maxlen=max_len)
+    mask = layers.unsqueeze(mask, axes=[2])
+    masked = layers.elementwise_mul(token_loss, mask)
+    if mean_loss:
+        # mean over ALL positions instead of the mask-weighted sum/sum
+        # quotient — identical for full-length sequences, and the MEAN
+        # reduction form the explicit dp gradient pipeline requires
+        # (grad_comm averages per-shard gradients; that equals the global
+        # gradient only for a batch-mean loss — docs/data_parallel.md)
+        loss = layers.mean(masked)
+    else:
+        loss = layers.reduce_sum(masked) / layers.reduce_sum(mask)
+    return loss, logits

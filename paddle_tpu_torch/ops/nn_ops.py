@@ -81,6 +81,25 @@ def _mul(ctx, ins, attrs):
     return {"Out": [out.reshape(xs[:xd] + ys[yd:])]}
 
 
+@register_op("qmatmul")
+def _qmatmul(ctx, ins, attrs):
+    """Weight-only quantized fc matmul (quantize_params_pass rewrite of
+    `mul`, ≙ nn_ops.py:68): dequantizes the block-scaled int8/int4 payload
+    to float32, then follows the `mul` path exactly (same bf16 policy,
+    same accumulation), so quantized decode differs from float32 only by
+    the quantization error. The product stays torch.matmul, as the JAX
+    package leaves it to XLA; the dequantized weight is a temporary here
+    (a weight-only GEMM that reads the payload is ROADMAP.md §2's
+    follow-up)."""
+    from ..parallel.collective import dequantize_blocks_2d
+    x, qw, scales = ins["X"][0], ins["QW"][0], ins["Scales"][0]
+    y = dequantize_blocks_2d(qw, scales, bits=attrs.get("bits", 8))
+    xd = attrs.get("x_num_col_dims", 1)
+    xs = tuple(x.shape)
+    out = _matmul(x.reshape(_prod(xs[:xd]), -1), y, attrs)
+    return {"Out": [out.reshape(xs[:xd] + tuple(y.shape[1:]))]}
+
+
 @register_op("matmul")
 def _matmul_op(ctx, ins, attrs):
     x, y = ins["X"][0], ins["Y"][0]

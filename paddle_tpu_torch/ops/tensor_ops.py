@@ -180,6 +180,65 @@ def _cache_write(ctx, ins, attrs):
     return {"Out": [out]}
 
 
+def _paged_targets(name, pool, new, ins):
+    """(blocks, offsets) of a paged write as long tensors, after the shape
+    checks both paged writes make."""
+    blocks = ins["BlockIds"][0].reshape(-1).to(torch.long)
+    offs = ins["Offsets"][0].reshape(-1).to(torch.long)
+    if new.dim() != pool.dim() - 1:
+        raise ValueError(
+            f"{name}: New must drop exactly the pool's block-size axis "
+            f"(pool {tuple(pool.shape)}, New {tuple(new.shape)})")
+    if blocks.shape != offs.shape:
+        raise ValueError(
+            f"{name}: BlockIds {tuple(blocks.shape)} and Offsets "
+            f"{tuple(offs.shape)} must agree")
+    return blocks, offs
+
+
+@register_op("paged_cache_write")
+def _paged_cache_write(ctx, ins, attrs):
+    """Block-granular KV write for the paged cache (≙ tensor_ops.py:216):
+    one new token row per slot into a block POOL [n_blocks, nh,
+    block_size, dh] instead of a per-slot cache row. `New` is [S, nh, dh]
+    (or [S*G, nh, dh] for a verify window), `BlockIds`/`Offsets` are [S]
+    (or [S, G]) — row i lands at pool[BlockIds[i], :, Offsets[i], :].
+    Idle slots are steered at the reserved null block 0 (never mapped by a
+    live block table), so one fixed-shape tick serves any mix of live and
+    idle slots; duplicate targets are only ever the null block, where any
+    write order will do. When the op's output is its Cache input (the
+    tick's persistable pool) the rows land in the pool tensor in place
+    (index_put_, no host sync); otherwise in a copy."""
+    pool = ins["Cache"][0]
+    new = ins["New"][0].to(pool.dtype)
+    blocks, offs = _paged_targets("paged_cache_write", pool, new, ins)
+    out = pool if ctx.writes_input("Cache", "Out") else pool.clone()
+    out[blocks, :, offs, :] = new
+    return {"Out": [out]}
+
+
+@register_op("paged_cache_write_quant")
+def _paged_cache_write_quant(ctx, ins, attrs):
+    """int8 variant of `paged_cache_write` (≙ tensor_ops.py:245): the pool
+    holds int8 payloads and `Scales` [n_blocks, nh, block_size, 1] one f32
+    scale per row; each incoming row is quantized symmetrically over its
+    dh vector on the way in — amax/127 per (slot, head) row, an all-zero
+    row at scale 1.0 so it dequantizes exactly. In place under the same
+    rule as `paged_cache_write`, for the pool and the scales each."""
+    pool, scales = ins["Cache"][0], ins["Scales"][0]
+    new = ins["New"][0].to(torch.float32)
+    blocks, offs = _paged_targets("paged_cache_write_quant", pool, new, ins)
+    amax = new.abs().amax(dim=-1, keepdim=True)
+    sc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(new / sc), -127, 127).to(torch.int8)
+    out = pool if ctx.writes_input("Cache", "Out") else pool.clone()
+    sout = scales if ctx.writes_input("Scales", "ScalesOut") \
+        else scales.clone()
+    out[blocks, :, offs, :] = q
+    sout[blocks, :, offs, :] = sc
+    return {"Out": [out], "ScalesOut": [sout]}
+
+
 @register_op("one_hot")
 def _one_hot(ctx, ins, attrs):
     x = ins["X"][0]
@@ -254,6 +313,37 @@ def _lookup_table(ctx, ins, attrs):
     if padding_idx is not None:
         if padding_idx < 0:  # negative indexes from the end, as in reference
             padding_idx += w.shape[0]
+        out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
+    return {"Out": [out]}
+
+
+@register_op("qlookup")
+def _qlookup(ctx, ins, attrs):
+    """Weight-only quantized embedding lookup (quantize_params_pass rewrite
+    of `lookup_table`, ≙ tensor_ops.py:381): gathers int8/int4 payload
+    ROWS plus their row-block scales and dequantizes only the gathered
+    rows — the float32 table is never made. Out-of-range ids take jax's
+    fill rows, as `lookup_table`'s do."""
+    qw, scales, ids = ins["QW"][0], ins["Scales"][0], ins["Ids"][0]
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    idx, filled = index_in_range(ids, qw.shape[0])
+    rows = qw[idx]
+    if attrs.get("bits", 8) == 4:
+        from ..parallel.collective import unpack_int4
+        lead, c2 = tuple(rows.shape[:-1]), rows.shape[-1]
+        rows = unpack_int4(rows.reshape(-1, c2)).reshape(lead + (2 * c2,))
+    nr, nc = scales.shape
+    br = qw.shape[0] // nr
+    bc = rows.shape[-1] // nc
+    s = scales[torch.div(idx, br, rounding_mode="floor")]     # [..., nc]
+    out = (rows.to(torch.float32).reshape(tuple(rows.shape[:-1]) + (nc, bc))
+           * s[..., :, None]).reshape(rows.shape)
+    out = out.masked_fill(filled.unsqueeze(-1), float("nan"))
+    padding_idx = attrs.get("padding_idx", None)
+    if padding_idx is not None:
+        if padding_idx < 0:
+            padding_idx += qw.shape[0]
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     return {"Out": [out]}
 

@@ -1,9 +1,9 @@
 """Continuous-batching serving engine over the fused decode path.
 
-≙ paddle_tpu/serving/engine.py, trimmed to the slot engine: requests of
-different lengths share ONE decode-tick program through a slot-indexed KV
-cache, so a new request joins the in-flight batch the tick a slot frees
-instead of waiting for a static batch to drain.
+≙ paddle_tpu/serving/engine.py: requests of different lengths share ONE
+decode-tick program through a slot-indexed KV cache, so a new request joins
+the in-flight batch the tick a slot frees instead of waiting for a static
+batch to drain.
 
 - `transformer_lm_decode_tick` (models/transformer.py) — one decode tick
   over persistable [S,1,nh,T,dh] slot caches with PER-SLOT positions;
@@ -19,6 +19,19 @@ instead of waiting for a static batch to drain.
   previously sampled token). Dispatch rides `Executor.prepare` +
   `PreparedStep.bind`, so the per-tick host work is the feed fill, one
   small host→device copy per feed and the op plan.
+- `quant="int8"|"int4"` — weight-only quantized serving:
+  `quantize_params_pass` rewrites the tick program's float32 weights into
+  block-scaled payloads before the step is prepared (`qmatmul` /
+  `qlookup`); `quant_freed_bytes` reports what that frees.
+- `speculative=SpecConfig(...)` — speculative decoding
+  (serving/speculative.py): a draft proposes γ tokens, one verify forward
+  over a γ+1 window scores them, the accepted prefix commits.
+
+The hooks `_build_tick_program`, `_init_tick_feeds`, `_fill_tick_feeds`,
+`_admit_request`, `_release_request`, `_note_position_written` and the
+speculative ones (`_build_verify_tick`, `_fill_verify_row`,
+`_spec_capable`, `_spec_rollback`) are what `PagedKVEngine`
+(serving/kv_pager.py) overrides; the scheduler itself is shared.
 
 Scheduling policies:
 
@@ -26,9 +39,8 @@ Scheduling policies:
 - "static": admit only when ALL slots are free (form a batch, run it to
   full completion, drain, repeat) — the padded static-batch baseline.
 
-Not on this slice: `speculative=` and `quant=` (they raise; ROADMAP.md
-port queue item 2), the metrics registry, tracing spans and memory
-watermarks, and the EngineServer/EngineClient transport.
+Not ported yet (ROADMAP.md §1 item 2): the metrics registry, tracing
+spans and memory watermarks, and the EngineServer/EngineClient transport.
 """
 
 from __future__ import annotations
@@ -89,6 +101,7 @@ class GenRequest:
     __slots__ = ("rid", "request_id", "prompt", "max_new", "eos_id",
                  "tokens", "slot", "fed", "next_tok", "submitted_pc",
                  "admitted_pc", "first_token_pc", "done_pc", "on_done",
+                 "table", "shared_len", "spec_draft_s", "spec_verify_s",
                  "_event")
 
     def __init__(self, rid, prompt, max_new, eos_id=None, on_done=None,
@@ -108,6 +121,15 @@ class GenRequest:
         self.first_token_pc: Optional[float] = None
         self.done_pc: Optional[float] = None
         self.on_done = on_done
+        #: paged-KV engine state: the request's BlockTable, and how many
+        #: leading prompt positions were served from the prefix cache
+        #: (prefill starts at `shared_len`). None / 0 on the slot engine.
+        self.table = None
+        self.shared_len = 0
+        #: speculative decoding: wall seconds this request spent in draft
+        #: ticks and in verify forwards (sub-phases of prefill + decode)
+        self.spec_draft_s = 0.0
+        self.spec_verify_s = 0.0
         self._event = threading.Event()
 
     @property
@@ -118,16 +140,25 @@ class GenRequest:
     def latency_s(self) -> Optional[float]:
         return (self.done_pc - self.submitted_pc) if self.done else None
 
-    def phases(self) -> Optional[Dict[str, float]]:
+    def phases(self, subphases: bool = False
+               ) -> Optional[Dict[str, float]]:
         """{queue_wait, prefill, decode} seconds; None before completion.
-        The three phases partition [submitted, done] exactly."""
+        The three phases partition [submitted, done] exactly (the JAX
+        package's fourth, transport, waits for the server). With
+        `subphases=True`, a request served speculatively also reports
+        `spec_draft` and `spec_verify` — sub-phases of the prefill+decode
+        window, not added to the partition."""
         if self.done_pc is None:
             return None
         first = self.first_token_pc if self.first_token_pc is not None \
             else self.done_pc
-        return {"queue_wait": self.admitted_pc - self.submitted_pc,
-                "prefill": first - self.admitted_pc,
-                "decode": self.done_pc - first}
+        ph = {"queue_wait": self.admitted_pc - self.submitted_pc,
+              "prefill": first - self.admitted_pc,
+              "decode": self.done_pc - first}
+        if subphases:
+            ph["spec_draft"] = self.spec_draft_s
+            ph["spec_verify"] = self.spec_verify_s
+        return ph
 
     def wait(self, timeout: Optional[float] = None) -> List[int]:
         if not self._event.wait(timeout):
@@ -149,6 +180,8 @@ class ContinuousBatchingEngine:
     `io.load_numpy_params`, then hand the same scope here); absent
     parameters are initialized by this engine's own startup program, so a
     fresh engine also runs standalone (random weights — tests, benches).
+    With `quant=` the engine's quantize pass erases the float32 weights it
+    quantizes from that scope, as the JAX package's does.
 
     `place` defaults to CUDAPlace(0) and raises when no CUDA card is
     visible; pass CPUPlace() to serve on the CPU.
@@ -171,15 +204,9 @@ class ContinuousBatchingEngine:
         enforce(policy in ("continuous", "static"),
                 f"unknown scheduling policy {policy!r}",
                 exc=InvalidArgumentError)
-        if quant is not None:
-            raise NotImplementedError(
-                "quantized serving (quant=) belongs to the paged/quantized/"
-                "speculative serving slice, ROADMAP.md port queue item 2")
-        if speculative is not None and speculative is not False:
-            raise NotImplementedError(
-                "speculative decoding (speculative=) belongs to the paged/"
-                "quantized/speculative serving slice, ROADMAP.md port "
-                "queue item 2")
+        enforce(quant in (None, "int8", "int4"),
+                f"quant must be None, 'int8' or 'int4', got {quant!r}",
+                exc=InvalidArgumentError)
         if cache_prefix is None:
             # per-engine cache namespace: two engines sharing one scope
             # must not alias each other's slot caches
@@ -188,6 +215,14 @@ class ContinuousBatchingEngine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.eos_id = eos_id
+        #: the model dims + cache namespace, kept for the auxiliary
+        #: program builders (the speculative draft and verify ticks match
+        #: the main tick's architecture and share its cache names)
+        self._cache_prefix = cache_prefix
+        self._builder_dims = dict(
+            vocab=vocab, d_model=d_model, d_inner=d_inner,
+            num_heads=num_heads, num_layers=num_layers, dropout=dropout,
+            packed=packed)
         self._slots = SlotAllocator(n_slots)
         self._active: Dict[int, GenRequest] = {}      # slot -> request
         self._pending: "deque[GenRequest]" = deque()
@@ -197,27 +232,64 @@ class ContinuousBatchingEngine:
         self._program, self._startup = Program(), Program()
         with program_guard(self._program, self._startup), \
                 unique_name.guard():
-            self._next_ids, self.cache_names = _decode_tick_builder(
+            self._build_tick_program(
                 n_slots, vocab, max_len, d_model, d_inner, num_heads,
                 num_layers, dropout, packed, cache_prefix)
         self.scope = scope or global_scope()
         self._exe = Executor(place)
         self._init_missing_vars(Scope)
-        self._feeds = {"tick_tok": np.zeros((n_slots, 1), np.int64),
-                       "tick_pos": np.zeros((n_slots, 1, 1), np.float32)}
+        # speculative decoding (serving/speculative.py): the draft COPIES
+        # the target's f32 weights under the reserved `draft_` prefix, so
+        # it is built BEFORE the target's quantize pass erases them; its
+        # steps bind in `spec.finalize()` after the main step below
+        self.spec = None
+        if speculative is not None and speculative is not False:
+            from .speculative import SpeculativeDecoder
+            self.spec = SpeculativeDecoder(self, speculative)
+            self.spec.build_draft()
+        # weight-only quantized serving: rewrite the tick program's
+        # persistable f32 weights into block-scaled (payload, scales)
+        # pairs BEFORE the step is prepared. Kill switch
+        # PTPU_QUANT_PARAMS=0 serves f32 regardless of `quant`.
+        self.quant = None
+        self.params_bytes_f32 = self._param_bytes()
+        self.params_bytes_quantized = self.params_bytes_f32
+        self.quant_freed_bytes = 0
+        if quant is not None:
+            from ..core import flags as _flags
+            if _flags.get_flag("quant_params"):
+                from ..framework.passes import get_pass
+                get_pass("quantize_params_pass",
+                         bits=8 if quant == "int8" else 4)(
+                    self._program, self.scope)
+                self.quant = quant
+                self.params_bytes_quantized = self._param_bytes()
+                self.quant_freed_bytes = (self.params_bytes_f32
+                                          - self.params_bytes_quantized)
+        self._feeds = self._init_tick_feeds()
         self._tok = self._feeds["tick_tok"]
         self._pos = self._feeds["tick_pos"]
         self._step = self._exe.prepare(
-            self._program, dict(self._feeds), [self._next_ids], self.scope)
+            self._program, dict(self._feeds), self._tick_fetches(),
+            self.scope)
         # the prepared step is BOUND to the engine's in-place-mutated feed
         # arrays: device buffers and argument tuples are built once here,
         # never per tick (PreparedStep.bind)
         self._step.bind(self._feeds)
+        # which bound step last ran over the target caches: "main" (the
+        # plain tick) or "verify" (the speculative verify forward). The
+        # caches are updated in place, so a refresh only re-points a step
+        # at tensors someone replaced in the scope (PreparedStep.
+        # refresh_state); the pure steady states never refresh.
+        self._target_state_owner = "main"
         # census counters
         self.n_ticks = 0
         self.busy_slot_ticks = 0
         self.total_slot_ticks = 0
         self.tokens_out = 0
+        #: TARGET-model forwards run (plain ticks + verify forwards): the
+        #: denominator of tokens per target forward
+        self.target_forwards = 0
         self._started_at = time.time()
         #: wall time of the last executed decode tick (None before the
         #: first) — stats() reports its age as the liveness signal
@@ -225,6 +297,39 @@ class ContinuousBatchingEngine:
         #: wall seconds of the most recent ticks, newest last (bounded) —
         #: tick-latency quantiles for benches and smoke runs
         self.tick_seconds: "deque[float]" = deque(maxlen=65536)
+        if self.spec is not None:
+            # builds + quantizes the verify program (twin of the main
+            # tick — same resident payloads) and binds both spec steps
+            self.spec.finalize()
+
+    # -- tick-program construction (overridden by PagedKVEngine) ----------
+    def _build_tick_program(self, n_slots, vocab, max_len, d_model,
+                            d_inner, num_heads, num_layers, dropout,
+                            packed, cache_prefix):
+        """Build the tick into the current default programs; sets
+        `self._next_ids` (the [S,1] int64 fetch) and `self.cache_names`
+        (the persistable KV state var names)."""
+        self._next_ids, self.cache_names = \
+            _decode_tick_builder(n_slots, vocab, max_len, d_model,
+                                 d_inner, num_heads, num_layers,
+                                 dropout, packed, cache_prefix)
+
+    def _init_tick_feeds(self) -> Dict[str, np.ndarray]:
+        """The per-tick feed arrays, reused across ticks (filled in place
+        by `_fill_tick_feeds` — the decode loop allocates nothing)."""
+        return {"tick_tok": np.zeros((self.n_slots, 1), np.int64),
+                "tick_pos": np.zeros((self.n_slots, 1, 1), np.float32)}
+
+    def _tick_fetches(self):
+        return [self._next_ids]
+
+    def _fill_tick_feeds(self, active: Dict[int, GenRequest]):
+        tok, pos = self._tok, self._pos
+        tok[:] = 0
+        pos[:] = 0.0
+        for slot, req in active.items():
+            tok[slot, 0] = req.next_tok
+            pos[slot, 0, 0] = float(req.fed)
 
     def _kv_cache_bytes(self) -> int:
         total = 0
@@ -232,6 +337,24 @@ class ContinuousBatchingEngine:
             if self.scope.has_var(name):
                 v = self.scope.get(name)
                 total += v.numel() * v.element_size()
+        return total
+
+    def _param_bytes(self) -> int:
+        """Resident bytes of the tick program's weight state (census
+        categories params + params_quantized) — the before/after pair of
+        the weight-only quantization claim."""
+        from ..framework.costs import state_category
+        seen, total = set(), 0
+        for b in self._program.blocks:
+            for name, v in b.vars.items():
+                if name in seen or not v.persistable \
+                        or not self.scope.has_var(name):
+                    continue
+                seen.add(name)
+                if state_category(v, name) in ("params",
+                                               "params_quantized"):
+                    t = self.scope.get(name)
+                    total += t.numel() * t.element_size()
         return total
 
     def _init_missing_vars(self, Scope):
@@ -255,11 +378,7 @@ class ContinuousBatchingEngine:
         thread, keep it cheap)."""
         enforce(len(prompt) >= 1, "prompt must not be empty",
                 exc=InvalidArgumentError)
-        enforce(len(prompt) + int(max_new) <= self.max_len,
-                f"prompt({len(prompt)}) + max_new({max_new}) exceeds the "
-                f"slot engine's per-slot KV row width max_len="
-                f"{self.max_len} (each slot reserves one full-length row)",
-                exc=InvalidArgumentError)
+        self._enforce_request_fits(prompt, max_new)
         with self._lock:
             self._rid += 1
             req = GenRequest(self._rid, prompt, max_new,
@@ -268,6 +387,74 @@ class ContinuousBatchingEngine:
             self._pending.append(req)
         return req
 
+    def _enforce_request_fits(self, prompt, max_new):
+        """The per-request length limit: on the slot engine every request
+        owns one fixed [max_len] KV row. The paged engine overrides this —
+        there the cap is the block table's span."""
+        enforce(len(prompt) + int(max_new) <= self.max_len,
+                f"prompt({len(prompt)}) + max_new({max_new}) exceeds the "
+                f"slot engine's per-slot KV row width max_len="
+                f"{self.max_len} (each slot reserves one full-length "
+                f"row; use PagedKVEngine for pool-capacity-bound "
+                f"admission)", exc=InvalidArgumentError)
+
+    # -- scheduler hooks (overridden by PagedKVEngine) --------------------
+    def _admit_request(self, req: GenRequest) -> bool:
+        """Admission-time resource acquisition beyond the slot itself,
+        called under the engine lock with a slot free: True admits, False
+        leaves the request pending at the head of the queue. The paged
+        engine acquires the request's block table here."""
+        return True
+
+    def _release_request(self, req: GenRequest):
+        """Completion-side release (under the engine lock, paired with
+        `_admit_request`). The paged engine returns the request's blocks
+        to the pool / prefix cache here."""
+
+    def _note_position_written(self, req: GenRequest, pos: int):
+        """One cache position of `req` was written by the tick that just
+        ran. The paged engine marks prefix blocks filled (sharable) the
+        moment their last row lands."""
+
+    # -- speculative-decoding hooks (overridden by PagedKVEngine) ---------
+    def _build_verify_tick(self, gamma):
+        """Build the verify program (a γ+1-wide window forward over the
+        TARGET's caches and weights, shared by name) into the current
+        default programs; returns (ids, logp, cache_names)."""
+        from ..models import transformer
+        d = self._builder_dims
+        return transformer.transformer_lm_spec_verify_tick(
+            n_slots=self.n_slots, gamma=gamma, vocab=d["vocab"],
+            max_len=self.max_len, d_model=d["d_model"],
+            d_inner=d["d_inner"], num_heads=d["num_heads"],
+            num_layers=d["num_layers"], dropout=d["dropout"],
+            packed=d["packed"], cache_prefix=self._cache_prefix)
+
+    def _init_verify_feeds(self, g: int) -> Dict[str, np.ndarray]:
+        """The verify forward's reusable feed arrays (g = γ+1)."""
+        return {"spec_tok": np.zeros((self.n_slots, g), np.int64),
+                "spec_pos": np.zeros((self.n_slots, 1, 1), np.float32)}
+
+    def _fill_verify_row(self, feeds, slot: int, req: GenRequest, g: int):
+        """Fill slot `slot`'s verify-feed rows for a window starting at
+        `req.fed` (spec_tok is filled batch-wide by the caller)."""
+        feeds["spec_pos"][slot, 0, 0] = float(req.fed)
+
+    def _spec_capable(self, req: GenRequest, g: int) -> bool:
+        """Can `req` take a full γ+1 window without overrunning its KV
+        span? A single ineligible slot degrades the whole step to one
+        plain tick."""
+        return req.fed + g <= self.max_len
+
+    def _spec_rollback(self, req: GenRequest, keep_len: int,
+                       written_len: int) -> int:
+        """Positions [keep_len, written_len) of `req` were written by a
+        verify forward but rejected. Slot engine: nothing to do — the
+        stale rows sit above the slot's position mask and are rewritten
+        before they are ever exposed. The paged engine rolls fully-dead
+        blocks back through the pager. Returns the blocks rolled back."""
+        return 0
+
     # -- scheduler --------------------------------------------------------
     def _admit(self):
         with self._lock:
@@ -275,6 +462,8 @@ class ContinuousBatchingEngine:
                                             or not self._pending):
                 return
             while self._pending and self._slots.n_free:
+                if not self._admit_request(self._pending[0]):
+                    break                        # head-of-line wait
                 slot = self._slots.alloc()
                 req = self._pending.popleft()
                 req.slot = slot
@@ -293,10 +482,12 @@ class ContinuousBatchingEngine:
 
     def _advance_slot(self, req: GenRequest, out_id: int) -> bool:
         """Advance `req` one position with the model's output `out_id` for
-        that position. Returns True when the request just finished
-        (max_new / eos / out of room)."""
+        that position — the per-slot commit shared by the plain tick and
+        every speculative verify position. Returns True when the request
+        just finished (max_new / eos / out of room)."""
         k = req.fed                    # the position just consumed
         req.fed += 1
+        self._note_position_written(req, k)
         if k < len(req.prompt) - 1:
             req.next_tok = req.prompt[k + 1]     # still prefilling
             return False
@@ -311,15 +502,29 @@ class ContinuousBatchingEngine:
         return len(req.tokens) >= req.max_new or hit_eos or out_of_room
 
     def step(self) -> List[GenRequest]:
-        """One decode step: admit, run one tick, collect. Returns the
-        requests that COMPLETED on this step; [] when nothing is active or
-        pending."""
+        """One decode step: admit, run, collect. Returns the requests that
+        COMPLETED on this step; [] when nothing is active or pending.
+        Without speculation (or when an active request is too close to its
+        length cap for a full window) this is one plain tick; with
+        `speculative=` it is one speculative round (γ+1 draft ticks + one
+        verify forward) advancing every slot up to γ+1 positions."""
         self._admit()
         with self._lock:
             active = dict(self._active)
         if not active:
             return []
-        finished = self._plain_tick(active)
+        if self.spec is not None and all(
+                self._spec_capable(r, self.spec.cfg.gamma + 1)
+                for r in active.values()):
+            t0 = time.perf_counter()
+            finished = self.spec.round(active)
+            self.tick_seconds.append(time.perf_counter() - t0)
+            self.n_ticks += 1
+            self.last_tick_at = time.time()
+            self.busy_slot_ticks += len(active)
+            self.total_slot_ticks += self.n_slots
+        else:
+            finished = self._plain_tick(active)
         if finished:
             for req in finished:
                 req._complete()
@@ -327,21 +532,20 @@ class ContinuousBatchingEngine:
                 for req in finished:
                     del self._active[req.slot]
                     self._slots.free(req.slot)
+                    self._release_request(req)
         return finished
-
-    def _fill_tick_feeds(self, active: Dict[int, GenRequest]):
-        tok, pos = self._tok, self._pos
-        tok[:] = 0
-        pos[:] = 0.0
-        for slot, req in active.items():
-            tok[slot, 0] = req.next_tok
-            pos[slot, 0, 0] = float(req.fed)
 
     def _plain_tick(self, active: Dict[int, GenRequest]
                     ) -> List[GenRequest]:
         t0 = time.perf_counter()
         self._fill_tick_feeds(active)
+        if self._target_state_owner != "main":
+            # a speculative verify forward ran since the last plain tick:
+            # re-point the bound step at the scope's live cache tensors
+            self._step.refresh_state()
+            self._target_state_owner = "main"
         fetches = self._step.run_bound()
+        self.target_forwards += 1
         # realization barrier: the next tick's feed depends on the ids
         ids = fetches[0].cpu().numpy()
         self.tick_seconds.append(time.perf_counter() - t0)
@@ -379,7 +583,7 @@ class ContinuousBatchingEngine:
 
     def stats(self) -> Dict:
         """Instantaneous engine state: slot/queue shape, tick liveness,
-        token throughput."""
+        token throughput, the speculative counters."""
         now = time.time()
         return {
             "n_slots": self.n_slots,
@@ -393,6 +597,11 @@ class ContinuousBatchingEngine:
                                 if self.last_tick_at is not None
                                 else None),
             "uptime_s": now - self._started_at,
+            "target_forwards": self.target_forwards,
+            "tokens_per_target_forward": (
+                self.tokens_out / max(self.target_forwards, 1)),
+            "speculative": (self.spec.stats()
+                            if self.spec is not None else None),
         }
 
 

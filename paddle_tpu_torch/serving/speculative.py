@@ -1,0 +1,435 @@
+"""Speculative decoding through the serving stack: draft-model propose +
+single-forward verify, on the slot engine and on the paged engine.
+
+≙ paddle_tpu/serving/speculative.py. The decode tick is memory-bound:
+every emitted token pays one full read of the target weights and KV
+cache. Speculative decoding amortizes that read — a cheap DRAFT model
+proposes γ tokens autoregressively, then the TARGET model scores all γ+1
+window positions in ONE forward (the same fused decode-attention op,
+widened along the query axis: K4's G-row route), and the longest accepted
+prefix commits. Greedy mode is TOKEN-IDENTICAL to target-only decode by
+construction: a drafted token is accepted iff it equals the target's
+argmax at that position, and the first mismatch is replaced by the
+target's own output. Sampling mode preserves the target distribution via
+rejection sampling (`rejection_sample`); its host RNG is
+`numpy.random.RandomState(seed)`, as in the JAX package, so the same seed
+draws the same tokens in both.
+
+How it rides the stack:
+
+- The DRAFT is `transformer_lm_decode_tick(param_prefix="draft_")`: every
+  weight under the reserved `draft_` prefix (census category
+  `params_draft`), initialized by COPYING the target's weights (optionally
+  truncated to `draft_layers` layers) before the target's quantize pass
+  erases them, then quantized to `SpecConfig.draft` bits. Draft KV is
+  slot-resident on both engines — the draft never pages.
+- The VERIFY forward is a tick program of its own per engine
+  (`transformer_lm_spec_verify_tick` / `transformer_lm_paged_spec_verify_
+  tick`) sharing the TARGET's caches and weights by name; the quantize
+  pass's twin path rewrites it onto the SAME resident @qparam/@qscale
+  payloads as the main tick. On the card each row of the G-wide K4 launch
+  is bit-equal to a single-position launch, so the verify attention is
+  the plain tick's; the fc products at M = S·G and M = S may round
+  differently (cuBLAS picks per shape), which can flip a near-tie.
+- Draft and verify are BOUND prepared steps; `refresh_state()` re-points
+  the plain tick or verify step before it runs after the other
+  (`engine._target_state_owner`).
+- On the paged engine a rejected tail's fully-dead blocks roll back
+  through `KVPager.rollback`; `BlockPool.check()` runs every round under
+  PTPU_SPEC_POOL_CHECK=1.
+- Prompt positions inside the verify window are teacher-forced: prefill
+  advances γ+1 positions a round.
+
+Not ported yet (ROADMAP.md §1 item 2): the `speculate` / `verify` spans
+and the acceptance gauges; `stats()` carries the counters.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..core.enforce import InvalidArgumentError, enforce
+from ..framework.executor import as_numpy
+
+#: reserved name prefix for draft-model state: the census classifier
+#: (framework/costs.state_category) maps `draft_*` weights — including
+#: quantized `draft_*@qparam` payloads — to the `params_draft` category
+DRAFT_PREFIX = "draft_"
+
+
+@dataclass
+class SpecConfig:
+    """Speculative-decoding knobs (`ContinuousBatchingEngine(...,
+    speculative=SpecConfig(...))`).
+
+    gamma         draft tokens proposed per round; the verify window is
+                  γ+1 positions wide
+    draft         draft weight precision: "f32" | "int8" | "int4" —
+                  int4/int8 quantize the draft's own weight copies
+                  (PTPU_QUANT_PARAMS=0 kill switch serves f32 regardless)
+    draft_layers  truncate the draft to its first N layers (None = full
+                  depth — the honest-high-acceptance default)
+    sampling      False = greedy (token-identical to target-only
+                  decode); True = rejection sampling preserving the
+                  target distribution (seeded, host-side)
+    seed          the host RNG seed for sampling mode
+    """
+
+    gamma: int = 4
+    draft: str = "int8"
+    draft_layers: Optional[int] = None
+    sampling: bool = False
+    seed: int = 0
+
+    def __post_init__(self):
+        enforce(int(self.gamma) >= 1, "gamma must be >= 1",
+                exc=InvalidArgumentError)
+        enforce(self.draft in ("f32", "int8", "int4"),
+                f"draft must be 'f32', 'int8' or 'int4', "
+                f"got {self.draft!r}", exc=InvalidArgumentError)
+        self.gamma = int(self.gamma)
+
+
+def rejection_sample(p: np.ndarray, q: np.ndarray, draft_token: int,
+                     rng: np.random.RandomState):
+    """One speculative rejection-sampling step: accept `draft_token`
+    (drawn from draft distribution q) with probability min(1,
+    p[d]/q[d]); on rejection draw from the residual norm(max(0, p-q)).
+    Returns (token, accepted). The emitted token is distributed EXACTLY
+    as p regardless of q (Leviathan et al.'s lemma) — held by the
+    fixed-seed distribution test in tests/test_torch_speculative.py."""
+    p = np.asarray(p, np.float64)
+    q = np.asarray(q, np.float64)
+    d = int(draft_token)
+    if rng.random_sample() < min(1.0, p[d] / max(float(q[d]), 1e-30)):
+        return d, True
+    resid = np.maximum(p - q, 0.0)
+    z = float(resid.sum())
+    if z <= 0.0:
+        # numerically p <= q everywhere yet the accept draw failed
+        # (p ~= q with float rounding): the residual is empty — the
+        # target distribution itself is the correct fallback
+        resid, z = p, float(p.sum())
+    return int(rng.choice(len(p), p=resid / z)), False
+
+
+class SpeculativeDecoder:
+    """The per-engine speculative-decoding driver: owns the draft and
+    verify programs/steps and runs the propose → verify → commit →
+    rollback round. Built in two phases bracketing the engine's own
+    setup: `build_draft()` BEFORE the target quantize pass (it must copy
+    f32 weights), `finalize()` after the main step is prepared+bound."""
+
+    def __init__(self, engine, config):
+        if config is True:
+            config = SpecConfig()
+        elif isinstance(config, dict):
+            config = SpecConfig(**config)
+        enforce(isinstance(config, SpecConfig),
+                f"speculative must be a SpecConfig (or True / kwargs "
+                f"dict), got {type(config).__name__}",
+                exc=InvalidArgumentError)
+        self.engine = engine
+        self.cfg = config
+        self.draft_layers = (int(config.draft_layers)
+                            if config.draft_layers is not None
+                            else int(engine._builder_dims["num_layers"]))
+        enforce(1 <= self.draft_layers
+                <= engine._builder_dims["num_layers"],
+                f"draft_layers {self.draft_layers} out of range "
+                f"[1, {engine._builder_dims['num_layers']}]",
+                exc=InvalidArgumentError)
+        # -- counters (stats() / gauges) --
+        self.rounds = 0
+        self.draft_ticks = 0
+        self.verify_forwards = 0
+        self.draft_proposed = 0      # drafted window tokens evaluated
+        self.draft_accepted = 0      # ... of those, accepted
+        self.draft_s = 0.0
+        self.verify_s = 0.0
+        self.rolled_back = 0         # paged: block-table entries redone
+        self._pool_check = os.environ.get(
+            "PTPU_SPEC_POOL_CHECK", "0") not in ("0", "")
+
+    # -- construction -----------------------------------------------------
+    def build_draft(self):
+        """Build the draft tick program (weights under `draft_`), copy
+        the target's f32 weights into the draft names, and quantize the
+        draft program at `cfg.draft`. MUST run before the target
+        program's own quantize pass — afterwards the f32 payloads are
+        gone from the scope."""
+        from ..core import flags as _flags
+        from ..core import unique_name
+        from ..framework.passes import get_pass
+        from ..framework.program import Program, program_guard
+        from ..framework.scope import Scope
+        from ..models import transformer
+
+        eng = self.engine
+        d = eng._builder_dims
+        self._draft_program, self._draft_startup = Program(), Program()
+        with program_guard(self._draft_program, self._draft_startup), \
+                unique_name.guard():
+            outs = transformer.transformer_lm_decode_tick(
+                n_slots=eng.n_slots, vocab=d["vocab"],
+                max_len=eng.max_len, d_model=d["d_model"],
+                d_inner=d["d_inner"], num_heads=d["num_heads"],
+                num_layers=self.draft_layers, dropout=d["dropout"],
+                packed=d["packed"],
+                cache_prefix=eng._cache_prefix + "dr",
+                param_prefix=DRAFT_PREFIX, emit_logp=True)
+        self._draft_ids, self.draft_cache_names, self._draft_logp = outs
+        # weight copy: draft_<w> <- <w> for every draft parameter whose
+        # target twin is resident (trained or engine-initialized); the
+        # rest (the draft's own slot caches) take the startup init. The
+        # copy is BY REFERENCE — with an f32 draft over an f32 target
+        # the two names share one device buffer until either side's
+        # quantize pass erases its f32 name.
+        tmp = Scope()
+        eng._exe.run(self._draft_startup, scope=tmp)
+        for name in tmp.local_var_names():
+            if eng.scope.has_var(name):
+                continue
+            src = name[len(DRAFT_PREFIX):]
+            if name.startswith(DRAFT_PREFIX) and eng.scope.has_var(src):
+                eng.scope.set_var(name, eng.scope.get(src))
+            else:
+                eng.scope.set_var(name, tmp.get(name))
+        if self.cfg.draft in ("int8", "int4") \
+                and _flags.get_flag("quant_params"):
+            get_pass("quantize_params_pass",
+                     bits=8 if self.cfg.draft == "int8" else 4)(
+                self._draft_program, eng.scope)
+
+    def finalize(self):
+        """Build + quantize the verify program (target weights/caches by
+        name — the quantize pass's twin path reuses the resident
+        payloads), then prepare and BIND both steps. Runs after the
+        engine's main step is prepared+bound."""
+        from ..core import unique_name
+        from ..framework.passes import get_pass
+        from ..framework.program import Program, program_guard
+        from ..framework.scope import Scope
+
+        eng = self.engine
+        g = self.cfg.gamma + 1
+        self._verify_program, self._verify_startup = Program(), Program()
+        with program_guard(self._verify_program, self._verify_startup), \
+                unique_name.guard():
+            (self._verify_ids, self._verify_logp,
+             self.verify_cache_names) = eng._build_verify_tick(
+                self.cfg.gamma)
+        # target caches/weights are already resident; copy only what the
+        # verify startup would mint beyond them (none today — belt and
+        # braces against future builder state)
+        tmp = Scope()
+        eng._exe.run(self._verify_startup, scope=tmp)
+        for name in tmp.local_var_names():
+            if eng.scope.has_var(name):
+                continue
+            if eng.scope.has_var(name + "@qparam"):
+                # the f32 name was ERASED by the target quantize pass and
+                # its payload lives on as @qparam/@qscale — reinstalling
+                # the startup's fresh random init here would make the
+                # verify quantize pass below re-quantize garbage OVER the
+                # resident payloads (they're shared with the main tick)
+                continue
+            eng.scope.set_var(name, tmp.get(name))
+        if eng.quant is not None:
+            get_pass("quantize_params_pass",
+                     bits=8 if eng.quant == "int8" else 4)(
+                self._verify_program, eng.scope)
+        self._draft_feeds = {
+            "tick_tok": np.zeros((eng.n_slots, 1), np.int64),
+            "tick_pos": np.zeros((eng.n_slots, 1, 1), np.float32)}
+        self._verify_feeds = eng._init_verify_feeds(g)
+        self._draft_step = eng._exe.prepare(
+            self._draft_program, dict(self._draft_feeds),
+            [self._draft_ids, self._draft_logp],
+            eng.scope).bind(self._draft_feeds)
+        self._verify_step = eng._exe.prepare(
+            self._verify_program, dict(self._verify_feeds),
+            [self._verify_ids, self._verify_logp],
+            eng.scope).bind(self._verify_feeds)
+        self._rng = np.random.RandomState(self.cfg.seed)
+        self._windows = np.zeros((eng.n_slots, g), np.int64)
+        self._from_draft = np.zeros((eng.n_slots, g), bool)
+
+    # -- telemetry --------------------------------------------------------
+    def acceptance_rate(self) -> float:
+        return (self.draft_accepted / self.draft_proposed
+                if self.draft_proposed else 0.0)
+
+    def draft_overhead(self) -> float:
+        total = self.draft_s + self.verify_s
+        return self.draft_s / total if total else 0.0
+
+    def draft_param_bytes(self) -> int:
+        """Resident bytes of the draft model's weight state — the
+        `params_draft` census category, measured from the scope's
+        tensors."""
+        from ..framework.costs import state_category
+        eng = self.engine
+        seen, total = set(), 0
+        for b in self._draft_program.blocks:
+            for name, v in b.vars.items():
+                if name in seen or not v.persistable \
+                        or not eng.scope.has_var(name):
+                    continue
+                seen.add(name)
+                if state_category(v, name) == "params_draft":
+                    t = eng.scope.get(name)
+                    total += t.numel() * t.element_size()
+        return total
+
+    def stats(self) -> Dict:
+        return {
+            "gamma": self.cfg.gamma,
+            "draft": self.cfg.draft,
+            "draft_layers": self.draft_layers,
+            "sampling": self.cfg.sampling,
+            "rounds": self.rounds,
+            "draft_ticks": self.draft_ticks,
+            "verify_forwards": self.verify_forwards,
+            "draft_proposed": self.draft_proposed,
+            "draft_accepted": self.draft_accepted,
+            "acceptance_rate": self.acceptance_rate(),
+            "draft_overhead": self.draft_overhead(),
+            "rolled_back_blocks": self.rolled_back,
+            "draft_param_bytes": self.draft_param_bytes(),
+        }
+
+    # -- the round --------------------------------------------------------
+    def round(self, active: Dict[int, "GenRequest"]) -> List:
+        """One speculative round over `active` (slot → request, every
+        one spec-capable): γ+1 draft ticks build the token window, one
+        verify forward scores it, the commit walk advances each request
+        through its accepted prefix (sharing `_advance_slot` with the
+        plain tick — identical phase/finish semantics), and the paged
+        engine rolls back fully-rejected blocks. Returns the requests
+        that finished."""
+        eng = self.engine
+        cfg = self.cfg
+        gamma = cfg.gamma
+        g = gamma + 1
+        windows, from_draft = self._windows, self._from_draft
+        windows[:] = 0
+        from_draft[:] = False
+        draft_logp = [None] * g if cfg.sampling else None
+        dtok = self._draft_feeds["tick_tok"]
+        dpos = self._draft_feeds["tick_pos"]
+
+        t0 = time.perf_counter()
+        # the draft ticks
+        for slot, req in active.items():
+            windows[slot, 0] = req.next_tok
+        for j in range(g):
+            dtok[:] = 0
+            dpos[:] = 0.0
+            for slot, req in active.items():
+                dtok[slot, 0] = windows[slot, j]
+                dpos[slot, 0, 0] = float(req.fed + j)
+            fetches = self._draft_step.run_bound()
+            self.draft_ticks += 1
+            if j == gamma:
+                # the last tick exists to write the draft cache at
+                # position fed+γ (a full acceptance starts the next
+                # round one past it); its proposal is unused
+                break
+            ids = fetches[0].cpu().numpy()
+            logp = as_numpy(fetches[1]) if cfg.sampling else None
+            for slot, req in active.items():
+                nxt = req.fed + j + 1
+                if nxt < len(req.prompt):
+                    # teacher-forced: the window token IS the prompt
+                    windows[slot, j + 1] = req.prompt[nxt]
+                    continue
+                if cfg.sampling:
+                    q = np.exp(logp[slot, 0].astype(np.float64))
+                    q /= q.sum()
+                    tok = int(self._rng.choice(len(q), p=q))
+                else:
+                    tok = int(ids[slot, 0])
+                windows[slot, j + 1] = tok
+                from_draft[slot, j + 1] = True
+            if cfg.sampling:
+                draft_logp[j + 1] = logp
+        td = time.perf_counter()
+        self.draft_s += td - t0
+
+        # the verify forward
+        vf = self._verify_feeds
+        for a in vf.values():
+            a[:] = 0
+        vf["spec_tok"][:] = windows
+        for slot, req in active.items():
+            eng._fill_verify_row(vf, slot, req, g)
+        if eng._target_state_owner != "verify":
+            self._verify_step.refresh_state()
+            eng._target_state_owner = "verify"
+        fetches = self._verify_step.run_bound()
+        self.verify_forwards += 1
+        eng.target_forwards += 1
+        ids = fetches[0].cpu().numpy()                  # [S, G]
+        vlogp = (as_numpy(fetches[1])                   # [S, G, V]
+                 if cfg.sampling else None)
+        tv = time.perf_counter()
+        self.verify_s += tv - td
+        self.rounds += 1
+
+        # -- commit walk per slot -----------------------------------------
+        finished = []
+        for slot, req in active.items():
+            k0 = req.fed
+            req.spec_draft_s += td - t0
+            req.spec_verify_s += tv - td
+            fin = False
+            for i in range(g):
+                if req.fed < len(req.prompt) - 1:
+                    # prompt position: teacher-forced, always advances
+                    # (the plain tick ignores the model output here too)
+                    fin = eng._advance_slot(req, int(ids[slot, i]))
+                    if fin:
+                        break
+                    continue
+                # generated position: emit + decide continuation
+                accept_next = False
+                if not cfg.sampling:
+                    emitted = int(ids[slot, i])
+                    if i < gamma:
+                        accept_next = int(windows[slot, i + 1]) == emitted
+                elif i < gamma:
+                    p = np.exp(vlogp[slot, i].astype(np.float64))
+                    p /= p.sum()
+                    q = np.exp(draft_logp[i + 1][slot, 0]
+                               .astype(np.float64))
+                    q /= q.sum()
+                    emitted, accept_next = rejection_sample(
+                        p, q, int(windows[slot, i + 1]), self._rng)
+                else:
+                    p = np.exp(vlogp[slot, gamma].astype(np.float64))
+                    p /= p.sum()
+                    emitted = int(self._rng.choice(len(p), p=p))
+                if i < gamma and from_draft[slot, i + 1]:
+                    self.draft_proposed += 1
+                    if accept_next:
+                        self.draft_accepted += 1
+                fin = eng._advance_slot(req, emitted)
+                if fin or not accept_next:
+                    break
+            if fin:
+                finished.append(req)
+            elif req.fed < k0 + g:
+                # rejected tail [fed, k0+g): fully-dead blocks roll back
+                # (paged; the slot engine's stale rows are masked and
+                # overwritten before exposure — rollback is a no-op)
+                self.rolled_back += eng._spec_rollback(req, req.fed,
+                                                       k0 + g)
+        if self._pool_check and hasattr(eng, "pager"):
+            eng.pager.pool.check()
+        return finished

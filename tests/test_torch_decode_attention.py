@@ -8,8 +8,10 @@ tests/test_fusion.py runs it) — the function the port's CUDA kernel
 implements — and through the XLA composite (`backend="xla"`). Inputs come
 from a numpy seed and have the decode tick's layout: q [R,1,nh,1,dh],
 K/V [R,1,nh,T,dh] float32 caches, bias [R,1,1,1,T] with each row's mask
-ending at its own position. The CUDA kernel itself runs only on the card
-(chip_smoke.py holds it against this plain version there).
+ending at its own position. Verify windows (G > 1 query rows) and int8
+caches (`quantize_kv_time_blocks`) are held against the JAX package's XLA
+composite, which is what it runs for them. The CUDA kernel itself runs only
+on the card (chip_smoke.py holds it against this plain version there).
 """
 
 import numpy as np
@@ -142,14 +144,158 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert kernels.LAUNCHES["decode_attention"] == 0
 
 
-@pytest.mark.parametrize("case", ["multi_position", "int8_kv"])
-def test_off_slice_variants_raise(case):
-    """G > 1 (speculative verify) and int8 KV are not silently composited."""
-    q, k, v, bias = _inputs(16, 4)
-    qt, kt, vt, bt = (torch.from_numpy(a) for a in (q, k, v, bias))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if case == "multi_position":
-            fused_decode_attention(qt.expand(3, 1, 4, 2, DH), kt, vt, bt)
-        else:
-            fused_decode_attention(qt, kt, vt, bt,
-                                   k_scale=torch.ones(3, 1, 4, 2))
+# -- verify windows (G > 1) and int8 caches -------------------------------
+
+
+def _window(g, t=24, nh=4, r=3, seed=0, masked_row=False):
+    """q [R,1,nh,G,dh] and a causal window mask [R,1,1,G,T]: row g of slot
+    i sees positions <= base_i + g."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(r, 1, nh, g, DH).astype("float32")
+    k = rng.randn(r, 1, nh, t, DH).astype("float32")
+    v = rng.randn(r, 1, nh, t, DH).astype("float32")
+    base = np.array([0, t // 3, t - g])[:r]
+    keep = np.arange(t)[None, None] <= (base[:, None, None]
+                                         + np.arange(g)[None, :, None])
+    if masked_row:
+        keep[1, 2] = False                 # one query row sees nothing
+    bias = (keep.astype("float32") * 1e9 - 1e9).reshape(r, 1, 1, g, t)
+    return q, k, v, bias
+
+
+def _quant(a, bt):
+    from paddle_tpu.fusion.decode_attention import quantize_kv_time_blocks
+    pq, sc = quantize_kv_time_blocks(jnp.asarray(a), bt)
+    return np.array(pq), np.array(sc)          # writable copies for torch
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [2, 5, 9])
+def test_verify_window_matches_jax(g, q_dtype):
+    """G query rows: the JAX package computes them through its XLA
+    composite (the Pallas kernel is single-position). float32 at 1e-5;
+    bfloat16 q at 5e-2 (the composite rounds the scores to bfloat16,
+    the kernel and the plain version do not)."""
+    q, k, v, bias = _window(g)
+    jd, td = (jnp.float32, torch.float32) if q_dtype == "float32" else \
+        (jnp.bfloat16, torch.bfloat16)
+    port = _port(q, k, v, bias, td)
+    assert port.shape == q.shape
+    np.testing.assert_allclose(port, _jax(q, k, v, bias, jd, "xla"),
+                               atol=1e-5 if q_dtype == "float32" else 5e-2,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bt", [8, 3])
+@pytest.mark.parametrize("g", [1, 5])
+def test_int8_cache_matches_jax(g, bt, q_dtype):
+    """int8 K and V with one scale per bt positions: the JAX package
+    dequantizes to q's dtype and runs the composite; the port's plain
+    version dequantizes the same way (what the kernel does per element).
+    Tolerances as for the float32 cache."""
+    q, k, v, bias = _window(g, seed=bt)
+    (kq, ks), (vq, vs) = _quant(k, bt), _quant(v, bt)
+    jd, td = (jnp.float32, torch.float32) if q_dtype == "float32" else \
+        (jnp.bfloat16, torch.bfloat16)
+    want = np.asarray(jax_fused(
+        jnp.asarray(q, dtype=jd), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(bias), scale=DH ** -0.5, backend="xla",
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)).astype(
+            jnp.float32))
+    got = fused_decode_attention(
+        torch.from_numpy(q).to(td), torch.from_numpy(kq),
+        torch.from_numpy(vq), torch.from_numpy(bias), scale=DH ** -0.5,
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    assert got.dtype == td
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=1e-5 if q_dtype == "float32" else 5e-2,
+                               rtol=0)
+
+
+def test_window_with_a_fully_masked_row_matches_pallas_and_xla():
+    """A query row that sees no position gives the uniform average of V,
+    as the JAX package's composite does."""
+    q, k, v, bias = _window(5, masked_row=True)
+    port = _port(q, k, v, bias, torch.float32)
+    np.testing.assert_allclose(port, _jax(q, k, v, bias, jnp.float32, "xla"),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(port[1, 0, :, 2], v[1, 0].mean(1),
+                               atol=1e-5, rtol=0)
+
+
+def test_window_rows_equal_single_position_calls():
+    """Each row of a G = 5 call equals a G = 1 call with that row's q and
+    bias (the plain version here; chip_smoke.py asserts the kernel's rows
+    bit-equal on the card)."""
+    q, k, v, bias = _window(5)
+    args = [torch.from_numpy(a) for a in (q, k, v, bias)]
+    whole = fused_decode_attention(*args, scale=DH ** -0.5)
+    for g in range(5):
+        one = fused_decode_attention(args[0][..., g:g + 1, :], args[1],
+                                     args[2], args[3][..., g:g + 1, :],
+                                     scale=DH ** -0.5)
+        np.testing.assert_allclose(one[..., 0, :].numpy(),
+                                   whole[..., g, :].numpy(), atol=1e-6,
+                                   rtol=0)
+
+
+def test_gradients_at_g5_match_jax():
+    """q, bias and (int8 caches) the scales take the JAX package's
+    gradients at G = 5; the int8 payloads take none. float32, 1e-5."""
+    import jax
+    q, k, v, bias = _window(5, seed=3)
+    (kq, ks), (vq, vs) = _quant(k, 8), _quant(v, 8)
+    cot = np.random.RandomState(4).randn(*q.shape).astype("float32")
+
+    def jloss(q_, b_, ks_, vs_):
+        out = jax_fused(q_, jnp.asarray(kq), jnp.asarray(vq), b_,
+                        scale=DH ** -0.5, backend="xla", k_scale=ks_,
+                        v_scale=vs_)
+        return jnp.sum(out * cot)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        jnp.asarray(q), jnp.asarray(bias), jnp.asarray(ks), jnp.asarray(vs))
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (q, bias, ks, vs)]
+    kt, vt = torch.from_numpy(kq), torch.from_numpy(vq)
+    out = fused_decode_attention(leaves[0], kt, vt, leaves[1],
+                                 scale=DH ** -0.5, k_scale=leaves[2],
+                                 v_scale=leaves[3])
+    (out * torch.from_numpy(cot)).sum().backward()
+    for leaf, w, name in zip(leaves, want, ("q", "bias", "k_scale",
+                                            "v_scale")):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+    assert kt.grad is None and vt.grad is None
+    # float32 caches at G = 5: q and bias against jax.grad as well
+    qt, bt_ = (torch.from_numpy(a).requires_grad_() for a in (q, bias))
+    (fused_decode_attention(qt, torch.from_numpy(k), torch.from_numpy(v),
+                            bt_, scale=DH ** -0.5)
+     * torch.from_numpy(cot)).sum().backward()
+    jq, jb = jax.grad(lambda q_, b_: jnp.sum(jax_fused(
+        q_, jnp.asarray(k), jnp.asarray(v), b_, scale=DH ** -0.5,
+        backend="xla") * cot), argnums=(0, 1))(jnp.asarray(q),
+                                               jnp.asarray(bias))
+    np.testing.assert_allclose(qt.grad.numpy(), np.asarray(jq), atol=1e-5)
+    np.testing.assert_allclose(bt_.grad.numpy(), np.asarray(jb), atol=1e-5)
+
+
+def test_cpu_window_and_int8_calls_count_no_launch():
+    q, k, v, bias = _window(5)
+    (kq, ks), (vq, vs) = _quant(k, 8), _quant(v, 8)
+    kernels.reset_launch_counts()
+    fused_decode_attention(*(torch.from_numpy(a) for a in (q, kq, vq, bias)),
+                           scale=DH ** -0.5, k_scale=torch.from_numpy(ks),
+                           v_scale=torch.from_numpy(vs))
+    assert kernels.LAUNCHES["decode_attention"] == 0
+    assert kernels.LAUNCHES["decode_attention_multi"] == 0
+    assert kernels.LAUNCHES["decode_attention_int8"] == 0
+    with pytest.raises(ValueError, match="CUDA device"):
+        decode_attention_cuda(torch.from_numpy(q[:, 0]),
+                              torch.from_numpy(kq[:, 0]),
+                              torch.from_numpy(vq[:, 0]),
+                              torch.from_numpy(bias[:, 0]).expand(
+                                  3, 4, 5, 24), 1.0,
+                              torch.from_numpy(ks[:, 0]),
+                              torch.from_numpy(vs[:, 0]))

@@ -205,13 +205,6 @@ def test_engine_admission_and_slot_reuse():
         teng.submit([1] * 30, 5)           # beyond the slot's KV row
 
 
-def test_off_slice_engine_options_raise():
-    for kw in ({"quant": "int8"}, {"speculative": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ptt.ContinuousBatchingEngine(n_slots=1, place=ptt.CPUPlace(),
-                                         **kw, **DIMS)
-
-
 def test_default_place_is_the_card_and_never_the_cpu():
     """Without a card the default place raises instead of dropping to the
     CPU; with one it is CUDAPlace(0)."""
