@@ -183,7 +183,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    engine's round profiled;
 28. the paged (and beam), int8, int4, int8-KV and speculative (slot and
    paged) engines at phase 5's small size in float32, card against CPU:
-   identical tokens.
+   identical tokens;
+29. serve through EngineServer(metrics_port=0) over phase 4's slot engine
+   (its weights): 4 EngineClient connections on loopback, each pipelining
+   12 of phase 4's prompts, every request answered with phase 4's tokens;
+   tokens/s through the server beside an in-process engine, in turns;
+   decode attention 6 launches a server tick; one /metrics scrape
+   (ptpu_engine_*, ptpu_memory_*, ptpu_ckpt_* families) and one /healthz
+   (`serving`); drain() returns True;
+30. two-tier paging: PagedKVEngine with 65 blocks of 8 (about four
+   128-token requests) on phase 4's prompts, device-only and then with
+   the pinned host tier (HostTierConfig(host_blocks=256,
+   prefetch_distance=2, rotate_quantum=8): spills on a CUDA side stream,
+   reloads issued ahead and ordered by events): both give phase 25's
+   tokens; the byte census is exact and check_two_tier() passes; mean
+   resident requests under backlog (no lower than the device-only
+   engine's), tokens/s and time to first token beside the device-only
+   engine, admitted requests as a scheduler counter; the deleted
+   engine's device memory given back (with a small control whose stream
+   keeps its staged reloads); prefetch hits and misses, the d2h
+   and h2d rates beside the PCIe link, the tick against phase 25's, a
+   profiled step's idle share;
+   then two-tier engines with float32 and int8 pools at phase 5's small
+   size under pressure, card against CPU: identical tokens and spills;
+31. phase 30's two-tier engine on 16 prompts with the KV sanitizer on:
+   zero divergences, ops mirrored, phase 4's tokens; then phase 4's slot
+   engine for 20 ticks with tracing on: aggregate() of the tick, dispatch
+   and admission spans and the spans' host cost a tick.
 
 Phase 3 also holds decode attention's verify-window route (G = 5 query
 rows) and int8 route (int8 caches, alone and with G = 5) at the serving
@@ -208,7 +234,9 @@ flash kernels' `routes` per type, `err_over_tolerance_bf16`,
 `beyond_one_step_bf16`, the controls' `control_err_over_tolerance`,
 `launches_tc_bf16`, `d256` and `d512`, their times and bound at head
 dims 256 and 512; `launches_per_step_remat`, K1-K3's launches a step in
-phase 23), times, and `paths`: phases 15-28's numbers; the last line is
+phase 23; `launches_server`, `launches_two_tier`, `launches_sanitized`
+and `launches_traced`, decode attention's on phases 29-31), times, and
+`paths`: phases 15-31's numbers; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -243,6 +271,17 @@ PAGED = dict(block_size=8, shared=16, shared_prefix=64, beam=4, beam_new=8,
              beam_prompts=4)
 SPEC = dict(gamma=4, draft="int8")
 SPEC_MARGIN = 1e-2
+# phases 29-31: EngineServer with 4 clients over phase 4's prompts; the
+# two-tier pager at 65 blocks of 8 (64 usable, 192 KiB each at this width:
+# about four 128-token requests) with 256 pinned host blocks; the
+# sanitized run on 16 prompts and 20 traced ticks
+SERVER = dict(clients=4)
+TWO_TIER = dict(n_blocks=65)
+HOST_TIER = dict(host_blocks=256, prefetch_distance=2, rotate_quantum=8)
+SANITIZE = dict(prompts=16, trace_ticks=20)
+# device memory a deleted two-tier engine may leave allocated: well under
+# its 12 MiB of pools, far under one staged reload kept per spill
+LEAK_SLACK_BYTES = 8 << 20
 LOGITS = "lm_head.tmp_1"       # the decode tick's logits (lm_head's output)
 
 # training configuration: the repo's LM training cell
@@ -1822,6 +1861,477 @@ def paged_quant_spec_reference_check(ptt):
     finally:
         ptt.flags.set_flag("use_bf16_matmul", prev)
     return done
+
+
+def _mean(xs):
+    return sum(xs) / len(xs) if xs else 0.0
+
+
+def _server_run(ptt, srv, prompts):
+    """Phase 29's server turn: 4 EngineClient connections on loopback, each
+    pipelining a quarter of `prompts` (sent all at once, then read back in
+    the engine's completion order). Returns (tokens by prompt, wall s)."""
+    clients = [ptt.EngineClient(*srv.address)
+               for _ in range(SERVER["clients"])]
+    try:
+        t0 = time.perf_counter()
+        owner = {}
+        for i, p in enumerate(prompts):
+            c = clients[i % len(clients)]
+            owner[(i % len(clients), c.send_gen(p, MAX_NEW,
+                                                request_id=f"p{i}"))] = i
+        got = [None] * len(prompts)
+        for k, c in enumerate(clients):
+            for _ in range(sum(1 for (j, _) in owner if j == k)):
+                tag, tokens, _ = c.recv_done()
+                got[owner[(k, tag)]] = tokens
+        wall = time.perf_counter() - t0
+    finally:
+        for c in clients:
+            c.close()
+    return got, wall
+
+
+def serve_server(ptt, kernels, base):
+    """Phase 29: EngineServer(metrics_port=0) over phase 4's slot engine
+    (its weights, rebuilt), 4 EngineClient connections each pipelining 12
+    of phase 4's 48 prompts: every request must get phase 4's tokens.
+    Tokens/s through the server beside an in-process engine of the same
+    weights, timed in turns (in-process, server, server, in-process);
+    decode attention launched 6 times a server tick; one /metrics scrape
+    with the ptpu_engine_*, ptpu_memory_* and ptpu_ckpt_* families, one
+    /healthz reading `serving`; then drain() must return True."""
+    import torch
+    cuda = ptt.CUDAPlace(0)
+    local = ptt.ContinuousBatchingEngine(place=cuda,
+                                         scope=_fresh_scope(ptt, base),
+                                         **SERVE)
+    served = ptt.ContinuousBatchingEngine(place=cuda,
+                                          scope=_fresh_scope(ptt, base),
+                                          **SERVE)
+    prompts = base["prompts"]
+    srv = ptt.EngineServer(served, metrics_port=0).start()
+    out = {"in_process": [], "server": []}
+    launches = None
+    try:
+        for turn in ("in_process", "server", "server", "in_process"):
+            if turn == "in_process":
+                reqs, wall = _run_requests(local, prompts)
+                got = [list(r.tokens) for r in reqs]
+            else:
+                ticks0 = served.n_ticks
+                kernels.reset_launch_counts()
+                got, wall = _server_run(ptt, srv, prompts)
+                torch.cuda.synchronize()
+                n = kernels.LAUNCHES["decode_attention"]
+                ticks = served.n_ticks - ticks0
+                assert n == ticks * SERVE["num_layers"], (n, ticks)
+                launches = n if launches is None else launches
+            bad = [i for i, (g, w) in enumerate(zip(got, base["tokens"]))
+                   if g != w]
+            assert not bad, (f"{turn}: tokens differ from phase 4's for "
+                             f"requests {bad[:8]}")
+            gen = sum(len(g) for g in got)
+            out[turn].append(gen / wall)
+            log(f"  [{turn}] {len(prompts)} requests, {gen} generated "
+                f"tokens in {wall:.3f} s: {gen / wall:.1f} generated "
+                f"tokens/s; every request got phase 4's tokens")
+        host, port = srv.metrics_address
+        text = ptt.serving.scrape_metrics(host, port)
+        fams = sorted(set(re.findall(r"^# TYPE (\S+) ", text, re.M)))
+        for prefix in ("ptpu_engine_", "ptpu_memory_", "ptpu_ckpt_"):
+            assert any(f.startswith(prefix) for f in fams), prefix
+        health = ptt.serving.scrape_healthz(host, port)
+        assert health["status"] == "serving", health["status"]
+        log(f"  /metrics: {len(fams)} families "
+            f"({sum(f.startswith('ptpu_engine_') for f in fams)} "
+            f"ptpu_engine_*, "
+            f"{sum(f.startswith('ptpu_memory_') for f in fams)} "
+            f"ptpu_memory_*, "
+            f"{sum(f.startswith('ptpu_ckpt_') for f in fams)} ptpu_ckpt_*); "
+            f"/healthz status {health['status']}, "
+            f"{health['engine']['ticks']} ticks, pending checkpoints "
+            f"{health['checkpoints']['pending_async']}")
+    finally:
+        drained = srv.drain(timeout=60)
+    assert drained, "EngineServer.drain() did not drain"
+    stats = {"in_process_tokens_per_s": out["in_process"],
+             "server_tokens_per_s": out["server"],
+             "server_over_in_process": (_mean(out["server"])
+                                        / _mean(out["in_process"])),
+             "launches": launches, "metric_families": len(fams),
+             "healthz_status": health["status"], "drained": drained}
+    log(f"  server {_mean(out['server']):.1f} against in-process "
+        f"{_mean(out['in_process']):.1f} generated tokens/s (x"
+        f"{stats['server_over_in_process']:.3f}); drain() True")
+    return stats
+
+
+def _run_backlogged(eng, prompts):
+    """Submit every prompt at once and step until idle, sampling after
+    each step while requests still wait for admission: the admitted
+    requests (`n_active`, suspended ones included) and the resident ones
+    (those holding device blocks). Returns (requests, wall s, admitted
+    samples, resident samples)."""
+    import torch
+    eng.tick_seconds.clear()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, MAX_NEW) for p in prompts]
+    admitted, resident = [], []
+    while eng.n_active or eng.n_pending:
+        backlogged = eng.n_pending > 0
+        eng.step()
+        if backlogged:
+            n = eng.n_active
+            admitted.append(n)
+            resident.append(n - len(getattr(eng, "_ht_queue", ())))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        assert r.done and len(r.tokens) == MAX_NEW, (r.rid, len(r.tokens))
+    return reqs, wall, admitted, resident
+
+
+def _pcie_link():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+         "pcie.link.width.current", "--format=csv"],
+        capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[-1] if out.returncode == 0 \
+        else f"not read ({out.stderr.strip()[:80]})"
+
+
+def serve_two_tier(ptt, kernels, base, paged):
+    """Phase 30: PagedKVEngine with blocks of 8 and n_blocks=65 (64 usable
+    blocks, about four 128-token requests) on phase 4's weights and 48
+    prompts, first device-only, then with the pinned host tier
+    (HostTierConfig(host_blocks=256, prefetch_distance=2,
+    rotate_quantum=8)). Both must give phase 25's tokens (= phase 4's);
+    the two-tier byte census must be exact (d2h bytes = host evictions x
+    a block's bytes, h2d the same with reloads) and check_two_tier()
+    must pass. The result is what users feel, beside the device-only
+    engine: mean resident requests under backlog (the tier must not
+    lower it), generated tokens/s and time to first token. Admitted
+    requests (suspended ones included) are a scheduler counter: two-tier
+    admission fills the free slots, which checks that path and nothing
+    more. Deleting the two-tier engine must give its device memory back
+    (to within LEAK_SLACK_BYTES): the transfer stream keeps no staged
+    tensor. Prints prefetch hits and misses, the d2h and h2d rates (the
+    side stream's timing events) beside the PCIe link, the tick against
+    phase 25's, and a profiled step's idle share. Then
+    `two_tier_reference_check` and `two_tier_leak_control`."""
+    import gc
+    import torch
+    from paddle_tpu_torch.framework import offload
+    cuda = ptt.CUDAPlace(0)
+    offload.reset_offload()
+    kw = dict(block_size=PAGED["block_size"], n_blocks=TWO_TIER["n_blocks"],
+              **SERVE)
+    out = {}
+    for label, tier in (("device_only", None),
+                        ("two_tier", ptt.HostTierConfig(**HOST_TIER))):
+        gc.collect()
+        torch.cuda.synchronize()
+        allocated_before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = ptt.PagedKVEngine(place=cuda, scope=_fresh_scope(ptt, base),
+                                host_tier=tier, **kw)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        reqs, wall, admitted, resident = _run_backlogged(
+            eng, base["prompts"])
+        launches = kernels.LAUNCHES["decode_attention"]
+        assert launches == eng.n_ticks * SERVE["num_layers"], \
+            (launches, eng.n_ticks)
+        got = [list(r.tokens) for r in reqs]
+        bad = [i for i, (g, w) in enumerate(zip(got, base["tokens"]))
+               if g != w]
+        assert not bad, (f"{label}: tokens differ from phase 25's for "
+                         f"requests {bad[:8]}")
+        stats = _serve_stats(label, eng, reqs, wall, base["prompts"])
+        stats.update(launches=launches, built_s=built,
+                     admitted_under_backlog=_mean(admitted),
+                     resident_under_backlog=_mean(resident),
+                     pool_bytes=eng._kv_bytes_static)
+        log(f"  [{label}] {eng.n_blocks - 1} blocks "
+            f"({eng._kv_bytes_static / 2**20:.1f} MiB of pools): mean "
+            f"admitted {stats['admitted_under_backlog']:.2f}, resident "
+            f"{stats['resident_under_backlog']:.2f} requests under backlog "
+            f"({len(admitted)} ticks); every request got phase 25's "
+            f"tokens")
+        if tier is not None:
+            pager = eng.pager
+            ht = pager.stats()["host_tier"]
+            per = eng._ht_per_block_bytes
+            pager.check_two_tier()
+            assert ht["host_evictions"] > 0, "the host tier never spilled"
+            assert eng.ht_d2h_bytes == ht["host_evictions"] * per
+            assert eng.ht_h2d_bytes == ht["host_reloads"] * per
+            assert pager.host_blocks_used == 0 and not eng._ht_queue
+            eng._ht_stream.drain()
+            eng._reap_host_frees()
+            assert eng._ht_slab.n_free == HOST_TIER["host_blocks"]
+            assert eng._ht_slab.pinned and eng._ht_slab.tensor.is_pinned()
+            rates = eng._ht_stream.rates()
+            link = _pcie_link()
+            stats.update(host_tier=ht, per_block_bytes=per,
+                         d2h_bytes=eng.ht_d2h_bytes,
+                         h2d_bytes=eng.ht_h2d_bytes, rates=rates,
+                         pcie_link=link,
+                         slab_bytes=eng._ht_slab.tensor.numel())
+            log(f"  host tier: {ht['host_evictions']} blocks spilled and "
+                f"{ht['host_reloads']} reloaded, {per} bytes a block "
+                f"(census exact: d2h {eng.ht_d2h_bytes} B, h2d "
+                f"{eng.ht_h2d_bytes} B); prefetch hits "
+                f"{ht['prefetch_hits']}, misses {ht['prefetch_misses']}; "
+                f"check_two_tier passed; {stats['slab_bytes'] / 2**20:.0f} "
+                f"MiB pinned")
+            for d in ("d2h", "h2d"):
+                r = rates[d]
+                gbs = ("not measured" if r["gb_per_s"] is None
+                       else f"{r['gb_per_s']:.2f} GB/s")
+                log(f"  {d}: {r['bytes']} B in {r['seconds'] * 1e3:.3f} ms "
+                    f"of side-stream copies: {gbs}")
+            log(f"  PCIe link (gen, width): {link}")
+            dev = out["device_only"]
+            vs = {k: stats[k] / dev[k] for k in (
+                "resident_under_backlog", "generated_tokens_per_s",
+                "ttft_s_median", "admitted_under_backlog")}
+            stats["over_device_only"] = vs
+            log(f"  against the device-only engine: resident requests "
+                f"under backlog x{vs['resident_under_backlog']:.3f}, "
+                f"generated tokens/s x{vs['generated_tokens_per_s']:.3f}, "
+                f"median time to first token "
+                f"x{vs['ttft_s_median']:.3f}; tick median "
+                f"{stats['tick_ms_median']:.3f} ms against phase 25's "
+                f"{paged['phase4_prompts']['tick_ms_median']:.3f} ms")
+            log(f"  scheduler counter: admitted requests (suspended "
+                f"included) x{vs['admitted_under_backlog']:.2f} the "
+                f"device-only engine's: two-tier admission fills free "
+                f"slots, it adds no resident request")
+            assert vs["resident_under_backlog"] >= 0.9, \
+                (f"the host tier lowered resident concurrency: "
+                 f"x{vs['resident_under_backlog']:.3f}")
+            assert vs["admitted_under_backlog"] >= 1.5, \
+                (f"two-tier admission did not fill the free slots: "
+                 f"x{vs['admitted_under_backlog']:.2f}")
+            stats["profile"] = _profile_serving("two-tier", eng)
+            eng.run_until_idle()
+        out[label] = stats
+        del eng, reqs
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - allocated_before
+        stats["device_bytes_left_after_delete"] = left
+        log(f"  [{label}] deleting the engine leaves {left} B of device "
+            f"memory allocated against before it was built")
+        if tier is not None:
+            assert left <= LEAK_SLACK_BYTES, \
+                (f"the two-tier engine held {left} B on the card after "
+                 f"it was deleted")
+    out["small_reference"] = two_tier_reference_check(ptt)
+    out["leak_control"] = two_tier_leak_control(ptt)
+    return out
+
+
+def two_tier_leak_control(ptt):
+    """The control of phase 30's device-memory check: a small two-tier
+    engine (phase 5's size, 9 blocks of 4 for 6 slots, so it spills) on
+    the card whose transfer stream is made to keep every job's result,
+    as it once kept its tickets. Deleting the engine must then leave at
+    least the kept staged bytes allocated, and releasing them must give
+    the memory back: the check sees what a kept tensor holds."""
+    import gc
+    import torch
+    from paddle_tpu_torch.framework import offload
+    cuda = ptt.CUDAPlace(0)
+    small = dict(n_slots=6, vocab=97, max_len=32, d_model=64, d_inner=128,
+                 num_heads=4, num_layers=2)
+    prompts = [[(5 * i + j) % small["vocab"] for j in range(n)]
+               for i, n in enumerate((3, 9, 1, 14, 6, 11, 7, 4))]
+    stream = offload.shared_stream(cuda)
+    kept = []
+
+    def keeping(*a, **k):
+        t = offload.TransferStream.submit(stream, *a, **k)
+        kept.append(t.result)
+        return t
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    stream.submit = keeping
+    try:
+        eng = ptt.PagedKVEngine(
+            place=cuda, scope=ptt.Scope(), block_size=4, n_blocks=9,
+            host_tier=ptt.HostTierConfig(host_blocks=64, prefetch_distance=2,
+                                         rotate_quantum=4), **small)
+        for p in prompts:
+            eng.submit(p, 8)
+        eng.run_until_idle()
+        assert eng.pager.host_reloads > 0, "the control never reloaded"
+    finally:
+        del stream.submit
+    del eng
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - before
+    kept_bytes = sum(t.numel() * t.element_size() for t in kept
+                     if isinstance(t, torch.Tensor))
+    kept.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    released = torch.cuda.memory_allocated() - before
+    log(f"  leak control: a stream keeping its {kept_bytes} B of staged "
+        f"reloads leaves {left} B allocated after the engine is deleted, "
+        f"{released} B once they are released")
+    assert 0 < kept_bytes <= left, (kept_bytes, left)
+    assert released <= LEAK_SLACK_BYTES, released
+    return {"kept_bytes": kept_bytes, "left_bytes": left,
+            "released_bytes": released}
+
+
+def two_tier_reference_check(ptt):
+    """Phase 30's small check: two-tier engines (float32 and int8 pools)
+    at phase 5's small size in float32 under pressure (9 blocks of 4 for
+    6 slots), card against CPU from the same weights: identical tokens
+    and the same spills and reloads (the scheduler is host logic); the
+    card's side-stream copies move every pool's rows, the int8 pools'
+    scales with their payloads."""
+    from paddle_tpu_torch.framework.executor import as_numpy
+    small = dict(n_slots=6, vocab=97, max_len=32, d_model=64, d_inner=128,
+                 num_heads=4, num_layers=2)
+    prompts = [[(5 * i + j) % small["vocab"] for j in range(n)]
+               for i, n in enumerate((3, 9, 1, 14, 6, 11, 7, 4))]
+    prev = ptt.flags.get_flag("use_bf16_matmul")
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    out = {}
+    try:
+        seed_eng = ptt.ContinuousBatchingEngine(
+            place=ptt.CUDAPlace(0), scope=ptt.Scope(), **small)
+        params = {p.name: as_numpy(seed_eng.scope.get(p.name))
+                  for p in seed_eng._program.all_parameters()}
+        for kv_quant in (False, True):
+            runs = []
+            for place in (ptt.CUDAPlace(0), ptt.CPUPlace()):
+                eng = ptt.PagedKVEngine(
+                    place=place, kv_quant=kv_quant, block_size=4,
+                    n_blocks=9, scope=ptt.load_numpy_params(
+                        params, ptt.Scope(), place),
+                    host_tier=ptt.HostTierConfig(
+                        host_blocks=64, prefetch_distance=2,
+                        rotate_quantum=4), **small)
+                reqs = [eng.submit(p, 8) for p in prompts]
+                eng.run_until_idle()
+                eng.pager.check_two_tier()
+                st = eng.pager.stats()["host_tier"]
+                runs.append(([r.tokens for r in reqs],
+                             st["host_evictions"], st["host_reloads"]))
+            label = "int8 pools" if kv_quant else "float32 pools"
+            assert runs[0] == runs[1], f"{label}: card {runs[0]} != CPU"
+            assert runs[0][1] > 0, f"{label}: nothing spilled"
+            out[label] = {"host_evictions": runs[0][1],
+                          "host_reloads": runs[0][2]}
+            log(f"  small two-tier engine, {label}, float32: card and CPU "
+                f"generate identical tokens ({len(prompts)} requests), "
+                f"{runs[0][1]} blocks spilled and {runs[0][2]} reloaded "
+                f"on both")
+    finally:
+        ptt.flags.set_flag("use_bf16_matmul", prev)
+    return out
+
+
+def sanitize_and_trace(ptt, kernels, base):
+    """Phase 31: phase 30's two-tier engine on 16 of phase 4's prompts
+    with kv_sanitize on (the sanitizer attached at construction): zero
+    divergences, ops mirrored, and phase 4's tokens. Then phase 4's slot
+    engine for 20 ticks with trace on: aggregate() of the tick, dispatch
+    and admission spans and the spans' cost per tick."""
+    import torch
+    from paddle_tpu_torch.observability import tracing
+    cuda = ptt.CUDAPlace(0)
+    n = SANITIZE["prompts"]
+    prev = ptt.flags.get_flag("kv_sanitize")
+    ptt.flags.set_flag("kv_sanitize", True)
+    try:
+        eng = ptt.PagedKVEngine(
+            place=cuda, scope=_fresh_scope(ptt, base),
+            host_tier=ptt.HostTierConfig(**HOST_TIER),
+            block_size=PAGED["block_size"], n_blocks=TWO_TIER["n_blocks"],
+            **SERVE)
+    finally:
+        ptt.flags.set_flag("kv_sanitize", prev)
+    san = eng.pager.sanitizer
+    assert san is not None, "kv_sanitize on, but no sanitizer attached"
+    kernels.reset_launch_counts()
+    reqs, wall = _run_requests(eng, base["prompts"][:n])
+    launches = kernels.LAUNCHES["decode_attention"]
+    assert launches == eng.n_ticks * SERVE["num_layers"], launches
+    got = [list(r.tokens) for r in reqs]
+    assert got == base["tokens"][:n], "sanitized tokens differ from phase 4"
+    san.verify_full("phase 31")
+    eng.pager.check_two_tier()
+    sst = san.stats()
+    ht = eng.pager.stats()["host_tier"]
+    assert sst["ops_mirrored"] > 0 and sst["tables_live"] == 0, sst
+    out = {"sanitizer": dict(sst, divergences=0, launches=launches,
+                             ticks=eng.n_ticks, wall_s=wall,
+                             host_evictions=ht["host_evictions"],
+                             host_reloads=ht["host_reloads"])}
+    log(f"  sanitized two-tier engine: {n} requests in {eng.n_ticks} ticks, "
+        f"{wall:.3f} s; {sst['ops_mirrored']} ops mirrored, "
+        f"{sst['full_checks']} full checks, 0 divergences; "
+        f"{ht['host_evictions']} blocks spilled, {ht['host_reloads']} "
+        f"reloaded; phase 4's tokens")
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = ptt.ContinuousBatchingEngine(place=cuda,
+                                       scope=_fresh_scope(ptt, base),
+                                       **SERVE)
+    prev = ptt.flags.get_flag("trace")
+    ptt.flags.set_flag("trace", True)
+    try:
+        for p in base["prompts"][:SERVE["n_slots"]]:
+            eng.submit(p, MAX_NEW)
+        for _ in range(2):
+            eng.step()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        ticks0 = eng.n_ticks
+        mark = tracing.mark()
+        for _ in range(SANITIZE["trace_ticks"]):
+            eng.step()
+        torch.cuda.synchronize()
+        spans = tracing.spans_since(mark)
+        ticks = eng.n_ticks - ticks0
+        launches_trace = kernels.LAUNCHES["decode_attention"]
+        assert launches_trace == ticks * SERVE["num_layers"]
+        agg = tracing.aggregate(spans)
+        per_span = tracing.span_overhead_s()
+        eng.run_until_idle()
+    finally:
+        ptt.flags.set_flag("trace", prev)
+    per_tick = len(spans) / ticks
+    rows = {k: agg[k] for k in ("engine/tick", "engine/dispatch",
+                                "engine/admit")}
+    for k, r in rows.items():
+        log(f"  span {k}: {r['calls']} calls, mean {r['avg_ms']:.3f} ms, "
+            f"max {r['max_ms']:.3f} ms")
+    overhead = per_tick * per_span
+    log(f"  {len(spans)} spans in {ticks} ticks ({per_tick:.1f} a tick); a "
+        f"span costs {per_span * 1e6:.2f} us on the host here, so "
+        f"{overhead * 1e6:.1f} us a tick, "
+        f"{overhead / (rows['engine/tick']['avg_ms'] / 1e3):.4f} of the "
+        f"tick span's mean")
+    out["tracing"] = {"ticks": ticks, "spans": len(spans),
+                      "spans_per_tick": per_tick,
+                      "span_cost_us": per_span * 1e6,
+                      "overhead_us_per_tick": overhead * 1e6,
+                      "aggregate": rows, "launches": launches_trace}
+    return out
 
 
 def reference_check(ptt):
@@ -4028,6 +4538,21 @@ def main():
            "speculative engines, card against CPU")
     paths["paged_quant_spec_reference"] = \
         paged_quant_spec_reference_check(ptt)
+    torch.cuda.empty_cache()
+
+    _phase("phase 29: serve through EngineServer (4 clients, /metrics, "
+           "/healthz, drain)")
+    paths["server"] = serve_server(ptt, kernels, base)
+    torch.cuda.empty_cache()
+
+    _phase("phase 30: two-tier paging to pinned host memory (65 device "
+           "blocks, 256 host blocks)")
+    paths["two_tier"] = serve_two_tier(ptt, kernels, base,
+                                       paths["paged_serve"])
+
+    _phase("phase 31: the KV sanitizer on the two-tier engine, and "
+           "tracing spans")
+    paths["sanitize_trace"] = sanitize_and_trace(ptt, kernels, base)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -4044,6 +4569,16 @@ def main():
     # both engines); the int8 route's in phase 3's checks
     results["decode_attention"]["launches_multi"] = sum(
         paths["spec_serve"][e]["launches_multi"] for e in ("slot", "paged"))
+    # decode attention on the server, two-tier and sanitized/traced paths
+    # (phases 29-31), each counted from zero around its run
+    results["decode_attention"]["launches_server"] = \
+        paths["server"]["launches"]
+    results["decode_attention"]["launches_two_tier"] = \
+        paths["two_tier"]["two_tier"]["launches"]
+    results["decode_attention"]["launches_sanitized"] = \
+        paths["sanitize_trace"]["sanitizer"]["launches"]
+    results["decode_attention"]["launches_traced"] = \
+        paths["sanitize_trace"]["tracing"]["launches"]
     launches["decode_attention_multi"] = \
         results["decode_attention"]["launches_multi"]
     launches["decode_attention_int8"] = \
@@ -4057,6 +4592,9 @@ def main():
             for lv in ("plain", "level0", "level1")}
     for k, n in launches.items():
         assert n > 0, f"kernel {k} was never launched on its path"
+    for k in ("server", "two_tier", "sanitized", "traced"):
+        assert results["decode_attention"][f"launches_{k}"] > 0, \
+            f"decode_attention was never launched on the {k} path"
     results["flash_fwd"]["launches_tc_transformer_base_infer"] = \
         paths["transformer_base_infer"]["flash_fwd_tc_launches"]
     del launches["decode_attention_multi"], launches["decode_attention_int8"]

@@ -10,8 +10,10 @@ paddle_tpu.
 
 Ported so far: the serving path (`ContinuousBatchingEngine` over
 `transformer_lm_decode_tick`, with the fused decode-attention kernel, and
-the paged KV engine, weight-quantized and speculative serving and
-`paged_beam_search` over it); the training step (`transformer_lm` and the encoder-decoder `transformer`,
+the paged KV engine with its pinned host tier, weight-quantized and
+speculative serving and `paged_beam_search` over it; `EngineServer` /
+`EngineClient` with /metrics and /healthz, `PredictorServer`, the span
+ring, the memory watermarks and the KV sanitizer); the training step (`transformer_lm` and the encoder-decoder `transformer`,
 `optimizer.Adam(...).minimize(loss)` through `append_backward` on
 torch.autograd, with the flash-attention forward and backward kernels,
 dropout, gradient clipping, weight decay and the learning-rate
@@ -45,7 +47,9 @@ from .io import (load_inference_model, load_numpy_params,  # noqa: F401,E402
                  load_params, load_persistables, load_vars,
                  save_inference_model, save_params, save_persistables,
                  save_vars)
+from . import serving_engine  # noqa: F401,E402
 from .serving import (ContinuousBatchingEngine,  # noqa: F401,E402
+                      EngineClient, EngineServer, HostTierConfig,
                       PagedKVEngine, SpecConfig, paged_beam_search)
 from .trainer import (BeginEpochEvent, BeginStepEvent,  # noqa: F401,E402
                       CheckpointConfig, EndEpochEvent, EndStepEvent,

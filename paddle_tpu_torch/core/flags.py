@@ -119,7 +119,22 @@ define_bool("quant_params", True,
             "PTPU_QUANT_PARAMS=0 serves full f32 weights — the escape hatch "
             "if quantization ever hurts decode quality in production.")
 define_bool("kv_sanitize", False,
-            "Shadow-state KV sanitizer of the paged KV pager "
-            "(≙ paddle_tpu's serving/sanitizer.py). Not ported yet: a "
-            "KVPager built while it is on raises NotImplementedError "
-            "naming ROADMAP.md §1 item 2, instead of running unchecked.")
+            "Shadow-state KV sanitizer (serving/sanitizer.py): mirror "
+            "every BlockPool/KVPager/host-tier mutation into the abstract "
+            "ownership model (framework/ownership.py) and raise "
+            "SanitizerDivergence naming the op, block, and invariant on "
+            "the first drift. Off by default (the shadow bookkeeping costs "
+            "a few percent of the host tick loop); tests/conftest.py pins "
+            "it on for the test suite through PTPU_KV_SANITIZE=1. Read at "
+            "KVPager construction (attach-or-None).")
+define_bool("trace", True,
+            "Structured step tracing (observability/tracing.py): typed "
+            "nested spans (compile/step/tick/admission/dispatch/request/"
+            "feed_fetch/speculate/verify/offload) recorded into the "
+            "in-process ring buffer, exportable as a Chrome trace or "
+            "aggregate tables. Kill switch: PTPU_TRACE=0 makes every span "
+            "a no-op.")
+define_int("trace_ring", 65536,
+           "Capacity of the span ring buffer (observability/tracing.py). "
+           "Oldest spans are overwritten; the buffer is preallocated so "
+           "recording never allocates on the hot path.")

@@ -13,7 +13,12 @@ carries over:
 - `Executor.prepare` → `PreparedStep` with `run`, `bind`, `refresh_state`
   and `run_bound` for the serving engine's tick;
 - feed staging: a data var declared with a staging dtype may be fed in
-  it (uint8 images), and is cast and scaled on the device.
+  it (uint8 images), and is cast and scaled on the device;
+- the JAX executor's spans (`executor/trace_and_compile` around the plan
+  build, `executor/feed`, `executor/run`, `executor/state_writeback`)
+  and its `device_state_bytes` watermark, on `Executor.run`. The bound
+  tick (`PreparedStep.run_bound`) records none, as in the JAX package:
+  the serving engine's own spans cover it.
 
 What differs: persistable state that an op reads and rewrites is updated
 IN PLACE on the device — an op whose output variable is the one it reads
@@ -38,6 +43,8 @@ from ..core import flags
 from ..core.dtypes import dtype_name
 from ..core.enforce import NotFoundError
 from ..core.places import Place, resolve_device
+from ..observability import memory as _memory
+from ..observability import tracing as _tracing
 from .lowering import build_plan, run_plan
 from .program import Program, Variable, default_main_program
 from .registry import LowerCtx
@@ -110,6 +117,7 @@ class _Plan:
             (n, block.vars[n].dtype, block.vars[n].staging)
             for n in feed_names
             if n in block.vars and block.vars[n].staging is not None)
+        self.census_state_bytes = None     # Executor._note_run_memory
         self.read_names = frozenset(
             {n for blk in program.blocks for op in blk.ops
              for n in op.input_names()}
@@ -296,8 +304,13 @@ class Executor:
                self._scope_avail_key(program, scope), _fusion_flags_key())
         plan = self._cache.get(key)
         if plan is None:
-            plan = self._build_plan(program, scope, list(feed.keys()),
-                                    fetch_names)
+            # the span keeps the JAX package's name: here it covers the
+            # plan build (fusion passes on a clone + the state analysis)
+            with _tracing.span("compile", "executor/trace_and_compile",
+                               program_version=program._version,
+                               n_fetches=len(fetch_names)):
+                plan = self._build_plan(program, scope, list(feed.keys()),
+                                        fetch_names)
             self._cache[key] = plan
         return plan
 
@@ -310,6 +323,14 @@ class Executor:
 
     def _execute(self, plan: _Plan, feed_vals, ro_vals, rw_vals,
                  scope: Scope, random_seed: int):
+        env = self._run_env(plan, feed_vals, ro_vals, rw_vals, random_seed)
+        self._write_back(plan, env, scope)
+        return tuple(env[n] for n in plan.fetch_names)
+
+    def _run_env(self, plan: _Plan, feed_vals, ro_vals, rw_vals,
+                 random_seed: int) -> Dict[str, Any]:
+        """Run the plan's ops over the state and feeds; returns the
+        environment (every value the plan defined, by name)."""
         self._run_counter += 1
         ctx = LowerCtx(device=self.device,
                        seed=_run_seed(random_seed, self._run_counter),
@@ -325,12 +346,27 @@ class Executor:
             env[name] = _unstage(name, env[name], dtype, staging)
         with torch.no_grad():
             run_plan(plan.ops, env, ctx)
-        # scope write-back: read-write state was updated in place, so this
-        # re-stores the same tensors; write-only state lands here
+        return env
+
+    @staticmethod
+    def _write_back(plan: _Plan, env: Dict[str, Any], scope: Scope):
+        """Scope write-back: read-write state was updated in place, so
+        this re-stores the same tensors; write-only state lands here."""
         sv = scope._vars
         for name in plan.state_out_names:
             sv[name] = env[name]
-        return tuple(env[n] for n in plan.fetch_names)
+
+    @staticmethod
+    def _note_run_memory(plan: _Plan, ro_vals, rw_vals):
+        """The `device_state_bytes` watermark: the plan's state bytes,
+        counted once per plan from the tensors' metadata (state shapes
+        are fixed by the plan), re-stamped each run (≙ the JAX executor's
+        `_note_run_memory`)."""
+        sb = plan.census_state_bytes
+        if sb is None:
+            sb = plan.census_state_bytes = sum(
+                _memory.per_device_bytes(v) for v in ro_vals + rw_vals)
+        _memory.update_watermark("device_state_bytes", sb)
 
     def run(self,
             program: Optional[Program] = None,
@@ -345,11 +381,21 @@ class Executor:
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
         plan = self._lookup_or_plan(program, feed, fetch_names, scope)
-        feed_vals = tuple(self._to_device(feed[n]) for n in plan.feed_names)
-        ro_vals = tuple(scope.get(n) for n in plan.ro_names)
-        rw_vals = tuple(scope.get(n) for n in plan.rw_names)
-        fetches = self._execute(plan, feed_vals, ro_vals, rw_vals, scope,
+        with _tracing.span("feed_fetch", "executor/feed",
+                           n_feeds=len(plan.feed_names)):
+            feed_vals = tuple(self._to_device(feed[n])
+                              for n in plan.feed_names)
+            ro_vals = tuple(scope.get(n) for n in plan.ro_names)
+            rw_vals = tuple(scope.get(n) for n in plan.rw_names)
+        with _tracing.span("step", "executor/run",
+                           program_version=program._version):
+            env = self._run_env(plan, feed_vals, ro_vals, rw_vals,
                                 program.random_seed)
+        with _tracing.span("feed_fetch", "executor/state_writeback",
+                           n_state=len(plan.state_out_names)):
+            self._write_back(plan, env, scope)
+        self._note_run_memory(plan, ro_vals, rw_vals)
+        fetches = tuple(env[n] for n in plan.fetch_names)
         if return_numpy:
             return [as_numpy(f) for f in fetches]
         return list(fetches)

@@ -1,0 +1,718 @@
+"""Block-lifetime ownership model of the paged-KV serving protocol.
+
+≙ paddle_tpu/framework/ownership.py (a copy: the module is a pure-Python
+model and model checker). The paged-KV protocol — `BlockPool` refcounts,
+radix-index pins, CoW beam forks, speculative rollback, two-tier
+spill/prefetch — is stateful host-side code whose invariants a `check()`
+only samples. Here every operation is a declarative transition
+(pre/postconditions over an abstract state of refcounts, free list,
+index pins and device/host residency), every named invariant is a
+diagnostic code, and a depth-bounded exhaustive model checker
+(`ModelChecker`) enumerates ALL op interleavings over a small pool and
+proves the shipped protocol clean — or names the op, block and
+invariant a seeded mutation breaks.
+
+Two consumers:
+
+- `ModelChecker` — static exhaustive exploration at small scope (the
+  mutation matrix in tests/test_torch_ownership.py);
+- `serving/sanitizer.py` — the runtime shadow: it mirrors every real
+  `BlockPool`/`KVPager` mutation into an `AbstractState` and raises
+  `OwnershipViolation` on divergence (`PTPU_KV_SANITIZE=1`).
+
+The abstraction is exact, not approximate: the model's transitions are
+line-by-line mirrors of `serving/kv_pager.py` (try_admit's pin-first /
+rollback-on-dry order, note_block_filled's full-prompt-block gate,
+rollback's ceil/floor block arithmetic, evict_table_to_host's
+content-bearing host charge). The one deliberate reduction is the
+radix index: the checker models a SINGLE prompt family, so the tree
+degenerates to one chain (`index_chain`) whose LRU leaf is the tail —
+interleavings across distinct prefixes add blocks but no new
+transition structure.
+"""
+
+from typing import Dict, List, Optional, Tuple
+
+from ..core.enforce import InvalidArgumentError
+
+__all__ = [
+    "DIAGNOSTICS", "MUTATIONS", "OwnershipViolation", "TableState",
+    "AbstractState", "ModelChecker", "CheckResult",
+]
+
+# ---------------------------------------------------------------------------
+# diagnostic catalog — the named invariants (every code has exactly
+# one meaning, one trigger and one mutation test)
+# ---------------------------------------------------------------------------
+
+DIAGNOSTICS: Dict[str, str] = {
+    "kv-accounting-identity":
+        "used + free != n_blocks - 1 (or the null block 0 left the "
+        "reserved state) — the device pool lost or invented a block",
+    "kv-free-refcount":
+        "a block is on the free list with refcount > 0, or off it "
+        "with refcount 0 — free-iff-refcount-0 broken",
+    "kv-use-after-free":
+        "an operation touched a block whose refcount is 0 (alloc of a "
+        "live block, share/write of a freed one, or a table mapping a "
+        "block it no longer holds)",
+    "kv-double-free":
+        "release of a block that is already free (or of the reserved "
+        "null block 0)",
+    "kv-write-shared-block":
+        "a cache write targeted a block with refcount > 1 — CoW "
+        "violation: shared content mutated in place under every other "
+        "holder",
+    "kv-block-leak":
+        "a block's refcount exceeds its holders (live block-table "
+        "entries + radix-index pins) — some release was skipped and "
+        "the block can never return to the free list",
+    "kv-double-spill":
+        "evict_table_to_host on a table that is already host-resident "
+        "— the second spill would double-charge the host tier and "
+        "snapshot dead (zeroed) mappings",
+    "kv-host-accounting":
+        "the host-tier ledger went negative, exceeded host_blocks, or "
+        "disagrees with the sum of live spill records — the two-tier "
+        "identity used_dev+used_host+free_dev+free_host == total broke",
+    "kv-prefetch-after-use":
+        "spilled content was committed/consumed before its transfer "
+        "ticket arrived — offload-use-before-arrival at the block "
+        "granularity (a resume would scatter stale or torn rows)",
+    "serving-cache-write-alias":
+        "a tick-program cache write breaks the donated in-place "
+        "contract: the pool var is written more than once per tick, or "
+        "a persistable pool's write lands in a forked temporary while "
+        "readers keep gathering the stale pool",
+    "serving-cache-stale-read":
+        "an op still reads the old pool var after the tick's cache "
+        "write forked it into a different output var — the consumer "
+        "sees last tick's rows for the position being decoded",
+    "offload-stale-after-rollback":
+        "a transfer issued before a speculative rollback is consumed "
+        "after it — the staged bytes snapshot rejected-span content "
+        "the rollback already remapped",
+}
+
+# the seeded protocol mutations and the diagnostic each MUST be caught
+# by (by name), both statically by the checker and dynamically by the
+# sanitizer
+MUTATIONS: Dict[str, str] = {
+    "leaked-release": "kv-block-leak",
+    "write-shared-block": "kv-write-shared-block",
+    "prefetch-after-use": "kv-prefetch-after-use",
+    "rollback-double-free": "kv-double-free",
+}
+
+
+class OwnershipViolation(InvalidArgumentError):
+    """A named protocol-invariant breach: `code` is a DIAGNOSTICS key,
+    `op` the transition that tripped it, `block` the physical block
+    involved (None for whole-state invariants)."""
+
+    def __init__(self, code: str, op: str, message: str,
+                 block: Optional[int] = None):
+        assert code in DIAGNOSTICS, code
+        self.code = code
+        self.op = op
+        self.block = block
+        self.invariant = DIAGNOSTICS[code]
+        self.raw_message = message      # re-wrappable (SanitizerDivergence)
+        at = f" block {block}" if block is not None else ""
+        super().__init__(f"[{code}] op {op}{at}: {message}")
+
+
+# ---------------------------------------------------------------------------
+# abstract state
+# ---------------------------------------------------------------------------
+
+
+class TableState:
+    """One request's abstract block table: the logical->physical map
+    (0 = dead mapping while spilled), the read-only shared prefix, the
+    write frontier, and host-tier residency."""
+
+    __slots__ = ("blocks", "n_shared", "shared_len", "written_len",
+                 "prompt_len", "spilled", "arrived", "forked")
+
+    def __init__(self, blocks: List[int], n_shared: int, shared_len: int,
+                 prompt_len: int):
+        self.blocks = list(blocks)
+        self.n_shared = int(n_shared)
+        self.shared_len = int(shared_len)
+        self.written_len = int(shared_len)   # writes resume after the
+        #                                      shared span (engine: fed)
+        self.prompt_len = int(prompt_len)
+        self.spilled: Optional[List[int]] = None  # logical js on host
+        self.arrived = True                  # transfer ticket landed
+        self.forked = False                  # holds fork-shared blocks
+
+    def clone(self) -> "TableState":
+        t = TableState(self.blocks, self.n_shared, self.shared_len,
+                       self.prompt_len)
+        t.written_len = self.written_len
+        t.spilled = None if self.spilled is None else list(self.spilled)
+        t.arrived = self.arrived
+        t.forked = self.forked
+        return t
+
+    def key(self) -> tuple:
+        return (tuple(self.blocks), self.n_shared, self.shared_len,
+                self.written_len, self.prompt_len,
+                None if self.spilled is None else tuple(self.spilled),
+                self.arrived, self.forked)
+
+
+class AbstractState:
+    """The declarative pager state: per-block refcounts + free list
+    (device tier), the single-family radix chain, per-table records and
+    the host-tier ledger. Primitive transitions (`alloc_at`, `share`,
+    `release`, `note_write`) carry the per-op preconditions; composed
+    protocol transitions (`admit` .. `reload`) mirror `KVPager` method
+    for method; `check_invariants` proves the whole-state identities.
+
+    Every precondition failure raises `OwnershipViolation` with the
+    diagnostic code the catalog assigns — this class never asserts
+    anonymously."""
+
+    def __init__(self, n_blocks: int, block_size: int,
+                 host_blocks: int = 0):
+        assert n_blocks >= 2 and block_size >= 1
+        self.n_blocks = int(n_blocks)
+        self.block_size = int(block_size)
+        self.host_blocks = int(host_blocks)
+        self.ref = [0] * self.n_blocks        # ref[0] stays 0 (null)
+        self.free = set(range(1, self.n_blocks))
+        self.index_chain: List[int] = []      # checker's radix reduction
+        self.tables: Dict[int, TableState] = {}
+        self.host_used = 0
+
+    # -- primitives (the sanitizer mirrors real pool calls onto these) --
+    def alloc_at(self, block: int, op: str = "alloc"):
+        """The pool handed out `block` (refcount 0 -> 1)."""
+        b = int(block)
+        if not (0 < b < self.n_blocks) or b not in self.free:
+            raise OwnershipViolation(
+                "kv-use-after-free", op,
+                f"alloc returned block {b} which is "
+                f"{'the reserved null block' if b == 0 else 'not free'} "
+                f"(refcount {self.ref[b] if 0 <= b < self.n_blocks else '?'})",
+                block=b)
+        self.free.discard(b)
+        self.ref[b] = 1
+
+    def share(self, block: int, op: str = "share"):
+        b = int(block)
+        if not (0 < b < self.n_blocks) or self.ref[b] <= 0:
+            raise OwnershipViolation(
+                "kv-use-after-free", op,
+                f"share of unallocated block {b}", block=b)
+        self.ref[b] += 1
+
+    def release(self, block: int, op: str = "release") -> bool:
+        b = int(block)
+        if not (0 < b < self.n_blocks) or self.ref[b] <= 0:
+            raise OwnershipViolation(
+                "kv-double-free", op,
+                f"release of {'null block 0' if b == 0 else f'block {b}'}"
+                f" with refcount "
+                f"{self.ref[b] if 0 < b < self.n_blocks else 0}", block=b)
+        self.ref[b] -= 1
+        if self.ref[b] == 0:
+            self.free.add(b)
+            return True
+        return False
+
+    def note_write(self, blocks: List[int], pos: int,
+                   op: str = "write") -> int:
+        """One cache row lands at token position `pos` of a table whose
+        physical map is `blocks`. The CoW contract: the target block
+        must be held exactly once (refcount 1) — shared blocks are
+        read-only to every holder."""
+        b = blocks[pos // self.block_size]
+        if b == 0 or self.ref[b] == 0:
+            raise OwnershipViolation(
+                "kv-use-after-free", op,
+                f"write at position {pos} targets "
+                f"{'the dead (spilled) mapping' if b == 0 else f'freed block {b}'}",
+                block=b)
+        if self.ref[b] > 1:
+            raise OwnershipViolation(
+                "kv-write-shared-block", op,
+                f"write at position {pos} targets block {b} with "
+                f"refcount {self.ref[b]} — shared content mutated in "
+                f"place", block=b)
+        return b
+
+    def host_charge(self, n: int, op: str):
+        if self.host_used + n > self.host_blocks:
+            raise OwnershipViolation(
+                "kv-host-accounting", op,
+                f"host charge of {n} blocks exceeds capacity "
+                f"({self.host_used} used of {self.host_blocks})")
+        self.host_used += n
+
+    def host_refund(self, n: int, op: str):
+        if n > self.host_used:
+            raise OwnershipViolation(
+                "kv-host-accounting", op,
+                f"host refund of {n} blocks underflows the ledger "
+                f"({self.host_used} used)")
+        self.host_used -= n
+
+    # -- composed protocol transitions (mirrors of KVPager) -------------
+    def _alloc_or_evict(self, op: str) -> Optional[int]:
+        """KVPager._alloc_or_evict over the single-family chain:
+        allocate, evicting LRU index leaves (chain tail) under
+        pressure; None when dry even after the index is empty."""
+        while True:
+            if self.free:
+                b = min(self.free)           # deterministic pick; block
+                #                              identity is symmetric
+                self.alloc_at(b, op)
+                return b
+            if not self.index_chain:
+                return None
+            self.release(self.index_chain.pop(), op=op + "/evict-index")
+
+    def admit(self, tid: int, prompt_len: int, need_len: int,
+              mutation: Optional[str] = None) -> bool:
+        """try_admit: pin the matched prefix chain FIRST, then allocate
+        the private remainder; full rollback (shares released) on dry.
+        The shared span is capped at block-aligned prompt_len-1 so the
+        first write always lands in a private block."""
+        op = f"admit(t{tid})"
+        bs = self.block_size
+        n_logical = -(-need_len // bs)
+        max_shared = (prompt_len - 1) // bs
+        chain = self.index_chain[:min(max_shared, n_logical)]
+        blocks: List[int] = []
+        for b in chain:
+            self.share(b, op)
+            blocks.append(b)
+        for _ in range(n_logical - len(chain)):
+            b = self._alloc_or_evict(op)
+            if b is None:                    # rollback, stay pending
+                for held in blocks:
+                    self.release(held, op)
+                return False
+            blocks.append(b)
+        rec = TableState(blocks, len(chain), len(chain) * bs, prompt_len)
+        if mutation == "write-shared-block" and rec.n_shared:
+            # seeded off-by-one: the write frontier replays the LAST
+            # shared block's positions instead of starting after them
+            rec.written_len = (rec.n_shared - 1) * bs
+        self.tables[tid] = rec
+        return True
+
+    def write(self, tid: int, mutation: Optional[str] = None):
+        """One tick's cache write at the table's frontier, plus
+        note_block_filled: a just-completed FULL PROMPT block (not
+        itself served from the index) is offered to the prefix chain,
+        which takes its own retention ref."""
+        rec = self.tables[tid]
+        op = f"write(t{tid})"
+        pos = rec.written_len
+        self.note_write(rec.blocks, pos, op)
+        rec.written_len = pos + 1
+        bs = self.block_size
+        if (pos + 1) % bs:
+            return
+        j = pos // bs                        # block just filled
+        if j < rec.n_shared or (j + 1) * bs > rec.prompt_len:
+            return                           # not a sharable prompt block
+        if j == len(self.index_chain):       # ancestor chain intact,
+            self.index_chain.append(rec.blocks[j])   # node is new
+            self.share(rec.blocks[j], op + "/register")
+
+    def fork(self, tid: int, new_tid: int) -> bool:
+        """Beam fork: share fully-written blocks, CoW the partial
+        divergence block, fresh private blocks for the remainder;
+        helds released on dry (KVPager.fork raises there — the model
+        folds that into a refusal, the release path is identical)."""
+        rec = self.tables[tid]
+        op = f"fork(t{tid}->t{new_tid})"
+        n_full, rem = divmod(rec.written_len, self.block_size)
+        blocks: List[int] = []
+        for j, b in enumerate(rec.blocks):
+            if j < n_full:
+                self.share(b, op)
+                blocks.append(b)
+                continue
+            nb = self._alloc_or_evict(op)
+            if nb is None:
+                for held in blocks:
+                    self.release(held, op)
+                return False
+            blocks.append(nb)
+        child = TableState(blocks, rec.n_shared, rec.shared_len,
+                           rec.prompt_len)
+        child.written_len = rec.written_len
+        child.forked = rec.forked = True
+        self.tables[new_tid] = child
+        return True
+
+    def release_table(self, tid: int, mutation: Optional[str] = None):
+        """Completion: drop the table's ref on every live mapping
+        (dead/spilled entries are 0 and skipped) and refund any host
+        charge the spill record still holds (_release_request)."""
+        rec = self.tables[tid]
+        op = f"release(t{tid})"
+        live = [b for b in rec.blocks if b]
+        if mutation == "leaked-release" and live:
+            live = live[:-1]                 # seeded bug: one release
+            #                                  skipped, record dropped
+        for b in live:
+            self.release(b, op)
+        if rec.spilled:
+            self.host_refund(len(rec.spilled), op)
+        del self.tables[tid]
+
+    def rollback(self, tid: int, keep_len: int,
+                 mutation: Optional[str] = None):
+        """Speculative rejection: every block FULLY inside
+        [keep_len, written_len) is released (must free — written blocks
+        are private by the admission cap) and remapped fresh; the
+        boundary block holding keep_len-1 stays."""
+        rec = self.tables[tid]
+        op = f"rollback(t{tid},keep={keep_len})"
+        bs = self.block_size
+        first = -(-keep_len // bs)
+        last = (rec.written_len - 1) // bs
+        for j in range(first, min(last + 1, len(rec.blocks))):
+            freed = self.release(rec.blocks[j], op)
+            if mutation == "rollback-double-free":
+                self.release(rec.blocks[j], op)   # seeded copy-paste bug
+            if not freed:
+                raise OwnershipViolation(
+                    "kv-write-shared-block", op,
+                    f"rollback hit shared block {rec.blocks[j]} "
+                    f"(logical {j}) — writes must never land in shared "
+                    f"blocks", block=rec.blocks[j])
+            nb = self._alloc_or_evict(op)
+            assert nb is not None            # release-first guarantees
+            rec.blocks[j] = nb
+        rec.written_len = keep_len
+
+    def spill(self, tid: int) -> bool:
+        """evict_table_to_host: release every private device block,
+        zero its mapping, charge the content-bearing ones to the host
+        tier; shared prefix blocks stay pinned on device. Refused
+        (False, no state change) when the host tier cannot hold the
+        content. The in-flight d2h means the content has NOT arrived
+        anywhere consumable yet — `arrived` clears until the stream
+        ticket lands."""
+        rec = self.tables[tid]
+        op = f"spill(t{tid})"
+        if rec.spilled is not None:
+            raise OwnershipViolation(
+                "kv-double-spill", op,
+                f"table t{tid} is already host-resident "
+                f"(spilled blocks {rec.spilled})")
+        bs = self.block_size
+        n_content = -(-rec.written_len // bs)
+        spilled = list(range(rec.n_shared,
+                             min(n_content, len(rec.blocks))))
+        if self.host_used + len(spilled) > self.host_blocks:
+            return False
+        for j in range(rec.n_shared, len(rec.blocks)):
+            self.release(rec.blocks[j], op)
+            rec.blocks[j] = 0
+        self.host_used += len(spilled)
+        rec.spilled = spilled
+        rec.arrived = not spilled            # empty spill: nothing in
+        #                                      flight on the stream
+        return True
+
+    def arrive(self, tid: int):
+        """The transfer stream completed this table's d2h+h2d chain —
+        the staged bytes are now consumable."""
+        self.tables[tid].arrived = True
+
+    def reload(self, tid: int, wait: bool = True) -> bool:
+        """reload_table_from_host: re-acquire a device block per
+        private entry (alloc-or-rollback), refund the host charge, and
+        COMMIT the staged content into the cache arrays. The correct
+        protocol orders the commit after the transfer ticket
+        (`wait=True` == `TransferTicket.wait_on(compute_stream)`, or a
+        host `wait()`); committing without that is the
+        prefetch-after-use bug."""
+        rec = self.tables[tid]
+        op = f"reload(t{tid})"
+        got: List[int] = []
+        for j in range(rec.n_shared, len(rec.blocks)):
+            b = self._alloc_or_evict(op)
+            if b is None:                    # roll back, stay suspended
+                for held in got:
+                    self.release(held, op)
+                return False
+            got.append(b)
+        for j, b in zip(range(rec.n_shared, len(rec.blocks)), got):
+            rec.blocks[j] = b
+        self.host_refund(len(rec.spilled), op)
+        if rec.spilled:
+            if wait:
+                rec.arrived = True           # ticket.wait()
+            if not rec.arrived:
+                raise OwnershipViolation(
+                    "kv-prefetch-after-use", op,
+                    f"h2d commit for table t{tid} ran before its "
+                    f"transfer ticket arrived — the scatter would "
+                    f"write stale or torn rows")
+        rec.spilled = None
+        return True
+
+    # -- whole-state invariants -----------------------------------------
+    def check_invariants(self, op: str = "check",
+                         pins: Optional[Dict[int, int]] = None,
+                         detached_host: int = 0):
+        """The named identities over the full state. `pins` maps
+        block -> index-pin multiplicity; defaults to the checker's
+        single-family chain (the sanitizer passes a walk of the real
+        radix tree). `detached_host` covers host blocks whose spill
+        record was dropped but whose ledger refund is still pending —
+        the window between `KVPager.release` and
+        `refund_host_charge` inside `_release_request`."""
+        n = self.n_blocks
+        if self.ref[0] != 0 or 0 in self.free:
+            raise OwnershipViolation(
+                "kv-accounting-identity", op,
+                "null block 0 left the reserved state "
+                f"(refcount {self.ref[0]}, on-free-list {0 in self.free})",
+                block=0)
+        n_live = sum(1 for b in range(1, n) if self.ref[b] > 0)
+        if n_live + len(self.free) != n - 1:
+            raise OwnershipViolation(
+                "kv-accounting-identity", op,
+                f"used({n_live}) + free({len(self.free)}) != {n - 1}")
+        for b in range(1, n):
+            if (self.ref[b] == 0) != (b in self.free):
+                raise OwnershipViolation(
+                    "kv-free-refcount", op,
+                    f"block {b}: refcount {self.ref[b]} vs free-list "
+                    f"membership {b in self.free}", block=b)
+        if pins is None:
+            pins = {}
+            for b in self.index_chain:
+                pins[b] = pins.get(b, 0) + 1
+        holders = dict(pins)
+        for tid, rec in self.tables.items():
+            for b in rec.blocks:
+                if b:
+                    holders[b] = holders.get(b, 0) + 1
+        for b in range(1, n):
+            h = holders.get(b, 0)
+            if self.ref[b] > h:
+                raise OwnershipViolation(
+                    "kv-block-leak", op,
+                    f"block {b} refcount {self.ref[b]} exceeds its "
+                    f"{h} holder(s) — a release was skipped", block=b)
+            if self.ref[b] < h:
+                raise OwnershipViolation(
+                    "kv-use-after-free", op,
+                    f"block {b} has {h} holder(s) but refcount "
+                    f"{self.ref[b]} — a table maps a block it no "
+                    f"longer holds", block=b)
+        if not (0 <= self.host_used <= self.host_blocks):
+            raise OwnershipViolation(
+                "kv-host-accounting", op,
+                f"host ledger {self.host_used} outside "
+                f"[0, {self.host_blocks}]")
+        spill_sum = sum(len(rec.spilled) for rec in self.tables.values()
+                        if rec.spilled is not None) + detached_host
+        if spill_sum != self.host_used:
+            raise OwnershipViolation(
+                "kv-host-accounting", op,
+                f"host ledger {self.host_used} != {spill_sum} blocks "
+                f"across live spill records")
+        # two-tier identity: device used+free plus
+        # the host split must cover exactly total capacity
+        used_host, free_host = self.host_used, \
+            self.host_blocks - self.host_used
+        if n_live + len(self.free) + used_host + free_host \
+                != (n - 1) + self.host_blocks:
+            raise OwnershipViolation(
+                "kv-host-accounting", op,
+                f"two-tier identity broke: {n_live}+{len(self.free)}+"
+                f"{used_host}+{free_host} != {n - 1}+{self.host_blocks}")
+
+    # -- structural ------------------------------------------------------
+    def clone(self) -> "AbstractState":
+        st = AbstractState.__new__(AbstractState)
+        st.n_blocks = self.n_blocks
+        st.block_size = self.block_size
+        st.host_blocks = self.host_blocks
+        st.ref = list(self.ref)
+        st.free = set(self.free)
+        st.index_chain = list(self.index_chain)
+        st.tables = {tid: rec.clone() for tid, rec in self.tables.items()}
+        st.host_used = self.host_used
+        return st
+
+    def snapshot(self) -> tuple:
+        return (tuple(self.ref), tuple(self.index_chain), self.host_used,
+                tuple(sorted((tid, rec.key())
+                             for tid, rec in self.tables.items())))
+
+
+# ---------------------------------------------------------------------------
+# depth-bounded exhaustive model checker
+# ---------------------------------------------------------------------------
+
+
+class CheckResult:
+    """One exploration's verdict: how much of the protocol state space
+    was covered and every (deduplicated) named violation found."""
+
+    __slots__ = ("states_explored", "transitions", "depth", "violations")
+
+    def __init__(self, states_explored: int, transitions: int, depth: int,
+                 violations: List[Dict[str, str]]):
+        self.states_explored = states_explored
+        self.transitions = transitions
+        self.depth = depth
+        self.violations = violations
+
+    @property
+    def ok(self) -> bool:
+        return not self.violations
+
+    def codes(self) -> List[str]:
+        return sorted({v["code"] for v in self.violations})
+
+    def __repr__(self):
+        return (f"CheckResult(states={self.states_explored}, "
+                f"transitions={self.transitions}, depth={self.depth}, "
+                f"violations={self.codes() or 'none'})")
+
+
+class ModelChecker:
+    """Enumerate ALL interleavings of the pager protocol's operations
+    over a small pool, depth-bounded and state-deduplicated, checking
+    every invariant after every transition. `mutation=None` proves the
+    shipped protocol; a MUTATIONS key seeds that named bug into the
+    transition relation and the exploration must surface its diagnostic
+    code (the K-bug matrix).
+
+    Scope defaults are the smallest configuration that exercises every
+    transition: prefix sharing (prompt spans >1 block), pool contention
+    (2 tables cannot both fully allocate), CoW forks, speculative
+    rollback past the prompt, and a 2-block host tier."""
+
+    def __init__(self, n_blocks: int = 5, block_size: int = 2,
+                 host_blocks: int = 2, max_tables: int = 2,
+                 prompt_len: int = 3, need_len: int = 5,
+                 depth: int = 8, mutation: Optional[str] = None):
+        assert mutation is None or mutation in MUTATIONS, mutation
+        self.n_blocks = n_blocks
+        self.block_size = block_size
+        self.host_blocks = host_blocks
+        self.max_tables = max_tables
+        self.prompt_len = prompt_len
+        self.need_len = need_len
+        self.depth = depth
+        self.mutation = mutation
+
+    # -- transition relation --------------------------------------------
+    def enabled_ops(self, st: AbstractState) -> List[tuple]:
+        ops: List[tuple] = []
+        live = st.tables
+        for tid in range(self.max_tables):
+            if tid not in live:
+                ops.append(("admit", tid))
+                break                        # tids are symmetric: one
+                #                              fresh admission suffices
+        for tid, rec in live.items():
+            resident = rec.spilled is None
+            if resident and rec.written_len < self.need_len:
+                ops.append(("write", tid))
+            ops.append(("release", tid))
+            if resident and rec.written_len >= 1:
+                for new_tid in range(self.max_tables):
+                    if new_tid not in live:
+                        ops.append(("fork", tid, new_tid))
+                        break
+            # rollback never composes with live fork shares: beam
+            # search (the only fork producer) and speculative rollback
+            # are separate engines — PagedKVEngine enforces the
+            # analogous host_tier/speculative exclusion at construction
+            if resident and not rec.forked \
+                    and rec.written_len > self.prompt_len:
+                keeps = {self.prompt_len, rec.written_len - 1}
+                for keep in sorted(keeps):
+                    if 1 <= keep < rec.written_len:
+                        ops.append(("rollback", tid, keep))
+            if self.host_blocks and resident:
+                ops.append(("spill", tid))
+            if rec.spilled is not None:
+                ops.append(("reload", tid))
+                if not rec.arrived:
+                    ops.append(("arrive", tid))
+        if st.index_chain:
+            ops.append(("evict-index",))
+        return ops
+
+    def apply(self, st: AbstractState, op: tuple):
+        kind = op[0]
+        m = self.mutation
+        if kind == "admit":
+            st.admit(op[1], self.prompt_len, self.need_len,
+                     mutation=m if m == "write-shared-block" else None)
+        elif kind == "write":
+            st.write(op[1])
+        elif kind == "release":
+            st.release_table(
+                op[1], mutation=m if m == "leaked-release" else None)
+        elif kind == "fork":
+            st.fork(op[1], op[2])
+        elif kind == "rollback":
+            st.rollback(
+                op[1], op[2],
+                mutation=m if m == "rollback-double-free" else None)
+        elif kind == "spill":
+            st.spill(op[1])
+        elif kind == "arrive":
+            st.arrive(op[1])
+        elif kind == "reload":
+            st.reload(op[1], wait=(m != "prefetch-after-use"))
+        elif kind == "evict-index":
+            st.release(st.index_chain.pop(), op="evict-index")
+        else:                                # pragma: no cover
+            raise AssertionError(op)
+
+    # -- exploration -----------------------------------------------------
+    def run(self) -> CheckResult:
+        from collections import deque
+        init = AbstractState(self.n_blocks, self.block_size,
+                             self.host_blocks)
+        seen = {init.snapshot()}
+        queue = deque([(init, 0)])           # BFS: every state is first
+        #   discovered at its MINIMAL depth, so the depth bound prunes
+        #   no state that any <=depth interleaving can reach (a DFS
+        #   would mark deep discoveries `seen` and skip their shallow
+        #   revisits — silently unsound)
+        violations: Dict[Tuple[str, str], Dict[str, str]] = {}
+        transitions = 0
+        while queue:
+            st, d = queue.popleft()
+            if d >= self.depth:
+                continue
+            for op in self.enabled_ops(st):
+                child = st.clone()
+                transitions += 1
+                try:
+                    self.apply(child, op)
+                    child.check_invariants(op="/".join(map(str, op)))
+                except OwnershipViolation as v:
+                    violations.setdefault(
+                        (v.code, v.op),
+                        {"code": v.code, "op": v.op, "message": str(v)})
+                    continue                 # prune the broken branch
+                snap = child.snapshot()
+                if snap in seen:
+                    continue
+                seen.add(snap)
+                queue.append((child, d + 1))
+        return CheckResult(len(seen), transitions, self.depth,
+                           sorted(violations.values(),
+                                  key=lambda v: (v["code"], v["op"])))

@@ -26,10 +26,24 @@ batch to drain.
 - `speculative=SpecConfig(...)` — speculative decoding
   (serving/speculative.py): a draft proposes γ tokens, one verify forward
   over a γ+1 window scores them, the accepted prefix commits.
+- `EngineServer`/`EngineClient` — generation RPC over the transport's
+  frames (serving/transport.py, the JAX package's wire format byte for
+  byte): the engine thread ticks while reader/writer threads move bytes,
+  and completions landing on the same tick go out as one vectored send.
+  The server also serves GET /metrics (the engine's `ptpu_engine_*`
+  registry joined with the process-wide `ptpu_memory_*`, `ptpu_ckpt_*`
+  and `ptpu_train_*` series) and GET /healthz.
+
+Telemetry rides the tick without adding a host sync: the
+`admission`/`tick`/`dispatch`/`request` spans (observability/tracing.py)
+and the metrics read host clocks and host counters only; the tick's one
+device wait is the realization barrier it always had (the next tick's
+feed depends on the sampled ids).
 
 The hooks `_build_tick_program`, `_init_tick_feeds`, `_fill_tick_feeds`,
-`_admit_request`, `_release_request`, `_note_position_written` and the
-speculative ones (`_build_verify_tick`, `_fill_verify_row`,
+`_admit_request`, `_release_request`, `_note_position_written`,
+`_note_tick_writes`, `_pre_tick`, `_stamp_kv_watermarks`, `_init_metrics`
+and the speculative ones (`_build_verify_tick`, `_fill_verify_row`,
 `_spec_capable`, `_spec_rollback`) are what `PagedKVEngine`
 (serving/kv_pager.py) overrides; the scheduler itself is shared.
 
@@ -38,14 +52,12 @@ Scheduling policies:
 - "continuous": admit whenever a slot is free — the engine's point.
 - "static": admit only when ALL slots are free (form a batch, run it to
   full completion, drain, repeat) — the padded static-batch baseline.
-
-Not ported yet (ROADMAP.md §1 item 2): the metrics registry, tracing
-spans and memory watermarks, and the EngineServer/EngineClient transport.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
 from collections import deque
@@ -54,6 +66,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..core.enforce import InvalidArgumentError, enforce
+from ..observability import memory as _obs_memory
+from ..observability import metrics as _obs_metrics
+from ..observability import tracing as _tracing
 
 # atomic in CPython: concurrent engine construction must not mint the
 # same cache namespace (aliased slot caches in a shared scope)
@@ -94,18 +109,28 @@ class SlotAllocator:
 
 class GenRequest:
     """One generation request moving through the engine. Lifecycle
-    boundaries are stamped on the perf_counter clock, so the latency
-    decomposes as queue_wait (submitted → admitted), prefill (admitted →
-    first token) and decode (first token → done)."""
+    boundaries are stamped on the perf_counter clock — the timeline the
+    span ring uses — so the latency decomposes exactly:
+
+        queue_wait = admitted - submitted       (waiting for a slot)
+        prefill    = first_token - admitted     (prompt ticks)
+        decode     = done - first_token         (sampled-token ticks)
+        transport  = sent - done                (completion frame on the
+                                                 wire; 0 without a server)
+
+    The four phases partition [submitted, sent]. `request_id` threads
+    from EngineClient through admission, every tick's span attrs and the
+    completion frame."""
 
     __slots__ = ("rid", "request_id", "prompt", "max_new", "eos_id",
                  "tokens", "slot", "fed", "next_tok", "submitted_pc",
-                 "admitted_pc", "first_token_pc", "done_pc", "on_done",
-                 "table", "shared_len", "spec_draft_s", "spec_verify_s",
-                 "_event")
+                 "admitted_pc", "first_token_pc", "done_pc", "sent_pc",
+                 "defer_transport", "on_done", "table", "shared_len",
+                 "spec_draft_s", "spec_verify_s", "_event")
 
     def __init__(self, rid, prompt, max_new, eos_id=None, on_done=None,
-                 request_id: Optional[str] = None):
+                 request_id: Optional[str] = None,
+                 defer_transport: bool = False):
         self.rid = rid
         self.request_id = str(request_id) if request_id is not None \
             else f"req-{rid}"
@@ -120,6 +145,12 @@ class GenRequest:
         self.admitted_pc: Optional[float] = None
         self.first_token_pc: Optional[float] = None
         self.done_pc: Optional[float] = None
+        self.sent_pc: Optional[float] = None
+        #: True when a server owns the transport phase (it calls
+        #: engine.report_sent once the completion frame is on the wire,
+        #: or at once if the frame cannot be delivered); False: no wire,
+        #: transport and e2e close at completion
+        self.defer_transport = bool(defer_transport)
         self.on_done = on_done
         #: paged-KV engine state: the request's BlockTable, and how many
         #: leading prompt positions were served from the prefix cache
@@ -142,23 +173,33 @@ class GenRequest:
 
     def phases(self, subphases: bool = False
                ) -> Optional[Dict[str, float]]:
-        """{queue_wait, prefill, decode} seconds; None before completion.
-        The three phases partition [submitted, done] exactly (the JAX
-        package's fourth, transport, waits for the server). With
-        `subphases=True`, a request served speculatively also reports
-        `spec_draft` and `spec_verify` — sub-phases of the prefill+decode
-        window, not added to the partition."""
+        """{queue_wait, prefill, decode, transport} seconds (transport 0
+        until a server reports the completion frame sent); None before
+        completion. With `subphases=True`, a request served speculatively
+        also reports `spec_draft` and `spec_verify` — sub-phases of the
+        prefill+decode window, not added to the partition."""
         if self.done_pc is None:
             return None
         first = self.first_token_pc if self.first_token_pc is not None \
             else self.done_pc
         ph = {"queue_wait": self.admitted_pc - self.submitted_pc,
               "prefill": first - self.admitted_pc,
-              "decode": self.done_pc - first}
+              "decode": self.done_pc - first,
+              "transport": ((self.sent_pc - self.done_pc)
+                            if self.sent_pc is not None else 0.0)}
         if subphases:
             ph["spec_draft"] = self.spec_draft_s
             ph["spec_verify"] = self.spec_verify_s
         return ph
+
+    def e2e_s(self) -> Optional[float]:
+        """Measured end-to-end latency: submit → completion frame sent
+        (→ completion when no server is involved). The number the phase
+        decomposition sums to."""
+        if self.done_pc is None:
+            return None
+        end = self.sent_pc if self.sent_pc is not None else self.done_pc
+        return end - self.submitted_pc
 
     def wait(self, timeout: Optional[float] = None) -> List[int]:
         if not self._event.wait(timeout):
@@ -297,6 +338,21 @@ class ContinuousBatchingEngine:
         #: wall seconds of the most recent ticks, newest last (bounded) —
         #: tick-latency quantiles for benches and smoke runs
         self.tick_seconds: "deque[float]" = deque(maxlen=65536)
+        #: completed requests, newest last (bounded) — the per-request
+        #: latency decomposition record
+        self.completed_log: "deque[GenRequest]" = deque(maxlen=512)
+        self._init_metrics()
+        # the KV caches are persistable fixed-shape state: their byte
+        # census is pinned at construction. Seed the process-wide kv
+        # watermark now so a scrape taken before the first tick carries
+        # it; ticks re-stamp it (two engines in one process: last writer
+        # wins the `current`, the peak ratchets over both)
+        self._kv_bytes_static = self._kv_cache_bytes()
+        # per-token KV bytes across every layer cache: what ONE occupied
+        # position costs — the unit of the used-vs-reserved split
+        self._kv_bytes_per_token = (self._kv_bytes_static
+                                    / max(n_slots * max_len, 1))
+        self._stamp_kv_watermarks({})
         if self.spec is not None:
             # builds + quantizes the verify program (twin of the main
             # tick — same resident payloads) and binds both spec steps
@@ -330,6 +386,81 @@ class ContinuousBatchingEngine:
         for slot, req in active.items():
             tok[slot, 0] = req.next_tok
             pos[slot, 0, 0] = float(req.fed)
+
+    def _stamp_kv_watermarks(self, active: Dict[int, GenRequest]):
+        """The used-vs-reserved split: reserved is the engine's whole KV
+        footprint (slot engine: every slot's full max_len row, pinned at
+        construction), used is the positions live requests occupy — the
+        gap between the two gauges is the per-slot reservation waste
+        paging reclaims. Host arithmetic only."""
+        used = sum(min(r.fed, self.max_len) for r in active.values()) \
+            * self._kv_bytes_per_token
+        _obs_memory.update_watermark("kv_cache_bytes",
+                                     self._kv_bytes_static)
+        _obs_memory.update_watermark("kv_cache_used_bytes", used)
+
+    def _init_metrics(self):
+        """Per-engine MetricsRegistry (observability/metrics.py), the
+        JAX engine's `ptpu_engine_*` / `ptpu_request_*` families: the
+        serving telemetry EngineServer exposes over HTTP /metrics —
+        tokens/s, queue depth, slot occupancy, tick-latency quantiles,
+        KV-cache bytes, the per-request latency decomposition."""
+        r = self.metrics_registry = _obs_metrics.MetricsRegistry()
+        self._m_tokens = r.counter(
+            "ptpu_engine_tokens_total", "Tokens sampled by the engine.")
+        self._m_ticks = r.counter(
+            "ptpu_engine_ticks_total", "Decode ticks executed.")
+        self._m_completed = r.counter(
+            "ptpu_engine_requests_completed_total", "Completed requests.")
+        r.gauge("ptpu_engine_queue_depth",
+                "Requests waiting for a slot.", fn=lambda: self.n_pending)
+        r.gauge("ptpu_engine_active_slots",
+                "Slots carrying an in-flight request.",
+                fn=lambda: self.n_active)
+        r.gauge("ptpu_engine_slot_occupancy",
+                "Fraction of slot-ticks that carried a request.",
+                fn=self.occupancy)
+        r.gauge("ptpu_engine_kv_cache_bytes",
+                "Bytes held by the slot-indexed KV caches.",
+                fn=self._kv_cache_bytes)
+        r.gauge("ptpu_engine_tokens_per_second",
+                "Tokens sampled per wall second since engine start.",
+                fn=lambda: (self.tokens_out
+                            / max(time.time() - self._started_at, 1e-9)))
+        self._m_tick_latency = r.histogram(
+            "ptpu_engine_tick_latency_seconds",
+            "Wall latency of one decode tick.",
+            buckets=(1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 1e-2,
+                     2.5e-2, 5e-2, 0.1, 0.25, 0.5, 1.0, 2.5))
+        self._m_dispatch = r.histogram(
+            "ptpu_engine_dispatch_seconds",
+            "Host-side dispatch share of one decode tick: feed fill + "
+            "bound-call argument handling up to the async-dispatch "
+            "return, excluding the realization barrier (device wait).",
+            buckets=(1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3,
+                     2.5e-3, 5e-3, 1e-2, 2.5e-2))
+        for q, name in ((0.5, "p50"), (0.95, "p95"), (0.99, "p99")):
+            r.gauge(f"ptpu_engine_tick_latency_{name}_seconds",
+                    f"{name} decode-tick latency (histogram estimate).",
+                    fn=(lambda q=q:
+                        self._m_tick_latency.quantile(q) or 0.0))
+        # per-request latency decomposition: one labeled histogram
+        # family, phase=queue_wait|prefill|decode|transport, plus the
+        # end-to-end series the phases sum to
+        req_buckets = (1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 1e-2,
+                       2.5e-2, 5e-2, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                       10.0, 30.0)
+        self._m_req_phase = {
+            phase: r.histogram(
+                "ptpu_request_latency_seconds",
+                "Per-request latency decomposition by lifecycle phase.",
+                labels={"phase": phase}, buckets=req_buckets)
+            for phase in ("queue_wait", "prefill", "decode", "transport")}
+        self._m_req_e2e = r.histogram(
+            "ptpu_request_e2e_seconds",
+            "End-to-end request latency (submit -> completion frame "
+            "sent; -> completion when no server is attached).",
+            buckets=req_buckets)
 
     def _kv_cache_bytes(self) -> int:
         total = 0
@@ -372,10 +503,12 @@ class ContinuousBatchingEngine:
     def submit(self, prompt: Sequence[int], max_new: int,
                eos_id: Optional[int] = "engine",
                on_done: Optional[Callable] = None,
-               request_id: Optional[str] = None) -> GenRequest:
+               request_id: Optional[str] = None,
+               defer_transport: bool = False) -> GenRequest:
         """Queue a generation request; returns the GenRequest handle
         (wait() for completion, or pass on_done — called on the ENGINE
-        thread, keep it cheap)."""
+        thread, keep it cheap). `request_id` is the caller's correlation
+        id; it rides every span and the completion frame."""
         enforce(len(prompt) >= 1, "prompt must not be empty",
                 exc=InvalidArgumentError)
         self._enforce_request_fits(prompt, max_new)
@@ -383,7 +516,8 @@ class ContinuousBatchingEngine:
             self._rid += 1
             req = GenRequest(self._rid, prompt, max_new,
                              self.eos_id if eos_id == "engine" else eos_id,
-                             on_done, request_id=request_id)
+                             on_done, request_id=request_id,
+                             defer_transport=defer_transport)
             self._pending.append(req)
         return req
 
@@ -415,6 +549,12 @@ class ContinuousBatchingEngine:
         """One cache position of `req` was written by the tick that just
         ran. The paged engine marks prefix blocks filled (sharable) the
         moment their last row lands."""
+
+    def _note_tick_writes(self, active: Dict[int, GenRequest]):
+        """Pre-dispatch hook naming the cache positions the imminent tick
+        will write. The paged engine's shadow-state sanitizer
+        (`PTPU_KV_SANITIZE=1`) checks each against the ownership model
+        here. Default: no-op (the slot engine's rows cannot alias)."""
 
     # -- speculative-decoding hooks (overridden by PagedKVEngine) ---------
     def _build_verify_tick(self, gamma):
@@ -457,7 +597,9 @@ class ContinuousBatchingEngine:
 
     # -- scheduler --------------------------------------------------------
     def _admit(self):
-        with self._lock:
+        admitted = []
+        with _tracing.span("admission", "engine/admit",
+                           pending=len(self._pending)), self._lock:
             if self.policy == "static" and (self._active
                                             or not self._pending):
                 return
@@ -469,6 +611,16 @@ class ContinuousBatchingEngine:
                 req.slot = slot
                 req.admitted_pc = time.perf_counter()
                 self._active[slot] = req
+                admitted.append(req)
+        for req in admitted:
+            # the queue-wait phase becomes a span the moment it ends
+            # (slot assignment) — retroactive, exact boundaries
+            _tracing.record_span(
+                "request", "request/queue_wait", req.submitted_pc,
+                req.admitted_pc, request_id=req.request_id,
+                slot=req.slot)
+            self._m_req_phase["queue_wait"].observe(
+                req.admitted_pc - req.submitted_pc)
 
     @property
     def n_active(self) -> int:
@@ -496,6 +648,7 @@ class ContinuousBatchingEngine:
             req.first_token_pc = time.perf_counter()
         req.tokens.append(t)
         self.tokens_out += 1
+        self._m_tokens.inc()
         req.next_tok = t
         hit_eos = (req.eos_id is not None and t == req.eos_id)
         out_of_room = req.fed >= self.max_len
@@ -505,9 +658,10 @@ class ContinuousBatchingEngine:
         """One decode step: admit, run, collect. Returns the requests that
         COMPLETED on this step; [] when nothing is active or pending.
         Without speculation (or when an active request is too close to its
-        length cap for a full window) this is one plain tick; with
-        `speculative=` it is one speculative round (γ+1 draft ticks + one
-        verify forward) advancing every slot up to γ+1 positions."""
+        length cap for a full window) this is one plain tick, recorded as
+        a "tick" span; with `speculative=` it is one speculative round
+        (γ+1 draft ticks + one verify forward — `speculate`/`verify`
+        spans) advancing every slot up to γ+1 positions."""
         self._admit()
         with self._lock:
             active = dict(self._active)
@@ -519,13 +673,19 @@ class ContinuousBatchingEngine:
             t0 = time.perf_counter()
             finished = self.spec.round(active)
             self.tick_seconds.append(time.perf_counter() - t0)
+            self._m_ticks.inc()
             self.n_ticks += 1
             self.last_tick_at = time.time()
+            self._stamp_kv_watermarks(active)
             self.busy_slot_ticks += len(active)
             self.total_slot_ticks += self.n_slots
         else:
             finished = self._plain_tick(active)
         if finished:
+            # complete (firing on_done -> writer.offer) BEFORE dropping
+            # the request from _active: a drain poll reading
+            # n_active == 0 must imply every completion frame is already
+            # in its writer queue
             for req in finished:
                 req._complete()
             with self._lock:
@@ -533,24 +693,59 @@ class ContinuousBatchingEngine:
                     del self._active[req.slot]
                     self._slots.free(req.slot)
                     self._release_request(req)
+            self._m_completed.inc(len(finished))
+            for req in finished:
+                self._finalize_request(req)
         return finished
+
+    def _pre_tick(self, active: Dict[int, GenRequest]
+                  ) -> Dict[int, GenRequest]:
+        """Scheduler hook run at the top of every plain tick, before the
+        feeds fill: the two-tier engine (serving/kv_pager.py,
+        `host_tier=`) resumes/suspends requests here — swapping KV blocks
+        against the host tier between ticks — and returns the RESIDENT
+        subset that actually ticks. Default: everything admitted is
+        resident."""
+        return active
 
     def _plain_tick(self, active: Dict[int, GenRequest]
                     ) -> List[GenRequest]:
         t0 = time.perf_counter()
-        self._fill_tick_feeds(active)
-        if self._target_state_owner != "main":
-            # a speculative verify forward ran since the last plain tick:
-            # re-point the bound step at the scope's live cache tensors
-            self._step.refresh_state()
-            self._target_state_owner = "main"
-        fetches = self._step.run_bound()
-        self.target_forwards += 1
-        # realization barrier: the next tick's feed depends on the ids
-        ids = fetches[0].cpu().numpy()
-        self.tick_seconds.append(time.perf_counter() - t0)
+        active = self._pre_tick(active)
+        # the rid list is trace provenance only — not built per tick
+        # when tracing is off (the decode loop is the hot path)
+        span_attrs = {"active": len(active)}
+        if _tracing.enabled():
+            span_attrs["request_ids"] = [r.request_id
+                                         for r in active.values()]
+        with _tracing.span("tick", "engine/tick", **span_attrs):
+            self._fill_tick_feeds(active)
+            self._note_tick_writes(active)
+            if self._target_state_owner != "main":
+                # a speculative verify forward ran since the last plain
+                # tick: re-point the bound step at the scope's live cache
+                # tensors
+                self._step.refresh_state()
+                self._target_state_owner = "main"
+            fetches = self._step.run_bound()
+            self.target_forwards += 1
+            td = time.perf_counter()           # async launches returned
+            # realization barrier: the next tick's feed depends on the ids
+            ids = fetches[0].cpu().numpy()
+        self._m_dispatch.observe(td - t0)
+        if _tracing.enabled():
+            # the host-dispatch share of the tick as a named phase
+            _tracing.record_span("dispatch", "engine/dispatch", t0, td,
+                                 active=len(active))
+        dt = time.perf_counter() - t0
+        self.tick_seconds.append(dt)
+        self._m_tick_latency.observe(dt)
+        self._m_ticks.inc()
         self.n_ticks += 1
         self.last_tick_at = time.time()
+        # re-stamp the kv watermarks so the live `current` reflects the
+        # engine that is ticking (host counters only, O(active))
+        self._stamp_kv_watermarks(active)
         self.busy_slot_ticks += len(active)
         self.total_slot_ticks += self.n_slots
         finished = []
@@ -558,6 +753,41 @@ class ContinuousBatchingEngine:
             if self._advance_slot(req, int(ids[slot, 0])):
                 finished.append(req)
         return finished
+
+    def _finalize_request(self, req: GenRequest):
+        """Completion-side telemetry: the prefill/decode phase spans and
+        histograms from the request's perf_counter stamps. The transport
+        phase + end-to-end series land in `report_sent` when a server
+        reports the completion frame on the wire; for a direct engine
+        caller (no server, no wire) they close here with transport = 0,
+        so the phase sums always match the e2e series."""
+        first = req.first_token_pc if req.first_token_pc is not None \
+            else req.done_pc
+        _tracing.record_span("request", "request/prefill",
+                             req.admitted_pc, first,
+                             request_id=req.request_id, slot=req.slot,
+                             prompt_len=len(req.prompt))
+        _tracing.record_span("request", "request/decode", first,
+                             req.done_pc, request_id=req.request_id,
+                             slot=req.slot, new_tokens=len(req.tokens))
+        ph = req.phases()
+        self._m_req_phase["prefill"].observe(ph["prefill"])
+        self._m_req_phase["decode"].observe(ph["decode"])
+        self.completed_log.append(req)
+        if not req.defer_transport:
+            self._m_req_phase["transport"].observe(0.0)
+            self._m_req_e2e.observe(req.e2e_s())
+
+    def report_sent(self, req: GenRequest, sent_pc: float):
+        """Server-side hook: the request's completion frame left the
+        process at perf_counter time `sent_pc` (the writer's on_sent
+        callback). Closes the transport phase and the e2e series, and
+        records the transport span."""
+        req.sent_pc = float(sent_pc)
+        _tracing.record_span("request", "request/transport", req.done_pc,
+                             req.sent_pc, request_id=req.request_id)
+        self._m_req_phase["transport"].observe(req.sent_pc - req.done_pc)
+        self._m_req_e2e.observe(req.e2e_s())
 
     def run_until_idle(self, max_ticks: Optional[int] = None
                        ) -> List[GenRequest]:
@@ -613,3 +843,481 @@ def _decode_tick_builder(n_slots, vocab, max_len, d_model, d_inner,
         n_slots=n_slots, vocab=vocab, max_len=max_len, d_model=d_model,
         d_inner=d_inner, num_heads=num_heads, num_layers=num_layers,
         dropout=dropout, packed=packed, cache_prefix=cache_prefix)
+
+
+# ---------------------------------------------------------------------------
+# Prometheus /metrics exposition + /healthz
+# ---------------------------------------------------------------------------
+
+
+class _MetricsHTTPServer:
+    """Minimal threading HTTP listener serving GET /metrics (Prometheus
+    text exposition 0.0.4 from one registry — Multi or plain) and, when
+    a `health_fn` is given, GET /healthz as structured JSON (the control
+    loop's signal: engine serving/draining state, last-tick age, pending
+    checkpoints, supervisor restart count)."""
+
+    def __init__(self, addr, registry, health_fn=None):
+        import http.server
+        import json as _json
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (http.server contract)
+                path = self.path.split("?", 1)[0]
+                if path == "/metrics":
+                    body = registry.expose().encode()
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+                    code = 200
+                elif path == "/healthz" and health_fn is not None:
+                    health = health_fn()
+                    body = _json.dumps(health, default=str).encode()
+                    ctype = "application/json"
+                    # draining surfaces as 503: a load balancer must stop
+                    # routing to a replica that stopped admitting
+                    code = 200 if health.get("status") == "serving" \
+                        else 503
+                else:
+                    self.send_error(404, "serving /metrics and /healthz")
+                    return
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):   # scrapes must not spam stderr
+                pass
+
+        self._srv = http.server.ThreadingHTTPServer(addr, Handler)
+        self._srv.daemon_threads = True
+        self.server_address = self._srv.server_address
+
+    def serve_forever(self):
+        self._srv.serve_forever(poll_interval=0.1)
+
+    def shutdown(self):
+        self._srv.shutdown()
+
+    def server_close(self):
+        self._srv.server_close()
+
+
+def scrape_metrics(host: str, port: int, timeout: float = 5.0) -> str:
+    """One GET /metrics against an EngineServer's metrics address —
+    what the tests and the smoke run use; production scrapers point
+    Prometheus at the same URL."""
+    import urllib.request
+    with urllib.request.urlopen(
+            f"http://{host}:{port}/metrics", timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def scrape_healthz(host: str, port: int, timeout: float = 5.0) -> Dict:
+    """One GET /healthz (same listener as /metrics): the parsed JSON
+    health document. A draining server answers 503 but still carries the
+    body — this helper returns it either way."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(
+                f"http://{host}:{port}/healthz", timeout=timeout) as resp:
+            return _json.loads(resp.read().decode())
+    except urllib.error.HTTPError as e:
+        if e.code == 503:   # draining: the body IS the health document
+            return _json.loads(e.read().decode())
+        raise
+
+
+# ---------------------------------------------------------------------------
+# generation RPC over the transport's frames
+# ---------------------------------------------------------------------------
+
+
+class EngineServer:
+    """Serve a ContinuousBatchingEngine over TCP.
+
+    Wire format is the transport's framing (serving/transport.py) with
+    JSON-only frames:
+      request   {"gen": {"prompt": [ids...], "max_new": n, "tag": any}}
+      response  {"done": {"tag": any, "tokens": [ids...],
+                          "latency_ms": float}}
+    Responses are keyed by the client's `tag` (completion order is the
+    ENGINE's order, not request order — short requests overtake long
+    ones; that reordering is continuous batching working as designed).
+
+    Threads: one engine thread ticks the decode loop; per connection, a
+    reader admits requests and a writer flushes completions — completions
+    landing on the same tick leave in one vectored send (transport
+    `_sendall_vec`), so socket I/O and the decode tick overlap. The
+    engine thread sets the engine's CUDA device before its first tick."""
+
+    def __init__(self, engine: ContinuousBatchingEngine,
+                 host: str = "127.0.0.1", port: int = 0,
+                 metrics_port: Optional[int] = 0):
+        import socket as _socket
+
+        self.engine = engine
+        self._sock = _socket.socket(_socket.AF_INET, _socket.SOCK_STREAM)
+        self._sock.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(64)
+        self.address = self._sock.getsockname()
+        self._stop = threading.Event()
+        self._wake = threading.Event()     # submissions kick the engine
+        self._draining = threading.Event()  # admit nothing new, finish rest
+        self._threads: List[threading.Thread] = []
+        self._conns: List = []
+        self._writers: List = []
+        self._lock = threading.Lock()
+        self._prev_sigterm = None
+        # Prometheus exposition + health: a small HTTP listener serving
+        # GET /metrics and GET /healthz. A SEPARATE socket from the
+        # generation RPC (that one speaks the transport's frames;
+        # an HTTP GET on it would misparse as a frame header). The
+        # scraped registry is the UNION of the engine's own registry and
+        # the process-wide default registry, so one scrape sees serving,
+        # checkpoint (ptpu_ckpt_*), and training (ptpu_train_*) series.
+        # metrics_port=None disables; 0 picks an ephemeral port
+        # (self.metrics_address after construction).
+        self._http = None
+        self.metrics_address = None
+        if metrics_port is not None:
+            # materialize the process-wide series before the first
+            # scrape: ptpu_ckpt_* and ptpu_train_* register lazily, and
+            # a scrape must see the families (at zero) even before the
+            # first save/step touches them
+            from ..trainer import checkpoint_metrics, training_metrics
+            checkpoint_metrics()
+            training_metrics()
+            _obs_memory.memory_metrics()   # ptpu_memory_* + ptpu_mfu
+            self._http = _MetricsHTTPServer(
+                (host, metrics_port),
+                _obs_metrics.MultiRegistry(
+                    [engine.metrics_registry,
+                     _obs_metrics.default_registry()]),
+                health_fn=self.health)
+            self.metrics_address = self._http.server_address
+
+    def health(self) -> Dict:
+        """The /healthz document — the control-loop signal: admission
+        state (serving vs draining after SIGTERM), engine tick liveness,
+        pending async checkpoint commits, and the supervising process's
+        restart count (PTPU_SUPERVISOR_RESTARTS, set by a supervisor for
+        its children)."""
+        from ..trainer import pending_async_count
+        restarts = os.environ.get("PTPU_SUPERVISOR_RESTARTS")
+        return {
+            "status": ("draining" if self._draining.is_set()
+                       else "serving"),
+            "engine": self.engine.stats(),
+            "checkpoints": {
+                "pending_async": pending_async_count()},
+            "supervisor": {
+                "restarts": int(restarts) if restarts else 0},
+            # the memory board: per-channel current + high-water bytes
+            # and the last MFU reading
+            "memory": _obs_memory.watermark_board(),
+            "pid": os.getpid(),
+            "ts": time.time(),
+        }
+
+    # -- lifecycle --------------------------------------------------------
+    def start(self) -> "EngineServer":
+        t = threading.Thread(target=self._engine_loop, daemon=True)
+        a = threading.Thread(target=self._accept_loop, daemon=True)
+        self._threads += [t, a]
+        t.start()
+        a.start()
+        if self._http is not None:
+            h = threading.Thread(target=self._http.serve_forever,
+                                 daemon=True)
+            self._threads.append(h)
+            h.start()
+            self._http_started = True
+        return self
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Graceful shutdown (the SIGTERM path): stop admitting — the
+        listener closes and new `gen` frames on live connections are
+        answered with a draining error — finish every in-flight AND
+        already-queued request, flush the per-connection writer threads
+        so every completion frame reaches its client, then shut down.
+        Returns True when the engine fully drained within `timeout`
+        (False: timed out; shutdown still ran, undelivered work was
+        dropped)."""
+        # flag flips under the admission lock: every reader thread either
+        # observed draining (and rejects) or completed its submit before
+        # this point (and the idle wait below sees that request) — no
+        # window where a request is admitted into a stopping engine
+        with self._lock:
+            self._draining.set()
+        # closing the listener unblocks accept(); in-flight conns stay
+        # open so completions can still go out
+        from .transport import _close_listener
+        _close_listener(self._sock)
+        deadline = None if timeout is None else time.time() + timeout
+        drained = True
+        while self.engine.n_active or self.engine.n_pending:
+            self._wake.set()
+            if deadline is not None and time.time() > deadline:
+                drained = False
+                break
+            time.sleep(0.01)
+        # flush writers BEFORE shutdown closes the sockets: close()
+        # enqueues EOF and joins, so every queued completion frame is
+        # vectored out first
+        with self._lock:
+            writers = list(self._writers)
+        for w in writers:
+            w.close()
+        self.shutdown()
+        return drained
+
+    def install_sigterm_handler(self, exit_process: bool = True,
+                                timeout: Optional[float] = None):
+        """Wire SIGTERM to a graceful drain (main thread only — the
+        signal module's contract). The handler returns immediately; a
+        daemon thread performs the drain so the signal context never
+        blocks, then — with exit_process — exits 0 (the k8s/preemption
+        contract: SIGTERM means finish what you hold and leave
+        cleanly)."""
+        import signal as _signal
+
+        def _handler(signum, frame):
+            t = threading.Thread(target=self._drain_then_exit,
+                                 args=(exit_process, timeout),
+                                 daemon=True)
+            t.start()
+
+        self._prev_sigterm = _signal.signal(_signal.SIGTERM, _handler)
+        return self
+
+    def _drain_then_exit(self, exit_process: bool, timeout):
+        try:
+            # (the JAX package also waits here for its async checkpoint
+            # writer; the port writes checkpoints synchronously)
+            self.drain(timeout=timeout)
+        except Exception as e:
+            # a timed-out flush must not kill this thread BEFORE the
+            # exit below: the SIGTERM disposition was replaced by our
+            # handler, so skipping os._exit would leave a process that
+            # ignores every further SIGTERM (undrainable zombie). The
+            # exit-0 contract holds, but the failure must be visible —
+            # operators need to tell a clean drain from a failed one
+            from ..core import flags
+            flags.vlog(0, "SIGTERM drain did not complete cleanly: "
+                       "%s: %s (exiting anyway)", type(e).__name__, e)
+        if exit_process:  # pragma: no cover - exits the interpreter
+            os._exit(0)
+
+    def shutdown(self):
+        self._stop.set()
+        self._wake.set()
+        if self._http is not None:
+            # socketserver's shutdown() blocks on an event only
+            # serve_forever() ever sets — calling it when start() never
+            # ran would hang forever; just close the listener then
+            if getattr(self, "_http_started", False):
+                self._http.shutdown()
+            self._http.server_close()
+        from .transport import _close_listener
+        _close_listener(self._sock)
+        import socket as _socket
+        with self._lock:
+            conns = list(self._conns)
+        for c in conns:
+            # shutdown BEFORE close: reader threads parked in recv are
+            # not woken by closing the fd on Linux; shutdown makes recv
+            # return 0 immediately (same drill as PredictorServer)
+            try:
+                c.shutdown(_socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                c.close()
+            except OSError:
+                pass
+        for t in self._threads:
+            t.join(timeout=10)
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *a):
+        self.shutdown()
+
+    # -- engine thread ----------------------------------------------------
+    def _engine_loop(self):
+        # the current CUDA device is per thread: set the engine's before
+        # the first tick, or its launches would go to device 0
+        device = self.engine._exe.device
+        if device.type == "cuda":
+            import torch
+            torch.cuda.set_device(device)
+        while not self._stop.is_set():
+            if self.engine.n_active or self.engine.n_pending:
+                self.engine.step()
+            else:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+
+    # -- I/O threads ------------------------------------------------------
+    def _accept_loop(self):
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            import socket as _socket
+            conn.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+            t = threading.Thread(target=self._serve_conn, args=(conn,),
+                                 daemon=True)
+            with self._lock:
+                self._conns.append(conn)
+                self._threads.append(t)
+            t.start()
+
+    def _serve_conn(self, conn):
+        from .transport import _BatchingWriter, _encode_msg, _recv_msg
+
+        # shared with PredictorServer: bounded queue + vectored batch
+        # drain. Completions use the NON-blocking offer(): the engine
+        # thread ticks for every connection and must never stall on one
+        # that stopped reading — a client ~64 unread frames behind is
+        # evicted (connection closed), frames for a dead connection are
+        # dropped.
+        writer = _BatchingWriter(conn)
+        with self._lock:
+            self._writers.append(writer)
+
+        def on_done(req, tag):
+            ph = req.phases() or {}
+            frame = _encode_msg({"done": {
+                "tag": tag, "tokens": req.tokens,
+                "request_id": req.request_id,
+                "latency_ms": round(req.latency_s * 1e3, 3),
+                "phases_ms": {k: round(v * 1e3, 3)
+                              for k, v in ph.items()
+                              if k != "transport"}}})
+            # on_sent closes the transport phase: the writer thread
+            # reports the perf_counter instant the vectored send
+            # returned, and the engine observes transport + e2e. A
+            # failed offer (dead writer / slow-consumer eviction) means
+            # the frame will NEVER go out — close the series here so the
+            # e2e count cannot lag the phase counts
+            ok = writer.offer(frame, on_sent=(
+                lambda ts, req=req: self.engine.report_sent(req, ts)))
+            if not ok:
+                self.engine.report_sent(req, time.perf_counter())
+
+        try:
+            while not self._stop.is_set():
+                header, _ = _recv_msg(conn)
+                if header is None or "gen" not in header:
+                    break
+                g = header["gen"]
+                tag = g.get("tag")
+                err = None
+                admitted = False
+                # check-and-submit under the admission lock (paired with
+                # drain()'s locked flag flip): a submit can never slip in
+                # after drain decided the engine is idle
+                with self._lock:
+                    if self._draining.is_set():
+                        # graceful drain: in-flight work completes, but
+                        # nothing new is admitted — the client gets an
+                        # explicit rejection, never a silent drop
+                        err = ("server draining (SIGTERM): not "
+                               "admitting new requests")
+                    else:
+                        try:
+                            self.engine.submit(
+                                g["prompt"], g.get("max_new", 16),
+                                on_done=(lambda req, tag=tag:
+                                         on_done(req, tag)),
+                                request_id=g.get("request_id"),
+                                defer_transport=True)
+                            admitted = True
+                        except Exception as e:
+                            err = f"{type(e).__name__}: {e}"
+                if admitted:
+                    self._wake.set()
+                else:
+                    # respond OUTSIDE the lock: it may block on writer
+                    # backpressure
+                    writer.respond(_encode_msg({"error": err,
+                                                "tag": tag}))
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            writer.close()
+            try:
+                conn.close()
+            except OSError:
+                pass
+            with self._lock:
+                if conn in self._conns:
+                    self._conns.remove(conn)
+                if writer in self._writers:
+                    self._writers.remove(writer)
+
+
+class EngineClient:
+    """Client for EngineServer; supports pipelined generation requests."""
+
+    def __init__(self, host: str, port: int):
+        import socket as _socket
+
+        self._sock = _socket.create_connection((host, port))
+        self._sock.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+        self._lock = threading.Lock()
+        self._tag = 0
+
+    def send_gen(self, prompt: Sequence[int], max_new: int = 16,
+                 tag=None, request_id: Optional[str] = None):
+        """`request_id` is the client's correlation id: it threads
+        through admission, every decode tick's span attrs, the
+        per-request latency decomposition, and comes back on the done
+        frame — the end-to-end trace key across client/server/engine."""
+        from .transport import _send_msg
+        with self._lock:
+            self._tag += 1
+            tag = self._tag if tag is None else tag
+            msg = {"gen": {"prompt": [int(t) for t in prompt],
+                           "max_new": int(max_new), "tag": tag}}
+            if request_id is not None:
+                msg["gen"]["request_id"] = str(request_id)
+            _send_msg(self._sock, msg)
+        return tag
+
+    def recv_done(self):
+        """Next completion: (tag, tokens, latency_ms). Completion order is
+        the engine's, not send order."""
+        from .transport import _recv_msg
+        header, _ = _recv_msg(self._sock)
+        if header is None:
+            raise ConnectionError("server closed the connection")
+        if "error" in header:
+            raise RuntimeError(f"server error: {header['error']}")
+        d = header["done"]
+        return d["tag"], d["tokens"], d["latency_ms"]
+
+    def generate(self, prompt: Sequence[int], max_new: int = 16
+                 ) -> List[int]:
+        tag = self.send_gen(prompt, max_new)
+        got_tag, tokens, _ = self.recv_done()
+        if got_tag != tag:
+            raise RuntimeError(
+                f"unexpected completion tag {got_tag} (want {tag}); use "
+                f"send_gen/recv_done for pipelined requests")
+        return tokens
+
+    def close(self):
+        self._sock.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()

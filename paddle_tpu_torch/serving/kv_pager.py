@@ -40,13 +40,44 @@ per-slot rows with PAGES:
   and the per-tick top-k log-probs drive host-side hypothesis selection.
 
 Accounting is exact by construction: used + free == n_blocks - 1 (the
-null block is neither) at every instant (`BlockPool.check`).
+null block is neither) at every instant (`BlockPool.check`), and the
+pool's bytes split into the reserved/used watermark pair
+(observability/memory.py channels `kv_cache_bytes` /
+`kv_cache_used_bytes`).
 
-Not ported yet (ROADMAP.md §1 item 2): two-tier paging (`host_tier=`,
-the JAX package's framework/offload.py), the shadow-state sanitizer
-(`PTPU_KV_SANITIZE=1`, serving/sanitizer.py over framework/ownership.py),
-and the pager's gauges and KV watermarks. The first two raise
-NotImplementedError when asked for.
+Two-tier paging: `PagedKVEngine(host_tier=HostTierConfig(...))` extends
+the hierarchy into pinned host memory (framework/offload.py). Requests
+keep being ADMITTED when the device pool is dry — they hold a tick slot
+SUSPENDED (zero bytes on either tier until they have ticked) while the
+resident set decodes; a resident request's private blocks can be EVICTED
+to the host tier and PREFETCHED back `prefetch_distance` ticks ahead of
+the projected resume. The copies ride the transfer stream, a CUDA side
+stream:
+
+- spill: the victim's blocks are gathered on the COMPUTE stream into a
+  staging tensor before the next tick can reuse them; the side stream
+  waits on an event of that gather and copies the staging tensor into
+  the pinned slots (`non_blocking`), and `record_stream` keeps the
+  caching allocator from recycling the staging tensor mid-copy;
+- reload: the h2d copy into a device staging tensor is issued ahead on
+  the side stream; at commit the compute stream waits on the ticket's
+  event (`wait_on`) and `index_copy_`s the rows into the pools. The host
+  never blocks on a copy; the pinned slots go back to the pool only once
+  the h2d event has completed;
+- int8 pools (`kv_quant=True`): the scale pools spill and reload with
+  their payloads (a block's slot holds every pool's rows).
+
+Shared prefix-index blocks stay on the device. Per-slot decode is
+independent and deterministic, so suspend/resume changes WHICH slots
+tick, never what any slot computes: two-tier decode gives the device-only
+engine's tokens. The identity extends over both tiers: used_dev +
+used_host + free_dev + free_host == (n_blocks - 1) + host_blocks
+(`KVPager.check_two_tier`).
+
+With `PTPU_KV_SANITIZE=1` (the `kv_sanitize` flag) each KVPager attaches
+the shadow-state sanitizer (serving/sanitizer.py over
+framework/ownership.py), which mirrors every block-lifetime mutation
+into the ownership model and raises the named diagnostic on divergence.
 """
 
 from __future__ import annotations
@@ -55,27 +86,14 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from ..core import flags
 from ..core.enforce import InvalidArgumentError, enforce
+from ..framework import offload as _offload
 from ..framework.executor import as_numpy
+from ..framework.offload import HostTierConfig
+from ..observability import memory as _obs_memory
 from .engine import ContinuousBatchingEngine, GenRequest, _ENGINE_SEQ
-
-_UNPORTED = ("is not ported yet: it is the rest of ROADMAP.md §1 item 2 "
-             "(paged, quantized and speculative serving, and the server)")
-
-
-def _refuse_unported(host_tier):
-    """Raise for the pager features the port does not have yet, instead
-    of running without them."""
-    if host_tier is not None:
-        raise NotImplementedError(
-            "two-tier KV paging (host_tier=, the JAX package's "
-            "framework/offload.py) " + _UNPORTED)
-    if flags.get_flag("kv_sanitize"):
-        raise NotImplementedError(
-            "the shadow-state KV sanitizer (PTPU_KV_SANITIZE=1, the JAX "
-            "package's serving/sanitizer.py) " + _UNPORTED)
 
 
 class BlockPool:
@@ -281,26 +299,48 @@ class RadixPrefixIndex:
         return n
 
 
+class SpillRecord:
+    """One suspended request's host-tier residency: which LOGICAL table
+    entries were spilled (ascending), and how many host blocks they
+    hold. The physical device ids they came from are dead the moment
+    the spill releases them — only the engine's host buffers (keyed by
+    the same ascending order) carry the content."""
+
+    __slots__ = ("spilled", "n_blocks")
+
+    def __init__(self, spilled: List[int], n_blocks: int):
+        self.spilled = list(spilled)     # logical indices, ascending
+        self.n_blocks = int(n_blocks)    # len(table.blocks) at spill
+
+
 class KVPager:
     """The paged-KV policy engine: owns the BlockPool and the
     RadixPrefixIndex, makes the admission / share / CoW / release /
-    eviction / rollback decisions, and keeps the counters `stats()`
-    reports. Device bytes are the engine's; this is the brain.
+    eviction / rollback decisions, and keeps the counters the metrics
+    registry exposes. Device bytes are the engine's; this is the brain.
 
-    Not ported yet (ROADMAP.md §1 item 2): the host tier (`host_tier=`,
-    the JAX package's framework/offload.py) and the shadow-state
-    sanitizer (PTPU_KV_SANITIZE=1, serving/sanitizer.py over
-    framework/ownership.py). Asking for either raises NotImplementedError
-    instead of running without it."""
+    With `host_tier=HostTierConfig(...)` the pager also arbitrates the
+    SECOND tier: `evict_table_to_host` trades a resident table's private
+    device blocks for host-block capacity, and `reload_table_from_host`
+    trades back. The pager never touches bytes — the engine moves them on
+    the transfer stream; this ledger guarantees the two-pool identity
+    used_dev + used_host + free_dev + free_host == total."""
 
     def __init__(self, n_blocks: int, block_size: int,
-                 prefix_sharing: bool = True, host_tier=None):
-        _refuse_unported(host_tier)
+                 prefix_sharing: bool = True,
+                 host_tier: Optional[HostTierConfig] = None):
+        if host_tier is not None:
+            enforce(isinstance(host_tier, HostTierConfig),
+                    f"host_tier must be a HostTierConfig, got "
+                    f"{type(host_tier).__name__}",
+                    exc=InvalidArgumentError)
         self.block_size = int(block_size)
         self.prefix_sharing = bool(prefix_sharing)
         self.pool = BlockPool(n_blocks, block_size)
         self.index = RadixPrefixIndex(block_size)
-        # -- counters (stats()) --
+        self.host_tier = host_tier
+        self.host_blocks_used = 0
+        # -- counters (stats(), the ptpu_engine_* gauges) --
         self.n_admitted = 0
         self.prefix_hits = 0            # admissions with shared_len > 0
         self.shared_blocks_total = 0    # table entries served by the index
@@ -308,6 +348,16 @@ class KVPager:
         self.evictions = 0
         self.cow_copies = 0
         self.rolled_back_blocks = 0     # speculative-decode rejected spans
+        self.host_evictions = 0         # blocks spilled device -> host
+        self.host_reloads = 0           # spilled blocks reloaded h -> d
+        self.host_prefetch_hits = 0     # resumes whose h2d had landed
+        self.host_prefetch_misses = 0   # resumes that waited on the h2d
+        # shadow-state sanitizer (PTPU_KV_SANITIZE=1): mirrors every
+        # pool/pager mutation into the framework/ownership.py model and
+        # raises the named diagnostic on divergence; None when off —
+        # nothing is wrapped, so the off path costs nothing per op
+        from . import sanitizer as _sanitizer
+        self.sanitizer = _sanitizer.attach(self)
 
     # -- admission --------------------------------------------------------
     def blocks_needed(self, length: int) -> int:
@@ -412,11 +462,16 @@ class KVPager:
         return BlockTable(blocks, table.n_shared, table.shared_len)
 
     def release(self, table: BlockTable):
-        """Drop the table's ref on every mapping (completion or fork
-        retirement). Blocks the prefix index also holds stay resident
-        (cached) until evicted; everything else frees."""
+        """Drop the table's ref on every LIVE mapping (completion or
+        fork retirement). Blocks the prefix index also holds stay
+        resident (cached) until evicted; everything else frees. Dead
+        (zeroed) mappings — a table released while its content is
+        host-resident, the drain/shutdown path — are skipped: their
+        device refs were already traded for the host charge at spill
+        time (the caller refunds that via `refund_host_charge`)."""
         for b in table.blocks:
-            self.pool.release(b)
+            if b:
+                self.pool.release(b)
         table.blocks = []
 
     def rollback(self, table: BlockTable, keep_len: int,
@@ -454,6 +509,104 @@ class KVPager:
         self.rolled_back_blocks += n
         return n
 
+    # -- two-tier (host) lifecycle -----------------------------------------
+    def evict_table_to_host(self, table: BlockTable,
+                            written_len: int) -> Optional[SpillRecord]:
+        """Suspend a resident table: release every PRIVATE device block
+        back to the pool and charge the CONTENT-bearing ones (logical
+        blocks covering positions [shared_len, written_len)) to the
+        host tier. Shared prefix blocks keep their refs: radix-index
+        blocks never spill (they are the highest-fanout bytes on the
+        device; fixed behaviour, not a HostTierConfig knob). Returns
+        None — spill refused — when the host
+        tier cannot hold the content; otherwise the SpillRecord the
+        engine needs to know which logical entries to snapshot.
+
+        Private blocks must free on release (writes never land in
+        shared blocks — the same invariant `rollback` enforces); a
+        refcounted private block here is a breach, not a condition."""
+        enforce(self.host_tier is not None,
+                "evict_table_to_host without a host tier",
+                exc=InvalidArgumentError)
+        bs = self.block_size
+        n_content = -(-int(written_len) // bs)   # blocks with live rows
+        spilled = [j for j in range(table.n_shared,
+                                    min(n_content, len(table.blocks)))]
+        if self.host_blocks_used + len(spilled) \
+                > self.host_tier.host_blocks:
+            return None
+        for j in range(table.n_shared, len(table.blocks)):
+            # full prompt blocks may ALSO be held by the prefix index
+            # (note_block_filled registered them) — releasing our ref
+            # then leaves them device-resident as cache, possibly
+            # evicted later. The engine snapshots the content to host
+            # either way, so resume never depends on the index's whim.
+            self.pool.release(table.blocks[j])
+            table.blocks[j] = 0          # dead mapping until reload
+        self.host_blocks_used += len(spilled)
+        self.host_evictions += len(spilled)
+        return SpillRecord(spilled, len(table.blocks))
+
+    def reload_table_from_host(self, table: BlockTable,
+                               rec: SpillRecord
+                               ) -> Optional[List[Tuple[int, int]]]:
+        """Resume a suspended table: re-allocate a device block for
+        every private logical entry (evicting cached prefixes LRU under
+        pressure, exactly like admission) and release the host-tier
+        charge. Returns [(logical_j, new_physical)] for the
+        CONTENT-bearing entries — the h2d copy list, in the
+        SpillRecord's ascending order — or None (everything rolled
+        back, host charge untouched) when the device pool cannot cover
+        the resume yet."""
+        enforce(len(table.blocks) == rec.n_blocks,
+                f"spill record spans {rec.n_blocks} blocks but the "
+                f"table has {len(table.blocks)}",
+                exc=InvalidArgumentError)
+        got: List[int] = []
+        for j in range(table.n_shared, len(table.blocks)):
+            b = self._alloc_or_evict()
+            if b is None:                # roll back, stay suspended
+                for held in got:
+                    self.pool.release(held)
+                return None
+            got.append(b)
+        for j, b in zip(range(table.n_shared, len(table.blocks)), got):
+            table.blocks[j] = b
+        self.host_blocks_used -= len(rec.spilled)
+        self.host_reloads += len(rec.spilled)
+        self.blocks_allocated_total += len(got)
+        return [(j, table.blocks[j]) for j in rec.spilled]
+
+    def refund_host_charge(self, n: int):
+        """Return `n` host-tier blocks whose spill will never reload —
+        a request released while host-resident (drain/shutdown). A
+        pager METHOD (not a raw ledger write) so the shadow-state
+        sanitizer can mirror the refund and hold the two-tier identity
+        through it."""
+        enforce(0 <= n <= self.host_blocks_used,
+                f"host refund of {n} blocks underflows the ledger "
+                f"({self.host_blocks_used} used)",
+                exc=InvalidArgumentError)
+        self.host_blocks_used -= n
+
+    def check_two_tier(self):
+        """The accounting identity over BOTH tiers (`used_dev + used_host
+        + free == total`), on top of the device pool's own
+        refcount/free-list exactness (`BlockPool.check`)."""
+        self.pool.check()
+        cap = self.host_tier.host_blocks if self.host_tier else 0
+        enforce(0 <= self.host_blocks_used <= cap,
+                f"host tier accounting broken: {self.host_blocks_used} "
+                f"used of {cap}", exc=InvalidArgumentError)
+        used_dev, free_dev = self.pool.n_used, self.pool.n_free
+        used_host = self.host_blocks_used
+        free_host = cap - used_host
+        total = (self.pool.n_blocks - 1) + cap
+        enforce(used_dev + used_host + free_dev + free_host == total,
+                f"two-tier identity broken: {used_dev}+{used_host}+"
+                f"{free_dev}+{free_host} != {total}",
+                exc=InvalidArgumentError)
+
     # -- introspection ----------------------------------------------------
     def stats(self) -> Dict:
         return {
@@ -475,7 +628,20 @@ class KVPager:
             "evictions": self.evictions,
             "cow_copies": self.cow_copies,
             "rolled_back_blocks": self.rolled_back_blocks,
-            "host_tier": None,
+            "host_tier": None if self.host_tier is None else {
+                "host_blocks": self.host_tier.host_blocks,
+                "host_blocks_used": self.host_blocks_used,
+                "prefetch_distance": self.host_tier.prefetch_distance,
+                "rotate_quantum": self.host_tier.rotate_quantum,
+                "host_evictions": self.host_evictions,
+                "host_reloads": self.host_reloads,
+                "prefetch_hits": self.host_prefetch_hits,
+                "prefetch_misses": self.host_prefetch_misses,
+                "prefetch_hit_rate": (
+                    self.host_prefetch_hits
+                    / max(self.host_prefetch_hits
+                          + self.host_prefetch_misses, 1)),
+            },
         }
 
 
@@ -507,8 +673,9 @@ class PagedKVEngine(ContinuousBatchingEngine):
     `paged_beam_search`'s scoring surface. `kv_quant=True` stores the
     pools as int8 with a float32 scale per (block, head, row); at the
     default pool budget the freed bytes buy more blocks
-    (`kv_quant_freed_bytes`). `host_tier=` (the JAX package's two-tier
-    paging) is not ported yet and raises NotImplementedError.
+    (`kv_quant_freed_bytes`). `host_tier=HostTierConfig(...)` adds the
+    pinned host tier (module docstring); it does not compose with
+    `speculative=`.
     """
 
     def __init__(self, n_slots: int = 4, vocab: int = 32000,
@@ -521,8 +688,16 @@ class PagedKVEngine(ContinuousBatchingEngine):
                  n_blocks: Optional[int] = None,
                  prefix_sharing: bool = True, topk_k: int = 0,
                  quant: Optional[str] = None, kv_quant: bool = False,
-                 speculative=None, host_tier=None, place=None):
-        _refuse_unported(host_tier)
+                 speculative=None,
+                 host_tier: Optional[HostTierConfig] = None, place=None):
+        enforce(host_tier is None or speculative is None,
+                "host_tier does not compose with speculative decoding "
+                "yet: a speculative round's rollback remaps blocks the "
+                "suspend/resume swap may hold in flight on the stream — "
+                "pager-level rollback composition IS covered "
+                "(tests/test_torch_offload.py); pick one per engine",
+                exc=InvalidArgumentError)
+        self.host_tier = host_tier       # KVPager checks its type
         self.block_size = int(block_size)
         self.blocks_per_req = -(-int(max_len) // self.block_size)
         self.prefix_sharing = bool(prefix_sharing)
@@ -554,7 +729,23 @@ class PagedKVEngine(ContinuousBatchingEngine):
                 f"full-span request ({self.blocks_per_req} blocks + the "
                 f"null block)", exc=InvalidArgumentError)
         self.pager = KVPager(self.n_blocks, self.block_size,
-                             prefix_sharing)
+                             prefix_sharing, host_tier=host_tier)
+        # two-tier scheduler state: per-rid host residency records and
+        # the FIFO of suspended requests (admission order — no
+        # starvation, same discipline as the head-of-line device wait)
+        self._ht_state: Dict[int, Dict] = {}
+        self._ht_queue: List[GenRequest] = []
+        #: (ticket, host buffer) pairs whose slots return to the slab
+        #: once the ticket's copies completed
+        self._ht_pending_free: List[Tuple] = []
+        self._ht_stream = _offload.shared_stream(place) \
+            if host_tier is not None else None
+        self._ht_pool = _offload.shared_host_pool() \
+            if host_tier is not None else None
+        self._ht_slab = None             # pinned slots, made below
+        self._ht_per_block_bytes = 0
+        self.ht_d2h_bytes = 0            # bytes the d2h copies moved
+        self.ht_h2d_bytes = 0
         if cache_prefix is None:
             cache_prefix = f"pgd{next(_ENGINE_SEQ)}"
         super().__init__(
@@ -565,6 +756,15 @@ class PagedKVEngine(ContinuousBatchingEngine):
             eos_id=eos_id, scope=scope, policy=policy,
             cache_prefix=cache_prefix, quant=quant,
             speculative=speculative, place=place)
+        if host_tier is not None:
+            # a host block slot holds one device block of EVERY pool (k,
+            # v and, with kv_quant, their scales), laid end to end
+            self._ht_per_block_bytes = sum(
+                int(_obs_memory.per_device_bytes(self.scope.get(n)))
+                // self.n_blocks for n in self.cache_names)
+            self._ht_slab = self._ht_pool.slab(
+                host_tier.host_blocks, self._ht_per_block_bytes, "kv",
+                pin=self._exe.device.type == "cuda")
 
     # -- tick program -----------------------------------------------------
     def _build_tick_program(self, n_slots, vocab, max_len, d_model,
@@ -614,31 +814,339 @@ class PagedKVEngine(ContinuousBatchingEngine):
             wblock[slot] = blocks[lb]
             woff[slot] = off
 
+    def _note_tick_writes(self, active: Dict[int, GenRequest]):
+        # shadow-state sanitizer: every position this tick writes must
+        # target a live, EXCLUSIVELY-held block (the CoW contract) —
+        # checked against the ownership model before dispatch
+        san = self.pager.sanitizer
+        if san is not None:
+            for req in active.values():
+                san.note_write(req.table, req.fed)
+
     # -- scheduler hooks --------------------------------------------------
     def _admit_request(self, req: GenRequest) -> bool:
         need_len = min(len(req.prompt) + req.max_new, self.max_len)
         table = self.pager.try_admit(req.prompt, need_len)
-        if table is None:
+        if table is not None:
+            req.table = table
+            req.shared_len = table.shared_len
+            if table.shared_len:
+                # the shared span's K/V is already resident and
+                # byte-exact (deterministic compute) — skip its
+                # prefill ticks
+                req.fed = table.shared_len
+                req.next_tok = req.prompt[table.shared_len]
+            if self.host_tier is not None:
+                self._ht_state[req.rid] = {"state": "resident",
+                                           "resume_tick": self.n_ticks}
+            return True
+        if self.host_tier is None:
             return False                         # head-of-line wait
-        req.table = table
-        req.shared_len = table.shared_len
-        if table.shared_len:
-            # the shared span's K/V is already resident and byte-exact
-            # (deterministic compute) — skip its prefill ticks
-            req.fed = table.shared_len
-            req.next_tok = req.prompt[table.shared_len]
+        # two-tier admission: the device pool is dry but tick slots are
+        # not — admit SUSPENDED. The request holds its slot with ZERO
+        # bytes on either tier (it has never ticked); it starts decoding
+        # when a resident finishes or the rotation quantum frees blocks.
+        # The admitted count passes the device-only ceiling here; the
+        # resident count (what ticks) does not.
+        req.table = None
+        self._ht_state[req.rid] = {"state": "waiting",
+                                   "spill": None, "bufs": None,
+                                   "d2h": None, "h2d": None,
+                                   "suspend_tick": self.n_ticks}
+        self._ht_queue.append(req)
         return True
 
     def _release_request(self, req: GenRequest):
         if req.table is not None:
             self.pager.release(req.table)
             req.table = None
+        st = self._ht_state.pop(req.rid, None)
+        if st is not None and st.get("bufs") is not None:
+            # a request released while host-resident (drain/shutdown):
+            # its spill never reloads — return the host bytes once the
+            # d2h copy is off the slots
+            self._defer_host_free(st)
+            self.pager.refund_host_charge(len(st["spill"].spilled))
+        if st is not None and req in self._ht_queue:
+            self._ht_queue.remove(req)
 
     def _note_position_written(self, req: GenRequest, pos: int):
         if (pos + 1) % self.block_size == 0:
             self.pager.note_block_filled(req.table,
                                          pos // self.block_size,
                                          req.prompt)
+
+    # -- two-tier scheduler (host_tier=) ----------------------------------
+    @staticmethod
+    def _remaining_ticks(req: GenRequest) -> int:
+        """Upper bound on ticks until `req` finishes (eos can only
+        shorten it — a prefetch issued against this bound can be late,
+        never early; late shows up as a prefetch miss)."""
+        prefill = max(0, len(req.prompt) - 1 - req.fed)
+        return prefill + max(0, req.max_new - len(req.tokens))
+
+    def _pre_tick(self, active: Dict[int, GenRequest]
+                  ) -> Dict[int, GenRequest]:
+        """The swap scheduler, run between ticks on the engine thread
+        (the single writer of the cache pools). In order: return the
+        pinned slots of completed transfers; resume waiters FIFO while the
+        device pool covers them; rotate (evict the resident with the most
+        remaining work) when the head waiter has starved a full quantum;
+        issue h2d prefetches `prefetch_distance` ticks ahead of the
+        projected resume. Returns the RESIDENT subset — suspended requests
+        hold their slots but do not tick."""
+        if self.host_tier is None:
+            return active
+        self._reap_host_frees()
+        tick = self.n_ticks
+        while self._ht_queue and self._try_resume(self._ht_queue[0]):
+            self._ht_queue.pop(0)
+        quantum = self.host_tier.rotate_quantum
+        if self._ht_queue and quantum:
+            head = self._ht_queue[0]
+            if tick - self._ht_state[head.rid]["suspend_tick"] >= quantum:
+                victim = self._pick_victim(active, tick)
+                if victim is not None:
+                    self._suspend_resident(victim, tick)
+                    if self._try_resume(head):
+                        self._ht_queue.pop(0)
+        self._maybe_prefetch(active, tick)
+        resident = {s: r for s, r in active.items()
+                    if self._ht_state[r.rid]["state"] == "resident"}
+        if not resident and active:
+            # nothing resident can only mean the pool is all free or
+            # index-cached — the head waiter MUST resume (else the
+            # two-tier scheduler would deadlock; make that loud)
+            head = self._ht_queue[0]
+            enforce(self._try_resume(head),
+                    "two-tier scheduler wedged: no resident requests "
+                    "and the head waiter cannot acquire device blocks",
+                    exc=InvalidArgumentError)
+            self._ht_queue.pop(0)
+            resident = {s: r for s, r in active.items()
+                        if self._ht_state[r.rid]["state"] == "resident"}
+        return resident
+
+    def _try_resume(self, req: GenRequest) -> bool:
+        """Make a suspended request resident: never-ticked waiters go
+        through normal admission (prefix sharing included); spilled
+        waiters re-acquire device blocks and commit their staged h2d
+        content. False = capacity still short, stay queued."""
+        st = self._ht_state[req.rid]
+        if st["state"] == "waiting":
+            need_len = min(len(req.prompt) + req.max_new, self.max_len)
+            table = self.pager.try_admit(req.prompt, need_len)
+            if table is None:
+                return False
+            req.table = table
+            req.shared_len = table.shared_len
+            if table.shared_len:
+                req.fed = table.shared_len
+                req.next_tok = req.prompt[table.shared_len]
+        else:                                    # spilled, has content
+            moves = self.pager.reload_table_from_host(req.table,
+                                                      st["spill"])
+            if moves is None:
+                return False
+            if moves:
+                d2h = st.get("d2h")
+                if d2h is not None and d2h.error is not None:
+                    # a failed spill copy surfaces here instead of
+                    # letting unwritten slots reach the cache
+                    raise d2h.error
+                ticket = st.get("h2d")
+                hit = ticket is not None and ticket.done()
+                if ticket is None:
+                    ticket = self._stage_h2d(st)
+                self.pager.host_prefetch_hits += 1 if hit else 0
+                self.pager.host_prefetch_misses += 0 if hit else 1
+                _offload.note_prefetch(hit)
+                # the compute stream waits for the copy's event: no host
+                # block, and the commit below is ordered after it
+                staged = ticket.wait_on(self._compute_stream())
+                san = self.pager.sanitizer
+                if san is not None:
+                    # prefetch-after-use gate: the commit must be ordered
+                    # after the ticket
+                    san.note_h2d_commit(ticket)
+                self._commit_h2d(moves, staged)
+                # the staging tensor is consumed: the ticket (kept until
+                # its event completes, for the slots' free) must not
+                # hold it on the card
+                ticket.result = None
+                self.ht_h2d_bytes += ticket.nbytes
+            self._defer_host_free(st)
+            st.update(spill=None, bufs=None, d2h=None, h2d=None)
+        st.update(state="resident", resume_tick=self.n_ticks)
+        return True
+
+    def _suspend_resident(self, req: GenRequest, tick: int):
+        """Evict a resident request's private blocks to the host tier:
+        the pager trades the device blocks for host capacity; the engine
+        gathers the spilled rows out of the pools HERE, on the compute
+        stream, before the next tick can write the released blocks
+        (reading them later, from the side stream, would race that tick:
+        the JAX package saw silent zeros from the same hazard). Only the
+        copy of the gathered staging tensor into the pinned slots rides
+        the transfer stream, after an event of the gather."""
+        st = self._ht_state[req.rid]
+        table = req.table
+        phys = list(table.blocks)
+        rec = self.pager.evict_table_to_host(table, req.fed)
+        if rec is None:
+            return                               # host tier full: keep
+        st.update(state="spilled", spill=rec, suspend_tick=tick,
+                  d2h=None, h2d=None, bufs=None)
+        self._ht_queue.append(req)
+        if not rec.spilled:
+            return                               # no content to move
+        n = len(rec.spilled)
+        src = self._device_index([phys[j] for j in rec.spilled])
+        # one row per spilled block: every pool's rows, end to end
+        staging = torch.cat(
+            [self.scope.get(name).index_select(0, src).reshape(n, -1)
+             .view(torch.uint8) for name in self.cache_names], dim=1)
+        after = None
+        if staging.is_cuda:
+            after = torch.cuda.Event()
+            after.record(self._compute_stream())
+        slab = self._ht_slab
+        buf = slab.alloc(n)
+        runs = slab.runs(buf.slots)
+        side = self._ht_stream.stream
+
+        def _spill():
+            for row, slot, ln in runs:
+                slab.tensor[slot:slot + ln].copy_(
+                    staging[row:row + ln], non_blocking=True)
+            if side is not None:
+                # the staging tensor was allocated on the compute stream:
+                # its memory must not be recycled before this copy ran
+                staging.record_stream(side)
+
+        st["bufs"] = buf
+        st["d2h"] = self._ht_stream.submit("d2h", _spill, buf.nbytes,
+                                           tag=req.request_id, after=after)
+        self.ht_d2h_bytes += buf.nbytes
+        _offload.note_eviction(n)
+
+    def _pick_victim(self, active: Dict[int, GenRequest],
+                     tick: int) -> Optional[GenRequest]:
+        """Rotation victim: the resident request with the MOST remaining
+        work (it blocks the queue longest), provided it has been resident
+        a full quantum (anti-thrash) and is not about to finish anyway.
+        None = nobody qualifies, head keeps waiting."""
+        quantum = self.host_tier.rotate_quantum
+        best, best_rem = None, 0
+        for req in active.values():
+            st = self._ht_state[req.rid]
+            if st["state"] != "resident":
+                continue
+            if tick - st.get("resume_tick", 0) < quantum:
+                continue
+            rem = self._remaining_ticks(req)
+            if rem > max(best_rem, 2):
+                best, best_rem = req, rem
+        return best
+
+    def _maybe_prefetch(self, active: Dict[int, GenRequest], tick: int):
+        """Issue the head waiter's h2d staging `prefetch_distance` ticks
+        ahead of its projected resume — the earlier of (a) the soonest
+        resident finish and (b) the next rotation boundary."""
+        if not self._ht_queue:
+            return
+        head = self._ht_queue[0]
+        st = self._ht_state[head.rid]
+        if st["state"] != "spilled" or st["h2d"] is not None \
+                or not st["spill"].spilled:
+            return
+        etas = [self._remaining_ticks(r) for r in active.values()
+                if self._ht_state[r.rid]["state"] == "resident"]
+        eta = min(etas) if etas else 0
+        quantum = self.host_tier.rotate_quantum
+        if quantum:
+            eta = min(eta, max(quantum - (tick - st["suspend_tick"]), 0))
+        if _offload.prefetch_issue_tick(
+                tick + eta, self.host_tier.prefetch_distance) <= tick:
+            self._stage_h2d(st)
+
+    def _stage_h2d(self, st: Dict):
+        """Copy the spilled slots into a device staging tensor on the
+        transfer stream (FIFO behind the spill's d2h on the same stream,
+        so it reads the slots after they were written). The staging
+        tensor is allocated under the side stream (`TransferStream.empty`),
+        so the caching allocator hands it memory no pending compute-stream
+        work still uses."""
+        buf = st["bufs"]
+        slab = self._ht_slab
+        runs = slab.runs(buf.slots)
+        stage = self._ht_stream.empty((len(buf.slots), slab.slot_nbytes),
+                                      torch.uint8)
+
+        def _stage():
+            for row, slot, ln in runs:
+                stage[row:row + ln].copy_(slab.tensor[slot:slot + ln],
+                                          non_blocking=True)
+            return stage
+
+        st["h2d"] = self._ht_stream.submit("h2d", _stage, buf.nbytes,
+                                           tag="prefetch")
+        return st["h2d"]
+
+    def _commit_h2d(self, moves: List[Tuple[int, int]], staged):
+        """Scatter the staged rows into the pools at their NEW physical
+        ids with `index_copy_` on the compute stream, between ticks. The
+        pools are updated in place, so the bound step's state needs no
+        refresh (the JAX package rebinds its arrays here)."""
+        n = len(moves)
+        dst = self._device_index([b for _, b in moves])
+        if staged.is_cuda:
+            # read on the compute stream, allocated on the side stream
+            staged.record_stream(self._compute_stream())
+        off = 0
+        for name in self.cache_names:
+            pool = self.scope.get(name)
+            nb = pool[0].numel() * pool.element_size()
+            rows = staged[:, off:off + nb].contiguous().view(pool.dtype)
+            pool.index_copy_(0, dst, rows.view(n, *pool.shape[1:]))
+            off += nb
+
+    def _defer_host_free(self, st: Dict):
+        """Return a spill's pinned slots to the slab once its last copy
+        completed (the h2d when one was issued, else the d2h): freed
+        earlier, the next spill could overwrite bytes still in flight."""
+        buf = st.get("bufs")
+        if buf is None:
+            return
+        ticket = st.get("h2d") or st.get("d2h")
+        self._ht_pending_free.append((ticket, buf))
+        self._reap_host_frees()
+
+    def _reap_host_frees(self):
+        keep = []
+        for ticket, buf in self._ht_pending_free:
+            if ticket is None or ticket.done():
+                self._ht_pool.free(buf)
+            else:
+                keep.append((ticket, buf))
+        self._ht_pending_free = keep
+
+    def _compute_stream(self):
+        """The stream the ticks run on (None on the CPU)."""
+        device = self._exe.device
+        return (torch.cuda.current_stream(device)
+                if device.type == "cuda" else None)
+
+    def _device_index(self, ids: Sequence[int]):
+        """An int64 index tensor on the engine's device. On a card it
+        goes through pinned memory with a non-blocking copy: a pageable
+        host-to-device copy would synchronize the host with the
+        stream."""
+        t = torch.tensor(list(ids), dtype=torch.int64)
+        device = self._exe.device
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        return t
 
     # -- speculative-decoding hooks (serving/speculative.py) --------------
     def _build_verify_tick(self, gamma):
@@ -666,10 +1174,15 @@ class PagedKVEngine(ContinuousBatchingEngine):
         blocks = req.table.blocks
         feeds["spec_btab"][slot, :len(blocks)] = blocks
         bs = self.block_size
+        san = self.pager.sanitizer
         for j in range(g):
             lb, off = divmod(req.fed + j, bs)
             feeds["spec_wblock"][slot, j] = blocks[lb]
             feeds["spec_woff"][slot, j] = off
+            if san is not None:
+                # every speculative verify lane writes in place — each
+                # target must be exclusively held (CoW contract)
+                san.note_write(req.table, req.fed + j)
 
     def _spec_capable(self, req, g) -> bool:
         # the round's G writes must stay inside the request's block-table
@@ -691,6 +1204,68 @@ class PagedKVEngine(ContinuousBatchingEngine):
                 f"ADMISSION (requests queue for blocks), not submission",
                 exc=InvalidArgumentError)
 
+    def _stamp_kv_watermarks(self, active: Dict[int, GenRequest]):
+        # reserved = the whole pool (pinned at construction); used =
+        # blocks actually allocated right now — live paging state, the
+        # split the slot engine can only fake (its rows are always
+        # reserved whole)
+        per_block = self._kv_bytes_static / max(self.n_blocks, 1)
+        _obs_memory.update_watermark("kv_cache_bytes",
+                                     self._kv_bytes_static)
+        _obs_memory.update_watermark("kv_cache_used_bytes",
+                                     self.pager.pool.n_used * per_block)
+
+    def _init_metrics(self):
+        super()._init_metrics()
+        r = self.metrics_registry
+        pager = self.pager
+        r.gauge("ptpu_engine_block_pool_blocks_used",
+                "Allocated blocks in the paged KV pool.",
+                fn=lambda: pager.pool.n_used)
+        r.gauge("ptpu_engine_block_pool_blocks_free",
+                "Free blocks in the paged KV pool.",
+                fn=lambda: pager.pool.n_free)
+        r.gauge("ptpu_engine_block_pool_occupancy",
+                "Fraction of the paged KV pool's blocks allocated.",
+                fn=lambda: (pager.pool.n_used
+                            / max(pager.pool.n_blocks - 1, 1)))
+        r.gauge("ptpu_engine_prefix_hit_rate",
+                "Fraction of admitted requests that shared a cached "
+                "prompt prefix.",
+                fn=lambda: pager.stats()["prefix_hit_rate"])
+        r.gauge("ptpu_engine_blocks_per_request",
+                "Mean PRIVATE blocks allocated per admitted request "
+                "(shared prefix blocks excluded — they are the saving).",
+                fn=lambda: pager.stats()["blocks_per_request"])
+        r.gauge("ptpu_engine_block_evictions_total",
+                "Cached prefix blocks evicted (LRU, leaf-first) under "
+                "pool pressure.", fn=lambda: pager.evictions)
+        r.gauge("ptpu_engine_cow_copies_total",
+                "Copy-on-write block copies at fork divergence points.",
+                fn=lambda: pager.cow_copies)
+        r.gauge("ptpu_engine_spec_rolled_back_blocks_total",
+                "Block-table entries rolled back to fresh blocks after "
+                "speculative verify rejected their whole span.",
+                fn=lambda: pager.rolled_back_blocks)
+        r.gauge("ptpu_engine_kv_quant_freed_bytes",
+                "Bytes the int8 KV block pools save vs f32 pools at the "
+                "same block count (0 with kv_quant off).",
+                fn=lambda: self.kv_quant_freed_bytes)
+        if self.host_tier is not None:
+            _offload.offload_metrics()   # ptpu_offload_* (default reg)
+            r.gauge("ptpu_engine_host_blocks_used",
+                    "KV blocks resident on the host tier (spilled).",
+                    fn=lambda: pager.host_blocks_used)
+            r.gauge("ptpu_engine_suspended_requests",
+                    "Admitted requests currently holding a tick slot "
+                    "without device blocks (two-tier suspend).",
+                    fn=lambda: len(self._ht_queue))
+            r.gauge("ptpu_engine_host_prefetch_hit_rate",
+                    "Fraction of host-tier resumes whose h2d prefetch "
+                    "had already landed.",
+                    fn=lambda: pager.stats()["host_tier"]
+                    ["prefetch_hit_rate"])
+
     # -- device block ops -------------------------------------------------
     def _copy_block(self, src: int, dst: int):
         """Copy physical block src → dst across every layer's k/v pool
@@ -706,6 +1281,15 @@ class PagedKVEngine(ContinuousBatchingEngine):
         s["pager"] = self.pager.stats()
         s["kv_quant"] = {"enabled": self.kv_quant,
                          "freed_bytes": self.kv_quant_freed_bytes}
+        if self.host_tier is not None:
+            # the bytes the copies moved next to the per-block figure:
+            # d2h_bytes == host_evictions x per_block_bytes exactly
+            s["offload"] = {
+                "d2h_bytes": self.ht_d2h_bytes,
+                "h2d_bytes": self.ht_h2d_bytes,
+                "per_block_bytes": self._ht_per_block_bytes,
+                "suspended": len(self._ht_queue),
+            }
         return s
 
 
@@ -775,6 +1359,7 @@ def paged_beam_search(engine: PagedKVEngine, prompt: Sequence[int],
         """slots: {slot: (tok, pos, table)} — run one tick, return
         (topk_logp [S,1,k], topk_ids [S,1,k]) as numpy."""
         _zero()
+        san = pager.sanitizer
         for slot, (tok, pos, table) in slots.items():
             feeds["tick_tok"][slot, 0] = tok
             feeds["tick_pos"][slot, 0, 0] = float(pos)
@@ -782,6 +1367,10 @@ def paged_beam_search(engine: PagedKVEngine, prompt: Sequence[int],
             lb, off = divmod(pos, bs)
             feeds["tick_wblock"][slot] = table.blocks[lb]
             feeds["tick_woff"][slot] = off
+            if san is not None:
+                # beam writes ride the CoW contract too: each live
+                # hypothesis must own its write block exclusively
+                san.note_write(table, pos)
         out = engine._step.run(feeds)
         # run() re-pointed the main step's bound state at the live cache
         # tensors — a co-resident speculative verify step refreshes

@@ -1,0 +1,409 @@
+"""Runtime shadow-state sanitizer for the paged KV / offload stack.
+
+≙ paddle_tpu/serving/sanitizer.py. `PTPU_KV_SANITIZE=1` (pinned on for
+the test suite by tests/conftest.py) mirrors every real `BlockPool` /
+`KVPager` / host-tier mutation into the abstract ownership model of
+`framework/ownership.py` and raises `SanitizerDivergence` the moment the
+real state and the model disagree — naming the op, the block and the
+invariant. The model's preconditions fire BEFORE the real call, so a
+protocol bug surfaces as its named diagnostic (`kv-double-free`,
+`kv-write-shared-block`, ...) instead of a generic enforce assertion
+three calls later.
+
+Wiring: `KVPager.__init__` calls `attach(self)`; with the flag off that
+returns None and the pager runs with ZERO per-op overhead (no wrapper is
+installed — the kill switch is absence, not a branch). With it on, the
+pool's alloc/share/release and the pager's try_admit/fork/release/
+rollback/evict_table_to_host/reload_table_from_host/refund_host_charge
+are wrapped on the INSTANCE (class methods untouched — standalone
+`BlockPool` tests and other pagers are unaffected), and the engine feeds
+the per-tick write positions through `note_write` plus the h2d commit
+gate through `note_h2d_commit`. The sanitizer never touches a program.
+
+One deliberate difference from the JAX package: `note_h2d_commit` checks
+that the commit is ORDERED after the h2d transfer — the ticket's
+`wait_on(compute_stream)` was issued — not that the ticket is complete
+on the host. On a GPU a correctly ordered commit may still be in flight
+when the host enqueues it (the compute stream waits on the copy's
+event), so a host-side completion check would raise falsely. A commit
+issued without that wait still raises `kv-prefetch-after-use`.
+"""
+
+from contextlib import contextmanager
+from typing import Callable, Dict, List, Optional
+
+from ..core import flags
+from ..framework.ownership import (AbstractState, OwnershipViolation,
+                                   TableState)
+
+__all__ = ["ENV", "enabled", "attach", "KVSanitizer",
+           "SanitizerDivergence"]
+
+ENV = "PTPU_KV_SANITIZE"
+
+
+def enabled() -> bool:
+    """The kill switch of record is the `kv_sanitize` flag
+    (core/flags.py); `PTPU_KV_SANITIZE=1` seeds it through the standard
+    env bridge, and tests toggle it with `flags.set_flag` — the same
+    discipline as `verify_passes`."""
+    return bool(flags.get_flag("kv_sanitize"))
+
+
+class SanitizerDivergence(OwnershipViolation):
+    """The real pager state and the shadow model disagree — either a
+    named protocol-invariant breach caught by the shadow's
+    precondition, or a raw state mismatch (refcounts / free list /
+    table map / host ledger). Subclasses `OwnershipViolation` (itself
+    an `InvalidArgumentError`), so existing error-path tests keep
+    passing while the message gains the op/block/invariant triple."""
+
+
+def attach(pager) -> Optional["KVSanitizer"]:
+    """Install the shadow on one `KVPager` iff the kill switch is on.
+    Returns the sanitizer (also stored as `pager.sanitizer`) or None —
+    callers gate per-tick mirroring on that None, which is what keeps
+    the overhead-off budget at zero."""
+    if not enabled():
+        return None
+    return KVSanitizer(pager)
+
+
+def _index_pins(index) -> Dict[int, int]:
+    """block -> pin multiplicity from a walk of the REAL radix tree
+    (each node holds one index-owned retention ref on its block)."""
+    pins: Dict[int, int] = {}
+    stack = list(index.root.children.values())
+    while stack:
+        n = stack.pop()
+        pins[n.block] = pins.get(n.block, 0) + 1
+        stack.extend(n.children.values())
+    return pins
+
+
+class KVSanitizer:
+    """The shadow: one `AbstractState` mirroring one `KVPager`.
+
+    Pool primitives are mirrored per call (cheap integer updates +
+    refcount/free-list equality); pager-level operations additionally
+    maintain the shadow's table records and run the full invariant
+    census (`verify_full`) — holder counts vs refcounts, the
+    accounting identity, the two-tier ledger — after each one. Table
+    records are keyed by `id(table)` and dropped on release, matching
+    the real object lifetime."""
+
+    def __init__(self, pager):
+        self.pager = pager
+        self.model = AbstractState(
+            pager.pool.n_blocks, pager.pool.block_size,
+            pager.host_tier.host_blocks if pager.host_tier else 0)
+        self._detached_host = 0   # spill blocks released-but-unrefunded
+        self._ctx: List[str] = []  # pager op naming the inner pool ops
+        self.ops_mirrored = 0
+        self.full_checks = 0
+        self._wrap()
+        pager.sanitizer = self
+
+    # -- plumbing --------------------------------------------------------
+    def _op(self, fallback: str) -> str:
+        return self._ctx[-1] if self._ctx else fallback
+
+    @contextmanager
+    def _shadowed(self):
+        """Every model call the shadow makes surfaces as a
+        `SanitizerDivergence` (same code/op/block triple) — the caller
+        sees ONE exception type for 'the live pager broke the
+        protocol', whether the model's precondition or the census
+        caught it."""
+        try:
+            yield
+        except SanitizerDivergence:
+            raise
+        except OwnershipViolation as v:
+            raise SanitizerDivergence(v.code, v.op, v.raw_message,
+                                      block=v.block) from None
+
+    def _diverge(self, code: str, op: str, message: str,
+                 block: Optional[int] = None):
+        raise SanitizerDivergence(
+            code, op, "shadow-state divergence: " + message, block=block)
+
+    def _cross_check_pool(self, op: str):
+        pool = self.pager.pool
+        if self.model.ref != pool._ref:
+            bad = next(b for b in range(pool.n_blocks)
+                       if self.model.ref[b] != pool._ref[b])
+            self._diverge(
+                "kv-accounting-identity", op,
+                f"refcount mirror broke at block {bad}: model "
+                f"{self.model.ref[bad]} vs pool {pool._ref[bad]}",
+                block=bad)
+        if self.model.free != set(pool._free) \
+                or len(pool._free) != len(set(pool._free)):
+            self._diverge(
+                "kv-free-refcount", op,
+                f"free-list mirror broke: model {sorted(self.model.free)} "
+                f"vs pool {sorted(pool._free)}")
+
+    def _rec(self, table, op: str) -> TableState:
+        rec = self.model.tables.get(id(table))
+        if rec is None:
+            self._diverge(
+                "kv-use-after-free", op,
+                f"operation on a block table the shadow never saw "
+                f"admitted or forked ({table!r})")
+        return rec
+
+    def _mirror_table(self, table, rec: TableState):
+        rec.blocks = list(table.blocks)
+
+    # -- instance wrapping ----------------------------------------------
+    def _wrap(self):
+        pool, pager = self.pager.pool, self.pager
+        real_alloc = pool.alloc
+        real_share = pool.share
+        real_release = pool.release
+
+        # the pool wrappers run a few times per tick under load, so like
+        # note_write they use inline try/except instead of _shadowed.
+        # The raw-mirror cross-check runs inline only for DIRECT pool
+        # manipulation (empty ctx); inside a wrapped pager op the
+        # boundary census (post_* -> verify_full) covers it
+        def _lift(v):
+            return SanitizerDivergence(v.code, v.op, v.raw_message,
+                                       block=v.block)
+
+        def alloc():
+            b = real_alloc()
+            if b is not None:
+                self.ops_mirrored += 1
+                op = self._op("pool.alloc")
+                try:
+                    self.model.alloc_at(b, op)
+                except SanitizerDivergence:
+                    raise
+                except OwnershipViolation as v:
+                    raise _lift(v) from None
+                if not self._ctx:
+                    self._cross_check_pool(op)
+            return b
+
+        def share(block):
+            self.ops_mirrored += 1
+            op = self._op("pool.share")
+            try:
+                self.model.share(block, op)  # named precondition FIRST
+            except SanitizerDivergence:
+                raise
+            except OwnershipViolation as v:
+                raise _lift(v) from None
+            real_share(block)
+            if not self._ctx:
+                self._cross_check_pool(op)
+
+        def release(block):
+            self.ops_mirrored += 1
+            op = self._op("pool.release")
+            try:
+                freed = self.model.release(block, op)
+            except SanitizerDivergence:
+                raise
+            except OwnershipViolation as v:
+                raise _lift(v) from None
+            real_freed = real_release(block)
+            if freed != real_freed:
+                self._diverge(
+                    "kv-free-refcount", op,
+                    f"release of block {block}: model freed={freed} vs "
+                    f"pool freed={real_freed}", block=block)
+            if not self._ctx:
+                self._cross_check_pool(op)
+            return real_freed
+
+        pool.alloc, pool.share, pool.release = alloc, share, release
+
+        def wrap_ctx(name: str, post: Callable):
+            real = getattr(pager, name)
+
+            def wrapped(*args, **kwargs):
+                self._ctx.append(name)
+                try:
+                    out = real(*args, **kwargs)
+                finally:
+                    self._ctx.pop()
+                self.ops_mirrored += 1
+                post(out, *args, **kwargs)
+                return out
+            setattr(pager, name, wrapped)
+
+        def post_admit(table, prompt, need_len):
+            if table is None:
+                return
+            rec = TableState(table.blocks, table.n_shared,
+                             table.shared_len, len(prompt))
+            self.model.tables[id(table)] = rec
+            self.verify_full("try_admit")
+
+        def post_fork(child, table, written_len, copy_block):
+            parent = self._rec(table, "fork")
+            rec = TableState(child.blocks, child.n_shared,
+                             child.shared_len, parent.prompt_len)
+            rec.written_len = int(written_len)
+            rec.forked = True
+            parent.forked = True
+            self.model.tables[id(child)] = rec
+            self.verify_full("fork")
+
+        def post_release(out, table):
+            rec = self.model.tables.pop(id(table), None)
+            if rec is not None and rec.spilled:
+                # the engine refunds the host charge separately
+                # (_release_request -> refund_host_charge); until then
+                # the ledger legitimately exceeds the live records
+                self._detached_host += len(rec.spilled)
+            self.verify_full("release")
+
+        def post_rollback(n, table, keep_len, written_len):
+            rec = self._rec(table, "rollback")
+            self._mirror_table(table, rec)
+            rec.written_len = int(keep_len)
+            self.verify_full("rollback")
+
+        def post_spill(spill_rec, table, written_len):
+            if spill_rec is None:
+                return                       # refused: no state change
+            rec = self._rec(table, "evict_table_to_host")
+            self._mirror_table(table, rec)
+            rec.spilled = list(spill_rec.spilled)
+            rec.arrived = not spill_rec.spilled
+            with self._shadowed():
+                self.model.host_charge(len(spill_rec.spilled),
+                                       "evict_table_to_host")
+            self.verify_full("evict_table_to_host")
+
+        def post_reload(moves, table, spill_rec):
+            if moves is None:
+                return                       # rolled back: suspended
+            rec = self._rec(table, "reload_table_from_host")
+            self._mirror_table(table, rec)
+            with self._shadowed():
+                self.model.host_refund(len(spill_rec.spilled),
+                                       "reload_table_from_host")
+            rec.spilled = None
+            rec.arrived = True
+            self.verify_full("reload_table_from_host")
+
+        def post_refund(out, n):
+            if n > self._detached_host:
+                self._diverge(
+                    "kv-host-accounting", "refund_host_charge",
+                    f"refund of {n} host blocks but only "
+                    f"{self._detached_host} are pending from released "
+                    f"spill records")
+            self._detached_host -= n
+            with self._shadowed():
+                self.model.host_refund(n, "refund_host_charge")
+            self.verify_full("refund_host_charge")
+
+        wrap_ctx("try_admit", post_admit)
+        wrap_ctx("fork", post_fork)
+        wrap_ctx("release", post_release)
+        wrap_ctx("rollback", post_rollback)
+        wrap_ctx("evict_table_to_host", post_spill)
+        wrap_ctx("reload_table_from_host", post_reload)
+        wrap_ctx("refund_host_charge", post_refund)
+
+        # pre-spill: the double-spill precondition must fire BEFORE the
+        # real call (which would happily double-charge the host tier)
+        real_spill = pager.evict_table_to_host
+
+        def spill_guard(table, written_len):
+            rec = self.model.tables.get(id(table))
+            if rec is not None and rec.spilled is not None:
+                raise SanitizerDivergence(
+                    "kv-double-spill", "evict_table_to_host",
+                    f"table is already host-resident (spilled blocks "
+                    f"{rec.spilled})")
+            return real_spill(table, written_len)
+
+        pager.evict_table_to_host = spill_guard
+
+    # -- engine-facing checks -------------------------------------------
+    def note_write(self, table, pos: int):
+        """One tick is about to write the cache row at token position
+        `pos` of `table` (plain decode, beam slot, or one speculative
+        verify lane). Enforces the CoW contract (target block refcount
+        exactly 1, mapping live) against the shadow refcounts and keeps
+        the shadow's write frontier.
+
+        This is the sanitizer's hottest path — once per active request
+        per tick — so the `_shadowed` contextmanager and the defensive
+        list copy are inlined away (the only sanitizer code where that
+        trade is worth it)."""
+        self.ops_mirrored += 1
+        rec = self.model.tables.get(id(table))
+        if rec is None:
+            self._diverge(
+                "kv-use-after-free", "tick-write",
+                f"operation on a block table the shadow never saw "
+                f"admitted or forked ({table!r})")
+        blocks = table.blocks
+        if rec.blocks != blocks:
+            self._diverge(
+                "kv-use-after-free", "tick-write",
+                f"block-table mirror broke: model {rec.blocks} vs "
+                f"table {list(blocks)}")
+        try:
+            self.model.note_write(blocks, pos, "tick-write")
+        except SanitizerDivergence:
+            raise
+        except OwnershipViolation as v:
+            raise SanitizerDivergence(v.code, v.op, v.raw_message,
+                                      block=v.block) from None
+        if pos >= rec.written_len:
+            rec.written_len = pos + 1
+
+    def note_h2d_commit(self, ticket):
+        """The engine is about to scatter staged host content into the
+        live cache tensors. The scatter must be ORDERED after the
+        transfer: the ticket's `wait_on(compute_stream)` (or a host
+        `wait()`) was issued. A commit without that ordering is
+        `kv-prefetch-after-use` (stale or torn rows under the scatter).
+        The ticket may still be in flight on the card: the compute
+        stream waits for it, not the host."""
+        self.ops_mirrored += 1
+        if ticket is not None and not ticket.ordered:
+            raise SanitizerDivergence(
+                "kv-prefetch-after-use", "h2d-commit",
+                "h2d commit not ordered after its transfer ticket (no "
+                "wait_on(compute_stream) was issued) — the scatter would "
+                "write stale or torn rows")
+
+    def verify_full(self, op: str = "verify"):
+        """The census: every whole-state invariant of the model, with
+        the pin multiplicities taken from a walk of the REAL radix
+        tree, plus the raw mirrors (refcounts, free list, host ledger,
+        index pin count) against the real pager."""
+        self.full_checks += 1
+        self._cross_check_pool(op)
+        pins = _index_pins(self.pager.index)
+        n_pins = sum(pins.values())
+        if n_pins != self.pager.index.n_cached:
+            self._diverge(
+                "kv-block-leak", op,
+                f"radix index holds {n_pins} pinned blocks but "
+                f"n_cached says {self.pager.index.n_cached}")
+        with self._shadowed():
+            self.model.check_invariants(op=op, pins=pins,
+                                        detached_host=self._detached_host)
+        if self.model.host_used != self.pager.host_blocks_used:
+            self._diverge(
+                "kv-host-accounting", op,
+                f"host ledger mirror broke: model "
+                f"{self.model.host_used} vs pager "
+                f"{self.pager.host_blocks_used}")
+
+    def stats(self) -> Dict[str, int]:
+        return {"ops_mirrored": self.ops_mirrored,
+                "full_checks": self.full_checks,
+                "tables_live": len(self.model.tables)}

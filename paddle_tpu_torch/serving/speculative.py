@@ -40,8 +40,9 @@ How it rides the stack:
 - Prompt positions inside the verify window are teacher-forced: prefill
   advances γ+1 positions a round.
 
-Not ported yet (ROADMAP.md §1 item 2): the `speculate` / `verify` spans
-and the acceptance gauges; `stats()` carries the counters.
+Each round records a `speculate` span (the draft ticks) and a `verify`
+span (the target's window forward); the acceptance gauges
+(`ptpu_engine_spec_*`) register with the engine's metrics.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ import numpy as np
 
 from ..core.enforce import InvalidArgumentError, enforce
 from ..framework.executor import as_numpy
+from ..observability import tracing as _tracing
 
 #: reserved name prefix for draft-model state: the census classifier
 #: (framework/costs.state_category) maps `draft_*` weights — including
@@ -259,6 +261,35 @@ class SpeculativeDecoder:
         self._rng = np.random.RandomState(self.cfg.seed)
         self._windows = np.zeros((eng.n_slots, g), np.int64)
         self._from_draft = np.zeros((eng.n_slots, g), bool)
+        self._register_metrics()
+
+    def _register_metrics(self):
+        """The JAX package's `ptpu_engine_spec_*` gauges, in the engine's
+        registry and (labeled per engine) in the process default
+        registry."""
+        from ..observability.metrics import default_registry, get_or_create
+        eng = self.engine
+        specs = (
+            ("ptpu_engine_spec_acceptance_rate",
+             "Accepted draft tokens over evaluated draft proposals.",
+             self.acceptance_rate),
+            ("ptpu_engine_spec_draft_overhead",
+             "Draft-phase share of speculative round wall time.",
+             self.draft_overhead),
+            ("ptpu_engine_spec_tokens_per_target_forward",
+             "Tokens emitted per target forward (verify + plain ticks) "
+             "— the speculative amortization headline.",
+             lambda: (eng.tokens_out / max(eng.target_forwards, 1))),
+            ("ptpu_engine_spec_rolled_back_blocks",
+             "Paged-KV block-table entries rolled back after verify "
+             "rejected their whole span (0 on the slot engine).",
+             lambda: self.rolled_back),
+        )
+        for name, help_, fn in specs:
+            get_or_create(eng.metrics_registry, "gauge", name, help_,
+                          fn=fn)
+            get_or_create(default_registry(), "gauge", name, help_,
+                          labels={"engine": eng._cache_prefix}, fn=fn)
 
     # -- telemetry --------------------------------------------------------
     def acceptance_rate(self) -> float:
@@ -325,59 +356,61 @@ class SpeculativeDecoder:
         dpos = self._draft_feeds["tick_pos"]
 
         t0 = time.perf_counter()
-        # the draft ticks
-        for slot, req in active.items():
-            windows[slot, 0] = req.next_tok
-        for j in range(g):
-            dtok[:] = 0
-            dpos[:] = 0.0
+        with _tracing.span("speculate", "engine/speculate",
+                           active=len(active), gamma=gamma):
             for slot, req in active.items():
-                dtok[slot, 0] = windows[slot, j]
-                dpos[slot, 0, 0] = float(req.fed + j)
-            fetches = self._draft_step.run_bound()
-            self.draft_ticks += 1
-            if j == gamma:
-                # the last tick exists to write the draft cache at
-                # position fed+γ (a full acceptance starts the next
-                # round one past it); its proposal is unused
-                break
-            ids = fetches[0].cpu().numpy()
-            logp = as_numpy(fetches[1]) if cfg.sampling else None
-            for slot, req in active.items():
-                nxt = req.fed + j + 1
-                if nxt < len(req.prompt):
-                    # teacher-forced: the window token IS the prompt
-                    windows[slot, j + 1] = req.prompt[nxt]
-                    continue
+                windows[slot, 0] = req.next_tok
+            for j in range(g):
+                dtok[:] = 0
+                dpos[:] = 0.0
+                for slot, req in active.items():
+                    dtok[slot, 0] = windows[slot, j]
+                    dpos[slot, 0, 0] = float(req.fed + j)
+                fetches = self._draft_step.run_bound()
+                self.draft_ticks += 1
+                if j == gamma:
+                    # the last tick exists to write the draft cache at
+                    # position fed+γ (a full acceptance starts the next
+                    # round one past it); its proposal is unused
+                    break
+                ids = fetches[0].cpu().numpy()
+                logp = as_numpy(fetches[1]) if cfg.sampling else None
+                for slot, req in active.items():
+                    nxt = req.fed + j + 1
+                    if nxt < len(req.prompt):
+                        # teacher-forced: the window token IS the prompt
+                        windows[slot, j + 1] = req.prompt[nxt]
+                        continue
+                    if cfg.sampling:
+                        q = np.exp(logp[slot, 0].astype(np.float64))
+                        q /= q.sum()
+                        tok = int(self._rng.choice(len(q), p=q))
+                    else:
+                        tok = int(ids[slot, 0])
+                    windows[slot, j + 1] = tok
+                    from_draft[slot, j + 1] = True
                 if cfg.sampling:
-                    q = np.exp(logp[slot, 0].astype(np.float64))
-                    q /= q.sum()
-                    tok = int(self._rng.choice(len(q), p=q))
-                else:
-                    tok = int(ids[slot, 0])
-                windows[slot, j + 1] = tok
-                from_draft[slot, j + 1] = True
-            if cfg.sampling:
-                draft_logp[j + 1] = logp
+                    draft_logp[j + 1] = logp
         td = time.perf_counter()
         self.draft_s += td - t0
 
-        # the verify forward
-        vf = self._verify_feeds
-        for a in vf.values():
-            a[:] = 0
-        vf["spec_tok"][:] = windows
-        for slot, req in active.items():
-            eng._fill_verify_row(vf, slot, req, g)
-        if eng._target_state_owner != "verify":
-            self._verify_step.refresh_state()
-            eng._target_state_owner = "verify"
-        fetches = self._verify_step.run_bound()
-        self.verify_forwards += 1
-        eng.target_forwards += 1
-        ids = fetches[0].cpu().numpy()                  # [S, G]
-        vlogp = (as_numpy(fetches[1])                   # [S, G, V]
-                 if cfg.sampling else None)
+        with _tracing.span("verify", "engine/verify",
+                           active=len(active), width=g):
+            vf = self._verify_feeds
+            for a in vf.values():
+                a[:] = 0
+            vf["spec_tok"][:] = windows
+            for slot, req in active.items():
+                eng._fill_verify_row(vf, slot, req, g)
+            if eng._target_state_owner != "verify":
+                self._verify_step.refresh_state()
+                eng._target_state_owner = "verify"
+            fetches = self._verify_step.run_bound()
+            self.verify_forwards += 1
+            eng.target_forwards += 1
+            ids = fetches[0].cpu().numpy()                  # [S, G]
+            vlogp = (as_numpy(fetches[1])                   # [S, G, V]
+                     if cfg.sampling else None)
         tv = time.perf_counter()
         self.verify_s += tv - td
         self.rounds += 1

@@ -1,0 +1,562 @@
+"""Server-mode predictor: long-lived serve loop with concurrent requests.
+
+≙ paddle_tpu/serving/transport.py; the wire format is that module's, byte
+for byte, so a client of either package talks to a server of the other.
+The port's `inferencer.Predictor` runs behind it:
+
+- PredictorServer accepts TCP connections; each connection is served by a
+  thread holding its own `predictor.clone()` (shared weights, a private
+  executor and plan cache) — the clone-per-thread contract.
+- The wire protocol is length-prefixed JSON + raw little-endian C-order
+  tensor bytes, so clients in any language can speak it.
+- A connection may pipeline requests (send several before reading): the
+  per-connection thread answers strictly in order while OTHER connections
+  run concurrently.
+
+Transport:
+
+- ZERO-COPY VECTORED FRAMING: a frame (length prefix + header + tensor
+  payloads) goes out as ONE sendmsg syscall over memoryviews of the numpy
+  buffers — no tobytes() copy, no per-part sendall round trip.
+- BATCHED RESPONSE WRITES: each connection has a writer thread that drains
+  every response ready at that moment and emits them as one vectored
+  send, so a pipelined client's K responses pay one syscall, not K.
+- DOUBLE-BUFFERED RECV: request payloads land in two pooled per-connection
+  buffers via recv_into — the reader fills one while the worker still
+  runs the other; numpy views are taken zero-copy over the pool buffer
+  and the buffer is recycled once the run consumed them.
+- The compute and socket I/O run on separate threads (reader, worker,
+  writer), so neither blocks the other.
+
+Protocol, per request:
+    u32  header length
+    JSON {"feeds": [{"name", "dtype", "shape"}...], "fetch": [...]? }
+    raw tensor bytes for each feed, in header order
+Response:
+    u32  header length
+    JSON {"outs": [{"name", "dtype", "shape"}...]}   (or {"error": msg})
+    raw tensor bytes for each out
+"""
+
+from __future__ import annotations
+
+import json
+import queue as _queue
+import socket
+import struct
+import threading
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+# sendmsg takes at most IOV_MAX (commonly 1024) iovecs; stay well under
+_IOV_CHUNK = 512
+
+
+def _byte_views(parts):
+    """Flat byte views (memoryview cast to 'B') over heterogeneous parts
+    (bytes, bytearray, contiguous numpy arrays) — the zero-copy scatter
+    list sendmsg consumes."""
+    views = []
+    for p in parts:
+        mv = memoryview(p)
+        if mv.ndim != 1 or mv.itemsize != 1:
+            mv = mv.cast("B")
+        if len(mv):
+            views.append(mv)
+    return views
+
+
+def _sendall_vec(sock: socket.socket, parts):
+    """Vectored sendall: the whole frame list in as few sendmsg syscalls
+    as the kernel allows, advancing through partial sends."""
+    views = _byte_views(parts)
+    while views:
+        try:
+            sent = sock.sendmsg(views[:_IOV_CHUNK])
+        except InterruptedError:
+            continue
+        while sent:
+            if sent >= len(views[0]):
+                sent -= len(views[0])
+                views.pop(0)
+            else:
+                views[0] = views[0][sent:]
+                sent = 0
+
+
+def _encode_msg(header: dict, buffers=()):
+    """Frame parts for one message (length prefix + JSON + payloads);
+    payloads stay by-reference (zero-copy through sendmsg)."""
+    raw = json.dumps(header).encode()
+    return [struct.pack("<I", len(raw)), raw, *buffers]
+
+
+def _send_msg(sock: socket.socket, header: dict, buffers=()):
+    _sendall_vec(sock, _encode_msg(header, buffers))
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    chunks = []
+    while n:
+        c = sock.recv(min(n, 1 << 20))
+        if not c:
+            raise ConnectionError("peer closed")
+        chunks.append(c)
+        n -= len(c)
+    return b"".join(chunks)
+
+
+def _recv_exact_into(sock: socket.socket, mv: memoryview):
+    """recv_into the whole view (no intermediate bytes objects)."""
+    while len(mv):
+        n = sock.recv_into(mv, len(mv))
+        if not n:
+            raise ConnectionError("peer closed")
+        mv = mv[n:]
+
+
+class _RecvBufferPool:
+    """N (default 2 — double buffering) reusable payload buffers: the
+    reader fills one while the worker still parses/stages another;
+    acquire blocks when all are in flight, which bounds per-connection
+    buffer memory no matter how hard a client pipelines. Buffers grow to
+    the largest payload seen and are reused at that size."""
+
+    def __init__(self, n: int = 2):
+        self._free: "_queue.Queue" = _queue.Queue()
+        for _ in range(n):
+            self._free.put(bytearray(0))
+
+    def acquire(self, size: int, timeout=None) -> Optional[bytearray]:
+        try:
+            buf = self._free.get(timeout=timeout)
+        except _queue.Empty:
+            return None
+        if len(buf) < size:
+            buf = bytearray(size)
+        return buf
+
+    def release(self, buf: bytearray):
+        self._free.put(buf)
+
+
+def _close_listener(sock: socket.socket):
+    """Close a listening socket so that a thread blocked in its accept()
+    returns now: on Linux, closing the fd does not wake accept(), and the
+    accept thread would hold shutdown up for its whole join timeout;
+    shutdown() does wake it."""
+    for fn in (lambda: sock.shutdown(socket.SHUT_RDWR), sock.close):
+        try:
+            fn()
+        except OSError:
+            pass
+
+
+_WRITER_EOF = object()
+
+
+class _BatchingWriter:
+    """Per-connection response writer thread: a BOUNDED queue drained so
+    that every frame ready at wake-up leaves in ONE vectored send
+    (batched response writes). Shared by PredictorServer and
+    engine.EngineServer — the drain/EOF/dead-flag subtleties live
+    once.
+
+    `respond` blocks under backpressure and gives up once the writer is
+    gone (the PredictorServer worker's contract). `offer` never blocks:
+    on a full queue it kills the connection (slow-consumer eviction —
+    the engine's tick thread serves EVERY connection and must not stall
+    on one that stopped reading)."""
+
+    def __init__(self, conn, maxsize: int = 64):
+        self._conn = conn
+        self._q: "_queue.Queue" = _queue.Queue(maxsize=maxsize)
+        self.dead = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _fire_sent(callbacks):
+        """Run the batch's on_sent callbacks with ONE timestamp — the
+        instant the vectored send returned, i.e. when the frames left
+        the process (the transport-span boundary the engine's per-request
+        latency decomposition records)."""
+        if not callbacks:
+            return
+        import time as _time
+        now = _time.perf_counter()
+        for cb in callbacks:
+            try:
+                cb(now)
+            except Exception:   # telemetry must not kill the writer
+                pass
+
+    def _loop(self):
+        callbacks = []
+        try:
+            while True:
+                item = self._q.get()
+                if item is _WRITER_EOF:
+                    return
+                parts, cb = item
+                parts = list(parts)
+                callbacks = [cb] if cb is not None else []
+                try:
+                    while True:   # batch whatever else is ready NOW
+                        nxt = self._q.get_nowait()
+                        if nxt is _WRITER_EOF:
+                            _sendall_vec(self._conn, parts)
+                            self._fire_sent(callbacks)
+                            callbacks = []
+                            return
+                        parts.extend(nxt[0])
+                        if nxt[1] is not None:
+                            callbacks.append(nxt[1])
+                except _queue.Empty:
+                    pass
+                _sendall_vec(self._conn, parts)
+                self._fire_sent(callbacks)
+                callbacks = []
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            self.dead.set()
+            try:   # unblock producers stuck in put(); collect their
+                # callbacks — these frames will never go out
+                while True:
+                    item = self._q.get_nowait()
+                    if item is not _WRITER_EOF and item[1] is not None:
+                        callbacks.append(item[1])
+            except _queue.Empty:
+                pass
+            # close out EVERY un-fired on_sent (the in-flight batch a
+            # ConnectionError interrupted + the drained queue): a dead
+            # connection must not leave telemetry series lagging forever
+            # — the callback gets the death instant as its timestamp
+            self._fire_sent(callbacks)
+
+    def respond(self, parts, on_sent=None) -> bool:
+        """Blocking enqueue with backpressure; False once the writer is
+        gone. `on_sent(perf_counter_ts)` fires after the frame's
+        vectored send returned."""
+        while not self.dead.is_set():
+            try:
+                self._q.put((parts, on_sent), timeout=0.2)
+                return True
+            except _queue.Full:
+                continue
+        return False
+
+    def offer(self, parts, on_sent=None) -> bool:
+        """Non-blocking enqueue. A full queue means the peer stopped
+        reading ~maxsize frames ago: the connection is killed (the peer
+        sees a disconnect, never a silent gap) and False returned."""
+        if self.dead.is_set():
+            return False
+        try:
+            self._q.put_nowait((parts, on_sent))
+            return True
+        except _queue.Full:
+            self.dead.set()
+            # shutdown BEFORE close: the writer thread may be blocked in
+            # sendmsg on this socket, and closing the fd does not wake a
+            # blocked send on Linux — shutdown does
+            for fn in (lambda: self._conn.shutdown(socket.SHUT_RDWR),
+                       self._conn.close):
+                try:
+                    fn()
+                except OSError:
+                    pass
+            return False
+
+    def close(self, join_timeout: float = 10.0):
+        while not self.dead.is_set():
+            try:
+                self._q.put(_WRITER_EOF, timeout=0.2)
+                break
+            except _queue.Full:
+                continue
+        self._thread.join(timeout=join_timeout)
+
+
+def _recv_msg(sock: socket.socket, pool: Optional[_RecvBufferPool] = None,
+              dead=None):
+    """Read one message. Without a pool, payloads are fresh bytes (the
+    client path). With a pool (server reader), payloads are zero-copy
+    memoryviews into a pooled buffer returned as the third element — the
+    consumer must pool.release() it once the views are dead. `dead` (a
+    callable) lets the pooled acquire give up when the consumer that
+    would recycle buffers is gone."""
+    try:
+        hlen, = struct.unpack("<I", _recv_exact(sock, 4))
+    except ConnectionError:
+        return (None, None) if pool is None else (None, None, None)
+    header = json.loads(_recv_exact(sock, hlen))
+    specs = header.get("feeds", header.get("outs", []))
+    sizes = [int(np.prod(spec["shape"])) * np.dtype(spec["dtype"]).itemsize
+             for spec in specs]
+    if pool is None:
+        return header, [_recv_exact(sock, n) for n in sizes]
+    buf = None
+    while buf is None:
+        buf = pool.acquire(sum(sizes), timeout=0.5)
+        if buf is None and dead is not None and dead():
+            raise ConnectionError("recv-buffer consumer gone")
+    mv = memoryview(buf)
+    buffers, off = [], 0
+    for n in sizes:
+        _recv_exact_into(sock, mv[off:off + n])
+        buffers.append(mv[off:off + n])
+        off += n
+    return header, buffers, buf
+
+
+class PredictorServer:
+    """Serve a Predictor over TCP.
+
+    `predictor` needs .run(feed, fetch_names=None, return_numpy=True); if it
+    has .clone(), every connection thread gets its own clone, otherwise the
+    single object is shared (it must then be safe to call from several
+    threads).
+    """
+
+    def __init__(self, predictor, host: str = "127.0.0.1", port: int = 0):
+        self._base = predictor
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(64)
+        self.address = self._sock.getsockname()
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._conns: List[socket.socket] = []
+        self._lock = threading.Lock()
+        self._accept_thread: Optional[threading.Thread] = None
+
+    # -- lifecycle --------------------------------------------------------
+    def start(self) -> "PredictorServer":
+        self._accept_thread = threading.Thread(target=self._accept_loop,
+                                               daemon=True)
+        self._accept_thread.start()
+        return self
+
+    def shutdown(self):
+        self._stop.set()
+        _close_listener(self._sock)
+        # close live connections so threads blocked in recv() exit NOW
+        # instead of eating the join timeout each
+        with self._lock:
+            conns = list(self._conns)
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                c.close()
+            except OSError:
+                pass
+        for t in self._threads:
+            t.join(timeout=5)
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *a):
+        self.shutdown()
+
+    # -- internals --------------------------------------------------------
+    def _accept_loop(self):
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return  # socket closed by shutdown
+            # a response frame is often tiny (header + small logits);
+            # Nagle would hold it hostage to the previous frame's ACK and
+            # a pipelined client sees 40 ms delayed-ACK stalls
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            t = threading.Thread(target=self._serve_conn, args=(conn,),
+                                 daemon=True)
+            with self._lock:
+                self._conns.append(conn)
+                self._threads = [x for x in self._threads if x.is_alive()]
+                self._threads.append(t)
+            t.start()
+
+    def _serve_conn(self, conn: socket.socket):
+        """Reader + worker + writer threads per connection. The reader
+        ALWAYS drains incoming requests into a queue and the worker
+        executes in order: with both roles on one thread, a client that
+        pipelines faster than it reads would fill both TCP buffers and
+        deadlock the pair in sendall (server not reading because it is
+        writing). The queue is the explicit in-flight buffer. The writer
+        decouples compute from socket writes the same way — the worker
+        never blocks in send, and responses that pile up while one write
+        is in flight go out together as a single vectored sendmsg
+        (batched response writes). Request payloads land in a 2-buffer
+        recv pool (double buffering): zero-copy numpy views feed the
+        predictor and the buffer recycles when the run is done."""
+        # per-thread context reuse: ONE clone for the connection's lifetime,
+        # its executor caches warm across requests
+        predictor = (self._base.clone() if hasattr(self._base, "clone")
+                     else self._base)
+        # bounded: past 32 queued requests the reader stops reading and
+        # TCP backpressure reaches the client — a runaway pipeliner stalls
+        # itself instead of growing server memory without limit. (The recv
+        # pool bounds PAYLOAD memory at 2 buffers already; this bounds the
+        # header/bookkeeping queue.)
+        requests: "_queue.Queue" = _queue.Queue(maxsize=32)
+        pool = _RecvBufferPool(2)
+        _EOF = object()
+        # set when the worker exits for ANY reason: a reader blocked in
+        # put() or pool.acquire() must not wait forever for a consumer
+        # that is gone (the worker also drains the queue on exit)
+        worker_dead = threading.Event()
+        writer = _BatchingWriter(conn)
+        respond = writer.respond
+
+        def work():
+            while True:
+                item = requests.get()
+                if item is _EOF:
+                    return
+                header, buffers, buf = item
+                try:
+                    try:
+                        feed = {}
+                        for spec, raw in zip(header["feeds"], buffers):
+                            # zero-copy view over the pooled recv buffer;
+                            # predictor.run stages it to the device, after
+                            # which the buffer can recycle
+                            feed[spec["name"]] = np.frombuffer(
+                                raw, dtype=np.dtype(spec["dtype"])).reshape(
+                                    spec["shape"])
+                        outs = predictor.run(
+                            feed, fetch_names=header.get("fetch"),
+                            return_numpy=True)
+                        names = header.get("fetch") or getattr(
+                            predictor, "fetch_names",
+                            [f"out{i}" for i in range(len(outs))])
+                        # own copies: on a CPU place a fetch may share
+                        # memory with a feed view, whose recv buffer
+                        # recycles before the writer sends the frame
+                        outs = [np.array(o, order="C") for o in outs]
+                        resp = {"outs": [
+                            {"name": n, "dtype": str(o.dtype),
+                             "shape": list(o.shape)}
+                            for n, o in zip(names, outs)]}
+                        # outs ride the frame by reference — the writer's
+                        # sendmsg reads the numpy memory directly
+                        if not respond(_encode_msg(resp, outs)):
+                            return
+                    except Exception as e:  # per-request error, keep going
+                        if not respond(_encode_msg(
+                                {"error": f"{type(e).__name__}: {e}"})):
+                            return
+                finally:
+                    if buf is not None:
+                        pool.release(buf)
+
+        def work_outer():
+            try:
+                work()
+            except (ConnectionError, OSError):
+                pass
+            finally:
+                worker_dead.set()
+                try:  # unblock a reader stuck in put() on a full queue;
+                    # release any pooled buffers still queued so the
+                    # reader's pool.acquire can't deadlock either
+                    while True:
+                        item = requests.get_nowait()
+                        if item is not _EOF and item[2] is not None:
+                            pool.release(item[2])
+                except _queue.Empty:
+                    pass
+
+        def put_alive(item) -> bool:
+            """put() that gives up once the worker is gone."""
+            while not worker_dead.is_set():
+                try:
+                    requests.put(item, timeout=0.2)
+                    return True
+                except _queue.Full:
+                    continue
+            return False
+
+        worker = threading.Thread(target=work_outer, daemon=True)
+        worker.start()
+        try:
+            while not self._stop.is_set():
+                header, buffers, buf = _recv_msg(
+                    conn, pool,
+                    dead=lambda: (worker_dead.is_set()
+                                  or self._stop.is_set()))
+                if header is None:
+                    break
+                if not put_alive((header, buffers, buf)):
+                    if buf is not None:
+                        pool.release(buf)
+                    break
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            put_alive(_EOF)
+            worker.join(timeout=30)
+            writer.close(join_timeout=30)
+            conn.close()
+            with self._lock:
+                if conn in self._conns:
+                    self._conns.remove(conn)
+
+
+class PredictorClient:
+    """Client for PredictorServer; supports request pipelining.
+
+    infer(feed) is the blocking RPC. For pipelined throughput, call
+    send(feed) repeatedly and then recv() for each — responses arrive in
+    order on one connection, so K in-flight requests hide the round trip.
+    """
+
+    def __init__(self, host: str, port: int):
+        self._sock = socket.create_connection((host, port))
+        self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._lock = threading.Lock()  # serializes concurrent send()s
+
+    def send(self, feed: Dict[str, Any],
+             fetch: Optional[Sequence[str]] = None):
+        arrays = {n: np.ascontiguousarray(v) for n, v in feed.items()}
+        header = {"feeds": [{"name": n, "dtype": str(a.dtype),
+                             "shape": list(a.shape)}
+                            for n, a in arrays.items()]}
+        if fetch is not None:
+            header["fetch"] = list(fetch)
+        with self._lock:
+            # arrays ride by reference: one vectored sendmsg, no tobytes()
+            _send_msg(self._sock, header, list(arrays.values()))
+
+    def recv(self) -> List[np.ndarray]:
+        header, buffers = _recv_msg(self._sock)
+        if header is None:
+            raise ConnectionError("server closed the connection")
+        if "error" in header:
+            raise RuntimeError(f"server error: {header['error']}")
+        return [np.frombuffer(raw, dtype=np.dtype(spec["dtype"]))
+                .reshape(spec["shape"])
+                for spec, raw in zip(header["outs"], buffers)]
+
+    def infer(self, feed: Dict[str, Any],
+              fetch: Optional[Sequence[str]] = None) -> List[np.ndarray]:
+        self.send(feed, fetch)
+        return self.recv()
+
+    def close(self):
+        self._sock.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()

@@ -20,6 +20,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from time import perf_counter as _perf_counter
 from typing import Callable, List, Optional, Sequence
 
@@ -124,6 +125,70 @@ def training_metrics():
                          0.25, 0.5, 1.0, 2.5, 5.0, 10.0)),
         }
     return _train_metrics
+
+
+# -- checkpoint telemetry (≙ paddle_tpu/parallel/elastic.py:208-263) -------
+# The JAX package keeps these beside its elastic checkpoint writer; the
+# port's checkpoint code is this module, and its async writer is not
+# ported (CheckpointConfig(async_save=True) raises), so no async write is
+# ever pending: the families register at zero and `pending_async_count`
+# is 0. /healthz and a /metrics scrape read them through EngineServer.
+
+_ckpt_registry = None
+_ckpt_lock = threading.Lock()
+
+
+def checkpoint_metrics():
+    """The `ptpu_ckpt_*` series, registered (idempotently and lazily)
+    into `observability.metrics.default_registry()` under the JAX
+    package's names, types and help: one /metrics scrape sees
+    checkpoint, training and serving series together. Returns the
+    default registry."""
+    global _ckpt_registry
+    with _ckpt_lock:
+        if _ckpt_registry is None:
+            from .observability import metrics as m
+            r = m.default_registry()
+            c = m.get_or_create
+            c(r, "counter", "ptpu_ckpt_saves_total",
+              "Snapshots committed by this process.")
+            c(r, "counter", "ptpu_ckpt_save_bytes_total",
+              "Payload bytes written across committed snapshots.")
+            c(r, "counter", "ptpu_ckpt_restores_total",
+              "Snapshots restored.")
+            c(r, "counter", "ptpu_ckpt_barrier_aborts_total",
+              "Multi-rank snapshot attempts aborted at the "
+              "chief's barrier (straggler past the deadline or a "
+              "dead rank); training continues, the snapshot is "
+              "discarded.")
+            c(r, "counter", "ptpu_ckpt_skipped_foreign_total",
+              "Snapshot dirs skipped during latest-snapshot "
+              "selection because their COMMIT record was written "
+              "by a newer protocol/world config than this "
+              "process understands.")
+            c(r, "counter", "ptpu_ckpt_digest_failures_total",
+              "Snapshot files whose content digest disagreed "
+              "with the COMMIT integrity record (silent "
+              "bit-flips caught at validate/restore).")
+            c(r, "histogram", "ptpu_ckpt_save_seconds",
+              "Wall time of the write+commit phase.",
+              buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+                       5.0, 10.0, 30.0))
+            c(r, "histogram", "ptpu_ckpt_restore_seconds",
+              "Wall time of restore_train_state.",
+              buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+                       5.0, 10.0, 30.0))
+            c(r, "gauge", "ptpu_ckpt_pending_async",
+              "Async snapshot writes not yet committed.",
+              fn=lambda: float(pending_async_count()))
+            _ckpt_registry = r
+    return _ckpt_registry
+
+
+def pending_async_count() -> int:
+    """In-flight async snapshot writes not yet committed — what /healthz
+    reports. Always 0: the port has no async checkpoint writer."""
+    return 0
 
 
 def _serial_dir(root: str, serial: int) -> str:

@@ -6,10 +6,8 @@ package's startup program and carry across by name with
 `load_numpy_params`; both packages run float32 (use_bf16_matmul off), so
 greedy tokens must be equal, not near. The pager itself is pure host
 logic: the same operation sequence must give the same block ids, refcounts
-and counters in both packages. The JAX package's pager runs with its
-shadow-state sanitizer (tests/conftest.py sets PTPU_KV_SANITIZE=1); the
-port's sanitizer is not ported yet and refuses to start, so the port's
-flag is off here but for the test of that refusal.
+and counters in both packages. Both packages' pagers run with their
+shadow-state sanitizers (tests/conftest.py sets PTPU_KV_SANITIZE=1).
 """
 
 import numpy as np
@@ -46,10 +44,9 @@ CPU = ptt.CPUPlace()
 @pytest.fixture(autouse=True)
 def fresh_port_state():
     saved = {n: (jflags.get_flag(n), tflags.get_flag(n))
-             for n in ("use_bf16_matmul", "kv_sanitize")}
+             for n in ("use_bf16_matmul",)}
     jflags.set_flag("use_bf16_matmul", False)
     tflags.set_flag("use_bf16_matmul", False)
-    tflags.set_flag("kv_sanitize", False)
     ptt.reset_default_programs()
     ptt.reset_global_scope()
     with ptt.unique_name.guard():
@@ -379,19 +376,6 @@ def test_head_of_line_waits_for_blocks_and_span_is_named(params):
     assert eng.pager.pool.n_used == 0
     with pytest.raises(InvalidArgumentError, match="block-table span"):
         eng.submit(list(range(1, 8)), max_new=4)
-
-
-def test_host_tier_and_sanitizer_refuse_naming_the_roadmap_item():
-    kw = dict(n_slots=2, block_size=4, place=CPU, **DIMS)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 2"):
-        PagedKVEngine(host_tier=object(), **kw)
-    with pytest.raises(NotImplementedError, match="host_tier"):
-        KVPager(5, 4, host_tier=object())
-    tflags.set_flag("kv_sanitize", True)
-    with pytest.raises(NotImplementedError, match="PTPU_KV_SANITIZE"):
-        KVPager(5, 4)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 2"):
-        PagedKVEngine(**kw)
 
 
 def test_paged_engine_defaults_to_the_card():

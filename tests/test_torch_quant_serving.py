@@ -49,10 +49,9 @@ CPU = ptt.CPUPlace()
 @pytest.fixture(autouse=True)
 def fresh_port_state():
     saved = {n: (jflags.get_flag(n), tflags.get_flag(n))
-             for n in ("use_bf16_matmul", "quant_params", "kv_sanitize")}
+             for n in ("use_bf16_matmul", "quant_params")}
     jflags.set_flag("use_bf16_matmul", False)
     tflags.set_flag("use_bf16_matmul", False)
-    tflags.set_flag("kv_sanitize", False)
     ptt.reset_default_programs()
     ptt.reset_global_scope()
     with ptt.unique_name.guard():

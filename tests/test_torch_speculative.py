@@ -39,10 +39,9 @@ CPU = ptt.CPUPlace()
 @pytest.fixture(autouse=True)
 def fresh_port_state():
     saved = {n: (jflags.get_flag(n), tflags.get_flag(n))
-             for n in ("use_bf16_matmul", "kv_sanitize")}
+             for n in ("use_bf16_matmul",)}
     jflags.set_flag("use_bf16_matmul", False)
     tflags.set_flag("use_bf16_matmul", False)
-    tflags.set_flag("kv_sanitize", False)
     ptt.reset_default_programs()
     ptt.reset_global_scope()
     with ptt.unique_name.guard():
@@ -269,7 +268,10 @@ def test_draft_census_and_subphases(params):
     assert ph["spec_draft"] > 0 and ph["spec_verify"] > 0
     assert ph["spec_draft"] + ph["spec_verify"] <= \
         ph["prefill"] + ph["decode"] + 1e-6
-    assert set(req.phases()) == {"queue_wait", "prefill", "decode"}
+    # the JAX package's four phases; transport is 0 without a server
+    assert set(req.phases()) == {"queue_wait", "prefill", "decode",
+                                 "transport"}
+    assert req.phases()["transport"] == 0.0
 
 
 def test_spec_config_validation():
