@@ -209,12 +209,38 @@ Phases, in order; any failure raises and the script exits non-zero:
 31. phase 30's two-tier engine on 16 prompts with the KV sanitizer on:
    zero divergences, ops mirrored, phase 4's tokens; then phase 4's slot
    engine for 20 ticks with tracing on: aggregate() of the tick, dispatch
-   and admission spans and the spans' host cost a tick.
+   and admission spans and the spans' host cost a tick;
+32. translate with phase 12's trained NMT model (its parameters through
+   io.save_params / load_params into a fresh machine_translation.
+   infer_net(beam_size=4, max_len=64)): 3 batches of 32 of phase 12's
+   ragged sources after a warm-up, each under
+   torch.cuda.set_sync_debug_mode("error"): seconds per batch, beam
+   positions/s (B x max_len) and emitted tokens/s (the best beams up to
+   their eos), K6 once and K4 64 times a batch (the beams as G = 4 query
+   rows), a profiled batch's busy and idle share and top kernels; scores
+   finite and sorted best-first, every id in the vocabulary;
+33. train the BiLSTM-CRF of tests/test_book.py:178-243 at the book's
+   widths (embedding 32, 128 LSTM units a direction, 59 labels) on the
+   port's conll05 generator, batch 64, Adam 5e-3, 40 steps (steps 2-40
+   under sync-debug "error"): step time, examples/s, the loss falling,
+   K5 twice a step, a profiled step; then Viterbi decoding and
+   chunk_eval on a held-out batch (under sync-debug "error"): accuracy
+   and chunk F1;
+34. phases 32 and 33's graphs at test width card against CPU (the
+   decode's sequences and scores; 3 Adam steps of the BiLSTM-CRF, then
+   its Viterbi paths and chunk counts), tests/test_control_flow.py's
+   programs (While, DynamicRNN, IfElse, lazy_cond, Switch, tensor
+   arrays) card against CPU, and this slice's ops on tie, NaN,
+   out-of-range and empty inputs card against CPU.
 
 Phase 3 also holds decode attention's verify-window route (G = 5 query
 rows) and int8 route (int8 caches, alone and with G = 5) at the serving
 shape against the plain version, each row of a G = 5 launch bit-equal
-to a G = 1 launch, and times them beside SDPA on the same inputs.
+to a G = 1 launch, and times them beside SDPA on the same inputs; and
+its beam route (phase 32's shape: R 1, nh 32, G 4, T 64, dh 512,
+float32, the [32, 1, 64] mask broadcast over the rows) against the plain
+version at 1e-5, timed beside SDPA; K5 at the BiLSTM-CRF's shape (B 64,
+T 30, H 128, both directions).
 
 Float32 matrix products run without TF32 here
 (torch.backends.cuda.matmul.allow_tf32 = False, and cudnn's too), so
@@ -235,12 +261,16 @@ flash kernels' `routes` per type, `err_over_tolerance_bf16`,
 `launches_tc_bf16`, `d256` and `d512`, their times and bound at head
 dims 256 and 512; `launches_per_step_remat`, K1-K3's launches a step in
 phase 23; `launches_server`, `launches_two_tier`, `launches_sanitized`
-and `launches_traced`, decode attention's on phases 29-31), times, and
-`paths`: phases 15-31's numbers; the last line is
+and `launches_traced`, decode attention's on phases 29-31;
+`launches_beam` and the `*_beam` keys, decode attention's on phase 32
+and at its shape; `launches_infer`, the GRU kernel's on phase 32;
+`launches_crf`, the LSTM kernel's on phase 33), times, and `paths`:
+phases 15-34's numbers; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
 
+import atexit
 import contextlib
 import json
 import math
@@ -384,6 +414,25 @@ REMAT_STEPS, REMAT_DROPOUT, REMAT_DROPOUT_STEPS = 5, 0.1, 3
 # phase 24: tests/test_models.py:112's DeepFM, sparse, card against CPU
 DEEPFM_SMALL = dict(num_fields=5, vocab=500, embed_dim=8, fc_sizes=(32,),
                     row_pad=None, batch=16, lr=1e-3, batches=3)
+# phase 32: beam-search translation with phase 12's trained NMT model:
+# infer_net's defaults (beam 4, bos 0, eos 1) but max_len, set to phase
+# 12's target length (64); batches of 32 of phase 12's ragged sources
+# (lengths 16-64), the first a warm-up
+BEAM = dict(beam_size=4, max_len=64, bos_id=0, eos_id=1, batches=4)
+# phase 33: the BiLSTM-CRF of tests/test_book.py:178-243 at the book's
+# widths (word embedding 32; dynamic_lstm size 512, so 128 units a
+# direction; default activations, so both directions run on K5) over the
+# port's conll05 generator (4000 words, 59 labels, lengths 5-30), batch
+# 64, Adam 5e-3, labels by the test's learnable rule words % 59
+SRL = dict(vocab=4000, labels=59, max_len=30, emb=32, size=512, batch=64,
+           lr=5e-3, batches=8)
+SRL_STEPS = 40
+# phase 34: phases 32 and 33's graphs at test width, card against CPU
+NMT_INFER_SMALL = dict(dict_size=24, embed_dim=16, hidden_dim=32, batch=8,
+                       src_len=5, tgt_len=5, src_lo=1, beam_size=3,
+                       max_len=5)
+SRL_SMALL = dict(vocab=30, labels=5, max_len=7, emb=8, size=64, batch=4,
+                 lr=5e-3, batches=3)
 
 
 def log(*a):
@@ -706,8 +755,9 @@ def _rnn_err(out, ref):
 
 def check_recurrent(ptt, rates):
     """Phase 3 for the whole-sequence LSTM and GRU kernels: each against
-    its plain version on the card (hs, cs and the gate stash) at its path's
-    shape, forward and reversed, with ragged lengths including 0, at H = 16
+    its plain version on the card (hs, cs and the gate stash) at its
+    paths' shapes (the stacked LSTM's, the BiLSTM-CRF's, the NMT
+    encoder's), forward and reversed, with ragged lengths including 0, at H = 16
     and 100, the GRU past one pass of rows (B = 80), and at H = 1100 and
     2048 in both directions; then kernel, plain version and cuDNN's LSTM / GRU timed
     at the path's shape as phase 3 times the others (the kernels'
@@ -742,7 +792,9 @@ def check_recurrent(ptt, rates):
 
     lb, lt, lh = LSTM["batch"], LSTM["max_len"], LSTM["hid_dim"]
     gb, gt, gh = NMT["batch"], NMT["src_len"], NMT["hidden_dim"]
+    cb, ct, ch = SRL["batch"], SRL["max_len"], SRL["size"] // 4
     cases = [("lstm", lb, lt, lh, False), ("lstm", lb, lt, lh, True),
+             ("lstm", cb, ct, ch, False), ("lstm", cb, ct, ch, True),
              ("lstm", 5, 13, 16, False), ("lstm", 37, 9, 100, True),
              ("lstm", 8, 9, 1100, False), ("lstm", 8, 9, 1100, True),
              ("lstm", 4, 5, 2048, False), ("lstm", 4, 5, 2048, True),
@@ -926,19 +978,97 @@ def check_decode_attention_nmt(rates):
             attn_mask=s["b3"][:, :, None], scale=1.0),
     }, sets)
     mem_rate, f32_rate, _ = rates
-    nbytes = 4 * (b * h + 2 * b * t * h + b * t + b * h)
+    # q and the output [B, H], the encoder's [B, T, H] read once (the
+    # decoder passes it as both K and V), the [B, T] mask
+    nbytes = 4 * (b * h + b * t * h + b * t + b * h)
     flops = 4 * b * t * h + 5 * b * t
     bound_ms = max(nbytes / mem_rate, flops / f32_rate) * 1e3
     log(f"  decode_attention timing at the NMT shape ({splits} chunks a "
         f"row and head): kernel "
         f"{times['kernel'] * 1e3:.2f} us, plain {times['plain'] * 1e3:.2f} "
         f"us, SDPA {times['library'] * 1e3:.2f} us, bound "
-        f"{bound_ms * 1e3:.2f} us (bytes: {nbytes / 1e6:.2f} MB, K and V "
-        f"counted apart though the decoder passes one tensor)")
+        f"{bound_ms * 1e3:.2f} us (bytes: {nbytes / 1e6:.2f} MB, the "
+        f"encoder's output counted once: K and V are one tensor)")
     return {"max_abs_err_nmt": err, "max_abs_err_grad_nmt": gerr,
             "splits_nmt": splits, "ms_nmt": times["kernel"],
             "plain_ms_nmt": times["plain"],
             "bound_ms_nmt": bound_ms, "library_ms_nmt": times["library"]}
+
+
+def check_decode_attention_beam(rates):
+    """Phase 3 for the decode-attention kernel at the beam decoder's shape
+    (phase 32): the K = BEAM["beam_size"] beams of a row attend over the
+    encoder's [B, T, H] outputs as G = K query rows, so R = 1, nh = B,
+    G = K, dh = H = 512, float32, and the [B, 1, T] source mask is
+    broadcast over the K rows (stride 0). The forward through
+    `fused_decode_attention` (the op's route) against the plain version
+    at 1e-5, then kernel, plain and SDPA (the same float mask, the
+    library yardstick) timed in turns. Returns the `*_beam` fields."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.fusion.decode_attention import (
+        decode_attention_chunk, decode_attention_cuda, decode_attention_plain,
+        fused_decode_attention)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b, t, h, g = NMT["batch"], NMT["src_len"], NMT["hidden_dim"], \
+        BEAM["beam_size"]
+    splits = -(-t // decode_attention_chunk(1, b, t, h))
+
+    def make():
+        q = torch.randn(b, g, h, device=dev, generator=gen)
+        enc = torch.randn(b, t, h, device=dev, generator=gen)
+        lens = torch.randint(NMT["src_lo"], t + 1, (b, 1), device=dev,
+                             generator=gen)
+        bias = torch.where(torch.arange(t, device=dev)[None] < lens, 0.0,
+                           -1e9)[:, None, :]
+        return q, enc, bias
+
+    q, enc, bias = make()
+    out = fused_decode_attention(q, enc, enc, bias, 1.0)
+    ref = decode_attention_plain(q[None], enc[None], enc[None],
+                                 bias.expand(b, g, t)[None], 1.0)[0]
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    ok = err <= 1e-5 * max(1.0, float(ref.abs().max()))
+    log(f"  decode_attention beam shape R=1 nh={b} G={g} T={t} dh={h} "
+        f"float32, mask [{b}, 1, {t}] over the G rows ({splits} chunks a "
+        f"row and head): max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"decode_attention at the beam shape: {err}")
+
+    sets = [dict(zip(("q", "enc", "bias"), make())) for _ in range(8)]
+    for st in sets:
+        st["q4"] = st["q"][None]                        # [1, B, K, H]
+        st["k4"] = st["enc"][None]                      # [1, B, T, H]
+        st["b4"] = st["bias"].expand(b, g, t)[None]     # stride 0 over K
+        st["mask4"] = st["b4"]
+    times = time_in_turns({
+        "kernel": lambda s: decode_attention_cuda(s["q4"], s["k4"], s["k4"],
+                                                  s["b4"], 1.0),
+        "plain": lambda s: decode_attention_plain(s["q4"], s["k4"], s["k4"],
+                                                  s["b4"], 1.0),
+        "library": lambda s: F.scaled_dot_product_attention(
+            s["q4"], s["k4"], s["k4"], attn_mask=s["mask4"], scale=1.0),
+    }, sets)
+    mem_rate, f32_rate, _ = rates
+    # q and the output [B, K, H], the encoder's [B, T, H] read once (the
+    # decoder passes it as both K and V), the [B, T] mask read once
+    nbytes = 4 * (2 * b * g * h + b * t * h + b * t)
+    flops = 4 * b * g * t * h + 5 * b * g * t
+    bound_ms = max(nbytes / mem_rate, flops / f32_rate) * 1e3
+    bound_by = "bytes" if nbytes / mem_rate >= flops / f32_rate else \
+        "operations"
+    log(f"  decode_attention timing at the beam shape: kernel "
+        f"{times['kernel'] * 1e3:.2f} us, plain {times['plain'] * 1e3:.2f} "
+        f"us, SDPA {times['library'] * 1e3:.2f} us, bound "
+        f"{bound_ms * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e6:.1f} MFLOP)")
+    return {"max_abs_err_beam": err, "splits_beam": splits,
+            "ms_beam": times["kernel"], "plain_ms_beam": times["plain"],
+            "bound_ms_beam": bound_ms, "bound_by_beam": bound_by,
+            "library_ms_beam": times["library"]}
 
 
 def _segments(gen, b, t, dev):
@@ -3057,21 +3187,7 @@ def profile_recurrent(trainers):
         step()
         log(f"  {label}: one steady-state step, no profiler: wall "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-        wall, events = _profile(step, 1, annotate=False)
-        kernels_ = device_kernels(events)
-        busy_us = sum(dev_self(e) for e in kernels_)
-        log(f"  {label}: one step under the profiler: wall "
-            f"{wall * 1e3:.1f} ms")
-        if busy_us <= 0:
-            log("  the profiler saw no device time: device busy share not "
-                "measured")
-        else:
-            log(f"  device busy {busy_us / 1e3:.1f} ms ({len(kernels_)} "
-                f"distinct kernels), idle share of the profiled window "
-                f"{1 - busy_us / 1e6 / wall:.3f}")
-        for e in sorted(kernels_, key=dev_self, reverse=True)[:10]:
-            log(f"    device {dev_self(e) / 1e3:8.2f} ms {e.count:6d} "
-                f"calls  {e.key[:80]}")
+        _profile_one(f"{label}: one step", step)
 
 
 def _shift_copy_batch(rng, cfg):
@@ -4363,6 +4479,628 @@ def rest_reference_check(ptt):
             "resnet8_remat_max_diff": worst, "piecewise_decay_lr": lrs}
 
 
+def _profile_one(label, step):
+    """One call of `step` under torch.profiler: wall, device busy, the
+    idle share and the top device kernels, logged and returned."""
+    wall, events = _profile(step, 1, annotate=False)
+    kernels_ = device_kernels(events)
+    busy_us = sum(dev_self(e) for e in kernels_)
+    prof = {"wall_ms": wall * 1e3}
+    if busy_us <= 0:
+        log("  the profiler saw no device time: device busy share not "
+            "measured")
+    else:
+        prof.update(busy_ms=busy_us / 1e3,
+                    idle_share=1 - busy_us / 1e6 / wall)
+        log(f"  {label} under the profiler: wall {wall * 1e3:.1f} ms, "
+            f"device busy {busy_us / 1e3:.2f} ms ({len(kernels_)} distinct "
+            f"kernels), idle share {1 - busy_us / 1e6 / wall:.3f}")
+    prof["top"] = []
+    for e in sorted(kernels_, key=dev_self, reverse=True)[:8]:
+        prof["top"].append([e.key[:80], dev_self(e) / 1e3, e.count])
+        log(f"    device {dev_self(e) / 1e3:8.3f} ms {e.count:6d} calls  "
+            f"{e.key[:80]}")
+    return prof
+
+
+def _nmt_infer_program(ptt, cfg, beam):
+    """machine_translation.infer_net at `cfg`'s width (the trained
+    parameters' names), as a user builds it."""
+    from paddle_tpu_torch.models import machine_translation as mt
+    L = ptt.layers
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        src = L.data("src", shape=[cfg["src_len"]], dtype="int64")
+        src_lens = L.data("src_lens", shape=[], dtype="int64")
+        seqs, scores = mt.infer_net(
+            src, src_lens, dict_size=cfg["dict_size"],
+            embed_dim=cfg["embed_dim"], hidden_dim=cfg["hidden_dim"],
+            beam_size=beam["beam_size"], max_len=beam["max_len"],
+            bos_id=beam.get("bos_id", 0), eos_id=beam.get("eos_id", 1))
+    return main, start, [seqs, scores]
+
+
+def _check_beams(label, seqs, scores, vocab):
+    """The decode's checks: scores finite and sorted best-first, every id
+    a vocabulary id."""
+    import numpy as np
+    assert np.isfinite(scores).all(), f"{label}: scores {scores}"
+    assert (np.diff(scores, axis=1) <= 0).all(), \
+        f"{label}: beams not sorted best-first: {scores}"
+    assert ((seqs >= 0) & (seqs < vocab)).all(), \
+        f"{label}: ids outside [0, {vocab})"
+
+
+def translate_nmt(ptt, kernels, params_dir):
+    """Phase 32: beam-search translation at full width. Phase 12's trained
+    parameters, saved with io.save_params, load with io.load_params into
+    a fresh infer_net(beam_size=4, max_len=64) program on CUDAPlace(0);
+    BEAM["batches"] batches of 32 of phase 12's ragged sources decode
+    (the first a warm-up that plans), each under
+    torch.cuda.set_sync_debug_mode("error") with its feeds on the card:
+    no host sync on the decode's path. Launch counts are zeroed after the
+    warm-up and read after the last batch: K6 once a batch (the encoder),
+    K4 max_len times (the attention of the K beams, G = K query rows, each
+    step). Prints seconds per batch (median), beam positions/s (B x
+    max_len, the fixed-shape work a batch does, over the median batch),
+    emitted tokens/s (the best beams' tokens up to and including their
+    first eos, over the median batch) with the share of best beams that
+    ended on eos, the counts, and one profiled batch's device busy and
+    idle share with its top kernels."""
+    import numpy as np
+    import torch
+    cfg, beam = NMT, BEAM
+    cuda = ptt.CUDAPlace(0)
+    main, start, fetch = _nmt_infer_program(ptt, cfg, beam)
+    scope = ptt.Scope()
+    exe = ptt.Executor(cuda)
+    exe.run(start, scope=scope)
+    ptt.io.load_params(exe, params_dir, main_program=main, scope=scope)
+    feeds = _nmt_feeds(np.random.RandomState(SEED + 7), cfg,
+                       beam["batches"])
+    dev_feeds = [{k: torch.from_numpy(f[k]).to(exe.device)
+                  for k in ("src", "src_lens")} for f in feeds]
+
+    def decode(i):
+        return exe.run(main, feed=dev_feeds[i], fetch_list=fetch,
+                       scope=scope, return_numpy=False)
+
+    t0 = time.perf_counter()
+    warm = [t.cpu().numpy() for t in decode(0)]
+    log(f"  warm-up batch (plans): {time.perf_counter() - t0:.2f} s")
+    _check_beams("warm-up", *warm, cfg["dict_size"])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    secs, outs = [], []
+    for i in range(1, beam["batches"]):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = decode(i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append([t.cpu().numpy() for t in out])
+    launches = dict(kernels.LAUNCHES)
+    n = beam["batches"] - 1
+    expect = {"gru_seq": n, "decode_attention": n * beam["max_len"],
+              "decode_attention_multi": n * beam["max_len"], "lstm_seq": 0}
+    for k, want in expect.items():
+        assert launches[k] == want, (f"beam decode: {k} launched "
+                                     f"{launches[k]} times in {n} batches; "
+                                     f"the path launches it {want} times")
+    for seqs, scores in outs:
+        _check_beams("beam decode", seqs, scores, cfg["dict_size"])
+        assert seqs.shape == (cfg["batch"], beam["max_len"],
+                              beam["beam_size"]), seqs.shape
+    med = float(np.median(secs))
+    positions = cfg["batch"] * beam["max_len"]
+    is_eos = [s[:, :, 0] == beam["eos_id"] for s, _ in outs]
+    ended = float(np.mean([e.any(1).mean() for e in is_eos]))
+    # a best beam's tokens: up to and including its first eos, else all
+    emitted = float(np.mean([np.where(e.any(1), e.argmax(1) + 1,
+                                      beam["max_len"]).sum()
+                             for e in is_eos]))
+    log(f"  {n} batches of {cfg['batch']} sources (lengths "
+        f"{cfg['src_lo']}-{cfg['src_len']}), beam {beam['beam_size']}, "
+        f"{beam['max_len']} steps, each under set_sync_debug_mode('error')"
+        f": {med:.4f} s/batch median (all {[round(x, 4) for x in secs]}), "
+        f"{positions / med:.1f} beam positions/s (B x max_len); "
+        f"{emitted / med:.1f} emitted tokens/s (best beams up to their "
+        f"eos, {emitted / cfg['batch']:.2f} tokens a row); best-beam "
+        f"scores median {float(np.median(outs[0][1][:, 0])):.3f}; share of "
+        f"best beams that emitted eos {ended:.3f}")
+    log(f"  launches: {launches}")
+
+    prof = _profile_one("a decode batch", lambda: decode(1))
+    return {"s_per_batch_median": med, "s_per_batch": secs,
+            "beam_positions_per_s": positions / med,
+            "emitted_tokens_per_s": emitted / med,
+            "emitted_tokens_per_row": emitted / cfg["batch"],
+            "best_beams_ended_on_eos": ended, "launches": launches,
+            "profile": prof}
+
+
+def _srl_net(ptt, cfg):
+    """tests/test_book.py:178-243's network up to the emission: embedding
+    -> fc -> dynamic_lstm forward and reverse -> concat -> fc."""
+    L = ptt.layers
+    seq = L.sequence
+    words = L.data("words", shape=[cfg["max_len"]], dtype="int64",
+                   lod_level=1)
+    label = L.data("label", shape=[cfg["max_len"]], dtype="int64")
+    length = seq.get_seqlen(words)
+    emb = seq.tag_sequence(
+        L.embedding(words, size=[cfg["vocab"], cfg["emb"]]), length)
+    fwd_in = seq.tag_sequence(
+        L.fc(emb, size=cfg["size"], num_flatten_dims=2), length)
+    bwd_in = seq.tag_sequence(
+        L.fc(emb, size=cfg["size"], num_flatten_dims=2), length)
+    fwd, _ = seq.dynamic_lstm(fwd_in, size=cfg["size"])
+    bwd, _ = seq.dynamic_lstm(bwd_in, size=cfg["size"], is_reverse=True)
+    hidden = seq.tag_sequence(L.concat([fwd, bwd], axis=2), length)
+    emission = L.fc(hidden, size=cfg["labels"], num_flatten_dims=2)
+    return emission, label, length
+
+
+def _srl_program(ptt, cfg):
+    """The BiLSTM-CRF trained by linear_chain_crf's negative
+    log-likelihood with Adam(lr), the transition named srl_crfw."""
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        emission, label, length = _srl_net(ptt, cfg)
+        cost = ptt.layers.linear_chain_crf(
+            emission, label, length, param_attr=ptt.ParamAttr(
+                name="srl_crfw"))
+        loss = ptt.layers.mean(cost)
+        ptt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    return main, start, loss
+
+
+def _srl_decode_program(ptt, cfg):
+    """The same network with crf_decoding against the trained srl_crfw
+    and chunk_eval (plain scheme, one chunk type a label). Returns
+    (program, [path, precision, recall, f1, inferred, labelled, correct])
+    ."""
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        emission, label, length = _srl_net(ptt, cfg)
+        seq = ptt.layers.sequence
+        path = seq.crf_decoding(emission, length, param_attr=ptt.ParamAttr(
+            name="srl_crfw"))
+        evals = seq.chunk_eval(path, label, length, chunk_scheme="plain",
+                               num_chunk_types=cfg["labels"])
+    return main, [path] + list(evals)
+
+
+def _srl_feeds(rng, cfg, n, split="train"):
+    """Batches from the port's conll05 generator (data/datasets.py): the
+    word slot padded with 0 to max_len, its lengths, and the labels
+    words % labels (tests/test_book.py's learnable rule)."""
+    import numpy as np
+    from paddle_tpu_torch.data import datasets
+    b, t = cfg["batch"], cfg["max_len"]
+    reader = getattr(datasets.conll05, split)(n * b)()
+    feeds = []
+    for _ in range(n):
+        words = np.zeros((b, t), "int64")
+        lens = np.zeros((b,), "int32")
+        for i in range(b):
+            w = next(reader)[0][:t] % cfg["vocab"]
+            words[i, :len(w)] = w
+            lens[i] = len(w)
+        feeds.append({"words": words, "words@SEQLEN": lens,
+                      "label": words % cfg["labels"]})
+    return feeds
+
+
+def train_srl(ptt, kernels):
+    """Phase 33: the BiLSTM-CRF at the book's widths on conll05's sizes,
+    SRL_STEPS Adam steps over SRL["batches"] batches (feeds on the card);
+    step 1 plans, steps 2-N each run under
+    torch.cuda.set_sync_debug_mode("error"): the CRF's forward algorithm,
+    its gradient and the LSTMs read no length on the host. K5 must launch
+    twice a step (both directions; counted from zero around the run).
+    Then Viterbi decoding and chunk_eval on a held-out batch of conll05's
+    test split, also under sync-debug "error": the share of tags right
+    and the chunk F1."""
+    import numpy as np
+    import torch
+    cfg = SRL
+    cuda = ptt.CUDAPlace(0)
+    main, start, loss = _srl_program(ptt, cfg)
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("dynamic_lstm") == 2 and \
+        types.count("linear_chain_crf") == 1, types
+    scope = ptt.Scope()
+    exe = ptt.Executor(cuda)
+    exe.run(start, scope=scope)
+    feeds = _srl_feeds(np.random.RandomState(SEED + 30), cfg, cfg["batches"])
+    dev = [{k: torch.from_numpy(v).to(exe.device) for k, v in f.items()}
+           for f in feeds]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, secs = [], []
+    for i in range(SRL_STEPS):
+        t0 = time.perf_counter()
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, = exe.run(main, feed=dev[i % len(dev)], fetch_list=[loss],
+                           scope=scope, return_numpy=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(out)
+    launches = dict(kernels.LAUNCHES)
+    losses = [float(x) for x in losses]
+    assert launches["lstm_seq"] == 2 * SRL_STEPS, (
+        f"BiLSTM-CRF: lstm_seq launched {launches['lstm_seq']} times in "
+        f"{SRL_STEPS} steps; the path launches it {2 * SRL_STEPS} times")
+    assert launches["gru_seq"] == launches["decode_attention"] == 0, launches
+    st = np.asarray(secs[1:]) * 1e3
+    k = len(feeds)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    tokens = int(np.mean([f["words@SEQLEN"].sum() for f in feeds]))
+    log(f"  BiLSTM-CRF, Adam: {SRL_STEPS} steps, {cfg['batch']} examples "
+        f"({tokens} tokens)/step: step time median {np.median(st):.2f} ms, "
+        f"p95 {np.percentile(st, 95):.2f} ms (steps 2-{SRL_STEPS} under "
+        f"set_sync_debug_mode('error'); step 1 {secs[0] * 1e3:.1f} ms), "
+        f"{cfg['batch'] / (np.median(st) / 1e3):.1f} examples/s; loss step "
+        f"1 {losses[0]:.4f}, step {SRL_STEPS} {losses[-1]:.4f} (mean over "
+        f"the {k} batches: first pass {first:.4f}, last pass {last:.4f})")
+    log(f"  launches: {launches}")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert last < first, f"BiLSTM-CRF: the loss did not fall: {losses}"
+    prof = _profile_one("a BiLSTM-CRF step", lambda: exe.run(
+        main, feed=dev[0], fetch_list=[loss], scope=scope,
+        return_numpy=False))
+
+    dmain, evals = _srl_decode_program(ptt, cfg)
+    held = _srl_feeds(np.random.RandomState(SEED + 31), cfg, 1, "test")[0]
+    hdev = {k: torch.from_numpy(v).to(exe.device) for k, v in held.items()}
+    exe.run(dmain, feed=hdev, fetch_list=evals, scope=scope)    # plans
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = exe.run(dmain, feed=hdev, fetch_list=evals, scope=scope,
+                      return_numpy=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    path, prec, rec, f1, n_inf, n_lab, n_cor = [t.cpu().numpy()
+                                                for t in got]
+    valid = np.arange(cfg["max_len"])[None] < held["words@SEQLEN"][:, None]
+    acc = float((path == held["label"])[valid].mean())
+    assert ((path >= 0) & (path < cfg["labels"])).all()
+    assert (path[~valid] == 0).all()
+    log(f"  held-out batch (conll05 test split), decoded under "
+        f"set_sync_debug_mode('error'): Viterbi accuracy {acc:.4f}, chunk "
+        f"precision {float(prec[0]):.4f} recall {float(rec[0]):.4f} F1 "
+        f"{float(f1[0]):.4f} ({int(n_cor[0])} of {int(n_lab[0])} chunks "
+        f"found, {int(n_inf[0])} inferred)")
+    return {"step_ms_median": float(np.median(st)),
+            "step_ms_p95": float(np.percentile(st, 95)),
+            "examples_per_s": cfg["batch"] / (np.median(st) / 1e3),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "viterbi_accuracy": acc, "chunk_f1": float(f1[0]),
+            "launches": launches, "profile": prof}
+
+
+def _nmt_infer_reference(ptt):
+    """Phase 32's graph at test width (B 8, Ts 5, K 3, V 24, H 32) with
+    the same random parameters on the card and the CPU: scores at 1e-5
+    and sequences equal (a parting would have to be a near-tie: none is
+    allowed here)."""
+    import numpy as np
+    from paddle_tpu_torch.framework.executor import as_numpy
+    cfg = NMT_INFER_SMALL
+    main, start, fetch = _nmt_infer_program(ptt, cfg, cfg)
+    gscope = ptt.Scope()
+    gpu = ptt.Executor(ptt.CUDAPlace(0))
+    gpu.run(start, scope=gscope)
+    cscope = ptt.load_numpy_params(
+        {n: as_numpy(gscope.get(n)) for n in gscope.local_var_names()},
+        ptt.Scope(), ptt.CPUPlace())
+    feed = _nmt_feeds(np.random.RandomState(SEED + 32), cfg, 1)[0]
+    feed = {k: feed[k] for k in ("src", "src_lens")}
+    g = gpu.run(main, feed=feed, fetch_list=fetch, scope=gscope)
+    c = ptt.Executor(ptt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                         scope=cscope)
+    _check_beams("small decode", *g, cfg["dict_size"])
+    np.testing.assert_allclose(g[1], c[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(g[0], c[0])
+    log(f"  infer_net small (B {cfg['batch']}, Ts {cfg['src_len']}, K "
+        f"{cfg['beam_size']}, V {cfg['dict_size']}, H {cfg['hidden_dim']})"
+        f": card and CPU decode the same sequences, scores within "
+        f"{float(np.abs(g[1] - c[1]).max()):.2e}")
+
+
+def _srl_reference(ptt):
+    """Phase 33's graph at test width: 3 Adam steps card against CPU (as
+    phase 13), then the decode program on both from the card's trained
+    state: Viterbi paths and chunk counts equal."""
+    import numpy as np
+    from paddle_tpu_torch.framework.executor import as_numpy
+    cfg = SRL_SMALL
+    gscope = _card_against_cpu(ptt, "BiLSTM-CRF", cfg, _srl_program,
+                               _srl_feeds)
+    cscope = ptt.load_numpy_params(
+        {n: as_numpy(gscope.get(n)) for n in gscope.local_var_names()},
+        ptt.Scope(), ptt.CPUPlace())
+    dmain, evals = _srl_decode_program(ptt, cfg)
+    held = _srl_feeds(np.random.RandomState(SEED + 33), cfg, 1, "test")[0]
+    g = ptt.Executor(ptt.CUDAPlace(0)).run(dmain, feed=held,
+                                           fetch_list=evals, scope=gscope)
+    c = ptt.Executor(ptt.CPUPlace()).run(dmain, feed=held, fetch_list=evals,
+                                         scope=cscope)
+    for v, a, b in zip(evals, g, c):
+        np.testing.assert_array_equal(a, b, err_msg=v.name)
+    log(f"  BiLSTM-CRF small: Viterbi paths and chunk counts equal on card "
+        f"and CPU ({int(g[6][0])} of {int(g[5][0])} chunks right)")
+
+
+def _control_flow_programs(ptt):
+    """tests/test_control_flow.py's programs built with the port:
+    name -> (build() -> fetch list, feed, expected or None)."""
+    import numpy as np
+    from paddle_tpu_torch.layers import control_flow as cf
+    L = ptt.layers
+    r = np.random.RandomState(SEED + 34)
+    x64 = r.rand(2, 6, 4).astype("float32")
+
+    def while_counts():
+        i = L.fill_constant([1], "int64", 0)
+        n = L.fill_constant([1], "int64", 10)
+        total = L.fill_constant([1], "float32", 0.0)
+        c = L.less_than(i, n)
+        w = cf.While(c)
+        with w.block():
+            L.assign(L.elementwise_add(total, L.cast(i, "float32")),
+                     output=total)
+            L.assign(L.increment(i, value=1), output=i)
+            L.less_than(i, n, cond=c)
+        return [total, i]
+
+    def dynamic_rnn():
+        x = L.data(name="x", shape=[6, 4], lod_level=1)
+        zero = L.fill_constant_batch_size_like(x, [-1, 4], "float32", 0.0)
+        drnn = cf.DynamicRNN()
+        with drnn.block():
+            xt = drnn.step_input(x)
+            acc = drnn.memory(init=zero)
+            s = L.elementwise_add(acc, xt)
+            drnn.update_memory(acc, s)
+            drnn.step_output(s)
+        return [drnn(), drnn.final_memories()]
+
+    def ifelse():
+        x = L.data(name="x", shape=[4])
+        flag = L.data(name="flag", shape=[1], dtype="bool")
+        ie = cf.IfElse(flag)
+        with ie.true_block():
+            ie.output(L.scale(x, scale=2.0))
+        with ie.false_block():
+            ie.output(L.scale(x, scale=-1.0))
+        return ie()
+
+    def lazy_cond():
+        pred = L.fill_constant([1], "bool", True)
+        a = L.fill_constant([2], "float32", 3.0)
+        b = L.fill_constant([2], "float32", 5.0)
+        return [cf.cond(pred, lambda: L.elementwise_add(a, b),
+                        lambda: L.elementwise_sub(a, b))]
+
+    def switch():
+        step = L.fill_constant([1], "float32", 7.0)
+        b1 = L.fill_constant([1], "float32", 5.0)
+        b2 = L.fill_constant([1], "float32", 10.0)
+        lr = L.create_tensor("float32", name="lr_value")
+        sw = cf.Switch()
+        with sw.case(L.less_than(step, b1)):
+            L.assign(L.fill_constant([1], "float32", 0.1), output=lr)
+        with sw.case(L.less_than(step, b2)):
+            L.assign(L.fill_constant([1], "float32", 0.01), output=lr)
+        with sw.default():
+            L.assign(L.fill_constant([1], "float32", 0.001), output=lr)
+        return [sw.finish(lr)]
+
+    def arrays():
+        x = L.data("x", shape=[4])
+        arr = cf.create_array("float32", max_len=3, shape=[2, 4])
+        i0 = L.fill_constant([], "int64", 0)
+        i1 = L.fill_constant([], "int64", 1)
+        arr = cf.array_write(x, i0, arr)
+        arr = cf.array_write(x * 2.0, i1, arr)
+        return [cf.array_read(arr, i0), cf.array_read(arr, i1),
+                cf.array_length(arr)]
+
+    xa = r.rand(2, 4).astype("float32")
+    xi = r.rand(6, 4).astype("float32")
+    flag = np.array([[1], [0], [1], [0], [1], [0]], bool)
+    return {
+        "While counting to ten": (while_counts, {},
+                                  [[45.0], [10]]),
+        "DynamicRNN with lengths": (
+            dynamic_rnn, {"x": x64, "x@SEQLEN": np.array([3, 6], "int32")},
+            [None, np.stack([x64[0, :3].sum(0), x64[1].sum(0)])]),
+        "IfElse mask merge": (ifelse, {"x": xi, "flag": flag},
+                              [np.where(flag, 2 * xi, -xi)]),
+        "lazy_cond": (lazy_cond, {}, [[8.0, 8.0]]),
+        "Switch piecewise": (switch, {}, [[0.01]]),
+        "tensor arrays": (arrays, {"x": xa}, [xa, 2 * xa, 3]),
+    }
+
+
+def _control_flow_reference(ptt):
+    """The control-flow programs on the card and on the CPU: values
+    equal (at 1e-6) and as tests/test_control_flow.py states them."""
+    import numpy as np
+    for name, (build, feed, want) in _control_flow_programs(ptt).items():
+        main, start = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, start), ptt.unique_name.guard():
+            fetch = build()
+        got = []
+        for place in (ptt.CUDAPlace(0), ptt.CPUPlace()):
+            exe, scope = ptt.Executor(place), ptt.Scope()
+            exe.run(start, scope=scope)
+            got.append(exe.run(main, feed=feed, fetch_list=fetch,
+                               scope=scope))
+        for a, b, w in zip(got[0], got[1], want):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6,
+                                       err_msg=name)
+            if w is not None:
+                np.testing.assert_allclose(a, np.asarray(w), rtol=1e-5,
+                                           err_msg=name)
+        log(f"  {name}: card = CPU, as tests/test_control_flow.py states")
+
+
+def _slice_op_cases():
+    """This slice's ops on tie, NaN, boundary and empty inputs (and a
+    random draw each): (label, op type, numpy inputs, attrs)."""
+    import numpy as np
+    r = np.random.RandomState(SEED + 35)
+
+    def f32(*shape):
+        return r.randn(*shape).astype("float32")
+
+    lp = np.log(r.dirichlet(np.ones(6), (2, 3))).astype("float32")
+    return [
+        ("beam_search", "beam_search",
+         {"PreIds": np.array([[3, 1, 4], [0, 2, 2]]),
+          "PreScores": np.array([[-0.5, -0.7, -1e9], [0.0, -1e9, -1e9]],
+                                "float32"), "Scores": lp},
+         {"beam_size": 3, "end_id": 1}),
+        ("beam_search ties", "beam_search",
+         {"PreIds": np.array([[2, 2, 2]]),
+          "PreScores": np.zeros((1, 3), "float32"),
+          "Scores": np.full((1, 3, 4), -1.25, "float32")},
+         {"beam_size": 3, "end_id": 1}),
+        ("beam_search NaN", "beam_search",
+         {"PreIds": np.array([[0, 3]]),
+          "PreScores": np.array([[0.0, -1.0]], "float32"),
+          "Scores": np.array([[[-1.0, np.nan, -2.0], [-0.5, -np.inf, -3.0]]],
+                             "float32")}, {"beam_size": 2, "end_id": 1}),
+        ("gather_tree out-of-range parents", "gather_tree",
+         {"Ids": np.arange(12).reshape(1, 4, 3),
+          "Parents": np.array([[[0, 1, 2], [5, -1, 0], [2, 2, 1],
+                                [-4, 0, 1]]])}, {}),
+        ("expand", "expand", {"X": f32(2, 1, 3)},
+         {"expand_times": [1, 4, 1]}),
+        ("array_write past the end", "array_write",
+         {"Array": f32(3, 2), "X": f32(2), "I": np.array([5])}, {}),
+        ("array_read negative", "array_read",
+         {"Array": f32(3, 2), "I": np.array(-1)}, {}),
+        ("not_equal NaN", "not_equal",
+         {"X": np.array([1.0, np.nan, 0.0], "float32"),
+          "Y": np.array([1.0, np.nan, -0.0], "float32")}, {}),
+        ("logical_xor", "logical_xor",
+         {"X": np.array([[True], [False]]),
+          "Y": np.array([True, False, True])}, {}),
+        ("is_empty empty", "is_empty", {"X": np.zeros((0, 3), "float32")},
+         {}),
+        ("where", "where", {"Condition": np.array([[True], [False]]),
+                            "X": f32(2, 3), "Y": f32(2, 3)}, {}),
+        ("linear_chain_crf lengths 5, 3, 1, 0", "linear_chain_crf",
+         {"Emission": f32(4, 5, 3), "Transition": f32(5, 3),
+          "Label": r.randint(0, 3, (4, 5)),
+          "Length": np.array([5, 3, 1, 0])}, {}),
+        ("crf_decoding ties", "crf_decoding",
+         {"Emission": np.zeros((2, 4, 3), "float32"),
+          "Transition": np.zeros((5, 3), "float32"),
+          "Length": np.array([4, 0])}, {}),
+        ("crf_decoding label", "crf_decoding",
+         {"Emission": f32(2, 5, 3), "Transition": f32(5, 3),
+          "Length": np.array([5, 2]), "Label": r.randint(0, 3, (2, 5))},
+         {}),
+        ("chunk_eval IOE", "chunk_eval",
+         {"Inference": np.array([[0, 1, 2, 3, 4], [1, 1, 0, 4, 3]]),
+          "Label": np.array([[0, 1, 2, 2, 3], [1, 0, 0, 4, 3]]),
+          "Length": np.array([5, 4])},
+         {"chunk_scheme": "IOE", "num_chunk_types": 2,
+          "excluded_chunk_types": []}),
+        ("chunk_eval empty", "chunk_eval",
+         {"Inference": np.array([[0, 1]]), "Label": np.array([[0, 1]]),
+          "Length": np.array([0])},
+         {"chunk_scheme": "IOB", "num_chunk_types": 1,
+          "excluded_chunk_types": []}),
+        ("dynamic_lstmp", "dynamic_lstmp",
+         {"Input": f32(3, 4, 8), "Weight": f32(3, 8) * 0.5,
+          "ProjWeight": f32(2, 3) * 0.5, "Bias": f32(14) * 0.5,
+          "SeqLen": np.array([4, 2, 0], "int32")},
+         {"use_peepholes": True, "proj_activation": "tanh"}),
+        ("lstm_unit", "lstm_unit", {"X": f32(3, 8), "C_prev": f32(3, 2)},
+         {"forget_bias": 1.0}),
+        ("gru_unit", "gru_unit",
+         {"Input": f32(3, 6), "HiddenPrev": f32(3, 2),
+          "Weight": f32(2, 6), "Bias": f32(6)}, {}),
+        ("sequence_softmax empty row", "sequence_softmax",
+         {"X": f32(3, 5), "SeqLen": np.array([5, 2, 0], "int32")}, {}),
+        ("sequence_reverse", "sequence_reverse",
+         {"X": f32(3, 4, 2), "SeqLen": np.array([4, 2, 0], "int32")}, {}),
+        ("sequence_slice past T", "sequence_slice",
+         {"X": f32(3, 5, 2), "Offset": np.array([[0], [2], [4]])},
+         {"length": 2}),
+        ("edit_distance", "edit_distance",
+         {"Hyps": np.array([[1, 2, 3, 4], [5, 5, 0, 0], [7, 8, 9, 1]]),
+          "Refs": np.array([[1, 3, 4], [5, 6, 5], [1, 1, 1]]),
+          "HypsLen": np.array([4, 2, 0]), "RefsLen": np.array([3, 3, 2])},
+         {"normalized": True}),
+        ("sequence_conv", "sequence_conv",
+         {"X": f32(2, 5, 3), "Filter": f32(9, 4),
+          "SeqLen": np.array([5, 2], "int32")},
+         {"contextLength": 3, "contextStart": -1, "contextStride": 1}),
+        ("row_conv", "row_conv", {"X": f32(2, 5, 3), "Filter": f32(3, 3)},
+         {}),
+    ]
+
+
+def _slice_ops_reference(card=None):
+    """Each case's lowering on tensors on the card (`card`, default
+    cuda:0) against the same lowering on CPU tensors: integers and
+    booleans equal, floats at 1e-5 (NaN where NaN)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.framework import registry
+    card = card or torch.device("cuda", 0)
+    for label, op_type, ins, attrs in _slice_op_cases():
+        outs = []
+        for dev in (card, torch.device("cpu")):
+            t = {s: [torch.as_tensor(np.asarray(a)).to(dev)]
+                 for s, a in ins.items()}
+            o = registry.lookup_op(op_type).lower(
+                registry.LowerCtx(device=dev), t, dict(attrs))
+            outs.append({s: [v.cpu().numpy() for v in vs]
+                         for s, vs in o.items()})
+        g, c = outs
+        assert set(g) == set(c), label
+        for slot in g:
+            for a, b in zip(g[slot], c[slot]):
+                assert a.dtype == b.dtype and a.shape == b.shape, \
+                    (label, slot)
+                if a.dtype.kind in "biu":
+                    np.testing.assert_array_equal(a, b,
+                                                  err_msg=f"{label} {slot}")
+                else:
+                    np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5,
+                                               equal_nan=True,
+                                               err_msg=f"{label} {slot}")
+    log(f"  {len(_slice_op_cases())} cases of this slice's ops (ties, NaN, "
+        f"out-of-range indices, empty rows and batches): card = CPU")
+
+
+def recurrent_rest_reference_check(ptt):
+    """Phase 34: phases 32 and 33's graphs at test width, the control-flow
+    programs and this slice's ops, card against CPU, float32 with TF32
+    off."""
+    _nmt_infer_reference(ptt)
+    _srl_reference(ptt)
+    _control_flow_reference(ptt)
+    _slice_ops_reference()
+    return {"ok": True}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4416,6 +5154,7 @@ def main():
     _phase("phase 3: kernels against their plain versions")
     results = {"decode_attention": check_decode_attention(ptt, name, rates)}
     results["decode_attention"].update(check_decode_attention_nmt(rates))
+    results["decode_attention"].update(check_decode_attention_beam(rates))
     results["decode_attention"].update(check_decode_attention_routes(rates))
     results.update(check_flash(ptt, rates))
     results.update(check_recurrent(ptt, rates))
@@ -4448,6 +5187,11 @@ def main():
 
     _phase("phase 12: train the GRU-attention NMT model at full width")
     nmt_launches, nmt_trainer = train_nmt(ptt, kernels)
+    # its trained parameters, for phase 32's beam decoding
+    nmt_params = tempfile.mkdtemp(prefix="chip_smoke_nmt_")
+    atexit.register(shutil.rmtree, nmt_params, ignore_errors=True)
+    ptt.io.save_params(nmt_trainer[0], nmt_params,
+                       main_program=nmt_trainer[1], scope=nmt_trainer[2])
 
     _phase("phase 13: recurrent training reference check on small inputs")
     recurrent_reference_check(ptt)
@@ -4553,6 +5297,25 @@ def main():
     _phase("phase 31: the KV sanitizer on the two-tier engine, and "
            "tracing spans")
     paths["sanitize_trace"] = sanitize_and_trace(ptt, kernels, base)
+    torch.cuda.empty_cache()
+
+    _phase("phase 32: translate with the NMT model at full width (beam 4 "
+           "through infer_net)")
+    try:
+        paths["nmt_beam_translate"] = translate_nmt(ptt, kernels,
+                                                    nmt_params)
+    finally:
+        shutil.rmtree(nmt_params, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    _phase("phase 33: train and decode the BiLSTM-CRF (label semantic "
+           "roles) at the book's widths")
+    paths["bilstm_crf"] = train_srl(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    _phase("phase 34: beam decoding, the BiLSTM-CRF, the control-flow "
+           "programs and this slice's ops, card against CPU")
+    paths["recurrent_rest_reference"] = recurrent_rest_reference_check(ptt)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -4595,6 +5358,20 @@ def main():
     for k in ("server", "two_tier", "sanitized", "traced"):
         assert results["decode_attention"][f"launches_{k}"] > 0, \
             f"decode_attention was never launched on the {k} path"
+    # the beam decode's K4 (G = K rows) and K6 (phase 32), the
+    # BiLSTM-CRF's K5 in both directions (phase 33), each counted from
+    # zero around its run
+    beam_launches = paths["nmt_beam_translate"]["launches"]
+    results["decode_attention"]["launches_beam"] = \
+        beam_launches["decode_attention"]
+    results["gru_seq"]["launches_infer"] = beam_launches["gru_seq"]
+    results["lstm_seq"]["launches_crf"] = \
+        paths["bilstm_crf"]["launches"]["lstm_seq"]
+    for kern, k in (("decode_attention", "launches_beam"),
+                    ("gru_seq", "launches_infer"),
+                    ("lstm_seq", "launches_crf")):
+        assert results[kern][k] > 0, \
+            f"{kern} was never launched on its {k[9:]} path"
     results["flash_fwd"]["launches_tc_transformer_base_infer"] = \
         paths["transformer_base_infer"]["flash_fwd_tc_launches"]
     del launches["decode_attention_multi"], launches["decode_attention_int8"]

@@ -785,3 +785,112 @@ def topk(input, k, name=None):
                      outputs={"Out": [values], "Indices": [indices]},
                      attrs={"k": k})
     return values, indices
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    shape = [(-1 if d == -1 else d * t)
+             for d, t in zip(x.shape, expand_times)]
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=shape)
+    helper.append_op(type="expand", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def beam_search(pre_ids, pre_scores, scores, beam_size, end_id, name=None):
+    """One beam-search growth step (≙ reference layers/nn.py
+    beam_search:2706 / beam_search_op.cc) with a fixed beam dim K =
+    beam_size. pre_ids / pre_scores [B, K]; scores [B, K, V] this step's
+    log-probs. Start pre_scores at 0 for beam 0 and a large negative
+    (-1e9) for beams 1..K-1, so the first step expands one hypothesis.
+    Returns (selected_ids [B, K], selected_scores [B, K], parent_idx
+    [B, K])."""
+    helper = LayerHelper("beam_search", name=name)
+    b = pre_ids.shape[0]
+    sel_ids = helper.create_tmp_variable(dtype="int64", shape=[b, beam_size])
+    sel_scores = helper.create_tmp_variable(dtype=dtype_name(scores.dtype),
+                                            shape=[b, beam_size])
+    parent = helper.create_tmp_variable(dtype="int64", shape=[b, beam_size])
+    helper.append_op(type="beam_search",
+                     inputs={"PreIds": [pre_ids], "PreScores": [pre_scores],
+                             "Scores": [scores]},
+                     outputs={"SelectedIds": [sel_ids],
+                              "SelectedScores": [sel_scores],
+                              "ParentIdx": [parent]},
+                     attrs={"beam_size": int(beam_size),
+                            "end_id": int(end_id)})
+    return sel_ids, sel_scores, parent
+
+
+def beam_search_decode(ids, parents, name=None):
+    """Backtrack the per-step beam selections into whole sequences
+    (≙ reference beam_search_decode; the `gather_tree` op). ids / parents
+    [B, T, K] as a decode loop collects beam_search's outputs. Returns the
+    sequences [B, T, K]."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    out = helper.create_tmp_variable(dtype="int64", shape=list(ids.shape))
+    helper.append_op(type="gather_tree",
+                     inputs={"Ids": [ids], "Parents": [parents]},
+                     outputs={"Out": [out]})
+    return out
+
+
+gather_tree = beam_search_decode
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    """≙ reference layers/nn.py row_conv (lookahead convolution): input
+    [B, T, D]; future_context_size = the lookahead window - 1."""
+    helper = LayerHelper("row_conv", name=name, param_attr=param_attr,
+                         act=act)
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr,
+                                shape=[future_context_size + 1, d],
+                                dtype=dtype_name(input.dtype))
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=list(input.shape))
+    helper.append_op(type="row_conv",
+                     inputs={"X": [input], "Filter": [w]},
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def lstm_unit(x_t, cell_t_prev, forget_bias=0.0, name=None):
+    """≙ reference layers lstm_unit: x_t [B, 4H] pre-projected gates.
+    Returns (hidden, cell)."""
+    helper = LayerHelper("lstm_unit", name=name)
+    dtype = dtype_name(x_t.dtype)
+    c = helper.create_tmp_variable(dtype=dtype, shape=list(cell_t_prev.shape))
+    hid = helper.create_tmp_variable(dtype=dtype,
+                                     shape=list(cell_t_prev.shape))
+    helper.append_op(type="lstm_unit",
+                     inputs={"X": [x_t], "C_prev": [cell_t_prev]},
+                     outputs={"C": [c], "H": [hid]},
+                     attrs={"forget_bias": float(forget_bias)})
+    return hid, c
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             name=None):
+    """≙ reference layers gru_unit: input [B, 3H] pre-projected, hidden
+    [B, H], size = 3H. Returns (new_hidden, reset_hidden_prev, gate)."""
+    helper = LayerHelper("gru_unit", name=name, param_attr=param_attr)
+    h = size // 3
+    dtype = dtype_name(input.dtype)
+    w = helper.create_parameter(param_attr, shape=[h, 3 * h], dtype=dtype)
+    inputs = {"Input": [input], "HiddenPrev": [hidden], "Weight": [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, shape=[3 * h], dtype=dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b]
+    new_h = helper.create_tmp_variable(dtype=dtype, shape=list(hidden.shape))
+    gate = helper.create_tmp_variable(dtype=dtype,
+                                      shape=[hidden.shape[0], 3 * h])
+    reset = helper.create_tmp_variable(dtype=dtype,
+                                       shape=list(hidden.shape))
+    helper.append_op(type="gru_unit", inputs=inputs,
+                     outputs={"Hidden": [new_h], "Gate": [gate],
+                              "ResetHiddenPrev": [reset]})
+    return new_h, reset, gate

@@ -1,8 +1,9 @@
 """Tensor-creation/manipulation layers.
 
 ≙ paddle_tpu/layers/tensor.py (reference python/paddle/fluid/layers/tensor.py),
-trimmed to the serving and training slices: cast, assign, concat, sums,
-fill_constant, fill_constant_batch_size_like, argmax.
+trimmed to the serving and training slices: create_tensor, cast,
+assign, concat, sums, fill_constant, fill_constant_batch_size_like,
+argmax.
 """
 
 from __future__ import annotations
@@ -11,6 +12,12 @@ import numpy as np
 
 from ..core.dtypes import convert_dtype, dtype_name
 from ..layer_helper import LayerHelper
+
+
+def create_tensor(dtype="float32", name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
 
 
 def cast(x, dtype):

@@ -1,25 +1,22 @@
-"""RNN encoder-decoder machine translation with attention.
+"""RNN encoder-decoder machine translation with attention and beam search.
 
 ≙ paddle_tpu/models/machine_translation.py (≙ reference
 benchmark/fluid/models/machine_translation.py and
 tests/book/test_machine_translation.py): a GRU encoder and a GRU decoder
 with dot-product attention over the encoder's outputs, trained with
-cross-entropy under teacher forcing. The executor rewrites the encoder's
-`dynamic_gru` into a `fused_gru` (one launch of the whole-sequence GRU
-kernel) and the decoder step's attention chain into a
-`fused_decode_attention` (the decode-attention kernel, under autograd);
-the decoder is a StaticRNN whose step block runs once per target position.
+cross-entropy under teacher forcing (`train_net`) and decoded by beam
+search (`infer_net`). The executor rewrites the encoder's `dynamic_gru`
+into a `fused_gru` (one launch of the whole-sequence GRU kernel) and the
+decoder step's attention chain into a `fused_decode_attention` (the
+decode-attention kernel; under autograd in training, and over the K beams
+of a row as its G = K query rows in decoding); the decoder is a StaticRNN
+whose step block runs once per target position.
 """
 
 from __future__ import annotations
 
 from .. import layers
 from ..param_attr import ParamAttr
-
-_BEAM_SEARCH = ("machine_translation.infer_net (beam-search decoding with "
-                "BeamSearchDecoder, beam_search and gather_tree) is not "
-                "ported: ROADMAP.md port queue item 3 (NMT infer_net)")
-
 
 def _gru_cell(x, h_prev, hidden_dim, name):
     """GRU cell from fc blocks (≙ the reference decoder's fc + gru_unit
@@ -112,5 +109,32 @@ def train_net(src, src_lens, tgt_in, tgt_out, tgt_mask, dict_size=10000,
 
 def infer_net(src, src_lens, dict_size=10000, embed_dim=64, hidden_dim=128,
               beam_size=4, max_len=16, bos_id=0, eos_id=1):
-    """Beam-search decoding: not ported yet."""
-    raise NotImplementedError(_BEAM_SEARCH)
+    """The beam-search decoding graph, reusing the trained parameters'
+    names. Returns (sequences [B, max_len, K], scores [B, K]), the beams
+    best first."""
+    enc_out = encoder(src, src_lens, dict_size, embed_dim, hidden_dim)
+    src_mask = layers.sequence_mask(src_lens, maxlen=src.shape[1])
+    dec_init = layers.fc(layers.sequence_last_step(enc_out),
+                         size=hidden_dim, act="tanh", name="dec_init")
+
+    from ..contrib.decoder import BeamSearchDecoder
+
+    decoder = BeamSearchDecoder(beam_size=beam_size, bos_id=bos_id,
+                                eos_id=eos_id, max_len=max_len)
+
+    def step(states, ids_prev):
+        h_prev = states["h"]                                        # [B,K,H]
+        # ids as [B, K, 1]: with beam_size=1 a bare [B, 1] would be read as
+        # an index COLUMN by the embedding convention, squeezing the beam dim
+        w = layers.embedding(layers.unsqueeze(ids_prev, axes=[2]),
+                             size=[dict_size, embed_dim],
+                             param_attr=ParamAttr(name="tgt_emb"))  # [B,K,E]
+        ctx = _attention(h_prev, enc_out, src_mask, "att")          # [B,K,H]
+        inp = layers.concat([w, ctx], axis=2)
+        h = _gru_cell(inp, h_prev, hidden_dim, "dec_gru")           # [B,K,H]
+        logits = layers.fc(h, size=dict_size, num_flatten_dims=2,
+                           name="readout")
+        return {"h": h}, layers.log_softmax(logits)     # [B, K, V]
+
+    return decoder.decode(src, {"h": decoder.expand_to_beams(dec_init)},
+                          step)                    # [B, K, ...]

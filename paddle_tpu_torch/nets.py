@@ -1,10 +1,10 @@
 """Composite networks built from layers (≙ paddle_tpu/nets.py, reference
 python/paddle/fluid/nets.py).
 
-The image composites, `simple_img_conv_pool` and `img_conv_group`, append
-the same ops as the JAX package's. `sequence_conv_pool`, `glu` and
-`scaled_dot_product_attention` need layers the port does not have yet
-(`sequence_conv`, `split`) and raise naming the ROADMAP item.
+`simple_img_conv_pool`, `img_conv_group` and `sequence_conv_pool` append
+the same ops as the JAX package's. `glu` and `scaled_dot_product_attention`
+need a layer the port does not have yet (`split`) and raise naming the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -71,7 +71,11 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act="sigmoid", pool_type="max"):
-    raise NotImplementedError(_NOT_PORTED.format("sequence_conv_pool"))
+    """sequence_conv + sequence_pool (≙ reference nets.py sequence_conv_pool)."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def glu(input, dim=-1):

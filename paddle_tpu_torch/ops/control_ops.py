@@ -1,12 +1,29 @@
-"""Structured control flow over sub-blocks.
+"""Structured control flow over sub-blocks, and the `where` / `is_empty`
+ops.
 
-≙ paddle_tpu/ops/control_ops.py, trimmed to `static_rnn`, the op a
-`layers.StaticRNN` appends (the NMT decoder). A sub-block is a real
-program block (≙ the BLOCK attr type of the reference proto,
-framework.proto:35); its lowering runs the block's plan inside a Python
-loop over time where the JAX package runs it inside `lax.scan`, so
-torch.autograd differentiates the loop when the op sits in a
+≙ paddle_tpu/ops/control_ops.py (reference while_op.cc:36,
+conditional_block_op.cc, recurrent_op.cc:222), without the fake-quantize
+ops. A sub-block is a real program block (≙ the BLOCK attr type of the
+reference proto, framework.proto:35); each op runs the block's plan
+eagerly where the JAX package traces it into a lax primitive, so
+torch.autograd differentiates every op here but `while` when it sits in a
 `vjp_region`.
+
+Where each op reads a value on the host, and where it runs every branch:
+
+- `static_rnn` (StaticRNN, DynamicRNN): a Python loop over the static T
+  of its step inputs. Reads nothing on the host; lengths mask on the
+  device.
+- `while`: reads its condition on the host once an iteration (one
+  device->host sync each), since eager PyTorch must decide in Python
+  whether to run the body again; the JAX package's lax.while_loop decides
+  on the device. Forward-only, as there: inside a `vjp_region` with an
+  input that needs a gradient it raises.
+- `lazy_cond` (`layers.cond`): reads its scalar predicate on the host
+  once a call and runs only that branch, as lax.cond does.
+- `cond_block` (IfElse) and `switch_case` (Switch): run EVERY branch on
+  the full batch and merge with `torch.where` on the device, as the JAX
+  package does. No host read.
 """
 
 from __future__ import annotations
@@ -28,6 +45,25 @@ def sub_block_plan(ctx, attrs, key="sub_block"):
             "executor); direct op invocation cannot resolve sub-blocks")
     block = program.blocks[attrs[key]]
     return block, build_plan(block)
+
+
+def _run_block(ctx, attrs, key, env):
+    from ..framework.lowering import run_plan
+    _, plan = sub_block_plan(ctx, attrs, key)
+    return run_plan(plan, env, ctx)
+
+
+@register_op("where")
+def _where(ctx, ins, attrs):
+    return {"Out": [torch.where(ins["Condition"][0], ins["X"][0],
+                                ins["Y"][0])]}
+
+
+@register_op("is_empty")
+def _is_empty(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [torch.full((), x.numel() == 0, dtype=torch.bool,
+                               device=x.device)]}
 
 
 @register_op("static_rnn")
@@ -73,3 +109,98 @@ def _static_rnn(ctx, ins, attrs):
         ys = [y[::-1] for y in ys]
     return {"Out": [torch.stack(y, 1) for y in ys],
             "FinalMems": list(carry)}
+
+
+@register_op("while")
+def _while(ctx, ins, attrs):
+    """≙ while_op.cc:36: the body block while the carried condition holds.
+    The condition is read on the host once an iteration (a device->host
+    sync each). Forward-only, as the JAX package's lax.while_loop: when an
+    input needs a gradient (a `while` inside a `vjp_region` on the
+    differentiated path) it raises."""
+    carry_names = list(attrs["carry_names"])
+    captures = dict(zip(attrs["capture_names"], ins.get("Captures", [])))
+    carry = list(ins["Carry"])
+    if torch.is_grad_enabled() and any(
+            v.requires_grad for v in carry + list(captures.values())):
+        raise NotImplementedError(
+            "while is forward-only (as lax.while_loop in the JAX package): "
+            "use StaticRNN / DynamicRNN for a differentiable recurrence")
+    cond_idx = carry_names.index(attrs["cond_name"])
+    while bool(carry[cond_idx].reshape(())):
+        env = dict(captures)
+        env.update(zip(carry_names, carry))
+        _run_block(ctx, attrs, "sub_block", env)
+        carry = [env[n] for n in carry_names]
+    return {"Out": carry}
+
+
+def _cond_rows(c, v):
+    """The [B, ...] condition shaped to broadcast per row against v."""
+    if c.dim() < v.dim():
+        return c.reshape(tuple(c.shape) + (1,) * (v.dim() - c.dim()))
+    # [B, 1] cond against a rank-1 [B] output: drop trailing singleton
+    # dims so the merge is per row, not [B, B]
+    while c.dim() > v.dim() and c.shape[-1] == 1:
+        c = c.reshape(c.shape[:-1])
+    return c
+
+
+@register_op("cond_block")
+def _cond_block(ctx, ins, attrs):
+    """Batched IfElse (≙ conditional_block_op.cc + layers IfElse:1412):
+    both branches run on the full batch and their outputs merge by the
+    [B, 1] condition with torch.where, as in the JAX package (the
+    reference gathers each branch's rows instead). No host read;
+    differentiable."""
+    cond = ins["Cond"][0]
+    captures = dict(zip(attrs["capture_names"], ins.get("Captures", [])))
+    env_t = _run_block(ctx, attrs, "true_block", dict(captures))
+    env_f = _run_block(ctx, attrs, "false_block", dict(captures))
+    outs = []
+    for tn, fn in zip(attrs["true_out_names"], attrs["false_out_names"]):
+        tv, fv = env_t[tn], env_f[fn]
+        outs.append(torch.where(_cond_rows(cond, tv), tv, fv))
+    return {"Out": outs}
+
+
+@register_op("lazy_cond")
+def _lazy_cond(ctx, ins, attrs):
+    """Scalar-predicate conditional (≙ the functional `layers.cond`, the
+    JAX package's lax.cond): only the branch the predicate picks runs.
+    The predicate is read on the host once a call (a device->host sync).
+    Differentiable through the branch that ran."""
+    pred = bool(ins["Cond"][0].reshape(()))
+    env = dict(zip(attrs["capture_names"], ins.get("Captures", [])))
+    key, names = (("true_block", attrs["true_out_names"]) if pred else
+                  ("false_block", attrs["false_out_names"]))
+    env = _run_block(ctx, attrs, key, env)
+    return {"Out": [env[n] for n in names]}
+
+
+@register_op("switch_case")
+def _switch_case(ctx, ins, attrs):
+    """≙ layers.Switch (reference control_flow.py:1286): the first case
+    whose scalar condition holds wins; the default block otherwise. Every
+    case block runs (they are small: learning-rate schedules) and the pick
+    is a chain of torch.where on the device, as in the JAX package."""
+    conds = ins["Conds"]
+    captures = dict(zip(attrs["capture_names"], ins.get("Captures", [])))
+    vals = []
+    for bidx, out_name in zip(attrs["case_blocks"], attrs["case_out_names"]):
+        env = _run_block(ctx, {"sub_block": bidx}, "sub_block",
+                         dict(captures))
+        vals.append(env[out_name])
+    # the default is the last block when there is one more block than
+    # conditions; without a default the target keeps its value before the
+    # switch (the reference leaves the assigned variable untouched)
+    if len(vals) > len(conds):
+        result = vals[-1]
+    elif ins.get("Prev"):
+        result = ins["Prev"][0]
+    else:
+        result = torch.zeros_like(vals[0])
+    for c, v in zip(reversed(conds), reversed(vals[:len(conds)])):
+        result = torch.where(c.reshape(()).to(torch.bool), v, result)
+    return {"Out": [result]}
+

@@ -3,9 +3,10 @@
 ≙ paddle_tpu/ops/elementwise.py (reference operators/elementwise_*.cc,
 scale_op.cc, compare_op.cc, activation_op.cc), trimmed to the serving and
 training slices, the recurrent models, gradient clipping and the
-learning-rate schedules: elementwise add/sub/mul/div/max/min/pow,
-less_than, greater_than, equal, scale, clip, clip_by_norm, sign, pow and
-the unary relu, sigmoid, tanh, exp, sqrt, ceil, floor, cos, reciprocal.
+learning-rate schedules and the control-flow builders: elementwise
+add/sub/mul/div/max/min/pow, the six comparisons, logical and/or/xor/not,
+scale, clip, clip_by_norm, sign, pow and the unary relu, sigmoid, tanh,
+exp, sqrt, ceil, floor, cos, reciprocal.
 Dtype promotion follows torch, which agrees with jnp on the pairs the
 slices meet (bfloat16 + float32 → float32).
 """
@@ -51,8 +52,19 @@ register_op("elementwise_max")(_binary(torch.maximum))
 register_op("elementwise_min")(_binary(torch.minimum))
 register_op("elementwise_pow")(_binary(torch.pow))
 register_op("less_than")(_binary(torch.lt))
+register_op("less_equal")(_binary(torch.le))
 register_op("greater_than")(_binary(torch.gt))
+register_op("greater_equal")(_binary(torch.ge))
 register_op("equal")(_binary(torch.eq))
+register_op("not_equal")(_binary(torch.ne))
+register_op("logical_and")(_binary(torch.logical_and))
+register_op("logical_or")(_binary(torch.logical_or))
+register_op("logical_xor")(_binary(torch.logical_xor))
+
+
+@register_op("logical_not")
+def _logical_not(ctx, ins, attrs):
+    return {"Out": [torch.logical_not(ins["X"][0])]}
 
 
 @register_op("scale")

@@ -89,14 +89,19 @@ def _arg_max(ctx, ins, attrs):
                     .to(torch.int64)]}
 
 
+def top_k_lower_first(x, k):
+    """≙ jax.lax.top_k over the last axis: values in descending order, the
+    lower index first among equal values (torch.topk promises no order
+    among ties, so a stable sort decides them). Returns (values, int64
+    indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int64)
+
+
 @register_op("top_k")
 def _top_k(ctx, ins, attrs):
-    # ≙ jax.lax.top_k over the last axis: values in descending order, the
-    # lower index first among equal values (torch.topk promises no order
-    # among ties, so a stable sort decides them)
-    vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True, stable=True)
-    k = attrs["k"]
-    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int64)]}
+    vals, idx = top_k_lower_first(ins["X"][0], attrs["k"])
+    return {"Out": [vals], "Indices": [idx]}
 
 
 @register_op("squared_l2_norm")

@@ -4,8 +4,10 @@
 unsqueeze,concat,slice,gather,cast,fill_constant,assign,one_hot,
 lookup_table,increment}_op.cc), trimmed to the serving, training and
 recurrent slices, plus the KV-cache write `cache_write`, the
-learning-rate schedules' `piecewise_decay`, and the sparse-table helpers
-`split_ids` / `merge_ids` / `lookup_sparse_table`.
+learning-rate schedules' `piecewise_decay`, the sparse-table helpers
+`split_ids` / `merge_ids` / `lookup_sparse_table`, the beam decoder's
+`expand`, and `assign` with the tensor arrays of the control-flow
+builders.
 """
 
 from __future__ import annotations
@@ -443,3 +445,68 @@ def _lookup_sparse_table(ctx, ins, attrs):
     valid = ids >= 0
     rows = take_rows(w, torch.where(valid, ids, 0))
     return {"Out": [torch.where(valid[:, None], rows, 0.0)]}
+
+
+@register_op("expand")
+def _expand(ctx, ins, attrs):
+    """≙ jnp.tile(x, expand_times): X repeated along each dim (times
+    shorter than X's rank count for its trailing dims)."""
+    x = ins["X"][0]
+    times = list(attrs["expand_times"])
+    times = [1] * (x.dim() - len(times)) + times
+    return {"Out": [x.repeat(*times)]}
+
+
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    # a copy: an in-place update of X (an optimizer op, an in-place
+    # increment) must not reach the assigned variable
+    return {"Out": [ins["X"][0].clone()]}
+
+
+# --- tensor arrays (≙ tensor_array_read_write.cc over a preallocated
+# [max_len, ...] array, the JAX package's static-shape translation of the
+# reference's growing LoDTensorArray). The index lives on the device; as
+# jax's dynamic index, one in [-max_len, 0) counts from the end and any
+# other is clamped into [0, max_len). No value is read on the host.
+
+
+def _array_index(i, cap, what):
+    """The array index `i` (one element) as a [1] long tensor in [0, cap),
+    wrapped and clamped as jax's dynamic index. Under the check_nan_inf
+    flag an index outside [0, cap) raises IndexError on a CPU tensor (≙
+    the JAX package's `_array_bounds_guard`, a CPU-debug facility there
+    too)."""
+    from ..core import flags
+    i = i.reshape(1).to(torch.long)
+    if flags.get_flag("check_nan_inf") and i.device.type == "cpu":
+        iv = int(i[0])
+        if iv < 0 or iv >= cap:
+            raise IndexError(f"{what} index {iv} outside preallocated "
+                             f"capacity {cap}")
+    return index_in_range(i, cap)[0]
+
+
+@register_op("array_write")
+def _array_write(ctx, ins, attrs):
+    """≙ WriteToArray: the array with X written at index I (a new tensor;
+    the builder threads the returned variable)."""
+    arr = ins["Array"][0]
+    i = _array_index(ins["I"][0], arr.shape[0], "array_write")
+    return {"Out": [arr.index_copy(0, i, ins["X"][0].to(arr.dtype)[None])]}
+
+
+@register_op("array_read")
+def _array_read(ctx, ins, attrs):
+    """≙ ReadFromArray: the element at index I."""
+    arr = ins["Array"][0]
+    i = _array_index(ins["I"][0], arr.shape[0], "array_read")
+    return {"Out": [arr.index_select(0, i)[0]]}
+
+
+@register_op("array_length")
+def _array_length(ctx, ins, attrs):
+    """≙ lod_array_length_op: the array's (static) capacity."""
+    x = ins["X"][0]
+    return {"Out": [torch.full((), x.shape[0], dtype=torch.int64,
+                               device=x.device)]}

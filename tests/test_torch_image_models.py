@@ -404,8 +404,42 @@ def test_prefetcher_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("name,args", [
-    ("sequence_conv_pool", (None, 8, 3)), ("glu", (None,)),
-    ("scaled_dot_product_attention", (None, None, None))])
+    ("glu", (None,)), ("scaled_dot_product_attention", (None, None, None))])
 def test_nets_not_ported_raise_naming_the_roadmap_item(name, args):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         getattr(ptt.nets, name)(*args)
+
+
+@pytest.mark.parametrize("pool_type", ["max", "average"])
+def test_sequence_conv_pool_matches_jax(pool_type):
+    """nets.sequence_conv_pool (sequence_conv + sequence_pool) over ragged
+    sequences: the same program, its output and its gradients as the JAX
+    package's, from the same parameters, at 1e-5."""
+    progs = []
+    for pkg in (pt, ptt):
+        main, start = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, start), pkg.unique_name.guard():
+            x = pkg.layers.data("x", shape=[6, 5], lod_level=1)
+            pooled = pkg.nets.sequence_conv_pool(x, num_filters=4,
+                                                 filter_size=3,
+                                                 pool_type=pool_type)
+            loss = pkg.layers.mean(pooled)
+            pkg.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        progs.append((main, start, pooled.name, loss.name))
+    (jmain, jstart, out, loss), (tmain, _, _, _) = progs
+    assert tmain.to_json() == jmain.to_json()
+    jscope = pt.Scope()
+    pt.Executor().run(jstart, scope=jscope)
+    state = {n: np.asarray(jscope.get(n)) for n in jscope.local_var_names()}
+    tscope = ptt.load_numpy_params(state, ptt.Scope(), ptt.CPUPlace())
+    r = np.random.RandomState(4)
+    feed = {"x": r.randn(3, 6, 5).astype("float32"),
+            "x@SEQLEN": np.array([6, 2, 4], "int32")}
+    fetch = [out, loss] + [p.name + "@GRAD" for p in tmain.all_parameters()]
+    jout = pt.Executor().run(jmain, feed=feed, fetch_list=fetch,
+                             scope=jscope)
+    tout = ptt.Executor(ptt.CPUPlace()).run(tmain, feed=feed,
+                                            fetch_list=fetch, scope=tscope)
+    for n, a, b in zip(fetch, tout, jout):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-6,
+                                   err_msg=n)

@@ -343,6 +343,209 @@ CASES = [
                                      "float32"), f32(7)]).reshape(3, 4)],
       "Label": [(R.rand(3, 4) > 0.5).astype("float32")]}, {}, {}, {}),
 ] + [
+    # the recurrent slice's rest: beam search, CRF, control flow, arrays
+    # and the sequence library, with ties, NaN, boundary and empty inputs
+    ("beam_search", "beam_search",
+     {"PreIds": [np.array([[3, 1, 4], [0, 2, 2]], "int64")],
+      "PreScores": [np.array([[-0.5, -0.7, -1e9], [0.0, -1e9, -1e9]],
+                             "float32")],
+      "Scores": [np.log(R.dirichlet(np.ones(6), (2, 3))).astype("float32")]},
+     {"beam_size": 3, "end_id": 1}, {}, {}),
+    ("beam_search_ties", "beam_search",
+     {"PreIds": [np.array([[2, 2, 2], [1, 1, 1]], "int64")],
+      "PreScores": [np.zeros((2, 3), "float32")],
+      "Scores": [np.full((2, 3, 4), -1.25, "float32")]},
+     {"beam_size": 3, "end_id": 1}, {}, {}),
+    ("beam_search_nan", "beam_search",
+     {"PreIds": [np.array([[0, 3]], "int64")],
+      "PreScores": [np.array([[0.0, -1.0]], "float32")],
+      "Scores": [np.array([[[-1.0, np.nan, -2.0], [-0.5, -np.inf, -3.0]]],
+                          "float32")]},
+     {"beam_size": 2, "end_id": 1}, {}, {}),
+    ("beam_search_k1", "beam_search",
+     {"PreIds": [np.array([[1], [0]], "int64")],
+      "PreScores": [np.array([[-2.0], [-1.0]], "float32")],
+      "Scores": [np.log(R.dirichlet(np.ones(5), (2, 1))).astype("float32")]},
+     {"beam_size": 1, "end_id": 1}, {}, {}),
+    ("gather_tree", "gather_tree",
+     {"Ids": [np.array([[[2, 3, 4], [5, 6, 7], [8, 9, 10]]], "int64")],
+      "Parents": [np.array([[[0, 0, 0], [2, 0, 1], [1, 2, 0]]], "int64")]},
+     {}, {}, {}),
+    ("gather_tree_out_of_range_parent", "gather_tree",
+     {"Ids": [np.arange(12, dtype="int64").reshape(1, 4, 3)],
+      "Parents": [np.array([[[0, 1, 2], [5, -1, 0], [2, 2, 1],
+                             [-4, 0, 1]]], "int64")]}, {}, {}, {}),
+    ("gather_tree_t1", "gather_tree",
+     {"Ids": [np.array([[[4, 5]], [[6, 7]]], "int64")],
+      "Parents": [np.zeros((2, 1, 2), "int64")]}, {}, {}, {}),
+    ("expand", "expand", {"X": [f32(2, 3)]}, {"expand_times": [1, 2]}, {},
+     {}),
+    ("expand_beam", "expand", {"X": [f32(2, 1, 3)]},
+     {"expand_times": [1, 4, 1]}, {}, {}),
+    ("expand_ids", "expand", {"X": [np.array([[5], [7]], "int64")]},
+     {"expand_times": [1, 3]}, {}, {}),
+    ("assign", "assign", {"X": [f32(2, 3)]}, {}, {}, {}),
+    ("array_write", "array_write",
+     {"Array": [np.zeros((3, 2, 4), "float32")], "X": [f32(2, 4)],
+      "I": [np.array(1, "int64")]}, {}, {}, {}),
+    ("array_write_past_the_end", "array_write",
+     {"Array": [f32(3, 2)], "X": [f32(2)], "I": [np.array([5], "int64")]},
+     {}, {}, {}),
+    ("array_write_negative", "array_write",
+     {"Array": [f32(3, 2)], "X": [f32(2)], "I": [np.array(-1, "int64")]},
+     {}, {}, {}),
+    ("array_read", "array_read",
+     {"Array": [f32(3, 2, 4)], "I": [np.array(2, "int64")]}, {}, {}, {}),
+    ("array_read_clamped", "array_read",
+     {"Array": [f32(3, 2)], "I": [np.array([-7], "int64")]}, {}, {}, {}),
+    ("array_length", "array_length", {"X": [f32(5, 2)]}, {}, {}, {}),
+    ("less_equal", "less_equal",
+     {"X": [np.array([1.0, 2.0, np.nan, 4.0], "float32")],
+      "Y": [np.array([2.0, 2.0, 1.0, np.nan], "float32")]}, {}, {}, {}),
+    ("greater_equal_broadcast", "greater_equal",
+     {"X": [np.arange(6, dtype="int64").reshape(2, 3)],
+      "Y": [np.array([2], "int64")]}, {}, {}, {}),
+    ("not_equal", "not_equal",
+     {"X": [np.array([1.0, np.nan, 0.0, -0.0], "float32")],
+      "Y": [np.array([1.0, np.nan, -0.0, 1.0], "float32")]}, {}, {}, {}),
+    ("logical_and", "logical_and",
+     {"X": [np.array([True, True, False, False])],
+      "Y": [np.array([True, False, True, False])]}, {}, {}, {}),
+    ("logical_or_int", "logical_or",
+     {"X": [np.array([0, 2, 0, -1], "int32")],
+      "Y": [np.array([0, 0, 3, 1], "int32")]}, {}, {}, {}),
+    ("logical_xor", "logical_xor",
+     {"X": [np.array([[True], [False]])],
+      "Y": [np.array([True, False, True])]}, {}, {}, {}),
+    ("logical_not", "logical_not",
+     {"X": [np.array([0.0, 1.5, np.nan], "float32")]}, {}, {}, {}),
+    ("where", "where",
+     {"Condition": [np.array([[True], [False]])], "X": [f32(2, 3)],
+      "Y": [f32(2, 3)]}, {}, {}, {}),
+    ("is_empty_no", "is_empty", {"X": [f32(2, 3)]}, {}, {}, {}),
+    ("is_empty_yes", "is_empty", {"X": [np.zeros((0, 3), "float32")]}, {},
+     {}, {}),
+    ("dynamic_lstmp_peepholes", "dynamic_lstmp",
+     {"Input": [f32(3, 4, 8)], "Weight": [f32(3, 8) * 0.5],
+      "ProjWeight": [f32(2, 3) * 0.5], "Bias": [f32(14) * 0.5],
+      "SeqLen": [np.array([4, 2, 0], "int32")]},
+     {"use_peepholes": True, "is_reverse": False,
+      "gate_activation": "sigmoid", "cell_activation": "tanh",
+      "candidate_activation": "tanh", "proj_activation": "tanh"}, {}, {}),
+    ("dynamic_lstmp_reverse_h0", "dynamic_lstmp",
+     {"Input": [f32(2, 3, 8)], "Weight": [f32(3, 8) * 0.5],
+      "ProjWeight": [f32(2, 3) * 0.5], "Bias": [f32(8) * 0.5],
+      "SeqLen": [np.array([3, 1], "int32")], "H0": [f32(2, 2)],
+      "C0": [f32(2, 2)]},
+     {"use_peepholes": False, "is_reverse": True,
+      "proj_activation": "identity"}, {}, {}),
+    ("lstm_unit", "lstm_unit", {"X": [f32(3, 8)], "C_prev": [f32(3, 2)]},
+     {"forget_bias": 1.0}, {}, {}),
+    ("gru_unit", "gru_unit",
+     {"Input": [f32(3, 6)], "HiddenPrev": [f32(3, 2)], "Weight": [f32(2, 6)],
+      "Bias": [f32(6)]}, {}, {}, {}),
+    ("gru_unit_no_bias", "gru_unit",
+     {"Input": [f32(3, 6)], "HiddenPrev": [f32(3, 2)],
+      "Weight": [f32(2, 6)]}, {}, {}, {}),
+    ("linear_chain_crf", "linear_chain_crf",
+     {"Emission": [f32(4, 5, 3)], "Transition": [f32(5, 3)],
+      "Label": [R.randint(0, 3, (4, 5)).astype("int64")],
+      "Length": [np.array([5, 3, 1, 0], "int64")]}, {}, {}, {}),
+    # a length past T reads jax's fill for the last label; [B, T, 1]
+    # labels; a label outside [0, D) past the length
+    ("linear_chain_crf_edges", "linear_chain_crf",
+     {"Emission": [f32(2, 3, 4)], "Transition": [f32(6, 4)],
+      "Label": [np.array([[[1], [3], [0]], [[2], [9], [-1]]], "int64")],
+      "Length": [np.array([[4], [1]], "int64")]}, {}, {}, {}),
+    ("crf_decoding", "crf_decoding",
+     {"Emission": [f32(3, 6, 4)], "Transition": [f32(6, 4)],
+      "Length": [np.array([6, 4, 1], "int64")]}, {}, {}, {}),
+    ("crf_decoding_ties", "crf_decoding",
+     {"Emission": [np.zeros((2, 4, 3), "float32")],
+      "Transition": [np.zeros((5, 3), "float32")],
+      "Length": [np.array([4, 0], "int64")]}, {}, {}, {}),
+    ("crf_decoding_label", "crf_decoding",
+     {"Emission": [f32(2, 5, 3)], "Transition": [f32(5, 3)],
+      "Length": [np.array([5, 2], "int64")],
+      "Label": [R.randint(0, 3, (2, 5, 1)).astype("int64")]}, {}, {}, {}),
+] + [
+    # tests/test_sequence_labeling.py's chunk_eval cases, as parity cases
+    (f"chunk_eval_{cid}", "chunk_eval",
+     {"Inference": [np.asarray(inf, "int64")],
+      "Label": [np.asarray(lab, "int64")],
+      "Length": [np.asarray(ln, "int64")]},
+     {"chunk_scheme": scheme, "num_chunk_types": nct,
+      "excluded_chunk_types": ex}, {}, {})
+    for cid, inf, lab, ln, scheme, nct, ex in (
+        ("iob_exact", [[0, 1, 4, 2, 3, 3]], [[0, 1, 4, 2, 3, 3]], [6],
+         "IOB", 2, []),
+        ("iob_partial", [[0, 1, 4, 2, 4, 4]], [[0, 1, 4, 4, 2, 3]], [6],
+         "IOB", 2, []),
+        ("boundary_mismatch", [[0, 1, 1, 4]], [[0, 1, 4, 4]], [4], "IOB", 1,
+         []),
+        ("plain", [[0, 0, 1, 3, 2]], [[0, 0, 1, 3, 1]], [5], "plain", 3,
+         []),
+        ("iobes_single", [[3, 4, 0, 1, 2]], [[3, 4, 0, 1, 2]], [5],
+         "IOBES", 1, []),
+        ("excluded", [[0, 1, 4, 2, 3, 3]], [[0, 1, 4, 2, 3, 3]], [6], "IOB",
+         2, [1]),
+        ("length_masks_tail", [[0, 1, 0, 1, 0, 1]], [[0, 1, 0, 1, 0, 1]],
+         [2], "IOB", 1, []),
+        ("ioe_batch", [[0, 1, 2, 3, 4], [1, 1, 0, 4, 3]],
+         [[0, 1, 2, 2, 3], [1, 0, 0, 4, 3]], [5, 4], "IOE", 2, []),
+        ("empty", [[0, 1]], [[0, 1]], [0], "IOB", 1, []),
+        ("negative_tags", [[-1, 0, 1, 7]], [[0, 0, 1, -3]], [4], "IOBES", 1,
+         []))
+] + [
+    ("sequence_softmax", "sequence_softmax",
+     {"X": [f32(3, 5)], "SeqLen": [np.array([5, 2, 0], "int32")]}, {}, {},
+     {}),
+    ("sequence_first_step", "sequence_first_step",
+     {"X": [f32(2, 3, 4)], "SeqLen": [np.array([3, 1], "int32")]}, {}, {},
+     {}),
+    ("sequence_reverse", "sequence_reverse",
+     {"X": [f32(3, 4, 2)], "SeqLen": [np.array([4, 2, 0], "int32")]}, {},
+     {}, {}),
+    ("sequence_expand", "sequence_expand",
+     {"X": [f32(2, 3)], "Y": [f32(2, 4, 5)]}, {}, {}, {}),
+    ("sequence_concat", "sequence_concat",
+     {"X": [f32(2, 3, 2), f32(2, 3, 4)]}, {}, {}, {}),
+    ("sequence_slice", "sequence_slice",
+     {"X": [f32(3, 5, 2)], "Offset": [np.array([[0], [2], [4]], "int64")]},
+     {"length": 2}, {}, {}),
+    ("sequence_pad", "sequence_pad",
+     {"X": [f32(2, 3, 2)], "SeqLen": [np.array([3, 1], "int32")]}, {}, {},
+     {}),
+    ("sequence_erase", "sequence_erase",
+     {"X": [np.array([[2, 5, 7, 5], [1, 2, 0, 9]], "int64")]},
+     {"tokens": [5, 2]}, {}, {}),
+    ("sequence_reshape", "sequence_reshape",
+     {"X": [f32(2, 3, 4)], "SeqLen": [np.array([3, 1], "int32")]},
+     {"new_dim": 2}, {}, {}),
+    ("edit_distance", "edit_distance",
+     {"Hyps": [np.array([[1, 2, 3, 4], [5, 5, 0, 0], [7, 8, 9, 1]],
+                        "int64")],
+      "Refs": [np.array([[1, 3, 4], [5, 6, 5], [1, 1, 1]], "int64")],
+      "HypsLen": [np.array([4, 2, 0], "int64")],
+      "RefsLen": [np.array([3, 3, 2], "int64")]},
+     {"normalized": False}, {}, {}),
+    ("edit_distance_normalized", "edit_distance",
+     {"Hyps": [np.array([[3, 1, 4, 1, 5]], "int64")],
+      "Refs": [np.array([[3, 4, 1, 5, 9, 2]], "int64")],
+      "HypsLen": [np.array([5], "int64")],
+      "RefsLen": [np.array([6], "int64")]},
+     {"normalized": True}, {}, {}),
+    ("sequence_conv", "sequence_conv",
+     {"X": [f32(2, 5, 3)], "Filter": [f32(9, 4)],
+      "SeqLen": [np.array([5, 2], "int32")]},
+     {"contextLength": 3, "contextStart": -1, "contextStride": 1}, {}, {}),
+    ("sequence_conv_ahead", "sequence_conv",
+     {"X": [f32(2, 4, 2)], "Filter": [f32(4, 3)],
+      "SeqLen": [np.array([4, 3], "int32")]},
+     {"contextLength": 2, "contextStart": 0, "contextStride": 1}, {}, {}),
+    ("row_conv", "row_conv", {"X": [f32(2, 5, 3)], "Filter": [f32(3, 3)]},
+     {}, {}, {}),
+] + [
     # dim [] with reduce_all off is axis=(): nothing is reduced
     (f"{t}_empty_dim_{dt}", t,
      {"X": [(np.arange(6).reshape(2, 3) + 1).astype(dt)]},

@@ -301,8 +301,3 @@ def test_static_rnn_lengths_and_reverse_match_jax(seq_lens, reverse):
                                             fetch_list=names, scope=tscope)
     for n, a, b in zip(names, tout, jout):
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-6, err_msg=n)
-
-
-def test_nmt_infer_net_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmt.infer_net(None, None)
