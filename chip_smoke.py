@@ -231,7 +231,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    its Viterbi paths and chunk counts), tests/test_control_flow.py's
    programs (While, DynamicRNN, IfElse, lazy_cond, Switch, tensor
    arrays) card against CPU, and this slice's ops on tie, NaN,
-   out-of-range and empty inputs card against CPU.
+   out-of-range and empty inputs card against CPU;
+35. train the SSD detector at its defaults (paddle_tpu/models/ssd.py: 21
+   classes, 3x128x128 images, 8 ground-truth rows, 5376 priors, 870,476
+   parameters), batch 32, Adam 3e-3, 20 steps over 4 seeded batches
+   (1-8 boxes an image painted on noise, the other rows zero-area
+   padding; steps 2-20 under sync-debug "error"): images/s, step median
+   and p95, the loss falling, no kernel of csrc/ launched, a profiled
+   step; then ssd_decode (decode + NMS, keep_top_k 100) on a held-out
+   batch of 32 under sync-debug "error": ms a batch, detections an image,
+   metrics.DetectionMAP against the batch's boxes;
+36. train CRNN-CTC at its defaults (models/ocr_crnn.py: 36 classes and the
+   blank, 1x32x128 images, 16 labels, hidden 96, 331,429 parameters),
+   batch 64, Adam 1e-3, 40 steps over 8 batches of images drawn from their
+   labels (steps 2-40 under sync-debug "error"): examples/s, step median
+   and p95, the loss falling, K6 twice a step (the forward and the
+   reversed GRU at B 64, T 32, H 96), a profiled step; then the greedy
+   CTC decode of a held-out batch under sync-debug "error": character and
+   sequence accuracy through metrics.EditDistance;
+37. SSD and CRNN at test width (tests/test_models.py:225-290) in float32,
+   3 Adam steps card against CPU each from the same state (losses at
+   1e-5, gradients by cosine and norm: a max-pool window within rounding
+   of a tie routes its gradient by device), their decodes (SSD's labels
+   and counts equal, boxes and scores at 1e-5; CRNN's greedy paths equal,
+   probabilities at 1e-5), and this slice's ops on their edges (NMS ties
+   and all scores under the threshold, infeasible CTC rows, mod by
+   negative divisors, stable-sort and argmin ties, out-of-range scatter
+   indices) card against CPU.
 
 Phase 3 also holds decode attention's verify-window route (G = 5 query
 rows) and int8 route (int8 caches, alone and with G = 5) at the serving
@@ -240,7 +266,8 @@ to a G = 1 launch, and times them beside SDPA on the same inputs; and
 its beam route (phase 32's shape: R 1, nh 32, G 4, T 64, dh 512,
 float32, the [32, 1, 64] mask broadcast over the rows) against the plain
 version at 1e-5, timed beside SDPA; K5 at the BiLSTM-CRF's shape (B 64,
-T 30, H 128, both directions).
+T 30, H 128, both directions); K6 at CRNN's shape (B 64, T 32, H 96,
+both directions) against the plain version, timed beside cuDNN's GRU.
 
 Float32 matrix products run without TF32 here
 (torch.backends.cuda.matmul.allow_tf32 = False, and cudnn's too), so
@@ -264,8 +291,10 @@ phase 23; `launches_server`, `launches_two_tier`, `launches_sanitized`
 and `launches_traced`, decode attention's on phases 29-31;
 `launches_beam` and the `*_beam` keys, decode attention's on phase 32
 and at its shape; `launches_infer`, the GRU kernel's on phase 32;
-`launches_crf`, the LSTM kernel's on phase 33), times, and `paths`:
-phases 15-34's numbers; the last line is
+`launches_crf`, the LSTM kernel's on phase 33; `launches_crnn`, the GRU
+kernel's on phase 36, and the GRU's `*_crnn` keys, its error, time,
+bound and cuDNN time at CRNN's shape), times, and `paths`: phases
+15-37's numbers; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -433,6 +462,29 @@ NMT_INFER_SMALL = dict(dict_size=24, embed_dim=16, hidden_dim=32, batch=8,
                        max_len=5)
 SRL_SMALL = dict(vocab=30, labels=5, max_len=7, emb=8, size=64, batch=4,
                  lr=5e-3, batches=3)
+# phase 35: the SSD detector at its defaults (paddle_tpu/models/ssd.py:
+# 21 classes, 3x128x128 images, 8 ground-truth rows; 5376 priors over three
+# scales), batch 32, Adam 3e-3, 20 steps over 4 batches made from a seed:
+# 1-8 boxes an image painted in their class's colour on noise, the other
+# rows zero-area padding; then ssd_decode's defaults (keep_top_k 100, NMS
+# 0.45 over nms_top_k 400) on a held-out batch of 32
+SSD = dict(num_classes=21, image=128, num_gt=8, batch=32, lr=3e-3,
+           batches=4)
+SSD_STEPS, SSD_DECODES = 20, 3
+# phase 36: CRNN-CTC at its defaults (models/ocr_crnn.py: 36 classes and
+# the blank, 1x32x128 images, 16 labels, hidden 96; 32 columns, so K6 at
+# B 64, T 32, H 96 in both directions), batch 64, Adam 1e-3, 40 steps over
+# 8 batches of images drawn from their labels: each label owns 8 of the
+# 128 columns, filled with its class's row pattern plus noise
+CRNN = dict(num_classes=36, height=32, width=128, max_label_len=16,
+            hidden=96, batch=64, lr=1e-3, batches=8)
+CRNN_STEPS = 40
+# phase 37: both at test width (tests/test_models.py:225-290), card
+# against CPU
+SSD_SMALL = dict(num_classes=4, image=64, num_gt=4, batch=2, lr=3e-3,
+                 batches=3)
+CRNN_SMALL = dict(num_classes=10, height=32, width=64, max_label_len=4,
+                  hidden=32, batch=2, lr=3e-3, batches=3)
 
 
 def log(*a):
@@ -793,17 +845,20 @@ def check_recurrent(ptt, rates):
     lb, lt, lh = LSTM["batch"], LSTM["max_len"], LSTM["hid_dim"]
     gb, gt, gh = NMT["batch"], NMT["src_len"], NMT["hidden_dim"]
     cb, ct, ch = SRL["batch"], SRL["max_len"], SRL["size"] // 4
+    # CRNN's BiGRU: B 64, T = width / 4 columns, H 96
+    ob, ot, oh = CRNN["batch"], CRNN["width"] // 4, CRNN["hidden"]
     cases = [("lstm", lb, lt, lh, False), ("lstm", lb, lt, lh, True),
              ("lstm", cb, ct, ch, False), ("lstm", cb, ct, ch, True),
              ("lstm", 5, 13, 16, False), ("lstm", 37, 9, 100, True),
              ("lstm", 8, 9, 1100, False), ("lstm", 8, 9, 1100, True),
              ("lstm", 4, 5, 2048, False), ("lstm", 4, 5, 2048, True),
              ("gru", gb, gt, gh, False), ("gru", gb, gt, gh, True),
+             ("gru", ob, ot, oh, False), ("gru", ob, ot, oh, True),
              ("gru", 5, 13, 16, True), ("gru", 37, 9, 100, False),
              ("gru", 80, 9, gh, False), ("gru", 80, 9, gh, True),
              ("gru", 8, 9, 1100, False), ("gru", 8, 9, 1100, True),
              ("gru", 4, 5, 2048, False), ("gru", 4, 5, 2048, True)]
-    errs = {"lstm_seq": 0.0, "gru_seq": 0.0}
+    errs = {"lstm_seq": 0.0, "gru_seq": 0.0, "gru_seq_crnn": 0.0}
     for kind, b, t, h, rev in cases:
         x, w, h0, c0, sl = make(4 if kind == "lstm" else 3, b, t, h,
                                 ragged(b, t))
@@ -832,6 +887,8 @@ def check_recurrent(ptt, rates):
                                  f"{worst}")
         if (b, t, h) in ((lb, lt, lh), (gb, gt, gh)):
             errs[kname] = max(errs[kname], worst)
+        if (kind, b, t, h) == ("gru", ob, ot, oh):
+            errs["gru_seq_crnn"] = max(errs["gru_seq_crnn"], worst)
 
     # timing at the paths' shapes, with the stash (training writes it),
     # lengths uniform over the cells' range; cuDNN's LSTM / GRU (input
@@ -839,8 +896,11 @@ def check_recurrent(ptt, rates):
     mem_rate, f32_rate, _ = rates
     lin = torch.nn.utils.rnn
     out = {}
-    for kname, b, t, h, lo in (("lstm_seq", lb, lt, lh, LSTM["len_lo"]),
-                               ("gru_seq", gb, gt, gh, NMT["src_lo"])):
+    for kname, b, t, h, lo, key in (
+            ("lstm_seq", lb, lt, lh, LSTM["len_lo"], "lstm_seq"),
+            ("gru_seq", gb, gt, gh, NMT["src_lo"], "gru_seq"),
+            # CRNN's columns all count: every row runs the full T
+            ("gru_seq", ob, ot, oh, ot, "gru_seq_crnn")):
         ng = 4 if kname == "lstm_seq" else 3
         cls = torch.nn.LSTM if kname == "lstm_seq" else torch.nn.GRU
         lib = cls(h, h, batch_first=True).to(dev)
@@ -888,10 +948,13 @@ def check_recurrent(ptt, rates):
             f"us, bound {bound_ms * 1e3:.1f} us ({bound_by}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
             f"{f32_rate / 1e12:.0f} TFLOP/s float32)")
-        out[kname] = {"max_abs_err": errs[kname], "ms": times["kernel"],
-                      "plain_ms": times["plain"], "bound_ms": bound_ms,
-                      "bound_by": bound_by,
-                      "library_ms": times["library"]}
+        row = {"max_abs_err": errs[key], "ms": times["kernel"],
+               "plain_ms": times["plain"], "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": times["library"]}
+        if key == "gru_seq_crnn":
+            out["gru_seq"].update({f"{k}_crnn": v for k, v in row.items()})
+        else:
+            out[kname] = row
     log("  (cuDNN's LSTM also computes the input product x.W_ih (input size "
         "H), the kernel takes x pre-projected; cuDNN's GRU applies r after "
         "the recurrent product, r (W_hn h), where this GRU computes "
@@ -4695,6 +4758,26 @@ def _srl_feeds(rng, cfg, n, split="train"):
     return feeds
 
 
+def _run_steps_no_sync(exe, main, scope, loss, dev, steps):
+    """`steps` steps over the device feeds `dev` in turn; steps 2.. under
+    torch.cuda.set_sync_debug_mode("error"). (losses, seconds)."""
+    import torch
+    losses, secs = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, = exe.run(main, feed=dev[i % len(dev)], fetch_list=[loss],
+                           scope=scope, return_numpy=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(out)
+    return [float(x) for x in losses], secs
+
+
 def train_srl(ptt, kernels):
     """Phase 33: the BiLSTM-CRF at the book's widths on conll05's sizes,
     SRL_STEPS Adam steps over SRL["batches"] batches (feeds on the card);
@@ -4721,21 +4804,8 @@ def train_srl(ptt, kernels):
            for f in feeds]
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    losses, secs = [], []
-    for i in range(SRL_STEPS):
-        t0 = time.perf_counter()
-        if i:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            out, = exe.run(main, feed=dev[i % len(dev)], fetch_list=[loss],
-                           scope=scope, return_numpy=False)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        losses.append(out)
+    losses, secs = _run_steps_no_sync(exe, main, scope, loss, dev, SRL_STEPS)
     launches = dict(kernels.LAUNCHES)
-    losses = [float(x) for x in losses]
     assert launches["lstm_seq"] == 2 * SRL_STEPS, (
         f"BiLSTM-CRF: lstm_seq launched {launches['lstm_seq']} times in "
         f"{SRL_STEPS} steps; the path launches it {2 * SRL_STEPS} times")
@@ -5056,7 +5126,7 @@ def _slice_op_cases():
     ]
 
 
-def _slice_ops_reference(card=None):
+def _ops_reference(cases, label, card=None):
     """Each case's lowering on tensors on the card (`card`, default
     cuda:0) against the same lowering on CPU tensors: integers and
     booleans equal, floats at 1e-5 (NaN where NaN)."""
@@ -5064,30 +5134,36 @@ def _slice_ops_reference(card=None):
     import torch
     from paddle_tpu_torch.framework import registry
     card = card or torch.device("cuda", 0)
-    for label, op_type, ins, attrs in _slice_op_cases():
+    for case, op_type, ins, attrs in cases:
         outs = []
         for dev in (card, torch.device("cpu")):
             t = {s: [torch.as_tensor(np.asarray(a)).to(dev)]
                  for s, a in ins.items()}
             o = registry.lookup_op(op_type).lower(
                 registry.LowerCtx(device=dev), t, dict(attrs))
-            outs.append({s: [v.cpu().numpy() for v in vs]
+            outs.append({s: [v.detach().cpu().numpy() for v in vs]
                          for s, vs in o.items()})
         g, c = outs
-        assert set(g) == set(c), label
+        assert set(g) == set(c), case
         for slot in g:
             for a, b in zip(g[slot], c[slot]):
                 assert a.dtype == b.dtype and a.shape == b.shape, \
-                    (label, slot)
+                    (case, slot)
                 if a.dtype.kind in "biu":
                     np.testing.assert_array_equal(a, b,
-                                                  err_msg=f"{label} {slot}")
+                                                  err_msg=f"{case} {slot}")
                 else:
                     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5,
                                                equal_nan=True,
-                                               err_msg=f"{label} {slot}")
-    log(f"  {len(_slice_op_cases())} cases of this slice's ops (ties, NaN, "
-        f"out-of-range indices, empty rows and batches): card = CPU")
+                                               err_msg=f"{case} {slot}")
+    log(f"  {len(cases)} cases of {label}: card = CPU")
+
+
+def _slice_ops_reference(card=None):
+    """Phase 34's op cases, card (default cuda:0) against CPU."""
+    _ops_reference(_slice_op_cases(), "the recurrent slice's ops (ties, "
+                   "NaN, out-of-range indices, empty rows and batches)",
+                   card)
 
 
 def recurrent_rest_reference_check(ptt):
@@ -5098,6 +5174,485 @@ def recurrent_rest_reference_check(ptt):
     _srl_reference(ptt)
     _control_flow_reference(ptt)
     _slice_ops_reference()
+    return {"ok": True}
+
+
+# ---- phases 35-37: SSD detection and CRNN-CTC OCR ------------------------
+
+
+def _ssd_program(ptt, cfg, is_test=False):
+    """models/ssd.py's detector at cfg's width: (program, startup, loss)
+    trained by Adam(lr), or with is_test (no loss, no ground truth) the
+    decode program, (program, [detections, counts])."""
+    from paddle_tpu_torch.models import ssd
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        loss, head = ssd.ssd_detector(
+            num_classes=cfg["num_classes"],
+            image_shape=(3, cfg["image"], cfg["image"]),
+            num_gt=cfg["num_gt"], is_test=is_test)
+        if is_test:
+            out, num = ssd.ssd_decode(*head)
+            return main, [out, num]
+        ptt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    return main, start, loss
+
+
+def _ssd_feeds(rng, cfg, n):
+    """n batches: each image noise with 1..num_gt boxes (corners in
+    [0, 1], sides 0.1-0.5) painted in their class's colour, labels
+    1..classes-1; the rows past an image's boxes zero-area padding."""
+    import numpy as np
+    b, g, s, c = cfg["batch"], cfg["num_gt"], cfg["image"], \
+        cfg["num_classes"]
+    colours = np.random.RandomState(SEED + 50).uniform(0, 1, (c, 3))
+    feeds = []
+    for _ in range(n):
+        img = (rng.rand(b, 3, s, s) * 0.3).astype("float32")
+        gb = np.zeros((b, g, 4), "float32")
+        gl = np.zeros((b, g), "int64")
+        for i in range(b):
+            k = rng.randint(1, g + 1)
+            wh = rng.uniform(0.1, 0.5, (k, 2))
+            lo = rng.uniform(0, 1, (k, 2)) * (1 - wh)
+            gb[i, :k] = np.concatenate([lo, lo + wh], 1)
+            gl[i, :k] = rng.randint(1, c, k)
+            for j in range(k):
+                x1, y1, x2, y2 = (gb[i, j] * s).astype(int)
+                img[i, :, y1:y2, x1:x2] += colours[gl[i, j]][:, None, None]
+        feeds.append({"img": img, "gt_box": gb, "gt_label": gl})
+    return feeds
+
+
+def _step_report(label, cfg, losses, secs, unit, steps):
+    import numpy as np
+    st = np.asarray(secs[1:]) * 1e3
+    k = cfg["batches"]
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    log(f"  {label}, Adam: {steps} steps, batch {cfg['batch']}: step time "
+        f"median {np.median(st):.2f} ms, p95 {np.percentile(st, 95):.2f} ms "
+        f"(steps 2-{steps} under set_sync_debug_mode('error'); step 1 "
+        f"{secs[0] * 1e3:.1f} ms), "
+        f"{cfg['batch'] / (np.median(st) / 1e3):.1f} {unit}/s; loss step 1 "
+        f"{losses[0]:.4f}, step {steps} {losses[-1]:.4f} (mean over the {k} "
+        f"batches: first pass {first:.4f}, last pass {last:.4f})")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert last < first, f"{label}: the loss did not fall: {losses}"
+    return {"step_ms_median": float(np.median(st)),
+            "step_ms_p95": float(np.percentile(st, 95)),
+            f"{unit}_per_s": cfg["batch"] / (np.median(st) / 1e3),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "loss_first_pass": first, "loss_last_pass": last}
+
+
+def train_ssd(ptt, kernels):
+    """Phase 35: SSD at its defaults, SSD_STEPS Adam steps (step 1 plans;
+    the rest under sync-debug "error": matching, mining and the loss read
+    nothing on the host); no hand-written kernel lies on this path (every
+    detection op is torch calls), so none may launch. A profiled step.
+    Then ssd_decode (decode + NMS over every image and class at once) on a
+    held-out batch, SSD_DECODES timed runs under sync-debug "error": ms a
+    batch, detections an image, and DetectionMAP (metrics.py, integral AP
+    at IoU 0.5) against the batch's boxes."""
+    import numpy as np
+    import torch
+    cfg = SSD
+    cuda = ptt.CUDAPlace(0)
+    main, start, loss = _ssd_program(ptt, cfg)
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("ssd_loss") == 1 and types.count("prior_box") == 3, \
+        types
+    scope = ptt.Scope()
+    exe = ptt.Executor(cuda)
+    exe.run(start, scope=scope)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    feeds = _ssd_feeds(np.random.RandomState(SEED + 51), cfg, cfg["batches"])
+    dev = [{k: torch.from_numpy(v).to(exe.device) for k, v in f.items()}
+           for f in feeds]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, secs = _run_steps_no_sync(exe, main, scope, loss, dev, SSD_STEPS)
+    launches = dict(kernels.LAUNCHES)
+    assert not any(launches.values()), launches
+    op = next(o for o in main.global_block().ops if o.type == "ssd_loss")
+    n_priors = main.global_block().var(op.inputs["PriorBox"][0]).shape[0]
+    res = _step_report(f"SSD ({n_params} parameters, {n_priors} priors)",
+                       cfg, losses, secs, "images", SSD_STEPS)
+    res.update(parameters=n_params, priors=n_priors)
+    res["profile"] = _profile_one("an SSD step", lambda: exe.run(
+        main, feed=dev[0], fetch_list=[loss], scope=scope,
+        return_numpy=False))
+
+    dmain, fetch = _ssd_program(ptt, cfg, is_test=True)
+    held = _ssd_feeds(np.random.RandomState(SEED + 52), cfg, 1)[0]
+    himg = {"img": torch.from_numpy(held["img"]).to(exe.device)}
+    exe.run(dmain, feed=himg, fetch_list=fetch, scope=scope)     # plans
+    torch.cuda.synchronize()
+    dsecs = []
+    for _ in range(SSD_DECODES):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = exe.run(dmain, feed=himg, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        dsecs.append(time.perf_counter() - t0)
+    rows, num = (t.cpu().numpy() for t in got)
+    assert rows.shape == (cfg["batch"], 100, 6), rows.shape
+    assert ((num >= 0) & (num <= 100)).all()
+    dets = np.concatenate([rows[i, :num[i]] for i in range(len(num))])
+    assert np.isfinite(dets).all()
+    assert ((dets[:, 0] >= 1) & (dets[:, 0] < cfg["num_classes"])).all()
+    assert (np.diff(rows[..., 1], axis=1)[rows[:, 1:, 0] >= 0] <= 0).all()
+    valid = held["gt_box"][..., 2] > held["gt_box"][..., 0]
+    gts = np.concatenate([np.concatenate(
+        [held["gt_label"][i, valid[i], None].astype("float32"),
+         held["gt_box"][i, valid[i]]], 1) for i in range(cfg["batch"])])
+    metric = ptt.metrics.DetectionMAP(overlap_threshold=0.5)
+    metric.update(dets, num.tolist(), gts, valid.sum(1).tolist())
+    m_ap = metric.eval()
+    ms = float(np.median(dsecs)) * 1e3
+    log(f"  ssd_decode, batch {cfg['batch']}, under set_sync_debug_mode("
+        f"'error'): {ms:.1f} ms a batch (median of "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in dsecs)}), "
+        f"{float(num.mean()):.1f} detections an image, DetectionMAP "
+        f"{m_ap:.4f} against the batch's {int(valid.sum())} boxes")
+    res.update(decode_ms=ms, detections_per_image=float(num.mean()),
+               detection_map=m_ap, launches=launches)
+    return res
+
+
+def _crnn_program(ptt, cfg, is_test=False):
+    """models/ocr_crnn.py's recognizer at cfg's width: (program, startup,
+    loss) trained by Adam(lr), or with is_test the greedy CTC decode
+    program, (program, [decoded, decoded length, per-column
+    probabilities])."""
+    from paddle_tpu_torch.models import ocr_crnn
+    L = ptt.layers
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        loss, logits, seqlen = ocr_crnn.crnn_ctc(
+            num_classes=cfg["num_classes"],
+            image_shape=(1, cfg["height"], cfg["width"]),
+            max_label_len=cfg["max_label_len"], hidden=cfg["hidden"],
+            is_test=is_test)
+        if is_test:
+            probs = L.softmax(logits)
+            dec, dec_len = L.sequence.ctc_greedy_decoder(
+                probs, blank=cfg["num_classes"], input_length=seqlen)
+            return main, [dec, dec_len, probs]
+        ptt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    return main, start, loss
+
+
+def _crnn_feeds(rng, cfg, n):
+    """n batches of max_label_len labels each and images drawn from them:
+    label j owns columns [j w/L, (j+1) w/L), filled with its class's row
+    pattern (a fixed random height-vector a class) plus noise."""
+    import numpy as np
+    b, h, w, nl = cfg["batch"], cfg["height"], cfg["width"], \
+        cfg["max_label_len"]
+    pattern = np.random.RandomState(SEED + 60).randn(cfg["num_classes"], h)
+    cols = w // nl
+    feeds = []
+    for _ in range(n):
+        label = rng.randint(0, cfg["num_classes"], (b, nl)).astype("int64")
+        img = np.repeat(pattern[label].transpose(0, 2, 1), cols, axis=2)
+        img = img + rng.randn(b, h, nl * cols) * 0.3
+        feeds.append({"img": img[:, None].astype("float32"),
+                      "label": label})
+    return feeds
+
+
+def _ctc_accuracy(ptt, dec, dec_len, label):
+    """(character accuracy, sequence accuracy) of greedy decodes against
+    their labels: edit distances by the port's edit_distance op, summed by
+    metrics.EditDistance."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.framework import registry
+    b, nl = label.shape
+    dist = registry.lookup_op("edit_distance").lower(
+        registry.LowerCtx(), {
+            "Hyps": [torch.as_tensor(dec)], "Refs": [torch.as_tensor(label)],
+            "HypsLen": [torch.as_tensor(dec_len).reshape(-1)],
+            "RefsLen": [torch.full((b,), nl, dtype=torch.int64)]},
+        {"normalized": False})
+    metric = ptt.metrics.EditDistance()
+    metric.update(dist["Out"][0].numpy(), dist["SequenceNum"][0].numpy())
+    avg, instance_error = metric.eval()
+    return 1.0 - avg / nl, 1.0 - instance_error
+
+
+def train_crnn(ptt, kernels):
+    """Phase 36: CRNN-CTC at its defaults, CRNN_STEPS Adam steps (step 1
+    plans; the rest under sync-debug "error": the CTC forward algorithm
+    and its gradient read nothing on the host). K6 must launch twice a
+    step (the forward and the reversed GRU; their backward is plain
+    PyTorch), nothing else. A profiled step. Then the greedy CTC decode
+    of a held-out batch under sync-debug "error": character and sequence
+    accuracy."""
+    import numpy as np
+    import torch
+    cfg = CRNN
+    cuda = ptt.CUDAPlace(0)
+    main, start, loss = _crnn_program(ptt, cfg)
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("dynamic_gru") == 2 and types.count("warpctc") == 1, \
+        types
+    scope = ptt.Scope()
+    exe = ptt.Executor(cuda)
+    exe.run(start, scope=scope)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    feeds = _crnn_feeds(np.random.RandomState(SEED + 61), cfg,
+                        cfg["batches"])
+    dev = [{k: torch.from_numpy(v).to(exe.device) for k, v in f.items()}
+           for f in feeds]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, secs = _run_steps_no_sync(exe, main, scope, loss, dev,
+                                      CRNN_STEPS)
+    launches = dict(kernels.LAUNCHES)
+    assert launches["gru_seq"] == 2 * CRNN_STEPS, (
+        f"CRNN: gru_seq launched {launches['gru_seq']} times in "
+        f"{CRNN_STEPS} steps; the path launches it {2 * CRNN_STEPS} times")
+    assert sum(launches.values()) == launches["gru_seq"], launches
+    res = _step_report(f"CRNN-CTC ({n_params} parameters, T "
+                       f"{cfg['width'] // 4}, K6 at H {cfg['hidden']})", cfg,
+                       losses, secs, "examples", CRNN_STEPS)
+    log(f"  launches: {launches}")
+    res["parameters"] = n_params
+    res["profile"] = _profile_one("a CRNN step", lambda: exe.run(
+        main, feed=dev[0], fetch_list=[loss], scope=scope,
+        return_numpy=False))
+
+    dmain, fetch = _crnn_program(ptt, cfg, is_test=True)
+    held = _crnn_feeds(np.random.RandomState(SEED + 62), cfg, 1)[0]
+    himg = {"img": torch.from_numpy(held["img"]).to(exe.device)}
+    exe.run(dmain, feed=himg, fetch_list=fetch, scope=scope)     # plans
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = exe.run(dmain, feed=himg, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dec, dec_len = (t.cpu().numpy() for t in got[:2])
+    assert ((dec_len >= 0) & (dec_len <= cfg["width"] // 4)).all()
+    for i in range(cfg["batch"]):
+        assert ((dec[i, :dec_len[i, 0]] >= 0)
+                & (dec[i, :dec_len[i, 0]] < cfg["num_classes"])).all()
+    char_acc, seq_acc = _ctc_accuracy(ptt, dec, dec_len, held["label"])
+    log(f"  held-out batch of {cfg['batch']}, greedy CTC decode under "
+        f"set_sync_debug_mode('error'): character accuracy {char_acc:.4f}, "
+        f"sequence accuracy {seq_acc:.4f} (EditDistance), decoded lengths "
+        f"{int(dec_len.min())}-{int(dec_len.max())} of "
+        f"{cfg['max_label_len']}")
+    res.update(char_accuracy=char_acc, seq_accuracy=seq_acc,
+               launches=launches)
+    return res
+
+
+def _slice15_op_cases():
+    """This slice's ops on the edges that decide their meaning (NMS ties
+    and all scores under the threshold, infeasible CTC rows, mod by
+    negative divisors, stable-sort ties, matching ties, out-of-range
+    scatter indices) and random draws: (label, op type, inputs, attrs)."""
+    import numpy as np
+    r = np.random.RandomState(SEED + 70)
+
+    def f32(*shape):
+        return r.randn(*shape).astype("float32")
+
+    def boxes(*lead):
+        a = np.sort(r.uniform(0, 1, lead + (2, 2)), axis=-2)
+        return a.reshape(lead + (4,))[..., [0, 2, 1, 3]].astype("float32")
+
+    same = np.float32([[[0, 0, 1, 1], [0, 0, 1, 1], [2, 2, 3, 3]]])
+    return [
+        ("multiclass_nms", "multiclass_nms",
+         {"BBoxes": boxes(2, 40), "Scores": r.uniform(0, 1, (2, 5, 40))
+          .astype("float32")}, {"keep_top_k": 30, "nms_threshold": 0.3}),
+        ("multiclass_nms ties", "multiclass_nms",
+         {"BBoxes": same, "Scores": np.full((1, 2, 3), 0.5, "float32")},
+         {"background_label": -1, "keep_top_k": 6}),
+        ("multiclass_nms all under the threshold", "multiclass_nms",
+         {"BBoxes": boxes(1, 8), "Scores": np.full((1, 3, 8), 0.005,
+                                                   "float32")},
+         {"keep_top_k": 5}),
+        ("bipartite_match ties", "bipartite_match",
+         {"DistMat": np.float32([[0.5, 0.5, 0.0], [0.5, 0.5, 0.2]])},
+         {"match_type": "per_prediction", "dist_threshold": 0.1}),
+        ("ssd_loss", "ssd_loss",
+         {"Location": f32(2, 30, 4), "Confidence": f32(2, 30, 4),
+          "GTBox": np.concatenate([boxes(2, 3), np.zeros((2, 1, 4),
+                                                         "float32")], 1),
+          "GTLabel": r.randint(1, 4, (2, 4)), "PriorBox": boxes(30)},
+         {"overlap_threshold": 0.3}),
+        ("detection_map", "detection_map",
+         {"DetectRes": np.concatenate([r.randint(0, 3, (2, 6, 1)),
+                                       r.uniform(0, 1, (2, 6, 1)).round(1),
+                                       boxes(2, 6)], -1).astype("float32"),
+          "Label": np.concatenate([r.randint(0, 3, (2, 3, 1)),
+                                   boxes(2, 3)], -1).astype("float32")},
+         {"class_num": 3}),
+        ("roi_pool", "roi_pool",
+         {"X": f32(2, 3, 8, 9),
+          "ROIs": np.float32([[0, 0, 0, 7, 6], [1, 2.4, 1.6, 8.6, 7.5],
+                              [0, -3, 2, 20, 3]])},
+         {"pooled_height": 3, "pooled_width": 2}),
+        ("generate_proposals", "generate_proposals",
+         {"Scores": r.uniform(0, 1, (2, 30)).astype("float32"),
+          "BboxDeltas": f32(2, 30, 4) * 0.3, "Anchors": boxes(30) * 60,
+          "ImInfo": np.float32([[64, 64, 1.0], [48, 56, 0.5]])},
+         {"pre_nms_top_n": 20, "post_nms_top_n": 8, "min_size": 2.0}),
+        ("warpctc with infeasible rows", "warpctc",
+         {"Logits": f32(4, 6, 5),
+          "Label": np.int64([[1, 2, 3], [2, 2, 0], [1, 2, 3], [3, 3, 3]]),
+          "LogitsLength": np.int64([6, 3, 2, 4]),
+          "LabelLength": np.int64([3, 2, 3, 3])}, {"blank": 0}),
+        ("warpctc blank last, norm_by_times, label length 0", "warpctc",
+         {"Logits": f32(3, 5, 5), "Label": np.int64([[0, 1], [2, 2],
+                                                     [3, 0]]),
+          "LogitsLength": np.int64([5, 5, 2]),
+          "LabelLength": np.int64([2, 2, 0])},
+         {"blank": 4, "norm_by_times": True}),
+        ("ctc_align", "ctc_align",
+         {"Input": np.int64([[1, 1, 0, 2, 2, 0, 1], [0, 3, 3, 3, 0, 0, 3]]),
+          "InputLength": np.int64([7, 5])}, {"blank": 0}),
+        ("im2sequence", "im2sequence", {"X": f32(2, 3, 5, 6)},
+         {"kernels": [2, 3], "strides": [1, 2]}),
+        ("elementwise_mod by negatives", "elementwise_mod",
+         {"X": np.float32([-7.5, 7.5, -3.0, 3.0]),
+          "Y": np.float32([2.0, -2.0, -2.0, 2.0])}, {}),
+        ("elementwise_mod int by negatives", "elementwise_mod",
+         {"X": np.int32([-7, 7, -3, 3]), "Y": np.int32([2, -2, -2, 2])},
+         {}),
+        ("argsort ties", "argsort",
+         {"X": np.float32([[2, 1, 2, 1, 0, 1], [0, 0, 0, 0, 0, 0]])}, {}),
+        ("arg_min ties", "arg_min",
+         {"X": np.float32([[1, 0, 0, 2], [3, 3, 3, 3]])}, {"axis": 1}),
+        ("gelu", "gelu", {"X": f32(3, 7) * 3}, {}),
+        ("scatter out of range", "scatter",
+         {"X": f32(5, 3), "Ids": np.int64([3, -1, 0, 7]),
+          "Updates": f32(4, 3)}, {"overwrite": True}),
+        ("bilinear_interp", "bilinear_interp", {"X": f32(1, 2, 8, 9)},
+         {"out_h": 3, "out_w": 13}),
+        ("hierarchical_sigmoid", "hierarchical_sigmoid",
+         {"X": f32(4, 5), "Label": np.int64([[0], [5], [2], [3]]),
+          "W": f32(5, 5), "Bias": f32(5, 1)}, {"num_classes": 6}),
+        ("auc", "auc",
+         {"Predict": r.dirichlet([1, 1], 16).astype("float32"),
+          "Label": r.randint(0, 2, (16, 1)),
+          "StatPos": np.zeros(201, "float32"),
+          "StatNeg": np.zeros(201, "float32")}, {"num_thresholds": 200}),
+    ]
+
+
+def _decode_card_against_cpu(ptt, cfg, gscope, decode, feed):
+    """The decode program's fetches on the card and on the CPU from the
+    card's state: (card's, CPU's), numpy."""
+    from paddle_tpu_torch.framework.executor import as_numpy
+    cscope = ptt.load_numpy_params(
+        {n: as_numpy(gscope.get(n)) for n in gscope.local_var_names()},
+        ptt.Scope(), ptt.CPUPlace())
+    dmain, fetch = decode(ptt, cfg, is_test=True)
+    g = ptt.Executor(ptt.CUDAPlace(0)).run(dmain, feed=feed,
+                                           fetch_list=fetch, scope=gscope)
+    c = ptt.Executor(ptt.CPUPlace()).run(dmain, feed=feed, fetch_list=fetch,
+                                         scope=cscope)
+    return g, c
+
+
+def _pooled_card_against_cpu(ptt, label, cfg, build, make_feeds, steps=3):
+    """Phase 37's training check for the max-pooled models (SSD's four
+    and CRNN's four 2x2 max pools): `steps` Adam steps, each from the
+    card's state on both devices; the loss at rtol 1e-5 and each gradient
+    at a cosine of at least 0.999 and a norm within 1% (gradients below
+    1e-5 of the largest are rounding noise). Not element-wise: a pool
+    window whose two largest values lie within the devices' float32
+    rounding of each other (the convolutions' algorithms differ) sends
+    that unit's gradient to another position, which moves every weight
+    gradient below it. In one run on an H100, step 3 moved 476 of the
+    864 elements of SSD's first weight gradient by up to 2.0e-3 while
+    the loss agreed; a rerun found every prior match and mined negative
+    equal on both devices at each step. Returns the card's scope."""
+    import numpy as np
+    from paddle_tpu_torch.framework.executor import as_numpy
+    main, start, loss = build(ptt, cfg)
+    names = [p.name for p in main.all_parameters()]
+    gpu_scope = ptt.Scope()
+    gpu = ptt.Executor(ptt.CUDAPlace(0))
+    gpu.run(start, scope=gpu_scope)
+    cpu = ptt.Executor(ptt.CPUPlace())
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    worst_cos, worst_norm, exact = 1.0, 0.0, []
+    for i, feed in enumerate(make_feeds(np.random.RandomState(SEED + 8),
+                                        cfg, steps)):
+        cpu_scope = ptt.load_numpy_params(
+            {n: as_numpy(gpu_scope.get(n))
+             for n in gpu_scope.local_var_names()}, ptt.Scope(),
+            ptt.CPUPlace())
+        g = gpu.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
+        c = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        np.testing.assert_allclose(g[0], c[0], rtol=1e-5,
+                                   err_msg=f"{label}: loss, step {i + 1}")
+        gmax = max(float(np.abs(cg).max()) for cg in c[1:])
+        close = True
+        for n, gg, cg in zip(names, g[1:], c[1:]):
+            close = close and bool(np.allclose(
+                gg, cg, rtol=0, atol=1e-5 * max(1.0, np.abs(cg).max())))
+            if max(np.abs(gg).max(), np.abs(cg).max()) <= 1e-5 * gmax:
+                continue
+            cos = _cosine(gg, cg)
+            nrm = abs(float(np.linalg.norm(gg) / np.linalg.norm(cg)) - 1)
+            assert cos >= 0.999 and nrm <= 0.01, (label, n, i + 1, cos, nrm)
+            worst_cos, worst_norm = min(worst_cos, cos), max(worst_norm, nrm)
+        exact.append(close)
+        log(f"  {label} step {i + 1}: loss card {float(g[0]):.6f}, CPU "
+            f"{float(c[0]):.6f}; every gradient within 1e-5 element-wise: "
+            f"{close}")
+    log(f"  small {label}, float32, {steps} Adam steps (each from the same "
+        f"state): losses agree, {len(names)} gradients held, worst cosine "
+        f"{worst_cos:.6f}, worst norm ratio {worst_norm:.2e}")
+    return gpu_scope
+
+
+def ocr_detection_reference_check(ptt):
+    """Phase 37: SSD and CRNN at test width in float32, 3 Adam steps card
+    against CPU each from the same state (`_pooled_card_against_cpu`),
+    then each decode
+    from the card's state on both (SSD: labels and counts equal, boxes and
+    scores at 1e-5; CRNN: the greedy decodes equal); then this slice's
+    ops on their edge inputs, card against CPU."""
+    import numpy as np
+    gscope = _pooled_card_against_cpu(ptt, "SSD", SSD_SMALL, _ssd_program,
+                                      _ssd_feeds)
+    held = _ssd_feeds(np.random.RandomState(SEED + 71), SSD_SMALL, 1)[0]
+    (grows, gnum), (crows, cnum) = _decode_card_against_cpu(
+        ptt, SSD_SMALL, gscope, _ssd_program, {"img": held["img"]})
+    np.testing.assert_array_equal(gnum, cnum)
+    np.testing.assert_array_equal(grows[..., 0], crows[..., 0])
+    np.testing.assert_allclose(grows[..., 1:], crows[..., 1:], rtol=1e-5,
+                               atol=1e-5)
+    log(f"  SSD small decode: {int(gnum.sum())} detections, labels and "
+        f"counts equal, boxes and scores within 1e-5, card against CPU")
+    gscope = _pooled_card_against_cpu(ptt, "CRNN", CRNN_SMALL,
+                                      _crnn_program, _crnn_feeds)
+    held = _crnn_feeds(np.random.RandomState(SEED + 72), CRNN_SMALL, 1)[0]
+    g, c = _decode_card_against_cpu(ptt, CRNN_SMALL, gscope, _crnn_program,
+                                    {"img": held["img"]})
+    np.testing.assert_array_equal(g[0], c[0])
+    np.testing.assert_array_equal(g[1], c[1])
+    np.testing.assert_allclose(g[2], c[2], rtol=1e-5, atol=1e-6)
+    log(f"  CRNN small greedy decode: lengths {g[1][:, 0].tolist()} and "
+        f"paths equal, per-column probabilities within 1e-5, card against "
+        f"CPU")
+    _ops_reference(_slice15_op_cases(), "this slice's ops (NMS ties and "
+                   "empty rows, infeasible CTC rows, mod by negatives, "
+                   "stable-sort ties)")
     return {"ok": True}
 
 
@@ -5316,6 +5871,21 @@ def main():
     _phase("phase 34: beam decoding, the BiLSTM-CRF, the control-flow "
            "programs and this slice's ops, card against CPU")
     paths["recurrent_rest_reference"] = recurrent_rest_reference_check(ptt)
+    torch.cuda.empty_cache()
+
+    _phase("phase 35: train and decode SSD at its defaults (21 classes, "
+           "128x128, batch 32)")
+    paths["ssd_train"] = train_ssd(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    _phase("phase 36: train and decode CRNN-CTC at its defaults (K6 at "
+           "B 64, T 32, H 96, both directions)")
+    paths["crnn_train"] = train_crnn(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    _phase("phase 37: SSD and CRNN at test width and this slice's ops, "
+           "card against CPU")
+    paths["ocr_detection_reference"] = ocr_detection_reference_check(ptt)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -5367,9 +5937,13 @@ def main():
     results["gru_seq"]["launches_infer"] = beam_launches["gru_seq"]
     results["lstm_seq"]["launches_crf"] = \
         paths["bilstm_crf"]["launches"]["lstm_seq"]
+    # the CRNN's K6, forward and reversed (phase 36)
+    results["gru_seq"]["launches_crnn"] = \
+        paths["crnn_train"]["launches"]["gru_seq"]
     for kern, k in (("decode_attention", "launches_beam"),
                     ("gru_seq", "launches_infer"),
-                    ("lstm_seq", "launches_crf")):
+                    ("lstm_seq", "launches_crf"),
+                    ("gru_seq", "launches_crnn")):
         assert results[kern][k] > 0, \
             f"{kern} was never launched on its {k[9:]} path"
     results["flash_fwd"]["launches_tc_transformer_base_infer"] = \

@@ -21,7 +21,9 @@ schedules); the recurrent models with their whole-sequence kernels; and
 the high-level API: `Trainer` (events, checkpoints, resume), `io`
 save/load in the JAX package's format, `Inferencer` / `Predictor`; and
 the image models (ResNet, SE-ResNeXt, VGG, MNIST, AlexNet, GoogLeNet) on
-conv, pool and batch_norm, fed uint8 images through `DevicePrefetcher`.
+conv, pool and batch_norm, fed uint8 images through `DevicePrefetcher`;
+the SSD detector and the CRNN-CTC recognizer with the detection and CTC
+ops; every op the JAX package registers, and its host-side `metrics`.
 ROADMAP.md lists what is still to be ported.
 """
 
@@ -40,6 +42,7 @@ from .framework.scope import Scope, global_scope, reset_global_scope  # noqa: F4
 from .param_attr import ParamAttr  # noqa: F401
 from . import data, io, models, nets, observability, serving  # noqa: F401,E402
 from . import average, parallel, transpiler  # noqa: F401,E402
+from . import evaluator, metrics  # noqa: F401,E402
 from . import inferencer, trainer  # noqa: F401,E402
 from .data.feeder import DataFeeder  # noqa: F401,E402
 from .inferencer import Inferencer, Predictor  # noqa: F401,E402

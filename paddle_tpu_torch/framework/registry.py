@@ -69,9 +69,10 @@ def _ensure_builtin_ops():
     _builtins_loaded = True
     # import for registration side effects
     from ..ops import (beam_search_ops, control_ops,  # noqa: F401
-                       elementwise, flash_attention, metric_ops, nn_ops,
-                       optimizer_ops, random_ops, reduce_ops,
-                       sequence_label_ops, sequence_ops, tensor_ops)
+                       detection_ops, elementwise, flash_attention,
+                       loss_ops, metric_ops, nn_ops, optimizer_ops,
+                       random_ops, reduce_ops, sequence_label_ops,
+                       sequence_ops, tensor_ops)
     from ..fusion import decode_attention, recurrent  # noqa: F401
     from . import lowering  # noqa: F401  (the vjp_region entry)
 

@@ -1,8 +1,8 @@
 """Neural-network layers.
 
-≙ paddle_tpu/layers/nn.py (reference python/paddle/fluid/layers/nn.py),
-trimmed to the layers the serving, training, recurrent and image slices
-build. Each layer creates parameters via LayerHelper and appends ops; the
+≙ paddle_tpu/layers/nn.py (reference python/paddle/fluid/layers/nn.py):
+every layer of the JAX package's nn.py, appending the same ops. Each
+layer creates parameters via LayerHelper and appends ops; the
 executor runs them.
 """
 
@@ -894,3 +894,454 @@ def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
                      outputs={"Hidden": [new_h], "Gate": [gate],
                               "ResetHiddenPrev": [reset]})
     return new_h, reset, gate
+
+
+# --- the rest of the layer library (≙ paddle_tpu/layers/nn.py): tensor
+# manipulation, the losses, normalization, image resampling, sampled
+# losses and the in-graph metrics
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    shape = list(input.shape)
+    axis = dim if dim >= 0 else len(shape) + dim
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        sections = [shape[axis] // n] * n
+        attrs = {"num": n, "axis": axis, "sections": []}
+    else:
+        sections = list(num_or_sections)
+        attrs = {"num": 0, "axis": axis, "sections": sections}
+    outs = []
+    for s in sections:
+        os = list(shape)
+        os[axis] = s
+        outs.append(helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                               shape=os))
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs}, attrs=attrs)
+    return outs
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    shape = list(xs[0].shape)
+    shape.insert(axis if axis >= 0 else len(shape) + 1 + axis, len(xs))
+    out = helper.create_tmp_variable(dtype=dtype_name(xs[0].dtype),
+                                     shape=shape)
+    helper.append_op(type="stack", inputs={"X": list(xs)},
+                     outputs={"Y": [out]}, attrs={"axis": axis})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    shape = [(-1 if d == -1 else d + paddings[2 * i] + paddings[2 * i + 1])
+             for i, d in enumerate(x.shape)]
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=shape)
+    helper.append_op(type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": pad_value})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten", name=name)
+    lead = _prod(x.shape[:axis]) if axis > 0 else 1
+    trail = _prod(x.shape[axis:])
+    if any(d == -1 for d in x.shape[:axis]):
+        lead = -1
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                     shape=[lead, trail])
+    helper.append_op(type="flatten", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def scatter(input, index, updates, overwrite=True):
+    helper = LayerHelper("scatter")
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=input.shape)
+    helper.append_op(type="scatter",
+                     inputs={"X": [input], "Ids": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    out = helper.create_tmp_variable(dtype=dtype, shape=label.shape)
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]}, attrs={"epsilon": epsilon})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    loss_shape = list(input.shape[:-1]) + [1]
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=loss_shape)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def square_error_cost(input, label):
+    """≙ reference layers/nn.py square_error_cost (fit-a-line loss)."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=input.shape)
+    helper.append_op(type="mse_loss", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    loss = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                      shape=[x.shape[0], 1])
+    diff = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                      shape=x.shape, stop_gradient=True)
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": [loss], "Diff": [diff]},
+                     attrs={"sigma": sigma or 1.0})
+    return loss
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=input.shape)
+    resid = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                       shape=input.shape, stop_gradient=True)
+    helper.append_op(type="huber_loss",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out], "Residual": [resid]},
+                     attrs={"delta": delta})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    """≙ log_loss_op.cc: binary CE on probabilities."""
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=input.shape)
+    helper.append_op(type="log_loss",
+                     inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def hinge_loss(input, label, name=None):
+    """≙ hinge_loss_op.cc: max(0, 1 - input*(2*label-1))."""
+    helper = LayerHelper("hinge_loss", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=input.shape)
+    helper.append_op(type="hinge_loss",
+                     inputs={"Logits": [input], "Labels": [label]},
+                     outputs={"Loss": [out]})
+    return out
+
+
+def rank_loss(label, left, right, name=None):
+    """Pairwise RankNet loss (≙ rank_loss_op.cc)."""
+    helper = LayerHelper("rank_loss", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(left.dtype),
+                                     shape=left.shape)
+    helper.append_op(type="rank_loss",
+                     inputs={"Label": [label], "Left": [left],
+                             "Right": [right]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    """≙ margin_rank_loss_op.cc: max(0, -label*(left-right) + margin)."""
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(left.dtype),
+                                     shape=left.shape)
+    act = helper.create_tmp_variable(dtype=dtype_name(left.dtype),
+                                     shape=left.shape, stop_gradient=True)
+    helper.append_op(type="margin_rank_loss",
+                     inputs={"Label": [label], "X1": [left], "X2": [right]},
+                     outputs={"Out": [out], "Activated": [act]},
+                     attrs={"margin": float(margin)})
+    return out
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """≙ reference layers/nn.py dice_loss: 1 - 2|X∩Y| / (|X|+|Y|).
+    input [N, D] probabilities, label [N, 1] int class indices."""
+
+    label = one_hot(label, depth=input.shape[-1])
+    reduce_dims = list(range(1, len(input.shape)))
+    inse = reduce_sum(input * label, dim=reduce_dims)
+    dice_denominator = reduce_sum(input, dim=reduce_dims) + \
+        reduce_sum(label, dim=reduce_dims) + epsilon
+    dice_score = 1 - inse * 2 / dice_denominator
+    return reduce_mean(dice_score)
+
+
+def cos_sim(X, Y, name=None):
+    """Row-wise cosine similarity; Y may be one row (≙ cos_sim_op.cc)."""
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(X.dtype),
+                                     shape=[X.shape[0], 1])
+    xn = helper.create_tmp_variable(dtype=dtype_name(X.dtype),
+                                    shape=[X.shape[0], 1],
+                                    stop_gradient=True)
+    yn = helper.create_tmp_variable(dtype=dtype_name(X.dtype),
+                                    shape=[Y.shape[0], 1],
+                                    stop_gradient=True)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out
+
+
+def squared_l2_distance(x, y, name=None):
+    """Row-wise ||x-y||^2 (≙ squared_l2_distance_op.cc)."""
+    helper = LayerHelper("squared_l2_distance", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                     shape=[x.shape[0], 1])
+    sub = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                     shape=x.shape, stop_gradient=True)
+    helper.append_op(type="squared_l2_distance",
+                     inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out], "sub_result": [sub]})
+    return out
+
+
+def squared_l2_norm(x, name=None):
+    """sum(x**2) (≙ squared_l2_norm_op.cc)."""
+    helper = LayerHelper("squared_l2_norm", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=[1])
+    helper.append_op(type="squared_l2_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=x.shape)
+    norm = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                      shape=x.shape, stop_gradient=True)
+    helper.append_op(type="l2_normalize", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=input.shape)
+    mid = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=input.shape, stop_gradient=True)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """out[n,k] = x[n] @ W_k @ y[n]^T (≙ bilinear_tensor_product_op.cc)."""
+    helper = LayerHelper("bilinear_tensor_product", name=name, act=act,
+                         param_attr=param_attr, bias_attr=bias_attr)
+    dx, dy = x.shape[1], y.shape[1]
+    w = helper.create_parameter(attr=param_attr, shape=[size, dx, dy],
+                                dtype=dtype_name(x.dtype))
+    inputs = {"X": [x], "Y": [y], "Weight": [w]}
+    if bias_attr is not False:
+        bias = helper.create_parameter(attr=bias_attr, shape=[1, size],
+                                       dtype=dtype_name(x.dtype),
+                                       is_bias=True)
+        inputs["Bias"] = [bias]
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                     shape=[x.shape[0], size])
+    helper.append_op(type="bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR"):
+    """≙ reference layers/nn.py image_resize (bilinear_interp_op). Input
+    [N, C, H, W]; out_shape [H', W'] or scale factor."""
+    enforce(resample.upper() == "BILINEAR",
+            "only BILINEAR resample is supported", exc=InvalidArgumentError)
+    helper = LayerHelper("image_resize", name=name)
+    h, w = input.shape[2], input.shape[3]
+    if out_shape is None:
+        enforce(scale is not None, "image_resize needs out_shape or scale",
+                exc=InvalidArgumentError)
+        out_h, out_w = int(h * scale), int(w * scale)
+        enforce(out_h > 0 and out_w > 0,
+                f"image_resize with scale= needs static spatial dims "
+                f"(got H={h}, W={w}); pass out_shape for dynamic inputs",
+                exc=InvalidArgumentError)
+    else:
+        out_h, out_w = int(out_shape[0]), int(out_shape[1])
+    out = helper.create_tmp_variable(
+        dtype=dtype_name(input.dtype),
+        shape=[input.shape[0], input.shape[1], out_h, out_w])
+    helper.append_op(type="bilinear_interp", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"out_h": out_h, "out_w": out_w})
+    return out
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """≙ reference layers/nn.py image_resize_short: resize so the SHORT side
+    equals out_short_len, keeping aspect ratio."""
+    h, w = input.shape[2], input.shape[3]
+    short = min(h, w)
+    out_h = int(h * out_short_len / short)
+    out_w = int(w * out_short_len / short)
+    return image_resize(input, out_shape=[out_h, out_w], resample=resample)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    """≙ reference layers/nn.py resize_bilinear."""
+    return image_resize(input, out_shape=out_shape, scale=scale, name=name)
+
+
+def spp(input, pyramid_height=3, pool_type="max", name=None):
+    """≙ reference layers spp (spatial pyramid pooling) — [N,C,H,W] ->
+    [N, C * sum(4^l for l < pyramid_height)]."""
+    helper = LayerHelper("spp", name=name)
+    c = input.shape[1]
+    total_bins = sum(4 ** l for l in range(pyramid_height))
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=[input.shape[0], c * total_bins])
+    helper.append_op(type="spp", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pyramid_height": pyramid_height,
+                            "pooling_type": pool_type})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=10, name=None):
+    """NCE loss with a uniform negative sampler (≙ nce_op.cc + layers/nn.py
+    nce). Returns per-example cost [N, 1]."""
+    helper = LayerHelper("nce", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr)
+    dim = input.shape[1]
+    w = helper.create_parameter(attr=param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=dtype_name(input.dtype))
+    inputs = {"Input": [input], "Label": [label], "Weight": [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(attr=bias_attr,
+                                    shape=[num_total_classes],
+                                    dtype=dtype_name(input.dtype),
+                                    is_bias=True)
+        inputs["Bias"] = [b]
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight]
+    n = input.shape[0]
+    cost = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                      shape=[n, 1])
+    slog = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                      shape=[n, num_neg_samples + 1],
+                                      stop_gradient=True)
+    slab = helper.create_tmp_variable(dtype="int64",
+                                      shape=[n, num_neg_samples + 1],
+                                      stop_gradient=True)
+    helper.append_op(type="nce", inputs=inputs,
+                     outputs={"Cost": [cost], "SampleLogits": [slog],
+                              "SampleLabels": [slab]},
+                     attrs={"num_total_classes": int(num_total_classes),
+                            "num_neg_samples": int(num_neg_samples)})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid over a complete binary tree
+    (≙ hsigmoid_op.cc + math/matrix_bit_code.h). Returns cost [N, 1]."""
+    helper = LayerHelper("hierarchical_sigmoid", name=name,
+                         param_attr=param_attr, bias_attr=bias_attr)
+    dim = input.shape[1]
+    from ..ops.loss_ops import hsigmoid_code_length
+    max_len = hsigmoid_code_length(num_classes)
+    w = helper.create_parameter(attr=param_attr,
+                                shape=[num_classes - 1, dim],
+                                dtype=dtype_name(input.dtype))
+    inputs = {"X": [input], "Label": [label], "W": [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(attr=bias_attr,
+                                    shape=[num_classes - 1, 1],
+                                    dtype=dtype_name(input.dtype),
+                                    is_bias=True)
+        inputs["Bias"] = [b]
+    n = input.shape[0]
+    out = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=[n, 1])
+    pre = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                     shape=[n, max_len], stop_gradient=True)
+    helper.append_op(type="hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Out": [out], "PreOut": [pre]},
+                     attrs={"num_classes": int(num_classes)})
+    return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=200, topk=1):
+    """≙ reference layers/metric_op.py auc — streaming AUC with persistable
+    bucket state."""
+    helper = LayerHelper("auc")
+    stat_pos = helper.create_global_variable(
+        name=helper.name + ".stat_pos", shape=[num_thresholds + 1],
+        dtype="float32")
+    stat_neg = helper.create_global_variable(
+        name=helper.name + ".stat_neg", shape=[num_thresholds + 1],
+        dtype="float32")
+    for var in (stat_pos, stat_neg):
+        sb = helper.startup_program.global_block()
+        if var.name not in sb.vars:
+            sv = sb.create_var(name=var.name, shape=var.shape,
+                               dtype=var.dtype, persistable=True)
+            sb.append_op("fill_constant", outputs={"Out": [sv.name]},
+                         attrs={"shape": list(var.shape), "value": 0.0,
+                                "dtype": "float32"})
+    auc_out = helper.create_tmp_variable(dtype="float32", shape=[],
+                                         stop_gradient=True)
+    helper.append_op(type="auc",
+                     inputs={"Predict": [input], "Label": [label],
+                             "StatPos": [stat_pos], "StatNeg": [stat_neg]},
+                     outputs={"AUC": [auc_out], "StatPosOut": [stat_pos],
+                              "StatNegOut": [stat_neg]},
+                     attrs={"num_thresholds": num_thresholds})
+    return auc_out, [stat_pos, stat_neg]
+
+
+def positive_negative_pair(score, label, query_id, name=None):
+    """≙ reference positive_negative_pair_op.cc: counts of correctly /
+    incorrectly / neutrally ranked pairs per query group. Returns
+    (positive, negative, neutral) float scalars."""
+    helper = LayerHelper("positive_negative_pair", name=name)
+    pos = helper.create_tmp_variable(dtype="float32", shape=[1])
+    neg = helper.create_tmp_variable(dtype="float32", shape=[1])
+    neu = helper.create_tmp_variable(dtype="float32", shape=[1])
+    helper.append_op(type="positive_negative_pair",
+                     inputs={"Score": [score], "Label": [label],
+                             "QueryID": [query_id]},
+                     outputs={"PositivePair": [pos], "NegativePair": [neg],
+                              "NeutralPair": [neu]})
+    return pos, neg, neu

@@ -2,8 +2,7 @@
 
 ≙ paddle_tpu/layers/sequence.py (reference layers/nn.py sequence_* +
 dynamic_lstm:290 / dynamic_gru / dynamic_lstmp, linear_chain_crf,
-crf_decoding and chunk_eval), without CTC (`warpctc`,
-`ctc_greedy_decoder`: they go with the OCR model). A padded sequence is a dense [B, T, ...]
+crf_decoding, chunk_eval, warpctc and ctc_greedy_decoder). A padded sequence is a dense [B, T, ...]
 variable with a companion length variable: `var.seqlen_var` (propagated by
 `tag_sequence` through sequence layers) or the `<name>@SEQLEN` variable that
 `layers.data(lod_level>0)` declares.
@@ -464,3 +463,49 @@ def max_sequence_len(rank_table_or_seq):
     from . import nn as _nn
     lengths = _as_lengths_var(rank_table_or_seq, "max_sequence_len input")
     return _nn.reduce_max(lengths)
+
+
+# --- CTC (≙ reference layers/nn.py warpctc, layers ctc_greedy_decoder)
+
+
+def warpctc(input, label, input_length, label_length, blank=0,
+            norm_by_times=False, name=None):
+    """CTC loss (≙ reference layers/nn.py warpctc / operators/warpctc_op.cc).
+
+    input: [B, T, C] unnormalized logits; label: [B, L] int;
+    input_length/label_length: [B]. Returns Loss [B, 1].
+    """
+    helper = LayerHelper("warpctc", name=name)
+    loss = helper.create_tmp_variable(dtype=dtype_name(input.dtype),
+                                      shape=[input.shape[0], 1])
+    helper.append_op(type="warpctc",
+                     inputs={"Logits": [input], "Label": [label],
+                             "LogitsLength": [input_length],
+                             "LabelLength": [label_length]},
+                     outputs={"Loss": [loss]},
+                     attrs={"blank": int(blank),
+                            "norm_by_times": bool(norm_by_times)})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, input_length, name=None):
+    """Greedy (best-path) CTC decode: per-step argmax then merge-repeats +
+    drop-blanks (≙ reference ctc_greedy_decoder = top_k + ctc_align).
+
+    input: [B, T, C] probabilities/logits. Returns (decoded [B, T],
+    decoded_length [B, 1])."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    best = helper.create_tmp_variable(dtype="int64",
+                                      shape=list(input.shape[:2]))
+    helper.append_op(type="arg_max", inputs={"X": [input]},
+                     outputs={"Out": [best]}, attrs={"axis": -1})
+    out = helper.create_tmp_variable(dtype="int64",
+                                     shape=list(input.shape[:2]))
+    out_len = helper.create_tmp_variable(dtype="int64",
+                                         shape=[input.shape[0], 1])
+    helper.append_op(type="ctc_align",
+                     inputs={"Input": [best],
+                             "InputLength": [input_length]},
+                     outputs={"Output": [out], "OutputLength": [out_len]},
+                     attrs={"blank": int(blank), "padding_value": 0})
+    return out, out_len

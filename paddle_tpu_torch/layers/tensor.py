@@ -1,9 +1,9 @@
 """Tensor-creation/manipulation layers.
 
 ≙ paddle_tpu/layers/tensor.py (reference python/paddle/fluid/layers/tensor.py),
-trimmed to the serving and training slices: create_tensor, cast,
-assign, concat, sums, fill_constant, fill_constant_batch_size_like,
-argmax.
+every layer of the JAX package's tensor.py: create_tensor, cast, assign,
+concat, sums, fill_constant, fill_constant_batch_size_like, ones, zeros,
+zeros_like, reverse, argmax, argmin, argsort.
 """
 
 from __future__ import annotations
@@ -116,3 +116,53 @@ def argmax(x, axis=0):
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return out
 
+
+
+def ones(shape, dtype="float32"):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros(shape, dtype="float32"):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like")
+    if out is None:
+        out = helper.create_tmp_variable(dtype=dtype_name(x.dtype),
+                                         shape=x.shape, stop_gradient=True)
+    helper.append_op(type="fill_zeros_like", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def reverse(x, axis):
+    helper = LayerHelper("reverse")
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=x.shape)
+    axis = [axis] if isinstance(axis, int) else list(axis)
+    helper.append_op(type="reverse", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("arg_min")
+    shape = list(x.shape)
+    shape.pop(axis if axis >= 0 else len(shape) + axis)
+    out = helper.create_tmp_variable(dtype="int64", shape=shape,
+                                     stop_gradient=True)
+    helper.append_op(type="arg_min", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argsort(x, axis=-1):
+    helper = LayerHelper("argsort")
+    out = helper.create_tmp_variable(dtype=dtype_name(x.dtype), shape=x.shape,
+                                     stop_gradient=True)
+    ids = helper.create_tmp_variable(dtype="int64", shape=x.shape,
+                                     stop_gradient=True)
+    helper.append_op(type="argsort", inputs={"X": [x]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis})
+    return out, ids

@@ -1,19 +1,13 @@
 """Composite networks built from layers (≙ paddle_tpu/nets.py, reference
 python/paddle/fluid/nets.py).
 
-`simple_img_conv_pool`, `img_conv_group` and `sequence_conv_pool` append
-the same ops as the JAX package's. `glu` and `scaled_dot_product_attention`
-need a layer the port does not have yet (`split`) and raise naming the
-ROADMAP item.
+`simple_img_conv_pool`, `img_conv_group`, `sequence_conv_pool`, `glu` and
+`scaled_dot_product_attention` append the same ops as the JAX package's.
 """
 
 from __future__ import annotations
 
 from . import layers
-
-_NOT_PORTED = ("nets.{} is not ported: ROADMAP.md §1 item 4 (the rest of "
-               "nets.py)")
-
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
                          pool_stride, pool_padding=0, pool_type="max",
@@ -79,10 +73,47 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
 
 
 def glu(input, dim=-1):
-    raise NotImplementedError(_NOT_PORTED.format("glu"))
+    """Gated linear unit: split in half along dim, a * sigmoid(b)
+    (≙ reference nets.py glu)."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,
                                  dropout_rate=0.0, is_test=False):
-    raise NotImplementedError(
-        _NOT_PORTED.format("scaled_dot_product_attention"))
+    """Multi-head scaled dot-product attention over [B, T, C] tensors
+    (≙ reference nets.py:332). Returns [B, Tq, C_v].
+
+    The composite form, as in the JAX package: scale, matmul, softmax,
+    matmul (the fused flash-attention kernels serve fused_attention).
+    """
+    if queries.shape[-1] % num_heads != 0:
+        raise ValueError("hidden size must divide num_heads")
+
+    def _split_heads(x):
+        if num_heads == 1:
+            return x
+        b, t, c = x.shape
+        x = layers.reshape(x, shape=[b if b and b > 0 else -1, t, num_heads,
+                                     c // num_heads])
+        return layers.transpose(x, perm=[0, 2, 1, 3])
+
+    def _merge_heads(x):
+        if num_heads == 1:
+            return x
+        b, h, t, d = x.shape
+        x = layers.transpose(x, perm=[0, 2, 1, 3])
+        return layers.reshape(x, shape=[b if b and b > 0 else -1, t, h * d])
+
+    q = _split_heads(queries)
+    k = _split_heads(keys)
+    v = _split_heads(values)
+    key_dim = float(int(queries.shape[-1]) // num_heads)
+    scaled_q = layers.scale(q, scale=key_dim ** -0.5)
+    product = layers.matmul(scaled_q, k, transpose_y=True)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate,
+                                 is_test=is_test)
+    ctx = layers.matmul(weights, v)
+    return _merge_heads(ctx)

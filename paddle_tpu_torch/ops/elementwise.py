@@ -1,12 +1,13 @@
 """Elementwise / scale / compare / activation op lowerings.
 
 ≙ paddle_tpu/ops/elementwise.py (reference operators/elementwise_*.cc,
-scale_op.cc, compare_op.cc, activation_op.cc), trimmed to the serving and
-training slices, the recurrent models, gradient clipping and the
-learning-rate schedules and the control-flow builders: elementwise
-add/sub/mul/div/max/min/pow, the six comparisons, logical and/or/xor/not,
-scale, clip, clip_by_norm, sign, pow and the unary relu, sigmoid, tanh,
-exp, sqrt, ceil, floor, cos, reciprocal.
+scale_op.cc, compare_op.cc, activation_op.cc): elementwise
+add/sub/mul/div/max/min/pow/mod/floordiv, the six comparisons, logical
+and/or/xor/not, scale, clip, clip_by_norm, sign, pow, isfinite and the
+activations. Each follows the jax function the JAX package calls:
+`elementwise_mod` is jnp.mod (the sign of the divisor: torch.remainder,
+not fmod), `gelu` is jax.nn.gelu's default tanh approximation,
+`leaky_relu`'s alpha defaults to 0.02.
 Dtype promotion follows torch, which agrees with jnp on the pairs the
 slices meet (bfloat16 + float32 → float32).
 """
@@ -51,6 +52,8 @@ register_op("elementwise_div")(_binary(torch.div))
 register_op("elementwise_max")(_binary(torch.maximum))
 register_op("elementwise_min")(_binary(torch.minimum))
 register_op("elementwise_pow")(_binary(torch.pow))
+register_op("elementwise_mod")(_binary(torch.remainder))
+register_op("elementwise_floordiv")(_binary(torch.floor_divide))
 register_op("less_than")(_binary(torch.lt))
 register_op("less_equal")(_binary(torch.le))
 register_op("greater_than")(_binary(torch.gt))
@@ -100,17 +103,43 @@ def _pow(ctx, ins, attrs):
     return {"Out": [torch.pow(ins["X"][0], attrs.get("factor", 1.0))]}
 
 
+@register_op("isfinite")
+def _isfinite(ctx, ins, attrs):
+    # ≙ isfinite_op: one bool over every element of every input
+    out = torch.isfinite(ins["X"][0]).all()
+    for x in ins["X"][1:]:
+        out = out & torch.isfinite(x).all()
+    return {"Out": [out]}
+
+
 def _unary(fn):
     def lower(ctx, ins, attrs):
         return {"Out": [fn(ins["X"][0])]}
     return lower
 
 
+def softplus(x):
+    # jax.nn.softplus = logaddexp(x, 0) (F.softplus turns linear past 20)
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
 for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
                    ("tanh", torch.tanh), ("exp", torch.exp),
                    ("sqrt", torch.sqrt), ("ceil", torch.ceil),
                    ("floor", torch.floor), ("cos", torch.cos),
-                   ("reciprocal", torch.reciprocal)):
+                   ("reciprocal", torch.reciprocal),
+                   ("logsigmoid", torch.nn.functional.logsigmoid),
+                   ("tanh_shrink", lambda x: x - torch.tanh(x)),
+                   ("rsqrt", torch.rsqrt), ("abs", torch.abs),
+                   ("sin", torch.sin), ("round", torch.round),
+                   ("log", torch.log), ("square", torch.square),
+                   ("relu6", lambda x: x.clamp(0.0, 6.0)),
+                   ("softplus", softplus),
+                   ("softsign", lambda x: x / (1 + x.abs())),
+                   ("gelu", lambda x: torch.nn.functional.gelu(
+                       x, approximate="tanh")),
+                   ("silu", torch.nn.functional.silu)):
     register_op(_name)(_unary(_fn))
 
 
@@ -119,3 +148,76 @@ def _sign(ctx, ins, attrs):
     # ≙ jnp.sign, which keeps NaN (torch.sign maps it to 0)
     x = ins["X"][0]
     return {"Out": [torch.where(torch.isnan(x), x, torch.sign(x))]}
+
+
+@register_op("leaky_relu")
+def _leaky_relu(ctx, ins, attrs):
+    alpha = attrs.get("alpha", 0.02)
+    x = ins["X"][0]
+    return {"Out": [torch.where(x >= 0, x, alpha * x)]}
+
+
+@register_op("elu")
+def _elu(ctx, ins, attrs):
+    x = ins["X"][0]
+    alpha = attrs.get("alpha", 1.0)
+    return {"Out": [torch.where(x > 0, x, alpha * torch.expm1(x))]}
+
+
+@register_op("hard_sigmoid")
+def _hard_sigmoid(ctx, ins, attrs):
+    slope = attrs.get("slope", 0.2)
+    offset = attrs.get("offset", 0.5)
+    return {"Out": [(ins["X"][0] * slope + offset).clamp(0.0, 1.0)]}
+
+
+@register_op("hard_shrink")
+def _hard_shrink(ctx, ins, attrs):
+    t = attrs.get("threshold", 0.5)
+    x = ins["X"][0]
+    return {"Out": [torch.where(x.abs() > t, x, 0.0)]}
+
+
+@register_op("soft_shrink")
+def _soft_shrink(ctx, ins, attrs):
+    lam = attrs.get("lambda", 0.5)
+    x = ins["X"][0]
+    return {"Out": [torch.where(x > lam, x - lam,
+                                torch.where(x < -lam, x + lam, 0.0))]}
+
+
+@register_op("thresholded_relu")
+def _thresholded_relu(ctx, ins, attrs):
+    t = attrs.get("threshold", 1.0)
+    x = ins["X"][0]
+    return {"Out": [torch.where(x > t, x, 0.0)]}
+
+
+@register_op("swish")
+def _swish(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [x * torch.sigmoid(attrs.get("beta", 1.0) * x)]}
+
+
+@register_op("brelu")
+def _brelu(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].clamp(attrs.get("t_min", 0.0),
+                                      attrs.get("t_max", 24.0))]}
+
+
+@register_op("prelu")
+def _prelu(ctx, ins, attrs):
+    x = ins["X"][0]
+    alpha = ins["Alpha"][0]
+    if attrs.get("mode", "all") == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return {"Out": [torch.where(x >= 0, x, alpha * x)]}
+
+
+@register_op("maxout")
+def _maxout(ctx, ins, attrs):
+    # ≙ maxout_op: NCHW, the channels in groups of `groups`
+    x = ins["X"][0]
+    groups = attrs["groups"]
+    n, c, h, w = x.shape
+    return {"Out": [x.reshape(n, c // groups, groups, h, w).amax(dim=2)]}

@@ -1,11 +1,15 @@
 """NN op lowerings: mul/matmul, conv, conv_transpose, pool, batch_norm,
 layer_norm, softmax, log_softmax, softmax_with_cross_entropy,
-sigmoid_cross_entropy_with_logits.
+sigmoid_cross_entropy_with_logits, and the rest of the family: lrn,
+l2_normalize, the losses over probabilities and pairs (cross_entropy,
+huber, smooth_l1, log, hinge, rank, margin_rank, mse),
+bilinear_tensor_product, bilinear_interp, im2sequence, grid_sampler and
+spp.
 
 ≙ paddle_tpu/ops/nn_ops.py (reference operators/{mul,matmul,conv,
 conv_transpose,pool,batch_norm,layer_norm,softmax,
-softmax_with_cross_entropy}_op.*), without lrn and the losses of
-ops/loss_ops.py. The matrix products go to torch.matmul (cuBLAS on the
+softmax_with_cross_entropy,lrn,...}_op.*); nce and hierarchical_sigmoid
+are in ops/loss_ops.py. The matrix products go to torch.matmul (cuBLAS on the
 card) and the convolutions to torch's conv (cuDNN), as the JAX package
 leaves both to XLA.
 
@@ -19,13 +23,14 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core import flags
 from ..core.enforce import InvalidArgumentError, enforce
 from ..framework.registry import register_op
-from .tensor_ops import index_in_range
+from .tensor_ops import index_in_range, take_along
 
 
 def _prod(dims):
@@ -450,3 +455,215 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
     loss = _CEHard.apply(logits, safe.to(torch.long), valid)
     sm = torch.softmax(logits.float(), dim=-1) if want_sm else None
     return {"Loss": [loss], "Softmax": [sm]}
+
+
+# --- the loss family over probabilities and pairs, normalization, image
+# resampling (≙ paddle_tpu/ops/nn_ops.py :512-726)
+
+
+@register_op("cross_entropy")
+def _cross_entropy(ctx, ins, attrs):
+    """≙ cross_entropy_op.cc over probabilities (not logits): a hard label
+    reads its probability as take_along_axis does (NaN outside range),
+    `ignore_index` rows give 0."""
+    x = ins["X"][0]
+    label = ins["Label"][0]
+    if attrs.get("soft_label", False):
+        loss = -(label * torch.log(torch.clamp_min(x, 1e-20))).sum(
+            -1, keepdim=True)
+        return {"Y": [loss]}
+    lbl = label
+    if lbl.dim() == x.dim() and lbl.shape[-1] == 1:
+        lbl = lbl.squeeze(-1)
+    valid = lbl != attrs.get("ignore_index", -100)
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl))
+    p = take_along(x, safe[..., None].to(torch.long), -1)
+    return {"Y": [torch.where(valid[..., None],
+                              -torch.log(torch.clamp_min(p, 1e-20)), 0.0)]}
+
+
+@register_op("lrn")
+def _lrn(ctx, ins, attrs):
+    # NCHW; the window of n channels centred on each
+    x = ins["X"][0]
+    n = attrs.get("n", 5)
+    half = n // 2
+    sq = F.pad(x.square(), (0, 0, 0, 0, half, half))
+    acc = sum(sq[:, i:i + x.shape[1]] for i in range(n))
+    mid = attrs.get("k", 2.0) + attrs.get("alpha", 1e-4) * acc
+    return {"Out": [x / torch.pow(mid, attrs.get("beta", 0.75))],
+            "MidOut": [mid]}
+
+
+@register_op("l2_normalize")
+def _l2_normalize(ctx, ins, attrs):
+    x = ins["X"][0]
+    norm = (x.square().sum(dim=attrs.get("axis", -1), keepdim=True)
+            + attrs.get("epsilon", 1e-10)).sqrt()
+    return {"Out": [x / norm], "Norm": [norm]}
+
+
+@register_op("huber_loss")
+def _huber_loss(ctx, ins, attrs):
+    delta = attrs.get("delta", 1.0)
+    r = ins["Y"][0] - ins["X"][0]
+    a = r.abs()
+    return {"Out": [torch.where(a <= delta, 0.5 * r.square(),
+                                delta * (a - 0.5 * delta))],
+            "Residual": [r]}
+
+
+@register_op("smooth_l1_loss")
+def _smooth_l1_loss(ctx, ins, attrs):
+    sigma = attrs.get("sigma", 1.0)
+    s2 = sigma * sigma
+    diff = ins["X"][0] - ins["Y"][0]
+    if ins.get("InsideWeight"):
+        diff = diff * ins["InsideWeight"][0]
+    a = diff.abs()
+    loss = torch.where(a < 1.0 / s2, 0.5 * s2 * diff.square(), a - 0.5 / s2)
+    if ins.get("OutsideWeight"):
+        loss = loss * ins["OutsideWeight"][0]
+    return {"Out": [loss.sum(dim=tuple(range(1, loss.dim())))[..., None]],
+            "Diff": [diff]}
+
+
+@register_op("log_loss")
+def _log_loss(ctx, ins, attrs):
+    p, y = ins["Predicted"][0], ins["Labels"][0]
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": [-y * torch.log(p + eps)
+                     - (1 - y) * torch.log(1 - p + eps)]}
+
+
+@register_op("hinge_loss")
+def _hinge_loss(ctx, ins, attrs):
+    logits, labels = ins["Logits"][0], ins["Labels"][0]
+    return {"Loss": [torch.clamp_min(1.0 - (2 * labels - 1) * logits, 0.0)]}
+
+
+@register_op("rank_loss")
+def _rank_loss(ctx, ins, attrs):
+    d = ins["Left"][0] - ins["Right"][0]
+    return {"Out": [torch.log1p(torch.exp(d)) - ins["Label"][0] * d]}
+
+
+@register_op("margin_rank_loss")
+def _margin_rank_loss(ctx, ins, attrs):
+    x1 = ins["X1"][0]
+    out = torch.clamp_min(-ins["Label"][0] * (x1 - ins["X2"][0])
+                          + attrs.get("margin", 0.0), 0.0)
+    return {"Out": [out], "Activated": [(out > 0).to(x1.dtype)]}
+
+
+@register_op("mse_loss")
+def _mse_loss(ctx, ins, attrs):
+    return {"Out": [(ins["X"][0] - ins["Y"][0]).square()]}
+
+
+@register_op("bilinear_tensor_product")
+def _bilinear_tensor_product(ctx, ins, attrs):
+    # out[b, o] = x[b] W[o] y[b]^T, W [out, dx, dy]
+    out = torch.einsum("bi,oij,bj->bo", ins["X"][0], ins["Weight"][0],
+                       ins["Y"][0])
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0]
+    return {"Out": [out]}
+
+
+def resize_weights(n_in, n_out):
+    """[n_out, n_in] float64 weights of jax.image.resize's "bilinear"
+    (jax/_src/image/scale.py `compute_weight_mat`: a triangle kernel,
+    widened by the scale when shrinking, i.e. antialiased; each row
+    normalized over the input samples it covers; rows whose sample point
+    falls outside the input zero)."""
+    scale = n_out / n_in
+    kernel_scale = max(1.0 / scale, 1.0)
+    sample = (np.arange(n_out) + 0.5) / scale - 0.5
+    x = np.abs(sample[:, None] - np.arange(n_in)[None, :]) / kernel_scale
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[:, None], w, 0.0)
+
+
+@register_op("bilinear_interp")
+def _bilinear_interp(ctx, ins, attrs):
+    """≙ jax.image.resize(x, (N, C, out_h, out_w), "bilinear") on NCHW: one
+    weight matrix a spatial axis, built once per plan, then two
+    contractions (jax's resize contracts the same matrices)."""
+    x = ins["X"][0]
+    oh, ow = attrs["out_h"], attrs["out_w"]
+    wh, ww = ctx.constant(lambda: tuple(
+        torch.from_numpy(resize_weights(n, m)).to(torch.float32).to(
+            x.device) for n, m in ((x.shape[2], oh), (x.shape[3], ow))))
+    out = torch.einsum("nchw,ph,qw->ncpq", x.float(), wh, ww)
+    return {"Out": [out.to(x.dtype)]}
+
+
+@register_op("im2sequence")
+def _im2sequence(ctx, ins, attrs):
+    """≙ im2sequence_op: every kh x kw patch (VALID, at the strides) as a
+    row, [N * OH * OW, C * kh * kw], channel-major within a row as
+    conv_general_dilated_patches orders it."""
+    x = ins["X"][0]
+    kh, kw = attrs["kernels"]
+    sh, sw = attrs.get("strides", [1, 1])
+    cols = F.unfold(x, (kh, kw), stride=(sh, sw))     # [N, C*kh*kw, L]
+    return {"Out": [cols.transpose(1, 2).reshape(-1, cols.shape[1])]}
+
+
+@register_op("grid_sampler")
+def _grid_sampler(ctx, ins, attrs):
+    """Bilinear sampling of X [N, C, H, W] at Grid [N, H', W', 2] in
+    [-1, 1] (corners aligned), neighbours outside clamped to the edge."""
+    x, grid = ins["X"][0], ins["Grid"][0]
+    n, c, h, w = x.shape
+    gx = (grid[..., 0] + 1) * (w - 1) / 2
+    gy = (grid[..., 1] + 1) * (h - 1) / 2
+    x0 = torch.floor(gx).to(torch.int32)
+    y0 = torch.floor(gy).to(torch.int32)
+    x1, y1 = x0 + 1, y0 + 1
+    wx, wy = gx - x0, gy - y0
+    bidx = torch.arange(n, device=x.device)[:, None, None]
+
+    def sample(xi, yi):
+        xi = xi.clamp(0, w - 1).to(torch.long)
+        yi = yi.clamp(0, h - 1).to(torch.long)
+        return x[bidx, :, yi, xi]                     # [N, H', W', C]
+
+    val = (sample(x0, y0) * ((1 - wx) * (1 - wy))[..., None]
+           + sample(x1, y0) * (wx * (1 - wy))[..., None]
+           + sample(x0, y1) * ((1 - wx) * wy)[..., None]
+           + sample(x1, y1) * (wx * wy)[..., None])
+    return {"Output": [val.permute(0, 3, 1, 2)]}
+
+
+@register_op("spp")
+def _spp(ctx, ins, attrs):
+    """≙ spp_op.cc: max (or mean) pooling at 1x1, 2x2, ... 2^(L-1) grids,
+    the bins flattened and concatenated, [N, C * sum(4^l)]. Bins are
+    nearly even and never empty (they overlap where the extent is below
+    the bin count), as the JAX package cuts them."""
+    x = ins["X"][0]
+    pool = attrs.get("pooling_type", "max")
+    n, c, h, w = x.shape
+
+    def bounds(extent, bins):
+        out = []
+        for i in range(bins):
+            lo = min(extent - 1, extent * i // bins)
+            hi = max(lo + 1, -(-extent * (i + 1) // bins))
+            out.append((lo, min(hi, extent)))
+        return out
+
+    outs = []
+    for lvl in range(attrs.get("pyramid_height", 3)):
+        for h0, h1 in bounds(h, 2 ** lvl):
+            for w0, w1 in bounds(w, 2 ** lvl):
+                sl = x[:, :, h0:h1, w0:w1]
+                outs.append(sl.amax(dim=(2, 3)) if pool == "max"
+                            else sl.mean(dim=(2, 3)))
+    return {"Out": [torch.cat(outs, dim=1)]}

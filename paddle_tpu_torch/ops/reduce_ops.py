@@ -3,8 +3,11 @@
 ≙ paddle_tpu/ops/reduce_ops.py, trimmed to `reduce_sum` / `_mean` /
 `_max` / `_min` / `_prod`, `mean` (the training loss), `sum` (the n-ary
 add a multi-input `fc` emits and the regularizers' grad + decay),
-`arg_max` (the decode tick's greedy sample), `top_k` (the classifiers'
-`accuracy`) and `squared_l2_norm` (the global-norm clip).
+`arg_max` (the decode tick's greedy sample) and `arg_min`, `top_k` (the
+classifiers' `accuracy`), `argsort`, `squared_l2_norm` (the global-norm
+clip), `cos_sim`, `squared_l2_distance` and `norm`. Ties go to the lower
+index everywhere, as in jax: argmax / argmin take the first extreme, and
+argsort and top_k sort stably.
 """
 
 from __future__ import annotations
@@ -89,6 +92,21 @@ def _arg_max(ctx, ins, attrs):
                     .to(torch.int64)]}
 
 
+@register_op("arg_min")
+def _arg_min(ctx, ins, attrs):
+    # ties resolve to the first minimal index, as jnp.argmin
+    return {"Out": [torch.argmin(ins["X"][0], dim=attrs.get("axis", -1))
+                    .to(torch.int64)]}
+
+
+@register_op("argsort")
+def _argsort(ctx, ins, attrs):
+    # jnp.argsort is stable: equal values keep their order
+    vals, idx = torch.sort(ins["X"][0], dim=attrs.get("axis", -1),
+                           stable=True)
+    return {"Out": [vals], "Indices": [idx.to(torch.int64)]}
+
+
 def top_k_lower_first(x, k):
     """≙ jax.lax.top_k over the last axis: values in descending order, the
     lower index first among equal values (torch.topk promises no order
@@ -108,3 +126,28 @@ def _top_k(ctx, ins, attrs):
 def _squared_l2_norm(ctx, ins, attrs):
     # Σ x², shape [1] (the global-norm clip sums these over parameters)
     return {"Out": [ins["X"][0].square().sum().reshape(1)]}
+
+
+@register_op("cos_sim")
+def _cos_sim(ctx, ins, attrs):
+    # row-wise cosine over the last dim; Y may be one row, broadcast
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = x.square().sum(dim=-1, keepdim=True).sqrt()
+    yn = y.square().sum(dim=-1, keepdim=True).sqrt()
+    out = (x * y).sum(dim=-1, keepdim=True) / torch.clamp_min(xn * yn, 1e-12)
+    return {"Out": [out], "XNorm": [xn], "YNorm": [yn]}
+
+
+@register_op("squared_l2_distance")
+def _squared_l2_distance(ctx, ins, attrs):
+    sub = ins["X"][0] - ins["Y"][0]
+    return {"Out": [sub.square().sum(dim=-1, keepdim=True)],
+            "sub_result": [sub]}
+
+
+@register_op("norm")
+def _norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    norm = (x.square().sum(dim=attrs.get("axis", -1), keepdim=True)
+            + attrs.get("epsilon", 1e-10)).sqrt()
+    return {"Out": [x / norm], "Norm": [norm]}

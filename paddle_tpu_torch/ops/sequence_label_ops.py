@@ -1,15 +1,15 @@
-"""Sequence-labelling ops: the linear-chain CRF, its Viterbi decoding and
-chunk evaluation.
+"""Sequence-labelling ops: the CTC loss and alignment, the linear-chain
+CRF, its Viterbi decoding and chunk evaluation.
 
-≙ paddle_tpu/ops/sequence_label_ops.py (reference
-operators/linear_chain_crf_op.*, crf_decoding_op.*, chunk_eval_op.*),
-without CTC (`warpctc` / `ctc_align` go with the OCR model). A batch is
+≙ paddle_tpu/ops/sequence_label_ops.py (reference operators/warpctc_op.*,
+ctc_align_op.*, linear_chain_crf_op.*, crf_decoding_op.*,
+chunk_eval_op.*). A batch is
 dense-padded [B, T, ...] with a length vector [B], as everywhere in the
 port. The dynamic programs are Python loops over the static T on torch
 ops, masked past each row's length on the device, so no length is read
-on the host; autograd differentiates the CRF's forward algorithm, as jax
-autodiff does in the JAX package (the reference ships a hand-derived
-backward).
+on the host; autograd differentiates the CTC and CRF forward algorithms, as jax
+autodiff does in the JAX package (the reference ships hand-derived
+backwards).
 
 Indexing follows the JAX package's modes: a label read through
 `take_along_axis` outside [0, D) gives NaN (jax's fill mode), and a label
@@ -22,7 +22,102 @@ from __future__ import annotations
 import torch
 
 from ..framework.registry import register_op
-from .tensor_ops import index_in_range
+from .tensor_ops import index_in_range, take_along
+
+# log-space zero of the CTC forward algorithm: an alignment the label
+# cannot have (a label longer than the input allows) gives a loss of about
+# 1e30 with finite gradients, not inf or NaN (torch's ctc_loss gives inf)
+_NEG_INF = -1e30
+
+
+def _logsumexp2(a, b):
+    m = torch.maximum(a, b)
+    dead = m <= _NEG_INF / 2
+    m_safe = torch.where(dead, 0.0, m)
+    s = torch.exp(a - m_safe) + torch.exp(b - m_safe)
+    # double where: the dead branch must never take log(0), whose gradient
+    # inf * 0 = NaN would reach the inputs though `where` drops the value
+    out = m_safe + torch.log(torch.where(dead, 1.0, s))
+    return torch.where(dead, _NEG_INF, out)
+
+
+def _shift(a, k):
+    """a [B, S] moved k states right, the first k filled with _NEG_INF."""
+    return torch.cat([torch.full_like(a[:, :k], _NEG_INF), a[:, :-k]], 1)
+
+
+@register_op("warpctc")
+def _warpctc(ctx, ins, attrs):
+    """CTC loss (≙ warpctc_op.cc, which wraps libwarpctc). Logits [B, T, C]
+    unnormalized, Label [B, L], LogitsLength [B], LabelLength [B]; attrs
+    `blank` (default 0) and `norm_by_times`. Loss [B, 1] = -log p(label |
+    logits) by the log-space forward algorithm over the extended label
+    (blank, l1, blank, ..., lL, blank), a loop over T on the device (a row
+    past its length keeps its state); autograd gives the soft-alignment
+    gradient warpctc computes by hand."""
+    logits = ins["Logits"][0]
+    label = ins["Label"][0].to(torch.long)
+    logit_len = ins["LogitsLength"][0].reshape(-1).to(torch.long)
+    label_len = ins["LabelLength"][0].reshape(-1).to(torch.long)
+    blank = attrs.get("blank", 0)
+    b, t, _ = logits.shape
+    s = 2 * label.shape[1] + 1
+    dev = logits.device
+    logp = torch.log_softmax(logits, dim=-1)
+    ext = torch.full((b, s), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = label
+    ext_m2 = torch.cat([torch.full_like(ext[:, :2], blank), ext[:, :-2]], 1)
+    allow_skip = (torch.arange(s, device=dev)[None] >= 2) & \
+        (ext != blank) & (ext != ext_m2)
+    # every step's emissions in one gather (NaN where a label is out of
+    # range, as take_along_axis fills)
+    emit = take_along(logp, ext[:, None, :].expand(b, t, s), 2)
+    neg = torch.full((b, 1), _NEG_INF, dtype=logp.dtype, device=dev)
+    first = [emit[:, 0, :1]]
+    if s > 1:
+        first.append(torch.where(label_len[:, None] > 0, emit[:, 0, 1:2],
+                                 neg))
+    alpha = torch.cat(first + [neg.expand(b, s - len(first))], 1)
+    for step in range(1, t):
+        a2 = torch.where(allow_skip, _shift(alpha, 2), _NEG_INF)
+        new = _logsumexp2(_logsumexp2(alpha, _shift(alpha, 1)), a2) \
+            + emit[:, step]
+        alpha = torch.where((step < logit_len)[:, None], new, alpha)
+    s_end = 2 * label_len                         # the final blank
+    last_blank = take_along(alpha, s_end[:, None], 1)[:, 0]
+    last_label = torch.where(
+        label_len > 0,
+        take_along(alpha, torch.clamp_min(s_end - 1, 0)[:, None], 1)[:, 0],
+        _NEG_INF)
+    loss = -_logsumexp2(last_blank, last_label)
+    if attrs.get("norm_by_times"):
+        loss = loss / torch.clamp_min(logit_len.to(loss.dtype), 1)
+    return {"Loss": [loss.reshape(-1, 1)]}
+
+
+@register_op("ctc_align")
+def _ctc_align(ctx, ins, attrs):
+    """≙ ctc_align_op.cc: repeated tokens merged, then blanks dropped.
+    Input [B, T] + InputLength [B]; Output [B, T] left-packed and padded
+    with `padding_value`, OutputLength [B, 1]."""
+    x = ins["Input"][0]
+    xl = x.to(torch.long)
+    xlen = ins["InputLength"][0].reshape(-1).to(torch.long)
+    blank = attrs.get("blank", 0)
+    b, t = x.shape
+    dev = x.device
+    t_idx = torch.arange(t, device=dev)[None]
+    prev = torch.cat([torch.full_like(xl[:, :1], -1), xl[:, :-1]], 1)
+    keep = (t_idx < xlen[:, None]) & (xl != blank) & (xl != prev)
+    pos = torch.cumsum(keep.to(torch.long), 1) - 1
+    out_len = torch.where(keep, pos + 1, 0).amax(1)
+    # each kept token to its packed slot, the dropped ones to slot t
+    out = torch.zeros((b, t + 1), dtype=torch.long, device=dev).scatter(
+        1, torch.where(keep, pos, t), xl)[:, :t]
+    out = torch.where(t_idx < out_len[:, None], out,
+                      attrs.get("padding_value", 0))
+    return {"Output": [out.to(x.dtype)],
+            "OutputLength": [out_len.reshape(-1, 1)]}
 
 
 def _crf_unpack(transition):

@@ -2,17 +2,19 @@
 
 ≙ paddle_tpu/ops/tensor_ops.py (reference operators/{reshape,transpose,
 unsqueeze,concat,slice,gather,cast,fill_constant,assign,one_hot,
-lookup_table,increment}_op.cc), trimmed to the serving, training and
-recurrent slices, plus the KV-cache write `cache_write`, the
-learning-rate schedules' `piecewise_decay`, the sparse-table helpers
-`split_ids` / `merge_ids` / `lookup_sparse_table`, the beam decoder's
-`expand`, and `assign` with the tensor arrays of the control-flow
-builders.
+lookup_table,increment,split,scatter,stack,flatten,pad,shape,reverse,
+multiplex,crop,label_smooth,print,cumsum}_op.cc), plus the KV-cache
+write `cache_write`, the learning-rate schedules' `piecewise_decay`, the
+sparse-table helpers `split_ids` / `merge_ids` / `lookup_sparse_table`,
+the beam decoder's `expand`, and `assign` with the tensor arrays of the
+control-flow builders.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.dtypes import convert_dtype
 from ..core.enforce import InvalidArgumentError, enforce
@@ -55,6 +57,13 @@ def take_rows(x, index):
     index, filled = index_in_range(index, x.shape[0])
     filled = filled.reshape(filled.shape + (1,) * (x.dim() - 1))
     return x[index].masked_fill(filled, fill_value(x.dtype))
+
+
+def take_along(x, index, dim):
+    """≙ jnp.take_along_axis(x, index, dim): entries of x picked along
+    `dim`, out-of-range ones filled as jax fills them."""
+    index, filled = index_in_range(index, x.shape[dim])
+    return x.gather(dim, index).masked_fill(filled, fill_value(x.dtype))
 
 
 @register_op("reshape")
@@ -510,3 +519,172 @@ def _array_length(ctx, ins, attrs):
     x = ins["X"][0]
     return {"Out": [torch.full((), x.shape[0], dtype=torch.int64,
                                device=x.device)]}
+
+
+# --- the rest of the tensor library -------------------------------------
+
+
+@register_op("split")
+def _split(ctx, ins, attrs):
+    """≙ jnp.split: at the running sums of `sections` (the last piece runs
+    to the end of the axis, whatever the last section says), or into
+    `num` equal pieces; a `num` that does not divide the axis raises, as
+    jnp.split does."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", 0)
+    if attrs.get("sections"):
+        cuts = [int(c) for c in np.cumsum(attrs["sections"])[:-1]]
+        return {"Out": list(torch.tensor_split(x, cuts, dim=axis))}
+    num = attrs["num"]
+    enforce(x.shape[axis] % num == 0,
+            "split: axis %d of size %d does not divide into %d equal "
+            "pieces", axis, x.shape[axis], num, exc=InvalidArgumentError)
+    return {"Out": list(torch.chunk(x, num, dim=axis))}
+
+
+@register_op("scatter")
+def _scatter(ctx, ins, attrs):
+    """≙ x.at[Ids].set(Updates) (or .add when not `overwrite`): an index
+    in [-n, 0) counts from the end, any other outside [0, n) is dropped
+    (jax's scatter mode), by writing it to a spare row cut off after."""
+    x, index, updates = ins["X"][0], ins["Ids"][0], ins["Updates"][0]
+    n = x.shape[0]
+    index = index.to(torch.long)
+    index = torch.where(index < 0, index + n, index)
+    index = torch.where((index < 0) | (index >= n), n, index)
+    spare = torch.cat([x, x[:1]], dim=0)
+    out = torch.index_put(spare, (index,), updates.to(x.dtype),
+                          accumulate=not attrs.get("overwrite", True))
+    return {"Out": [out[:n]]}
+
+
+@register_op("stack")
+def _stack(ctx, ins, attrs):
+    return {"Y": [torch.stack(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register_op("unstack")
+def _unstack(ctx, ins, attrs):
+    return {"Y": list(torch.unbind(ins["X"][0], dim=attrs.get("axis", 0)))}
+
+
+@register_op("flatten")
+def _flatten(ctx, ins, attrs):
+    # [prod(dims before axis), prod(the rest)]
+    x = ins["X"][0]
+    ax = attrs.get("axis", 1)
+    lead = int(np.prod(x.shape[:ax])) if ax > 0 else 1
+    return {"Out": [x.reshape(lead, -1)]}
+
+
+@register_op("expand_as")
+def _expand_as(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].expand(ins["Y"][0].shape)]}
+
+
+def _pad_to(x, pairs, value):
+    # F.pad takes (before, after) pairs from the last dim backwards
+    flat = [p for pair in reversed(pairs) for p in pair]
+    return F.pad(x, flat, value=value)
+
+
+@register_op("pad")
+def _pad(ctx, ins, attrs):
+    # paddings flat: [before0, after0, before1, after1, ...]
+    x = ins["X"][0]
+    p = attrs["paddings"]
+    return {"Out": [_pad_to(x, [(p[2 * i], p[2 * i + 1])
+                                for i in range(x.dim())],
+                            attrs.get("pad_value", 0.0))]}
+
+
+@register_op("pad_constant_like")
+def _pad_constant_like(ctx, ins, attrs):
+    # Y padded after each dim to X's shape
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": [_pad_to(y, [(0, xd - yd)
+                                for xd, yd in zip(x.shape, y.shape)],
+                            attrs.get("pad_value", 0.0))]}
+
+
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ctx, ins, attrs):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}
+
+
+@register_op("shape")
+def _shape(ctx, ins, attrs):
+    # built once per plan: the shape is static, and a tensor made from a
+    # host list waits for the stream on a card
+    x = ins["Input"][0]
+    return {"Out": [ctx.constant(lambda: torch.tensor(
+        list(x.shape), dtype=torch.int64, device=x.device))]}
+
+
+@register_op("reverse")
+def _reverse(ctx, ins, attrs):
+    axis = attrs["axis"]
+    axis = [axis] if isinstance(axis, int) else list(axis)
+    return {"Out": [torch.flip(ins["X"][0], dims=axis)]}
+
+
+@register_op("multiplex")
+def _multiplex(ctx, ins, attrs):
+    """Row i of candidate Ids[i] (≙ jax's indexing: an id in [-n, 0) counts
+    from the end, any other is clamped into range)."""
+    stacked = torch.stack(ins["X"], dim=0)     # [n_candidates, batch, ...]
+    ids = index_in_range(ins["Ids"][0].reshape(-1), stacked.shape[0])[0]
+    rows = torch.arange(stacked.shape[1], device=stacked.device)
+    return {"Out": [stacked[ids, rows]]}
+
+
+@register_op("crop")
+def _crop(ctx, ins, attrs):
+    x = ins["X"][0]
+    idx = tuple(slice(o, o + s)
+                for o, s in zip(attrs["offsets"], attrs["shape"]))
+    return {"Out": [x[idx]]}
+
+
+@register_op("label_smooth")
+def _label_smooth(ctx, ins, attrs):
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 0.0)
+    if ins.get("PriorDist"):
+        return {"Out": [(1 - eps) * x + eps * ins["PriorDist"][0]]}
+    return {"Out": [(1 - eps) * x + eps / x.shape[-1]]}
+
+
+@register_op("print")
+def _print(ctx, ins, attrs):
+    """≙ print_op, a debugging dump: it reads the tensor on the host (a
+    sync on a card) and lies on no training or serving path."""
+    x = ins["In"][0]
+    print(f"{attrs.get('message', 'print_op')}: {x.detach().cpu().numpy()}",
+          flush=True)
+    return {"Out": [x]}
+
+
+@register_op("arange")
+def _arange(ctx, ins, attrs):
+    return {"Out": [torch.arange(
+        attrs["start"], attrs["end"], attrs["step"],
+        dtype=convert_dtype(attrs.get("dtype", "int64")),
+        device=ctx.device)]}
+
+
+@register_op("cumsum")
+def _cumsum(ctx, ins, attrs):
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    if attrs.get("reverse", False):
+        x = torch.flip(x, dims=[axis])
+    # jnp keeps an integer type's width (torch would widen to int64)
+    out = torch.cumsum(x, dim=axis, dtype=None if x.is_floating_point()
+                       else x.dtype)
+    if attrs.get("exclusive", False):
+        out = torch.cat([torch.zeros_like(out.narrow(axis, 0, 1)),
+                         out.narrow(axis, 0, out.shape[axis] - 1)], dim=axis)
+    if attrs.get("reverse", False):
+        out = torch.flip(out, dims=[axis])
+    return {"Out": [out]}

@@ -406,8 +406,42 @@ def test_prefetcher_defaults_to_the_card():
 @pytest.mark.parametrize("name,args", [
     ("glu", (None,)), ("scaled_dot_product_attention", (None, None, None))])
 def test_nets_not_ported_raise_naming_the_roadmap_item(name, args):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(ptt.nets, name)(*args)
+    """These nets once raised naming their ROADMAP item, waiting on
+    `split`; now each builds the JAX package's composite: the same
+    program, and its output and gradients from the same parameters at
+    1e-5."""
+    progs = []
+    for pkg in (pt, ptt):
+        main, start = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, start), pkg.unique_name.guard():
+            x = pkg.layers.data("x", shape=[4, 8], stop_gradient=False)
+            h = pkg.layers.fc(x, size=8, num_flatten_dims=2)
+            if name == "glu":
+                out = pkg.nets.glu(h, dim=-1)
+            else:
+                out = pkg.nets.scaled_dot_product_attention(h, x, x,
+                                                            num_heads=2)
+            loss = pkg.layers.mean(out)
+        progs.append((main, start, out.name, loss.name))
+    (jmain, jstart, out, loss), (tmain, _, _, _) = progs
+    assert tmain.to_json() == jmain.to_json()
+    jscope = pt.Scope()
+    pt.Executor().run(jstart, scope=jscope)
+    state = {n: np.asarray(jscope.get(n)) for n in jscope.local_var_names()}
+    tscope = ptt.load_numpy_params(state, ptt.Scope(), ptt.CPUPlace())
+    feed = {"x": np.random.RandomState(6).randn(3, 4, 8).astype("float32")}
+    fetch = [out, loss] + [p.name + "@GRAD" for p in tmain.all_parameters()]
+    with pt.program_guard(jmain, jstart):
+        pt.append_backward(jmain.global_block().var(loss))
+    with ptt.program_guard(tmain):
+        ptt.append_backward(tmain.global_block().var(loss))
+    jout = pt.Executor().run(jmain, feed=feed, fetch_list=fetch,
+                             scope=jscope)
+    tout = ptt.Executor(ptt.CPUPlace()).run(tmain, feed=feed,
+                                            fetch_list=fetch, scope=tscope)
+    for n, a, b in zip(fetch, tout, jout):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-6,
+                                   err_msg=n)
 
 
 @pytest.mark.parametrize("pool_type", ["max", "average"])

@@ -556,6 +556,222 @@ CASES = [
 ]
 
 
+def u01(*shape, lo=0.05, hi=0.95):
+    return R.uniform(lo, hi, shape).astype("float32")
+
+
+def i64(*vals, shape=None):
+    a = np.asarray(vals, "int64")
+    return a.reshape(shape) if shape else a
+
+
+# the rest of the op library: activations, tensor, reduce, loss, image,
+# metric and fake-quantize ops, with ties, out-of-range indices, negative
+# divisors and empty-ish edges beside random draws
+_ACT_X = np.concatenate([f32(3, 7) * 3, np.float32(
+    [[0.5, 1.5, 2.5, -0.5, -1.5, 0.0, 30.0]])], 0)
+CASES += [
+    (f"act_{t}", t, {"X": [_ACT_X]}, {}, {}, {})
+    for t in ("abs", "sin", "log", "square", "round", "rsqrt", "relu6",
+              "softplus", "softsign", "gelu", "silu", "logsigmoid",
+              "tanh_shrink", "leaky_relu", "elu", "hard_sigmoid",
+              "hard_shrink", "soft_shrink", "thresholded_relu", "swish",
+              "brelu")
+] + [
+    ("elu_alpha", "elu", {"X": [_ACT_X]}, {"alpha": 0.7}, {}, {}),
+    ("leaky_relu_alpha", "leaky_relu", {"X": [_ACT_X]}, {"alpha": 0.3},
+     {}, {}),
+    ("swish_beta", "swish", {"X": [_ACT_X]}, {"beta": 1.5}, {}, {}),
+    ("brelu_range", "brelu", {"X": [_ACT_X]}, {"t_min": -0.5, "t_max": 0.8},
+     {}, {}),
+    ("soft_shrink_lambda", "soft_shrink", {"X": [_ACT_X]}, {"lambda": 1.2},
+     {}, {}),
+    ("prelu_all", "prelu", {"X": [f32(2, 3, 4)], "Alpha": [f32(1)]},
+     {"mode": "all"}, {}, {}),
+    ("prelu_channel", "prelu", {"X": [f32(2, 3, 4, 4)], "Alpha": [f32(3)]},
+     {"mode": "channel"}, {}, {}),
+    ("prelu_element", "prelu", {"X": [f32(2, 3, 4)], "Alpha": [f32(3, 4)]},
+     {"mode": "element"}, {}, {}),
+    ("maxout", "maxout", {"X": [f32(2, 4, 3, 3)]}, {"groups": 2}, {}, {}),
+    ("mod_negative_f32", "elementwise_mod",
+     {"X": [np.float32([[-7.5, 7.5, -3.0, 3.0, 0.0, 5.0]])],
+      "Y": [np.float32([[2.0, -2.0, -2.0, 2.0, -3.0, 2.5]])]}, {}, {}, {}),
+    ("mod_negative_int", "elementwise_mod",
+     {"X": [np.int32([[-7, 7, -3, 3, 0, 6]])],
+      "Y": [np.int32([[2, -2, -2, 2, -3, 3]])]}, {}, {}, {}),
+    ("floordiv_f32", "elementwise_floordiv",
+     {"X": [np.float32([[-7.5, 7.5, -3.0, 3.0, 1.0]])],
+      "Y": [np.float32([[2.0, -2.0, -2.0, 2.0, 3.0]])]}, {}, {}, {}),
+    ("floordiv_int", "elementwise_floordiv",
+     {"X": [np.int32([[-7, 7, -3, 3, 1]])],
+      "Y": [np.int32([[2, -2, -2, 2, 3]])]}, {}, {}, {}),
+    ("isfinite_all", "isfinite", {"X": [f32(3, 2), f32(4)]}, {}, {}, {}),
+    ("isfinite_inf", "isfinite",
+     {"X": [f32(3, 2), np.float32([1.0, np.inf])]}, {}, {}, {}),
+    ("isfinite_nan", "isfinite", {"X": [np.float32([np.nan, 0.0])]}, {},
+     {}, {}),
+    ("split_num", "split", {"X": [f32(2, 6, 3)]}, {"num": 3, "axis": 1},
+     {}, {}),
+    ("split_sections", "split", {"X": [f32(2, 6, 3)]},
+     {"num": 0, "sections": [2, 1, 3], "axis": 1}, {}, {}),
+    ("split_sections_short", "split", {"X": [f32(6, 2)]},
+     {"num": 0, "sections": [2, 3], "axis": 0}, {}, {}),
+    ("scatter_set_out_of_range", "scatter",
+     {"X": [f32(5, 3)], "Ids": [i64(3, -1, 0, 7)], "Updates": [f32(4, 3)]},
+     {"overwrite": True}, {}, {}),
+    ("scatter_add_repeats", "scatter",
+     {"X": [f32(5, 3)], "Ids": [i64(1, 1, -5, 9)], "Updates": [f32(4, 3)]},
+     {"overwrite": False}, {}, {}),
+    ("stack_axis1", "stack", {"X": [f32(2, 3), f32(2, 3), f32(2, 3)]},
+     {"axis": 1}, {}, {}),
+    ("unstack_axis1", "unstack", {"X": [f32(2, 3, 4)]}, {"axis": 1}, {},
+     {}),
+    ("flatten_axis2", "flatten", {"X": [f32(2, 3, 4, 5)]}, {"axis": 2}, {},
+     {}),
+    ("flatten_axis0", "flatten", {"X": [f32(2, 3, 4)]}, {"axis": 0}, {},
+     {}),
+    ("expand_as", "expand_as", {"X": [f32(1, 3)], "Y": [f32(4, 3)]}, {},
+     {}, {}),
+    ("pad", "pad", {"X": [f32(2, 3)]},
+     {"paddings": [1, 0, 0, 2], "pad_value": 0.5}, {}, {}),
+    ("pad_constant_like", "pad_constant_like",
+     {"X": [f32(4, 5)], "Y": [f32(2, 3)]}, {"pad_value": -1.0}, {}, {}),
+    ("fill_zeros_like", "fill_zeros_like", {"X": [f32(2, 3)]}, {}, {}, {}),
+    ("shape", "shape", {"Input": [f32(2, 3, 4)]}, {}, {}, {}),
+    ("reverse", "reverse", {"X": [f32(2, 3, 4)]}, {"axis": [0, 2]}, {},
+     {}),
+    ("multiplex", "multiplex",
+     {"X": [f32(4, 2), f32(4, 2), f32(4, 2)],
+      "Ids": [np.int32([[2], [0], [-1], [5]])]}, {}, {}, {}),
+    ("crop", "crop", {"X": [f32(4, 5)]},
+     {"offsets": [1, 0], "shape": [2, 3]}, {}, {}),
+    ("label_smooth", "label_smooth", {"X": [u01(3, 4)]}, {"epsilon": 0.1},
+     {}, {}),
+    ("label_smooth_prior", "label_smooth",
+     {"X": [u01(3, 4)], "PriorDist": [u01(1, 4)]}, {"epsilon": 0.2}, {},
+     {}),
+    ("print", "print", {"In": [f32(2, 2)]}, {"message": "x"}, {}, {}),
+    ("arange_int", "arange", {},
+     {"start": 2, "end": 11, "step": 3, "dtype": "int64"}, {}, {}),
+    ("arange_float", "arange", {},
+     {"start": 0.5, "end": 3.0, "step": 0.5, "dtype": "float32"}, {}, {}),
+    ("cumsum", "cumsum", {"X": [f32(3, 4)]}, {"axis": 1}, {}, {}),
+    ("cumsum_exclusive_reverse", "cumsum", {"X": [f32(3, 4)]},
+     {"axis": 0, "exclusive": True, "reverse": True}, {}, {}),
+    ("cumsum_int", "cumsum", {"X": [np.int32([[1, 2, 3], [4, 5, 6]])]},
+     {"axis": -1, "exclusive": True}, {}, {}),
+    ("arg_min_ties", "arg_min",
+     {"X": [np.float32([[1, 0, 0, 2], [3, 3, 3, 3], [5, -1, 4, -1]])]},
+     {"axis": 1}, {}, {}),
+    ("argsort_ties", "argsort",
+     {"X": [np.float32([[2, 1, 2, 1, 0, 1], [0, 0, 0, 0, 0, 0]])]},
+     {"axis": -1}, {}, {}),
+    ("argsort_axis0", "argsort",
+     {"X": [np.float32([[2, 1], [1, 1], [2, 0]])]}, {"axis": 0}, {}, {}),
+    ("cos_sim_rows", "cos_sim", {"X": [f32(4, 5)], "Y": [f32(4, 5)]}, {},
+     {}, {}),
+    ("cos_sim_one_row", "cos_sim", {"X": [f32(4, 5)], "Y": [f32(1, 5)]},
+     {}, {}, {}),
+    ("squared_l2_distance", "squared_l2_distance",
+     {"X": [f32(4, 5)], "Y": [f32(4, 5)]}, {}, {}, {}),
+    ("norm", "norm", {"X": [f32(3, 4, 2)]}, {"axis": 1}, {}, {}),
+    ("fake_quantize_abs_max", "fake_quantize_abs_max", {"X": [f32(4, 5)]},
+     {"bit_length": 8}, {}, {}),
+    ("fake_quantize_abs_max_4bit", "fake_quantize_abs_max",
+     {"X": [f32(4, 5)]}, {"bit_length": 4}, {}, {}),
+    ("fake_dequantize_max_abs", "fake_dequantize_max_abs",
+     {"X": [np.float32([-127, -3, 0, 5, 127])],
+      "Scale": [np.float32([0.25])]}, {"bit_length": 8}, {}, {}),
+    ("fake_quantize_moving_average", "fake_quantize_moving_average_abs_max",
+     {"X": [f32(4, 5)], "InScale": [np.float32([1.5])]},
+     {"bit_length": 8, "moving_rate": 0.9}, {}, {}),
+    ("cross_entropy_hard", "cross_entropy",
+     {"X": [u01(5, 4)], "Label": [i64(0, 3, -100, 7, -1, shape=(5, 1))]},
+     {"soft_label": False, "ignore_index": -100}, {}, {}),
+    ("cross_entropy_soft", "cross_entropy",
+     {"X": [u01(5, 4)], "Label": [u01(5, 4)]}, {"soft_label": True}, {},
+     {}),
+    ("lrn", "lrn", {"X": [f32(2, 6, 3, 3)]},
+     {"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75}, {}, {}),
+    ("lrn_n3", "lrn", {"X": [f32(1, 2, 2, 3)]},
+     {"n": 3, "k": 1.0, "alpha": 0.5, "beta": 0.5}, {}, {}),
+    ("l2_normalize", "l2_normalize", {"X": [f32(3, 4)]},
+     {"axis": 1, "epsilon": 1e-12}, {}, {}),
+    ("huber_loss", "huber_loss", {"X": [f32(5, 1)], "Y": [f32(5, 1)]},
+     {"delta": 0.8}, {}, {}),
+    ("smooth_l1_loss", "smooth_l1_loss",
+     {"X": [f32(3, 4)], "Y": [f32(3, 4)], "InsideWeight": [u01(3, 4)],
+      "OutsideWeight": [u01(3, 4)]}, {"sigma": 2.0}, {}, {}),
+    ("smooth_l1_loss_plain", "smooth_l1_loss",
+     {"X": [f32(3, 2, 2)], "Y": [f32(3, 2, 2)]}, {}, {}, {}),
+    ("log_loss", "log_loss", {"Predicted": [u01(4, 1)],
+                              "Labels": [np.float32([[0], [1], [1], [0]])]},
+     {"epsilon": 1e-4}, {}, {}),
+    ("hinge_loss", "hinge_loss",
+     {"Logits": [f32(4, 1)], "Labels": [np.float32([[0], [1], [1], [0]])]},
+     {}, {}, {}),
+    ("rank_loss", "rank_loss",
+     {"Label": [np.float32([[0], [1], [1]])], "Left": [f32(3, 1)],
+      "Right": [f32(3, 1)]}, {}, {}, {}),
+    ("margin_rank_loss", "margin_rank_loss",
+     {"Label": [np.float32([[1], [-1], [1]])], "X1": [f32(3, 1)],
+      "X2": [f32(3, 1)]}, {"margin": 0.1}, {}, {}),
+    ("mse_loss", "mse_loss", {"X": [f32(3, 2)], "Y": [f32(3, 2)]}, {}, {},
+     {}),
+    ("bilinear_tensor_product", "bilinear_tensor_product",
+     {"X": [f32(3, 4)], "Y": [f32(3, 5)], "Weight": [f32(2, 4, 5)],
+      "Bias": [f32(1, 2)]}, {}, {}, {}),
+    ("bilinear_interp_up", "bilinear_interp", {"X": [f32(1, 2, 3, 4)]},
+     {"out_h": 5, "out_w": 7}, {}, {}),
+    ("bilinear_interp_down", "bilinear_interp", {"X": [f32(1, 2, 8, 9)]},
+     {"out_h": 3, "out_w": 4}, {}, {}),
+    ("bilinear_interp_same", "bilinear_interp", {"X": [f32(2, 1, 3, 3)]},
+     {"out_h": 3, "out_w": 3}, {}, {}),
+    ("im2sequence", "im2sequence", {"X": [f32(2, 3, 5, 6)]},
+     {"kernels": [2, 3], "strides": [1, 2]}, {}, {}),
+    ("grid_sampler", "grid_sampler",
+     {"X": [f32(2, 3, 4, 5)],
+      "Grid": [R.uniform(-1.2, 1.2, (2, 3, 3, 2)).astype("float32")]},
+     {}, {}, {}),
+    ("spp_max", "spp", {"X": [f32(2, 3, 5, 7)]},
+     {"pyramid_height": 3, "pooling_type": "max"}, {}, {}),
+    ("spp_avg_small_extent", "spp", {"X": [f32(1, 2, 3, 2)]},
+     {"pyramid_height": 3, "pooling_type": "avg"}, {}, {}),
+    ("hierarchical_sigmoid", "hierarchical_sigmoid",
+     {"X": [f32(4, 5)], "Label": [i64(0, 5, 2, 3, shape=(4, 1))],
+      "W": [f32(5, 5)], "Bias": [f32(5, 1)]}, {"num_classes": 6}, {}, {}),
+    ("hierarchical_sigmoid_no_bias", "hierarchical_sigmoid",
+     {"X": [f32(3, 4)], "Label": [i64(0, 7, 4, shape=(3, 1))],
+      "W": [f32(7, 4)]}, {"num_classes": 8}, {}, {}),
+    ("auc", "auc",
+     {"Predict": [np.concatenate([1 - (p := u01(6, 1, lo=0, hi=1)), p], 1)],
+      "Label": [i64(1, 0, 1, 1, 0, 0, shape=(6, 1))],
+      "StatPos": [np.zeros(201, "float32")],
+      "StatNeg": [np.zeros(201, "float32")]}, {"num_thresholds": 200}, {},
+     {}),
+    ("auc_accumulated", "auc",
+     {"Predict": [np.float32([[0.3, 0.7], [0.9, 0.1], [0.0, 1.0]])],
+      "Label": [i64(1, 0, 0, shape=(3, 1))],
+      "StatPos": [np.float32(R.randint(0, 3, 11))],
+      "StatNeg": [np.float32(R.randint(0, 3, 11))]},
+     {"num_thresholds": 10}, {}, {}),
+    ("precision_recall", "precision_recall",
+     {"MaxProbs": [u01(6, 1)], "Indices": [i64(0, 1, 2, 3, 1, 1,
+                                                shape=(6, 1))],
+      "Labels": [i64(0, 2, 2, 3, 1, 0, shape=(6, 1))]},
+     {"class_number": 4}, {}, {}),
+    ("precision_recall_states", "precision_recall",
+     {"MaxProbs": [u01(4, 1)], "Indices": [i64(0, 1, 1, 2, shape=(4, 1))],
+      "Labels": [i64(0, 1, 2, 2, shape=(4, 1))],
+      "StatesInfo": [np.float32(R.randint(0, 4, (3, 4)))]},
+     {"class_number": 3}, {}, {}),
+    ("mean_iou", "mean_iou",
+     {"Predictions": [np.int32([0, 1, 2, 2, 1, 0, 2, 1])],
+      "Labels": [np.int32([0, 1, 1, 2, 1, 2, 2, 0])]}, {"num_classes": 4},
+     {}, {}),
+]
+
+
 def _to_jax(a, dtype):
     return jnp.asarray(a, dtype=getattr(jnp, dtype)) if dtype \
         else jnp.asarray(a)
@@ -849,3 +1065,163 @@ def test_pool_window_wider_than_the_padded_input_raises():
             treg.LowerCtx(), {"X": [x]},
             {"ksize": [3, 3], "strides": [1, 1], "paddings": [0, 0],
              "pooling_type": "max"})
+
+
+@pytest.mark.parametrize("op_type,ins,attrs", [
+    ("truncated_gaussian_random", {},
+     {"shape": [200, 50], "mean": 0.3, "std": 0.02, "seed": 0,
+      "dtype": "float32"}),
+    ("uniform_random_batch_size_like", {"Input": f32(7, 3)},
+     {"shape": [-1, 2000], "min": -0.5, "max": 0.25, "dtype": "float32"}),
+    ("gaussian_random_batch_size_like", {"Input": f32(3, 7)},
+     {"shape": [4000, -1], "mean": 0.3, "std": 0.02, "input_dim_idx": 1,
+      "output_dim_idx": 1, "dtype": "float32"}),
+])
+def test_rest_of_random_ops_match_jax_in_distribution(op_type, ins, attrs):
+    """Shape, dtype, support and the first two moments against the JAX
+    lowering's draws (threefry and Philox give different numbers); the
+    truncated normal stays within two standard deviations, and its spread
+    is the truncated one (0.88 std), as jax.random.truncated_normal's."""
+    jv = np.asarray(jreg.lookup_op(op_type).lower(
+        jreg.LowerCtx(rng_key=jax.random.PRNGKey(3)),
+        {s: [jnp.asarray(a)] for s, a in ins.items()}, dict(attrs))
+        ["Out"][0])
+    tv = as_numpy(treg.lookup_op(op_type).lower(
+        treg.LowerCtx(seed=3), {s: [torch.from_numpy(a)]
+                                for s, a in ins.items()},
+        dict(attrs))["Out"][0])
+    assert tv.shape == jv.shape and tv.dtype == jv.dtype
+    if "min" in attrs:
+        assert tv.min() >= attrs["min"] and tv.max() < attrs["max"]
+        spread = attrs["max"] - attrs["min"]
+    else:
+        spread = attrs["std"]
+    if op_type == "truncated_gaussian_random":
+        lo, hi = attrs["mean"] - 2 * spread, attrs["mean"] + 2 * spread
+        assert tv.min() >= lo - 1e-6 and tv.max() <= hi + 1e-6
+        np.testing.assert_allclose(tv.std(), 0.8796 * spread, rtol=0.05)
+    np.testing.assert_allclose(tv.mean(), jv.mean(), atol=0.05 * spread)
+    np.testing.assert_allclose(tv.std(), jv.std(), rtol=0.05)
+
+
+def test_sampling_id_draws_by_probability():
+    """Each row's class is drawn with the row's probability (4000 rows of
+    one distribution; a zero-probability class never comes), int64 [N]."""
+    p = np.float32([0.1, 0.0, 0.6, 0.3])
+    x = torch.from_numpy(np.tile(p, (4000, 1)))
+    out = treg.lookup_op("sampling_id").lower(
+        treg.LowerCtx(seed=5), {"X": [x]}, {})["Out"][0]
+    assert out.dtype == torch.int64 and out.shape == (4000,)
+    freq = np.bincount(as_numpy(out), minlength=4) / 4000
+    assert freq[1] == 0
+    np.testing.assert_allclose(freq, p, atol=0.03)
+
+
+def test_random_crop_takes_one_window_for_the_batch():
+    """The output is X's window of `shape` over the trailing dims at one
+    start for the whole batch, within range; different seeds move it."""
+    x = torch.arange(2 * 6 * 7, dtype=torch.float32).reshape(2, 6, 7)
+    starts = set()
+    for seed in range(1, 9):
+        out = treg.lookup_op("random_crop").lower(
+            treg.LowerCtx(seed=seed), {"X": [x]}, {"shape": [3, 4]})["Out"][0]
+        assert out.shape == (2, 3, 4)
+        r0, c0 = divmod(int(out[0, 0, 0]), 7)
+        assert 0 <= r0 <= 3 and 0 <= c0 <= 3
+        assert torch.equal(out, x[:, r0:r0 + 3, c0:c0 + 4])
+        starts.add((r0, c0))
+    assert len(starts) > 1
+
+
+def test_nce_cost_follows_its_formula_over_the_drawn_labels():
+    """nce draws its negatives from the run's generator, so its cost is
+    held to the formula of the JAX lowering (paddle_tpu/ops/loss_ops.py
+    `_nce`) over the port's own SampleLabels: softplus(-(s_pos - c)) +
+    sum softplus(s_neg - c), c = log(S / C), weighted by SampleWeight; the
+    draws lie in [0, C) and the first column is the label. Gradients reach
+    Input, Weight and Bias."""
+    n, d, c, s = 6, 5, 20, 4
+    x = torch.from_numpy(f32(n, d)).requires_grad_()
+    w = torch.from_numpy(f32(c, d)).requires_grad_()
+    b = torch.from_numpy(f32(c)).requires_grad_()
+    label = torch.from_numpy(R.randint(0, c, (n, 1)).astype("int64"))
+    sw = torch.from_numpy(u01(n, 1))
+    out = treg.lookup_op("nce").lower(
+        treg.LowerCtx(seed=11), {"Input": [x], "Label": [label],
+                                 "Weight": [w], "Bias": [b],
+                                 "SampleWeight": [sw]},
+        {"num_total_classes": c, "num_neg_samples": s})
+    lab = as_numpy(out["SampleLabels"][0])
+    assert lab.shape == (n, s + 1) and (lab >= 0).all() and (lab < c).all()
+    np.testing.assert_array_equal(lab[:, 0], as_numpy(label)[:, 0])
+    xn, wn, bn = (as_numpy(t.detach()) for t in (x, w, b))
+    logits = np.einsum("nd,nsd->ns", xn, wn[lab]) + bn[lab]
+    np.testing.assert_allclose(as_numpy(out["SampleLogits"][0].detach()),
+                               logits, rtol=1e-5, atol=1e-5)
+    corr = np.log(s / c)
+    cost = (np.logaddexp(0, -(logits[:, 0] - corr))
+            + np.logaddexp(0, logits[:, 1:] - corr).sum(1))[:, None] \
+        * as_numpy(sw)
+    np.testing.assert_allclose(as_numpy(out["Cost"][0].detach()), cost,
+                               rtol=1e-5, atol=1e-6)
+    out["Cost"][0].sum().backward()
+    assert all(bool(t.grad.abs().sum() > 0) for t in (x, w, b))
+
+
+def test_split_into_unequal_pieces_raises_as_jax():
+    """jnp.split refuses a num that does not divide the axis; so does the
+    port (torch.chunk would give pieces of other sizes)."""
+    x = f32(2, 5)
+    with pytest.raises(ValueError):
+        jreg.lookup_op("split").lower(
+            jreg.LowerCtx(rng_key=jax.random.PRNGKey(0)),
+            {"X": [jnp.asarray(x)]}, {"num": 2, "axis": 1})
+    with pytest.raises(InvalidArgumentError, match="split"):
+        treg.lookup_op("split").lower(
+            treg.LowerCtx(), {"X": [torch.from_numpy(x)]},
+            {"num": 2, "axis": 1})
+
+
+@pytest.mark.parametrize("op_type,ins,attrs,slot", [
+    ("fake_quantize_abs_max", {"X": f32(3, 4)}, {"bit_length": 8}, "X"),
+    ("fake_quantize_moving_average_abs_max",
+     {"X": f32(3, 4), "InScale": np.float32([1.5])}, {}, "X"),
+    ("lrn", {"X": f32(1, 4, 2, 2)}, {}, "X"),
+    ("grid_sampler", {"X": f32(1, 2, 3, 3),
+                      "Grid": R.uniform(-1, 1, (1, 2, 2, 2)).astype(
+                          "float32")}, {}, "X"),
+    ("bilinear_interp", {"X": f32(1, 1, 5, 4)}, {"out_h": 3, "out_w": 6},
+     "X"),
+    ("hierarchical_sigmoid", {"X": f32(3, 4), "Label": i64(0, 4, 2,
+                                                          shape=(3, 1)),
+                              "W": f32(4, 4), "Bias": f32(4, 1)},
+     {"num_classes": 5}, "W"),
+])
+def test_rest_of_library_gradients_match_jax(op_type, ins, attrs, slot):
+    """d(sum(out * w))/d(slot) of the first output through autograd
+    against jax.grad through the JAX lowering, at 1e-5: fake quantization
+    passes the gradient straight through, the rest differentiate their
+    plain formulas."""
+    first = {"fake_quantize_abs_max": "Out", "lrn": "Out",
+             "grid_sampler": "Output", "bilinear_interp": "Out",
+             "fake_quantize_moving_average_abs_max": "Out",
+             "hierarchical_sigmoid": "Out"}[op_type]
+    rest = {s: a for s, a in ins.items() if s != slot}
+
+    def jloss(v):
+        out = jreg.lookup_op(op_type).lower(
+            jreg.LowerCtx(rng_key=jax.random.PRNGKey(0)),
+            {slot: [v], **{s: [jnp.asarray(a)] for s, a in rest.items()}},
+            dict(attrs))[first][0]
+        return jnp.sum(out * jnp.cos(jnp.arange(out.size).reshape(
+            out.shape)))
+
+    jg = np.asarray(jax.grad(jloss)(jnp.asarray(ins[slot])))
+    t = torch.from_numpy(ins[slot].copy()).requires_grad_()
+    out = treg.lookup_op(op_type).lower(
+        treg.LowerCtx(), {slot: [t], **{s: [torch.from_numpy(a)]
+                                        for s, a in rest.items()}},
+        dict(attrs))[first][0]
+    (out * torch.cos(torch.arange(out.numel()).reshape(out.shape))).sum() \
+        .backward()
+    np.testing.assert_allclose(as_numpy(t.grad), jg, rtol=1e-5, atol=1e-5)
