@@ -257,11 +257,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    probabilities at 1e-5), and this slice's ops on their edges (NMS ties
    and all scores under the threshold, infeasible CTC rows, mod by
    negative divisors, stable-sort and argmin ties, out-of-range scatter
-   indices) card against CPU.
+   indices) card against CPU;
+38. generate with phase 7's trained LM (its parameters through
+   io.save_params / load_params into transformer_lm_generate at its
+   widths) at tools/bench_generate.py's shapes: max_gen 64, greedy at
+   batch 16 and 64, beam 4 at batch 16, Markov-chain prompts; each a
+   warm-up call and 3 calls under sync-debug "error": generated tokens/s,
+   ms a step, K4 6 launches a step (every layer's cached self-attention
+   fused, counted in the plan), ids in the vocabulary, scores finite and
+   best first, the share of transitions the Markov rule allows (a
+   diagnostic); the beam call profiled (busy, idle share, top kernels);
+39. generate with phase 15's trained Transformer-base through
+   transformer_generate (bench_generate.py's measure_nmt: batch 16,
+   source 64, max_gen 32, beam 4; then beam 1): the same numbers, K1 6
+   launches a call in the is_test encoder, K4 6 a step at beam 4 and 12
+   at beam 1, where the cross-attention's bfloat16 keys and values are
+   fused too (none of its chains at beam 4), the share of shift-copy
+   tokens;
+40. this slice's paths at test width, card against CPU in float32: both
+   generators greedy and at beam 3 (tokens equal, scores within 1e-4),
+   Executor.run_steps against 3 calls of run on a small LM (K1-K3 in
+   float32), a py_reader with double_buffer staging batches on the card,
+   fusion.fused_lstm_sequence / fused_gru_sequence on K5 / K6 against the
+   plain versions, and ROADMAP.md §3's fault cases (an int32 X into
+   softmax, log_softmax, gelu, softplus, logsigmoid and layer_norm;
+   floordiv and mod by zero in int32 and float32, and of INT_MIN by -1)
+   against the JAX package's values.
 
-Phase 3 also holds decode attention's verify-window route (G = 5 query
-rows) and int8 route (int8 caches, alone and with G = 5) at the serving
-shape against the plain version, each row of a G = 5 launch bit-equal
+Phase 3 also holds decode attention at the generators' shape (R = B·K
+64, T 64, dh 64, bf16 q) and on a bfloat16 cache (the encoder-decoder's
+cross-attention at beam 1), each timed beside SDPA, its verify-window
+route (G = 5 query rows) and int8 route (int8 caches, alone and with
+G = 5) at the serving shape against the plain version, each row of a G = 5 launch bit-equal
 to a G = 1 launch, and times them beside SDPA on the same inputs; and
 its beam route (phase 32's shape: R 1, nh 32, G 4, T 64, dh 512,
 float32, the [32, 1, 64] mask broadcast over the rows) against the plain
@@ -293,8 +320,12 @@ and `launches_traced`, decode attention's on phases 29-31;
 and at its shape; `launches_infer`, the GRU kernel's on phase 32;
 `launches_crf`, the LSTM kernel's on phase 33; `launches_crnn`, the GRU
 kernel's on phase 36, and the GRU's `*_crnn` keys, its error, time,
-bound and cuDNN time at CRNN's shape), times, and `paths`: phases
-15-37's numbers; the last line is
+bound and cuDNN time at CRNN's shape; `launches_generate` and
+`launches_generate_nmt`, decode attention's on phases 38 and 39, with
+its `*_generate` and `*_bf16_cache` keys at the generators' and the
+cross-attention's shapes; `launches_generate` of the flash forward, K1's
+in phase 39's encoder), times, and `paths`: phases 15-40's numbers; the
+last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -485,6 +516,20 @@ SSD_SMALL = dict(num_classes=4, image=64, num_gt=4, batch=2, lr=3e-3,
                  batches=3)
 CRNN_SMALL = dict(num_classes=10, height=32, width=64, max_label_len=4,
                   hidden=32, batch=2, lr=3e-3, batches=3)
+# generation through the model zoo at tools/bench_generate.py's shapes:
+# transformer_lm_generate at TRAIN's widths (phase 7's weights), max_gen 64,
+# greedy at batch 16 and 64 and beam 4 at batch 16 (its `measure`); then
+# transformer_generate with phase 15's Transformer-base, batch 16, source
+# 64, max_gen 32, beam 4 (its `measure_nmt`) and beam 1
+GENERATE = dict(max_gen=64, runs=((16, 1), (64, 1), (16, 4)), reps=3)
+GENERATE_NMT = dict(batch=16, max_gen=32, beams=(4, 1), reps=3)
+# phase 40: both generators at tests/test_torch_generate.py's width
+GENERATE_SMALL = dict(vocab=50, src_len=7, max_gen=6, d_model=32,
+                      d_inner=64, num_heads=4, num_layers=2, batch=4,
+                      beams=(1, 3))
+# phase 40: run_steps against k runs on a small LM
+RUN_STEPS_SMALL = dict(vocab=97, max_len=16, d_model=32, d_inner=64,
+                       num_heads=4, num_layers=2, lr=1e-3, batch=4, steps=3)
 
 
 def log(*a):
@@ -5656,6 +5701,687 @@ def ocr_detection_reference_check(ptt):
     return {"ok": True}
 
 
+# ---- phases 38-40: generation through the model zoo, run_steps, readers ----
+
+
+def check_decode_attention_generate(rates, dev=None):
+    """Phase 3 for the decode-attention kernel at the generators' shape
+    (phase 38's beam-4 run; its greedy batch-64 run has the same rows):
+    each layer's cached self-attention of transformer_lm_generate, q
+    [B, K, nh, 1, dh] over the caches [B, K, nh, T, dh] with the step mask
+    [B, K, 1, 1, T] (the positions up to the step's), through
+    `fused_decode_attention` (the op's route: K4's G = 1 route with B·K·nh
+    rows) against the plain version, with float32 q at 1e-5 and the
+    path's bfloat16 q at 1e-2; then kernel, plain and SDPA timed in turns
+    at the path's types (`dev`, default cuda:0); then the same at the
+    encoder-decoder's cross-attention at beam 1, whose keys and values are
+    bfloat16 (`*_bf16_cache`). Returns the `*_generate` and
+    `*_bf16_cache` fields."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.fusion.decode_attention import (
+        decode_attention_chunk, decode_attention_cuda, decode_attention_plain,
+        fused_decode_attention)
+
+    dev = dev or torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    b, k = GENERATE["runs"][-1]
+    nh = TRAIN["num_heads"]
+    dh = TRAIN["d_model"] // nh
+    t = GENERATE["max_gen"]
+    r = b * k
+    splits = -(-t // decode_attention_chunk(r, nh, t, dh))
+
+    def make(q_dtype, pos):
+        q = torch.randn(b, k, nh, 1, dh, device=dev, generator=gen)
+        kc = torch.randn(b, k, nh, t, dh, device=dev, generator=gen)
+        vc = torch.randn(b, k, nh, t, dh, device=dev, generator=gen)
+        keep = torch.arange(t, device=dev) <= pos
+        bias = torch.where(keep, 0.0, -1e9).expand(b, k, 1, 1, t)
+        return q.to(q_dtype), kc, vc, bias
+
+    errs = {}
+    for q_dtype, tol, pos in ((torch.float32, 1e-5, t // 3),
+                              (torch.bfloat16, 1e-2, t - 1),
+                              (torch.float32, 1e-5, 0)):
+        q, kc, vc, bias = make(q_dtype, pos)
+        out = fused_decode_attention(q, kc, vc, bias, dh ** -0.5)
+        ref = decode_attention_plain(
+            q.reshape(r, nh, 1, dh), kc.reshape(r, nh, t, dh),
+            vc.reshape(r, nh, t, dh), bias.expand(b, k, nh, 1, t).reshape(
+                r, nh, 1, t), dh ** -0.5).reshape(q.shape)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        ok = bool((diff <= tol + tol * ref.float().abs()).all())
+        log(f"  decode_attention generation shape B={b} K={k} nh={nh} "
+            f"T={t} dh={dh} q={str(q_dtype)[6:]} position {pos} ({splits} "
+            f"chunks a row and head): max_abs_err={err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"decode_attention at the generation "
+                                 f"shape: {err}")
+        errs.setdefault(str(q_dtype)[6:], err)
+
+    kv_bytes = 2 * r * nh * t * dh * 4
+    sets = []
+    for _ in range(max(4, math.ceil(3 * 50e6 / kv_bytes))):
+        q, kc, vc, bias = make(torch.bfloat16, t - 1)
+        st = {"q": q.reshape(r, nh, 1, dh), "k": kc.reshape(r, nh, t, dh),
+              "v": vc.reshape(r, nh, t, dh),
+              # the step mask, one row per (batch, beam), stride 0 on heads
+              "bias": bias.reshape(r, 1, 1, t).expand(r, nh, 1, t)}
+        st["q4"] = st["q"].float()          # SDPA takes one dtype
+        sets.append(st)
+    scale = dh ** -0.5
+    times = time_in_turns({
+        "kernel": lambda s: decode_attention_cuda(s["q"], s["k"], s["v"],
+                                                  s["bias"], scale),
+        "plain": lambda s: decode_attention_plain(s["q"], s["k"], s["v"],
+                                                  s["bias"], scale),
+        "library": lambda s: F.scaled_dot_product_attention(
+            s["q4"], s["k"], s["v"], attn_mask=s["bias"], scale=scale),
+    }, sets)
+    # each input read once: q (bf16), the caches (float32, every position:
+    # the kernel reads the masked ones too), the [B·K, T] mask; the output
+    # written once. 4 flops a cache element, ~5 a score
+    nbytes = r * nh * dh * 2 + kv_bytes + r * t * 4 + r * nh * dh * 2
+    flops = 4 * r * nh * t * dh + 5 * r * nh * t
+    mem_rate, f32_rate, _ = rates
+    bound_ms = max(nbytes / mem_rate, flops / f32_rate) * 1e3
+    bound_by = "bytes" if nbytes / mem_rate >= flops / f32_rate else \
+        "operations"
+    log(f"  decode_attention timing at the generation shape R={r} nh={nh} "
+        f"T={t} dh={dh} q=bf16: kernel {times['kernel'] * 1e3:.2f} us, plain "
+        f"{times['plain'] * 1e3:.2f} us, SDPA {times['library'] * 1e3:.2f} "
+        f"us, bound {bound_ms * 1e3:.2f} us ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB)")
+    fields = {"max_abs_err_generate": errs["float32"],
+              "max_abs_err_bf16_q_generate": errs["bfloat16"],
+              "splits_generate": splits, "ms_generate": times["kernel"],
+              "plain_ms_generate": times["plain"],
+              "bound_ms_generate": bound_ms, "bound_by_generate": bound_by,
+              "library_ms_generate": times["library"]}
+
+    # the encoder-decoder's cross-attention at beam 1 (phase 39): q
+    # [B, 1, nh, 1, dh] over the encoder's keys and values [B, 1, nh, Ts,
+    # dh], both bfloat16 (bfloat16 fc layers), under the source mask
+    bn, ts = GENERATE_NMT["batch"], TRANSFORMER["max_len"]
+
+    def make_cross():
+        q = torch.randn(bn, 1, nh, 1, dh, device=dev, generator=gen)
+        kc = torch.randn(bn, 1, nh, ts, dh, device=dev, generator=gen)
+        vc = torch.randn(bn, 1, nh, ts, dh, device=dev, generator=gen)
+        lens = torch.randint(TRANSFORMER["len_lo"], ts + 1, (bn, 1, 1, 1, 1),
+                             device=dev, generator=gen)
+        bias = torch.where(torch.arange(ts, device=dev) < lens, 0.0, -1e9)
+        return (q.bfloat16(), kc.bfloat16(), vc.bfloat16(), bias)
+
+    q, kc, vc, bias = make_cross()
+    out = fused_decode_attention(q, kc, vc, bias, dh ** -0.5)
+    ref = decode_attention_plain(
+        q.reshape(bn, nh, 1, dh), kc.reshape(bn, nh, ts, dh),
+        vc.reshape(bn, nh, ts, dh), bias.reshape(bn, 1, 1, ts).expand(
+            bn, nh, 1, ts), dh ** -0.5).reshape(q.shape)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= 1e-2 + 1e-2 * ref.float().abs()).all())
+    log(f"  decode_attention cross-attention shape R={bn} nh={nh} T={ts} "
+        f"dh={dh}, bf16 q and bf16 K/V: max_abs_err={err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"decode_attention on a bfloat16 cache: {err}")
+    sets = []
+    for _ in range(8):
+        q, kc, vc, bias = make_cross()
+        st = {"q": q.reshape(bn, nh, 1, dh), "k": kc.reshape(bn, nh, ts, dh),
+              "v": vc.reshape(bn, nh, ts, dh),
+              "bias": bias.reshape(bn, 1, 1, ts).expand(bn, nh, 1, ts)}
+        st["mask4"] = st["bias"].bfloat16()   # SDPA takes one dtype
+        sets.append(st)
+    times = time_in_turns({
+        "kernel": lambda s: decode_attention_cuda(s["q"], s["k"], s["v"],
+                                                  s["bias"], scale),
+        "plain": lambda s: decode_attention_plain(s["q"], s["k"], s["v"],
+                                                  s["bias"], scale),
+        "library": lambda s: F.scaled_dot_product_attention(
+            s["q"], s["k"], s["v"], attn_mask=s["mask4"], scale=scale),
+    }, sets)
+    nbytes = 2 * (2 * bn * nh * dh + 2 * bn * nh * ts * dh) + bn * ts * 4
+    flops = 4 * bn * nh * ts * dh + 5 * bn * nh * ts
+    bound_ms = max(nbytes / mem_rate, flops / f32_rate) * 1e3
+    bound_by = "bytes" if nbytes / mem_rate >= flops / f32_rate else \
+        "operations"
+    log(f"  decode_attention timing at the cross-attention shape (bf16 "
+        f"cache): kernel {times['kernel'] * 1e3:.2f} us, plain "
+        f"{times['plain'] * 1e3:.2f} us, SDPA {times['library'] * 1e3:.2f} "
+        f"us, bound {bound_ms * 1e3:.2f} us ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB)")
+    fields.update({"max_abs_err_bf16_cache": err,
+                   "ms_bf16_cache": times["kernel"],
+                   "plain_ms_bf16_cache": times["plain"],
+                   "bound_ms_bf16_cache": bound_ms,
+                   "bound_by_bf16_cache": bound_by,
+                   "library_ms_bf16_cache": times["library"]})
+    return fields
+
+
+def _lm_generate_program(ptt, cfg, max_gen, beam):
+    """transformer_lm_generate at `cfg`'s widths (phase 7's parameter
+    names), as a user builds it."""
+    from paddle_tpu_torch.models import transformer
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        seqs, scores = transformer.transformer_lm_generate(
+            vocab=cfg["vocab"], max_gen=max_gen, d_model=cfg["d_model"],
+            d_inner=cfg["d_inner"], num_heads=cfg["num_heads"],
+            num_layers=cfg["num_layers"], beam_size=beam)
+    return main, start, [seqs, scores]
+
+
+def _nmt_generate_program(ptt, cfg, max_gen, beam):
+    """transformer_generate at `cfg`'s widths with its train graph's
+    dropout (the inference scaling of every dropout site)."""
+    from paddle_tpu_torch.models import transformer
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        seqs, scores = transformer.transformer_generate(
+            src_vocab=cfg["src_vocab"], tgt_vocab=cfg["tgt_vocab"],
+            max_src_len=cfg["max_len"], max_gen=max_gen,
+            d_model=cfg["d_model"], d_inner=cfg["d_inner"],
+            num_heads=cfg["num_heads"], num_layers=cfg["num_layers"],
+            bos_id=BOS, beam_size=beam, dropout=cfg["dropout"])
+    return main, start, [seqs, scores]
+
+
+def _card(ptt):
+    """The torch device of CUDAPlace(0)."""
+    from paddle_tpu_torch.core.places import place_to_device
+    return place_to_device(ptt.CUDAPlace(0))
+
+
+def _planned_ops(exe, main, op_type):
+    """How many `op_type` ops the executor's plan of `main` holds (the
+    fused program, the loop's sub-block included)."""
+    plan, = (p for key, p in exe._cache.items() if key[0] == id(main))
+    return sum(op.type == op_type for blk in plan.program.blocks
+               for op in blk.ops)
+
+
+def _generate(ptt, kernels, label, params_dir, build, feed, reps, expect,
+              vocab, profile):
+    """Build a generator (`build()` → main, start, fetch), load
+    `params_dir` into it on CUDAPlace(0) and decode `feed` (on the card):
+    a warm-up call that plans, then `reps` calls each under
+    torch.cuda.set_sync_debug_mode("error") (no host sync on the path),
+    launch counts zeroed after the warm-up and held to `expect` (a call's
+    launches per kernel), the outputs checked (ids in the vocabulary,
+    scores finite and best first), one call profiled if `profile`
+    (the profiler's processing of a call's ~10k events takes seconds).
+    Returns (the
+    calls' outputs, seconds, launches, the profile, the count of
+    fused_decode_attention ops in the plan)."""
+    import torch
+    main, start, fetch = build()
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(start, scope=scope)
+    ptt.io.load_params(exe, params_dir, main_program=main, scope=scope)
+
+    def call():
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+
+    t0 = time.perf_counter()
+    warm = [x.cpu().numpy() for x in call()]
+    _check_beams(f"{label} warm-up", *warm, vocab)
+    log(f"  [{label}] warm-up call (plans): "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs, secs = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append([x.cpu().numpy() for x in out])
+    launches = dict(kernels.LAUNCHES)
+    for k, per_call in expect.items():
+        assert launches[k] == per_call * reps, (
+            f"{label}: {k} launched {launches[k]} times in {reps} calls; "
+            f"the path launches it {per_call} times a call")
+    for seqs, scores in outs:
+        _check_beams(label, seqs, scores, vocab)
+        assert (seqs == outs[0][0]).all(), f"{label}: calls differ"
+    prof = _profile_one(f"[{label}] a call", call) if profile else None
+    return outs, secs, launches, prof, _planned_ops(
+        exe, main, "fused_decode_attention")
+
+
+def _markov_share(prompt, seqs, vocab):
+    """The share of the best beams' transitions (the prompt's token into
+    the first, then each into the next) that _markov_tokens' rule allows:
+    next = (13 * tok + 7 + eps) % vocab, eps in [0, 8)."""
+    import numpy as np
+    toks = np.concatenate([prompt, seqs[:, :, 0]], axis=1)
+    eps = (toks[:, 1:] - 13 * toks[:, :-1] - 7) % vocab
+    return float((eps < 8).mean())
+
+
+def generate_lm(ptt, kernels, params_dir):
+    """Phase 38: transformer_lm_generate at TRAIN's widths from phase 7's
+    trained parameters (io.save_params / load_params), at
+    tools/bench_generate.py's shapes: max_gen 64, greedy at batch 16 and
+    64, beam 4 at batch 16; prompts are Markov-chain tokens. Each shape:
+    a warm-up call, GENERATE["reps"] calls under sync-debug "error"
+    (tokens/s over the median call, ms a step), K4 launched once a layer
+    a step (6 a step: the fusion pass rewrote every layer's cached
+    self-attention, counted in the plan), and the share of transitions
+    the Markov rule allows (a diagnostic: chance is 8 / vocab); the beam
+    run's call profiled: busy and idle share and top kernels."""
+    import numpy as np
+    import torch
+    cfg, gen = TRAIN, GENERATE
+    layers, max_gen = cfg["num_layers"], gen["max_gen"]
+    rng = np.random.RandomState(SEED + 13)
+    out = {}
+    total = 0
+    for b, beam in gen["runs"]:
+        label = f"LM b{b} beam{beam}"
+        prompt = rng.randint(0, cfg["vocab"], (b, 1)).astype("int64")
+        feed = {"prompt": torch.from_numpy(prompt).to(_card(ptt))}
+        outs, secs, launches, prof, fused = _generate(
+            ptt, kernels, label, params_dir,
+            lambda: _lm_generate_program(ptt, cfg, max_gen, beam), feed,
+            gen["reps"], {"decode_attention": layers * max_gen,
+                          "decode_attention_multi": 0}, cfg["vocab"],
+            profile=beam > 1)
+        assert fused == layers, f"{label}: {fused} fused attentions"
+        med = float(np.median(secs))
+        seqs, scores = outs[0]
+        assert seqs.shape == (b, max_gen, beam), seqs.shape
+        share = _markov_share(prompt, seqs, cfg["vocab"])
+        log(f"  [{label}] {max_gen} steps: {med * 1e3:.1f} ms a call median "
+            f"(all {[round(s * 1e3, 1) for s in secs]}), "
+            f"{b * max_gen / med:.1f} generated tokens/s, "
+            f"{med / max_gen * 1e3:.3f} ms a step; K4 "
+            f"{launches['decode_attention'] / gen['reps'] / max_gen:.0f} "
+            f"launches a step, {fused} of {layers} layers' attention fused; "
+            f"best-beam score median {float(np.median(scores[:, 0])):.3f}; "
+            f"Markov transitions {share:.3f} (chance "
+            f"{8 / cfg['vocab']:.5f})")
+        total += launches["decode_attention"]
+        out[label] = {"batch": b, "beam": beam, "max_gen": max_gen,
+                      "s_per_call_median": med, "s_per_call": secs,
+                      "tokens_per_s": b * max_gen / med,
+                      "ms_per_step": med / max_gen * 1e3,
+                      "k4_launches_per_step":
+                          launches["decode_attention"] / gen["reps"]
+                          / max_gen,
+                      "fused_layers": fused, "markov_share": share,
+                      "profile": prof}
+        torch.cuda.empty_cache()
+    out["launches"] = {"decode_attention": total}
+    return out
+
+
+def _nmt_generate_feed(cfg, b, seed):
+    """`b` shift-copy sources (phase 15's task) padded to max_len, and the
+    translations a trained model would emit: (feed, lengths, targets)."""
+    import numpy as np
+    samples = _shift_copy_batch(np.random.RandomState(seed),
+                                dict(cfg, batch=b))
+    t = cfg["max_len"]
+    src = np.zeros((b, t), "int64")
+    lens = np.zeros(b, "int32")
+    want = np.zeros((b, t), "int64")
+    for i, (s, _, lbl) in enumerate(samples):
+        src[i, :len(s)] = s
+        lens[i] = len(s)
+        want[i] = lbl
+    return {"src": src, "src@SEQLEN": lens}, lens, want
+
+
+def generate_nmt(ptt, kernels, params_dir):
+    """Phase 39: transformer_generate with phase 15's trained
+    Transformer-base (io.save_params / load_params) at
+    tools/bench_generate.py's measure_nmt shape: batch 16, source 64,
+    max_gen 32, beam 4, then beam 1. K1 (`fused_attention` of the
+    is_test encoder) launches once a layer a call; K4 once a layer a step
+    for the self-attention, and at beam 1 once more for the
+    cross-attention, whose [B, 1, nh, Ts, dh] keys match the query's
+    layout only there (at beam 4 it stays a batched matmul). The same
+    numbers as phase 38, with the share of positions (within each
+    source's length) where the best beam emits the shift-copy
+    translation (the beam-4 call profiled)."""
+    import numpy as np
+    import torch
+    cfg, gen = TRANSFORMER, GENERATE_NMT
+    layers, max_gen, b = cfg["num_layers"], gen["max_gen"], gen["batch"]
+    feed, lens, want = _nmt_generate_feed(cfg, b, SEED + 17)
+    dev_feed = {k: torch.from_numpy(v).to(_card(ptt))
+                for k, v in feed.items()}
+    out = {}
+    totals = {"decode_attention": 0, "flash_fwd": 0}
+    for beam in gen["beams"]:
+        label = f"NMT b{b} beam{beam}"
+        cross = layers if beam == 1 else 0
+        outs, secs, launches, prof, fused = _generate(
+            ptt, kernels, label, params_dir,
+            lambda: _nmt_generate_program(ptt, cfg, max_gen, beam),
+            dev_feed, gen["reps"],
+            {"decode_attention": (layers + cross) * max_gen,
+             "flash_fwd": layers}, cfg["tgt_vocab"], profile=beam > 1)
+        assert fused == layers + cross, f"{label}: {fused} fused attentions"
+        med = float(np.median(secs))
+        seqs, scores = outs[0]
+        assert seqs.shape == (b, max_gen, beam), seqs.shape
+        valid = np.arange(max_gen)[None, :] < lens[:, None]
+        hit = float((seqs[:, :, 0] == want[:, :max_gen])[valid].mean())
+        log(f"  [{label}] {max_gen} steps: {med * 1e3:.1f} ms a call median "
+            f"(all {[round(s * 1e3, 1) for s in secs]}), "
+            f"{b * max_gen / med:.1f} generated tokens/s, "
+            f"{med / max_gen * 1e3:.3f} ms a step; K1 "
+            f"{launches['flash_fwd'] // gen['reps']} launches a call in the "
+            f"encoder ({launches['flash_fwd_tc'] // gen['reps']} on "
+            f"flash_fwd_tc); K4 "
+            f"{launches['decode_attention'] / gen['reps'] / max_gen:.0f} a "
+            f"step; cross-attention chains on K4: {fused - layers} of "
+            f"{layers}; shift-copy tokens {hit:.3f}")
+        for k in totals:
+            totals[k] += launches[k]
+        out[label] = {"batch": b, "beam": beam, "max_gen": max_gen,
+                      "s_per_call_median": med, "s_per_call": secs,
+                      "tokens_per_s": b * max_gen / med,
+                      "ms_per_step": med / max_gen * 1e3,
+                      "k1_launches_per_call":
+                          launches["flash_fwd"] / gen["reps"],
+                      "k4_launches_per_step":
+                          launches["decode_attention"] / gen["reps"]
+                          / max_gen,
+                      "cross_attention_fused": fused - layers,
+                      "shift_copy_share": hit, "profile": prof}
+        torch.cuda.empty_cache()
+    out["launches"] = totals
+    return out
+
+
+def _generate_small_reference(ptt):
+    """Both generators at GENERATE_SMALL's width in float32, greedy and
+    beam, card against CPU from the same startup draws: tokens equal,
+    scores within 1e-4."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import transformer
+    cfg = GENERATE_SMALL
+    b, dims = cfg["batch"], {k: cfg[k] for k in (
+        "max_gen", "d_model", "d_inner", "num_heads", "num_layers")}
+    r = np.random.RandomState(SEED + 19)
+    feeds = {"lm": {"prompt": r.randint(0, cfg["vocab"], (b, 1))
+                    .astype("int64")},
+             "nmt": {"src": r.randint(2, cfg["vocab"], (b, cfg["src_len"]))
+                     .astype("int64"),
+                     "src@SEQLEN": np.array([cfg["src_len"], 3, 5, 1],
+                                            "int32")}}
+    for gen in ("lm", "nmt"):
+        for beam in cfg["beams"]:
+            main, start = ptt.Program(), ptt.Program()
+            with ptt.program_guard(main, start), ptt.unique_name.guard():
+                if gen == "lm":
+                    seqs, scores = transformer.transformer_lm_generate(
+                        vocab=cfg["vocab"], beam_size=beam, **dims)
+                else:
+                    seqs, scores = transformer.transformer_generate(
+                        src_vocab=cfg["vocab"], tgt_vocab=cfg["vocab"],
+                        max_src_len=cfg["src_len"], beam_size=beam, **dims)
+            cpu_scope = ptt.Scope()
+            cpu = ptt.Executor(ptt.CPUPlace())
+            cpu.run(start, scope=cpu_scope)
+            params = {p.name: cpu_scope.get(p.name).numpy()
+                      for p in main.all_parameters()}
+            card_scope = ptt.load_numpy_params(params, ptt.Scope(),
+                                               ptt.CUDAPlace(0))
+            fetch = [seqs, scores]
+            got = ptt.Executor(ptt.CUDAPlace(0)).run(
+                main, feed=feeds[gen], fetch_list=fetch, scope=card_scope)
+            want = cpu.run(main, feed=feeds[gen], fetch_list=fetch,
+                           scope=cpu_scope)
+            np.testing.assert_array_equal(got[0], want[0],
+                                          err_msg=f"{gen} beam {beam}")
+            np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-4,
+                                       err_msg=f"{gen} beam {beam}")
+            torch.cuda.synchronize()
+    log(f"  generators at test width (greedy and beam "
+        f"{cfg['beams'][-1]}, LM and encoder-decoder): card = CPU")
+
+
+def _run_steps_reference(ptt, kernels):
+    """Executor.run_steps against k calls of Executor.run on the card from
+    one state: a small LM (K1-K3 in float32) with Adam, 3 steps; the
+    stacked losses and a parameter fetched each step, and every
+    parameter after the last step, within 1e-6 (the same kernels in the
+    same order)."""
+    import numpy as np
+    import torch
+    cfg = RUN_STEPS_SMALL
+    main, start, loss = _train_program(ptt, cfg)
+    rng = np.random.RandomState(SEED + 23)
+    feeds = []
+    for _ in range(cfg["steps"]):
+        toks = _markov_tokens(rng, cfg["batch"], cfg["max_len"] + 1,
+                              cfg["vocab"])
+        feeds.append({"tokens": toks[:, :-1].copy(),
+                      "tokens@SEQLEN": np.full((cfg["batch"],),
+                                               cfg["max_len"], "int32"),
+                      "targets": toks[:, 1:].copy()})
+    cuda = ptt.CUDAPlace(0)
+    exe = ptt.Executor(cuda)
+    base = ptt.Scope()
+    exe.run(start, scope=base)
+    state = {n: base.get(n).cpu().numpy() for n in base.local_var_names()}
+    param = main.all_parameters()[0].name
+    seq_scope = ptt.load_numpy_params(state, ptt.Scope(), cuda)
+    seq = [exe.run(main, feed=f, fetch_list=[loss, param], scope=seq_scope)
+           for f in feeds]
+    steps_scope = ptt.load_numpy_params(state, ptt.Scope(), cuda)
+    kernels.reset_launch_counts()
+    curve, p_steps = ptt.Executor(cuda).run_steps(
+        feeds, fetch_list=[loss, param], program=main, scope=steps_scope)
+    launches = dict(kernels.LAUNCHES)
+    np.testing.assert_allclose(curve, [s[0] for s in seq], rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(p_steps, np.stack([s[1] for s in seq]),
+                               rtol=1e-6, atol=1e-6)
+    for p in main.all_parameters():
+        np.testing.assert_allclose(steps_scope.get(p.name).cpu().numpy(),
+                                   seq_scope.get(p.name).cpu().numpy(),
+                                   rtol=1e-6, atol=1e-6, err_msg=p.name)
+    for k in FLASH:
+        assert launches[k] == cfg["num_layers"] * cfg["steps"], launches
+    log(f"  run_steps ({cfg['steps']} steps of a small LM, Adam) = "
+        f"{cfg['steps']} x run on the card: losses {np.round(curve, 5)}; "
+        f"K1-K3 {[launches[k] for k in FLASH]} launches")
+
+
+def _py_reader_reference(ptt):
+    """A py_reader with double_buffer (its default) feeding the card: each
+    batch arrives as CUDA tensors staged on the prefetcher's side stream,
+    and 4 SGD steps give the losses of the same batches fed as numpy."""
+    import numpy as np
+    import torch
+    L = ptt.layers
+    b = 8
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        reader = L.io.py_reader(capacity=2, shapes=[[b, 6], [b, 1]],
+                                dtypes=["float32", "float32"],
+                                names=["x", "y"])
+        x = main.global_block().var("x")
+        y = main.global_block().var("y")
+        pred = L.fc(L.fc(x, size=16, act="relu"), size=1)
+        loss = L.reduce_mean(L.square(pred - y))
+        ptt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    r = np.random.RandomState(SEED + 29)
+    batches = [(r.rand(b, 6).astype("float32"),
+                r.rand(b, 1).astype("float32")) for _ in range(4)]
+    cuda = ptt.CUDAPlace(0)
+    exe = ptt.Executor(cuda)
+    base = ptt.Scope()
+    exe.run(start, scope=base)
+    state = {n: base.get(n).cpu().numpy() for n in base.local_var_names()}
+    scope = ptt.load_numpy_params(state, ptt.Scope(), cuda)
+    reader.decorate_sample_list_generator(lambda: iter(batches)).start()
+    got = []
+    for feed in reader:
+        assert all(v.device == _card(ptt) for v in feed.values()), \
+            "not staged on the card"
+        got.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)[0]))
+    direct = ptt.load_numpy_params(state, ptt.Scope(), cuda)
+    want = [float(exe.run(main, feed={"x": xb, "y": yb}, fetch_list=[loss],
+                          scope=direct)[0]) for xb, yb in batches]
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    torch.cuda.synchronize()
+    log(f"  py_reader with double_buffer: {len(got)} batches staged on the "
+        f"card, losses = direct feeding ({np.round(got, 5)})")
+
+
+def _fused_sequences_reference(ptt, kernels):
+    """fusion.fused_lstm_sequence / fused_gru_sequence on CUDA tensors
+    (K5 / K6) against their plain versions on the same inputs, both
+    directions, ragged lengths with a 0, at 1e-5."""
+    import torch
+    from paddle_tpu_torch import fusion
+    from paddle_tpu_torch.fusion.recurrent import gru_seq_plain, \
+        lstm_seq_plain
+    dev = _card(ptt)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    b, t, h = 4, 6, 32
+    seqlen = torch.tensor([6, 4, 1, 0], device=dev)
+    kernels.reset_launch_counts()
+    worst = 0.0
+    for kind, g in (("lstm", 4), ("gru", 3)):
+        x = torch.randn(b, t, g * h, device=dev, generator=gen) * .3
+        h0 = torch.randn(b, h, device=dev, generator=gen) * .1
+        c0 = torch.randn(b, h, device=dev, generator=gen) * .1
+        w = torch.randn(h, g * h, device=dev, generator=gen) * .1
+        for reverse in (False, True):
+            xs = torch.flip(x, (1,)) if reverse else x
+            if kind == "lstm":
+                got = fusion.fused_lstm_sequence(x, h0, c0, w, seqlen,
+                                                 reverse)
+                ref = lstm_seq_plain(xs, h0, c0, w, seqlen, reverse, False)
+            else:
+                got = (fusion.fused_gru_sequence(x, h0, w, seqlen,
+                                                 reverse),)
+                ref = gru_seq_plain(xs, h0, w, seqlen, reverse, False)
+            if reverse:
+                ref = tuple(torch.flip(a, (1,)) for a in ref)
+            for a, e in zip(got, ref):
+                err = float((a - e).abs().max())
+                worst = max(worst, err)
+                assert err <= 1e-5, (kind, reverse, err)
+    launches = dict(kernels.LAUNCHES)
+    assert launches["lstm_seq"] == launches["gru_seq"] == 2, launches
+    log(f"  fused_lstm_sequence / fused_gru_sequence on K5 / K6 = plain "
+        f"(max abs err {worst:.2e}), {launches['lstm_seq']} and "
+        f"{launches['gru_seq']} launches")
+
+
+# ROADMAP §3's four faults' op cases: the JAX package's outputs
+# (tests/test_torch_ops.py takes them from the JAX registry on the CPU;
+# written here as constants, as this script imports no jax)
+_INT_X = [[0, 1, -1, 7, -7, 3]]
+_FAULT_CASES = (
+    ("softmax", {}, {"Out": [[0.0008922151755541563, 0.002425292506814003,
+                              0.0003282276156824082, 0.9784327745437622,
+                              8.135949656207231e-07, 0.01792062260210514]]}),
+    ("log_softmax", {"axis": -1},
+     {"Out": [[-7.021803379058838, -6.021803379058838, -8.02180290222168,
+               -0.021803203970193863, -14.02180290222168,
+               -4.021803379058838]]}),
+    ("gelu", {}, {"Out": [[0.0, 0.8411920070648193, -0.15880796313285828,
+                           7.0, -0.0, 2.9963626861572266]]}),
+    ("softplus", {}, {"Out": [[0.6931471824645996, 1.3132617473602295,
+                               0.3132616877555847, 7.000911235809326,
+                               0.000911466486286372, 3.0485873222351074]]}),
+    ("logsigmoid", {}, {"Out": [[-0.6931471824645996, -0.3132616877555847,
+                                 -1.3132617473602295, -0.000911466486286372,
+                                 -7.000911235809326,
+                                 -0.04858735203742981]]}),
+    ("layer_norm", {"begin_norm_axis": 1, "epsilon": 1e-5},
+     {"Y": [[-0.11812485754489899, 0.11812485754489899, -0.35437458753585815,
+             1.5356231927871704, -1.771872878074646, 0.5906242728233337]],
+      "Mean": [0.5], "Variance": [17.91666603088379]}),
+)
+# X [5, -5, 0] over a zero divisor; INT_MIN, 7, -7 over -1
+_DIVISIONS = (("int32", "elementwise_floordiv", [5, -5, 0], 0, [-2, -2, -1]),
+              ("int32", "elementwise_mod", [5, -5, 0], 0, [0, 0, 0]),
+              ("float32", "elementwise_floordiv", [5, -5, 0], 0,
+               [math.nan] * 3),
+              ("float32", "elementwise_mod", [5, -5, 0], 0, [math.nan] * 3),
+              ("int32", "elementwise_floordiv", [-2 ** 31, 7, -7], -1,
+               [-2 ** 31, -7, 7]),
+              ("int32", "elementwise_mod", [-2 ** 31, 7, -7], -1, [0, 0, 0]))
+
+
+def _fault_cases_on_the_card(ptt):
+    """The four faults' op inputs on the card: int32 X into the float ops
+    (float32 outputs), X [5, -5, 0] over a zero divisor in int32 and
+    float32, and int32 INT_MIN over -1, each against the JAX package's
+    values (at 1e-5; integers and NaN exactly)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.framework import registry
+    dev = _card(ptt)
+    ctx = registry.LowerCtx(device=dev)
+    x = torch.tensor(_INT_X, dtype=torch.int32, device=dev)
+    for op_type, attrs, want in _FAULT_CASES:
+        out = registry.lookup_op(op_type).lower(ctx, {"X": [x]}, dict(attrs))
+        for slot, vals in want.items():
+            got = out[slot][0]
+            assert got.dtype == torch.float32, (op_type, slot, got.dtype)
+            np.testing.assert_allclose(got.cpu().numpy(), np.float32(vals),
+                                       rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{op_type} {slot}")
+    for dt, op_type, xv, yv, want in _DIVISIONS:
+        xs = torch.tensor(xv, dtype=getattr(torch, dt), device=dev)
+        out = registry.lookup_op(op_type).lower(
+            ctx, {"X": [xs], "Y": [torch.full_like(xs, yv)]}, {})["Out"][0]
+        np.testing.assert_array_equal(out.cpu().numpy(),
+                                      np.asarray(want, dt),
+                                      err_msg=f"{op_type} {dt}")
+    torch.cuda.synchronize()
+    log(f"  the slice's fault cases on the card ({len(_FAULT_CASES)} float "
+        f"ops of an int32 X, {len(_DIVISIONS)} divisions by 0 and -1) = the "
+        f"JAX package's values")
+
+
+def generate_reference_check(ptt, kernels):
+    """Phase 40: this slice's paths at test width, card against CPU (or
+    against the JAX package's values written here), float32 with TF32
+    off: the generators, run_steps, py_reader with double_buffer, the
+    fused whole-sequence entry points, and the fault cases."""
+    from paddle_tpu_torch.core import flags
+    saved = flags.get_flag("use_bf16_matmul")
+    flags.set_flag("use_bf16_matmul", False)
+    try:
+        _generate_small_reference(ptt)
+        _run_steps_reference(ptt, kernels)
+    finally:
+        flags.set_flag("use_bf16_matmul", saved)
+    _py_reader_reference(ptt)
+    _fused_sequences_reference(ptt, kernels)
+    _fault_cases_on_the_card(ptt)
+    return {"ok": True}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5711,6 +6437,8 @@ def main():
     results["decode_attention"].update(check_decode_attention_nmt(rates))
     results["decode_attention"].update(check_decode_attention_beam(rates))
     results["decode_attention"].update(check_decode_attention_routes(rates))
+    results["decode_attention"].update(
+        check_decode_attention_generate(rates))
     results.update(check_flash(ptt, rates))
     results.update(check_recurrent(ptt, rates))
 
@@ -5726,6 +6454,11 @@ def main():
 
     _phase("phase 7: train the Transformer LM at full width")
     train_launches, trainer = train(ptt, kernels)
+    # its trained parameters, for phase 38's generation
+    lm_params = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    atexit.register(shutil.rmtree, lm_params, ignore_errors=True)
+    ptt.io.save_params(trainer[0], lm_params, main_program=trainer[1],
+                       scope=trainer[2])
 
     _phase("phase 8: train on packed ragged sequences at full width")
     train_packed(ptt, kernels)
@@ -5776,6 +6509,12 @@ def main():
     paths["transformer_base_profile"] = profile_train(
         (tr_trainer.exe, tr_trainer.train_program, tr_trainer.scope,
          tr_trainer.loss, tr_feeds))
+    # its trained parameters, for phase 39's generation
+    tr_params = tempfile.mkdtemp(prefix="chip_smoke_transformer_")
+    atexit.register(shutil.rmtree, tr_params, ignore_errors=True)
+    ptt.io.save_params(tr_trainer.exe, tr_params,
+                       main_program=tr_trainer.train_program,
+                       scope=tr_trainer.scope)
     del tr_trainer, tr_feeds
     torch.cuda.empty_cache()
 
@@ -5886,6 +6625,26 @@ def main():
     _phase("phase 37: SSD and CRNN at test width and this slice's ops, "
            "card against CPU")
     paths["ocr_detection_reference"] = ocr_detection_reference_check(ptt)
+    torch.cuda.empty_cache()
+
+    _phase("phase 38: generate with phase 7's LM at full width "
+           "(transformer_lm_generate: greedy b16 and b64, beam 4 b16)")
+    try:
+        paths["lm_generate"] = generate_lm(ptt, kernels, lm_params)
+    finally:
+        shutil.rmtree(lm_params, ignore_errors=True)
+
+    _phase("phase 39: generate with phase 15's Transformer-base "
+           "(transformer_generate: beam 4 and 1, K1 in the encoder)")
+    try:
+        paths["nmt_generate"] = generate_nmt(ptt, kernels, tr_params)
+    finally:
+        shutil.rmtree(tr_params, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    _phase("phase 40: generators, run_steps, py_reader, the fused "
+           "sequences and the fault cases, card against CPU")
+    paths["generate_reference"] = generate_reference_check(ptt, kernels)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -5948,6 +6707,19 @@ def main():
             f"{kern} was never launched on its {k[9:]} path"
     results["flash_fwd"]["launches_tc_transformer_base_infer"] = \
         paths["transformer_base_infer"]["flash_fwd_tc_launches"]
+    # generation (phases 38-39): K4 in every decode step of both
+    # generators, K1 in the encoder-decoder's encoder
+    results["decode_attention"]["launches_generate"] = \
+        paths["lm_generate"]["launches"]["decode_attention"]
+    results["decode_attention"]["launches_generate_nmt"] = \
+        paths["nmt_generate"]["launches"]["decode_attention"]
+    results["flash_fwd"]["launches_generate"] = \
+        paths["nmt_generate"]["launches"]["flash_fwd"]
+    for kern, k in (("decode_attention", "launches_generate"),
+                    ("decode_attention", "launches_generate_nmt"),
+                    ("flash_fwd", "launches_generate")):
+        assert results[kern][k] > 0, \
+            f"{kern} was never launched on its {k[9:]} path"
     del launches["decode_attention_multi"], launches["decode_attention_int8"]
     line = {"kernels": [dict(name=k, **_KERNEL_META[k],
                              launches=launches[k], **results[k])

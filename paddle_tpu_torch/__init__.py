@@ -29,16 +29,18 @@ ROADMAP.md lists what is still to be ported.
 
 from . import clip, initializer, layers, optimizer, regularizer  # noqa: F401
 from .core import (CPUPlace, CUDAPlace, Place, default_place,  # noqa: F401
-                   is_compiled_with_cuda)
+                   device_count, devices, is_compiled_with_cuda)
 from .core import flags, unique_name  # noqa: F401
 from .framework.backward import append_backward, calc_gradient  # noqa: F401
 from .framework.executor import Executor  # noqa: F401
-from .framework.passes import get_pass, register_pass  # noqa: F401
+from .framework.passes import (Analyzer, Pass, get_pass,  # noqa: F401
+                               register_pass, registered_passes)
 from .framework.program import (Program, Variable,  # noqa: F401
                                 default_main_program, default_startup_program,
                                 program_guard, reset_default_programs)
 from .framework.registry import registered_ops  # noqa: F401
 from .framework.scope import Scope, global_scope, reset_global_scope  # noqa: F401
+from .framework.selected_rows import SelectedRows  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from . import data, io, models, nets, observability, serving  # noqa: F401,E402
 from . import average, parallel, transpiler  # noqa: F401,E402

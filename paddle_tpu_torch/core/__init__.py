@@ -3,4 +3,5 @@ from .enforce import (EnforceError, InvalidArgumentError, NotFoundError,  # noqa
                       enforce)
 from .flags import get_flag, set_flag  # noqa: F401
 from .places import (CPUPlace, CUDAPlace, Place, default_place,  # noqa: F401
-                     is_compiled_with_cuda, place_to_device)
+                     device_count, devices, is_compiled_with_cuda,
+                     place_to_device)

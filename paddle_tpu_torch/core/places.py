@@ -8,6 +8,7 @@ the CPU on its own. Pass `CPUPlace()` to run on the CPU, as the tests do.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List, Optional
 
 import torch
 
@@ -34,6 +35,23 @@ def CUDAPlace(device_id: int = 0) -> Place:  # noqa: N802
 
 def is_compiled_with_cuda() -> bool:
     return torch.cuda.is_available()
+
+
+def devices(kind: Optional[str] = None) -> List[torch.device]:
+    """The visible devices of a kind (≙ the JAX package's `devices`):
+    the CUDA cards by default ("cuda" or "gpu"), or the one CPU device for
+    "cpu"."""
+    if kind == "cpu":
+        return [torch.device("cpu")]
+    if kind not in (None, "cuda", "gpu"):
+        raise InvalidArgumentError(f"unknown device kind {kind!r}")
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def device_count(kind: Optional[str] = None) -> int:
+    return len(devices(kind))
 
 
 def default_place() -> Place:

@@ -1,20 +1,23 @@
 // Fused decode-attention step for Hopper (sm_90a): one KV-cache tick's
 // softmax(q . K^T * scale + bias) . V for G query positions (G = 1 on the
-// decode tick, gamma + 1 on a speculative verify forward), over a float32
-// or an int8 cache.
+// decode tick, gamma + 1 on a speculative verify forward), over a float32,
+// a bfloat16 or an int8 cache.
 //
 // Replaces paddle_tpu/fusion/decode_attention.py:_decode_step_kernel (the
 // Pallas TPU kernel, driven by _decode_pallas). It computes what that
 // kernel computes: scores, max and sum in float32, the output cast to q's
 // type once. The JAX package sends a G > 1 window and an int8 cache
 // (dequantized to q's type before the call, :218-221) through its XLA
-// composite; here both run in this kernel. It does not copy the TPU
+// composite; here both run in this kernel. A bfloat16 cache (the
+// encoder-decoder's cross-attention keys, projected by a bfloat16 fc) is
+// read as the TPU kernel reads it: each element widened to float32. It does not copy the TPU
 // kernel's blocking: that kernel pads heads to 8 and positions to 128 for
 // the Mosaic tiling and runs its grid in order; here nothing is padded and
 // the cache is split across blocks.
 //
 // Bound: memory. One call reads K and V once (2 * R * nh * T * dh bytes
-// times 4 for float32, 1 for int8, plus one float32 scale a time block)
+// times 4 for float32, 2 for bfloat16, 1 for int8, plus one float32 scale
+// a time block)
 // and does about 4 * G flops per cache element, far below the card's
 // balance point for float32 math at any verify width, so the least time is
 // the cache bytes over the memory rate: a G-wide window costs the bytes of
@@ -61,7 +64,8 @@
 // 1M at dh = 512) and 65535 tiles of query rows. Head dims 1 to 512.
 //
 // Layouts (the wrapper makes them so): q, out [R, nh, G, dh] contiguous;
-// k, v [R, nh, T, dh] contiguous float32 or int8 (each on its own); their
+// k, v [R, nh, T, dh] contiguous float32, bfloat16 or int8 (each on its
+// own); an int8 cache's
 // scales [R, nh, n_scales] contiguous float32 (T % n_scales == 0); bias
 // float32 addressed as bias[r * row_stride + h * head_stride + g *
 // g_stride + t] (head stride 0 when one mask serves every head).
@@ -179,11 +183,16 @@ __device__ float block_sum(float v, float* red) {
 }
 
 
-// A cache element as float32: a float32 cache as it is; an int8 one
-// dequantized as float(k) * scale, rounded to q's type first.
+// A cache element as float32: a float32 cache as it is, a bfloat16 one
+// widened exactly; an int8 one dequantized as float(k) * scale, rounded to
+// q's type first.
 template <typename TQ>
 __device__ __forceinline__ float kv_at(const float* p, int i, float) {
   return p[i];
+}
+template <typename TQ>
+__device__ __forceinline__ float kv_at(const __nv_bfloat16* p, int i, float) {
+  return __bfloat162float(p[i]);
 }
 template <typename TQ>
 __device__ __forceinline__ float kv_at(const int8_t* p, int i, float sc) {
@@ -535,13 +544,23 @@ cudaError_t dispatch_nj(int dh, const Args& a, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
+// cache type codes of the C interface
+constexpr int kFloat32 = 0, kInt8 = 1, kBfloat16 = 2;
+
+template <typename TQ, typename TK>
+cudaError_t dispatch_v(int v_type, const Args& a, cudaStream_t s) {
+  if (v_type == kInt8) return dispatch_nj<TQ, TK, int8_t>(a.dh, a, s);
+  if (v_type == kBfloat16)
+    return dispatch_nj<TQ, TK, __nv_bfloat16>(a.dh, a, s);
+  return dispatch_nj<TQ, TK, float>(a.dh, a, s);
+}
+
 template <typename TQ>
-cudaError_t dispatch_kv(int k_int8, int v_int8, const Args& a,
+cudaError_t dispatch_kv(int k_type, int v_type, const Args& a,
                         cudaStream_t s) {
-  if (k_int8 && v_int8) return dispatch_nj<TQ, int8_t, int8_t>(a.dh, a, s);
-  if (k_int8) return dispatch_nj<TQ, int8_t, float>(a.dh, a, s);
-  if (v_int8) return dispatch_nj<TQ, float, int8_t>(a.dh, a, s);
-  return dispatch_nj<TQ, float, float>(a.dh, a, s);
+  if (k_type == kInt8) return dispatch_v<TQ, int8_t>(v_type, a, s);
+  if (k_type == kBfloat16) return dispatch_v<TQ, __nv_bfloat16>(v_type, a, s);
+  return dispatch_v<TQ, float>(v_type, a, s);
 }
 
 }  // namespace
@@ -563,14 +582,14 @@ int ptt_decode_attention_chunk(int R, int nh, int T, int dh) {
   return (T + c - 1) / c > kMaxSplits ? -1 : c;
 }
 
-// q_is_bf16: 0 for float32 q/out, 1 for bfloat16 q/out. k_is_int8 /
-// v_is_int8: 0 for a float32 cache, 1 for an int8 one with its scales
-// [R * nh, n_kscale] / [R * nh, n_vscale] (ignored for float32).
+// q_is_bf16: 0 for float32 q/out, 1 for bfloat16 q/out. k_type / v_type:
+// 0 for a float32 cache, 2 for a bfloat16 one, 1 for an int8 one with its
+// scales [R * nh, n_kscale] / [R * nh, n_vscale] (ignored otherwise).
 // scratch: the partials, [R * nh, n_split, G, dh + 2] float32, n_split =
 // ceil(T / chunk) for ptt_decode_attention_chunk's chunk. Launches the
 // split kernel and the merge on `stream`, does not synchronize, and
 // returns the first launch error (cudaError_t, 0 on success).
-int ptt_decode_attention(int q_is_bf16, int k_is_int8, int v_is_int8,
+int ptt_decode_attention(int q_is_bf16, int k_type, int v_type,
                          const void* q, const void* k, const void* v,
                          const void* k_scale, const void* v_scale,
                          int n_kscale, int n_vscale, const void* bias,
@@ -583,17 +602,21 @@ int ptt_decode_attention(int q_is_bf16, int k_is_int8, int v_is_int8,
       (G + kRowsPerBlock - 1) / kRowsPerBlock > kMaxRowTiles ||
       (long long)R * nh * G > 2147483647LL)
     return cudaErrorInvalidValue;
-  if ((k_is_int8 && (n_kscale < 1 || T % n_kscale != 0 || !k_scale)) ||
-      (v_is_int8 && (n_vscale < 1 || T % n_vscale != 0 || !v_scale)))
+  if (k_type < kFloat32 || k_type > kBfloat16 || v_type < kFloat32 ||
+      v_type > kBfloat16)
+    return cudaErrorInvalidValue;
+  const bool k_int8 = k_type == kInt8, v_int8 = v_type == kInt8;
+  if ((k_int8 && (n_kscale < 1 || T % n_kscale != 0 || !k_scale)) ||
+      (v_int8 && (n_vscale < 1 || T % n_vscale != 0 || !v_scale)))
     return cudaErrorInvalidValue;
   Args a = {};
   a.q = q;
   a.k = k;
   a.v = v;
-  a.k_scale = k_is_int8 ? static_cast<const float*>(k_scale) : nullptr;
-  a.v_scale = v_is_int8 ? static_cast<const float*>(v_scale) : nullptr;
-  a.n_kscale = k_is_int8 ? n_kscale : 1;
-  a.n_vscale = v_is_int8 ? n_vscale : 1;
+  a.k_scale = k_int8 ? static_cast<const float*>(k_scale) : nullptr;
+  a.v_scale = v_int8 ? static_cast<const float*>(v_scale) : nullptr;
+  a.n_kscale = k_int8 ? n_kscale : 1;
+  a.n_vscale = v_int8 ? n_vscale : 1;
   a.k_bt = T / a.n_kscale;
   a.v_bt = T / a.n_vscale;
   a.bias = static_cast<const float*>(bias);
@@ -612,8 +635,8 @@ int ptt_decode_attention(int q_is_bf16, int k_is_int8, int v_is_int8,
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
-      q_is_bf16 ? dispatch_kv<__nv_bfloat16>(k_is_int8, v_is_int8, a, s)
-                : dispatch_kv<float>(k_is_int8, v_is_int8, a, s);
+      q_is_bf16 ? dispatch_kv<__nv_bfloat16>(k_type, v_type, a, s)
+                : dispatch_kv<float>(k_type, v_type, a, s);
   return static_cast<int>(e);
 }
 

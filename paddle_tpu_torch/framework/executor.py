@@ -12,6 +12,10 @@ carries over:
   variables, and `apply_fusion_passes` on a clone of the program;
 - `Executor.prepare` → `PreparedStep` with `run`, `bind`, `refresh_state`
   and `run_bound` for the serving engine's tick;
+- `Executor.run_steps`: k steps of one feed signature in one call, the
+  fetches stacked over steps, state as after the last step;
+- the all-ones `@batch_row_mask` feed when a program declares
+  `layers.batch_row_mask()` and the caller does not feed it;
 - feed staging: a data var declared with a staging dtype may be fed in
   it (uint8 images), and is cast and scaled on the device;
 - the JAX executor's spans (`executor/trace_and_compile` around the plan
@@ -29,7 +33,8 @@ buffers to XLA and rebinds the scope to the returned arrays. So a
 parameter keeps its tensor identity across steps. Fetches come back as
 device tensors from `PreparedStep`, as numpy arrays from `Executor.run` by
 default (a fetched tensor of read-write state is that state: a later step
-changes it). Gradients (`<param>@GRAD`) can be fetched like any variable.
+changes it; a numpy fetch is a copy). Gradients (`<param>@GRAD`) can be
+fetched like any variable.
 """
 
 from __future__ import annotations
@@ -41,12 +46,13 @@ import torch
 
 from ..core import flags
 from ..core.dtypes import dtype_name
-from ..core.enforce import NotFoundError
+from ..core.enforce import InvalidArgumentError, NotFoundError, enforce
 from ..core.places import Place, resolve_device
 from ..observability import memory as _memory
 from ..observability import tracing as _tracing
 from .lowering import build_plan, run_plan
-from .program import Program, Variable, default_main_program
+from .program import (BATCH_ROW_MASK_NAME, Program, Variable,
+                      default_main_program)
 from .registry import LowerCtx
 from .scope import Scope, global_scope
 
@@ -65,13 +71,18 @@ def _feed_signature(feed: Dict[str, Any]):
 
 
 def as_numpy(t) -> np.ndarray:
-    """Device tensor → numpy. numpy has no bfloat16, so bfloat16 tensors
-    come back as float32 (exact: every bfloat16 value is a float32)."""
+    """Device tensor → numpy, a copy of the tensor's values as they are
+    now (as jax arrays are): a CPU tensor's own memory is not shared, so
+    a fetched parameter keeps its value when a later step updates the
+    parameter in place. numpy has no bfloat16, so bfloat16 tensors come
+    back as float32 (exact: every bfloat16 value is a float32)."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
     t = t.detach()
     if t.dtype == torch.bfloat16:
-        t = t.float()
+        return t.float().cpu().numpy()
+    if t.device.type == "cpu":
+        return t.numpy().copy()
     return t.cpu().numpy()
 
 
@@ -239,6 +250,7 @@ class Executor:
         self.device = resolve_device(place)
         self._cache: Dict[Any, _Plan] = {}
         self._run_counter = 0
+        self._row_masks: Dict[int, torch.Tensor] = {}
 
     # -- planning ---------------------------------------------------------
     def _scope_avail_key(self, program: Program, scope: Scope):
@@ -314,6 +326,26 @@ class Executor:
             self._cache[key] = plan
         return plan
 
+    def _synthesize_batch_mask(self, program: Program,
+                               feed: Dict[str, Any]) -> Dict[str, Any]:
+        """≙ the JAX executor's `_synthesize_batch_mask`: when the program
+        declares the batch-row mask (layers.batch_row_mask) and the caller
+        did not feed it, feed all-ones of the batch length — every row of
+        a directly run batch is real. The mask is made on the device once
+        per batch length and reused, so it costs no copy a step."""
+        if (BATCH_ROW_MASK_NAME not in program.global_block().vars
+                or BATCH_ROW_MASK_NAME in feed):
+            return feed
+        bs = next((np.shape(v)[0] for v in feed.values()
+                   if np.ndim(v) >= 1), None)
+        if bs is not None:
+            mask = self._row_masks.get(bs)
+            if mask is None:
+                mask = self._row_masks[bs] = torch.ones(
+                    bs, dtype=torch.float32, device=self.device)
+            feed[BATCH_ROW_MASK_NAME] = mask
+        return feed
+
     # -- execution --------------------------------------------------------
     def _to_device(self, v) -> torch.Tensor:
         t = torch.as_tensor(v) if not isinstance(v, torch.Tensor) else v
@@ -376,7 +408,7 @@ class Executor:
             return_numpy: bool = True):
         """≙ Executor.run. Missing fetch vars raise."""
         program = program or default_main_program()
-        feed = dict(feed or {})
+        feed = self._synthesize_batch_mask(program, dict(feed or {}))
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
@@ -400,6 +432,72 @@ class Executor:
             return [as_numpy(f) for f in fetches]
         return list(fetches)
 
+    def run_steps(self,
+                  feed_list: Sequence[Dict[str, Any]],
+                  fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
+                  program: Optional[Program] = None,
+                  scope: Optional[Scope] = None,
+                  return_numpy: bool = True):
+        """Run len(feed_list) steps of `program` in one call (≙ the JAX
+        executor's `run_steps`, which scans one compiled step over the
+        stacked feeds). All feeds share one signature. Returns a list over
+        fetch_list of values stacked over steps (the per-step loss curve,
+        say); read-write state ends as after the last step, and write-only
+        state holds the last step's value.
+
+        The plan is built once; the feeds are stacked and copied to the
+        device in one transfer per name; each step reads its slice and
+        writes its state back to the scope on the device, so no step
+        waits on the host. A fetched tensor that a later step updates in
+        place is copied on the device; the stacked fetches cross to the
+        host once, after the last step."""
+        program = program or default_main_program()
+        enforce(len(feed_list) >= 1, "run_steps needs at least one feed",
+                exc=InvalidArgumentError)
+        feed_list = [self._synthesize_batch_mask(program, dict(f))
+                     for f in feed_list]
+        sig0 = _feed_signature(feed_list[0])
+        for f in feed_list[1:]:
+            enforce(_feed_signature(f) == sig0,
+                    "run_steps feeds must share one signature "
+                    "(same names, shapes, dtypes)",
+                    exc=InvalidArgumentError)
+        scope = scope or global_scope()
+        fetch_names = [f.name if isinstance(f, Variable) else f
+                       for f in (fetch_list or [])]
+        plan = self._lookup_or_plan(program, feed_list[0], fetch_names,
+                                    scope)
+        with _tracing.span("feed_fetch", "executor/feed",
+                           n_feeds=len(plan.feed_names), steps=len(feed_list)):
+            stacks = [self._feed_stack([f[n] for f in feed_list])
+                      for n in plan.feed_names]
+        updated = set(plan.rw_names)
+        per_step = []
+        with _tracing.span("step", "executor/run_steps",
+                           steps=len(feed_list)):
+            for i in range(len(feed_list)):
+                ro_vals = tuple(scope.get(n) for n in plan.ro_names)
+                rw_vals = tuple(scope.get(n) for n in plan.rw_names)
+                env = self._run_env(plan, tuple(s[i] for s in stacks),
+                                    ro_vals, rw_vals, program.random_seed)
+                self._write_back(plan, env, scope)
+                per_step.append(tuple(
+                    env[n].clone() if n in updated else env[n]
+                    for n in plan.fetch_names))
+        self._note_run_memory(plan, ro_vals, rw_vals)
+        fetches = [torch.stack([torch.as_tensor(step[j]) for step in per_step])
+                   for j in range(len(plan.fetch_names))]
+        if return_numpy:
+            return [as_numpy(f) for f in fetches]
+        return fetches
+
+    def _feed_stack(self, values) -> torch.Tensor:
+        """k same-shaped feeds as one [k, ...] device tensor: one copy."""
+        if all(isinstance(v, torch.Tensor) for v in values):
+            return self._to_device(torch.stack(
+                [v.to(self.device) for v in values]))
+        return self._to_device(np.stack([np.asarray(v) for v in values]))
+
     def prepare(self,
                 program: Optional[Program] = None,
                 feed: Optional[Dict[str, Any]] = None,
@@ -410,7 +508,7 @@ class Executor:
         run() skips every per-call setup cost. `feed` is an EXAMPLE feed
         carrying the signature every later call must match."""
         program = program or default_main_program()
-        feed = dict(feed or {})
+        feed = self._synthesize_batch_mask(program, dict(feed or {}))
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
         scope = scope or global_scope()

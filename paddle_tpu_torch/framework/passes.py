@@ -1,22 +1,26 @@
-"""Program pass framework: Pass base, registry, the two fusion passes and
-the weight-only quantization pass.
+"""Program pass framework: Pass base, registry, the pruning and memory
+passes, the two fusion passes, the weight-only quantization pass and the
+Analyzer pass manager.
 
 ≙ paddle_tpu/framework/passes.py (itself ≙ the reference's framework/ir
-ir::Pass + PassRegistry), trimmed to what the ported slices run: the
-executor applies `fuse_recurrent_cell_pass` and
-`fuse_decode_attention_pass` to one clone of every program it plans
-(`apply_fusion_passes`); the serving engines apply
-`quantize_params_pass` to their tick programs (`quant=`).
+ir::Pass + PassRegistry): the executor applies `fuse_recurrent_cell_pass`
+and `fuse_decode_attention_pass` to one clone of every program it plans
+(`apply_fusion_passes`); the serving engines apply `quantize_params_pass`
+to their tick programs (`quant=`). The passes that wrap modules still to
+be ported (`bn_fold_pass`, `quant_freeze_pass`, `graph_viz_pass`,
+`pipeline_partition_pass`, `check_pass`) come with them (ROADMAP.md §1
+item 4), and so does the JAX package's verify-before / verify-after
+sanitizer around each apply.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 from ..core.enforce import (AlreadyExistsError, InvalidArgumentError,
                             NotFoundError)
 from .program import Program
-from .scope import Scope
+from .scope import Scope, global_scope
 
 
 class Pass:
@@ -58,11 +62,49 @@ def register_pass(name: str):
     return deco
 
 
+# passes of the JAX package that wrap a module still to be ported
+_WAITING_PASSES = ("bn_fold_pass", "quant_freeze_pass", "graph_viz_pass",
+                   "pipeline_partition_pass", "check_pass")
+
+
 def get_pass(name: str, **attrs) -> Pass:
+    if name in _WAITING_PASSES:
+        raise NotFoundError(
+            f"pass {name!r} wraps a module the port does not have yet "
+            f"(ROADMAP.md §1 item 4)")
     if name not in _REGISTRY:
         raise NotFoundError(
             f"no pass named {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**attrs)
+
+
+def registered_passes() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+@register_pass("prune_pass")
+class PrunePass(Pass):
+    """Keep only the ops needed for `targets` (≙ framework/prune.cc via
+    Program.prune). attrs: targets=[var names or Variables]."""
+
+    allowed_attrs = ("targets",)
+
+    def apply(self, program, scope=None):
+        return program.prune(self.attrs["targets"])
+
+
+@register_pass("memory_optimize_pass")
+class MemoryOptimizePass(Pass):
+    """Remat and live-out narrowing (≙ memory_optimization_transpiler)."""
+
+    allowed_attrs = ("level", "skip_opt_set", "print_log")
+
+    def apply(self, program, scope=None):
+        from ..transpiler import memory_optimize
+        return memory_optimize(
+            program, level=self.attrs.get("level", 0),
+            skip_opt_set=self.attrs.get("skip_opt_set"),
+            print_log=self.attrs.get("print_log", False))
 
 
 @register_pass("fuse_recurrent_cell_pass")
@@ -477,3 +519,30 @@ def apply_fusion_passes(program: Program, protected=(),
                 f"device (the fuse_recurrent_cells flag is off); on the "
                 f"card they run only through the fused-cell kernels")
     return rewritten
+
+
+class Analyzer:
+    """Ordered pass manager preparing a trained program for serving
+    (≙ inference/analysis/analyzer.h:53 running its pass pipeline).
+
+        program = Analyzer(passes=["memory_optimize_pass"]).run(program)
+
+    The default list is the JAX package's, `bn_fold_pass`, which wraps the
+    inference transpiler and waits for it (ROADMAP.md §1 item 4): give the
+    passes to run until then."""
+
+    DEFAULT_PASSES = ["bn_fold_pass"]
+
+    def __init__(self, passes: Optional[List[str]] = None, **pass_attrs):
+        self.pass_names = list(passes or self.DEFAULT_PASSES)
+        self.pass_attrs = pass_attrs
+
+    def run(self, program: Program, scope: Optional[Scope] = None,
+            targets=None) -> Program:
+        scope = scope or global_scope()
+        if targets is not None:
+            program = get_pass("prune_pass", targets=targets)(program, scope)
+        for name in self.pass_names:
+            attrs = self.pass_attrs.get(name, {})
+            program = get_pass(name, **attrs)(program, scope)
+        return program

@@ -22,6 +22,12 @@ from ..core.dtypes import convert_dtype, dtype_name
 from ..core.enforce import (AlreadyExistsError, InvalidArgumentError,
                             NotFoundError, enforce)
 
+# Reserved data-var name of the per-row batch validity mask (1.0 = a real
+# row), declared by layers.batch_row_mask(); the Executor feeds all-ones
+# when the program declares it and the caller does not feed it.
+BATCH_ROW_MASK_NAME = "@batch_row_mask"
+
+
 class Variable:
     """A named tensor slot in a block (≙ VarDesc + fluid.framework.Variable,
     reference python/paddle/fluid/framework.py:142).

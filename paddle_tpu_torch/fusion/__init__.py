@@ -5,3 +5,5 @@ from .decode_attention import (QUANT_KV_BLOCK_T,  # noqa: F401
                                dequantize_kv_time_blocks,
                                fused_decode_attention,
                                quantize_kv_time_blocks)
+from .recurrent import (fused_gru_sequence,  # noqa: F401
+                        fused_lstm_sequence)

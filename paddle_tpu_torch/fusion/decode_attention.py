@@ -1,6 +1,6 @@
 """Fused decode-attention step: one KV-cache tick's Q·K^T·softmax·V in one
 kernel, for one query position or a speculative verify window, over a
-float32 or an int8 cache.
+float32, a bfloat16 or an int8 cache.
 
 ≙ paddle_tpu/fusion/decode_attention.py. `fuse_decode_attention_pass`
 (framework/passes.py) rewrites each layer's cached-decode chain
@@ -21,7 +21,9 @@ Three pieces, as for every kernel of the port:
   split kernel, then the merge: one call) and counts the call once in
   `kernels.LAUNCHES["decode_attention"]`, and also under
   `decode_attention_multi` for G > 1 and `decode_attention_int8` for an
-  int8 cache.
+  int8 cache. A bfloat16 cache (the encoder-decoder generator's
+  cross-attention keys and values come from bfloat16 fc layers) is read
+  as the Pallas kernel reads any cache: widened to float32.
 - `decode_attention_plain` — the same function in plain PyTorch, the
   arithmetic of the TPU kernel written out: an int8 cache dequantized to
   q's dtype (`dequantize_kv_time_blocks`), then scores, max and sum in
@@ -57,7 +59,8 @@ MAX_HEAD_DIM = 512
 #: time-axis tile of an int8 cache: one f32 scale per <= 8 cache steps
 QUANT_KV_BLOCK_T = 8
 
-_CACHE_TYPES = (torch.float32, torch.int8)
+#: the caches' types, by the kernel's type code
+_CACHE_TYPES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 
 
 def _fit_time_block(t, block):
@@ -179,7 +182,7 @@ def _check_scales(name, sc, cache, r, nh, t, dev):
 def decode_attention_cuda(q, k, v, bias, scale, k_scale=None, v_scale=None):
     """Launch the CUDA kernel: q [R, nh, G, dh] (or [R, nh, dh], one
     position) float32 or bfloat16 contiguous; k/v [R, nh, T, dh]
-    contiguous, each float32, or int8 with its scales float32
+    contiguous, each float32, bfloat16, or int8 with its scales float32
     [R, nh, T//bt] from `quantize_kv_time_blocks`; bias [R, nh, G, T] (or
     [R, nh, T]) float32 with unit stride along T (any other strides, 0
     included). Returns q's shape in q's dtype, for head dims up to 512, T
@@ -198,9 +201,9 @@ def decode_attention_cuda(q, k, v, bias, scale, k_scale=None, v_scale=None):
                         f"bfloat16, got {q4.dtype}")
     if k.dtype not in _CACHE_TYPES or v.dtype not in _CACHE_TYPES \
             or b4.dtype != torch.float32:
-        raise TypeError(f"decode_attention_cuda: K and V must be float32 or "
-                        f"int8 (the caches' types) and bias float32, got "
-                        f"{k.dtype}, {v.dtype}, {b4.dtype}")
+        raise TypeError(f"decode_attention_cuda: K and V must be float32, "
+                        f"bfloat16 or int8 (the caches' types) and bias "
+                        f"float32, got {k.dtype}, {v.dtype}, {b4.dtype}")
     if tuple(k.shape) != (r, nh, t, dh) or tuple(v.shape) != (r, nh, t, dh) \
             or tuple(b4.shape) != (r, nh, g, t):
         raise ValueError(f"decode_attention_cuda: shapes q {tuple(q.shape)}"
@@ -224,8 +227,8 @@ def decode_attention_cuda(q, k, v, bias, scale, k_scale=None, v_scale=None):
         part = torch.empty((r * nh, n_split, g, dh + 2),
                            dtype=torch.float32, device=dev)
         err = lib.ptt_decode_attention(
-            int(q4.dtype == torch.bfloat16), int(ks is not None),
-            int(vs is not None), q4.data_ptr(), k.data_ptr(), v.data_ptr(),
+            int(q4.dtype == torch.bfloat16), _CACHE_TYPES[k.dtype],
+            _CACHE_TYPES[v.dtype], q4.data_ptr(), k.data_ptr(), v.data_ptr(),
             ks.data_ptr() if ks is not None else None,
             vs.data_ptr() if vs is not None else None,
             ks.shape[2] if ks is not None else 1,

@@ -390,11 +390,28 @@ def _wants_grad(*tensors):
 # ---------------------------------------------------------------------------
 
 
-def fused_lstm_sequence(x, h0, c0, w, seqlen, reverse=False):
+def _check_backend(backend):
+    """`backend` is kept for the JAX package's signature and takes None
+    only: the kernel for a CUDA tensor, the plain version for a CPU one.
+    The JAX package's TPU backends ("pallas", "pallas_interpret", "xla")
+    and any other value raise; none picks the plain version for a CUDA
+    tensor."""
+    if backend is not None:
+        from ..core.enforce import InvalidArgumentError
+        raise InvalidArgumentError(
+            f"backend {backend!r}: the port picks K5 / K6 or the plain "
+            f"version by the tensors' device (backend=None); the JAX "
+            f"package's TPU backends do not exist here")
+
+
+def fused_lstm_sequence(x, h0, c0, w, seqlen, reverse=False, backend=None):
     """Whole-sequence fused LSTM. x [B, T, 4H] pre-projected (+bias), w
     [H, 4H] recurrent, seqlen [B] int; returns (hidden, cell) [B, T, H].
     The same function as the `dynamic_lstm` loop with the default
-    activations, forward and gradient."""
+    activations, forward and gradient. K5 on CUDA tensors (float32 only:
+    another type raises naming ROADMAP.md item 3), the plain version on
+    CPU tensors; `backend` as `_check_backend` says."""
+    _check_backend(backend)
     if reverse:
         x = torch.flip(x, (1,))
     if _wants_grad(x, h0, c0, w):
@@ -406,9 +423,12 @@ def fused_lstm_sequence(x, h0, c0, w, seqlen, reverse=False):
     return hs, cs
 
 
-def fused_gru_sequence(x, h0, w, seqlen, reverse=False):
+def fused_gru_sequence(x, h0, w, seqlen, reverse=False, backend=None):
     """Whole-sequence fused GRU. x [B, T, 3H] pre-projected (+bias), w
-    [H, 3H] (reset/update | candidate); returns hidden [B, T, H]."""
+    [H, 3H] (reset/update | candidate); returns hidden [B, T, H]. K6 on
+    CUDA tensors, the plain version on CPU tensors, as
+    fused_lstm_sequence."""
+    _check_backend(backend)
     if reverse:
         x = torch.flip(x, (1,))
     if _wants_grad(x, h0, w):

@@ -50,6 +50,18 @@ class NormalInitializer(Initializer):
                                "dtype": dtype_name(var.dtype)})
 
 
+class TruncatedNormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op("truncated_gaussian_random",
+                        outputs={"Out": [var.name]},
+                        attrs={"shape": list(var.shape), "mean": self.loc,
+                               "std": self.scale, "seed": self.seed,
+                               "dtype": dtype_name(var.dtype)})
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) == 1:
@@ -97,6 +109,23 @@ class MSRAInitializer(Initializer):
             NormalInitializer(0.0, std, self.seed)(var, block)
 
 
+class BilinearInitializer(Initializer):
+    """≙ fluid.initializer.Bilinear — upsampling deconv filter init."""
+
+    def __call__(self, var, block):
+        shape = var.shape
+        f = np.ceil(shape[-1] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        weight = np.zeros(shape, dtype=np.float32)
+        for idx in np.ndindex(*shape):
+            x, y = idx[-1], idx[-2]
+            weight[idx] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        block.append_op("assign_value", outputs={"Out": [var.name]},
+                        attrs={"shape": list(shape),
+                               "dtype": dtype_name(var.dtype),
+                               "values": weight.reshape(-1).tolist()})
+
+
 class NumpyArrayInitializer(Initializer):
     def __init__(self, value: np.ndarray):
         self.value = np.asarray(value)
@@ -112,8 +141,10 @@ class NumpyArrayInitializer(Initializer):
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
+Bilinear = BilinearInitializer
 
 
 def _global_weight_initializer():

@@ -36,7 +36,7 @@ import torch
 from .core.dtypes import convert_dtype
 from .core.enforce import InvalidArgumentError, NotFoundError, enforce
 from .core.places import Place, resolve_device
-from .framework.executor import Executor
+from .framework.executor import Executor, as_numpy  # noqa: F401
 from .framework.program import (Parameter, Program, Variable,
                                 default_main_program, default_startup_program)
 from .framework.scope import Scope, global_scope

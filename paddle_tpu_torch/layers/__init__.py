@@ -8,7 +8,7 @@ from .control_flow import (DynamicRNN, IfElse, StaticRNN,  # noqa: F401
                            greater_than, increment, less_equal, less_than,
                            not_equal)
 from .device import get_places  # noqa: F401
-from .io import data  # noqa: F401
+from .io import batch_row_mask, data  # noqa: F401
 from .learning_rate_scheduler import (autoincreased_step_counter,  # noqa: F401
                                       cosine_decay, exponential_decay,
                                       inverse_time_decay, natural_exp_decay,
@@ -53,3 +53,9 @@ from .tensor import (argmax, argmin, argsort, assign, cast,  # noqa: F401
                      concat, create_tensor, fill_constant,
                      fill_constant_batch_size_like, ones, reverse, sums,
                      zeros, zeros_like)
+# the names the JAX package's layers namespace re-exports from its modules
+from ..framework.program import Variable  # noqa: F401,E402
+from ..initializer import (ConstantInitializer,  # noqa: F401,E402
+                           NormalInitializer)
+from ..layer_helper import LayerHelper  # noqa: F401,E402
+from ..param_attr import ParamAttr  # noqa: F401,E402

@@ -188,6 +188,10 @@ class StaticRNN:
     def step_output(self, out: Variable):
         self._step_outputs.append(out)
 
+    def output(self, *outputs):
+        for o in outputs:
+            self.step_output(o)
+
     def set_sequence_lengths(self, seq_lens: Variable):
         """Freeze memories and zero outputs past each sequence's length."""
         self._seq_lens = seq_lens

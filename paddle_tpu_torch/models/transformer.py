@@ -1,13 +1,17 @@
 """Transformer models: the encoder-decoder `transformer` (Transformer-base
-NMT), the decoder-only LM's training step and its serving decode tick.
+NMT), the decoder-only LM's training step, generation through both, and
+the LM's serving decode ticks.
 
-≙ paddle_tpu/models/transformer.py, trimmed to `transformer` (with
+≙ paddle_tpu/models/transformer.py, all of it: `transformer` (with
 `encoder_layer`, `decoder_layer` and the decomposed label smoothing),
-`transformer_lm` (the train graph, padded and packed),
+`transformer_lm` (the train graph, padded and packed), the two generators
+`transformer_generate` and `transformer_lm_generate` (greedy or beam
+search over per-layer KV caches in one StaticRNN),
 `transformer_lm_decode_tick` (what the continuous-batching engine builds),
 the speculative verify tick, the paged decode and verify ticks (what the
-paged KV engine builds) and their helpers. Parameter names and build order are the JAX package's,
-so weights carry across by name (io.load_numpy_params).
+paged KV engine builds) and their helpers. Parameter names and build
+order are the JAX package's, so weights carry across by name
+(io.load_numpy_params).
 
 Every dropout site is the JAX package's: the attention weights (training
 with attention dropout takes the explicit softmax route; otherwise, and at
@@ -376,6 +380,175 @@ def _step_mask_bias(pos, arange):
     valid = layers.cast(
         layers.less_than(layers.assign(arange), _next_pos(pos)), "float32")
     return _mask_to_bias(valid, axes=[2, 3])
+
+
+def _init_gen_states(batch_ref, K, T, H, num_layers, num_heads):
+    """The decode loop's initial carry: a position counter and zeroed
+    per-layer head-major KV caches, k and v both [B,K,nh,T,dh]. One layout
+    serves the score matmul (through transpose_y) and the context matmul,
+    and it is K4's: each step's `cache_write` writes one [.., 1, dh] row
+    on the T axis."""
+    d_head = H // num_heads
+    init = {"pos": layers.fill_constant_batch_size_like(
+        batch_ref, shape=[-1, K, 1], dtype="float32", value=0.0)}
+    for i in range(num_layers):
+        for sname in ("k", "v"):
+            init[f"{sname}{i}"] = layers.fill_constant_batch_size_like(
+                batch_ref, shape=[-1, K, num_heads, T, d_head],
+                dtype="float32", value=0.0)
+    return init
+
+
+def transformer_generate(src=None, src_vocab=30000, tgt_vocab=30000,
+                         max_src_len=64, max_gen=32, d_model=512,
+                         d_inner=2048, num_heads=8, num_layers=6,
+                         bos_id=0, eos_id=1, beam_size=4, dropout=0.0):
+    """Encoder-decoder generation: encode the source once (the is_test
+    encoder, whose attention is `fused_attention`, K1 on the card), then
+    decode with per-layer self-attention KV caches in the loop's carry.
+    The cross-attention keys and values are projected once outside the
+    loop as [B,1,nh,Ts,dh] and broadcast over the beam axis. Weights are
+    shared by name with a transformer(...) train graph of the same dims
+    (enc{i}_*, dec{i}_*, src/tgt_emb, proj): train, then build this in its
+    own program and run it in the same scope. Pass the `dropout` the train
+    graph used: each dropout site is corrected to its (1-p) inference
+    scaling, as is_test=True does on the train graph.
+
+    The executor's fuse_decode_attention_pass turns each layer's cached
+    self-attention into one `fused_decode_attention` (K4); the
+    cross-attention matches it only at beam 1, where its layout is the
+    query's.
+
+    Returns (sequences [B, max_gen, K], scores [B, K])."""
+    from ..contrib.decoder import BeamSearchDecoder
+
+    if src is None:
+        src = layers.data(name="src", shape=[max_src_len], dtype="int64",
+                          lod_level=1)
+    src_len = layers.sequence.get_seqlen(src)
+    K, T, H = beam_size, max_gen, d_model
+    Ts = max_src_len
+    d_head = d_model // num_heads
+
+    enc = _embed(src, src_vocab, d_model, Ts, "src")
+    if dropout:
+        enc = layers.dropout(enc, dropout_prob=dropout, is_test=True)
+    for i in range(num_layers):
+        enc = encoder_layer(enc, d_model, num_heads, d_inner, dropout,
+                            True, f"enc{i}")
+
+    # cross K/V once per layer: [B, 1, nh, Ts, dh] views that broadcast
+    # over the beam axis inside the loop
+    cross_k, cross_v = [], []
+    for i in range(num_layers):
+        ck = layers.fc(enc, size=H, num_flatten_dims=2, bias_attr=False,
+                       use_bf16=True, name=f"dec{i}_cross_k")
+        cv = layers.fc(enc, size=H, num_flatten_dims=2, bias_attr=False,
+                       use_bf16=True, name=f"dec{i}_cross_v")
+        ck = layers.transpose(
+            layers.reshape(ck, shape=[0, 1, Ts, num_heads, d_head]),
+            perm=[0, 1, 3, 2, 4])
+        cv = layers.transpose(
+            layers.reshape(cv, shape=[0, 1, Ts, num_heads, d_head]),
+            perm=[0, 1, 3, 2, 4])
+        cross_k.append(ck)
+        cross_v.append(cv)
+    src_mask = layers.sequence_mask(src_len, maxlen=Ts)   # [B,Ts]
+    src_bias = _mask_to_bias(src_mask, axes=[1, 2, 3])
+
+    decoder = BeamSearchDecoder(beam_size=K, bos_id=bos_id, eos_id=eos_id,
+                                max_len=T, name="nmt_gen")
+    pe_table = positional_encoding_table(T, d_model).astype("float32")
+    arange = np.arange(T, dtype="float32").reshape(1, 1, T)
+    init = _init_gen_states(src, K, T, H, num_layers, num_heads)
+
+    def step(states, ids_prev):
+        pos = states["pos"]
+        x = _gen_embed_step(ids_prev, pos, "tgt_emb", tgt_vocab,
+                            d_model, pe_table, dropout)
+        self_bias = _step_mask_bias(pos, arange)
+        new_states = {"pos": _next_pos(pos)}
+
+        for i in range(num_layers):
+            # causal self-attention over the KV cache
+            attn = _cached_self_attention(
+                x, states, new_states, i, f"dec{i}_self", K, T, num_heads,
+                d_head, pos, self_bias, dropout)
+            x = _add_norm(attn, x, dropout, True, name=f"dec{i}_ln1")
+
+            # cross-attention over the pre-projected encoder K/V
+            cq = layers.fc(x, size=H, num_flatten_dims=2, bias_attr=False,
+                           use_bf16=True, name=f"dec{i}_cross_q")
+            cctx = _attend_cached(cq, cross_k[i], cross_v[i], src_bias,
+                                  K, num_heads, d_head, dropout)
+            cattn = layers.fc(cctx, size=H, num_flatten_dims=2,
+                              bias_attr=False, use_bf16=True,
+                              name=f"dec{i}_cross_o")
+            x = _add_norm(cattn, x, dropout, True, name=f"dec{i}_ln2")
+            f = ffn(x, d_model, d_inner, dropout, True, name=f"dec{i}_ffn")
+            x = _add_norm(f, x, dropout, True, name=f"dec{i}_ln3")
+
+        logits = layers.fc(x, size=tgt_vocab, num_flatten_dims=2,
+                           use_bf16=True, name="proj")
+        return new_states, layers.log_softmax(logits)
+
+    return decoder.decode(src, init, step)
+
+
+def transformer_lm_generate(prompt=None, vocab=32000, max_gen=32,
+                            d_model=512, d_inner=2048, num_heads=8,
+                            num_layers=6, bos_id=0, eos_id=-1, beam_size=1,
+                            dropout=0.0, packed=False):
+    """Autoregressive generation with a per-layer KV cache: one StaticRNN
+    over max_gen positions, the caches [B,K,nh,T,dh] in its carry, each
+    step writing one row with `cache_write` and attending over the masked
+    cache (one `fused_decode_attention`, K4, per layer once the executor's
+    fusion pass has run). Weights are shared by name with a
+    transformer_lm(...) of the same dims (l{i}_attn_{q,k,v,o},
+    l{i}_ln{1,2}, l{i}_ffn_*, tok_emb, lm_head): train it, then build this
+    graph and run it in the same scope, passing the `dropout` and `packed`
+    flag the train graph used. Each dropout site is corrected to its
+    (1-p) inference scaling; packed training had no attention dropout, so
+    packed=True skips the attention context's (1-p) scaling.
+    Generation starts from the fed `prompt` ([B, 1] int64): each row's
+    token seeds the decode; `bos_id` is the start token only of a decoder
+    a caller builds itself. beam_size=1 is greedy; above 1 it is beam
+    search through the shared BeamSearchDecoder.
+
+    Returns (sequences [B, max_gen, K], scores [B, K])."""
+    from ..contrib.decoder import BeamSearchDecoder
+
+    if prompt is None:
+        prompt = layers.data(name="prompt", shape=[1], dtype="int64")
+    K, T, H = beam_size, max_gen, d_model
+    d_head = d_model // num_heads
+    decoder = BeamSearchDecoder(beam_size=K, bos_id=bos_id, eos_id=eos_id,
+                                max_len=T, name="lm_gen")
+
+    pe_table = positional_encoding_table(T, d_model).astype("float32")
+    arange = np.arange(T, dtype="float32").reshape(1, 1, T)
+    init = _init_gen_states(prompt, K, T, H, num_layers, num_heads)
+    attn_dropout = 0.0 if packed else dropout
+
+    def step(states, ids_prev):
+        pos = states["pos"]                                      # [B,K,1]
+        x = _gen_embed_step(ids_prev, pos, "tok_emb", vocab,
+                            d_model, pe_table, dropout)
+        bias = _step_mask_bias(pos, arange)
+        new_states = {"pos": _next_pos(pos)}
+        for i in range(num_layers):
+            attn = _cached_self_attention(
+                x, states, new_states, i, f"l{i}_attn", K, T, num_heads,
+                d_head, pos, bias, attn_dropout)
+            x = _add_norm(attn, x, dropout, True, name=f"l{i}_ln1")
+            f = ffn(x, d_model, d_inner, dropout, True, name=f"l{i}_ffn")
+            x = _add_norm(f, x, dropout, True, name=f"l{i}_ln2")
+
+        logits = layers.fc(x, size=vocab, num_flatten_dims=2, use_bf16=True,
+                           name="lm_head")
+        return new_states, layers.log_softmax(logits)
+
+    return decoder.decode(prompt, init, step, init_ids=prompt)
 
 
 def _slot_cache_var(name, shape, dtype="float32"):

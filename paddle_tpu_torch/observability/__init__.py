@@ -10,4 +10,4 @@ from .metrics import (Counter, Gauge, Histogram,  # noqa: F401
                       MetricsRegistry, MultiRegistry, default_registry)
 from .tracing import (SPAN_KINDS, Span, aggregate,  # noqa: F401
                       export_chrome_trace, record_counter, record_span,
-                      span, spans)
+                      scoped_tags, span, spans)

@@ -11,7 +11,9 @@ the executor feed:
   /metrics scrape and /healthz both carry the memory board;
 - **MFU** (`note_mfu`): predicted flops over measured step time as the
   `ptpu_mfu` gauge, a fraction of the H100's dense bfloat16 peak;
-- `per_device_bytes`: the bytes of one tensor (`numel × element_size`).
+- `per_device_bytes`: the bytes of one tensor (`numel × element_size`);
+- `state_census`: a plan's state bytes by category (params, optimizer
+  state, KV caches, ...), from the tensors' metadata.
 
 Every update is host arithmetic on numbers the caller already holds: no
 call here reads a device tensor, so none adds a host sync to a tick.
@@ -24,7 +26,7 @@ wait for ROADMAP.md §1 item 4 and raise NotImplementedError naming it.
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 from ..core.enforce import InvalidArgumentError
 
@@ -145,6 +147,38 @@ def per_device_bytes(val) -> float:
     if callable(numel):
         return float(numel() * val.element_size())
     return float(getattr(val, "nbytes", 0) or 0)
+
+
+def state_census(scope, program, names: Sequence[str],
+                 kv_names: Sequence[str] = ()) -> Dict:
+    """Measured state bytes by category for the named scope vars (a plan's
+    read-only + read-write lists), ≙ the JAX package's `state_census`:
+    params / params_quantized / params_draft / optimizer_state /
+    ef_residual / kv_cache / other_state, each summed from the tensors'
+    own bytes (`per_device_bytes`, metadata only: no device access).
+    `kv_names` marks the serving engine's cache vars, which are plain
+    persistables to the program."""
+    from ..framework.costs import state_category
+    kv = set(kv_names)
+    cats: Dict[str, float] = {"params": 0.0, "params_quantized": 0.0,
+                              "params_draft": 0.0,
+                              "optimizer_state": 0.0, "ef_residual": 0.0,
+                              "kv_cache": 0.0, "other_state": 0.0}
+    per_var: Dict[str, Dict] = {}
+    for name in names:
+        if not scope.has_var(name):
+            continue
+        nb = per_device_bytes(scope.get(name))
+        v = next((b.var(name) for b in program.blocks if b.has_var(name)),
+                 None)
+        if name in kv:
+            cat = "kv_cache"
+        else:
+            cat = state_category(v, name) if v is not None else "other_state"
+        cats[cat] += nb
+        per_var[name] = {"category": cat, "per_device_bytes": nb}
+    cats["state_total"] = sum(cats.values())
+    return {"categories": cats, "per_var": per_var}
 
 
 _ITEM4 = ("is not ported yet: it is the device-memory census of ROADMAP.md "

@@ -20,9 +20,14 @@ minting a new category that no aggregation ever finds. Spans time the
 HOST: a span around work that launches CUDA kernels measures the enqueue,
 not the device's execution, unless the work ends in a synchronization.
 
+`scoped_tags(**tags)` stamps its tags onto every span the thread records
+while it is open (`current_tags()` reads them); `force_enable(True)`
+records spans with the flag down until the matching force_enable(False).
+
 `annotation_factory` is the profiler hook: while it is set, each live
 span also enters the object it returns (a profiler range). The port's
-profiler module, which would set it, is ROADMAP.md §1 item 4.
+profiler module, which would set it and force_enable, is ROADMAP.md §1
+item 4, and so is `rank_scope`, the tag triple of a multi-process world.
 """
 
 from __future__ import annotations
@@ -103,11 +108,47 @@ _ring_cap = 0
 _seq = itertools.count()
 _resize_lock = threading.Lock()
 
-# per-thread nesting stack: (name, depth)
+# per-thread nesting stack: (name, depth), and the thread's tag dict
+# (scoped_tags), merged into every span the thread records
 _tls = threading.local()
 
-# profiler interop: an optional device-annotation factory, set while a
-# profiler's device trace runs
+
+class scoped_tags:
+    """Tag every span recorded by THIS thread while the scope is open:
+
+        with tracing.scoped_tags(world="w1", rank=2, world_size=4):
+            ...   # every span (and record_span) carries these attrs
+
+    Scopes nest (inner tags shadow outer ones of the same key, the rest
+    merge); a span's own attrs win over thread tags."""
+
+    __slots__ = ("tags", "_prev")
+
+    def __init__(self, **tags):
+        self.tags = tags
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "tags", None)
+        merged = dict(self._prev) if self._prev else {}
+        merged.update(self.tags)
+        _tls.tags = merged
+        return self
+
+    def __exit__(self, *exc):
+        _tls.tags = self._prev
+        return False
+
+
+def current_tags() -> Dict[str, Any]:
+    """This thread's active scoped_tags (empty dict outside any scope)."""
+    tags = getattr(_tls, "tags", None)
+    return dict(tags) if tags else {}
+
+
+# profiler interop: the count of open force_enable(True) calls (spans then
+# record with the trace flag down), and an optional device-annotation
+# factory, set while a profiler's device trace runs
+_force_count = 0
 annotation_factory: Optional[Callable[[str], Any]] = None
 
 
@@ -139,7 +180,15 @@ _TRACE_FLAG = flags._REGISTRY["trace"]
 
 
 def enabled() -> bool:
-    return bool(_TRACE_FLAG.value)
+    return bool(_TRACE_FLAG.value) or _force_count > 0
+
+
+def force_enable(on: bool):
+    """For a profiler: while it is open (force_enable(True) ...
+    force_enable(False), nesting), spans record whatever the PTPU_TRACE
+    flag says."""
+    global _force_count
+    _force_count = max(0, _force_count + (1 if on else -1))
 
 
 def mark() -> int:
@@ -189,7 +238,7 @@ class span:
         self._live = False
 
     def __enter__(self):
-        if not _TRACE_FLAG.value:
+        if not (_TRACE_FLAG.value or _force_count):
             return self
         stack = getattr(_tls, "stack", None)
         if stack is None:
@@ -217,9 +266,11 @@ class span:
         stack = getattr(_tls, "stack", None)
         if stack and stack[-1][0] == self.name:
             stack.pop()
+        tags = getattr(_tls, "tags", None)
+        attrs = {**tags, **self.attrs} if tags else self.attrs
         _record(Span(self.kind, self.name, self._start, end,
                      threading.get_ident(), self._parent, self._depth,
-                     self.attrs, next(_seq)))
+                     attrs, next(_seq)))
         self._live = False
         return False
 
@@ -235,8 +286,11 @@ def record_span(kind: str, name: str, start: float, end: float,
     if kind not in SPAN_KINDS:
         raise InvalidArgumentError(
             f"unknown span kind {kind!r}; known: {sorted(SPAN_KINDS)}")
-    if not _TRACE_FLAG.value:
+    if not (_TRACE_FLAG.value or _force_count):
         return None
+    tags = getattr(_tls, "tags", None)
+    if tags:
+        attrs = {**tags, **attrs}
     s = Span(kind, name, float(start), float(end),
              threading.get_ident(), "", 0, attrs, next(_seq))
     _record(s)
@@ -251,10 +305,12 @@ def record_counter(name: str, value: float, **attrs) -> Optional[Span]:
     Chrome COUNTER events (`ph: "C"`), i.e. a plotted track per sample
     name, so memory levels read as a line under the span lanes; returns
     None when tracing is disabled."""
-    if not _TRACE_FLAG.value:
+    if not (_TRACE_FLAG.value or _force_count):
         return None
     now = time.perf_counter()
-    attrs = {"value": float(value), **attrs}
+    tags = getattr(_tls, "tags", None)
+    attrs = ({**tags, "value": float(value), **attrs} if tags
+             else {"value": float(value), **attrs})
     s = Span("memory", name, now, now, threading.get_ident(), "", 0,
              attrs, next(_seq))
     _record(s)

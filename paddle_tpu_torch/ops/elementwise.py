@@ -6,8 +6,10 @@ add/sub/mul/div/max/min/pow/mod/floordiv, the six comparisons, logical
 and/or/xor/not, scale, clip, clip_by_norm, sign, pow, isfinite and the
 activations. Each follows the jax function the JAX package calls:
 `elementwise_mod` is jnp.mod (the sign of the divisor: torch.remainder,
-not fmod), `gelu` is jax.nn.gelu's default tanh approximation,
-`leaky_relu`'s alpha defaults to 0.02.
+not fmod) and `elementwise_floordiv` jnp.floor_divide, both with XLA's
+results for a zero divisor; `gelu` is jax.nn.gelu's default tanh
+approximation, `leaky_relu`'s alpha defaults to 0.02. The float
+activations, like jax's, take an integer X as float32.
 Dtype promotion follows torch, which agrees with jnp on the pairs the
 slices meet (bfloat16 + float32 → float32).
 """
@@ -31,6 +33,55 @@ def _broadcast_y(x, y, axis):
     return y.reshape(tuple(y.shape) + (1,) * pad)
 
 
+def floating(x):
+    """An integer or bool tensor as float32 (jax's promotion for the float
+    functions of an integer array); a float tensor as it is."""
+    return x if x.is_floating_point() else x.float()
+
+
+def _safe_divisor(y):
+    """XLA divides integers without a trap: x / 0 is -1 (all bits set for
+    an unsigned type) with remainder x, and INT_MIN / -1 is INT_MIN with
+    remainder 0. Torch's truncating division and fmod trap on both on the
+    CPU (SIGFPE) and leave them undefined on the card. The divisor with 0
+    and -1 replaced by 1, whose quotient and remainder the callers then
+    correct where they differ."""
+    return torch.where((y == 0) | (y == -1), torch.ones_like(y), y)
+
+
+def _floordiv(x, y):
+    """≙ jnp.floor_divide, zero divisors included."""
+    if x.is_floating_point() or y.is_floating_point():
+        # jax's _float_divmod: the division of x minus its C remainder,
+        # corrected towards -inf (x / 0 gives NaN there, not ±inf)
+        mod = torch.fmod(x, y)
+        div = (x - mod) / y
+        ind = (mod != 0) & (torch.sign(y) != torch.sign(mod))
+        return torch.round(torch.where(ind, div - 1, div))
+    x, y = torch.broadcast_tensors(x, y)
+    zero = y == 0
+    if x.dtype == torch.uint8:
+        q = torch.div(x, torch.where(zero, torch.ones_like(y), y),
+                      rounding_mode="trunc")
+        return torch.where(zero, torch.full_like(q, 255), q)
+    safe = _safe_divisor(y)
+    q = torch.div(x, safe, rounding_mode="trunc")
+    # y == -1: the quotient is -x (wrapping at INT_MIN), the remainder 0
+    q = torch.where(y == -1, q.neg(), q)
+    q = torch.where(zero, torch.full_like(q, -1), q)
+    rem = torch.where(zero, x, torch.fmod(x, safe))
+    adjust = (torch.sign(x) != torch.sign(y)) & (rem != 0)
+    return torch.where(adjust, q - 1, q)
+
+
+def _mod(x, y):
+    """≙ jnp.mod: an integer zero divisor counts as 1 (remainder 0), and
+    so does -1, whose remainder is 0 too."""
+    if x.is_floating_point() or y.is_floating_point():
+        return torch.remainder(x, y)
+    return torch.remainder(x, _safe_divisor(y))
+
+
 def _binary(fn):
     def lower(ctx, ins, attrs):
         x, y = ins["X"][0], ins["Y"][0]
@@ -52,8 +103,8 @@ register_op("elementwise_div")(_binary(torch.div))
 register_op("elementwise_max")(_binary(torch.maximum))
 register_op("elementwise_min")(_binary(torch.minimum))
 register_op("elementwise_pow")(_binary(torch.pow))
-register_op("elementwise_mod")(_binary(torch.remainder))
-register_op("elementwise_floordiv")(_binary(torch.floor_divide))
+register_op("elementwise_mod")(_binary(_mod))
+register_op("elementwise_floordiv")(_binary(_floordiv))
 register_op("less_than")(_binary(torch.lt))
 register_op("less_equal")(_binary(torch.le))
 register_op("greater_than")(_binary(torch.gt))
@@ -118,6 +169,12 @@ def _unary(fn):
     return lower
 
 
+def _unary_float(fn):
+    def lower(ctx, ins, attrs):
+        return {"Out": [fn(floating(ins["X"][0]))]}
+    return lower
+
+
 def softplus(x):
     # jax.nn.softplus = logaddexp(x, 0) (F.softplus turns linear past 20)
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
@@ -129,18 +186,19 @@ for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
                    ("sqrt", torch.sqrt), ("ceil", torch.ceil),
                    ("floor", torch.floor), ("cos", torch.cos),
                    ("reciprocal", torch.reciprocal),
-                   ("logsigmoid", torch.nn.functional.logsigmoid),
                    ("tanh_shrink", lambda x: x - torch.tanh(x)),
                    ("rsqrt", torch.rsqrt), ("abs", torch.abs),
                    ("sin", torch.sin), ("round", torch.round),
                    ("log", torch.log), ("square", torch.square),
                    ("relu6", lambda x: x.clamp(0.0, 6.0)),
-                   ("softplus", softplus),
                    ("softsign", lambda x: x / (1 + x.abs())),
-                   ("gelu", lambda x: torch.nn.functional.gelu(
-                       x, approximate="tanh")),
                    ("silu", torch.nn.functional.silu)):
     register_op(_name)(_unary(_fn))
+for _name, _fn in (("logsigmoid", torch.nn.functional.logsigmoid),
+                   ("softplus", softplus),
+                   ("gelu", lambda x: torch.nn.functional.gelu(
+                       x, approximate="tanh"))):
+    register_op(_name)(_unary_float(_fn))
 
 
 @register_op("sign")

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from ..core import flags
 from ..core.enforce import InvalidArgumentError, enforce
 from ..framework.registry import register_op
+from .elementwise import floating as _floating
 from .tensor_ops import index_in_range, take_along
 
 
@@ -351,7 +352,7 @@ def _batch_norm(ctx, ins, attrs):
 @register_op("layer_norm")
 def _layer_norm(ctx, ins, attrs):
     """≙ layer_norm_op.cc: normalize over dims >= begin_norm_axis."""
-    x = ins["X"][0]
+    x = _floating(ins["X"][0])
     begin = attrs.get("begin_norm_axis", 1)
     eps = attrs.get("epsilon", 1e-5)
     axes = tuple(range(begin, x.dim()))
@@ -370,12 +371,12 @@ def _layer_norm(ctx, ins, attrs):
 
 @register_op("softmax")
 def _softmax(ctx, ins, attrs):
-    return {"Out": [torch.softmax(ins["X"][0], dim=-1)]}
+    return {"Out": [torch.softmax(_floating(ins["X"][0]), dim=-1)]}
 
 
 @register_op("log_softmax")
 def _log_softmax(ctx, ins, attrs):
-    return {"Out": [torch.log_softmax(ins["X"][0],
+    return {"Out": [torch.log_softmax(_floating(ins["X"][0]),
                                       dim=attrs.get("axis", -1))]}
 
 

@@ -108,9 +108,11 @@ class SlotAllocator:
 
 
 class GenRequest:
-    """One generation request moving through the engine. Lifecycle
-    boundaries are stamped on the perf_counter clock — the timeline the
-    span ring uses — so the latency decomposes exactly:
+    """One generation request moving through the engine. Besides the
+    wall-clock fields (`submitted_at`, `admitted_at`, `first_token_at`,
+    `done_at`, `sent_at`: `time.time()`, kept for API compatibility), each
+    lifecycle boundary is stamped on the perf_counter clock — the timeline
+    the span ring uses — so the latency decomposes exactly:
 
         queue_wait = admitted - submitted       (waiting for a slot)
         prefill    = first_token - admitted     (prompt ticks)
@@ -123,8 +125,10 @@ class GenRequest:
     completion frame."""
 
     __slots__ = ("rid", "request_id", "prompt", "max_new", "eos_id",
-                 "tokens", "slot", "fed", "next_tok", "submitted_pc",
-                 "admitted_pc", "first_token_pc", "done_pc", "sent_pc",
+                 "tokens", "slot", "fed", "next_tok", "submitted_at",
+                 "admitted_at", "first_token_at", "done_at", "sent_at",
+                 "submitted_pc", "admitted_pc", "first_token_pc", "done_pc",
+                 "sent_pc",
                  "defer_transport", "on_done", "table", "shared_len",
                  "spec_draft_s", "spec_verify_s", "_event")
 
@@ -141,10 +145,15 @@ class GenRequest:
         self.slot: Optional[int] = None
         self.fed = 0                       # positions consumed so far
         self.next_tok = self.prompt[0]     # token the next tick feeds
+        self.submitted_at = time.time()
         self.submitted_pc = time.perf_counter()
+        self.admitted_at: Optional[float] = None
         self.admitted_pc: Optional[float] = None
+        self.first_token_at: Optional[float] = None
         self.first_token_pc: Optional[float] = None
+        self.done_at: Optional[float] = None
         self.done_pc: Optional[float] = None
+        self.sent_at: Optional[float] = None
         self.sent_pc: Optional[float] = None
         #: True when a server owns the transport phase (it calls
         #: engine.report_sent once the completion frame is on the wire,
@@ -207,6 +216,7 @@ class GenRequest:
         return self.tokens
 
     def _complete(self):
+        self.done_at = time.time()
         self.done_pc = time.perf_counter()
         if self.on_done is not None:
             self.on_done(self)
@@ -609,6 +619,7 @@ class ContinuousBatchingEngine:
                 slot = self._slots.alloc()
                 req = self._pending.popleft()
                 req.slot = slot
+                req.admitted_at = time.time()
                 req.admitted_pc = time.perf_counter()
                 self._active[slot] = req
                 admitted.append(req)
@@ -645,6 +656,7 @@ class ContinuousBatchingEngine:
             return False
         t = int(out_id)                          # sampled next token
         if req.first_token_pc is None:
+            req.first_token_at = time.time()
             req.first_token_pc = time.perf_counter()
         req.tokens.append(t)
         self.tokens_out += 1
@@ -784,6 +796,7 @@ class ContinuousBatchingEngine:
         callback). Closes the transport phase and the e2e series, and
         records the transport span."""
         req.sent_pc = float(sent_pc)
+        req.sent_at = time.time()
         _tracing.record_span("request", "request/transport", req.done_pc,
                              req.sent_pc, request_id=req.request_id)
         self._m_req_phase["transport"].observe(req.sent_pc - req.done_pc)

@@ -57,6 +57,21 @@ def _static_rnn_cumsum(pkg, cf):
     return [rnn()]
 
 
+def _static_rnn_output(pkg, cf):
+    """`rnn.output(*outs)`, the fluid spelling of one step_output each."""
+    L = pkg.layers
+    x = L.data(name="x", shape=[6, 4])
+    zero = L.fill_constant_batch_size_like(x, [-1, 4], "float32", 0.0)
+    rnn = cf.StaticRNN()
+    with rnn.step():
+        xt = rnn.step_input(x)
+        acc = rnn.memory(init=zero)
+        s = L.elementwise_add(acc, xt)
+        rnn.update_memory(acc, s)
+        rnn.output(s, L.scale(s, scale=2.0))
+    return list(rnn())
+
+
 def _dynamic_rnn_lengths(pkg, cf):
     L = pkg.layers
     x = L.data(name="x", shape=[6, 4], lod_level=1)
@@ -141,6 +156,8 @@ PROGRAMS = {
     "while": (_while_counts_to_ten, {}),
     "static_rnn": (_static_rnn_cumsum,
                    {"x": R.rand(3, 6, 4).astype("float32")}),
+    "static_rnn_output": (_static_rnn_output,
+                          {"x": R.rand(3, 6, 4).astype("float32")}),
     "dynamic_rnn": (_dynamic_rnn_lengths,
                     {"x": X64, "x@SEQLEN": np.array([3, 6], "int32")}),
     "dynamic_rnn_empty_row": (_dynamic_rnn_lengths,

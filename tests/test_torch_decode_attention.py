@@ -93,6 +93,28 @@ def test_plain_matches_pallas_interpret_and_xla_bf16(t, nh):
                                atol=5e-2, rtol=0)
 
 
+@pytest.mark.parametrize("t", [16, 64])
+def test_bf16_cache_matches_pallas_interpret(t):
+    """bfloat16 q over bfloat16 K and V (the encoder-decoder generator's
+    cross-attention at beam 1: its keys and values come from bfloat16 fc
+    layers). The Pallas kernel widens any cache to float32 and so does
+    the port, on the card (the CUDA kernel, chip_smoke.py phase 3) and on
+    the CPU (the plain version, here): as the bf16-q test above, one
+    bfloat16 step apart at most, most elements exactly equal."""
+    q, k, v, bias = _inputs(t, 4)
+    kb, vb = (torch.from_numpy(a).bfloat16() for a in (k, v))
+    out = fused_decode_attention(torch.from_numpy(q).bfloat16(), kb, vb,
+                                 torch.from_numpy(bias), scale=DH ** -0.5)
+    assert out.dtype == torch.bfloat16
+    port = out.float().numpy()
+    interp = np.asarray(jax_fused(
+        jnp.asarray(q, dtype=jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), jnp.asarray(bias), scale=DH ** -0.5,
+        backend="pallas_interpret").astype(jnp.float32))
+    np.testing.assert_allclose(port, interp, rtol=1e-2, atol=1e-2)
+    assert np.mean(port == interp) > 0.9
+
+
 @pytest.mark.parametrize("rows", ["first_only", "masked_everywhere"])
 def test_plain_matches_pallas_interpret_on_masked_rows(rows):
     """Rows whose mask hides every position but the first, or every

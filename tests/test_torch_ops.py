@@ -570,6 +570,7 @@ def i64(*vals, shape=None):
 # divisors and empty-ish edges beside random draws
 _ACT_X = np.concatenate([f32(3, 7) * 3, np.float32(
     [[0.5, 1.5, 2.5, -0.5, -1.5, 0.0, 30.0]])], 0)
+_INT_X = np.int32([[0, 1, -1, 7, -7, 3]])
 CASES += [
     (f"act_{t}", t, {"X": [_ACT_X]}, {}, {}, {})
     for t in ("abs", "sin", "log", "square", "round", "rsqrt", "relu6",
@@ -578,6 +579,13 @@ CASES += [
               "hard_shrink", "soft_shrink", "thresholded_relu", "swish",
               "brelu")
 ] + [
+    # an integer X computes in float32, as jax promotes it
+    (f"int_x_{t}", t, {"X": [_INT_X]}, attrs, {}, {})
+    for t, attrs in (("softmax", {}), ("log_softmax", {"axis": -1}),
+                     ("gelu", {}), ("softplus", {}), ("logsigmoid", {}))
+] + [
+    ("int_x_layer_norm", "layer_norm", {"X": [_INT_X]},
+     {"begin_norm_axis": 1, "epsilon": 1e-5}, {}, {}),
     ("elu_alpha", "elu", {"X": [_ACT_X]}, {"alpha": 0.7}, {}, {}),
     ("leaky_relu_alpha", "leaky_relu", {"X": [_ACT_X]}, {"alpha": 0.3},
      {}, {}),
@@ -605,6 +613,24 @@ CASES += [
     ("floordiv_int", "elementwise_floordiv",
      {"X": [np.int32([[-7, 7, -3, 3, 1]])],
       "Y": [np.int32([[2, -2, -2, 2, 3]])]}, {}, {}, {}),
+    # a zero divisor gives XLA's results, computed on the device: float32
+    # floordiv NaN, int32 floordiv -1 adjusted towards -inf, int32 mod 0
+    ("floordiv_by_zero_f32", "elementwise_floordiv",
+     {"X": [np.float32([5, -5, 0])], "Y": [np.float32([0, 0, 0])]},
+     {}, {}, {}),
+    ("floordiv_by_zero_int", "elementwise_floordiv",
+     {"X": [np.int32([5, -5, 0])], "Y": [np.int32([0, 0, 0])]}, {}, {}, {}),
+    ("mod_by_zero_f32", "elementwise_mod",
+     {"X": [np.float32([5, -5, 0])], "Y": [np.float32([0, 0, 0])]},
+     {}, {}, {}),
+    ("mod_by_zero_int", "elementwise_mod",
+     {"X": [np.int32([5, -5, 0])], "Y": [np.int32([0, 0, 0])]}, {}, {}, {}),
+    ("floordiv_int_min_by_minus_one", "elementwise_floordiv",
+     {"X": [np.int32([-2 ** 31, 7, -7])], "Y": [np.int32([-1, -1, -1])]},
+     {}, {}, {}),
+    ("mod_int_min_by_minus_one", "elementwise_mod",
+     {"X": [np.int32([-2 ** 31, 7, -7])], "Y": [np.int32([-1, -1, -1])]},
+     {}, {}, {}),
     ("isfinite_all", "isfinite", {"X": [f32(3, 2), f32(4)]}, {}, {}, {}),
     ("isfinite_inf", "isfinite",
      {"X": [f32(3, 2), np.float32([1.0, np.inf])]}, {}, {}, {}),

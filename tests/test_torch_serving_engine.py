@@ -205,6 +205,21 @@ def test_engine_admission_and_slot_reuse():
         teng.submit([1] * 30, 5)           # beyond the slot's KV row
 
 
+def test_requests_carry_the_jax_wall_clock_stamps():
+    """Each request keeps the JAX package's wall-clock fields beside the
+    perf_counter ones, stamped at the same boundaries in order."""
+    teng = ptt.ContinuousBatchingEngine(n_slots=2, place=ptt.CPUPlace(),
+                                        **DIMS)
+    reqs = [teng.submit([1, 2, 3], 2) for _ in range(3)]
+    teng.run_until_idle()
+    for r in reqs:
+        assert (r.submitted_at <= r.admitted_at <= r.first_token_at
+                <= r.done_at), r.rid
+        assert r.sent_at is None          # no server: nothing was sent
+    teng.report_sent(reqs[0], reqs[0].done_pc)
+    assert reqs[0].sent_at >= reqs[0].done_at
+
+
 def test_default_place_is_the_card_and_never_the_cpu():
     """Without a card the default place raises instead of dropping to the
     CPU; with one it is CUDAPlace(0)."""
