@@ -282,9 +282,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain versions, and ROADMAP.md §3's fault cases (an int32 X into
    softmax, log_softmax, gelu, softplus, logsigmoid and layer_norm;
    floordiv and mod by zero in int32 and float32, and of INT_MIN by -1)
-   against the JAX package's values.
+   against the JAX package's values;
+41. the analyzers, the memory planner, the cost model, the measured
+   census, the profiler and the flight recorder on phase 7's LM at full
+   width: check_program and infer_program over the LM and the programs
+   phases 12, 15, 19 and 22 train (no error diagnostic; host times);
+   memory_plan_pass under the pass sanitizer at the default budget (no
+   remat fits) and at a wide one (remat), and the LM trained from the
+   same weights in turns as kept (every intermediate kept to the step's
+   end, the control), released (at last use, every plan's default),
+   planned and remat (max_memory_allocated a step beside plan_report's
+   predicted peaks and search_remat's decision, losses equal at step 1
+   to 1e-5, after at 2e-3); Executor.cost_analysis / memory_analysis /
+   memory_census on the card, a step with no transients read as temp 0, the census in a
+   LedgerRow's check_memory_identity at the 0.1 residual, MFU and
+   roofline_fields of the median step; profiler.profiler("All") over a
+   warm-up step and 3 more, each of which must launch every flash kernel 6
+   times in the profiler's device trace (kernels tied to the step by
+   their launches' correlation ids), beside the executor's span ranges in
+   the exported trace (the device's idle share);
+   and a Trainer stopped by an injected EnforceError, whose dossier the
+   installed flight recorder writes and `analyze` reads back.
 
-Phase 3 also holds decode attention at the generators' shape (R = B·K
+Phase 3 also holds the bfloat16 cells of K5 / K6 (x, w and states in
+bfloat16, h and c carried in bfloat16 as the reference's composite
+carries them) at the stacked LSTM's, the NMT encoder's and CRNN's shapes
+forward and reversed with ragged lengths including 0, at H 1100 (w through
+L2) and the GRU past one pass of rows: each step held against the plain
+version's step from the state the kernel carried into it, within the
+per-term slack of fusion/recurrent.py `recurrent_step_check`, with three
+wrong kernels rejected a cell (gate columns rotated, no length freeze,
+the freeze at the reversed steps), and timed beside the plain version and
+cuDNN's bfloat16 LSTM / GRU. It also holds decode attention at the generators' shape (R = B·K
 64, T 64, dh 64, bf16 q) and on a bfloat16 cache (the encoder-decoder's
 cross-attention at beam 1), each timed beside SDPA, its verify-window
 route (G = 5 query rows) and int8 route (int8 caches, alone and with
@@ -324,8 +353,12 @@ bound and cuDNN time at CRNN's shape; `launches_generate` and
 `launches_generate_nmt`, decode attention's on phases 38 and 39, with
 its `*_generate` and `*_bf16_cache` keys at the generators' and the
 cross-attention's shapes; `launches_generate` of the flash forward, K1's
-in phase 39's encoder), times, and `paths`: phases 15-40's numbers; the
-last line is
+in phase 39's encoder; `launches_phase41` / `launches_phase41_tc`, K1-K3's
+over phase 41's four variants' turns; K5 / K6's `*_bf16` and the
+GRU's `*_crnn_bf16` keys, their bfloat16 rows, with `err_over_slack_bf16`
+and `launches_bf16_checks`, phase 3's bfloat16 launches: no path of the
+model zoo runs a bfloat16 recurrent cell), times, and `paths`: phases
+15-41's numbers; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -1007,6 +1040,195 @@ def check_recurrent(ptt, rates):
     return out
 
 
+def check_recurrent_bf16(ptt, rates):
+    """Phase 3's bfloat16 rows of K5 / K6: x, w and the states bfloat16,
+    h and c carried in bfloat16 as the reference's XLA composite carries
+    them. Each case (the stacked LSTM's shape, the NMT encoder's and
+    CRNN's GRU shapes, forward and reversed, ragged lengths with 0 and 1;
+    the streamed-w plans at H 1100; the GRU past one pass of rows) is held
+    step by step against the plain version: every step of the plain cell
+    is evaluated from the states the kernel carried into it, and each
+    output must lie within the step's per-term slack
+    (fusion/recurrent.py `recurrent_step_check`: each rounded term of the
+    plain step moves by at most bfloat16's unit roundoff 2^-8 of its size,
+    the kernel adds the rounding of the new c and h, and the float32 sums
+    over H in another order). Three wrong kernels a cell must be rejected
+    by the same check: w's gate columns rotated, the length freeze
+    dropped, the freeze taken at the reversed steps. Then kernel, plain
+    version and cuDNN's bfloat16 LSTM / GRU are timed at the three path
+    shapes. Returns {kernel: {key_bf16: value}}."""
+    import torch
+    from paddle_tpu_torch.fusion.recurrent import (
+        gru_seq_cuda, gru_seq_plain, lstm_seq_cuda, lstm_seq_plain,
+        recurrent_step_check)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    bf = torch.bfloat16
+
+    def make(ng, b, t, h, lengths):
+        x = (torch.randn(b, t, ng * h, device=dev, generator=gen)
+             * 0.5).to(bf)
+        w = (torch.randn(h, ng * h, device=dev, generator=gen)
+             * h ** -0.5).to(bf)
+        h0 = (torch.randn(b, h, device=dev, generator=gen) * 0.1).to(bf)
+        c0 = (torch.randn(b, h, device=dev, generator=gen) * 0.1).to(bf)
+        sl = torch.tensor(lengths, dtype=torch.int64, device=dev)
+        return x, w, h0, c0, sl
+
+    def ragged(b, t):
+        lens = torch.randint(1, t + 1, (b,), generator=torch.Generator()
+                             .manual_seed(SEED + 3 * b + t)).tolist()
+        lens[0], lens[1 % b], lens[2 % b] = t, 0, 1
+        return lens
+
+    def run(kind, x, h0, c0, w, sl, rev):
+        if kind == "lstm":
+            return lstm_seq_cuda(x, h0, c0, w, sl, rev, True)
+        return gru_seq_cuda(x, h0, w, sl, rev, True)
+
+    lb, lt, lh = LSTM["batch"], LSTM["max_len"], LSTM["hid_dim"]
+    gb, gt, gh = NMT["batch"], NMT["src_len"], NMT["hidden_dim"]
+    ob, ot, oh = CRNN["batch"], CRNN["width"] // 4, CRNN["hidden"]
+    cases = [("lstm", lb, lt, lh, False), ("lstm", lb, lt, lh, True),
+             ("lstm", 8, 9, 1100, False), ("lstm", 8, 9, 1100, True),
+             ("gru", gb, gt, gh, False), ("gru", gb, gt, gh, True),
+             ("gru", ob, ot, oh, False), ("gru", ob, ot, oh, True),
+             ("gru", 80, 9, gh, True), ("gru", 8, 9, 1100, False),
+             ("gru", 8, 9, 1100, True)]
+    errs = {"lstm_seq": 0.0, "gru_seq": 0.0, "gru_seq_crnn": 0.0}
+    ratios = {"lstm_seq": 0.0, "gru_seq": 0.0, "gru_seq_crnn": 0.0}
+    n_launch = {"lstm_seq": 0, "gru_seq": 0}
+    # cuBLAS's bfloat16 products reduce in float32 here, so the plain
+    # step's dot rounds once, as the slack counts it
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    try:
+        for kind, b, t, h, rev in cases:
+            ng = 4 if kind == "lstm" else 3
+            x, w, h0, c0, sl = make(ng, b, t, h, ragged(b, t))
+            outs = run(kind, x, h0, c0, w, sl, rev)
+            n_launch[f"{kind}_seq"] += 1
+            assert all(o.dtype == bf for o in outs)
+            ok, err, ratio = recurrent_step_check(kind, x, h0, c0, w, sl,
+                                                  rev, outs)
+            # a row of length 0 keeps its initial state at every step
+            assert bool((outs[0][1] == h0[1]).all()), \
+                f"{kind}_seq bf16: row of length 0 moved"
+            controls = []
+            if (b, t, h) in ((lb, lt, lh), (gb, gt, gh), (ob, ot, oh)):
+                rot = torch.roll(w.reshape(h, ng, h), 1, dims=1).reshape(
+                    h, ng * h)
+                for label, args in (
+                        ("rotated gates", (x, h0, c0, rot, sl, rev)),
+                        ("no freeze", (x, h0, c0, w,
+                                       torch.full_like(sl, t), rev)),
+                        ("freeze reversed", (x, h0, c0, w, sl, not rev))):
+                    bad = run(kind, *args)
+                    n_launch[f"{kind}_seq"] += 1
+                    rej = not recurrent_step_check(kind, x, h0, c0, w, sl,
+                                                   rev, bad)[0]
+                    controls.append(f"{label} {'rejected' if rej else 'PASSED'}")
+                    assert rej, f"{kind}_seq bf16 control {label} passed"
+            log(f"  {kind}_seq bf16 B={b} T={t} H={h} reverse={rev}: "
+                f"max_abs_err={err:.3e}, largest error / slack "
+                f"{ratio:.3f} {'ok' if ok else 'FAIL'}"
+                + (f"; controls: {', '.join(controls)}" if controls else ""))
+            if not ok:
+                raise AssertionError(
+                    f"{kind}_seq bf16 disagrees with its plain version "
+                    f"beyond the per-term slack at B={b} T={t} H={h} "
+                    f"reverse={rev}: error / slack {ratio}")
+            key = ("gru_seq_crnn" if (kind, b, t, h) == ("gru", ob, ot, oh)
+                   else f"{kind}_seq" if (b, t, h) in ((lb, lt, lh),
+                                                       (gb, gt, gh))
+                   else None)
+            if key:
+                errs[key] = max(errs[key], err)
+                ratios[key] = max(ratios[key], ratio)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = saved
+
+    mem_rate, _, bf16_rate = rates
+    lin = torch.nn.utils.rnn
+    out = {"lstm_seq": {}, "gru_seq": {}}
+    for kname, b, t, h, lo, key in (
+            ("lstm_seq", lb, lt, lh, LSTM["len_lo"], "lstm_seq"),
+            ("gru_seq", gb, gt, gh, NMT["src_lo"], "gru_seq"),
+            ("gru_seq", ob, ot, oh, ot, "gru_seq_crnn")):
+        ng = 4 if kname == "lstm_seq" else 3
+        cls = torch.nn.LSTM if kname == "lstm_seq" else torch.nn.GRU
+        lib = cls(h, h, batch_first=True).to(dev).to(bf)
+        sets = []
+        for _ in range(2 if kname == "lstm_seq" else 4):
+            lens = torch.randint(lo, t + 1, (b,), generator=gen,
+                                 device=dev)
+            x, w, h0, c0, sl = make(ng, b, t, h, lens.tolist())
+            xin = torch.randn(b, t, h, device=dev, generator=gen).to(bf)
+            sets.append({"x": x, "w": w, "h0": h0, "c0": c0, "sl": sl,
+                         "packed": lin.pack_padded_sequence(
+                             xin, lens.cpu(), batch_first=True,
+                             enforce_sorted=False)})
+        kind = kname[:-4]
+        plain = lstm_seq_plain if kind == "lstm" else gru_seq_plain
+
+        def kernel_fn(s, kind=kind):
+            return run(kind, s["x"], s["h0"], s["c0"], s["w"], s["sl"],
+                       False)
+
+        def plain_fn(s, kind=kind, plain=plain):
+            if kind == "lstm":
+                return plain(s["x"], s["h0"], s["c0"], s["w"], s["sl"],
+                             False, True)
+            return plain(s["x"], s["h0"], s["w"], s["sl"], False, True)
+
+        fns = {"kernel": kernel_fn, "plain": plain_fn,
+               "library": lambda s: lib(s["packed"])}
+        with torch.no_grad():
+            try:     # the yardstick only: cuDNN may not take bfloat16
+                lib(sets[0]["packed"])
+            except RuntimeError as e:
+                log(f"  (cuDNN's bfloat16 {cls.__name__} refused: {e}; "
+                    f"library_ms is null)")
+                del fns["library"]
+            times = time_in_turns(fns, sets, reps=10)
+        times.setdefault("library", None)
+        # least time: x, w, h0 (c0), seqlen read once and hs (cs) and the
+        # stash written once, 2 bytes an element; the recurrent product's
+        # 2 B T H (ng H) flops at the dense bfloat16 rate of the inputs'
+        # type
+        nbytes = (2 * (b * t * ng * h + h * ng * h
+                       + (2 if ng == 4 else 1) * (b * h + b * t * h)
+                       + b * t * ng * h) + 8 * b)
+        flops = 2 * b * t * h * ng * h
+        t_bytes, t_ops = nbytes / mem_rate, flops / bf16_rate
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"  {kname} bf16 timing B={b} T={t} H={h} with stash: kernel "
+            f"{times['kernel'] * 1e3:.1f} us, plain "
+            f"{times['plain'] * 1e3:.1f} us, cuDNN bf16 "
+            f"{'LSTM' if ng == 4 else 'GRU'} "
+            f"{'-' if times['library'] is None else round(times['library'] * 1e3, 1)} "
+            f"us, bound {bound_ms * 1e3:.2f} us ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
+            f"{bf16_rate / 1e12:.0f} TFLOP/s bfloat16)")
+        sfx = "_crnn_bf16" if key == "gru_seq_crnn" else "_bf16"
+        out[kname].update({f"max_abs_err{sfx}": errs[key],
+                           f"err_over_slack{sfx}": ratios[key],
+                           f"ms{sfx}": times["kernel"],
+                           f"plain_ms{sfx}": times["plain"],
+                           f"bound_ms{sfx}": bound_ms,
+                           f"bound_by{sfx}": bound_by,
+                           f"library_ms{sfx}": times["library"]})
+    # the bfloat16 cells are on no model's path (no zoo model casts its
+    # recurrent layers): their launches are phase 3's checks
+    for kname, n in n_launch.items():
+        out[kname]["launches_bf16_checks"] = n
+    return out
+
+
 def check_decode_attention_nmt(rates):
     """Phase 3 for the decode-attention kernel at the NMT decoder's shape
     (q [B, 1, H] over the encoder's [B, T, H], so R = 1, nh = B, dh = H =
@@ -1312,16 +1534,19 @@ def _recurrent_build_report(kernels):
         props = _ptxas_props(kernels.BUILD_LOGS["recurrent"])
         for kind in ("lstm", "gru"):
             for ug in (1, 2, 4):
-                tag = f"{kind}_seq_kernelILi{ug}E"
-                name = next((n for n in props if tag in n), None)
-                pr = props.get(name, {})
-                log(f"  [{tag}] registers {pr.get('regs')}, spill bytes "
-                    f"{pr.get('spill')}")
-                if ug == 4:
-                    assert name is not None, \
-                        f"no ptxas report for {kind}_seq UG=4"
-                    assert pr.get("spill") == 0, \
-                        f"{kind}_seq UG=4 spills: {pr}"
+                # <UG, float> and <UG, __nv_bfloat16>
+                for etype, mangled in (("float32", "fE"),
+                                       ("bfloat16", "13__nv_bfloat16E")):
+                    tag = f"{kind}_seq_kernelILi{ug}E{mangled}"
+                    name = next((n for n in props if tag in n), None)
+                    pr = props.get(name, {})
+                    log(f"  [{kind}_seq_kernel<{ug}, {etype}>] registers "
+                        f"{pr.get('regs')}, spill bytes {pr.get('spill')}")
+                    if ug == 4:
+                        assert name is not None, \
+                            f"no ptxas report for {kind}_seq UG=4 {etype}"
+                        assert pr.get("spill") == 0, \
+                            f"{kind}_seq UG=4 {etype} spills: {pr}"
     for kind, b, h in (("lstm", LSTM["batch"], LSTM["hid_dim"]),
                        ("lstm", 8, 1100), ("lstm", 4, 2048),
                        ("gru", NMT["batch"], NMT["hidden_dim"]),
@@ -6382,6 +6607,432 @@ def generate_reference_check(ptt, kernels):
     return {"ok": True}
 
 
+# phase 41: phase 7's LM; steps a variant in the kept / released / planned /
+# remat turns, and the profiled steps
+ANALYSIS_STEPS, PROFILE_STEPS = 4, 3
+#: the remat variant's time budget: wide enough to admit search_remat's
+#: segments, whose recompute the default 2% of the step does not admit
+REMAT_BUDGET_S = 10.0
+
+
+def _analyzed_programs(ptt):
+    """The programs phases 7, 12, 15, 19 and 22 train, built as they build
+    them: {label: program}."""
+    from paddle_tpu_torch.models import transformer  # noqa: F401
+    out = {"lm": _train_program(ptt, TRAIN)[0],
+           "nmt": _nmt_program(ptt, NMT)[0],
+           "resnet50": _resnet_program(ptt, RESNET)[0],
+           "deepfm": _deepfm_program(ptt, DEEPFM)[0]}
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        loss, _ = _transformer_model(ptt, TRANSFORMER)
+        ptt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    out["transformer_base"] = main
+    return out
+
+
+def _device_busy(events):
+    """(busy us, window us) of a device timeline: the union of the kernel,
+    copy and set intervals over the span from the first start to the last
+    end."""
+    iv = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                if e.get("ph") == "X")
+    if not iv:
+        return 0.0, 0.0
+    busy, cur_s, cur_e = 0.0, iv[0][0], iv[0][1]
+    for a, b in iv[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    return busy, iv[-1][1] - iv[0][0]
+
+
+def _kernels_per_step(events, names):
+    """From a torch.profiler Chrome trace: for each `executor/run` range on
+    the host (a span the profiler mirrors as a record_function), how many
+    device kernels of each of `names` were launched inside it, each kernel
+    tied to its launch by the trace's correlation id. [{name: count}] in
+    step order."""
+    runs = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                  if e.get("cat") == "user_annotation"
+                  and e.get("name") == "executor/run")
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    per_step = [dict.fromkeys(names, 0) for _ in runs]
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = next((n for n in names if n in e.get("name", "")), None)
+        at = launched.get(e.get("args", {}).get("correlation"))
+        if name is None or at is None:
+            continue
+        for i, (a, b) in enumerate(runs):
+            if a <= at <= b:
+                per_step[i][name] += 1
+                break
+    return per_step
+
+
+def analyze_plan_profile(ptt, kernels):
+    """Phase 41: the analyzers, the memory planner, the cost model, the
+    measured census, the profiler and the flight recorder on phase 7's LM
+    at full width (6 x 512, vocab 32000, max_len 512, batch 16, Adam).
+
+    - check_program and infer_program on the LM and on the programs phases
+      12, 15, 19 and 22 build: no error diagnostic; their host times.
+    - memory_plan_pass (under the pass sanitizer) on copies of the LM, at
+      the default budget (2% of the step: search_remat must keep the
+      stash) and at REMAT_BUDGET_S (it must choose remat). Four variants
+      train from the same weights, in turns, ANALYSIS_STEPS steps each:
+      kept (the unplanned program with every intermediate kept to the
+      step's end: the control), released (the unplanned program, each
+      transient dropped at its last use), planned and remat. Each step's
+      max_memory_allocated beside plan_report's predicted peaks and
+      search_remat's decision; released must peak no higher than kept,
+      remat below released. Losses against kept: step 1 at rtol 1e-5 (the
+      same forward from the same weights), later steps at 2e-3 (phase
+      23's tolerance: bfloat16 gradients of a recomputed segment round
+      in another order).
+    - Executor.cost_analysis / memory_analysis / memory_census of the
+      released step on the card; memory_analysis of a step that only
+      adds 1 in place to a 256 MiB state must read temp 0 (under 1 MiB:
+      the census's copy of the state is no transient); the census into a LedgerRow against
+      costs.predict, check_memory_identity at the JAX package's 0.1
+      residual (printed, not asserted: a residual past the band is a
+      finding), and mfu / roofline_fields of the median step at the H100
+      constants.
+    - profiler.profiler("All") over a warm-up step and PROFILE_STEPS
+      more: each of those must hold flash_fwd_tc_kernel,
+      flash_dq_tc_kernel and flash_dkv_tc_kernel 6 times in the device
+      trace, and the exported Chrome trace the kernels and the
+      executor's span ranges; the summary's top rows and the device's
+      idle share.
+    - the flight recorder installed on a dossier directory: a Trainer
+      stopped by an injected EnforceError goes through the installed
+      excepthook, which writes one dossier holding its last spans;
+      flight_recorder.analyze reads it back.
+    Launch counts are zeroed just before the four variants' turns and
+    read just after. Returns its numbers."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.framework import analysis, costs, memory_plan
+    from paddle_tpu_torch.observability import flight_recorder, ledger
+
+    out = {}
+    # -- the analyzers over five full-width programs -----------------------
+    progs = _analyzed_programs(ptt)
+    out["analysis"] = {}
+    for label, prog in progs.items():
+        t0 = time.perf_counter()
+        analysis.check_program(prog)
+        t1 = time.perf_counter()
+        res = analysis.infer_program(prog)
+        t2 = time.perf_counter()
+        warn = sorted({d.code for d in res.diagnostics})
+        assert not res.errors, (label, [str(d) for d in res.errors][:5])
+        out["analysis"][label] = {
+            "check_s": t1 - t0, "infer_s": t2 - t1, "ops": res.n_ops,
+            "inferred": res.n_inferred, "skipped": res.n_skipped,
+            "warnings": warn}
+        log(f"  {label}: check_program {1e3 * (t1 - t0):.1f} ms, "
+            f"infer_program {1e3 * (t2 - t1):.1f} ms over {res.n_ops} ops "
+            f"({res.n_inferred} inferred, {res.n_skipped} skipped, warnings "
+            f"{warn or 'none'}); no error diagnostic")
+    del progs
+
+    # -- plan the LM, train four variants in turns -------------------------
+    cfg = TRAIN
+    rng = np.random.RandomState(SEED + 41)
+    b, t = cfg["batch"], cfg["max_len"]
+    feeds = []
+    for _ in range(TRAIN_BATCHES):
+        toks = _markov_tokens(rng, b, t + 1, cfg["vocab"])
+        feeds.append({"tokens": toks[:, :-1].copy(),
+                      "tokens@SEQLEN": np.full((b,), t, "int32"),
+                      "targets": toks[:, 1:].copy()})
+    main, start, loss = _train_program(ptt, cfg)
+    reps = {}
+    progs = {"kept": main, "released": main}
+    for which, budget in (("planned", None), ("remat", REMAT_BUDGET_S)):
+        t0 = time.perf_counter()
+        progs[which] = ptt.get_pass(
+            "memory_plan_pass", protected=[loss.name], nominal_batch=b,
+            time_budget_s=budget)(main)
+        plan_s = time.perf_counter() - t0
+        rep = reps[which] = memory_plan.plan_report(progs[which])
+        remat = rep["remat"] or {}
+        log(f"  memory_plan_pass, {which} (sanitized, budget "
+            f"{'2% of the step' if budget is None else f'{budget} s'}) "
+            f"{plan_s:.2f} s: predicted peak "
+            f"{rep['predicted_peak_before'] / 1e6:.1f} -> "
+            f"{rep['predicted_peak_after'] / 1e6:.1f} MB, {rep['n_slots']} "
+            f"slots over {rep['shared_vars']} vars, reordered "
+            f"{rep['schedule']['reordered']}; search_remat chose "
+            f"{remat.get('chosen')} ({remat.get('segments')} segments, "
+            f"policy {remat.get('policy')}, stash "
+            f"{remat.get('stash_bytes_unsegmented', 0) / 1e6:.1f} MB -> "
+            f"{remat.get('predicted_stash_bytes', 0) / 1e6:.1f} MB, "
+            f"recompute priced {remat.get('extra_seconds_bound', 0) * 1e3:.3f}"
+            f" ms of a {remat.get('time_budget_s', 0) * 1e3:.3f} ms budget; "
+            f"cheapest candidate "
+            f"{min((c['extra_seconds_bound'] for c in remat.get('candidates', ())), default=0) * 1e3:.3f} ms)")
+    # at 2% of the step no segmentation fits once recompute is priced
+    # at the host's lowerings: the default plan keeps the stash
+    assert reps["planned"]["remat"]["chosen"] == "stash", reps["planned"]
+    assert reps["remat"]["remat"]["chosen"] == "remat", reps["remat"]
+    scopes = {}
+    exe0 = ptt.Executor(ptt.CUDAPlace(0))
+    base = ptt.Scope()
+    exe0.run(start, scope=base)
+    for which in progs:
+        scopes[which] = ptt.Scope()
+        for n in base.local_var_names():
+            scopes[which].set_var(n, base.get(n).clone())
+    del base
+    exes = {w: ptt.Executor(ptt.CUDAPlace(0)) for w in scopes}
+    runs = {w: {"loss": [], "peak": [], "secs": []} for w in scopes}
+    order = list(progs)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for i in range(ANALYSIS_STEPS + 1):          # step 0 plans, untimed
+        for w in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lv, = exes[w].run(progs[w], feed=feeds[i % len(feeds)],
+                              fetch_list=[loss], scope=scopes[w])
+            torch.cuda.synchronize()
+            if i:
+                runs[w]["secs"].append(time.perf_counter() - t0)
+                runs[w]["peak"].append(torch.cuda.max_memory_allocated())
+            else:
+                runs[w]["loss"].append(float(lv))
+                if w == "kept":
+                    # the control: its plan keeps every intermediate
+                    # until the step ends, as before release at last use
+                    for plan in exes[w]._cache.values():
+                        plan.release = None
+                continue
+            runs[w]["loss"].append(float(lv))
+    launches = dict(kernels.LAUNCHES)
+    for w in order:
+        r = runs[w]
+        log(f"  {w}: losses {[round(x, 5) for x in r['loss']]}, "
+            f"max_memory_allocated a step "
+            f"{[round(x / 1e6, 1) for x in r['peak']]} MB, step median "
+            f"{np.median(r['secs']) * 1e3:.1f} ms")
+    for w in order[1:]:
+        np.testing.assert_allclose(runs[w]["loss"][0], runs["kept"]["loss"][0],
+                                   rtol=1e-5, err_msg=f"{w}: step-1 loss")
+        np.testing.assert_allclose(runs[w]["loss"], runs["kept"]["loss"],
+                                   rtol=2e-3, err_msg=f"{w}: losses")
+    peak = {w: runs[w]["peak"] for w in order}
+    # release at last use never raises the step's peak (on this LM the
+    # peak is inside the autograd region, whose saved tensors autograd
+    # holds: release frees what lives after it); remat lowers it
+    assert max(peak["released"]) <= min(peak["kept"]), peak
+    assert max(peak["remat"]) < min(peak["released"]), peak
+    med = {w: float(np.median(runs[w]["secs"]) * 1e3) for w in order}
+    log(f"  peak a step, release alone {1 - min(peak['released']) / min(peak['kept']):.1%} "
+        f"below keeping every intermediate, the default plan "
+        f"{1 - min(peak['planned']) / min(peak['kept']):.1%}, remat "
+        f"{1 - min(peak['remat']) / min(peak['kept']):.1%}; step median "
+        f"planned / released {med['planned'] / med['released']:.3f}, remat "
+        f"/ released {med['remat'] / med['released']:.3f}")
+    out["plan"] = {**{f"{w}_plan": {
+                       "predicted_peak_before": reps[w]["predicted_peak_before"],
+                       "predicted_peak_after": reps[w]["predicted_peak_after"],
+                       "n_slots": reps[w]["n_slots"],
+                       "remat": {k: (reps[w]["remat"] or {}).get(k) for k in (
+                           "chosen", "segments", "policy",
+                           "stash_bytes_unsegmented", "predicted_stash_bytes",
+                           "extra_seconds_bound", "time_budget_s")}}
+                      for w in reps},
+                   **{w: {"loss": runs[w]["loss"],
+                          "peak_bytes": runs[w]["peak"],
+                          "step_ms_median": med[w]} for w in order},
+                   "launches": launches}
+    log(f"  launches over the four programs' {4 * (ANALYSIS_STEPS + 1)} "
+        f"steps: { {k: launches[k] for k in FLASH + FLASH_TC} }")
+    for k in FLASH + FLASH_TC:
+        assert launches[k] > 0, f"phase 41: {k} never launched"
+    del exes
+    for w in ("kept", "planned", "remat"):
+        del scopes[w]
+
+    # -- the cost model and the measured census on the card ----------------
+    exe, scope = ptt.Executor(ptt.CUDAPlace(0)), scopes["released"]
+    feed = feeds[0]
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    ca = exe.cost_analysis(main, feed, [loss], scope)
+    ma = exe.memory_analysis(main, feed, [loss], scope)
+    census = exe.memory_census(feed, main, scope, fetch_list=[loss])
+    report = costs.predict(main, nominal_batch=b)
+    row = ledger.CostLedger("phase41").row("lm", batch=b)
+    row.set_prediction(report)
+    row.set_memory_census(census)
+    ident = row.check_memory_identity(0.1)
+    step_s = float(np.median(runs["released"]["secs"]))
+    roof = costs.roofline_fields(step_s, ca["flops"], ca["bytes accessed"])
+    mfu = costs.mfu(ca["flops"], step_s)
+    log(f"  cost_analysis: {ca['flops'] / 1e12:.3f} TFLOP, "
+        f"{ca['bytes accessed'] / 1e9:.2f} GB a step (the port's op count)")
+    log(f"  memory_analysis ({ma['temp_source']}): argument "
+        f"{ma['argument_bytes'] / 1e6:.1f} MB, output "
+        f"{ma['output_bytes'] / 1e6:.1f} MB, alias "
+        f"{ma['alias_bytes'] / 1e6:.1f} MB, temp {ma['temp_bytes'] / 1e6:.1f} "
+        f"MB; predicted transient peak "
+        f"{report['memory']['per_device']['transient_peak'] / 1e6:.1f} MB")
+    log(f"  memory_census: state {census['state']['categories']}, feeds "
+        f"{census['feeds']['per_device_bytes']:.0f} B, peak "
+        f"{census['peak_bytes'] / 1e6:.1f} MB, live "
+        f"{census['live']['committed_bytes'] / 1e6:.1f} MB "
+        f"({census['live']['source']}, untracked "
+        f"{census['live']['untracked_bytes'] / 1e6:.1f} MB)")
+    checks = {c["what"]: c["ok"] for c in row.checks}
+    log(f"  check_memory_identity(0.1): {checks}; buckets "
+        f"{ident['buckets']}; unattributed bound "
+        f"{ident['predicted']} B against {ident['measured']} B measured "
+        f"(peak {ident['peak_bytes'] / 1e6:.1f} MB)")
+    log(f"  median step {step_s * 1e3:.1f} ms: mfu {mfu:.4f} at "
+        f"{costs.H100_PEAK_FLOPS / 1e12:.0f} TFLOP/s; roofline_fields {roof}")
+    assert next(c for c in row.checks
+                if c["what"] == "memory_args_balance")["ok"], row.checks
+    # a step with no transients: one in-place add to a 256 MiB state
+    flat = ptt.Program()
+    with ptt.program_guard(flat, ptt.Program()):
+        w = flat.global_block().create_var(
+            name="census_w", shape=[64 << 20], dtype="float32",
+            persistable=True)
+        ptt.layers.increment(w, in_place=True)
+    flat_scope = ptt.Scope()
+    flat_scope.set_var("census_w", torch.zeros(64 << 20, device=exe.device))
+    flat_ma = exe.memory_analysis(flat, {}, [], flat_scope)
+    log(f"  memory_analysis of an in-place add to a 256 MiB state: temp "
+        f"{flat_ma['temp_bytes']} B, alias {flat_ma['alias_bytes']} B")
+    assert flat_ma["alias_bytes"] == 4 << 26, flat_ma
+    assert flat_ma["temp_bytes"] < 1 << 20, flat_ma
+    assert float(flat_scope.get("census_w")[0]) == 0.0
+    del flat_scope
+    out["census"] = {"cost_analysis": ca, "memory_analysis": ma,
+                     "identity_checks": checks,
+                     "identity_buckets": ident["buckets"],
+                     "peak_bytes": census["peak_bytes"],
+                     "no_transient_temp_bytes": flat_ma["temp_bytes"],
+                     "mfu": mfu, "roofline": roof}
+
+    # -- the profiler -------------------------------------------------------
+    # the window's first step is a warm-up, outside the checks: in a long
+    # process CUPTI can miss the first kernels of a window (one of 18
+    # flash_fwd_tc_kernels in the first step, in both full runs of this
+    # script; none in a short process)
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    trace_path = os.path.join(tdir, "trace.json")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with profiler.profiler("All", sorted_key="total",
+                           profile_path=trace_path, trace_dir=tdir):
+        for i in range(PROFILE_STEPS + 1):
+            exe.run(main, feed=feeds[i % len(feeds)], fetch_list=[loss],
+                    scope=scope)
+    wall = time.perf_counter() - t0
+    prof_launches = dict(kernels.LAUNCHES)
+    with open(trace_path) as f:
+        trace = json.load(f)
+    with open(os.path.join(tdir, "device_trace.json")) as f:
+        raw = json.load(f)["traceEvents"]
+    shutil.rmtree(tdir, ignore_errors=True)
+    names = ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+             "flash_dkv_tc_kernel")
+    per_step = _kernels_per_step(raw, names)
+    evs = trace["traceEvents"]
+    dev = [e for e in evs if e.get("pid", 0) > 0 and e.get("ph") == "X"]
+    named = {k: sum(1 for e in dev if k in e["name"]) for k in names}
+    host = {}
+    for e in evs:
+        if e.get("pid") == 0 and e.get("ph") == "X":
+            host[e["name"]] = host.get(e["name"], 0) + 1
+    busy, window = _device_busy(dev)
+    log(f"  profiled {PROFILE_STEPS + 1} steps (the first a warm-up) in "
+        f"{wall * 1e3:.1f} ms: device events {len(dev)}, flash kernels in "
+        f"the exported trace {named}, by step {per_step}; host span ranges "
+        f"{host}; device busy {busy / 1e3:.1f} of {window / 1e3:.1f} ms "
+        f"(idle share {1 - busy / max(window, 1e-9):.3f})")
+    assert len(per_step) == PROFILE_STEPS + 1, per_step
+    for counts in per_step[1:]:
+        assert all(n == cfg["num_layers"] for n in counts.values()), \
+            per_step
+    for k, n in named.items():
+        assert n >= cfg["num_layers"] * PROFILE_STEPS, (k, n, named)
+    assert host.get("executor/run") == PROFILE_STEPS + 1, host
+    assert prof_launches["flash_fwd_tc"] == cfg["num_layers"] * \
+        (PROFILE_STEPS + 1), prof_launches
+    out["profile"] = {"kernels_in_trace": named, "kernels_by_step": per_step,
+                      "host_spans": host, "busy_ms": busy / 1e3,
+                      "window_ms": window / 1e3,
+                      "idle_share": 1 - busy / max(window, 1e-9),
+                      "launches": {k: prof_launches[k]
+                                   for k in FLASH + FLASH_TC}}
+    del exe, scopes
+
+    # -- the flight recorder --------------------------------------------------
+    d = tempfile.mkdtemp(prefix="chip_smoke_dossier_")
+    try:
+        flight_recorder.install(d, excepthook=True, sigterm=False)
+
+        def train_func():
+            x = ptt.layers.data("x", [64])
+            y = ptt.layers.data("y", [1])
+            return [ptt.layers.mean(ptt.layers.square_error_cost(
+                ptt.layers.fc(x, 1), y))]
+
+        with ptt.unique_name.guard():
+            trainer = ptt.Trainer(
+                train_func, lambda: ptt.optimizer.SGD(learning_rate=0.01),
+                place=ptt.CUDAPlace(0))
+        drng = np.random.RandomState(SEED)
+
+        def reader():
+            for _ in range(8):
+                yield [(drng.randn(64).astype("float32"),
+                        drng.randn(1).astype("float32")) for _ in range(8)]
+
+        def stop_at_step_3(event):
+            if isinstance(event, ptt.EndStepEvent) and event.step == 3:
+                raise EnforceError("phase 41: injected stop at step 3")
+
+        try:
+            trainer.train(num_epochs=1, event_handler=stop_at_step_3,
+                          reader=reader, feed_order=["x", "y"])
+            raise AssertionError("the injected EnforceError did not stop "
+                                 "the Trainer")
+        except EnforceError as e:
+            sys.excepthook(type(e), e, e.__traceback__)
+        dossiers = flight_recorder.collect_dossiers(d)
+        verdict = flight_recorder.analyze(d)
+        spans = [s["name"] for s in dossiers[0]["spans"]] if dossiers \
+            else []
+        log(f"  flight recorder: {len(dossiers)} dossier(s), reason "
+            f"{verdict['dossier_reasons']}, its last spans "
+            f"{spans[-4:]}")
+        assert len(dossiers) == 1 and "executor/run" in spans, dossiers
+        assert verdict["n_dossiers"] == 1, verdict
+        out["flight_recorder"] = {"dossiers": len(dossiers),
+                                  "reasons": verdict["dossier_reasons"],
+                                  "last_spans": spans[-4:]}
+    finally:
+        flight_recorder.reset()
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6441,6 +7092,8 @@ def main():
         check_decode_attention_generate(rates))
     results.update(check_flash(ptt, rates))
     results.update(check_recurrent(ptt, rates))
+    for kname, row in check_recurrent_bf16(ptt, rates).items():
+        results[kname].update(row)
 
     _phase("phase 4: serve the Transformer LM at full width")
     serve_launches, eng, base = serve(ptt, kernels)
@@ -6645,6 +7298,12 @@ def main():
     _phase("phase 40: generators, run_steps, py_reader, the fused "
            "sequences and the fault cases, card against CPU")
     paths["generate_reference"] = generate_reference_check(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    _phase("phase 41: the analyzers, the memory planner, the cost model, "
+           "the census, the profiler and the flight recorder on phase 7's "
+           "LM")
+    paths["analysis_plan_profile"] = analyze_plan_profile(ptt, kernels)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -6705,6 +7364,11 @@ def main():
                     ("gru_seq", "launches_crnn")):
         assert results[kern][k] > 0, \
             f"{kern} was never launched on its {k[9:]} path"
+    # phase 41: K1-K3 over the four variants' turns
+    for k in FLASH + FLASH_TC:
+        results[k.replace("_tc", "") if k in FLASH_TC else k][
+            f"launches_phase41{'_tc' if k in FLASH_TC else ''}"] = \
+            paths["analysis_plan_profile"]["plan"]["launches"][k]
     results["flash_fwd"]["launches_tc_transformer_base_infer"] = \
         paths["transformer_base_infer"]["flash_fwd_tc_launches"]
     # generation (phases 38-39): K4 in every decode step of both

@@ -23,7 +23,11 @@ save/load in the JAX package's format, `Inferencer` / `Predictor`; and
 the image models (ResNet, SE-ResNeXt, VGG, MNIST, AlexNet, GoogLeNet) on
 conv, pool and batch_norm, fed uint8 images through `DevicePrefetcher`;
 the SSD detector and the CRNN-CTC recognizer with the detection and CTC
-ops; every op the JAX package registers, and its host-side `metrics`.
+ops; every op the JAX package registers, and its host-side `metrics`; the
+program analyzers (`analyze_program`, `check_program`, `infer_program`,
+`verify_program`, dataflow), the memory planner (`memory_plan_pass`), the
+cost model, the measured memory census, the cost ledger, the flight
+recorder and the `profiler` over torch.profiler.
 ROADMAP.md lists what is still to be ported.
 """
 
@@ -31,6 +35,8 @@ from . import clip, initializer, layers, optimizer, regularizer  # noqa: F401
 from .core import (CPUPlace, CUDAPlace, Place, default_place,  # noqa: F401
                    device_count, devices, is_compiled_with_cuda)
 from .core import flags, unique_name  # noqa: F401
+from .framework.analysis import (analyze_program, check_program,  # noqa: F401
+                                 infer_program, op_loc, verify_program)
 from .framework.backward import append_backward, calc_gradient  # noqa: F401
 from .framework.executor import Executor  # noqa: F401
 from .framework.passes import (Analyzer, Pass, get_pass,  # noqa: F401
@@ -52,7 +58,7 @@ from .io import (load_inference_model, load_numpy_params,  # noqa: F401,E402
                  load_params, load_persistables, load_vars,
                  save_inference_model, save_params, save_persistables,
                  save_vars)
-from . import serving_engine  # noqa: F401,E402
+from . import profiler, serving_engine  # noqa: F401,E402
 from .serving import (ContinuousBatchingEngine,  # noqa: F401,E402
                       EngineClient, EngineServer, HostTierConfig,
                       PagedKVEngine, SpecConfig, paged_beam_search)

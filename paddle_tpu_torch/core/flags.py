@@ -138,3 +138,15 @@ define_int("trace_ring", 65536,
            "Capacity of the span ring buffer (observability/tracing.py). "
            "Oldest spans are overwritten; the buffer is preallocated so "
            "recording never allocates on the hot path.")
+define_bool("memory_plan", True,
+            "Allow the static memory planner (framework/memory_plan.py) "
+            "when the BuildStrategy requests it (memory_plan=True): "
+            "liveness-minimizing op scheduling, interference-graph "
+            "buffer-slot coloring (checked race-free by the buffer-reuse "
+            "detectors on every apply), and the remat-vs-stash search that "
+            "segments the backward region under torch.utils.checkpoint. "
+            "The BuildStrategy gate is ParallelExecutor's (ROADMAP.md §1 "
+            "item 4); on one card the flag is part of the executor's "
+            "plan-cache key (framework/executor.py _fusion_flags_key). The "
+            "executor's release of each transient at its last use runs in "
+            "every plan and does not read it.")

@@ -3,7 +3,9 @@
 //
 // Replaces paddle_tpu/fusion/recurrent.py:_lstm_seq_kernel (LSTM, K5) and
 // _gru_seq_kernel (GRU, K6), both driven by _pallas_seq. They compute what
-// those kernels compute, in float32:
+// those kernels compute, in float32, or for bfloat16 x, w and states what
+// the reference's XLA composite computes for them (_xla_lstm_seq /
+// _xla_gru_seq, which the JAX package takes for any type but float32):
 //
 //   LSTM  gates (i, f, c^, o) = x_t + h . w     (x [B,T,4H], w [H,4H])
 //         c = sig(f) c + sig(i) tanh(c^),  h = sig(o) tanh(c)
@@ -71,10 +73,22 @@
 //
 // K6 (gru_seq_kernel) has K5's design, sized to the GRU: see "K6" below.
 //
+// bfloat16 (E = __nv_bfloat16): x, w, h0, c0 and the outputs hs, cs and the
+// stash are bfloat16. The composite's scan carries h and c in x's type, so
+// they are rounded to bfloat16 at every step; the kernels keep float32
+// arithmetic inside a step (the product accumulates in float32, as the
+// composite's dot does) and round the carried state where the composite
+// stores it: the new h (into the h buffer every block reads next step) and
+// the new c, and every output as it is written. w is widened to float32 as
+// a block stages it (the relaid copy is float32 already); the h buffers
+// stay float32 and hold bfloat16 values exactly. So an error does not grow
+// with T beyond what the rounded carry itself does.
+//
 // Launch: ptt_recurrent_plan picks the units a block so that the blocks are
 // no more than the SMs, one block on each; cudaLaunchCooperativeKernel
 // guarantees they are co-resident, which the barrier needs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -83,10 +97,31 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kF32 = 0;    // element type codes of ptt_lstm_seq / ptt_gru_seq
+constexpr int kBF16 = 1;
 constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// Element loads and stores in the inputs' type E (float or bfloat16), and
+// the rounding of a float32 value to E.
+__device__ __forceinline__ float ld_f(const float* p) { return *p; }
+__device__ __forceinline__ float ld_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st_e(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_e(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+template <typename E>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (sizeof(E) == sizeof(float)) {
+    return v;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
 }
 
 // Grid-wide barrier over a counter that only grows (zeroed by the caller):
@@ -154,14 +189,14 @@ __host__ __device__ constexpr int lstm_slot_floats(int nct, bool stream_w) {
 // w_rel is null where the block's w columns are kept in shared memory, else
 // the relaid copy [gridDim.x][groups][HP][4 UG] they are streamed from.
 // hbuf [2][B][HP], zeroed by the caller (columns H..HP-1 stay 0).
-template <int UG>
+template <int UG, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
+lstm_seq_kernel(const E* __restrict__ x, const E* __restrict__ w,
                 const float* __restrict__ w_rel,
-                const float* __restrict__ h0, const float* __restrict__ c0,
+                const E* __restrict__ h0, const E* __restrict__ c0,
                 const int* __restrict__ seqlen, int B, int T, int H, int HP,
-                int groups, int reverse, float* __restrict__ hs,
-                float* __restrict__ cs, float* __restrict__ stash,
+                int groups, int reverse, E* __restrict__ hs,
+                E* __restrict__ cs, E* __restrict__ stash,
                 float* hbuf, unsigned int* arrived) {
   constexpr int NCT = 4 * UG;          // gate columns of a group: g UG + u
   constexpr int CT = NCT < 8 ? NCT : 8;  // of which a lane takes CT
@@ -200,14 +235,14 @@ lstm_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int c = p % NCT;
       const int j = j0 + cg * UG + c % UG;
       w_s[p] = (k < H && j < H)
-                   ? w[(size_t)k * 4 * H + (size_t)(c / UG) * H + j]
+                   ? ld_f(w + (size_t)k * 4 * H + (size_t)(c / UG) * H + j)
                    : 0.f;
     }
   }
   for (int p = threadIdx.x; p < B * U; p += kThreads) {
     const int b = p / U;
     const int j = j0 + p % U;
-    if (j < H) hbuf[(size_t)b * HP + j] = h0[(size_t)b * H + j];
+    if (j < H) hbuf[(size_t)b * HP + j] = ld_f(h0 + (size_t)b * H + j);
   }
   unsigned int target = 0;
   grid_sync(arrived, target);
@@ -231,10 +266,10 @@ lstm_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
       float xg[4], hprev = 0.f, cprev = 0.f;
       if (mine) {  // in flight while the product runs
 #pragma unroll
-        for (int g = 0; g < 4; ++g) xg[g] = x[xo + (size_t)g * H];
+        for (int g = 0; g < 4; ++g) xg[g] = ld_f(x + xo + (size_t)g * H);
         hprev = hcur[(size_t)b * HP + j];
-        cprev = t == 0 ? c0[(size_t)b * H + j]
-                       : cs[((size_t)b * T + t - 1) * H + j];
+        cprev = t == 0 ? ld_f(c0 + (size_t)b * H + j)
+                       : ld_f(cs + ((size_t)b * T + t - 1) * H + j);
       }
 
       // piece q of this warp's k share into ring slot q % kNS (an empty
@@ -343,21 +378,22 @@ lstm_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const float fg = sigmoid_f(xg[1]);
         const float gg = tanhf(xg[2]);
         const float og = sigmoid_f(xg[3]);
-        float cn = fg * cprev + ig * gg;
-        float hn = og * tanhf(cn);
+        // the carried state in E: the new c is rounded before h reads it
+        float cn = round_to<E>(fg * cprev + ig * gg);
+        float hn = round_to<E>(og * tanhf(cn));
         if (seqlen[b] <= tpos) {
           cn = cprev;
           hn = hprev;
         }
         hnxt[(size_t)b * HP + j] = hn;
         const size_t so = ((size_t)b * T + t) * H + j;
-        hs[so] = hn;
-        cs[so] = cn;
+        st_e(hs + so, hn);
+        st_e(cs + so, cn);
         if (stash != nullptr) {
-          stash[xo] = ig;
-          stash[xo + H] = fg;
-          stash[xo + 2 * H] = gg;
-          stash[xo + 3 * H] = og;
+          st_e(stash + xo, ig);
+          st_e(stash + xo + H, fg);
+          st_e(stash + xo + 2 * H, gg);
+          st_e(stash + xo + 3 * H, og);
         }
       }
       __syncthreads();  // the rings are free for the next tile's pieces
@@ -558,13 +594,13 @@ __device__ __forceinline__ float gru_total(const float* smem, int slot, int r,
 // memory, else the relaid copy [gridDim.x][groups][HP][3 UG] they are
 // streamed from (UG = 4 only). buf [3][B][HP] zeroed by the caller: h, r h
 // and z (columns H..HP-1 of h and r h stay 0).
-template <int UG>
+template <int UG, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ w_rel, const float* __restrict__ h0,
+gru_seq_kernel(const E* __restrict__ x, const E* __restrict__ w,
+               const float* __restrict__ w_rel, const E* __restrict__ h0,
                const int* __restrict__ seqlen, int B, int T, int H, int HP,
-               int groups, int reverse, float* __restrict__ hs,
-               float* __restrict__ stash, float* buf,
+               int groups, int reverse, E* __restrict__ hs,
+               E* __restrict__ stash, float* buf,
                unsigned int* arrived) {
   constexpr int NA = 2 * UG;   // phase A's gate columns of a group: r | z
   constexpr int NB = UG;       // phase B's: the candidate
@@ -598,9 +634,10 @@ gru_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int k = (p / (3 * UG)) % HP;
       const int c = p % (3 * UG);
       const int j = j0 + cg * UG + c % UG;
-      const float v = (k < H && j < H)
-                          ? w[(size_t)k * 3 * H + (size_t)(c / UG) * H + j]
-                          : 0.f;
+      const float v =
+          (k < H && j < H)
+              ? ld_f(w + (size_t)k * 3 * H + (size_t)(c / UG) * H + j)
+              : 0.f;
       if (c < NA)
         wa_s[cg * gru_wrow(NA, HP) + gru_wrow(NA, k) + c] = v;
       else
@@ -610,7 +647,7 @@ gru_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int p = threadIdx.x; p < B * U; p += kThreads) {
     const int b = p / U;
     const int j = j0 + p % U;
-    if (j < H) hbuf[(size_t)b * HP + j] = h0[(size_t)b * H + j];
+    if (j < H) hbuf[(size_t)b * HP + j] = ld_f(h0 + (size_t)b * H + j);
   }
   unsigned int target = 0;
   grid_sync(arrived, target);
@@ -629,7 +666,7 @@ gru_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const size_t xo = ((size_t)b * T + t) * 3 * H + (size_t)gate * H + j;
       float xg = 0.f, hprev = 0.f;
       if (mine) {   // in flight while the product runs
-        xg = x[xo];
+        xg = ld_f(x + xo);
         if (gate == 0) hprev = __ldcg(hbuf + (size_t)b * HP + j);
       }
       float acc[8][NA];
@@ -643,7 +680,7 @@ gru_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
           rhbuf[(size_t)b * HP + j] = g * hprev;
         else
           zbuf[(size_t)b * HP + j] = g;
-        if (stash != nullptr) stash[xo] = g;
+        if (stash != nullptr) st_e(stash + xo, g);
       }
       __syncthreads();  // the rings are free for the next tile's pieces
     }
@@ -660,7 +697,7 @@ gru_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
       float xc = 0.f, zg = 0.f, hprev = 0.f;
       int len = 0;
       if (mine) {   // in flight while the product runs
-        xc = x[xo];
+        xc = ld_f(x + xo);
         zg = __ldcg(zbuf + (size_t)b * HP + j);
         hprev = __ldcg(hbuf + (size_t)b * HP + j);
         len = seqlen[b];
@@ -672,11 +709,12 @@ gru_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
       __syncthreads();
       if (mine) {
         const float cgate = tanhf(xc + gru_total<NB>(smem, slot, pr, pu));
-        float hn = zg * hprev + (1.f - zg) * cgate;
+        // the carried h in E
+        float hn = round_to<E>(zg * hprev + (1.f - zg) * cgate);
         if (len <= tpos) hn = hprev;
         hbuf[(size_t)b * HP + j] = hn;
-        hs[((size_t)b * T + t) * H + j] = hn;
-        if (stash != nullptr) stash[xo] = cgate;
+        st_e(hs + ((size_t)b * T + t) * H + j, hn);
+        if (stash != nullptr) st_e(stash + xo, cgate);
       }
       __syncthreads();  // the rings are free for the next tile's pieces
     }
@@ -774,6 +812,30 @@ cudaError_t coop_launch(K kern, int grid, size_t smem, void** args,
   return cudaGetLastError();
 }
 
+// The LSTM kernel for `p.ug` units a column group over element type E.
+template <typename E>
+cudaError_t launch_lstm(const Plan& p, void** args, cudaStream_t s,
+                        const Device& d) {
+  switch (p.ug) {
+    case 1: return coop_launch(lstm_seq_kernel<1, E>, p.blocks, p.smem, args, s, d);
+    case 2: return coop_launch(lstm_seq_kernel<2, E>, p.blocks, p.smem, args, s, d);
+    case 4: return coop_launch(lstm_seq_kernel<4, E>, p.blocks, p.smem, args, s, d);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The GRU kernel for `p.ug` units a column group over element type E.
+template <typename E>
+cudaError_t launch_gru(const Plan& p, void** args, cudaStream_t s,
+                       const Device& d) {
+  switch (p.ug) {
+    case 1: return coop_launch(gru_seq_kernel<1, E>, p.blocks, p.smem, args, s, d);
+    case 2: return coop_launch(gru_seq_kernel<2, E>, p.blocks, p.smem, args, s, d);
+    case 4: return coop_launch(gru_seq_kernel<4, E>, p.blocks, p.smem, args, s, d);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -801,15 +863,16 @@ int ptt_recurrent_plan(int kind, int B, int H, int* out) {
   return cudaSuccess;
 }
 
-// x [B,T,4H], w [H,4H], h0/c0 [B,H] float32 contiguous; w_rel the relaid
-// copy of w where the plan streams w, else null; seqlen [B] int32;
-// hs, cs [B,T,H]; stash [B,T,4H] or null; hbuf [2,B,HP] float32 scratch,
-// zeroed; arrived: one zeroed unsigned int. Returns the launch's
-// cudaError_t; launches on `stream` and does not synchronize.
+// x [B,T,4H], w [H,4H], h0/c0 [B,H] contiguous, of element type `dtype`
+// (kF32 or kBF16), as are hs, cs [B,T,H] and stash [B,T,4H] (or null);
+// w_rel the float32 relaid copy of w where the plan streams w, else null;
+// seqlen [B] int32; hbuf [2,B,HP] float32 scratch, zeroed; arrived: one
+// zeroed unsigned int. Returns the launch's cudaError_t; launches on
+// `stream` and does not synchronize.
 int ptt_lstm_seq(const void* x, const void* w, const void* w_rel,
                  const void* h0, const void* c0, const void* seqlen, int B,
-                 int T, int H, int reverse, void* hs, void* cs, void* stash,
-                 void* hbuf, void* arrived, void* stream) {
+                 int T, int H, int reverse, int dtype, void* hs, void* cs,
+                 void* stash, void* hbuf, void* arrived, void* stream) {
   if (B < 1 || T < 1 || H < 1) return cudaErrorInvalidValue;
   Device d;
   cudaError_t e = device_info(&d);
@@ -817,38 +880,31 @@ int ptt_lstm_seq(const void* x, const void* w, const void* w_rel,
   const Plan p = lstm_plan(H, d);
   if (p.stream_w != (w_rel != nullptr) || p.smem > (size_t)d.smem_max)
     return cudaErrorInvalidValue;
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
   const float* wr = static_cast<const float*>(w_rel);
-  const float* h0f = static_cast<const float*>(h0);
-  const float* c0f = static_cast<const float*>(c0);
   const int* sl = static_cast<const int*>(seqlen);
-  float* hsf = static_cast<float*>(hs);
-  float* csf = static_cast<float*>(cs);
-  float* stf = static_cast<float*>(stash);
   float* hb = static_cast<float*>(hbuf);
   unsigned int* ar = static_cast<unsigned int*>(arrived);
   int hp = p.hp, groups = p.groups;
-  void* args[] = {&xf, &wf, &wr, &h0f, &c0f, &sl, &B, &T, &H, &hp,
-                  &groups, &reverse, &hsf, &csf, &stf, &hb, &ar};
+  void* args[] = {&x, &w, &wr, &h0, &c0, &sl, &B, &T, &H, &hp,
+                  &groups, &reverse, &hs, &cs, &stash, &hb, &ar};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.ug) {
-    case 1: e = coop_launch(lstm_seq_kernel<1>, p.blocks, p.smem, args, s, d); break;
-    case 2: e = coop_launch(lstm_seq_kernel<2>, p.blocks, p.smem, args, s, d); break;
-    case 4: e = coop_launch(lstm_seq_kernel<4>, p.blocks, p.smem, args, s, d); break;
-    default: e = cudaErrorInvalidValue;
-  }
+  if (dtype == kF32)
+    e = launch_lstm<float>(p, args, s, d);
+  else if (dtype == kBF16)
+    e = launch_lstm<__nv_bfloat16>(p, args, s, d);
+  else
+    e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }
 
-// x [B,T,3H], w [H,3H], h0 [B,H] float32 contiguous; w_rel the relaid copy
-// of w where the plan streams w, else null; seqlen [B] int32; hs [B,T,H];
-// stash [B,T,3H] or null; buf [3,B,HP] float32 scratch, zeroed; arrived:
-// one zeroed unsigned int.
+// x [B,T,3H], w [H,3H], h0 [B,H] contiguous, of element type `dtype`, as
+// are hs [B,T,H] and stash [B,T,3H] (or null); w_rel the float32 relaid
+// copy of w where the plan streams w, else null; seqlen [B] int32; buf
+// [3,B,HP] float32 scratch, zeroed; arrived: one zeroed unsigned int.
 int ptt_gru_seq(const void* x, const void* w, const void* w_rel,
                 const void* h0, const void* seqlen, int B, int T, int H,
-                int reverse, void* hs, void* stash, void* buf, void* arrived,
-                void* stream) {
+                int reverse, int dtype, void* hs, void* stash, void* buf,
+                void* arrived, void* stream) {
   if (B < 1 || T < 1 || H < 1) return cudaErrorInvalidValue;
   Device d;
   cudaError_t e = device_info(&d);
@@ -857,25 +913,20 @@ int ptt_gru_seq(const void* x, const void* w, const void* w_rel,
   if (p.stream_w != (w_rel != nullptr) || p.smem > (size_t)d.smem_max ||
       (p.stream_w && p.ug != 4))
     return cudaErrorInvalidValue;
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
   const float* wr = static_cast<const float*>(w_rel);
-  const float* h0f = static_cast<const float*>(h0);
   const int* sl = static_cast<const int*>(seqlen);
-  float* hsf = static_cast<float*>(hs);
-  float* stf = static_cast<float*>(stash);
   float* bf = static_cast<float*>(buf);
   unsigned int* ar = static_cast<unsigned int*>(arrived);
   int hp = p.hp, groups = p.groups;
-  void* args[] = {&xf, &wf, &wr, &h0f, &sl, &B, &T, &H, &hp, &groups,
-                  &reverse, &hsf, &stf, &bf, &ar};
+  void* args[] = {&x, &w, &wr, &h0, &sl, &B, &T, &H, &hp, &groups,
+                  &reverse, &hs, &stash, &bf, &ar};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.ug) {
-    case 1: e = coop_launch(gru_seq_kernel<1>, p.blocks, p.smem, args, s, d); break;
-    case 2: e = coop_launch(gru_seq_kernel<2>, p.blocks, p.smem, args, s, d); break;
-    case 4: e = coop_launch(gru_seq_kernel<4>, p.blocks, p.smem, args, s, d); break;
-    default: e = cudaErrorInvalidValue;
-  }
+  if (dtype == kF32)
+    e = launch_gru<float>(p, args, s, d);
+  else if (dtype == kBF16)
+    e = launch_gru<__nv_bfloat16>(p, args, s, d);
+  else
+    e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }
 

@@ -18,6 +18,14 @@ carries over:
   `layers.batch_row_mask()` and the caller does not feed it;
 - feed staging: a data var declared with a staging dtype may be fed in
   it (uint8 images), and is cast and scaled on the device;
+- every plan drops each transient at its last use (`_release_schedule`):
+  the port's counterpart of XLA's buffer assignment, which frees a
+  transient at its last use in every compiled program, planned or not;
+  a memory-planned program's order and remat segments decide what that
+  leaves live;
+- `cost_analysis` / `memory_analysis` / `memory_census`, with the JAX
+  package's keys, from the port's own count of the step and the caching
+  allocator's statistics;
 - the JAX executor's spans (`executor/trace_and_compile` around the plan
   build, `executor/feed`, `executor/run`, `executor/state_writeback`)
   and its `device_state_bytes` watermark, on `Executor.run`. The bound
@@ -39,6 +47,7 @@ fetched like any variable.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -61,13 +70,19 @@ def _fusion_flags_key():
     """Flags read when a plan is built: part of the plan-cache key, so a
     toggled flag never reuses the other variant's plan."""
     return (flags.get_flag("fuse_decode_attention"),
-            flags.get_flag("fuse_recurrent_cells"))
+            flags.get_flag("fuse_recurrent_cells"),
+            flags.get_flag("memory_plan"))
 
 
 def _feed_signature(feed: Dict[str, Any]):
     return tuple(sorted((k, tuple(np.shape(v)), str(v.dtype)
                          if hasattr(v, "dtype") else str(np.asarray(v).dtype))
                         for k, v in feed.items()))
+
+
+def _fetch_names(fetch_list):
+    return [f.name if isinstance(f, Variable) else f
+            for f in (fetch_list or [])]
 
 
 def as_numpy(t) -> np.ndarray:
@@ -129,10 +144,50 @@ class _Plan:
             for n in feed_names
             if n in block.vars and block.vars[n].staging is not None)
         self.census_state_bytes = None     # Executor._note_run_memory
+        self.flops_estimate = 0.0          # per step, for `ptpu_mfu`
+        self.mfu_warm = False
         self.read_names = frozenset(
             {n for blk in program.blocks for op in blk.ops
              for n in op.input_names()}
             | set(fetch_names) | set(self.state_out_names))
+        self.release = _release_schedule(program, self.ops,
+                                         set(feed_names) | set(fetch_names))
+
+
+def _plan_accesses(op):
+    """(reads, writes) of one top-level plan entry: a vjp_region runs its
+    forward ops inside it, so it reads and writes theirs too."""
+    reads, writes = set(op.input_names()), set(op.output_names())
+    if op.type == "vjp_region":
+        for i in op.attrs["fwd_ops"]:
+            fop = op.block.ops[i]
+            reads |= set(fop.input_names())
+            writes |= set(fop.output_names())
+    return reads, writes
+
+
+def _release_schedule(program, plan_ops, keep):
+    """For each top-level plan entry, the env names to drop after it: every
+    transient at its last read or write in the plan. Kept whole: `keep`
+    (feeds, fetches), persistables (the state), and names an op both reads and
+    writes (an in-place update may alias a tensor the caller holds).
+    Control-flow sub-blocks run in envs of their own, built from their
+    op's inputs, so the top-level reads cover what they use."""
+    persistable = {n for blk in program.blocks
+                   for n, v in blk.vars.items() if v.persistable}
+    last: Dict[str, int] = {}
+    inplace = set()
+    for i, op in enumerate(plan_ops):
+        reads, writes = _plan_accesses(op)
+        inplace |= reads & set(op.output_names())
+        for n in reads | writes:
+            last[n] = i
+    skip = set(keep) | persistable | inplace
+    release = [[] for _ in plan_ops]
+    for n, i in last.items():
+        if n not in skip:
+            release[i].append(n)
+    return [tuple(sorted(r)) for r in release]
 
 
 class PreparedStep:
@@ -297,6 +352,17 @@ class Executor:
         return _Plan(fused, ro, rw, out_only,
                      list(feed_names), list(fetch_names))
 
+    @staticmethod
+    def _stash_flops_estimate(plan: _Plan, feed):
+        """The analytic per-step model flops for the `ptpu_mfu` gauge
+        (≙ the JAX executor's): the op walk of `costs.program_flops_bytes`
+        over the planned program, batch dims at the fed batch."""
+        from .costs import program_flops_bytes
+        batch = max((np.shape(v)[0] for v in feed.values()
+                     if np.ndim(v) >= 1), default=8)
+        plan.flops_estimate = program_flops_bytes(
+            plan.program, nominal_batch=int(batch))["flops"]
+
     def _validate_fetches(self, program: Program, feed, fetch_names):
         block = program.global_block()
         defined = set(feed)
@@ -323,6 +389,7 @@ class Executor:
                                n_fetches=len(fetch_names)):
                 plan = self._build_plan(program, scope, list(feed.keys()),
                                         fetch_names)
+                self._stash_flops_estimate(plan, feed)
             self._cache[key] = plan
         return plan
 
@@ -377,7 +444,7 @@ class Executor:
         for name, dtype, staging in plan.staged_feeds:
             env[name] = _unstage(name, env[name], dtype, staging)
         with torch.no_grad():
-            run_plan(plan.ops, env, ctx)
+            run_plan(plan.ops, env, ctx, plan.release)
         return env
 
     @staticmethod
@@ -389,16 +456,26 @@ class Executor:
             sv[name] = env[name]
 
     @staticmethod
-    def _note_run_memory(plan: _Plan, ro_vals, rw_vals):
-        """The `device_state_bytes` watermark: the plan's state bytes,
-        counted once per plan from the tensors' metadata (state shapes
-        are fixed by the plan), re-stamped each run (≙ the JAX executor's
-        `_note_run_memory`)."""
+    def _note_run_memory(plan: _Plan, ro_vals, rw_vals, step_s: float,
+                         steps: int = 1):
+        """Per-run memory / utilization sample (≙ the JAX executor's
+        `_note_run_memory`): the `device_state_bytes` watermark (the plan's
+        state bytes, counted once per plan from the tensors' metadata) and
+        the `ptpu_mfu` gauge, the plan's model flops over the run's host
+        wall time. As in the JAX package, only a step that updates state
+        publishes MFU, and not its plan's first run (warm-up). No device
+        sync: on a card the window is the host's dispatch of the step,
+        which a host-bound step's device time keeps up with."""
         sb = plan.census_state_bytes
         if sb is None:
             sb = plan.census_state_bytes = sum(
                 _memory.per_device_bytes(v) for v in ro_vals + rw_vals)
         _memory.update_watermark("device_state_bytes", sb)
+        if plan.flops_estimate and step_s > 0 and plan.rw_names:
+            if plan.mfu_warm:
+                _memory.note_mfu(plan.flops_estimate * steps, step_s)
+            else:
+                plan.mfu_warm = True
 
     def run(self,
             program: Optional[Program] = None,
@@ -410,9 +487,9 @@ class Executor:
         program = program or default_main_program()
         feed = self._synthesize_batch_mask(program, dict(feed or {}))
         scope = scope or global_scope()
-        fetch_names = [f.name if isinstance(f, Variable) else f
-                       for f in (fetch_list or [])]
+        fetch_names = _fetch_names(fetch_list)
         plan = self._lookup_or_plan(program, feed, fetch_names, scope)
+        t0 = time.time()
         with _tracing.span("feed_fetch", "executor/feed",
                            n_feeds=len(plan.feed_names)):
             feed_vals = tuple(self._to_device(feed[n])
@@ -426,7 +503,7 @@ class Executor:
         with _tracing.span("feed_fetch", "executor/state_writeback",
                            n_state=len(plan.state_out_names)):
             self._write_back(plan, env, scope)
-        self._note_run_memory(plan, ro_vals, rw_vals)
+        self._note_run_memory(plan, ro_vals, rw_vals, time.time() - t0)
         fetches = tuple(env[n] for n in plan.fetch_names)
         if return_numpy:
             return [as_numpy(f) for f in fetches]
@@ -463,10 +540,10 @@ class Executor:
                     "(same names, shapes, dtypes)",
                     exc=InvalidArgumentError)
         scope = scope or global_scope()
-        fetch_names = [f.name if isinstance(f, Variable) else f
-                       for f in (fetch_list or [])]
+        fetch_names = _fetch_names(fetch_list)
         plan = self._lookup_or_plan(program, feed_list[0], fetch_names,
                                     scope)
+        t0 = time.time()
         with _tracing.span("feed_fetch", "executor/feed",
                            n_feeds=len(plan.feed_names), steps=len(feed_list)):
             stacks = [self._feed_stack([f[n] for f in feed_list])
@@ -484,7 +561,8 @@ class Executor:
                 per_step.append(tuple(
                     env[n].clone() if n in updated else env[n]
                     for n in plan.fetch_names))
-        self._note_run_memory(plan, ro_vals, rw_vals)
+        self._note_run_memory(plan, ro_vals, rw_vals, time.time() - t0,
+                              steps=len(feed_list))
         fetches = [torch.stack([torch.as_tensor(step[j]) for step in per_step])
                    for j in range(len(plan.fetch_names))]
         if return_numpy:
@@ -509,11 +587,56 @@ class Executor:
         carrying the signature every later call must match."""
         program = program or default_main_program()
         feed = self._synthesize_batch_mask(program, dict(feed or {}))
-        fetch_names = [f.name if isinstance(f, Variable) else f
-                       for f in (fetch_list or [])]
+        fetch_names = _fetch_names(fetch_list)
         scope = scope or global_scope()
         plan = self._lookup_or_plan(program, feed, fetch_names, scope)
         return PreparedStep(plan, scope, self, program.random_seed)
+
+    # -- analyses (≙ the JAX executor's, with its keys) --------------------
+    def cost_analysis(self, program=None, feed=None, fetch_list=None,
+                      scope=None):
+        """Flops and bytes of one step of `program` for this feed: the
+        port's own count over the planned (fused) program at the feed's
+        batch (`costs.program_flops_bytes`: every op's flops and the bytes
+        it reads and writes, from the declared shapes), where the JAX
+        package reads XLA's cost analysis of the compiled step. Keys
+        "flops" and "bytes accessed" as XLA's, "optimal_seconds" the
+        roofline sum at the card's constants. Plans if needed."""
+        from .costs import program_flops_bytes
+        program = program or default_main_program()
+        feed = self._synthesize_batch_mask(program, dict(feed or {}))
+        scope = scope or global_scope()
+        plan = self._lookup_or_plan(program, feed, _fetch_names(fetch_list),
+                                    scope)
+        batch = next((int(np.shape(v)[0]) for v in feed.values()
+                      if np.ndim(v) >= 1), 8)
+        c = program_flops_bytes(plan.program, nominal_batch=batch)
+        return {"flops": c["flops"], "bytes accessed": c["bytes"],
+                "optimal_seconds": c["roofline_s"], "source": "program"}
+
+    def memory_analysis(self, program=None, feed=None, fetch_list=None,
+                        scope=None):
+        """Measured memory of one step: argument / output / temp / alias
+        bytes (`observability.memory.executable_memory`: the caching
+        allocator's peak over one step run on copies of the read-write
+        state on a card, the lifetime walk on the CPU). The scope is not
+        changed. Updates the `executor_temp_bytes` watermark."""
+        program = program or default_main_program()
+        stats = _memory.executable_memory(self, program, feed, fetch_list,
+                                          scope or global_scope())
+        _memory.update_watermark("executor_temp_bytes", stats["temp_bytes"])
+        return stats
+
+    def memory_census(self, feed=None, program=None, scope=None,
+                      kv_names=(), fetch_list=None):
+        """The full measured memory census of one step
+        (`observability.memory.device_memory_census`): state bytes by
+        category from the scope's tensors, feed bytes, the step's
+        argument / output / temp / alias figures and the live-tensor
+        sweep."""
+        return _memory.device_memory_census(
+            self, dict(feed or {}), scope or global_scope(),
+            program=program, fetch_list=fetch_list, kv_names=kv_names)
 
     def close(self):
         """≙ Executor::Close — drop cached plans."""

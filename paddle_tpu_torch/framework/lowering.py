@@ -132,12 +132,21 @@ def build_plan(block: Block) -> List[Operator]:
     return plan
 
 
-def run_plan(plan: List[Operator], env: Dict[str, Any], ctx: LowerCtx):
-    for op in plan:
+def run_plan(plan: List[Operator], env: Dict[str, Any], ctx: LowerCtx,
+             release=None):
+    """Run the plan's ops over `env`. `release` (executor.py
+    `_release_schedule`): for each op, the names to drop from `env` after
+    it, each at its last use, so the caching allocator reuses their blocks
+    for the next var of the same size. Sub-blocks pass none: their envs
+    die with their op."""
+    for i, op in enumerate(plan):
         if op.type == "vjp_region":
             run_vjp_region(op, env, ctx)
         else:
             run_op(op, env, ctx)
+        if release is not None:
+            for n in release[i]:
+                env.pop(n, None)
     return env
 
 

@@ -6,16 +6,20 @@ Analyzer pass manager.
 ir::Pass + PassRegistry): the executor applies `fuse_recurrent_cell_pass`
 and `fuse_decode_attention_pass` to one clone of every program it plans
 (`apply_fusion_passes`); the serving engines apply `quantize_params_pass`
-to their tick programs (`quant=`). The passes that wrap modules still to
-be ported (`bn_fold_pass`, `quant_freeze_pass`, `graph_viz_pass`,
-`pipeline_partition_pass`, `check_pass`) come with them (ROADMAP.md §1
-item 4), and so does the JAX package's verify-before / verify-after
-sanitizer around each apply.
+to their tick programs (`quant=`). Every apply runs under the pass
+sanitizer (verify-before / verify-after, framework/analysis.py
+`sanitized_apply`, flag `verify_passes`) inside a `pass` span, as in the
+JAX package. `check_pass` and `graph_viz_pass` are here;
+`memory_plan_pass` registers from framework/memory_plan.py on first use.
+The passes that wrap modules still to be ported (`bn_fold_pass`,
+`quant_freeze_pass`, `pipeline_partition_pass`) come with them (ROADMAP.md
+§1 item 4).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+import os
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..core.enforce import (AlreadyExistsError, InvalidArgumentError,
                             NotFoundError)
@@ -43,7 +47,16 @@ class Pass:
         raise NotImplementedError
 
     def __call__(self, program, scope=None):
-        return self.apply(program, scope)
+        # every apply runs under the pass sanitizer (verify-before /
+        # verify-after): a rewrite that breaks a structural invariant is
+        # attributed to THIS pass by name. Kill switch PTPU_VERIFY_PASSES=0.
+        # The apply is a "pass" span carrying the pass name and attrs.
+        from ..observability import tracing as _tracing
+        from .analysis import sanitized_apply
+        with _tracing.span("pass", f"pass/{self.name}",
+                           **{k: v for k, v in self.attrs.items()
+                              if isinstance(v, (str, int, float, bool))}):
+            return sanitized_apply(self, program, scope)
 
 
 _REGISTRY: Dict[str, Callable[..., Pass]] = {}
@@ -63,11 +76,18 @@ def register_pass(name: str):
 
 
 # passes of the JAX package that wrap a module still to be ported
-_WAITING_PASSES = ("bn_fold_pass", "quant_freeze_pass", "graph_viz_pass",
-                   "pipeline_partition_pass", "check_pass")
+_WAITING_PASSES = ("bn_fold_pass", "quant_freeze_pass",
+                   "pipeline_partition_pass")
+
+# passes registered by a module this one does not import eagerly; get_pass
+# imports it on first use (≙ the JAX package's)
+_LAZY_PASS_MODULES = {"memory_plan_pass": "memory_plan"}
 
 
 def get_pass(name: str, **attrs) -> Pass:
+    if name not in _REGISTRY and name in _LAZY_PASS_MODULES:
+        import importlib
+        importlib.import_module("." + _LAZY_PASS_MODULES[name], __package__)
     if name in _WAITING_PASSES:
         raise NotFoundError(
             f"pass {name!r} wraps a module the port does not have yet "
@@ -80,6 +100,126 @@ def get_pass(name: str, **attrs) -> Pass:
 
 def registered_passes() -> List[str]:
     return sorted(_REGISTRY)
+
+
+@register_pass("graph_viz_pass")
+class GraphVizPass(Pass):
+    """Dump the program graph as graphviz dot (≙ ir/graph_viz_pass.cc).
+    attrs: path=...; block_idx=0."""
+
+    allowed_attrs = ("path", "block_idx")
+
+    def apply(self, program, scope=None):
+        block = program.blocks[self.attrs.get("block_idx", 0)]
+        draw_block_graphviz(block, self.attrs["path"])
+        return program
+
+
+def _var_brief(block, name) -> str:
+    """≙ paddle_tpu/debugger.py `_var_brief` (dtypes by name)."""
+    if block.has_var(name):
+        from ..core.dtypes import dtype_name
+        v = block.var(name)
+        shape = list(v.shape) if v.shape is not None else "?"
+        tag = "P" if getattr(v, "is_parameter", False) or \
+            v.__class__.__name__ == "Parameter" else \
+            ("s" if v.persistable else "t")
+        return f"{name}[{tag}:{dtype_name(v.dtype)}:{shape}]"
+    return name
+
+
+def draw_block_graphviz(block, path: str, highlights=None) -> str:
+    """Write a graphviz .dot file of the block's op / var dataflow (≙ the
+    JAX package's `debugger.draw_block_graphviz`, which graph_viz_pass
+    calls)."""
+    highlights = highlights or set()
+    lines = ["digraph G {", '  rankdir="TB";',
+             '  node [fontsize=10];']
+    seen_vars = set()
+
+    def var_node(name):
+        nid = f"var_{name}".replace(".", "_").replace("@", "_")
+        if name not in seen_vars:
+            seen_vars.add(name)
+            color = ', style=filled, fillcolor="#ffcccc"' \
+                if name in highlights else ""
+            shape = "ellipse"
+            if block.has_var(name) and block.var(name).persistable:
+                shape = "box3d"
+            lines.append(
+                f'  {nid} [label="{_var_brief(block, name)}", '
+                f'shape={shape}{color}];')
+        return nid
+
+    for i, op in enumerate(block.ops):
+        onid = f"op_{i}"
+        lines.append(f'  {onid} [label="{op.type}", shape=box, '
+                     f'style=filled, fillcolor="#ccccff"];')
+        for n in op.input_names():
+            lines.append(f"  {var_node(n)} -> {onid};")
+        for n in op.output_names():
+            lines.append(f"  {onid} -> {var_node(n)};")
+    lines.append("}")
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+    return path
+
+
+@register_pass("check_pass")
+class CheckPass(Pass):
+    """Validate program well-formedness before execution: a thin alias over
+    `framework.analysis.verify_program` (def-before-use, duplicate-writer
+    hazards, attribute schemas, pipeline / dp-comm invariants), as in the
+    JAX package. Raises NotFoundError with the full violation list."""
+
+    allowed_attrs = ("extra_feeds",)
+
+    def apply(self, program, scope=None):
+        from .analysis import verify_program
+        problems = [d for d in verify_program(
+            program, extra_feeds=self.attrs.get("extra_feeds", ()))
+            if d.severity == "error"]
+        if problems:
+            raise NotFoundError(
+                "program check failed:\n  "
+                + "\n  ".join(str(d) for d in problems))
+        return program
+
+
+def _balanced_partition(costs: List[float], k: int) -> List[Tuple[int, int]]:
+    """Split `costs` into k contiguous NON-EMPTY segments minimizing the
+    max segment sum (linear-partition DP; ≙ the JAX package's, which its
+    pipeline partitioner and the memory planner's remat search share).
+    Returns [start, end) pairs."""
+    n = len(costs)
+    prefix = [0.0]
+    for c in costs:
+        prefix.append(prefix[-1] + c)
+    inf = float("inf")
+    dp = [[inf] * (n + 1) for _ in range(k + 1)]
+    cut = [[0] * (n + 1) for _ in range(k + 1)]
+    dp[0][0] = 0.0
+    for j in range(1, k + 1):
+        for i in range(j, n - (k - j) + 1):
+            best, where = inf, j - 1
+            for c in range(j - 1, i):
+                if dp[j - 1][c] == inf:
+                    continue
+                v = max(dp[j - 1][c], prefix[i] - prefix[c])
+                if v < best:
+                    best, where = v, c
+            dp[j][i] = best
+            cut[j][i] = where
+    bounds = []
+    i = n
+    for j in range(k, 0, -1):
+        c = cut[j][i]
+        bounds.append((c, i))
+        i = c
+    bounds.reverse()
+    return bounds
 
 
 @register_pass("prune_pass")

@@ -20,11 +20,24 @@ from ..core.enforce import AlreadyExistsError, NotFoundError
 LowerFn = Callable[["LowerCtx", Dict[str, List[Any]], Dict[str, Any]],
                    Dict[str, List[Any]]]
 
+# An infer_spec takes (ctx, in_shapes, in_dtypes, attrs) where in_shapes /
+# in_dtypes mirror the lowering's ins layout (slot -> list of shape tuples /
+# dtypes) and returns outs: slot -> list of (shape, dtype) pairs. `ctx` is
+# an analysis.InferCtx. Most ops need none: the analyzer runs the lowering
+# itself on meta tensors (framework/analysis.py), so the lowering IS the
+# shape function; an explicit spec is for an op whose lowering cannot run
+# on its own.
+InferFn = Callable[[Any, Dict[str, List[tuple]], Dict[str, List[Any]],
+                    Dict[str, Any]], Dict[str, List[tuple]]]
+
 
 @dataclass
 class OpDef:
     type: str
     lower: LowerFn
+    # optional explicit shape/dtype rule; None = run the lowering on meta
+    # tensors (framework/analysis.py infer_op)
+    infer_spec: Optional[InferFn] = None
 
 
 _OPS: Dict[str, OpDef] = {}
@@ -40,6 +53,56 @@ def register_op(op_type: str):
         return fn
 
     return deco
+
+
+def register_infer_spec(op_type: str):
+    """Decorator attaching an explicit shape/dtype rule to a registered op
+    (≙ the JAX package's, and the reference's InferShape functions)."""
+
+    def deco(fn: InferFn) -> InferFn:
+        op = _OPS.get(op_type)
+        if op is None:
+            raise NotFoundError(
+                f"cannot attach infer_spec: op {op_type!r} not registered")
+        if op.infer_spec is not None:
+            raise AlreadyExistsError(
+                f"op {op_type!r} already has an infer_spec")
+        op.infer_spec = fn
+        return fn
+
+    return deco
+
+
+# An effect rule refines the dataflow effect set of one op
+# (framework/dataflow.py): (op) -> dict with any of the keys
+#   collective_axes: mesh axes the op communicates over,
+#   rng:             True when the op draws per-step randomness,
+#   inplace:         ((in_name, out_name), ...) aliased buffer pairs beyond
+#                    the same-name read+write default.
+# reads/writes always derive from op.inputs/op.outputs; rules only ADD what
+# the slot lists cannot express. A side table, as in the JAX package.
+_EFFECT_RULES: Dict[str, Any] = {}
+
+
+def register_effects(op_type: str):
+    """Decorator registering the dataflow effect rule for `op_type`."""
+
+    def deco(fn):
+        if op_type in _EFFECT_RULES:
+            raise AlreadyExistsError(
+                f"op {op_type!r} already has an effect rule")
+        _EFFECT_RULES[op_type] = fn
+        return fn
+
+    return deco
+
+
+def lookup_effect_rule(op_type: str):
+    """The registered effect rule for `op_type`, or None (pure compute:
+    reads its inputs, writes its outputs, no collectives, no rng). The
+    builtin op modules register theirs on import."""
+    _ensure_builtin_ops()
+    return _EFFECT_RULES.get(op_type)
 
 
 def lookup_op(op_type: str) -> OpDef:

@@ -46,9 +46,10 @@ import torch
 from .. import kernels
 from ..framework.registry import register_op
 
-_BF16_CELLS = ("recurrent cells in another type than float32 are not "
-               "ported: ROADMAP.md port queue item 3 (bf16 recurrent "
-               "cells)")
+#: the element types the kernels take, by their type code
+#: (csrc/recurrent.cu kF32 / kBF16): x, w, the states and the outputs share
+#: one
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # ---------------------------------------------------------------------------
@@ -56,21 +57,39 @@ _BF16_CELLS = ("recurrent cells in another type than float32 are not "
 # ---------------------------------------------------------------------------
 
 
+def lstm_cell(xt, h, c, w):
+    """One LSTM step in the operands' type, every op rounding to it as the
+    composite's scan body does: xt [..., 4H], h/c [..., H], w [H, 4H] →
+    (i, f, c^, o, c_new, h_new). Any leading dims: `lstm_step_check`
+    evaluates every step at once from given states."""
+    hd = w.shape[0]
+    gates = xt + h @ w
+    i, f, g, o = gates.split(hd, dim=-1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+    g = torch.tanh(g)
+    c_new = f * c + i * g
+    return i, f, g, o, c_new, o * torch.tanh(c_new)
+
+
+def gru_cell(xt, h, w):
+    """One GRU step as `lstm_cell`: xt [..., 3H], h [..., H], w [H, 3H] →
+    (r, z, c, h_new)."""
+    hd = w.shape[0]
+    rz = torch.sigmoid(xt[..., :2 * hd] + h @ w[:, :2 * hd])
+    r, z = rz.split(hd, dim=-1)
+    c = torch.tanh(xt[..., 2 * hd:] + (r * h) @ w[:, 2 * hd:])
+    return r, z, c, z * h + (1 - z) * c
+
+
 def lstm_seq_plain(x, h0, c0, w, seqlen, reverse, with_stash):
     """x [B, T, 4H] (already flipped when `reverse`), h0/c0 [B, H], w
     [H, 4H], seqlen [B] → (hs, cs[, stash]): [B, T, H] each, stash
     [B, T, 4H] of the gate activations (i, f, c^, o)."""
     t = x.shape[1]
-    hd = w.shape[0]
     h, c = h0, c0
     hs, cs, stash = [], [], []
     for it in range(t):
-        gates = x[:, it] + h @ w
-        i, f, g, o = gates.split(hd, dim=-1)
-        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
-        g = torch.tanh(g)
-        c_new = f * c + i * g
-        h_new = o * torch.tanh(c_new)
+        i, f, g, o, c_new, h_new = lstm_cell(x[:, it], h, c, w)
         tpos = t - 1 - it if reverse else it
         valid = (tpos < seqlen)[:, None]
         h = torch.where(valid, h_new, h)
@@ -89,16 +108,10 @@ def gru_seq_plain(x, h0, w, seqlen, reverse, with_stash):
     """x [B, T, 3H] (already flipped when `reverse`), h0 [B, H], w
     [H, 3H] → (hs[, stash]): hs [B, T, H], stash [B, T, 3H] of (r, z, c)."""
     t = x.shape[1]
-    hd = w.shape[0]
-    w_rz, w_c = w[:, :2 * hd], w[:, 2 * hd:]
     h = h0
     hs, stash = [], []
     for it in range(t):
-        xt = x[:, it]
-        rz = torch.sigmoid(xt[:, :2 * hd] + h @ w_rz)
-        r, z = rz.split(hd, dim=-1)
-        c = torch.tanh(xt[:, 2 * hd:] + (r * h) @ w_c)
-        h_new = z * h + (1 - z) * c
+        r, z, c, h_new = gru_cell(x[:, it], h, w)
         tpos = t - 1 - it if reverse else it
         h = torch.where((tpos < seqlen)[:, None], h_new, h)
         hs.append(h)
@@ -111,6 +124,139 @@ def gru_seq_plain(x, h0, w, seqlen, reverse, with_stash):
 
 
 # ---------------------------------------------------------------------------
+# bfloat16: one step against the plain version, a slack per rounded term
+# ---------------------------------------------------------------------------
+
+#: bfloat16's unit roundoff: rounding to nearest moves a value by at most
+#: this much of its size
+BF16_U = 2.0 ** -8
+_F32_ULP = 2.0 ** -23
+
+
+def _prev_states(hs, init):
+    """[B, T, H] outputs → the state each step started from."""
+    return torch.cat([init[:, None], hs[:, :-1]], 1)
+
+
+def _step_valid(seqlen, t, reverse):
+    return _valid_mask(seqlen, t, reverse)[:, :, None]
+
+
+def lstm_step_slack(x, hprev, cprev, w, kernel=True):
+    """(slack_h, slack_c, slack_stash), float32 like h, c and the stash:
+    how far one bfloat16 step of `lstm_cell` from (hprev, cprev) may be from
+    the exact step (each rounded term of the plain version's step moves its
+    value by at most BF16_U of its size, carried through the derivatives
+    that follow: sigmoid' <= 1/4, tanh' <= 1, and the products' other
+    factors), plus, with `kernel`, what K5 adds (it keeps float32 inside a
+    step and rounds the new c and h: BF16_U of each, and tanh's slope on
+    c's rounding) and both products' float32 sums over H in another order
+    (H·2⁻²³ of Σ|h||w|). Two per-op rounded versions (the plain one and
+    the JAX composite) differ by twice the plain version's terms:
+    `kernel=False` gives one of them."""
+    f = torch.float32
+    u = BF16_U
+    hd = w.shape[0]
+    xf, hp, cp, wf = (a.to(f) for a in (x, hprev, cprev, w))
+    d = hp @ wf
+    a = xf + d
+    acc = hd * _F32_ULP * (hp.abs() @ wf.abs())
+    da = u * (d.abs() + a.abs()) + acc          # the dot's and the add's
+    ai, af, ag, ao = a.split(hd, -1)
+    dai, daf, dag, dao = da.split(hd, -1)
+    i, f_, o = torch.sigmoid(ai), torch.sigmoid(af), torch.sigmoid(ao)
+    g = torch.tanh(ag)
+    di, df, do = (u * s.abs() + e / 4 for s, e in ((i, dai), (f_, daf),
+                                                   (o, dao)))
+    dg = u * g.abs() + dag
+    fc, ig = f_ * cp, i * g
+    c = fc + ig
+    dc = (u * (fc.abs() + ig.abs() + c.abs()) + df * cp.abs()
+          + di * g.abs() + dg * i.abs())
+    tc = torch.tanh(c)
+    h = o * tc
+    dtc = u * tc.abs() + dc
+    dh = u * h.abs() + do * tc.abs() + o.abs() * dtc
+    dst = torch.cat([di, df, dg, do], -1)
+    if kernel:
+        dc = dc + u * c.abs()
+        dh = dh + u * h.abs() + o.abs() * u * c.abs()
+        dst = dst + u * torch.cat([i, f_, g, o], -1).abs()
+    return dh, dc, dst
+
+
+def gru_step_slack(x, hprev, w, kernel=True):
+    """(slack_h, slack_stash) of one bfloat16 `gru_cell` step from hprev,
+    as `lstm_step_slack` says. K6 rounds only the new h (and writes the
+    stash's gates rounded once); r h stays float32 in it."""
+    f = torch.float32
+    u = BF16_U
+    hd = w.shape[0]
+    xf, hp, wf = (a.to(f) for a in (x, hprev, w))
+    w_rz, w_c = wf[:, :2 * hd], wf[:, 2 * hd:]
+    d_rz = hp @ w_rz
+    a_rz = xf[..., :2 * hd] + d_rz
+    da_rz = (u * (d_rz.abs() + a_rz.abs())
+             + hd * _F32_ULP * (hp.abs() @ w_rz.abs()))
+    rz = torch.sigmoid(a_rz)
+    drz = u * rz.abs() + da_rz / 4
+    r, z = rz.split(hd, -1)
+    dr, dz = drz.split(hd, -1)
+    rh = r * hp
+    drh = u * rh.abs() + dr * hp.abs()
+    d_c = rh @ w_c
+    a_c = xf[..., 2 * hd:] + d_c
+    da_c = (u * (d_c.abs() + a_c.abs()) + drh @ w_c.abs()
+            + hd * _F32_ULP * (rh.abs() @ w_c.abs()))
+    c = torch.tanh(a_c)
+    dc = u * c.abs() + da_c
+    zh, omz = z * hp, 1 - z
+    h = zh + omz * c
+    dh = (u * (zh.abs() + omz.abs() + (omz * c).abs() + h.abs())
+          + dz * (hp.abs() + c.abs()) + omz.abs() * dc)
+    dst = torch.cat([dr, dz, dc], -1)
+    if kernel:
+        dh = dh + u * h.abs()
+        dst = dst + u * torch.cat([r, z, c], -1).abs()
+    return dh, dst
+
+
+def recurrent_step_check(kind, x, h0, c0, w, seqlen, reverse, outs,
+                         kernel=True):
+    """Hold bfloat16 outputs (hs, cs[, stash]) or (hs[, stash]) of K5 / K6
+    (or, `kernel=False`, of another per-op rounded version) step by step
+    against the plain version: every step of the plain cell is evaluated
+    at once from the states `outs` carried into it (so an error neither
+    hides in nor grows with T), and each output must lie within the
+    step's per-term slack of it (`lstm_step_slack` / `gru_step_slack`);
+    frozen steps must keep the carried state exactly. Returns (ok, max
+    abs error, largest error / slack)."""
+    t = x.shape[1]
+    valid = _step_valid(seqlen, t, reverse)
+    worst, ratio, ok = 0.0, 0.0, True
+    if kind == "lstm":
+        hp, cp = _prev_states(outs[0], h0), _prev_states(outs[1], c0)
+        i, f_, g, o, c_new, h_new = lstm_cell(x, hp, cp, w)
+        refs = [torch.where(valid, h_new, hp), torch.where(valid, c_new, cp),
+                torch.cat([i, f_, g, o], -1)]
+        slacks = lstm_step_slack(x, hp, cp, w, kernel)
+    else:
+        hp = _prev_states(outs[0], h0)
+        r, z, c, h_new = gru_cell(x, hp, w)
+        refs = [torch.where(valid, h_new, hp), torch.cat([r, z, c], -1)]
+        slacks = gru_step_slack(x, hp, w, kernel)
+    for n, (out, ref, slack) in enumerate(zip(outs, refs, slacks)):
+        err = (out.float() - ref.float()).abs()
+        if n < (2 if kind == "lstm" else 1):
+            # a frozen step keeps the state it was given, exactly
+            slack = torch.where(valid, slack, torch.zeros_like(slack))
+        worst = max(worst, float(err.max()))
+        ratio = max(ratio, float((err / slack.clamp_min(1e-30)).max()))
+        ok = ok and bool((err <= slack).all())
+    return ok, worst, ratio
+
+
+# ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
@@ -119,9 +265,9 @@ def _bind(lib):
     if getattr(lib, "_ptt_bound", False):
         return
     c_int, c_vp = ctypes.c_int, ctypes.c_void_p
-    lib.ptt_lstm_seq.argtypes = [c_vp] * 6 + [c_int] * 4 + [c_vp] * 6
+    lib.ptt_lstm_seq.argtypes = [c_vp] * 6 + [c_int] * 5 + [c_vp] * 6
     lib.ptt_lstm_seq.restype = c_int
-    lib.ptt_gru_seq.argtypes = [c_vp] * 5 + [c_int] * 4 + [c_vp] * 5
+    lib.ptt_gru_seq.argtypes = [c_vp] * 5 + [c_int] * 5 + [c_vp] * 5
     lib.ptt_gru_seq.restype = c_int
     lib.ptt_recurrent_plan.argtypes = [c_int] * 3 + [c_vp]
     lib.ptt_recurrent_plan.restype = c_int
@@ -169,9 +315,11 @@ def _ptr(t):
 
 
 def _w_rel(plan, w, n_gates):
+    """The float32 relaid copy of w where the plan streams w (the kernels
+    read it as float32 in either type), else None."""
     if not plan["stream_w"]:
         return None
-    return relay_w(w, n_gates, plan["ug"], plan["groups"], plan["blocks"],
+    return relay_w(w.float(), n_gates, plan["ug"], plan["groups"], plan["blocks"],
                    plan["hp"])
 
 
@@ -184,8 +332,11 @@ def _check_args(name, n_gates, x, states, w, seqlen):
                                  for a in (w, seqlen, *states)):
         raise ValueError(f"{name}: every tensor must be on the same CUDA "
                          f"device")
-    if any(a.dtype != torch.float32 for a in (x, w, *states)):
-        raise NotImplementedError(f"{name}: " + _BF16_CELLS)
+    if x.dtype not in _TYPE_CODES or any(a.dtype != x.dtype
+                                         for a in (w, *states)):
+        raise TypeError(f"{name}: x, w and the states must share one type "
+                        f"of float32 or bfloat16, not "
+                        f"{[str(a.dtype) for a in (x, w, *states)]}")
     if tuple(w.shape) != (hd, n_gates * hd) or gh != n_gates * hd or \
             any(tuple(s.shape) != (b, hd) for s in states) or \
             tuple(seqlen.shape) != (b,):
@@ -202,9 +353,11 @@ def _check_args(name, n_gates, x, states, w, seqlen):
 
 def lstm_seq_cuda(x, h0, c0, w, seqlen, reverse, with_stash):
     """Launch the LSTM kernel: x [B, T, 4H] (already flipped when
-    `reverse`), h0/c0 [B, H], w [H, 4H] float32, seqlen [B] of any integer
-    type. Returns (hs, cs[, stash]) as `lstm_seq_plain`. Raises on another
-    type and on shapes that disagree."""
+    `reverse`), h0/c0 [B, H], w [H, 4H], all float32 or all bfloat16,
+    seqlen [B] of any integer type. Returns (hs, cs[, stash]) in x's type
+    as `lstm_seq_plain`; in bfloat16 h and c are rounded at every step, as
+    the composite's carry is. Raises on another type and on shapes that
+    disagree."""
     b, t, hd = _check_args("lstm_seq_cuda", 4, x, (h0, c0), w, seqlen)
     lib = kernels.load("recurrent")
     _bind(lib)
@@ -214,9 +367,9 @@ def lstm_seq_cuda(x, h0, c0, w, seqlen, reverse, with_stash):
         x, h0, c0, w = (a.contiguous() for a in (x, h0, c0, w))
         w_rel = _w_rel(plan, w, 4)
         sl = seqlen.to(torch.int32).contiguous()
-        hs = torch.empty((b, t, hd), dtype=torch.float32, device=dev)
+        hs = torch.empty((b, t, hd), dtype=x.dtype, device=dev)
         cs = torch.empty_like(hs)
-        stash = (torch.empty((b, t, 4 * hd), dtype=torch.float32,
+        stash = (torch.empty((b, t, 4 * hd), dtype=x.dtype,
                              device=dev) if with_stash else None)
         # columns hd..hp-1 of each row stay zero: the kernel reads them
         hbuf = torch.zeros((2, b, plan["hp"]), dtype=torch.float32,
@@ -225,7 +378,7 @@ def lstm_seq_cuda(x, h0, c0, w, seqlen, reverse, with_stash):
         err = lib.ptt_lstm_seq(
             x.data_ptr(), w.data_ptr(), _ptr(w_rel), h0.data_ptr(),
             c0.data_ptr(), sl.data_ptr(), b, t, hd, int(bool(reverse)),
-            hs.data_ptr(), cs.data_ptr(), _ptr(stash), hbuf.data_ptr(),
+            _TYPE_CODES[x.dtype], hs.data_ptr(), cs.data_ptr(), _ptr(stash), hbuf.data_ptr(),
             arrived.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(lib, "lstm_seq", err)
     kernels.count_launch("lstm_seq")
@@ -234,8 +387,9 @@ def lstm_seq_cuda(x, h0, c0, w, seqlen, reverse, with_stash):
 
 def gru_seq_cuda(x, h0, w, seqlen, reverse, with_stash):
     """Launch the GRU kernel: x [B, T, 3H] (already flipped when
-    `reverse`), h0 [B, H], w [H, 3H] float32, seqlen [B] of any integer
-    type. Returns (hs[, stash]) as `gru_seq_plain`."""
+    `reverse`), h0 [B, H], w [H, 3H], all float32 or all bfloat16, seqlen
+    [B] of any integer type. Returns (hs[, stash]) in x's type as
+    `gru_seq_plain`."""
     b, t, hd = _check_args("gru_seq_cuda", 3, x, (h0,), w, seqlen)
     lib = kernels.load("recurrent")
     _bind(lib)
@@ -245,8 +399,8 @@ def gru_seq_cuda(x, h0, w, seqlen, reverse, with_stash):
         x, h0, w = (a.contiguous() for a in (x, h0, w))
         w_rel = _w_rel(plan, w, 3)
         sl = seqlen.to(torch.int32).contiguous()
-        hs = torch.empty((b, t, hd), dtype=torch.float32, device=dev)
-        stash = (torch.empty((b, t, 3 * hd), dtype=torch.float32,
+        hs = torch.empty((b, t, hd), dtype=x.dtype, device=dev)
+        stash = (torch.empty((b, t, 3 * hd), dtype=x.dtype,
                              device=dev) if with_stash else None)
         # h, r·h and z; columns hd..hp-1 of each row stay zero: the kernel
         # reads them
@@ -255,7 +409,8 @@ def gru_seq_cuda(x, h0, w, seqlen, reverse, with_stash):
         arrived = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.ptt_gru_seq(
             x.data_ptr(), w.data_ptr(), _ptr(w_rel), h0.data_ptr(),
-            sl.data_ptr(), b, t, hd, int(bool(reverse)), hs.data_ptr(),
+            sl.data_ptr(), b, t, hd, int(bool(reverse)),
+            _TYPE_CODES[x.dtype], hs.data_ptr(),
             _ptr(stash), buf.data_ptr(), arrived.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(lib, "gru_seq", err)
@@ -408,9 +563,9 @@ def fused_lstm_sequence(x, h0, c0, w, seqlen, reverse=False, backend=None):
     """Whole-sequence fused LSTM. x [B, T, 4H] pre-projected (+bias), w
     [H, 4H] recurrent, seqlen [B] int; returns (hidden, cell) [B, T, H].
     The same function as the `dynamic_lstm` loop with the default
-    activations, forward and gradient. K5 on CUDA tensors (float32 only:
-    another type raises naming ROADMAP.md item 3), the plain version on
-    CPU tensors; `backend` as `_check_backend` says."""
+    activations, forward and gradient. K5 on CUDA tensors (float32 or
+    bfloat16), the plain version on CPU tensors; `backend` as
+    `_check_backend` says."""
     _check_backend(backend)
     if reverse:
         x = torch.flip(x, (1,))

@@ -10,23 +10,36 @@ the executor feed:
   the `ptpu_memory_*` gauges in `metrics.default_registry()`, so one
   /metrics scrape and /healthz both carry the memory board;
 - **MFU** (`note_mfu`): predicted flops over measured step time as the
-  `ptpu_mfu` gauge, a fraction of the H100's dense bfloat16 peak;
+  `ptpu_mfu` gauge, a fraction of the card's dense bfloat16 peak
+  (`costs.mfu`, `costs.H100_PEAK_FLOPS`);
 - `per_device_bytes`: the bytes of one tensor (`numel × element_size`);
 - `state_census`: a plan's state bytes by category (params, optimizer
-  state, KV caches, ...), from the tensors' metadata.
+  state, KV caches, ...), from the tensors' metadata;
+- the measured census of one step (`executable_memory`,
+  `device_memory_census`, `live_array_census`), with the JAX package's
+  keys. Where the JAX package reads XLA's buffer assignment, the port
+  runs the step once on copies of its read-write state (the scope is not
+  touched) between `torch.cuda.reset_peak_memory_stats` and
+  `max_memory_allocated`; on the CPU, where torch keeps no allocator
+  statistics, the temp figure is the lifetime walk
+  (`analysis.peak_live_bytes` at the feed's batch), as the JAX package
+  falls back to its HLO liveness walk. `temp_source` / `source` say which
+  gave each figure. For `jax.live_arrays()` the port sweeps what it can
+  name: the scope's tensors and the executor's cached tensors, beside the
+  allocator's total on a card.
 
-Every update is host arithmetic on numbers the caller already holds: no
-call here reads a device tensor, so none adds a host sync to a tick.
-
-`live_array_census`, `executable_memory` and `device_memory_census` (the
-JAX package's census over XLA's buffer assignment and `jax.live_arrays`)
-wait for ROADMAP.md §1 item 4 and raise NotImplementedError naming it.
+The watermark updates are host arithmetic on numbers the caller already
+holds: none reads a device tensor, so none adds a host sync to a tick. The
+census runs a step and synchronizes: it is a measurement, off the step's
+path.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Any, Dict, Sequence
+
+import numpy as np
 
 from ..core.enforce import InvalidArgumentError
 
@@ -36,10 +49,6 @@ CHANNELS = ("device_state_bytes", "executor_temp_bytes",
             "kv_cache_bytes", "kv_cache_used_bytes",
             "host_staging_bytes", "host_kv_bytes",
             "host_optimizer_bytes")
-
-#: dense bfloat16 tensor-core peak of one H100 SXM (NVIDIA's data sheet),
-#: the MFU denominator
-H100_BF16_PEAK_FLOPS = 989e12
 
 _lock = threading.Lock()
 _marks: Dict[str, Dict[str, float]] = {
@@ -100,24 +109,17 @@ def update_watermark(channel: str, value: float):
         _tracing.record_counter("memory/" + channel, v)
 
 
-def mfu(flops: float, step_s: float,
-        peak_flops: float = H100_BF16_PEAK_FLOPS) -> float:
-    """Model-flops utilization: `flops` done in `step_s` seconds as a
-    fraction of `peak_flops` (default: the H100's dense bfloat16 peak)."""
-    if step_s <= 0 or peak_flops <= 0:
-        return 0.0
-    return float(flops) / float(step_s) / float(peak_flops)
-
-
 def note_mfu(flops: float, step_s: float):
     """One measured step: flops over wall seconds -> the `ptpu_mfu`
-    gauge (+ a `memory/mfu` counter sample when tracing). `step_s` must
-    come from a window that ends in a device synchronization."""
+    gauge (+ a `memory/mfu` counter sample when tracing). The executor
+    passes its run's host window (no device sync, as the JAX package's
+    dispatch window)."""
+    from ..framework import costs as _costs
     memory_metrics()
     with _lock:
         _mfu["flops"] = float(flops)
         _mfu["step_s"] = float(step_s)
-        _mfu["value"] = mfu(flops, step_s)
+        _mfu["value"] = _costs.mfu(flops, step_s)
     from . import tracing as _tracing
     _tracing.record_counter("memory/mfu", _mfu["value"])
 
@@ -181,21 +183,212 @@ def state_census(scope, program, names: Sequence[str],
     return {"categories": cats, "per_var": per_var}
 
 
-_ITEM4 = ("is not ported yet: it is the device-memory census of ROADMAP.md "
-          "§1 item 4 (observability)")
+def _tensor_bytes(t) -> float:
+    return per_device_bytes(t) if hasattr(t, "element_size") else 0.0
 
 
-def live_array_census(*args, **kwargs):
-    """≙ the JAX package's sweep of `jax.live_arrays()`: not ported."""
-    raise NotImplementedError("live_array_census " + _ITEM4)
+def _executor_cached(executor):
+    """Tensors the executor keeps between runs: its batch-row masks and
+    each plan's attribute-built constants."""
+    import torch
+    out = list(getattr(executor, "_row_masks", {}).values())
+    for plan in getattr(executor, "_cache", {}).values():
+        for c in plan.constants.values():
+            out.extend(c if isinstance(c, (tuple, list)) else (c,))
+    return [t for t in out if isinstance(t, torch.Tensor)]
 
 
-def executable_memory(*args, **kwargs):
-    """≙ the JAX package's XLA buffer-assignment figures: not ported."""
-    raise NotImplementedError("executable_memory " + _ITEM4)
+def live_array_census(scope=None, tracked_names: Sequence[str] = (),
+                      executor=None, device=None) -> Dict:
+    """The tensors the process holds, split into scope-tracked and
+    untracked bytes (≙ the JAX package's sweep of `jax.live_arrays()`).
+    Tracked: the scope's tensors (`tracked_names`, or every name), each
+    storage once. Untracked: the executor's cached tensors, and on a CUDA
+    `device` everything else the caching allocator has handed out
+    (`memory_allocated` less the tracked and cached bytes: fetches the
+    caller holds, autograd's leftovers). On the CPU the committed figure
+    is the sum of what was named (`source` says which)."""
+    import torch
+    seen = set()
+
+    def add(t):
+        key = (t.device, t.untyped_storage().data_ptr())
+        if key in seen:
+            return 0.0
+        seen.add(key)
+        return float(t.untyped_storage().nbytes())
+
+    tracked = 0.0
+    n = 0
+    if scope is not None:
+        for name in (tracked_names or scope.local_var_names()):
+            if scope.has_var(name):
+                v = scope.get(name)
+                if isinstance(v, torch.Tensor):
+                    tracked += add(v)
+                    n += 1
+    cached = 0.0
+    for t in (_executor_cached(executor) if executor is not None else ()):
+        cached += add(t)
+        n += 1
+    dev = torch.device(device) if device is not None else None
+    if dev is not None and dev.type == "cuda":
+        total = float(torch.cuda.memory_allocated(dev))
+        source = "cuda_allocator"
+    else:
+        total = tracked + cached
+        source = "named_tensors"
+    return {"live_arrays": n, "committed_bytes": total,
+            "tracked_bytes": tracked,
+            "untracked_bytes": total - tracked, "source": source}
 
 
-def device_memory_census(*args, **kwargs):
-    """≙ the JAX package's full measured census of a compiled step: not
-    ported."""
-    raise NotImplementedError("device_memory_census " + _ITEM4)
+def _state_copies(plan, scope):
+    """(read-only, read-write) state tensors for a census step: the
+    read-write ones copied, so the step's in-place updates land on the
+    copies and the scope stays as it was."""
+    return (tuple(scope.get(n) for n in plan.ro_names),
+            tuple(scope.get(n).clone() for n in plan.rw_names))
+
+
+def _step_on(executor, plan, feed_vals, ro_vals, rw_vals):
+    """Run `plan` once over the given state, leaving the run-seed stream
+    as it was. Returns the env."""
+    counter = executor._run_counter
+    try:
+        return executor._run_env(plan, feed_vals, ro_vals, rw_vals,
+                                 getattr(plan.program, "random_seed", 0))
+    finally:
+        executor._run_counter = counter
+
+
+def executable_memory(executor, program=None, feed=None, fetch_list=None,
+                      scope=None) -> Dict:
+    """Per-device memory of one step of `program` on `executor` (≙ the JAX
+    package's figures from XLA's buffer assignment; same keys):
+
+      argument_bytes  the step's inputs: read-only and read-write state
+                      plus the feeds on the device
+      output_bytes    what it writes that outlives it: the fetches and the
+                      state it writes
+      alias_bytes     outputs written into an input's own tensor (the
+                      read-write state, updated in place)
+      temp_bytes      the step's transient peak: on a CUDA device the
+                      allocator's peak during one step (run on copies of
+                      the read-write state, made before the window
+                      opens, between reset_peak_memory_stats and
+                      max_memory_allocated) above what was allocated at
+                      its start, less the non-aliased outputs; on the CPU
+                      the lifetime walk over the planned program at the
+                      feed's batch
+      generated_code_bytes  0 (the port runs no compiled executable; its
+                      kernels' code is not device data)
+
+    `temp_source` names the source: "cuda_allocator" or "lifetime_walk".
+    Plans the step if needed; the scope is not changed."""
+    import torch
+    from ..framework.analysis import peak_live_bytes
+    from ..framework.executor import _fetch_names
+    from ..framework.program import default_main_program
+    from ..framework.scope import global_scope
+    program = program or default_main_program()
+    scope = scope or global_scope()
+    feed = executor._synthesize_batch_mask(program, dict(feed or {}))
+    fetch_names = _fetch_names(fetch_list)
+    plan = executor._lookup_or_plan(program, feed, fetch_names, scope)
+    feed_vals = tuple(executor._to_device(feed[n]) for n in plan.feed_names)
+    state_in = [scope.get(n) for n in plan.ro_names + plan.rw_names]
+    argument = sum(_tensor_bytes(t) for t in state_in) + sum(
+        _tensor_bytes(t) for t in feed_vals)
+    alias = sum(_tensor_bytes(scope.get(n)) for n in plan.rw_names)
+    dev = executor.device
+    ro_vals, rw_vals = _state_copies(plan, scope)
+    if dev.type == "cuda":
+        # the window opens after the copies: they stand in for the state
+        # the step updates in place, and are no part of its transients
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        env = _step_on(executor, plan, feed_vals, ro_vals, rw_vals)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+    else:
+        env = _step_on(executor, plan, feed_vals, ro_vals, rw_vals)
+    outs = {n: env[n] for n in set(plan.fetch_names) | set(
+        plan.state_out_names) if n in env}
+    output = sum(_tensor_bytes(t) for t in outs.values())
+    if dev.type == "cuda":
+        temp = max(0.0, float(peak - start) - (output - alias))
+        source = "cuda_allocator"
+    else:
+        batch = next((int(np.shape(v)[0]) for v in feed.values()
+                      if np.ndim(v) >= 1), 8)
+        temp = float(peak_live_bytes(
+            program, nominal_batch=batch)["peak_transient_bytes"])
+        source = "lifetime_walk"
+    del env, outs, rw_vals
+    return {"argument_bytes": int(argument), "output_bytes": int(output),
+            "temp_bytes": int(temp), "alias_bytes": int(alias),
+            "generated_code_bytes": 0, "temp_source": source}
+
+
+def device_memory_census(executor, feed: Dict[str, Any], scope, *,
+                         program=None, fetch_list=None, dp: int = 1,
+                         kv_names: Sequence[str] = ()) -> Dict:
+    """The full measured memory census of one step (≙ the JAX package's;
+    the ledger's measured side, same keys):
+
+      state     bytes by category of the step's read-only and read-write
+                scope tensors (`state_census`)
+      feeds     bytes of the feeds as the device holds them (a float64
+                feed runs as float32); batch-led feeds split over dp
+      seed_bytes  0: the port's step seed is a host integer (the JAX
+                package passes a 4-byte uint32 argument)
+      xla       `executable_memory` of the same step (argument / output
+                / temp / alias; the key keeps the JAX package's name)
+      live      `live_array_census`
+      peak_bytes  argument + temp + non-aliased output bytes
+      host_tier   the pinned host pool's ledger rows
+
+    Updates the `device_state_bytes` and `executor_temp_bytes`
+    watermarks with what it measured. The scope is not changed."""
+    from ..framework import offload as _offload
+    from ..framework.executor import _fetch_names
+    from ..framework.program import default_main_program
+    program = program or default_main_program()
+    feed = executor._synthesize_batch_mask(program, dict(feed or {}))
+    plan = executor._lookup_or_plan(program, feed, _fetch_names(fetch_list),
+                                    scope)
+    st = state_census(scope, plan.program,
+                      sorted(set(plan.ro_names) | set(plan.rw_names)),
+                      kv_names=kv_names)
+    feed_bytes = 0.0
+    per_feed = {}
+    for name in plan.feed_names:
+        nb = _tensor_bytes(executor._to_device(feed[name]))
+        shape = None
+        for b in plan.program.blocks:
+            if b.has_var(name):
+                shape = getattr(b.var(name), "shape", None)
+                break
+        batch_led = shape is None or (bool(shape) and shape[0] == -1)
+        if batch_led and dp > 1:
+            nb /= dp
+        per_feed[name] = {"per_device_bytes": nb, "batch_led": batch_led}
+        feed_bytes += nb
+    xla = executable_memory(executor, program, feed, fetch_list, scope)
+    peak = (xla["argument_bytes"] + xla["temp_bytes"]
+            + max(0, xla["output_bytes"] - xla["alias_bytes"]))
+    update_watermark("device_state_bytes", st["categories"]["state_total"])
+    update_watermark("executor_temp_bytes", xla["temp_bytes"])
+    return {
+        "state": st,
+        "feeds": {"per_device_bytes": feed_bytes, "per_feed": per_feed,
+                  "dp": dp},
+        "seed_bytes": 0,
+        "xla": xla,
+        "live": live_array_census(scope, executor=executor,
+                                  device=executor.device),
+        "peak_bytes": peak,
+        "host_tier": _offload.shared_host_pool().rows(),
+    }

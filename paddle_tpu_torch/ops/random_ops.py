@@ -17,7 +17,17 @@ import math
 import torch
 
 from ..core.dtypes import convert_dtype
-from ..framework.registry import register_op
+from ..framework.registry import register_effects, register_op
+
+
+def _rng_effect(op):
+    """Dataflow effect rule (framework/dataflow.py): the op draws from the
+    per-step generator, unless a fixed `seed` attr pins the stream."""
+    return {"rng": not op.attrs.get("seed")}
+
+
+def _register_rng(op_type, rule=_rng_effect):
+    register_effects(op_type)(rule)
 
 
 @register_op("uniform_random")
@@ -132,3 +142,16 @@ def _dropout(ctx, ins, attrs):
     if impl == "upscale_in_train":
         out = out / max(1.0 - p, 1e-8)
     return {"Out": [out], "Mask": [mask]}
+
+
+for _t in ("uniform_random", "gaussian_random",
+           "truncated_gaussian_random", "sampling_id", "random_crop",
+           "uniform_random_batch_size_like",
+           "gaussian_random_batch_size_like"):
+    _register_rng(_t)
+
+# dropout's inference path is deterministic (a scale): only the training
+# path draws
+_register_rng("dropout",
+              lambda op: {"rng": not op.attrs.get("seed")
+                          and not op.attrs.get("is_test")})

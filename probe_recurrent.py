@@ -39,7 +39,7 @@ VARIANTS = {
                       "        if (false) {\n          float* sl = ring")],
         "no_barrier": [("    grid_sync(arrived, target);\n  }\n}\n\n"
                         "// --- K6", "  }\n}\n\n// --- K6")],
-        "no_stores": [("        hs[so] = hn;\n        cs[so] = cn;\n"
+        "no_stores": [("        st_e(hs + so, hn);\n        st_e(cs + so, cn);\n"
                        "        if (stash != nullptr) {",
                        "        if (false) {")],
     },
@@ -51,9 +51,10 @@ VARIANTS = {
                           "unit is out\n", "")],
         "no_barrier_b": [("    grid_sync(arrived, target);   // the new h of "
                           "every unit is out\n", "")],
-        "no_stores": [("        if (stash != nullptr) stash[xo] = g;\n", ""),
-                      ("        hs[((size_t)b * T + t) * H + j] = hn;\n"
-                       "        if (stash != nullptr) stash[xo] = cgate;\n",
+        "no_stores": [("        if (stash != nullptr) st_e(stash + xo, g);\n",
+                       ""),
+                      ("        st_e(hs + ((size_t)b * T + t) * H + j, hn);\n"
+                       "        if (stash != nullptr) st_e(stash + xo, cgate);\n",
                        "")],
     },
 }

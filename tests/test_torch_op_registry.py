@@ -94,25 +94,13 @@ WAITING = {
     "paddle_tpu.distributed": _MULTI,
     "paddle_tpu.observability.rank_scope": _MULTI,
     "paddle_tpu.observability.tracing.rank_scope": _MULTI,
-    "paddle_tpu.framework.analysis": _ANALYSIS,
-    "paddle_tpu.framework.auto_parallel": _ANALYSIS,
-    "paddle_tpu.framework.costs": _ANALYSIS,
-    "paddle_tpu.framework.dataflow": _ANALYSIS,
-    "paddle_tpu.framework.memory_plan": _ANALYSIS,
-    "paddle_tpu.framework.sharding": _ANALYSIS,
-    "paddle_tpu.observability.ledger": _ANALYSIS,
-    "paddle_tpu.observability.flight_recorder": _ANALYSIS,
-    "paddle_tpu.observability.CostLedger": _ANALYSIS,
-    "paddle_tpu.observability.LedgerRow": _ANALYSIS,
-    "paddle_tpu.profiler": _ANALYSIS,
-    "paddle_tpu.analyze_program": _ANALYSIS,
-    "paddle_tpu.check_program": _ANALYSIS,
-    "paddle_tpu.infer_program": _ANALYSIS,
-    "paddle_tpu.verify_program": _ANALYSIS,
-    "paddle_tpu.op_loc": _ANALYSIS,
-    **{f"paddle_tpu.{m}Executor.{f}": _ANALYSIS
-       for m in ("", "io.", "trainer.", "inferencer.")
-       for f in ("cost_analysis", "memory_analysis", "memory_census")},
+    "paddle_tpu.framework.auto_parallel": _MULTI,
+    "paddle_tpu.framework.sharding": _MULTI,
+    # the XLA HLO-text parsers: the multi-GPU part reads the collectives'
+    # census from NCCL's kernels instead
+    **{f"paddle_tpu.framework.costs.{n}": _MULTI
+       for n in ("collective_census", "hlo_liveness_temp_bytes",
+                 "hlo_shape_bytes")},
     **{f"paddle_tpu.transpiler.{n}": _TRANSPILER
        for n in ("DistributeTranspiler", "DistributeTranspilerConfig",
                  "HashName", "InferenceTranspiler", "PSDispatcher",

@@ -331,3 +331,196 @@ def test_probe_variants_match_the_kernel_source(kind, name, edits):
             assert at > k6, (name, old)
         else:
             assert at + len(old) <= k6 + len("// --- K6"), (name, old)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 cells: the plain version against the JAX package's XLA composite
+# (which the JAX package takes for any type but float32), both rounding
+# every op to bfloat16 and carrying h and c in bfloat16
+# ---------------------------------------------------------------------------
+
+TB = 12     # T of the bfloat16 cases (T <= 16: the tolerance grows with T)
+
+
+def _bf16_args(kind, seed=4):
+    r = np.random.RandomState(seed)
+    g = 4 if kind == "lstm" else 3
+    return {"x": (r.randn(B, TB, g * H) * .3).astype("float32"),
+            "h0": (r.randn(B, H) * .1).astype("float32"),
+            "c0": (r.randn(B, H) * .1).astype("float32"),
+            "w": (r.randn(H, g * H) * .1).astype("float32"),
+            "seqlen": np.asarray([TB, 0, 1, TB - 3], "int32")}
+
+
+def _bf16(a):
+    return ({k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in a.items()
+             if k != "seqlen"},
+            {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in a.items()
+             if k != "seqlen"})
+
+
+def _jax_steps(kind, x, hp, cp, w, valid):
+    """The JAX composite's step from given states, every (row, step) a row
+    of its own: x [B, T, G·H], hp/cp [B, T, H] → the step's outputs, each
+    [B, T, ·], as float32 numpy."""
+    b, t, gh = x.shape
+    flat = lambda a: jnp.asarray(a.float().numpy()).astype(
+        jnp.bfloat16).reshape(b * t, 1, -1)
+    sl = jnp.asarray(valid.reshape(b * t).numpy().astype("int32"))
+    xs = flat(x)
+    h0 = flat(hp)[:, 0]
+    wj = jnp.asarray(w.float().numpy()).astype(jnp.bfloat16)
+    if kind == "lstm":
+        outs = jrec._xla_lstm_seq(xs, h0, flat(cp)[:, 0], wj, sl, False,
+                                  True)
+    else:
+        outs = jrec._xla_gru_seq(xs, h0, wj, sl, False, True)
+    return [np.asarray(o.astype(jnp.float32)).reshape(b, t, -1)
+            for o in outs]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_bf16_plain_step_matches_the_xla_composite(kind, reverse):
+    """Step by step: from the states the port's plain version carried into
+    each step, its step and the JAX composite's step differ by at most
+    twice the per-term slack of one per-op rounded step
+    (`lstm_step_slack` / `gru_step_slack` with kernel=False: each rounded
+    term moves by at most bfloat16's unit roundoff 2⁻⁸ of its size)."""
+    a = _bf16_args(kind)
+    _, tb = _bf16(a)
+    sl = torch.from_numpy(a["seqlen"])
+    if kind == "lstm":
+        outs = trec.lstm_seq_plain(tb["x"], tb["h0"], tb["c0"], tb["w"], sl,
+                                   reverse, True)
+        hp = trec._prev_states(outs[0], tb["h0"])
+        cp = trec._prev_states(outs[1], tb["c0"])
+        slacks = trec.lstm_step_slack(tb["x"], hp, cp, tb["w"], kernel=False)
+    else:
+        outs = trec.gru_seq_plain(tb["x"], tb["h0"], tb["w"], sl, reverse,
+                                  True)
+        hp, cp = trec._prev_states(outs[0], tb["h0"]), None
+        slacks = trec.gru_step_slack(tb["x"], hp, tb["w"], kernel=False)
+    assert all(o.dtype == torch.bfloat16 for o in outs)
+    valid = trec._step_valid(sl, TB, reverse)
+    jouts = _jax_steps(kind, tb["x"], hp, cp, tb["w"], valid[..., 0])
+    for n, (o, jo, s) in enumerate(zip(outs, jouts, slacks)):
+        err = np.abs(o.float().numpy() - jo)
+        assert (err <= 2 * s.numpy()).all(), (n, err.max(),
+                                              (err / (2 * s.numpy())).max())
+    ok, _, _ = trec.recurrent_step_check(kind, tb["x"], tb["h0"], tb["c0"],
+                                         tb["w"], sl, reverse, outs,
+                                         kernel=False)
+    assert ok
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_bf16_sequence_matches_the_xla_composite(kind, reverse):
+    """The whole sequence, bfloat16 in and out, against
+    `fused_lstm_sequence` / `fused_gru_sequence` of the JAX package in
+    bfloat16 (its XLA composite on the CPU): the two may drift apart by
+    the sum over the T steps of each step's largest twofold slack, and a
+    row of length 0 keeps h0 exactly."""
+    a = _bf16_args(kind, seed=5)
+    jb, tb = _bf16(a)
+    sl = torch.from_numpy(a["seqlen"])
+    jsl = jnp.asarray(a["seqlen"])
+    if kind == "lstm":
+        jo = jrec.fused_lstm_sequence(jb["x"], jb["h0"], jb["c0"], jb["w"],
+                                      jsl, reverse=reverse)
+        to = trec.fused_lstm_sequence(tb["x"], tb["h0"], tb["c0"], tb["w"],
+                                      sl, reverse=reverse)
+    else:
+        jo = (jrec.fused_gru_sequence(jb["x"], jb["h0"], jb["w"], jsl,
+                                      reverse=reverse),)
+        to = (trec.fused_gru_sequence(tb["x"], tb["h0"], tb["w"], sl,
+                                      reverse=reverse),)
+    # the step slacks along the JAX package's own trajectory
+    xs = torch.flip(tb["x"], (1,)) if reverse else tb["x"]
+    js = [torch.tensor(np.asarray(o.astype(jnp.float32))).to(
+        torch.bfloat16) for o in jo]
+    if reverse:
+        js = [torch.flip(o, (1,)) for o in js]
+    hp = trec._prev_states(js[0], tb["h0"])
+    if kind == "lstm":
+        cp = trec._prev_states(js[1], tb["c0"])
+        slack = trec.lstm_step_slack(xs, hp, cp, tb["w"], kernel=False)[:2]
+    else:
+        slack = trec.gru_step_slack(xs, hp, tb["w"], kernel=False)[:1]
+    for o, j, s in zip(to, js, slack):
+        assert o.dtype == torch.bfloat16
+        tol = float((2 * s).amax(dim=(0, 2)).sum())
+        if reverse:
+            j = torch.flip(j, (1,))
+        err = float((o.float() - j.float()).abs().max())
+        assert err <= tol, (err, tol)
+    assert (to[0][1] == tb["h0"][1]).all()
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_bf16_step_check_rejects_wrong_cells(kind):
+    """`recurrent_step_check`, phase 3's gate for the bfloat16 kernels,
+    passes the plain version's own outputs and rejects three wrong cells:
+    the gate columns of w rotated, the length freeze dropped, and the
+    freeze taken at the reversed steps."""
+    a = _bf16_args(kind, seed=6)
+    _, tb = _bf16(a)
+    sl = torch.from_numpy(a["seqlen"])
+    g = 4 if kind == "lstm" else 3
+    states = (tb["h0"], tb["c0"]) if kind == "lstm" else (tb["h0"],)
+
+    def run(x, w, seqlen, reverse=False):
+        fn = trec.lstm_seq_plain if kind == "lstm" else trec.gru_seq_plain
+        return fn(x, *states, w, seqlen, reverse, True)
+
+    def check(outs):
+        return trec.recurrent_step_check(kind, tb["x"], tb["h0"], tb["c0"],
+                                         tb["w"], sl, False, outs)[0]
+
+    assert check(run(tb["x"], tb["w"], sl))
+    rotated = torch.roll(tb["w"].reshape(H, g, H), 1, dims=1).reshape(H, -1)
+    assert not check(run(tb["x"], rotated, sl))
+    assert not check(run(tb["x"], tb["w"], torch.full_like(sl, TB)))
+    assert not check(run(tb["x"], tb["w"], sl, reverse=True))
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_bf16_gradients_come_back_in_the_inputs_type(kind):
+    """The manual backward in float32 from bfloat16 residuals returns
+    bfloat16 gradients, as `_fused_lstm_bwd` / `_fused_gru_bwd` cast them,
+    close to the JAX package's: both differentiate the same stash up to the
+    forward's roundings, so within 2⁻⁸·T of the largest gradient."""
+    a = _bf16_args(kind, seed=7)
+    jb, tb = _bf16(a)
+    names = ["x", "h0", "c0", "w"] if kind == "lstm" else ["x", "h0", "w"]
+    cot = np.random.RandomState(8).randn(B, TB, H).astype("float32")
+    jsl = jnp.asarray(a["seqlen"])
+
+    def jloss(*args):
+        f = dict(zip(names, args))
+        if kind == "lstm":
+            hs, _ = jrec.fused_lstm_sequence(f["x"], f["h0"], f["c0"],
+                                             f["w"], jsl)
+        else:
+            hs = jrec.fused_gru_sequence(f["x"], f["h0"], f["w"], jsl)
+        return jnp.sum(hs.astype(jnp.float32) * cot)
+
+    jg = jax.grad(jloss, argnums=tuple(range(len(names))))(
+        *(jb[n] for n in names))
+    leaves = {n: tb[n].clone().requires_grad_() for n in names}
+    sl = torch.from_numpy(a["seqlen"])
+    if kind == "lstm":
+        hs, _ = trec.fused_lstm_sequence(leaves["x"], leaves["h0"],
+                                         leaves["c0"], leaves["w"], sl)
+    else:
+        hs = trec.fused_gru_sequence(leaves["x"], leaves["h0"], leaves["w"],
+                                     sl)
+    tg = torch.autograd.grad((hs.float() * torch.from_numpy(cot)).sum(),
+                             [leaves[n] for n in names])
+    for n, j, t in zip(names, jg, tg):
+        assert t.dtype == torch.bfloat16, n
+        jf = np.asarray(j.astype(jnp.float32))
+        tol = 2.0 ** -8 * TB * max(1.0, float(np.abs(jf).max()))
+        np.testing.assert_allclose(t.float().numpy(), jf, atol=tol, rtol=0,
+                                   err_msg=f"d{n}")
