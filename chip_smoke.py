@@ -303,6 +303,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    the exported trace (the device's idle share);
    and a Trainer stopped by an injected EnforceError, whose dossier the
    installed flight recorder writes and `analyze` reads back.
+42. data- and tensor-parallel training over NCCL: a world over every
+   visible card (one rank a card, paddle_tpu_torch.distributed.launch;
+   one rank on a one-card machine) trains phase 7's LM at full width in
+   float32 (TF32 off), 3 Adam steps from the same weights and batches,
+   through ParallelExecutor in four modes — AllReduce, Reduce (ZeRO-1),
+   ReduceScatter on the int8 wire with error feedback, and annotate_tp +
+   tp_shard_pass over a tp axis of the world's size (ReduceScatter, the
+   JAX package's tp mode) — each held against the plain Executor on the
+   same card (the 3 steps' losses to 1e-5 relative, 1e-3 on the int8
+   wire; each parameter, after a fourth step that torch.profiler reads
+   NCCL's calls and kernels from, within Adam's largest move, 2 lr a
+   step), with K1-K3's launches counted (6 a step), and a step's time
+   beside the plain Executor's; on more than one card also the ring over an sp axis of
+   the whole world against one K1 call. Then the ring schedule in one
+   process (parallel/ring_attention.py's block functions, the held K/V
+   block indexed rather than sent) at 4 blocks, causal, bfloat16: the
+   LM's attention shape (B 16, H 8, T 512, D 64), the same packed with
+   segment ids (rows that see no key in some blocks), and B 1, T 16384;
+   o, lse, dq, dk and dv held against one K1-K3 call over the whole
+   sequence within 3 slacks of ops/flash_attention.py's bounds, no NaN,
+   K1 launched 10 times for an unpacked causal forward, and both timed.
 
 Phase 3 also holds the bfloat16 cells of K5 / K6 (x, w and states in
 bfloat16, h and c carried in bfloat16 as the reference's composite
@@ -354,11 +375,13 @@ bound and cuDNN time at CRNN's shape; `launches_generate` and
 its `*_generate` and `*_bf16_cache` keys at the generators' and the
 cross-attention's shapes; `launches_generate` of the flash forward, K1's
 in phase 39's encoder; `launches_phase41` / `launches_phase41_tc`, K1-K3's
-over phase 41's four variants' turns; K5 / K6's `*_bf16` and the
+over phase 41's four variants' turns; `launches_phase42_<mode>`, K1-K3's
+over each parallel mode's 3 steps on rank 0, and `launches_phase42_ring`,
+K1's in the ring's causal forward at the LM shape; K5 / K6's `*_bf16` and the
 GRU's `*_crnn_bf16` keys, their bfloat16 rows, with `err_over_slack_bf16`
 and `launches_bf16_checks`, phase 3's bfloat16 launches: no path of the
 model zoo runs a bfloat16 recurrent cell), times, and `paths`: phases
-15-41's numbers; the last line is
+15-42's numbers; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -2956,7 +2979,7 @@ def _ragged_corpus(rng, n_seqs, t, vocab):
     return [rng.randint(1, vocab, (n,)).astype(np.int64) for n in lengths]
 
 
-def _train_program(ptt, cfg, packed=False, dropout=0.0):
+def _train_program(ptt, cfg, packed=False, dropout=0.0, mean_loss=False):
     """transformer_lm + Adam(lr).minimize(loss), as a user builds it."""
     from paddle_tpu_torch.models import transformer
     main, start = ptt.Program(), ptt.Program()
@@ -2965,7 +2988,7 @@ def _train_program(ptt, cfg, packed=False, dropout=0.0):
             vocab=cfg["vocab"], max_len=cfg["max_len"],
             d_model=cfg["d_model"], d_inner=cfg["d_inner"],
             num_heads=cfg["num_heads"], num_layers=cfg["num_layers"],
-            dropout=dropout, packed=packed)
+            dropout=dropout, packed=packed, mean_loss=mean_loss)
         ptt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
     return main, start, loss
 
@@ -7033,6 +7056,657 @@ def analyze_plan_profile(ptt, kernels):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 42: data- and tensor-parallel training over NCCL, and the ring
+# ---------------------------------------------------------------------------
+
+PARALLEL_STEPS = 3
+# the ring at the LM's attention shape and at a long sequence, 4 blocks
+RING_BLOCKS = 4
+RING_CASES = (("lm", 16, 8, 512, 64, False), ("lm_packed", 16, 8, 512, 64,
+                                               True),
+              ("long", 1, 8, 16384, 64, False))
+
+
+def _nccl_events(events):
+    """(host calls, device kernels) of NCCL in profiler events: the
+    process group's `nccl:*` / `c10d::*` ranges on the host, and the
+    kernels NCCL put on the card."""
+    from torch.autograd import DeviceType
+    host = sum(e.count for e in events
+               if e.key.startswith(("nccl:", "c10d::")))
+    dev = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+              and "nccl" in e.key.lower())
+    return host, dev
+
+
+def phase42_rank(rank, world, out_path):
+    """One rank of phase 42(a)'s NCCL world (paddle_tpu_torch.distributed.
+    launch runs it; its card is CUDAPlace(local rank)): phase 7's LM at
+    full width in float32 (TF32 off), 3 timed Adam steps and a profiled
+    fourth from the same weights and batches in four modes through
+    ParallelExecutor, each held against the plain Executor on this card:
+    the losses of the 3, every step's gradients (through Adam's first
+    moments) and the parameters after the 4 (`_adam_parity`). Writes the
+    rank's numbers to out_path.<rank> as JSON, and prints them; any
+    mismatch then raises (the launch fails)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.parallel import (BuildStrategy, DeviceMesh,
+                                           ParallelExecutor, ReduceStrategy,
+                                           annotate_tp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    kernels.build(["flash_attention"])     # built by phase 2: loads
+    dev = torch.cuda.current_device()
+    place = ptt.CUDAPlace(dev)
+    cfg = TRAIN
+    steps, lr = PARALLEL_STEPS, cfg["lr"]
+    dp_mesh = DeviceMesh(axes={"dp": world})
+    tp_axes = ({"dp": world // 2, "tp": 2} if world >= 4
+               else {"dp": 1, "tp": world})
+    tp_mesh = DeviceMesh(axes=tp_axes)
+    rng = np.random.RandomState(SEED + 42)
+    b, t = cfg["batch"], cfg["max_len"]
+    feeds = []
+    for _ in range(steps + 1):
+        toks = _markov_tokens(rng, b, t + 1, cfg["vocab"])
+        feeds.append({"tokens": toks[:, :-1].copy(),
+                      "tokens@SEQLEN": np.full((b,), t, "int32"),
+                      "targets": toks[:, 1:].copy()})
+    main, start, loss = _train_program(ptt, cfg, mean_loss=True)
+    scope0 = ptt.Scope()
+    ptt.Executor(place).run(start, scope=scope0)
+    init = {n: scope0.get(n).clone() for n in scope0.local_var_names()}
+    del scope0
+    names = [p.name for p in main.all_parameters()]
+
+    def fresh_scope():
+        sc = ptt.Scope()
+        for n, v in init.items():
+            sc.set_var(n, v.clone())
+        return sc
+
+    # Adam's first-moment accumulator of each parameter (the gradients
+    # of every step, through m_s = b1 m_(s-1) + (1 - b1) g_s)
+    m1_of = {v.accumulator_of: v.name
+             for v in main.global_block().vars.values()
+             if getattr(v, "accumulator_of", None) in names
+             and "_moment1_acc" in v.name}
+    assert sorted(m1_of) == sorted(names), sorted(set(names) - set(m1_of))
+
+    def timed_steps(run, after):
+        kernels.reset_launch_counts()
+        losses, secs = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(feeds[i])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            x = out[0]
+            losses.append(float(x.reshape(-1)[0]) if torch.is_tensor(x)
+                          else float(np.asarray(x).ravel()[0]))
+            after(out)
+        launches = dict(kernels.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = run(feeds[steps])
+            torch.cuda.synchronize()
+        after(out)
+        return losses, secs, launches, _nccl_events(prof.key_averages())
+
+    sc = fresh_scope()
+    exe = ptt.Executor(place)
+    fetch = [loss] + [n + "@GRAD" for n in names]
+    # each step's |g| and first moments, the parameters after the first
+    plain_g, plain_m1, plain_p1 = (_Snapshots(steps + 1),
+                                   _Snapshots(steps + 1), _Snapshots(1))
+
+    def plain_after(out):
+        for g in plain_g(dict(zip(names, out[1:]))).values():
+            g.abs_()
+        plain_m1({n: sc.get(m1_of[n]) for n in names})
+        if not plain_p1.steps:
+            plain_p1({n: sc.get(n) for n in names})
+    plain_losses, plain_secs, plain_launches, _ = timed_steps(
+        lambda f: exe.run(main, feed=f, fetch_list=fetch, scope=sc,
+                          return_numpy=False), plain_after)
+    # the parameters after all steps taken (the 3 timed and the profiled
+    # one): each mode's are compared with these
+    plain = {n: sc.get(n).clone() for n in names}
+    del sc, exe
+    sc = fresh_scope()
+    exe = ptt.Executor(place)
+    rep_m1, rep_p1 = _Snapshots(steps + 1), _Snapshots(1)
+
+    def rep_after(out):
+        rep_m1({n: sc.get(m1_of[n]) for n in names})
+        if not rep_p1.steps:
+            rep_p1({n: sc.get(n) for n in names})
+    timed_steps(lambda f: exe.run(main, feed=f, fetch_list=[loss], scope=sc,
+                                  return_numpy=False), rep_after)
+    rep = _adam_parity(names, m1_of, plain, plain_g.steps, plain_m1.steps,
+                       plain_p1.steps[0], {n: sc.get(n) for n in names},
+                       rep_m1.steps, rep_p1.steps[0], lr)
+    del sc, exe, rep_m1, rep_p1
+    modes = (("allreduce", ReduceStrategy.AllReduce, "", dp_mesh, False),
+             ("reduce_zero1", ReduceStrategy.Reduce, "", dp_mesh, False),
+             ("reduce_scatter_int8_ef", ReduceStrategy.ReduceScatter,
+              "int8", dp_mesh, False),
+             ("tp", ReduceStrategy.ReduceScatter, "", tp_mesh, True))
+    res = {"world": world, "rank": rank, "tp_axes": tp_axes,
+           "plain_repeat": rep, "plain_launches": plain_launches,
+           "plain": {"losses": plain_losses,
+                     "step_ms": float(np.median(plain_secs[1:]) * 1e3)}}
+    failed = []
+    for label, mode, quant, mesh, tp in modes:
+        m, _, lo = _train_program(ptt, cfg, mean_loss=True)
+        if tp:
+            annotate_tp(m)
+        sc = fresh_scope()
+        pe = ParallelExecutor(
+            use_cuda=True, loss_name=lo.name, main_program=m, scope=sc,
+            mesh=mesh, build_strategy=BuildStrategy(
+                reduce_strategy=mode, quant_comm=quant,
+                comm_error_feedback=bool(quant)))
+        pe_m1, pe_p1 = _Snapshots(steps + 1), _Snapshots(1)
+
+        def pe_after(out):
+            pe_m1({n: sc.get(m1_of[n]) for n in names})
+            if not pe_p1.steps:
+                pe_p1({n: sc.get(n) for n in names})
+        losses, secs, launches, nccl = timed_steps(
+            lambda f: pe.run(fetch_list=[lo], feed=f), pe_after)
+        prog = pe.prepare_program()
+        par = _adam_parity(names, m1_of, plain, plain_g.steps,
+                           plain_m1.steps, plain_p1.steps[0],
+                           {n: sc.get(n) for n in names}, pe_m1.steps,
+                           pe_p1.steps[0], lr, pe.mesh,
+                           lambda name: pe.state_sharding(prog, name))
+        del pe_m1, pe_p1
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+        # losses within 1e-5 (float32) or 1e-3 (the int8 wire, lossy by
+        # design); the first step's gradients within F32_G_NORM or
+        # INT8_G_NORM of each tensor's norm, and its parameters within
+        # what Adam makes of the two gradients; after all steps, the
+        # parameters within 1e-6 + 1e-5|p| wherever the gradients agreed
+        # to a SETTLED-th of themselves, and within Adam's largest move
+        # elsewhere (`_adam_parity`).
+        checks = [("loss", rel <= (1e-3 if quant else 1e-5)),
+                  ("first_step_params", par["p1_beyond"] == 0),
+                  ("params", par["beyond_settled"] == 0),
+                  ("grads", par["g_norm_rel"][0] <= (
+                      INT8_G_NORM if quant else F32_G_NORM)),
+                  ("adam_move", par["worst"] <= 2 * lr * (steps + 1)
+                   + 1e-5)]
+        checks += [(f"launches {k}", launches[k] == cfg["num_layers"] * steps)
+                   for k in FLASH]
+        checks.append(("nccl", nccl[0] > 0 or not mesh.joined))
+        res[label] = {
+            "losses": losses, "max_loss_rel": rel,
+            "parity": par,
+            "step_ms": float(np.median(secs[1:]) * 1e3),
+            "step_ms_all": [x * 1e3 for x in secs],
+            "launches": {k: launches[k] for k in FLASH},
+            "launches_all": launches,
+            "nccl_host_calls": nccl[0], "nccl_device_kernels": nccl[1],
+            "tp_applied": bool(getattr(prog, "_tp_applied", False)),
+            "ops": sorted({op.type for op in prog.global_block().ops
+                           if op.type.startswith(("dp_", "tp_"))}),
+            "failed": [c for c, ok in checks if not ok],
+        }
+        failed += [(label, c) for c, ok in checks if not ok]
+        del pe, sc
+        torch.cuda.empty_cache()
+    if world > 1:
+        res["ring_sp"] = _ring_over_world(world)
+    print("phase42 rank", rank, json.dumps(res), flush=True)
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(res, f)
+    assert not failed, failed
+
+
+#: Adam's beta1, beta2 and epsilon (optimizer.Adam's defaults, as
+#: `_train_program` builds it)
+ADAM_BETA1, ADAM_BETA2, ADAM_EPS = 0.9, 0.999, 1e-8
+#: the first step's gradients, ||Δg_1|| / ||g_1|| per tensor: float32
+#: modes (sums in another order, ReLU kinks at pre-activations within
+#: their rounding of 0) and the int8 wire (two roundings, each within
+#: half an int8 step of its block's largest magnitude: at most
+#: 2 · 8 / 254 of the norm for blocks of 64)
+F32_G_NORM = 1e-2
+INT8_G_NORM = 2 * 8 / 254
+#: an element whose gradient at every step is SETTLED times its own
+#: difference from the plain one: Adam's update m/sqrt(v) then moves by
+#: at most ~2 / SETTLED of lr a step differently (the first-order terms
+#: of m and sqrt(v)), 8e-7 over 4 steps at lr 1e-4, inside the 1e-6
+#: floor of the parameter check
+SETTLED = 1000.0
+
+
+class _Snapshots:
+    """Copies of a dict of tensors, one a step, into buffers allocated for
+    all `k` steps at the first copy, so no later step pays for their
+    allocation in its timing. `steps` holds the copies taken."""
+
+    def __init__(self, k):
+        self.k, self.steps, self.bufs = k, [], None
+
+    def __call__(self, tensors):
+        import torch
+        if self.bufs is None:
+            self.bufs = [{n: torch.empty_like(t) for n, t in tensors.items()}
+                         for _ in range(self.k)]
+        buf = self.bufs[len(self.steps)]
+        for n, t in tensors.items():
+            buf[n].copy_(t)
+        self.steps.append(buf)
+        return buf
+
+
+def _sub_block(t, outer, inner, mesh):
+    """This rank's block under placement `inner` of its block `t` under
+    `outer`, where each dim of `inner` names `outer`'s axes and then more
+    (split further by their coordinates, the first major)."""
+    def names(s):
+        return () if s is None else tuple(s) if isinstance(
+            s, (tuple, list)) else (s,)
+    for d in range(len(inner)):
+        o = names(outer[d]) if d < len(outer) else ()
+        extra = names(inner[d])
+        assert extra[:len(o)] == o, (outer, inner)
+        idx, parts = 0, 1
+        for a in extra[len(o):]:
+            idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
+            parts *= mesh.axis_size(a)
+        c = t.shape[d] // parts
+        t = t.narrow(d, idx * c, c)
+    return t
+
+
+def _adam_parity(names, m1_of, plain, plain_g, plain_m1, plain_p1, params,
+                 m1s, p1, lr, mesh=None, place=None):
+    """Phase 42(a)'s parity of one mode's Adam steps with the plain
+    Executor's, on this rank's blocks: `place(name)` is the mode's
+    placement of a var on `mesh` (None: the plain Executor's own, every
+    var whole), and each element is compared where this rank holds the
+    first moments (ZeRO-1 splits them, not the parameters). The
+    gradients, through the first moments
+    m_s = b1 m_(s-1) + (1 - b1) g_s: each step's gradient difference is
+    Δg_s = (Δm_s - b1 Δm_(s-1)) / (1 - b1), elementwise. Per step,
+    `g_norm_rel` is the largest ||Δg_s|| / ||g_s|| over the tensors and
+    `g_rel` the largest max|Δg_s| / max|g_s|; the first step's (from
+    equal parameters) is the mode's own, later ones add the parameters'
+    divergence. The first step's parameters: Adam moves each by
+    lr · m/(|m| + eps1) (m = (1 - b1) g, v = (1 - b2) g², eps1 =
+    eps (1 - b1) / sqrt(1 - b2)), so `p1_beyond` counts the elements whose
+    difference passes that move's difference for the two first moments,
+    plus 1e-6 + 1e-5|p|. After the last step, `beyond` counts the
+    elements past 1e-6 + 1e-5|p|; `near` the elements whose plain |g_s|
+    fell below SETTLED · |Δg_s| at some step (Adam's update there is not
+    held by the gradient's agreement, up to 2 lr a step);
+    `beyond_settled` the elements past the bound that are not near;
+    `top` lists the tensors with the most elements beyond. For the
+    tensors with the largest first-step norm ratio, `first_step_top`
+    lists it, max|Δg_1| / max|g_1|, and for a matrix the share of
+    ||Δg_1||² in its 8 heaviest columns."""
+    import torch
+    b1 = ADAM_BETA1
+    k = len(m1s)
+    st = {"g_norm_rel": [0.0] * k, "g_rel": [0.0] * k, "worst": 0.0,
+          "worst_settled": 0.0, "beyond": 0, "near": 0, "beyond_settled": 0,
+          "n": 0, "p1_beyond": 0, "p1_worst": 0.0}
+    eps1 = ADAM_EPS * (1 - b1) / (1 - ADAM_BETA2) ** 0.5
+    per, first = [], []
+
+    def cut(t, name):
+        return t if place is None else mesh.local_slice(t, place(name))
+    for n in names:
+        want = cut(plain[n], n).float()
+        diff = (params[n].float() - want).abs()
+        diff1 = (p1[n].float() - cut(plain_p1[n], n).float()).abs()
+        if place is not None and place(n) != place(m1_of[n]):
+            # the moments split further than their parameter (ZeRO-1):
+            # this rank's part of its parameter block
+            want = cut(plain[n], m1_of[n]).float()
+            diff, diff1 = (_sub_block(x, place(n), place(m1_of[n]), mesh)
+                           for x in (diff, diff1))
+        m, mp = m1s[0][n].float(), cut(plain_m1[0][n], m1_of[n]).float()
+        move = lr * (m / (m.abs() + eps1) - mp / (mp.abs() + eps1)).abs()
+        p1_tol = move + 1e-6 + 1e-5 * cut(plain_p1[n], m1_of[n]).float().abs()
+        st["p1_beyond"] += int((diff1 > p1_tol).sum())
+        st["p1_worst"] = max(st["p1_worst"], float((diff1 - move).max()))
+        d_prev = None
+        near = torch.zeros_like(diff, dtype=torch.bool)
+        for s in range(k):
+            d = m1s[s][n].float() - cut(plain_m1[s][n], m1_of[n]).float()
+            dg = (d if d_prev is None else d - b1 * d_prev).abs() / (1 - b1)
+            d_prev = d
+            g = cut(plain_g[s][n], m1_of[n]).float()
+            near |= g < SETTLED * dg
+            gmax, dmax = float(g.max()), float(dg.max())
+            nr = float(dg.norm()) / max(float(g.norm()), 1e-30)
+            st["g_norm_rel"][s] = max(st["g_norm_rel"][s], nr)
+            st["g_rel"][s] = max(st["g_rel"][s], dmax / max(gmax, 1e-30))
+            if s == 0:
+                conc = None
+                if dg.dim() == 2 and dmax > 0:
+                    cols = dg.square().sum(0)
+                    conc = float(cols.topk(min(8, cols.numel())).values.sum()
+                                 / cols.sum())
+                first.append((nr, n, dmax / max(gmax, 1e-30), conc))
+        beyond = diff > 1e-6 + 1e-5 * want.abs()
+        nb = int(beyond.sum())
+        st["n"] += diff.numel()
+        st["beyond"] += nb
+        st["near"] += int(near.sum())
+        st["beyond_settled"] += int((beyond & ~near).sum())
+        st["worst"] = max(st["worst"], float(diff.max()))
+        st["worst_settled"] = max(st["worst_settled"], float(
+            torch.where(near, torch.zeros_like(diff), diff).max()))
+        per.append((nb, n, diff.numel()))
+    st["top"] = sorted(per, reverse=True)[:6]
+    st["first_step_top"] = sorted(first, reverse=True)[:6]
+    return st
+
+
+def _ring_over_world(world):
+    """Phase 42(c): the distributed ring at the LM's attention shape over
+    an sp mesh of the whole world (each rank's sequence block, the K/V
+    blocks and then the dK / dV accumulators hopping over NCCL). Each
+    rank's output block is held against one K1 call over the whole
+    sequence within 3 slacks of `flash_fwd_bound` (as phase 42(b)); its
+    dq, dk and dv blocks from autograd (`_RingAttention.backward`) against
+    one K2 / K3 call given the ring's own o and lse (the one-process ring's
+    forward: the same block calls and merges), within 3 slacks of
+    `flash_bwd_dq_bound` / `flash_bwd_dkv_bound`."""
+    import torch
+
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_bound, flash_bwd_dkv_cuda, flash_bwd_dq_bound,
+        flash_bwd_dq_cuda, flash_check, flash_delta, flash_fwd_bound,
+        flash_fwd_cuda)
+    from paddle_tpu_torch.parallel import DeviceMesh
+    from paddle_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                          ring_forward_local)
+    mesh = DeviceMesh(axes={"sp": world})
+    gen = torch.Generator().manual_seed(SEED + 43)
+    q, k, v, do = (torch.randn(16, 512, 8, 64, generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(4))
+    i, t = mesh.axis_index("sp"), 512 // world
+    blk = slice(i * t, (i + 1) * t)
+    ql, kl, vl = (x[:, blk].clone().requires_grad_() for x in (q, k, v))
+    with mesh:
+        o = ring_attention(ql, kl, vl, causal=True)
+    o.backward(do[:, blk].contiguous())
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    o1, lse1 = flash_fwd_cuda(qh, kh, vh, 0.125, True)
+    slack, _ = flash_fwd_bound(qh[:, :, blk], kh[:, :, :(i + 1) * t],
+                               vh[:, :, :(i + 1) * t], o1[:, :, blk],
+                               lse1[:, :, blk], 0.125, True)
+    out = {}
+    r = flash_check(o.detach().transpose(1, 2), o1[:, :, blk], 3 * slack)
+    out["o"] = r
+    o_r, lse_r, _ = ring_forward_local(qh, kh, vh, world, causal=True,
+                                       scale=0.125)
+    o_r = o_r.to(torch.bfloat16)
+    delta = flash_delta(o_r, doh)
+    dq1 = flash_bwd_dq_cuda(qh, kh, vh, doh, lse_r, delta, 0.125, True)
+    dk1, dv1 = flash_bwd_dkv_cuda(qh, kh, vh, doh, lse_r, delta, 0.125, True)
+    got = {"dq": ql.grad, "dk": kl.grad, "dv": vl.grad}
+    for hh in range(8):
+        sl = slice(hh, hh + 1)
+        a = (qh[:, sl], kh[:, sl], vh[:, sl], doh[:, sl], lse_r[:, sl],
+             delta[:, sl])
+        sdq = flash_bwd_dq_bound(*a, dq1[:, sl], 0.125, True)
+        sdk, sdv = flash_bwd_dkv_bound(*a, dk1[:, sl], dv1[:, sl], 0.125,
+                                       True)
+        for name, ref, sk in (("dq", dq1, sdq), ("dk", dk1, sdk),
+                              ("dv", dv1, sdv)):
+            g = got[name].transpose(1, 2)[:, sl]
+            r = flash_check(g, ref[:, sl, blk], 3 * sk[:, :, blk])
+            if name not in out or r["ratio"] > out[name]["ratio"]:
+                out[name] = r
+    for name, r in out.items():
+        assert r["ok"], (name, r)
+    return {"err_over_3_slacks": {n: r["ratio"] for n, r in out.items()},
+            "max_abs_err_vs_one_call": {n: r["max_abs_err"]
+                                        for n, r in out.items()}}
+
+
+def _ring_one_process(ptt, kernels):
+    """Phase 42(b): the ring's own per-step block functions at full width
+    in one process, held against one K1-K3 call over the whole sequence.
+    Each of the two lies within one slack of the plain version (the
+    bounds of ops/flash_attention.py); the ring's bfloat16 block outputs
+    and its n logsumexp merges add at most one more (their first-order
+    terms, u·A|V| and u·|dS||K|, are among the slack's), so the ring is
+    held within 3 slacks (plus the output's bfloat16 step) of the one
+    call. The bounds assume both sides take the same lse and delta, so the
+    backward ring is held twice: given the one call's residuals, and, as
+    `_RingAttention.backward` runs it, given the ring's own bfloat16 o and
+    merged lse, against one K2 / K3 call given the same. Returns per case:
+    errors, K1 launches, live steps, times."""
+    import torch
+
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_bound, flash_bwd_dkv_cuda, flash_bwd_dq_bound,
+        flash_bwd_dq_cuda, flash_check, flash_delta, flash_fwd_bound,
+        flash_fwd_cuda)
+    from paddle_tpu_torch.parallel.ring_attention import (
+        ring_backward_local, ring_forward_local)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED + 44)
+    n = RING_BLOCKS
+    out = {}
+    for label, b, h, t, d, packed in RING_CASES:
+        q, k, v, do = (torch.randn(b, h, t, d, generator=gen).to(
+            dev, torch.bfloat16) for _ in range(4))
+        scale = 1.0 / d ** 0.5
+        ids = _segments(gen, b, t, dev) if packed else None
+
+        def one_call():
+            o1, lse1 = flash_fwd_cuda(q, k, v, scale, True, ids, ids)
+            delta = flash_delta(o1, do)
+            dq1 = flash_bwd_dq_cuda(q, k, v, do, lse1, delta, scale, True,
+                                    ids, ids)
+            dk1, dv1 = flash_bwd_dkv_cuda(q, k, v, do, lse1, delta, scale,
+                                          True, ids, ids)
+            return o1, lse1, delta, dq1, dk1, dv1
+
+        def ring():
+            o, lse, live = ring_forward_local(q, k, v, n, causal=True,
+                                              scale=scale, segment_ids=ids)
+            ob = o.to(torch.bfloat16)
+            dq, dk, dv = ring_backward_local(q, k, v, ob, lse, do, n,
+                                             causal=True, scale=scale,
+                                             segment_ids=ids)
+            return ob, lse, live, dq, dk, dv
+
+        o1, lse1, delta, dq1, dk1, dv1 = one_call()
+        kernels.reset_launch_counts()
+        o, lse, live = ring_forward_local(q, k, v, n, causal=True,
+                                          scale=scale, segment_ids=ids)
+        torch.cuda.synchronize()
+        fwd_launches = kernels.LAUNCHES["flash_fwd"]
+        o = o.to(torch.bfloat16)
+        # the backward ring takes the global residuals in (the ring's lse
+        # and delta are those of the whole sequence): here the one call's,
+        # so the comparison holds the block kernels to the bounds' own
+        # premise, the same lse and delta on both sides
+        dq, dk, dv = ring_backward_local(q, k, v, o1, lse1, do, n,
+                                         causal=True, scale=scale,
+                                         segment_ids=ids)
+        torch.cuda.synchronize()
+        bwd_launches = {k_: kernels.LAUNCHES[k_]
+                        for k_ in ("flash_bwd_dq", "flash_bwd_dkv")}
+        for name, x in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk),
+                        ("dv", dv)):
+            assert bool(torch.isfinite(x).all()), f"{label}: {name} has NaN"
+        assert fwd_launches == live, (label, fwd_launches, live)
+        if not packed:
+            assert live == n * (n + 1) // 2, (label, live)
+        # the real path's residuals: the ring's own bfloat16 o and merged
+        # lse on both sides (the one K2 / K3 call takes them too)
+        delta_own = flash_delta(o, do)
+        dq1o = flash_bwd_dq_cuda(q, k, v, do, lse, delta_own, scale, True,
+                                 ids, ids)
+        dk1o, dv1o = flash_bwd_dkv_cuda(q, k, v, do, lse, delta_own, scale,
+                                        True, ids, ids)
+        dqo, dko, dvo = ring_backward_local(q, k, v, o, lse, do, n,
+                                            causal=True, scale=scale,
+                                            segment_ids=ids)
+        for name, x in (("dq_own", dqo), ("dk_own", dko), ("dv_own", dvo)):
+            assert bool(torch.isfinite(x).all()), f"{label}: {name} has NaN"
+        # the bounds, one head at a time ([B, 1, T, T] float32 each)
+        ratio, ok, err = {}, True, {}
+        for hh in range(h):
+            sl = slice(hh, hh + 1)
+            qh, kh, vh, doh = q[:, sl], k[:, sl], v[:, sl], do[:, sl]
+            so, slse = flash_fwd_bound(qh, kh, vh, o1[:, sl], lse1[:, sl],
+                                       scale, True, ids, ids)
+            checks = [("o", o, o1, so), ("lse", lse, lse1, slse)]
+            for sfx, l_, d_, rq, rk, rv, gq, gk, gv in (
+                    ("", lse1, delta, dq1, dk1, dv1, dq, dk, dv),
+                    ("_own", lse, delta_own, dq1o, dk1o, dv1o, dqo, dko,
+                     dvo)):
+                sdq = flash_bwd_dq_bound(qh, kh, vh, doh, l_[:, sl],
+                                         d_[:, sl], rq[:, sl], scale, True,
+                                         ids, ids)
+                sdk, sdv = flash_bwd_dkv_bound(qh, kh, vh, doh, l_[:, sl],
+                                               d_[:, sl], rk[:, sl],
+                                               rv[:, sl], scale, True, ids,
+                                               ids)
+                checks += [("dq" + sfx, gq.to(torch.bfloat16), rq, sdq),
+                           ("dk" + sfx, gk.to(torch.bfloat16), rk, sdk),
+                           ("dv" + sfx, gv.to(torch.bfloat16), rv, sdv)]
+            for name, got, ref, slack in checks:
+                r = flash_check(got[:, sl], ref[:, sl], 3 * slack)
+                ratio[name] = max(ratio.get(name, 0.0), r["ratio"])
+                err[name] = max(err.get(name, 0.0), r["max_abs_err"])
+                ok = ok and r["ok"]
+            del so, slse, sdq, sdk, sdv, checks
+        if label == "lm":
+            # a control the check must reject: a ring whose hops are off
+            # by one (each step holds the neighbouring block's K / V)
+            kr, vr = (torch.roll(x, t // n, dims=2) for x in (k, v))
+            o_c, _, _ = ring_forward_local(q, kr, vr, n, causal=True,
+                                           scale=scale)
+            so_all, _ = flash_fwd_bound(q, k, v, o1, lse1, scale, True)
+            ctrl = flash_check(o_c.to(torch.bfloat16), o1, 3 * so_all)
+            assert not ctrl["ok"], ("the ring check admits a ring whose "
+                                    "hops are off by one", ctrl)
+            ratio["control_off_by_one_hop"] = ctrl["ratio"]
+            del kr, vr, o_c, so_all
+        log(f"  ring [{label}] B {b} H {h} T {t} D {d}, {n} blocks, causal"
+            f"{', packed' if packed else ''}: {live} live steps, K1 "
+            f"launched {fwd_launches} times, K2/K3 {bwd_launches}; err / "
+            f"(3 slacks) " + ", ".join(f"{k_} {r:.3g}" for k_, r in
+                                       ratio.items()))
+        assert ok, (label, ratio)
+        t_one = _cuda_ms(one_call)
+        t_ring = _cuda_ms(ring)
+        log(f"    one K1-K3 call {t_one:.3f} ms, the ring's {n} blocks "
+            f"{t_ring:.3f} ms (forward + backward, one process)")
+        out[label] = {"live_steps": live, "k1_launches": fwd_launches,
+                      "bwd_launches": bwd_launches,
+                      "err_over_3_slacks": ratio, "max_abs_err": err,
+                      "one_call_ms": t_one, "ring_ms": t_ring}
+        del q, k, v, do, o, lse, dq, dk, dv, o1, lse1, delta, dq1, dk1, dv1
+        del delta_own, dq1o, dk1o, dv1o, dqo, dko, dvo
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fmt(xs):
+    return "[" + ", ".join(f"{x:.2e}" for x in xs) + "]"
+
+
+def _cuda_ms(fn, reps=5):
+    """Median milliseconds of `fn` between CUDA events, after a warm-up."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        z.record()
+        z.synchronize()
+        times.append(a.elapsed_time(z))
+    return sorted(times)[len(times) // 2]
+
+
+def parallel_train_and_ring(ptt, kernels):
+    """Phase 42: (a) a world over every visible card on NCCL (one rank per
+    card: one on a one-card machine) trains phase 7's LM through
+    ParallelExecutor in four modes, each held against the plain Executor;
+    (b) the ring schedule at full width in this process. Returns the
+    numbers for `paths` and the ranks' launch counts."""
+    import torch
+    world = torch.cuda.device_count()
+    root = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    try:
+        t0 = time.perf_counter()
+        ptt.distributed.launch(
+            f"{os.path.abspath(__file__)}:phase42_rank", world,
+            args=[os.path.join(root, "rank")], place="cuda",
+            timeout_s=300, store_dir=root)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(root, f"rank.{r}")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    log(f"  a world of {world} rank(s) on NCCL, spawned, joined, trained "
+        f"and left in {spawn_s:.1f} s; tp mesh {r0['tp_axes']}")
+    log(f"  plain Executor: losses {r0['plain']['losses']}, step "
+        f"{r0['plain']['step_ms']:.1f} ms; run again from the same state: "
+        f"largest gradient difference by step "
+        f"{_fmt(r0['plain_repeat']['g_rel'])}, parameters beyond "
+        f"{r0['plain_repeat']['beyond']}")
+    for label in ("allreduce", "reduce_zero1", "reduce_scatter_int8_ef",
+                  "tp"):
+        m = r0[label]
+        par = m["parity"]
+        top = [(n, f"{nr:.2e}", c and round(c, 3))
+               for nr, n, _, c in par["first_step_top"][:3]]
+        log(f"  [{label}] losses {m['losses']} (largest relative difference "
+            f"{m['max_loss_rel']:.2e}); gradients by step, the largest "
+            f"||Δg|| / ||g|| {_fmt(par['g_norm_rel'])}, max|Δg| / max|g| "
+            f"{_fmt(par['g_rel'])}; the first step's largest (tensor, norm "
+            f"ratio, share in 8 columns) {top}; parameters: after the first "
+            f"step {par['p1_beyond']} past Adam's move of the two gradients, "
+            f"after the last largest difference {par['worst']:.2e}, share "
+            f"beyond 1e-6 + 1e-5|p| {par['beyond'] / par['n']:.2e}, share "
+            f"near (|g| below {SETTLED:g} |Δg|) {par['near'] / par['n']:.2e},"
+            f" beyond and not near {par['beyond_settled']}; step "
+            f"{m['step_ms']:.1f} ms (plain {r0['plain']['step_ms']:.1f}); "
+            f"K1-K3 launches {m['launches']}; NCCL: {m['nccl_host_calls']} "
+            f"host calls, {m['nccl_device_kernels']} device kernels in one "
+            f"profiled step; ops {m['ops']}"
+            f"{'; tp rewrite applied' if m['tp_applied'] else ''}")
+    if "ring_sp" in r0:
+        parts = ("o", "dq", "dk", "dv")
+        ratio = {n: max(r["ring_sp"]["err_over_3_slacks"][n] for r in ranks)
+                 for n in parts}
+        err = {n: max(r["ring_sp"]["max_abs_err_vs_one_call"][n]
+                      for r in ranks) for n in parts}
+        log(f"  distributed ring over sp {world}, each rank's blocks against "
+            f"one K1-K3 call: largest err / (3 slacks) {ratio}, largest "
+            f"errors {err}")
+    ring = _ring_one_process(ptt, kernels)
+    return {"spawn_s": spawn_s, "ranks": ranks, "ring": ring}
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7304,6 +7978,12 @@ def main():
            "the census, the profiler and the flight recorder on phase 7's "
            "LM")
     paths["analysis_plan_profile"] = analyze_plan_profile(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    _phase("phase 42: data- and tensor-parallel training of phase 7's LM "
+           "over NCCL (AllReduce, ZeRO-1, ReduceScatter int8, tp), and the "
+           "ring schedule over K1-K3")
+    paths["parallel"] = parallel_train_and_ring(ptt, kernels)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -7371,6 +8051,15 @@ def main():
             paths["analysis_plan_profile"]["plan"]["launches"][k]
     results["flash_fwd"]["launches_tc_transformer_base_infer"] = \
         paths["transformer_base_infer"]["flash_fwd_tc_launches"]
+    # phase 42: K1-K3 on each parallel mode's 3 steps (rank 0), and the
+    # ring's K1 launches (its causal forward at the LM shape: 10)
+    for mode in ("allreduce", "reduce_zero1", "reduce_scatter_int8_ef",
+                 "tp"):
+        for k in FLASH:
+            results[k][f"launches_phase42_{mode}"] = \
+                paths["parallel"]["ranks"][0][mode]["launches"][k]
+    results["flash_fwd"]["launches_phase42_ring"] = \
+        paths["parallel"]["ring"]["lm"]["k1_launches"]
     # generation (phases 38-39): K4 in every decode step of both
     # generators, K1 in the encoder-decoder's encoder
     results["decode_attention"]["launches_generate"] = \

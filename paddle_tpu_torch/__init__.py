@@ -49,7 +49,7 @@ from .framework.scope import Scope, global_scope, reset_global_scope  # noqa: F4
 from .framework.selected_rows import SelectedRows  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from . import data, io, models, nets, observability, serving  # noqa: F401,E402
-from . import average, parallel, transpiler  # noqa: F401,E402
+from . import average, distributed, transpiler  # noqa: F401,E402
 from . import evaluator, metrics  # noqa: F401,E402
 from . import inferencer, trainer  # noqa: F401,E402
 from .data.feeder import DataFeeder  # noqa: F401,E402

@@ -110,6 +110,18 @@ define_int("sparse_dense_apply_max_bytes", 1 << 30,
            "merged-rows path (sort, merge, and an in-place index_copy_ of "
            "the distinct rows). Both give the same lazy semantics. Set 0 to "
            "take the merged-rows path at any size.")
+define_bool("tp_shard", True,
+            "Allow the static sharding-propagation rewrite (framework/"
+            "sharding.py tp_shard_pass) that makes tp-annotated parameters "
+            "executable by ParallelExecutor on a mesh with a tp axis. Kill "
+            "switch: PTPU_TP_SHARD=0 skips the rewrite, and a tp-sharded "
+            "program is then rejected instead of rewritten.")
+define_bool("quant_comm", True,
+            "Allow quantized gradient collectives when the BuildStrategy "
+            "requests them (quant_comm='int8'/'bf16'). Kill switch: "
+            "PTPU_QUANT_COMM=0 forces float32 gradient transfers while "
+            "keeping the explicit reduce-scatter pipeline "
+            "(parallel/grad_comm.py).")
 define_bool("quant_params", True,
             "Allow weight-only quantized serving when an engine requests it "
             "(quant='int8'/'int4'): quantize_params_pass rewrites a serving "

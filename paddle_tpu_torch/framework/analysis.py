@@ -160,16 +160,17 @@ INFER_WAIVED: Dict[str, str] = {
 
 
 def _tp_localized(v, shape, program) -> tuple:
-    """tp-sharded vars are declared at their GLOBAL shape and run at the
-    tp-local shape once the JAX package's tp_shard_pass rewrote the
-    program. The port has no tp rewrite yet (framework/sharding.py is the
-    multi-GPU part of ROADMAP.md §1 item 4), so a program it runs is
-    never tp-applied and every var runs at its declared shape; a program
-    that carries the rewrite's marker is refused."""
-    enforce(not getattr(program, "_tp_applied", False),
-            "a tp-rewritten program: tensor parallelism is ROADMAP.md §1 "
-            "item 4 (multi-GPU parallelism)", exc=NotImplementedError)
-    return tuple(shape)
+    """tp-sharded vars (tp_shard_pass marks them with `tp_spec`) are
+    declared at their GLOBAL shape but run on each rank at the tp-local
+    shape: the sharded dims divided by the program's tp size
+    (framework/sharding.py tp_local_shape, the rule the comm planner
+    shares)."""
+    tp = int(getattr(program, "_tp_size", 0) or 0)
+    spec = getattr(v, "tp_spec", None)
+    if tp <= 1 or not spec or not getattr(program, "_tp_applied", False):
+        return tuple(shape)
+    from .sharding import tp_local_shape
+    return tp_local_shape(tuple(shape), spec, tp)
 
 
 @dataclass
@@ -882,9 +883,11 @@ def analyze_program(program: Program, extra_feeds: Sequence[str] = (),
     if infer:
         diags += infer_program(program, nominal_batch=nominal_batch,
                                extra_feeds=extra_feeds).diagnostics
-    enforce(tp_size is None and not _has_tp_annotations(program),
-            "sharding propagation (framework/sharding.py) is ROADMAP.md §1 "
-            "item 4 (multi-GPU parallelism)", exc=NotImplementedError)
+    from . import sharding as _sharding
+    if tp_size is not None or _sharding.has_tp_annotations(program):
+        diags += _sharding.propagate_sharding(
+            program, tp_size=tp_size,
+            nominal_batch=nominal_batch).diagnostics
     return diags
 
 

@@ -420,6 +420,17 @@ class Executor:
             t = t.float()     # float feeds run in float32, as in jax
         return t.to(self.device)
 
+    def _step_seed(self, seed: int) -> int:
+        """The seed one step's draws use (ParallelExecutor gives each dp
+        rank its own)."""
+        return seed
+
+    def _step_extras(self, plan: _Plan) -> Dict[str, Any]:
+        """Run-wide values for the lowerings beyond the program
+        (ParallelExecutor's batch-global op overrides and gradient
+        all-reduce, lowering.py `run_op` / `run_vjp_region`)."""
+        return {}
+
     def _execute(self, plan: _Plan, feed_vals, ro_vals, rw_vals,
                  scope: Scope, random_seed: int):
         env = self._run_env(plan, feed_vals, ro_vals, rw_vals, random_seed)
@@ -432,11 +443,13 @@ class Executor:
         environment (every value the plan defined, by name)."""
         self._run_counter += 1
         ctx = LowerCtx(device=self.device,
-                       seed=_run_seed(random_seed, self._run_counter),
+                       seed=self._step_seed(
+                           _run_seed(random_seed, self._run_counter)),
                        constants=plan.constants,
                        fetch_names=tuple(plan.fetch_names),
                        read_names=plan.read_names,
-                       extras={"program": plan.program})
+                       extras={"program": plan.program,
+                               **self._step_extras(plan)})
         env: Dict[str, Any] = {}
         env.update(zip(plan.ro_names, ro_vals))
         env.update(zip(plan.rw_names, rw_vals))

@@ -85,8 +85,14 @@ def run_op(op: Operator, env: Dict[str, Any], ctx: LowerCtx):
     opdef = lookup_op(op.type)
     ins = _gather_inputs(op, env)
     ctx.op = op
+    # a run may lower some ops its own way (ParallelExecutor: reductions
+    # over the data-parallel batch span every rank); the override gets
+    # the op's own lowering to build on
+    override = ctx.extras.get("op_overrides", {}).get(op.type)
     try:
-        outs = opdef.lower(ctx, ins, op.attrs)
+        outs = (override(ctx, ins, op.attrs, opdef.lower)
+                if override is not None
+                else opdef.lower(ctx, ins, op.attrs))
     except (EnforceError, NotImplementedError):
         raise
     except Exception as e:  # re-raise with op context, keep traceback
@@ -480,6 +486,11 @@ def run_vjp_region(region_op: Operator, env: Dict[str, Any], ctx: LowerCtx):
             pad = padding_idx if padding_idx >= 0 else padding_idx + height
             vals = vals * (rows != pad)[:, None].to(vals.dtype)
         env[grad_var_name(w)] = TracedSelectedRows(rows, vals, height)
+    # a data-parallel run reduces the gradients over its ranks here, where
+    # they leave the region (ParallelExecutor's AllReduce mode)
+    reduce_grads = ctx.extras.get("grad_allreduce")
+    if reduce_grads is not None:
+        reduce_grads(env, [grad_var_name(n) for n in targets])
 
 
 @register_op("vjp_region")

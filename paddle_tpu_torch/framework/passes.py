@@ -81,7 +81,8 @@ _WAITING_PASSES = ("bn_fold_pass", "quant_freeze_pass",
 
 # passes registered by a module this one does not import eagerly; get_pass
 # imports it on first use (≙ the JAX package's)
-_LAZY_PASS_MODULES = {"memory_plan_pass": "memory_plan"}
+_LAZY_PASS_MODULES = {"memory_plan_pass": "memory_plan",
+                      "tp_shard_pass": "sharding"}
 
 
 def get_pass(name: str, **attrs) -> Pass:

@@ -303,6 +303,11 @@ class Program:
                 nop.outputs = {k: list(v) for k, v in op.outputs.items()}
                 nb.ops.append(nop)
             p.blocks.append(nb)
+        # the tp rewrite's markers ride through clones (the comm rewrite
+        # clones a tp-rewritten program), as in the JAX package
+        for marker in ("_tp_applied", "_tp_size", "_tp_n_collectives"):
+            if hasattr(self, marker):
+                setattr(p, marker, getattr(self, marker))
         p._current_block_idx = 0
         return p
 

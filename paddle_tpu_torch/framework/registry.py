@@ -73,6 +73,33 @@ def register_infer_spec(op_type: str):
     return deco
 
 
+# A shard rule maps an op's input shardings to its output shardings and
+# records the collectives the tp rewrite must splice (framework/sharding.py
+# ShardCtx): (sctx, in_specs, attrs) -> {slot: [spec, ...]}. A side table,
+# as in the JAX package.
+_SHARD_RULES: Dict[str, Any] = {}
+
+
+def register_shard_spec(op_type: str):
+    """Decorator registering the sharding-propagation rule for `op_type`
+    (lives alongside register_infer_spec: how shardings flow through the
+    op instead of shapes)."""
+
+    def deco(fn):
+        if op_type in _SHARD_RULES:
+            raise AlreadyExistsError(
+                f"op {op_type!r} already has a shard-propagation rule")
+        _SHARD_RULES[op_type] = fn
+        return fn
+
+    return deco
+
+
+def lookup_shard_rule(op_type: str):
+    """The registered shard-propagation rule for `op_type`, or None."""
+    return _SHARD_RULES.get(op_type)
+
+
 # An effect rule refines the dataflow effect set of one op
 # (framework/dataflow.py): (op) -> dict with any of the keys
 #   collective_axes: mesh axes the op communicates over,

@@ -25,9 +25,9 @@ while it is open (`current_tags()` reads them); `force_enable(True)`
 records spans with the flag down until the matching force_enable(False).
 
 `annotation_factory` is the profiler hook: while it is set, each live
-span also enters the object it returns (a profiler range). The port's
-profiler module, which would set it and force_enable, is ROADMAP.md §1
-item 4, and so is `rank_scope`, the tag triple of a multi-process world.
+span also enters the object it returns (a profiler range; the port's
+profiler.py sets it). `rank_scope` is the tag triple of a multi-process
+world: ParallelExecutor's ranks record their spans under it.
 """
 
 from __future__ import annotations
@@ -137,6 +137,14 @@ class scoped_tags:
     def __exit__(self, *exc):
         _tls.tags = self._prev
         return False
+
+
+def rank_scope(world: str, rank: int, world_size: int) -> scoped_tags:
+    """The distributed-tracing tag triple: every span this thread records
+    is attributed to (world, rank) — ParallelExecutor's ranks tag their
+    spans with it."""
+    return scoped_tags(world=str(world), rank=int(rank),
+                       world_size=int(world_size))
 
 
 def current_tags() -> Dict[str, Any]:

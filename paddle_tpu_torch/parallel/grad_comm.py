@@ -1,0 +1,729 @@
+"""Communication-optimized data-parallel gradient pipeline.
+
+≙ paddle_tpu/parallel/grad_comm.py (≙ reference framework/details/
+fuse_all_reduce_op_pass.cc + multi_devices_graph_pass.cc:412-453): the
+graph pass that decides HOW each gradient crosses the data-parallel ranks.
+
+`comm_optimize_pass` rewrites a program for the explicit per-rank
+pipeline, the JAX package's rewrite unchanged:
+
+  - ONE `dp_grad_comm` op between the vjp_region and every gradient
+    consumer (clip / regularizer / optimizer ops read the reduced
+    gradient);
+  - small gradients coalesced into flat transfer buckets
+    (≙ fuse_all_reduce), dp-divisible parameters on the sharded
+    reduce-scatter path;
+  - sharded-path optimizer ops run on the local parameter slice
+    (`dp_shard_slice` in, `dp_shard_all_gather` out) with their
+    same-shaped accumulators held split over dp (ZeRO-1).
+
+The ops run among the dp group of the ParallelExecutor's mesh through
+torch.distributed: the float32 wire as reduce_scatter (+ all_gather for
+buckets), the int8 / bf16 wire as the quantized all_to_all / all_gather of
+collective.py, with per-rank error feedback. The analytic wire-byte
+functions are the JAX package's ring accounting.
+
+The port also runs `ReduceStrategy.Reduce` (ZeRO-1 under global-batch
+semantics) through this pass with `global_batch=True` in the config: the
+explicit mode's mean-loss and batch-global-op gates do not apply there
+(the executor computes batch reductions over the whole dp group), and only
+optimizer ops that update element by element take the sharded path.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.enforce import InvalidArgumentError, enforce
+from ..framework.lowering import grad_var_name
+from ..framework.program import Operator, Program
+from ..framework.registry import register_op
+from . import collective as C
+from .mesh import DATA_AXIS, current_mesh
+from .strategy import BuildStrategy, ReduceStrategy
+
+GRAD_COMM_SUFFIX = "@COMM"
+SHARD_SUFFIX = "@DP_SHARD"
+SHARD_OUT_SUFFIX = "@DP_SHARD_OUT"
+ERR_PREFIX = "dp_comm_err"
+
+# Ops whose per-shard semantics differ from the global-batch semantics the
+# program was built with: batch_norm folds statistics over the WHOLE batch,
+# which per-shard execution would silently turn into per-shard statistics.
+_BATCH_GLOBAL_OPS = frozenset({"batch_norm"})
+
+# Loss producers whose per-shard gradient, averaged across equal-size
+# shards, equals the global-batch gradient — the identity the whole
+# pipeline rests on (grad of global mean == pmean of grads of local
+# means). A sum-reduced loss would come out scaled by 1/dp, so anything
+# else is REJECTED, not silently rescaled.
+_MEAN_LOSS_OPS = frozenset({"mean", "reduce_mean"})
+
+# Optimizer ops whose update is element by element: the only ones the
+# global-batch ZeRO-1 rewrite runs on a dp slice (a norm over the whole
+# parameter, as lamb's trust ratio, would see one slice)
+_ELEMENTWISE_OPT_OPS = frozenset({
+    "sgd", "momentum", "adam", "adamax", "adagrad", "decayed_adagrad",
+    "adadelta", "rmsprop", "ftrl", "proximal_gd", "proximal_adagrad"})
+
+# The executor binds this rank's dp coordinate here for the step (≙ the
+# JAX package's traced index); outside a step the current mesh's.
+_CURRENT_DP_INDEX: List = []
+
+
+class dp_index_scope:
+    """Context manager binding the traced dp shard index for op lowerings."""
+
+    def __init__(self, idx):
+        self.idx = idx
+
+    def __enter__(self):
+        _CURRENT_DP_INDEX.append(self.idx)
+
+    def __exit__(self, *a):
+        _CURRENT_DP_INDEX.pop()
+
+
+def current_dp_index(axis_name: str) -> int:
+    if _CURRENT_DP_INDEX:
+        return _CURRENT_DP_INDEX[-1]
+    return current_mesh().axis_index(axis_name)
+
+
+def explicit_comm_config(strategy: BuildStrategy) -> Optional[Dict]:
+    """None when the strategy wants the default SPMD pipeline; otherwise the
+    resolved config dict for the explicit per-shard pipeline. The
+    PTPU_QUANT_COMM=0 kill switch drops the wire dtype to fp32 but keeps
+    the explicit pipeline (the reduce-scatter structure is orthogonal)."""
+    from ..core import flags
+    enforce((strategy.quant_comm or "") in ("", "int8", "bf16"),
+            f"BuildStrategy.quant_comm must be '', 'int8' or 'bf16', got "
+            f"{strategy.quant_comm!r}", exc=InvalidArgumentError)
+    quant = strategy.quant_comm or ""
+    if quant and not flags.get_flag("quant_comm"):
+        quant = ""
+    explicit = (strategy.reduce_strategy == ReduceStrategy.ReduceScatter
+                or bool(strategy.quant_comm))
+    if not explicit:
+        return None
+    return {
+        "shard_update": strategy.reduce_strategy == ReduceStrategy.ReduceScatter,
+        "quant": quant,
+        "block": int(strategy.quant_comm_block),
+        "error_feedback": bool(strategy.comm_error_feedback and quant),
+        "bucket_bytes": int(strategy.comm_bucket_bytes),
+    }
+
+
+# ---------------------------------------------------------------------------
+# the pass
+# ---------------------------------------------------------------------------
+
+def _grad_pairs(block):
+    """[(param var, raw grad name)] from every vjp_region, program order."""
+    pairs = []
+    for op in block.ops:
+        if op.type != "vjp_region":
+            continue
+        for target in op.attrs["targets"]:
+            if not block.has_var(target):
+                continue
+            v = block.var(target)
+            if not getattr(v, "trainable", False):
+                continue
+            pairs.append((v, grad_var_name(target)))
+    return pairs
+
+
+def _readers(block, name, skip_types=("vjp_region",)):
+    return [op for op in block.ops
+            if op.type not in skip_types and name in op.input_names()]
+
+
+def _optimizer_op_for(block, param_name, grad_name):
+    """The single optimizer op consuming (param, grad), or None."""
+    found = None
+    for op in block.ops:
+        if op.attrs.get("op_role") != "optimize":
+            continue
+        if (op.inputs.get("Grad", [None])[0] == grad_name
+                and op.inputs.get("Param", [None])[0] == param_name):
+            if found is not None:
+                return None
+            found = op
+    return found
+
+
+def comm_optimize_pass(program: Program, dp: int, config: Dict) -> Program:
+    """Clone `program` and rewrite its gradient path for the explicit
+    pipeline. Idempotent: a program the pass already produced is returned
+    unchanged. The rewrite is recorded as a "dp_comm" span carrying the
+    resolved plan config (observability/tracing.py)."""
+    if getattr(program, "_dp_comm_applied", False):
+        return program
+    from ..observability import tracing as _tracing
+    with _tracing.span("dp_comm", "grad_comm/comm_optimize_pass", dp=dp,
+                       quant=str(config.get("quant", "")),
+                       bucket_bytes=int(config.get("bucket_bytes", 0) or 0)):
+        return _comm_optimize_pass_impl(program, dp, config)
+
+
+def _comm_optimize_pass_impl(program: Program, dp: int,
+                             config: Dict) -> Program:
+    block0 = program.global_block()
+    global_batch = bool(config.get("global_batch", False))
+    bad = sorted({op.type for op in block0.ops
+                  if op.type in _BATCH_GLOBAL_OPS})
+    enforce(global_batch or not bad,
+            f"explicit data-parallel gradient pipeline "
+            f"(ReduceStrategy.ReduceScatter / BuildStrategy.quant_comm) "
+            f"runs the step as per-shard code, but ops {bad} fold "
+            f"statistics over the whole batch and would silently compute "
+            f"per-shard statistics instead. Use the default AllReduce/"
+            f"Reduce strategies for this program",
+            exc=InvalidArgumentError)
+
+    for op in block0.ops:
+        if op.type != "vjp_region":
+            continue
+        loss_name = op.attrs["loss"]
+        producer = next((o for o in reversed(block0.ops)
+                         if loss_name in o.output_names()
+                         and o.type != "vjp_region"), None)
+        if global_batch:
+            continue
+        if producer is None or producer.type not in _MEAN_LOSS_OPS:
+            # provenance built only on the failing path (index scan +
+            # formatting must not run on every successful apply)
+            from ..framework.analysis import op_loc
+            desc = (op_loc(block0, block0.ops.index(producer), producer)
+                    if producer else "<nothing>")
+            enforce(False,
+                    f"explicit data-parallel gradient pipeline requires a "
+                    f"MEAN-reduced loss (got {loss_name!r} produced by "
+                    f"{desc}): the per-shard gradients are averaged across "
+                    f"shards, which equals the global gradient only for a "
+                    f"batch-mean loss. Reduce the loss with layers.mean / "
+                    f"reduce_mean, or use the SPMD AllReduce/Reduce "
+                    f"strategies",
+                    exc=InvalidArgumentError)
+
+    out = program.clone()
+    block = out.global_block()
+    pairs = _grad_pairs(block)
+    if not pairs:
+        out._dp_comm_applied = True
+        return out
+
+    # tp-rewritten programs (framework/sharding.py tp_shard_pass) execute
+    # per-shard at tp-LOCAL shapes: the comm plan — bucket layout, chunk
+    # sizes, reshape targets — must be built over those, and the ZeRO-1
+    # sharded update slices dim 0 WITHIN each tp shard's local block
+    # (optimizer slices sharded over dp per tp shard).
+    tp = int(getattr(program, "_tp_size", 0) or 0) \
+        if getattr(program, "_tp_applied", False) else 0
+
+    def _tp_local(v):
+        from ..framework.sharding import tp_local_shape
+        shape = list(v.shape or ())
+        if tp > 1 and getattr(v, "tp_spec", None):
+            shape = list(tp_local_shape(shape, v.tp_spec, tp))
+        return shape
+
+    # --- classify each gradient: sharded reduce-scatter path vs bucket ---
+    entries = []       # aligned with the op's X/Out slots
+    for param, gname in pairs:
+        g = block.var(gname)
+        lshape = _tp_local(g)
+        numel = int(np.prod(lshape)) if lshape else 1
+        opt_op = _optimizer_op_for(block, param.name, gname)
+        sole_consumer = (opt_op is not None
+                         and len(_readers(block, gname)) == 1)
+        spec = getattr(param, "sharding_spec", None)
+        # tp-sharded params take the sharded path too once the tp pass has
+        # made them executable (the gate already rejected non-tp-sharded
+        # annotations); a live annotation WITHOUT the rewrite stays on the
+        # bucket path (annotation resolved replicated on this mesh)
+        spec_ok = spec is None or tp > 1
+        sharded = (config["shard_update"]
+                   and sole_consumer
+                   and (not global_batch
+                        or opt_op.type in _ELEMENTWISE_OPT_OPS)
+                   and spec_ok
+                   and lshape and len(lshape) >= 1
+                   and lshape[0] >= dp and lshape[0] % dp == 0
+                   # quantized transfers pad every per-destination chunk to
+                   # a scale block: a tensor whose chunk is smaller than one
+                   # block would pay >= block x dp wire bytes — the bucket
+                   # amortizes it with its neighbors instead
+                   and (not config["quant"] or numel // dp >= config["block"]))
+        entries.append({"grad": gname, "param": param.name,
+                        "numel": numel, "shape": lshape,
+                        "gshape": list(g.shape or ()),
+                        "kind": "sharded" if sharded else "bucket",
+                        "opt_op": opt_op if sharded else None})
+
+    if config["shard_update"]:
+        n_sharded = sum(1 for e in entries if e["kind"] == "sharded")
+        if n_sharded == 0:
+            # gradient clip / regularization rewire the optimizer's Grad
+            # input to a derived var, which demotes every parameter to the
+            # bucket path (full-gradient all-gather, replicated update) —
+            # correct, but the ZeRO-1 sharded update never engages. Say so
+            # instead of silently degrading (docs/data_parallel.md).
+            from ..core import flags
+            flags.vlog(0, "ReduceScatter mode: sharded update engaged for "
+                       "0/%d parameters (gradient clip/regularization or "
+                       "shapes demoted all gradients to the bucket path); "
+                       "gradients still travel reduce-scatter+all-gather "
+                       "but optimizer state stays replicated",
+                       len(entries))
+
+    # --- bucket assembly (≙ fuse_all_reduce): greedy fill by bytes -------
+    bucket_cap = max(0, config["bucket_bytes"])
+    buckets: List[List[int]] = []
+    cur, cur_bytes = [], 0
+    for i, e in enumerate(entries):
+        if e["kind"] != "bucket":
+            continue
+        nbytes = e["numel"] * 4
+        if cur and (bucket_cap == 0 or cur_bytes + nbytes > bucket_cap):
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(i)
+        cur_bytes += nbytes
+    if cur:
+        buckets.append(cur)
+
+    # --- new vars: comm'd grads, sharded chunks, error-feedback state ----
+    for e in entries:
+        shape = list(e["shape"])
+        if e["kind"] == "sharded":
+            shape = [shape[0] // dp] + shape[1:]
+        block.create_var(name=e["grad"] + GRAD_COMM_SUFFIX, shape=shape,
+                         dtype=block.var(e["grad"]).dtype,
+                         stop_gradient=True)
+
+    err_names = []
+    if config["error_feedback"]:
+        import hashlib
+        transfers = ([("sharded", [i]) for i, e in enumerate(entries)
+                      if e["kind"] == "sharded"]
+                     + [("bucket", b) for b in buckets])
+        # namespace the state by the transfer layout (grad names + wire
+        # config): two programs — or two configs of one program — sharing
+        # a scope must NOT collide on stale residuals of the wrong shape
+        # or, worse, silently fold another model's residuals into their
+        # gradients. Deterministic across processes (hash of names, no
+        # id()s) so a multi-process world agrees on the var names.
+        digest = hashlib.sha1(repr(
+            ([e["grad"] for e in entries], buckets, config["quant"],
+             config["block"], dp, tp)).encode()).hexdigest()[:8]
+        for k, (kind, idxs) in enumerate(transfers):
+            flat = sum(entries[i]["numel"] for i in idxs)
+            if kind == "bucket":
+                flat = -(-flat // dp) * dp   # bucket is padded to dp
+            # per-replica state: dim 0 IS the data axis (each shard carries
+            # only its own residual); ParallelExecutor shards + zero-inits.
+            # Under tp every (dp, tp) coordinate quantizes a DIFFERENT
+            # local gradient, so dim 0 covers the full dp x tp product
+            # (tp_spec makes _state_sharding split it over both axes)
+            v = block.create_var(name=f"{ERR_PREFIX}_{digest}_{k}",
+                                 shape=[dp * max(tp, 1), flat],
+                                 dtype="float32", persistable=True)
+            v.stop_gradient = True
+            v.dp_replica_state = True
+            if tp > 1:
+                v.tp_spec = ("tp",) + (None,)
+            err_names.append(v.name)
+
+    # --- rewire every consumer of a raw grad to the comm'd grad ----------
+    rewire = {e["grad"]: e["grad"] + GRAD_COMM_SUFFIX for e in entries}
+    for op in block.ops:
+        if op.type == "vjp_region":
+            continue
+        for slot, names in op.inputs.items():
+            op.inputs[slot] = [rewire.get(n, n) for n in names]
+
+    # --- splice the comm op right after the last vjp_region --------------
+    # (all vjp_region fwd_ops indices point BEFORE the region op, so any
+    # insertion after it keeps the recorded segments valid)
+    region_idx = max(i for i, op in enumerate(block.ops)
+                     if op.type == "vjp_region")
+    comm_op = Operator(
+        block, "dp_grad_comm",
+        inputs={"X": [e["grad"] for e in entries], "ErrIn": err_names},
+        outputs={"Out": [e["grad"] + GRAD_COMM_SUFFIX for e in entries],
+                 "ErrOut": err_names},
+        attrs={"axis": DATA_AXIS, "dp": dp, "quant": config["quant"],
+               "block": config["block"],
+               "kinds": [e["kind"] for e in entries],
+               "numels": [e["numel"] for e in entries],
+               "shapes": [e["shape"] for e in entries],
+               "buckets": buckets,
+               "error_feedback": config["error_feedback"],
+               "op_role": "backward"})
+    block.ops.insert(region_idx + 1, comm_op)
+
+    # --- sharded path: optimizer math on the local parameter slice -------
+    for e in entries:
+        if e["kind"] != "sharded":
+            continue
+        opt_op = e["opt_op"]
+        pname = e["param"]
+        pvar = block.var(pname)
+        chunk = e["shape"][0] // dp
+        block.create_var(name=pname + SHARD_SUFFIX,
+                         shape=[chunk] + e["shape"][1:],
+                         dtype=pvar.dtype, stop_gradient=True)
+        block.create_var(name=pname + SHARD_OUT_SUFFIX,
+                         shape=[chunk] + e["shape"][1:],
+                         dtype=pvar.dtype, stop_gradient=True)
+        # same-shaped accumulators live sharded across dp (ZeRO-1 for real:
+        # the executor places them P("dp") so each shard holds 1/dp). The
+        # accumulator_of backref (optimizer.py _add_accumulator) declares
+        # ownership; the shape check keeps scalar state (beta pows)
+        # replicated. Old programs without the backref fall back to the
+        # shape heuristic over is_optimizer_state.
+        for slot, names in opt_op.inputs.items():
+            for n in names:
+                if not block.has_var(n):
+                    continue
+                v = block.var(n)
+                owner = getattr(v, "accumulator_of", None)
+                if (getattr(v, "is_optimizer_state", False)
+                        and (owner == pname or owner is None)
+                        and list(v.shape or ()) == e["gshape"]):
+                    v.dp_shard_update = True
+        opt_op.inputs["Param"] = [pname + SHARD_SUFFIX]
+        opt_op.outputs["ParamOut"] = [pname + SHARD_OUT_SUFFIX]
+        at = block.ops.index(opt_op)
+        block.ops.insert(at, Operator(
+            block, "dp_shard_slice", inputs={"X": [pname]},
+            outputs={"Out": [pname + SHARD_SUFFIX]},
+            attrs={"axis": DATA_AXIS, "chunk": chunk,
+                   "op_role": "optimize"}))
+        block.ops.insert(at + 2, Operator(
+            block, "dp_shard_all_gather",
+            inputs={"X": [pname + SHARD_OUT_SUFFIX]},
+            outputs={"Out": [pname]},
+            attrs={"axis": DATA_AXIS, "op_role": "optimize"}))
+
+    out._bump()
+    out._dp_comm_applied = True
+    return out
+
+
+def _compressed_transfer_bytes(n_vals: int, dp: int, quant: str,
+                               block: int) -> int:
+    """Per-device OUTPUT bytes of one compressed phase (a2a or ag) moving
+    `n_vals` f32 values split into dp destination chunks."""
+    chunk = n_vals // dp
+    cpad = -(-chunk // block) * block
+    if quant == "int8":
+        per_chunk = cpad + 4 * (cpad // block)     # payload + f32 scales
+    elif quant == "bf16":
+        per_chunk = 2 * cpad
+    else:
+        per_chunk = 4 * chunk
+    return dp * per_chunk
+
+
+def analytic_wire_bytes(program: Program, dp: int) -> Optional[Dict]:
+    """Per-device interconnect bytes per step of the explicit pipeline, from
+    the rewritten program's dp_grad_comm plan — the analytic side of the
+    byte balance the HLO census is asserted against
+    (tests/test_zero_comm.py). Returns None for non-rewritten programs
+    (SPMD mode: use spmd_allreduce_wire_bytes). Ring accounting throughout
+    (see probe_common.collective_wire_bytes)."""
+    if not getattr(program, "_dp_comm_applied", False):
+        return None
+    block0 = program.global_block()
+    comm = next((op for op in block0.ops if op.type == "dp_grad_comm"), None)
+    if comm is None:
+        return {"grad_wire_bytes": 0, "param_allgather_wire_bytes": 0,
+                "wire_bytes": 0, "grad_f32_bytes": 0, "n_transfers": 0}
+    quant = comm.attrs["quant"]
+    qblock = comm.attrs["block"]
+    kinds, numels = comm.attrs["kinds"], comm.attrs["numels"]
+    grad = 0.0
+    # launch-count + uncompressed-size side channel for the time model
+    # (framework/costs.predicted_step_seconds): how many collective
+    # launches the plan issues per step, and the f32 gradient bytes the
+    # quantized path must quantize/dequant-sum/requantize
+    n_transfers = 0
+    grad_f32 = 4 * sum(numels)
+    for i, kind in enumerate(kinds):
+        if kind != "sharded":
+            continue
+        n_transfers += 1
+        if quant:
+            out = _compressed_transfer_bytes(numels[i], dp, quant, qblock)
+            grad += out * (dp - 1) / dp            # all_to_all
+        else:
+            grad += (numels[i] * 4 // dp) * (dp - 1)   # reduce-scatter
+    for idxs in comm.attrs["buckets"]:
+        flat = sum(numels[i] for i in idxs)
+        npad = -(-flat // dp) * dp
+        n_transfers += 2                           # reduce + gather phase
+        if quant:
+            out = _compressed_transfer_bytes(npad, dp, quant, qblock)
+            grad += 2 * out * (dp - 1) / dp        # a2a + all_gather
+        else:
+            grad += (npad * 4 // dp) * (dp - 1)    # reduce-scatter
+            grad += (npad * 4) * (dp - 1) / dp     # all_gather
+    tp = int(getattr(program, "_tp_size", 0) or 0) \
+        if getattr(program, "_tp_applied", False) else 0
+    param_ag = 0.0
+    for op in block0.ops:
+        if op.type != "dp_shard_all_gather":
+            continue
+        n_transfers += 1
+        v = block0.var(op.outputs["Out"][0])
+        shape = list(v.shape)
+        if tp > 1 and getattr(v, "tp_spec", None):
+            from ..framework.sharding import tp_local_shape
+            shape = list(tp_local_shape(shape, v.tp_spec, tp))
+        n = 1
+        for d in shape:
+            n *= d
+        param_ag += (n * 4) * (dp - 1) / dp
+    return {"grad_wire_bytes": int(grad),
+            "param_allgather_wire_bytes": int(param_ag),
+            "wire_bytes": int(grad + param_ag),
+            "grad_f32_bytes": int(grad_f32),
+            "n_transfers": int(n_transfers)}
+
+
+def spmd_zero1_wire_bytes(program: Program, dp: int) -> Dict:
+    """Analytic model of the SPMD `ReduceStrategy.Reduce` (ZeRO-1 via
+    sharded accumulators) mode: XLA keeps the full gradient all-reduce
+    AND all-gathers every parameter whose optimizer state it sharded
+    (census-measured on this backend: exactly the allreduce model plus
+    the dim0-divisible params' all-gather). APPROXIMATE, unlike the
+    explicit-pipeline model: the partitioner owns this lowering, so the
+    planner prices it but the ledger never asserts it exact — the
+    auto-parallel planner also prefers census-exact modes inside the
+    measured noise band for exactly this reason."""
+    base = spmd_allreduce_wire_bytes(program, dp)
+    ag = 0.0
+    n_ag = 0
+    for b in program.blocks:
+        for v in b.vars.values():
+            if not (getattr(v, "trainable", False) and v.persistable):
+                continue
+            shape = list(v.shape or ())
+            if not shape or shape[0] < dp or shape[0] % dp:
+                continue
+            n = 4
+            for d in shape:
+                n *= d
+            ag += n * (dp - 1) / dp
+            n_ag += 1
+    return {**base,
+            "param_allgather_wire_bytes": int(ag),
+            "wire_bytes": int(base["grad_wire_bytes"] + ag),
+            "n_transfers": base["n_transfers"] + n_ag,
+            "exact": False}
+
+
+def spmd_allreduce_wire_bytes(program: Program, dp: int) -> Dict:
+    """The default SPMD pipeline's analytic equivalent: every trainable
+    parameter's gradient rides one f32 all-reduce (ring: 2n(dp-1)/dp)."""
+    total = 0
+    n_grads = 0
+    for b in program.blocks:
+        for v in b.vars.values():
+            if getattr(v, "trainable", False) and v.persistable:
+                n = 1
+                for d in v.shape:
+                    n *= d
+                total += n * 4
+                n_grads += 1
+    grad = 2.0 * total * (dp - 1) / dp
+    return {"grad_wire_bytes": int(grad),
+            "param_allgather_wire_bytes": 0,
+            "wire_bytes": int(grad),
+            "grad_f32_bytes": int(total),
+            "n_transfers": int(n_grads)}
+
+
+# ---------------------------------------------------------------------------
+# op lowerings (execute INSIDE the ParallelExecutor's per-shard region,
+# where the data axis name is bound)
+# ---------------------------------------------------------------------------
+
+@register_op("dp_shard_slice")
+def _dp_shard_slice(ctx, ins, attrs):
+    p = ins["X"][0]
+    i = current_dp_index(attrs["axis"])
+    c = int(attrs["chunk"])
+    return {"Out": [p.narrow(0, i * c, c)]}
+
+
+@register_op("dp_shard_all_gather")
+def _dp_shard_all_gather(ctx, ins, attrs):
+    return {"Out": [C.all_gather(ins["X"][0], attrs["axis"], 0)]}
+
+
+@register_op("dp_grad_comm")
+def _dp_grad_comm(ctx, ins, attrs):
+    """Cross-replica gradient reduction, explicit form. Each input is this
+    rank's gradient; each output is the corresponding slice (sharded path)
+    or full view (bucket path) of the MEAN over the dp ranks — the
+    gradient of the global-batch mean loss when every rank holds an equal
+    batch slice of a local-mean loss (the explicit mode), and the global
+    gradient itself under global-batch semantics (the executor's
+    Reduce mode, whose per-rank gradients average to it)."""
+    axis, dp = attrs["axis"], attrs["dp"]
+    quant, block = attrs["quant"], attrs["block"]
+    use_ef = attrs["error_feedback"]
+    gs = ins["X"]
+    errs = list(ins.get("ErrIn", []))
+    kinds, numels = attrs["kinds"], attrs["numels"]
+    shapes = attrs["shapes"]
+    outs: List = [None] * len(gs)
+    err_outs: List = []
+    ei = 0
+
+    def _take_err():
+        nonlocal ei
+        e = errs[ei]
+        ei += 1
+        return e.reshape(-1)   # this rank's row of the [dp, n] state
+
+    # sharded transfers first, then buckets: the order the pass laid the
+    # error state out in
+    for i, kind in enumerate(kinds):
+        if kind != "sharded":
+            continue
+        flat = gs[i].reshape(-1).to(torch.float32)
+        if use_ef:
+            flat = flat + _take_err()
+        if quant:
+            chunk = C.quantized_reduce_scatter_flat(
+                flat, axis, wire_dtype=quant, block=block, mean=True)
+            if use_ef:
+                err_outs.append(C.quantization_residual_flat(
+                    flat, dp, wire_dtype=quant, block=block)
+                    .reshape(1, -1))
+        else:
+            chunk = C.reduce_scatter(flat, axis, 0) / dp
+        outs[i] = chunk.reshape([shapes[i][0] // dp] + list(shapes[i][1:]))
+
+    for idxs in attrs["buckets"]:
+        flat = torch.cat([gs[i].reshape(-1).to(torch.float32)
+                          for i in idxs])
+        n = flat.shape[0]
+        npad = -(-n // dp) * dp
+        flat = torch.nn.functional.pad(flat, (0, npad - n))
+        if use_ef:
+            flat = flat + _take_err()
+        if quant:
+            full = C.quantized_all_reduce_flat(
+                flat, axis, wire_dtype=quant, block=block, mean=True)
+            if use_ef:
+                err_outs.append(C.quantization_residual_flat(
+                    flat, dp, wire_dtype=quant, block=block)
+                    .reshape(1, -1))
+        else:
+            # float32 without an all-reduce: the reduce-scatter +
+            # all-gather a ring all-reduce is made of, written out so no
+            # gradient rides an all-reduce in ReduceScatter mode
+            part = C.reduce_scatter(flat, axis, 0) / dp
+            full = C.all_gather(part, axis, 0)
+        off = 0
+        for i in idxs:
+            outs[i] = full[off:off + numels[i]].reshape(
+                list(shapes[i]) if shapes[i] else ())
+            off += numels[i]
+
+    return {"Out": outs, "ErrOut": err_outs}
+
+
+# ---------------------------------------------------------------------------
+# static-analysis infer specs (framework/analysis.py): these lowerings run
+# collectives over the dp mesh axis, so the analyzer cannot run them on
+# meta tensors alone — the explicit rules state the same shape
+# contract the lowerings implement.
+# ---------------------------------------------------------------------------
+
+from ..framework.registry import register_infer_spec  # noqa: E402
+
+
+@register_infer_spec("dp_shard_slice")
+def _infer_dp_shard_slice(ictx, in_shapes, in_dtypes, attrs):
+    shape = list(in_shapes["X"][0])
+    shape[0] = int(attrs["chunk"])
+    return {"Out": [(tuple(shape), in_dtypes["X"][0])]}
+
+
+@register_infer_spec("dp_shard_all_gather")
+def _infer_dp_shard_all_gather(ictx, in_shapes, in_dtypes, attrs):
+    # the gathered result restores the full parameter — its declared shape
+    # (the pass rewires Out to the original param name). With no declared
+    # shape the gather factor (dp) is unknowable here: raise rather than
+    # validate the un-gathered shard shape as correct (degrades to an
+    # infer-error warning in infer_program).
+    decl = ictx.declared(ictx.op.outputs["Out"][0]) if ictx else None
+    if decl is None:
+        raise NotImplementedError(
+            "dp_shard_all_gather inference needs the declared Out shape "
+            "(output dim0 is shard dim0 * dp, and dp is not an attr)")
+    return {"Out": [decl]}
+
+
+@register_infer_spec("dp_grad_comm")
+def _infer_dp_grad_comm(ictx, in_shapes, in_dtypes, attrs):
+    dp = max(int(attrs.get("dp", 1)), 1)
+    if not (len(attrs["kinds"]) == len(attrs["shapes"])
+            == len(in_dtypes["X"])):
+        # misaligned plan arrays must not silently truncate via zip — raise
+        # so infer_program degrades to an infer-error diagnostic (the
+        # attr-schema verifier reports the misalignment at error severity)
+        raise ValueError(
+            f"dp_grad_comm plan arrays misaligned: kinds="
+            f"{len(attrs['kinds'])} shapes={len(attrs['shapes'])} "
+            f"X={len(in_dtypes['X'])}")
+    outs = []
+    for kind, shape, dt in zip(attrs["kinds"], attrs["shapes"],
+                               in_dtypes["X"]):
+        shape = [int(d) for d in shape]
+        if kind == "sharded":
+            shape = [shape[0] // dp] + shape[1:]
+        outs.append((tuple(shape), np.dtype("float32")))
+    errs = [(tuple(s), d) for s, d in zip(in_shapes.get("ErrIn", ()),
+                                          in_dtypes.get("ErrIn", ()))]
+    return {"Out": outs, "ErrOut": errs}
+
+
+# ---------------------------------------------------------------------------
+# dataflow effect sets (framework/dataflow.py): the dp gradient pipeline's
+# axis contract, for the collective-deadlock and replica-divergence
+# detectors. dp_grad_comm's per-output consistency (bucket outputs dp-
+# consistent, sharded outputs deliberate dp shards) is a custom transfer
+# in dataflow.divergence_taints — kinds are per-entry, not per-op.
+# ---------------------------------------------------------------------------
+
+from ..framework.registry import register_effects  # noqa: E402
+
+
+@register_effects("dp_grad_comm")
+def _eff_dp_grad_comm(op):
+    return {"collective_axes": (op.attrs.get("axis"),)}
+
+
+@register_effects("dp_shard_slice")
+def _eff_dp_shard_slice(op):
+    # no wire traffic, but the output is this shard's slice — deliberately
+    # dp-varying (the ZeRO-1 local update's input)
+    return {"shards_axes": (op.attrs.get("axis"),)}
+
+
+@register_effects("dp_shard_all_gather")
+def _eff_dp_shard_all_gather(op):
+    a = op.attrs.get("axis")
+    return {"collective_axes": (a,), "resolves_axes": (a,)}

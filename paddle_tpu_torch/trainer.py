@@ -9,8 +9,10 @@ io.save_persistables of the training program: parameters, optimizer
 moments and the learning-rate schedule's step counter, in the JAX
 package's format.
 
-Not ported (ROADMAP.md §1 item 4, multi-GPU parallelism): `parallel=True`
-(the ParallelExecutor), `elastic` and `sharded` checkpoints, and the
+`parallel=True` trains through a ParallelExecutor over the default dp
+mesh (or `mesh=`); every rank of the world builds the Trainer and feeds
+the same global batches. Not ported (ROADMAP.md §1 item 4, elasticity
+and sharded checkpoints): `elastic` and `sharded` checkpoints and the
 `Supervisor` that restarts a preempted run; the trainer also stamps no
 memory series (observability/memory.py waits for the same item).
 """
@@ -34,8 +36,8 @@ from .framework.executor import Executor
 from .framework.program import Program, Variable, program_guard
 from .framework.scope import Scope
 
-_MULTI_GPU = ("{what} is not ported: ROADMAP.md §1 item 4 (multi-GPU "
-              "parallelism)")
+_MULTI_GPU = ("{what} is not ported: ROADMAP.md §1 item 4 (elasticity "
+              "and sharded checkpoints)")
 
 
 class BeginEpochEvent:
@@ -318,9 +320,6 @@ class Trainer:
                  parallel: bool = False,
                  checkpoint_config: Optional[CheckpointConfig] = None,
                  mesh=None):
-        if parallel or mesh is not None:
-            raise NotImplementedError(
-                _MULTI_GPU.format(what="Trainer(parallel=True)"))
         self.checkpoint_cfg = checkpoint_config
         self.place = place
         self.scope = Scope()
@@ -347,6 +346,17 @@ class Trainer:
 
         self.exe = Executor(place)
         self.exe.run(self.startup_program, scope=self.scope)
+        self._pe = None
+        if parallel or mesh is not None:
+            # the JAX package calls DeviceMesh.default_data_parallel(),
+            # which its mesh module never defines (AttributeError); the
+            # port takes the default dp mesh that call means (ROADMAP.md
+            # §3, deliberate differences)
+            from .parallel import ParallelExecutor, get_default_mesh
+            self._pe = ParallelExecutor(
+                use_cuda=self.exe.device.type == "cuda",
+                loss_name=self.loss.name, mesh=mesh or get_default_mesh(),
+                main_program=self.train_program, scope=self.scope)
         if self.checkpoint_cfg:
             args = load_checkpoint(self.exe,
                                    self.checkpoint_cfg.checkpoint_dir,
@@ -392,8 +402,12 @@ class Trainer:
                     if begin.fetch_metrics else []
                 feed = feeder.feed(batch)
                 t_step = _perf_counter()
-                metrics = self.exe.run(self.train_program, feed=feed,
-                                       fetch_list=fetch, scope=self.scope)
+                if self._pe is not None:
+                    metrics = self._pe.run(feed=feed, fetch_list=fetch)
+                else:
+                    metrics = self.exe.run(self.train_program, feed=feed,
+                                           fetch_list=fetch,
+                                           scope=self.scope)
                 tm["steps"].inc()
                 tm["step_seconds"].observe(_perf_counter() - t_step)
                 event_handler(EndStepEvent(epoch_id, step_id, metrics))

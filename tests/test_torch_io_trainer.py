@@ -371,8 +371,6 @@ def test_unported_paths_raise_naming_the_roadmap(tmp_path):
         ptt.CheckpointConfig(str(tmp_path), sharded=True)
     with pytest.raises(NotImplementedError, match=r"§1 item 4"):
         ptt.CheckpointConfig(str(tmp_path), elastic=True)
-    with pytest.raises(NotImplementedError, match=r"§1 item 4"):
-        ptt.Trainer(lambda: None, lambda: None, parallel=True)
     main, exe, scope, _, logits = _trained_port(steps=1)
     with pytest.raises(NotImplementedError, match=r"§1 item 4"):
         ptt.io.save_inference_model(str(tmp_path), ["x"], [logits],

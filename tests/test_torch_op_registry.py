@@ -32,10 +32,18 @@ NOT_LAYERS = {"ConstantInitializer", "InvalidArgumentError", "LayerHelper",
 WAITING_LAYERS = set()
 
 
+# ops of the JAX package's parallel package that wait, with their item:
+# the pipeline schedule's boundary ops and region
+WAITING_OPS = {"pp_send", "pp_recv", "pp_pipeline_region"}
+
+
 def test_port_registers_exactly_the_jax_ops():
-    """In a fresh interpreter: other tests in the same process register
-    ops of their own, or import JAX modules that register more."""
-    code = ("import json, paddle_tpu as pt, paddle_tpu_torch as ptt; "
+    """In a fresh interpreter that imports both packages and both
+    `parallel` packages (each registers its ops on import): other tests
+    in the same process register ops of their own, or import JAX modules
+    that register more."""
+    code = ("import json, paddle_tpu as pt, paddle_tpu.parallel, "
+            "paddle_tpu_torch as ptt, paddle_tpu_torch.parallel; "
             "print(json.dumps([pt.registered_ops(), "
             "ptt.registered_ops()]))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -43,9 +51,10 @@ def test_port_registers_exactly_the_jax_ops():
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr[-2000:]
     jops, tops = (set(x) for x in json.loads(out.stdout.splitlines()[-1]))
-    assert sorted(jops - tops) == [], "ops the port does not lower"
+    assert sorted(jops - tops) == sorted(WAITING_OPS), \
+        "ops the port does not lower"
     assert sorted(tops - jops) == [], "ops only the port registers"
-    assert len(tops) == len(jops) == 229
+    assert len(jops) == 240 and len(tops) == 237
 
 
 def test_port_layers_have_every_jax_layer():
@@ -84,23 +93,29 @@ RENAMED = {"TPUPlace": "CUDAPlace", "is_compiled_with_tpu":
 EXCLUDED = {"paddle_tpu.data.download", "paddle_tpu.data.md5file"}
 _ITEM4 = "ROADMAP.md §1 item 4: "
 _MULTI = _ITEM4 + "multi-GPU parallelism"
+_PIPE = _ITEM4 + "pipeline parallelism"
+_AUTO = _ITEM4 + "the auto-parallel planner and the collective census"
+_ELASTIC = _ITEM4 + "elasticity and sharded checkpoints"
 _ANALYSIS = _ITEM4 + "analysis, planning and observability"
 _TRANSPILER = _ITEM4 + "transpiler/"
 _HOST = _ITEM4 + "host-side utilities"
 # API.spec prefixes (a path and everything under it) still to be ported,
 # each with the ROADMAP item that takes it
 WAITING = {
-    "paddle_tpu.parallel": _MULTI,
-    "paddle_tpu.distributed": _MULTI,
-    "paddle_tpu.observability.rank_scope": _MULTI,
-    "paddle_tpu.observability.tracing.rank_scope": _MULTI,
-    "paddle_tpu.framework.auto_parallel": _MULTI,
-    "paddle_tpu.framework.sharding": _MULTI,
-    # the XLA HLO-text parsers: the multi-GPU part reads the collectives'
-    # census from NCCL's kernels instead
-    **{f"paddle_tpu.framework.costs.{n}": _MULTI
+    "paddle_tpu.parallel.pipeline": _PIPE,
+    "paddle_tpu.framework.auto_parallel": _AUTO,
+    # the XLA HLO-text parsers: the census is to be read from NCCL's
+    # kernels instead
+    **{f"paddle_tpu.framework.costs.{n}": _AUTO
        for n in ("collective_census", "hlo_liveness_temp_bytes",
                  "hlo_shape_bytes")},
+    "paddle_tpu.parallel.elastic": _ELASTIC,
+    "paddle_tpu.parallel.reshard": _ELASTIC,
+    "paddle_tpu.parallel.process_world": _ELASTIC,
+    "paddle_tpu.parallel.ProcessWorld": _ELASTIC,
+    **{f"paddle_tpu.distributed.{n}": _ELASTIC
+       for n in ("Master", "MasterClient", "ElasticTrainer",
+                 "FailureDetector", "PreemptionGuard")},
     **{f"paddle_tpu.transpiler.{n}": _TRANSPILER
        for n in ("DistributeTranspiler", "DistributeTranspilerConfig",
                  "HashName", "InferenceTranspiler", "PSDispatcher",
