@@ -7707,6 +7707,488 @@ def parallel_train_and_ring(ptt, kernels):
     ring = _ring_one_process(ptt, kernels)
     return {"spawn_s": spawn_s, "ranks": ranks, "ring": ring}
 
+# ---------------------------------------------------------------------------
+# phase 43: pipeline-parallel training of phase 7's LM and the planner
+# ---------------------------------------------------------------------------
+
+#: (label, stages K, microbatches M, schedule) of phase 43(a)'s runs
+PIPE_RUNS = (("k2_gpipe", 2, 4, "gpipe"), ("k2_1f1b", 2, 4, "1f1b"),
+             ("k4_1f1b", 4, 8, "1f1b"))
+#: the planner's device counts in phase 43(c)
+PLAN_DEVICES = (1, 4, 8)
+
+
+def _lm_steps_feeds(cfg, steps, seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b, t = cfg["batch"], cfg["max_len"]
+    out = []
+    for _ in range(steps):
+        toks = _markov_tokens(rng, b, t + 1, cfg["vocab"])
+        out.append({"tokens": toks[:, :-1].copy(),
+                    "tokens@SEQLEN": np.full((b,), t, "int32"),
+                    "targets": toks[:, 1:].copy()})
+    return out
+
+
+class _PlainAdam:
+    """Phase 7's LM at full width in float32 trained `steps` Adam steps by
+    the plain Executor from one init: the reference each pipelined run is
+    held to by `_adam_parity` (the gradients of every step through Adam's
+    first moments, the parameters after the first and the last step)."""
+
+    def __init__(self, ptt, place, cfg, feeds):
+        import torch
+        self.ptt, self.place, self.cfg, self.feeds = ptt, place, cfg, feeds
+        self.main, start, self.loss = _train_program(ptt, cfg,
+                                                     mean_loss=True)
+        sc = ptt.Scope()
+        ptt.Executor(place).run(start, scope=sc)
+        self.init = {n: sc.get(n).clone() for n in sc.local_var_names()}
+        del sc
+        self.names = [p.name for p in self.main.all_parameters()]
+        self.m1_of = {v.accumulator_of: v.name
+                      for v in self.main.global_block().vars.values()
+                      if getattr(v, "accumulator_of", None) in self.names
+                      and "_moment1_acc" in v.name}
+        steps = len(feeds)
+        sc = self.scope()
+        exe = ptt.Executor(place)
+        fetch = [self.loss] + [n + "@GRAD" for n in self.names]
+        self.g, self.m1, self.p1 = (_Snapshots(steps), _Snapshots(steps),
+                                    _Snapshots(1))
+
+        def after(out):
+            for g in self.g(dict(zip(self.names, out[1:]))).values():
+                g.abs_()
+            self._after(sc, self.m1, self.p1)
+        self.losses, self.secs = self.steps(
+            lambda f: exe.run(self.main, feed=f, fetch_list=fetch,
+                              scope=sc, return_numpy=False), after)
+        self.params = {n: sc.get(n).clone() for n in self.names}
+        del sc, exe
+        torch.cuda.empty_cache()
+
+    def scope(self):
+        sc = self.ptt.Scope()
+        for n, v in self.init.items():
+            sc.set_var(n, v.clone())
+        return sc
+
+    def _after(self, sc, m1, p1):
+        m1({n: sc.get(self.m1_of[n]) for n in self.names})
+        if not p1.steps:
+            p1({n: sc.get(n) for n in self.names})
+
+    def steps(self, run, after):
+        import numpy as np
+        import torch
+        losses, secs = [], []
+        for f in self.feeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(f)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            x = out[0]
+            losses.append(float(x.reshape(-1)[0]) if torch.is_tensor(x)
+                          else float(np.asarray(x).ravel()[0]))
+            after(out)
+        return losses, secs
+
+    def parity(self, sc, m1, p1, mesh=None, place=None):
+        """`_adam_parity` of a run's state against the plain one, and the
+        checks phase 42 makes of it (float32)."""
+        par = _adam_parity(self.names, self.m1_of, self.params,
+                           self.g.steps, self.m1.steps, self.p1.steps[0],
+                           {n: sc.get(n) for n in self.names}, m1.steps,
+                           p1.steps[0], self.cfg["lr"], mesh, place)
+        steps = len(self.feeds)
+        return par, [("first_step_params", par["p1_beyond"] == 0),
+                     ("params", par["beyond_settled"] == 0),
+                     ("grads", par["g_norm_rel"][0] <= F32_G_NORM),
+                     ("adam_move", par["worst"] <= 2 * self.cfg["lr"]
+                      * steps + 1e-5)]
+
+
+def _pipeline_tables(prog, rows):
+    """(schedule census, per-stage live transfers) of a partitioned
+    program at `rows` rows a microbatch, read off the tick tables."""
+    from paddle_tpu_torch.parallel import pipeline
+    region = next(op for op in prog.global_block().ops
+                  if op.type == "pp_pipeline_region")
+    a = region.attrs
+    sched = pipeline.build_schedule(a["schedule"], a["num_microbatches"],
+                                    a["num_stages"])
+    return (pipeline.schedule_census(a["schedule"], a["num_microbatches"],
+                                     a["num_stages"]),
+            pipeline.pp_live_transfers(
+                sched, pipeline.cut_numels(prog.global_block(), rows)))
+
+
+def _pipeline_one_card(ptt, kernels, plain):
+    """Phase 43(a): the partitioned LM through the one-process engine
+    (every stage on this card, the tables' stashes, recompute and
+    accumulation), at K 2 / M 4 under gpipe and 1f1b and K 4 / M 8 under
+    1f1b, 3 Adam steps each from the plain run's init."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.framework.passes import get_pass
+    from paddle_tpu_torch.parallel import pipeline
+    cfg, place = plain.cfg, plain.place
+    L = cfg["num_layers"]
+    steps = len(plain.feeds)
+    out, failed = {}, []
+    for label, k, m, schedule in PIPE_RUNS:
+        prog = get_pass("pipeline_partition_pass", num_stages=k,
+                        num_microbatches=m, schedule=schedule, dp_axis="",
+                        reduce_dp=False)(plain.main)
+        region = next(op for op in prog.global_block().ops
+                      if op.type == "pp_pipeline_region")
+        census, live = _pipeline_tables(prog, cfg["batch"] // m)
+        sc = plain.scope()
+        exe = ptt.Executor(place)
+        m1, p1 = _Snapshots(steps), _Snapshots(1)
+        peaks, moved = [], []
+
+        def after(_out):
+            plain._after(sc, m1, p1)
+            peaks.append(list(pipeline.LAST_STEP["peak_stash_per_stage"]))
+            moved.append(pipeline.LAST_STEP["moved_bytes"])
+        kernels.reset_launch_counts()
+        losses, secs = plain.steps(
+            lambda f: pipeline.run_one_process(
+                exe, prog, feed=f, fetch_list=[plain.loss], scope=sc,
+                return_numpy=False), after)
+        launches = {kk: kernels.LAUNCHES[kk] for kk in FLASH}
+        par, checks = plain.parity(sc, m1, p1)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain.losses))
+        tables_bytes = sum(x["send_bytes"] for x in live)
+        want = {"flash_fwd": 2 * L * m * steps,
+                "flash_bwd_dq": L * m * steps,
+                "flash_bwd_dkv": L * m * steps}
+        checks += [("loss", rel <= 1e-5),
+                   ("peak_stash", all(p == census["peak_stash_per_stage"]
+                                      for p in peaks)),
+                   ("boundary_bytes", all(b == tables_bytes
+                                          for b in moved))]
+        checks += [(f"launches {kk}", launches[kk] == want[kk])
+                   for kk in FLASH]
+        out[label] = {
+            "stages": k, "microbatches": m, "schedule": schedule,
+            "stage_ops": [len(s) for s in region.attrs["stages"]],
+            "cuts": [op.inputs["X"] for op in prog.global_block().ops
+                     if op.type == "pp_send"],
+            "losses": losses, "max_loss_rel": rel, "parity": par,
+            "step_ms": float(np.median(secs[1:]) * 1e3),
+            "step_ms_all": [x * 1e3 for x in secs],
+            "launches_per_step": {kk: launches[kk] / steps for kk in FLASH},
+            "launches_expected_per_step": {kk: want[kk] / steps
+                                           for kk in FLASH},
+            "peak_stash_per_stage": peaks[-1],
+            "census_peak_stash_per_stage": census["peak_stash_per_stage"],
+            "boundary_bytes_per_step": moved[-1],
+            "tables_boundary_bytes_per_step": tables_bytes,
+            "jax_engine_boundary_bytes_per_step": pipeline.
+            pp_boundary_wire_bytes(prog, cfg["batch"] // m)[
+                "pp_boundary_bytes"],
+            "bubble_fraction": census["bubble_fraction"],
+            "failed": [c for c, ok in checks if not ok],
+        }
+        failed += [(label, c) for c, ok in checks if not ok]
+        del exe, sc, m1, p1
+        torch.cuda.empty_cache()
+    return out, failed
+
+
+def phase43_rank(rank, world, out_path):
+    """One rank of phase 43(b)-(c)'s NCCL world over every visible card
+    (two or more): pp = world through ParallelExecutor, and at four cards
+    dp 2 x pp 2 under AllReduce and ReduceScatter, then
+    `BuildStrategy.auto_parallel`; each 3 Adam steps held against the
+    plain Executor on this card as phase 43(a) holds its runs, and one
+    profiled step's measured census held to the engine's tables (the
+    point-to-point sends) and to `costs.predicted_wire_bytes`. Writes the
+    rank's numbers to out_path.<rank> and prints them; any mismatch then
+    raises."""
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.framework import costs
+    from paddle_tpu_torch.parallel import (BuildStrategy, DeviceMesh,
+                                           ParallelExecutor, ReduceStrategy,
+                                           pipeline)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    kernels.build(["flash_attention"])
+    place = ptt.CUDAPlace(torch.cuda.current_device())
+    cfg = TRAIN
+    plain = _PlainAdam(ptt, place, cfg,
+                       _lm_steps_feeds(cfg, PARALLEL_STEPS, SEED + 43))
+    modes = [(f"pp{world}", {"pp": world}, 2 * world, "AllReduce")]
+    if world == 4:
+        modes += [("dp2pp2_allreduce", {"dp": 2, "pp": 2}, 4, "AllReduce"),
+                  ("dp2pp2_reduce_scatter", {"dp": 2, "pp": 2}, 4,
+                   "ReduceScatter")]
+    meshes = {label: DeviceMesh(axes=axes) for label, axes, _, _ in modes}
+    res = {"world": world, "rank": rank,
+           "plain": {"losses": plain.losses, "step_ms": float(
+               sorted(plain.secs[1:])[len(plain.secs[1:]) // 2] * 1e3)}}
+    failed = []
+    runs = [(label, meshes[label], BuildStrategy(
+        pipeline_stages=axes["pp"], num_microbatches=m,
+        pipeline_schedule="1f1b",
+        reduce_strategy=getattr(ReduceStrategy, mode)))
+        for label, axes, m, mode in modes]
+    runs.append(("auto_parallel", DeviceMesh(axes={"dp": world}),
+                 BuildStrategy(auto_parallel=True)))
+    for label, mesh, bst in runs:
+        m_, _, lo = _train_program(ptt, cfg, mean_loss=True)
+        sc = plain.scope()
+        pe = ParallelExecutor(use_cuda=True, loss_name=lo.name,
+                              main_program=m_, scope=sc, mesh=mesh,
+                              build_strategy=bst)
+        m1, p1 = _Snapshots(PARALLEL_STEPS), _Snapshots(1)
+        kernels.reset_launch_counts()
+        losses, secs = plain.steps(
+            lambda f: pe.run(fetch_list=[lo], feed=f),
+            lambda _o: plain._after(sc, m1, p1))
+        launches = {k: kernels.LAUNCHES[k] for k in FLASH}
+        prog = pe.prepare_program()
+        par, checks = plain.parity(
+            sc, m1, p1, pe.mesh, lambda n: pe.state_sharding(prog, n))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain.losses))
+        checks.append(("loss", rel <= 1e-5))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU],
+                record_shapes=True) as prof:
+            pe.run(fetch_list=[lo], feed=plain.feeds[0])
+            torch.cuda.synchronize()
+        r = {"mesh": dict(pe.mesh.axes), "losses": losses,
+             "max_loss_rel": rel, "parity": par,
+             "step_ms": float(sorted(secs[1:])[len(secs[1:]) // 2] * 1e3),
+             "launches": launches}
+        try:
+            census = costs.measured_collective_census(prof)
+        except ValueError as e:
+            # the events the census could not read, for the log
+            r["census_error"] = str(e)
+            r["comm_events"] = [
+                [e.name(), str(e.shapes()), str(e.dtypes()),
+                 str(e.extra_meta() if hasattr(e, "extra_meta") else "")]
+                for e in prof.profiler.kineto_results.events()
+                if e.name().startswith(("c10d::", "nccl:", "gloo:"))
+                or e.name() == "record_param_comms"][:80]
+            census = {}
+        sends = census.pop("collective-permute", [])
+        n = max(pe.mesh.axis_size(a) for a in pe.mesh.axes)
+        wire = costs.census_wire_bytes(census, n, min_bytes=16)
+        predicted = costs.predicted_wire_bytes(
+            pe.cost_report(nominal_batch=cfg["batch"]))
+        checks += [("census", "census_error" not in r),
+                   ("census_wire", abs(wire - predicted) <= 1.0)]
+        r.update(census_wire_bytes=wire, predicted_wire_bytes=predicted,
+                 p2p_sends=[len(sends), sum(b for b, _ in sends)])
+        if getattr(prog, "_pp_applied", False):
+            census_pp, live = _pipeline_tables(
+                prog, cfg["batch"] // pe.mesh.axis_size("dp")
+                // prog._pp_microbatches)
+            k = pe.mesh.axis_index("pp")
+            r["tables_sends"] = [live[k]["sends"], live[k]["send_bytes"]]
+            r["peak_stash"] = pipeline.LAST_STEP["peak_stash_per_stage"]
+            checks += [("p2p_sends", r["p2p_sends"] == r["tables_sends"]),
+                       ("peak_stash", r["peak_stash"] == [
+                           census_pp["peak_stash_per_stage"][k]])]
+        if label == "auto_parallel":
+            r["chosen"] = pe.auto_plan_report().point.describe()
+        r["failed"] = [c for c, ok in checks if not ok]
+        failed += [(label, c) for c, ok in checks if not ok]
+        res[label] = r
+        del pe, sc, m1, p1
+        torch.cuda.empty_cache()
+    print("phase43 rank", rank, json.dumps(res), flush=True)
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(res, f)
+    assert not failed, failed
+
+
+def _plan_on_one_card(ptt, kernels, plain):
+    """Phase 43(c) on one card: the planner prices phase 7's LM for 1, 4
+    and 8 devices; `ParallelExecutor(auto_parallel=True)` on this card (a
+    mesh of one rank) adopts its plan and trains 3 steps held against the
+    plain Executor, and one profiled step's measured census is held to the
+    adopted strategy's `predicted_wire_bytes`."""
+    import torch
+
+    from paddle_tpu_torch.framework import auto_parallel, costs
+    from paddle_tpu_torch.parallel import (BuildStrategy, DeviceMesh,
+                                           ParallelExecutor)
+    cfg = plain.cfg
+    out, failed = {"plans": {}}, []
+    for n in PLAN_DEVICES:
+        t0 = time.perf_counter()
+        r = auto_parallel.plan(plain.main, n, nominal_batch=cfg["batch"])
+        out["plans"][n] = {"chosen": r.point.describe(),
+                           "mesh_axes": r.mesh_axes,
+                           "predicted_step_ms": r.predicted_step_s * 1e3,
+                           "device_bytes": r.device_bytes,
+                           "n_enumerated": r.n_enumerated,
+                           "n_feasible": r.n_feasible,
+                           "rejections": r.rejections,
+                           "search_s": time.perf_counter() - t0}
+    m_, _, lo = _train_program(ptt, cfg, mean_loss=True)
+    sc = plain.scope()
+    pe = ParallelExecutor(use_cuda=True, loss_name=lo.name, main_program=m_,
+                          scope=sc, mesh=DeviceMesh(axes={"dp": 1}),
+                          build_strategy=BuildStrategy(auto_parallel=True))
+    m1, p1 = _Snapshots(PARALLEL_STEPS), _Snapshots(1)
+    kernels.reset_launch_counts()
+    losses, secs = plain.steps(lambda f: pe.run(fetch_list=[lo], feed=f),
+                               lambda _o: plain._after(sc, m1, p1))
+    launches = {k: kernels.LAUNCHES[k] for k in FLASH}
+    par, checks = plain.parity(sc, m1, p1)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain.losses))
+    checks.append(("loss", rel <= 1e-5))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as prof:
+        pe.run(fetch_list=[lo], feed=plain.feeds[0])
+        torch.cuda.synchronize()
+    census = costs.measured_collective_census(prof)
+    wire = costs.census_wire_bytes(census, 1, min_bytes=16)
+    predicted = costs.predicted_wire_bytes(
+        pe.cost_report(nominal_batch=cfg["batch"]))
+    checks.append(("census_wire", abs(wire - predicted) <= 1.0))
+    checks += [(f"launches {k}", launches[k] > 0) for k in FLASH]
+    out["adopted"] = {
+        "chosen": pe.auto_plan_report().point.describe(),
+        "mesh": dict(pe.mesh.axes), "losses": losses, "max_loss_rel": rel,
+        "parity": par, "launches": launches,
+        "step_ms": float(sorted(secs[1:])[len(secs[1:]) // 2] * 1e3),
+        "census": {k: len(v) for k, v in census.items()},
+        "census_wire_bytes": wire, "predicted_wire_bytes": predicted,
+        "failed": [c for c, ok in checks if not ok]}
+    failed += [("auto_parallel", c) for c, ok in checks if not ok]
+    del pe, sc
+    torch.cuda.empty_cache()
+    return out, failed
+
+
+def pipeline_train_and_plan(ptt, kernels):
+    """Phase 43: (a) the pipelined LM on this card in one process; (b) a
+    world over every visible card through ParallelExecutor (pp = world,
+    dp 2 x pp 2 at four cards), or, on one card, pp 2 refused with the
+    JAX package's mesh-size error; (c) the planner and its adoption."""
+    import torch
+
+    from paddle_tpu_torch.core.enforce import InvalidArgumentError
+    from paddle_tpu_torch.parallel import (BuildStrategy, DeviceMesh,
+                                           ParallelExecutor)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    old = ptt.flags.get_flag("use_bf16_matmul")
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    try:
+        place = ptt.CUDAPlace(0)
+        cfg = TRAIN
+        t0 = time.perf_counter()
+        plain = _PlainAdam(ptt, place, cfg,
+                           _lm_steps_feeds(cfg, PARALLEL_STEPS, SEED + 43))
+        out = {"plain": {"losses": plain.losses,
+                         "step_ms": float(sorted(plain.secs[1:])[
+                             len(plain.secs[1:]) // 2] * 1e3)}}
+        runs, failed = _pipeline_one_card(ptt, kernels, plain)
+        out["one_card"] = runs
+        for label, r in runs.items():
+            par = r["parity"]
+            log(f"  (a) [{label}] stages of {r['stage_ops']} ops, cuts "
+                f"{r['cuts']}; losses {r['losses']} (plain "
+                f"{plain.losses}, largest relative difference "
+                f"{r['max_loss_rel']:.2e}); gradients by step, the largest "
+                f"||Δg|| / ||g|| {_fmt(par['g_norm_rel'])}; parameters: "
+                f"after the first step {par['p1_beyond']} past Adam's move, "
+                f"after the last largest difference {par['worst']:.2e}, "
+                f"beyond and not near {par['beyond_settled']}; K1-K3 a step "
+                f"{r['launches_per_step']} (2·L·M / L·M: "
+                f"{r['launches_expected_per_step']}); peak stash "
+                f"{r['peak_stash_per_stage']} (census "
+                f"{r['census_peak_stash_per_stage']}); boundary bytes a step "
+                f"{r['boundary_bytes_per_step']} (tables "
+                f"{r['tables_boundary_bytes_per_step']}; the JAX engine's "
+                f"every-tick shifts {r['jax_engine_boundary_bytes_per_step']})"
+                f"; step {r['step_ms']:.1f} ms (plain "
+                f"{out['plain']['step_ms']:.1f}); failed {r['failed']}")
+        world = torch.cuda.device_count()
+        if world >= 2:
+            root = tempfile.mkdtemp(prefix="chip_smoke_pp_world_")
+            try:
+                ptt.distributed.launch(
+                    f"{os.path.abspath(__file__)}:phase43_rank", world,
+                    args=[os.path.join(root, "rank")], place="cuda",
+                    timeout_s=300, store_dir=root)
+                ranks = []
+                for r in range(world):
+                    with open(os.path.join(root, f"rank.{r}")) as f:
+                        ranks.append(json.load(f))
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            out["world"] = ranks
+            for label, r in ranks[0].items():
+                if isinstance(r, dict) and "parity" in r:
+                    log(f"  (b) [{label}] mesh {r['mesh']}: losses "
+                        f"{r['losses']} (largest relative difference "
+                        f"{r['max_loss_rel']:.2e}); gradients ||Δg|| / ||g||"
+                        f" {_fmt(r['parity']['g_norm_rel'])}; census wire "
+                        f"{r['census_wire_bytes']} (predicted "
+                        f"{r['predicted_wire_bytes']}); p2p sends "
+                        f"{r['p2p_sends']} (tables "
+                        f"{r.get('tables_sends')}); step {r['step_ms']:.1f} "
+                        f"ms; {r.get('chosen', '')}")
+        else:
+            m_, _, lo = _train_program(ptt, cfg, mean_loss=True)
+            pe = ParallelExecutor(
+                use_cuda=True, loss_name=lo.name, main_program=m_,
+                scope=plain.scope(), mesh=DeviceMesh(axes={"dp": 1}),
+                build_strategy=BuildStrategy(pipeline_stages=2,
+                                             num_microbatches=4))
+            try:
+                pe.run(fetch_list=[lo], feed=plain.feeds[0])
+                refused = ""
+            except InvalidArgumentError as e:
+                refused = str(e)
+            want = ("BuildStrategy.pipeline_stages=2 needs a 'pp' mesh axis "
+                    "of exactly that size; this mesh has axes {'dp': 1}")
+            out["refused"] = refused
+            log(f"  (b) one card: pp 2 on a world of one refused: "
+                f"{refused!r}")
+            if refused != want:
+                failed.append(("one_card_refusal", refused))
+        plans, plan_failed = _plan_on_one_card(ptt, kernels, plain)
+        failed += plan_failed
+        out["planner"] = plans
+        for n, p in plans["plans"].items():
+            log(f"  (c) plan for {n} device(s): {p['chosen']} "
+                f"{p['mesh_axes']}, predicted {p['predicted_step_ms']:.3f} "
+                f"ms, {p['device_bytes'] / 2**30:.2f} GiB a device, "
+                f"{p['n_feasible']} of {p['n_enumerated']} points feasible, "
+                f"rejections {p['rejections']}, {p['search_s']:.1f} s")
+        a = plans["adopted"]
+        log(f"  (c) adopted on this card: {a['chosen']} {a['mesh']}; losses "
+            f"{a['losses']} (largest relative difference "
+            f"{a['max_loss_rel']:.2e}); census {a['census']}, wire "
+            f"{a['census_wire_bytes']} (predicted "
+            f"{a['predicted_wire_bytes']}); failed {a['failed']}")
+        out["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 43 in {out['phase_s']:.1f} s")
+        assert not failed, f"phase 43: {failed}"
+        return out
+    finally:
+        ptt.flags.set_flag("use_bf16_matmul", old)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7984,6 +8466,12 @@ def main():
            "over NCCL (AllReduce, ZeRO-1, ReduceScatter int8, tp), and the "
            "ring schedule over K1-K3")
     paths["parallel"] = parallel_train_and_ring(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    _phase("phase 43: pipeline-parallel training of phase 7's LM (the "
+           "one-process engine at K 2 and 4, a world over the cards, the "
+           "refusal on one) and the auto-parallel planner")
+    paths["pipeline"] = pipeline_train_and_plan(ptt, kernels)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -8060,6 +8548,14 @@ def main():
                 paths["parallel"]["ranks"][0][mode]["launches"][k]
     results["flash_fwd"]["launches_phase42_ring"] = \
         paths["parallel"]["ring"]["lm"]["k1_launches"]
+    # phase 43: K1-K3 a step of each pipelined run (one process, float32:
+    # K1 twice a layer a microbatch, the backward's recompute included)
+    for label, run in paths["pipeline"]["one_card"].items():
+        for k in FLASH:
+            results[k][f"launches_per_step_phase43_{label}"] = \
+                run["launches_per_step"][k]
+            assert run["launches_per_step"][k] > 0, \
+                f"{k} was never launched on phase 43's {label} path"
     # generation (phases 38-39): K4 in every decode step of both
     # generators, K1 in the encoder-decoder's encoder
     results["decode_attention"]["launches_generate"] = \

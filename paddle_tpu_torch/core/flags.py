@@ -110,6 +110,19 @@ define_int("sparse_dense_apply_max_bytes", 1 << 30,
            "merged-rows path (sort, merge, and an in-place index_copy_ of "
            "the distinct rows). Both give the same lazy semantics. Set 0 to "
            "take the merged-rows path at any size.")
+define_bool("pipeline", True,
+            "Allow the program-level pipeline-parallel executor mode when "
+            "the BuildStrategy requests it (pipeline_stages >= 2). Kill "
+            "switch: PTPU_PIPELINE=0 runs the program unpartitioned "
+            "(replicated over the pp axis). Read when ParallelExecutor "
+            "prepares a program (parallel/pipeline.py pipeline_config).")
+define_bool("auto_parallel", True,
+            "Allow the auto-parallel planner (framework/auto_parallel.py) "
+            "when the BuildStrategy requests it (auto_parallel=True): "
+            "cost-model-guided search over the dp x pp x tp strategy "
+            "space that chooses ParallelExecutor's BuildStrategy knobs and "
+            "mesh factorization. Kill switch: PTPU_AUTO_PARALLEL=0 runs "
+            "the user's strategy and mesh untouched.")
 define_bool("tp_shard", True,
             "Allow the static sharding-propagation rewrite (framework/"
             "sharding.py tp_shard_pass) that makes tp-annotated parameters "

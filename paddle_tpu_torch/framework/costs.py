@@ -12,11 +12,11 @@ three things:
   float64 (ROADMAP.md §3), where the JAX package with x64 off narrows
   them to 32-bit;
 - the three parsers of XLA's HLO text (`hlo_shape_bytes`,
-  `collective_census`, `hlo_liveness_temp_bytes`) have no input here: they
-  wait with the multi-GPU part of ROADMAP.md §1 item 4, where the census is
-  read from NCCL's kernels. So do the multi-device rewrites (tp, explicit
-  dp comm, pipeline) that `predict` and `strategy_is_feasible` price when a
-  program carries them: a program with their markers is refused.
+  `collective_census`, `hlo_liveness_temp_bytes`) are the JAX package's
+  pure text functions; the port compiles no HLO, so its own census of a
+  step is `measured_collective_census`, read from torch.profiler's c10d
+  collective and point-to-point events (NCCL on the cards, gloo on the
+  CPU) into the same {kind: [(bytes, label)]} form.
 
 Accounting disciplines (as in the JAX package):
 
@@ -30,7 +30,8 @@ Accounting disciplines (as in the JAX package):
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import re
+from typing import Dict, List, Optional, Tuple
 
 from ..core.dtypes import convert_dtype
 from ..core.enforce import enforce
@@ -65,6 +66,77 @@ H100_PCIE_BPS = 12.33e9
 #: planner prices recompute with it (`op_step_cost`); the roofline does
 #: not read it. 0 gives the JAX package's compiled-step prices.
 H100_HOST_OP_S = 129e-6
+
+# dtype byte widths for parsing XLA shape strings — the ONE copy shared by
+# the probes (probe_caps) and the comm-structure tests. Covers every XLA
+# scalar type that can appear in a typed shape (ADVICE r5 #4); an
+# unrecognized typed-shape token RAISES instead of silently counting 0
+# bytes (which would let byte-balance assertions pass/fail misleadingly
+# if dtypes drift).
+HLO_ITEM_BYTES = {"pred": 1,
+                  "s2": 1, "u2": 1, "s4": 1, "u4": 1,     # sub-byte types
+                  "s8": 1, "u8": 1, "s16": 2, "u16": 2,   # pack >= 1 byte
+                  "s32": 4, "u32": 4, "s64": 8, "u64": 8,
+                  "f8e4m3": 1, "f8e4m3fn": 1, "f8e4m3b11fnuz": 1,
+                  "f8e4m3fnuz": 1, "f8e5m2": 1, "f8e5m2fnuz": 1,
+                  "f8e3m4": 1, "f8e8m0fnu": 1,
+                  "bf16": 2, "f16": 2, "f32": 4, "f64": 8,
+                  "c64": 8, "c128": 16}
+
+# typed-shape tokens that are legitimately byte-free
+_HLO_ZERO_BYTE_TYPES = frozenset({"token", "opaque"})
+
+
+def hlo_shape_bytes(sh: str) -> int:
+    """Total bytes of every typed array in one HLO shape string (tuple
+    shapes sum their elements). Raises on a typed-shape token whose
+    element type is not in HLO_ITEM_BYTES."""
+    total = 0
+    matched_any = False
+    for m in re.finditer(r"([a-zA-Z][a-zA-Z0-9]*)\[([0-9,]*)\]", sh):
+        matched_any = True
+        dtype = m.group(1)
+        if dtype in _HLO_ZERO_BYTE_TYPES:
+            continue
+        if dtype not in HLO_ITEM_BYTES:
+            raise ValueError(
+                f"hlo_shape_bytes: unrecognized element type {dtype!r} in "
+                f"shape string {sh!r}; add it to HLO_ITEM_BYTES")
+        n = 1
+        for d in m.group(2).split(","):
+            if d:
+                n *= int(d)
+        total += n * HLO_ITEM_BYTES[dtype]
+    if not matched_any and "[" in sh:
+        raise ValueError(
+            f"hlo_shape_bytes: no typed shape recognized in {sh!r} "
+            f"(dynamic dims or unexpected syntax?)")
+    return total
+
+
+def collective_census(hlo: str) -> Dict[str, list]:
+    """{kind: [(output_bytes, line)]} for every collective instruction in a
+    compiled (per-device) HLO module. Async pairs are counted once, at the
+    -start; tuple-shaped outputs (all-to-all emits one operand per peer,
+    with /*index=N*/ comments past 5 elements) sum their elements."""
+    out: Dict[str, list] = {}
+    for line in hlo.splitlines():
+        # tuple shapes may nest one paren level INSIDE the tuple: TPU
+        # layouts print as {1,0:T(8,128)} — [^()] alone would stop there
+        # and silently drop the instruction from the census
+        m = re.match(
+            r"\s*(?:ROOT )?%?[\w.\-]+ = "
+            r"(\((?:[^()]|\([^()]*\))*\)|\S+)\s+"
+            r"(all-reduce|reduce-scatter|all-gather|collective-permute|"
+            r"all-to-all)(-start|-done)?\(", line)
+        if not m:
+            continue
+        if m.group(3) == "-done":
+            continue
+        kind = m.group(2)
+        out.setdefault(kind, []).append((hlo_shape_bytes(m.group(1)), line))
+    return out
+
 
 # Per-device bytes each collective puts on the interconnect, as a function
 # of its (per-device) OUTPUT bytes — the standard
@@ -122,6 +194,107 @@ def reshard_wire_bytes(nbytes: int, old_factors, new_factors) -> float:
     return total
 
 
+_HLO_COMP_HEAD = re.compile(r"^(?:ENTRY\s+)?%?([\w.\-]+)\s*\([^)]*\)\s*->.*\{\s*$")
+_HLO_INSTR = re.compile(
+    r"^\s*(ROOT\s+)?%?([\w.\-]+)\s+=\s+"
+    r"(\((?:[^()]|\([^()]*\))*\)|\S+)\s+"
+    r"([\w\-]+)\(")
+
+
+def _parse_hlo_computations(hlo: str) -> Dict[str, list]:
+    """{computation name: [(is_root, value name, shape str, opcode,
+    referenced names)]} for every computation in an HLO text dump. The
+    ENTRY computation is additionally indexed under \"ENTRY\"."""
+    comps: Dict[str, list] = {}
+    cur: Optional[list] = None
+    for line in hlo.splitlines():
+        if cur is None:
+            m = _HLO_COMP_HEAD.match(line.strip())
+            if m:
+                cur = comps[m.group(1)] = []
+                if line.lstrip().startswith("ENTRY"):
+                    comps["ENTRY"] = cur
+            continue
+        if line.strip() == "}":
+            cur = None
+            continue
+        m = _HLO_INSTR.match(line)
+        if not m:
+            continue
+        # strip metadata={...} before collecting %refs: op_name strings
+        # can quote anything
+        body = line.split("metadata=", 1)[0]
+        refs = re.findall(r"%([\w.\-]+)", body)
+        cur.append((bool(m.group(1)), m.group(2), m.group(3),
+                    m.group(4), refs[1:]))  # refs[0] is the def itself
+    return comps
+
+
+def hlo_liveness_temp_bytes(hlo: str) -> int:
+    """Peak live TEMP bytes of a compiled HLO module from a liveness walk
+    over its (scheduled) instruction sequences — the DOCUMENTED fallback
+    for backends whose `CompiledMemoryStats.temp_size_in_bytes` reads 0
+    (this container's jaxlib-0.4.x CPU backend reports it only for some
+    programs). A value is live from its defining instruction to its last
+    textual use; called computations (fusion/while/reduce `to_apply`,
+    `body`, `condition`...) contribute their own peak while the calling
+    instruction is live. Parameters are argument buffers (counted in
+    `argument_size_in_bytes`) and roots are the caller's (or, for ENTRY,
+    the output) buffer, so both are excluded. An ESTIMATE: real buffer
+    assignment aliases compatible buffers, so this bounds the measured
+    temp from above — it exists so the measured census never silently
+    reads a 0 the backend merely declined to report, and the ledger's
+    accounting identity only charges measured bytes that EXCEED the
+    prediction (observability/ledger.py check_memory_identity)."""
+    comps = _parse_hlo_computations(hlo)
+    entry = comps.get("ENTRY")
+    if not entry:
+        return 0
+    memo: Dict[int, int] = {}
+
+    def comp_peak(instrs, is_entry, chain):
+        key = id(instrs)
+        if not is_entry and key in memo:
+            return memo[key]
+        if key in chain:
+            return 0   # recursive call graph: bound the walk
+        n = len(instrs)
+        defs: Dict[str, int] = {}
+        sizes: Dict[str, int] = {}
+        called_at: Dict[int, int] = {}
+        for i, (is_root, name, shape, opcode, refs) in enumerate(instrs):
+            if opcode == "parameter" or is_root:
+                continue
+            defs[name] = i
+            try:
+                sizes[name] = hlo_shape_bytes(shape)
+            except ValueError:
+                sizes[name] = 0
+        last_use = dict(defs)
+        for i, (_, _, _, _, refs) in enumerate(instrs):
+            for r in refs:
+                if r in defs:
+                    last_use[r] = max(last_use[r], i)
+                elif r in comps:
+                    called_at[i] = called_at.get(i, 0) + comp_peak(
+                        comps[r], False, chain + (key,))
+        alloc: Dict[int, int] = {}
+        free: Dict[int, int] = {}
+        for name, d in defs.items():
+            alloc[d] = alloc.get(d, 0) + sizes[name]
+            free[last_use[name] + 1] = (free.get(last_use[name] + 1, 0)
+                                        + sizes[name])
+        peak = live = 0
+        for t in range(n):
+            live += alloc.get(t, 0) - free.get(t, 0)
+            peak = max(peak, live + called_at.get(t, 0))
+        if not is_entry:
+            memo[key] = peak
+        return peak
+
+    return comp_peak(entry, True, ())
+
+
 def census_wire_bytes(census: Dict[str, list], n_devices: int,
                       min_bytes: int = 0) -> float:
     """Total per-device interconnect bytes for one step, from a
@@ -133,6 +306,131 @@ def census_wire_bytes(census: Dict[str, list], n_devices: int,
             if b >= min_bytes:
                 total += collective_wire_bytes(kind, b, n_devices)
     return total
+
+
+# the port's measured census: torch.profiler's events of the collectives
+# and point-to-point transfers a step ran, in collective_census's form.
+# Every torch.distributed call records its dispatcher op ("c10d::allreduce_",
+# "c10d::_allgather_base_", "c10d::send", ...: what the program asked for,
+# the same on every backend), then the backend records its own, possibly on
+# a worker thread: an event per call ("gloo:all_reduce", "nccl:all_reduce",
+# with the tensor's shape and element type), and on NCCL a
+# "record_param_comms" event whose metadata (where the profiler keeps it)
+# names the collective, its element count and type. A coalesced group of
+# sends, as `batch_isend_irecv` issues on the cards, has neither: the
+# port's `collective.batch_p2p` runs it inside a range named
+# P2P_SEND_RANGE + the sends' bytes. The kind comes from the dispatcher op
+# (gloo runs a reduce-scatter as an all-reduce); the bytes from its output
+# tensor, or, where it takes a tensor list, from the enclosing send range
+# or the next backend record of that op, in start order.
+P2P_SEND_RANGE = "ptpu_p2p/send_bytes="
+_C10D_KINDS = {"allreduce_": ("all-reduce", "all_reduce"),
+               "_allgather_base_": ("all-gather", "all_gather"),
+               "allgather_": ("all-gather", "all_gather"),
+               "allgather_into_tensor_coalesced_": ("all-gather",
+                                                    "all_gather"),
+               "_reduce_scatter_base_": ("reduce-scatter",
+                                         "reduce_scatter"),
+               "reduce_scatter_": ("reduce-scatter", "reduce_scatter"),
+               "reduce_scatter_tensor_coalesced_": ("reduce-scatter",
+                                                    "reduce_scatter"),
+               "alltoall_base_": ("all-to-all", "all_to_all"),
+               "alltoall_": ("all-to-all", "all_to_all"),
+               "send": ("collective-permute", "send")}
+# profiler element-type names -> bytes (the event dtypes' spelling, and
+# record_param_comms' metadata spelling)
+_PROFILER_ITEM_BYTES = {"float": 4, "double": 8, "c10::BFloat16": 2,
+                        "c10::Half": 2, "long int": 8, "int": 4,
+                        "short int": 2, "signed char": 1,
+                        "unsigned char": 1, "bool": 1,
+                        "c10::Float8_e4m3fn": 1, "c10::Float8_e5m2": 1,
+                        "Float": 4, "Double": 8, "BFloat16": 2, "Half": 2,
+                        "Long": 8, "Int": 4, "Short": 2, "Char": 1,
+                        "Byte": 1, "Bool": 1}
+
+
+def _event_bytes(shape, dtype) -> int:
+    if dtype not in _PROFILER_ITEM_BYTES:
+        raise ValueError(
+            f"measured_collective_census: unrecognized element type "
+            f"{dtype!r}; add it to _PROFILER_ITEM_BYTES")
+    n = _PROFILER_ITEM_BYTES[dtype]
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def _param_comms(e):
+    """(collective name, element count, element type) of a
+    record_param_comms event, or None."""
+    meta = e.extra_meta() if hasattr(e, "extra_meta") else {}
+    name = meta.get("Collective name")
+    if not name or "In msg nelems" not in meta or "dtype" not in meta:
+        return None
+    return name, int(meta["In msg nelems"]), meta["dtype"]
+
+
+def measured_collective_census(prof) -> Dict[str, list]:
+    """{kind: [(output_bytes, label)]} of every collective and
+    point-to-point send one rank ran inside a `torch.profiler.profile`
+    window opened with `record_shapes=True` (`prof`: the profile, or the
+    list of its kineto events). The port's counterpart of
+    `collective_census` over compiled HLO: `census_wire_bytes` applies to
+    it unchanged. A send counts as one `collective-permute` of its bytes
+    (a receive is the same transfer at its peer and is not counted);
+    broadcasts and barriers are not gradient traffic and are skipped. A
+    collective whose size no event gives raises ValueError."""
+    events = prof
+    if hasattr(prof, "profiler"):
+        events = prof.profiler.kineto_results.events()
+    out: Dict[str, list] = {}
+    pending: Dict[str, list] = {}      # backend op -> [(kind, label)]
+    send_bytes: List[int] = []         # from the enclosing send ranges
+    for e in sorted(events, key=lambda e: e.start_ns()):
+        name = e.name()
+        if name.startswith(P2P_SEND_RANGE):
+            send_bytes += [int(b) for b in
+                           name[len(P2P_SEND_RANGE):].split(",") if b]
+            continue
+        if name.startswith("c10d::"):
+            hit = _C10D_KINDS.get(name[len("c10d::"):])
+            if hit is None:
+                continue
+            kind, op = hit
+            shapes, dtypes = e.shapes(), e.dtypes()
+            if shapes and dtypes and dtypes[0] in _PROFILER_ITEM_BYTES:
+                # the dispatcher op's first argument is the output tensor
+                out.setdefault(kind, []).append(
+                    (_event_bytes(shapes[0], dtypes[0]), name))
+            elif op == "send" and send_bytes:
+                out.setdefault(kind, []).append((send_bytes.pop(0), name))
+            else:
+                pending.setdefault(op, []).append((kind, name))
+            continue
+        if name == "record_param_comms":
+            pc = _param_comms(e)
+            if pc is None or not pending.get(pc[0]):
+                continue
+            kind, label = pending[pc[0]].pop(0)
+            out.setdefault(kind, []).append(
+                (_event_bytes((pc[1],), pc[2]), label))
+            continue
+        backend, _, op = name.partition(":")
+        if backend not in ("gloo", "nccl") or not pending.get(op):
+            continue
+        shapes, dtypes = e.shapes(), e.dtypes()
+        if not shapes or not dtypes or not dtypes[0]:
+            continue
+        kind, label = pending[op].pop(0)
+        out.setdefault(kind, []).append(
+            (_event_bytes(shapes[0], dtypes[0]), label))
+    left = [label for v in pending.values() for _, label in v]
+    if left:
+        raise ValueError(
+            f"measured_collective_census: no event gave the size of "
+            f"{len(left)} collective call(s) ({sorted(set(left))}); was "
+            f"the profile recorded with record_shapes=True?")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -303,21 +601,13 @@ def state_category(v, name: str) -> str:
     return "other_state"
 
 
-def _refuse_tp_local(v, tp):
-    """A tp-sharded var's tp-local shape is framework/sharding.py's rule,
-    the multi-GPU part of ROADMAP.md §1 item 4."""
-    enforce(not (tp > 1 and getattr(v, "tp_spec", None)),
-            f"var {v.name!r} is tp-sharded: tp-local shapes are ROADMAP.md "
-            f"§1 item 4 (multi-GPU parallelism)", exc=NotImplementedError)
-
-
-def _refuse_multi_device_rewrites(program):
-    """Programs rewritten by the JAX package's multi-device passes (tp,
-    explicit dp comm, pipeline) carry markers the port cannot price yet."""
-    for marker in ("_tp_applied", "_dp_comm_applied", "_pp_applied"):
-        enforce(not getattr(program, marker, False),
-                f"program carries {marker}: its rewrite is ROADMAP.md §1 "
-                f"item 4 (multi-GPU parallelism)", exc=NotImplementedError)
+def _tp_local(shape, v, tp: int) -> list:
+    """A var's per-device shape under the tp rewrite (framework/
+    sharding.py's rule): its `tp_spec` dims split over tp."""
+    if tp > 1 and getattr(v, "tp_spec", None):
+        from .sharding import tp_local_shape
+        return list(tp_local_shape(shape, v.tp_spec, tp))
+    return list(shape)
 
 
 # per-device byte prediction for one persistable var, from its declared
@@ -325,8 +615,8 @@ def _refuse_multi_device_rewrites(program):
 # of ParallelExecutor._state_sharding)
 def _state_per_device_bytes(v, dp: int, tp: int,
                             nominal_batch: int) -> int:
-    shape = [nominal_batch if d == -1 else int(d) for d in (v.shape or ())]
-    _refuse_tp_local(v, tp)
+    shape = _tp_local([nominal_batch if d == -1 else int(d)
+                       for d in (v.shape or ())], v, tp)
     # the var's own dtype: the port keeps 64-bit state, as the measured
     # census counts it
     n = convert_dtype(v.dtype).itemsize
@@ -369,7 +659,6 @@ def memory_categories(program, *, dp: int = 1, tp: int = 0,
     Placement rules mirror ParallelExecutor._state_sharding exactly; the
     SPMD Reduce heuristic (un-marked accumulator sharding) is NOT
     modeled — predict for the manual/explicit modes or dp=1."""
-    _refuse_multi_device_rewrites(program)
     cats = {"params": 0, "params_quantized": 0, "params_draft": 0,
             "optimizer_state": 0, "ef_residual": 0, "other_state": 0,
             "feeds": 0, "seed": 4}
@@ -430,9 +719,33 @@ def memory_categories(program, *, dp: int = 1, tp: int = 0,
     # microbatch), and the per-stage gradient accumulator plus its
     # update copy (the scan carry's new-value buffer co-resides with
     # the old one while the backward adds into it).
-    # the pipeline region's working set: a program the port runs carries
-    # no pipeline (refused by `_refuse_multi_device_rewrites`)
     pp_ws = 0
+    if getattr(program, "_pp_applied", False):
+        region = next((op for op in program.global_block().ops
+                       if op.type == "pp_pipeline_region"), None)
+        if region is not None:
+            from ..parallel.pipeline import (pp_boundary_wire_bytes,
+                                             schedule_census)
+            m = int(region.attrs["num_microbatches"])
+            k = int(region.attrs["num_stages"])
+            sched = schedule_census(region.attrs["schedule"], m, k)
+            mb_rows = max(1, nominal_batch // max(1, dp * m))
+            wire = pp_boundary_wire_bytes(program, mb_rows)
+            boundary = (int(wire["buffer_numel"]) * 4) if wire else 0
+            grad_bytes = 0
+            for b in program.blocks:
+                for v in b.vars.values():
+                    if not (getattr(v, "trainable", False)
+                            and v.persistable):
+                        continue
+                    shape = _tp_local(list(v.shape or ()), v, tp)
+                    nb = 4
+                    for d in shape:
+                        nb *= d
+                    grad_bytes += nb
+            pp_ws = (boundary * (int(sched["act_stash_depth"])
+                                 + int(sched["grad_stash_depth"]))
+                     + 2 * grad_bytes)
     cats["pp_working_set"] = pp_ws
     cats["transient_peak"] += pp_ws
     cats["dp"] = dp
@@ -531,8 +844,9 @@ def predict(program, strategy=None, *, dp: int = 1, tp: int = 0,
     model was consulted and judged inapplicable, not silently skipped.
     """
     from . import analysis as _analysis
+    from . import sharding as _sharding
+    from ..parallel import grad_comm as _gc
 
-    _refuse_multi_device_rewrites(program)
     report: Dict = {
         "nominal_batch": nominal_batch,
         "dp": dp,
@@ -598,17 +912,39 @@ def predict(program, strategy=None, *, dp: int = 1, tp: int = 0,
                     mem["persistent_bytes"] + mem["feed_bytes"]
                     + mem["peak_transient_bytes"] * frac)
     if dp > 1:
-        # the SPMD data-parallel models (the JAX package's
-        # grad_comm.spmd_allreduce_wire_bytes / spmd_zero1_wire_bytes;
-        # the explicit pipeline's plan is a multi-device rewrite)
-        spmd_model = _spmd_allreduce_wire_bytes
+        spmd_model = _gc.spmd_allreduce_wire_bytes
         if _enum_name(getattr(strategy, "reduce_strategy", None)) \
                 == "Reduce":
             # the ZeRO-1 SPMD mode costs MORE wire than plain allreduce
-            # (grad allreduce + sharded-update param all-gather)
-            spmd_model = _spmd_zero1_wire_bytes
-        report["dp_comm"] = spmd_model(program, dp)
-        report["dp_comm"]["explicit"] = False
+            # (grad allreduce + sharded-update param all-gather); an
+            # allreduce-priced Reduce point would win planner comparisons
+            # unfairly
+            spmd_model = _gc.spmd_zero1_wire_bytes
+        report["dp_comm"] = (_gc.analytic_wire_bytes(program, dp)
+                             or spmd_model(program, dp))
+        report["dp_comm"]["explicit"] = bool(
+            getattr(program, "_dp_comm_applied", False))
+    if getattr(program, "_tp_applied", False):
+        tpn = tp or int(getattr(program, "_tp_size", 0) or 0)
+        if tpn > 1:
+            report["tp_comm"] = _sharding.tp_analytic_wire_bytes(
+                program, tpn, nominal_batch=nominal_batch)
+    if getattr(program, "_pp_applied", False):
+        from ..parallel.pipeline import (pp_boundary_wire_bytes,
+                                         schedule_census)
+        region = next((op for op in program.global_block().ops
+                       if op.type == "pp_pipeline_region"), None)
+        if region is not None:
+            m = int(region.attrs["num_microbatches"])
+            k = int(region.attrs["num_stages"])
+            sched = schedule_census(region.attrs["schedule"], m, k)
+            mb_rows = max(1, nominal_batch // max(1, dp * m))
+            wire = pp_boundary_wire_bytes(program, mb_rows)
+            report["pipeline"] = {**sched,
+                                  "boundary": wire,
+                                  "microbatch_rows": mb_rows,
+                                  "grad_psum_wire_bytes":
+                                      _pp_grad_psum_bytes(program, k)}
     if strategy is not None and getattr(strategy, "offload_optimizer_state",
                                         False):
         # host-offload pricing (framework/offload.py): the optimizer
@@ -652,55 +988,6 @@ def _enum_name(v):
     return getattr(v, "name", v)
 
 
-def _spmd_allreduce_wire_bytes(program, dp: int) -> Dict:
-    """≙ parallel/grad_comm.py spmd_allreduce_wire_bytes: every trainable
-    parameter's gradient rides one float32 all-reduce (ring:
-    2n(dp-1)/dp)."""
-    total = 0
-    n_grads = 0
-    for b in program.blocks:
-        for v in b.vars.values():
-            if getattr(v, "trainable", False) and v.persistable:
-                n = 1
-                for d in v.shape:
-                    n *= d
-                total += n * 4
-                n_grads += 1
-    grad = 2.0 * total * (dp - 1) / dp
-    return {"grad_wire_bytes": int(grad),
-            "param_allgather_wire_bytes": 0,
-            "wire_bytes": int(grad),
-            "grad_f32_bytes": int(total),
-            "n_transfers": int(n_grads)}
-
-
-def _spmd_zero1_wire_bytes(program, dp: int) -> Dict:
-    """≙ parallel/grad_comm.py spmd_zero1_wire_bytes: the allreduce model
-    plus the all-gather of every parameter whose optimizer state the
-    ZeRO-1 mode shards (dim 0 divisible by dp). Approximate, as in the
-    JAX package."""
-    base = _spmd_allreduce_wire_bytes(program, dp)
-    ag = 0.0
-    n_ag = 0
-    for b in program.blocks:
-        for v in b.vars.values():
-            if not (getattr(v, "trainable", False) and v.persistable):
-                continue
-            shape = list(v.shape or ())
-            if not shape or shape[0] < dp or shape[0] % dp:
-                continue
-            n = 4
-            for d in shape:
-                n *= d
-            ag += n * (dp - 1) / dp
-            n_ag += 1
-    return {**base,
-            "param_allgather_wire_bytes": int(ag),
-            "wire_bytes": int(base["grad_wire_bytes"] + ag),
-            "n_transfers": base["n_transfers"] + n_ag,
-            "exact": False}
-
-
 def _pp_grad_psum_bytes(program, k: int) -> int:
     """Per-device wire bytes of the pipeline region's ONE gradient psum
     over the pp axis (run_pp_region: grads accumulate per stage, one
@@ -715,7 +1002,7 @@ def _pp_grad_psum_bytes(program, k: int) -> int:
             if not (getattr(v, "trainable", False) and v.persistable):
                 continue
             shape = list(v.shape or ())
-            _refuse_tp_local(v, tp)
+            shape = _tp_local(shape, v, tp)
             n = 4
             for d in shape:
                 n *= d
@@ -945,7 +1232,8 @@ def strategy_is_feasible(program, strategy, *, mesh_axes: Dict,
     back on the result for costs.predict. `deep=False` stops after the
     cheap structural checks (the planner's first pruning sweep)."""
     from ..core.enforce import EnforceError
-    from .analysis import ProgramAnalysisError, _has_tp_annotations
+    from . import sharding as _sharding
+    from .analysis import ProgramAnalysisError
 
     axes = dict(mesh_axes or {})
     dp = int(axes.get(DATA_AXIS, 1) or 1)
@@ -1072,18 +1360,21 @@ def strategy_is_feasible(program, strategy, *, mesh_axes: Dict,
                 f"forward ops into {stages} non-empty stages"))
 
     if tp > 1 and manual:
-        if not _has_tp_annotations(program):
+        if not _sharding.has_tp_annotations(program):
             reasons.append(_reason(
                 "tp-unannotated",
                 f"mesh carries a tp axis of size {tp} but the program "
                 f"has no tp sharding annotations "
                 f"(ParamAttr(sharding_spec=...) / annotate_tp)"))
         else:
-            # sharding propagation is the multi-GPU part of ROADMAP.md §1
-            # item 4
-            raise NotImplementedError(
-                "tp sharding propagation is ROADMAP.md §1 item 4 "
-                "(multi-GPU parallelism)")
+            res = _sharding.propagate_sharding(program, tp_size=tp)
+            for d in res.diagnostics:
+                if d.severity != "error":
+                    continue
+                code = ("tp-indivisible"
+                        if d.code == "shard-divisibility"
+                        else "tp-spec-conflict")
+                reasons.append(_reason(code, f"{d.loc}: {d.message}"))
 
     if reasons:
         return Feasibility(False, reasons)
@@ -1091,16 +1382,50 @@ def strategy_is_feasible(program, strategy, *, mesh_axes: Dict,
         return Feasibility(True, [])
 
     # -- deep check: the actual rewrite passes, executor order ------------
-    # the tp, explicit-dp-comm and pipeline rewrites are ROADMAP.md §1
-    # item 4 (multi-GPU parallelism); on one card only the memory plan
-    # applies
+    from ..parallel import grad_comm as _gc
+    from ..parallel import pipeline as _pipeline
     from .passes import get_pass
 
-    enforce(not manual,
-            "the manual execution modes' rewrites (tp, explicit dp comm, "
-            "pipeline) are ROADMAP.md §1 item 4 (multi-GPU parallelism)",
-            exc=NotImplementedError)
     rewritten = program
+    try:
+        if (tp > 1 and manual
+                and _sharding.has_tp_annotations(rewritten)
+                and not getattr(rewritten, "_tp_applied", False)):
+            rewritten = get_pass("tp_shard_pass", tp=tp)(rewritten)
+    except (EnforceError, ProgramAnalysisError) as e:
+        return Feasibility(False, [_reason("tp-gate", str(e))])
+    cfg = _gc.explicit_comm_config(strategy)
+    if cfg is not None and not getattr(rewritten, "_dp_comm_applied",
+                                       False):
+        try:
+            rewritten = _gc.comm_optimize_pass(rewritten, dp, cfg)
+        except (EnforceError, ProgramAnalysisError) as e:
+            return Feasibility(False, [_reason("dp-gate", str(e))])
+    pcfg = _pipeline.pipeline_config(strategy)
+    if pcfg is not None and not getattr(rewritten, "_pp_applied", False):
+        try:
+            rewritten = get_pass(
+                "pipeline_partition_pass",
+                num_stages=pcfg["stages"],
+                num_microbatches=pcfg["microbatches"],
+                schedule=pcfg["schedule"],
+                nominal_batch=nominal_batch,
+                dp_axis="dp" if "dp" in axes else "",
+                reduce_dp=("dp" in axes
+                           and not getattr(rewritten, "_dp_comm_applied",
+                                           False)),
+            )(rewritten)
+        except (EnforceError, ProgramAnalysisError) as e:
+            msg = str(e)
+            code = ("narrow-cut"
+                    if ("narrow activation cut" in msg
+                        or "carries no activation" in msg
+                        or "may cross a stage cut" in msg
+                        or "cannot cross a pipeline cut" in msg
+                        or "cannot be pruned" in msg)
+                    else "pp-too-few-ops" if "cannot cut" in msg
+                    else "pp-gate")
+            return Feasibility(False, [_reason(code, msg)])
     if getattr(strategy, "memory_plan", False) \
             and not getattr(rewritten, "_memory_plan_applied", False):
         from . import memory_plan as _memory_plan  # noqa: F401 (registers)

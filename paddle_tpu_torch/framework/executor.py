@@ -155,10 +155,11 @@ class _Plan:
 
 
 def _plan_accesses(op):
-    """(reads, writes) of one top-level plan entry: a vjp_region runs its
-    forward ops inside it, so it reads and writes theirs too."""
+    """(reads, writes) of one top-level plan entry: a vjp_region (or a
+    pipeline region) runs its forward ops inside it, so it reads and
+    writes theirs too."""
     reads, writes = set(op.input_names()), set(op.output_names())
-    if op.type == "vjp_region":
+    if op.type in ("vjp_region", "pp_pipeline_region"):
         for i in op.attrs["fwd_ops"]:
             fop = op.block.ops[i]
             reads |= set(fop.input_names())

@@ -117,25 +117,34 @@ def _ancestor_op_indices(block: Block, upto: int, roots: Set[str]) -> List[int]:
     return keep
 
 
+#: region op types beside `vjp_region` -> runner(region_op, env, ctx):
+#: parallel/pipeline.py registers `pp_pipeline_region` on import.
+REGION_RUNNERS: Dict[str, Any] = {}
+
+
 def build_plan(block: Block) -> List[Operator]:
-    """The block's ops in execution order. Ops consumed by a vjp_region run
-    inside it; the region runs at the position of its earliest forward op,
-    so later consumers see the forward values. Regions sharing their first
-    op keep program order."""
+    """The block's ops in execution order. Ops consumed by a region
+    (`vjp_region`, or a pipeline's `pp_pipeline_region` with its stages'
+    ops and boundary markers) run inside it; the region runs at the
+    position of its earliest forward op, so later consumers see the
+    forward values. Regions sharing their first op keep program order."""
     regions: Dict[int, List[Operator]] = {}
     consumed: Set[int] = set()
     for op in block.ops:
-        if op.type == "vjp_region" and op.attrs["fwd_ops"]:
+        if op.type in _REGION_TYPES and op.attrs["fwd_ops"]:
             seg = op.attrs["fwd_ops"]
             regions.setdefault(min(seg), []).append(op)
             consumed |= set(seg)
     plan = []
     for i, op in enumerate(block.ops):
         plan.extend(regions.get(i, ()))
-        if i in consumed or op.type == "vjp_region":
+        if i in consumed or op.type in _REGION_TYPES:
             continue
         plan.append(op)
     return plan
+
+
+_REGION_TYPES = ("vjp_region", "pp_pipeline_region")
 
 
 def run_plan(plan: List[Operator], env: Dict[str, Any], ctx: LowerCtx,
@@ -148,6 +157,11 @@ def run_plan(plan: List[Operator], env: Dict[str, Any], ctx: LowerCtx,
     for i, op in enumerate(plan):
         if op.type == "vjp_region":
             run_vjp_region(op, env, ctx)
+        elif op.type in _REGION_TYPES:
+            if op.type not in REGION_RUNNERS:
+                # the engine registers on import of parallel/pipeline.py
+                from ..parallel import pipeline  # noqa: F401
+            REGION_RUNNERS[op.type](op, env, ctx)
         else:
             run_op(op, env, ctx)
         if release is not None:

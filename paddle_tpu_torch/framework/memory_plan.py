@@ -602,6 +602,58 @@ def search_remat(block, region_op, *, nominal_batch: int = 8,
     return record
 
 
+def _pp_stage_decisions(program, region_op, *, nominal_batch: int = 8,
+                        time_budget_s: Optional[float] = None,
+                        time_budget_frac: float = 0.02) -> List[Dict]:
+    """The per-STAGE remat-vs-stash curve of a pipeline region. The 1F1B
+    engine already executes the "recompute" point (stage-granular
+    checkpointing: the backward replays the stage forward from the
+    stashed boundary input — parallel/pipeline.py run_pp_region); this
+    search prices the alternative per stage: KEEPING the stage's
+    activations for every in-flight microbatch costs
+    act_stash_depth x stage activation bytes, recomputing costs
+    M x stage-forward roofline seconds per step. The report names the
+    winner at the budget; a "keep" verdict is advisory (the engine's
+    executed point stays recompute — flagged so the gap is explicit).
+    Priced on the card's constants, a replayed op at no less than one
+    eager lowering (`costs.op_step_cost`), as `search_remat` prices
+    recompute."""
+    from ..parallel.pipeline import schedule_census
+    from .costs import op_cost_flops_bytes, op_step_cost, \
+        program_flops_bytes
+
+    block = program.global_block()
+    m = int(region_op.attrs["num_microbatches"])
+    k = int(region_op.attrs["num_stages"])
+    sched = schedule_census(region_op.attrs["schedule"], m, k)
+    if time_budget_s is None:
+        step_s = program_flops_bytes(program, nominal_batch)["roofline_s"]
+        time_budget_s = time_budget_frac * max(step_s, 1e-12)
+    mb_rows = max(1, nominal_batch // m)
+    decisions = []
+    for si, idxs in enumerate(region_op.attrs["stages"]):
+        ops = [block.ops[i] for i in idxs if isinstance(i, (int,
+                                                           np.integer))]
+        fwd_s = sum(op_step_cost(*op_cost_flops_bytes(op, block, mb_rows))
+                    for op in ops)
+        act_bytes = sum(_var_bytes(block, nm, mb_rows)
+                        for op in ops for nm in set(op.output_names())
+                        if _transient(block, nm))
+        depth = int(sched["peak_stash_per_stage"][si]) or 1
+        recompute_s = fwd_s * m      # one replay per microbatch backward
+        keep_bytes = act_bytes * depth
+        chosen = "recompute" if recompute_s <= time_budget_s or \
+            keep_bytes == 0 else "keep"
+        decisions.append({
+            "stage": si, "executed": "recompute", "chosen": chosen,
+            "advisory": chosen != "recompute",
+            "keep_stash_bytes": int(keep_bytes),
+            "recompute_extra_seconds": float(recompute_s),
+            "stash_depth": depth,
+        })
+    return decisions
+
+
 # ---------------------------------------------------------------------------
 # the pass
 # ---------------------------------------------------------------------------
@@ -674,9 +726,11 @@ def plan_program(program: Program, *, protected: Sequence[str] = (),
                     prevent_cse=remat_prevent_cse,
                     stash_to_host=stash_to_host))
             elif op.type == "pp_pipeline_region":
-                raise NotImplementedError(
-                    "a pipeline region's per-stage remat decisions are "
-                    "ROADMAP.md §1 item 4 (multi-GPU parallelism)")
+                # exactly one per block (the partition pass enforces it)
+                report["pp_stages"] = _pp_stage_decisions(
+                    out, op, nominal_batch=nominal_batch,
+                    time_budget_s=time_budget_s,
+                    time_budget_frac=time_budget_frac)
         # the common single-region shape stays flat; multi-loss programs
         # (two vjp_regions over one trunk) report every region's decision
         report["remat"] = (remat_records[0] if len(remat_records) == 1

@@ -11,9 +11,10 @@ sanitizer (verify-before / verify-after, framework/analysis.py
 `sanitized_apply`, flag `verify_passes`) inside a `pass` span, as in the
 JAX package. `check_pass` and `graph_viz_pass` are here;
 `memory_plan_pass` registers from framework/memory_plan.py on first use.
-The passes that wrap modules still to be ported (`bn_fold_pass`,
-`quant_freeze_pass`, `pipeline_partition_pass`) come with them (ROADMAP.md
-§1 item 4).
+`pipeline_partition_pass` cuts a training program into pipeline stages
+(parallel/pipeline.py runs them). The passes that wrap modules still to be
+ported (`bn_fold_pass`, `quant_freeze_pass`) come with them (ROADMAP.md §1
+item 4).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..core.enforce import (AlreadyExistsError, InvalidArgumentError,
-                            NotFoundError)
+                            NotFoundError, enforce)
 from .program import Program
 from .scope import Scope, global_scope
 
@@ -76,8 +77,7 @@ def register_pass(name: str):
 
 
 # passes of the JAX package that wrap a module still to be ported
-_WAITING_PASSES = ("bn_fold_pass", "quant_freeze_pass",
-                   "pipeline_partition_pass")
+_WAITING_PASSES = ("bn_fold_pass", "quant_freeze_pass")
 
 # passes registered by a module this one does not import eagerly; get_pass
 # imports it on first use (≙ the JAX package's)
@@ -597,6 +597,274 @@ class QuantizeParamsPass(Pass):
                     blk.vars[out].op = new
         program._bump()
         return program
+
+
+# ---------------------------------------------------------------------------
+# pipeline partitioning (≙ the JAX package's pipeline_partition_pass, itself
+# ≙ the reference's pipeline_trainer program-section splitting). The pass
+# cuts the single vjp_region's forward segment into K contiguous stages
+# balanced by the analytic cost model, validates every boundary is a narrow
+# activation cut, splices explicit `pp_send`/`pp_recv` ops at the cuts, and
+# replaces the vjp_region with a `pp_pipeline_region` executed by the
+# GPipe/1F1B schedule engine (parallel/pipeline.py run_pp_region).
+# ---------------------------------------------------------------------------
+
+
+def _pipeline_cost_fns():
+    """(op_cost_flops_bytes, op_time_cost) from framework/costs.py — the
+    one analytic cost model, shared with the predict() ledger API (on the
+    card's constants: the balance, and so the cut, follows the H100's
+    flops-to-bytes ridge)."""
+    from .costs import op_cost_flops_bytes, op_time_cost
+    return op_cost_flops_bytes, op_time_cost
+
+
+@register_pass("pipeline_partition_pass")
+class PipelinePartitionPass(Pass):
+    """Program-level pipeline partitioning. attrs:
+      num_stages (K >= 2), num_microbatches, schedule ('gpipe'|'1f1b'),
+      dp_axis ('' when the mesh has no data axis), reduce_dp (pmean grads
+      over dp inside the region — False when the r08 dp_grad_comm pipeline
+      owns the dp reduction), max_boundary_vars (narrow-cut gate),
+      nominal_batch (cost-model batch stand-in for -1 dims).
+
+    Gates (rejected, not mis-trained): multiple backward regions;
+    batch-global ops (batch_norm folds statistics over the whole batch —
+    per-microbatch execution would silently change them); non-MEAN losses
+    (per-microbatch means average to the global mean only for equal
+    microbatches of a mean-reduced loss); wide/non-float boundary cuts;
+    load-bearing downstream consumers of forward activations (pipeline
+    publishes only the loss + parameter gradients; pure metric-head sinks
+    are pruned instead, and fetching them raises the clear error)."""
+
+    allowed_attrs = ("num_stages", "num_microbatches", "schedule",
+                     "dp_axis", "reduce_dp", "max_boundary_vars",
+                     "nominal_batch")
+
+    @staticmethod
+    def _batch_led(block, name):
+        try:
+            v = block.var(name)
+        except NotFoundError:
+            return True     # undeclared sidecars (@SEQLEN) are batch-led
+        shape = getattr(v, "shape", None)
+        return shape is None or (bool(shape) and shape[0] == -1)
+
+    def apply(self, program, scope=None):
+        from ..core.dtypes import convert_dtype, dtype_name
+        from ..parallel.grad_comm import _BATCH_GLOBAL_OPS, _MEAN_LOSS_OPS
+        from ..parallel.mesh import PIPELINE_AXIS
+        from ..parallel.pipeline import PP_REGION_TYPE  # registers pp ops
+        from .program import Operator
+
+        if getattr(program, "_pp_applied", False):
+            return program
+        K = int(self.attrs["num_stages"])
+        M = int(self.attrs.get("num_microbatches", 1))
+        schedule = self.attrs.get("schedule", "1f1b")
+        max_bvars = int(self.attrs.get("max_boundary_vars", 8))
+        enforce(K >= 2, f"pipeline_partition_pass needs num_stages >= 2, "
+                f"got {K}", exc=InvalidArgumentError)
+
+        out = program.clone()
+        out._dp_comm_applied = getattr(program, "_dp_comm_applied", False)
+        block = out.global_block()
+        regions = [i for i, op in enumerate(block.ops)
+                   if op.type == "vjp_region"]
+        enforce(len(regions) == 1,
+                f"pipeline partitioning supports exactly one backward "
+                f"region (vjp_region), found {len(regions)}: multi-loss "
+                f"programs cannot be cut into one faithful stage chain. "
+                f"Run without pipeline_stages",
+                exc=InvalidArgumentError)
+        rop = block.ops[regions[0]]
+        seg = list(rop.attrs["fwd_ops"])
+        loss_name = rop.attrs["loss"]
+        targets = list(rop.attrs["targets"])
+        enforce(len(seg) >= K,
+                f"cannot cut {len(seg)} forward ops into {K} non-empty "
+                f"pipeline stages", exc=InvalidArgumentError)
+        seg_ops = [block.ops[i] for i in seg]
+
+        bad = sorted({op.type for op in seg_ops
+                      if op.type in _BATCH_GLOBAL_OPS})
+        enforce(not bad,
+                f"pipeline execution runs the forward per-microbatch, but "
+                f"ops {bad} fold statistics over the WHOLE batch and would "
+                f"silently compute per-microbatch statistics instead. Run "
+                f"this program without pipeline_stages",
+                exc=InvalidArgumentError)
+        from .analysis import op_loc
+        producer = next((o for o in reversed(seg_ops)
+                         if loss_name in o.output_names()), None)
+        if producer is None or producer.type not in _MEAN_LOSS_OPS:
+            # provenance built only on the failing path: the index scan +
+            # formatting must not run on every successful apply
+            desc = (op_loc(block, block.ops.index(producer), producer)
+                    if producer else "<nothing>")
+            enforce(False,
+                    f"pipeline execution requires a MEAN-reduced loss (got "
+                    f"{loss_name!r} produced by {desc}): "
+                    f"per-microbatch mean losses average to the global-batch "
+                    f"mean only for equal microbatches of a mean reduction. "
+                    f"Reduce the loss with layers.mean / reduce_mean",
+                    exc=InvalidArgumentError)
+
+        # --- cost-balanced contiguous partition -------------------------
+        cost_fn, combine = _pipeline_cost_fns()
+        nb = int(self.attrs.get("nominal_batch", 8))
+        costs = [combine(*cost_fn(op, block, nb)) for op in seg_ops]
+        bounds = _balanced_partition(costs, K)
+        stage_pos = [seg[a:b] for a, b in bounds]
+
+        # --- boundary (cut) computation + narrow-cut validation ----------
+        produced, prod_pos = {}, {}
+        for k, idxs in enumerate(stage_pos):
+            for i in idxs:
+                for n in block.ops[i].output_names():
+                    if n not in produced:
+                        produced[n] = k
+                        prod_pos[n] = i
+        reads_by_stage = [set() for _ in range(K)]
+        for k, idxs in enumerate(stage_pos):
+            for i in idxs:
+                reads_by_stage[k] |= set(block.ops[i].input_names())
+        seg_produced = set(produced)
+        ext_reads = set().union(*reads_by_stage) - seg_produced
+        enforce(produced.get(loss_name) == K - 1,
+                f"loss {loss_name!r} is not produced by the last stage — "
+                f"partitioner bug", exc=InvalidArgumentError)
+
+        crossings = []
+        for c in range(K - 1):
+            later_reads = set().union(*reads_by_stage[c + 1:])
+            names = sorted((n for n, pk in produced.items()
+                            if pk <= c and n in later_reads),
+                           key=lambda n: prod_pos[n])
+            enforce(names, f"stage cut {c} carries no activation — the "
+                    f"loss would not depend on stages <= {c} "
+                    f"(partitioner bug)", exc=InvalidArgumentError)
+            enforce(len(names) <= max_bvars,
+                    f"stage boundary {c} is not a narrow activation cut: "
+                    f"{len(names)} variables would cross it "
+                    f"({names[:6]}{'...' if len(names) > 6 else ''}). "
+                    f"Pick a different num_stages or restructure the "
+                    f"model so stage boundaries carry one activation",
+                    exc=InvalidArgumentError)
+            for n in names:
+                v = block.var(n)
+                enforce(not v.persistable,
+                        f"boundary var {n!r} at cut {c} is persistable — "
+                        f"state cannot cross a pipeline cut",
+                        exc=InvalidArgumentError)
+                enforce(convert_dtype(v.dtype).is_floating_point,
+                        f"boundary var {n!r} at cut {c} has non-float "
+                        f"dtype {dtype_name(v.dtype)}; only floating activations may "
+                        f"cross a stage cut (ids/labels are feeds — they "
+                        f"reach every stage directly)",
+                        exc=InvalidArgumentError)
+            crossings.append(names)
+
+        # --- downstream consumers of forward activations -----------------
+        # Forward values only ever exist per-microbatch on their stage's
+        # device, so ops outside the region cannot read them. Pure sink
+        # chains (metric heads: accuracy/top_k over the logits) are PRUNED
+        # transitively — fetching their outputs raises the clear pipeline
+        # error at compile (_pp_hidden). Anything load-bearing (an
+        # optimize/backward-role op) reading a hidden activation cannot be
+        # pruned and is rejected instead.
+        hidden = set(seg_produced) - {loss_name}
+        seg_set = set(seg)
+        dropped_ops = set()
+        for i, op in enumerate(block.ops):
+            if i in seg_set or op is rop:
+                continue
+            bad_reads = sorted(set(op.input_names()) & hidden)
+            if not bad_reads:
+                continue
+            from .analysis import op_loc
+            enforce(op.attrs.get("op_role") not in ("optimize", "backward"),
+                    f"{op_loc(block, i, op)} (role "
+                    f"{op.attrs.get('op_role')!r}) reads forward "
+                    f"activation(s) {bad_reads} computed inside the "
+                    f"pipeline region and cannot be pruned: pipeline mode "
+                    f"publishes only the loss and parameter gradients. "
+                    f"Run this program without pipeline_stages",
+                    exc=InvalidArgumentError)
+            dropped_ops.add(id(op))
+            hidden |= set(op.output_names())
+
+        # --- splice pp_send/pp_recv at every cut -------------------------
+        # both sides of a cut share one correlation id: a merged
+        # cross-rank timeline (tools/trace_merge.py) pairs the sender's
+        # and receiver's spans by it, so "who waited on whom" reads off
+        # the matched corr_id lanes
+        sends, recvs = [], []
+        for c in range(K - 1):
+            corr = f"ppcut-{c}-s{c}to{c + 1}"
+            buf = block.create_var(name=f"pp_cut{c}@PP", shape=None,
+                                   dtype="float32", stop_gradient=True)
+            sends.append(Operator(
+                block, "pp_send", inputs={"X": list(crossings[c])},
+                outputs={"Out": [buf.name]},
+                attrs={"cut": c, "corr_id": corr, "op_role": "forward"}))
+            recvs.append(Operator(
+                block, "pp_recv", inputs={"X": [buf.name]},
+                outputs={"Out": list(crossings[c])},
+                attrs={"cut": c, "corr_id": corr, "op_role": "forward"}))
+        ins_by_pos: Dict[int, list] = {}
+        for c in range(K - 1):
+            ins_by_pos.setdefault(stage_pos[c][-1] + 1, []).append(sends[c])
+            ins_by_pos.setdefault(stage_pos[c + 1][0], []).append(recvs[c])
+        new_ops = []
+        for i, op in enumerate(block.ops):
+            # a send (insert AFTER op i-1) sorts before a recv (insert
+            # BEFORE op i) at the same position: sends were appended first
+            for nop in ins_by_pos.get(i, []):
+                new_ops.append(nop)
+            if id(op) not in dropped_ops:
+                new_ops.append(op)
+
+        stage_objs = []
+        for k in range(K):
+            objs = ([recvs[k - 1]] if k > 0 else []) \
+                + [block.ops[i] for i in stage_pos[k]] \
+                + ([sends[k]] if k < K - 1 else [])
+            stage_objs.append(objs)
+        newidx = {id(op): i for i, op in enumerate(new_ops)}
+        stage_idx_lists = [[newidx[id(o)] for o in objs]
+                           for objs in stage_objs]
+
+        # --- replace the vjp_region with the pipeline region -------------
+        x_names = sorted(ext_reads | set(targets))
+        batch_led = [n for n in x_names
+                     if n not in set(targets) and self._batch_led(block, n)]
+        region = Operator(
+            block, PP_REGION_TYPE,
+            inputs={"X": x_names},
+            outputs={"Grads": list(rop.outputs["Grads"]),
+                     "LossGrad": list(rop.outputs["LossGrad"])},
+            attrs={"fwd_ops": sorted(i for lst in stage_idx_lists
+                                     for i in lst),
+                   "stages": stage_idx_lists,
+                   "num_stages": K, "num_microbatches": M,
+                   "schedule": schedule, "axis": PIPELINE_AXIS,
+                   "dp_axis": self.attrs.get("dp_axis", ""),
+                   "reduce_dp": bool(self.attrs.get("reduce_dp", False)),
+                   "targets": targets, "loss": loss_name,
+                   "x_names": x_names, "batch_led": batch_led,
+                   "stage_costs": [float(sum(costs[a:b]))
+                                   for a, b in bounds],
+                   "op_role": "backward"})
+        new_ops[newidx[id(rop)]] = region
+        block.ops = new_ops
+
+        out._bump()
+        out._pp_applied = True
+        out._pp_hidden = frozenset(hidden)
+        out._pp_microbatches = M
+        out._pp_stages = K
+        return out
 
 
 def _decode_chains(program: Program) -> int:

@@ -206,6 +206,7 @@ class LowerCtx:
     recomputing: bool = False
     deferred: Optional[list] = None
     _generator: Optional[torch.Generator] = None
+    _rng_counter: int = 0
 
     def generator(self, seed: int = 0) -> torch.Generator:
         """A fixed-seed generator when `seed` is nonzero (an op's own seed
@@ -216,6 +217,13 @@ class LowerCtx:
             self._generator = torch.Generator(
                 device=self.device).manual_seed(self.seed)
         return self._generator
+
+    def next_key(self) -> int:
+        """A fresh seed from the run's seed, one per call (≙ the JAX
+        package's `next_key`, which splits the run's PRNG key): for a
+        lowering that needs a generator of its own."""
+        self._rng_counter += 1
+        return (self.seed * 1000003 + self._rng_counter) % 2147483648
 
     def writes_input(self, in_slot: str, out_slot: str) -> bool:
         """True when the current op's `out_slot` names the same variable as

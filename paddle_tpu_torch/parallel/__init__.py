@@ -8,12 +8,13 @@ a mesh axis: NCCL on the cards, gloo on the CPU.
 Ported: the mesh (`mesh.py`), the strategies, the collectives with their
 quantized forms (`collective.py`), the tp collective ops
 (`tensor_parallel.py`), the explicit gradient pipeline (`grad_comm.py`),
-`annotate_tp`, sharded embeddings, ring attention over the flash kernels,
-and `ParallelExecutor` (AllReduce, Reduce / ZeRO-1, ReduceScatter and the
-quantized wires, padded batches, tp). Like the JAX package, importing
-this package registers its ops. Waiting (ROADMAP.md §1 item 4): the
-pipeline schedule, the auto-parallel planner, elasticity and sharded
-checkpoints (`elastic`, `reshard`, `process_world`).
+the pipeline schedule engine (`pipeline.py`), `annotate_tp`, sharded
+embeddings, ring attention over the flash kernels, and `ParallelExecutor`
+(AllReduce, Reduce / ZeRO-1, ReduceScatter and the quantized wires,
+padded batches, tp, pipeline stages, the auto-parallel planner). Like the
+JAX package, importing this package registers its ops. Waiting (ROADMAP.md
+§1 item 4): elasticity and sharded checkpoints (`elastic`, `reshard`,
+`process_world`).
 """
 
 from .mesh import (DeviceMesh, Placement, get_default_mesh,  # noqa: F401
@@ -23,6 +24,7 @@ from .parallel_executor import ParallelExecutor  # noqa: F401
 from . import collective  # noqa: F401
 from . import grad_comm  # noqa: F401
 from . import tensor_parallel  # noqa: F401
+from . import pipeline  # noqa: F401
 from . import ring_attention  # noqa: F401
 from . import sharded_embedding  # noqa: F401
 from . import auto_shard  # noqa: F401

@@ -218,10 +218,28 @@ def _ppermute(x, axis_name, perm):
             ops.append(dist.P2POp(dist.isend, x, peers[dst], group))
         elif dst == me:
             ops.append(dist.P2POp(dist.irecv, out, peers[src], group))
-    if ops:
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
+    batch_p2p(ops)
     return out
+
+
+def batch_p2p(ops):
+    """Run a list of `dist.P2POp`s as one `batch_isend_irecv` and wait for
+    them. The call runs inside a profiler range naming its sends' bytes
+    (`costs.P2P_SEND_RANGE`): on the cards the group is coalesced, and the
+    profiler records its sends with no tensor shapes, so the measured
+    census reads their sizes there."""
+    if not ops:
+        return
+    from torch.autograd.profiler import record_function
+
+    from ..framework.costs import P2P_SEND_RANGE
+    dist = _dist()
+    sizes = ",".join(str(op.tensor.numel() * op.tensor.element_size())
+                     for op in ops if op.op is dist.isend)
+    with record_function(P2P_SEND_RANGE + sizes):
+        works = dist.batch_isend_irecv(ops)
+    for w in works:
+        w.wait()
 
 
 class _PPermute(torch.autograd.Function):

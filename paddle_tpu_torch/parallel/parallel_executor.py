@@ -45,13 +45,23 @@ collectives a torch.distributed call among the ranks of a mesh axis.
 - Dropout draws per rank from (seed, step, dp coordinate); tp ranks share
   their draws.
 
-Waiting (each raises naming ROADMAP.md §1 item 4): the pipeline schedule
-(`BuildStrategy.pipeline_stages`), the auto-parallel planner
-(`auto_parallel`, `auto_plan_report`), the host-offloaded optimizer state,
-the memory planner on the rewritten program (`memory_plan`), the sharded
-`cost_report` / `memory_report`, and sequence-parallel
-program execution (`enable_sequence_parallel` on a mesh with an sp axis;
-ring attention itself is `ring_attention.py`).
+- Pipeline parallelism (`BuildStrategy.pipeline_stages` = K on a mesh
+  whose pp axis has exactly K ranks): framework/passes.py
+  pipeline_partition_pass cuts the program into K stages and rank k runs
+  stage k's ticks of the schedule (parallel/pipeline.py), its boundary
+  buffers moving point to point over the pp group. The step is per rank
+  (manual) as in the explicit modes; with a dp axis the region averages
+  the gradients over dp, or grad_comm's rewrite does (ReduceScatter).
+- `BuildStrategy.auto_parallel`: on the first prepare the planner
+  (framework/auto_parallel.py) chooses the strategy and the mesh's
+  factorization over this executor's ranks, which the executor adopts;
+  `auto_plan_report`, `cost_report` and `memory_report` read it.
+
+Waiting (each raises naming ROADMAP.md §1 item 4): the host-offloaded
+optimizer state, the memory planner on the rewritten program
+(`memory_plan`), and sequence-parallel program execution
+(`enable_sequence_parallel` on a mesh with an sp axis; ring attention
+itself is `ring_attention.py`).
 """
 
 from __future__ import annotations
@@ -69,9 +79,10 @@ from ..framework.scope import Scope, global_scope
 from ..framework.selected_rows import TracedSelectedRows
 from . import collective as C
 from . import grad_comm as _grad_comm
+from . import pipeline as _pipeline
 from . import tensor_parallel as _tensor_parallel
-from .mesh import (DATA_AXIS, MODEL_AXIS, SEQUENCE_AXIS, DeviceMesh,
-                   Placement, get_default_mesh)
+from .mesh import (DATA_AXIS, MODEL_AXIS, PIPELINE_AXIS, SEQUENCE_AXIS,
+                   DeviceMesh, Placement, get_default_mesh)
 from .strategy import (BuildStrategy, ExecutionStrategy,
                        GradientScaleStrategy, ReduceStrategy)
 
@@ -342,6 +353,9 @@ class ParallelExecutor(Executor):
         self._dp = self.mesh.axis_size(DATA_AXIS)
         self._comm_cache: Dict[Any, Program] = {}
         self._tp_cache: Dict[Any, Program] = {}
+        self._pp_cache: Dict[Any, Program] = {}
+        self._pp_transport = None
+        self._feed_shapes: Dict[str, tuple] = {}
         self._synced = set()
         bs = self.build_strategy
         if _grad_comm.explicit_comm_config(bs) is not None:
@@ -356,14 +370,11 @@ class ParallelExecutor(Executor):
                 "the global-batch `mean` already scales the loss gradient; "
                 "build the program with a mean-reduced loss "
                 "(GradientScaleStrategy.One) instead")
-        for field_, part in (("pipeline_stages", "pipeline parallelism"),
-                             ("auto_parallel", "the auto-parallel planner"),
-                             ("offload_optimizer_state",
+        for field_, part in (("offload_optimizer_state",
                               "offload.HostOptimizerState"),
                              ("memory_plan", "the memory planner on the "
                               "rewritten program")):
-            v = getattr(bs, field_)
-            if v and not (field_ == "pipeline_stages" and int(v) <= 1):
+            if getattr(bs, field_):
                 raise NotImplementedError(_WAIT.format(
                     what=f"BuildStrategy.{field_}", part=part))
         if (bs.enable_sequence_parallel
@@ -411,8 +422,11 @@ class ParallelExecutor(Executor):
 
     # -- the rewrites -----------------------------------------------------
     def _manual(self, program) -> bool:
-        return (getattr(program, "_dp_comm_applied", False)
-                and not getattr(program, "_zero1_applied", False))
+        """Does the step run per rank (the explicit dp modes, a pipeline)
+        rather than under global-batch semantics?"""
+        return ((getattr(program, "_dp_comm_applied", False)
+                 and not getattr(program, "_zero1_applied", False))
+                or getattr(program, "_pp_applied", False))
 
     def _gate_manual_mode(self, program: Program, what: str):
         """≙ the JAX package's gate: the explicit modes refuse parameters
@@ -468,35 +482,149 @@ class ParallelExecutor(Executor):
         return rewritten
 
     def _prepare_program(self, program: Program, scope: Scope) -> Program:
-        """The program as this executor runs it: tp_shard_pass for a
-        tp-annotated program on a tp mesh, then grad_comm's rewrite for
-        the explicit modes (ReduceScatter / quant_comm) or for ZeRO-1
-        (Reduce); cached per (program, version, config)."""
-        if getattr(program, "_dp_comm_applied", False):
+        """The program as this executor runs it, each rewrite cached per
+        (program, version, config):
+
+        0. the auto-parallel planner (`auto_parallel`) may first replace
+           the strategy and mesh the rewrites below are made for;
+        1. tp_shard_pass for a tp-annotated program on a tp mesh;
+        2. grad_comm's rewrite for the explicit modes (ReduceScatter /
+           quant_comm), or for ZeRO-1 (Reduce) when no pipeline runs (the
+           pipeline's step is per rank: its region averages over dp);
+        3. pipeline_partition_pass (`pipeline_stages` >= 2) on the
+           (possibly comm-rewritten) program."""
+        if getattr(program, "_pp_applied", False):
             return program
+        self._maybe_auto_plan(program)
         bs = self.build_strategy
-        cfg = _grad_comm.explicit_comm_config(bs)
-        program = self._apply_tp_shard(program)
-        if cfg is not None:
-            self._gate_manual_mode(
-                program, "the explicit gradient pipeline (ReduceScatter / "
-                "quant_comm)")
-        elif bs.reduce_strategy == ReduceStrategy.Reduce:
-            cfg = {"shard_update": True, "quant": "",
-                   "block": int(bs.quant_comm_block),
-                   "error_feedback": False,
-                   "bucket_bytes": int(bs.comm_bucket_bytes),
-                   "global_batch": True}
-        else:
-            self._gate_manual_mode(program, "ParallelExecutor")
-            return program
-        key = (id(program), program._version, tuple(sorted(cfg.items())))
-        rewritten = self._comm_cache.get(key)
+        pcfg = _pipeline.pipeline_config(bs)
+        if not getattr(program, "_dp_comm_applied", False):
+            program = self._apply_tp_shard(program)
+            cfg = _grad_comm.explicit_comm_config(bs)
+            if cfg is not None:
+                self._gate_manual_mode(
+                    program, "the explicit gradient pipeline "
+                    "(ReduceScatter / quant_comm)")
+            elif bs.reduce_strategy == ReduceStrategy.Reduce \
+                    and pcfg is None:
+                cfg = {"shard_update": True, "quant": "",
+                       "block": int(bs.quant_comm_block),
+                       "error_feedback": False,
+                       "bucket_bytes": int(bs.comm_bucket_bytes),
+                       "global_batch": True}
+            else:
+                self._gate_manual_mode(program, "ParallelExecutor")
+            if cfg is not None:
+                key = (id(program), program._version,
+                       tuple(sorted(cfg.items())))
+                rewritten = self._comm_cache.get(key)
+                if rewritten is None:
+                    rewritten = _grad_comm.comm_optimize_pass(
+                        program, self._dp, cfg)
+                    rewritten._zero1_applied = bool(cfg.get("global_batch"))
+                    self._comm_cache[key] = rewritten
+                program = rewritten
+        if pcfg is not None:
+            program = self._apply_pipeline(program, pcfg)
+        return program
+
+    def _apply_pipeline(self, program: Program, pcfg: Dict) -> Program:
+        """pipeline_partition_pass (cached) for the resolved pipeline
+        config, on a mesh whose pp axis has exactly one rank per stage."""
+        enforce(PIPELINE_AXIS in self.mesh.axes
+                and self.mesh.axis_size(PIPELINE_AXIS) == pcfg["stages"],
+                f"BuildStrategy.pipeline_stages={pcfg['stages']} needs a "
+                f"{PIPELINE_AXIS!r} mesh axis of exactly that size; this "
+                f"mesh has axes {dict(self.mesh.axes)}",
+                exc=InvalidArgumentError)
+        self._gate_manual_mode(program, "pipeline-parallel execution")
+        key = (id(program), program._version, tuple(sorted(pcfg.items())))
+        rewritten = self._pp_cache.get(key)
         if rewritten is None:
-            rewritten = _grad_comm.comm_optimize_pass(program, self._dp, cfg)
-            rewritten._zero1_applied = bool(cfg.get("global_batch"))
-            self._comm_cache[key] = rewritten
+            from ..framework.passes import get_pass
+            has_dp = DATA_AXIS in self.mesh.axes
+            rewritten = get_pass(
+                "pipeline_partition_pass",
+                num_stages=pcfg["stages"],
+                num_microbatches=pcfg["microbatches"],
+                schedule=pcfg["schedule"],
+                dp_axis=DATA_AXIS if has_dp else "",
+                # grad_comm owns the dp reduction when its rewrite ran
+                reduce_dp=(has_dp and not getattr(
+                    program, "_dp_comm_applied", False)),
+            )(program)
+            rewritten._zero1_applied = False
+            self._pp_cache[key] = rewritten
         return rewritten
+
+    # -- the auto-parallel planner ------------------------------------------
+    def _maybe_auto_plan(self, program: Program):
+        """BuildStrategy.auto_parallel: run the planner
+        (framework/auto_parallel.py) once per (program version, rank count,
+        batch) and ADOPT its choice — the chosen BuildStrategy knobs and the
+        chosen factorization of this executor's ranks. Planning starts from
+        the user's strategy (the quantized wire stays pinned to it), so
+        repeated prepares converge. The kill switch PTPU_AUTO_PARALLEL=0
+        reverts to the user's strategy and mesh. A new mesh is made on
+        every rank in the same order (its process groups are collective
+        calls): every rank of the world runs this executor."""
+        from ..core import flags
+        if not getattr(self.build_strategy, "auto_parallel", False):
+            return
+        if not flags.get_flag("auto_parallel"):
+            orig = getattr(self, "_auto_orig", None)
+            if orig is not None and getattr(self, "_auto_adopted", False):
+                self.build_strategy, self.mesh = orig
+                self._dp = self.mesh.axis_size(DATA_AXIS)
+                self._auto_adopted = False
+                self._auto_plan = None
+                self._auto_plan_keys = set()
+            return
+        if (getattr(program, "_dp_comm_applied", False)
+                or getattr(program, "_pp_applied", False)):
+            return   # already-rewritten view: the decision was made
+        batch = max((s[0] for s in self._feed_shapes.values()
+                     if len(s) >= 1), default=8)
+        key = (id(program), program._version, self.mesh.num_devices,
+               int(batch))
+        done = getattr(self, "_auto_plan_keys", None)
+        if done is None:
+            done = self._auto_plan_keys = set()
+        if key in done:
+            return
+        from ..framework import auto_parallel as _auto
+        if not getattr(self, "_auto_orig", None):
+            self._auto_orig = (self.build_strategy, self.mesh)
+        base = self._auto_orig[0]
+        # the numerics-preserving space, memory plans left out: the port
+        # runs none on a rewritten program yet (ROADMAP.md §1 item 4)
+        space = _auto.numerics_preserving_space(base)
+        space.memory_plan = (False,)
+        result = _auto.plan(
+            program, self.mesh.num_devices, nominal_batch=int(batch),
+            strategy_base=base, space=space)
+        done.add(key)
+        self._auto_plan = result
+        self.build_strategy = result.strategy
+        if dict(result.mesh_axes) != dict(self.mesh.axes):
+            meshes = getattr(self, "_auto_meshes", None)
+            if meshes is None:
+                meshes = self._auto_meshes = {}
+            axes_key = tuple(sorted(result.mesh_axes.items()))
+            mesh = meshes.get(axes_key)
+            if mesh is None:
+                mesh = meshes[axes_key] = DeviceMesh(
+                    self._auto_orig[1].ranks, dict(result.mesh_axes))
+            self.mesh = mesh
+            self._pp_transport = None
+        self._dp = self.mesh.axis_size(DATA_AXIS)
+        self._auto_adopted = True
+
+    def auto_plan_report(self):
+        """The adopted PlanResult of the auto-parallel planner — None
+        until a prepare ran with BuildStrategy.auto_parallel=True (and the
+        PTPU_AUTO_PARALLEL kill switch up)."""
+        return getattr(self, "_auto_plan", None)
 
     def prepare_program(self, program: Optional[Program] = None,
                         scope: Optional[Scope] = None) -> Program:
@@ -590,6 +718,15 @@ class ParallelExecutor(Executor):
                 f"(≙ SplitLoDTensor batch split needs one batch size)",
                 exc=InvalidArgumentError)
         b = sizes.pop()
+        m = getattr(program, "_pp_microbatches", 0)
+        if m:
+            enforce(b % (self._dp * m) == 0,
+                    f"feed batch size {b} is not divisible by "
+                    f"dp * num_microbatches = {self._dp} * {m}: the "
+                    f"pipeline schedule derives the global-mean loss from "
+                    f"EQUAL microbatches on EQUAL dp shards, so "
+                    f"wrap-padding would bias it. Feed divisible batches "
+                    f"in pipeline mode", exc=InvalidArgumentError)
         if b % self._dp == 0:
             return feed, b, b
         enforce(_grad_comm.explicit_comm_config(self.build_strategy) is None,
@@ -647,9 +784,22 @@ class ParallelExecutor(Executor):
         return out
 
     def _check_fetches(self, program, fetch_names, batch_led):
-        """The explicit modes return non-batch-led fetches as the mean over
-        dp: a directly detectable sum fetch is refused (≙ the JAX
-        package's contract)."""
+        """A pipeline's forward activations exist per microbatch on their
+        stage only: fetching one is refused. The manual modes return
+        non-batch-led fetches as the mean over dp: a directly detectable
+        sum fetch is refused (≙ the JAX package's contract)."""
+        hidden = getattr(program, "_pp_hidden", frozenset())
+        for name in fetch_names:
+            enforce(name not in hidden,
+                    f"fetch target {name!r} is a forward activation "
+                    f"(or a value derived from one — e.g. a pruned "
+                    f"metric head) computed inside the pipeline "
+                    f"region: its values only ever exist "
+                    f"per-microbatch on their stage's device, so "
+                    f"pipeline mode can fetch only the loss (and "
+                    f"values computed outside the region). Drop the "
+                    f"fetch or run without pipeline_stages",
+                    exc=InvalidArgumentError)
         if not self._manual(program) or DATA_AXIS not in self.mesh.axes:
             return
         producers = {n: op.type for blk in program.blocks
@@ -691,6 +841,12 @@ class ParallelExecutor(Executor):
 
     def _step_extras(self, plan) -> Dict[str, Any]:
         program = plan.program
+        if getattr(program, "_pp_applied", False):
+            if self._pp_transport is None \
+                    or self._pp_transport.mesh is not self.mesh:
+                self._pp_transport = _pipeline.DistTransport(
+                    self.mesh, PIPELINE_AXIS)
+            return {"pp_transport": self._pp_transport}
         if self._manual(program):
             return {}
         extras = {"op_overrides": GLOBAL_BATCH_OPS}
@@ -705,13 +861,19 @@ class ParallelExecutor(Executor):
                 _grad_comm.dp_index_scope(
                     self.mesh.axis_index(DATA_AXIS)), \
                 _tensor_parallel.tp_index_scope(
-                    self.mesh.axis_index(MODEL_AXIS)):
+                    self.mesh.axis_index(MODEL_AXIS)), \
+                _pipeline.pp_index_scope(
+                    self.mesh.axis_index(PIPELINE_AXIS)):
             return super()._run_env(plan, feed_vals, ro_vals, rw_vals,
                                     random_seed)
 
     def _enter(self, program, scope, feeds):
         program = program or self.main_program or default_main_program()
         scope = scope or self.scope
+        if feeds and feeds[0]:
+            # the planner's nominal batch
+            self._feed_shapes = {n: np.shape(v)
+                                 for n, v in feeds[0].items()}
         program = self._prepare_program(program, scope)
         self._sync_state(program, scope)
         real_b = padded_b = None
@@ -779,18 +941,31 @@ class ParallelExecutor(Executor):
         return self._finish(program, names, fetches, real_b, padded_b,
                             True, return_numpy)
 
-    # -- waiting ------------------------------------------------------------
-    def auto_plan_report(self):
-        raise NotImplementedError(_WAIT.format(
-            what="auto_plan_report", part="the auto-parallel planner"))
+    # -- reports ------------------------------------------------------------
+    def cost_report(self, program: Optional[Program] = None,
+                    scope: Optional[Scope] = None,
+                    nominal_batch: int = 8) -> Dict:
+        """framework.costs.predict() over the program AS THIS EXECUTOR
+        RUNS IT (after the tp / dp-comm / pipeline rewrites), with the
+        mesh's dp / tp degrees filled in."""
+        from ..framework import costs as _costs
+        program = program or self.main_program or default_main_program()
+        rewritten = self._prepare_program(program, scope or self.scope)
+        return _costs.predict(rewritten, self.build_strategy, dp=self._dp,
+                              tp=self.mesh.axis_size(MODEL_AXIS),
+                              nominal_batch=nominal_batch)
 
-    def cost_report(self, program=None, scope=None, nominal_batch=8):
-        raise NotImplementedError(_WAIT.format(
-            what="the sharded cost_report",
-            part="costs.predict for tp, dp-comm and pipeline programs"))
-
-    def memory_report(self, feed, program=None, scope=None,
-                      nominal_batch=8):
-        raise NotImplementedError(_WAIT.format(
-            what="the sharded memory_report",
-            part="costs.predict for tp, dp-comm and pipeline programs"))
+    def memory_report(self, feed, program: Optional[Program] = None,
+                      scope: Optional[Scope] = None,
+                      nominal_batch: int = 8) -> Dict:
+        """Predicted and measured memory of the program as run, in one
+        dict: `predicted` is cost_report()["memory"], `measured` the
+        census of one step on this rank (`observability.memory.
+        device_memory_census`, run on copies of the state; every rank of
+        the mesh calls it together, as a step)."""
+        from ..observability.memory import device_memory_census
+        report = self.cost_report(program=program, scope=scope,
+                                  nominal_batch=nominal_batch)
+        program, scope, (lfeed,), _, _ = self._enter(program, scope, [feed])
+        census = device_memory_census(self, lfeed, scope, program=program)
+        return {"predicted": report["memory"], "measured": census}

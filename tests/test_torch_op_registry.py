@@ -33,8 +33,8 @@ WAITING_LAYERS = set()
 
 
 # ops of the JAX package's parallel package that wait, with their item:
-# the pipeline schedule's boundary ops and region
-WAITING_OPS = {"pp_send", "pp_recv", "pp_pipeline_region"}
+# none: the pipeline's boundary ops and region are ported
+WAITING_OPS = set()
 
 
 def test_port_registers_exactly_the_jax_ops():
@@ -54,7 +54,7 @@ def test_port_registers_exactly_the_jax_ops():
     assert sorted(jops - tops) == sorted(WAITING_OPS), \
         "ops the port does not lower"
     assert sorted(tops - jops) == [], "ops only the port registers"
-    assert len(jops) == 240 and len(tops) == 237
+    assert len(jops) == 240 and len(tops) == 240
 
 
 def test_port_layers_have_every_jax_layer():
@@ -93,8 +93,6 @@ RENAMED = {"TPUPlace": "CUDAPlace", "is_compiled_with_tpu":
 EXCLUDED = {"paddle_tpu.data.download", "paddle_tpu.data.md5file"}
 _ITEM4 = "ROADMAP.md §1 item 4: "
 _MULTI = _ITEM4 + "multi-GPU parallelism"
-_PIPE = _ITEM4 + "pipeline parallelism"
-_AUTO = _ITEM4 + "the auto-parallel planner and the collective census"
 _ELASTIC = _ITEM4 + "elasticity and sharded checkpoints"
 _ANALYSIS = _ITEM4 + "analysis, planning and observability"
 _TRANSPILER = _ITEM4 + "transpiler/"
@@ -102,13 +100,6 @@ _HOST = _ITEM4 + "host-side utilities"
 # API.spec prefixes (a path and everything under it) still to be ported,
 # each with the ROADMAP item that takes it
 WAITING = {
-    "paddle_tpu.parallel.pipeline": _PIPE,
-    "paddle_tpu.framework.auto_parallel": _AUTO,
-    # the XLA HLO-text parsers: the census is to be read from NCCL's
-    # kernels instead
-    **{f"paddle_tpu.framework.costs.{n}": _AUTO
-       for n in ("collective_census", "hlo_liveness_temp_bytes",
-                 "hlo_shape_bytes")},
     "paddle_tpu.parallel.elastic": _ELASTIC,
     "paddle_tpu.parallel.reshard": _ELASTIC,
     "paddle_tpu.parallel.process_world": _ELASTIC,
