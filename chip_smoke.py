@@ -324,6 +324,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    o, lse, dq, dk and dv held against one K1-K3 call over the whole
    sequence within 3 slacks of ops/flash_attention.py's bounds, no NaN,
    K1 launched 10 times for an unpacked causal forward, and both timed.
+43. pipeline-parallel training of phase 7's LM: the one-process engine at
+   K 2 (GPipe, 1F1B) and K 4 held against the plain Executor, a world
+   over the cards through ParallelExecutor (pp 2 refused on one card),
+   and the auto-parallel planner's plans and adoption.
+44. elastic training of phase 7's LM at full width in float32 (TF32 and
+   use_bf16_matmul off): (a) in a world of one rank on NCCL, through
+   ParallelExecutor in Reduce (ZeRO-1) and ReduceScatter on the int8 wire
+   with error feedback, 4 uninterrupted steps; 2 steps, a snapshot with
+   block=False (the copy into pinned memory on a side stream, the
+   compute stream ordered after it), 2 more; a fresh scope and executor
+   restoring it and running steps 3-4; the same with block=True — every
+   run's losses, state and per-step K1-K3 launches bitwise the
+   uninterrupted run's, with the snapshot's bytes, the async save's cost
+   on the step path against the blocking save's wall, d2h and write
+   GB/s and restore seconds; (c) on one card, the plain Executor's
+   snapshot restored into ParallelExecutor(auto_parallel=True), which
+   runs replan_on_restore (its record logged), the next 2 steps held
+   against the plain run's; (b) this script as a supervised child
+   (`--phase44-child`, Trainer with CheckpointConfig(elastic=True,
+   async_save=True, step_interval=2), 6 steps), killed once by
+   crash_at_step:4 and once by crash_mid_save inside the step-4
+   snapshot's staged payload: each run restarts once and ends with the
+   uninterrupted child's state bitwise, resumed at step 2.
 
 Phase 3 also holds the bfloat16 cells of K5 / K6 (x, w and states in
 bfloat16, h and c carried in bfloat16 as the reference's composite
@@ -377,11 +400,14 @@ cross-attention's shapes; `launches_generate` of the flash forward, K1's
 in phase 39's encoder; `launches_phase41` / `launches_phase41_tc`, K1-K3's
 over phase 41's four variants' turns; `launches_phase42_<mode>`, K1-K3's
 over each parallel mode's 3 steps on rank 0, and `launches_phase42_ring`,
-K1's in the ring's causal forward at the LM shape; K5 / K6's `*_bf16` and the
+K1's in the ring's causal forward at the LM shape;
+`launches_per_step_phase43_<run>` and `launches_per_step_phase44_<mode>`,
+K1-K3's a step of phase 43's pipelined runs and phase 44's uninterrupted
+runs; K5 / K6's `*_bf16` and the
 GRU's `*_crnn_bf16` keys, their bfloat16 rows, with `err_over_slack_bf16`
 and `launches_bf16_checks`, phase 3's bfloat16 launches: no path of the
 model zoo runs a bfloat16 recurrent cell), times, and `paths`: phases
-15-42's numbers; the last line is
+15-44's numbers; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -8189,12 +8215,597 @@ def pipeline_train_and_plan(ptt, kernels):
         ptt.flags.set_flag("use_bf16_matmul", old)
 
 
+# ---------------------------------------------------------------------------
+# phase 44: elastic training of phase 7's LM (snapshots, crash and resume)
+# ---------------------------------------------------------------------------
+
+#: (a): the uninterrupted run's steps, and the step after which a run
+#: snapshots; (b): the supervised child's steps and its snapshot interval
+ELASTIC_STEPS, ELASTIC_SAVE_AT = 4, 2
+CHILD_STEPS, CHILD_INTERVAL = 6, 2
+#: (a)'s two modes: (label, ReduceStrategy name, quantized wire)
+ELASTIC_MODES = (("reduce_zero1", "Reduce", ""),
+                 ("reduce_scatter_int8_ef", "ReduceScatter", "int8"))
+
+
+def _state_bytes(main):
+    """The bytes of the program's persistable state (what a snapshot of
+    it writes, less the containers' headers)."""
+    import numpy as np
+    from paddle_tpu_torch.core.dtypes import convert_dtype
+    total = 0
+    for v in main.global_block().vars.values():
+        if v.persistable and v.shape and -1 not in v.shape:
+            import torch
+            total += int(np.prod(v.shape)) * torch.empty(
+                (), dtype=convert_dtype(v.dtype)).element_size()
+    return total
+
+
+def _state_of(scope):
+    return {n: scope.get(n).detach().clone() for n in scope.local_var_names()
+            if hasattr(scope.get(n), "detach")}
+
+
+def _bitwise(a, b):
+    """Names whose tensors differ in any bit (or are missing) between two
+    state dicts."""
+    import torch
+    bad = sorted(set(a) ^ set(b))
+    for n in sorted(set(a) & set(b)):
+        x, y = a[n], b[n]
+        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(
+                x.reshape(-1).view(torch.uint8) if x.dtype != torch.bool
+                else x, y.reshape(-1).view(torch.uint8)
+                if y.dtype != torch.bool else y):
+            bad.append(n)
+    return bad
+
+
+class _ElasticLM:
+    """Phase 7's LM at full width in float32 through ParallelExecutor on
+    `mesh` in one mode, from phase 44's one init: `steps(feeds)` runs them
+    timed, each step's K1-K3 launches counted from zero around it."""
+
+    def __init__(self, ptt, kernels, init, mode, quant, mesh,
+                 auto=False):
+        from paddle_tpu_torch.parallel import (BuildStrategy,
+                                               ParallelExecutor,
+                                               ReduceStrategy)
+        self.kernels = kernels
+        self.main, _, self.loss = _train_program(ptt, TRAIN, mean_loss=True)
+        self.scope = ptt.Scope()
+        for n, v in init.items():
+            self.scope.set_var(n, v.clone())
+        bst = (BuildStrategy(auto_parallel=True) if auto else
+               BuildStrategy(reduce_strategy=getattr(ReduceStrategy, mode),
+                             quant_comm=quant,
+                             comm_error_feedback=bool(quant)))
+        self.pe = ParallelExecutor(use_cuda=True, loss_name=self.loss.name,
+                                   main_program=self.main, scope=self.scope,
+                                   mesh=mesh, build_strategy=bst)
+
+    def steps(self, feeds):
+        import torch
+        losses, secs, launches = [], [], []
+        for f in feeds:
+            torch.cuda.synchronize()
+            self.kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = self.pe.run(fetch_list=[self.loss], feed=f,
+                              return_numpy=False)
+            losses.append(float(out[0].reshape(-1)[0]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches.append({k: self.kernels.LAUNCHES[k] for k in FLASH})
+        return losses, secs, launches
+
+
+def _snapshot_resume_one_card(ptt, kernels, mesh, init, feeds, root):
+    """Phase 44(a): in each mode, the uninterrupted run; a run that
+    snapshots after step 2 without blocking (block=False: the copy on
+    the side stream, ordered before step 3's in-place updates) and runs
+    on; a fresh scope and executor restoring that snapshot; the same with
+    block=True. Every run's losses, state and per-step K1-K3 launches
+    must be bitwise the uninterrupted run's."""
+    import torch
+    from paddle_tpu_torch.parallel import elastic
+    out, failed = {}, []
+    k = ELASTIC_SAVE_AT
+    for label, mode, quant in ELASTIC_MODES:
+        ref = _ElasticLM(ptt, kernels, init, mode, quant, mesh)
+        ref_l, ref_s, ref_n = ref.steps(feeds)
+        ref_state = _state_of(ref.scope)
+        snap_bytes = _state_bytes(ref.pe.prepare_program())
+        del ref
+        r = {"losses": ref_l, "step_ms": [x * 1e3 for x in ref_s],
+             "launches_per_step": ref_n, "state_bytes": snap_bytes}
+        for block in (False, True):
+            tag = "block" if block else "async"
+            root_b = os.path.join(root, f"{label}_{tag}")
+            run = _ElasticLM(ptt, kernels, init, mode, quant, mesh)
+            l1, s1, n1 = run.steps(feeds[:k])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = elastic.save_train_state(root_b, executor=run.pe,
+                                         program=run.main, scope=run.scope,
+                                         step=k, block=block)
+            call_s = time.perf_counter() - t0
+            l2, s2, n2 = run.steps(feeds[k:])
+            if not block:
+                t0 = time.perf_counter()
+                path = h.result(timeout=600)
+                drain_s = time.perf_counter() - t0
+            else:
+                path, drain_s = h, 0.0
+            stats = dict(elastic.last_save)
+            assert stats["path"] == path
+            got = _bitwise(_state_of(run.scope), ref_state)
+            del run
+            fresh = _ElasticLM(ptt, kernels, init, mode, quant, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meta = elastic.restore_train_state(
+                path, program=fresh.main, scope=fresh.scope,
+                executor=fresh.pe)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            l3, s3, n3 = fresh.steps(feeds[k:])
+            resumed = _bitwise(_state_of(fresh.scope), ref_state)
+            del fresh
+            nbytes = stats["bytes"]
+            r[tag] = {
+                "losses": l1 + l2, "resumed_losses": l3,
+                "save_call_ms": call_s * 1e3,
+                "step_after_save_ms": s2[0] * 1e3,
+                "step_path_cost_ms": (call_s + s2[0] - ref_s[k]) * 1e3,
+                "drain_after_steps_ms": drain_s * 1e3,
+                "snapshot_bytes": nbytes,
+                "d2h_gb_s": (nbytes / stats["d2h_s"] / 1e9
+                             if stats["d2h_s"] else None),
+                "write_gb_s": nbytes / stats["write_s"] / 1e9,
+                "write_s": stats["write_s"], "restore_s": restore_s,
+                "restored_run_counter": meta["run_counter"],
+                "launches_per_step": n1 + n2,
+                "resumed_launches_per_step": n3,
+                "state_not_bitwise": got, "resumed_not_bitwise": resumed}
+            checks = [(f"{label}_{tag}_losses", l1 + l2 == ref_l),
+                      (f"{label}_{tag}_state", not got),
+                      (f"{label}_{tag}_resumed_losses", l3 == ref_l[k:]),
+                      (f"{label}_{tag}_resumed_state", not resumed),
+                      (f"{label}_{tag}_launches", n1 + n2 == ref_n),
+                      (f"{label}_{tag}_resumed_launches", n3 == ref_n[k:]),
+                      (f"{label}_{tag}_bytes",
+                       abs(nbytes - snap_bytes) <= 0.01 * snap_bytes)]
+            failed += [c for c, ok in checks if not ok]
+            x = r[tag]
+            log(f"  (a) [{label}, {tag}] losses {x['losses']} (uninterrupted"
+                f" {ref_l}); restored: {l3}; state bitwise: "
+                f"{not got and not resumed} (differing {got + resumed}); "
+                f"snapshot {nbytes / 1e9:.3f} GB (program's state "
+                f"{snap_bytes / 1e9:.3f} GB); save call "
+                f"{x['save_call_ms']:.1f} ms, the next step "
+                f"{x['step_after_save_ms']:.1f} ms (uninterrupted "
+                f"{ref_s[k] * 1e3:.1f}), on the step path "
+                f"{x['step_path_cost_ms']:.1f} ms; d2h "
+                f"{x['d2h_gb_s'] or 0:.2f} GB/s, write+commit "
+                f"{stats['write_s']:.2f} s ({x['write_gb_s']:.2f} GB/s); "
+                f"restore {restore_s:.2f} s; K1-K3 a step "
+                f"{n3[0]} (uninterrupted {ref_n[k]})")
+        out[label] = r
+    return out, failed
+
+
+def _replan_one_card(ptt, kernels, mesh, init, feeds, root):
+    """Phase 44(c) on one card: the plain Executor's snapshot (no mesh)
+    restored into ParallelExecutor(auto_parallel=True) on the world of
+    one: the saved world differs from the mesh, so replan_on_restore
+    prices keeping against re-planning; the next 2 steps are held
+    against the plain run's (losses 1e-5 relative, parameters within
+    Adam's move)."""
+    import torch
+    from paddle_tpu_torch.parallel import elastic
+    k = ELASTIC_SAVE_AT
+    main, start, loss = _train_program(ptt, TRAIN, mean_loss=True)
+    sc = ptt.Scope()
+    for n, v in init.items():
+        sc.set_var(n, v.clone())
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    plain = []
+    for i, f in enumerate(feeds):
+        plain.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                   scope=sc)[0]))
+        if i + 1 == k:
+            path = elastic.save_train_state(os.path.join(root, "plain"),
+                                            program=main, scope=sc,
+                                            executor=exe, step=k)
+    want = {p.name: sc.get(p.name).clone() for p in main.all_parameters()}
+    del sc, exe
+    run = _ElasticLM(ptt, kernels, init, None, "", mesh, auto=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = elastic.restore_train_state(path, program=run.main,
+                                       scope=run.scope, executor=run.pe)
+    restore_s = time.perf_counter() - t0
+    losses, _, launches = run.steps(feeds[k:])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain[k:]))
+    worst = max(float((run.scope.get(n) - w).abs().max())
+                for n, w in want.items())
+    rp = meta["replan"]
+    out = {"replan": {"replanned": rp["replanned"],
+                      "kept": rp["kept"]["strategy"],
+                      "chosen": rp["chosen"]["point"],
+                      "gain_s_per_step": rp["gain_s_per_step"],
+                      "amortize_steps": rp["amortize_steps"],
+                      "search_s": rp["search_s"]},
+           "losses": losses, "plain_losses": plain[k:],
+           "max_loss_rel": rel, "param_worst": worst,
+           "restore_s": restore_s, "launches_per_step": launches}
+    log(f"  (c) one card: the plain Executor's snapshot (world {{}}) into "
+        f"ParallelExecutor(auto_parallel) on {dict(mesh.axes)}: replan "
+        f"{out['replan']}; losses {losses} (plain {plain[k:]}, largest "
+        f"relative difference {rel:.2e}); parameters within {worst:.2e} "
+        f"(Adam's move {2 * TRAIN['lr'] * k:.1e}); read "
+        f"{meta['restore_read_bytes']} B (the reshard plan's "
+        f"{meta['reshard']['rank_read_bytes']}); restore "
+        f"{restore_s:.2f} s; K1-K3 a step {launches[0]}")
+    out["read_bytes"] = meta["restore_read_bytes"]
+    out["planned_read_bytes"] = meta["reshard"]["rank_read_bytes"]
+    failed = [c for c, ok in (("replan_losses", rel <= 1e-5),
+                              ("replan_params",
+                               worst <= 2 * TRAIN["lr"] * k + 1e-6),
+                              ("replan_read_bytes", out["read_bytes"]
+                               == out["planned_read_bytes"]))
+              if not ok]
+    return out, failed
+
+
+def phase44_child(root, out, fault=""):
+    """Phase 44(b)'s child (`chip_smoke.py --phase44-child root out
+    [fault]`): phase 7's LM in float32 through Trainer, CHILD_STEPS
+    steps, an async elastic snapshot every CHILD_INTERVAL steps, resuming
+    from the latest committed one. `fault` arms PTPU_FAULT_INJECT in the
+    first incarnation only (a file in `root` marks it): `crash_at_step`
+    kills the process before step 4 (after the step-2 snapshot
+    committed); `crash_mid_save:<offset>` kills it that far into the
+    step-4 snapshot's staged payload. Writes its state, the step it
+    resumed at and each step's K1-K3 launches to `out` (torch.save)."""
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.parallel import elastic
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    kernels.build(["flash_attention"])
+    armed = os.path.join(root, "armed")
+    arm = bool(fault) and not os.path.exists(armed)
+    if arm:
+        os.makedirs(root, exist_ok=True)
+        open(armed, "w").close()
+    feeds = _lm_steps_feeds(TRAIN, CHILD_STEPS, SEED + 44)
+
+    def samples():
+        for f in feeds:
+            yield from zip(f["tokens"], f["targets"])
+
+    def train_func():
+        from paddle_tpu_torch.models import transformer
+        c = TRAIN
+        return transformer.transformer_lm(
+            vocab=c["vocab"], max_len=c["max_len"], d_model=c["d_model"],
+            d_inner=c["d_inner"], num_heads=c["num_heads"],
+            num_layers=c["num_layers"], mean_loss=True)[0]
+
+    # epoch_interval 2: one epoch here, so its end snapshots once (the
+    # final snapshot), not twice with the same state
+    cfg = ptt.CheckpointConfig(os.path.join(root, "ckpt"),
+                               step_interval=CHILD_INTERVAL,
+                               epoch_interval=2, elastic=True,
+                               async_save=True)
+    with ptt.unique_name.guard():
+        tr = ptt.Trainer(train_func,
+                         lambda: ptt.optimizer.Adam(learning_rate=TRAIN["lr"]),
+                         place=ptt.CUDAPlace(0), checkpoint_config=cfg)
+    resumed_at = cfg.step_id
+    launches, losses = [], []
+
+    def handler(ev):
+        if isinstance(ev, ptt.BeginStepEvent):
+            kernels.reset_launch_counts()
+        elif isinstance(ev, ptt.EndStepEvent):
+            losses.append(float(ev.metrics[0]))
+            launches.append({k: kernels.LAUNCHES[k] for k in FLASH})
+            if arm and ev.step == 2:
+                # the step-2 snapshot commits before the fault arms
+                elastic.wait_for_pending()
+                os.environ["PTPU_FAULT_INJECT"] = (
+                    "crash_at_step:4" if fault == "crash_at_step"
+                    else fault)
+
+    reader = ptt.data.batch(samples, TRAIN["batch"])
+    tr.train(1, handler, reader, ["tokens", "targets"])
+    torch.save({"state": {n: v.cpu() for n, v in _state_of(tr.scope)
+                          .items()},
+                "resumed_at": resumed_at, "losses": losses,
+                "launches": launches}, out)
+
+
+def _supervised_crashes(ptt, root, state_bytes):
+    """Phase 44(b): two supervised runs of the child (this script with a
+    private argument) that crash once and resume — crash_at_step, and
+    crash_mid_save a third of the way into the step-4 snapshot's staged
+    payload (past its manifest, inside the shard container; that
+    uncommitted snapshot must be skipped: the run resumes at step 2) —
+    each Supervisor on its own thread, while this process runs the
+    uninterrupted child. Each must finish with the uninterrupted
+    child's state, bitwise."""
+    import threading
+
+    import torch
+    runs = {"crash_at_step": "crash_at_step",
+            "crash_mid_save": f"crash_mid_save:{state_bytes // 3}"}
+    sups, results = {}, {}
+
+    def supervise(label):
+        t0 = time.perf_counter()
+        results[label] = (sups[label].run(), time.perf_counter() - t0)
+
+    threads = []
+    for label, fault in runs.items():
+        sups[label] = ptt.trainer.Supervisor(
+            [sys.executable, os.path.abspath(__file__), "--phase44-child",
+             os.path.join(root, label), os.path.join(root, f"{label}.pt"),
+             fault], max_restarts=2, backoff_s=0.0, sleep_fn=lambda s: None)
+        threads.append(threading.Thread(target=supervise, args=(label,)))
+        threads[-1].start()
+    t0 = time.perf_counter()
+    ref_out = os.path.join(root, "ref.pt")
+    phase44_child(os.path.join(root, "ref"), ref_out)
+    ref = torch.load(ref_out)
+    out, failed = {"uninterrupted_s": time.perf_counter() - t0,
+                   "losses": ref["losses"]}, []
+    for t in threads:
+        t.join(900)
+    for label in runs:
+        sup = sups[label]
+        rc, wall = results.get(label, (None, None))
+        o = os.path.join(root, f"{label}.pt")
+        got = torch.load(o) if rc == 0 else {"state": {}, "launches": [],
+                                              "resumed_at": None}
+        diff = _bitwise(got["state"], ref["state"])
+        steps_run = len(got["launches"])
+        out[label] = {"rc": rc, "restarts": sup.restarts,
+                      "exit_codes": sup.exit_codes,
+                      "resumed_at": got["resumed_at"],
+                      "steps_after_resume": steps_run, "not_bitwise": diff,
+                      "launches_per_step": got["launches"], "wall_s": wall}
+        log(f"  (b) [{label}] Supervisor: exit codes {sup.exit_codes}, "
+            f"{sup.restarts} restart(s); resumed at step "
+            f"{got['resumed_at']}, ran {steps_run} step(s); state bitwise "
+            f"the uninterrupted child's: {not diff} {diff[:4]}; K1-K3 a "
+            f"step {got['launches'][:1]} (uninterrupted "
+            f"{ref['launches'][:1]}); {wall or 0:.1f} s")
+        failed += [f"{label}_{c}" for c, ok in (
+            ("rc", rc == 0), ("restarts", sup.restarts == 1),
+            ("killed", sup.exit_codes[:1] == [-9]),
+            ("state", not diff),
+            ("resumed_at", got["resumed_at"] == CHILD_INTERVAL),
+            ("launches", got["launches"]
+             == ref["launches"][CHILD_STEPS - steps_run:])) if not ok]
+    log(f"  (b) the uninterrupted child in this process: "
+        f"{out['uninterrupted_s']:.1f} s, beside the two supervised runs")
+    return out, failed
+
+
+def phase44_rank(rank, world, out_path):
+    """One rank of phase 44(c)'s NCCL world of four cards: phase 7's LM
+    in float32 through ParallelExecutor in Reduce (ZeRO-1) at dp 4, 4
+    uninterrupted steps with a multi-writer snapshot after step 2 (each
+    rank stages its blocks, the chief commits over the world's store);
+    then restored as dp 2 x tp 2 (annotate_tp) and as dp 2 over ranks
+    [0, 1]: steps 3-4's losses within 1e-5 relative of the dp 4 run's,
+    each parameter block within Adam's move (2 lr a step), each rank
+    reading exactly the bytes the reshard plan gives its blocks. Writes
+    the rank's numbers to out_path.<rank>; any mismatch then raises."""
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.parallel import (BuildStrategy, DeviceMesh,
+                                           ParallelExecutor, ReduceStrategy,
+                                           annotate_tp, elastic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    kernels.build(["flash_attention"])
+    place = ptt.CUDAPlace(torch.cuda.current_device())
+    cfg, k = TRAIN, ELASTIC_SAVE_AT
+    feeds = _lm_steps_feeds(cfg, ELASTIC_STEPS, SEED + 44)
+    snap_root = os.path.join(os.path.dirname(out_path), "snapshots")
+    # every rank builds every mesh, in one order (new_group is collective)
+    meshes = {"dp4": DeviceMesh(axes={"dp": 4}),
+              "dp2tp2": DeviceMesh(axes={"dp": 2, "tp": 2}),
+              "dp2_ranks01": DeviceMesh(ranks=[0, 1], axes={"dp": 2})}
+    _, start, _ = _train_program(ptt, cfg, mean_loss=True)
+    sc0 = ptt.Scope()
+    ptt.Executor(place).run(start, scope=sc0)
+    init = {n: sc0.get(n).clone() for n in sc0.local_var_names()}
+    del sc0
+
+    def build(mesh, tp):
+        m_, _, lo = _train_program(ptt, cfg, mean_loss=True)
+        if tp:
+            annotate_tp(m_)
+        sc = ptt.Scope()
+        for n, v in init.items():
+            sc.set_var(n, v.clone())
+        pe = ParallelExecutor(use_cuda=True, loss_name=lo.name,
+                              main_program=m_, scope=sc, mesh=mesh,
+                              build_strategy=BuildStrategy(
+                                  reduce_strategy=ReduceStrategy.Reduce))
+        return m_, lo, sc, pe
+
+    def steps(pe, lo, fs):
+        losses, launches = [], []
+        for f in fs:
+            kernels.reset_launch_counts()
+            out = pe.run(fetch_list=[lo], feed=f, return_numpy=False)
+            losses.append(float(out[0].reshape(-1)[0]))
+            torch.cuda.synchronize()
+            launches.append({kk: kernels.LAUNCHES[kk] for kk in FLASH})
+        return losses, launches
+
+    main, lo, sc, pe = build(meshes["dp4"], False)
+    l1, n1 = steps(pe, lo, feeds[:k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = elastic.save_train_state(snap_root, program=main, scope=sc,
+                                    executor=pe, step=k)
+    save_s = time.perf_counter() - t0
+    l2, n2 = steps(pe, lo, feeds[k:])
+    ref = {p.name: sc.get(p.name).clone() for p in main.all_parameters()}
+    res = {"world": world, "rank": rank, "losses": l1 + l2,
+           "launches_per_step": n1 + n2, "snapshot": os.path.basename(
+               str(path)), "save_s": save_s}
+    failed = [] if path is not None else ["dp4_snapshot"]
+    del sc, pe
+    for label, tp in (("dp2tp2", True), ("dp2_ranks01", False)):
+        mesh = meshes[label]
+        if not mesh.in_mesh:
+            continue
+        main, lo, sc, pe = build(mesh, tp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = elastic.restore_train_state(path, program=main, scope=sc,
+                                           executor=pe)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        l3, n3 = steps(pe, lo, feeds[k:])
+        prog = pe.prepare_program()
+        worst = max(float((sc.get(n) - mesh.local_slice(
+            w, pe.state_sharding(prog, n))).abs().max())
+            for n, w in ref.items())
+        rel = max(abs(a - b) / abs(b) for a, b in zip(l3, l2))
+        rs = meta["reshard"]
+        r = {"losses": l3, "max_loss_rel": rel, "param_worst": worst,
+             "restore_s": restore_s, "launches_per_step": n3,
+             "reshard": {x: rs[x] for x in ("old_world", "new_world",
+                                            "n_vars", "n_moved",
+                                            "wire_bytes", "read_bytes",
+                                            "steps", "rank_read_bytes")},
+             "read_bytes": meta["restore_read_bytes"]}
+        res[label] = r
+        failed += [f"{label}_{c}" for c, ok in (
+            ("loss", rel <= 1e-5),
+            ("params", worst <= 2 * cfg["lr"] * (ELASTIC_STEPS - k) + 1e-6),
+            ("read_bytes", r["read_bytes"] == rs["rank_read_bytes"]),
+            ("launches", n3 == n2)) if not ok]
+        del sc, pe
+    res["failed"] = failed
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(res, f)
+    print(json.dumps(res), flush=True)
+    assert not failed, f"phase 44(c) rank {rank}: {failed}"
+
+
+def _mesh_change_four_cards(ptt, root):
+    """Phase 44(c) on four cards: phase44_rank in a world of four on
+    NCCL."""
+    d = os.path.join(root, "world")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    ptt.distributed.launch(f"{os.path.abspath(__file__)}:phase44_rank", 4,
+                           args=[os.path.join(d, "rank")], place="cuda",
+                           timeout_s=300, store_dir=d)
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(d, f"rank.{r}")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    log(f"  (c) four cards: dp 4 (ZeRO-1) {r0['losses']}, the multi-writer "
+        f"snapshot {r0['snapshot']} in {r0['save_s']:.2f} s (rank 0); "
+        f"K1-K3 a step {r0['launches_per_step'][0]}; "
+        f"{time.perf_counter() - t0:.1f} s with the spawn")
+    for label in ("dp2tp2", "dp2_ranks01"):
+        for r in ranks:
+            if label not in r:
+                continue
+            x = r[label]
+            log(f"  (c) [{label}] rank {r['rank']}: losses {x['losses']} "
+                f"(largest relative difference {x['max_loss_rel']:.2e}); "
+                f"parameters within {x['param_worst']:.2e}; reshard "
+                f"{x['reshard']}; read {x['read_bytes']} B (planned "
+                f"{x['reshard']['rank_read_bytes']}); restore "
+                f"{x['restore_s']:.2f} s")
+    return {"ranks": ranks}, [f for r in ranks for f in r["failed"]]
+
+
+def elastic_train(ptt, kernels):
+    """Phase 44: (a) snapshot and resume on one card in a world of one
+    rank on NCCL, both modes; (b) crash and resume under the Supervisor;
+    (c) a snapshot into a changed world (one card: a plain Executor's
+    into an auto-parallel ParallelExecutor, replan_on_restore). All
+    snapshots go under a temporary directory, deleted at the end."""
+    import torch
+    from paddle_tpu_torch.distributed import (DistributedEnv,
+                                              destroy_parallel_env,
+                                              init_parallel_env)
+    from paddle_tpu_torch.parallel import DeviceMesh, set_default_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    old = ptt.flags.get_flag("use_bf16_matmul")
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    t0 = time.perf_counter()
+    out, failed = {}, []
+    try:
+        _, start, _ = _train_program(ptt, TRAIN, mean_loss=True)
+        sc = ptt.Scope()
+        ptt.Executor(ptt.CUDAPlace(0)).run(start, scope=sc)
+        init = {n: sc.get(n).clone() for n in sc.local_var_names()}
+        del sc
+        feeds = _lm_steps_feeds(TRAIN, ELASTIC_STEPS, SEED + 44)
+        init_parallel_env(DistributedEnv(num_trainers=1), timeout_s=300,
+                          place=ptt.CUDAPlace(0),
+                          store_path=os.path.join(root, "store"))
+        try:
+            mesh = DeviceMesh(axes={"dp": 1})
+            out["one_card"], f = _snapshot_resume_one_card(
+                ptt, kernels, mesh, init, feeds, root)
+            failed += f
+            out["replan"], f = _replan_one_card(ptt, kernels, mesh, init,
+                                                feeds, root)
+            failed += f
+        finally:
+            set_default_mesh(None)
+            destroy_parallel_env()
+        torch.cuda.empty_cache()
+        if torch.cuda.device_count() >= 4:
+            out["mesh_change"], f = _mesh_change_four_cards(ptt, root)
+            failed += f
+        out["supervised"], f = _supervised_crashes(
+            ptt, root, _state_bytes(_train_program(ptt, TRAIN)[0]))
+        failed += f
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        ptt.flags.set_flag("use_bf16_matmul", old)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 44 in {out['phase_s']:.1f} s")
+    assert not failed, f"phase 44: {failed}"
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--phase44-child"]:
+        phase44_child(*sys.argv[2:])
+        return 0
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import kernels
 
@@ -8472,6 +9083,12 @@ def main():
            "one-process engine at K 2 and 4, a world over the cards, the "
            "refusal on one) and the auto-parallel planner")
     paths["pipeline"] = pipeline_train_and_plan(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    _phase("phase 44: elastic training of phase 7's LM (async and "
+           "blocking snapshots, restores, supervised crashes, a changed "
+           "world)")
+    paths["elastic"] = elastic_train(ptt, kernels)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -8556,6 +9173,16 @@ def main():
                 run["launches_per_step"][k]
             assert run["launches_per_step"][k] > 0, \
                 f"{k} was never launched on phase 43's {label} path"
+    # phase 44: K1-K3 a step of each mode's uninterrupted run (its
+    # snapshots and restores launch none: every run and restored run
+    # launches these, step by step, or phase 44 failed)
+    for label, _, _ in ELASTIC_MODES:
+        run = paths["elastic"]["one_card"][label]
+        for k in FLASH:
+            results[k][f"launches_per_step_phase44_{label}"] = \
+                run["launches_per_step"][0][k]
+            assert run["launches_per_step"][0][k] > 0, \
+                f"{k} was never launched on phase 44's {label} path"
     # generation (phases 38-39): K4 in every decode step of both
     # generators, K1 in the encoder-decoder's encoder
     results["decode_attention"]["launches_generate"] = \

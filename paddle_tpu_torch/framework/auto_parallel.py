@@ -599,21 +599,149 @@ def plan(program, mesh_shape, *, nominal_batch: int = 8,
 
 
 # ---------------------------------------------------------------------------
-# re-plan on elastic resize: waits with elasticity and sharded checkpoints
+# re-plan on elastic resize
 # ---------------------------------------------------------------------------
+
+
+def _adopt_mesh(executor, axes: Dict[str, int]):
+    """Put `executor` on a mesh of its ranks factored as `axes` (cached per
+    factorization: a new mesh makes process groups, a collective every
+    rank of the world enters)."""
+    from ..parallel.mesh import DeviceMesh
+    if dict(axes) == dict(executor.mesh.axes):
+        return
+    meshes = getattr(executor, "_auto_meshes", None)
+    if meshes is None:
+        meshes = executor._auto_meshes = {}
+    key = tuple(sorted(axes.items()))
+    mesh = meshes.get(key)
+    if mesh is None:
+        mesh = meshes[key] = DeviceMesh(list(executor.mesh.ranks),
+                                        dict(axes))
+    executor.mesh = mesh
+    executor._dp = mesh.axis_size("dp")
+    executor._pp_transport = None
 
 
 def replan_on_restore(executor, program, scope, meta, snapshot_dir, *,
                       seed: int = 0,
                       nominal_batch: Optional[int] = None,
                       amortize_horizon: float = 10_000.0) -> Dict:
-    """Price keeping a restored strategy against re-planning for a changed
-    world. It reads a sharded snapshot's layout, so it comes with the
-    elastic restore (parallel/elastic.py, reshard.py): ROADMAP.md §1 item
-    4 (elasticity and sharded checkpoints)."""
-    raise NotImplementedError(
-        "replan_on_restore is not ported: ROADMAP.md §1 item 4 "
-        "(elasticity and sharded checkpoints)")
+    """Price keeping the restored strategy against re-planning for the
+    NEW world, adopt the winner onto `executor`, and return the decision
+    record (restore_train_state's meta["replan"]).
+
+    Pricing: predicted step seconds of each side
+    (`costs.predicted_step_seconds`) PLUS each side's one-time restore
+    redistribution — `reshard.plan_restore`'s schedule, whose wire bytes
+    balance exactly against `costs.reshard_wire_bytes`. The re-plan is
+    adopted only when the kept strategy is infeasible on the new world,
+    or its per-step gain pays back any extra one-time reshard wire (at
+    `costs.H100_NVLINK_BPS`) within `amortize_horizon` steps (the
+    break-even rides the record as `amortize_steps`). A "keep" leaves the
+    executor as it was. The search pins the quantized wire to the
+    executor's config so error-feedback layouts stay transferable.
+    Deterministic for a fixed `seed`. Every rank of the executor's world
+    calls it (a chosen mesh makes process groups)."""
+    from ..parallel import reshard as _reshard
+    from ..sharded_checkpoint import ShardedCheckpoint
+
+    t0 = time.perf_counter()
+    n_ranks = executor.mesh.num_devices
+    base = executor.build_strategy
+    batch = int(nominal_batch or max(
+        (s[0] for s in (getattr(executor, "_feed_shapes", None) or {})
+         .values() if len(s) >= 1), default=8))
+    ckpt = ShardedCheckpoint(snapshot_dir)
+
+    def _reshard_wire(prepared) -> Optional[float]:
+        try:
+            rp = _reshard.plan_restore(ckpt, meta, prepared, executor)
+            return float(rp.wire_bytes)
+        except Exception:
+            return None
+
+    # pricing must not trigger the executor's own prepare-time planner:
+    # prepare_program below would otherwise adopt a plan mid-pricing
+    executor._auto_plan_suspended = True
+    kept_mesh = executor.mesh
+    try:
+        kept_axes = dict(executor.mesh.axes)
+        kept_feas = _costs.strategy_is_feasible(
+            program, base, mesh_axes=kept_axes, nominal_batch=batch)
+        kept = {"axes": kept_axes, "feasible": kept_feas.ok,
+                "reasons": kept_feas.reason_codes(),
+                "predicted_step_s": None, "reshard_wire_bytes": None}
+        if kept_feas.ok:
+            report = _costs.predict(kept_feas.program, base,
+                                    dp=kept_axes.get("dp", 1),
+                                    tp=kept_axes.get("tp", 1),
+                                    nominal_batch=batch)
+            kept["predicted_step_s"] = _costs.predicted_step_seconds(
+                report, mesh_axes=kept_axes, strategy=base)["total_s"]
+            kept["reshard_wire_bytes"] = _reshard_wire(
+                executor.prepare_program(program, scope))
+
+        # the RE-PLANNED side: a full search over the new world, quant
+        # pinned; its reshard price needs the executor on the chosen
+        # config for a moment (reverted below when "keep" wins)
+        space = numerics_preserving_space(base)
+        space.memory_plan = (False,)
+        result = plan(program, n_ranks, nominal_batch=batch,
+                      strategy_base=base, space=space, seed=seed)
+        executor.build_strategy = result.strategy
+        _adopt_mesh(executor, result.mesh_axes)
+        new_wire = _reshard_wire(executor.prepare_program(program, scope))
+
+        kept_s = kept["predicted_step_s"]
+        gain = (kept_s - result.predicted_step_s) \
+            if kept_s is not None else float("inf")
+        amortize_steps = None
+        if (new_wire is not None
+                and kept["reshard_wire_bytes"] is not None):
+            extra_s = max(0.0, new_wire - kept["reshard_wire_bytes"]) \
+                / _costs.H100_NVLINK_BPS
+            if gain > 0:
+                amortize_steps = extra_s / gain
+        replanned = (not kept_feas.ok) or (
+            gain > 1e-12 and (amortize_steps is None
+                              or amortize_steps <= amortize_horizon))
+        if not replanned:
+            executor.build_strategy = base
+            executor.mesh = kept_mesh
+            executor._dp = kept_mesh.axis_size("dp")
+            executor._pp_transport = None
+    finally:
+        executor._auto_plan_suspended = False
+
+    summary = {
+        "replanned": bool(replanned),
+        "kept": {**kept, "strategy": _describe_strategy(base, kept_axes)},
+        "chosen": {"point": result.point.describe(),
+                   "axes": dict(result.mesh_axes),
+                   "predicted_step_s": result.predicted_step_s,
+                   "reshard_wire_bytes": new_wire},
+        "gain_s_per_step": (None if kept_s is None
+                            else kept_s - result.predicted_step_s),
+        "amortize_steps": amortize_steps,
+        "amortize_horizon": amortize_horizon,
+        "plan": result.summary(),
+    }
+    # the decision above IS this (program, world)'s auto-plan for any
+    # batch: the executor's prepare-time planner neither re-searches nor
+    # overrides a deliberate "keep" (ParallelExecutor._maybe_auto_plan)
+    if hasattr(executor, "_maybe_auto_plan"):
+        done = getattr(executor, "_auto_plan_keys", None)
+        if done is None:
+            done = executor._auto_plan_keys = set()
+        done.add((id(program), program._version,
+                  executor.mesh.num_devices, None))
+        executor._auto_plan = result if replanned else None
+        if not getattr(executor, "_auto_orig", None):
+            executor._auto_orig = (base, kept_mesh)
+        executor._auto_adopted = bool(replanned)
+    summary["search_s"] = round(time.perf_counter() - t0, 3)
+    return summary
 
 
 def _describe_strategy(strategy, axes: Dict[str, int]) -> str:

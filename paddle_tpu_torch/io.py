@@ -18,10 +18,14 @@ Loaded values land in the scope as tensors on the executor's device (or on
 `place`; the default place is CUDAPlace(0), which raises without a card).
 `load_numpy_params` carries a dict of numpy arrays across the same way.
 
+A `filename` ending in `.pts` goes through the native tensor container
+(data/tensor_store.py, the JAX package's format), and
+`save_persistables(sharded=True)` / `load_persistables(sharded=True)`
+through sharded_checkpoint.py.
+
 Not ported (ROADMAP.md §1 item 4, export and native): the StableHLO
 exports `export_inference_model`, `load_exported_model` and
-`export_train_program` (their counterpart is `torch.export`), the native
-`.pts` tensor container, and sharded checkpoints.
+`export_train_program` (their counterpart is `torch.export`).
 """
 
 from __future__ import annotations
@@ -49,10 +53,6 @@ BF16_TAG = "@BF16"
 _EXPORT = ("StableHLO export is a JAX mechanism; its counterpart, "
            "torch.export, is not ported: ROADMAP.md §1 item 4 (export and "
            "native)")
-_NATIVE = ("the native .pts tensor container is not ported: ROADMAP.md §1 "
-           "item 4 (export and native)")
-_SHARDED = ("sharded checkpoints are not ported: ROADMAP.md §1 item 4 "
-            "(multi-GPU parallelism, sharded_checkpoint.py)")
 
 
 def _is_parameter(var: Variable) -> bool:
@@ -102,6 +102,33 @@ def _device(executor: Optional[Executor], place: Optional[Place]):
     return executor.device if executor is not None else resolve_device(place)
 
 
+def _global_value(scope: Scope, name: str):
+    """The global value of var `name`: where a ParallelExecutor split it
+    in `scope` (ZeRO-1 accumulators, tp blocks, error-feedback
+    residuals), this rank's block gathered over the placement's axes —
+    a collective every rank of the executor's mesh calls."""
+    from .parallel.parallel_executor import gather_global, split_state
+    value = scope.get(name)
+    entry = split_state(scope).get(name)
+    if (entry is not None and isinstance(value, torch.Tensor)
+            and tuple(value.shape) != entry[2]):
+        mesh, placement, _ = entry
+        value = gather_global(value, mesh, placement)
+    return value
+
+
+def _writes(scope: Scope) -> bool:
+    """Does this process write a save of `scope`? In a world where a
+    ParallelExecutor split the scope, the first rank of its mesh alone
+    (every rank gathered the same global values); else every caller."""
+    from .parallel.parallel_executor import split_state
+    reg = split_state(scope)
+    if not reg:
+        return True
+    mesh = next(iter(reg.values()))[0]
+    return not mesh.joined or mesh.rank == mesh.ranks[0]
+
+
 def save_vars(executor: Optional[Executor], dirname: str,
               main_program: Optional[Program] = None,
               vars: Optional[Sequence[Variable]] = None,
@@ -109,30 +136,46 @@ def save_vars(executor: Optional[Executor], dirname: str,
               scope: Optional[Scope] = None,
               save_as_bf16: bool = False):
     """≙ fluid.io.save_vars (reference io.py:89). Values come from the
-    scope, each copied to the host once. Returns the saved names."""
+    scope, each copied to the host once; a var a ParallelExecutor split
+    is saved whole (its blocks gathered: every rank of the executor's
+    mesh calls this, and its first rank writes). A `filename` ending in
+    `.pts` writes the native tensor container (data/tensor_store.py),
+    bfloat16 in its own dtype code. Returns the saved names."""
     program = main_program or default_main_program()
     scope = scope or global_scope()
     if vars is None:
         enforce(predicate is not None, "need vars or predicate",
                 exc=InvalidArgumentError)
         vars = _select_vars(program, predicate)
-    if filename is not None and filename.endswith(".pts"):
-        raise NotImplementedError(_NATIVE)
-    os.makedirs(dirname, exist_ok=True)
-    stored: Dict[str, np.ndarray] = {}
+    values: Dict[str, torch.Tensor] = {}
     for v in vars:
         if not scope.has_var(v.name):
             raise NotFoundError(
                 f"variable {v.name!r} not found in scope — run the startup "
                 f"program before saving")
-        key, arr = _to_store(v.name, scope.get(v.name), save_as_bf16)
+        values[v.name] = _global_value(scope, v.name)
+    if not _writes(scope):
+        return sorted(values)
+    os.makedirs(dirname, exist_ok=True)
+    if filename is not None and filename.endswith(".pts"):
+        # the native container (≙ save_combine_op.cc): streamed,
+        # CRC-checked, O(1) name lookup
+        from .data.tensor_store import save_tensors
+        save_tensors(os.path.join(dirname, filename), {
+            n: (t.detach().to(torch.bfloat16)
+                if save_as_bf16 and t.dtype == torch.float32 else t)
+            for n, t in values.items()})
+        return sorted(values)
+    stored: Dict[str, np.ndarray] = {}
+    for name, t in values.items():
+        key, arr = _to_store(name, t, save_as_bf16)
         stored[key] = arr
     if filename is None:
         for key, arr in stored.items():
             np.save(os.path.join(dirname, key + ".npy"), arr)
     else:
         np.savez(os.path.join(dirname, filename), **stored)
-    return sorted(v.name for v in vars)
+    return sorted(values)
 
 
 def load_vars(executor: Optional[Executor], dirname: str,
@@ -151,15 +194,19 @@ def load_vars(executor: Optional[Executor], dirname: str,
         enforce(predicate is not None, "need vars or predicate",
                 exc=InvalidArgumentError)
         vars = _select_vars(program, predicate)
+    store = native = None
     if filename is not None and filename.endswith(".pts"):
-        raise NotImplementedError(_NATIVE)
-    store = None
-    if filename is not None:
+        from .data.tensor_store import load_tensors
+        native = load_tensors(os.path.join(dirname, filename),
+                              [v.name for v in vars])
+    elif filename is not None:
         with np.load(os.path.join(dirname, filename)) as data:
             store = {k: data[k] for k in data.files}
     loaded = []
     for v in vars:
-        if store is not None:
+        if native is not None:
+            t = native[v.name]
+        elif store is not None:
             t = _from_store(v.name, store)
         else:
             path = os.path.join(dirname, v.name + ".npy")
@@ -200,9 +247,18 @@ def save_persistables(executor=None, dirname: str = "", main_program=None,
                       filename=None, scope=None, save_as_bf16=False,
                       sharded: bool = False):
     """≙ fluid.io.save_persistables (reference io.py:252) — parameters AND
-    optimizer state and step counters: everything needed to resume."""
+    optimizer state and step counters: everything needed to resume.
+
+    sharded=True: each process writes only its own blocks plus a manifest
+    (sharded_checkpoint.save_sharded): in a world where a
+    ParallelExecutor split the scope, ZeRO-1 / tp state is written
+    without a gather, and a load can cut it onto another mesh."""
     if sharded:
-        raise NotImplementedError(_SHARDED)
+        enforce(filename is None and not save_as_bf16,
+                "sharded=True does not combine with filename/save_as_bf16 "
+                "(shards go to per-process .pts containers in the native "
+                "dtypes of the tensors)", exc=InvalidArgumentError)
+        return _save_sharded(dirname, main_program, scope)
     return save_vars(executor, dirname, main_program=main_program,
                      predicate=_is_persistable, filename=filename,
                      scope=scope, save_as_bf16=save_as_bf16)
@@ -212,10 +268,63 @@ def load_persistables(executor=None, dirname: str = "", main_program=None,
                       filename=None, scope=None, sharded: bool = False,
                       place=None):
     if sharded:
-        raise NotImplementedError(_SHARDED)
+        enforce(filename is None, "sharded=True does not combine with "
+                "filename", exc=InvalidArgumentError)
+        return _load_sharded(executor, dirname, main_program, scope, place)
     return load_vars(executor, dirname, main_program=main_program,
                      predicate=_is_persistable, filename=filename,
                      scope=scope, place=place)
+
+
+def _save_sharded(dirname, main_program, scope):
+    from .parallel.parallel_executor import split_state
+    from .sharded_checkpoint import save_sharded
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    arrays = {}
+    for v in _select_vars(program, _is_persistable):
+        if not scope.has_var(v.name):
+            raise NotFoundError(
+                f"variable {v.name!r} not found in scope — run the "
+                f"startup program before saving")
+        arrays[v.name] = scope.get(v.name)
+    reg = split_state(scope)
+    mesh = next(iter(reg.values()))[0] if reg else None
+    if mesh is None or not mesh.joined:
+        save_sharded(dirname, arrays)
+        return sorted(arrays)
+    shapes = {n: tuple(reg[n][2]) if n in reg else tuple(
+        arrays[n].shape) for n in arrays}
+    save_sharded(dirname, arrays, process_index=mesh.ranks.index(mesh.rank),
+                 world_size=mesh.num_devices, mesh=mesh,
+                 placements={n: e[1] for n, e in reg.items()},
+                 shapes=shapes)
+    return sorted(arrays)
+
+
+def _load_sharded(executor, dirname, main_program, scope, place):
+    """Each var's block for this rank: where a ParallelExecutor split the
+    scope, under its placement (only the intersecting chunks are read);
+    else whole. Converted to the declared dtype on the executor's
+    device."""
+    from .parallel.parallel_executor import split_state
+    from .sharded_checkpoint import ShardedCheckpoint, restore_array
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    device = _device(executor, place)
+    reg = split_state(scope)
+    ckpt = ShardedCheckpoint(dirname)
+    loaded = []
+    try:
+        for v in _select_vars(program, _is_persistable):
+            mesh, placement, _ = reg.get(v.name, (None, None, None))
+            t = restore_array(ckpt, v.name, placement, mesh)
+            scope.set_var(v.name, t.to(device=device,
+                                       dtype=convert_dtype(v.dtype)))
+            loaded.append(v.name)
+    finally:
+        ckpt.close()
+    return sorted(loaded)
 
 
 def save_inference_model(dirname: str,

@@ -11,10 +11,11 @@ quantized forms (`collective.py`), the tp collective ops
 the pipeline schedule engine (`pipeline.py`), `annotate_tp`, sharded
 embeddings, ring attention over the flash kernels, and `ParallelExecutor`
 (AllReduce, Reduce / ZeRO-1, ReduceScatter and the quantized wires,
-padded batches, tp, pipeline stages, the auto-parallel planner). Like the
-JAX package, importing this package registers its ops. Waiting (ROADMAP.md
-§1 item 4): elasticity and sharded checkpoints (`elastic`, `reshard`,
-`process_world`).
+padded batches, tp, pipeline stages, the auto-parallel planner), and
+elastic training: atomic snapshots with async saves and restore across
+mesh changes (`elastic`), the resize planner (`reshard`) and the
+simulated process world of the multi-writer barrier (`process_world`).
+Like the JAX package, importing this package registers its ops.
 """
 
 from .mesh import (DeviceMesh, Placement, get_default_mesh,  # noqa: F401
@@ -30,18 +31,9 @@ from . import sharded_embedding  # noqa: F401
 from . import auto_shard  # noqa: F401
 from .auto_shard import annotate_tp  # noqa: F401
 
-_ELASTIC = ("{name} is not ported: ROADMAP.md §1 item 4 (elasticity and "
-            "sharded checkpoints)")
-
-
-def _waiting(name):
-    def fn(*a, **k):
-        raise NotImplementedError(_ELASTIC.format(name=name))
-    fn.__name__ = fn.__qualname__ = name
-    fn.__doc__ = _ELASTIC.format(name=name)
-    return fn
-
-
-latest_snapshot = _waiting("latest_snapshot")
-restore_train_state = _waiting("restore_train_state")
-save_train_state = _waiting("save_train_state")
+from . import elastic  # noqa: F401
+from . import process_world  # noqa: F401
+from . import reshard  # noqa: F401
+from .elastic import (latest_snapshot, restore_train_state,  # noqa: F401
+                      save_train_state)
+from .process_world import ProcessWorld  # noqa: F401

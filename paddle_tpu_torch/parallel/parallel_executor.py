@@ -89,6 +89,35 @@ from .strategy import (BuildStrategy, ExecutionStrategy,
 _WAIT = "{what} is not ported: ROADMAP.md §1 item 4 ({part})"
 
 
+def register_split_state(scope: Scope, name: str, mesh: DeviceMesh,
+                         placement: Placement, shape):
+    """Record on `scope` that var `name` holds this rank's block of a
+    tensor of global `shape`, placed by `placement` over `mesh` — what a
+    save reads to gather the global value, and a load to cut it back."""
+    reg = scope.__dict__.setdefault("_split_state", {})
+    reg[name] = (mesh, placement, tuple(int(d) for d in shape))
+
+
+def split_state(scope: Scope) -> Dict[str, tuple]:
+    """name -> (mesh, placement, global shape) of the vars a
+    ParallelExecutor split in `scope` (empty for any other scope)."""
+    return scope.__dict__.get("_split_state", {})
+
+
+def gather_global(value: torch.Tensor, mesh: DeviceMesh,
+                  placement: Placement) -> torch.Tensor:
+    """The global tensor from this rank's block: an all-gather per split
+    axis, minor axis first (a collective every rank of the mesh calls)."""
+    with mesh:
+        for d, s in enumerate(placement):
+            if s is None:
+                continue
+            for a in reversed(s if isinstance(s, (tuple, list)) else (s,)):
+                if mesh.axis_size(a) > 1:
+                    value = C.all_gather(value.contiguous(), a, d)
+    return value
+
+
 # ---------------------------------------------------------------------------
 # global-batch lowerings (AllReduce / Reduce): reductions over the dp batch
 # ---------------------------------------------------------------------------
@@ -571,6 +600,10 @@ class ParallelExecutor(Executor):
         from ..core import flags
         if not getattr(self.build_strategy, "auto_parallel", False):
             return
+        if getattr(self, "_auto_plan_suspended", False):
+            # replan_on_restore prices the kept side through
+            # prepare_program; planning here would adopt mid-pricing
+            return
         if not flags.get_flag("auto_parallel"):
             orig = getattr(self, "_auto_orig", None)
             if orig is not None and getattr(self, "_auto_adopted", False):
@@ -590,7 +623,10 @@ class ParallelExecutor(Executor):
         done = getattr(self, "_auto_plan_keys", None)
         if done is None:
             done = self._auto_plan_keys = set()
-        if key in done:
+        # batch None: an elastic restore's decision, for any batch
+        # (auto_parallel.replan_on_restore priced it against the one-time
+        # reshard; re-planning here would override it without that price)
+        if key in done or key[:3] + (None,) in done:
             return
         from ..framework import auto_parallel as _auto
         if not getattr(self, "_auto_orig", None):
@@ -641,6 +677,7 @@ class ParallelExecutor(Executor):
         block and zero-create the per-rank error-feedback residuals."""
         key = (id(program), program._version, id(scope))
         if key in self._synced:
+            self._cut_full_values(program, scope)
             return
         from ..observability import tracing as _tracing
         with _tracing.span("collective", "parallel/sync_state"):
@@ -655,10 +692,12 @@ class ParallelExecutor(Executor):
                            and isinstance(scope.get(n), torch.Tensor)]
                 self._broadcast(tensors)
             for n in names:
-                if n in local:
-                    continue
                 place = self._state_sharding(program, n)
-                if not place.is_replicated:
+                if place.is_replicated:
+                    continue
+                register_split_state(scope, n, self.mesh, place,
+                                     self._find_var(program, n).shape)
+                if n not in local:
                     scope.set_var(n, self.mesh.local_slice(
                         scope.get(n), place).contiguous())
             for b in program.blocks:
@@ -670,6 +709,19 @@ class ParallelExecutor(Executor):
                         scope.set_var(v.name, torch.zeros(
                             shape, dtype=torch.float32, device=self.device))
         self._synced.add(key)
+
+    def _cut_full_values(self, program, scope):
+        """After the first run: a split var whose scope value is whole
+        again (a non-sharded checkpoint loaded into the scope) is cut back
+        to this rank's block."""
+        for n, (mesh, place, shape) in split_state(scope).items():
+            if mesh is not self.mesh or not scope.has_var(n):
+                continue
+            val = scope.get(n)
+            if (isinstance(val, torch.Tensor)
+                    and tuple(val.shape) == tuple(shape)):
+                scope.set_var(n, self.mesh.local_slice(
+                    val.to(self.device), place).contiguous())
 
     def _is_local(self, program, scope, name) -> bool:
         """Does the scope already hold this rank's block of a split var

@@ -1000,8 +1000,9 @@ class EngineServer:
             # scrape: ptpu_ckpt_* and ptpu_train_* register lazily, and
             # a scrape must see the families (at zero) even before the
             # first save/step touches them
-            from ..trainer import checkpoint_metrics, training_metrics
-            checkpoint_metrics()
+            from ..parallel.elastic import metrics_registry
+            from ..trainer import training_metrics
+            metrics_registry()
             training_metrics()
             _obs_memory.memory_metrics()   # ptpu_memory_* + ptpu_mfu
             self._http = _MetricsHTTPServer(
@@ -1018,7 +1019,7 @@ class EngineServer:
         pending async checkpoint commits, and the supervising process's
         restart count (PTPU_SUPERVISOR_RESTARTS, set by a supervisor for
         its children)."""
-        from ..trainer import pending_async_count
+        from ..parallel.elastic import pending_async_count
         restarts = os.environ.get("PTPU_SUPERVISOR_RESTARTS")
         return {
             "status": ("draining" if self._draining.is_set()

@@ -11,10 +11,13 @@ package's format.
 
 `parallel=True` trains through a ParallelExecutor over the default dp
 mesh (or `mesh=`); every rank of the world builds the Trainer and feeds
-the same global batches. Not ported (ROADMAP.md §1 item 4, elasticity
-and sharded checkpoints): `elastic` and `sharded` checkpoints and the
-`Supervisor` that restarts a preempted run; the trainer also stamps no
-memory series (observability/memory.py waits for the same item).
+the same global batches. `CheckpointConfig(elastic=True)` snapshots the
+complete training state through parallel/elastic.py (atomic two-phase
+commit; `async_save` writes from pinned host memory off the step path)
+and resumes from the latest committed snapshot at construction;
+`sharded=True` writes per-rank shard files (sharded_checkpoint.py). The
+`Supervisor` restarts a preempted or crashed training process (or a gang
+of rank processes) with backoff.
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import threading
 from time import perf_counter as _perf_counter
 from typing import Callable, List, Optional, Sequence
 
@@ -35,9 +37,6 @@ from .data.feeder import DataFeeder
 from .framework.executor import Executor
 from .framework.program import Program, Variable, program_guard
 from .framework.scope import Scope
-
-_MULTI_GPU = ("{what} is not ported: ROADMAP.md §1 item 4 (elasticity "
-              "and sharded checkpoints)")
 
 
 class BeginEpochEvent:
@@ -69,7 +68,15 @@ class EndStepEvent:
 class CheckpointConfig:
     """≙ trainer.CheckpointConfig (reference trainer.py:100): a checkpoint
     every `step_interval` steps and every `epoch_interval` epochs, the
-    newest `max_num_checkpoints` kept."""
+    newest `max_num_checkpoints` kept.
+
+    elastic=True routes through the atomic elastic runtime
+    (parallel/elastic.py): two-phase-committed snapshots of the complete
+    training state (parameters, split optimizer accumulators,
+    error-feedback residuals, the seed stream's position, the parallel
+    config), resumed exactly and across mesh changes. async_save moves
+    the file writes off the step path (the step pays the copy's enqueue).
+    sharded=True writes per-rank shard files (sharded_checkpoint.py)."""
 
     def __init__(self, checkpoint_dir: Optional[str] = None,
                  max_num_checkpoints: int = 3,
@@ -78,20 +85,21 @@ class CheckpointConfig:
                  sharded: bool = False,
                  elastic: bool = False,
                  async_save: bool = False):
-        if sharded:
-            raise NotImplementedError(
-                _MULTI_GPU.format(what="a sharded checkpoint"))
-        if elastic or async_save:
-            raise NotImplementedError(
-                _MULTI_GPU.format(what="an elastic checkpoint"))
         self.checkpoint_dir = checkpoint_dir or \
             os.path.join(os.getcwd(), "checkpoint")
         enforce(epoch_interval >= 1 and step_interval >= 1,
                 "checkpoint intervals must be >= 1",
                 exc=InvalidArgumentError)
+        enforce(not (async_save and not elastic),
+                "async_save requires elastic=True (only the elastic "
+                "runtime has the background commit protocol)",
+                exc=InvalidArgumentError)
         self.max_num_checkpoints = max_num_checkpoints
         self.epoch_interval = epoch_interval
         self.step_interval = step_interval
+        self.sharded = sharded
+        self.elastic = elastic
+        self.async_save = async_save
         self.epoch_id = 0
         self.step_id = 0
         self.load_serial: Optional[int] = None
@@ -129,70 +137,6 @@ def training_metrics():
     return _train_metrics
 
 
-# -- checkpoint telemetry (≙ paddle_tpu/parallel/elastic.py:208-263) -------
-# The JAX package keeps these beside its elastic checkpoint writer; the
-# port's checkpoint code is this module, and its async writer is not
-# ported (CheckpointConfig(async_save=True) raises), so no async write is
-# ever pending: the families register at zero and `pending_async_count`
-# is 0. /healthz and a /metrics scrape read them through EngineServer.
-
-_ckpt_registry = None
-_ckpt_lock = threading.Lock()
-
-
-def checkpoint_metrics():
-    """The `ptpu_ckpt_*` series, registered (idempotently and lazily)
-    into `observability.metrics.default_registry()` under the JAX
-    package's names, types and help: one /metrics scrape sees
-    checkpoint, training and serving series together. Returns the
-    default registry."""
-    global _ckpt_registry
-    with _ckpt_lock:
-        if _ckpt_registry is None:
-            from .observability import metrics as m
-            r = m.default_registry()
-            c = m.get_or_create
-            c(r, "counter", "ptpu_ckpt_saves_total",
-              "Snapshots committed by this process.")
-            c(r, "counter", "ptpu_ckpt_save_bytes_total",
-              "Payload bytes written across committed snapshots.")
-            c(r, "counter", "ptpu_ckpt_restores_total",
-              "Snapshots restored.")
-            c(r, "counter", "ptpu_ckpt_barrier_aborts_total",
-              "Multi-rank snapshot attempts aborted at the "
-              "chief's barrier (straggler past the deadline or a "
-              "dead rank); training continues, the snapshot is "
-              "discarded.")
-            c(r, "counter", "ptpu_ckpt_skipped_foreign_total",
-              "Snapshot dirs skipped during latest-snapshot "
-              "selection because their COMMIT record was written "
-              "by a newer protocol/world config than this "
-              "process understands.")
-            c(r, "counter", "ptpu_ckpt_digest_failures_total",
-              "Snapshot files whose content digest disagreed "
-              "with the COMMIT integrity record (silent "
-              "bit-flips caught at validate/restore).")
-            c(r, "histogram", "ptpu_ckpt_save_seconds",
-              "Wall time of the write+commit phase.",
-              buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
-                       5.0, 10.0, 30.0))
-            c(r, "histogram", "ptpu_ckpt_restore_seconds",
-              "Wall time of restore_train_state.",
-              buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
-                       5.0, 10.0, 30.0))
-            c(r, "gauge", "ptpu_ckpt_pending_async",
-              "Async snapshot writes not yet committed.",
-              fn=lambda: float(pending_async_count()))
-            _ckpt_registry = r
-    return _ckpt_registry
-
-
-def pending_async_count() -> int:
-    """In-flight async snapshot writes not yet committed — what /healthz
-    reports. Always 0: the port has no async checkpoint writer."""
-    return 0
-
-
 def _serial_dir(root: str, serial: int) -> str:
     return os.path.join(root, f"{CHECKPOINT_PREFIX}_{serial}")
 
@@ -217,21 +161,33 @@ def get_latest_checkpoint_serial(root: str) -> int:
     return serials[-1] if serials else -1
 
 
-def _world():
-    """(rank, world size) of the initialised torch.distributed process
-    group, or (0, 1)."""
+def _writer_group(scope: Optional[Scope]):
+    """(this rank writes?, process group of the save, in a world?, every
+    rank saves?) for a checkpoint of `scope`: where a ParallelExecutor
+    split the scope, its mesh (every rank of the mesh takes part in the
+    save's gather, the first one writes); else the whole torch.distributed
+    world (rank 0 alone saves), or this process alone."""
     import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    from .framework.scope import global_scope
+    from .parallel.parallel_executor import split_state
+    reg = split_state(scope or global_scope())
+    if reg:
+        mesh = next(iter(reg.values()))[0]
+        if mesh.joined:
+            return mesh.rank == mesh.ranks[0], mesh.mesh_group, True, True
+        return True, None, False, True
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return dist.get_rank() == 0, None, True, False
+    return True, None, False, False
 
 
-def _global_barrier():
-    """Block until every process of the torch.distributed process group
-    reaches it; a no-op when none is initialised."""
+def _global_barrier(group, joined: bool):
+    """Block until every process of `group` (the world when None) reaches
+    it; a no-op outside a world."""
     import torch.distributed as dist
-    if _world()[1] > 1:
-        dist.barrier()
+    if joined:
+        dist.barrier(group=group)
 
 
 def save_checkpoint(executor: Executor, checkpoint_dir: str,
@@ -247,24 +203,29 @@ def save_checkpoint(executor: Executor, checkpoint_dir: str,
     (≙ trainer.save_checkpoint :641 + _scroll_delete :1168). Returns the
     serial.
 
-    In a torch.distributed process group every process calls this at the
-    same point; the state is replicated, so rank 0 alone writes, between
-    two barriers (everyone sees the same directory state on entry, and
-    nobody returns before the marker exists)."""
-    if sharded:
-        raise NotImplementedError(
-            _MULTI_GPU.format(what="a sharded checkpoint"))
-    rank, _ = _world()
-    _global_barrier()
+    In a torch.distributed world every process calls this at the same
+    point. A var a ParallelExecutor split (ZeRO-1 accumulators, tp
+    blocks) is written whole: every rank of its mesh gathers it and the
+    mesh's first rank writes (sharded=True: every rank writes its own
+    blocks, sharded_checkpoint.py). The phases are separated by barriers
+    over the mesh (or the world): everyone sees the same directory state
+    on entry, nobody writes into leftovers, and nobody returns before the
+    marker exists."""
+    writer, group, joined, gather = _writer_group(scope)
+    _global_barrier(group, joined)
     if serial is None:
         serial = get_latest_checkpoint_serial(checkpoint_dir) + 1
-    if rank == 0:
-        cur = _serial_dir(checkpoint_dir, serial)
+    cur = _serial_dir(checkpoint_dir, serial)
+    if writer:
         if os.path.isdir(cur):
-            shutil.rmtree(cur)  # incomplete leftovers from a preempted run
+            shutil.rmtree(cur)  # incomplete leftovers of a preempted run
         os.makedirs(cur, exist_ok=True)
+    _global_barrier(group, joined)
+    if writer or gather:
         _io.save_persistables(executor, cur, main_program=main_program,
-                              scope=scope)
+                              scope=scope, sharded=sharded)
+    _global_barrier(group, joined)
+    if writer:
         if trainer_args is not None:
             with open(os.path.join(cur, TRAINER_ARGS_FILE), "w") as f:
                 json.dump(trainer_args, f)
@@ -276,7 +237,7 @@ def save_checkpoint(executor: Executor, checkpoint_dir: str,
         for old in serials[:-(max_num_checkpoints - 1) or None]:
             shutil.rmtree(_serial_dir(checkpoint_dir, old),
                           ignore_errors=True)
-    _global_barrier()
+    _global_barrier(group, joined)
     return serial
 
 
@@ -287,17 +248,17 @@ def load_checkpoint(executor: Executor, checkpoint_dir: str,
                     sharded: bool = False) -> Optional[dict]:
     """Restore persistables from the given (default: latest complete)
     serial onto the executor's device; returns the saved trainer args, {}
-    when none were saved, or None if there is no checkpoint."""
-    if sharded:
-        raise NotImplementedError(
-            _MULTI_GPU.format(what="a sharded checkpoint"))
+    when none were saved, or None if there is no checkpoint. Loaded into
+    a ParallelExecutor's scope, a split var's whole value is cut back to
+    this rank's block at the executor's next run (sharded=True reads only
+    this rank's block)."""
     if serial is None:
         serial = get_latest_checkpoint_serial(checkpoint_dir)
     if serial < 0:
         return None
     cur = _serial_dir(checkpoint_dir, serial)
     _io.load_persistables(executor, cur, main_program=main_program,
-                          scope=scope)
+                          scope=scope, sharded=sharded)
     args_path = os.path.join(cur, TRAINER_ARGS_FILE)
     if os.path.exists(args_path):
         with open(args_path) as f:
@@ -357,16 +318,33 @@ class Trainer:
                 use_cuda=self.exe.device.type == "cuda",
                 loss_name=self.loss.name, mesh=mesh or get_default_mesh(),
                 main_program=self.train_program, scope=self.scope)
-        if self.checkpoint_cfg:
+        if self.checkpoint_cfg and self.checkpoint_cfg.elastic:
+            from .parallel import elastic as _elastic
+            snap = _elastic.latest_snapshot(
+                self.checkpoint_cfg.checkpoint_dir)
+            if snap is not None:
+                meta = _elastic.restore_train_state(
+                    snap, program=self.train_program, scope=self.scope,
+                    executor=self._train_executor())
+                extra = meta.get("extra", {})
+                self.checkpoint_cfg.epoch_id = int(extra.get("epoch_id", 0))
+                self.checkpoint_cfg.step_id = int(extra.get("step_id", 0))
+        elif self.checkpoint_cfg:
             args = load_checkpoint(self.exe,
                                    self.checkpoint_cfg.checkpoint_dir,
-                                   self.train_program, scope=self.scope)
+                                   self.train_program, scope=self.scope,
+                                   sharded=self.checkpoint_cfg.sharded)
             if args:
                 self.checkpoint_cfg.epoch_id = int(args.get("epoch_id", 0))
                 self.checkpoint_cfg.step_id = int(args.get("step_id", 0))
                 self.checkpoint_cfg.load_serial = \
                     get_latest_checkpoint_serial(
                         self.checkpoint_cfg.checkpoint_dir)
+
+    def _train_executor(self):
+        """The executor whose run counter drives the training seed stream
+        — what an elastic snapshot records and restores."""
+        return self._pe if self._pe is not None else self.exe
 
     def stop(self):
         """Ask train() to exit after the current step (callable from the
@@ -380,12 +358,19 @@ class Trainer:
         Saved trainer args are the NEXT work item (resume_epoch,
         resume_step): a resumed run skips everything already trained —
         including the whole run when it had completed."""
+        from .observability import memory as _memory
+        from .parallel import elastic as _elastic
+        # the ptpu_memory_* / ptpu_mfu families exist from the start: a
+        # scrape or crash dossier before the first step sees them (the
+        # executor stamps their values per run)
+        _memory.memory_metrics()
         feeder = DataFeeder(feed_list=[
             self.train_program.global_block().var(n) for n in feed_order])
         start_epoch = (self.checkpoint_cfg.epoch_id
                        if self.checkpoint_cfg else 0)
         skip_steps = (self.checkpoint_cfg.step_id
                       if self.checkpoint_cfg else 0)
+        elastic = bool(self.checkpoint_cfg and self.checkpoint_cfg.elastic)
         tm = training_metrics()
         for epoch_id in range(start_epoch, num_epochs):
             event_handler(BeginEpochEvent(epoch_id))
@@ -395,7 +380,17 @@ class Trainer:
                 if self.stop_flag:
                     if self.checkpoint_cfg:
                         self._save_checkpoint(epoch_id, step_id)
+                    if elastic:
+                        # an async stop-snapshot commits before train()
+                        # returns: a prompt exit must not kill the writer
+                        _elastic.wait_for_pending()
                     return
+                if elastic:
+                    # the PTPU_FAULT_INJECT=crash_at_step preemption
+                    # point, BEFORE the step: the snapshot interval
+                    # decides how much work a preemption replays
+                    _elastic.maybe_crash_at_step(
+                        self._train_executor()._run_counter)
                 begin = BeginStepEvent(epoch_id, step_id)
                 event_handler(begin)
                 fetch = [m.name for m in self.metrics] \
@@ -422,6 +417,9 @@ class Trainer:
                 self._save_checkpoint(epoch_id + 1, 0)
         if self.checkpoint_cfg:
             self._save_checkpoint(num_epochs, 0)
+        if elastic:
+            # no writer thread may still hold staged state at exit
+            _elastic.wait_for_pending()
 
     def test(self, reader: Callable, feed_order: Sequence[str]):
         """Average the metric values over the reader, on the forward-only
@@ -457,8 +455,291 @@ class Trainer:
                                  scope=self.scope)
 
     def _save_checkpoint(self, resume_epoch: int, resume_step: int):
+        if self.checkpoint_cfg.elastic:
+            from .parallel import elastic as _elastic
+            exe = self._train_executor()
+            _elastic.save_train_state(
+                self.checkpoint_cfg.checkpoint_dir,
+                program=self.train_program, scope=self.scope, executor=exe,
+                step=exe._run_counter,
+                extra_meta={"epoch_id": resume_epoch,
+                            "step_id": resume_step},
+                max_snapshots=self.checkpoint_cfg.max_num_checkpoints,
+                block=not self.checkpoint_cfg.async_save)
+            return
         save_checkpoint(
             self.exe, self.checkpoint_cfg.checkpoint_dir, self.train_program,
             trainer_args={"epoch_id": resume_epoch, "step_id": resume_step},
             max_num_checkpoints=self.checkpoint_cfg.max_num_checkpoints,
-            scope=self.scope)
+            scope=self.scope, sharded=self.checkpoint_cfg.sharded)
+
+
+class SupervisorExhaustedError(RuntimeError):
+    """The Supervisor's restart budget ran out without a clean exit —
+    the terminal crash-loop signal (raise_on_exhaust=True)."""
+
+    def __init__(self, message: str, exit_code: int,
+                 exit_codes: Sequence[int]):
+        super().__init__(message)
+        self.exit_code = exit_code
+        self.exit_codes = list(exit_codes)
+
+
+class Supervisor:
+    """Retry/backoff supervisor for preemptible training processes.
+
+    The process-level half of elastic recovery (≙ the reference's
+    pserver/trainer restart story, checkpoint-mediated here): run the
+    training command as a child, and when it dies of a crash/preemption
+    (SIGKILL, OOM, nonzero exit), relaunch it after an exponential
+    backoff — the restarted run resumes from the latest COMMITTED
+    elastic snapshot (CheckpointConfig(elastic=True) or
+    parallel.elastic.restore_train_state in the child). A clean exit 0
+    ends supervision.
+
+        Supervisor([sys.executable, "train.py"], max_restarts=20).run()
+
+    Hardening knobs:
+
+    - the restart budget is a HARD cap: when it runs out, run() logs a
+      clear terminal crash-loop error and returns the last exit code —
+      or raises SupervisorExhaustedError with raise_on_exhaust=True — so
+      a persistently broken child fails loudly instead of looping under
+      ever-longer backoffs;
+    - `backoff_jitter` decorrelates a gang of supervisors restarting
+      after a shared failure (thundering herd): each delay is scaled by
+      a uniform factor in [1-j, 1+j];
+    - `healthy_run_s` resets the backoff to its base after a child that
+      ran at least that long: a crash every few hours is a preemption
+      pattern and deserves fast restarts, not the accumulated backoff of
+      a morning's crash loop.
+
+    world_size > 1 supervises a GANG of rank processes: the same argv is
+    launched once per rank with PTPU_WORLD_RANK / PTPU_WORLD_SIZE and the
+    PADDLE_* role protocol that `distributed.parse_env` reads
+    (PADDLE_TRAINER_ID, PADDLE_TRAINERS_NUM, PADDLE_LOCAL_RANK, and a
+    PADDLE_COORDINATOR_ENDPOINT on a free localhost port per incarnation
+    unless the env names one), so the children join a real
+    torch.distributed world with `distributed.init_parallel_env()`. Any
+    rank dying kills the rest of the gang (SIGTERM, then SIGKILL after
+    10 s) and the whole world restarts together — the restart
+    granularity the chief-commits barrier assumes.
+
+    `dossier_dir` arms the flight recorder across restarts
+    (observability/flight_recorder.py): children inherit
+    PTPU_DOSSIER_DIR (their barrier phase beacons and crash dossiers
+    land there) plus PTPU_SUPERVISOR_RESTARTS (surfaced on /healthz),
+    and after every incarnation that DIES the supervisor folds the
+    beacons + dossiers into `post_mortem-<k>.json` — which rank died,
+    in which barrier phase, with the per-rank straggler timeline —
+    before restarting the gang. Paths collect in `self.post_mortems`.
+
+    Fault injection (PTPU_FAULT_INJECT, parallel/elastic.py +
+    parallel/process_world.py) makes the crash side testable: children
+    that SIGKILL themselves mid-run, mid-save and mid-barrier.
+    """
+
+    def __init__(self, argv: Sequence[str],
+                 max_restarts: int = 10,
+                 backoff_s: float = 1.0,
+                 backoff_factor: float = 2.0,
+                 max_backoff_s: float = 60.0,
+                 backoff_jitter: float = 0.0,
+                 healthy_run_s: Optional[float] = None,
+                 world_size: int = 1,
+                 raise_on_exhaust: bool = False,
+                 env: Optional[dict] = None,
+                 dossier_dir: Optional[str] = None,
+                 sleep_fn: Optional[Callable[[float], None]] = None,
+                 rng=None):
+        enforce(len(argv) >= 1, "Supervisor needs a command",
+                exc=InvalidArgumentError)
+        enforce(max_restarts >= 0 and backoff_s >= 0
+                and backoff_factor >= 1.0,
+                "Supervisor: max_restarts >= 0, backoff_s >= 0, "
+                "backoff_factor >= 1 required", exc=InvalidArgumentError)
+        enforce(0.0 <= backoff_jitter < 1.0,
+                "Supervisor: backoff_jitter must be in [0, 1)",
+                exc=InvalidArgumentError)
+        enforce(world_size >= 1, "Supervisor: world_size must be >= 1",
+                exc=InvalidArgumentError)
+        enforce(healthy_run_s is None or healthy_run_s > 0,
+                "Supervisor: healthy_run_s must be positive",
+                exc=InvalidArgumentError)
+        self.argv = list(argv)
+        self.max_restarts = max_restarts
+        self.backoff_s = backoff_s
+        self.backoff_factor = backoff_factor
+        self.max_backoff_s = max_backoff_s
+        self.backoff_jitter = backoff_jitter
+        self.healthy_run_s = healthy_run_s
+        self.world_size = world_size
+        self.raise_on_exhaust = raise_on_exhaust
+        self.env = env
+        self.dossier_dir = dossier_dir
+        if dossier_dir:
+            os.makedirs(dossier_dir, exist_ok=True)
+        self._sleep = sleep_fn or __import__("time").sleep
+        self._rng = rng or __import__("random").Random()
+        #: restarts performed by the last run()
+        self.restarts = 0
+        #: True when the last run() ended by exhausting the budget
+        self.exhausted = False
+        #: exit codes observed, in order (negative = killed by signal);
+        #: for a gang, the FIRST nonzero code of each incarnation
+        self.exit_codes: List[int] = []
+        #: post_mortem-<k>.json paths written by the last run()
+        self.post_mortems: List[str] = []
+
+    def _child_env(self, rank: Optional[int] = None) -> dict:
+        env = dict(self.env if self.env is not None else os.environ)
+        if self.dossier_dir:
+            env["PTPU_DOSSIER_DIR"] = self.dossier_dir
+        env["PTPU_SUPERVISOR_RESTARTS"] = str(self.restarts)
+        if rank is not None:
+            env["PTPU_WORLD_RANK"] = str(rank)
+            env["PTPU_WORLD_SIZE"] = str(self.world_size)
+            env["PADDLE_TRAINER_ID"] = str(rank)
+            env["PADDLE_TRAINERS_NUM"] = str(self.world_size)
+            env["PADDLE_LOCAL_RANK"] = str(rank)
+            if "PADDLE_COORDINATOR_ENDPOINT" not in env:
+                env["PADDLE_COORDINATOR_ENDPOINT"] = self._endpoint
+        return env
+
+    def _write_post_mortem(self):
+        """After an incarnation died: fold the dossier dir's beacons +
+        dossiers into post_mortem-<incarnation>.json, then ARCHIVE them
+        into an incarnation-<k>/ subdir — the next incarnation's
+        beacons start from a clean top level, so a stale crash marker
+        from a previous death can never win the next post-mortem's
+        verdict (and the fold stays bounded on long-running jobs). The
+        children are already dead here, so no writer holds the moved
+        files open. Best-effort — a post-mortem failure must never
+        break supervision itself."""
+        if not self.dossier_dir:
+            return
+        from .core import flags
+        from .observability import flight_recorder as _fr
+        try:
+            k = len(self.exit_codes)
+            path = _fr.write_post_mortem(
+                self.dossier_dir, incarnation=k,
+                extra={"exit_code": self.exit_codes[-1],
+                       "restarts": self.restarts,
+                       "argv": self.argv})
+            self.post_mortems.append(path)
+            archive = os.path.join(self.dossier_dir, f"incarnation-{k}")
+            os.makedirs(archive, exist_ok=True)
+            for name in os.listdir(self.dossier_dir):
+                if name.startswith((_fr.BEACON_PREFIX,
+                                    _fr.DOSSIER_PREFIX)):
+                    os.replace(os.path.join(self.dossier_dir, name),
+                               os.path.join(archive, name))
+            flags.vlog(0, "Supervisor: post-mortem %s", path)
+        except Exception as e:  # noqa: BLE001 - best effort
+            flags.vlog(0, "Supervisor: post-mortem failed: %s: %s",
+                       type(e).__name__, e)
+
+    def _launch_gang(self):
+        """One incarnation: world_size children with rank identities in
+        env. Returns the incarnation's exit code: 0 iff every rank
+        exited 0; otherwise the first failing rank's code, after the
+        rest of the gang was terminated (the barrier protocol assumes
+        whole-world restarts)."""
+        import subprocess
+        if self.world_size == 1:
+            return subprocess.run(self.argv,
+                                  env=self._child_env()).returncode
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self._endpoint = f"127.0.0.1:{s.getsockname()[1]}"
+        procs = []
+        for r in range(self.world_size):
+            procs.append(subprocess.Popen(self.argv,
+                                          env=self._child_env(r)))
+        import time as _time
+        rc = 0
+        kill_deadline = None
+        live = set(range(self.world_size))
+        while live:
+            for r in sorted(live):
+                code = procs[r].poll()
+                if code is None:
+                    continue
+                live.discard(r)
+                if code != 0 and rc == 0:
+                    rc = code
+                    # gang semantics: one death restarts the world
+                    for r2 in sorted(live):
+                        procs[r2].terminate()
+                    kill_deadline = _time.monotonic() + 10.0
+            if live and kill_deadline is not None \
+                    and _time.monotonic() >= kill_deadline:
+                # a rank ignoring SIGTERM (wedged in native code) must
+                # not hang the supervisor — escalate to SIGKILL; the
+                # barrier protocol is kill-safe by construction
+                for r2 in sorted(live):
+                    procs[r2].kill()
+                kill_deadline = float("inf")
+            if live:
+                _time.sleep(0.05)
+        if rc != 0:
+            for p in procs:
+                p.wait()
+        return rc
+
+    def run(self) -> int:
+        """Supervise until the world exits 0 or the restart budget is
+        spent. Returns the final exit code (0 on success; the child's
+        last code — negative for a signal death — when the budget ran
+        out; raises SupervisorExhaustedError instead when
+        raise_on_exhaust=True)."""
+        import time as _time
+
+        from .core import flags
+        self.restarts = 0
+        self.exhausted = False
+        self.exit_codes = []
+        self.post_mortems = []
+        delay = self.backoff_s
+        while True:
+            t0 = _time.monotonic()
+            rc = self._launch_gang()
+            ran_s = _time.monotonic() - t0
+            self.exit_codes.append(rc)
+            if rc == 0:
+                return 0
+            # the incarnation died: synthesize its post-mortem from the
+            # flight-recorder beacons/dossiers BEFORE restarting (a
+            # restarted gang appends new beacon lines)
+            self._write_post_mortem()
+            if self.restarts >= self.max_restarts:
+                self.exhausted = True
+                msg = (f"Supervisor: restart budget ({self.max_restarts})"
+                       f" exhausted — the child is crash-looping, not "
+                       f"being preempted (exit codes {self.exit_codes});"
+                       f" last exit code {rc}. Fix the persistent "
+                       f"failure; restarting further would only mask it")
+                flags.vlog(0, "%s", msg)
+                if self.raise_on_exhaust:
+                    raise SupervisorExhaustedError(msg, rc,
+                                                   self.exit_codes)
+                return rc
+            if (self.healthy_run_s is not None
+                    and ran_s >= self.healthy_run_s):
+                # a long healthy run before this death: preemption
+                # pattern, not a crash loop — restart fast again
+                delay = self.backoff_s
+            flags.vlog(0, "Supervisor: child exited %d (%s) after %.1fs; "
+                       "restart %d/%d after %.1fs backoff", rc,
+                       "signal" if rc < 0 else "error", ran_s,
+                       self.restarts + 1, self.max_restarts, delay)
+            jitter = 1.0
+            if self.backoff_jitter:
+                jitter += self._rng.uniform(-self.backoff_jitter,
+                                            self.backoff_jitter)
+            if delay > 0:
+                self._sleep(delay * jitter)
+            delay = min(delay * self.backoff_factor, self.max_backoff_s)
+            self.restarts += 1

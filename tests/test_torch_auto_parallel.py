@@ -351,9 +351,12 @@ def test_the_default_budget_is_the_cards():
 
 
 def test_replan_on_restore_waits_for_elasticity():
-    with pytest.raises(NotImplementedError,
-                       match="elasticity and sharded checkpoints"):
-        tauto.replan_on_restore(None, None, None, None, None)
+    """No longer waits: elasticity is ported, and replan_on_restore takes
+    the JAX package's arguments (its decision record is held to the JAX
+    one in tests/test_torch_elastic_world.py)."""
+    import inspect
+    assert inspect.signature(tauto.replan_on_restore) == \
+        inspect.signature(jauto.replan_on_restore)
 
 
 def test_auto_parallel_flag_off_keeps_the_users_strategy():

@@ -367,18 +367,19 @@ def test_unported_paths_raise_naming_the_roadmap(tmp_path):
             fn(str(tmp_path))
     with pytest.raises(NotImplementedError, match=r"§1 item 4"):
         ptt.Predictor.from_exported(str(tmp_path))
-    with pytest.raises(NotImplementedError, match=r"§1 item 4"):
-        ptt.CheckpointConfig(str(tmp_path), sharded=True)
-    with pytest.raises(NotImplementedError, match=r"§1 item 4"):
-        ptt.CheckpointConfig(str(tmp_path), elastic=True)
+    # sharded and elastic checkpoints are ported (parallel/elastic.py)
+    assert ptt.CheckpointConfig(str(tmp_path), sharded=True).sharded
+    assert ptt.CheckpointConfig(str(tmp_path), elastic=True,
+                                async_save=True).async_save
     main, exe, scope, _, logits = _trained_port(steps=1)
     with pytest.raises(NotImplementedError, match=r"§1 item 4"):
         ptt.io.save_inference_model(str(tmp_path), ["x"], [logits],
                                     main_program=main, scope=scope,
                                     export=True)
-    with pytest.raises(NotImplementedError, match=r"§1 item 4"):
-        ptt.io.save_persistables(exe, str(tmp_path), main_program=main,
-                                 scope=scope, filename="all.pts")
+    # the native .pts container is ported (data/tensor_store.py)
+    ptt.io.save_persistables(exe, str(tmp_path), main_program=main,
+                             scope=scope, filename="all.pts")
+    assert os.path.exists(os.path.join(str(tmp_path), "all.pts"))
 
 
 def test_entry_points_default_to_the_card(tmp_path):

@@ -93,20 +93,12 @@ RENAMED = {"TPUPlace": "CUDAPlace", "is_compiled_with_tpu":
 EXCLUDED = {"paddle_tpu.data.download", "paddle_tpu.data.md5file"}
 _ITEM4 = "ROADMAP.md §1 item 4: "
 _MULTI = _ITEM4 + "multi-GPU parallelism"
-_ELASTIC = _ITEM4 + "elasticity and sharded checkpoints"
 _ANALYSIS = _ITEM4 + "analysis, planning and observability"
 _TRANSPILER = _ITEM4 + "transpiler/"
 _HOST = _ITEM4 + "host-side utilities"
 # API.spec prefixes (a path and everything under it) still to be ported,
 # each with the ROADMAP item that takes it
 WAITING = {
-    "paddle_tpu.parallel.elastic": _ELASTIC,
-    "paddle_tpu.parallel.reshard": _ELASTIC,
-    "paddle_tpu.parallel.process_world": _ELASTIC,
-    "paddle_tpu.parallel.ProcessWorld": _ELASTIC,
-    **{f"paddle_tpu.distributed.{n}": _ELASTIC
-       for n in ("Master", "MasterClient", "ElasticTrainer",
-                 "FailureDetector", "PreemptionGuard")},
     **{f"paddle_tpu.transpiler.{n}": _TRANSPILER
        for n in ("DistributeTranspiler", "DistributeTranspilerConfig",
                  "HashName", "InferenceTranspiler", "PSDispatcher",
@@ -116,9 +108,6 @@ WAITING = {
        for n in ("RecordIOScanner", "RecordIOWriter", "ParallelRecordLoader",
                  "read_numpy_records", "write_numpy_records")},
     "paddle_tpu.inferencer.ExportedPredictor": _ITEM4 + "export",
-    "paddle_tpu.trainer.Supervisor": _ITEM4 + "multi-GPU training",
-    "paddle_tpu.trainer.SupervisorExhaustedError": _ITEM4 +
-    "multi-GPU training",
 }
 # modules and names ported with the generators and the single-card API:
 # none of them may wait
