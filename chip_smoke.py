@@ -347,6 +347,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    crash_at_step:4 and once by crash_mid_save inside the step-4
    snapshot's staged payload: each run restarts once and ends with the
    uninterrupted child's state bitwise, resumed at step 2.
+45. ParallelExecutor on phase 7's LM at full width in float32 (TF32 and
+   use_bf16_matmul off), Adam from one init, in a world over every
+   visible card on NCCL (one rank on a one-card machine), each run held
+   against the plain Executor on the same card: (a) Reduce (ZeRO-1) with
+   offload_optimizer_state off and on, 4 steps each: losses and the
+   whole state bitwise, the offloaded bytes equal to the program's
+   reckoning, the scope holding no accumulator between steps, the
+   memory allocated between steps lower by at least 90% of those bytes,
+   the peak inside a step, d2h / h2d GB/s on the side stream, the step
+   times, last_restore_wait_s and costs.predict's offload section;
+   (b) Reduce with memory_plan=True on the rewritten program: losses
+   within 1e-5 relative, peak, step and the plan's record, then one
+   auto-parallel prepare (its chosen point, memory plans in its space);
+   (c) AllReduce with enable_sequence_parallel on {"sp": world} (sp 1
+   on one card: the split, the override and a one-block ring), and
+   dp 2 x sp 2 on four cards: losses within 1e-5 relative, the first
+   step's gradients within 1e-2 of their norm and the parameters settled
+   (`_adam_parity`), K1-K3 6·(i+1) a step on sp rank i (the causal ring's
+   live blocks).
 
 Phase 3 also holds the bfloat16 cells of K5 / K6 (x, w and states in
 bfloat16, h and c carried in bfloat16 as the reference's composite
@@ -8797,6 +8816,353 @@ def elastic_train(ptt, kernels):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 45: ParallelExecutor's optimizer-state offload, its memory plan on
+# the rewritten program and sequence parallelism, on phase 7's LM
+# ---------------------------------------------------------------------------
+
+#: the steps of each run of phase 45
+P45_STEPS = 4
+
+
+def _p45_free():
+    """Drop a finished run's tensors before the next run's readings of
+    memory_allocated (a program's objects may sit in reference cycles)."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _p45_opt_bytes(pe, scope):
+    """The optimizer state's bytes on this rank, reckoned from the
+    program as the executor rewrote it (declared shapes, ZeRO-1 rows cut
+    over dp), and the names it holds."""
+    import torch
+    from paddle_tpu_torch.core.dtypes import convert_dtype
+    from paddle_tpu_torch.framework import offload as ofl
+    prog = pe.prepare_program()
+    names = ofl.optimizer_state_names(prog, scope)
+    total = 0
+    for n in names:
+        v = pe._find_var(prog, n)
+        shape = list(v.shape)
+        for d, s in enumerate(pe.state_sharding(prog, n)):
+            for a in (s if isinstance(s, (tuple, list)) else (s,)) \
+                    if s else ():
+                shape[d] //= pe.mesh.axis_size(a)
+        total += int(math.prod(shape)) * torch.empty(
+            (), dtype=convert_dtype(v.dtype)).element_size()
+    return names, total
+
+
+class _P45Run:
+    """Phase 7's LM at full width in float32 through ParallelExecutor,
+    from phase 45's one init: each step timed, with the device memory
+    allocated after it (synchronized) and its peak inside it, and K1-K3's
+    launches counted from zero around it."""
+
+    def __init__(self, ptt, kernels, init, mesh, **strategy):
+        from paddle_tpu_torch.parallel import BuildStrategy, ParallelExecutor
+        self.kernels = kernels
+        self.main, _, self.loss = _train_program(ptt, TRAIN, mean_loss=True)
+        self.scope = ptt.Scope()
+        for n, v in init.items():
+            self.scope.set_var(n, v.clone())
+        self.pe = ParallelExecutor(use_cuda=True, loss_name=self.loss.name,
+                                   main_program=self.main, scope=self.scope,
+                                   mesh=mesh,
+                                   build_strategy=BuildStrategy(**strategy))
+
+    def steps(self, feeds, after=None):
+        import torch
+        out = {"losses": [], "secs": [], "allocated": [], "peak": [],
+               "launches": []}
+        for f in feeds:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = self.pe.run(fetch_list=[self.loss], feed=f,
+                            return_numpy=False)
+            out["losses"].append(float(r[0].reshape(-1)[0]))
+            torch.cuda.synchronize()
+            out["secs"].append(time.perf_counter() - t0)
+            out["launches"].append({k: self.kernels.LAUNCHES[k]
+                                    for k in FLASH})
+            out["peak"].append(torch.cuda.max_memory_allocated())
+            # an allocation lets the caching allocator free the blocks
+            # whose side-stream copies (record_stream) have completed
+            torch.empty(1, device="cuda")
+            out["allocated"].append(torch.cuda.memory_allocated())
+            if after is not None:
+                after(self)
+        out["step_ms"] = float(sorted(out["secs"][1:])[
+            len(out["secs"][1:]) // 2] * 1e3)
+        return out
+
+
+def _p45_offload(ptt, kernels, init, feeds, mesh):
+    """Phase 45(a): Reduce (ZeRO-1) with offload_optimizer_state off and
+    on: losses and the whole state bitwise, the offloaded bytes, device
+    memory between and inside steps, the side stream's rates, the step
+    times, restore waits and the cost model's offload section."""
+    import torch
+    from paddle_tpu_torch.framework import offload as ofl
+    from paddle_tpu_torch.parallel import ReduceStrategy
+    res, failed = {}, []
+    states = {}
+    for label, on in (("offload_off", False), ("offload_on", True)):
+        # one run on the card at a time: memory_allocated is the process's
+        run = _P45Run(ptt, kernels, init, mesh,
+                      reduce_strategy=ReduceStrategy.Reduce,
+                      offload_optimizer_state=on)
+        res[label] = run.steps(feeds)
+        if on:
+            ho = run.pe._host_opt
+            held = [n for n in ho.names if run.scope.has_var(n)]
+            roundtrips = ho.roundtrips
+            ofl.restore_offloaded(run.scope)
+            names, reckoned = _p45_opt_bytes(run.pe, run.scope)
+            rates = ofl.shared_stream(run.pe.place).rates()
+            res[label].update(
+                offloaded_bytes=ho.bytes_per_direction,
+                reckoned_bytes=reckoned, n_vars=len(names),
+                roundtrips=roundtrips,
+                last_restore_wait_s=ho.last_restore_wait_s,
+                slab_pinned=bool(ho._slab.pinned),
+                host_optimizer_bytes=ofl.shared_host_pool().used_bytes(
+                    "optimizer"),
+                names_match=sorted(names) == sorted(ho.names),
+                scope_holds=held,
+                d2h_gbps=rates["d2h"]["gb_per_s"],
+                h2d_gbps=rates["h2d"]["gb_per_s"],
+                cost_offload=run.pe.cost_report(
+                    nominal_batch=TRAIN["batch"])["offload"])
+        states[label] = {n: t.cpu() for n, t in _state_of(run.scope).items()}
+        del run
+        _p45_free()
+    off, on = res["offload_off"], res["offload_on"]
+    bad = _bitwise(states["offload_off"], states["offload_on"])
+    fell = off["allocated"][-1] - on["allocated"][-1]
+    res["state_bitwise_mismatch"] = bad
+    res["allocated_fell_bytes"] = fell
+    checks = [("losses_bitwise", on["losses"] == off["losses"]),
+              ("state_bitwise", not bad),
+              ("bytes_reckoned", on["offloaded_bytes"]
+               == on["reckoned_bytes"]),
+              ("allocated_fell", fell >= 0.9 * on["offloaded_bytes"]),
+              ("scope_empty_between_steps", not on["scope_holds"]),
+              ("names", on["names_match"]),
+              ("pinned", on["slab_pinned"]),
+              ("roundtrips", on["roundtrips"] == P45_STEPS - 1)]
+    checks += [(f"launches {label} {k}", all(
+        s[k] == TRAIN["num_layers"] for s in res[label]["launches"]))
+        for label in states for k in FLASH]
+    failed += [("offload", c) for c, ok in checks if not ok]
+    return res, failed
+
+
+def _p45_plan(ptt, kernels, init, feeds, mesh, base_losses):
+    """Phase 45(b): Reduce with memory_plan=True, losses within 1e-5 of
+    the unplanned run's, the plan's record; then one prepare with
+    auto_parallel=True and its chosen point."""
+    import torch
+    from paddle_tpu_torch.framework import memory_plan as tmp
+    from paddle_tpu_torch.parallel import ReduceStrategy
+    run = _P45Run(ptt, kernels, init, mesh,
+                  reduce_strategy=ReduceStrategy.Reduce, memory_plan=True)
+    res = run.steps(feeds)
+    prog = run.pe.prepare_program()
+    rep = tmp.plan_report(prog)
+    remat = rep.get("remat") or {}
+    res["plan"] = {
+        "applied": bool(getattr(prog, "_memory_plan_applied", False)),
+        "predicted_peak_before": rep.get("predicted_peak_before"),
+        "predicted_peak_after": rep.get("predicted_peak_after"),
+        "schedule": rep.get("schedule"),
+        "remat_chosen": remat.get("chosen"),
+        "remat_segments": remat.get("segments") or remat.get("n_segments"),
+        "time_budget_s": remat.get("time_budget_s")}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                   base_losses))
+    res["max_loss_rel"] = rel
+    del run
+    _p45_free()
+    auto = _P45Run(ptt, kernels, init, mesh, auto_parallel=True)
+    auto.pe._feed_shapes = {n: tuple(v.shape) for n, v in feeds[0].items()}
+    auto.pe.prepare_program()
+    plan = auto.pe.auto_plan_report()
+    res["auto"] = {"point": plan.point.describe(),
+                   "mesh_axes": dict(plan.mesh_axes),
+                   "memory_plan": bool(plan.point.memory_plan),
+                   "predicted_step_s": plan.predicted_step_s,
+                   "n_feasible": plan.n_feasible}
+    del auto
+    _p45_free()
+    failed = [("plan", c) for c, ok in (
+        ("applied", res["plan"]["applied"]), ("losses", rel <= 1e-5))
+        if not ok]
+    return res, failed
+
+
+def _p45_sequence(ptt, kernels, init, feeds, mesh, plain):
+    """Phase 45(c): AllReduce with enable_sequence_parallel on `mesh`:
+    the losses within 1e-5 of the plain Executor's, the gradients by the
+    per-step norm ratio `_adam_parity` reads through Adam's first moments,
+    the parameters after the steps, and K1-K3's launches per step on this
+    rank (a causal ring over sp launches K1 once per live block)."""
+    import torch
+    from paddle_tpu_torch.parallel import ReduceStrategy
+    run = _P45Run(ptt, kernels, init, mesh,
+                  reduce_strategy=ReduceStrategy.AllReduce,
+                  enable_sequence_parallel=True)
+    m1, p1 = _Snapshots(len(feeds)), _Snapshots(1)
+    res = run.steps(feeds, after=lambda r: plain._after(r.scope, m1, p1))
+    par, checks = plain.parity(run.scope, m1, p1)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                   plain.losses))
+    sp = mesh.axis_size("sp")
+    idx = mesh.axis_index("sp")
+    # the causal ring: this rank's query block meets idx + 1 key blocks
+    want = TRAIN["num_layers"] * (idx + 1)
+    checks = [("losses", rel <= 1e-5)] + checks + [
+        (f"launches {k}", all(s[k] == want for s in res["launches"]))
+        for k in FLASH]
+    res.update(max_loss_rel=rel, parity={
+        k: par[k] for k in ("g_norm_rel", "g_rel", "worst", "beyond",
+                            "beyond_settled", "p1_beyond", "n")},
+        sp=sp, sp_index=idx, mesh=dict(mesh.axes),
+        k1_per_step_expected=want,
+        failed=[c for c, ok in checks if not ok])
+    del run
+    _p45_free()
+    return res, [(f"sp {dict(mesh.axes)}", c) for c in res["failed"]]
+
+
+def phase45_rank(rank, world, out_path, parts="abc"):
+    """One rank of phase 45's NCCL world over every visible card (one
+    rank on a one-card machine): phase 7's LM at full width in float32
+    (TF32 and use_bf16_matmul off) with Adam from one init. (a) Reduce
+    mode with the optimizer state offloaded and not; (b) Reduce with the
+    memory plan on the rewritten program, and one auto-parallel prepare;
+    (c) sequence parallelism on {"sp": world} (sp 1 on one card: the
+    split, the override and a one-block ring), and on four cards
+    dp 2 x sp 2 too, each against the plain Executor on this card.
+    `parts` names the parts to run. Writes the rank's numbers to
+    out_path.<rank> as JSON."""
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.parallel import DeviceMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    kernels.build(["flash_attention"])     # built by phase 2: loads
+    place = ptt.CUDAPlace(torch.cuda.current_device())
+    t0 = time.perf_counter()
+    feeds = _lm_steps_feeds(TRAIN, P45_STEPS, SEED + 45)
+    plain = _PlainAdam(ptt, place, TRAIN, feeds)
+    res = {"world": world, "rank": rank,
+           "plain": {"losses": plain.losses, "step_ms": float(sorted(
+               plain.secs[1:])[len(plain.secs[1:]) // 2] * 1e3)}}
+    failed = []
+    dp_mesh = DeviceMesh(axes={"dp": world})
+    if "a" in parts:
+        res["offload"], f = _p45_offload(ptt, kernels, plain.init, feeds,
+                                         dp_mesh)
+        failed += f
+    if "b" in parts:
+        res["plan"], f = _p45_plan(
+            ptt, kernels, plain.init, feeds, dp_mesh,
+            res["offload"]["offload_off"]["losses"] if "a" in parts
+            else plain.losses)
+        failed += f
+    meshes = [{"sp": world}] + ([{"dp": 2, "sp": world // 2}]
+                                if world >= 4 else [])
+    res["sp"] = {}
+    for axes in meshes if "c" in parts else ():
+        label = "x".join(f"{a}{n}" for a, n in axes.items())
+        res["sp"][label], f = _p45_sequence(
+            ptt, kernels, plain.init, feeds, DeviceMesh(axes=axes), plain)
+        failed += f
+    res["phase_s"] = time.perf_counter() - t0
+    res["failed"] = failed
+    print(f"phase45 rank {rank}: {res['phase_s']:.1f} s, failed {failed}",
+          flush=True)
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(res, f)
+    assert not failed, failed
+
+
+def _p45_log_ab(r0):
+    """Phase 45(a) and (b)'s log lines (rank 0's numbers)."""
+    gb = 1e9
+    off, on = r0["offload"]["offload_off"], r0["offload"]["offload_on"]
+    log(f"  (a) offload, Reduce: losses {on['losses']} bitwise "
+        f"{on['losses'] == off['losses']}, state mismatches "
+        f"{r0['offload']['state_bitwise_mismatch']}; offloaded "
+        f"{on['offloaded_bytes'] / gb:.4f} GB ({on['n_vars']} vars, "
+        f"reckoned from the program {on['reckoned_bytes'] / gb:.4f} GB); "
+        f"allocated between steps {off['allocated'][-1] / gb:.4f} -> "
+        f"{on['allocated'][-1] / gb:.4f} GB (fell "
+        f"{r0['offload']['allocated_fell_bytes'] / gb:.4f}); peak in a step "
+        f"{max(off['peak']) / gb:.4f} -> {max(on['peak']) / gb:.4f} GB; "
+        f"d2h {on['d2h_gbps']:.2f} GB/s, h2d {on['h2d_gbps']:.2f} GB/s on "
+        f"the side stream; step {off['step_ms']:.1f} -> "
+        f"{on['step_ms']:.1f} ms; last_restore_wait_s "
+        f"{on['last_restore_wait_s']:.6f}; costs.predict offload "
+        f"{on['cost_offload']}")
+    pl = r0["plan"]
+    log(f"  (b) memory plan, Reduce: losses {pl['losses']} (largest "
+        f"relative difference {pl['max_loss_rel']:.2e}); peak "
+        f"{max(off['peak']) / gb:.4f} -> {max(pl['peak']) / gb:.4f} GB; "
+        f"step {off['step_ms']:.1f} -> {pl['step_ms']:.1f} ms; K1-K3 a step "
+        f"{pl['launches'][-1]}; plan {pl['plan']}; auto_parallel chose "
+        f"{pl['auto']}")
+
+
+def offload_plan_sequence(ptt, kernels, world=None, parts="abc"):
+    """Phase 45: phase45_rank in a world over every visible card on NCCL
+    (or `world` of them), its `parts`. Returns the ranks' numbers for
+    `paths`."""
+    import torch
+    world = world or torch.cuda.device_count()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p45_")
+    try:
+        t0 = time.perf_counter()
+        ptt.distributed.launch(
+            f"{os.path.abspath(__file__)}:phase45_rank", world,
+            args=[os.path.join(root, "rank"), parts], place="cuda",
+            timeout_s=600, store_dir=root)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(root, f"rank.{r}")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    log(f"  a world of {world} rank(s) on NCCL in {spawn_s:.1f} s; plain "
+        f"Executor losses {r0['plain']['losses']}, step "
+        f"{r0['plain']['step_ms']:.1f} ms")
+    if "a" in parts and "b" in parts:
+        _p45_log_ab(r0)
+    for r in ranks:
+        for label, s in r["sp"].items():
+            log(f"  (c) sp {label} rank {r['rank']}: losses {s['losses']} "
+                f"(largest relative difference {s['max_loss_rel']:.2e}); "
+                f"gradients ||Δg|| / ||g|| by step "
+                f"{_fmt(s['parity']['g_norm_rel'])}; parameters beyond "
+                f"{s['parity']['beyond']} (not settled "
+                f"{s['parity']['beyond_settled']}); step {s['step_ms']:.1f} "
+                f"ms; K1-K3 a step {s['launches'][-1]}")
+    log(f"  phase 45 in {r0['phase_s']:.1f} s on rank 0")
+    return {"spawn_s": spawn_s, "ranks": ranks}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9089,6 +9455,12 @@ def main():
            "blocking snapshots, restores, supervised crashes, a changed "
            "world)")
     paths["elastic"] = elastic_train(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    _phase("phase 45: ParallelExecutor on phase 7's LM: the optimizer "
+           "state offloaded to pinned host memory, the memory plan on the "
+           "rewritten program, sequence parallelism over the ring")
+    paths["offload_plan_sp"] = offload_plan_sequence(ptt, kernels)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -9183,6 +9555,19 @@ def main():
                 run["launches_per_step"][0][k]
             assert run["launches_per_step"][0][k] > 0, \
                 f"{k} was never launched on phase 44's {label} path"
+    # phase 45: K1-K3 a step of (a)'s two runs, (b)'s planned run and
+    # (c)'s sequence-parallel runs (rank 0: its causal ring's live blocks)
+    p45 = paths["offload_plan_sp"]["ranks"][0]
+    p45_runs = {**p45["offload"], "planned": p45["plan"],
+                **{f"sp_{k}": v for k, v in p45["sp"].items()}}
+    for label, run in p45_runs.items():
+        if not isinstance(run, dict) or "launches" not in run:
+            continue
+        for k in FLASH:
+            results[k][f"launches_per_step_phase45_{label}"] = \
+                run["launches"][0][k]
+            assert run["launches"][0][k] > 0, \
+                f"{k} was never launched on phase 45's {label} path"
     # generation (phases 38-39): K4 in every decode step of both
     # generators, K1 in the encoder-decoder's encoder
     results["decode_attention"]["launches_generate"] = \

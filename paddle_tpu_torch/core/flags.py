@@ -170,8 +170,9 @@ define_bool("memory_plan", True,
             "buffer-slot coloring (checked race-free by the buffer-reuse "
             "detectors on every apply), and the remat-vs-stash search that "
             "segments the backward region under torch.utils.checkpoint. "
-            "The BuildStrategy gate is ParallelExecutor's (ROADMAP.md §1 "
-            "item 4); on one card the flag is part of the executor's "
+            "ParallelExecutor plans the program as rewritten (after the tp, "
+            "dp-comm and pipeline passes); on one card the flag is part of "
+            "the executor's "
             "plan-cache key (framework/executor.py _fusion_flags_key). The "
             "executor's release of each transient at its last use runs in "
             "every plan and does not read it.")

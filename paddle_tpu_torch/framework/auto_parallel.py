@@ -19,9 +19,10 @@ chooses the JAX package's point (tests/test_torch_auto_parallel.py).
 
 `ParallelExecutor` plans behind `BuildStrategy.auto_parallel` (kill switch
 PTPU_AUTO_PARALLEL=0): on the first prepare it adopts the chosen strategy
-AND the mesh factorization of its ranks. The re-plan on an elastic
-restore (`replan_on_restore`) waits with elasticity (ROADMAP.md §1
-item 4).
+(memory plans included: the executor plans the rewritten program) AND
+the mesh factorization of its ranks. An elastic restore onto another
+world re-plans through `replan_on_restore`, priced against the one-time
+reshard.
 
 The search is DETERMINISTIC for a fixed seed (the annealer is the only
 stochastic part and draws from `random.Random(seed)`). An optional
@@ -685,10 +686,9 @@ def replan_on_restore(executor, program, scope, meta, snapshot_dir, *,
         # the RE-PLANNED side: a full search over the new world, quant
         # pinned; its reshard price needs the executor on the chosen
         # config for a moment (reverted below when "keep" wins)
-        space = numerics_preserving_space(base)
-        space.memory_plan = (False,)
         result = plan(program, n_ranks, nominal_batch=batch,
-                      strategy_base=base, space=space, seed=seed)
+                      strategy_base=base,
+                      space=numerics_preserving_space(base), seed=seed)
         executor.build_strategy = result.strategy
         _adopt_mesh(executor, result.mesh_axes)
         new_wire = _reshard_wire(executor.prepare_program(program, scope))

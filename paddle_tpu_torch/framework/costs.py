@@ -54,11 +54,13 @@ H100_HBM_BYTES = 80 * (1 << 30)
 #: NVLink 4 bandwidth one direction, per device (900 GB/s both ways, the
 #: data sheet): what the ring models' per-device bytes divide through
 H100_NVLINK_BPS = 450e9
-#: host <-> device PCIe rate measured on the card: chip_smoke.py phase 30's
-#: d2h copies of the pinned host tier on a CUDA side stream, 12.33 GB/s
-#: (h2d 13.44) on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md). The
-#: slower direction prices a round trip.
-H100_PCIE_BPS = 12.33e9
+#: host <-> device PCIe rate measured on the card for the large buffers its
+#: readers move (the offloaded optimizer state, the stash-to-host
+#: candidate): chip_smoke.py phase 45's offload copies, 0.4136 GB one copy
+#: each way on a CUDA side stream between a pinned slab and the card,
+#: h2d 42.12 GB/s (d2h 44.29) on an NVIDIA H100 80GB HBM3 at 700.00 W
+#: (PERF.md). The slower direction prices a round trip.
+H100_PCIE_BPS = 42.12e9
 #: host time of one eager op lowering, the least an op costs the port's
 #: step whatever its roofline: chip_smoke.py phase 39's LM generation
 #: step, 141 lowerings in 18.2-23.3 ms, so at least 129 us each, on an
@@ -1185,8 +1187,8 @@ def _reason(code: str, message: str) -> Dict:
 
 
 # ≙ parallel/mesh.py's axis names, parallel/pipeline.py's schedules and
-# parallel/grad_comm.py's op sets (the port's parallel package is the
-# multi-GPU part of ROADMAP.md §1 item 4)
+# parallel/grad_comm.py's op sets (kept here so the cost model does not
+# import the parallel package)
 DATA_AXIS, MODEL_AXIS, PIPELINE_AXIS = "dp", "tp", "pp"
 PIPELINE_SCHEDULES = ("gpipe", "1f1b")
 _BATCH_GLOBAL_OPS = frozenset({"batch_norm"})

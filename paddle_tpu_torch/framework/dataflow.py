@@ -5,7 +5,7 @@ Dataflow analysis over the Program IR.
 
 The machinery layer under the whole-program SPMD detectors in
 `framework/analysis.py` — and the liveness/interference foundation the
-memory planner (ROADMAP item 4) schedules against. Four pieces:
+memory planner (framework/memory_plan.py) schedules against. Four pieces:
 
 1. **Effect sets** (`op_effects`): per-op read/write/in-place buffer
    effects plus the semantics the slot lists cannot express — which mesh
@@ -641,8 +641,8 @@ def _check_tp_partials(program, diags):
     the number, so this must be caught at the consuming op, not at a
     sink). The same contract dp-comm-bypass enforces for `@COMM`
     gradients, one axis over."""
-    # ≙ framework/sharding.py's TP_PART_SUFFIX (the port's sharding module
-    # is the multi-GPU part of ROADMAP.md §1 item 4)
+    # ≙ framework/sharding.py's TP_PART_SUFFIX (kept here so the dataflow
+    # layer does not import the sharding module)
     TP_PART_SUFFIX = "@TPPART"
     for block in program.blocks:
         for idx, op in enumerate(block.ops):
@@ -797,7 +797,7 @@ def _check_cross_block_slots(program, groups, diags):
 
 
 def _check_buffer_reuse(program, diags):
-    """The safety gate for liveness-driven buffer reuse (ROADMAP item 4):
+    """The safety gate for liveness-driven buffer reuse (the memory plan):
     vars the planner assigns one buffer (`Variable.buffer_slot`) must not
     interfere. A proper live-interval overlap is a reuse race (two live
     values, one buffer); a write landing exactly on the op still reading

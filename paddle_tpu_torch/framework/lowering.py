@@ -85,9 +85,9 @@ def run_op(op: Operator, env: Dict[str, Any], ctx: LowerCtx):
     opdef = lookup_op(op.type)
     ins = _gather_inputs(op, env)
     ctx.op = op
-    # a run may lower some ops its own way (ParallelExecutor: reductions
-    # over the data-parallel batch span every rank); the override gets
-    # the op's own lowering to build on
+    # a run may lower some ops its own way (ParallelExecutor: an op that
+    # mixes rows along a split data axis runs over the whole axis); the
+    # override gets the op's own lowering to build on
     override = ctx.extras.get("op_overrides", {}).get(op.type)
     try:
         outs = (override(ctx, ins, op.attrs, opdef.lower)

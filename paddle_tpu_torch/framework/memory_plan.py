@@ -22,9 +22,14 @@ package's). What realizes each decision on the card:
   candidate to the time budget (`RECOMPUTE_ALWAYS_RUNS`); with the JAX
   package's constants, `H100_HOST_OP_S` 0 and that rule off, the plan is
   the JAX package's;
-- a pipeline region's per-stage decisions are the multi-GPU part of
-  ROADMAP.md §1 item 4; a program with one is refused. The stash-to-host
-  candidate stays advisory, as in the JAX package.
+- a pipeline region keeps its op order (the region pins its stages'
+  index lists) and gets the per-STAGE remat-vs-stash curve against the
+  1F1B stash census (`_pp_stage_decisions`): the engine already runs the
+  recompute point (each stage's backward replays its forward from the
+  stashed boundary input), so a "keep" verdict is advisory, as in the
+  JAX package. So is the stash-to-host candidate.
+  ParallelExecutor(BuildStrategy(memory_plan=True)) runs this pass over
+  the program as rewritten (tp, dp-comm and pipeline passes first).
 
 It stands on the dataflow analysis (whole-program lifetimes with the
 backward-region rule, the interference graph, and the always-on

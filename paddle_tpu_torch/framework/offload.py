@@ -31,16 +31,26 @@ here it is the card's own mechanism:
 The byte census is exact: the stream counts each job's declared bytes,
 and the engine declares the bytes it actually moves.
 
-Not ported (ROADMAP.md §1 item 4): `HostOptimizerState` and
-`optimizer_roundtrip_events` (ZeRO-1 host-resident optimizer state),
-`check_schedule` (the offload schedule lint, which needs the JAX
-package's framework/analysis.py), the costs `offload` section and the
-memory plan's stash tier.
+The optimizer tier (`ParallelExecutor(BuildStrategy(
+offload_optimizer_state=True))`): `HostOptimizerState` keeps each
+rank's optimizer accumulators (its ZeRO-1 rows in Reduce mode) in one
+page-locked `HostSlab` between steps. `offload()` after a step enqueues
+the d2h copies on the transfer stream behind an event of the compute
+stream, so they follow the step's last in-place optimizer write, and
+drops the device tensors from the scope; `restore()` at the next step's
+entry enqueues the h2d copies into fresh device tensors and makes the
+compute stream wait on their event: the host never blocks, and the round
+trip is bitwise. `optimizer_roundtrip_events` and `check_schedule` are
+the schedule lint (`offload-use-before-arrival`,
+`offload-stale-after-rollback`), `costs.predict`'s `offload` section its
+price.
 """
 
 from __future__ import annotations
 
+import math
 import threading
+import weakref
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -56,7 +66,8 @@ __all__ = [
     "HostSlab", "TransferStream", "TransferTicket", "shared_host_pool",
     "shared_stream", "TransferEvent", "prefetch_issue_tick",
     "kv_prefetch_events", "offload_metrics", "offload_stats",
-    "reset_offload",
+    "reset_offload", "optimizer_state_names", "HostOptimizerState",
+    "restore_offloaded", "optimizer_roundtrip_events", "check_schedule",
 ]
 
 
@@ -200,9 +211,10 @@ class PinnedHostPool:
     # -- allocation ---------------------------------------------------------
 
     def alloc(self, shape, dtype, category: str) -> HostBuffer:
-        """A pool-owned host tensor of its own (pageable: the KV tier's
-        pinned memory comes from `slab`); the ledger moves before the
-        caller sees it."""
+        """A pool-owned host tensor of its own (pageable); the ledger
+        moves before the caller sees it. The tiers that copy on a CUDA
+        side stream (the KV blocks, the optimizer state) take page-locked
+        memory from `slab`, which pins or raises."""
         enforce(category in _CATEGORY_CHANNEL,
                 f"unknown host-pool category {category!r}; known: "
                 f"{sorted(_CATEGORY_CHANNEL)}", exc=InvalidArgumentError)
@@ -585,6 +597,207 @@ def reset_offload():
 
 
 # ---------------------------------------------------------------------------
+# host-resident optimizer state (ZeRO-offload)
+# ---------------------------------------------------------------------------
+
+
+def optimizer_state_names(program, scope) -> List[str]:
+    """The scope vars that are optimizer state per the one classifier
+    (`costs.state_category`, the walk the census and the ledger use, so
+    the offloaded set cannot drift from the priced set)."""
+    from . import costs as _costs
+    names: List[str] = []
+    seen = set()
+    for b in program.blocks:
+        for name, v in b.vars.items():
+            if name in seen or not scope.has_var(name):
+                continue
+            seen.add(name)
+            if _costs.state_category(v, name) == "optimizer_state":
+                names.append(name)
+    return sorted(names)
+
+
+_SLAB_ALIGN = 256
+
+
+class HostOptimizerState:
+    """ZeRO-offload one tier further: between steps the optimizer
+    accumulators (each rank's own blocks) live only in one page-locked
+    host slab; `restore()` puts them back into the scope at the next
+    step's entry and `offload()` drops the device copies after the step.
+
+    The accumulators sit at fixed offsets of the slab, and a restore puts
+    them back as views of ONE device buffer laid out alike: one
+    allocation and one h2d copy, and (while the optimizer keeps updating
+    those views in place) one d2h copy at the next offload. The order
+    comes from events, never from host waits: the d2h runs on the
+    transfer stream after an event recorded on the compute stream behind
+    the step (the optimizer writes the accumulators in place), and the
+    device memory is recorded on the side stream, so the caching
+    allocator does not hand it out before its copy is done; the h2d fills
+    a buffer allocated on the side stream, and the compute stream waits
+    on its event before the step's first read. The round trip is bitwise.
+
+    The slab is allocated once, at the first offload, sized from the
+    accumulators then (each rank's ZeRO-1 rows, after the executor cut
+    them). On the CPU the copies run at once."""
+
+    def __init__(self, scope, names: Sequence[str],
+                 stream: Optional[TransferStream] = None,
+                 pool: Optional[PinnedHostPool] = None):
+        enforce(len(names) > 0,
+                "HostOptimizerState: no optimizer-state vars to offload "
+                "(run the built train step once so the accumulators "
+                "exist, or drop offload_optimizer_state)",
+                exc=InvalidArgumentError)
+        # the scope holds this state (`restore_offloaded` finds it there);
+        # a weak reference back leaves no cycle to keep a dropped scope's
+        # tensors alive
+        self._scope = weakref.ref(scope)
+        self.names = list(names)
+        self.stream = stream or shared_stream()
+        self.pool = pool or shared_host_pool()
+        self._slab: Optional[HostSlab] = None
+        self._buf: Optional[HostBuffer] = None
+        self._layout: Dict[str, tuple] = {}     # name -> (off, shape, dtype)
+        self._host: Dict[str, torch.Tensor] = {}
+        self._span = 0                          # laid-out bytes
+        self._flat: Optional[torch.Tensor] = None   # the restored buffer
+        self.offloaded = False
+        self.roundtrips = 0
+        self.last_restore_wait_s = 0.0
+        self.bytes_per_direction = 0
+        scope.__dict__["_host_optimizer_state"] = self
+
+    @property
+    def scope(self):
+        return self._scope()
+
+    @staticmethod
+    def _view(flat: torch.Tensor, off: int, shape, dtype) -> torch.Tensor:
+        nb = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        return flat[off:off + nb].view(dtype).view(shape)
+
+    def _allocate(self, tensors: Dict[str, torch.Tensor]):
+        off = 0
+        for name, t in tensors.items():
+            self._layout[name] = (off, tuple(t.shape), t.dtype)
+            off += -(-t.numel() * t.element_size() // _SLAB_ALIGN) \
+                * _SLAB_ALIGN
+        self._span = max(off, 1)
+        self._slab = self.pool.slab(
+            1, self._span, "optimizer",
+            pin=self.stream.device.type == "cuda")
+        self._buf = self._slab.alloc(1)
+        flat = self._slab.tensor[0]
+        self._host = {n: self._view(flat, *lay)
+                      for n, lay in self._layout.items()}
+        self.bytes_per_direction = sum(
+            t.numel() * t.element_size() for t in tensors.values())
+
+    def host_view(self, name: str) -> torch.Tensor:
+        """The host copy of accumulator `name` (a view into the slab;
+        complete once the last offload's copy is)."""
+        return self._host[name]
+
+    def _in_flat(self, tensors) -> bool:
+        """Is every accumulator still its view of the restored buffer
+        (the optimizer updated them in place)?"""
+        if self._flat is None:
+            return False
+        base = self._flat.data_ptr()
+        return all(t.data_ptr() == base + self._layout[n][0]
+                   and t.is_contiguous() for n, t in tensors.items())
+
+    def offload(self):
+        """d2h behind the step, then drop the device tensors."""
+        if self.offloaded:
+            return
+        tensors = {n: self.scope.get(n) for n in self.names}
+        if self._slab is None:
+            self._allocate(tensors)
+        for n, t in tensors.items():
+            enforce(self._layout[n][1:] == (tuple(t.shape), t.dtype),
+                    f"optimizer state {n!r} changed shape or dtype under "
+                    f"offload: {self._layout[n][1:]} -> "
+                    f"{(tuple(t.shape), t.dtype)}",
+                    exc=InvalidArgumentError)
+        srcs = ([self._flat] if self._in_flat(tensors)
+                else list(tensors.values()))
+        after = None
+        if self.stream.stream is not None:
+            after = torch.cuda.Event()
+            after.record(torch.cuda.current_stream(self.stream.device))
+            for t in srcs:
+                t.record_stream(self.stream.stream)
+        if len(srcs) == 1 and srcs[0] is self._flat:
+            host, src = self._slab.tensor[0], self._flat
+
+            def copy():
+                host.copy_(src, non_blocking=True)
+        else:
+            pairs = [(self._host[n], t) for n, t in tensors.items()]
+
+            def copy():
+                for h, t in pairs:
+                    h.copy_(t, non_blocking=True)
+        self.stream.submit("d2h", copy, self.bytes_per_direction,
+                           tag="optimizer", after=after)
+        self._flat = None
+        for n in self.names:
+            self.scope.erase(n)
+        self.offloaded = True
+
+    def restore(self):
+        """One h2d into one fresh device buffer, the accumulators put back
+        as its views; the compute stream waits on the copy's event (the
+        host does not block)."""
+        if not self.offloaded:
+            return
+        t0 = time.perf_counter()
+        flat = self.stream.empty((self._span,), torch.uint8)
+        host = self._slab.tensor[0]
+        ticket = self.stream.submit(
+            "h2d", lambda: flat.copy_(host, non_blocking=True),
+            self.bytes_per_direction, tag="optimizer")
+        compute = (torch.cuda.current_stream(self.stream.device)
+                   if self.stream.stream is not None else None)
+        ticket.wait_on(compute)
+        if compute is not None:
+            flat.record_stream(compute)
+        self._flat = flat
+        for n, lay in self._layout.items():
+            self.scope.set_var(n, self._view(flat, *lay))
+        self.last_restore_wait_s = time.perf_counter() - t0
+        self.offloaded = False
+        self.roundtrips += 1
+
+    def release(self):
+        """Return the slab to the pool (the state must be on the device:
+        call `restore()` first)."""
+        enforce(not self.offloaded,
+                "HostOptimizerState.release while state is host-resident"
+                " — restore() first", exc=InvalidArgumentError)
+        if self._buf is not None:
+            self.pool.free(self._buf)
+        self._slab = self._buf = self._flat = None
+        self._layout.clear()
+        self._host.clear()
+        if self.scope.__dict__.get("_host_optimizer_state") is self:
+            del self.scope.__dict__["_host_optimizer_state"]
+
+
+def restore_offloaded(scope):
+    """Bring `scope`'s offloaded optimizer state back onto the device (a
+    save then writes the complete training state, as without offload);
+    the executor offloads it again after its next step."""
+    ho = scope.__dict__.get("_host_optimizer_state")
+    if ho is not None and ho.offloaded:
+        ho.restore()
+
+
+# ---------------------------------------------------------------------------
 # transfer schedules — the policy surface
 # ---------------------------------------------------------------------------
 
@@ -617,4 +830,80 @@ def kv_prefetch_events(read_ticks: Dict[str, int],
         out.append(TransferEvent(var=var, direction="h2d",
                                  issue_tick=issue, arrive_tick=read,
                                  read_tick=read))
+    return out
+
+
+def optimizer_roundtrip_events(program, *, restore_at: int = 0
+                               ) -> List[TransferEvent]:
+    """The host-resident optimizer round trip as op-index events over one
+    train step: every accumulator must be back on the device at
+    `restore_at` (step entry) and spills after its last access. A restore
+    point after an op that reads the var is `offload-use-before-arrival`."""
+    from . import costs as _costs
+    events: List[TransferEvent] = []
+    block = program.blocks[0]
+    acc = {name for name, v in block.vars.items()
+           if _costs.state_category(v, name) == "optimizer_state"}
+    if not acc:
+        return events
+    first_read: Dict[str, int] = {}
+    last_access: Dict[str, int] = {}
+    for idx, op in enumerate(block.ops):
+        names = set()
+        for ns in getattr(op, "inputs", {}).values():
+            names.update(ns)
+        read = {n for n in names if n in acc}
+        for ns in getattr(op, "outputs", {}).values():
+            names.update(ns)
+        for n in names:
+            if n in acc:
+                last_access[n] = idx
+        for n in read:
+            first_read.setdefault(n, idx)
+    n_ops = len(block.ops)
+    for name in sorted(acc):
+        events.append(TransferEvent(
+            var=name, direction="h2d", issue_tick=restore_at,
+            arrive_tick=restore_at,
+            read_tick=first_read.get(name, n_ops)))
+        events.append(TransferEvent(
+            var=name, direction="d2h",
+            issue_tick=last_access.get(name, n_ops),
+            arrive_tick=n_ops, read_tick=n_ops))
+    return events
+
+
+def check_schedule(events: Sequence[TransferEvent],
+                   rollback_windows: Optional[Dict[str, Sequence[int]]]
+                   = None) -> List[Any]:
+    """The schedule lint: a transfer that arrives (or is issued) after its
+    first read is the error `offload-use-before-arrival`; one issued
+    before a rollback of its var (`rollback_windows`, var -> ticks) and
+    consumed at or after it carries pre-rollback bytes,
+    `offload-stale-after-rollback`. Returns `analysis.Diagnostic` rows."""
+    from .analysis import Diagnostic
+    out = []
+    for ev in events:
+        if ev.arrive_tick > ev.read_tick or ev.issue_tick > ev.read_tick:
+            out.append(Diagnostic(
+                code="offload-use-before-arrival",
+                loc=ev.var,
+                message=(f"{ev.direction} scheduled at tick "
+                         f"{ev.issue_tick} (arrives {ev.arrive_tick}) "
+                         f"but first read is tick {ev.read_tick} — the "
+                         f"consumer would see the stale tier"),
+                severity="error"))
+    for ev in events:
+        for t in (rollback_windows or {}).get(ev.var, ()):
+            if ev.issue_tick < t <= ev.read_tick:
+                out.append(Diagnostic(
+                    code="offload-stale-after-rollback",
+                    loc=ev.var,
+                    message=(f"{ev.direction} issued at tick "
+                             f"{ev.issue_tick} straddles the rollback "
+                             f"at tick {t} (read at {ev.read_tick}) — "
+                             f"the transfer carries rejected "
+                             f"speculative bytes and must be re-issued "
+                             f"after the rollback"),
+                    severity="error"))
     return out

@@ -782,12 +782,17 @@ def _shard_fused_attention(sctx, in_specs, attrs):
 @register_shard_spec("lookup_table")
 def _shard_lookup_table(sctx, in_specs, attrs):
     ws = in_specs["W"][0]
-    if ws is None or not _is_sharded(ws):
-        return {}
     ids_shape = sctx.in_shape("Ids")
     rank = len(ids_shape) if ids_shape else 2
     if ids_shape and len(ids_shape) >= 2 and ids_shape[-1] == 1:
         rank -= 1
+    if ws is None or not _is_sharded(ws):
+        # a replicated table: each output row is its id's row, so the
+        # output keeps the ids' split (the data axes split the ids)
+        ids = (in_specs.get("Ids") or [None])[0]
+        if ids is None or not _is_sharded(ids) or ws is None:
+            return {}
+        return {"Out": [tuple(ids[:rank]) + (None,) * (len(ws) - 1)]}
     if ws[0] is not None and any(s is not None for s in ws[1:]):
         sctx.conflict("embedding table sharded on BOTH vocab and feature "
                       "dims; shard exactly one")

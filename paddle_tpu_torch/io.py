@@ -147,6 +147,8 @@ def save_vars(executor: Optional[Executor], dirname: str,
         enforce(predicate is not None, "need vars or predicate",
                 exc=InvalidArgumentError)
         vars = _select_vars(program, predicate)
+    from .framework.offload import restore_offloaded
+    restore_offloaded(scope)
     values: Dict[str, torch.Tensor] = {}
     for v in vars:
         if not scope.has_var(v.name):
@@ -187,8 +189,10 @@ def load_vars(executor: Optional[Executor], dirname: str,
     against its variable's shape, converted to its declared dtype and set
     in the scope on the executor's device (or `place`). Returns the loaded
     names."""
+    from .framework.offload import restore_offloaded
     program = main_program or default_main_program()
     scope = scope or global_scope()
+    restore_offloaded(scope)
     device = _device(executor, place)
     if vars is None:
         enforce(predicate is not None, "need vars or predicate",
@@ -279,8 +283,10 @@ def load_persistables(executor=None, dirname: str = "", main_program=None,
 def _save_sharded(dirname, main_program, scope):
     from .parallel.parallel_executor import split_state
     from .sharded_checkpoint import save_sharded
+    from .framework.offload import restore_offloaded
     program = main_program or default_main_program()
     scope = scope or global_scope()
+    restore_offloaded(scope)
     arrays = {}
     for v in _select_vars(program, _is_persistable):
         if not scope.has_var(v.name):
@@ -309,8 +315,10 @@ def _load_sharded(executor, dirname, main_program, scope, place):
     device."""
     from .parallel.parallel_executor import split_state
     from .sharded_checkpoint import ShardedCheckpoint, restore_array
+    from .framework.offload import restore_offloaded
     program = main_program or default_main_program()
     scope = scope or global_scope()
+    restore_offloaded(scope)
     device = _device(executor, place)
     reg = split_state(scope)
     ckpt = ShardedCheckpoint(dirname)

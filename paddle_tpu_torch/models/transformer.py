@@ -215,74 +215,6 @@ def transformer(src=None, tgt=None, label=None, src_vocab=30000,
     return loss, logits
 
 
-def transformer_lm(tokens=None, label=None, vocab=32000, max_len=128,
-                   d_model=512, d_inner=2048, num_heads=8, num_layers=6,
-                   dropout=0.0, is_test=False, packed=False,
-                   mean_loss=False):
-    """Decoder-only causal LM train graph; returns (loss, logits).
-
-    packed=True: each batch row holds SEVERAL sequences back to back,
-    described by a `segments` int32 input ([B, max_len]; 0 = padding,
-    1..N = sequence index — see data.packing.pack_sequences) and their
-    `positions`. Attention is segment-masked through the flash kernels and
-    the loss counts only tokens whose successor is in the same segment.
-    Unpacked, `tokens@SEQLEN` ([B] int32) masks the loss to each row's
-    length."""
-    if tokens is None:
-        tokens = layers.data(name="tokens", shape=[max_len], dtype="int64",
-                             lod_level=0 if packed else 1)
-    if label is None:
-        label = layers.data(name="targets", shape=[max_len], dtype="int64")
-    segments = positions = None
-    if packed:
-        segments = layers.data(name="segments", shape=[max_len],
-                               dtype="int32")
-        positions = layers.data(name="positions", shape=[max_len],
-                                dtype="int32")
-    else:
-        seqlen = layers.sequence.get_seqlen(tokens)
-    x = _embed(tokens, vocab, d_model, max_len, "tok", positions=positions)
-    if dropout:
-        x = layers.dropout(x, dropout_prob=dropout, is_test=is_test)
-    for i in range(num_layers):
-        attn = multi_head_attention(x, x, x, d_model, num_heads,
-                                    0.0 if packed else dropout,
-                                    is_test, causal=True,
-                                    segment_ids=segments,
-                                    name=f"l{i}_attn")
-        x = _add_norm(attn, x, dropout, is_test, name=f"l{i}_ln1")
-        f = ffn(x, d_model, d_inner, dropout, is_test, name=f"l{i}_ffn")
-        x = _add_norm(f, x, dropout, is_test, name=f"l{i}_ln2")
-    logits = layers.fc(x, size=vocab, num_flatten_dims=2, use_bf16=True,
-                       name="lm_head")
-    label3 = layers.unsqueeze(label, axes=[2])
-    token_loss = layers.softmax_with_cross_entropy(logits, label3)
-    if packed:
-        # a token trains iff it is non-pad AND its successor belongs to
-        # the same segment (the last token of each packed sequence has no
-        # valid next-token target)
-        seg_next = layers.concat([
-            layers.slice(segments, axes=[1], starts=[1], ends=[max_len]),
-            layers.fill_constant_batch_size_like(segments, [-1, 1],
-                                                 "int32", 0)], axis=1)
-        nonpad = layers.greater_than(
-            segments, layers.fill_constant([1], "int32", 0))
-        same = layers.equal(segments, seg_next)
-        mask = layers.elementwise_mul(layers.cast(nonpad, "float32"),
-                                      layers.cast(same, "float32"))
-    else:
-        mask = layers.sequence_mask(seqlen, maxlen=max_len)
-    mask = layers.unsqueeze(mask, axes=[2])
-    masked = layers.elementwise_mul(token_loss, mask)
-    if mean_loss:
-        # mean over ALL positions instead of the mask-weighted quotient —
-        # identical for full-length sequences
-        loss = layers.mean(masked)
-    else:
-        loss = layers.reduce_sum(masked) / layers.reduce_sum(mask)
-    return loss, logits
-
-
 def _attend_cached(q, k5, v5, bias, K, num_heads, d_head, dropout=0.0):
     """Per-head attention of a single-position query over a cached K/V:
     q [B,K,H] against k5 / v5 both laid out [B,*,nh,T*,dh] (the * dims

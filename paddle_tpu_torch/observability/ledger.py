@@ -1,8 +1,8 @@
 """≙ paddle_tpu/observability/ledger.py, line for line: predicted against
 measured, per run. The measured memory census it reconciles is the
 port's (observability/memory.py: the caching allocator's figures on a
-card); the HLO collective census of `set_census` is read from NCCL's
-kernels with the multi-GPU part of ROADMAP.md §1 item 4.
+card); the collective census `set_census` takes is the measured one
+(`costs.measured_collective_census`, NCCL's calls in torch.profiler).
 
 Cost ledger: predicted-vs-measured reconciliation in one artifact.
 

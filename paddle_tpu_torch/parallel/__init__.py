@@ -11,7 +11,10 @@ quantized forms (`collective.py`), the tp collective ops
 the pipeline schedule engine (`pipeline.py`), `annotate_tp`, sharded
 embeddings, ring attention over the flash kernels, and `ParallelExecutor`
 (AllReduce, Reduce / ZeRO-1, ReduceScatter and the quantized wires,
-padded batches, tp, pipeline stages, the auto-parallel planner), and
+padded batches, the global batch's semantics for every op, tp, sequence
+parallelism over the ring, pipeline stages, the optimizer state
+offloaded to pinned host memory, the memory plan on the rewritten
+program, the auto-parallel planner), and
 elastic training: atomic snapshots with async saves and restore across
 mesh changes (`elastic`), the resize planner (`reshard`) and the
 simulated process world of the multi-writer barrier (`process_world`).

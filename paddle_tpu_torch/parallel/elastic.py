@@ -607,7 +607,13 @@ def wait_for_pending(timeout: Optional[float] = None):
 
 
 def _collect_train_arrays(program, scope) -> Dict[str, object]:
+    """Every persistable of the training state. Optimizer state a
+    ParallelExecutor offloaded to the host is restored first, so a
+    snapshot is complete with offload on too (the JAX package keeps only
+    what its scope holds, and drops the offloaded moments)."""
+    from ..framework.offload import restore_offloaded
     from ..io import _is_persistable, _select_vars
+    restore_offloaded(scope)
     arrays = {}
     for v in _select_vars(program, _is_persistable):
         if scope.has_var(v.name):
@@ -1627,9 +1633,14 @@ def restore_train_state(path: str,
     from ..observability import tracing as _tracing
     from ..sharded_checkpoint import ShardedCheckpoint, restore_array
 
+    from ..framework.offload import restore_offloaded
+
     t0 = time.perf_counter()
     program = program or default_main_program()
     scope = scope or global_scope()
+    # offloaded optimizer state comes home first, so the snapshot's values
+    # replace it (and the executor's next step offloads those)
+    restore_offloaded(scope)
     dirname = _resolve_snapshot_dir(path)
     validate_snapshot(dirname)
     with open(os.path.join(dirname, META_FILE)) as f:

@@ -3,11 +3,10 @@
 ≙ paddle_tpu/parallel/strategy.py, a copy (≙ reference framework/details/
 execution_strategy.h:83 + build_strategy.h:23-60): the same fields and
 defaults, so a strategy built for one package builds the other. The
-port's ParallelExecutor reads reduce_strategy, gradient_scale_strategy,
-enable_sequence_parallel, quant_comm, quant_comm_block,
-comm_error_feedback, comm_bucket_bytes and memory_plan; the pipeline,
-host-offload and auto-parallel fields raise there naming their ROADMAP.md
-§1 item 4 parts. The comments below are the JAX package's.
+port's ParallelExecutor reads every field: the reduce, scale and
+sequence-parallel modes, the quantized wire, the buckets, the pipeline,
+the host-offloaded optimizer state, the memory plan and the auto-parallel
+planner. The comments below are the JAX package's.
 """
 
 from __future__ import annotations

@@ -431,3 +431,22 @@ def test_hlo_text_functions_equal_jax():
     assert census, "the compiled step holds collectives"
     assert tcosts.census_wire_bytes(census, 4) == \
         jcosts.census_wire_bytes(jcosts.collective_census(hlo), 4)
+
+
+@pytest.mark.parametrize("name,n", [("mlp", 4), ("lm_tp", 4)])
+def test_executor_space_with_memory_plans_chooses_the_jax_point(
+        name, n, jax_constants):
+    """The space ParallelExecutor adopts from (`numerics_preserving_space`)
+    searches memory plans, as the JAX package's does, and chooses its
+    point."""
+    jprog, tprog = _plan_program(name)
+    kw = dict(nominal_batch=16, seed=0, anneal_iters=32)
+    tspace = tauto.numerics_preserving_space(tstrategy.BuildStrategy())
+    assert tspace.memory_plan == (False, True)
+    jr = jauto.plan(jprog, n, space=jauto.numerics_preserving_space(
+        jstrategy.BuildStrategy()), **kw)
+    tr = tauto.plan(tprog, n, space=tspace, **kw)
+    assert tr.point.describe() == jr.point.describe()
+    assert tr.mesh_axes == jr.mesh_axes
+    assert [r["point"].describe() for r in tr.ranking] == \
+        [r["point"].describe() for r in jr.ranking]

@@ -524,13 +524,10 @@ def test_replan_on_restore_record_equals_jax(refs, monkeypatch):
     jplan, tplan = jrec.pop("plan"), trec.pop("plan")
     assert trec == jrec
     assert trec["replanned"] and trec["kept"]["axes"] == {"dp": 4}
-    # the search: the port leaves the memory plans out of its space (it
-    # runs none on a rewritten program), and counts int64 feeds at 8 bytes
+    # the search: memory plans are in the port's space too (the executor
+    # plans the rewritten program), so the whole frontier is the JAX one
     for k in ("chosen", "mesh_axes", "predicted_step_ms", "breakdown_us",
-              "rejections", "n_annealed", "seed", "nominal_batch"):
+              "rejections", "n_annealed", "seed", "nominal_batch",
+              "frontier", "n_enumerated", "n_feasible"):
         assert tplan[k] == jplan[k], k
-    jfront = [p for p in jplan["frontier"]
-              if not p["point"].endswith("-memplan")]
-    assert tplan["frontier"][:len(jfront)] == jfront
-    assert jplan["n_enumerated"] - tplan["n_enumerated"] == \
-        jplan["n_feasible"] - tplan["n_feasible"] == 5
+    assert any(p["point"].endswith("-memplan") for p in tplan["frontier"])

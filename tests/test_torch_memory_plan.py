@@ -204,3 +204,72 @@ def test_fetches_survive_release_at_last_use():
     # the parameter fetched at step 1 keeps its step-1 value
     outs_p, state_p, _ = _train(True, extra)
     assert not np.array_equal(outs_p[0][1], state_p[param])
+
+
+# -- the plan on the program as ParallelExecutor rewrites it ------------------
+
+def _lm_mean(pkg, tp):
+    """The zoo LM with the mean loss the manual modes need, tp-annotated
+    when `tp`."""
+    loss, _ = pkg.models.transformer.transformer_lm(
+        vocab=64, max_len=8, d_model=32, d_inner=64, num_heads=4,
+        num_layers=2, mean_loss=True)
+    if tp:
+        assert pkg.parallel.annotate_tp()
+    pkg.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+
+
+#: case -> (mesh axes, BuildStrategy fields, tp-annotated)
+REWRITTEN = {
+    "allreduce_dp4": ({"dp": 4}, {}, False),
+    "reduce_dp4": ({"dp": 4}, {"reduce_strategy": "Reduce"}, False),
+    "rs_int8_dp4": ({"dp": 4}, {"reduce_strategy": "ReduceScatter",
+                                "quant_comm": "int8",
+                                "comm_error_feedback": True}, False),
+    "tp2_dp2": ({"dp": 2, "tp": 2}, {}, True),
+    "pp2": ({"pp": 2}, {"pipeline_stages": 2, "num_microbatches": 2},
+            False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REWRITTEN))
+def test_plan_of_the_rewritten_program_equals_jax(case, jax_constants):
+    """ParallelExecutor(memory_plan=True) plans the program after the tp,
+    dp-comm and pipeline rewrites: its planned JSON and report equal the
+    JAX ParallelExecutor's `_apply_memory_plan` on the same rewritten
+    program."""
+    import jax
+
+    from paddle_tpu.framework.program import Program as JProgram
+    from paddle_tpu.parallel import BuildStrategy as JBS
+    from paddle_tpu.parallel import ParallelExecutor as JPE
+    from paddle_tpu.parallel import ReduceStrategy as JRS
+    from paddle_tpu.parallel.mesh import DeviceMesh as JMesh
+    from paddle_tpu_torch.parallel import (BuildStrategy, DeviceMesh,
+                                           ParallelExecutor, ReduceStrategy)
+    axes, fields, tp = REWRITTEN[case]
+    n = int(np.prod(list(axes.values())))
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        _lm_mean(ptt, tp)
+
+    def strategy(bs_cls, rs_cls):
+        kw = dict(fields)
+        if "reduce_strategy" in kw:
+            kw["reduce_strategy"] = getattr(rs_cls, kw["reduce_strategy"])
+        return bs_cls(memory_plan=True, **kw)
+
+    tpe = ParallelExecutor(use_cuda=False, main_program=main,
+                           mesh=DeviceMesh(ranks=range(n), axes=axes),
+                           build_strategy=strategy(BuildStrategy,
+                                                   ReduceStrategy))
+    rewritten = tpe._prepare_parallel(main, tpe.scope)
+    planned = tpe.prepare_program(main)
+    assert getattr(planned, "_memory_plan_applied", False)
+    assert planned is not rewritten and tpe.prepare_program(main) is planned
+    jpe = JPE(mesh=JMesh(jax.devices()[:n], axes),
+              build_strategy=strategy(JBS, JRS))
+    jprog = JProgram.from_json(rewritten.to_json())
+    jplanned = jpe._apply_memory_plan(jprog)
+    assert planned.to_json() == jplanned.to_json()
+    assert tmp.plan_report(planned) == jmp.plan_report(jplanned)

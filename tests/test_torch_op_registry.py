@@ -92,7 +92,6 @@ RENAMED = {"TPUPlace": "CUDAPlace", "is_compiled_with_tpu":
 # port needs no network; data/common.py keeps tokenize and build_word_dict)
 EXCLUDED = {"paddle_tpu.data.download", "paddle_tpu.data.md5file"}
 _ITEM4 = "ROADMAP.md §1 item 4: "
-_MULTI = _ITEM4 + "multi-GPU parallelism"
 _ANALYSIS = _ITEM4 + "analysis, planning and observability"
 _TRANSPILER = _ITEM4 + "transpiler/"
 _HOST = _ITEM4 + "host-side utilities"

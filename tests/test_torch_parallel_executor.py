@@ -1,5 +1,6 @@
 """The port's ParallelExecutor against the JAX package, in a gloo world
-of 4 CPU processes (dp 4).
+of 4 CPU processes (dp 4; the sequence-parallel LM on dp 2 x sp 2, sp 4
+and tp 2 x sp 2 in the same world).
 
 The references follow the JAX suite's own pins: where it holds its
 ParallelExecutor equal to one device (the AllReduce and Reduce modes,
@@ -29,6 +30,16 @@ WORLD = 4
 STEPS = 3
 NETS = ("fc", "conv_bn", "masked")
 WIRES = ("", "bf16", "int8")
+# ops that mix rows along the split batch dim (each was refused, or
+# silently computed on the rank's own rows, before the gather rule)
+FAULTS = ("gram", "softmax0", "cumsum0", "argsort0", "auc", "prec",
+          "prod0", "max0")
+SP_MESHES = {"dp2sp2": {"dp": 2, "sp": 2}, "sp4": {"sp": 4},
+             "tp2sp2": {"tp": 2, "sp": 2}}
+SP_MODES = ("AllReduce", "Reduce")
+SP_LR = 0.5
+SP_GRADS = ("tok_emb@GRAD", "l0_attn_q.w_0@GRAD", "l1_ffn_fc2.w_0@GRAD",
+            "l1_ln2.scale@GRAD", "lm_head.w_0@GRAD")
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +90,83 @@ def _metrics(pkg, logits, label_name="label"):
 
 def _opt(kind):
     return "sgd" if kind == "masked" else "momentum"
+
+
+def _raw(pkg, type_, inputs, outs, attrs):
+    """Append a registered op with no layer of its own."""
+    h = pkg.layer_helper.LayerHelper(type_)
+    o = {slot: [h.create_tmp_variable(dtype=dt, shape=sh) for dt, sh in v]
+         for slot, v in outs.items()}
+    h.append_op(type=type_, inputs=inputs, outputs=o, attrs=attrs)
+    return o
+
+
+def _fault_net(pkg, case):
+    """fc(img[16], size=4) and one op that mixes the batch rows; SGD at
+    learning rate 0. Returns (the op's output, the loss)."""
+    L = pkg.layers
+    x = L.data("img", shape=[16])
+    label = L.data("label", shape=[1], dtype="int64")
+    logits = L.fc(x, size=4)
+    if case == "gram":
+        y = L.matmul(logits, logits, transpose_x=True)
+    elif case == "softmax0":
+        y = L.softmax(logits, axis=0)
+    elif case == "cumsum0":
+        y = _raw(pkg, "cumsum", {"X": [logits]},
+                 {"Out": [("float32", [-1, 4])]}, {"axis": 0})["Out"][0]
+    elif case == "argsort0":
+        o = _raw(pkg, "argsort", {"X": [logits]},
+                 {"Out": [("float32", [-1, 4])],
+                  "Indices": [("int64", [-1, 4])]}, {"axis": 0})
+        y = L.elementwise_mul(o["Out"][0], L.cast(o["Indices"][0],
+                                                  "float32"))
+    elif case == "auc":
+        y = L.auc(input=L.softmax(logits), label=label)[0]
+    elif case == "prec":
+        probs = L.softmax(logits)
+        idx = L.reshape(L.argmax(probs, axis=1), shape=[-1, 1])
+        y = _raw(pkg, "precision_recall",
+                 {"MaxProbs": [L.reduce_max(probs, dim=1, keep_dim=True)],
+                  "Indices": [idx], "Labels": [label]},
+                 {"BatchMetrics": [("float32", [6])],
+                  "AccumMetrics": [("float32", [6])],
+                  "AccumStatesInfo": [("float32", [4, 4])]},
+                 {"class_number": 4})["BatchMetrics"][0]
+    elif case == "prod0":
+        y = L.reduce_prod(L.sigmoid(logits), dim=0)
+    else:
+        y = L.reduce_max(logits, dim=0)
+    loss = L.mean(logits) if case in ("auc", "prec") else L.mean(y)
+    pkg.optimizer.SGDOptimizer(learning_rate=0.0).minimize(loss)
+    return y, loss
+
+
+def _fault_feed():
+    rng = np.random.RandomState(6)
+    return {"img": rng.rand(16, 16).astype("float32"),
+            "label": rng.randint(0, 4, (16, 1)).astype("int64")}
+
+
+def _sp_lm(pkg, annotate=False):
+    """The LM at test width (2 layers, d_model 32, T 16) with SGD (built
+    with the use_bf16_matmul flag off: float32 matmuls in both
+    packages)."""
+    loss, logits = pkg.models.transformer.transformer_lm(
+        vocab=50, max_len=16, d_model=32, d_inner=64, num_heads=4,
+        num_layers=2, dropout=0.0)
+    if annotate:
+        assert pkg.parallel.annotate_tp()
+    pkg.optimizer.SGDOptimizer(learning_rate=SP_LR).minimize(loss)
+    return loss, logits
+
+
+def _sp_feeds(steps=2):
+    rng = np.random.RandomState(7)
+    return [{"tokens": rng.randint(0, 50, (4, 16)).astype("int64"),
+             "tokens@SEQLEN": np.array([16, 11, 7, 14], "int32"),
+             "targets": rng.randint(0, 50, (4, 16)).astype("int64")}
+            for _ in range(steps)]
 
 
 def _feeds(kind, steps=STEPS):
@@ -169,7 +257,8 @@ def _global_fetches(rank, mesh, inits, out):
     vals = pe.run(fetch_list=[loss] + mets, feed=_feeds("fc")[0])
     for i, v in enumerate(vals):
         out[f"metrics_{i}"] = np.asarray(v)
-    # a metric whose state spans the batch is refused in a world above one
+    # a metric whose state spans the batch: every rank's accumulators
+    # update alike, over the gathered batch
     ptt.reset_default_programs()
     with ptt.unique_name.guard():
         loss, logits = _net(ptt, "fc", None)
@@ -177,12 +266,65 @@ def _global_fetches(rank, mesh, inits, out):
                             label=ptt.default_main_program().global_block()
                             .var("label"))
     ptt.Executor(ptt.CPUPlace()).run(ptt.default_startup_program())
+    ptt.io.load_numpy_params(inits["fc"], place=ptt.CPUPlace())
     pe = ParallelExecutor(use_cuda=False, loss_name=loss.name, mesh=mesh)
-    try:
-        pe.run(fetch_list=[au[0]], feed=_feeds("fc")[0])
-        out["auc_refused"] = np.array("")
-    except NotImplementedError as e:
-        out["auc_refused"] = np.array(str(e))
+    out["auc"] = np.asarray(pe.run(fetch_list=[au[0]],
+                                   feed=_feeds("fc")[0])[0])
+
+
+def _faults(rank, mesh, inits, out):
+    from paddle_tpu_torch.parallel import ParallelExecutor
+    for case in FAULTS:
+        ptt.reset_default_programs()
+        ptt.reset_global_scope()
+        with ptt.unique_name.guard():
+            y, loss = _fault_net(ptt, case)
+        ptt.Executor(ptt.CPUPlace()).run(ptt.default_startup_program())
+        ptt.io.load_numpy_params(inits["faults"], place=ptt.CPUPlace())
+        pe = ParallelExecutor(use_cuda=False, loss_name=loss.name,
+                              mesh=mesh)
+        vals = pe.run(fetch_list=[y, loss, "fc_0.w_0@GRAD"],
+                      feed=_fault_feed())
+        for name, v in zip(("y", "loss", "grad"), vals):
+            out[f"fault_{case}_{name}"] = np.asarray(v)
+
+
+def _sp(rank, mesh, inits, out):
+    """The LM under sequence parallelism, each mesh over the same world:
+    losses and gradients (AllReduce: the fetched @GRAD; Reduce, where the
+    fetched name is the rank's own pre-reduction part: the parameters'
+    moves over the steps) and the gathered logits."""
+    from paddle_tpu_torch.parallel import (BuildStrategy, DeviceMesh,
+                                           ParallelExecutor, ReduceStrategy)
+    ptt.core.flags.set_flag("use_bf16_matmul", False)
+    for mname, axes in SP_MESHES.items():
+        sp_mesh = DeviceMesh(axes=axes)
+        for mode in SP_MODES:
+            key = f"sp_{mname}_{mode}_"
+            ptt.reset_default_programs()
+            ptt.reset_global_scope()
+            with ptt.unique_name.guard():
+                loss, logits = _sp_lm(ptt, annotate="tp" in axes)
+            ptt.Executor(ptt.CPUPlace()).run(ptt.default_startup_program())
+            ptt.io.load_numpy_params(inits["sp"], place=ptt.CPUPlace())
+            pe = ParallelExecutor(
+                use_cuda=False, loss_name=loss.name, mesh=sp_mesh,
+                build_strategy=BuildStrategy(
+                    reduce_strategy=getattr(ReduceStrategy, mode),
+                    enable_sequence_parallel=True))
+            grads = list(SP_GRADS) if mode == "AllReduce" else []
+            for s, f in enumerate(_sp_feeds()):
+                vals = pe.run(fetch_list=[loss, logits] + grads, feed=f)
+                out[key + f"loss{s}"] = np.asarray(vals[0])
+                out[key + f"logits{s}"] = np.asarray(vals[1])
+                for g, v in zip(grads, vals[2:]):
+                    out[key + f"{g}{s}"] = np.asarray(v)
+            if mode == "Reduce":
+                from paddle_tpu_torch.io import _global_value
+                for g in SP_GRADS:
+                    p = g[:-len("@GRAD")]
+                    out[key + "p:" + p] = np.asarray(
+                        _global_value(ptt.global_scope(), p))
 
 
 def _trainer(rank, mesh, inits, out):
@@ -224,7 +366,8 @@ def _world(rank, world, outdir):
     jobs = [(f"{k}_{m}", _spmd, (k, m)) for k in NETS
             for m in ("allreduce", "reduce")]
     jobs += [(f"rs{w}", _explicit, (w,)) for w in WIRES]
-    jobs += [("trainer", _trainer, ()), ("metrics", _global_fetches, ())]
+    jobs += [("trainer", _trainer, ()), ("metrics", _global_fetches, ()),
+             ("faults", _faults, ()), ("sp", _sp, ())]
     for name, fn, args in jobs:
         try:
             fn(rank, mesh, *args, inits, out)
@@ -306,8 +449,95 @@ def _jax_trainer():
                   "params": _params(scope, pt.default_main_program())}
 
 
+def _jax_auc(init):
+    import paddle_tpu as pt
+    pt.reset_default_programs()
+    pt.reset_global_scope()
+    with pt.core.unique_name.guard():
+        _, logits = _net(pt, "fc", None)
+        au = pt.layers.auc(input=pt.layers.softmax(logits),
+                           label=pt.default_main_program().global_block()
+                           .var("label"))
+    pt.Executor().run(pt.default_startup_program())
+    for n, v in init.items():
+        if pt.global_scope().has_var(n):
+            pt.global_scope().set_var(n, v)
+    return np.asarray(pt.Executor().run(feed=_feeds("fc")[0],
+                                        fetch_list=[au[0]])[0])
+
+
+def _jax_faults():
+    """Each fault scenario on one JAX device, from one init."""
+    import paddle_tpu as pt
+    init, out = None, {}
+    for case in FAULTS:
+        pt.reset_default_programs()
+        pt.reset_global_scope()
+        with pt.core.unique_name.guard():
+            y, loss = _fault_net(pt, case)
+        pt.Executor().run(pt.default_startup_program())
+        scope = pt.global_scope()
+        if init is None:
+            init = {n: np.asarray(scope.get(n))
+                    for n in scope.local_var_names() if n.startswith("fc_0")}
+        for n, v in init.items():
+            scope.set_var(n, v)
+        vals = pt.Executor().run(feed=_fault_feed(),
+                                 fetch_list=[y, loss, "fc_0.w_0@GRAD"])
+        out[case] = [np.asarray(v) for v in vals]
+    return init, out
+
+
+def _jax_sp_run(init, axes=None, mode="AllReduce"):
+    """The sp LM's 2 steps on the JAX package: one device (axes None), or
+    its ParallelExecutor with enable_sequence_parallel on a mesh of 4
+    virtual devices."""
+    import jax
+
+    import paddle_tpu as pt
+    from paddle_tpu.parallel import (BuildStrategy, ParallelExecutor,
+                                     ReduceStrategy)
+    from paddle_tpu.parallel.mesh import DeviceMesh
+    pt.reset_default_programs()
+    pt.reset_global_scope()
+    with pt.core.unique_name.guard():
+        loss, logits = _sp_lm(pt, annotate=bool(axes) and "tp" in axes)
+    pt.Executor().run(pt.default_startup_program())
+    scope = pt.global_scope()
+    if init is None:
+        init = _params(scope, pt.default_main_program())
+    for n, v in init.items():
+        scope.set_var(n, v)
+    if axes is None:
+        exe = pt.Executor()
+
+        def run(f, fetch):
+            return exe.run(feed=f, fetch_list=fetch)
+    else:
+        pe = ParallelExecutor(
+            loss_name=loss.name, mesh=DeviceMesh(jax.devices()[:WORLD], axes),
+            build_strategy=BuildStrategy(
+                reduce_strategy=getattr(ReduceStrategy, mode),
+                enable_sequence_parallel=True))
+
+        def run(f, fetch):
+            return pe.run(fetch_list=fetch, feed=f)
+    out = {}
+    for s, f in enumerate(_sp_feeds()):
+        vals = run(f, [loss, logits] + list(SP_GRADS))
+        out[f"loss{s}"] = np.asarray(vals[0])
+        out[f"logits{s}"] = np.asarray(vals[1])
+        for g, v in zip(SP_GRADS, vals[2:]):
+            out[f"{g}{s}"] = np.asarray(v)
+    for g in SP_GRADS:
+        p = g[:-len("@GRAD")]
+        out["p:" + p] = np.asarray(scope.get(p))
+    return init, out
+
+
 @pytest.fixture(scope="module")
 def refs():
+    from paddle_tpu.core import flags as jflags
     inits, out = {}, {}
     for k in NETS:
         inits[k], out[k] = _jax_single(k)
@@ -315,6 +545,18 @@ def refs():
         inits["rs"], out["rs" + w] = _jax_explicit(w)
     inits["trainer"], out["trainer"] = _jax_trainer()
     out["metrics"] = _jax_metrics()
+    out["auc"] = _jax_auc(inits["fc"])
+    inits["faults"], out["faults"] = _jax_faults()
+    saved = jflags.get_flag("use_bf16_matmul")
+    jflags.set_flag("use_bf16_matmul", False)
+    try:
+        inits["sp"], out["sp"] = _jax_sp_run(None)
+        # one JAX reference a mesh: its Reduce mode only shards the
+        # optimizer state over dp, so its values are AllReduce's
+        for mname, axes in SP_MESHES.items():
+            out[f"sp_{mname}"] = _jax_sp_run(inits["sp"], axes)[1]
+    finally:
+        jflags.set_flag("use_bf16_matmul", saved)
     return inits, out
 
 
@@ -397,14 +639,94 @@ def test_padded_batch_gives_no_nan_on_an_all_padding_rank(world, refs):
 
 def test_batch_spanning_fetches_are_the_global_batchs(world, refs):
     """accuracy, reduce_max and a reduce_mean over dim 0 on 16 rows over 4
-    ranks give the one-device values of the whole batch; `auc`, whose
-    state spans the batch, raises naming its ROADMAP item."""
+    ranks give the one-device values of the whole batch; so does `auc`,
+    whose state spans the batch (its input gathered over dp)."""
     for r in range(WORLD):
         got = _rank(world, r, "metrics")
         for i, want in enumerate(refs[1]["metrics"]):
             np.testing.assert_allclose(got[f"metrics_{i}"], want,
                                        rtol=1e-5, atol=1e-6)
-        assert "§1 item 4" in str(got["auc_refused"])
+        np.testing.assert_allclose(got["auc"], refs[1]["auc"], rtol=1e-5,
+                                   atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# ops that mix the split rows: the gather rule
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", FAULTS)
+def test_ops_that_mix_the_batch_rows_match_one_jax_device(world, refs,
+                                                         case):
+    """Each op over the dp-4 batch against the JAX one-device value at
+    1e-5, forward and gradient: the Gram matrix contracting the batch,
+    softmax / cumsum / argsort along it, auc and precision_recall over
+    it, reduce_prod over it and reduce_max over it under a gradient."""
+    want = refs[1]["faults"][case]
+    for r in range(WORLD):
+        got = _rank(world, r, "faults")
+        for name, w in zip(("y", "loss", "grad"), want):
+            g = got[f"fault_{case}_{name}"]
+            assert g.shape == w.shape, (name, g.shape, w.shape)
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{case} {name}")
+
+
+def test_every_registered_op_has_a_row_class():
+    """An op added later cannot default either way: every op of the
+    port's registry (both parallel packages' ops included) has a
+    sharding-propagation rule, a cheap global form or a class in
+    ROW_CLASS."""
+    import paddle_tpu_torch.parallel  # noqa: F401
+    from paddle_tpu_torch.framework.registry import lookup_shard_rule
+    from paddle_tpu_torch.parallel.parallel_executor import (
+        GLOBAL_BATCH_OPS, ROW_CLASS)
+    ops = ptt.registered_ops()
+    assert len(ops) >= 240
+    missing = [t for t in ops if t not in ROW_CLASS
+               and t not in GLOBAL_BATCH_OPS and lookup_shard_rule(t) is None]
+    assert missing == []
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the LM on dp 2 x sp 2, sp 4 and tp 2 x sp 2
+# ---------------------------------------------------------------------------
+
+
+def _close(got, want, what):
+    """1e-5 of the reference's largest entry."""
+    want = np.asarray(want, np.float64)
+    scale = max(float(np.abs(want).max()), 1e-6)
+    np.testing.assert_allclose(np.asarray(got, np.float64), want,
+                               rtol=1e-5, atol=1e-5 * scale, err_msg=what)
+
+
+@pytest.mark.parametrize("mode", SP_MODES)
+@pytest.mark.parametrize("mesh", sorted(SP_MESHES))
+def test_sequence_parallel_lm_matches_both_jax_references(world, refs,
+                                                          mesh, mode):
+    """Losses, the gathered [B, T, V] logits and the gradients of 2 SGD
+    steps against the JAX ParallelExecutor with enable_sequence_parallel
+    on the same mesh (AllReduce) and against the JAX one-device Executor,
+    on every rank. In Reduce mode the gradients are read from the parameters'
+    moves (the fetched @GRAD is the rank's pre-reduction part there)."""
+    key = f"sp_{mesh}_{mode}_"
+    for ref in (refs[1]["sp"], refs[1][f"sp_{mesh}"]):
+        for r in range(WORLD):
+            got = _rank(world, r, "sp")
+            for s in range(2):
+                _close(got[key + f"loss{s}"], ref[f"loss{s}"], "loss")
+                _close(got[key + f"logits{s}"], ref[f"logits{s}"],
+                       "logits")
+                if mode == "AllReduce":
+                    for g in SP_GRADS:
+                        _close(got[key + f"{g}{s}"], ref[f"{g}{s}"], g)
+            if mode == "Reduce":
+                for g in SP_GRADS:
+                    p = g[:-len("@GRAD")]
+                    init = refs[0]["sp"][p]
+                    _close((init - got[key + "p:" + p]) / SP_LR,
+                           (init - ref["p:" + p]) / SP_LR, p)
 
 
 # ---------------------------------------------------------------------------
@@ -467,7 +789,7 @@ def test_parallel_trainer_matches_the_jax_parallel_executor(world, refs):
 # ---------------------------------------------------------------------------
 
 
-def _both_raise(kind, mode, feed, fetch="loss", match=""):
+def _both_raise(kind, mode, feed, fetch="loss", match="", sp=False):
     import paddle_tpu as pt
     from paddle_tpu.parallel import BuildStrategy as JBS
     from paddle_tpu.parallel import ParallelExecutor as JPE
@@ -485,7 +807,8 @@ def _both_raise(kind, mode, feed, fetch="loss", match=""):
             pt.Executor().run(pt.default_startup_program())
             pe = JPE(loss_name=loss.name, mesh=_jax_mesh(),
                      build_strategy=JBS(
-                         reduce_strategy=getattr(JRS, mode)))
+                         reduce_strategy=getattr(JRS, mode),
+                         enable_sequence_parallel=sp))
         else:
             with ptt.unique_name.guard():
                 loss, logits = _net(ptt, kind, "sgd")
@@ -494,7 +817,8 @@ def _both_raise(kind, mode, feed, fetch="loss", match=""):
                      mesh=DeviceMesh(ranks=range(WORLD),
                                      axes={"dp": WORLD}),
                      build_strategy=BuildStrategy(
-                         reduce_strategy=getattr(ReduceStrategy, mode)))
+                         reduce_strategy=getattr(ReduceStrategy, mode),
+                         enable_sequence_parallel=sp))
         fetches = [loss] if fetch == "loss" else [
             loss, pkg.layers.reduce_sum(logits)]
         with pytest.raises(Exception, match=match) as e:
@@ -504,7 +828,8 @@ def _both_raise(kind, mode, feed, fetch="loss", match=""):
 
 
 @pytest.mark.parametrize("case", ["uneven_without_mask", "sum_loss",
-                                  "batch_norm", "indivisible", "sum_fetch"])
+                                  "batch_norm", "indivisible", "sum_fetch",
+                                  "sequence_parallel"])
 def test_refusals_are_the_jax_packages(case):
     rs = "ReduceScatter"
     feed5 = _feeds("fc", 1)[0]
@@ -518,6 +843,9 @@ def test_refusals_are_the_jax_packages(case):
                     match="batch_norm")
     elif case == "indivisible":
         _both_raise("fc", rs, feed5, match="divisible")
+    elif case == "sequence_parallel":
+        _both_raise("fc", rs, _feeds("fc", 1)[0], match="sequence",
+                    sp=True)
     else:
         _both_raise("fc", rs, _feeds("fc", 1)[0], fetch="sum",
                     match="sum reduction")
