@@ -366,6 +366,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    step's gradients within 1e-2 of their norm and the parameters settled
    (`_adam_parity`), K1-K3 6·(i+1) a step on sp rank i (the causal ring's
    live blocks).
+46. export and the native programs: the programs ptpu_predict and
+   ptpu_train (paddle_tpu_torch/csrc/native/, built with g++ against
+   this torch beside phase 2's nvcc builds, the ptpu:: ops' CUDA
+   implementations linked to the kernel libraries) run torch.export
+   archives without Python. (a) phase 38's LM generator (phase 7's
+   weights, batch 16, beam 4) and (b) phase 39's Transformer-base
+   generator (phase 15's weights, batch 16, beam 4), max_gen cut to
+   EXPORT["max_gen"] (the graph unrolls every step of every layer),
+   (c) phase 11's stacked LSTM (startup weights, its batch) and phase
+   32's beam translation (phase 12's weights, max_len cut the same way):
+   each exported by io.export_inference_model on the card (the five
+   exports, the train step's included, in child processes at once: an
+   export is host-bound Python), loaded cold by ExportedPredictor and run
+   by `ptpu_predict --device cuda`; tokens
+   identical across the three and with Executor.run (the LSTM's logits
+   within 1e-6), each kernel of the path launched the same number of
+   times a call in all three (K4; K1 and K4; K5; K6 and K4); each timed
+   in turns (the C++ process by its own timer around the run). (d)
+   `ptpu_predict --serve` on (a)'s archive at a batch the export never
+   traced: 4 PredictorClient threads, one pipelining 8 requests, every
+   answer the one-shot run's; a float64 feed and a wrong name answered
+   with errors on a connection that serves again. (e) phase 7's LM step
+   in float32 through io.export_train_program and `ptpu_train --steps
+   5` against 5 Executor.run steps from the same state: losses within
+   1e-5 relative, parameters within 1e-5, K1-K3 6 launches a step each
+   in the C++ process.
 
 Phase 3 also holds the bfloat16 cells of K5 / K6 (x, w and states in
 bfloat16, h and c carried in bfloat16 as the reference's composite
@@ -425,8 +451,9 @@ K1-K3's a step of phase 43's pipelined runs and phase 44's uninterrupted
 runs; K5 / K6's `*_bf16` and the
 GRU's `*_crnn_bf16` keys, their bfloat16 rows, with `err_over_slack_bf16`
 and `launches_bf16_checks`, phase 3's bfloat16 launches: no path of the
-model zoo runs a bfloat16 recurrent cell), times, and `paths`: phases
-15-44's numbers; the last line is
+model zoo runs a bfloat16 recurrent cell), `launches_native`, each
+kernel's launches inside phase 46's native processes, times, and
+`paths`: phases 15-46's numbers; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -9163,6 +9190,436 @@ def offload_plan_sequence(ptt, kernels, world=None, parts="abc"):
     return {"spawn_s": spawn_s, "ranks": ranks}
 
 
+# phase 46: export and the native programs (ptpu_predict / ptpu_train).
+# The generators keep phase 38's (batch 16, beam 4) and phase 39's (batch
+# 16, beam 4) shapes with max_gen cut to EXPORT["max_gen"]: the exported
+# graph unrolls every step of every layer, ~1,500 nodes a step of the LM
+# and ~2,000 of the encoder-decoder, and torch 2.11 on the card's host
+# exports ~11-35 ms a node (12,011 nodes took 266 s at max_gen 8).
+# Phase 32's beam translation is cut the same way (max_len); the stacked
+# LSTM is phase 11's model at its batch; the train step is phase 7's LM
+# in float32.
+EXPORT = dict(max_gen=2, beam_max_len=4, serve_batch=3, serve_clients=4,
+              pipelined=8, train_steps=5, reps=3)
+NATIVE_DEVICE = "cuda"     # the native programs' --device
+
+
+def _native_run(exe_path, args, timeout=600):
+    """Run a native program; returns (stdout, its `launches` line as a
+    dict, its `run_ms` / `step_ms` list, its graph's node count). Raises
+    with its stderr when it fails."""
+    r = subprocess.run([exe_path, *args], capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        raise RuntimeError(f"{os.path.basename(exe_path)} {args[:2]} exit "
+                           f"{r.returncode}: {r.stderr[-3000:]}")
+    fields = {}
+    for ln in r.stdout.splitlines():
+        key, _, rest = ln.partition(" ")
+        if key in ("launches", "run_ms", "step_ms", "nodes"):
+            fields[key] = json.loads(rest)
+    return (r.stdout, fields["launches"],
+            fields.get("run_ms", fields.get("step_ms")), fields["nodes"])
+
+
+def _save_feeds(d, feed, names):
+    import numpy as np
+    paths = []
+    for i, n in enumerate(names):
+        paths.append(os.path.join(d, f"in{i}.npy"))
+        np.save(paths[-1], np.asarray(feed[n]))
+    return paths
+
+
+def _export_program(ptt, label):
+    """Phase 46's program `label` as a user builds it: (program, startup,
+    fetch vars, feed names). "train" is phase 7's LM step (Adam)."""
+    gen = EXPORT["max_gen"]
+    if label == "lm_generate":
+        return (*_lm_generate_program(ptt, TRAIN, gen, GENERATE["runs"][2][1]),
+                ["prompt"])
+    if label == "nmt_generate":
+        return (*_nmt_generate_program(ptt, TRANSFORMER, gen,
+                                       GENERATE_NMT["beams"][0]),
+                ["src", "src@SEQLEN"])
+    if label == "nmt_beam_translate":
+        return (*_nmt_infer_program(ptt, NMT, dict(
+            BEAM, max_len=EXPORT["beam_max_len"])), ["src", "src_lens"])
+    if label == "train":
+        main, start, loss = _train_program(ptt, TRAIN)
+        return main, start, [loss], ["tokens", "tokens@SEQLEN", "targets"]
+    from paddle_tpu_torch.models import stacked_lstm
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        _, _, logits = stacked_lstm.stacked_lstm_net(
+            dict_dim=LSTM["dict_dim"], emb_dim=LSTM["emb_dim"],
+            hid_dim=LSTM["hid_dim"], stacked_num=LSTM["stacked_num"],
+            max_len=LSTM["max_len"])
+    return main, start, [logits], ["words", "words@SEQLEN"]
+
+
+def _export_scope(ptt, label, params_dir):
+    """(executor, program, scope, fetch vars, feed names) of `label` on
+    the card with `params_dir`'s weights; the train step in float32."""
+    if label == "train":
+        ptt.flags.set_flag("use_bf16_matmul", False)
+    main, start, fetch, feeds = _export_program(ptt, label)
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(start, scope=scope)
+    ptt.io.load_params(exe, params_dir, main_program=main, scope=scope)
+    if label != "train":
+        main = main.clone(for_test=True).prune([f.name for f in fetch])
+    return exe, main, scope, fetch, feeds
+
+
+def export_child(label, params_dir, out_dir):
+    """Phase 46's exporter (`chip_smoke.py --export-child label params
+    out`): `label`'s program with `params_dir`'s weights exported on the
+    card into `out_dir` by io.export_inference_model (native meta
+    included) or, for "train", io.export_train_program; the export's
+    seconds and nodes to `out_dir`/export.json. Phase 46 runs one a
+    program, all at once: an export is host-bound Python (torch's
+    symbolic shapes), ~10-30 ms a node on the card's host."""
+    import torch
+
+    import paddle_tpu_torch as ptt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exe, main, scope, fetch, feeds = _export_scope(ptt, label, params_dir)
+    t0 = time.perf_counter()
+    if label == "train":
+        ptt.io.export_train_program(out_dir, feeds, fetch,
+                                    main_program=main, scope=scope)
+        meta = open(os.path.join(out_dir, "__exported_train__.meta")).read()
+        info = {"seconds": time.perf_counter() - t0}
+    else:
+        info = ptt.io.export_inference_model(out_dir, feeds,
+                                             [f.name for f in fetch], main,
+                                             scope=scope, native=True)
+        meta = open(os.path.join(out_dir, "__exported_native__.meta")).read()
+    info["export_write_s"] = time.perf_counter() - t0
+    assert f"archive {NATIVE_DEVICE} " in meta, meta
+    with open(os.path.join(out_dir, "export.json"), "w") as f:
+        json.dump(info, f)
+
+
+def _export_all(params, root):
+    """Phase 46's five exports, each in a child process, all at once
+    (`export_child`). Returns {label: its export.json}."""
+    procs = {}
+    for label, params_dir in params.items():
+        d = os.path.join(root, label)
+        os.makedirs(d)
+        procs[label] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--export-child",
+             label, params_dir, d], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    failed, infos = [], {}
+    for label, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{label} (exit {proc.returncode}): {out[-3000:]}")
+            continue
+        with open(os.path.join(root, label, "export.json")) as f:
+            infos[label] = json.load(f)
+    assert not failed, "export failed: " + "\n".join(failed)
+    return infos
+
+
+def _export_case(ptt, kernels, progs, d, label, params_dir, feed, expect,
+                 tol, reps, info):
+    """One exported program through the three runners: Executor.run (of
+    the program `label` with `params_dir`'s weights), the archive in `d`
+    through ExportedPredictor, and `ptpu_predict --device cuda`. The
+    first output (the tokens of a generator) must be equal to
+    Executor.run's where `tol` is None, and every other output within
+    `tol` (1e-5 for beam scores) or, where `tol` is a number, every output
+    within it; each kernel of `expect` launched once or more a call on
+    every runner, the same count on each. Times each runner `reps` calls
+    a turn, two turns in turns (Executor.run, ExportedPredictor, the C++
+    process's own timer around the run and the outputs' copy to the
+    host)."""
+    import numpy as np
+    import torch
+    exe, prog, scope, fetch, names = _export_scope(ptt, label, params_dir)
+    fetch_names = [f.name for f in fetch]
+
+    def py_call():
+        return exe.run(prog, feed=feed, fetch_list=fetch_names, scope=scope)
+
+    ref = py_call()                         # plans
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ref = py_call()
+    py_launches = {k: kernels.LAUNCHES[k] for k in expect}
+    t0 = time.perf_counter()
+    pred = ptt.Predictor.from_exported(d, place=ptt.CUDAPlace(0))
+    load_s = time.perf_counter() - t0
+    pred.run(feed)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got_ep = pred.run(feed)
+    ep_launches = {k: kernels.LAUNCHES[k] for k in expect}
+    ins = _save_feeds(d, feed, names)
+    cpp_args = [d, *ins, "--device", NATIVE_DEVICE, "--out", d, "--repeat",
+                str(reps)]
+    _, cpp_launches, _, nodes = _native_run(progs["ptpu_predict"], cpp_args)
+    got_cpp = [np.load(os.path.join(d, f"out{i}.npy"))
+               for i in range(len(fetch_names))]
+    worst = 0.0
+    for i, (name, r, e, c) in enumerate(zip(fetch_names, ref, got_ep,
+                                            got_cpp)):
+        assert r.shape == e.shape == c.shape, (label, name, r.shape,
+                                               e.shape, c.shape)
+        if tol is None and i == 0:
+            assert np.array_equal(r, e) and np.array_equal(r, c), (
+                f"{label}: {name} differs across Executor.run, "
+                f"ExportedPredictor and ptpu_predict")
+        else:
+            err = max(float(np.abs(r - e).max()), float(np.abs(r - c).max()))
+            assert err <= (tol or 1e-5), f"{label}: {name} differs by {err}"
+            worst = max(worst, err)
+    for k in expect:
+        assert py_launches[k] > 0, f"{label}: {k} never launched"
+        assert ep_launches[k] == py_launches[k], (
+            f"{label}: ExportedPredictor launched {k} {ep_launches[k]} "
+            f"times a call, Executor.run {py_launches[k]}")
+        assert cpp_launches[k] == reps * py_launches[k], (
+            f"{label}: ptpu_predict launched {k} {cpp_launches[k]} times "
+            f"in {reps} runs, Executor.run {py_launches[k]} a call")
+    times = {"executor_ms": [], "exported_ms": [], "native_ms": []}
+    for _ in range(2):
+        for key, fn in (("executor_ms", py_call),
+                        ("exported_ms", lambda: pred.run(feed))):
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times[key].append((time.perf_counter() - t0) * 1e3)
+        times["native_ms"] += _native_run(progs["ptpu_predict"],
+                                          cpp_args)[2]
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"  [{label}] export {info['seconds']:.1f} s ({info['nodes']} "
+        f"nodes; {info['export_write_s']:.1f} s with the write), "
+        f"ExportedPredictor cold load {load_s:.1f} s; "
+        f"{'tokens identical, ' if tol is None else ''}"
+        f"outputs within {worst:.2e} across Executor.run, ExportedPredictor "
+        f"and ptpu_predict; launches a call {py_launches} on each; median "
+        f"ms a call: Executor.run {med['executor_ms']:.2f}, "
+        f"ExportedPredictor {med['exported_ms']:.2f}, ptpu_predict "
+        f"{med['native_ms']:.2f}")
+    del pred
+    torch.cuda.empty_cache()
+    return {**info, "native_nodes": nodes, "load_s": load_s,
+            "launches_per_call": py_launches, "max_abs_err": worst,
+            "launches_native": {k: cpp_launches[k] for k in expect},
+            **times, **{k.replace("_ms", "_ms_median"): v
+                        for k, v in med.items()}}
+
+
+def _native_serve(progs, d, feed, names):
+    """`ptpu_predict --serve` on `d`'s archive: EXPORT["serve_clients"]
+    PredictorClient threads, the first pipelining EXPORT["pipelined"]
+    requests before it reads, the others two blocking calls each, at a
+    batch the export never traced; every answer equal to the one-shot
+    run's on the same feed. Then a float64 feed and a wrong feed name are
+    answered with errors on one connection, which serves again."""
+    import threading
+    import numpy as np
+    from paddle_tpu_torch.serving import PredictorClient
+    ins = _save_feeds(d, feed, names)
+    _native_run(progs["ptpu_predict"], [d, *ins, "--device", NATIVE_DEVICE,
+                                        "--out", d])
+    want = np.load(os.path.join(d, "out0.npy"))
+    proc = subprocess.Popen([progs["ptpu_predict"], d, "--serve", "0",
+                             "--device", NATIVE_DEVICE],
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("LISTENING "), line
+        port = int(line.split()[1])
+        got, errors = [], []
+
+        def client(i):
+            try:
+                with PredictorClient("127.0.0.1", port) as c:
+                    if i == 0:
+                        for _ in range(EXPORT["pipelined"]):
+                            c.send(feed)
+                        got.extend(c.recv()[0]
+                                   for _ in range(EXPORT["pipelined"]))
+                    else:
+                        got.extend(c.infer(feed)[0] for _ in range(2))
+            except Exception as e:     # reported below, after the join
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(EXPORT["serve_clients"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        assert not errors, errors
+        n = EXPORT["pipelined"] + 2 * (EXPORT["serve_clients"] - 1)
+        assert len(got) == n and all(np.array_equal(g, want) for g in got), \
+            "served outputs differ from the one-shot run's"
+        refused = []
+        with PredictorClient("127.0.0.1", port) as c:
+            bad = dict(feed)
+            bad[names[0]] = np.asarray(feed[names[0]], "float64")
+            for label, f, word in (("float64", bad, "dtype"),
+                                   ("wrong name", {"nope": feed[names[0]]},
+                                    "missing feed")):
+                try:
+                    c.infer(f)
+                except RuntimeError as e:
+                    assert word in str(e), str(e)
+                    refused.append(label)
+            assert np.array_equal(c.infer(feed)[0], want)
+        assert refused == ["float64", "wrong name"], refused
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    log(f"  [serve] {n} requests over {EXPORT['serve_clients']} "
+        f"connections (one pipelining {EXPORT['pipelined']}) at batch "
+        f"{len(want)}: every answer equal to the one-shot run's, "
+        f"{wall:.2f} s; a float64 feed and a wrong feed name answered with "
+        f"errors, the connection served again")
+    return {"requests": n, "wall_s": wall, "refused": refused}
+
+
+def _native_train(ptt, kernels, progs, d, params_dir, info):
+    """Phase 7's LM train step (Adam) in float32 (use_bf16_matmul off, TF32
+    off, as phase 9 runs it) from `params_dir`'s weights, exported into
+    `d` by export_child: EXPORT["train_steps"] steps by `ptpu_train
+    --device cuda` and by Executor.run from the same state on the same
+    batch: losses within 1e-5 relative, every parameter within 1e-5 of
+    its magnitude (at least 1), K1-K3 6 launches a step each in the C++
+    process; each one's step times."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.framework.executor import as_numpy
+    cfg, steps = TRAIN, EXPORT["train_steps"]
+    prev = ptt.flags.get_flag("use_bf16_matmul")
+    try:
+        exe, main, scope, (loss,), names = _export_scope(ptt, "train",
+                                                         params_dir)
+        rng = np.random.RandomState(SEED + 46)
+        toks = _markov_tokens(rng, cfg["batch"], cfg["max_len"] + 1,
+                              cfg["vocab"])
+        feed = {"tokens": toks[:, :-1].copy(),
+                "tokens@SEQLEN": np.full((cfg["batch"],), cfg["max_len"],
+                                         "int32"),
+                "targets": toks[:, 1:].copy()}
+        ins = _save_feeds(d, feed, names)
+        stdout, launches, step_ms, nodes = _native_run(
+            progs["ptpu_train"], [d, *ins, "--steps", str(steps), "--device",
+                                  NATIVE_DEVICE, "--out", d])
+        cpp = [float(ln.split()[3]) for ln in stdout.splitlines()
+               if ln.startswith("step ")]
+        py, py_ms = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            py.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+            py_ms.append((time.perf_counter() - t0) * 1e3)
+        np.testing.assert_allclose(cpp, py, rtol=1e-5,
+                                   err_msg="ptpu_train losses")
+        meta = open(os.path.join(d, "__exported_train__.meta")).read()
+        in_names = [ln.split()[1] for ln in meta.splitlines()
+                    if ln.startswith("in ")]
+        worst = 0.0
+        for p in main.all_parameters():
+            want = as_numpy(scope.get(p.name))
+            got = np.load(os.path.join(d, f"state{in_names.index(p.name)}"
+                                          f".npy"))
+            err = float(np.abs(got - want).max())
+            assert err <= 1e-5 * max(1.0, float(np.abs(want).max())), \
+                (p.name, err)
+            worst = max(worst, err)
+        for k in FLASH:
+            assert launches[k] == cfg["num_layers"] * steps, (
+                f"ptpu_train launched {k} {launches[k]} times in {steps} "
+                f"steps; the step launches it {cfg['num_layers']} times")
+    finally:
+        ptt.flags.set_flag("use_bf16_matmul", prev)
+    log(f"  [train] export {info['seconds']:.1f} s ({nodes} nodes); {steps} "
+        f"steps: losses {[round(x, 6) for x in cpp]} within 1e-5 of "
+        f"Executor.run's, parameters within {worst:.2e}; C++ launches "
+        f"{launches}; median ms a step: Executor.run "
+        f"{np.median(py_ms[1:]):.1f}, ptpu_train {np.median(step_ms[1:]):.1f}"
+        f" (first steps {py_ms[0]:.1f} / {step_ms[0]:.1f})")
+    return {**info, "nodes": nodes, "losses": cpp, "executor_losses": py,
+            "max_param_err": worst, "launches_native": launches,
+            "executor_step_ms": py_ms, "native_step_ms": step_ms}
+
+
+def export_native(ptt, kernels, lm_params, tr_params, nmt_params):
+    """Phase 46: export and native runs (module docstring). The exports
+    run in child processes, all at once; the checks and times here."""
+    import numpy as np
+    from paddle_tpu_torch import native
+    progs = native.build()     # built in phase 2, beside the kernels
+    out = {"build": dict(native.BUILD_SECONDS)}
+    rng = np.random.RandomState(SEED + 46)
+    b = GENERATE["runs"][2][0]
+    prompt = rng.randint(0, TRAIN["vocab"], (b, 1)).astype("int64")
+    nmt_feed, _, _ = _nmt_generate_feed(TRANSFORMER, GENERATE_NMT["batch"],
+                                        SEED + 17)
+    lstm_feed = _lstm_feeds(rng, LSTM, 1)[0]
+    del lstm_feed["label"]
+    src = _nmt_feeds(rng, NMT, 1)[0]
+    root = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        # phase 11's stacked LSTM from its startup weights (its trained
+        # ones are gone with phase 14)
+        lstm_params = os.path.join(root, "lstm_params")
+        main, start, _, _ = _export_program(ptt, "stacked_lstm")
+        scope = ptt.Scope()
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        exe.run(start, scope=scope)
+        ptt.io.save_params(exe, lstm_params, main_program=main, scope=scope)
+        params = {"lm_generate": lm_params, "nmt_generate": tr_params,
+                  "stacked_lstm": lstm_params,
+                  "nmt_beam_translate": nmt_params, "train": lm_params}
+        t0 = time.perf_counter()
+        infos = _export_all(params, root)
+        out["export_wall_s"] = time.perf_counter() - t0
+        log(f"  five exports in parallel child processes: "
+            f"{out['export_wall_s']:.1f} s")
+        cases = [("lm_generate", {"prompt": prompt}, ("decode_attention",),
+                  None),
+                 ("nmt_generate", nmt_feed, ("flash_fwd",
+                                             "decode_attention"), None),
+                 ("stacked_lstm", lstm_feed, ("lstm_seq",), 1e-6),
+                 ("nmt_beam_translate",
+                  {"src": src["src"], "src_lens": src["src_lens"]},
+                  ("gru_seq", "decode_attention"), None)]
+        for label, feed, expect, tol in cases:
+            out[label] = _export_case(
+                ptt, kernels, progs, os.path.join(root, label), label,
+                params[label], feed, expect, tol, EXPORT["reps"],
+                infos[label])
+        out["serve"] = _native_serve(
+            progs, os.path.join(root, "lm_generate"),
+            {"prompt": prompt[:EXPORT["serve_batch"]]}, ["prompt"])
+        out["train"] = _native_train(ptt, kernels, progs,
+                                     os.path.join(root, "train"), lm_params,
+                                     infos["train"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9171,6 +9628,9 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--phase44-child"]:
         phase44_child(*sys.argv[2:])
+        return 0
+    if sys.argv[1:2] == ["--export-child"]:
+        export_child(*sys.argv[2:])
         return 0
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import kernels
@@ -9203,9 +9663,19 @@ def main():
 
     _phase("phase 2: build kernels")
     t0 = time.perf_counter()
-    took = kernels.build()
-    log(f"  built {sorted(took)} in {time.perf_counter() - t0:.2f} s "
-        f"(per source: {took})")
+    # phase 46's native programs compile (g++) beside the kernels' nvcc
+    # builds, and link once those are on disk
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch import native
+    with ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(native.build)
+        took = kernels.build()
+        log(f"  built {sorted(took)} in {time.perf_counter() - t0:.2f} s "
+            f"(per source: {took})")
+        native_build.result()
+    log(f"  built the native programs beside them (phase 46): "
+        f"{time.perf_counter() - t0:.2f} s in all, g++ "
+        f"{native.BUILD_SECONDS}")
     for kname, text in kernels.BUILD_LOGS.items():
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
         spills = [int(w) for w in re.findall(r"(\d+) bytes spill", text)]
@@ -9381,11 +9851,8 @@ def main():
 
     _phase("phase 32: translate with the NMT model at full width (beam 4 "
            "through infer_net)")
-    try:
-        paths["nmt_beam_translate"] = translate_nmt(ptt, kernels,
-                                                    nmt_params)
-    finally:
-        shutil.rmtree(nmt_params, ignore_errors=True)
+    # (nmt_params stays for phase 46; atexit removes it)
+    paths["nmt_beam_translate"] = translate_nmt(ptt, kernels, nmt_params)
     torch.cuda.empty_cache()
 
     _phase("phase 33: train and decode the BiLSTM-CRF (label semantic "
@@ -9415,17 +9882,11 @@ def main():
 
     _phase("phase 38: generate with phase 7's LM at full width "
            "(transformer_lm_generate: greedy b16 and b64, beam 4 b16)")
-    try:
-        paths["lm_generate"] = generate_lm(ptt, kernels, lm_params)
-    finally:
-        shutil.rmtree(lm_params, ignore_errors=True)
+    paths["lm_generate"] = generate_lm(ptt, kernels, lm_params)
 
     _phase("phase 39: generate with phase 15's Transformer-base "
            "(transformer_generate: beam 4 and 1, K1 in the encoder)")
-    try:
-        paths["nmt_generate"] = generate_nmt(ptt, kernels, tr_params)
-    finally:
-        shutil.rmtree(tr_params, ignore_errors=True)
+    paths["nmt_generate"] = generate_nmt(ptt, kernels, tr_params)
     torch.cuda.empty_cache()
 
     _phase("phase 40: generators, run_steps, py_reader, the fused "
@@ -9461,6 +9922,13 @@ def main():
            "state offloaded to pinned host memory, the memory plan on the "
            "rewritten program, sequence parallelism over the ring")
     paths["offload_plan_sp"] = offload_plan_sequence(ptt, kernels)
+    torch.cuda.empty_cache()
+
+    _phase("phase 46: export and native runs (torch.export archives, "
+           "ExportedPredictor, ptpu_predict one-shot and --serve, "
+           "ptpu_train)")
+    paths["export_native"] = export_native(ptt, kernels, lm_params,
+                                           tr_params, nmt_params)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -9581,6 +10049,15 @@ def main():
                     ("flash_fwd", "launches_generate")):
         assert results[kern][k] > 0, \
             f"{kern} was never launched on its {k[9:]} path"
+    # phase 46: each kernel's launches inside the native processes
+    p46 = paths["export_native"]
+    native_runs = [p46[c]["launches_native"] for c in (
+        "lm_generate", "nmt_generate", "stacked_lstm",
+        "nmt_beam_translate")] + [p46["train"]["launches_native"]]
+    for k in results:
+        results[k]["launches_native"] = sum(r.get(k, 0) for r in native_runs)
+        assert results[k]["launches_native"] > 0, \
+            f"{k} was never launched in a native process (phase 46)"
     del launches["decode_attention_multi"], launches["decode_attention_int8"]
     line = {"kernels": [dict(name=k, **_KERNEL_META[k],
                              launches=launches[k], **results[k])

@@ -194,6 +194,10 @@ class LowerCtx:
         autograd's backward (lowering.py `_checkpointed`).
     deferred: under remat, the persistable-state updates of the region's
         forward, run once after its backward (`update_state`).
+    exporting: the run is traced into a graph (io.export_train_program):
+        `generator()` gives None, so draws come from the process's default
+        generator, which whoever runs the graph seeds for the step (a
+        traced graph cannot hold a seeded torch.Generator).
     """
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     seed: int = 0
@@ -205,12 +209,15 @@ class LowerCtx:
     extras: dict = field(default_factory=dict)
     recomputing: bool = False
     deferred: Optional[list] = None
+    exporting: bool = False
     _generator: Optional[torch.Generator] = None
     _rng_counter: int = 0
 
     def generator(self, seed: int = 0) -> torch.Generator:
         """A fixed-seed generator when `seed` is nonzero (an op's own seed
-        attr), else the run's shared generator."""
+        attr), else the run's shared generator; None under `exporting`."""
+        if self.exporting:
+            return None
         if seed:
             return torch.Generator(device=self.device).manual_seed(seed)
         if self._generator is None:

@@ -12,8 +12,9 @@ of G = γ+1 positions (1 < G < T). The cache WRITE stays on the
 
 Three pieces, as for every kernel of the port:
 
-- `decode_attention_cuda` — the wrapper of the hand-written CUDA kernel
-  (csrc/decode_attention.cu, replacing the Pallas kernel
+- `decode_attention_cuda` — the wrapper of the hand-written CUDA kernel,
+  called through the registered op `ptpu::decode_attention`
+  (kernel_ops.py; csrc/decode_attention.cu, replacing the Pallas kernel
   `paddle_tpu/fusion/decode_attention.py:_decode_step_kernel`, and the
   XLA composite the JAX package sends G > 1 windows and int8 caches
   through). It checks shapes, types and layout, allocates the scratch for
@@ -49,7 +50,7 @@ import ctypes
 
 import torch
 
-from .. import kernels
+from .. import kernel_ops, kernels
 from ..framework.registry import register_op
 
 #: the largest head dim the kernel takes (csrc/decode_attention.cu
@@ -179,17 +180,10 @@ def _check_scales(name, sc, cache, r, nh, t, dev):
     return None
 
 
-def decode_attention_cuda(q, k, v, bias, scale, k_scale=None, v_scale=None):
-    """Launch the CUDA kernel: q [R, nh, G, dh] (or [R, nh, dh], one
-    position) float32 or bfloat16 contiguous; k/v [R, nh, T, dh]
-    contiguous, each float32, bfloat16, or int8 with its scales float32
-    [R, nh, T//bt] from `quantize_kv_time_blocks`; bias [R, nh, G, T] (or
-    [R, nh, T]) float32 with unit stride along T (any other strides, 0
-    included). Returns q's shape in q's dtype, for head dims up to 512, T
-    up to 65535 chunks of the cache (`decode_attention_chunk`; a chunk is
-    16 to 256 positions, so T reaches about 1M at dh 512 and 16M at dh 32)
-    and any G >= 1. Raises on anything else."""
-    q4, b4, squeezed = _rows4(q, bias)
+def _decode_attention_launch(q4, k, v, b4, scale, k_scale, v_scale):
+    """`ptpu::decode_attention` on CUDA tensors: q [R, nh, G, dh], bias
+    [R, nh, G, T]. Checks, allocates the output and the partials, launches
+    the split kernel and the merge (one call), counts it."""
     r, nh, g, dh = q4.shape
     t = k.shape[2]
     dev = q4.device
@@ -206,9 +200,9 @@ def decode_attention_cuda(q, k, v, bias, scale, k_scale=None, v_scale=None):
                         f"float32, got {k.dtype}, {v.dtype}, {b4.dtype}")
     if tuple(k.shape) != (r, nh, t, dh) or tuple(v.shape) != (r, nh, t, dh) \
             or tuple(b4.shape) != (r, nh, g, t):
-        raise ValueError(f"decode_attention_cuda: shapes q {tuple(q.shape)}"
+        raise ValueError(f"decode_attention_cuda: shapes q {tuple(q4.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)} bias "
-                         f"{tuple(bias.shape)} do not agree")
+                         f"{tuple(b4.shape)} do not agree")
     if not (q4.is_contiguous() and k.is_contiguous()
             and v.is_contiguous()) or b4.stride(3) != 1:
         raise ValueError("decode_attention_cuda: q, K, V must be contiguous "
@@ -242,6 +236,27 @@ def decode_attention_cuda(q, k, v, bias, scale, k_scale=None, v_scale=None):
         kernels.count_launch("decode_attention_multi")
     if ks is not None or vs is not None:
         kernels.count_launch("decode_attention_int8")
+    return out
+
+
+kernel_ops.impl("decode_attention", _decode_attention_launch)
+
+
+def decode_attention_cuda(q, k, v, bias, scale, k_scale=None, v_scale=None):
+    """Launch the CUDA kernel (`ptpu::decode_attention`): q [R, nh, G, dh]
+    (or [R, nh, dh], one position) float32 or bfloat16 contiguous; k/v
+    [R, nh, T, dh] contiguous, each float32, bfloat16, or int8 with its
+    scales float32 [R, nh, T//bt] from `quantize_kv_time_blocks`; bias
+    [R, nh, G, T] (or [R, nh, T]) float32 with unit stride along T (any
+    other strides, 0 included). Returns q's shape in q's dtype, for head
+    dims up to 512, T up to 65535 chunks of the cache
+    (`decode_attention_chunk`; a chunk is 16 to 256 positions, so T
+    reaches about 1M at dh 512 and 16M at dh 32) and any G >= 1. Raises on
+    anything else."""
+    q4, b4, squeezed = _rows4(q, bias)
+    kernel_ops.require_cuda("decode_attention_cuda", q4, k, v, b4)
+    out = torch.ops.ptpu.decode_attention(q4, k, v, b4, float(scale),
+                                          k_scale, v_scale)
     return out.squeeze(2) if squeezed else out
 
 

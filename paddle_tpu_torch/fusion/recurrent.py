@@ -11,7 +11,8 @@ sequence-length freeze.
 The pieces, as for every kernel of the port:
 
 - `lstm_seq_cuda` / `gru_seq_cuda` — wrappers of the hand-written CUDA
-  kernels (csrc/recurrent.cu, replacing the Pallas kernels
+  kernels, called through the registered ops `ptpu::lstm_seq` /
+  `ptpu::gru_seq` (kernel_ops.py; csrc/recurrent.cu, replacing the Pallas kernels
   `paddle_tpu/fusion/recurrent.py:_lstm_seq_kernel` and `_gru_seq_kernel`).
   They check devices, types and shapes, launch on the current stream and
   count the launch in `kernels.LAUNCHES["lstm_seq"]` / `["gru_seq"]`. Any
@@ -43,7 +44,7 @@ import ctypes
 
 import torch
 
-from .. import kernels
+from .. import kernel_ops, kernels
 from ..framework.registry import register_op
 
 #: the element types the kernels take, by their type code
@@ -351,13 +352,10 @@ def _check_args(name, n_gates, x, states, w, seqlen):
     return b, t, hd
 
 
-def lstm_seq_cuda(x, h0, c0, w, seqlen, reverse, with_stash):
-    """Launch the LSTM kernel: x [B, T, 4H] (already flipped when
-    `reverse`), h0/c0 [B, H], w [H, 4H], all float32 or all bfloat16,
-    seqlen [B] of any integer type. Returns (hs, cs[, stash]) in x's type
-    as `lstm_seq_plain`; in bfloat16 h and c are rounded at every step, as
-    the composite's carry is. Raises on another type and on shapes that
-    disagree."""
+def _lstm_seq_launch(x, h0, c0, w, seqlen, reverse, with_stash):
+    """`ptpu::lstm_seq` on CUDA tensors: checks, allocates, launches K5
+    and counts it. The stash is an empty [0] tensor without
+    `with_stash`."""
     b, t, hd = _check_args("lstm_seq_cuda", 4, x, (h0, c0), w, seqlen)
     lib = kernels.load("recurrent")
     _bind(lib)
@@ -369,8 +367,8 @@ def lstm_seq_cuda(x, h0, c0, w, seqlen, reverse, with_stash):
         sl = seqlen.to(torch.int32).contiguous()
         hs = torch.empty((b, t, hd), dtype=x.dtype, device=dev)
         cs = torch.empty_like(hs)
-        stash = (torch.empty((b, t, 4 * hd), dtype=x.dtype,
-                             device=dev) if with_stash else None)
+        stash = torch.empty((b, t, 4 * hd) if with_stash else (0,),
+                            dtype=x.dtype, device=dev)
         # columns hd..hp-1 of each row stay zero: the kernel reads them
         hbuf = torch.zeros((2, b, plan["hp"]), dtype=torch.float32,
                            device=dev)
@@ -378,18 +376,16 @@ def lstm_seq_cuda(x, h0, c0, w, seqlen, reverse, with_stash):
         err = lib.ptt_lstm_seq(
             x.data_ptr(), w.data_ptr(), _ptr(w_rel), h0.data_ptr(),
             c0.data_ptr(), sl.data_ptr(), b, t, hd, int(bool(reverse)),
-            _TYPE_CODES[x.dtype], hs.data_ptr(), cs.data_ptr(), _ptr(stash), hbuf.data_ptr(),
+            _TYPE_CODES[x.dtype], hs.data_ptr(), cs.data_ptr(),
+            stash.data_ptr() if with_stash else None, hbuf.data_ptr(),
             arrived.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(lib, "lstm_seq", err)
     kernels.count_launch("lstm_seq")
-    return (hs, cs, stash) if with_stash else (hs, cs)
+    return hs, cs, stash
 
 
-def gru_seq_cuda(x, h0, w, seqlen, reverse, with_stash):
-    """Launch the GRU kernel: x [B, T, 3H] (already flipped when
-    `reverse`), h0 [B, H], w [H, 3H], all float32 or all bfloat16, seqlen
-    [B] of any integer type. Returns (hs[, stash]) in x's type as
-    `gru_seq_plain`."""
+def _gru_seq_launch(x, h0, w, seqlen, reverse, with_stash):
+    """`ptpu::gru_seq` on CUDA tensors, as `_lstm_seq_launch`."""
     b, t, hd = _check_args("gru_seq_cuda", 3, x, (h0,), w, seqlen)
     lib = kernels.load("recurrent")
     _bind(lib)
@@ -400,8 +396,8 @@ def gru_seq_cuda(x, h0, w, seqlen, reverse, with_stash):
         w_rel = _w_rel(plan, w, 3)
         sl = seqlen.to(torch.int32).contiguous()
         hs = torch.empty((b, t, hd), dtype=x.dtype, device=dev)
-        stash = (torch.empty((b, t, 3 * hd), dtype=x.dtype,
-                             device=dev) if with_stash else None)
+        stash = torch.empty((b, t, 3 * hd) if with_stash else (0,),
+                            dtype=x.dtype, device=dev)
         # h, r·h and z; columns hd..hp-1 of each row stay zero: the kernel
         # reads them
         buf = torch.zeros((3, b, plan["hp"]), dtype=torch.float32,
@@ -411,10 +407,38 @@ def gru_seq_cuda(x, h0, w, seqlen, reverse, with_stash):
             x.data_ptr(), w.data_ptr(), _ptr(w_rel), h0.data_ptr(),
             sl.data_ptr(), b, t, hd, int(bool(reverse)),
             _TYPE_CODES[x.dtype], hs.data_ptr(),
-            _ptr(stash), buf.data_ptr(), arrived.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            stash.data_ptr() if with_stash else None, buf.data_ptr(),
+            arrived.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(lib, "gru_seq", err)
     kernels.count_launch("gru_seq")
+    return hs, stash
+
+
+kernel_ops.impl("lstm_seq", _lstm_seq_launch)
+kernel_ops.impl("gru_seq", _gru_seq_launch)
+
+
+def lstm_seq_cuda(x, h0, c0, w, seqlen, reverse, with_stash):
+    """Launch the LSTM kernel (`ptpu::lstm_seq`): x [B, T, 4H] (already
+    flipped when `reverse`), h0/c0 [B, H], w [H, 4H], all float32 or all
+    bfloat16, seqlen [B] of any integer type. Returns (hs, cs[, stash]) in
+    x's type as `lstm_seq_plain`; in bfloat16 h and c are rounded at every
+    step, as the composite's carry is. Raises on another type and on
+    shapes that disagree."""
+    kernel_ops.require_cuda("lstm_seq_cuda", x, h0, c0, w, seqlen)
+    hs, cs, stash = torch.ops.ptpu.lstm_seq(x, h0, c0, w, seqlen,
+                                            bool(reverse), bool(with_stash))
+    return (hs, cs, stash) if with_stash else (hs, cs)
+
+
+def gru_seq_cuda(x, h0, w, seqlen, reverse, with_stash):
+    """Launch the GRU kernel (`ptpu::gru_seq`): x [B, T, 3H] (already
+    flipped when `reverse`), h0 [B, H], w [H, 3H], all float32 or all
+    bfloat16, seqlen [B] of any integer type. Returns (hs[, stash]) in x's
+    type as `gru_seq_plain`."""
+    kernel_ops.require_cuda("gru_seq_cuda", x, h0, w, seqlen)
+    hs, stash = torch.ops.ptpu.gru_seq(x, h0, w, seqlen, bool(reverse),
+                                       bool(with_stash))
     return (hs, stash) if with_stash else (hs,)
 
 

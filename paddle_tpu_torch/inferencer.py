@@ -7,18 +7,21 @@ Predictor holds a loaded inference program and its scope with an Executor,
 whose plan cache makes repeated `run` calls with the same shapes skip the
 planning. The default place is CUDAPlace(0), which raises without a card.
 
-`Predictor.from_exported` / `ExportedPredictor` serve a StableHLO export in
-the JAX package; their counterpart (torch.export) is not ported: ROADMAP.md
-§1 item 4.
+`Predictor.from_exported` / `ExportedPredictor` serve the `torch.export`
+archive that `io.export_inference_model` wrote (≙ the JAX package's
+StableHLO artifact): cold, with no program, no op registry and no tracer.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence
 
+import torch
+
 from . import io as pio
 from .core.enforce import InvalidArgumentError, enforce
-from .framework.executor import Executor
+from .core.places import resolve_device
+from .framework.executor import Executor, as_numpy
 from .framework.program import Program
 from .framework.scope import Scope
 
@@ -64,15 +67,57 @@ class Predictor:
         return p
 
     @staticmethod
-    def from_exported(model_dir: str) -> "ExportedPredictor":
-        return ExportedPredictor(model_dir)
+    def from_exported(model_dir: str, place=None) -> "ExportedPredictor":
+        """Cold-load the archive written by save_inference_model(...,
+        export=True) for `place` (default CUDAPlace(0)). The returned
+        predictor runs with no program, no op registry and no tracer
+        (≙ the reference's C++ predictor loading a ProgramDesc+params dir,
+        api_impl.cc:126)."""
+        return ExportedPredictor(model_dir, place=place)
 
 
 class ExportedPredictor:
-    """Serves an exported artifact in the JAX package: not ported."""
+    """Serve an exported inference function (see
+    io.export_inference_model). Parameters travel inside the archive. A
+    call is stateless, so one predictor serves every connection thread of
+    a PredictorServer."""
 
-    def __init__(self, model_dir: str):
-        pio.load_exported_model(model_dir)
+    def __init__(self, model_dir: str, place=None):
+        self._module, self.feed_names, self.fetch_names = \
+            pio.load_exported_model(model_dir, place=place)
+        self.device = resolve_device(place)
+
+    def run(self, feed: Dict[str, Any],
+            fetch_names: Optional[Sequence[str]] = None,
+            return_numpy: bool = True) -> List[Any]:
+        # same error contract as Predictor.run
+        missing = set(self.feed_names) - set(feed)
+        extra = set(feed) - set(self.feed_names)
+        enforce(not missing, f"missing feeds: {sorted(missing)}",
+                exc=InvalidArgumentError)
+        enforce(not extra, f"unexpected feeds: {sorted(extra)}",
+                exc=InvalidArgumentError)
+        if fetch_names is not None:
+            unknown = set(fetch_names) - set(self.fetch_names)
+            enforce(not unknown,
+                    f"unknown fetch names {sorted(unknown)}; exported "
+                    f"fetches are {self.fetch_names}",
+                    exc=InvalidArgumentError)
+        with torch.no_grad():
+            outs = self._module(*(self._feed(feed[n])
+                                  for n in self.feed_names))
+        if fetch_names is not None:
+            index = {n: i for i, n in enumerate(self.fetch_names)}
+            outs = [outs[index[n]] for n in fetch_names]
+        if return_numpy:
+            return [as_numpy(o) for o in outs]
+        return list(outs)
+
+    def _feed(self, v) -> torch.Tensor:
+        t = torch.as_tensor(v) if not isinstance(v, torch.Tensor) else v
+        if t.dtype == torch.float64:
+            t = t.float()     # float feeds run in float32, as Executor's
+        return t.to(self.device)
 
 
 class Inferencer:

@@ -23,9 +23,11 @@ A `filename` ending in `.pts` goes through the native tensor container
 `save_persistables(sharded=True)` / `load_persistables(sharded=True)`
 through sharded_checkpoint.py.
 
-Not ported (ROADMAP.md §1 item 4, export and native): the StableHLO
-exports `export_inference_model`, `load_exported_model` and
-`export_train_program` (their counterpart is `torch.export`).
+Export (≙ the JAX package's StableHLO exports): `export_inference_model`
+writes the inference function as a `torch.export` archive per device,
+`load_exported_model` loads it cold, and `export_train_program` writes one
+train step; the native programs in csrc/native/ (`native.py` builds them)
+run both without Python.
 """
 
 from __future__ import annotations
@@ -49,11 +51,6 @@ INFERENCE_PROGRAM_FILE = "__model__"
 PARAMS_COMBINED_FILE = "__params__.npz"
 TRAIN_PROGRAM_FILE = "__train_program__"
 BF16_TAG = "@BF16"
-
-_EXPORT = ("StableHLO export is a JAX mechanism; its counterpart, "
-           "torch.export, is not ported: ROADMAP.md §1 item 4 (export and "
-           "native)")
-
 
 def _is_parameter(var: Variable) -> bool:
     return isinstance(var, Parameter)
@@ -348,9 +345,10 @@ def save_inference_model(dirname: str,
                          native: bool = False):
     """≙ fluid.io.save_inference_model (reference io.py:561): prune the
     program to the fetch targets, switch it to test mode, and write the
-    program's JSON with the feed and fetch names, and its persistables."""
-    if export or native:
-        raise NotImplementedError(_EXPORT)
+    program's JSON with the feed and fetch names, and its persistables.
+    `export=True` also writes the torch.export archive
+    (`export_inference_model`), `native=True` that and the native
+    programs' meta."""
     program = main_program or default_main_program()
     scope = scope or global_scope()
     target_names = [t.name if isinstance(t, Variable) else t
@@ -372,6 +370,11 @@ def save_inference_model(dirname: str,
               vars=_select_vars(inference_program, _is_persistable),
               filename=params_filename or PARAMS_COMBINED_FILE, scope=scope,
               save_as_bf16=save_as_bf16)
+    if export or native:
+        export_inference_model(
+            dirname, feeded_var_names, target_names, inference_program,
+            scope=scope, native=native,
+            platforms=None if executor is None else [executor.device.type])
     return target_names
 
 
@@ -398,16 +401,327 @@ def load_inference_model(dirname: str,
     return program, list(meta["feed_names"]), list(meta["fetch_names"])
 
 
-def export_inference_model(*args, **kwargs):
-    raise NotImplementedError(_EXPORT)
+EXPORTED_ARTIFACT_FILE = "__exported__.pt2"
+EXPORTED_META_FILE = "__exported__.json"
+NATIVE_META_FILE = "__exported_native__.meta"
+NATIVE_TRAIN_ARTIFACT_FILE = "__exported_train__.pt2"
+NATIVE_TRAIN_META_FILE = "__exported_train__.meta"
+
+#: the JAX package's platform names -> the device type each is traced on
+_PLATFORMS = {"cpu": "cpu", "tpu": "cuda", "gpu": "cuda", "cuda": "cuda"}
 
 
-def load_exported_model(*args, **kwargs):
-    raise NotImplementedError(_EXPORT)
+def _platform_devices(platforms, scope, names):
+    """[(platform, device)] to trace on: each platform named (JAX names
+    mapped: "tpu" -> "cuda"), or else the device the scope's state lives
+    on."""
+    if platforms is None:
+        dev = next((scope.get(n).device for n in names
+                    if isinstance(scope.get(n), torch.Tensor)), None)
+        platforms = [dev.type if dev is not None else "cuda"]
+    out = []
+    for p in platforms:
+        kind = _PLATFORMS.get(str(p).lower())
+        enforce(kind is not None, f"unknown export platform {p!r}; known: "
+                f"{sorted(_PLATFORMS)}", exc=InvalidArgumentError)
+        if kind not in [k for k, _ in out]:
+            out.append((kind, resolve_device(Place(kind, 0))))
+    return out
 
 
-def export_train_program(*args, **kwargs):
-    raise NotImplementedError(_EXPORT)
+def _archive_file(base: str, platform: str, first: bool) -> str:
+    """The archive of one platform: `base` for the first platform named,
+    `<stem>.<platform>.pt2` for the others."""
+    return base if first else base.replace(".pt2", f".{platform}.pt2")
+
+
+def _tf32():
+    return (int(torch.backends.cuda.matmul.allow_tf32),
+            int(torch.backends.cudnn.allow_tf32))
+
+
+#: the batch an export traces at: 2 or more, so that the tracer's 0/1
+#: specialisation does not pin the symbolic batch
+_TRACE_BATCH = 2
+
+
+def _feed_samples(block, feed_names, device):
+    """Example feeds (zeros: the exporter traces them as fake tensors)
+    and their dynamic shapes: every feed's leading -1 is ONE shared batch
+    Dim (the JAX package's feed contract, paddle_tpu/io.py:341-351), each
+    other -1 a Dim of its own."""
+    batch = _TRACE_BATCH
+    bdim = torch.export.Dim("b", min=1)
+    samples, specs = [], []
+    for i, name in enumerate(feed_names):
+        v = block.var(name)
+        shape, spec = [], {}
+        for j, d in enumerate(v.shape):
+            if d == -1:
+                spec[j] = bdim if j == 0 else torch.export.Dim(
+                    f"d{i}_{j}", min=1)
+                shape.append(batch if j == 0 else batch + 1)
+            else:
+                shape.append(d)
+        samples.append(torch.zeros(shape, dtype=convert_dtype(v.dtype),
+                                   device=device))
+        specs.append(spec or None)
+    return samples, specs
+
+
+class _Traced(torch.nn.Module):
+    """`fn(feeds, state)` as a module: the state as buffers (the exported
+    program's weights), the feeds as its inputs."""
+
+    def __init__(self, fn, state):
+        super().__init__()
+        self._fn = fn
+        self._n = len(state)
+        for i, t in enumerate(state):
+            self.register_buffer(f"s{i}", t)
+
+    def forward(self, *feeds):
+        return self._fn(feeds, [getattr(self, f"s{i}")
+                                for i in range(self._n)])
+
+
+def _plan_fn(plan, device, fetch_names, is_test, exporting=False):
+    """The plan's run over (feeds, ro + rw state) -> the named values,
+    with a LowerCtx of its own (no memo shared with eager runs: a tensor
+    made while tracing must not outlive the trace)."""
+    from .framework.lowering import run_plan
+    from .framework.registry import LowerCtx
+    state_names = list(plan.ro_names) + list(plan.rw_names)
+
+    def fn(feeds, state):
+        ctx = LowerCtx(device=device, constants={},
+                       fetch_names=tuple(plan.fetch_names),
+                       read_names=plan.read_names, is_test=is_test,
+                       exporting=exporting,
+                       extras={"program": plan.program})
+        env: Dict[str, object] = dict(zip(state_names, state))
+        env.update(zip(plan.feed_names, feeds))
+        run_plan(plan.ops, env, ctx, plan.release)
+        return tuple(env[n] for n in fetch_names)
+    return fn
+
+
+def _meta_line(kind, name, t, spec=None) -> str:
+    """An `in` / `out` line of the JAX meta format: name, dtype and dims,
+    -1 for a symbolic one (`spec`'s dims, or a SymInt). bfloat16 values
+    travel as their uint16 bit patterns in .npy files (as `_to_store`
+    writes them); the programs hand bfloat16 outputs back as float32."""
+    from .core.dtypes import dtype_name
+    dims = " ".join("-1" if (spec and j in spec) or not isinstance(d, int)
+                    else str(d) for j, d in enumerate(t.shape))
+    return f"{kind} {name} {dtype_name(t.dtype)} {dims}".rstrip()
+
+
+def _output_vals(ep):
+    out = next(n for n in ep.graph.nodes if n.op == "output")
+    return [a.meta["val"] for a in out.args[0]]
+
+
+def _schema_version() -> str:
+    from torch._export.serde.schema import SCHEMA_VERSION
+    return f"{SCHEMA_VERSION[0]}.{SCHEMA_VERSION[1]}"
+
+
+def export_inference_model(dirname: str,
+                           feeded_var_names: Sequence[str],
+                           target_names: Sequence[str],
+                           inference_program: Program,
+                           scope: Optional[Scope] = None,
+                           platforms: Optional[Sequence[str]] = None,
+                           native: bool = False) -> Dict[str, object]:
+    """Write the pruned inference function as a `torch.export` archive
+    next to the JSON program (≙ paddle_tpu/io.py:323, whose artifact is
+    serialized StableHLO): parameters baked in as the program's weights,
+    loadable COLD by `load_exported_model` / `Predictor.from_exported` and
+    by the native `ptpu_predict` (csrc/native/) with no program, no op
+    registry and no tracer.
+
+    The plan is the one `Executor.run` builds (the fusion passes, so the
+    hand-written kernels K1-K6 appear as their `ptpu::` ops on a CUDA
+    trace), run in test mode. Feed contract as the JAX package's: every
+    feed's leading -1 is one shared symbolic batch, so one archive serves
+    any batch; other -1 dims are symbolic each on their own.
+
+    A torch.export graph fixes its device, so each platform named
+    ("cpu", and "cuda" or the JAX package's "tpu") is traced on its own
+    device into its own archive: `__exported__.pt2` for the first, then
+    `__exported__.<platform>.pt2`; the default is the device the scope's
+    state lives on (save_inference_model passes its executor's). `__exported__.json` holds `feed_names`, `fetch_names`,
+    `platforms` and each platform's archive. `native=True` also writes
+    `__exported_native__.meta` (the JAX line format: version, nin / in,
+    nout / out, plus each archive and the TF32 settings the export ran
+    under), which `ptpu_predict` checks feeds against.
+
+    Returns {"seconds", "nodes"} of the last platform's export."""
+    import time
+    from .framework.executor import Executor
+    from .core.places import CPUPlace, CUDAPlace
+
+    scope = scope or global_scope()
+    feed_names = list(feeded_var_names)
+    target_names = [t.name if isinstance(t, Variable) else t
+                    for t in target_names]
+    block = inference_program.global_block()
+    state_names = sorted({n for b in inference_program.blocks
+                          for op in b.ops for n in op.input_names()
+                          if scope.has_var(n) and n not in feed_names})
+    os.makedirs(dirname, exist_ok=True)
+    archives, info, lines = {}, {}, []
+    for i, (kind, device) in enumerate(_platform_devices(
+            platforms, scope, state_names)):
+        exe = Executor(CPUPlace() if kind == "cpu" else
+                       CUDAPlace(device.index or 0))
+        plan = exe._build_plan(inference_program, scope, feed_names,
+                               target_names)
+        state = [scope.get(n).detach().to(device)
+                 for n in list(plan.ro_names) + list(plan.rw_names)]
+        samples, specs = _feed_samples(block, feed_names, device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ep = torch.export.export(
+                _Traced(_plan_fn(plan, device, target_names, True), state),
+                tuple(samples), dynamic_shapes=(tuple(specs),),
+                strict=False)
+        info = {"seconds": time.perf_counter() - t0,
+                "nodes": len(ep.graph.nodes)}
+        fname = _archive_file(EXPORTED_ARTIFACT_FILE, kind, i == 0)
+        torch.export.save(ep, os.path.join(dirname, fname))
+        archives[kind] = fname
+        if not lines:
+            lines = ([f"version {_schema_version()}",
+                      f"nin {len(feed_names)}"]
+                     + [_meta_line("in", n, t, spec) for n, t, spec in
+                        zip(feed_names, samples, specs)]
+                     + [f"nout {len(target_names)}"]
+                     + [_meta_line("out", n, v) for n, v in
+                        zip(target_names, _output_vals(ep))])
+    with open(os.path.join(dirname, EXPORTED_META_FILE), "w") as f:
+        json.dump({"feed_names": feed_names, "fetch_names": target_names,
+                   "platforms": list(archives), "archives": archives}, f)
+    if native:
+        lines += [f"archive {k} {f}" for k, f in archives.items()]
+        lines.append("tf32 %d %d" % _tf32())
+        with open(os.path.join(dirname, NATIVE_META_FILE), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return info
+
+
+def _register_kernel_ops():
+    """The `ptpu::` ops a loaded archive may call, with their CUDA
+    implementations (each kernel module registers its own on import)."""
+    from . import kernel_ops  # noqa: F401
+    from .fusion import decode_attention, recurrent  # noqa: F401
+    from .ops import flash_attention  # noqa: F401
+
+
+def load_exported_model(dirname: str, place: Optional[Place] = None):
+    """Load the archive `export_inference_model` wrote for `place`'s
+    device type (default CUDAPlace(0), which raises without a card).
+    Returns (module, feed_names, fetch_names): `module(*feeds)` runs the
+    exported graph on that device and returns the fetches, with no
+    program, no registry and no tracer (≙ paddle_tpu/io.py:437)."""
+    device = resolve_device(place)
+    path = os.path.join(dirname, EXPORTED_META_FILE)
+    if not os.path.exists(path):
+        raise NotFoundError(f"no exported artifact at {path}")
+    with open(path) as f:
+        meta = json.load(f)
+    fname = meta["archives"].get(device.type)
+    if fname is None:
+        raise NotFoundError(
+            f"{dirname} holds no archive for {device.type} (exported for "
+            f"{meta['platforms']}): a torch.export graph fixes its device")
+    _register_kernel_ops()
+    ep = torch.export.load(os.path.join(dirname, fname))
+    return ep.module(), list(meta["feed_names"]), list(meta["fetch_names"])
+
+
+def export_train_program(dirname: str,
+                         feeded_var_names: Sequence[str],
+                         loss_names: Sequence,
+                         main_program: Optional[Program] = None,
+                         scope: Optional[Scope] = None) -> List[str]:
+    """Export ONE train step, `(feeds..., state...) -> (losses...,
+    updated state...)`, as `__exported_train__.pt2` for the native
+    `ptpu_train` (≙ paddle_tpu/io.py:456, whose unit is StableHLO).
+    Parameters and optimizer accumulators are real inputs, so the runner
+    carries the updated state across steps.
+
+    The step is the plan `Executor.run` builds (`_analyze_state` gives
+    state_in = ro + rw and state_out = rw | write-only, as the JAX
+    exporter builds them), traced with `make_fx(tracing_mode="symbolic")`
+    through the autograd region, then exported with the feeds' shared
+    batch Dim. Its random draws come from the process's default generator
+    (`LowerCtx.exporting`): the runner seeds it with the step's
+    `__seed__`, which is the meta's first input but no graph input.
+
+    `__exported_train__.meta`, in the JAX line format: version, nfetch,
+    `in __seed__ int32`, an `in` line per feed and state input, an `out`
+    line per loss and updated state, `carry <out> <in>` (feed the output
+    back as that input next step), `init <in> train_state_<in>.npy` (each
+    state input's starting value, written beside it), then the archive
+    and the TF32 settings. Returns the loss names."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from .framework.executor import Executor
+
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    feed_names = list(feeded_var_names)
+    fetch_names = [f.name if isinstance(f, Variable) else f
+                   for f in loss_names]
+    (kind, device), = _platform_devices(None, scope,
+                                        sorted(n for n in scope._vars))
+    exe = Executor(Place(kind, device.index or 0))
+    plan = exe._build_plan(program, scope, feed_names, fetch_names)
+    state_in = list(plan.ro_names) + list(plan.rw_names)
+    state_out = list(plan.state_out_names)
+    state = [scope.get(n).detach().to(device) for n in state_in]
+    samples, specs = _feed_samples(program.global_block(), feed_names,
+                                   device)
+    step = _plan_fn(plan, device, fetch_names + state_out, False,
+                    exporting=True)
+    nf = len(feed_names)
+    with torch.no_grad():
+        graph = make_fx(lambda *a: step(a[:nf], a[nf:]),
+                        tracing_mode="symbolic")(*samples, *state)
+    ep = torch.export.export(graph, tuple(samples + state),
+                             dynamic_shapes=tuple(specs + [None] * len(
+                                 state)), strict=False)
+    os.makedirs(dirname, exist_ok=True)
+    torch.export.save(ep, os.path.join(dirname, NATIVE_TRAIN_ARTIFACT_FILE))
+
+    in_names = ["__seed__"] + feed_names + state_in
+    lines = [f"version {_schema_version()}", f"nfetch {len(fetch_names)}",
+             "in __seed__ int32"]
+    lines += [_meta_line("in", n, t, spec) for n, t, spec in zip(
+        feed_names + state_in, samples + state, specs + [None] * len(state))]
+    lines += [_meta_line("out", n, v) for n, v in zip(
+        fetch_names + state_out, _output_vals(ep))]
+    for out_idx, name in enumerate(fetch_names + state_out):
+        if name in state_out and name in plan.rw_names:
+            lines.append(f"carry {out_idx} {in_names.index(name)}")
+    for name, t in zip(state_in, state):
+        idx = in_names.index(name)
+        fname = f"train_state_{idx}.npy"
+        np.save(os.path.join(dirname, fname), _stored_array(t))
+        lines.append(f"init {idx} {fname}")
+    lines.append(f"archive {kind} {NATIVE_TRAIN_ARTIFACT_FILE}")
+    lines.append("tf32 %d %d" % _tf32())
+    with open(os.path.join(dirname, NATIVE_TRAIN_META_FILE), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return fetch_names
+
+
+def _stored_array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def save_program(dirname: str,

@@ -29,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, Optional
 
@@ -53,6 +54,10 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+# one build at a time in a process: a second caller (native.build in
+# another thread) waits, then finds the libraries on disk
+_BUILD_LOCK = threading.Lock()
 
 
 def reset_launch_counts():
@@ -91,7 +96,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     one nvcc per source, all started together. Returns name -> seconds each
     build took (0.0 for a library already on disk). Raises with nvcc's
     output when a build fails."""
-    names = list(KERNEL_SOURCES if names is None else names)
+    with _BUILD_LOCK:
+        return _build(list(KERNEL_SOURCES if names is None else names))
+
+
+def _build(names) -> Dict[str, float]:
     os.makedirs(build_dir(), exist_ok=True)
     procs, took = {}, {}
     t0 = time.perf_counter()

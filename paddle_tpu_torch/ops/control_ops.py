@@ -20,6 +20,11 @@ Where each op reads a value on the host, and where it runs every branch:
   input that needs a gradient it raises.
 - `lazy_cond` (`layers.cond`): reads its scalar predicate on the host
   once a call and runs only that branch, as lax.cond does.
+- Traced into a graph (torch.export, make_fx), no value can be read on
+  the host: `while` lowers to `torch._higher_order_ops.while_loop` and
+  `lazy_cond` to `torch.cond` over the sub-block's carried values, one
+  graph node each, as the JAX package exports them through lax.while_loop
+  / lax.cond. `static_rnn` stays unrolled.
 - `cond_block` (IfElse) and `switch_case` (Switch): run EVERY branch on
   the full batch and merge with `torch.where` on the device, as the JAX
   package does. No host read.
@@ -30,6 +35,16 @@ from __future__ import annotations
 import torch
 
 from ..framework.registry import register_op
+
+
+def _traced(tensors) -> bool:
+    """Whether the run is being traced into a graph (torch.export, or
+    make_fx in io.export_train_program): a predicate cannot be read on the
+    host there, so `while` and `lazy_cond` lower to torch's control-flow
+    operators instead."""
+    from torch._guards import detect_fake_mode
+    return torch.compiler.is_exporting() or \
+        detect_fake_mode(tuple(tensors)) is not None
 
 
 def sub_block_plan(ctx, attrs, key="sub_block"):
@@ -147,7 +162,7 @@ def _static_rnn(ctx, ins, attrs):
 def _while(ctx, ins, attrs):
     """≙ while_op.cc:36: the body block while the carried condition holds.
     The condition is read on the host once an iteration (a device->host
-    sync each). Forward-only, as the JAX package's lax.while_loop: when an
+    sync each); traced, the loop is one `while_loop` node. Forward-only, as the JAX package's lax.while_loop: when an
     input needs a gradient (a `while` inside a `vjp_region` on the
     differentiated path) it raises."""
     carry_names = list(attrs["carry_names"])
@@ -159,11 +174,29 @@ def _while(ctx, ins, attrs):
             "while is forward-only (as lax.while_loop in the JAX package): "
             "use StaticRNN / DynamicRNN for a differentiable recurrence")
     cond_idx = carry_names.index(attrs["cond_name"])
-    while bool(carry[cond_idx].reshape(())):
-        env = dict(captures)
-        env.update(zip(carry_names, carry))
+    cap_names = list(captures)
+
+    def body(*vals):
+        env = dict(zip(cap_names, vals[len(carry):]))
+        env.update(zip(carry_names, vals[:len(carry)]))
         _run_block(ctx, attrs, "sub_block", env)
-        carry = [env[n] for n in carry_names]
+        return tuple(env[n] for n in carry_names)
+
+    if _traced(carry):
+        # under torch.export / make_fx: the loop as one graph node, the
+        # counterpart of the JAX package's lax.while_loop
+        # the operator itself, not `torch._higher_order_ops.while_loop`,
+        # which would hand the body to dynamo: the interpreter's own state
+        # (ctx) is a side effect there. The traced subgraphs may not
+        # return views of their inputs.
+        from torch._higher_order_ops.while_loop import while_loop_op
+        out = while_loop_op(
+            lambda *vals: vals[cond_idx].reshape(()).to(torch.bool).clone(),
+            lambda *vals: tuple(v.clone() for v in body(*vals)),
+            tuple(carry), tuple(captures.values()))
+        return {"Out": list(out)}
+    while bool(carry[cond_idx].reshape(())):
+        carry = list(body(*carry, *captures.values()))
     return {"Out": carry}
 
 
@@ -200,14 +233,32 @@ def _cond_block(ctx, ins, attrs):
 def _lazy_cond(ctx, ins, attrs):
     """Scalar-predicate conditional (≙ the functional `layers.cond`, the
     JAX package's lax.cond): only the branch the predicate picks runs.
-    The predicate is read on the host once a call (a device->host sync).
-    Differentiable through the branch that ran."""
-    pred = bool(ins["Cond"][0].reshape(()))
-    env = dict(zip(attrs["capture_names"], ins.get("Captures", [])))
-    key, names = (("true_block", attrs["true_out_names"]) if pred else
-                  ("false_block", attrs["false_out_names"]))
-    env = _run_block(ctx, attrs, key, env)
-    return {"Out": [env[n] for n in names]}
+    The predicate is read on the host once a call (a device->host sync);
+    traced, the pick is one `torch.cond` node. Differentiable through the
+    branch that ran."""
+    names = list(attrs["capture_names"])
+    caps = tuple(ins.get("Captures", []))
+
+    def branch(key, outs):
+        def fn(*vals):
+            env = _run_block(ctx, attrs, key, dict(zip(names, vals)))
+            return tuple(env[n] for n in outs)
+        return fn
+
+    true_fn = branch("true_block", attrs["true_out_names"])
+    false_fn = branch("false_block", attrs["false_out_names"])
+    cond = ins["Cond"][0].reshape(())
+    if _traced([cond]):
+        # under torch.export / make_fx: both branches traced, one taken
+        # at run time (≙ the JAX package's lax.cond)
+        # the operator itself, not `torch.cond` (see `while`); the traced
+        # branches may not return views of their inputs
+        from torch._higher_order_ops.cond import cond_op
+        return {"Out": list(cond_op(
+            cond.to(torch.bool),
+            lambda *v: tuple(o.clone() for o in true_fn(*v)),
+            lambda *v: tuple(o.clone() for o in false_fn(*v)), caps))}
+    return {"Out": list(true_fn(*caps) if bool(cond) else false_fn(*caps))}
 
 
 @register_op("switch_case")

@@ -7,8 +7,11 @@ kernels `_flash_kernel` (K1, forward), `_flash_bwd_dq_kernel` (K2, dQ) and
 csrc/flash_attention.cu. Three pieces, as for every kernel of the port:
 
 - `flash_fwd_cuda`, `flash_bwd_dq_cuda`, `flash_bwd_dkv_cuda` — wrappers of
-  the hand-written kernels. Each checks device, type, shape and layout,
-  launches on the current stream, and adds one to its count in
+  the hand-written kernels, called through the registered ops
+  `ptpu::flash_fwd`, `ptpu::flash_bwd_dq` and `ptpu::flash_bwd_dkv`
+  (kernel_ops.py), so a trace records each as one node. The ops' CUDA
+  implementations check device, type, shape and layout,
+  launch on the current stream, and add one to the count in
   `kernels.LAUNCHES` ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"; the
   bfloat16 launches, which run on the tensor cores, also to
   "flash_fwd_tc", "flash_bwd_dq_tc" and "flash_bwd_dkv_tc").
@@ -60,7 +63,7 @@ import ctypes
 
 import torch
 
-from .. import kernels
+from .. import kernel_ops, kernels
 from ..framework.registry import register_op
 
 _NEG_INF = -1e30
@@ -522,17 +525,10 @@ def _launch(name, fn, bf16, d, *args):
         kernels.count_launch(name + "_tc")
 
 
-def flash_fwd_cuda(q, k, v, scale, causal, q_ids=None, kv_ids=None,
-                   with_lse=True):
-    """Launch K1. q [B,H,Tq,D], k/v [B,H,Tk,D]: contiguous CUDA tensors of
-    one dtype, any D (padded to `kernel_head_dim`). Returns (o, lse or
-    None)."""
+def _flash_fwd_launch(q, k, v, q_ids, kv_ids, scale, causal, with_lse):
+    """`ptpu::flash_fwd` on CUDA tensors: K1 at a head dim the kernels
+    take. Returns (o, lse, or an empty [0] tensor without `with_lse`)."""
     b, h, tq, d = q.shape
-    kd = kernel_head_dim(d)
-    if kd != d and q.is_cuda:
-        o, lse = flash_fwd_cuda(*pad_head_dim(kd, q, k, v), scale, causal,
-                                q_ids, kv_ids, with_lse)
-        return o[..., :d].contiguous(), lse
     tk = k.shape[2]
     _check("flash_fwd_cuda", [(k, q.dtype, (b, h, tk, d)),
                               (v, q.dtype, (b, h, tk, d)),
@@ -540,14 +536,32 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_ids=None, kv_ids=None,
            kv_ids)
     with torch.cuda.device(q.device):
         o = torch.empty_like(q)
-        lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-               if with_lse else None)
+        lse = torch.empty((b, h, tq) if with_lse else (0,),
+                          dtype=torch.float32, device=q.device)
         _launch("flash_fwd", "ptt_flash_fwd", q.dtype == torch.bfloat16, d,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_ids),
-                _ptr(kv_ids), o.data_ptr(), _ptr(lse), b * h, h, tq, tk,
-                float(scale), int(bool(causal)),
+                _ptr(kv_ids), o.data_ptr(), lse.data_ptr() if with_lse
+                else None, b * h, h, tq, tk, float(scale),
+                int(bool(causal)),
                 torch.cuda.current_stream(q.device).cuda_stream)
     return o, lse
+
+
+def flash_fwd_cuda(q, k, v, scale, causal, q_ids=None, kv_ids=None,
+                   with_lse=True):
+    """Launch K1 (`ptpu::flash_fwd`). q [B,H,Tq,D], k/v [B,H,Tk,D]:
+    contiguous CUDA tensors of one dtype, any D (padded to
+    `kernel_head_dim`). Returns (o, lse or None)."""
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    if kd != d and q.is_cuda:
+        o, lse = flash_fwd_cuda(*pad_head_dim(kd, q, k, v), scale, causal,
+                                q_ids, kv_ids, with_lse)
+        return o[..., :d].contiguous(), lse
+    kernel_ops.require_cuda("flash_fwd_cuda", q, k, v)
+    o, lse = torch.ops.ptpu.flash_fwd(q, k, v, q_ids, kv_ids, float(scale),
+                                      bool(causal), bool(with_lse))
+    return o, (lse if with_lse else None)
 
 
 def _bwd_check(name, q, k, v, do, lse, delta, q_ids, kv_ids):
@@ -560,15 +574,9 @@ def _bwd_check(name, q, k, v, do, lse, delta, q_ids, kv_ids):
     return b, h, tq, tk, d
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
-                      kv_ids=None):
-    """Launch K2: dq in q's dtype."""
-    d = q.shape[-1]
-    kd = kernel_head_dim(d)
-    if kd != d and q.is_cuda:
-        dq = flash_bwd_dq_cuda(*pad_head_dim(kd, q, k, v, do), lse, delta,
-                               scale, causal, q_ids, kv_ids)
-        return dq[..., :d].contiguous()
+def _flash_bwd_dq_launch(q, k, v, do, lse, delta, q_ids, kv_ids, scale,
+                         causal):
+    """`ptpu::flash_bwd_dq` on CUDA tensors: K2."""
     b, h, tq, tk, d = _bwd_check("flash_bwd_dq_cuda", q, k, v, do, lse,
                                  delta, q_ids, kv_ids)
     with torch.cuda.device(q.device):
@@ -582,15 +590,9 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
     return dq
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
-                       kv_ids=None):
-    """Launch K3: (dk, dv) in k's and v's dtype."""
-    d = q.shape[-1]
-    kd = kernel_head_dim(d)
-    if kd != d and q.is_cuda:
-        dk, dv = flash_bwd_dkv_cuda(*pad_head_dim(kd, q, k, v, do), lse,
-                                    delta, scale, causal, q_ids, kv_ids)
-        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
+def _flash_bwd_dkv_launch(q, k, v, do, lse, delta, q_ids, kv_ids, scale,
+                          causal):
+    """`ptpu::flash_bwd_dkv` on CUDA tensors: K3."""
     b, h, tq, tk, d = _bwd_check("flash_bwd_dkv_cuda", q, k, v, do, lse,
                                  delta, q_ids, kv_ids)
     with torch.cuda.device(q.device):
@@ -604,6 +606,40 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
                 int(bool(causal)),
                 torch.cuda.current_stream(q.device).cuda_stream)
     return dk, dv
+
+
+kernel_ops.impl("flash_fwd", _flash_fwd_launch)
+kernel_ops.impl("flash_bwd_dq", _flash_bwd_dq_launch)
+kernel_ops.impl("flash_bwd_dkv", _flash_bwd_dkv_launch)
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
+                      kv_ids=None):
+    """Launch K2 (`ptpu::flash_bwd_dq`): dq in q's dtype."""
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    if kd != d and q.is_cuda:
+        dq = flash_bwd_dq_cuda(*pad_head_dim(kd, q, k, v, do), lse, delta,
+                               scale, causal, q_ids, kv_ids)
+        return dq[..., :d].contiguous()
+    kernel_ops.require_cuda("flash_bwd_dq_cuda", q, k, v, do)
+    return torch.ops.ptpu.flash_bwd_dq(q, k, v, do, lse, delta, q_ids,
+                                       kv_ids, float(scale), bool(causal))
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_ids=None,
+                       kv_ids=None):
+    """Launch K3 (`ptpu::flash_bwd_dkv`): (dk, dv) in k's and v's
+    dtype."""
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    if kd != d and q.is_cuda:
+        dk, dv = flash_bwd_dkv_cuda(*pad_head_dim(kd, q, k, v, do), lse,
+                                    delta, scale, causal, q_ids, kv_ids)
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
+    kernel_ops.require_cuda("flash_bwd_dkv_cuda", q, k, v, do)
+    return torch.ops.ptpu.flash_bwd_dkv(q, k, v, do, lse, delta, q_ids,
+                                        kv_ids, float(scale), bool(causal))
 
 
 def flash_bwd_cuda(q, k, v, o, lse, do, scale, causal, q_ids=None,

@@ -37,13 +37,18 @@ _WIDE = {"int64": "int32", "float64": "float32"}
 @pytest.fixture(autouse=True)
 def fresh_port_state():
     """Fresh programs, scope, names, profiler and flight recorder for the
-    port; float32 matmuls in both packages."""
+    port; float32 matmuls in both packages. Both packages memoize inferred
+    types by op, attrs and input types, not by the flag, so the memos are
+    cleared too: a test of another file in this process may have filled
+    them with bfloat16 matmuls."""
     from paddle_tpu_torch import profiler as tprof
     from paddle_tpu_torch.observability import flight_recorder as tfr
     saved = (jflags.get_flag("use_bf16_matmul"),
              tflags.get_flag("use_bf16_matmul"))
     jflags.set_flag("use_bf16_matmul", False)
     tflags.set_flag("use_bf16_matmul", False)
+    ja._MEMO.clear()
+    ta._MEMO.clear()
     ptt.reset_default_programs()
     ptt.reset_global_scope()
     tprof.reset()

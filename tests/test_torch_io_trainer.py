@@ -20,7 +20,7 @@ from paddle_tpu.data import decorator as jdecorator
 from paddle_tpu.data.feeder import DataFeeder as JaxFeeder
 
 import paddle_tpu_torch as ptt
-from paddle_tpu_torch.core.enforce import UnavailableError
+from paddle_tpu_torch.core.enforce import NotFoundError, UnavailableError
 from paddle_tpu_torch.framework.executor import as_numpy
 
 CPU = ptt.CPUPlace()
@@ -361,21 +361,26 @@ def test_feeder_and_decorators_match_jax():
 
 
 def test_unported_paths_raise_naming_the_roadmap(tmp_path):
-    for fn in (ptt.io.export_inference_model, ptt.io.load_exported_model,
-               ptt.io.export_train_program):
-        with pytest.raises(NotImplementedError, match=r"§1 item 4"):
-            fn(str(tmp_path))
-    with pytest.raises(NotImplementedError, match=r"§1 item 4"):
-        ptt.Predictor.from_exported(str(tmp_path))
-    # sharded and elastic checkpoints are ported (parallel/elastic.py)
+    """Every path of io and the trainer is ported: export (ROADMAP.md §1
+    item 4 (c), tests/test_torch_export.py) and sharded and elastic
+    checkpoints (parallel/elastic.py). A directory without an archive
+    raises NotFoundError."""
+    for fn in (ptt.io.load_exported_model, ptt.Predictor.from_exported):
+        with pytest.raises(NotFoundError, match="no exported artifact"):
+            fn(str(tmp_path), place=CPU)
     assert ptt.CheckpointConfig(str(tmp_path), sharded=True).sharded
     assert ptt.CheckpointConfig(str(tmp_path), elastic=True,
                                 async_save=True).async_save
     main, exe, scope, _, logits = _trained_port(steps=1)
-    with pytest.raises(NotImplementedError, match=r"§1 item 4"):
-        ptt.io.save_inference_model(str(tmp_path), ["x"], [logits],
-                                    main_program=main, scope=scope,
-                                    export=True)
+    ptt.io.save_inference_model(str(tmp_path), ["x"], [logits],
+                                executor=exe, main_program=main,
+                                scope=scope, export=True)
+    feed = _batch(np.random.RandomState(1))
+    want, = exe.run(main.clone(for_test=True), feed=feed,
+                    fetch_list=[logits], scope=scope)
+    got, = ptt.Predictor.from_exported(str(tmp_path), place=CPU).run(
+        {"x": feed["x"]})
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
     # the native .pts container is ported (data/tensor_store.py)
     ptt.io.save_persistables(exe, str(tmp_path), main_program=main,
                              scope=scope, filename="all.pts")

@@ -106,7 +106,6 @@ WAITING = {
     **{f"paddle_tpu.data.{n}": _HOST
        for n in ("RecordIOScanner", "RecordIOWriter", "ParallelRecordLoader",
                  "read_numpy_records", "write_numpy_records")},
-    "paddle_tpu.inferencer.ExportedPredictor": _ITEM4 + "export",
 }
 # modules and names ported with the generators and the single-card API:
 # none of them may wait
@@ -197,6 +196,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 if top in ("jax", "jaxlib", "paddle_tpu"):
                     bad.append(f"{os.path.relpath(path, ROOT)}:"
                                f"{node.lineno} {m}")
+    # the native programs' C++ includes nothing of the JAX package (nor
+    # of TensorFlow, which its native programs run on)
+    native = os.path.join(ROOT, "paddle_tpu_torch", "csrc", "native")
+    sources = sorted(f for f in os.listdir(native)
+                     if f.endswith((".cc", ".h")))
+    assert sources
+    for f in sources:
+        for lineno, line in enumerate(open(os.path.join(native, f)), 1):
+            if line.lstrip().startswith("#include") and (
+                    "paddle_tpu/" in line or "tensorflow" in line):
+                bad.append(f"csrc/native/{f}:{lineno} {line.strip()}")
     assert bad == []
 
 
