@@ -392,6 +392,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    5` against 5 Executor.run steps from the same state: losses within
    1e-5 relative, parameters within 1e-5, K1-K3 6 launches a step each
    in the C++ process.
+47. the transpilers, RecordIO and the concurrency utilities on the card.
+   (a) phase 19's trained ResNet-50 (its parameters and moved running
+   statistics saved after phase 19), its is_test program at phase 20's
+   batch 16 through `Analyzer()` (the default list, `bn_fold_pass`) on a
+   clone with a copy of the scope: the 53 batch_norms gone, the folded
+   values CUDA tensors of the dtypes they replace; the folded logits
+   against the unfolded within 1e-4 of their largest magnitude on a
+   float32 build (TF32 off) and within BN_FOLD_BF16_BOUND relative L2 as
+   phase 20 serves it (NHWC, bfloat16 convs); both timed. (b) phase 7's
+   LM built with `QuantizeTranspiler().training_transpile` before Adam,
+   10 steps from phase 7's init on its batches: the loss falls, K1-K3 6
+   launches a step; `quant_freeze_pass` through `Analyzer(passes=...)`
+   on the is_test program: every quantized weight on its own abs-max
+   grid, the frozen eval loss within 1e-5 relative of the unfrozen one.
+   (c) the LM's program through `DistributeTranspiler` over two
+   endpoints with RoundRobin and with HashName (every parameter covered
+   once), two Adam steps by the trainer's `Executor.run` and by each
+   endpoint's pserver program on the card fed the trainer's flattened
+   gradient shards: the reassembled parameters, moments and beta powers
+   equal the trainer's (bitwise, or within 1e-7). (d) phase 7's four
+   batches written by `write_numpy_records` (and as raw records for
+   `layers.io.open_files`) into two files each, one compressed; read back
+   bitwise through `open_files` and through a 4-thread
+   `ParallelRecordLoader` (its records/s and MB/s over the files); a
+   `concurrency.go` producer sends the loader's batches over a
+   `Channel(capacity=2)` to 8 training steps from phase 7's init: the
+   losses equal, bit for bit, those of the same batches fed as arrays,
+   K1-K3 6 launches on every step. Phase 47 takes at most 120 s.
 
 Phase 3 also holds the bfloat16 cells of K5 / K6 (x, w and states in
 bfloat16, h and c carried in bfloat16 as the reference's composite
@@ -452,8 +480,10 @@ runs; K5 / K6's `*_bf16` and the
 GRU's `*_crnn_bf16` keys, their bfloat16 rows, with `err_over_slack_bf16`
 and `launches_bf16_checks`, phase 3's bfloat16 launches: no path of the
 model zoo runs a bfloat16 recurrent cell), `launches_native`, each
-kernel's launches inside phase 46's native processes, times, and
-`paths`: phases 15-46's numbers; the last line is
+kernel's launches inside phase 46's native processes,
+`launches_phase47_qat` / `_recordio` / `_pserver`, K1-K3's over phase
+47's QAT steps, RecordIO-fed steps and the pserver check's trainer
+steps, times, and `paths`: phases 15-47's numbers; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -3943,9 +3973,10 @@ def _staged_batches(batch, n, seed, image=224):
     return out
 
 
-def _resnet_program(ptt, cfg, is_test=False):
+def _resnet_program(ptt, cfg, is_test=False, use_bf16=True):
     """ResNet-50 as bench.py:57-76 builds it: (main, start, loss, logits).
-    The names are the same in every build (a fresh name generator)."""
+    The names are the same in every build (a fresh name generator);
+    `use_bf16=False` runs its convs in float32 (phase 47)."""
     from paddle_tpu_torch.models import resnet
     main, start = ptt.Program(), ptt.Program()
     with ptt.program_guard(main, start), ptt.unique_name.guard():
@@ -3953,7 +3984,7 @@ def _resnet_program(ptt, cfg, is_test=False):
                               staging_dtype="uint8")
         loss, _, logits = resnet.resnet_imagenet(
             img=img, depth=cfg["depth"], class_num=cfg["classes"],
-            is_test=is_test, data_format="NHWC", use_bf16=True)
+            is_test=is_test, data_format="NHWC", use_bf16=use_bf16)
         if not is_test:
             ptt.optimizer.Momentum(learning_rate=cfg["lr"],
                                    momentum=cfg["momentum"]).minimize(loss)
@@ -9620,6 +9651,422 @@ def export_native(ptt, kernels, lm_params, tr_params, nmt_params):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 47: the transpilers, RecordIO and the concurrency utilities
+# ---------------------------------------------------------------------------
+
+#: phase 47(a): the bound on the bfloat16 build's folded logits, relative
+#: L2 against the unfolded ones. Each of ResNet-50's 53 convs rounds three
+#: operands to bfloat16 (filter, input, output; unit roundoff u = 2^-8).
+#: The folded path rounds the scaled filter where the unfolded path rounds
+#: the unscaled one, and once the values differ the two paths' roundings of
+#: the activations are independent too: each rounding's difference has
+#: variance 2u²/3, a conv's 2u², n convs' 2nu² (added in quadrature down
+#: the net). Three of that deviation: 3·sqrt(2·53)·2^-8 = 0.1207
+BN_FOLD_BF16_BOUND = 3 * math.sqrt(2 * 53) * 2.0 ** -8
+#: phase 47(b) and (d): QAT steps, RecordIO-fed steps
+QAT_STEPS, RECORDIO_STEPS = 10, 8
+#: phase 47(d): the loader's files hold phase 7's batches this many times
+#: over (a rate over ~34 MB, not over four records)
+RECORDIO_REPS = 64
+PHASE47_BUDGET_S = 120.0
+
+
+def _scope_copy(ptt, scope):
+    """A new scope holding clones of `scope`'s values."""
+    copy = ptt.Scope()
+    for n in scope.local_var_names():
+        v = scope.get(n)
+        copy.set_var(n, v.clone() if hasattr(v, "clone") else v)
+    return copy
+
+
+def _p47_bn_fold(ptt, resnet_params):
+    """Phase 47(a): ResNet-50's is_test program with phase 19's weights,
+    folded by Analyzer() on a clone with a copy of the scope, in the
+    bfloat16 build phase 20 serves and in a float32 build."""
+    import numpy as np
+    import torch
+    cfg = RESNET
+    img = _staged_batches(cfg["infer_batch"], 1, SEED + 47,
+                          cfg["image"])[0]["img"]
+    out = {}
+    for label, bf16 in (("float32", False), ("bf16", True)):
+        imain, _, _, logits = _resnet_program(ptt, cfg, is_test=True,
+                                              use_bf16=bf16)
+        prog = imain.prune([logits])
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        scope = ptt.Scope()
+        ptt.io.load_params(exe, resnet_params, main_program=prog,
+                           scope=scope)
+        folded = _scope_copy(ptt, scope)
+        kinds = {n: (folded.get(n).device, folded.get(n).dtype)
+                 for n in folded.local_var_names()}
+        fprog = ptt.Analyzer().run(prog.clone(), folded)
+        n_bn = [sum(op.type == "batch_norm" for op in p.global_block().ops)
+                for p in (prog, fprog)]
+        assert n_bn == [53, 0], f"47(a) {label}: batch_norms {n_bn}"
+        for n in folded.local_var_names():
+            t = folded.get(n)
+            assert t.device == exe.device, f"47(a): {n} on {t.device}"
+            if n in kinds:
+                assert (t.device, t.dtype) == kinds[n], (n, t.dtype)
+        feed = {"img": img}
+
+        def run(p, sc):
+            return exe.run(p, feed=feed, fetch_list=[logits], scope=sc,
+                           return_numpy=False)[0].float()
+
+        u, f = run(prog, scope), run(fprog, folded)
+        assert bool(torch.isfinite(f).all()), f"47(a) {label}: non-finite"
+        rel_l2 = float((f - u).norm() / u.norm())
+        rel_max = float((f - u).abs().max() / u.abs().max())
+        top1 = float((f.argmax(-1) == u.argmax(-1)).float().mean())
+        ms_u = _cuda_ms(lambda: run(prog, scope), reps=10)
+        ms_f = _cuda_ms(lambda: run(fprog, folded), reps=10)
+        log(f"  [{label}] 53 batch_norms folded away by Analyzer(): "
+            f"folded logits against unfolded rel L2 {rel_l2:.3e}, max "
+            f"|diff| / max |logit| {rel_max:.3e}, top-1 agreement "
+            f"{top1:.3f}; {ms_u:.2f} ms a batch of {cfg['infer_batch']} "
+            f"unfolded, {ms_f:.2f} folded (median of 10)")
+        if bf16:
+            assert rel_l2 <= BN_FOLD_BF16_BOUND, \
+                f"47(a) bf16: rel L2 {rel_l2} > {BN_FOLD_BF16_BOUND}"
+        else:
+            assert rel_max <= 1e-4, f"47(a) float32: {rel_max} > 1e-4"
+        out[label] = {"rel_l2": rel_l2, "rel_max": rel_max, "top1": top1,
+                      "unfolded_ms": ms_u, "folded_ms": ms_f}
+        del scope, folded
+        torch.cuda.empty_cache()
+    out["bf16_bound"] = BN_FOLD_BF16_BOUND
+    return out
+
+
+def _qat_program(ptt, cfg):
+    """Phase 7's LM with QuantizeTranspiler's fake-quant ops inserted
+    before Adam.minimize, as a user builds it."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.transpiler import QuantizeTranspiler
+    main, start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, start), ptt.unique_name.guard():
+        loss, _ = transformer.transformer_lm(
+            vocab=cfg["vocab"], max_len=cfg["max_len"],
+            d_model=cfg["d_model"], d_inner=cfg["d_inner"],
+            num_heads=cfg["num_heads"], num_layers=cfg["num_layers"])
+        QuantizeTranspiler().training_transpile(main, start)
+        ptt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    return main, start, loss
+
+
+def _p47_qat(ptt, kernels, feeds):
+    """Phase 47(b): QAT of phase 7's LM for QAT_STEPS steps, then the
+    weight freeze on its is_test program."""
+    import numpy as np
+    import torch
+    cfg = TRAIN
+    main, start, loss = _qat_program(ptt, cfg)
+    ops = [op.type for op in main.global_block().ops]
+    n_fq = ops.count("fake_quantize_abs_max")
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(start, scope=scope)
+    losses, secs, launches = _run_steps(exe, main, scope, loss, feeds,
+                                        QAT_STEPS, kernels)
+    log(f"  QAT: {n_fq} fake_quantize_abs_max ops in the program")
+    _report_steps("QAT LM, Adam", losses, secs, cfg["batch"] *
+                  cfg["max_len"], launches, cfg["num_layers"], QAT_STEPS)
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    assert last < first, f"47(b): the QAT loss did not fall: {losses}"
+
+    test = main.clone(for_test=True).prune([loss])
+    frozen = _scope_copy(ptt, scope)
+    quantized = [op for op in test.global_block().ops
+                 if op.type == "fake_quantize_abs_max"
+                 and scope.has_var(op.inputs["X"][0])]
+    before = {op.inputs["X"][0]: scope.get(op.inputs["X"][0]).cpu().double()
+              .numpy() for op in quantized}
+    ftest = ptt.Analyzer(passes=["quant_freeze_pass"]).run(test.clone(),
+                                                          frozen)
+    worst = 0.0
+    for op in quantized:
+        w = before[op.inputs["X"][0]]
+        s = np.abs(w).max()
+        inv = 127 / s
+        want = (np.round(w * inv) / inv).astype(np.float32)
+        got = frozen.get(op.inputs["X"][0])
+        assert got.device == exe.device and got.dtype == torch.float32
+        got = got.cpu().numpy()
+        assert got.tobytes() == want.tobytes(), op.inputs["X"][0]
+        alt = np.round(w * 127 / s) * s / 127
+        worst = max(worst, float(np.abs(got - alt).max() / s))
+        assert float(frozen.get(op.outputs["OutScale"][0])) == \
+            np.float32(s), op.inputs["X"][0]
+    ev = [float(exe.run(p, feed=feeds[0], fetch_list=[loss], scope=sc)[0])
+          for p, sc in ((test, scope), (ftest, frozen))]
+    rel = abs(ev[1] - ev[0]) / abs(ev[0])
+    log(f"  quant_freeze_pass: {len(quantized)} weights on their own "
+        f"grids (round(w·127/s)·s/127 within {worst:.1e} of s); eval loss "
+        f"unfrozen {ev[0]:.6f}, frozen {ev[1]:.6f} (rel {rel:.2e}, bound "
+        f"1e-5)")
+    assert len(quantized) == cfg["num_layers"] * 6 + 1, len(quantized)
+    assert rel <= 1e-5, f"47(b): frozen eval loss {ev} (rel {rel})"
+    return {"fake_quant_ops": n_fq, "losses": losses,
+            "step_ms_median": float(np.median(secs[1:]) * 1e3),
+            "launches": {k: launches[k] for k in FLASH + FLASH_TC},
+            "frozen_weights": len(quantized), "eval_losses": ev,
+            "frozen_rel": rel}
+
+
+def _p47_pserver(ptt, kernels, init, feeds):
+    """Phase 47(c): the parameter-shard planner on the LM's program. The
+    trainer takes two Adam steps through Executor.run (its gradients
+    fetched); each endpoint's pserver program takes the same two steps on
+    the card, fed the flattened gradient shards."""
+    import torch
+    from paddle_tpu_torch import transpiler as tr
+    cfg = TRAIN
+    main, _, loss = _train_program(ptt, cfg)
+    eps = "ps0:6174,ps1:6174"
+    planners = {}
+    for label, split in (("round_robin", tr.RoundRobin),
+                         ("hash_name", tr.HashName)):
+        t = tr.DistributeTranspiler(tr.DistributeTranspilerConfig(
+            split_method=split))
+        t.transpile(trainer_id=0, program=main, pservers=eps, trainers=1)
+        plan = t.get_shard_plan()
+        for p in main.all_parameters():
+            blocks = sorted(vb.begin for vb, _ in plan.by_var[p.name])
+            sizes = {vb.begin: vb.size for vb, _ in plan.by_var[p.name]}
+            assert blocks[0] == 0 and all(
+                b + sizes[b] == n for b, n in zip(blocks, blocks[1:])), \
+                p.name
+            assert blocks[-1] + sizes[blocks[-1]] == \
+                int(torch.tensor(p.shape).prod()), p.name
+        planners[label] = t
+    params = [p.name for p in main.all_parameters()]
+    scope = _scope_copy(ptt, init)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    grads = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for i in range(2):
+        out = exe.run(main, feed=feeds[i], fetch_list=[loss] + [
+            n + "@GRAD" for n in params], scope=scope, return_numpy=False)
+        grads.append({n: g.detach().clone().reshape(-1)
+                      for n, g in zip(params, out[1:])})
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in FLASH + FLASH_TC}
+    for k in FLASH:
+        assert launches[k] == 2 * cfg["num_layers"], (k, launches)
+    trainer_adam = {op.inputs["Param"][0]: op
+                    for op in main.global_block().ops if op.type == "adam"}
+    res = {"launches": launches}
+    for label, t in planners.items():
+        worst, bitwise, n_shards = 0.0, True, 0
+        for ep in eps.split(","):
+            ps = t.get_pserver_program(ep)
+            pscope = ptt.Scope()
+            pexe = ptt.Executor(ptt.CUDAPlace(0))
+            pexe.run(t.get_startup_program(ep, ps), scope=pscope)
+            # (the endpoint's adam op, its parameter, its flat slice)
+            shards = []
+            for op in ps.global_block().ops:
+                if op.type != "adam":
+                    continue
+                src, blk = op.inputs["Param"][0].rsplit(".block", 1)
+                vb = next(vb for vb, e in t.get_shard_plan().by_var[src]
+                          if e == ep and vb.block_id == int(blk))
+                shards.append((op, src, slice(vb.begin, vb.begin + vb.size)))
+            for op, src, cut in shards:
+                pscope.set_var(op.inputs["Param"][0],
+                               init.get(src).reshape(-1)[cut].clone())
+                lr = op.inputs["LearningRate"][0]
+                pscope.set_var(lr, scope.get(lr).clone())
+            for i in range(2):
+                pexe.run(ps, feed={op.inputs["Grad"][0]: grads[i][src][cut]
+                                   for op, src, cut in shards},
+                         fetch_list=[], scope=pscope)
+            for op, src, cut in shards:
+                # each shard var against the trainer's slice of its var
+                # (the beta powers keep their own shape)
+                pairs = [(pscope.get(op.inputs["Param"][0]),
+                          scope.get(src).reshape(-1)[cut])]
+                for slot in ("Moment1", "Moment2", "Beta1Pow", "Beta2Pow"):
+                    whole = scope.get(
+                        trainer_adam[src].inputs[slot][0]).reshape(-1)
+                    mine = pscope.get(op.inputs[slot][0]).reshape(-1)
+                    pairs.append((mine, whole if whole.numel() !=
+                                  init.get(src).numel() else whole[cut]))
+                for a, b in pairs:
+                    assert a.shape == b.shape, (src, a.shape, b.shape)
+                    d = float((a - b).abs().max())
+                    worst = max(worst, d / max(1.0, float(b.abs().max())))
+                    bitwise = bitwise and torch.equal(a, b)
+                n_shards += 1
+        log(f"  [{label}] pserver programs on the card: {n_shards} shards "
+            f"over 2 endpoints, 2 Adam steps: parameters, moments and beta "
+            f"powers {'bitwise equal to' if bitwise else 'within'} the "
+            f"trainer's (largest |diff| / max(1, |x|) {worst:.2e})")
+        assert worst <= 1e-7, f"47(c) {label}: {worst}"
+        res[label] = {"shards": n_shards, "bitwise": bitwise,
+                      "worst_rel": worst}
+    return res
+
+
+def _p47_recordio(ptt, kernels, init, feeds, root):
+    """Phase 47(d): phase 7's batches through RecordIO into 8 training
+    steps (a concurrency.go producer over a Channel), against the same
+    batches fed as arrays."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import concurrency
+    from paddle_tpu_torch.data import recordio
+    from paddle_tpu_torch.layers import io as lio
+    cfg = TRAIN
+    names = ["tokens", "tokens@SEQLEN", "targets"]
+    # (1) raw records for layers.io.open_files, one file compressed
+    raw = [os.path.join(root, f"raw{i}.rio") for i in range(2)]
+    for i, path in enumerate(raw):
+        with recordio.RecordIOWriter(path, compress=bool(i)) as w:
+            for f in feeds[2 * i:2 * i + 2]:
+                w.write(b"".join(f[n].tobytes() for n in names))
+    got = list(lio.open_files(
+        raw, shapes=[feeds[0][n].shape for n in names],
+        dtypes=[feeds[0][n].dtype.name for n in names], names=names)())
+    assert len(got) == len(feeds)
+    for g, f in zip(got, feeds):
+        for n in names:
+            assert g[n].dtype == f[n].dtype and g[n].tobytes() == \
+                f[n].tobytes(), n
+    # (2) numpy records (each with its batch index) for the loader
+    npf = [os.path.join(root, f"np{i}.rio") for i in range(2)]
+    t0 = time.perf_counter()
+    for i, path in enumerate(npf):
+        recordio.write_numpy_records(path, (
+            tuple(feeds[j][n] for n in names) + (np.array([j]),)
+            for _ in range(RECORDIO_REPS) for j in (2 * i, 2 * i + 1)),
+            compress=bool(i))
+    write_s = time.perf_counter() - t0
+    file_mb = sum(os.path.getsize(p) for p in npf) / 1e6
+    t0 = time.perf_counter()
+    with recordio.ParallelRecordLoader(npf, num_threads=4) as ld:
+        recs = list(ld)
+    read_s = time.perf_counter() - t0
+    n_rec, n_bytes = len(recs), sum(len(r) for r in recs)
+    assert n_rec == 4 * RECORDIO_REPS, n_rec
+    # every record of both files, decoded, is its batch bit for bit
+    seen = [0] * len(feeds)
+    for rec in recordio.read_numpy_records(recs):
+        j = int(rec[3][0])
+        seen[j] += 1
+        assert all(a.tobytes() == feeds[j][n].tobytes()
+                   for a, n in zip(rec, names)), j
+    assert seen == [RECORDIO_REPS] * len(feeds), seen
+    del recs
+    log(f"  RecordIO: {n_rec} records ({n_bytes / 1e6:.1f} MB, "
+        f"{file_mb:.1f} MB in 2 files, one compressed) written in "
+        f"{write_s:.2f} s; ParallelRecordLoader (4 threads) read them in "
+        f"{read_s:.3f} s: {n_rec / read_s:.0f} records/s, "
+        f"{n_bytes / 1e6 / read_s:.1f} MB/s")
+
+    # (3) the training loop fed by a go producer over a channel
+    ch = concurrency.Channel(capacity=2)
+    loader = recordio.ParallelRecordLoader(npf, num_threads=4)
+
+    def produce():
+        sent = 0
+        try:
+            for rec in recordio.read_numpy_records(loader):
+                if sent == RECORDIO_STEPS:
+                    break
+                feed = dict(zip(names, rec[:3]))
+                assert all(feed[n].tobytes() == feeds[int(rec[3][0])][n]
+                           .tobytes() for n in names)
+                if not ch.send((int(rec[3][0]), feed), timeout=60):
+                    raise TimeoutError("47(d): the training loop stopped")
+                sent += 1
+        finally:
+            # the loop ends on close, also when this thread failed (its
+            # error surfaces at join)
+            ch.close()
+            loader.close()
+        return sent
+
+    main, _, loss = _train_program(ptt, cfg)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+
+    scope = _scope_copy(ptt, init)
+    producer = concurrency.go(produce)
+    order, fed_losses, per_step = [], [], []
+    while True:
+        item, ok = ch.recv(timeout=60)
+        if not ok:
+            break
+        idx, feed = item
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        per_step.append({k: kernels.LAUNCHES[k] for k in FLASH})
+        order.append(idx)
+        fed_losses.append(float(out))
+    assert producer.join(timeout=60) == RECORDIO_STEPS
+    launches = {k: sum(s[k] for s in per_step) for k in FLASH}
+    scope = _scope_copy(ptt, init)
+    arr_losses = [float(exe.run(main, feed=feeds[i], fetch_list=[loss],
+                                scope=scope)[0]) for i in order]
+    del scope
+    same = fed_losses == arr_losses
+    log(f"  {len(order)} steps fed by the loader through a "
+        f"Channel(capacity=2), batches {order}: losses "
+        f"{[round(x, 6) for x in fed_losses]}; fed as arrays "
+        f"{'bit for bit the same' if same else arr_losses}; K1-K3 a step "
+        f"{per_step[0]}")
+    assert len(order) == RECORDIO_STEPS and same, (fed_losses, arr_losses)
+    for s in per_step:
+        for k in FLASH:
+            assert s[k] == cfg["num_layers"], f"47(d): {k} {per_step}"
+    return {"records": n_rec, "record_mb": n_bytes / 1e6,
+            "file_mb": file_mb, "write_s": write_s, "read_s": read_s,
+            "records_per_s": n_rec / read_s,
+            "mb_per_s": n_bytes / 1e6 / read_s, "order": order,
+            "losses": fed_losses, "launches": launches}
+
+
+def transpile_and_recordio(ptt, kernels, resnet_params):
+    """Phase 47: (a) BN folding on ResNet-50, (b) QAT and the weight
+    freeze on phase 7's LM, (c) the parameter-shard planner's pserver
+    programs on the card, (d) RecordIO feeding the LM through a go
+    producer and a channel."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    log("  (a) batch-norm folding on phase 19's ResNet-50")
+    out["bn_fold"] = _p47_bn_fold(ptt, resnet_params)
+    torch.cuda.empty_cache()
+    feeds = _lm_steps_feeds(TRAIN, TRAIN_BATCHES, SEED)   # phase 7's
+    log("  (b) quantization-aware training of phase 7's LM")
+    out["qat"] = _p47_qat(ptt, kernels, feeds)
+    torch.cuda.empty_cache()
+    # the LM's startup state, which (c) and (d) start from
+    _, start, _ = _train_program(ptt, TRAIN)
+    init = ptt.Scope()
+    ptt.Executor(ptt.CUDAPlace(0)).run(start, scope=init)
+    log("  (c) the parameter-shard planner's pserver programs")
+    out["pserver"] = _p47_pserver(ptt, kernels, init, feeds)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_rio_")
+    try:
+        log("  (d) RecordIO feeding the LM")
+        out["recordio"] = _p47_recordio(ptt, kernels, init, feeds, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 47 in {out['phase_s']:.1f} s (budget "
+        f"{PHASE47_BUDGET_S:.0f} s)")
+    assert out["phase_s"] <= PHASE47_BUDGET_S, out["phase_s"]
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9667,15 +10114,21 @@ def main():
     # builds, and link once those are on disk
     from concurrent.futures import ThreadPoolExecutor
     from paddle_tpu_torch import native
-    with ThreadPoolExecutor(1) as pool:
+    from paddle_tpu_torch.data import recordio
+    with ThreadPoolExecutor(2) as pool:
         native_build = pool.submit(native.build)
+        # the RecordIO container's library (phase 47), g++ beside them
+        rio_build = pool.submit(lambda: (recordio.build(),
+                                         time.perf_counter() - t0))
         took = kernels.build()
         log(f"  built {sorted(took)} in {time.perf_counter() - t0:.2f} s "
             f"(per source: {took})")
         native_build.result()
+        rio_path, rio_s = rio_build.result()
     log(f"  built the native programs beside them (phase 46): "
         f"{time.perf_counter() - t0:.2f} s in all, g++ "
-        f"{native.BUILD_SECONDS}")
+        f"{native.BUILD_SECONDS}; the RecordIO library "
+        f"{os.path.basename(rio_path)} by {rio_s:.2f} s")
     for kname, text in kernels.BUILD_LOGS.items():
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
         spills = [int(w) for w in re.findall(r"(\d+) bytes spill", text)]
@@ -9780,6 +10233,12 @@ def main():
             "the DevicePrefetcher")
         paths["resnet50_train"], resnet_trained = train_resnet(ptt, kernels)
         exe_, main_, scope_, loss_, _, dev_feeds, _ = resnet_trained
+        # its trained parameters and moved running statistics, for phase
+        # 47's batch-norm folding
+        resnet_params = tempfile.mkdtemp(prefix="chip_smoke_resnet_")
+        atexit.register(shutil.rmtree, resnet_params, ignore_errors=True)
+        ptt.io.save_params(exe_, resnet_params, main_program=main_,
+                           scope=scope_)
         log("  where a ResNet-50 step's time goes:")
         paths["resnet50_profile"] = profile_train(
             (exe_, main_, scope_, loss_, dev_feeds))
@@ -9929,6 +10388,13 @@ def main():
            "ptpu_train)")
     paths["export_native"] = export_native(ptt, kernels, lm_params,
                                            tr_params, nmt_params)
+    torch.cuda.empty_cache()
+
+    _phase("phase 47: the transpilers (BN folding on ResNet-50, QAT and "
+           "the freeze, the pserver programs), RecordIO and the channels "
+           "feeding the LM")
+    paths["transpile_recordio"] = transpile_and_recordio(ptt, kernels,
+                                                         resnet_params)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -10058,6 +10524,15 @@ def main():
         results[k]["launches_native"] = sum(r.get(k, 0) for r in native_runs)
         assert results[k]["launches_native"] > 0, \
             f"{k} was never launched in a native process (phase 46)"
+    # phase 47: K1-K3 over the QAT run's steps, the RecordIO-fed steps and
+    # the pserver check's trainer steps
+    p47 = paths["transpile_recordio"]
+    for part, key in (("qat", "qat"), ("recordio", "recordio"),
+                      ("pserver", "pserver")):
+        for k in FLASH:
+            results[k][f"launches_phase47_{key}"] = p47[part]["launches"][k]
+            assert results[k][f"launches_phase47_{key}"] > 0, \
+                f"{k} was never launched on phase 47's {key} path"
     del launches["decode_attention_multi"], launches["decode_attention_int8"]
     line = {"kernels": [dict(name=k, **_KERNEL_META[k],
                              launches=launches[k], **results[k])

@@ -19,10 +19,8 @@ numpy has no bfloat16, torch has all eleven codes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import struct
-import subprocess
 import threading
 from typing import Dict, List, Optional
 
@@ -44,27 +42,15 @@ _lib_lock = threading.Lock()
 
 
 def _lib_path() -> str:
-    from ..kernels import build_dir
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_FLAGS).encode())
-    return os.path.join(build_dir(), f"tensor_store-{digest.hexdigest()[:12]}.so")
+    from ..kernels import host_library_path
+    return host_library_path(_SRC, "tensor_store", _FLAGS)
 
 
 def build() -> str:
     """Compile the container's library with g++ unless it is on disk.
     Returns its path; raises with the compiler's output on failure."""
-    path = _lib_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    out = subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
-                         capture_output=True, text=True)
-    if out.returncode != 0:
-        raise RuntimeError(f"tensor_store build failed (g++ exit "
-                           f"{out.returncode}):\n{out.stdout}{out.stderr}")
-    os.replace(tmp, path)   # atomic: a concurrent loader never sees half
-    return path
+    from ..kernels import build_host_library
+    return build_host_library(_SRC, "tensor_store", _FLAGS)
 
 
 def _load() -> ctypes.CDLL:

@@ -9,17 +9,16 @@ and `fuse_decode_attention_pass` to one clone of every program it plans
 to their tick programs (`quant=`). Every apply runs under the pass
 sanitizer (verify-before / verify-after, framework/analysis.py
 `sanitized_apply`, flag `verify_passes`) inside a `pass` span, as in the
-JAX package. `check_pass` and `graph_viz_pass` are here;
+JAX package. `check_pass` and `graph_viz_pass` (over debugger.py) are here;
 `memory_plan_pass` registers from framework/memory_plan.py on first use.
 `pipeline_partition_pass` cuts a training program into pipeline stages
-(parallel/pipeline.py runs them). The passes that wrap modules still to be
-ported (`bn_fold_pass`, `quant_freeze_pass`) come with them (ROADMAP.md §1
-item 4).
+(parallel/pipeline.py runs them). `bn_fold_pass` and `quant_freeze_pass`
+wrap the inference and quantize transpilers (transpiler/); the first is
+the Analyzer's default.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..core.enforce import (AlreadyExistsError, InvalidArgumentError,
@@ -76,9 +75,6 @@ def register_pass(name: str):
     return deco
 
 
-# passes of the JAX package that wrap a module still to be ported
-_WAITING_PASSES = ("bn_fold_pass", "quant_freeze_pass")
-
 # passes registered by a module this one does not import eagerly; get_pass
 # imports it on first use (≙ the JAX package's)
 _LAZY_PASS_MODULES = {"memory_plan_pass": "memory_plan",
@@ -89,10 +85,6 @@ def get_pass(name: str, **attrs) -> Pass:
     if name not in _REGISTRY and name in _LAZY_PASS_MODULES:
         import importlib
         importlib.import_module("." + _LAZY_PASS_MODULES[name], __package__)
-    if name in _WAITING_PASSES:
-        raise NotFoundError(
-            f"pass {name!r} wraps a module the port does not have yet "
-            f"(ROADMAP.md §1 item 4)")
     if name not in _REGISTRY:
         raise NotFoundError(
             f"no pass named {name!r}; known: {sorted(_REGISTRY)}")
@@ -103,6 +95,33 @@ def registered_passes() -> List[str]:
     return sorted(_REGISTRY)
 
 
+@register_pass("bn_fold_pass")
+class BNFoldPass(Pass):
+    """Constant-fold inference batch_norm into the preceding conv/mul
+    (≙ the conv-bn fuse of inference_transpiler.py:24)."""
+
+    allowed_attrs = ()
+
+    def apply(self, program, scope=None):
+        from ..transpiler import InferenceTranspiler
+        InferenceTranspiler().transpile(program, scope=scope or global_scope())
+        return program
+
+
+@register_pass("quant_freeze_pass")
+class QuantFreezePass(Pass):
+    """Bake QAT weight quantization into stored weights (≙ the reference
+    freeze flow over fake_quantize ops)."""
+
+    allowed_attrs = ("weight_bits", "activation_bits")
+
+    def apply(self, program, scope=None):
+        from ..transpiler import QuantizeTranspiler
+        QuantizeTranspiler(**self.attrs) \
+            .freeze_program(program, scope=scope or global_scope())
+        return program
+
+
 @register_pass("graph_viz_pass")
 class GraphVizPass(Pass):
     """Dump the program graph as graphviz dot (≙ ir/graph_viz_pass.cc).
@@ -111,61 +130,10 @@ class GraphVizPass(Pass):
     allowed_attrs = ("path", "block_idx")
 
     def apply(self, program, scope=None):
+        from ..debugger import draw_block_graphviz
         block = program.blocks[self.attrs.get("block_idx", 0)]
         draw_block_graphviz(block, self.attrs["path"])
         return program
-
-
-def _var_brief(block, name) -> str:
-    """≙ paddle_tpu/debugger.py `_var_brief` (dtypes by name)."""
-    if block.has_var(name):
-        from ..core.dtypes import dtype_name
-        v = block.var(name)
-        shape = list(v.shape) if v.shape is not None else "?"
-        tag = "P" if getattr(v, "is_parameter", False) or \
-            v.__class__.__name__ == "Parameter" else \
-            ("s" if v.persistable else "t")
-        return f"{name}[{tag}:{dtype_name(v.dtype)}:{shape}]"
-    return name
-
-
-def draw_block_graphviz(block, path: str, highlights=None) -> str:
-    """Write a graphviz .dot file of the block's op / var dataflow (≙ the
-    JAX package's `debugger.draw_block_graphviz`, which graph_viz_pass
-    calls)."""
-    highlights = highlights or set()
-    lines = ["digraph G {", '  rankdir="TB";',
-             '  node [fontsize=10];']
-    seen_vars = set()
-
-    def var_node(name):
-        nid = f"var_{name}".replace(".", "_").replace("@", "_")
-        if name not in seen_vars:
-            seen_vars.add(name)
-            color = ', style=filled, fillcolor="#ffcccc"' \
-                if name in highlights else ""
-            shape = "ellipse"
-            if block.has_var(name) and block.var(name).persistable:
-                shape = "box3d"
-            lines.append(
-                f'  {nid} [label="{_var_brief(block, name)}", '
-                f'shape={shape}{color}];')
-        return nid
-
-    for i, op in enumerate(block.ops):
-        onid = f"op_{i}"
-        lines.append(f'  {onid} [label="{op.type}", shape=box, '
-                     f'style=filled, fillcolor="#ccccff"];')
-        for n in op.input_names():
-            lines.append(f"  {var_node(n)} -> {onid};")
-        for n in op.output_names():
-            lines.append(f"  {onid} -> {var_node(n)};")
-    lines.append("}")
-    d = os.path.dirname(os.path.abspath(path))
-    os.makedirs(d, exist_ok=True)
-    with open(path, "w") as f:
-        f.write("\n".join(lines))
-    return path
 
 
 @register_pass("check_pass")
@@ -936,9 +904,9 @@ class Analyzer:
 
         program = Analyzer(passes=["memory_optimize_pass"]).run(program)
 
-    The default list is the JAX package's, `bn_fold_pass`, which wraps the
-    inference transpiler and waits for it (ROADMAP.md §1 item 4): give the
-    passes to run until then."""
+    The default list is the JAX package's, `bn_fold_pass`: batch norms
+    folded into the convs and fc layers before them, in the program and in
+    the scope."""
 
     DEFAULT_PASSES = ["bn_fold_pass"]
 

@@ -74,6 +74,34 @@ def build_dir() -> str:
         _CSRC, "build")
 
 
+def host_library_path(src: str, stem: str, flags, link=()) -> str:
+    """Where `build_host_library` puts `src`'s library: `build_dir()` /
+    `<stem>-<hash of the source, flags and link flags>.so`."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join([*flags, *link]).encode())
+    return os.path.join(build_dir(), f"{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def build_host_library(src: str, stem: str, flags, link=()) -> str:
+    """Compile the host C++ source `src` (csrc/tensor_store.cc,
+    csrc/recordio.cc) with g++ unless its library is on disk; returns the
+    library's path. It is written under a temporary name and renamed, so
+    two processes may build it at once; a failed build raises with the
+    compiler's output."""
+    path = host_library_path(src, stem, flags, link)
+    if os.path.exists(path):
+        return path
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    out = subprocess.run(["g++", *flags, "-o", tmp, src, *link],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"{stem} build failed (g++ exit "
+                           f"{out.returncode}):\n{out.stdout}{out.stderr}")
+    os.replace(tmp, path)   # atomic: a concurrent loader never sees half
+    return path
+
+
 def _nvcc() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
                  shutil.which("nvcc") or "",

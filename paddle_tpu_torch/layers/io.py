@@ -6,8 +6,8 @@ bounded queue filled by a producer thread), the reader-level `shuffle`,
 `batch`, `double_buffer` and `Preprocessor`. Double buffering runs over
 data.prefetch.DevicePrefetcher: each batch is copied through pinned host
 memory on a side CUDA stream ahead of the step that reads it.
-`open_recordio_file` and `open_files` wait for the recordio container
-(ROADMAP.md §1 item 4).
+`open_recordio_file` and `open_files` read the RecordIO container
+(data/recordio.py over csrc/recordio.cc).
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ import numpy as np
 import torch
 
 from ..core.dtypes import convert_dtype
-from ..core.enforce import UnavailableError
 from ..framework.program import BATCH_ROW_MASK_NAME, default_main_program
 
 
@@ -55,7 +54,7 @@ def batch_row_mask():
     """Declare the per-row batch validity mask: [batch] float32, 1.0 for a
     real row. The Executor feeds all-ones when the caller does not (a
     multi-device executor that pads a partial batch zeroes its padded
-    rows, ROADMAP.md §1 item 4). Weight per-example losses with it —
+    rows). Weight per-example losses with it —
     ``loss = reduce_sum(per_ex * mask) / reduce_sum(mask)`` — so padded
     rows contribute nothing to the gradient."""
     block = default_main_program().current_block()
@@ -184,18 +183,41 @@ def py_reader(capacity, shapes, dtypes, names, use_double_buffer=True,
 
 
 def open_recordio_file(filename, shapes, dtypes, names):
-    """≙ layers/io.py open_recordio_file:345. The recordio container and
-    its native scanner are not ported yet."""
-    raise UnavailableError(
-        "open_recordio_file reads the recordio container, which is not "
-        "ported yet (data/recordio.py: ROADMAP.md §1 item 4)")
+    """≙ layers/io.py open_recordio_file:345: a reader over the RecordIO
+    container (data/recordio.py). Each record holds its fields' raw bytes
+    back to back, in `names` order (as RecordIOWriter wrote them); each
+    deserializes per `shapes` / `dtypes` into a feed dict of numpy arrays.
+    A record whose bytes the shapes and dtypes do not consume exactly
+    raises ValueError."""
+    from ..data.recordio import RecordIOScanner
+
+    def reader():
+        with RecordIOScanner(filename) as sc:
+            for rec in sc:
+                out = {}
+                off = 0
+                for nm, shape, dtype in zip(names, shapes, dtypes):
+                    arr = np.frombuffer(rec, dtype=dtype, offset=off,
+                                        count=int(np.prod(shape)))
+                    out[nm] = arr.reshape(shape).copy()
+                    off += arr.nbytes
+                if off != len(rec):
+                    raise ValueError(
+                        f"record in {filename!r} has {len(rec)} bytes but "
+                        f"shapes/dtypes consume {off} — shape or dtype "
+                        f"misconfiguration (no silent data loss)")
+                yield out
+    return reader
 
 
 def open_files(filenames, shapes, dtypes, names, thread_num=1):
-    """≙ layers/io.py open_files:724, over open_recordio_file."""
-    raise UnavailableError(
-        "open_files reads the recordio container, which is not ported yet "
-        "(data/recordio.py: ROADMAP.md §1 item 4)")
+    """≙ layers/io.py open_files:724: a multi-file RecordIO reader; files
+    are read in order (thread_num is kept for API parity; the threaded
+    native reader is data.ParallelRecordLoader)."""
+    def reader():
+        for fn in filenames:
+            yield from open_recordio_file(fn, shapes, dtypes, names)()
+    return reader
 
 
 def shuffle(reader, buffer_size):

@@ -1,7 +1,7 @@
 """The registry parity gate: the port lowers every op the JAX package
 registers, and no other; `layers` has every public layer of the JAX
 package's; every entry of API.spec (the JAX package's frozen public API)
-resolves in the port or waits on a named ROADMAP item; no module of the
+resolves in the port but the two excluded on purpose; no module of the
 port (nor chip_smoke.py) imports jax or the JAX package. A later gap
 fails here, naming the missing names."""
 
@@ -91,24 +91,8 @@ RENAMED = {"TPUPlace": "CUDAPlace", "is_compiled_with_tpu":
 # deliberately not ported: the dataset downloader and its md5 cache (the
 # port needs no network; data/common.py keeps tokenize and build_word_dict)
 EXCLUDED = {"paddle_tpu.data.download", "paddle_tpu.data.md5file"}
-_ITEM4 = "ROADMAP.md §1 item 4: "
-_ANALYSIS = _ITEM4 + "analysis, planning and observability"
-_TRANSPILER = _ITEM4 + "transpiler/"
-_HOST = _ITEM4 + "host-side utilities"
-# API.spec prefixes (a path and everything under it) still to be ported,
-# each with the ROADMAP item that takes it
-WAITING = {
-    **{f"paddle_tpu.transpiler.{n}": _TRANSPILER
-       for n in ("DistributeTranspiler", "DistributeTranspilerConfig",
-                 "HashName", "InferenceTranspiler", "PSDispatcher",
-                 "QuantizeTranspiler", "RoundRobin", "slice_variable")},
-    "paddle_tpu.concurrency": _HOST,
-    **{f"paddle_tpu.data.{n}": _HOST
-       for n in ("RecordIOScanner", "RecordIOWriter", "ParallelRecordLoader",
-                 "read_numpy_records", "write_numpy_records")},
-}
-# modules and names ported with the generators and the single-card API:
-# none of them may wait
+# modules and names ported by the later slices (the generators, the
+# single-card API, the transpilers, the host-side utilities)
 PORTED_API = (
     "paddle_tpu.layers", "paddle_tpu.models", "paddle_tpu.initializer",
     "paddle_tpu.fusion", "paddle_tpu.observability.memory",
@@ -121,7 +105,11 @@ PORTED_API = (
     "paddle_tpu.inferencer.Executor.run_steps", "paddle_tpu.io.as_numpy",
     "paddle_tpu.Pass", "paddle_tpu.registered_passes", "paddle_tpu.Analyzer",
     "paddle_tpu.SelectedRows", "paddle_tpu.device_count",
-    "paddle_tpu.devices")
+    "paddle_tpu.devices", "paddle_tpu.transpiler", "paddle_tpu.concurrency",
+    "paddle_tpu.data.RecordIOScanner", "paddle_tpu.data.RecordIOWriter",
+    "paddle_tpu.data.ParallelRecordLoader",
+    "paddle_tpu.data.read_numpy_records",
+    "paddle_tpu.data.write_numpy_records")
 
 
 def _spec_paths():
@@ -153,22 +141,17 @@ def _resolves(path):
 
 
 def test_every_api_spec_entry_resolves_or_waits_on_a_named_item():
+    """Every entry resolves in the port but the two excluded on purpose:
+    no entry waits on a ROADMAP item any more."""
     paths = _spec_paths()
     assert len(paths) == 1375
     missing = [p for p in paths if not _resolves(p)]
-    unexplained = [p for p in missing if p not in EXCLUDED and not any(
-        _covers(w, p) for w in WAITING)]
-    assert unexplained == []
-    # no stale waiting entry: each still covers a missing path
-    assert sorted(w for w in WAITING
-                  if not any(_covers(w, p) for p in missing)) == []
-    assert all(p in missing for p in EXCLUDED)
-    assert all(v.startswith(_ITEM4) for v in WAITING.values())
-    assert sorted(w for w in WAITING for s in PORTED_API
-                  if _covers(s, w) or _covers(w, s)) == []
+    assert sorted(missing) == sorted(EXCLUDED)
+    # the modules and names the later slices ported resolve too
+    assert [p for p in paths if any(_covers(s, p) for s in PORTED_API)
+            and not _resolves(p)] == []
     print(f"API.spec: {len(paths) - len(missing)} of {len(paths)} entries "
-          f"resolve in the port, {len(missing) - len(EXCLUDED)} wait on "
-          f"ROADMAP.md §1 item 4, {len(EXCLUDED)} excluded")
+          f"resolve in the port, {len(EXCLUDED)} excluded")
 
 
 def _sources():
