@@ -54,9 +54,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights in float32 must generate identical tokens;
 6. where a tick's time goes: torch.profiler over steady-state ticks of
    the phase-4 engine — wall and device-busy time per tick, the device's
-   idle share, the top device kernels, and host time per op type (each
-   op lowering wrapped in a record_function named by its op type, for
-   this phase only). Diagnostics; it changes no result above;
+   idle share, the top device kernels (a profile that records the
+   device's activity alone, as every profile read only for its kernels
+   does), and host time per op type over 8 ticks (each op lowering
+   wrapped in a record_function named by its op type, for this phase
+   only). Diagnostics; it changes no result above;
 7. train: the repo's LM training configuration (tools/bench_breadth.py
    build_transformer: vocab 32000, max_len 512, d_model 512, d_inner
    2048, 8 heads, 6 layers, batch 16, Adam lr 1e-4) built with
@@ -74,8 +76,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU from the same weights, 3 Adam steps on the same batches: losses,
    gradients and updated parameters agree;
 10. where a training step's time goes: phase 6's profile over steady-state
-   steps of the phase-7 trainer, with the autograd region's forward and
-   backward shown apart;
+   steps of the phase-7 trainer (the host's time per op type over one
+   step), with the autograd region's forward and backward shown apart;
 11. train the stacked LSTM classifier at its own full width (dict 30000,
    emb 512, hid 512, 3 layers, max_len 100), batch 64 of lengths 16-100,
    Adam 5e-4, 20 steps: examples/s, step time, loss, peak memory; the
@@ -377,8 +379,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (c) phase 11's stacked LSTM (startup weights, its batch) and phase
    32's beam translation (phase 12's weights, max_len cut the same way):
    each exported by io.export_inference_model on the card (the five
-   exports, the train step's included, in child processes at once: an
-   export is host-bound Python), loaded cold by ExportedPredictor and run
+   exports, the train step's included, in child processes at once,
+   started after phase 20 and run beside phases 21-45 at a lower
+   priority: an export is host-bound Python), loaded cold by
+   ExportedPredictor and run
    by `ptpu_predict --device cuda`; tokens
    identical across the three and with Executor.run (the LSTM's logits
    within 1e-6), each kernel of the path launched the same number of
@@ -420,6 +424,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    `Channel(capacity=2)` to 8 training steps from phase 7's init: the
    losses equal, bit for bit, those of the same batches fed as arrays,
    K1-K3 6 launches on every step. Phase 47 takes at most 120 s.
+48. the port's command-line tools and examples as a user runs them, each
+   a `sys.executable` child (`-m paddle_tpu_torch.tools.<name>`; an
+   example through runpy, which then reports its process's launches),
+   the two drills of (b) at once and the other children in
+   P48_SLOTS slots beside them; (a)'s sweeps and gate runs and (f) start
+   after phase 20 (BACKGROUND_SLOTS at a time, beside phases 21-45) and
+   (b)'s drills as phase 46 starts (beside it; phase 47 waits for them),
+   all at a lower priority, and are checked here. (a)
+   `lint_program --all --json` plain and at --dp 2, --tp 2,
+   --pipeline_stages 2, --memory_plan, --offload and --serving (the
+   parallel ones with --allow_gate_rejects): exit 0, 23 rows, no error;
+   `--model mnist --tp 2 --json` exits 2, and 0 with
+   --allow_gate_rejects; after (b), `--restore_dir` exits 0 on its
+   committed snapshots and 1 (`restore-uncommitted`) on the directory its
+   phase C's killed save left. (b) `recovery_smoke --dp 1 --phases A`
+   and `--phases C`, two drills at once: a gang of one rank on NCCL
+   killed at step 5 and relaunched by the Supervisor resumes at step 4
+   bitwise; a save killed at byte 0 commits nothing and the restart is
+   bitwise. (c) phase 7's LM saved with
+   `io.save_program`, 3 iterations at batch 8 through `demo_trainer`
+   (float32, TF32 off) within 1e-5 of `Executor.run` on the same
+   `synth_feed`; its main() again in this process: K1-K3 6 launches a
+   step. (d) `generate_text` (the loss falls from step 0 to step 200;
+   K1-K3 and K4 launches), `serve_model` (the in-process, TCP and C++
+   legs' first three outputs within 1e-4), `train_mnist` (the reloaded
+   predictor answers). (e) a barrier round of a simulated world of 2
+   ranks with the flight recorder installed, through `trace_merge`: the
+   barrier spans on rank lanes 0 and 1, the memory counters on the
+   `memory` lane. (f) `print_signatures --check` exits 0. Every number
+   is logged beside nvidia-smi's name and power limit; phase 48 takes at
+   most PHASE48_BUDGET_S.
 
 Phase 3 also holds the bfloat16 cells of K5 / K6 (x, w and states in
 bfloat16, h and c carried in bfloat16 as the reference's composite
@@ -483,7 +518,9 @@ model zoo runs a bfloat16 recurrent cell), `launches_native`, each
 kernel's launches inside phase 46's native processes,
 `launches_phase47_qat` / `_recordio` / `_pserver`, K1-K3's over phase
 47's QAT steps, RecordIO-fed steps and the pserver check's trainer
-steps, times, and `paths`: phases 15-47's numbers; the last line is
+steps, `launches_phase48_demo_trainer` / `_generate_text`, K1-K3's over
+demo_trainer's steps and K1-K3's and K4's in generate_text's process
+(phase 48), times, and `paths`: phases 15-48's numbers; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -495,6 +532,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -690,8 +728,53 @@ RUN_STEPS_SMALL = dict(vocab=97, max_len=16, d_model=32, d_inner=64,
                        num_heads=4, num_layers=2, lr=1e-3, batch=4, steps=3)
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print a line of the run's log; with CHIP_SMOKE_STAMPS=1 in the
+    environment, each line starts with the seconds since the start."""
+    if os.environ.get("CHIP_SMOKE_STAMPS") == "1":
+        a = (f"[{time.perf_counter() - _T0:7.1f}]", *a)
     print(*a, flush=True)
+
+
+#: the niceness of the children that run beside earlier phases (phase
+#: 46's exports, phase 48's lint sweeps, signature check and drills): the
+#: phase in this process keeps its cores
+BACKGROUND_NICE = 10
+#: every child started through _track: main() stops, with its process
+#: group, each one still running when it exits
+_CHILDREN = []
+
+
+def _lower_priority(pid, nice):
+    """Raise the niceness of child `pid` (before it has imported anything,
+    so the processes it starts inherit it); if the OS declines, it stays
+    as is."""
+    try:
+        os.setpriority(os.PRIO_PROCESS, pid, nice)
+    except OSError:
+        pass
+
+
+def _track(proc):
+    """Register `proc` (started with start_new_session=True) for
+    _stop_children; returns it."""
+    _CHILDREN.append(proc)
+    return proc
+
+
+def _stop_children():
+    """Kill the process group of every tracked child still running (a
+    drill's gang of ranks included)."""
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except OSError:
+                proc.kill()
+            proc.wait()
 
 
 def card_rates(name):
@@ -2953,12 +3036,19 @@ def reference_check(ptt):
         f"({len(prompts)} requests, {gpu.n_ticks} ticks)")
 
 
-def _profile(step, n, annotate):
+def _profile(step, n, annotate, cpu=None):
     """torch.profiler over `n` calls of `step`; with `annotate`, each op
-    lowering runs inside a record_function named by its op type."""
+    lowering runs inside a record_function named by its op type. The
+    host's operators are recorded only with `cpu` (default: `annotate`):
+    a run read for its device kernels alone records those, which cuts
+    the profiler's processing on the host several times over (tens of
+    seconds for a generator's call). A profiler that returns no kernel
+    that way is run again with the host's operators."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from paddle_tpu_torch.framework import lowering
+
+    cpu = annotate if cpu is None else cpu
 
     run_op = lowering.run_op
 
@@ -2970,8 +3060,10 @@ def _profile(step, n, annotate):
         lowering.run_op = named_run_op
     try:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CUDA]
+        if cpu:
+            activities.insert(0, ProfilerActivity.CPU)
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 step()
@@ -2979,7 +3071,10 @@ def _profile(step, n, annotate):
             wall = time.perf_counter() - t0
     finally:
         lowering.run_op = run_op
-    return wall, prof.key_averages()
+    events = prof.key_averages()
+    if not cpu and not device_kernels(events):
+        return _profile(step, n, annotate, cpu=True)
+    return wall, events
 
 
 def dev_self(e):
@@ -3006,14 +3101,14 @@ def device_kernels(events):
             and e.key not in ("vjp_region/forward", "vjp_region/backward")]
 
 
-def profile_ticks(eng, warm=8, n=32):
+def profile_ticks(eng, warm=8, n=32, n_annotated=8):
     """Phase 6: torch.profiler over steady-state ticks of the serving
     engine (16 fresh requests keep every slot busy throughout): the same
     number of ticks without the profiler (wall only), one profile as it
     runs (wall, device busy and the idle share of that window, top
-    kernels), one with the op
-    lowerings annotated (host time per op type; the annotations add host
-    cost, so read those as shares)."""
+    kernels), one with the op lowerings annotated over `n_annotated`
+    ticks (host time per op type; the annotations add host cost, so read
+    those as shares)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -3046,12 +3141,13 @@ def profile_ticks(eng, warm=8, n=32):
     for e in sorted(kernels_, key=dev_self, reverse=True)[:8]:
         log(f"    device {dev_self(e) / n:8.1f} us/tick {e.count / n:6.1f}"
             f" calls/tick  {e.key[:80]}")
+    n = n_annotated
     wall, events = _profile(eng.step, n, annotate=True)
     op_types = {op.type for op in eng._step._plan.ops}
     host = [e for e in events
             if e.key in op_types and e.device_type == DeviceType.CPU]
     total = sum(e.cpu_time_total for e in host)
-    log(f"  host time in op lowerings, annotated run (wall "
+    log(f"  host time in op lowerings, annotated run of {n} ticks (wall "
         f"{wall / n * 1e3:.3f} ms/tick):")
     for e in sorted(host, key=lambda e: e.cpu_time_total, reverse=True):
         log(f"    host {e.cpu_time_total / n:8.1f} us/tick "
@@ -3259,10 +3355,10 @@ def train_reference_check(ptt):
         f"away from tiny gradients {worst:.2e})")
 
 
-def profile_train(trainer, warm=2, n=3):
+def profile_train(trainer, warm=2, n=3, n_annotated=1):
     """Phase 10: where a training step's time goes — torch.profiler over
     steady-state steps of the phase-7 trainer, as phase 6 does for
-    ticks."""
+    ticks (the annotated run over `n_annotated` steps)."""
     import torch
     from torch.autograd import DeviceType
     exe, main, scope, loss, feeds = trainer
@@ -3301,13 +3397,15 @@ def profile_train(trainer, warm=2, n=3):
                else None,
                "top_kernels": [[e.key[:60], dev_self(e) / n / 1e3]
                                for e in top[:6]]}
+    n = n_annotated
     wall, events = _profile(step, n, annotate=True)
     op_types = {op.type for op in main.global_block().ops}
     regions = {"vjp_region/forward", "vjp_region/backward"}
     host = [e for e in events if (e.key in op_types or e.key in regions)
             and e.device_type == DeviceType.CPU]
-    log(f"  host and device time per op type, annotated run (wall "
-        f"{wall / n * 1e3:.1f} ms/step; vjp_region/forward holds the "
+    log(f"  host and device time per op type, annotated run of {n} "
+        f"step(s) (wall {wall / n * 1e3:.1f} ms/step; vjp_region/forward "
+        f"holds the "
         f"forward ops below it, vjp_region/backward is autograd's "
         f"backward; an op's device time is its kernels' in the forward):")
     for e in sorted(host, key=lambda e: e.cpu_time_total, reverse=True):
@@ -9335,17 +9433,42 @@ def export_child(label, params_dir, out_dir):
         json.dump(info, f)
 
 
-def _export_all(params, root):
-    """Phase 46's five exports, each in a child process, all at once
-    (`export_child`). Returns {label: its export.json}."""
+def start_exports(ptt, lm_params, tr_params, nmt_params,
+                  nice=BACKGROUND_NICE):
+    """Phase 46's five exports, each in a child process (`export_child`),
+    all started now: main() starts them after phase 20 (phase 18 saved
+    the last weights they need), so they run beside phases 21-45 (an
+    export is host-bound Python on its own core). The stacked LSTM's
+    weights are its startup weights (phase 11's trained ones are gone
+    with phase 14). Returns what export_native collects."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    lstm_params = os.path.join(root, "lstm_params")
+    main, start, _, _ = _export_program(ptt, "stacked_lstm")
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(start, scope=scope)
+    ptt.io.save_params(exe, lstm_params, main_program=main, scope=scope)
+    params = {"lm_generate": lm_params, "nmt_generate": tr_params,
+              "stacked_lstm": lstm_params,
+              "nmt_beam_translate": nmt_params, "train": lm_params}
     procs = {}
+    t0 = time.perf_counter()
     for label, params_dir in params.items():
         d = os.path.join(root, label)
         os.makedirs(d)
-        procs[label] = subprocess.Popen(
+        procs[label] = _track(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--export-child",
              label, params_dir, d], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
+            stderr=subprocess.STDOUT, text=True, start_new_session=True))
+        if nice:
+            _lower_priority(procs[label].pid, nice)
+    return {"root": root, "params": params, "procs": procs, "t0": t0}
+
+
+def _collect_exports(started):
+    """Wait for start_exports' children. Returns ({label: its
+    export.json}, seconds from their start to the last one's end)."""
+    root, procs = started["root"], started["procs"]
     failed, infos = [], {}
     for label, proc in procs.items():
         try:
@@ -9358,8 +9481,9 @@ def _export_all(params, root):
             continue
         with open(os.path.join(root, label, "export.json")) as f:
             infos[label] = json.load(f)
+    wall = time.perf_counter() - started["t0"]
     assert not failed, "export failed: " + "\n".join(failed)
-    return infos
+    return infos, wall
 
 
 def _export_case(ptt, kernels, progs, d, label, params_dir, feed, expect,
@@ -9399,7 +9523,8 @@ def _export_case(ptt, kernels, progs, d, label, params_dir, feed, expect,
     ins = _save_feeds(d, feed, names)
     cpp_args = [d, *ins, "--device", NATIVE_DEVICE, "--out", d, "--repeat",
                 str(reps)]
-    _, cpp_launches, _, nodes = _native_run(progs["ptpu_predict"], cpp_args)
+    _, cpp_launches, cpp_ms, nodes = _native_run(progs["ptpu_predict"],
+                                                 cpp_args)
     got_cpp = [np.load(os.path.join(d, f"out{i}.npy"))
                for i in range(len(fetch_names))]
     worst = 0.0
@@ -9423,8 +9548,9 @@ def _export_case(ptt, kernels, progs, d, label, params_dir, feed, expect,
         assert cpp_launches[k] == reps * py_launches[k], (
             f"{label}: ptpu_predict launched {k} {cpp_launches[k]} times "
             f"in {reps} runs, Executor.run {py_launches[k]} a call")
-    times = {"executor_ms": [], "exported_ms": [], "native_ms": []}
-    for _ in range(2):
+    # the checked native run is the first turn's C++ times
+    times = {"executor_ms": [], "exported_ms": [], "native_ms": cpp_ms}
+    for turn in range(2):
         for key, fn in (("executor_ms", py_call),
                         ("exported_ms", lambda: pred.run(feed))):
             for _ in range(reps):
@@ -9432,8 +9558,9 @@ def _export_case(ptt, kernels, progs, d, label, params_dir, feed, expect,
                 t0 = time.perf_counter()
                 fn()
                 times[key].append((time.perf_counter() - t0) * 1e3)
-        times["native_ms"] += _native_run(progs["ptpu_predict"],
-                                          cpp_args)[2]
+        if turn:
+            times["native_ms"] += _native_run(progs["ptpu_predict"],
+                                              cpp_args)[2]
     med = {k: float(np.median(v)) for k, v in times.items()}
     log(f"  [{label}] export {info['seconds']:.1f} s ({info['nodes']} "
         f"nodes; {info['export_write_s']:.1f} s with the write), "
@@ -9594,9 +9721,12 @@ def _native_train(ptt, kernels, progs, d, params_dir, info):
             "executor_step_ms": py_ms, "native_step_ms": step_ms}
 
 
-def export_native(ptt, kernels, lm_params, tr_params, nmt_params):
+def export_native(ptt, kernels, lm_params, tr_params, nmt_params,
+                  started=None):
     """Phase 46: export and native runs (module docstring). The exports
-    run in child processes, all at once; the checks and times here."""
+    run in child processes, all at once (`started`: start_exports'
+    children, started earlier, else started now); the checks and times
+    here."""
     import numpy as np
     from paddle_tpu_torch import native
     progs = native.build()     # built in phase 2, beside the kernels
@@ -9609,24 +9739,16 @@ def export_native(ptt, kernels, lm_params, tr_params, nmt_params):
     lstm_feed = _lstm_feeds(rng, LSTM, 1)[0]
     del lstm_feed["label"]
     src = _nmt_feeds(rng, NMT, 1)[0]
-    root = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    started = started or start_exports(ptt, lm_params, tr_params,
+                                       nmt_params, nice=0)
+    root, params = started["root"], started["params"]
     try:
-        # phase 11's stacked LSTM from its startup weights (its trained
-        # ones are gone with phase 14)
-        lstm_params = os.path.join(root, "lstm_params")
-        main, start, _, _ = _export_program(ptt, "stacked_lstm")
-        scope = ptt.Scope()
-        exe = ptt.Executor(ptt.CUDAPlace(0))
-        exe.run(start, scope=scope)
-        ptt.io.save_params(exe, lstm_params, main_program=main, scope=scope)
-        params = {"lm_generate": lm_params, "nmt_generate": tr_params,
-                  "stacked_lstm": lstm_params,
-                  "nmt_beam_translate": nmt_params, "train": lm_params}
         t0 = time.perf_counter()
-        infos = _export_all(params, root)
-        out["export_wall_s"] = time.perf_counter() - t0
+        infos, out["export_wall_s"] = _collect_exports(started)
+        out["export_wait_s"] = time.perf_counter() - t0
         log(f"  five exports in parallel child processes: "
-            f"{out['export_wall_s']:.1f} s")
+            f"{out['export_wall_s']:.1f} s from their start, "
+            f"{out['export_wait_s']:.1f} s of it waited for here")
         cases = [("lm_generate", {"prompt": prompt}, ("decode_attention",),
                   None),
                  ("nmt_generate", nmt_feed, ("flash_fwd",
@@ -10067,6 +10189,448 @@ def transpile_and_recordio(ptt, kernels, resnet_params):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 48: the command-line tools and the examples, as a user runs them
+# ---------------------------------------------------------------------------
+
+#: phase 48(a): the lint sweeps, each `--all --json` with these flags
+LINT_SWEEPS = {"plain": [], "dp2": ["--dp", "2"], "tp2": ["--tp", "2"],
+               "pp2": ["--pipeline_stages", "2"],
+               "memory_plan": ["--memory_plan"], "offload": ["--offload"],
+               "serving": ["--serving"]}
+#: phase 48(c): demo_trainer's iterations and batch on phase 7's LM
+DEMO_ITERS, DEMO_BATCH = 3, 8
+#: phase 48's wall-clock bound (s)
+PHASE48_BUDGET_S = 240.0
+_TOOLS = "paddle_tpu_torch.tools."
+#: runs an example as `python -m` does, then reports the kernel launches
+#: of its process on stderr (the example prints only its own lines)
+_EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "from paddle_tpu_torch import kernels\n"
+    "name = sys.argv[1]\n"
+    "sys.argv = [name]\n"
+    "try:\n"
+    "    runpy.run_module(name, run_name='__main__', alter_sys=True)\n"
+    "except SystemExit as e:\n"
+    "    assert e.code in (0, None), e.code\n"
+    "print('LAUNCHES ' + json.dumps(dict(kernels.LAUNCHES)), "
+    "file=sys.stderr)\n")
+
+
+#: phase 48: children that may run at once beside the two drills. The
+#: drills' gang launches in turn are the phase's path; an interpreter
+#: start takes ~8 s on the card's host alone and far longer in a crowd
+#: (print_signatures 10.2 s alone, 35.4 s among 18 children)
+P48_SLOTS = 4
+#: the lint and signature children that run at once beside phases 21-45
+#: (phase 46's five exports run there too, on a host of 8 cores)
+BACKGROUND_SLOTS = 2
+
+
+class _Job:
+    """One `sys.executable` child of phase 48, its output in files. With
+    `slots` (a semaphore) it starts when a slot is free; with `nice` it
+    runs at that niceness; a thread waits for it, so its seconds run from
+    its start to its exit."""
+
+    def __init__(self, tmp, label, argv, env=None, slots=None, nice=0):
+        import threading
+        self.label = label
+        self.out = open(os.path.join(tmp, f"{label}.out"), "w+")
+        self.err = open(os.path.join(tmp, f"{label}.err"), "w+")
+        self.proc = self.t0 = self.t1 = None
+        self.error = None
+        argv = [sys.executable, *argv]
+        env = {**os.environ, **(env or {})}
+
+        def run():
+            try:
+                with slots or contextlib.nullcontext():
+                    self.t0 = time.perf_counter()
+                    self.proc = _track(subprocess.Popen(
+                        argv, stdout=self.out, stderr=self.err,
+                        cwd=os.path.dirname(os.path.abspath(__file__)),
+                        env=env, start_new_session=True))
+                    if nice:
+                        _lower_priority(self.proc.pid, nice)
+                    self.proc.wait()
+                    self.t1 = time.perf_counter()
+            except BaseException as e:  # surfaced by wait()
+                self.error = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def join(self, timeout=900):
+        """Wait for the child to exit, at most `timeout` seconds; wait()
+        reads its result."""
+        self.thread.join(timeout)
+
+    def wait(self, timeout=900):
+        """(exit code, stdout, stderr, seconds from start to exit); a
+        child not done within `timeout` is killed and raises."""
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            if self.proc is not None:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            raise TimeoutError(f"phase 48: {self.label} did not end")
+        if self.error is not None:
+            raise self.error
+        texts = []
+        for f in (self.out, self.err):
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        return self.proc.returncode, texts[0], texts[1], self.t1 - self.t0
+
+
+def _p48_lint_rows(label, rc, out, err, want_rc=0):
+    assert rc == want_rc, f"48(a) {label}: exit {rc}\n{err[-3000:]}"
+    return json.loads(out)
+
+
+def _p48_check_lint(jobs, card):
+    """Phase 48(a): each sweep exits 0 with 23 clean rows; the gate
+    contract on `--model mnist --tp 2`."""
+    out = {}
+    for label, job in jobs.items():
+        rc, text, err, secs = job.wait()
+        if label == "tp_gate":
+            rows = _p48_lint_rows(label, rc, text, err, want_rc=2)
+            assert rows[0]["gate_rejected"], rows
+        else:
+            rows = _p48_lint_rows(label, rc, text, err)
+        if label in LINT_SWEEPS:
+            assert len(rows) == 23, (label, len(rows))
+            assert sum(r["errors"] for r in rows) == 0, \
+                [r["diagnostics"] for r in rows if r["errors"]]
+        out[label] = {"exit": rc, "rows": len(rows), "seconds": secs,
+                      "gate_rejected": sum(bool(r["gate_rejected"])
+                                           for r in rows)}
+        log(f"  (a) lint {label}: exit {rc}, {len(rows)} row(s), "
+            f"{out[label]['gate_rejected']} gate-rejected, {secs:.1f} s "
+            f"({card})")
+    return out
+
+
+def _p48_drill(jobs, tmp, card):
+    """Phase 48(b): recovery_smoke's phases A and C at dp 1 (a gang of one
+    rank on NCCL), two drills at once."""
+    rep, secs = {}, {}
+    for ph, job in jobs.items():
+        rc, text, err, secs[ph] = job.wait()
+        assert rc == 0, f"48(b) phase {ph}: recovery_smoke exit {rc}\n" \
+                        f"{text[-3000:]}\n{err[-3000:]}"
+        with open(os.path.join(tmp, f"drill_{ph}.json")) as f:
+            rep[ph] = json.load(f)[ph]
+    a, c = rep["A"], rep["C"]
+    assert a["restarts"] == 1 and a["exit_codes"] == [-9, 0], a
+    assert a["resume_step"] == 4, a
+    assert c["crash_rc"] == -9 and c["leftovers"] >= 1, c
+    log(f"  (b) recovery drill at dp 1 on NCCL: phase A {a['restarts']} "
+        f"restart(s), exit codes {a['exit_codes']}, resumed at step "
+        f"{a['resume_step']}, bitwise, {secs['A']:.1f} s; phase C killed at "
+        f"byte 0 (exit {c['crash_rc']}), {c['leftovers']} uncommitted "
+        f"dir(s) left, restart from step {c['resume_step']} bitwise, "
+        f"{secs['C']:.1f} s ({card})")
+    return {"report": rep, "seconds": secs}
+
+
+def _p48_demo_args(ptt, tmp):
+    """Phase 7's LM saved with io.save_program; demo_trainer's argv."""
+    d = os.path.join(tmp, "lm_program")
+    main_p, start_p, loss = _train_program(ptt, TRAIN)
+    ptt.io.save_program(d, main_program=main_p, startup_program=start_p,
+                        feed_names=["tokens", "tokens@SEQLEN", "targets"],
+                        fetch_names=[loss])
+    return ["--model_dir", d, "--iters", str(DEMO_ITERS), "--batch_size",
+            str(DEMO_BATCH)]
+
+
+def _p48_demo(ptt, kernels, job, argv, card):
+    """Phase 48(c): the saved LM trained through demo_trainer (`job`, a
+    child, float32, TF32 off) against Executor.run on the same
+    synth_feed here; the tool's main() again in this process to count
+    its launches."""
+    import io as _io
+
+    import torch
+    from paddle_tpu_torch.tools import demo_trainer
+    d = argv[1]
+    old = ptt.flags.get_flag("use_bf16_matmul")
+    ptt.flags.set_flag("use_bf16_matmul", False)
+    try:
+        m2, s2, feeds, fetches = ptt.io.load_program(d)
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        exe.run(s2)
+        feed = demo_trainer.synth_feed(m2, feeds, DEMO_BATCH)
+        want = [float(exe.run(m2, feed=feed, fetch_list=fetches)[0]
+                      .reshape(-1)[0]) for _ in range(DEMO_ITERS)]
+        del exe
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        buf = _io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            demo_trainer.main([*argv, "--place", "cuda"])
+        torch.cuda.synchronize()
+        launches = {k: kernels.LAUNCHES[k] for k in FLASH}
+    finally:
+        ptt.flags.set_flag("use_bf16_matmul", old)
+    rc, text, err, secs = job.wait()
+    assert rc == 0, f"48(c): demo_trainer exit {rc}\n{err[-3000:]}"
+    lines = text.splitlines()
+    got = [float(ln.split("=")[-1]) for ln in lines[:DEMO_ITERS]]
+    assert [ln.split(":")[0] for ln in lines[:DEMO_ITERS]] == \
+        [f"iter {i}" for i in range(DEMO_ITERS)], lines
+    assert json.loads(lines[-1])["status"] == "ok", lines[-1]
+    worst = max(abs(a - b) for a, b in zip(got, want))
+    assert worst <= 1e-5, f"48(c): tool {got} vs Executor.run {want}"
+    n_layers = TRAIN["num_layers"]
+    assert buf.getvalue().splitlines()[:DEMO_ITERS] == lines[:DEMO_ITERS]
+    for k in FLASH:
+        assert launches[k] == n_layers * DEMO_ITERS, (k, launches)
+    log(f"  (c) demo_trainer on phase 7's LM (vocab {TRAIN['vocab']}, "
+        f"d_model {TRAIN['d_model']}, {n_layers} layers, max_len "
+        f"{TRAIN['max_len']}) at batch {DEMO_BATCH}: losses {got}, "
+        f"Executor.run {want}, max |diff| {worst:.2e}; K1-K3 launches "
+        f"{launches} ({n_layers} a step each); the child took {secs:.1f} s "
+        f"({card})")
+    return {"losses": got, "reference": want, "max_abs_diff": worst,
+            "launches": launches, "seconds": secs}
+
+
+def _p48_examples(jobs, card):
+    """Phase 48(d): the three examples' lines and launches."""
+    out = {}
+    for label, job in jobs.items():
+        rc, text, err, secs = job.wait()
+        assert rc == 0, f"48(d) {label}: exit {rc}\n{err[-3000:]}"
+        lines = text.splitlines()
+        launches = json.loads(next(ln for ln in err.splitlines()
+                                   if ln.startswith("LAUNCHES "))[9:])
+        row = {"lines": lines, "seconds": secs, "launches": launches}
+        if label == "generate_text":
+            loss = {int(ln.split()[1][:-1]): float(ln.split()[-1])
+                    for ln in lines if ln.startswith("step ")}
+            assert sorted(loss) == [0, 100, 200], lines
+            assert loss[200] < loss[0], loss
+            assert lines[-1].startswith("generated: 't"), lines[-1]
+            for k in FLASH + ("decode_attention",):
+                assert launches[k] > 0, (k, launches)
+            row["loss"] = loss
+        elif label == "serve_model":
+            legs = {}
+            for ln in lines:
+                key, _, vals = ln.partition(":")
+                legs[key] = [float(v) for v in
+                             vals.strip().strip("[]").split()]
+            assert list(legs) == ["in-process", "served (4 pipelined)",
+                                  "C++ server"], lines
+            # one archive on one card: the legs agree within the
+            # printed digits (cuDNN may pick another algorithm in the C++
+            # process)
+            for key, vals in legs.items():
+                assert len(vals) == 3 and all(
+                    abs(a - b) <= 1e-4 for a, b in
+                    zip(vals, legs["in-process"])), (key, legs)
+            row["legs"] = legs
+        else:
+            assert lines[0].startswith("epoch 0 step 0: loss "), lines
+            assert re.fullmatch(r"reloaded predictor says: \d", lines[-1]), \
+                lines
+        out[label] = row
+        shown = {k: launches[k] for k in FLASH + ("decode_attention",)}
+        log(f"  (d) {label}: exit 0 in {secs:.1f} s, lines {lines}, "
+            f"launches {shown} ({card})")
+    return out
+
+
+def _p48_trace(ptt, tmp, card):
+    """Phase 48(e): a barrier round over a simulated world of 2 ranks on
+    the card's state, with the flight recorder installed and memory
+    watermarks under each rank's tags; its trace through trace_merge."""
+    import torch
+    from paddle_tpu_torch.observability import flight_recorder
+    from paddle_tpu_torch.observability import memory as obs_memory
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.parallel import elastic
+    from paddle_tpu_torch.parallel.process_world import ProcessWorld
+    from paddle_tpu_torch.tools import recovery_smoke as drill
+    flight_recorder.install(os.path.join(tmp, "dossiers"), excepthook=False)
+    mark = tracing.mark()
+    world = ProcessWorld(2)
+    arrays = drill.world_atomic_arrays(0)
+    prog, scope = drill._program_and_scope(arrays)
+    for n in arrays:
+        scope.set_var(n, scope.get(n).cuda())
+    path = elastic.save_train_state(os.path.join(tmp, "trace_snap"),
+                                    program=prog, scope=scope,
+                                    executor=drill._MeshOnly(2), step=0,
+                                    world=world, barrier_deadline_s=30)
+    assert path is not None, "48(e): the barrier did not commit"
+    for r in range(2):
+        with tracing.rank_scope(world.world_id, r, 2):
+            obs_memory.update_watermark("device_state_bytes",
+                                        torch.cuda.memory_allocated())
+    src = tracing.export_chrome_trace(os.path.join(tmp, "ranks.json"),
+                                      tracing.spans_since(mark))
+    flight_recorder.configure(None)
+    merged = os.path.join(tmp, "merged.json")
+    rc, text, err, secs = _Job(tmp, "trace_merge",
+                               ["-m", _TOOLS + "trace_merge", src, "-o",
+                                merged]).wait()
+    assert rc == 0, f"48(e): trace_merge exit {rc}\n{err[-2000:]}"
+    with open(merged) as f:
+        doc = json.load(f)
+    evs = [e for e in doc["traceEvents"] if e.get("ph") != "M"]
+    meta = [e for e in doc["traceEvents"] if e.get("ph") == "M"]
+    barrier = {e["pid"] for e in evs
+               if str(e.get("name", "")).startswith("barrier/")}
+    assert barrier == {0, 1}, barrier
+    pnames = {e["pid"]: e["args"]["name"] for e in meta
+              if e["name"] == "process_name"}
+    assert pnames[0].startswith("rank 0") and pnames[1].startswith("rank 1")
+    lanes = {(e["pid"], e["tid"]): e["args"]["name"] for e in meta
+             if e["name"] == "thread_name"}
+    counters = [e for e in evs if e.get("ph") == "C"]
+    assert {c["pid"] for c in counters} >= {0, 1}, counters
+    assert all(lanes[(c["pid"], c["tid"])] == "memory" for c in counters)
+    stage = [e["ts"] for e in evs if e.get("name") == "barrier/stage"]
+    assert stage and abs(min(stage)) < 1e-6, stage
+    log(f"  (e) trace_merge: {text.strip()}; barrier spans on rank lanes "
+        f"{sorted(barrier)}, {len(counters)} memory counter event(s) on "
+        f"the 'memory' lane, {secs:.1f} s ({card})")
+    return {"events": len(doc["traceEvents"]), "seconds": secs}
+
+
+def start_lint_and_signatures(tmp, nice=BACKGROUND_NICE, slots=P48_SLOTS):
+    """Phase 48(a)'s lint sweeps and gate runs and (f)'s signature check,
+    started as children now, `slots` at a time (main() starts them after
+    phase 20, beside phase 46's exports: they need no kernel and no
+    weight) and checked in phase 48. Returns {"lint": {label: job},
+    "sigs": job}."""
+    import threading
+    slots = threading.BoundedSemaphore(slots)
+    lint = {label: _Job(tmp, f"lint_{label}", [
+        "-m", _TOOLS + "lint_program", "--all", "--json", *flags,
+        *(["--allow_gate_rejects"] if flags else [])], slots=slots,
+        nice=nice) for label, flags in LINT_SWEEPS.items()}
+    gate = ["-m", _TOOLS + "lint_program", "--model", "mnist", "--tp",
+            "2", "--json"]
+    lint["tp_gate"] = _Job(tmp, "lint_tp_gate", gate, slots=slots,
+                           nice=nice)
+    lint["tp_gate_allowed"] = _Job(tmp, "lint_tp_gate_allowed",
+                                   gate + ["--allow_gate_rejects"],
+                                   slots=slots, nice=nice)
+    sigs = _Job(tmp, "print_signatures",
+                ["-m", _TOOLS + "print_signatures", "--check"], slots=slots,
+                nice=nice)
+    return {"lint": lint, "sigs": sigs}
+
+
+def start_drills(tmp, nice=BACKGROUND_NICE):
+    """Phase 48(b)'s two drills, started as children now (main() starts
+    them as phase 46 begins and waits for them as it ends: a gang of one
+    MNIST rank is light on the card) and checked in phase 48. Returns
+    {phase: job}."""
+    return {ph: _Job(tmp, f"recovery_smoke_{ph}", [
+        "-m", _TOOLS + "recovery_smoke", "--dp", "1", "--phases", ph,
+        "--keep_root", os.path.join(tmp, f"drill_{ph}"), "--report",
+        os.path.join(tmp, f"drill_{ph}.json")], nice=nice) for ph in "AC"}
+
+
+def tools_and_examples(ptt, kernels, card, early=None, tmp=None):
+    """Phase 48: the port's tools and examples run as a user runs them,
+    in `sys.executable` children: (a) lint_program's sweeps and its gate
+    contract, then --restore_dir on what (b) left, (b) recovery_smoke's
+    phases A and C at dp 1, (c) demo_trainer on phase 7's LM, (d) the
+    three examples, (e) trace_merge on a rank-tagged trace, (f)
+    print_signatures --check. The drills start at once; the other
+    children but (a)'s --restore_dir queue for P48_SLOTS slots beside
+    them; (c)'s reference and (e)'s trace are made in this process
+    meanwhile. `card` is nvidia-smi's name and power
+    limit. `early` holds the children main() started before this
+    phase (start_lint_and_signatures, start_drills, in `tmp`); what it
+    lacks starts here."""
+    import threading
+    t0 = time.perf_counter()
+    early = dict(early or {})
+    tmp = tmp or tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    out = {}
+    try:
+        drills_early = "drills" in early
+        drills = early.get("drills") or start_drills(tmp, nice=0)
+        if "lint" not in early:
+            early.update(start_lint_and_signatures(tmp, nice=0))
+        lint, sigs = early["lint"], early["sigs"]
+        # the rest queue for P48_SLOTS slots, the longest first
+        slots = threading.BoundedSemaphore(P48_SLOTS)
+        examples = {n: _Job(tmp, n, ["-c", _EXAMPLE_RUNNER,
+                                     f"paddle_tpu_torch.examples.{n}"],
+                            slots=slots)
+                    for n in ("serve_model", "generate_text",
+                              "train_mnist")}
+        demo_argv = _p48_demo_args(ptt, tmp)
+        demo = _Job(tmp, "demo_trainer", ["-m", _TOOLS + "demo_trainer",
+                                          *demo_argv],
+                    env={"PTPU_USE_BF16_MATMUL": "0"}, slots=slots)
+
+        def drill_then_restore():
+            # the --restore_dir runs start once the drills have left
+            # their snapshots
+            log("  (b) recovery_smoke")
+            out["drill"] = _p48_drill(drills, tmp, card)
+            rep = out["drill"]["report"]
+            return {
+                "committed": _Job(tmp, "lint_restore_committed", [
+                    "-m", _TOOLS + "lint_program", "--model", "mnist",
+                    "--optimizer", "momentum", "--json", "--restore_dir",
+                    os.path.join(tmp, "drill_A", "a")]),
+                "uncommitted": _Job(tmp, "lint_restore_uncommitted", [
+                    "-m", _TOOLS + "lint_program", "--model", "mnist",
+                    "--optimizer", "momentum", "--json", "--restore_dir",
+                    rep["C"]["leftover_kept"]])}
+
+        if drills_early:
+            restore = drill_then_restore()
+        log("  (c) demo_trainer")
+        out["demo"] = _p48_demo(ptt, kernels, demo, demo_argv, card)
+        log("  (e) trace_merge")
+        out["trace_merge"] = _p48_trace(ptt, tmp, card)
+        log("  (a) lint_program")
+        out["lint"] = _p48_check_lint(lint, card)
+        log("  (d) the examples")
+        out["examples"] = _p48_examples(examples, card)
+        rc, text, err, secs = sigs.wait()
+        assert rc == 0, f"48(f): print_signatures --check exit {rc}\n" \
+                        f"{text[-3000:]}"
+        out["print_signatures"] = {"line": text.strip().splitlines()[-1],
+                                   "seconds": secs}
+        log(f"  (f) print_signatures --check: "
+            f"{out['print_signatures']['line']}, {secs:.1f} s ({card})")
+        if not drills_early:
+            restore = drill_then_restore()
+        for label, want in (("committed", 0), ("uncommitted", 1)):
+            rc, text, err, secs = restore[label].wait()
+            rows = _p48_lint_rows(f"--restore_dir {label}", rc, text, err,
+                                  want_rc=want)
+            codes = [d["code"] for d in rows[0]["diagnostics"]]
+            assert codes == ([] if want == 0 else ["restore-uncommitted"]), \
+                codes
+            out["lint"][f"restore_{label}"] = {"exit": rc, "seconds": secs,
+                                               "codes": codes}
+            log(f"  (a) lint --restore_dir on (b)'s {label} snapshot: exit "
+                f"{rc} {codes}, {secs:.1f} s ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 48 in {out['phase_s']:.1f} s (budget "
+        f"{PHASE48_BUDGET_S:.0f} s; {card})")
+    assert out["phase_s"] <= PHASE48_BUDGET_S, out["phase_s"]
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -10249,6 +10813,17 @@ def main():
         shutil.rmtree(root, ignore_errors=True)
     del resnet_trained, exe_, main_, scope_, dev_feeds
     torch.cuda.empty_cache()
+    # phase 46's exports have every weight they need now, and phase 48's
+    # lint sweeps and signature check need none: they run beside phases
+    # 21-45, at a lower priority, the lint children two at a time. Not
+    # before: cuDNN's autotuning in phases 19-20 picks ResNet-50's
+    # convolutions by their times (phase 47 folds with phase 20's picks)
+    exports = start_exports(ptt, lm_params, tr_params, nmt_params)
+    tools_tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    atexit.register(shutil.rmtree, tools_tmp, ignore_errors=True)
+    early = start_lint_and_signatures(tools_tmp, slots=BACKGROUND_SLOTS)
+    log("  phase 46's five exports and phase 48's lint and signature "
+        "children started beside the phases to come")
 
     _phase("phase 21: image models card against CPU (ResNet-8, SE-ResNeXt)")
     paths["resnet_reference"] = resnet_reference_check(ptt)
@@ -10386,8 +10961,14 @@ def main():
     _phase("phase 46: export and native runs (torch.export archives, "
            "ExportedPredictor, ptpu_predict one-shot and --serve, "
            "ptpu_train)")
+    # phase 48's drills run beside phase 46 (phase 47 runs alone: cuDNN's
+    # autotuning picks its convolutions by their times)
+    early["drills"] = start_drills(tools_tmp)
     paths["export_native"] = export_native(ptt, kernels, lm_params,
-                                           tr_params, nmt_params)
+                                           tr_params, nmt_params,
+                                           started=exports)
+    for job in early["drills"].values():
+        job.join()
     torch.cuda.empty_cache()
 
     _phase("phase 47: the transpilers (BN folding on ResNet-50, QAT and "
@@ -10395,6 +10976,13 @@ def main():
            "feeding the LM")
     paths["transpile_recordio"] = transpile_and_recordio(ptt, kernels,
                                                          resnet_params)
+    torch.cuda.empty_cache()
+
+    _phase("phase 48: the command-line tools and the examples as a user "
+           "runs them (lint_program, recovery_smoke, demo_trainer, the "
+           "three examples, trace_merge, print_signatures)")
+    paths["tools_examples"] = tools_and_examples(ptt, kernels, smi,
+                                                 early=early, tmp=tools_tmp)
     _phase(None)
 
     # each kernel's launches on its own path: decode attention on the
@@ -10533,6 +11121,20 @@ def main():
             results[k][f"launches_phase47_{key}"] = p47[part]["launches"][k]
             assert results[k][f"launches_phase47_{key}"] > 0, \
                 f"{k} was never launched on phase 47's {key} path"
+    # phase 48: K1-K3 over demo_trainer's steps on phase 7's LM (counted
+    # in this process), K1-K3 and K4 in generate_text's process
+    p48 = paths["tools_examples"]
+    gen48 = p48["examples"]["generate_text"]["launches"]
+    for k in FLASH:
+        results[k]["launches_phase48_demo_trainer"] = p48["demo"]["launches"][k]
+        results[k]["launches_phase48_generate_text"] = gen48[k]
+    results["decode_attention"]["launches_phase48_generate_text"] = \
+        gen48["decode_attention"]
+    for k in FLASH + ("decode_attention",):
+        for key in ("launches_phase48_demo_trainer",
+                    "launches_phase48_generate_text"):
+            assert results[k].get(key, 1) > 0, \
+                f"{k} was never launched on phase 48's {key[17:]} path"
     del launches["decode_attention_multi"], launches["decode_attention_int8"]
     line = {"kernels": [dict(name=k, **_KERNEL_META[k],
                              launches=launches[k], **results[k])
@@ -10546,4 +11148,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        _stop_children()

@@ -7,7 +7,7 @@ PADDLE_LOCAL_RANK); each joins the world over a file store and calls
 `function(rank, world_size, *args)` for a target named
 "path/to/file.py:function" or "package.module:function". It waits for
 every rank, stops them all when one fails or the time limit passes, and
-raises naming the ranks that failed.
+raises `WorldFailed` (a RuntimeError) naming the ranks that failed.
 """
 
 from __future__ import annotations
@@ -23,6 +23,17 @@ import time
 from typing import Optional, Sequence
 
 
+class WorldFailed(RuntimeError):
+    """A launched world that did not finish: `returncodes` holds every
+    rank's exit code (-9 for a rank killed by SIGKILL, and for the ranks
+    `launch` stopped), `failed` the ranks that failed first."""
+
+    def __init__(self, message: str, failed, returncodes):
+        super().__init__(message)
+        self.failed = list(failed)
+        self.returncodes = list(returncodes)
+
+
 def _wait_all(procs, timeout_s: float, logs):
     deadline = time.time() + timeout_s
     failed = []
@@ -33,7 +44,8 @@ def _wait_all(procs, timeout_s: float, logs):
                 time.time() > deadline:
             break
         time.sleep(0.05)
-    timed_out = any(p.poll() is None for p in procs)
+    timed_out = not bad and any(p.poll() is None for p in procs)
+    first = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
     for p in procs:
         if p.poll() is None:
             p.kill()
@@ -48,7 +60,8 @@ def _wait_all(procs, timeout_s: float, logs):
                 tails.append(f"--- rank {r} ---\n"
                              + logs[r].read().decode(errors="replace")[-4000:])
         what = "timed out" if timed_out else "failed"
-        raise RuntimeError(f"ranks {failed} {what}\n" + "\n".join(tails))
+        raise WorldFailed(f"ranks {failed} {what}\n" + "\n".join(tails),
+                          first, [p.returncode for p in procs])
 
 
 def launch(target: str, nproc: int, args: Sequence = (), *,

@@ -47,7 +47,7 @@ checks as the precondition for safe graph rewriting):
    ``PTPU_VERIFY_PASSES=0``.
 
 `analyze_program` runs layers 1+2; `check_program` raises on errors.
-`tools/lint_program.py` is the CLI over all of it.
+`python -m paddle_tpu_torch.tools.lint_program` is the CLI over all of it.
 """
 
 from __future__ import annotations

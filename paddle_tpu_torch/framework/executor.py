@@ -85,20 +85,21 @@ def _fetch_names(fetch_list):
             for f in (fetch_list or [])]
 
 
-def as_numpy(t) -> np.ndarray:
+def as_numpy(x):
     """Device tensor → numpy, a copy of the tensor's values as they are
     now (as jax arrays are): a CPU tensor's own memory is not shared, so
     a fetched parameter keeps its value when a later step updates the
     parameter in place. numpy has no bfloat16, so bfloat16 tensors come
-    back as float32 (exact: every bfloat16 value is a float32)."""
-    if not isinstance(t, torch.Tensor):
-        return np.asarray(t)
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        return t.float().cpu().numpy()
-    if t.device.type == "cpu":
-        return t.numpy().copy()
-    return t.cpu().numpy()
+    back as float32 (exact: every bfloat16 value is a float32). The
+    parameter is named `x`, as in the JAX package."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach()
+    if x.dtype == torch.bfloat16:
+        return x.float().cpu().numpy()
+    if x.device.type == "cpu":
+        return x.numpy().copy()
+    return x.cpu().numpy()
 
 
 def _unstage(name, t, dtype, staging):

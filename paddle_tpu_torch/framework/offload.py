@@ -96,12 +96,16 @@ class HostTierConfig:
                        (suspended requests resume only when a resident
                        finishes).
 
-    Prefix-sharing radix-index blocks never spill: that is fixed
-    behaviour (`KVPager.evict_table_to_host`), not a knob.
+    pin_index_nodes    prefix-sharing radix-index blocks never spill
+                       (`KVPager.evict_table_to_host`). That is the
+                       port's fixed behaviour: True is accepted, False
+                       raises (the JAX package takes the flag and never
+                       reads it).
     """
     host_blocks: int = 64
     prefetch_distance: int = 2
     rotate_quantum: int = 8
+    pin_index_nodes: bool = True
 
     def __post_init__(self):
         enforce(self.host_blocks >= 1,
@@ -113,6 +117,10 @@ class HostTierConfig:
         enforce(self.rotate_quantum >= 0,
                 f"HostTierConfig.rotate_quantum must be >= 0, got "
                 f"{self.rotate_quantum}", exc=InvalidArgumentError)
+        enforce(bool(self.pin_index_nodes),
+                "HostTierConfig.pin_index_nodes=False is not supported: "
+                "the host tier never spills prefix-sharing radix-index "
+                "blocks", exc=InvalidArgumentError)
 
 
 # ---------------------------------------------------------------------------

@@ -764,9 +764,9 @@ class PipelinePartitionPass(Pass):
 
         # --- splice pp_send/pp_recv at every cut -------------------------
         # both sides of a cut share one correlation id: a merged
-        # cross-rank timeline (tools/trace_merge.py) pairs the sender's
-        # and receiver's spans by it, so "who waited on whom" reads off
-        # the matched corr_id lanes
+        # cross-rank timeline (paddle_tpu_torch/tools/trace_merge.py)
+        # pairs the sender's and receiver's spans by it, so "who waited
+        # on whom" reads off the matched corr_id lanes
         sends, recvs = [], []
         for c in range(K - 1):
             corr = f"ppcut-{c}-s{c}to{c + 1}"

@@ -35,6 +35,11 @@ InferFn = Callable[[Any, Dict[str, List[tuple]], Dict[str, List[Any]],
 class OpDef:
     type: str
     lower: LowerFn
+    # ops whose outputs must never be differentiated through (metrics,
+    # prints): metadata for passes and inspection, as in the JAX package
+    stop_gradient: bool = False
+    # extra metadata for passes/inspection
+    tags: tuple = ()
     # optional explicit shape/dtype rule; None = run the lowering on meta
     # tensors (framework/analysis.py infer_op)
     infer_spec: Optional[InferFn] = None
@@ -43,13 +48,18 @@ class OpDef:
 _OPS: Dict[str, OpDef] = {}
 
 
-def register_op(op_type: str):
-    """Decorator registering a lowering (≙ REGISTER_OPERATOR)."""
+def register_op(op_type: str, *, stop_gradient: bool = False, tags=(),
+                infer_spec: Optional[InferFn] = None):
+    """Decorator registering a lowering (≙ REGISTER_OPERATOR). The
+    keywords are the JAX package's: `stop_gradient` and `tags` are stored
+    on the OpDef, and `infer_spec=` attaches the same rule that
+    `register_infer_spec` would."""
 
     def deco(fn: LowerFn) -> LowerFn:
         if op_type in _OPS:
             raise AlreadyExistsError(f"op {op_type!r} already registered")
-        _OPS[op_type] = OpDef(op_type, fn)
+        _OPS[op_type] = OpDef(op_type, fn, stop_gradient=stop_gradient,
+                              tags=tuple(tags), infer_spec=infer_spec)
         return fn
 
     return deco

@@ -51,6 +51,7 @@ import ctypes
 import torch
 
 from .. import kernel_ops, kernels
+from ..core.enforce import InvalidArgumentError, enforce
 from ..framework.registry import register_op
 
 #: the largest head dim the kernel takes (csrc/decode_attention.cu
@@ -260,8 +261,13 @@ def decode_attention_cuda(q, k, v, bias, scale, k_scale=None, v_scale=None):
     return out.squeeze(2) if squeezed else out
 
 
-def fused_decode_attention(q, k, v, bias, scale=1.0, k_scale=None,
-                           v_scale=None):
+#: the JAX package's `backend=` names (its decode_attention.py): "pallas"
+#: is the kernel; "xla" and "pallas_interpret" name its plain versions
+BACKENDS = ("xla", "pallas", "pallas_interpret")
+
+
+def fused_decode_attention(q, k, v, bias, scale=1.0, backend=None,
+                           k_scale=None, v_scale=None):
     """One decode tick (or verify window) of cached attention.
 
     q [..., nh, G, dh] (G query positions: 1 for the plain decode tick,
@@ -273,7 +279,21 @@ def fused_decode_attention(q, k, v, bias, scale=1.0, k_scale=None,
 
     int8 caches: pass the payloads with `k_scale` / `v_scale` from
     `quantize_kv_time_blocks` ([..., nh, T//bt] float32); the kernel reads
-    the int8 payload and dequantizes it to q's dtype where it is used."""
+    the int8 payload and dequantizes it to q's dtype where it is used.
+
+    `backend` takes the JAX package's names: None and "pallas" run the
+    kernel on a CUDA tensor and the plain version on a CPU tensor; "xla"
+    and "pallas_interpret" ask for the plain version, which a CPU tensor
+    takes and a CUDA tensor refuses (it launches the kernel or raises)."""
+    enforce(backend is None or backend in BACKENDS,
+            f"fused_decode_attention: unknown backend {backend!r}; the "
+            f"names are {list(BACKENDS)} (or None)",
+            exc=InvalidArgumentError)
+    enforce(backend in (None, "pallas") or not q.is_cuda,
+            f"fused_decode_attention: backend {backend!r} asks for the "
+            f"plain version, but q is a CUDA tensor, which runs the "
+            f"kernel: pass backend=None or 'pallas'",
+            exc=InvalidArgumentError)
     lead = tuple(q.shape[:-3])
     nh, g, dh = q.shape[-3:]
     t = k.shape[-2]

@@ -267,11 +267,20 @@ def save_persistables(executor=None, dirname: str = "", main_program=None,
 
 def load_persistables(executor=None, dirname: str = "", main_program=None,
                       filename=None, scope=None, sharded: bool = False,
-                      place=None):
+                      shardings=None, place=None):
+    """sharded=True restores from a sharded_checkpoint directory.
+    `shardings` (the JAX package's keyword) optionally maps var name ->
+    (DeviceMesh, Placement): that var is restored as this rank's block of
+    the placement over the mesh. Unlisted vars restore under the
+    placement the scope's ParallelExecutor gave them, else whole. As in
+    the JAX package, `shardings` takes effect with sharded=True only. The
+    device is the executor's, or `place`."""
+    placements = _shardings_to_placements(shardings)
     if sharded:
         enforce(filename is None, "sharded=True does not combine with "
                 "filename", exc=InvalidArgumentError)
-        return _load_sharded(executor, dirname, main_program, scope, place)
+        return _load_sharded(executor, dirname, main_program, scope, place,
+                             placements)
     return load_vars(executor, dirname, main_program=main_program,
                      predicate=_is_persistable, filename=filename,
                      scope=scope, place=place)
@@ -305,8 +314,36 @@ def _save_sharded(dirname, main_program, scope):
     return sorted(arrays)
 
 
-def _load_sharded(executor, dirname, main_program, scope, place):
-    """Each var's block for this rank: where a ParallelExecutor split the
+def _shardings_to_placements(shardings):
+    """The JAX package's `shardings` ({name: jax Sharding}) as the port
+    reads it: {name: (DeviceMesh, Placement)}. Anything else raises,
+    naming what the port takes instead."""
+    if shardings is None:
+        return {}
+    from .parallel.mesh import DeviceMesh, Placement
+    enforce(isinstance(shardings, dict),
+            f"shardings must map var name -> (DeviceMesh, Placement), got "
+            f"{type(shardings).__name__}", exc=InvalidArgumentError)
+    out = {}
+    for name, val in shardings.items():
+        ok = (isinstance(val, (tuple, list)) and len(val) == 2
+              and isinstance(val[0], DeviceMesh)
+              and isinstance(val[1], (tuple, list)))
+        enforce(ok, f"shardings[{name!r}] = {val!r}: the port places a "
+                f"var by a (DeviceMesh, Placement) pair, not a jax "
+                f"Sharding. The device comes from place= (or the "
+                f"executor's); a ParallelExecutor's scope already holds "
+                f"the placements the executor gives "
+                f"(ParallelExecutor.state_sharding), so pass shardings="
+                f"None there", exc=InvalidArgumentError)
+        out[name] = (val[0], Placement(val[1]))
+    return out
+
+
+def _load_sharded(executor, dirname, main_program, scope, place,
+                  placements=None):
+    """Each var's block for this rank: under `placements[name]` (mesh,
+    placement) when given, else where a ParallelExecutor split the
     scope, under its placement (only the intersecting chunks are read);
     else whole. Converted to the declared dtype on the executor's
     device."""
@@ -322,7 +359,8 @@ def _load_sharded(executor, dirname, main_program, scope, place):
     loaded = []
     try:
         for v in _select_vars(program, _is_persistable):
-            mesh, placement, _ = reg.get(v.name, (None, None, None))
+            mesh, placement = (placements or {}).get(
+                v.name, reg.get(v.name, (None, None, None))[:2])
             t = restore_array(ckpt, v.name, placement, mesh)
             scope.set_var(v.name, t.to(device=device,
                                        dtype=convert_dtype(v.dtype)))

@@ -172,7 +172,8 @@ class ProcessWorld:
         self.chief = chief
         #: stable identity stamped (with rank/world_size) onto every
         #: span a rank thread records — the {world_id, rank, world_size}
-        #: triple tools/trace_merge.py lanes the merged timeline by
+        #: triple paddle_tpu_torch/tools/trace_merge.py lanes the merged
+        #: timeline by
         self.world_id = f"pw{os.getpid()}-{next(self._ID_SEQ)}"
         #: serializes barrier rounds over this world (elastic.py): two
         #: concurrent rounds would steal each other's acks off the

@@ -245,20 +245,21 @@ def load_checkpoint(executor: Executor, checkpoint_dir: str,
                     main_program: Program,
                     serial: Optional[int] = None,
                     scope: Optional[Scope] = None,
-                    sharded: bool = False) -> Optional[dict]:
+                    sharded: bool = False,
+                    shardings=None) -> Optional[dict]:
     """Restore persistables from the given (default: latest complete)
     serial onto the executor's device; returns the saved trainer args, {}
     when none were saved, or None if there is no checkpoint. Loaded into
     a ParallelExecutor's scope, a split var's whole value is cut back to
     this rank's block at the executor's next run (sharded=True reads only
-    this rank's block)."""
+    this rank's block). `shardings`: see io.load_persistables."""
     if serial is None:
         serial = get_latest_checkpoint_serial(checkpoint_dir)
     if serial < 0:
         return None
     cur = _serial_dir(checkpoint_dir, serial)
     _io.load_persistables(executor, cur, main_program=main_program,
-                          scope=scope, sharded=sharded)
+                          scope=scope, sharded=sharded, shardings=shardings)
     args_path = os.path.join(cur, TRAINER_ARGS_FILE)
     if os.path.exists(args_path):
         with open(args_path) as f:
