@@ -24,8 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    packed batch with segment ids, Tq != Tk, T not a multiple of the tile,
    head dims 32, 128 and 256, head dims 16, 40, 96 and 160 (which the
    wrappers zero-pad to 32, 64, 128 and 256), rows with no visible key,
-   and on the wide-head route head dims 300, 384, 512 and 1000 (300 and
-   1000 padded to 384 and 1024) with the same masks, each in bfloat16
+   and on the wide-head route head dims 300, 384, 512, 1000, 1100 and
+   1152 (300, 1000 and 1100 padded to 384, 1024 and 1152; above 1024 two
+   clusters a tile) with the same masks, each in bfloat16
    and float32 (bfloat16 runs on the tensor cores and is held to the
    per-term bounds of ops/flash_attention.py, taken on the padded tensors,
    and wrong kernels must be rejected by the same check: three for each
@@ -1711,11 +1712,14 @@ def _tc_build_report(kernels):
             if dh in (64, 256):
                 assert name is not None, f"no ptxas report for {tag} D={dh}"
                 assert pr.get("spill") == 0, f"{tag} D={dh} spills: {pr}"
-    # the wide-head route (D > 256): one instantiation per type, D a
-    # runtime argument, the same shared memory at every D
-    for which, tag in ((0, "flash_fwd_wide"), (1, "flash_dq_wide"),
-                       (2, "flash_dkv_wide")):
-        for bf16, tname in ((0, "f"), (1, "13__nv_bfloat16")):
+    # the wide-head route (D > 256) on the CUDA cores: float32 K1-K3 and
+    # bfloat16 K3, one instantiation per type, D a runtime argument, the
+    # same shared memory at every D
+    for which, tag, types in ((0, "flash_fwd_wide", (0,)),
+                              (1, "flash_dq_wide", (0,)),
+                              (2, "flash_dkv_wide", (0, 1))):
+        for bf16 in types:
+            tname = "13__nv_bfloat16" if bf16 else "f"
             name = next((n for n in props
                          if f"{tag}_kernelI{tname}E" in n), None)
             pr = props.get(name, {})
@@ -1724,6 +1728,20 @@ def _tc_build_report(kernels):
                 f"shared memory {lib.ptt_flash_smem_bytes(which, bf16, 512)} "
                 f"bytes (any D)")
             assert name is not None, f"no ptxas report for {tag} {tname}"
+    # bfloat16 K1 and K2 there, on the tensor cores in clusters of
+    # min(8, D / 128) blocks: <true> up to D = 1024 (Q's, dO's fragments
+    # held), <false> above; shared memory by D
+    for which, tag in ((0, "flash_fwd_wide_tc"), (1, "flash_dq_wide_tc")):
+        for hold, dims in ((1, (384, 512, 1024)), (0, (1152, 2048))):
+            name = next((n for n in props
+                         if f"{tag}_kernelILb{hold}E" in n), None)
+            pr = props.get(name, {})
+            smem = {dh: lib.ptt_flash_smem_bytes(which, 1, dh) for dh in dims}
+            log(f"  [{tag}<{'true' if hold else 'false'}> bf16] registers "
+                f"{pr.get('regs')}, spill bytes {pr.get('spill')}, dynamic "
+                f"shared memory by D {smem}")
+            assert name is not None, f"no ptxas report for {tag} <{hold}>"
+            assert pr.get("spill") == 0, f"{tag} <{hold}> spills: {pr}"
 
 
 def _recurrent_build_report(kernels):
@@ -1768,13 +1786,13 @@ def _recurrent_build_report(kernels):
             f"bytes")
 
 
-def _time_flash(make, b, h, t, d, rates):
-    """K1, K2 and K3 timed at [b, h, t, d] in bfloat16, causal, with the
-    plain versions and the library's yardstick (SDPA's forward; for the
-    backward kernels SDPA's backward for all three: its captured forward
-    and backward less its forward), over rotating input sets that exceed
-    the L2 three times over. Returns {kernel name: {"ms", "plain_ms",
-    "bound_ms", "bound_by", "library_ms"}}."""
+def _time_flash(make, b, h, t, d, rates, names=None):
+    """K1, K2 and K3 (or those of `names`) timed at [b, h, t, d] in
+    bfloat16, causal, with the plain versions and the library's yardstick
+    (SDPA's forward; for the backward kernels SDPA's backward for all three:
+    its captured forward and backward less its forward), over rotating input
+    sets that exceed the L2 three times over. Returns {kernel name: {"ms",
+    "plain_ms", "bound_ms", "bound_by", "library_ms"}}."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
@@ -1800,7 +1818,7 @@ def _time_flash(make, b, h, t, d, rates):
                                            scale=scale)
         torch.autograd.grad(o, leaves, st["do"])
 
-    times = time_in_turns({
+    fns = {
         "fwd": lambda s: flash_fwd_cuda(s["q"], s["k"], s["v"], scale, True),
         "fwd_plain": lambda s: flash_fwd_plain(s["q"], s["k"], s["v"],
                                                scale, True),
@@ -1815,7 +1833,11 @@ def _time_flash(make, b, h, t, d, rates):
             s["q"], s["k"], s["v"], None, s["lse"], s["do"], scale, True,
             delta=s["delta"]),
         "fwd_bwd_lib": sdpa_fwd_bwd,
-    }, sets, reps=20)
+    }
+    names = FLASH if names is None else names
+    if "flash_bwd_dkv" not in names:
+        del fns["dkv"]
+    times = time_in_turns(fns, sets, reps=20)
     lib_bwd = times["fwd_bwd_lib"] - times["fwd_lib"]
     mem_rate, _, tc_rate = rates
     tile = b * h * t * d * 2            # one [B,H,T,D] bf16 tensor
@@ -1828,7 +1850,7 @@ def _time_flash(make, b, h, t, d, rates):
                           8 * causal_pairs * d),
     }
     kernel_ms = {"flash_fwd": times["fwd"], "flash_bwd_dq": times["dq"],
-                 "flash_bwd_dkv": times["dkv"]}
+                 "flash_bwd_dkv": times.get("dkv")}
     plain_ms = {"flash_fwd": times["fwd_plain"],
                 "flash_bwd_dq": times["bwd_plain"],
                 "flash_bwd_dkv": times["bwd_plain"]}
@@ -1836,6 +1858,8 @@ def _time_flash(make, b, h, t, d, rates):
                   "flash_bwd_dkv": lib_bwd}
     out = {}
     for kname, (nbytes, flops) in work.items():
+        if kname not in names:
+            continue
         t_bytes, t_ops = nbytes / mem_rate, flops / tc_rate
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -1873,9 +1897,11 @@ def check_flash(ptt, rates):
     K3 (dK/dV): each against its plain version on the card over the LM's
     shape and the edge cases in both types (head dims 16, 40, 96 and 160
     run zero-padded to 32, 64, 128 and 256 inside the wrappers; 300, 384,
-    512 and 1000 on the wide-head route, 300 and 1000 padded to 384 and
-    1024, with the same masks), then timed at the LM shape and at head
-    dims 256 and 512; the controls are rejected at D = 64 and 512.
+    512, 1000, 1100 and 1152 on the wide-head route, 300, 1000 and 1100
+    padded to 384, 1024 and 1152, with the same masks), then timed at the
+    LM shape and at head dims 256 and 512, K1 and K2 also at 1024 (an
+    8-block cluster) and 2048 (two clusters a tile); the controls are
+    rejected at D = 64 and 512.
     bfloat16 (the tensor-core kernels) is held to the per-term bounds of
     ops/flash_attention.py (`flash_fwd_bound`, `flash_bwd_dq_bound`,
     `flash_bwd_dkv_bound`), float32 to 1e-5 max(1, |ref|) (`flash_check`).
@@ -1886,7 +1912,7 @@ def check_flash(ptt, rates):
         flash_bwd_dkv_bound, flash_bwd_dkv_cuda, flash_bwd_dq_bound,
         flash_bwd_dq_cuda, flash_bwd_plain, flash_check, flash_delta,
         flash_fwd_bound, flash_fwd_cuda, flash_fwd_plain, kernel_head_dim,
-        pad_head_dim)
+        launch_route, pad_head_dim)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1907,6 +1933,11 @@ def check_flash(ptt, rates):
     kv_ids = torch.full((2, 96), 7, dtype=torch.int32, device=dev)
     q_ids = kv_ids.clone()
     q_ids[:, :40] = 99           # an id no key carries: those rows see nothing
+    # two segments and padding a row, unaligned to the 64-row tiles
+    halves = torch.zeros(2, 130, dtype=torch.int32)
+    halves[0, :50], halves[0, 50:110] = 1, 2
+    halves[1, :90], halves[1, 90:] = 1, 2
+    halves = halves.to(dev)
     shapes = [
         ("lm", b, h, t, t, d, True, None),
         ("packed", 4, h, t, t, d, True, packed),
@@ -1928,6 +1959,10 @@ def check_flash(ptt, rates):
         ("d512_no_key", 1, 2, 160, 96, 512, True, None),
         ("d384_no_key_seg", 2, 2, 96, 96, 384, False, (q_ids, kv_ids)),
         ("d1000", 1, 2, 96, 96, 1000, False, None),  # padded to 1024
+        # above D 1024: two clusters a tile, Q's and dO's slices streamed;
+        # block 0 sums two of the nine score slices, blocks 1-7 one each
+        ("d1152", 1, 2, 130, 130, 1152, True, None),
+        ("d1100_seg", 2, 2, 130, 130, 1100, True, halves),  # padded to 1152
     ]
     errs, controls, controls_512 = {}, None, None
     kernels.reset_launch_counts()
@@ -2004,16 +2039,30 @@ def check_flash(ptt, rates):
                 controls_512 = ctl if label == "d512" else None
             del slack
 
-    wide = {k: kernels.LAUNCHES[k + "_wide"] for k in FLASH}
+    # the eight D > 256 cases in both types: bfloat16 K1 and K2 on the
+    # tensor cores, float32 K1-K3 and bfloat16 K3 on the CUDA cores
+    by_name = {n: c for n, c in kernels.LAUNCHES.items()
+               if n.startswith("flash_")}
+    wide = {k: kernels.LAUNCHES[k] for k in FLASH_WIDE}
     log(f"  wide-head route launches over the cases above: {wide}")
-    assert all(n == 2 * 6 for n in wide.values()), \
-        f"the six D > 256 cases in both types must take the wide route: {wide}"
+    want = {"flash_fwd_wide": 8, "flash_bwd_dq_wide": 8,
+            "flash_bwd_dkv_wide": 2 * 8, "flash_fwd_wide_tc": 8,
+            "flash_bwd_dq_wide_tc": 8}
+    assert wide == want, \
+        f"the D > 256 cases took other routes than {want}: {wide}"
 
     # timing at the LM's shape and type (bf16, causal), and at head dims
     # 256 and 512 (B 2, H 8, T 512), which no path of the port reaches yet
     timed = _time_flash(make, b, h, t, d, rates)
     timed_256 = _time_flash(make, 2, 8, t, 256, rates)
     timed_512 = _time_flash(make, 2, 8, t, 512, rates)
+    # an 8-block cluster: K1 and K2 at D = 1024 (K3 there runs the CUDA
+    # cores' design of D = 512, not timed again)
+    timed_1024 = _time_flash(make, 2, 4, t, 1024, rates,
+                             names=("flash_fwd", "flash_bwd_dq"))
+    # two clusters a tile (each sums S, K2 also dP, over all of D)
+    timed_2048 = _time_flash(make, 2, 4, t, 2048, rates,
+                             names=("flash_fwd", "flash_bwd_dq"))
     sdpa_512 = _sdpa_kernels(make, 2, 8, t, 512)
     out = {}
     for kname, tm in timed.items():
@@ -2023,7 +2072,14 @@ def check_flash(ptt, rates):
                           errs[("lm", bf16)][kname]["ratio"],
                       "beyond_one_step_bf16":
                           errs[("lm", bf16)][kname]["beyond_step"],
-                      "routes": {"bfloat16": "tc_bf16", "float32": "simt"},
+                      "routes": {"bfloat16": "tc_bf16", "float32": "simt",
+                                 "bfloat16_d_above_256":
+                                     launch_route(kname, True, 512),
+                                 "float32_d_above_256":
+                                     launch_route(kname, False, 512)},
+                      "phase3_launches_by_name": {
+                          n: c for n, c in by_name.items()
+                          if n == kname or n.startswith(kname + "_")},
                       "control_err_over_tolerance": {
                           c: r[kname] for c, r in controls.items()
                           if kname in r},
@@ -2036,7 +2092,7 @@ def check_flash(ptt, rates):
                                "max_abs_err":
                                    errs[("d256", f32)][kname]["err"]},
                       "d512": {**timed_512[kname],
-                               "route": "wide",
+                               "route": launch_route(kname, True, 512),
                                "max_abs_err_bf16":
                                    errs[("d512", bf16)][kname]["err"],
                                "err_over_tolerance_bf16":
@@ -2047,11 +2103,20 @@ def check_flash(ptt, rates):
                                    errs[("d1000", bf16)][kname]["ratio"],
                                "max_abs_err_d1000":
                                    errs[("d1000", f32)][kname]["err"],
+                               "err_over_tolerance_d1152_bf16": max(
+                                   errs[(c, bf16)][kname]["ratio"]
+                                   for c in ("d1152", "d1100_seg")),
+                               "max_abs_err_d1152": max(
+                                   errs[(c, f32)][kname]["err"]
+                                   for c in ("d1152", "d1100_seg")),
                                "control_err_over_tolerance": {
                                    c: r[kname]
                                    for c, r in controls_512.items()
                                    if kname in r},
-                               "library_kernels": sdpa_512}}
+                               "library_kernels": sdpa_512},
+                      **({"d1024": timed_1024[kname],
+                          "d2048": timed_2048[kname]}
+                         if kname in timed_1024 else {})}
     log("  (plain_ms of flash_bwd_dq and flash_bwd_dkv is the one plain "
         "backward that computes dq, dk and dv; library_ms of both is SDPA's "
         "backward for all three: SDPA forward+backward less its forward)")
@@ -3195,6 +3260,10 @@ FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the bfloat16 tensor-core routes of K1-K3 (the LM trains in bfloat16), in
 # FLASH's order
 FLASH_TC = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+# the wide-head route's counts (head dims above 256): the CUDA cores'
+# kernels, then bfloat16 K1 and K2 on the tensor cores
+FLASH_WIDE = ("flash_fwd_wide", "flash_bwd_dq_wide", "flash_bwd_dkv_wide",
+              "flash_fwd_wide_tc", "flash_bwd_dq_wide_tc")
 
 
 def _run_steps(exe, main, scope, loss, feeds, steps, kernels):

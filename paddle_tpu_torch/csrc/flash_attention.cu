@@ -48,9 +48,11 @@
 // dk, dv [B*H, Tk, D], all contiguous and of one type (float32 or
 // bfloat16); lse, delta [B*H, Tq] float32; segment ids [B, Tq] and
 // [B, Tk] int32 or null. D is 32, 64, 128 or 256, or a multiple of 128
-// above 256 (the wide-head route, below); the wrapper zero-pads any other
-// D to the next of those.
+// above 256 (the wide-head route, below: bfloat16 K1 and K2 on the tensor
+// cores in thread-block clusters, the rest on the CUDA cores); the
+// wrapper zero-pads any other D to the next of those.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -1493,10 +1495,13 @@ constexpr size_t dkv_tc_smem() {
 }
 
 // ---------------------------------------------------------------------------
-// K1-K3 for head dims above 256: the wide-head route, for float32 and
-// bfloat16 inputs alike, with float32 arithmetic inside (plain FMAs on the
-// CUDA cores, as the float32 kernels above). D is a runtime argument, a
-// multiple of kWO (the wrapper zero-pads q, k, v and dO, which is exact).
+// K1-K3 for head dims above 256: the wide-head route. These three kernels
+// take float32 K1-K3 and bfloat16 K3; bfloat16 K1 and K2 run on the tensor
+// cores (flash_fwd_wide_tc_kernel, flash_dq_wide_tc_kernel, further below).
+// Float32 arithmetic inside (plain FMAs on the CUDA cores, as the float32
+// kernels above), which keeps float32 exact where tf32 would not. D is a
+// runtime argument, a multiple of kWO (the wrapper zero-pads q, k, v and
+// dO, which is exact).
 //
 // No tile scales with D, so shared memory is the same for every D:
 //   - the scores (and dP) are summed over all of D in chunks of kWC
@@ -1510,10 +1515,10 @@ constexpr size_t dkv_tc_smem() {
 //     chunks costs about as much as the slice's own product.
 // The rounding points are the plain version's: P to v's type before P.V
 // (to dO's before dV), dS to k's type before dS.K (to q's before dS^T.Q).
-// bfloat16 inputs are widened exactly to float32 as they are staged; sums
-// are float32, so the result differs from the plain version by sums in
-// another order only, well inside flash_*_bound. A simple design that is
-// right: its speed is later work (PERF.md).
+// bfloat16 inputs (K3) are widened exactly to float32 as they are staged;
+// sums are float32, so the result differs from the plain version by sums
+// in another order only, well inside flash_*_bound. A simple design that
+// is right: its speed is later work (PERF.md).
 // ---------------------------------------------------------------------------
 constexpr int kWC = 64;           // D columns a chunk stages
 constexpr int kWLD = kWC + 1;     // row stride of a chunk tile
@@ -1964,6 +1969,690 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_wide_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1 and K2 for bfloat16 at head dims above 256, on the tensor cores.
+//
+// Replace, for bfloat16 and D > 256, _flash_kernel (K1) and
+// _flash_bwd_dq_kernel (K2) of paddle_tpu/ops/pallas_kernels.py, with the
+// semantics and rounding points listed at the head of this file.
+//
+// Bound, at B 2, H 8, T 512, D 512, causal: K1 moves 33.5 MB (10.0 us at
+// 3.35 TB/s) for 4.3 GFLOP (4.4 us at 989 TFLOP/s), K2 42 MB (12.5 us) for
+// 6.4 GFLOP (6.5 us): bytes, as at D = 64. What stands in the way at a wide
+// head: a block's 64 output rows over all of D do not fit in registers
+// (64 x 512 float32 sums are half an SM's register file), while every
+// score of a tile sums over all of D. So D is split across a thread-block
+// cluster of C = min(8, D / 128) blocks per (query tile, batch*head), block
+// r owning output columns 128 r .. 128 r + 127:
+//   - block r computes the partial scores (K2: and dP) of a 64 x 64 tile
+//     over its own 128 columns of D with mma.sync; its slice of Q (and dO)
+//     is loaded once and held as A fragments, its slices of K (and V)
+//     stream through a three-slot cp.async ring of 16-byte copies, so the
+//     cluster reads each byte of q, k, v (and dO) from memory once;
+//   - each row has an owner (the 64 rows are dealt to the C blocks in
+//     runs of R = ceil(64 / C)), into whose shared memory every block
+//     writes its partial of the row through distributed shared memory;
+//     the owner sums the C partials in rank order, masks and scales them,
+//     and makes P with the online softmax (K1; its rows' running max and
+//     sum stay in its registers) or dS = P (dP - delta) scale (K2), rounds
+//     it to bfloat16 and writes it, and K1 the rows' rescaling factor,
+//     into every block of the cluster (16 bytes a store): each score is
+//     computed once, and every block multiplies with the same bits;
+//   - every block then adds P . V (K2: dS . K) over its 128 columns on the
+//     tensor cores; O and dQ stay in registers, 64 floats a thread.
+// Two cluster barriers a key tile: after the partials, after P (dS); K1
+// runs a product while each is in flight (its loop, below). Above D = 1024
+// a cluster of 8 covers 1024 output columns, the grid holds ceil(D / 1024)
+// clusters per tile, each summing the scores over all of D, block r over
+// slices r, r + 8, ..., and the slices of Q and dO then stream with K's
+// and V's instead of being held.
+// ---------------------------------------------------------------------------
+constexpr int kWCluster = 8;          // most blocks of a cluster (portable)
+constexpr int kWPS = 72;              // row stride (floats) of a partial tile
+constexpr int kWRing = 3;             // slots of the cp.async ring
+constexpr int kWChunk = kBK * kWO;    // elements of a [64][128] slice
+
+struct WidePlan {
+  int nch;    // 128-column slices of D
+  int C;      // blocks of a cluster
+  int G;      // clusters per (query tile, batch*head)
+  int R;      // rows of a tile each block owns (sums, softmax)
+  bool hold;  // one score slice a block: Q's (dO's) fragments held
+};
+
+__host__ __device__ inline WidePlan wide_plan(int D) {
+  WidePlan p;
+  p.nch = D / kWO;
+  p.C = p.nch < kWCluster ? p.nch : kWCluster;
+  p.G = (p.nch + p.C - 1) / p.C;
+  p.R = (kBQ + p.C - 1) / p.C;
+  p.hold = p.G == 1;
+  return p;
+}
+
+// Dynamic shared memory of K1 (fwd) or K2: the ring; the partial tiles the
+// block owns, [C][R][kWPS] (K1: two buffers of S's; K2: one of S's and one
+// of dP's), which first stage the held Q (and dO) slices; P (two buffers)
+// or dS; and K1's rescaling factors (two buffers) and denominators.
+__host__ __device__ inline size_t wide_tc_smem(bool fwd, int D) {
+  const WidePlan p = wide_plan(D);
+  return sizeof(bf16) * kWRing * (p.hold ? 1 : 2) * (size_t)kWChunk +
+         sizeof(float) * 2 * p.C * p.R * kWPS +
+         sizeof(bf16) * (fwd ? 2 : 1) * kBQ * kBK +
+         (fwd ? sizeof(float) * 3 * kBQ : 0);
+}
+
+// Rows [row0, row0 + 64) of a [64][128] column slice of a row-major
+// [total, ld] bfloat16 matrix (src points at the slice's first column) into
+// a swizzled tile with cp.async; rows past `total` are zeros.
+__device__ __forceinline__ void load_slice_async(bf16* dst, const bf16* src,
+                                                 int row0, int total,
+                                                 int ld) {
+  constexpr int kCols = kWO / 8;
+  for (int e = threadIdx.x; e < kBK * kCols; e += kTcThreads) {
+    const int r = e / kCols, c = e % kCols;
+    const int g = row0 + r;
+    const bf16* from = src + (long long)min(g, total - 1) * ld + c * 8;
+    cp_async16(smem_u32(dst + swz<kWO>(r, c)), from, g < total ? 16 : 0);
+  }
+}
+
+// acc (a 16-row x 64-key C fragment per warp) += A . B^T over one
+// 128-column slice: A's fragments from `af` (kHeld) or the swizzled tile at
+// `at`, B's from the swizzled tile at `bt`.
+template <bool kHeld>
+__device__ __forceinline__ void slice_scores(float (&acc)[8][4],
+                                             const uint32_t (&af)[8][4],
+                                             uint32_t at, uint32_t bt,
+                                             int warp, uint32_t aoff,
+                                             uint32_t boff) {
+#pragma unroll
+  for (int kk = 0; kk < kWO / 16; ++kk) {
+    uint32_t xa[4];
+    if constexpr (kHeld)
+      copy4(af[kk], xa);
+    else
+      ldsm_x4(frag_at<kWO>(at, warp * 16, aoff, kk), xa);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bk[4];
+      ldsm_x4(frag_at<kWO>(bt, np * 16, boff, kk), bk);
+      mma_bf16(acc[2 * np], xa, bk[0], bk[1]);
+      mma_bf16(acc[2 * np + 1], xa, bk[2], bk[3]);
+    }
+  }
+}
+
+// acc (16 rows x 128 columns per warp) += X . Y with X the [64][64]
+// bfloat16 tile at xt (P or dS) and Y the [64][128] slice at yt.
+__device__ __forceinline__ void tile_times_slice(float (&acc)[16][4],
+                                                 uint32_t xt, uint32_t yt,
+                                                 int warp, int lane) {
+  const uint32_t xoff = a_off<kBK>(lane), yoff = a_off<kWO>(lane);
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    uint32_t xa[4];
+    ldsm_x4(frag_at<kBK>(xt, warp * 16, xoff, kk), xa);
+#pragma unroll
+    for (int dd = 0; dd < kWO / 16; ++dd) {
+      uint32_t by[4];
+      ldsm_x4_t(frag_at<kWO>(yt, kk * 16, yoff, dd), by);
+      mma_bf16(acc[2 * dd], xa, by[0], by[1]);
+      mma_bf16(acc[2 * dd + 1], xa, by[2], by[3]);
+    }
+  }
+}
+
+// The partial tile in acc into the owners' partial buffers (slot `rank`):
+// this thread's rows warp*16 + g and + 8 go to dst[0] and dst[1], in the
+// owners' shared memory (stores that need no reply, so their latency
+// passes under the barrier that follows).
+__device__ __forceinline__ void push_partial(const float (&acc)[8][4],
+                                             float* const (&dst)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(dst[i] + 8 * j) =
+          make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+}
+
+// The owner's view of one of its rows: the sum, in rank order, of the C
+// partials of row lr ([C][R][kWPS] buffer) at this thread's keys
+// 8 kq .. 8 kq + 7.
+__device__ __forceinline__ void sum_partials(float (&x)[8], const float* part,
+                                             int C, int R, int lr, int kq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* at = part + lr * kWPS + 8 * kq + 4 * h;
+    float4 a = *reinterpret_cast<const float4*>(at);
+    for (int src = 1; src < C; ++src) {
+      const float4 y =
+          *reinterpret_cast<const float4*>(at + src * R * kWPS);
+      a.x += y.x;
+      a.y += y.y;
+      a.z += y.z;
+      a.w += y.w;
+    }
+    x[4 * h] = a.x;
+    x[4 * h + 1] = a.y;
+    x[4 * h + 2] = a.z;
+    x[4 * h + 3] = a.w;
+  }
+}
+
+// Key e (0..7) of the owner thread kq within a 64-key tile.
+__device__ __forceinline__ int owner_key(int kq, int e) { return 8 * kq + e; }
+
+// Eight bfloat16 values (this owner thread's keys of row `row`, one
+// 16-byte column of the swizzled [64][64] tile `dst`) into every block of
+// the cluster.
+__device__ __forceinline__ void push_row_bf16(
+    cooperative_groups::cluster_group& cluster, bf16* dst, int C, int row,
+    int kq, const float (&x)[8]) {
+  uint4 w;
+  w.x = pack_bf16(x[0], x[1]);
+  w.y = pack_bf16(x[2], x[3]);
+  w.z = pack_bf16(x[4], x[5]);
+  w.w = pack_bf16(x[6], x[7]);
+  const int e = swz<kBK>(row, kq);
+  for (int c = 0; c < C; ++c)
+    *reinterpret_cast<uint4*>(cluster.map_shared_rank(dst, c) + e) = w;
+}
+
+// The two halves of a cluster barrier, so that work can run between them
+// (release: this thread's writes, remote ones included, are seen by every
+// thread past the matching wait).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// K1, bfloat16, D > 256. Grid (G * C, batch*head, q tile) in clusters of
+// C along x, the last (longest causal) q tiles launched first. kHold:
+// D <= 1024 (one score slice a block, Q's fragments held), else Q's
+// slices stream with K's.
+//
+// The steps run one tile ahead on the scores, S(t0), S(t1), O(t0), S(t2),
+// O(t1), ..., O(t_last) over the live key tiles (S: the partial scores,
+// one sub-step per score slice; O: P . V), and the two barriers of a tile
+// are split so that a product runs while each is in flight: barrier 1 of
+// tile i (its partials have landed) is arrived at before O(t_{i-1}) and
+// waited for after it, by the owner step of tile i; barrier 2 (P has
+// landed) is arrived at after that owner step and waited for after
+// S(t_{i+1}), before O(t_i). So the partials, P and the rescaling factors
+// are double-buffered, by the parity of the tile's ordinal.
+template <bool kHold>
+__global__ void __launch_bounds__(kTcThreads, kHold ? 2 : 1)
+    flash_fwd_wide_tc_kernel(Args a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const WidePlan pl = wide_plan(a.D);
+  const int D = a.D, C = pl.C, R = pl.R;
+  const int rank = (int)cluster.block_rank();
+  const int co = (blockIdx.x / C) * C + rank;   // output slice
+  const bool has_out = co < pl.nch;
+  const int nper = (pl.nch - rank + C - 1) / C;   // score slices rank + C i
+  const int slot_elems = (kHold ? 1 : 2) * kWChunk;
+  const int part_elems = C * R * kWPS;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_tc);               // [3][slot]
+  float* part = reinterpret_cast<float*>(ring + kWRing * slot_elems);
+  // (part: [2][C][R][kWPS], the partial scores of the rows it owns)
+  bf16* Pb = reinterpret_cast<bf16*>(part + 2 * part_elems);   // [2][64][64]
+  float* alpha_b = reinterpret_cast<float*>(Pb + 2 * kBQ * kBK);   // [2][64]
+  float* den_b = alpha_b + 2 * kBQ;                               // [64]
+
+  const int Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
+  const int bh = blockIdx.y, b = bh / a.H;
+  const int qb = gridDim.z - 1 - blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
+  const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
+  const bf16* q = static_cast<const bf16*>(a.q) + qoff;
+  const bf16* k = static_cast<const bf16*>(a.k) + koff;
+  const bf16* v = static_cast<const bf16*>(a.v) + koff;
+  const bool seg = a.qseg != nullptr;
+  const int* qseg = seg ? a.qseg + (long long)b * Tq : nullptr;
+  const int* kvseg = seg ? a.kvseg + (long long)b * Tk : nullptr;
+
+  // the owner's side: thread (orow, kq) takes keys owner_key(kq, .) of
+  // rows lr = 16 p + orow of this block's run of R rows
+  const int orow = tid >> 3, kq = tid & 7;
+  const int nrows = min(R, kBQ - rank * R);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  int myq[2] = {0, 0};
+  if (seg)
+    for (int p = 0; p < 2; ++p)
+      myq[p] = __ldg(qseg + min(q0 + rank * R + 16 * p + orow, Tq - 1));
+
+  int qlo = 0, qhi = 0;
+  if (seg) warp_id_range(qseg, q0, nqr, lane, qlo, qhi);
+  const int n_kt = key_tiles(a, q0, nqr);
+  auto next_live = [&](int kt) {
+    if (seg) {
+      for (; kt < n_kt; ++kt) {
+        int klo, khi;
+        warp_id_range(kvseg, kt * kBK, min(kBK, Tk - kt * kBK), lane, klo,
+                      khi);
+        if (!(qhi < klo || qlo > khi)) break;
+      }
+    }
+    return kt;
+  };
+  // a place in the order of the steps: the next step is O(ot) if o, else
+  // sub-step `sub` of S(st)
+  struct Cur {
+    int st, ot, sub;
+    bool o;
+  };
+  auto valid = [&](const Cur& c) { return c.o ? c.ot < n_kt : c.st < n_kt; };
+  auto advance = [&](Cur& c) {
+    if (!c.o) {
+      if (++c.sub < nper) return;
+      c.sub = 0;
+      const int x = c.st;
+      c.st = next_live(x + 1);
+      c.o = !(x == c.ot && c.st < n_kt);   // after S(t0), S(t1) if any
+    } else {
+      c.ot = next_live(c.ot + 1);
+      c.o = c.st >= n_kt;
+    }
+  };
+  // S: K's slice rank + C sub (after Q's where Q is not held); O: V's
+  // output slice
+  auto load_step = [&](int slot, const Cur& c) {
+    bf16* dst = ring + slot * slot_elems;
+    if (!c.o) {
+      const int col = (rank + C * c.sub) * kWO;
+      if (!kHold) {
+        load_slice_async(dst, q + col, q0, Tq, D);
+        dst += kWChunk;
+      }
+      load_slice_async(dst, k + col, c.st * kBK, Tk, D);
+    } else if (has_out) {
+      load_slice_async(dst, v + co * kWO, c.ot * kBK, Tk, D);
+    }
+  };
+
+  if constexpr (kHold) {   // Q's slice, staged in the partial buffers
+    load_slice_async(reinterpret_cast<bf16*>(part), q + rank * kWO, q0, Tq,
+                     D);
+  }
+  cp_async_commit();
+  const int t0 = next_live(0);
+  Cur cur{t0, t0, 0, false}, ahead = cur;
+  for (int st = 0; st < kWRing - 1; ++st) {
+    if (valid(ahead)) {
+      load_step(st, ahead);
+      advance(ahead);
+    }
+    cp_async_commit();
+  }
+  const uint32_t aoff = a_off<kWO>(lane), boff = b_off<kWO>(lane);
+  uint32_t qf[kWO / 16][4];
+  if constexpr (kHold) {
+    cp_async_wait<kWRing - 1>();   // Q has landed
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWO / 16; ++kk)
+      ldsm_x4(frag_at<kWO>(smem_u32(part), warp * 16, aoff, kk), qf[kk]);
+  }
+  // where this thread's two rows of a partial tile go: the owner's first
+  // buffer, slot `rank`
+  float* to_owner[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = warp * 16 + g + 8 * i, own = row / R;
+    to_owner[i] = cluster.map_shared_rank(part, own) +
+                  (rank * R + row - own * R) * kWPS + 2 * t;
+  }
+  cluster.sync();   // every block runs; the staged Q is in registers
+
+  // The owner step of the tile of ordinal i at key tile kt: wait for its
+  // partials, sum them in rank order, mask and scale, update the rows'
+  // running max and sum, and write P (bfloat16) and the rescaling factors
+  // into buffer i % 2 of every block; then arrive at barrier 2.
+  auto owner_step = [&](int i, int kt) {
+    const int k0 = kt * kBK, buf = i & 1;
+    cluster_wait();   // barrier 1: every partial of this tile has landed
+    for (int p = 0; p < 2 && 16 * p < R; ++p) {
+      const int lr = 16 * p + orow, row = rank * R + lr, qp = q0 + row;
+      const bool live = lr < nrows;   // the same for a row's 8 lanes
+      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (live) sum_partials(x, part + buf * part_elems, C, R, lr, kq);
+      float mc = kNegInf;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int kp = k0 + owner_key(kq, e);
+        bool ok = live && kp < Tk;
+        if (a.causal) ok = ok && qp + off >= kp;
+        if (seg) ok = ok && myq[p] == __ldg(kvseg + min(kp, Tk - 1));
+        x[e] = ok ? x[e] * a.scale : kNegInf;
+        mc = fmaxf(mc, x[e]);
+      }
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 4));
+      const float mn = fmaxf(m[p], mc);
+      const float alpha = exp_tc(m[p] - mn);
+      float rs = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        // a row with nothing visible so far has m == s == -1e30: its
+        // dead entries must not count as exp(0) = 1
+        x[e] = x[e] > kNegInf * 0.5f ? exp_tc(x[e] - mn) : 0.f;
+        rs += x[e];
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+      l[p] = l[p] * alpha + rs;
+      m[p] = mn;
+      if (live) {
+        push_row_bf16(cluster, Pb + buf * kBQ * kBK, C, row, kq, x);
+        if (kq == 0)
+          for (int c = 0; c < C; ++c)
+            cluster.map_shared_rank(alpha_b + buf * kBQ, c)[row] = alpha;
+      }
+    }
+    cluster_arrive();   // barrier 2: P and the factors are written
+  };
+
+  float s[8][4], o[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  int ns = 0, no = 0, nown = 0;   // S steps, O steps, owner steps done
+  int slot = 0;
+  while (valid(cur)) {
+    if (valid(ahead)) {   // into the slot the previous step used
+      load_step((slot + kWRing - 1) % kWRing, ahead);
+      advance(ahead);
+    }
+    cp_async_commit();
+    cp_async_wait<kWRing - 1>();   // this step's slices have landed
+    __syncthreads();
+    const uint32_t sl = smem_u32(ring + slot * slot_elems);
+    if (!cur.o) {
+      if (cur.sub == 0) {
+        if (nown < ns) owner_step(nown++, cur.ot);   // the previous tile's
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      }
+      slice_scores<kHold>(s, qf, sl, kHold ? sl : sl + 2 * kWChunk, warp,
+                          aoff, boff);
+      if (cur.sub == nper - 1) {
+        float* const to[2] = {to_owner[0] + (ns & 1) * part_elems,
+                              to_owner[1] + (ns & 1) * part_elems};
+        push_partial(s, to);
+        if (ns == 0) cluster_arrive();   // barrier 1 of the first tile
+        ++ns;
+      }
+    } else {
+      if (nown == no) owner_step(nown++, cur.ot);   // no S came between
+      cluster_wait();   // barrier 2: P of this tile has landed
+      if (ns > no + 1) cluster_arrive();   // barrier 1 of the next tile
+      const int buf = no & 1;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float al = alpha_b[buf * kBQ + warp * 16 + g + 8 * i];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          o[j][2 * i] *= al;
+          o[j][2 * i + 1] *= al;
+        }
+      }
+      // O += P . V: P as rounded by its owner, V's slice by ldmatrix.trans
+      if (has_out)
+        tile_times_slice(o, smem_u32(Pb + buf * kBQ * kBK), sl, warp, lane);
+      ++no;
+    }
+    __syncthreads();   // every warp is done with this slot
+    slot = (slot + 1) % kWRing;
+    advance(cur);
+  }
+  cp_async_wait<0>();
+
+  // the owners' denominators to every block, and lse once
+  for (int p = 0; p < 2 && 16 * p < R; ++p) {
+    const int lr = 16 * p + orow, row = rank * R + lr, qp = q0 + row;
+    if (lr >= nrows || kq != 0) continue;
+    const float den = fmaxf(l[p], 1e-30f);
+    for (int c = 0; c < C; ++c) cluster.map_shared_rank(den_b, c)[row] = den;
+    if (a.lse_out != nullptr && blockIdx.x < C && qp < Tq)
+      a.lse_out[(long long)bh * Tq + qp] = m[p] + logf(den);
+  }
+  cluster.sync();   // (also: no block leaves while others write into it)
+  if (!has_out) return;
+  bf16* out = static_cast<bf16*>(a.out) + qoff + co * kWO;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i, qp = q0 + r;
+    if (qp >= Tq) continue;
+    const float den = den_b[r];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(out + (long long)qp * D + 8 * j + 2 * t) =
+          pack_bf16(o[j][2 * i] / den, o[j][2 * i + 1] / den);
+  }
+}
+
+// K2, bfloat16, D > 256: dQ. Grid and clusters as K1. The steps of a key
+// tile: the partial S over the block's slices of Q and K, then the partial
+// dP over its slices of dO and V (each pushed to the owners as it is
+// done, so the two share their registers), then K's output slice for
+// dQ += dS . K. kHold as K1's (two blocks an SM).
+template <bool kHold>
+__global__ void __launch_bounds__(kTcThreads, kHold ? 2 : 1)
+    flash_dq_wide_tc_kernel(Args a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const WidePlan pl = wide_plan(a.D);
+  const int D = a.D, C = pl.C, R = pl.R;
+  const int rank = (int)cluster.block_rank();
+  const int co = (blockIdx.x / C) * C + rank;
+  const bool has_out = co < pl.nch;
+  const int nper = (pl.nch - rank + C - 1) / C;
+  const int slot_elems = (kHold ? 1 : 2) * kWChunk;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_tc);
+  // the partial S and dP of the rows it owns, [C][R][kWPS] each
+  float* part_s = reinterpret_cast<float*>(ring + kWRing * slot_elems);
+  float* part_p = part_s + C * R * kWPS;
+  bf16* Sb = reinterpret_cast<bf16*>(part_p + C * R * kWPS);   // dS [64][64]
+
+  const int Tq = a.Tq, Tk = a.Tk, off = Tk - Tq;
+  const int bh = blockIdx.y, b = bh / a.H;
+  const int qb = gridDim.z - 1 - blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb * kBQ, nqr = min(kBQ, Tq - q0);
+  const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
+  const bf16* q = static_cast<const bf16*>(a.q) + qoff;
+  const bf16* gq = static_cast<const bf16*>(a.dout) + qoff;
+  const bf16* k = static_cast<const bf16*>(a.k) + koff;
+  const bf16* v = static_cast<const bf16*>(a.v) + koff;
+  const bool seg = a.qseg != nullptr;
+  const int* qseg = seg ? a.qseg + (long long)b * Tq : nullptr;
+  const int* kvseg = seg ? a.kvseg + (long long)b * Tk : nullptr;
+
+  // the owner's rows (as K1), with their lse, delta and ids (rows past Tq
+  // read the last row's; their dQ is never written)
+  const int orow = tid >> 3, kq = tid & 7;
+  const int nrows = min(R, kBQ - rank * R);
+  float lse[2], dl[2];
+  int myq[2] = {0, 0};
+  for (int p = 0; p < 2; ++p) {
+    const int qp = min(q0 + rank * R + 16 * p + orow, Tq - 1);
+    lse[p] = __ldg(a.lse_in + (long long)bh * Tq + qp);
+    dl[p] = __ldg(a.delta + (long long)bh * Tq + qp);
+    if (seg) myq[p] = __ldg(qseg + qp);
+  }
+
+  int qlo = 0, qhi = 0;
+  if (seg) warp_id_range(qseg, q0, nqr, lane, qlo, qhi);
+  const int n_kt = key_tiles(a, q0, nqr);
+  auto next_live = [&](int kt) {
+    if (seg) {
+      for (; kt < n_kt; ++kt) {
+        int klo, khi;
+        warp_id_range(kvseg, kt * kBK, min(kBK, Tk - kt * kBK), lane, klo,
+                      khi);
+        if (!(qhi < klo || qlo > khi)) break;
+      }
+    }
+    return kt;
+  };
+  // sub < nper: K's slice rank + C sub (after Q's where not held);
+  // nper <= sub < 2 nper: V's (after dO's); sub == 2 nper: K's output slice
+  const int nsub = 2 * nper + 1;
+  auto load_step = [&](int slot, int tile, int sub) {
+    bf16* dst = ring + slot * slot_elems;
+    if (sub < 2 * nper) {
+      const bool is_s = sub < nper;
+      const int c = (rank + C * (is_s ? sub : sub - nper)) * kWO;
+      if (!kHold) {
+        load_slice_async(dst, (is_s ? q : gq) + c, q0, Tq, D);
+        dst += kWChunk;
+      }
+      load_slice_async(dst, (is_s ? k : v) + c, tile * kBK, Tk, D);
+    } else if (has_out) {
+      load_slice_async(dst, k + co * kWO, tile * kBK, Tk, D);
+    }
+  };
+  auto advance = [&](int& tile, int& sub) {
+    if (++sub == nsub) {
+      sub = 0;
+      tile = next_live(tile + 1);
+    }
+  };
+
+  if constexpr (kHold) {   // Q's and dO's slices, staged in part_s
+    load_slice_async(reinterpret_cast<bf16*>(part_s), q + rank * kWO, q0, Tq,
+                     D);
+    load_slice_async(reinterpret_cast<bf16*>(part_s) + kWChunk,
+                     gq + rank * kWO, q0, Tq, D);
+  }
+  cp_async_commit();
+  int kt = next_live(0), sub = 0, at = kt, as = 0;
+  for (int st = 0; st < kWRing - 1; ++st) {
+    if (at < n_kt) {
+      load_step(st, at, as);
+      advance(at, as);
+    }
+    cp_async_commit();
+  }
+  const uint32_t aoff = a_off<kWO>(lane), boff = b_off<kWO>(lane);
+  uint32_t qf[kWO / 16][4], gf[kWO / 16][4];
+  if constexpr (kHold) {
+    cp_async_wait<kWRing - 1>();   // Q and dO have landed
+    __syncthreads();
+    const uint32_t st = smem_u32(part_s);
+#pragma unroll
+    for (int kk = 0; kk < kWO / 16; ++kk) {
+      ldsm_x4(frag_at<kWO>(st, warp * 16, aoff, kk), qf[kk]);
+      ldsm_x4(frag_at<kWO>(st + 2 * kWChunk, warp * 16, aoff, kk), gf[kk]);
+    }
+  }
+  float* to_owner_s[2];
+  float* to_owner_p[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = warp * 16 + g + 8 * i, own = row / R;
+    const int at_row = (rank * R + row - own * R) * kWPS + 2 * t;
+    to_owner_s[i] = cluster.map_shared_rank(part_s, own) + at_row;
+    to_owner_p[i] = cluster.map_shared_rank(part_p, own) + at_row;
+  }
+  cluster.sync();   // every block runs; the staged Q and dO are in registers
+
+  float x8[8][4], dq[16][4];   // x8: S's partial, then dP's
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  int slot = 0;
+  while (kt < n_kt) {
+    if (at < n_kt) {
+      load_step((slot + kWRing - 1) % kWRing, at, as);
+      advance(at, as);
+    }
+    cp_async_commit();
+    cp_async_wait<kWRing - 1>();
+    __syncthreads();
+    const uint32_t sl = smem_u32(ring + slot * slot_elems);
+    if (sub < 2 * nper) {
+      const bool is_s = sub < nper;
+      const int i = is_s ? sub : sub - nper;
+      if (i == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x8[j][e] = 0.f;
+      }
+      const uint32_t bt = kHold ? sl : sl + 2 * kWChunk;
+      if (is_s)
+        slice_scores<kHold>(x8, qf, sl, bt, warp, aoff, boff);
+      else
+        slice_scores<kHold>(x8, gf, sl, bt, warp, aoff, boff);
+      if (i == nper - 1) {
+        if (is_s)
+          push_partial(x8, to_owner_s);
+        else
+          push_partial(x8, to_owner_p);
+      }
+    } else {
+      const int k0 = kt * kBK;
+      cluster.sync();   // every partial of this tile has landed
+      for (int p = 0; p < 2 && 16 * p < R; ++p) {
+        const int lr = 16 * p + orow, row = rank * R + lr, qp = q0 + row;
+        if (lr >= nrows) continue;
+        float sv[8], dp[8];
+        sum_partials(sv, part_s, C, R, lr, kq);
+        sum_partials(dp, part_p, C, R, lr, kq);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int kp = k0 + owner_key(kq, e);
+          bool ok = kp < Tk;
+          if (a.causal) ok = ok && qp + off >= kp;
+          if (seg) ok = ok && myq[p] == __ldg(kvseg + min(kp, Tk - 1));
+          const float pe = ok ? exp_tc(sv[e] * a.scale - lse[p]) : 0.f;
+          sv[e] = pe * (dp[e] - dl[p]) * a.scale;
+        }
+        push_row_bf16(cluster, Sb, C, row, kq, sv);
+      }
+      cluster.sync();   // dS has landed
+      // dQ += dS . K: dS as rounded by its owner, K's output slice by
+      // ldmatrix.trans
+      if (has_out) tile_times_slice(dq, smem_u32(Sb), sl, warp, lane);
+    }
+    __syncthreads();
+    slot = (slot + 1) % kWRing;
+    advance(kt, sub);
+  }
+  cp_async_wait<0>();
+  // (the last remote write came before the last tile's second barrier)
+  if (!has_out) return;
+  bf16* dqo = static_cast<bf16*>(a.dq) + qoff + co * kWO;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + warp * 16 + g + 8 * i;
+    if (qp >= Tq) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(dqo + (long long)qp * D + 8 * j + 2 * t) =
+          pack_bf16(dq[j][2 * i], dq[j][2 * i + 1]);
+  }
+}
+
 // Dynamic shared memory of the wide kernels, in bytes: the same at every D.
 constexpr size_t fwd_wide_smem() {
   return sizeof(float) * ((size_t)(kBQ + kBK) * kWLD + (size_t)kBK * kWO +
@@ -1995,6 +2684,31 @@ cudaError_t launch(Kernel kern, dim3 grid, size_t smem, cudaStream_t s,
   return cudaGetLastError();
 }
 
+// A launch in clusters of `csize` blocks along x (cudaLaunchKernelEx);
+// every error, the attribute's included, goes back to the caller.
+template <typename Kernel>
+cudaError_t launch_cluster(Kernel kern, dim3 grid, int csize, size_t smem,
+                           cudaStream_t s, const Args& a) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int D>
@@ -2021,17 +2735,36 @@ cudaError_t run(int which, const Args& a, int BH, cudaStream_t s) {
   }
 }
 
-// The wide-head route, grid (tile, batch*head, D / kWO).
+// The wide-head route: bfloat16 K1 and K2 on the tensor cores, grid
+// (G * C, batch*head, q tile) in clusters of C; the rest on the CUDA
+// cores, grid (tile, batch*head, D / kWO).
 template <typename T>
 cudaError_t run_wide(int which, const Args& a, int BH, cudaStream_t s) {
   const int nq = (a.Tq + kBQ - 1) / kBQ, nk = (a.Tk + kBK - 1) / kBK;
   const int nz = a.D / kWO;
-  if (which == kFwd)
-    return launch(flash_fwd_wide_kernel<T>, dim3(nq, BH, nz),
-                  fwd_wide_smem(), s, a);
-  if (which == kDq)
-    return launch(flash_dq_wide_kernel<T>, dim3(nq, BH, nz), dq_wide_smem(),
-                  s, a);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (which != kDkv) {
+      const WidePlan p = wide_plan(a.D);
+      const dim3 grid(p.G * p.C, BH, nq);
+      const size_t smem = wide_tc_smem(which == kFwd, a.D);
+      if (which == kFwd)
+        return p.hold ? launch_cluster(flash_fwd_wide_tc_kernel<true>, grid,
+                                       p.C, smem, s, a)
+                      : launch_cluster(flash_fwd_wide_tc_kernel<false>, grid,
+                                       p.C, smem, s, a);
+      return p.hold ? launch_cluster(flash_dq_wide_tc_kernel<true>, grid, p.C,
+                                     smem, s, a)
+                    : launch_cluster(flash_dq_wide_tc_kernel<false>, grid,
+                                     p.C, smem, s, a);
+    }
+  } else {
+    if (which == kFwd)
+      return launch(flash_fwd_wide_kernel<T>, dim3(nq, BH, nz),
+                    fwd_wide_smem(), s, a);
+    if (which == kDq)
+      return launch(flash_dq_wide_kernel<T>, dim3(nq, BH, nz),
+                    dq_wide_smem(), s, a);
+  }
   return launch(flash_dkv_wide_kernel<T>, dim3(nk, BH, nz), dkv_wide_smem(),
                 s, a);
 }
@@ -2081,6 +2814,7 @@ const char* ptt_cuda_error_string(int err) {
 int ptt_flash_smem_bytes(int which, int is_bf16, int D) {
   if (D > 256) {
     if (D % kWO != 0) return 0;
+    if (is_bf16 && which != kDkv) return (int)wide_tc_smem(which == kFwd, D);
     if (which == kFwd) return (int)fwd_wide_smem();
     if (which == kDq) return (int)dq_wide_smem();
     return (int)dkv_wide_smem();

@@ -14,8 +14,10 @@ One library may hold several kernels (flash_attention.cu holds flash_fwd,
 flash_bwd_dq and flash_bwd_dkv; recurrent.cu holds lstm_seq and gru_seq).
 `flash_fwd_tc`, `flash_bwd_dq_tc` and `flash_bwd_dkv_tc` count the launches
 of flash_fwd, flash_bwd_dq and flash_bwd_dkv that took the bfloat16
-tensor-core route, and `flash_*_wide` those that took the wide-head route
-(head dims above 256); each such launch counts under both names.
+tensor-core route; above head dim 256 `flash_fwd_wide_tc` and
+`flash_bwd_dq_wide_tc` count bfloat16 K1 and K2 (the wide-head route on the
+tensor cores), `flash_*_wide` float32 K1-K3 and bfloat16 K3 there (the CUDA
+cores); each such launch counts under both names.
 `decode_attention_multi` and `decode_attention_int8` count the launches of
 decode_attention with a query window of more than one position (the
 speculative verify forward) and over an int8 cache, each also counted under
@@ -45,7 +47,8 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "decode_attention", "decode_attention_multi", "decode_attention_int8",
     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
     "flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc", "flash_fwd_wide",
-    "flash_bwd_dq_wide", "flash_bwd_dkv_wide", "lstm_seq", "gru_seq")}
+    "flash_bwd_dq_wide", "flash_bwd_dkv_wide", "flash_fwd_wide_tc",
+    "flash_bwd_dq_wide_tc", "lstm_seq", "gru_seq")}
 
 #: library name -> nvcc's output for the last build in this process
 BUILD_LOGS: Dict[str, str] = {}

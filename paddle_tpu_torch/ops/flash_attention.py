@@ -39,18 +39,21 @@ and segment ids (a query sees a key iff their ids are equal; the packed
 batches of data/packing.py). Tensors are [B, H, T, D] in float32 or
 bfloat16; the kernels are built for head dims 32, 64, 128 and 256, and
 take any multiple of 128 above 256 on the wide-head route (D a runtime
-argument, scores summed over 64-column chunks of D, each block computing
-128 columns of the output: csrc/flash_attention.cu). The wrappers take any
+argument, each block computing 128 columns of the output:
+csrc/flash_attention.cu). The wrappers take any
 D by zero-padding q, k, v (and dO) to the next head dim the kernels take
 (`kernel_head_dim`, `pad_head_dim`) and slicing o, dq, dk and dv back.
 That is exact: a zero column adds exactly 0 to every dot product and to
 delta = Σ dO·O, and the caller's scale is passed unchanged. (At D = 256
 each bfloat16 kernel's block computes one half of the output columns and
-the float32 K2 and K3 take query tiles of 32 rows.) The wide-head route
-runs float32 arithmetic for either type on the CUDA cores, with the plain
-version's rounding points; its launches count under "flash_fwd_wide",
-"flash_bwd_dq_wide" and "flash_bwd_dkv_wide" instead of the `_tc`
-names.
+the float32 K2 and K3 take query tiles of 32 rows.) On the wide-head
+route bfloat16 K1 and K2 run on the tensor cores, D split across a
+cluster of up to 8 blocks that compute each score once and share it
+through distributed shared memory; their launches count under
+"flash_fwd_wide_tc" and "flash_bwd_dq_wide_tc". Float32 K1-K3 and
+bfloat16 K3 there run float32 arithmetic on the CUDA cores, with the plain
+version's rounding points, and count under "flash_fwd_wide",
+"flash_bwd_dq_wide" and "flash_bwd_dkv_wide" (`launch_route`).
 
 `delta` = Σ dO·O in float32 is a plain torch op, as in the JAX package;
 the backward kernels also take it from the caller, and K1's lse output is
@@ -510,19 +513,29 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def launch_route(name, bf16, d):
+    """The second name a launch of kernel `name` counts under, which says
+    the design that took it, or None: above head dim 256 `<name>_wide_tc`
+    for bfloat16 K1 and K2 (tensor cores, a cluster of blocks splitting D)
+    and `<name>_wide` for float32 and for K3 (the CUDA cores); at or below
+    256 `<name>_tc` for bfloat16, and none for float32."""
+    if d > KERNEL_HEAD_DIMS[-1]:
+        tc = bf16 and name in ("flash_fwd", "flash_bwd_dq")
+        return name + ("_wide_tc" if tc else "_wide")
+    return name + "_tc" if bf16 else None
+
+
 def _launch(name, fn, bf16, d, *args):
     """Launch `fn` with (is_bf16, D, *args); count it under `name`, and
-    under its route too: `<name>_wide` for head dims above 256, else
-    `<name>_tc` for bfloat16 (the tensor-core kernels)."""
+    under its route too (`launch_route`)."""
     lib = kernels.load("flash_attention")
     _bind(lib)
     err = getattr(lib, fn)(int(bf16), d, *args)
     kernels.check(lib, name, err)
     kernels.count_launch(name)
-    if d > KERNEL_HEAD_DIMS[-1]:
-        kernels.count_launch(name + "_wide")
-    elif bf16:
-        kernels.count_launch(name + "_tc")
+    route = launch_route(name, bf16, d)
+    if route is not None:
+        kernels.count_launch(route)
 
 
 def _flash_fwd_launch(q, k, v, q_ids, kv_ids, scale, causal, with_lse):

@@ -31,6 +31,8 @@ from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.framework import analysis as ta
 from paddle_tpu_torch.framework import passes as tpasses
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 _WIDE = {"int64": "int32", "float64": "float32"}
 
 

@@ -32,6 +32,8 @@ from paddle_tpu_torch.layers import io as tio
 from paddle_tpu_torch.observability import memory as tmem
 from paddle_tpu_torch.observability import tracing as ttrace
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 CPU = ptt.CPUPlace()
 
 

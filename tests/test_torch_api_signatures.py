@@ -33,6 +33,8 @@ from paddle_tpu_torch.core.enforce import (AlreadyExistsError,
 from paddle_tpu_torch.framework import registry
 from paddle_tpu_torch.tools import print_signatures as ps
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -32,6 +32,8 @@ from paddle_tpu_torch.framework import costs as tcosts
 from paddle_tpu_torch.framework import memory_plan as tmp
 from paddle_tpu_torch.parallel import strategy as tstrategy
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 JAX_CONSTANTS = {"H100_PEAK_FLOPS": "V5E_PEAK_TFLOPS",
                  "H100_HBM_BPS": "V5E_HBM_BPS",
                  "H100_HBM_BYTES": "V5E_HBM_BYTES",

@@ -32,6 +32,8 @@ from paddle_tpu_torch.framework.passes import apply_fusion_passes as tapply
 from paddle_tpu_torch.framework.program import Program as PortProgram
 from paddle_tpu_torch.models import machine_translation as tmt
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 B, TS, TT, V, K = 8, 5, 5, 24, 3
 EMBED, HIDDEN = 16, 32
 BOS, EOS = 0, 1

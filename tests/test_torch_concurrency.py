@@ -11,6 +11,8 @@ import paddle_tpu.concurrency as jcon
 
 import paddle_tpu_torch.concurrency as tcon
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 
 @pytest.fixture(params=["jax", "torch"])
 def m(request):

@@ -19,6 +19,8 @@ from paddle_tpu_torch.framework import registry as treg
 from paddle_tpu_torch.framework.program import Program as PortProgram
 from paddle_tpu_torch.layers import control_flow as tcf
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def fresh_port_state():

@@ -28,6 +28,8 @@ from paddle_tpu.framework import registry as jreg
 from paddle_tpu_torch.framework import registry as treg
 from paddle_tpu_torch.framework.executor import as_numpy
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 R = np.random.RandomState(10)
 
 

@@ -34,6 +34,8 @@ from test_torch_analysis import build, build_pair  # noqa: F401
 from test_torch_analysis import fresh_port_state  # noqa: F401
 from test_torch_memory_plan import jax_constants  # noqa: F401
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 _WIDE = ("torch.int64", "torch.float64")
 
 

@@ -20,6 +20,8 @@ from paddle_tpu_torch.framework import dataflow as tdf
 from test_torch_analysis import ZOO, build_pair, diag_keys  # noqa: F401
 from test_torch_analysis import fresh_port_state  # noqa: F401
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 
 def _lm_dropout(pkg):
     main, start = pkg.Program(), pkg.Program()

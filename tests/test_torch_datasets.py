@@ -13,6 +13,8 @@ from paddle_tpu.data import datasets as jD
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.data import datasets as tD
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 SAMPLES = 4
 
 READERS = [(cls, meth) for cls, c in sorted(vars(jD).items())

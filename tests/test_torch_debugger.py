@@ -14,6 +14,8 @@ from paddle_tpu import debugger as jdbg
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch import debugger as tdbg
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 CPU = ptt.CPUPlace()
 
 

@@ -26,6 +26,8 @@ from paddle_tpu_torch.fusion import (decode_attention_cuda,
                                      decode_attention_plain,
                                      fused_decode_attention)
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 DH = 16
 
 

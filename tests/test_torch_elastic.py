@@ -35,6 +35,8 @@ from paddle_tpu_torch.core.enforce import EnforceError
 from paddle_tpu_torch.parallel import elastic, process_world, reshard
 from paddle_tpu_torch.parallel.process_world import ProcessWorld
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 HERE = os.path.abspath(__file__)
 REPO = os.path.dirname(os.path.dirname(HERE))
 

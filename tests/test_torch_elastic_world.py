@@ -30,6 +30,8 @@ import pytest
 
 import paddle_tpu_torch as ptt
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 WORLD = 4
 VOCAB, T, D, HEADS, LAYERS = 32, 4, 16, 2, 2
 SNAP_STEP = 3

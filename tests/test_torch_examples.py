@@ -22,6 +22,8 @@ from paddle_tpu.framework.executor import Executor as JExecutor
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.framework.executor import Executor as TExecutor
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -46,6 +46,8 @@ from paddle_tpu_torch.models import transformer as ttr
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.serving import PredictorClient, PredictorServer
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 CPU = ptt.CPUPlace()
 
 

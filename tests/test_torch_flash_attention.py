@@ -37,13 +37,17 @@ from paddle_tpu_torch.ops.flash_attention import (FlashAttention,
                                                   flash_fwd_plain,
                                                   fused_attention)
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 D = 16
 BLOCK = 128
 
 # (id, B, H, Tq, Tk, causal, segments, head dim): segments "packed" = two
 # sequences per row then padding; "unmatched" = the first rows carry an id
-# no key has; "d256" is the largest head dim of the tensor-core kernels,
-# "d384" and "d512" run on the wide-head route on the card
+# no key has; "halves" = two sequences, one per half of the rows; "d256"
+# is the largest head dim of the tensor-core kernels, "d384" up to "d1024"
+# run on the wide-head route on the card (clusters of 3, 4, 5 and 8 blocks
+# in bfloat16)
 CASES = [
     ("causal", 2, 2, 64, 64, True, None, D),
     ("tq_ne_tk", 1, 2, 48, 80, True, None, D),
@@ -56,6 +60,8 @@ CASES = [
     ("d384", 1, 1, 33, 33, False, None, 384),
     ("d512_causal", 1, 1, 48, 48, True, None, 512),
     ("d512", 1, 2, 24, 40, False, None, 512),
+    ("d640_causal", 1, 1, 24, 40, True, None, 640),
+    ("d1024_segments", 1, 1, 24, 24, False, "halves", 1024),
 ]
 
 
@@ -67,6 +73,10 @@ def _inputs(b, h, tq, tk, seg, seed=0, d=D):
     if seg == "packed":
         q_ids = np.zeros((b, tq), "int32")
         q_ids[:, :25], q_ids[:, 25:57] = 1, 2
+        kv_ids = q_ids
+    elif seg == "halves":
+        q_ids = np.ones((b, tq), "int32")
+        q_ids[:, tq // 2:] = 2
         kv_ids = q_ids
     elif seg == "unmatched":
         kv_ids = np.full((b, tk), 3, "int32")
@@ -293,3 +303,94 @@ def test_head_dims_above_128_raise_naming_the_follow_up():
     assert pad_head_dim(64, x)[0] is x
     y = pad_head_dim(384, torch.ones(1, 1, 4, 300))[0]
     assert y.shape[-1] == 384 and bool((y[..., 300:] == 0).all())
+
+
+class _FakeLib:
+    """Stands in for the built flash library on a host without a card:
+    every entry point returns `err` (a cudaError_t; 0 is success)."""
+    _ptt_bound = True
+
+    def __init__(self, err):
+        self.err = err
+        self.calls = []
+
+    def __getattr__(self, fn):
+        def call(*args):
+            self.calls.append((fn, args))
+            return self.err
+        return call
+
+    def ptt_cuda_error_string(self, err):
+        return b"refused"
+
+
+# (kernel, bfloat16, head dim the kernel runs at, the route's count name)
+ROUTES = [
+    ("flash_fwd", True, 512, "flash_fwd_wide_tc"),
+    ("flash_bwd_dq", True, 1024, "flash_bwd_dq_wide_tc"),
+    ("flash_fwd", True, 384, "flash_fwd_wide_tc"),
+    ("flash_bwd_dkv", True, 512, "flash_bwd_dkv_wide"),
+    ("flash_fwd", False, 512, "flash_fwd_wide"),
+    ("flash_bwd_dq", False, 640, "flash_bwd_dq_wide"),
+    ("flash_bwd_dkv", False, 384, "flash_bwd_dkv_wide"),
+    ("flash_fwd", True, 256, "flash_fwd_tc"),
+    ("flash_bwd_dkv", True, 64, "flash_bwd_dkv_tc"),
+    ("flash_bwd_dq", False, 256, None),
+]
+
+
+@pytest.mark.parametrize("route", ROUTES,
+                         ids=[f"{r[0]}-{'bf16' if r[1] else 'f32'}-d{r[2]}"
+                              for r in ROUTES])
+def test_launch_counts_name_the_design_by_dtype_and_head_dim(route,
+                                                             monkeypatch):
+    """Each launch counts under its kernel's name and under the name of the
+    design that took it: above head dim 256, bfloat16 K1 and K2 under
+    `_wide_tc` (the tensor cores, a cluster splitting D), float32 and K3
+    under `_wide`; at or below 256 bfloat16 under `_tc`. The wrapper passes
+    the dtype flag and the head dim to the library unchanged."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    name, bf16, d, want = route
+    assert fa.launch_route(name, bf16, d) == want
+    lib = _FakeLib(0)
+    monkeypatch.setattr(kernels, "load", lambda _: lib)
+    kernels.reset_launch_counts()
+    fa._launch(name, "ptt_" + name, bf16, d, 7)
+    assert lib.calls == [("ptt_" + name, (int(bf16), d, 7))]
+    counted = {n: c for n, c in kernels.LAUNCHES.items() if c}
+    assert counted == ({name: 1, want: 1} if want else {name: 1})
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.parametrize("d", [512, 1024])
+def test_a_refused_wide_launch_raises_and_counts_nothing(d, monkeypatch):
+    """A launch the card refuses (the cluster attribute or the shared
+    memory it asks for, say) returns its cudaError_t: the wrapper raises
+    with it and counts no launch, under any name. There is no fallback."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    monkeypatch.setattr(kernels, "load", lambda _: _FakeLib(2))
+    kernels.reset_launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq"):
+        with pytest.raises(RuntimeError, match="CUDA error 2 .refused."):
+            fa._launch(name, "ptt_" + name, True, d)
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("d", [300, 640, 1000])
+def test_wide_head_dims_reach_the_wrappers_padded_or_raise(d):
+    """The wide-head route's host side: a caller's D runs at the least
+    multiple of 128 not below it; the CUDA wrappers refuse CPU tensors of
+    either dtype at any such D before launching anything."""
+    from paddle_tpu_torch.ops.flash_attention import (flash_bwd_dq_cuda,
+                                                      kernel_head_dim)
+    kd = kernel_head_dim(d)
+    assert kd % 128 == 0 and 0 <= kd - d < 128
+    kernels.reset_launch_counts()
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.ones(1, 1, 8, d, dtype=dt) for _ in range(4))
+        with pytest.raises(ValueError, match="CUDA device"):
+            flash_fwd_cuda(q, k, v, d ** -0.5, True)
+        with pytest.raises(ValueError, match="CUDA device"):
+            flash_bwd_dq_cuda(q, k, v, do, torch.zeros(1, 1, 8),
+                              torch.zeros(1, 1, 8), d ** -0.5, True)
+    assert all(n == 0 for n in kernels.LAUNCHES.values())

@@ -28,6 +28,8 @@ from paddle_tpu_torch.ops.flash_attention import (
     flash_bwd_plain, flash_check, flash_control_masks, flash_delta,
     flash_fwd_bound, flash_fwd_plain)
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 BF16 = torch.bfloat16
 NEG_INF = -1e30
 

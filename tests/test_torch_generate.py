@@ -32,6 +32,8 @@ from paddle_tpu_torch.framework.passes import apply_fusion_passes as tapply
 from paddle_tpu_torch.framework.program import Program as PortProgram
 from paddle_tpu_torch.models import transformer as ttr
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 B, G, LAYERS = 4, 6, 2
 LM = dict(vocab=50, max_gen=G, d_model=32, d_inner=64, num_heads=4,
           num_layers=LAYERS)

@@ -36,6 +36,8 @@ from paddle_tpu_torch.core.enforce import UnavailableError
 from paddle_tpu_torch.data import feeder as tfeeder
 from paddle_tpu_torch.framework.executor import as_numpy
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def fresh_port_state():

@@ -23,6 +23,8 @@ import paddle_tpu_torch as ptt
 from paddle_tpu_torch.core.enforce import NotFoundError, UnavailableError
 from paddle_tpu_torch.framework.executor import as_numpy
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 CPU = ptt.CPUPlace()
 
 

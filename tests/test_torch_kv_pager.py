@@ -33,6 +33,8 @@ from paddle_tpu_torch.framework import registry as treg
 from paddle_tpu_torch.serving import (BlockPool, KVPager, PagedKVEngine,
                                       RadixPrefixIndex, paged_beam_search)
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 DIMS = dict(vocab=64, max_len=32, d_model=32, d_inner=64, num_heads=4,
             num_layers=2)
 PREFIX = [2, 7, 1, 9, 4, 8, 5, 6]           # two full 4-token blocks

@@ -31,6 +31,8 @@ from paddle_tpu_torch.observability import tracing as ttracing
 
 from test_torch_analysis import fresh_port_state  # noqa: F401
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def jax_recorder_reset():

@@ -36,6 +36,8 @@ from paddle_tpu_torch.framework.passes import get_pass as tget_pass
 from test_torch_analysis import build, build_pair  # noqa: F401
 from test_torch_analysis import fresh_port_state  # noqa: F401
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 #: the port's constant -> the JAX package's
 JAX_CONSTANTS = {"H100_PEAK_FLOPS": "V5E_PEAK_TFLOPS",
                  "H100_HBM_BPS": "V5E_HBM_BPS",

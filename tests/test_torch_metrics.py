@@ -15,6 +15,8 @@ from paddle_tpu import metrics as jmetrics
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.core.enforce import InvalidArgumentError
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 R = np.random.RandomState(37)
 
 

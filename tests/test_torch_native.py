@@ -32,6 +32,8 @@ from paddle_tpu_torch.serving import PredictorClient
 from test_torch_export import (_both, _conv, _gen_feeds, _port_scope,
                                generator_export)
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 CPU = ptt.CPUPlace()
 
 

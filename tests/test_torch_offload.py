@@ -35,6 +35,8 @@ from paddle_tpu_torch.framework import offload as ofl
 from paddle_tpu_torch.serving import (HostTierConfig, KVPager,
                                       PagedKVEngine, SpecConfig)
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 DIMS = dict(vocab=64, max_len=16, d_model=32, d_inner=64, num_heads=4,
             num_layers=2)
 CPU = ptt.CPUPlace()

@@ -19,6 +19,8 @@ import paddle_tpu.layers as jlayers
 
 import paddle_tpu_torch.layers as tlayers
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # public names of paddle_tpu.layers that are not layers: the modules'

@@ -23,6 +23,8 @@ from paddle_tpu_torch.core.enforce import InvalidArgumentError
 from paddle_tpu_torch.framework import registry as treg
 from paddle_tpu_torch.framework.executor import as_numpy
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 R = np.random.RandomState(7)
 
 

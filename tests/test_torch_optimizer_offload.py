@@ -27,6 +27,8 @@ from paddle_tpu_torch.core.enforce import InvalidArgumentError
 from paddle_tpu_torch.framework import offload as ofl
 from paddle_tpu_torch.framework.scope import Scope
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 CPU = ptt.CPUPlace()
 
 

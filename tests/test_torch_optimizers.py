@@ -38,6 +38,8 @@ from paddle_tpu_torch.framework.program import Program as PortProgram
 
 from test_op_coverage import SPECS
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 OPS = ("sgd", "momentum", "adam", "adamax", "adagrad", "decayed_adagrad",
        "adadelta", "rmsprop", "ftrl", "proximal_gd", "proximal_adagrad",
        "lamb")

@@ -31,6 +31,8 @@ from paddle_tpu_torch.framework import ownership as town
 from paddle_tpu_torch.serving import sanitizer as tsan
 from paddle_tpu_torch.serving.kv_pager import KVPager as TPager
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 JAX = types.SimpleNamespace(own=jown, san=jsan, Pager=JPager, Tier=JTier)
 PORT = types.SimpleNamespace(own=town, san=tsan, Pager=TPager,
                              Tier=tofl.HostTierConfig)

@@ -25,6 +25,8 @@ import torch
 
 import paddle_tpu_torch as ptt
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 WORLD = 4
 B, T, H, D = 2, 16, 2, 8
 #: sums of 2-4 float32 terms, in another order than numpy's

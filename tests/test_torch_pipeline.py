@@ -38,6 +38,8 @@ from paddle_tpu_torch.framework import memory_plan as tmp
 from paddle_tpu_torch.framework.passes import get_pass as tget_pass
 from paddle_tpu_torch.parallel import pipeline as tpipe
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 #: the port's constant -> the JAX package's
 JAX_CONSTANTS = {"H100_PEAK_FLOPS": "V5E_PEAK_TFLOPS",
                  "H100_HBM_BPS": "V5E_HBM_BPS",

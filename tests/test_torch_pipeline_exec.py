@@ -36,6 +36,8 @@ import pytest
 
 import paddle_tpu_torch as ptt
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 WORLD = 4
 STEPS = 3
 BS = 16

@@ -39,6 +39,8 @@ from paddle_tpu_torch.models import transformer as ttr
 from paddle_tpu_torch.parallel import collective as tcol
 from paddle_tpu_torch.serving import ContinuousBatchingEngine, PagedKVEngine
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 DIMS = dict(vocab=64, max_len=32, d_model=32, d_inner=64, num_heads=4,
             num_layers=2)
 PROMPTS = [[7], [3, 9], [11, 2, 5], [40, 41, 42, 43, 44, 45, 46],

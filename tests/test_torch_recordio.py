@@ -29,6 +29,8 @@ from paddle_tpu_torch.core.enforce import NotFoundError
 from paddle_tpu_torch.data import recordio as trio
 from paddle_tpu_torch.layers import io as tio
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 
 def _write(mod, path, records, **kw):
     with mod.RecordIOWriter(path, **kw) as w:

@@ -35,11 +35,14 @@ from paddle_tpu_torch.parallel import elastic
 from paddle_tpu_torch.tools import lint_program as tlint
 from paddle_tpu_torch.tools import recovery_smoke as drill
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _env(fault=None):
-    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
     env.pop("PTPU_FAULT_INJECT", None)
     if fault:
         env["PTPU_FAULT_INJECT"] = fault

@@ -35,6 +35,8 @@ from paddle_tpu_torch.framework.passes import apply_fusion_passes
 from paddle_tpu_torch.fusion import decode_attention as tda
 from paddle_tpu_torch.fusion import recurrent as trec
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 B, T, H = 4, 6, 128
 LENGTHS = {"ragged": [T, T - 2, 1, T], "with_zero": [T, 0, 1, T - 2]}
 

@@ -38,6 +38,8 @@ from paddle_tpu_torch.fusion import decode_attention as tda
 from paddle_tpu_torch.models import machine_translation as tmt
 from paddle_tpu_torch.models import stacked_lstm as tsl
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 LR = 1e-2
 B, TS, TT, V = 4, 6, 5, 50
 

@@ -39,6 +39,8 @@ from paddle_tpu_torch.framework.executor import as_numpy
 from paddle_tpu_torch.ops import flash_attention
 from paddle_tpu_torch.transpiler import memory_optimize, release_memory
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 DIMS = dict(vocab=64, max_len=8, d_model=32, d_inner=64, num_heads=4,
             num_layers=2)
 

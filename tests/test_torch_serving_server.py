@@ -47,6 +47,8 @@ from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       scrape_metrics)
 from paddle_tpu_torch.serving.transport import _recv_msg
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 DIMS = dict(vocab=64, max_len=24, d_model=32, d_inner=64, num_heads=4,
             num_layers=2)
 PROMPTS = [[3, 4, 5], [9], [1, 2, 3, 4, 5, 6, 7], [11, 12], [30, 31, 32, 33],

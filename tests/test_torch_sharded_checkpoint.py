@@ -23,6 +23,8 @@ import paddle_tpu_torch as ptt
 from paddle_tpu_torch import sharded_checkpoint as tsc
 from paddle_tpu_torch.data import tensor_store as tts
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 DTYPES = ("float32", "float64", "int32", "int64", "uint8", "bool",
           "bfloat16", "float16", "int16", "uint32", "uint64")
 

@@ -35,6 +35,8 @@ from paddle_tpu_torch.framework import registry as treg
 from paddle_tpu_torch.framework.executor import as_numpy
 from paddle_tpu_torch.framework.selected_rows import TracedSelectedRows
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 VOCAB, DIM = 32, 4
 
 

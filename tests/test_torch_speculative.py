@@ -31,6 +31,8 @@ from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       PagedKVEngine, SpecConfig,
                                       rejection_sample)
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 DIMS = dict(vocab=64, max_len=32, d_model=32, d_inner=64, num_heads=4,
             num_layers=2)
 CPU = ptt.CPUPlace()

@@ -21,6 +21,8 @@ import pytest
 
 import paddle_tpu_torch as ptt
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 WORLD = 4
 VOCAB, T, D, HEADS, LAYERS = 64, 8, 32, 4, 2
 MESHES = {"tp2": {"dp": 1, "tp": 2}, "dp2tp2": {"dp": 2, "tp": 2}}

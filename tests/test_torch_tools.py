@@ -33,6 +33,8 @@ from paddle_tpu_torch.tools import trace_merge as tmerge
 
 from test_torch_memory_plan import jax_constants  # noqa: F401
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -113,7 +115,8 @@ def _cli(*argv):
     return subprocess.run(
         [sys.executable, "-m", "paddle_tpu_torch.tools.lint_program",
          *argv], capture_output=True, text=True, timeout=300, cwd=ROOT,
-        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+             "OMP_NUM_THREADS": "1"})
 
 
 def test_lint_cli_exit_contract():

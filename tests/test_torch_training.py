@@ -46,6 +46,8 @@ from paddle_tpu_torch.framework.executor import as_numpy
 from paddle_tpu_torch.framework.program import Program as PortProgram
 from paddle_tpu_torch.models import transformer as ttr
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 DIMS = dict(vocab=97, max_len=32, d_model=64, d_inner=128, num_heads=4,
             num_layers=2)
 B = 4

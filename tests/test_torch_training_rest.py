@@ -30,6 +30,8 @@ import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.framework.executor import as_numpy
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def fresh_port_state():

@@ -29,6 +29,8 @@ from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.framework.executor import as_numpy
 from paddle_tpu_torch.models import transformer as ttr
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 DIMS = dict(src_vocab=50, tgt_vocab=60, max_len=8, d_model=32, d_inner=64,
             num_heads=4, num_layers=2)
 B = 4

@@ -42,6 +42,8 @@ from paddle_tpu_torch import transpiler as ttr
 from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.core.enforce import InvalidArgumentError
 
+from tests.port_env import port_jax_compile_cache  # noqa: F401
+
 CPU = ptt.CPUPlace()
 
 
